@@ -1,0 +1,327 @@
+"""Call-time machinery: argument binding, origin normalization, domain
+inference, validation, dispatch.
+
+Counterpart of ``gt4py_tpu.cartesian.stencil_object`` (reference:
+src/gt4py/cartesian/stencil_object.py:146-665).  Fields are torch tensors
+(or ``FieldStorage`` holders, or numpy arrays on the CPU).  Every call hands
+the backend an *environment*: one logical (I, J, K, *data_dims) view per
+field.  Written fields are views of fresh output buffers, clones of the
+arguments, so a buffer passed under two names (``in_field=u, out_field=u``)
+is never read and written by one kernel: reads see the argument, writes go
+to the clone, and the clone keeps the argument's halos.
+"""
+
+from __future__ import annotations
+
+import time
+from typing import Any, Dict, Optional, Tuple
+
+import numpy as np
+import torch
+
+from gt4py_tpu_torch.cartesian.analysis import AccessKind, StencilAnalysis
+from gt4py_tpu_torch.core import dtypes
+
+
+class ArgumentError(ValueError):
+    pass
+
+
+def _tensor_of(value):
+    """The tensor (sharing the argument's memory) and ``__gt_origin__`` of
+    a field argument."""
+    from gt4py_tpu_torch.storage import FieldStorage
+
+    if isinstance(value, FieldStorage):
+        return value.data, value.origin
+    if isinstance(value, np.ndarray):
+        # shares memory: in-place results reach the caller's array
+        return torch.from_numpy(value), getattr(value, "__gt_origin__", None)
+    if isinstance(value, torch.Tensor):
+        return value, getattr(value, "__gt_origin__", None)
+    raise ArgumentError(
+        f"Field arguments must be torch tensors, FieldStorage or numpy arrays, "
+        f"got {type(value).__name__}"
+    )
+
+
+def _normalize_periodic(periodic) -> Tuple[str, ...]:
+    """``periodic="I"`` / ``("I", "J")`` / ``"IJ"`` -> sorted axis tuple."""
+    if not periodic:
+        return ()
+    out = []
+    for ax in tuple(periodic):
+        a = str(ax).upper()
+        if a not in ("I", "J"):
+            raise ArgumentError(f"periodic= accepts axes 'I' and 'J', got {ax!r}")
+        out.append(a)
+    return tuple(sorted(set(out)))
+
+
+def logical_view(tensor: torch.Tensor, dimensions, data_ndim: int, physical: bool):
+    """View of a field tensor with axes (I, J, K, *data_dims); axes the
+    field lacks become size-1.  ``physical=True``: the tensor's spatial
+    axes are in the K-leading (K, I, J) order (J contiguous), the layout
+    the models keep end to end."""
+    present = [ax for ax, m in zip("IJK", dimensions) if m]
+    spatial = len(present)
+    if tensor.ndim != spatial + data_ndim:
+        raise ArgumentError(
+            f"field has ndim {tensor.ndim}, expected {spatial + data_ndim}"
+        )
+    if physical:
+        phys = [ax for ax in "KIJ" if ax in present]
+        perm = [phys.index(ax) for ax in present]
+        tensor = tensor.permute(*perm, *range(spatial, tensor.ndim))
+    shape = list(tensor.shape)
+    full = []
+    it = iter(range(spatial))
+    for m in dimensions:
+        full.append(shape[next(it)] if m else 1)
+    return tensor.reshape(full + shape[spatial:]) if spatial < 3 else tensor
+
+
+class StencilObject:
+    """A built, callable stencil.
+
+    Calling conventions mirror the JAX package: positional/keyword field and
+    scalar arguments in declaration order, plus ``origin=``, ``domain=``,
+    ``exec_info=``, ``validate_args=`` and ``periodic=`` keywords.  Results
+    are written into the field arguments.
+    """
+
+    def __init__(self, analysis: StencilAnalysis, backend, backend_name: str,
+                 name: str, options: Dict[str, Any], stencil_id: str):
+        self.analysis = analysis
+        self.backend = backend
+        self.backend_name = backend_name
+        self.name = name
+        self.options = options
+        self.stencil_id = stencil_id
+        self.field_info = analysis.field_info
+        self.parameter_info = analysis.parameter_info
+        self.ir = analysis.stencil
+
+    # ------------------------------------------------------------------ #
+
+    def __call__(self, *args, origin=None, domain=None, exec_info: Optional[dict] = None,
+                 validate_args: bool = True, periodic=(), **kwargs):
+        if exec_info is not None:
+            exec_info["call_run_start_time"] = time.perf_counter()
+        field_args, scalar_args = self._bind_args(args, kwargs)
+        tensors, origins = {}, {}
+        origin_map = self._normalize_origin_arg(origin)
+        for name, value in field_args.items():
+            if value is None:
+                self._check_optional(name)
+                continue
+            tensors[name], attr_origin = _tensor_of(value)
+            origins[name] = self._field_origin(name, origin_map, attr_origin)
+        outs = self._execute(tensors, scalar_args, origins, domain, physical=False,
+                             periodic=periodic, validate_args=validate_args,
+                             exec_info=exec_info)
+        for name, new in outs.items():
+            tensors[name].copy_(new)
+        if exec_info is not None:
+            exec_info["call_run_end_time"] = time.perf_counter()
+
+    def functional(self, *, origin, domain, physical_layout: bool = False,
+                   periodic=(), validate_args: bool = True):
+        """Return ``fn(**fields_and_scalars) -> {written field: new tensor}``.
+
+        The arguments are left unchanged: every written field comes back as
+        a fresh tensor, a clone of its argument with the domain updated.
+        With ``physical_layout=True`` fields are K-leading (K, I, J) tensors.
+        ``periodic=("I", "J")``: reads beyond the domain wrap around it.
+        """
+        origin_map = self._normalize_origin_arg(origin)
+        domain = tuple(int(d) for d in domain)
+        periodic = _normalize_periodic(periodic)
+
+        def fn(**kwargs):
+            field_args, scalar_args = self._bind_args((), kwargs)
+            tensors, origins = {}, {}
+            for name, value in field_args.items():
+                if value is None:
+                    self._check_optional(name)
+                    continue
+                tensors[name] = _tensor_of(value)[0]
+                origins[name] = self._field_origin(name, origin_map, None)
+            return self._execute(tensors, scalar_args, origins, domain,
+                                 physical=physical_layout, periodic=periodic,
+                                 validate_args=validate_args)
+
+        return fn
+
+    # ------------------------------------------------------------------ #
+
+    def _execute(self, tensors, scalars, origins, domain, *, physical, periodic,
+                 validate_args, exec_info=None) -> Dict[str, torch.Tensor]:
+        periodic = _normalize_periodic(periodic)
+        views = {}
+        for name, t in tensors.items():
+            decl = self.ir.field_decls[name]
+            try:
+                views[name] = logical_view(t, decl.dimensions, len(decl.data_dims), physical)
+            except ArgumentError as e:
+                raise ArgumentError(f"Field '{name}': {e}") from None
+        origins3 = {n: self._origin3(n, o) for n, o in origins.items()}
+        if domain is None:
+            domain = self._get_max_domain(views, origins3)
+        domain = tuple(int(d) for d in domain)
+        if validate_args:
+            self._validate_args(views, scalars, origins3, domain)
+        outs: Dict[str, torch.Tensor] = {}
+        env = dict(views)
+        for name in tensors:
+            if self.field_info[name].access & AccessKind.WRITE:
+                outs[name] = tensors[name].clone()
+                decl = self.ir.field_decls[name]
+                env[name] = logical_view(outs[name], decl.dimensions,
+                                         len(decl.data_dims), physical)
+        if exec_info is not None:
+            exec_info["run_start_time"] = time.perf_counter()
+        self.backend.apply(env, scalars, domain, origins3, periodic)
+        if exec_info is not None:
+            exec_info["run_end_time"] = time.perf_counter()
+        return outs
+
+    def _check_optional(self, name):
+        info = self.field_info.get(name)
+        if info is not None and info.access != AccessKind.NONE:
+            raise ArgumentError(f"Field '{name}' is required but got None")
+
+    def _bind_args(self, args, kwargs) -> Tuple[Dict[str, Any], Dict[str, Any]]:
+        field_args: Dict[str, Any] = {}
+        scalar_args: Dict[str, Any] = {}
+        params = self.ir.api_params
+        if len(args) > len(params):
+            raise ArgumentError(f"Too many positional arguments for stencil '{self.name}'")
+        for p, a in zip(params, args):
+            if p.is_keyword:
+                raise ArgumentError(
+                    f"Parameter '{p.name}' of stencil '{self.name}' is keyword-only"
+                )
+        pos = {p.name: a for p, a in zip(params, args)}
+        known = {p.name for p in params}
+        unknown = sorted(set(kwargs) - known)
+        if unknown:
+            raise ArgumentError(f"Unknown argument(s) {unknown} for stencil '{self.name}'")
+        for p in params:
+            if p.name in pos and p.name in kwargs:
+                raise ArgumentError(f"Duplicate argument '{p.name}'")
+            if p.name in pos:
+                value = pos[p.name]
+            elif p.name in kwargs:
+                value = kwargs[p.name]
+            elif p.optional:
+                value = None
+            else:
+                raise ArgumentError(f"Missing argument '{p.name}' for stencil '{self.name}'")
+            (field_args if p.is_field else scalar_args)[p.name] = value
+        return field_args, scalar_args
+
+    def _normalize_origin_arg(self, origin) -> Dict[str, Tuple[int, ...]]:
+        if origin is None:
+            return {}
+        if isinstance(origin, dict):
+            return dict(origin)
+        return {"_all_": tuple(int(x) for x in origin)}
+
+    def _field_origin(self, name, origin_map, attr_origin) -> Tuple[int, ...]:
+        info = self.field_info[name]
+        ndim = info.domain_ndim
+        if name in origin_map:
+            o = tuple(origin_map[name])
+        elif "_all_" in origin_map:
+            o = tuple(origin_map["_all_"])
+        elif attr_origin is not None:
+            o = tuple(attr_origin)
+        else:
+            o = (0,) * ndim
+        if len(o) != ndim:
+            full = tuple(o) + (0,) * (3 - len(o))
+            o = tuple(c for c, present in zip(full, info.dimensions) if present)
+        return tuple(int(x) for x in o)
+
+    def _origin3(self, name, origin) -> Tuple[int, int, int]:
+        it = iter(origin)
+        return tuple(next(it) if m else 0 for m in self.field_info[name].dimensions)
+
+    def _get_max_domain(self, views, origins3) -> Tuple[int, int, int]:
+        """Largest domain compatible with all field shapes
+        (reference: stencil_object._get_max_domain, :298-343)."""
+        max_domain = [1 << 30] * 3
+        for name, v in views.items():
+            info = self.field_info[name]
+            for ax, present in enumerate(info.dimensions):
+                if not present:
+                    continue
+                upper = tuple(info.boundary)[ax][1]
+                max_domain[ax] = min(max_domain[ax], v.shape[ax] - origins3[name][ax] - upper)
+        for i, d in enumerate(max_domain):
+            if d >= (1 << 30):
+                max_domain[i] = 1
+        if any(d <= 0 for d in max_domain):
+            raise ArgumentError(
+                f"Cannot infer a valid domain (got {tuple(max_domain)}); "
+                "check field shapes, origins and halo requirements."
+            )
+        return tuple(max_domain)
+
+    def _validate_args(self, views, scalars, origins3, domain) -> None:
+        """Reference: stencil_object._validate_args (:345-497)."""
+        if len(domain) != 3 or any(int(d) <= 0 for d in domain):
+            raise ArgumentError(f"Invalid domain {domain}")
+        if domain[2] < self.analysis.min_k_size:
+            raise ArgumentError(
+                f"Domain K size {domain[2]} is below the stencil minimum "
+                f"{self.analysis.min_k_size}"
+            )
+        devices = {v.device for v in views.values()}
+        if len(devices) > 1:
+            raise ArgumentError(f"Fields live on several devices: {sorted(map(str, devices))}")
+        for name, v in views.items():
+            info = self.field_info[name]
+            if dtypes.to_numpy(v.dtype) != np.dtype(info.dtype):
+                raise ArgumentError(
+                    f"Field '{name}' has dtype {dtypes.to_numpy(v.dtype)}, "
+                    f"expected {np.dtype(info.dtype)}"
+                )
+            if info.data_dims and tuple(v.shape[3:]) != tuple(info.data_dims):
+                raise ArgumentError(
+                    f"Field '{name}' data dimensions {tuple(v.shape[3:])} "
+                    f"!= declared {info.data_dims}"
+                )
+            for ax, present in enumerate(info.dimensions):
+                if not present:
+                    continue
+                lower, upper = tuple(info.boundary)[ax]
+                o = origins3[name][ax]
+                if o < lower:
+                    raise ArgumentError(
+                        f"Origin {origins3[name]} of field '{name}' is below the halo "
+                        f"requirement {lower} on axis {'IJK'[ax]}"
+                    )
+                need = o + domain[ax] + upper
+                if v.shape[ax] < need:
+                    raise ArgumentError(
+                        f"Field '{name}' axis {'IJK'[ax]} has size {v.shape[ax]}, "
+                        f"needs >= {need} (origin {o} + domain {domain[ax]} + halo {upper})"
+                    )
+        for name, pinfo in self.parameter_info.items():
+            if scalars.get(name) is None and pinfo.access != AccessKind.NONE:
+                raise ArgumentError(f"Missing scalar parameter '{name}'")
+
+    # ------------------------------------------------------------------ #
+
+    def __str__(self) -> str:
+        lines = [f"StencilObject '{self.name}' (backend={self.backend_name})"]
+        for name, info in self.field_info.items():
+            lines.append(
+                f"  field {name}: dtype={info.dtype}, access={info.access}, "
+                f"boundary={tuple(info.boundary)}"
+            )
+        for name, pinfo in self.parameter_info.items():
+            lines.append(f"  param {name}: dtype={pinfo.dtype}")
+        return "\n".join(lines)
