@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Chip check of the PyTorch/CUDA port: the MiniDycore step on one GPU.
+"""Chip check of the PyTorch/CUDA port: the FullDycore step on one GPU.
 
 Run from the repository root with no arguments:
 
@@ -9,15 +9,27 @@ Phases (a failed phase raises, and the script exits non-zero):
 
 1. require a CUDA device; print the torch, CUDA and nvcc versions and the
    card's name and power limit;
-2. build the generated CUDA kernels of the main path from the repository's
-   sources (nvcc, sm_90a) and print the build seconds and ptxas' report;
+2. build every generated CUDA kernel the later phases launch from the
+   repository's sources (one nvcc per stencil, all started together,
+   sm_90a) and print the build seconds and ptxas' report;
 3. kernel against plain on the card: ``backend="cuda"`` against
    ``backend="torch"`` for hdiff, vadv_update and dycore_fused, periodic,
    at 512x512x80 float32 and 64x256x16 float64;
-4. the main path: ``MiniDycore(512, 512, 80, float32, backend="cuda")``,
+4. the MiniDycore path: ``MiniDycore(512, 512, 80, float32, backend="cuda")``,
    10 steps of ``step_fn()`` and of ``step_fn(fused=True)``, with the launch
    counts of every kernel read around that run, the state checked finite
-   and against the plain executor, and both forms timed with CUDA events.
+   and against the plain executor, and both forms timed with CUDA events;
+5. the language surface: every canonical stencil with ``while``, regions,
+   variable K or data dimensions (``tests/cartesian/stencil_defs.py``) and
+   the ``.at(K=...)`` forms (``gt4py_tpu_torch.testing.SURFACE``), in
+   float64, each launched once with its count read around that run and its
+   result held against the plain executor; one stencil per feature timed
+   at 512x512x80;
+6. the FullDycore path: ``FullDycore(512, 512, 80, float32, backend="cuda")``:
+   fv_step and sl_step singly against plain (and at 64x256x16 float64),
+   then 10 steps with the launch counts of every stencil read around them,
+   ``u``, ``q`` and ``qsl`` checked finite and against 10 plain steps, then
+   the steps timed with CUDA events, one call at a time and back to back.
 
 The line before the last is one JSON object with every kernel's launches,
 error and times; the last line is ``{"ok": true, "device": {...}}``.
@@ -30,6 +42,7 @@ import statistics
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 #: f64 kernel vs plain: allows for FMA contraction (the kernels build with
 #: --fmad=false; measured on an H100 the difference is 0, see PERF.md)
@@ -43,6 +56,22 @@ ATOL_F32 = 1e-7
 STEPS = 10
 TIMING_REPS = 20
 PLAIN_TIMING_REPS = 3
+BACK_TO_BACK = 20
+NI, NJ, NK = 512, 512, 80
+SMALL = (64, 256, 16)
+
+#: phase 5: the canonical stencils by the feature the kernels take over
+#: from the TPU path (REPLACES key), and one of each timed at full size
+SURFACE_FEATURES = {
+    "vark": ["variable_k_offset", "at_k_literal", "at_k_scalar", "at_k_field",
+             "at_k_in_scan", "variable_k_in_scan", "variable_k_after_write"],
+    "data_dims": ["data_dims_dynamic_index", "data_dims_norm", "region_data_dims_interaction",
+                  "while_data_dims_interaction", "data_dims_writes", "data_dims_dynamic_write"],
+    "while": ["while_halving", "while_backward", "region_while_interaction"],
+    "regions": ["horizontal_regions", "region_with_conditional"],
+}
+SURFACE_TIMED = {"vark": "variable_k_offset", "data_dims": "data_dims_dynamic_index",
+                 "while": "while_halving", "regions": "horizontal_regions"}
 
 
 def _nvidia_smi() -> str:
@@ -54,8 +83,6 @@ def _nvidia_smi() -> str:
 
 
 def _errors(got, ref):
-    import torch
-
     d = (got.double() - ref.double()).abs()
     rel = d / ref.double().abs().clamp_min(1e-30)
     return float(d.max()), float(rel.max())
@@ -66,7 +93,7 @@ def _check_close(what, got, ref, rtol, atol):
 
     if got.shape != ref.shape:
         raise AssertionError(f"{what}: shape {tuple(got.shape)} != {tuple(ref.shape)}")
-    if not bool(torch.isfinite(got).all()):
+    if got.dtype.is_floating_point and not bool(torch.isfinite(got).all()):
         raise AssertionError(f"{what}: non-finite values")
     ok = torch.isclose(got, ref, rtol=rtol, atol=atol)
     if not bool(ok.all()):
@@ -98,8 +125,48 @@ def _time_ms(fn, reps, warmup=2):
     return statistics.median(times)
 
 
+def _time_chain_ms(step, state, n):
+    """Milliseconds per step of ``n`` steps enqueued back to back, each on
+    the last one's output, between two CUDA events."""
+    import torch
+
+    state = step(step(state))  # warm-up
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(n):
+        state = step(state)
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b) / n
+
+
+def _ptxas(st) -> str:
+    log = open(os.path.join(st.backend.build_dir, "build.log")).read()
+    regs = [int(r) for r in re.findall(r"Used (\d+) registers", log)]
+    spills = [int(s) for s in re.findall(r"(\d+) bytes spill stores", log)]
+    return f"registers {regs}, spill stores {spills}"
+
+
+def _build_all(stencils):
+    """Build every stencil's kernels at once: one nvcc per distinct source,
+    all started together (nvcc runs outside the GIL)."""
+    from gt4py_tpu_torch.cartesian.backend import _build
+
+    first = {}
+    for st in stencils:
+        first.setdefault(_build.build_key(st.backend.source), st)
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(max_workers=len(first)) as ex:
+        list(ex.map(lambda st: st.backend.build(), first.values()))
+    for st in stencils:  # the rest load the built library
+        st.backend.build()
+    return len(first), time.perf_counter() - t0
+
+
 def _stencil_calls(md, state, diffused):
-    """The three main-path stencils' periodic calls on ``state`` as the
+    """The three MiniDycore stencils' periodic calls on ``state`` as the
     steps make them (``diffused``: hdiff's output, vadv_update's input):
     name -> (stencil object, zero-argument call)."""
     return {
@@ -114,6 +181,47 @@ def _stencil_calls(md, state, diffused):
     }
 
 
+def _fv_calls(fd, state):
+    """The FullDycore's two new stencils, called as its step calls them."""
+    import torch
+
+    fv_fn = fd.fv.fns["step_p"]
+    return {
+        "fv_step": (fd.fv.fv_step, lambda: fv_fn(
+            q=state["q"], cx=state["cx"], cy=state["cy"],
+            qout=torch.zeros_like(state["q"]))),
+        "sl_step": (fd.sl, lambda: fd.sl_fn(
+            q=state["qsl"], u=state["cx"], v=state["cy"],
+            qout=torch.zeros_like(state["qsl"]), dtdx=1.0, dtdy=1.0)),
+    }
+
+
+def _scaled_inputs(make_inputs, shape, device):
+    """``make_inputs()``'s fields redrawn at ``shape`` (plus their data
+    dims) over the same value ranges and dtypes, as tensors on ``device``
+    in the models' layout: memory (K, I, J, *data_dims), J contiguous along
+    the threads, viewed as (I, J, K, *data_dims)."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(0)
+    fields, scalars = make_inputs()
+    out = {}
+    for k, v in fields.items():
+        spatial = min(v.ndim, 3)
+        full = tuple(shape[:spatial]) + tuple(v.shape[3:])
+        lo, hi = (v.min(), v.max()) if v.size else (0, 1)
+        if v.dtype.kind in "iu":
+            a = rng.integers(int(lo), int(hi) + 1, full).astype(v.dtype)
+        else:
+            a = (lo + (hi - lo) * rng.random(full)).astype(v.dtype)
+        t = torch.from_numpy(a)
+        if spatial == 3:
+            t = t.movedim(2, 0).contiguous().movedim(0, 2)
+        out[k] = t.to(device)
+    return out, scalars
+
+
 def main() -> int:
     import torch
 
@@ -123,9 +231,11 @@ def main() -> int:
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     import numpy as np
 
+    from gt4py_tpu_torch import testing
+    from gt4py_tpu_torch.cartesian import gtscript
     from gt4py_tpu_torch.cartesian.backend import _build
     from gt4py_tpu_torch.cartesian.backend.cuda_backend import REPLACES
-    from gt4py_tpu_torch.models import dycore
+    from gt4py_tpu_torch.models import dycore, full_dycore
 
     # -- 1. the card ------------------------------------------------------
     dev = torch.device("cuda", 0)
@@ -138,34 +248,37 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
 
     # -- 2. build -----------------------------------------------------------
-    ni, nj, nk = 512, 512, 80
     configs = {
-        "f32": dict(shape=(ni, nj, nk), dtype=np.float32, rtol=RTOL_F32, atol=ATOL_F32),
-        "f64": dict(shape=(64, 256, 16), dtype=np.float64, rtol=RTOL_F64, atol=ATOL_F64),
+        "f32": dict(shape=(NI, NJ, NK), dtype=np.float32, rtol=RTOL_F32, atol=ATOL_F32),
+        "f64": dict(shape=SMALL, dtype=np.float64, rtol=RTOL_F64, atol=ATOL_F64),
     }
     models = {}
     for key, c in configs.items():
         models[key] = (
-            dycore.MiniDycore(*c["shape"], dtype=c["dtype"], backend="cuda", device=dev),
-            dycore.MiniDycore(*c["shape"], dtype=c["dtype"], backend="torch", device=dev),
+            full_dycore.FullDycore(*c["shape"], dtype=c["dtype"], backend="cuda", device=dev),
+            full_dycore.FullDycore(*c["shape"], dtype=c["dtype"], backend="torch", device=dev),
         )
-    t0 = time.perf_counter()
-    for key, (md, _) in models.items():
-        for st in (md.hdiff, md.vadv_upd, md.fused):
-            st.backend.build()
-            log = open(os.path.join(st.backend.build_dir, "build.log")).read()
-            usage = re.findall(r"Function properties for (\S+)|Used (\d+) registers", log)
-            regs = [int(r) for _, r in usage if r]
-            spills = re.findall(r"(\d+) bytes spill stores", log)
-            print(f"built {st.name}: {len(st.backend.program.kernels)} kernels, "
-                  f"{st.backend.build_seconds:.2f} s, registers {regs}, "
-                  f"spill stores {[int(s) for s in spills]}")
-    print(f"build seconds: {time.perf_counter() - t0:.2f}")
+    registry = testing.load_stencil_defs()
+    cases = {name: testing.registry_case(e) for name, e in registry.items()}
+    cases.update(testing.SURFACE)
+    surface = {name: cases[name] for names in SURFACE_FEATURES.values() for name in names}
+    surface_stencils = {
+        name: gtscript.stencil(backend="cuda", definition=d, rebuild=True,
+                               externals=kw.get("externals", {}))
+        for name, (d, _, kw) in surface.items()
+    }
+    main_stencils = [st for fd, _ in models.values()
+                     for st in (fd.dyn.hdiff, fd.dyn.vadv_upd, fd.dyn.fused, fd.fv.fv_step, fd.sl)]
+    n_sources, build_s = _build_all(main_stencils + list(surface_stencils.values()))
+    print(f"build: {n_sources} sources, {build_s:.2f} s (nvcc in parallel)")
+    for st in main_stencils:
+        print(f"built {st.name}: {len(st.backend.program.kernels)} kernels, {_ptxas(st)}")
 
-    # -- 3. kernel against plain ------------------------------------------
+    # -- 3. kernel against plain (MiniDycore stencils) ----------------------
     errors = {}
-    for key, (md, md_plain) in models.items():
+    for key, (fd, fd_plain) in models.items():
         c = configs[key]
+        md, md_plain = fd.dyn, fd_plain.dyn
         state = md.init_state(seed=3)
         diffused = md_plain.hdiff_fn_p(in_field=state["u"], out_field=state["u"],
                                        coeff=state["coeff"])["out_field"]
@@ -186,8 +299,9 @@ def main() -> int:
             print(f"kernel vs plain {key} {st.name} {tuple(c['shape'])}: max abs "
                   f"{worst[0]:.3e}, max rel {worst[1]:.3e} (rtol {c['rtol']}, atol {c['atol']})")
 
-    # -- 4. the main path ---------------------------------------------------
-    md, md_plain = models["f32"]
+    # -- 4. the MiniDycore path -------------------------------------------
+    fd, fd_plain = models["f32"]
+    md, md_plain = fd.dyn, fd_plain.dyn
     path = {"hdiff": md.hdiff, "vadv_update": md.vadv_upd, "dycore_fused": md.fused}
     state0 = md.init_state(seed=0)
     step, step_fused = md.step_fn(), md.step_fn(fused=True)
@@ -199,10 +313,10 @@ def main() -> int:
         s_fused = step_fused(s_fused)
     torch.cuda.synchronize()
     launches = {name: st.backend.launches for name, st in path.items()}
-    print(f"main path launches over {STEPS} steps of each form: {launches}")
+    print(f"MiniDycore path launches over {STEPS} steps of each form: {launches}")
     for name, n in launches.items():
         if n == 0:
-            raise AssertionError(f"main path never launched the {name} kernels")
+            raise AssertionError(f"MiniDycore path never launched the {name} kernels")
 
     p_step, p_step_fused = md_plain.step_fn(), md_plain.step_fn(fused=True)
     r_two, r_fused = state0, state0
@@ -216,22 +330,20 @@ def main() -> int:
                 raise AssertionError(f"{form} {field}: shape {tuple(got[field].shape)}")
             e = _check_close(f"{form} {field} after {STEPS} steps", got[field], ref[field],
                              RTOL_F32, ATOL_F32)
-            print(f"main path {form} {field} after {STEPS} steps vs plain: max abs "
+            print(f"MiniDycore {form} {field} after {STEPS} steps vs plain: max abs "
                   f"{e[0]:.3e}, max rel {e[1]:.3e}")
-    # the two step forms compute the same step
     _check_close("fused vs two-stencil step", s_fused["u"], s_two["u"], RTOL_F32, ATOL_F32)
 
-    # timings (after the launch counts were read: these launches do not count)
-    points = ni * nj * nk
+    points = NI * NJ * NK
     step_ms = {
-        "step cuda": _time_ms(lambda: step(state0), TIMING_REPS),
-        "step plain": _time_ms(lambda: p_step(state0), PLAIN_TIMING_REPS),
-        "fused step cuda": _time_ms(lambda: step_fused(state0), TIMING_REPS),
-        "fused step plain": _time_ms(lambda: p_step_fused(state0), PLAIN_TIMING_REPS),
+        "MiniDycore step cuda": _time_ms(lambda: step(state0), TIMING_REPS),
+        "MiniDycore step plain": _time_ms(lambda: p_step(state0), PLAIN_TIMING_REPS),
+        "MiniDycore fused step cuda": _time_ms(lambda: step_fused(state0), TIMING_REPS),
+        "MiniDycore fused step plain": _time_ms(lambda: p_step_fused(state0), PLAIN_TIMING_REPS),
     }
     for k, ms in step_ms.items():
         print(f"{k}: {ms:.4f} ms per step, {points / ms / 1e6:.3f} Gpoint/s "
-              f"(512x512x80 f32, median of CUDA-event times)")
+              f"(512x512x80 f32, median of CUDA-event times, one call at a time)")
     diffused = md_plain.hdiff_fn_p(in_field=state0["u"], out_field=state0["u"],
                                    coeff=state0["coeff"])["out_field"]
     calls = _stencil_calls(md, state0, diffused)
@@ -251,6 +363,151 @@ def main() -> int:
             "replaces": "; ".join(REPLACES[f] for f in sorted(forms)) + "; " + REPLACES["wrap"],
             "launches": launches[name],
             "max_abs_err": errors[("f32", name)][0],
+            "ms": ms,
+            "plain_ms": plain_ms,
+        })
+
+    # -- 5. the language surface (float64) ----------------------------------
+    for feature, names in SURFACE_FEATURES.items():
+        total, worst = 0, 0.0
+        for name in names:
+            d, make_inputs, kw = surface[name]
+            got, ref, st = testing.run_pair(d, make_inputs, kw, dev)
+            torch.cuda.synchronize()
+            if st.backend.launches == 0:
+                raise AssertionError(f"{name}: the kernels were not launched")
+            total += st.backend.launches
+            for field, t in ref.items():
+                e = _check_close(f"{name}.{field}", got[field], t, RTOL_F64, ATOL_F64)
+                worst = max(worst, e[0])
+        d, make_inputs, kw = surface[SURFACE_TIMED[feature]]
+        tensors, scalars = _scaled_inputs(make_inputs, (NI, NJ, NK), dev)
+        timed = {}
+        for backend in ("cuda", "torch"):
+            st = gtscript.stencil(backend=backend, definition=d, rebuild=True,
+                                  externals=kw.get("externals", {}))
+            written = [k for k in tensors if st.field_info[k].access.value & 2]
+
+            # the call writes its outputs in place: each call gets fresh
+            # copies of them, so every call does the same work
+            def call(st=st, written=written):
+                st(**{k: (v.clone() if k in written else v) for k, v in tensors.items()},
+                   **scalars)
+
+            timed[backend] = _time_ms(call, TIMING_REPS if backend == "cuda"
+                                      else PLAIN_TIMING_REPS)
+        print(f"surface {feature}: {len(names)} stencils, {total} launches, max abs err "
+              f"{worst:.3e} (f64 rtol {RTOL_F64}, atol {ATOL_F64}); "
+              f"{SURFACE_TIMED[feature]} at 512x512x80 f64, J contiguous (outputs copied "
+              f"per call): kernel {timed['cuda']:.4f} ms, plain {timed['torch']:.4f} ms")
+        kernels.append({
+            "name": f"{feature}: " + ", ".join(names),
+            "route": "cuda",
+            "source": "gt4py_tpu_torch/cartesian/backend/cuda_backend.py",
+            "replaces": REPLACES.get(feature, REPLACES["rows"] + "; " + REPLACES["columns"]),
+            "launches": total,
+            "max_abs_err": worst,
+            "ms": timed["cuda"],
+            "plain_ms": timed["torch"],
+        })
+
+    # -- 6. the FullDycore path ---------------------------------------------
+    fv_errors = {}
+    for key, (fdc, fdp) in models.items():
+        c = configs[key]
+        state = fdc.init_state(seed=3)
+        calls, plain_calls = _fv_calls(fdc, state), _fv_calls(fdp, state)
+        for name, (st, call) in calls.items():
+            before = st.backend.launches
+            got = call()
+            torch.cuda.synchronize()
+            if st.backend.launches <= before:
+                raise AssertionError(f"{st.name}: the kernels were not launched")
+            ref = plain_calls[name][1]()
+            e = _check_close(f"{st.name}.qout", got["qout"], ref["qout"], c["rtol"], c["atol"])
+            fv_errors[(key, name)] = e
+            print(f"kernel vs plain {key} {st.name} {tuple(c['shape'])}: max abs {e[0]:.3e}, "
+                  f"max rel {e[1]:.3e} (rtol {c['rtol']}, atol {c['atol']})")
+    prog = fd.fv.fv_step.backend.program
+    an = fd.fv.fv_step.analysis
+    scratch_bytes = 0
+    for t in prog.scratch:
+        ext = an.extents.alloc_extent(t)
+        scratch_bytes += (NK - ext.k[0] + ext.k[1]) * (NI - ext.i[0] + ext.i[1]) * \
+            (NJ - ext.j[0] + ext.j[1]) * np.dtype(an.stencil.temp_decls[t].dtype).itemsize
+    print(f"fv_step f32: {len(prog.kernels)} row-form stages, {len(prog.scratch)} scratch "
+          f"temporaries ({scratch_bytes / 1e9:.3f} GB at 512x512x80), {len(prog.locals)} in "
+          f"registers; {_ptxas(fd.fv.fv_step)}")
+
+    full_path = {"hdiff": fd.dyn.hdiff, "vadv_update": fd.dyn.vadv_upd,
+                 "fv_step": fd.fv.fv_step, "sl_step": fd.sl}
+    fstate0 = fd.init_state(seed=0)
+    fstep, pfstep = fd.step_fn(), fd_plain.step_fn()
+    for st in full_path.values():
+        st.backend.launches = 0
+    s = fstate0
+    for _ in range(STEPS):
+        s = fstep(s)
+    torch.cuda.synchronize()
+    full_launches = {name: st.backend.launches for name, st in full_path.items()}
+    print(f"FullDycore path launches over {STEPS} steps: {full_launches}")
+    for name, n in full_launches.items():
+        if n == 0:
+            raise AssertionError(f"FullDycore path never launched the {name} kernels")
+    r = fstate0
+    for _ in range(STEPS):
+        r = pfstep(r)
+    full_err = {}
+    for field in ("u", "utens_stage", "q", "qsl"):
+        if tuple(s[field].shape) != fd.field_shape():
+            raise AssertionError(f"FullDycore {field}: shape {tuple(s[field].shape)}")
+        full_err[field] = _check_close(f"FullDycore {field} after {STEPS} steps", s[field],
+                                       r[field], RTOL_F32, ATOL_F32)
+        print(f"FullDycore {field} after {STEPS} steps vs plain: max abs "
+              f"{full_err[field][0]:.3e}, max rel {full_err[field][1]:.3e}")
+
+    fv_step, pfv_step = fd.fv.step_fn(), fd_plain.fv.step_fn()
+    fv_args = (fstate0["q"], fstate0["cx"], fstate0["cy"])
+    t = {
+        "fv cuda": _time_ms(lambda: fv_step(*fv_args), TIMING_REPS),
+        "fv plain": _time_ms(lambda: pfv_step(*fv_args), PLAIN_TIMING_REPS),
+        "dycore cuda": _time_ms(lambda: step(state0), TIMING_REPS),
+        "dycore plain": _time_ms(lambda: p_step(state0), PLAIN_TIMING_REPS),
+        "full cuda": _time_ms(lambda: fstep(fstate0), TIMING_REPS),
+        "full plain": _time_ms(lambda: pfstep(fstate0), PLAIN_TIMING_REPS),
+    }
+    chain = {
+        "fv cuda": _time_chain_ms(lambda q: fv_step(q, fv_args[1], fv_args[2]), fv_args[0],
+                                  BACK_TO_BACK),
+        "dycore cuda": _time_chain_ms(step, state0, BACK_TO_BACK),
+        "full cuda": _time_chain_ms(fstep, fstate0, BACK_TO_BACK),
+    }
+    for k, ms in t.items():
+        b2b = f"; back to back {chain[k]:.4f} ms ({points / chain[k] / 1e6:.3f} Gpoint/s)" \
+            if k in chain else ""
+        print(f"{k}: {ms:.4f} ms per step one call at a time ({points / ms / 1e6:.3f} "
+              f"Gpoint/s){b2b}")
+    for kind in ("cuda", "plain"):
+        head = 2 * points / (t[f"dycore {kind}"] + t[f"fv {kind}"]) / 1e6
+        line = f"headline {kind} (2 x points / (MiniDycore + FvAdvection step), one call at a " \
+               f"time): {head:.3f} Gpoint/s"
+        if kind == "cuda":
+            head_b2b = 2 * points / (chain["dycore cuda"] + chain["fv cuda"]) / 1e6
+            line += f"; back to back {head_b2b:.3f} Gpoint/s"
+        print(line)
+    for name, (st, call) in _fv_calls(fd, fstate0).items():
+        ms = _time_ms(call, TIMING_REPS)
+        plain_ms = _time_ms(_fv_calls(fd_plain, fstate0)[name][1], PLAIN_TIMING_REPS)
+        bpp = sum(st.backend.program.bytes_per_point.values())
+        print(f"{st.name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+              f"~{bpp} bytes/point -> {bpp * points / ms / 1e6:.1f} GB/s")
+        kernels.append({
+            "name": st.name,
+            "route": "cuda",
+            "source": "gt4py_tpu_torch/cartesian/backend/cuda_backend.py",
+            "replaces": REPLACES["rows"] + "; " + REPLACES["wrap"],
+            "launches": full_launches[name],
+            "max_abs_err": fv_errors[("f32", name)][0],
             "ms": ms,
             "plain_ms": plain_ms,
         })

@@ -22,6 +22,19 @@ emitters turn each vertical loop into ``__global__`` kernels:
   in the load address; there is no fill pass.  A written field read at a
   horizontal offset is filled in its fresh output buffer before the kernels
   (the oracle's pre-run fill).
+- **Variable and absolute K** (K3; ``JaxTracer._read_nonuniform_k``).  A
+  direct indexed load at the level clipped to the buffer's K range, as the
+  oracle clips.  In the row form such a read of a field written earlier
+  in the stage starts a new stage, like a nonzero offset; in the column
+  form it reads what the sweep has written so far.
+- **Data dimensions** (K7; Pallas ``_trace_split_data_dims``).  A field
+  ``(K, I, J, *D)`` is passed whole with its data strides; a component is
+  one more term in the load or store address.  Constant indices fold,
+  per-point indices wrap modulo the dimension as the oracle's do.
+
+``while`` loops run as loops in the thread, and horizontal regions as a
+test of the thread's position against the regions, resolved against the
+true domain (``dI``, ``dJ``), not the kernel's extended rectangle.
 
 Types follow the oracle's C-style promotion: every operand is cast to the
 promoted dtype and every literal is emitted exactly, in the dtype the
@@ -31,11 +44,11 @@ chain silently computes in double.
 This backend does not inline temporaries (``passes.inline_parallel_
 temporaries``, which the ``"jax"`` backend applies): the horizontal
 diffusion is three row-form kernels.  IR outside the emitters' subset --
-``while``, horizontal regions, variable or absolute K offsets, data
-dimensions, 16-bit floats -- raises ``NotImplementedError`` when the
-stencil is built.  Nothing falls back to the plain executor on the GPU: CPU
-tensors run the plain executor (``torch_backend``), CUDA tensors run the
-kernels or raise.
+16-bit floats, a data-dimension field read without all its indices, a
+write at a variable K -- raises ``NotImplementedError`` when the stencil is
+built.  Nothing falls back to the plain executor on the GPU: CPU tensors
+run the plain executor (``torch_backend``), CUDA tensors run the kernels or
+raise.
 """
 
 from __future__ import annotations
@@ -56,6 +69,7 @@ from gt4py_tpu_torch.cartesian.analysis import (
     default_float_dtype,
     default_int_dtype,
     promote_dtypes,
+    try_static_int,
 )
 from gt4py_tpu_torch.cartesian.backend import _build, register
 from gt4py_tpu_torch.cartesian.backend.torch_backend import (
@@ -76,10 +90,19 @@ REPLACES = {
                "PallasBackend._pallas_trace, column form (_plan_columns :1187)",
     "wrap": "gt4py_tpu/cartesian/backend/pallas_backend.py:1702 _plan_segments, "
             ":897 _circular_ok (periodic wrap inside the tile loads)",
+    "vark": "gt4py_tpu/cartesian/backend/jax_backend.py:1139 "
+            "JaxTracer._read_nonuniform_k (kernel branch :1187-1207), inside K1/K2",
+    "data_dims": "gt4py_tpu/cartesian/backend/pallas_backend.py:312 "
+                 "PallasBackend._trace_split_data_dims",
 }
 
 #: threads per block along J (coalesced) and I
 BLOCK_J, BLOCK_I = 64, 4
+#: data dimensions a field may have (``gt::kMaxDataDims``)
+MAX_DATA_DIMS = 4
+#: per-field record the wrapper passes: I, J, K strides, the data strides,
+#: the buffer's K range [klo, khi] in domain-relative levels
+_REC = 3 + MAX_DATA_DIMS + 2
 
 _CTYPE = {
     np.dtype(np.bool_): "bool",
@@ -93,6 +116,7 @@ _CTYPE = {
 }
 _F32 = np.dtype(np.float32)
 _F64 = np.dtype(np.float64)
+_I64 = np.dtype(np.int64)
 _BOOL = np.dtype(np.bool_)
 
 _BINOP_SYM = {
@@ -173,7 +197,38 @@ def _literal(value, dt) -> str:
 
 
 def _nonzero(off) -> bool:
+    """True for a read that may reach another point or level: a nonzero
+    offset, or a variable or absolute K."""
+    if not isinstance(off, ir.CartesianOffset):
+        return True
     return bool(off.i or off.j or off.k)
+
+
+def _static_component(value: int, size: int, name: str) -> int:
+    """A constant data index, with Python's negative indexing (the oracle
+    indexes the array with it)."""
+    if not -size <= value < size:
+        raise IndexError(f"data index {value} out of range for field '{name}' ({size})")
+    return value % size
+
+
+def _region_test(masks: Sequence[ir.HorizontalMask]) -> str:
+    """The thread's (i, j) lies in one of the regions.  START and END
+    anchors resolve against the true domain sizes ``dI`` and ``dJ``, as the
+    oracle's ``HorizontalInterval.resolve`` does; an open side tests
+    nothing."""
+    tests = []
+    for m in masks:
+        parts = []
+        for var, itv, dom in (("i", m.i, "dI"), ("j", m.j, "dJ")):
+            for bound, op in ((itv.start, ">="), (itv.end, "<")):
+                if bound is None:
+                    continue
+                at = str(bound.offset) if bound.level == ir.LevelMarker.START \
+                    else f"({dom} + {bound.offset})"
+                parts.append(f"{var} {op} {at}")
+        tests.append(f"({' && '.join(parts)})" if parts else "true")
+    return " || ".join(tests) if tests else "false"
 
 
 def _check_supported(analysis: StencilAnalysis) -> None:
@@ -181,9 +236,9 @@ def _check_supported(analysis: StencilAnalysis) -> None:
     emitters' subset."""
     st = analysis.stencil
     for name, decl in {**st.field_decls, **st.temp_decls}.items():
-        if decl.data_dims:
+        if len(decl.data_dims) > MAX_DATA_DIMS:
             raise NotImplementedError(
-                f"cuda backend: field '{name}' has data dimensions {decl.data_dims}"
+                f"cuda backend: field '{name}' has more than {MAX_DATA_DIMS} data dimensions"
             )
         if np.dtype(decl.dtype) not in _CTYPE:
             raise NotImplementedError(
@@ -195,17 +250,17 @@ def _check_supported(analysis: StencilAnalysis) -> None:
                 f"cuda backend: scalar '{name}' has dtype {decl.dtype}"
             )
     for node in ir.walk_values(st.vertical_loops):
-        if isinstance(node, (ir.While, ir.HorizontalRestriction)):
-            raise NotImplementedError(f"cuda backend: no emitter for {type(node).__name__}")
+        if isinstance(node, ir.Assign) and not isinstance(node.target.offset, ir.CartesianOffset):
+            raise NotImplementedError(
+                f"cuda backend: write to '{node.target.name}' at a "
+                f"{type(node.target.offset).__name__}"
+            )
         if isinstance(node, ir.FieldAccess):
-            if not isinstance(node.offset, ir.CartesianOffset):
+            dims = st.decl(node.name).data_dims
+            if len(node.data_index) != len(dims):
                 raise NotImplementedError(
-                    f"cuda backend: no emitter for {type(node.offset).__name__} "
-                    f"(field '{node.name}')"
-                )
-            if node.data_index:
-                raise NotImplementedError(
-                    f"cuda backend: no emitter for data-dimension index (field '{node.name}')"
+                    f"cuda backend: field '{node.name}' with data dimensions {dims} is "
+                    f"accessed with {len(node.data_index)} indices"
                 )
         if isinstance(node, ir.NativeFuncCall) and node.func not in _FLOAT_FUNCS and \
                 node.func not in _BOOL_FUNCS and node.func not in (
@@ -234,7 +289,8 @@ class KernelPlan:
 
 
 def _split_stages(stmts: List[ir.Stmt]) -> List[List[ir.Stmt]]:
-    """Row-form stages of one PARALLEL section (see module docstring)."""
+    """Row-form stages of one PARALLEL section (see module docstring).
+    A compound statement (``if``, ``while``, a region) is one unit."""
     stages: List[List[ir.Stmt]] = []
     cur: List[ir.Stmt] = []
     written: set = set()
@@ -278,7 +334,8 @@ def plan_kernels(analysis: StencilAnalysis) -> List[KernelPlan]:
             for s in loop.sections:
                 for st_ in s.body:
                     for r in _stmt_reads(st_):
-                        if r.name in written and (r.offset.i or r.offset.j):
+                        if r.name in written and isinstance(r.offset, ir.CartesianOffset) \
+                                and (r.offset.i or r.offset.j):
                             raise NotImplementedError(
                                 f"cuda backend: field '{r.name}' is read at a horizontal "
                                 f"offset in the {loop.loop_order.name} loop that writes it"
@@ -318,7 +375,7 @@ def _local_temps(analysis: StencilAnalysis, plans: List[KernelPlan]) -> List[str
     st = analysis.stencil
     where: Dict[str, set] = {n: set() for n in st.temp_decls}
     sections: Dict[str, set] = {n: set() for n in st.temp_decls}
-    ok = {n: True for n in st.temp_decls}
+    ok = {n: not d.data_dims for n, d in st.temp_decls.items()}
     for kn, p in enumerate(plans):
         for sid, stmts in p.sections:
             for s in stmts:
@@ -348,15 +405,22 @@ def _local_temps(analysis: StencilAnalysis, plans: List[KernelPlan]) -> List[str
 def _temp_events(analysis: StencilAnalysis, plans: List[KernelPlan], names):
     """Per section (in execution order): the reads ``(name, "r", dk)`` and
     unconditional writes ``(name, "w", 0)`` of the temporaries ``names``,
-    in statement order; and the temporaries written in any other way
-    (under a condition, or at a K offset)."""
+    in statement order; and the temporaries written or read in any other
+    way (under a condition, at a K offset, at a variable or absolute K, or
+    per data-dimension component)."""
     events: Dict[int, List[Tuple[str, str, int]]] = {}
-    irregular = set()
+    irregular = {n for n in names if analysis.stencil.temp_decls[n].data_dims}
     for p in plans:
         for sid, stmts in p.sections:
             evs = events.setdefault(sid, [])
             for s in stmts:
-                evs += [(r.name, "r", r.offset.k) for r in _stmt_reads(s) if r.name in names]
+                for r in _stmt_reads(s):
+                    if r.name not in names:
+                        continue
+                    if isinstance(r.offset, ir.CartesianOffset):
+                        evs.append((r.name, "r", r.offset.k))
+                    else:
+                        irregular.add(r.name)
                 if isinstance(s, ir.Assign) and s.target.name in names:
                     if s.target.offset.k:
                         irregular.add(s.target.name)
@@ -441,24 +505,48 @@ class _Emitter:
         name, off = acc.name, acc.offset
         if name in self.locals:
             return f"l_{name}"
-        if name in self.stencil.temp_decls:
-            return f"t_{name}.at(i + {off.i}, j + {off.j}, k + {off.k})"
-        decl = self.stencil.field_decls[name]
+        is_temp = name in self.stencil.temp_decls
+        var = ("t_" if is_temp else "f_") + name
+        decl = self.stencil.decl(name)
+        cart = off if isinstance(off, ir.CartesianOffset) else ir.CartesianOffset()
         ext = self.analysis.extents.field_extent(name)
-        wrap = name not in self.written
+        wrap = not is_temp and name not in self.written
         idx = []
-        for ax, (var, o, dom, flag, e) in enumerate((
-            ("i", off.i, "dI", "pI", ext.i),
-            ("j", off.j, "dJ", "pJ", ext.j),
-            ("k", off.k, None, None, ext.k),
+        for ax, (v, o, dom, flag, e) in enumerate((
+            ("i", cart.i, "dI", "pI", ext.i),
+            ("j", cart.j, "dJ", "pJ", ext.j),
         )):
             if not decl.dimensions[ax]:
                 idx.append("0")
-            elif flag and wrap and (e[0] or e[1]):
-                idx.append(f"gt::wrap({var} + {o}, {dom}, {flag})")
+            elif wrap and (e[0] or e[1]):
+                idx.append(f"gt::wrap({v} + {o}, {dom}, {flag})")
             else:
-                idx.append(f"{var} + {o}")
-        return f"f_{name}.at({', '.join(idx)})"
+                idx.append(f"{v} + {o}")
+        if not decl.dimensions[2]:
+            idx.append("0")
+        elif isinstance(off, ir.VariableKOffset):
+            code, dt = self.expr(off.k)
+            idx.append(f"{var}.kclamp(k + {_cast(code, dt, _I64)})")
+        elif isinstance(off, ir.AbsoluteKIndex):
+            code, dt = self.expr(off.k)
+            idx.append(f"{var}.kclamp({_cast(code, dt, _I64)})")
+        else:
+            idx.append(f"k + {cart.k}")
+        if acc.data_index:
+            idx.append(" + ".join(
+                f"{self.component(e, size, name)} * {var}.sd[{n}]"
+                for n, (e, size) in enumerate(zip(acc.data_index, decl.data_dims))
+            ))
+        return f"{var}.at({', '.join(idx)})"
+
+    def component(self, e: ir.Expr, size: int, name: str) -> str:
+        """One data index: a folded constant, or a per-point index wrapped
+        modulo the dimension (the oracle's ``remainder``)."""
+        static = try_static_int(e)
+        if static is not None:
+            return str(_static_component(static, size, name))
+        code, dt = self.expr(e)
+        return f"gt::imod<long long>({_cast(code, dt, _I64)}, {size}LL)"
 
     def expr(self, e: ir.Expr) -> Tuple[str, np.dtype]:
         st = self.stencil
@@ -589,6 +677,17 @@ class _Emitter:
                     out += self.stmt(b, ind + "  ")
             out.append(f"{ind}}}")
             return out
+        if isinstance(s, ir.While):
+            cond, _ = self.expr(s.cond)
+            out = [f"{ind}while ({cond}) {{"]
+            for b in s.body:
+                out += self.stmt(b, ind + "  ")
+            return out + [f"{ind}}}"]
+        if isinstance(s, ir.HorizontalRestriction):
+            out = [f"{ind}if ({_region_test(s.masks)}) {{"]
+            for b in s.body:
+                out += self.stmt(b, ind + "  ")
+            return out + [f"{ind}}}"]
         raise NotImplementedError(f"cuda backend: no emitter for {type(s).__name__}")
 
     def guarded(self, s: ir.Stmt, rect: Extent, ind: str) -> List[str]:
@@ -606,7 +705,8 @@ def _bytes_per_point(analysis: StencilAnalysis, plan: KernelPlan, locals_) -> in
     for names in (plan.reads, plan.writes):
         for name in names:
             if name not in locals_:
-                n += np.dtype(st.decl(name).dtype).itemsize
+                decl = st.decl(name)
+                n += np.dtype(decl.dtype).itemsize * int(np.prod(decl.data_dims, dtype=int))
     return n
 
 
@@ -713,8 +813,10 @@ def generate(analysis: StencilAnalysis) -> CudaProgram:
     for b, n in enumerate(fields + scratch):
         ct = _ctype(st.decl(n).dtype)
         var = ("f_" if n in st.field_decls else "t_") + n
-        out.append(f"  const gt::Field<{ct}> {var}{{({ct}*)ptrs[{b}], strides[{3 * b}], "
-                   f"strides[{3 * b + 1}], strides[{3 * b + 2}]}};")
+        s = [f"strides[{_REC * b + x}]" for x in range(_REC)]
+        sd = ", ".join(s[3:3 + MAX_DATA_DIMS])
+        out.append(f"  const gt::Field<{ct}> {var}{{({ct}*)ptrs[{b}], {s[0]}, {s[1]}, {s[2]}, "
+                   f"{{{sd}}}, (int){s[-2]}, (int){s[-1]}}};")
     out += [
         "  const int dI = dom[0], dJ = dom[1], dK = dom[2];",
         f"  gt::KBounds<{nsec}> kb;",
@@ -782,12 +884,17 @@ def _is_dense(t: torch.Tensor) -> bool:
 
 
 def _field_arg(view: torch.Tensor, origin) -> Tuple[int, List[int]]:
-    """Base pointer at the domain origin and element strides of a
-    logical (I, J, K) view; size-1 axes broadcast with stride 0."""
+    """Base pointer at the domain origin and the per-field record of a
+    logical (I, J, K, *data_dims) view: element strides (size-1 spatial
+    axes broadcast with stride 0), data strides, and the buffer's K range
+    in domain-relative levels."""
     strides = [0 if n == 1 else s for s, n in zip(view.stride()[:3], view.shape[:3])]
     org = [0 if n == 1 else o for o, n in zip(origin, view.shape[:3])]
     offset = sum(o * s for o, s in zip(org, strides))
-    return view.data_ptr() + offset * view.element_size(), strides
+    data = list(view.stride()[3:])
+    data += [0] * (MAX_DATA_DIMS - len(data))
+    klo, khi = -org[2], view.shape[2] - 1 - org[2]
+    return view.data_ptr() + offset * view.element_size(), strides + data + [klo, khi]
 
 
 @register("cuda")
@@ -842,11 +949,15 @@ class CudaBackend:
         if len(devices) != 1:
             raise ValueError(f"fields on several devices: {sorted(map(str, devices))}")
         for name, v in env.items():
-            want = dtypes.to_torch(st.field_decls[name].dtype)
+            decl = st.field_decls[name]
+            want = dtypes.to_torch(decl.dtype)
             if v.dtype != want:
                 raise TypeError(f"field '{name}' has dtype {v.dtype}, expected {want}")
-            if v.ndim != 3:
-                raise ValueError(f"field '{name}' must be a 3-axis view, got shape {tuple(v.shape)}")
+            if tuple(v.shape[3:]) != tuple(decl.data_dims) or v.ndim != 3 + len(decl.data_dims):
+                raise ValueError(
+                    f"field '{name}' must be an (I, J, K, *{decl.data_dims}) view, "
+                    f"got shape {tuple(v.shape)}"
+                )
             if not _is_dense(v):
                 raise ValueError(f"field '{name}' is not contiguous")
         return devices.pop()
@@ -873,7 +984,7 @@ class CudaBackend:
             if name in env:
                 p, s = _field_arg(env[name], origins[name])
             else:
-                p, s = 0, [0, 0, 0]
+                p, s = 0, [0] * _REC
             ptrs.append(p)
             strides += s
         kb = [(max(k0, 0), min(k1, dK))
@@ -881,13 +992,14 @@ class CudaBackend:
         zeroed = zero_init_temps(prog, kb)
         for name in prog.scratch:
             ext = self.analysis.extents.alloc_extent(name)
+            decl = st.temp_decls[name]
             shape = (dK - ext.k[0] + ext.k[1], dI - ext.i[0] + ext.i[1],
-                     dJ - ext.j[0] + ext.j[1])
-            dt = dtypes.to_torch(st.temp_decls[name].dtype)
+                     dJ - ext.j[0] + ext.j[1]) + tuple(decl.data_dims)
             alloc = torch.zeros if name in zeroed else torch.empty
-            t = alloc(shape, dtype=dt, device=device)
+            t = alloc(shape, dtype=dtypes.to_torch(decl.dtype), device=device)
             keep.append(t)
-            p, s = _field_arg(t.permute(1, 2, 0), (-ext.i[0], -ext.j[0], -ext.k[0]))
+            p, s = _field_arg(t.permute(1, 2, 0, *range(3, t.ndim)),
+                              (-ext.i[0], -ext.j[0], -ext.k[0]))
             ptrs.append(p)
             strides += s
         kb = [k for bounds in kb for k in bounds]

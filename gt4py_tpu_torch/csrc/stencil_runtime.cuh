@@ -13,15 +13,30 @@
 
 namespace gt {
 
+// Largest number of data dimensions a field may have.
+constexpr int kMaxDataDims = 4;
+
 // A strided field.  `p` points at the compute-domain origin of the
 // buffer, so (i, j, k) are domain-relative and may be negative in halos.
-// A stride of 0 broadcasts an axis the field does not have.
+// A stride of 0 broadcasts an axis the field does not have.  `sd` are the
+// strides of the trailing data dimensions; [klo, khi] is the buffer's K
+// range in domain-relative levels, where variable and absolute K reads
+// clip (the oracle's clip to [0, SK - 1] in buffer levels).
 template <typename T>
 struct Field {
   T* p;
   long long si, sj, sk;
+  long long sd[kMaxDataDims];
+  int klo, khi;
   __device__ __forceinline__ T& at(long long i, long long j, long long k) const {
     return p[i * si + j * sj + k * sk];
+  }
+  // `d`: the element offset of a data-dimension component
+  __device__ __forceinline__ T& at(long long i, long long j, long long k, long long d) const {
+    return p[i * si + j * sj + k * sk + d];
+  }
+  __device__ __forceinline__ long long kclamp(long long k) const {
+    return k < klo ? klo : (k > khi ? khi : k);
   }
 };
 

@@ -1,6 +1,5 @@
-"""Models built on the stencil DSL (counterpart of gt4py_tpu.models).
-
-This slice ports the mini dynamical core; the other models follow.
-"""
+"""Models built on the stencil DSL (counterpart of gt4py_tpu.models)."""
 
 from .dycore import MiniDycore  # noqa: F401
+from .fv_advection import FvAdvection  # noqa: F401
+from .full_dycore import FullDycore  # noqa: F401

@@ -1,0 +1,186 @@
+"""Stencils that hold the generated kernels to the plain executor.
+
+Used by the card tests (``tests/test_torch_cuda.py``) and the chip check
+(``chip_smoke.py``), which run where JAX is not installed:
+
+- ``load_stencil_defs()``: the repository's canonical stencil registry,
+  ``tests/cartesian/stencil_defs.py``, with its two imports of the JAX
+  package's ``gtscript`` and ``Registry`` pointed at the port.  Nothing of
+  ``gt4py_tpu`` is imported.
+- ``SURFACE``: the language features the TPU kernels run in-kernel and the
+  registry covers only in part -- absolute K (``.at(K=...)``) from a
+  literal, a scalar and a 2D field, absolute and variable K inside scans,
+  data dimensions of rank 2 with constant and per-point writes.
+- ``run_pair()``: one definition on ``"cuda"`` and on ``"torch"`` over the
+  same inputs on one device.
+"""
+
+import linecache
+import os
+from typing import Callable, Dict, Tuple
+
+import numpy as np
+import torch
+
+from gt4py_tpu_torch.cartesian import gtscript
+from gt4py_tpu_torch.cartesian.gtscript import (
+    BACKWARD,
+    FORWARD,
+    PARALLEL,
+    computation,
+    interval,
+)
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+STENCIL_DEFS = os.path.join(ROOT, "tests", "cartesian", "stencil_defs.py")
+
+#: import lines of the registry module and their port counterparts (each
+#: replacement keeps the line count, so definitions keep their lines)
+_IMPORTS = (
+    ("from gt4py_tpu.cartesian import gtscript",
+     "from gt4py_tpu_torch.cartesian import gtscript"),
+    ("from gt4py_tpu.cartesian.gtscript import (",
+     "from gt4py_tpu_torch.cartesian.gtscript import ("),
+    ("from gt4py_tpu.utils import Registry", "Registry = dict"),
+)
+
+
+def load_stencil_defs(path: str = STENCIL_DEFS) -> Dict[str, dict]:
+    """The registry of ``tests/cartesian/stencil_defs.py`` on the port:
+    name -> ``dict(definition, make_inputs, externals, domain, origin)``."""
+    with open(path) as f:
+        src = f.read()
+    for old, new in _IMPORTS:
+        if old not in src:
+            raise ValueError(f"{path}: expected the line {old!r}")
+        src = src.replace(old, new)
+    if "gt4py_tpu." in src:
+        raise ValueError(f"{path}: an import of the JAX package is left")
+    filename = f"<port:{os.path.basename(path)}>"
+    # the frontend reads each definition's source through linecache
+    linecache.cache[filename] = (len(src), None, src.splitlines(True), filename)
+    ns: dict = {"__name__": "gt4py_tpu_torch_stencil_defs"}
+    exec(compile(src, filename, "exec", dont_inherit=True), ns)
+    return dict(ns["REGISTRY"])
+
+
+# --------------------------------------------------------------------------- #
+# features beyond the registry
+# --------------------------------------------------------------------------- #
+
+F64 = gtscript.Field[np.float64]
+I64 = gtscript.Field[np.int64]
+
+
+def at_k_literal(a: F64, out: F64):
+    with computation(PARALLEL), interval(...):
+        out = a.at(K=2) + a[0, 0, 0]
+
+
+def at_k_scalar(a: F64, out: F64, *, kidx: int):
+    with computation(PARALLEL), interval(...):
+        out = a.at(K=kidx)
+
+
+def at_k_field(a: F64, kidx: gtscript.Field[gtscript.IJ, np.int64], out: F64):
+    with computation(PARALLEL), interval(...):
+        out = a.at(K=kidx) * 2.0
+
+
+def at_k_in_scan(a: F64, out: F64):
+    with computation(FORWARD):
+        with interval(0, 1):
+            out = a.at(K=3)
+        with interval(1, None):
+            out = a.at(K=0) + out[0, 0, -1]
+
+
+def variable_k_in_scan(a: F64, kidx: I64, acc: F64):
+    with computation(BACKWARD), interval(...):
+        acc = a[0, 0, kidx] + acc[0, 0, 1] * 0.5
+
+
+def variable_k_after_write(a: F64, kidx: I64, out: F64):
+    with computation(PARALLEL), interval(1, None):
+        t = a * 2.0
+    with computation(PARALLEL), interval(...):
+        out = t[0, 0, kidx] + t[1, 0, 0]
+
+
+def data_dims_writes(vec: gtscript.Field[(np.float64, (3,))], out: F64,
+                     w: gtscript.Field[(np.float64, (2, 2))]):
+    with computation(PARALLEL), interval(...):
+        out = vec[0, 0, 0][0] + vec[1, 0, 0][1] * vec[0, 0, 0][2]
+        w[0, 0, 0][1, 0] = out[0, 0, 0] * 2.0
+        w[0, 0, 0][0, 1] = vec[0, 0, 0][-1]
+
+
+def data_dims_dynamic_write(vec: gtscript.Field[(np.float64, (3,))], idx: I64, a: F64,
+                            out: F64):
+    with computation(PARALLEL), interval(...):
+        out = vec[0, 0, 0][idx % 3] + a[1, 0, 0]
+        vec[0, 0, 0][(idx + 1) % 3] = a * 2.0
+
+
+def _rng(seed):
+    return np.random.default_rng(seed)
+
+
+#: name -> (definition, make_inputs() -> (fields, scalars), call keywords)
+SURFACE: Dict[str, Tuple[Callable, Callable, dict]] = {
+    "at_k_literal": (at_k_literal, lambda: (
+        dict(a=_rng(1).random((6, 5, 7)), out=np.zeros((6, 5, 7))), {}), {}),
+    "at_k_scalar": (at_k_scalar, lambda: (
+        dict(a=_rng(2).random((6, 5, 7)), out=np.zeros((6, 5, 7))), dict(kidx=9)), {}),
+    "at_k_field": (at_k_field, lambda: (
+        dict(a=_rng(3).random((6, 5, 7)), kidx=_rng(4).integers(-2, 9, (6, 5)),
+             out=np.zeros((6, 5, 7))), {}), {}),
+    "at_k_in_scan": (at_k_in_scan, lambda: (
+        dict(a=_rng(5).random((7, 9, 8)), out=np.zeros((7, 9, 8))), {}), {}),
+    "variable_k_in_scan": (variable_k_in_scan, lambda: (
+        dict(a=_rng(6).random((6, 7, 10)), kidx=_rng(7).integers(-9, 10, (6, 7, 10)),
+             acc=np.zeros((6, 7, 10))), {}), dict(domain=(6, 7, 9))),
+    "variable_k_after_write": (variable_k_after_write, lambda: (
+        dict(a=_rng(8).random((9, 6, 8)), kidx=_rng(9).integers(-3, 4, (9, 6, 8)),
+             out=np.zeros((9, 6, 8))), {}), dict(domain=(8, 6, 8))),
+    "data_dims_writes": (data_dims_writes, lambda: (
+        dict(vec=_rng(10).random((6, 5, 4, 3)), out=np.zeros((6, 5, 4)),
+             w=np.zeros((6, 5, 4, 2, 2))), {}), dict(origin=(1, 0, 0), domain=(4, 5, 4))),
+    "data_dims_dynamic_write": (data_dims_dynamic_write, lambda: (
+        dict(vec=_rng(11).random((6, 5, 4, 3)), idx=_rng(12).integers(-5, 6, (6, 5, 4)),
+             a=_rng(13).random((6, 5, 4)), out=np.zeros((6, 5, 4))), {}),
+        dict(origin=(1, 0, 0), domain=(4, 5, 4))),
+}
+
+
+def registry_case(entry: dict) -> Tuple[Callable, Callable, dict]:
+    """A ``load_stencil_defs()`` entry as a ``SURFACE``-style case."""
+
+    def make_inputs():
+        inputs = entry["make_inputs"]()
+        fields = {k: v for k, v in inputs.items() if isinstance(v, np.ndarray)}
+        return fields, {k: v for k, v in inputs.items() if k not in fields}
+
+    kw = {k: entry[k] for k in ("origin", "domain") if entry[k] is not None}
+    return entry["definition"], make_inputs, dict(kw, externals=entry["externals"])
+
+
+def run_pair(definition, make_inputs, kw: dict, device) -> Tuple[dict, dict, object]:
+    """Build ``definition`` on ``"cuda"`` and ``"torch"`` and call both on
+    the same inputs, as tensors on ``device``.  Returns the fields after
+    each call and the ``"cuda"`` stencil object (its ``backend.launches``
+    counts the calls that launched its kernels)."""
+    kw = dict(kw)
+    externals = kw.pop("externals", {})
+    out, cuda_stencil = {}, None
+    for backend in ("cuda", "torch"):
+        st = gtscript.stencil(backend=backend, definition=definition, externals=externals,
+                              rebuild=True)
+        fields, scalars = make_inputs()
+        tensors = {k: torch.from_numpy(np.ascontiguousarray(v)).to(device)
+                   for k, v in fields.items()}
+        st(**tensors, **scalars, **kw)
+        out[backend] = tensors
+        if backend == "cuda":
+            cuda_stencil = st
+    return out["cuda"], out["torch"], cuda_stencil

@@ -1,10 +1,12 @@
-"""The CUDA source emitter (``backend="cuda"``) on the dycore stencils.
+"""The CUDA source emitter (``backend="cuda"``): the dycore, FV and
+semi-Lagrangian stencils, and ``while``, regions, variable/absolute K and
+data dimensions.
 
 The emitter does not inline temporaries (``passes.inline_parallel_
 temporaries``, which the ``"jax"`` backend applies): the horizontal
 diffusion is three row-form kernels -- the Laplacian, the limited fluxes,
 the update -- with ``lap_field``, ``flx_field`` and ``fly_field`` in scratch
-and ``res`` in a register.
+and ``res`` in a register; fv_step is thirteen.
 """
 
 import re
@@ -12,10 +14,10 @@ import re
 import numpy as np
 import pytest
 
-from gt4py_tpu_torch.cartesian import gtscript
+from gt4py_tpu_torch.cartesian import gtscript, ir
 from gt4py_tpu_torch.cartesian.backend import cuda_backend
 from gt4py_tpu_torch.cartesian.gtscript import FORWARD, PARALLEL, computation, interval
-from gt4py_tpu_torch.models import dycore
+from gt4py_tpu_torch.models import dycore, fv_advection, semi_lagrangian
 
 #: stencil -> the kernel forms it documents, in launch order
 FORMS = {
@@ -99,6 +101,8 @@ def test_scalars_are_kernel_arguments_in_their_dtype():
 
 
 def test_while_raises_not_implemented():
+    """``while`` used to be outside the emitters; it is now a loop in the
+    thread, the statement one row-form unit."""
     F = gtscript.Field[np.float64]
 
     def halve(a: F):
@@ -106,20 +110,163 @@ def test_while_raises_not_implemented():
             while a > 1.0:
                 a = a / 2.0
 
-    with pytest.raises(NotImplementedError, match="While"):
-        gtscript.stencil(backend="cuda", definition=halve, rebuild=True)
-    gtscript.stencil(backend="torch", definition=halve, rebuild=True)  # plain: fine
+    st = gtscript.stencil(backend="cuda", definition=halve, rebuild=True)
+    src = st.backend.source
+    assert "while ((f_a.at(i + 0, j + 0, k + 0) > (0x1.0000000000000p+0))) {" in src
+    assert len(st.backend.program.kernels) == 1
 
 
 def test_variable_k_offset_raises_not_implemented():
+    """Variable K used to be outside the emitters; it is now a direct load
+    at the level clipped to the buffer (``kclamp``), in the column form
+    too."""
     F = gtscript.Field[np.float64]
 
     def shift(inp: F, idx: gtscript.Field[np.int64], out: F):
         with computation(FORWARD), interval(...):
             out = inp[0, 0, idx]
 
-    with pytest.raises(NotImplementedError, match="VariableKOffset"):
-        gtscript.stencil(backend="cuda", definition=shift, rebuild=True)
+    st = gtscript.stencil(backend="cuda", definition=shift, rebuild=True)
+    assert [k.form for k in st.backend.program.kernels] == ["columns"]
+    assert "f_inp.at(i + 0, j + 0, f_inp.kclamp(k + f_idx.at(i + 0, j + 0, k + 0)))" \
+        in st.backend.source
+
+
+def test_absolute_k_reads_clip_to_the_buffer():
+    F = gtscript.Field[np.float64]
+
+    def plane(a: F, out: F, kidx: gtscript.Field[gtscript.IJ, np.int64], *, s: int):
+        with computation(PARALLEL), interval(...):
+            out = a.at(K=2) + a.at(K=s) + a.at(K=kidx)
+
+    src = gtscript.stencil(backend="cuda", definition=plane, rebuild=True).backend.source
+    assert "f_a.kclamp(((long long)2LL))" in src
+    assert "f_a.kclamp(s_s)" in src
+    assert "f_a.kclamp(f_kidx.at(i + 0, j + 0, 0))" in src  # an IJ field: no K axis
+
+
+def _assign(target, value):
+    return ir.Assign(target=ir.FieldAccess(target), value=value)
+
+
+@pytest.mark.parametrize("offset", [
+    ir.VariableKOffset(ir.FieldAccess("idx")),
+    ir.AbsoluteKIndex(ir.Literal(2, np.dtype(np.int64))),
+    ir.CartesianOffset(0, 0, 1),
+], ids=["variable_k", "absolute_k", "k_offset"])
+def test_nonuniform_k_read_of_a_field_written_in_the_stage_starts_a_stage(offset):
+    """In the row form every thread sweeps K itself: a read of another
+    level of a field written earlier in the stage would see a level the
+    thread has not written yet, so it starts a new stage (the validator
+    refuses such reads within one PARALLEL loop; the splitter does not
+    rely on it)."""
+    stmts = [
+        _assign("t", ir.FieldAccess("a")),
+        _assign("b", ir.FieldAccess("a")),
+        _assign("out", ir.FieldAccess("t", offset=offset)),
+    ]
+    assert [len(s) for s in cuda_backend._split_stages(stmts)] == [2, 1]
+    # ... and so does a write of a field read that way earlier in the stage
+    stmts = [_assign("out", ir.FieldAccess("t", offset=offset)),
+             _assign("t", ir.FieldAccess("a"))]
+    assert [len(s) for s in cuda_backend._split_stages(stmts)] == [1, 1]
+    # a read at the thread's own level stays in the stage
+    stmts = [_assign("t", ir.FieldAccess("a")), _assign("out", ir.FieldAccess("t"))]
+    assert [len(s) for s in cuda_backend._split_stages(stmts)] == [2]
+
+
+def test_variable_k_read_of_a_temporary_zero_fills_it():
+    """A variable-K read may reach any level, some never written: the
+    scratch buffer starts at zero, as the oracle's temporaries do."""
+    from gt4py_tpu_torch.testing import SURFACE
+
+    st = gtscript.stencil(backend="cuda", definition=SURFACE["variable_k_after_write"][0],
+                          rebuild=True)
+    assert st.backend.program.scratch == ["t"]
+    assert _zeroed(st, 8) == ["t"]
+
+
+def test_region_guards_resolve_against_the_true_domain():
+    """START and END anchors of a region compare the thread's position
+    with the domain sizes dI and dJ, not with the kernel's rectangle."""
+    from gt4py_tpu_torch import testing
+
+    entry = testing.load_stencil_defs()["horizontal_regions"]
+    src = gtscript.stencil(backend="cuda", definition=entry["definition"],
+                           rebuild=True).backend.source
+    assert ("if ((i >= 0 && i < 2 && j >= 0 && j < 2) || (i >= (dI + -3) && i < (dI + -1) "
+            "&& j >= (dJ + -3) && j < (dJ + -1))) {") in src
+    m = ir.HorizontalMask(i=ir.HorizontalInterval(None, ir.AxisBound.end(1)),
+                          j=ir.HorizontalInterval(ir.AxisBound.start(-2), None))
+    assert cuda_backend._region_test([m]) == "(i < (dI + 1) && j >= -2)"
+    assert cuda_backend._region_test([ir.HorizontalMask()]) == "true"
+
+
+def test_data_dims_fold_constant_components_and_wrap_dynamic_ones():
+    from gt4py_tpu_torch.testing import SURFACE
+
+    src = gtscript.stencil(backend="cuda", definition=SURFACE["data_dims_writes"][0],
+                           rebuild=True).backend.source
+    assert "f_w.at(i + 0, j + 0, k + 0, 1 * f_w.sd[0] + 0 * f_w.sd[1]) =" in src
+    # w[0, 0, 0][0, 1] = vec[0, 0, 0][-1]: a negative index counts from the end
+    assert ("f_w.at(i + 0, j + 0, k + 0, 0 * f_w.sd[0] + 1 * f_w.sd[1]) = "
+            "f_vec.at(gt::wrap(i + 0, dI, pI), j + 0, k + 0, 2 * f_vec.sd[0]);") in src
+    src = gtscript.stencil(backend="cuda", definition=SURFACE["data_dims_dynamic_write"][0],
+                           rebuild=True).backend.source
+    assert "gt::imod<long long>(" in src and ", 3LL) * f_vec.sd[0]" in src
+
+
+def test_data_dim_access_without_every_index_raises():
+    prog_ir = ir.Stencil(
+        name="s", api_params=[], scalar_decls={}, temp_decls={},
+        field_decls={"v": ir.FieldDecl("v", np.dtype(np.float64), data_dims=(3,)),
+                     "o": ir.FieldDecl("o", np.dtype(np.float64))},
+        vertical_loops=[ir.VerticalLoop(ir.LoopOrder.PARALLEL, [ir.VerticalSection(
+            ir.Interval.full(), [_assign("o", ir.FieldAccess("v"))])])],
+    )
+    from gt4py_tpu_torch.cartesian.analysis import analyze
+
+    with pytest.raises(NotImplementedError, match="accessed with 0 indices"):
+        cuda_backend.generate(analyze(prog_ir))
+
+
+def test_bool_temporary_across_stages_is_a_bool_scratch():
+    F = gtscript.Field[np.float64]
+
+    def flags(a: F, b: F):
+        with computation(PARALLEL), interval(...):
+            m = a > 0.5
+            b = 1.0 if m[1, 0, 0] else 0.0
+
+    prog = gtscript.stencil(backend="cuda", definition=flags, rebuild=True).backend.program
+    assert prog.scratch == ["m"] and len(prog.kernels) == 2
+    assert "gt::Field<bool> t_m" in prog.source
+
+
+def test_fv_step_stages():
+    """fv_step: the PARALLEL section splits into 13 row-form stages; the
+    temporaries read at an offset or in a later stage live in scratch, the
+    rest (including the bool limiter flags) in registers."""
+    prog = fv_advection.make_fv_step(np.float32, backend="cuda").backend.program
+    assert [k.form for k in prog.kernels] == ["rows"] * 13
+    assert len(prog.scratch) == 30 and len(prog.locals) == 24
+    assert {"smx", "smy", "smfx", "smfy"} <= set(prog.locals)
+    assert {"qx", "qy", "fx", "fy"} <= set(prog.scratch)
+    # the widest stage computes the cross-advected qx/qy halo
+    assert max(k.rect.i[1] - k.rect.i[0] for k in prog.kernels) == 6
+
+
+@pytest.mark.parametrize("factory", ["fv_step", "sl_step"])
+def test_fv_and_sl_float32_sources_have_no_double(factory):
+    st = fv_advection.make_fv_step(np.float32, backend="cuda") if factory == "fv_step" else \
+        semi_lagrangian.make_sl_stencil(np.float32, backend="cuda")
+    kernels = st.backend.source.split('extern "C"')[0]
+    lits = _FLOAT_LITERAL.findall(kernels)
+    assert lits and all(lit.endswith("f") for lit in lits)
+    assert "double" not in kernels
+    # 7/12 and 2/3 are computed in float32 at run time, as the IR says
+    if factory == "fv_step":
+        assert f"({float(7.0).hex()}f) / ({float(12.0).hex()}f)" in kernels
 
 
 def test_horizontal_offset_read_in_its_own_serial_loop_raises():

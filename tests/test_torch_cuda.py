@@ -7,7 +7,11 @@ GPU machine without JAX:
     GT4PY_TPU_TEST_PLATFORM=gpu python -m pytest -m cuda tests/test_torch_cuda.py
 
 The CPU tests hold the plain executor to the numpy oracle; these hold the
-kernels to the plain executor on the same card.  The kernels are built
+kernels to the plain executor on the same card: the dycore stencils, the
+emitters on other IR, every canonical stencil of
+``tests/cartesian/stencil_defs.py`` (``while``, regions, variable and
+absolute K, data dimensions included), FvAdvection, the semi-Lagrangian
+stencil and FullDycore.  The kernels are built
 without FMA contraction, so in both float64 and float32 they agree with it
 bit for bit; the tolerances below are the stated bounds.
 """
@@ -16,6 +20,7 @@ import numpy as np
 import pytest
 import torch
 
+from gt4py_tpu_torch import testing
 from gt4py_tpu_torch.cartesian import gtscript
 from gt4py_tpu_torch.cartesian.gtscript import (
     BACKWARD,
@@ -24,7 +29,7 @@ from gt4py_tpu_torch.cartesian.gtscript import (
     computation,
     interval,
 )
-from gt4py_tpu_torch.models import dycore
+from gt4py_tpu_torch.models import dycore, full_dycore, fv_advection, semi_lagrangian
 
 TOL = {np.float64: dict(rtol=1e-11, atol=1e-13), np.float32: dict(rtol=1e-6, atol=1e-7)}
 H = 3
@@ -222,3 +227,80 @@ def test_emitters_vs_plain(cuda_device, name):
         got[backend] = tensors
     for k, v in got["torch"].items():
         torch.testing.assert_close(got["cuda"][k], v, rtol=1e-11, atol=1e-13, msg=k)
+
+
+# --------------------------------------------------------------------- #
+# the language surface: every canonical stencil (tests/cartesian/
+# stencil_defs.py, loaded onto the port) and the .at(K=...), variable-K
+# and data-dimension forms of gt4py_tpu_torch.testing.SURFACE
+# --------------------------------------------------------------------- #
+
+REGISTRY = testing.load_stencil_defs()
+CASES = {**{f"defs_{n}": testing.registry_case(e) for n, e in sorted(REGISTRY.items())},
+         **{f"surface_{n}": c for n, c in testing.SURFACE.items()}}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(CASES))
+def test_language_surface_vs_plain(cuda_device, name):
+    got, ref, st = testing.run_pair(*CASES[name], cuda_device)
+    torch.cuda.synchronize()
+    assert st.backend.launches == 1
+    for k, v in ref.items():
+        assert got[k].device.type == "cuda"
+        torch.testing.assert_close(got[k], v, rtol=1e-11, atol=1e-13, msg=k)
+
+
+# --------------------------------------------------------------------- #
+# FvAdvection, the semi-Lagrangian stencil and FullDycore
+# --------------------------------------------------------------------- #
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [np.float64, np.float32], ids=["f64", "f32"])
+@pytest.mark.parametrize("aligned", [True, False], ids=["aligned", "tight"])
+def test_fv_step_vs_plain(cuda_device, aligned, dtype):
+    out = {}
+    for backend in ("cuda", "torch"):
+        fv = fv_advection.FvAdvection(24, 40, 6, dtype=dtype, backend=backend, aligned=aligned,
+                                      device=cuda_device)
+        s = fv.init_state(seed=3)
+        step = fv.step_fn()
+        q = s["q"]
+        for _ in range(3):
+            q = step(q, s["cx"], s["cy"])
+        out[backend] = q
+    torch.testing.assert_close(out["cuda"], out["torch"], **TOL[dtype])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [np.float64, np.float32], ids=["f64", "f32"])
+def test_sl_stencil_vs_plain(cuda_device, dtype):
+    rng = np.random.default_rng(4)
+    shape = SHAPE
+    args = {n: torch.from_numpy((scale * rng.random(shape)).astype(dtype)).to(cuda_device)
+            for n, scale in (("q", 1.0), ("u", 0.8), ("v", -0.8))}
+    out = {}
+    for backend in ("cuda", "torch"):
+        st = semi_lagrangian.make_sl_stencil(dtype, backend=backend)
+        fn = st.functional(origin=ORIGIN, domain=DOMAIN, physical_layout=True,
+                           periodic=("I", "J"))
+        out[backend] = fn(**args, qout=torch.zeros_like(args["q"]), dtdx=0.7,
+                          dtdy=1.0)["qout"]
+    torch.testing.assert_close(out["cuda"], out["torch"], **TOL[dtype])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [np.float64, np.float32], ids=["f64", "f32"])
+def test_full_dycore_three_steps_vs_plain(cuda_device, dtype):
+    got = {}
+    for backend in ("cuda", "torch"):
+        m = full_dycore.FullDycore(24, 40, 8, dtype=dtype, backend=backend,
+                                   device=cuda_device)
+        state = m.init_state(seed=2)
+        step = m.step_fn()
+        for _ in range(3):
+            state = step(state)
+        got[backend] = state
+    for k, v in got["torch"].items():
+        torch.testing.assert_close(got["cuda"][k], v, **TOL[dtype], msg=k)

@@ -11,7 +11,7 @@ backends (``"cuda"`` runs the plain executor on CPU tensors).
   expressions in another operation order (XLA and Mosaic reassociate and
   fuse), so float32 results differ by a few ulp.
 - Every canonical stencil of ``tests/cartesian/stencil_defs.py`` on the
-  port's ``"torch"`` backend against the oracle.
+  port's ``"torch"`` and ``"cuda"`` backends against the oracle.
 """
 
 import numpy as np
@@ -22,6 +22,7 @@ from gt4py_tpu import config as j_config
 from gt4py_tpu.cartesian import gtscript as jgts
 from gt4py_tpu.models import dycore as j_dycore
 
+from gt4py_tpu_torch import testing as p_testing
 from gt4py_tpu_torch.cartesian import gtscript as pgts
 from gt4py_tpu_torch.models import dycore as p_dycore
 
@@ -203,19 +204,9 @@ def test_stencil_defs_torch_vs_numpy_oracle(name):
 
 
 #: canonical stencils outside the CUDA emitters' subset, and the node the
-#: build names
-CUDA_UNSUPPORTED = {
-    "data_dims_dynamic_index": "data dimensions",
-    "data_dims_norm": "data dimensions",
-    "horizontal_regions": "HorizontalRestriction",
-    "region_data_dims_interaction": "data dimensions",
-    "region_while_interaction": "HorizontalRestriction",
-    "region_with_conditional": "HorizontalRestriction",
-    "variable_k_offset": "VariableKOffset",
-    "while_backward": "While",
-    "while_data_dims_interaction": "data dimensions",
-    "while_halving": "While",
-}
+#: build names: none (``while``, regions, variable K and data dimensions
+#: have emitters)
+CUDA_UNSUPPORTED = {}
 
 
 @pytest.mark.parametrize("name", sorted(stencil_defs.REGISTRY))
@@ -235,3 +226,29 @@ def test_stencil_defs_cuda_backend_builds_or_names_the_node(name):
         np.testing.assert_allclose(got[f], ref[f], rtol=1e-12, atol=1e-12,
                                    err_msg=f"{name}.{f}")
 
+
+
+def test_port_registry_loads_every_canonical_stencil():
+    """``gt4py_tpu_torch.testing`` loads tests/cartesian/stencil_defs.py onto
+    the port (for the card, where JAX is absent): the same entries, each
+    definition built by the port's frontend with the same analysis."""
+    from .test_torch_frontend import assert_same_analysis
+
+    port = p_testing.load_stencil_defs()
+    assert sorted(port) == sorted(stencil_defs.REGISTRY)
+    for name in ("horizontal_regions", "variable_k_offset", "data_dims_dynamic_index"):
+        ja = jgts.stencil(backend="numpy", definition=stencil_defs.REGISTRY[name]["definition"],
+                          rebuild=True).analysis
+        pa = pgts.stencil(backend="cuda", definition=port[name]["definition"],
+                          rebuild=True).analysis
+        assert_same_analysis(ja, pa)
+
+
+@pytest.mark.parametrize("name", sorted(p_testing.SURFACE))
+def test_surface_cases_on_cpu_tensors_run_the_plain_executor(name):
+    """On CPU tensors the "cuda" backend runs the plain executor: no kernel
+    is launched, and the result equals ``"torch"``'s."""
+    got, ref, st = p_testing.run_pair(*p_testing.SURFACE[name], "cpu")
+    assert st.backend.launches == 0
+    for k, v in ref.items():
+        torch.testing.assert_close(got[k], v, rtol=0, atol=0, msg=k)
