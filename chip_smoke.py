@@ -29,7 +29,18 @@ Phases (a failed phase raises, and the script exits non-zero):
    fv_step and sl_step singly against plain (and at 64x256x16 float64),
    then 10 steps with the launch counts of every stencil read around them,
    ``u``, ``q`` and ``qsl`` checked finite and against 10 plain steps, then
-   the steps timed with CUDA events, one call at a time and back to back.
+   the steps timed with CUDA events, one call at a time and back to back;
+7. the next DSL (``gt4py_tpu_torch.next``) at 512x512x80 float32 and
+   64x256x16 float64, bench.py's configurations and geometry: the hdiff
+   field operator with ``out=``/``domain=``, the four-statement hdiff
+   program and the lap -> scan -> update program, each fused and
+   statement-wise (``config.PROGRAM_FUSION``), and the tridiagonal scans
+   with a tuple carry.  Each runs ``with_backend("cuda")`` against the
+   embedded ``with_backend("torch")`` on the card, with every kernel's
+   launch count read around the run and ``cuda_bridge.FALLBACK_EVENTS``
+   unchanged across the phase; then each is timed (CUDA events, one call
+   at a time and 20 back to back; the host's enqueue time per call), and
+   hdiff once more on K-contiguous fields.
 
 The line before the last is one JSON object with every kernel's launches,
 error and times; the last line is ``{"ok": true, "device": {...}}``.
@@ -42,7 +53,6 @@ import statistics
 import subprocess
 import sys
 import time
-from concurrent.futures import ThreadPoolExecutor
 
 #: f64 kernel vs plain: allows for FMA contraction (the kernels build with
 #: --fmad=false; measured on an H100 the difference is 0, see PERF.md)
@@ -69,9 +79,11 @@ SURFACE_FEATURES = {
                   "while_data_dims_interaction", "data_dims_writes", "data_dims_dynamic_write"],
     "while": ["while_halving", "while_backward", "region_while_interaction"],
     "regions": ["horizontal_regions", "region_with_conditional"],
+    "float16": ["float16_hdiff_sweep"],
 }
 SURFACE_TIMED = {"vark": "variable_k_offset", "data_dims": "data_dims_dynamic_index",
-                 "while": "while_halving", "regions": "horizontal_regions"}
+                 "while": "while_halving", "regions": "horizontal_regions",
+                 "float16": "float16_hdiff_sweep"}
 
 
 def _nvidia_smi() -> str:
@@ -149,22 +161,6 @@ def _ptxas(st) -> str:
     return f"registers {regs}, spill stores {spills}"
 
 
-def _build_all(stencils):
-    """Build every stencil's kernels at once: one nvcc per distinct source,
-    all started together (nvcc runs outside the GIL)."""
-    from gt4py_tpu_torch.cartesian.backend import _build
-
-    first = {}
-    for st in stencils:
-        first.setdefault(_build.build_key(st.backend.source), st)
-    t0 = time.perf_counter()
-    with ThreadPoolExecutor(max_workers=len(first)) as ex:
-        list(ex.map(lambda st: st.backend.build(), first.values()))
-    for st in stencils:  # the rest load the built library
-        st.backend.build()
-    return len(first), time.perf_counter() - t0
-
-
 def _stencil_calls(md, state, diffused):
     """The three MiniDycore stencils' periodic calls on ``state`` as the
     steps make them (``diffused``: hdiff's output, vadv_update's input):
@@ -222,6 +218,26 @@ def _scaled_inputs(make_inputs, shape, device):
     return out, scalars
 
 
+def _time_b2b_ms(fn, n):
+    """Milliseconds per call of ``n`` calls enqueued back to back between
+    two CUDA events, and the host's milliseconds per call to enqueue them
+    (the host clock, no synchronisation inside)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    host = (time.perf_counter() - t0) * 1e3 / n
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b) / n, host
+
+
 def main() -> int:
     import torch
 
@@ -236,6 +252,9 @@ def main() -> int:
     from gt4py_tpu_torch.cartesian.backend import _build
     from gt4py_tpu_torch.cartesian.backend.cuda_backend import REPLACES
     from gt4py_tpu_torch.models import dycore, full_dycore
+    from gt4py_tpu_torch.next import cuda_bridge
+    from gt4py_tpu_torch.next.compiled_program import build_all
+    from gt4py_tpu_torch.next.testing import bench_cases, program_fusion
 
     # -- 1. the card ------------------------------------------------------
     dev = torch.device("cuda", 0)
@@ -248,6 +267,7 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
 
     # -- 2. build -----------------------------------------------------------
+    fallback_cursor = cuda_bridge.FALLBACK_EVENTS.cursor()
     configs = {
         "f32": dict(shape=(NI, NJ, NK), dtype=np.float32, rtol=RTOL_F32, atol=ATOL_F32),
         "f64": dict(shape=SMALL, dtype=np.float64, rtol=RTOL_F64, atol=ATOL_F64),
@@ -269,7 +289,13 @@ def main() -> int:
     }
     main_stencils = [st for fd, _ in models.values()
                      for st in (fd.dyn.hdiff, fd.dyn.vadv_upd, fd.dyn.fused, fd.fv.fv_step, fd.sl)]
-    n_sources, build_s = _build_all(main_stencils + list(surface_stencils.values()))
+    next_cases = {key: bench_cases(c["dtype"], c["shape"], dev) for key, c in configs.items()}
+    next_kernels = [b for cases in next_cases.values() for case in cases.values()
+                    for b in case["kernels"]()]
+    t0 = time.perf_counter()
+    n_sources = build_all(
+        [st.backend for st in main_stencils + list(surface_stencils.values())] + next_kernels)
+    build_s = time.perf_counter() - t0
     print(f"build: {n_sources} sources, {build_s:.2f} s (nvcc in parallel)")
     for st in main_stencils:
         print(f"built {st.name}: {len(st.backend.program.kernels)} kernels, {_ptxas(st)}")
@@ -390,15 +416,16 @@ def main() -> int:
 
             # the call writes its outputs in place: each call gets fresh
             # copies of them, so every call does the same work
-            def call(st=st, written=written):
+            def call(st=st, written=written, origin=kw.get("origin", (0, 0, 0))):
                 st(**{k: (v.clone() if k in written else v) for k, v in tensors.items()},
-                   **scalars)
+                   **scalars, origin=origin)
 
             timed[backend] = _time_ms(call, TIMING_REPS if backend == "cuda"
                                       else PLAIN_TIMING_REPS)
+        dt = next(iter(tensors.values())).dtype
         print(f"surface {feature}: {len(names)} stencils, {total} launches, max abs err "
-              f"{worst:.3e} (f64 rtol {RTOL_F64}, atol {ATOL_F64}); "
-              f"{SURFACE_TIMED[feature]} at 512x512x80 f64, J contiguous (outputs copied "
+              f"{worst:.3e} (rtol {RTOL_F64}, atol {ATOL_F64}); "
+              f"{SURFACE_TIMED[feature]} at 512x512x80 {dt}, J contiguous (outputs copied "
               f"per call): kernel {timed['cuda']:.4f} ms, plain {timed['torch']:.4f} ms")
         kernels.append({
             "name": f"{feature}: " + ", ".join(names),
@@ -508,6 +535,63 @@ def main() -> int:
             "replaces": REPLACES["rows"] + "; " + REPLACES["wrap"],
             "launches": full_launches[name],
             "max_abs_err": fv_errors[("f32", name)][0],
+            "ms": ms,
+            "plain_ms": plain_ms,
+        })
+
+    # -- 7. the next DSL ---------------------------------------------------
+    next_errors = {}
+    next_launches = {}
+    for key, cases in next_cases.items():
+        c = configs[key]
+        for name, case in cases.items():
+            kern = [k for obj in case["objs"] for k in cuda_bridge.kernels_of(obj)]
+            for k in kern:
+                k.launches = 0
+            with program_fusion(case["fusion"]):
+                got = case["run"]("cuda")
+                torch.cuda.synchronize()
+                counts = [k.launches for k in kern]
+                ref = (cases["hdiff"] if name == "hdiff_kcontig" else case)["run"]("torch")
+            if not kern or min(counts) == 0:
+                raise AssertionError(f"next {name} {key}: a kernel was not launched "
+                                     f"(launches {counts})")
+            worst = 0.0
+            for field, t in ref.items():
+                e = _check_close(f"next {name} {key}.{field}", got[field], t, c["rtol"],
+                                 c["atol"])
+                worst = max(worst, e[0])
+            next_errors[(key, name)] = worst
+            next_launches[(key, name)] = sum(counts)
+            print(f"next {name} {key} {tuple(c['shape'])}: {len(kern)} kernels "
+                  f"({', '.join(sorted({k.analysis.stencil.name for k in kern}))}), launches "
+                  f"{counts}, max abs err vs embedded torch {worst:.3e} "
+                  f"(rtol {c['rtol']}, atol {c['atol']})")
+    new_fallbacks = cuda_bridge.FALLBACK_EVENTS.since(fallback_cursor)
+    if new_fallbacks:
+        raise AssertionError(f"next operators ran embedded: {new_fallbacks}")
+    print("next: cuda_bridge.FALLBACK_EVENTS unchanged across phases 2-7")
+    for name, case in next_cases["f32"].items():
+        with program_fusion(case["fusion"]):
+            ms = _time_ms(lambda: case["run"]("cuda"), TIMING_REPS)
+            b2b, host = _time_b2b_ms(lambda: case["run"]("cuda"), BACK_TO_BACK)
+            plain_ms = _time_ms(lambda: case["run"]("torch"), PLAIN_TIMING_REPS) \
+                if name != "hdiff_kcontig" else float("nan")
+            plain_b2b, plain_host = _time_b2b_ms(lambda: case["run"]("torch"), BACK_TO_BACK) \
+                if name != "hdiff_kcontig" else (float("nan"), float("nan"))
+        print(f"next {name} 512x512x80 f32: kernels {ms:.4f} ms one call at a time, "
+              f"{b2b:.4f} ms back to back ({BACK_TO_BACK} calls), host enqueue "
+              f"{host:.4f} ms/call; embedded torch {plain_ms:.4f} ms one at a time, "
+              f"{plain_b2b:.4f} ms back to back, host {plain_host:.4f} ms/call")
+        if name == "hdiff_kcontig":
+            continue
+        kernels.append({
+            "name": f"next {name}",
+            "route": "cuda",
+            "source": "gt4py_tpu_torch/next/cuda_bridge.py",
+            "replaces": cuda_bridge.REPLACES,
+            "launches": next_launches[("f32", name)],
+            "max_abs_err": next_errors[("f32", name)],
             "ms": ms,
             "plain_ms": plain_ms,
         })

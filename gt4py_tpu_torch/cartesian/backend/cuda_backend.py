@@ -41,12 +41,23 @@ promoted dtype and every literal is emitted exactly, in the dtype the
 analysis gave it (hex floats with an ``f`` suffix in float32), so no float32
 chain silently computes in double.
 
+float16 is a storage type (Pallas ``_f16_reads_all_widened``): a field,
+scratch temporary or scalar of float16 is stored as ``__half``, loaded with
+``__half2float`` and stored with ``__float2half_rn`` (round to nearest
+even, as torch's ``.half()``).  Every float16 value in a kernel is a
+``float`` that holds a float16 number: an operation whose promoted dtype
+is float16 computes in float and rounds to float16 (``gt::round_half``),
+which is the correctly rounded float16 result, as numpy gives it.  The
+builder's ``passes.widen_f16_compute`` leaves only casts and stores at
+float16, so a cartesian stencil's body computes in float32 (or float64
+where its literals are float64; a float64 value is rounded to float16
+once, with ``__double2half``).
+
 This backend does not inline temporaries (``passes.inline_parallel_
 temporaries``, which the ``"jax"`` backend applies): the horizontal
 diffusion is three row-form kernels.  IR outside the emitters' subset --
-16-bit floats, a data-dimension field read without all its indices, a
-write at a variable K -- raises ``NotImplementedError`` when the stencil is
-built.  Nothing falls back to the plain executor on the GPU: CPU tensors
+a data-dimension field read without all its indices, a write at a
+variable K -- raises ``NotImplementedError`` when the stencil is built.  Nothing falls back to the plain executor on the GPU: CPU tensors
 run the plain executor (``torch_backend``), CUDA tensors run the kernels or
 raise.
 """
@@ -104,6 +115,7 @@ MAX_DATA_DIMS = 4
 #: the buffer's K range [klo, khi] in domain-relative levels
 _REC = 3 + MAX_DATA_DIMS + 2
 
+#: storage C type of each dtype (``_ctype`` gives the type of a value)
 _CTYPE = {
     np.dtype(np.bool_): "bool",
     np.dtype(np.int8): "signed char",
@@ -111,9 +123,11 @@ _CTYPE = {
     np.dtype(np.int32): "int",
     np.dtype(np.int64): "long long",
     np.dtype(np.uint8): "unsigned char",
+    np.dtype(np.float16): "__half",
     np.dtype(np.float32): "float",
     np.dtype(np.float64): "double",
 }
+_F16 = np.dtype(np.float16)
 _F32 = np.dtype(np.float32)
 _F64 = np.dtype(np.float64)
 _I64 = np.dtype(np.int64)
@@ -173,11 +187,27 @@ _BOOL_FUNCS = {
 
 
 def _ctype(dt) -> str:
+    """C type of a value: a float16 value is a ``float``."""
+    return "float" if np.dtype(dt) == _F16 else _CTYPE[np.dtype(dt)]
+
+
+def _stype(dt) -> str:
+    """C type of a stored element (``__half`` for float16)."""
     return _CTYPE[np.dtype(dt)]
 
 
 def _cast(code: str, src, dst) -> str:
-    return code if np.dtype(src) == np.dtype(dst) else f"(({_ctype(dst)})({code}))"
+    if np.dtype(src) == np.dtype(dst):
+        return code
+    if np.dtype(dst) == _F16:
+        return f"gt::round_half({code})"
+    return f"(({_ctype(dst)})({code}))"
+
+
+def _rounded(code: str, dt) -> str:
+    """The result of an operation computed in float, rounded to float16
+    when its dtype is float16."""
+    return f"gt::round_half({code})" if np.dtype(dt) == _F16 else code
 
 
 def _literal(value, dt) -> str:
@@ -191,8 +221,9 @@ def _literal(value, dt) -> str:
             return f"(({ct})NAN)"
         if v in (float("inf"), float("-inf")):
             return f"(({ct})({'-' if v < 0 else ''}INFINITY))"
-        # hex floats are exact; the f suffix keeps float32 chains in float32
-        return f"({v.hex()}{'f' if dt == _F32 else ''})"
+        # hex floats are exact; the f suffix keeps float32 (and float16)
+        # chains in float
+        return f"({v.hex()}{'f' if dt in (_F16, _F32) else ''})"
     return f"(({_ctype(dt)}){int(np.asarray(value, dtype=dt))}LL)"
 
 
@@ -563,7 +594,10 @@ class _Emitter:
         if isinstance(e, ir.ScalarAccess):
             return f"s_{e.name}", np.dtype(st.scalar_decls[e.name].dtype)
         if isinstance(e, ir.FieldAccess):
-            return self.access(e), np.dtype(st.decl(e.name).dtype)
+            dt = np.dtype(st.decl(e.name).dtype)
+            if dt == _F16 and e.name not in self.locals:
+                return f"__half2float({self.access(e)})", dt
+            return self.access(e), dt
         if isinstance(e, ir.AxisPosition):
             dt = default_int_dtype(st)
             return _cast(e.axis.lower(), np.dtype(np.int32), dt), dt
@@ -607,22 +641,22 @@ class _Emitter:
         if op == ir.BinaryOperator.DIV:
             if not is_float_dtype(target):  # numpy: int / int -> float64
                 return f"({_cast(l, ldt, _F64)} / {_cast(r, rdt, _F64)})", _F64
-            return f"({lc} / {rc})", target
+            return _rounded(f"({lc} / {rc})", target), target
         if op == ir.BinaryOperator.FLOOR_DIV:
             fn = "gt::ffloordiv" if is_float_dtype(target) else "gt::ifloordiv"
-            return f"{fn}<{_ctype(target)}>({lc}, {rc})", target
+            return _rounded(f"{fn}<{_ctype(target)}>({lc}, {rc})", target), target
         if op == ir.BinaryOperator.MOD:
             fn = "gt::fmod_py" if is_float_dtype(target) else "gt::imod"
-            return f"{fn}<{_ctype(target)}>({lc}, {rc})", target
+            return _rounded(f"{fn}<{_ctype(target)}>({lc}, {rc})", target), target
         if op == ir.BinaryOperator.POW:
             if is_float_dtype(target):
-                fn = "powf" if target == _F32 else "pow"
-                return f"{fn}({lc}, {rc})", target
+                fn = "pow" if target == _F64 else "powf"
+                return _rounded(f"{fn}({lc}, {rc})", target), target
             return f"gt::ipow<{_ctype(target)}>({lc}, {rc})", target
         code = f"({lc} {_BINOP_SYM[op]} {rc})"
         if not is_float_dtype(target):  # undo C's integer promotion
             code = f"(({_ctype(target)}){code})"
-        return code, target
+        return _rounded(code, target), target
 
     def native(self, e: ir.NativeFuncCall) -> Tuple[str, np.dtype]:
         args = [self.expr(a) for a in e.args]
@@ -640,22 +674,23 @@ class _Emitter:
             if not is_float_dtype(adt):
                 codes = [_cast(c, adt, _F64) for c in codes]
                 adt = _F64
-            name = _FLOAT_FUNCS[fn][0 if adt == _F32 else 1]
-            return f"{name}({', '.join(codes)})", adt
+            name = _FLOAT_FUNCS[fn][1 if adt == _F64 else 0]
+            return _rounded(f"{name}({', '.join(codes)})", adt), adt
         ct = _ctype(adt)
         if fn == ir.NativeFunction.ABS:
             if is_float_dtype(adt):
-                return f"{'fabsf' if adt == _F32 else 'fabs'}({codes[0]})", adt
+                return f"{'fabs' if adt == _F64 else 'fabsf'}({codes[0]})", adt
             return f"gt::iabs<{ct}>({codes[0]})", adt
         if fn in (ir.NativeFunction.MIN, ir.NativeFunction.MAX):
             which = "minimum" if fn == ir.NativeFunction.MIN else "maximum"
             return f"gt::{which}<{ct}>({codes[0]}, {codes[1]})", adt
         if fn == ir.NativeFunction.MOD:
             helper = "gt::fmod_py" if is_float_dtype(adt) else "gt::imod"
-            return f"{helper}<{ct}>({codes[0]}, {codes[1]})", adt
+            return _rounded(f"{helper}<{ct}>({codes[0]}, {codes[1]})", adt), adt
         if fn == ir.NativeFunction.POW:
             if is_float_dtype(adt):
-                return f"{'powf' if adt == _F32 else 'pow'}({codes[0]}, {codes[1]})", adt
+                fname = "pow" if adt == _F64 else "powf"
+                return _rounded(f"{fname}({codes[0]}, {codes[1]})", adt), adt
             return f"gt::ipow<{ct}>({codes[0]}, {codes[1]})", adt
         raise NotImplementedError(f"cuda backend: no emitter for builtin {fn.value}")
 
@@ -665,7 +700,10 @@ class _Emitter:
         if isinstance(s, ir.Assign):
             code, dt = self.expr(s.value)
             tdt = np.dtype(self.stencil.decl(s.target.name).dtype)
-            return [f"{ind}{self.access(s.target)} = {_cast(code, dt, tdt)};"]
+            value = _cast(code, dt, tdt)
+            if tdt == _F16 and s.target.name not in self.locals:
+                value = f"__float2half_rn({value})"  # exact: value is a float16
+            return [f"{ind}{self.access(s.target)} = {value};"]
         if isinstance(s, ir.If):
             cond, _ = self.expr(s.cond)
             out = [f"{ind}if ({cond}) {{"]
@@ -746,8 +784,8 @@ def generate(analysis: StencilAnalysis) -> CudaProgram:
     em = _Emitter(analysis, locals_)
 
     params = (
-        [f"gt::Field<{_ctype(st.field_decls[n].dtype)}> f_{n}" for n in fields]
-        + [f"gt::Field<{_ctype(st.temp_decls[n].dtype)}> t_{n}" for n in scratch]
+        [f"gt::Field<{_stype(st.field_decls[n].dtype)}> f_{n}" for n in fields]
+        + [f"gt::Field<{_stype(st.temp_decls[n].dtype)}> t_{n}" for n in scratch]
         + ["int dI", "int dJ", "int dK", "int pI", "int pJ", f"gt::KBounds<{nsec}> kb"]
         + [f"{_ctype(st.scalar_decls[n].dtype)} s_{n}" for n in scalars]
     )
@@ -811,7 +849,7 @@ def generate(analysis: StencilAnalysis) -> CudaProgram:
         "void* stream) {",
     ]
     for b, n in enumerate(fields + scratch):
-        ct = _ctype(st.decl(n).dtype)
+        ct = _stype(st.decl(n).dtype)
         var = ("f_" if n in st.field_decls else "t_") + n
         s = [f"strides[{_REC * b + x}]" for x in range(_REC)]
         sd = ", ".join(s[3:3 + MAX_DATA_DIMS])
@@ -871,15 +909,16 @@ def generate(analysis: StencilAnalysis) -> CudaProgram:
 # --------------------------------------------------------------------------- #
 
 
-def _is_dense(t: torch.Tensor) -> bool:
-    """True when the view's elements do not overlap and fill a block of
-    memory (any axis order; size-1 axes ignored)."""
-    dims = sorted((s, n) for s, n in zip(t.stride(), t.shape) if n != 1)
-    expect = 1
-    for s, n in dims:
-        if s != expect:
+def _no_overlap(t: torch.Tensor) -> bool:
+    """True when no two elements of the view share memory: in the order of
+    increasing stride, each stride passes the span of the axes before it
+    (any axis order, gaps allowed, size-1 axes ignored; an expanded view
+    fails)."""
+    span = 0
+    for s, n in sorted((s, n) for s, n in zip(t.stride(), t.shape) if n != 1):
+        if s <= span:
             return False
-        expect *= n
+        span += s * (n - 1)
     return True
 
 
@@ -958,8 +997,8 @@ class CudaBackend:
                     f"field '{name}' must be an (I, J, K, *{decl.data_dims}) view, "
                     f"got shape {tuple(v.shape)}"
                 )
-            if not _is_dense(v):
-                raise ValueError(f"field '{name}' is not contiguous")
+            if not _no_overlap(v):
+                raise ValueError(f"field '{name}' is a view whose elements overlap")
         return devices.pop()
 
     def _launch(self, env, scalars, domain, origins, periodic) -> None:
@@ -1003,7 +1042,10 @@ class CudaBackend:
             ptrs.append(p)
             strides += s
         kb = [k for bounds in kb for k in bounds]
-        fsc = [float(_scalar_value(scalars[n])) for n in prog.float_scalars]
+        # rounded to the scalar's dtype here, so the kernel's conversion
+        # from double is exact
+        fsc = [float(np.asarray(_scalar_value(scalars[n]), dtype=st.scalar_decls[n].dtype))
+               for n in prog.float_scalars]
         isc = [int(_scalar_value(scalars[n])) for n in prog.int_scalars]
 
         with torch.cuda.device(device):

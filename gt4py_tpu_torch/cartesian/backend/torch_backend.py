@@ -40,8 +40,7 @@ def _np_dtype(t: torch.Tensor) -> np.dtype:
 
 
 def _cast(t: torch.Tensor, dt) -> torch.Tensor:
-    tdt = dtypes.to_torch(dt)
-    return t if t.dtype == tdt else t.to(tdt)
+    return dtypes.cast(t, dt)
 
 
 def _is_intlike(t: torch.Tensor) -> bool:

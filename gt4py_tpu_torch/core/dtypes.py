@@ -43,3 +43,29 @@ def to_numpy(dt) -> np.dtype:
         except KeyError:
             raise TypeError(f"torch dtype {dt} has no numpy counterpart here") from None
     return np.dtype(dt)
+
+
+def _f64_to_f16(t: torch.Tensor) -> torch.Tensor:
+    """float64 -> float16 rounded once, to nearest even, as numpy's
+    ``astype`` and the card's ``__double2half`` round.  (``.to(float16)``
+    rounds a double through float32: twice.)  Rounded to odd into float32
+    first -- truncate, then set the last bit when inexact -- a float32
+    keeps the two extra bits that make the second rounding exact."""
+    x32 = t.to(torch.float32)
+    back = x32.to(torch.float64)
+    inexact = (back != t) & torch.isfinite(t)
+    away = inexact & (back.abs() > t.abs())
+    x32 = torch.where(away, torch.nextafter(x32, torch.zeros_like(x32)), x32)
+    x32 = torch.where(inexact, (x32.view(torch.int32) | 1).view(torch.float32), x32)
+    return x32.to(torch.float16)
+
+
+def cast(t: torch.Tensor, dt) -> torch.Tensor:
+    """``t`` converted to ``dt`` (numpy or torch dtype) as numpy converts:
+    float64 -> float16 rounds once."""
+    tdt = to_torch(dt)
+    if t.dtype == tdt:
+        return t
+    if tdt == torch.float16 and t.dtype == torch.float64:
+        return _f64_to_f16(t)
+    return t.to(tdt)

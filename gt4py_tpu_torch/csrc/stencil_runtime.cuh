@@ -8,6 +8,7 @@
 // with nvcc in seconds.
 #pragma once
 
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 
@@ -53,6 +54,15 @@ struct KBounds {
 __device__ __forceinline__ int wrap(int x, int n, int periodic) {
   return periodic ? (x < 0 ? x + n : (x >= n ? x - n : x)) : x;
 }
+
+// float16 is a storage type: a float16 value in a kernel is a float that
+// holds a float16 number.  round_half rounds a result to float16 (to
+// nearest even, as torch's .half() and numpy do); from double it rounds
+// once, not through float.
+__device__ __forceinline__ float round_half(float x) { return __half2float(__float2half_rn(x)); }
+__device__ __forceinline__ float round_half(double x) { return __half2float(__double2half(x)); }
+template <typename T>
+__device__ __forceinline__ float round_half(T x) { return round_half((double)x); }
 
 __device__ __forceinline__ float fmod_(float a, float b) { return fmodf(a, b); }
 __device__ __forceinline__ double fmod_(double a, double b) { return fmod(a, b); }

@@ -10,7 +10,8 @@ Used by the card tests (``tests/test_torch_cuda.py``) and the chip check
 - ``SURFACE``: the language features the TPU kernels run in-kernel and the
   registry covers only in part -- absolute K (``.at(K=...)``) from a
   literal, a scalar and a 2D field, absolute and variable K inside scans,
-  data dimensions of rank 2 with constant and per-point writes.
+  data dimensions of rank 2 with constant and per-point writes, float16
+  storage in the row and the column form.
 - ``run_pair()``: one definition on ``"cuda"`` and on ``"torch"`` over the
   same inputs on one device.
 """
@@ -122,6 +123,25 @@ def data_dims_dynamic_write(vec: gtscript.Field[(np.float64, (3,))], idx: I64, a
         vec[0, 0, 0][(idx + 1) % 3] = a * 2.0
 
 
+F16 = gtscript.Field[np.float16]
+
+
+def float16_hdiff_sweep(inp: F16, coeff: F16, out: F16, col: F16):
+    with computation(PARALLEL), interval(...):
+        lap = 4.0 * inp[0, 0, 0] - (inp[1, 0, 0] + inp[-1, 0, 0] + inp[0, 1, 0] + inp[0, -1, 0])
+        res = lap[1, 0, 0] - lap[0, 0, 0]
+        flx = 0 if (res * (inp[1, 0, 0] - inp[0, 0, 0])) > 0 else res
+        res = lap[0, 1, 0] - lap[0, 0, 0]
+        fly = 0 if (res * (inp[0, 1, 0] - inp[0, 0, 0])) > 0 else res
+        out = inp[0, 0, 0] - coeff[0, 0, 0] * (flx[0, 0, 0] - flx[-1, 0, 0]
+                                               + fly[0, 0, 0] - fly[0, -1, 0])
+    with computation(FORWARD):
+        with interval(0, 1):
+            col = out[0, 0, 0]
+        with interval(1, None):
+            col = 0.5 * col[0, 0, -1] + out[0, 0, 0]
+
+
 def _rng(seed):
     return np.random.default_rng(seed)
 
@@ -150,6 +170,11 @@ SURFACE: Dict[str, Tuple[Callable, Callable, dict]] = {
         dict(vec=_rng(11).random((6, 5, 4, 3)), idx=_rng(12).integers(-5, 6, (6, 5, 4)),
              a=_rng(13).random((6, 5, 4)), out=np.zeros((6, 5, 4))), {}),
         dict(origin=(1, 0, 0), domain=(4, 5, 4))),
+    "float16_hdiff_sweep": (float16_hdiff_sweep, lambda: (
+        dict(inp=_rng(14).random((12, 11, 6)).astype(np.float16),
+             coeff=(0.025 * _rng(15).random((12, 11, 6))).astype(np.float16),
+             out=np.zeros((12, 11, 6), np.float16), col=np.zeros((12, 11, 6), np.float16)), {}),
+        dict(origin=(2, 2, 0), domain=(8, 7, 6))),
 }
 
 

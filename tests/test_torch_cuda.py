@@ -229,6 +229,29 @@ def test_emitters_vs_plain(cuda_device, name):
         torch.testing.assert_close(got["cuda"][k], v, rtol=1e-11, atol=1e-13, msg=k)
 
 
+@pytest.mark.cuda
+def test_float16_storage_vs_plain(cuda_device):
+    """float16 fields: ``__half`` loads and stores around float compute, in
+    the row and the column form, equal to the plain executor exactly."""
+    rng = np.random.default_rng(16)
+    shape = (40, 70, 9)
+    inputs = {"inp": rng.random(shape), "coeff": 0.025 * rng.random(shape),
+              "out": np.zeros(shape), "col": np.zeros(shape)}
+    got = {}
+    for backend in ("cuda", "torch"):
+        st = gtscript.stencil(backend=backend, definition=testing.float16_hdiff_sweep,
+                              rebuild=True)
+        tensors = {k: torch.from_numpy(v.astype(np.float16)).to(cuda_device)
+                   for k, v in inputs.items()}
+        st(**tensors, origin=(2, 2, 0), domain=(36, 66, 9))
+        if backend == "cuda":
+            torch.cuda.synchronize()
+            assert st.backend.launches == 1
+        got[backend] = tensors
+    for k in ("out", "col"):
+        torch.testing.assert_close(got["cuda"][k], got["torch"][k], rtol=0, atol=0, msg=k)
+
+
 # --------------------------------------------------------------------- #
 # the language surface: every canonical stencil (tests/cartesian/
 # stencil_defs.py, loaded onto the port) and the .at(K=...), variable-K
@@ -304,3 +327,37 @@ def test_full_dycore_three_steps_vs_plain(cuda_device, dtype):
         got[backend] = state
     for k, v in got["torch"].items():
         torch.testing.assert_close(got["cuda"][k], v, **TOL[dtype], msg=k)
+
+
+# --------------------------------------------------------------------- #
+# the next DSL through cuda_bridge: bench.py's configurations
+# --------------------------------------------------------------------- #
+
+NEXT_CASES = ["hdiff", "hdiff_kcontig", "hdiff_prog_fused", "hdiff_prog_statementwise",
+              "mixed_prog_fused", "mixed_prog_statementwise", "tridiag"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [np.float64, np.float32], ids=["f64", "f32"])
+@pytest.mark.parametrize("name", NEXT_CASES)
+def test_next_bench_cases_vs_embedded(cuda_device, name, dtype):
+    """``with_backend("cuda")`` launches every planned kernel and agrees
+    with the embedded ``with_backend("torch")`` on the card, with no
+    operator falling back."""
+    from gt4py_tpu_torch.next import cuda_bridge
+    from gt4py_tpu_torch.next.testing import bench_cases, program_fusion
+
+    cur = cuda_bridge.FALLBACK_EVENTS.cursor()
+    cases = bench_cases(dtype, (24, 40, 7), cuda_device)
+    case = cases[name]
+    with program_fusion(case["fusion"]):
+        case["kernels"]()
+        got = case["run"]("cuda")
+        torch.cuda.synchronize()
+        ref = (cases["hdiff"] if name == "hdiff_kcontig" else case)["run"]("torch")
+    counts = [k.launches for obj in case["objs"] for k in cuda_bridge.kernels_of(obj)]
+    assert counts and min(counts) >= 1
+    assert cuda_bridge.FALLBACK_EVENTS.since(cur) == []
+    for k, v in ref.items():
+        assert got[k].device.type == "cuda"
+        torch.testing.assert_close(got[k], v, **TOL[dtype], msg=k)

@@ -72,6 +72,16 @@ inline const char* cudaGetErrorString(cudaError_t) { return "emulated"; }
   } while (0)
 """
 
+#: ``cuda_fp16.h`` on the host: ``__half`` is the compiler's ``_Float16``,
+#: whose conversions round to nearest even, as the card's intrinsics do
+EMULATED_FP16 = r"""
+#pragma once
+typedef _Float16 __half;
+inline float __half2float(__half h) { return (float)h; }
+inline __half __float2half_rn(float f) { return (__half)f; }
+inline __half __double2half(double d) { return (__half)d; }
+"""
+
 _LAUNCH = re.compile(r"(\w+)<<<grid, block, 0, st>>>\((.*)\);")
 
 
@@ -86,6 +96,7 @@ def emulated_dir(tmp_path_factory):
         pytest.skip("needs a host C++ compiler (g++)")
     d = tmp_path_factory.mktemp("emulated")
     (d / "cuda_runtime.h").write_text(EMULATED_RUNTIME)
+    (d / "cuda_fp16.h").write_text(EMULATED_FP16)
     return cxx, d
 
 
@@ -97,7 +108,8 @@ def emulated(monkeypatch, emulated_dir):
 
     def build(source, name):
         src = _LAUNCH.sub(r"GT_EMULATED_LAUNCH(grid, block, \1, \2);", source)
-        out = d / hashlib.sha256(src.encode() + _build._runtime_header().encode()).hexdigest()
+        out = d / hashlib.sha256(src.encode() + _build._runtime_header().encode()
+                                 + EMULATED_FP16.encode()).hexdigest()
         lib = out / f"lib{name}.so"
         if not lib.exists():
             out.mkdir(exist_ok=True)
@@ -164,3 +176,90 @@ def test_full_dycore_emulated_vs_plain(emulated, aligned, dtype):
     assert launched["cuda"] == [3, 3, 3, 3]
     for k, v in got["torch"].items():
         torch.testing.assert_close(got["cuda"][k], v, rtol=0, atol=0, msg=k)
+
+
+def test_emulated_half_rounds_as_torch(emulated_dir, tmp_path):
+    """The stub's ``__half`` conversions round to nearest even, ties and
+    subnormals included: from float as torch's ``.half()`` does; from
+    double once, as numpy's ``astype(float16)`` and the card's
+    ``__double2half`` do (torch rounds a double through float first)."""
+    cxx, d = emulated_dir
+    src = tmp_path / "half.cpp"
+    src.write_text('#include "cuda_fp16.h"\n'
+                   'extern "C" void from_f(const float* x, float* y, int n) {\n'
+                   '  for (int i = 0; i < n; ++i) y[i] = __half2float(__float2half_rn(x[i])); }\n'
+                   'extern "C" void from_d(const double* x, float* y, int n) {\n'
+                   '  for (int i = 0; i < n; ++i) y[i] = __half2float(__double2half(x[i])); }\n')
+    lib_path = tmp_path / "libhalf.so"
+    proc = subprocess.run([cxx, "-std=c++17", "-shared", "-fPIC", "-I", str(d), "-o",
+                           str(lib_path), str(src)], capture_output=True, text=True)
+    assert proc.returncode == 0, proc.stderr[:2000]
+    lib = ctypes.CDLL(str(lib_path))
+    rng = np.random.default_rng(11)
+    x = np.concatenate([rng.normal(0, 100, 4000), rng.normal(0, 1e-5, 1000),
+                        np.float16(rng.normal(0, 10, 500)).astype(np.float64) * (1 + 2 ** -11),
+                        [65504.0, 65520.0, -65519.0, 2.0 ** -24 * 0.5, 0.0, -0.0]])
+    x32 = x.astype(np.float32)
+    cases = ((lib.from_f, x32, torch.from_numpy(x32).half().float().numpy()),
+             (lib.from_d, x, x.astype(np.float16).astype(np.float32)))
+    for fn, arr, ref in cases:
+        y = np.empty(arr.size, np.float32)
+        fn(arr.ctypes.data_as(ctypes.c_void_p), y.ctypes.data_as(ctypes.c_void_p),
+           ctypes.c_int(arr.size))
+        np.testing.assert_array_equal(y, ref)
+
+
+def _f16_jax_def():
+    """``gt4py_tpu_torch.testing.float16_hdiff_sweep`` written for the JAX
+    package."""
+    from gt4py_tpu.cartesian import gtscript as jgts
+    from gt4py_tpu.cartesian.gtscript import FORWARD, PARALLEL, computation, interval
+
+    F16 = jgts.Field[np.float16]
+
+    def f16_hdiff_sweep(inp: F16, coeff: F16, out: F16, col: F16):
+        with computation(PARALLEL), interval(...):
+            lap = 4.0 * inp[0, 0, 0] - (inp[1, 0, 0] + inp[-1, 0, 0]
+                                         + inp[0, 1, 0] + inp[0, -1, 0])
+            res = lap[1, 0, 0] - lap[0, 0, 0]
+            flx = 0 if (res * (inp[1, 0, 0] - inp[0, 0, 0])) > 0 else res
+            res = lap[0, 1, 0] - lap[0, 0, 0]
+            fly = 0 if (res * (inp[0, 1, 0] - inp[0, 0, 0])) > 0 else res
+            out = inp[0, 0, 0] - coeff[0, 0, 0] * (flx[0, 0, 0] - flx[-1, 0, 0]
+                                                   + fly[0, 0, 0] - fly[0, -1, 0])
+        with computation(FORWARD):
+            with interval(0, 1):
+                col = out[0, 0, 0]
+            with interval(1, None):
+                col = 0.5 * col[0, 0, -1] + out[0, 0, 0]
+
+    return jgts.stencil(backend="numpy", definition=f16_hdiff_sweep)
+
+
+def _f16_large_inputs():
+    rng = np.random.default_rng(16)
+    shape = (40, 70, 9)
+    return {"inp": rng.random(shape).astype(np.float16),
+            "coeff": (0.025 * rng.random(shape)).astype(np.float16),
+            "out": np.zeros(shape, np.float16), "col": np.zeros(shape, np.float16)}, {}
+
+
+@pytest.mark.parametrize("size", ["surface", "large"])
+def test_float16_stencil_emulated_vs_plain_and_oracle(emulated, size):
+    """A float16 stencil runs through the generated kernels (``__half``
+    loads and stores, float compute) and equals the plain executor and the
+    JAX package's numpy backend exactly.  Its float64 literals make float64
+    values that are stored to float16: numpy, the kernels and the plain
+    executor round them once (``dtypes.cast``); at the large size a
+    rounding through float32 differs."""
+    definition, make_inputs, kw = testing.SURFACE["float16_hdiff_sweep"]
+    if size == "large":
+        make_inputs, kw = _f16_large_inputs, dict(origin=(2, 2, 0), domain=(36, 66, 9))
+    ref, _ = make_inputs()
+    _f16_jax_def()(**ref, **kw)
+    got, plain, st = testing.run_pair(definition, make_inputs, kw, "cpu")
+    assert st.backend.launches == 1
+    assert "__half" in st.backend.source
+    for k in ("out", "col"):
+        torch.testing.assert_close(got[k], plain[k], rtol=0, atol=0, msg=k)
+        np.testing.assert_array_equal(got[k].numpy(), np.asarray(ref[k]), err_msg=k)

@@ -1,6 +1,6 @@
-"""The port stands alone: importing every ``gt4py_tpu_torch`` module, or
-the chip check, loads no ``jax``, no ``ml_dtypes`` and nothing of
-``gt4py_tpu``."""
+"""The port stands alone: importing every ``gt4py_tpu_torch`` module (the
+next DSL's included), or the chip check, loads no ``jax``, no
+``ml_dtypes`` and nothing of ``gt4py_tpu``."""
 
 import os
 import subprocess
@@ -19,6 +19,8 @@ spec = importlib.util.spec_from_file_location("chip_smoke", {smoke!r})
 spec.loader.exec_module(importlib.util.module_from_spec(spec))
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "ml_dtypes", "gt4py_tpu"))
+assert "gt4py_tpu_torch.next.cuda_bridge" in names, names
+assert "gt4py_tpu_torch.next.ffront" in names, names
 print(len(names), bad)
 """
 
@@ -30,7 +32,7 @@ def test_port_imports_no_jax():
                          env=env, cwd=ROOT, timeout=300)
     assert out.returncode == 0, out.stderr
     count, bad = out.stdout.strip().split(" ", 1)
-    assert int(count) >= 15
+    assert int(count) >= 30
     assert bad == "[]", bad
 
 

@@ -252,3 +252,23 @@ def test_surface_cases_on_cpu_tensors_run_the_plain_executor(name):
     assert st.backend.launches == 0
     for k, v in ref.items():
         torch.testing.assert_close(got[k], v, rtol=0, atol=0, msg=k)
+
+
+def test_float64_to_float16_rounds_once_as_numpy():
+    """``dtypes.cast`` (the plain executor's and the next DSL's casts)
+    rounds float64 to float16 once, as numpy does, where ``.half()``
+    rounds through float32; ties, overflow, subnormals, inf and nan
+    included."""
+    from gt4py_tpu_torch.core import dtypes
+
+    rng = np.random.default_rng(0)
+    halves = np.float16(rng.normal(0, 10, 20000)).astype(np.float64)
+    x = np.concatenate([rng.normal(0, 100, 20000), rng.normal(0, 1e-6, 20000),
+                        halves * (1 + 2.0 ** -11), halves * (1 + 2.0 ** -11 + 2.0 ** -40),
+                        [1e300, -1e300, np.inf, -np.inf, np.nan, 0.0, -0.0, 65519.99, 65520.0,
+                         2.0 ** -25, 2.0 ** -25 * (1 + 1e-9)]])
+    with np.errstate(over="ignore"):
+        ref = x.astype(np.float16)
+    got = dtypes.cast(torch.from_numpy(x), np.float16).numpy()
+    np.testing.assert_array_equal(got, ref)
+    assert (torch.from_numpy(x).half().numpy() != ref).sum() > 0  # the case that needs it
