@@ -40,10 +40,30 @@ Phases (a failed phase raises, and the script exits non-zero):
    launch count read around the run and ``cuda_bridge.FALLBACK_EVENTS``
    unchanged across the phase; then each is timed (CUDA events, one call
    at a time and 20 back to back; the host's enqueue time per call), and
-   hdiff once more on K-contiguous fields.
+   hdiff once more on K-contiguous fields;
+8. the unstructured gather path: the K9 kernel (``next/benes.py``,
+   ``csrc/benes.cu``) on raw permutations (P = 2^17, 2^17 + 311, 2^20 in
+   float32, 2^17 in int32 with NaN-aliasing patterns) against its plain
+   version and ``x[sigma]``, bit for bit; bench.py's unstructured FVM step
+   at n = 512 float32 on ``grid_mesh`` (affine windows) and
+   ``shuffled_mesh(512, 7)`` (sort-routed, K9), 10 steps with the
+   planners on against 10 on the index path (``config.AFFINE_GATHER =
+   config.SORT_GATHER = False``), bit for bit, with K9's launches read
+   around the irregular run; CUDA-event times of the step (one call at a
+   time, 20 back to back, the host's enqueue time), of K9 per permute
+   against ``torch.index_select`` of the same permutation and its bound,
+   and a ``torch.profiler`` breakdown of the irregular step; then one
+   MiniDycore and one FvAdvection step in bfloat16 at 512x512x80 against
+   plain (phase 5 also runs the bfloat16 stencil).
 
-The line before the last is one JSON object with every kernel's launches,
-error and times; the last line is ``{"ok": true, "device": {...}}``.
+Every kernel entry carries ``bound_ms``: the least time the card could take
+for the same function, its bytes (each input read once, each output written
+once) over 3.35 TB/s, the H100 SXM's memory rate (the stencils and K9 do a
+few operations per byte, so bytes bound them), and ``library_ms``, the time
+of one PyTorch call that computes the same function where there is one
+(none for the stencils; ``torch.index_select`` for K9).  The line before
+the last is one JSON object with every kernel's launches, error and times
+and phase 8's numbers; the last line is ``{"ok": true, "device": {...}}``.
 """
 
 import json
@@ -65,6 +85,14 @@ ATOL_F32 = 1e-7
 
 STEPS = 10
 TIMING_REPS = 20
+#: the H100 SXM's device-memory rate (bytes per second), for ``bound_ms``
+HBM_BYTES_PER_S = 3.35e12
+#: phase 8: bench.py's unstructured FVM size and K9's raw permutations
+FVM_N = 512
+K9_RAW = [(1 << 17, "float32"), ((1 << 17) + 311, "float32"), (1 << 20, "float32"),
+          (1 << 17, "int32")]
+#: the JAX package's chip test's NaN/Inf/sign bit patterns (int32 leg)
+NAN_PATTERNS = [0x7F800001, 0x7FC00000, 0x7F800000, 0xFF800000, 0x80000000, 0xFFFFFFFF]
 PLAIN_TIMING_REPS = 3
 BACK_TO_BACK = 20
 NI, NJ, NK = 512, 512, 80
@@ -80,10 +108,11 @@ SURFACE_FEATURES = {
     "while": ["while_halving", "while_backward", "region_while_interaction"],
     "regions": ["horizontal_regions", "region_with_conditional"],
     "float16": ["float16_hdiff_sweep"],
+    "bfloat16": ["bfloat16_hdiff_sweep"],
 }
 SURFACE_TIMED = {"vark": "variable_k_offset", "data_dims": "data_dims_dynamic_index",
                  "while": "while_halving", "regions": "horizontal_regions",
-                 "float16": "float16_hdiff_sweep"}
+                 "float16": "float16_hdiff_sweep", "bfloat16": "bfloat16_hdiff_sweep"}
 
 
 def _nvidia_smi() -> str:
@@ -238,6 +267,313 @@ def _time_b2b_ms(fn, n):
     return a.elapsed_time(b) / n, host
 
 
+def _min_bytes(analysis, shape) -> int:
+    """Bytes a stencil's function must move on a domain of ``shape``
+    (I, J, K): each field it reads, read once, and each field it writes,
+    written once (its temporaries stay out of device memory)."""
+    import numpy as np
+
+    n = 0
+    for info in analysis.field_info.values():
+        points = int(np.prod([s for s, on in zip(shape, info.dimensions) if on], dtype=np.int64))
+        size = points * np.dtype(info.dtype).itemsize * int(np.prod(info.data_dims, dtype=int))
+        n += size * (bool(info.access.value & 1) + bool(info.access.value & 2))
+    return n
+
+
+def _bound_ms(nbytes) -> float:
+    return nbytes / HBM_BYTES_PER_S * 1e3
+
+
+def _bound(analysis, shape) -> dict:
+    """The ``bound_ms``/``bound_by``/``library_ms`` keys of a stencil."""
+    return {"bound_ms": _bound_ms(_min_bytes(analysis, shape)), "bound_by": "bytes",
+            "library_ms": None}
+
+
+# --------------------------------------------------------------------------- #
+# phase 8
+# --------------------------------------------------------------------------- #
+
+
+def _perm(P, seed):
+    """A random permutation ``sigma`` of P and its sort keys (the inverse),
+    as ``benes.permute`` takes them."""
+    import numpy as np
+
+    sigma = np.random.default_rng(seed).permutation(P).astype(np.int64)
+    keys = np.empty(P, dtype=np.int64)
+    keys[sigma] = np.arange(P)
+    return sigma, keys.astype(np.int32)
+
+
+def _k9_bytes(plan) -> dict:
+    """K9's bytes: ``function``, what the permutation must move (x in,
+    y out, the control bits read once); ``model``, what this design moves
+    (the padded copy in and out, the inner pass over every word, 8 bytes
+    per element for each outer stage, every bit-plane once)."""
+    bits = plan.bits.nbytes
+    outer = 2 * (plan.k - plan.b)
+    return {"function": 8 * plan.P + bits,
+            "model": 8 * plan.P + 8 * plan.n2 + 8 * plan.n2 * outer + bits}
+
+
+def _k9_raw(dev) -> list:
+    """K9 on raw permutations: against ``x[sigma]`` and its plain version
+    on the card, bit for bit, its launch count read around each run."""
+    import numpy as np
+    import torch
+
+    from gt4py_tpu_torch.next import benes
+
+    out = []
+    for P, dt in K9_RAW:
+        sigma, keys = _perm(P, P)
+        rng = np.random.default_rng(P + 1)
+        if dt == "float32":
+            x = torch.from_numpy(rng.random(P).astype(np.float32)).to(dev)
+        else:
+            words = rng.integers(0, 2 ** 32, P, dtype=np.uint64).astype(np.uint32)
+            words[:len(NAN_PATTERNS)] = NAN_PATTERNS
+            x = torch.from_numpy(words.view(np.int32)).to(dev)
+        before = benes.KERNEL.launches
+        got = benes.permute(x, keys)
+        torch.cuda.synchronize()
+        launched = benes.KERNEL.launches - before
+        if launched <= 0:
+            raise AssertionError(f"K9 P={P} {dt}: the kernel was not launched")
+        sig = torch.from_numpy(sigma).to(dev)
+        ref = x[sig]
+        plan = benes._plan(keys)
+        plain = torch.zeros(plan.n2, dtype=torch.int32, device=dev)
+        plain[:P] = x.view(torch.int32)
+        benes.plain_inplace(plain, plan)
+        if not torch.equal(got.view(torch.int32), ref.view(torch.int32)):
+            raise AssertionError(f"K9 P={P} {dt}: kernel != x[sigma]")
+        if not torch.equal(got.view(torch.int32), plain[:P]):
+            raise AssertionError(f"K9 P={P} {dt}: kernel != its plain version")
+        # int32 words were compared bit for bit above
+        err = float((got - ref).abs().max()) if dt == "float32" else 0.0
+        print(f"K9 P={P} {dt}: launches {launched}, bitwise equal to x[sigma] and to the "
+              f"plain butterfly (n2 = 2^{plan.k}, block 2^{plan.b}, "
+              f"{2 * (plan.k - plan.b)} outer stages), max abs err {err:.3e}")
+        out.append({"P": P, "dtype": dt, "launches": launched, "max_abs_err": err})
+    return out
+
+
+def _fvm(dev) -> dict:
+    """bench.py's unstructured FVM step at n = FVM_N float32 on both meshes:
+    plans, K9's launches over 10 steps, the routed path against the index
+    path bit for bit, and the times."""
+    import numpy as np
+    import torch
+
+    from gt4py_tpu_torch import config
+    from gt4py_tpu_torch.next import affine_remap, benes, sort_route
+    from gt4py_tpu_torch.next.testing import unstructured_fvm_case
+
+    summary, cases = {}, {}
+    for irregular in (False, True):
+        label = "irregular" if irregular else "regular"
+        t0 = time.perf_counter()
+        case = unstructured_fvm_case(FVM_N, irregular, np.float32, dev)
+        step, psi0, mesh = case["step"], case["psi0"], case["mesh"]
+        psi = step(psi0)  # plans every gather (host), builds the router
+        torch.cuda.synchronize()
+        setup_s = time.perf_counter() - t0
+        conns = list(mesh.e2v.__dict__["_column_conns"].values()) + [mesh.v2e]
+        affine = [affine_remap.plan_for(c) is not None for c in conns]
+        routed = [affine_remap.plan_for(c) is None and sort_route.plan_for(c) is not None
+                  for c in conns]
+        if irregular and not all(routed):
+            raise AssertionError(f"FVM {label}: a gather is not sort-routed ({routed})")
+        if not irregular and not all(affine):
+            raise AssertionError(f"FVM {label}: a gather has no affine plan ({affine})")
+        declines = benes.DECLINES.cursor()
+        benes.KERNEL.launches = 0
+        psi = psi0
+        for _ in range(STEPS):
+            psi = step(psi)
+        torch.cuda.synchronize()
+        k9 = benes.KERNEL.launches
+        if irregular and k9 == 0:
+            raise AssertionError("FVM irregular: K9 was never launched")
+        if benes.DECLINES.since(declines):
+            raise AssertionError(f"FVM {label}: K9 declined {benes.DECLINES.since(declines)}")
+        saved = config.AFFINE_GATHER, config.SORT_GATHER
+        config.AFFINE_GATHER = config.SORT_GATHER = False
+        try:
+            ref = psi0
+            for _ in range(STEPS):
+                ref = case["step"](ref)
+            torch.cuda.synchronize()
+            index_ms = _time_ms(lambda: step(psi0), TIMING_REPS)
+            index_b2b, index_host = _time_b2b_ms(lambda: step(psi0), BACK_TO_BACK)
+        finally:
+            config.AFFINE_GATHER, config.SORT_GATHER = saved
+        if tuple(psi.shape) != (mesh.n_vertices,) or not bool(torch.isfinite(psi).all()):
+            raise AssertionError(f"FVM {label}: state not finite or of the wrong shape")
+        if not torch.equal(psi, ref):
+            raise AssertionError(f"FVM {label}: {STEPS} routed steps != {STEPS} index steps")
+        ms = _time_ms(lambda: step(psi0), TIMING_REPS)
+        b2b, host = _time_b2b_ms(lambda: step(psi0), BACK_TO_BACK)
+        medges = mesh.n_edges / ms / 1e3
+        print(f"FVM {label} n={FVM_N} f32 ({mesh.n_vertices} vertices, {mesh.n_edges} edges): "
+              f"plans affine {affine}, sort-routed {routed}; K9 launches over {STEPS} steps "
+              f"{k9}; {STEPS} steps bitwise equal to the index path; set-up {setup_s:.2f} s")
+        print(f"FVM {label}: {ms:.4f} ms per step one call at a time ({medges:.1f} Medges/s), "
+              f"{b2b:.4f} ms back to back ({BACK_TO_BACK} calls, "
+              f"{mesh.n_edges / b2b / 1e3:.1f} Medges/s), host enqueue {host:.4f} ms/step; "
+              f"index path {index_ms:.4f} ms one at a time, {index_b2b:.4f} ms back to back, "
+              f"host {index_host:.4f} ms/step")
+        summary[label] = {"ms": ms, "b2b_ms": b2b, "host_ms": host, "medges_s": medges,
+                          "index_ms": index_ms, "index_b2b_ms": index_b2b,
+                          "index_host_ms": index_host, "k9_launches": k9,
+                          "n_edges": mesh.n_edges, "setup_s": setup_s}
+        cases[label] = case
+    summary["irregular"]["profile"] = _profile(cases["irregular"],
+                                               summary["irregular"]["b2b_ms"])
+    return {"summary": summary, "cases": cases}
+
+
+def _profile(case, b2b_ms) -> dict:
+    """``torch.profiler``: the irregular step's device time by kernel (and
+    copy) over five steps, and the device's busy share of a step enqueued
+    back to back (``b2b_ms``, CUDA events, unprofiled)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    step, psi = case["step"], case["psi0"]
+    step(psi)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(5):
+            psi = step(psi)
+        torch.cuda.synchronize()
+    rows = []
+    for e in prof.key_averages():
+        # device events only: a CPU op's device time repeats its kernels'
+        if e.device_type == DeviceType.CPU:
+            continue
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = getattr(e, "self_cuda_time_total", 0)
+        if us > 0:
+            rows.append((e.key, us / 5, e.count / 5))
+    rows.sort(key=lambda r: -r[1])
+    total = sum(r[1] for r in rows)
+    if total == 0:
+        print("profile: the profiler shows no device time (not measured); the CUDA-event "
+              "times above stand")
+        return {"device_us_per_step": None}
+    busy = total / (b2b_ms * 1e3)
+    print(f"profile of the irregular step (5 steps, per step): device {total:.1f} us in "
+          f"{sum(r[2] for r in rows):.0f} kernels and copies; busy {100 * busy:.1f}% of the "
+          f"{b2b_ms:.4f} ms back-to-back step")
+    for key, us, n in rows[:12]:
+        print(f"  {us:9.1f} us  {100 * us / total:5.1f}%  x{n:<5.1f} {key[:90]}")
+    return {"device_us_per_step": total, "busy_share": busy,
+            "top": [{"name": k[:120], "us": us, "calls": n} for k, us, n in rows[:12]]}
+
+
+def _k9_entry(dev, raw, fvm) -> dict:
+    """K9's entry of the kernels line: its launches on the irregular FVM
+    run, and its time per permute at the FVM's two shapes (E2V columns,
+    P = 523264 padded to 2^19; V2E, P = 2^20) against its plain version,
+    ``torch.index_select`` of the same permutation, and its bound."""
+    import numpy as np
+    import torch
+
+    from gt4py_tpu_torch.next import benes
+
+    case = fvm["cases"]["irregular"]
+    mesh = case["mesh"]
+    shapes = {"e2v": mesh.n_edges, "v2e": mesh.v2e.table.size}
+    per_shape = {}
+    for name, P in shapes.items():
+        sigma, keys = _perm(P, 11)
+        x = torch.from_numpy(np.random.default_rng(12).random(P).astype(np.float32)).to(dev)
+        sig = torch.from_numpy(sigma).to(dev)
+        plan = benes._plan(keys)
+        ms = _time_ms(lambda: benes.permute(x, keys), TIMING_REPS)
+        buf = torch.zeros(plan.n2, dtype=torch.int32, device=dev)
+        plain_ms = _time_ms(lambda: benes.plain_inplace(buf, plan), PLAIN_TIMING_REPS)
+        lib_ms = _time_ms(lambda: torch.index_select(x, 0, sig), TIMING_REPS)
+        nbytes = _k9_bytes(plan)
+        per_shape[name] = {"P": P, "n2": plan.n2, "ms": ms, "plain_ms": plain_ms,
+                           "library_ms": lib_ms, "bound_ms": _bound_ms(nbytes["function"]),
+                           "model_ms": _bound_ms(nbytes["model"])}
+        print(f"K9 {name} P={P} (n2 2^{plan.k}): kernel {ms:.4f} ms per permute, plain "
+              f"{plain_ms:.4f} ms, torch.index_select {lib_ms:.4f} ms; bound "
+              f"{per_shape[name]['bound_ms']:.4f} ms ({nbytes['function']} B), this design's "
+              f"traffic {per_shape[name]['model_ms']:.4f} ms ({nbytes['model']} B) at 3.35 TB/s")
+    v = per_shape["v2e"]
+    return {
+        "name": "benes_permute (K9)",
+        "route": "cuda",
+        "source": "gt4py_tpu_torch/csrc/benes.cu",
+        "replaces": "gt4py_tpu/next/benes.py:253 permute (_inner_kernel :213, pallas_call "
+                    ":308; outer stages _xla_stage :204)",
+        "launches": fvm["summary"]["irregular"]["k9_launches"],
+        "max_abs_err": max(r["max_abs_err"] for r in raw),
+        "ms": v["ms"],
+        "plain_ms": v["plain_ms"],
+        "bound_ms": v["bound_ms"],
+        "bound_by": "bytes",
+        "library_ms": v["library_ms"],
+        "shapes": per_shape,
+        "raw": raw,
+    }
+
+
+def _bf16_steps(models) -> dict:
+    """One MiniDycore and one FvAdvection step in bfloat16 at 512x512x80:
+    10 steps of the kernels against 10 plain steps (the state compared),
+    the kernels' launches read around them, and both timed."""
+    import torch
+
+    (md, fv), (pmd, pfv) = models["cuda"], models["torch"]
+    out = {}
+    s0 = md.init_state(seed=0)
+    f0 = fv.init_state(seed=0)
+    step, pstep = md.step_fn(), pmd.step_fn()
+    fstep, pfstep = fv.step_fn(), pfv.step_fn()
+    stencils = {"hdiff": md.hdiff, "vadv_update": md.vadv_upd, "fv_step": fv.fv_step}
+    for st in stencils.values():
+        st.backend.launches = 0
+    s, r = s0, s0
+    q, rq = f0["q"], f0["q"]
+    for _ in range(STEPS):
+        s, r = step(s), pstep(r)
+        q, rq = fstep(q, f0["cx"], f0["cy"]), pfstep(rq, f0["cx"], f0["cy"])
+    torch.cuda.synchronize()
+    launches = {n: st.backend.launches for n, st in stencils.items()}
+    if min(launches.values()) == 0:
+        raise AssertionError(f"bfloat16 steps: a kernel was not launched ({launches})")
+    errs = {}
+    for what, got, ref in (("MiniDycore u", s["u"], r["u"]),
+                           ("MiniDycore utens_stage", s["utens_stage"], r["utens_stage"]),
+                           ("FvAdvection q", q, rq)):
+        if got.dtype != torch.bfloat16:
+            raise AssertionError(f"bfloat16 {what}: dtype {got.dtype}")
+        errs[what] = _check_close(f"bfloat16 {what} after {STEPS} steps", got.float(),
+                                  ref.float(), RTOL_F32, ATOL_F32)[0]
+    points = NI * NJ * NK
+    t = {"dycore_bf16_ms": _time_ms(lambda: step(s0), TIMING_REPS),
+         "dycore_bf16_plain_ms": _time_ms(lambda: pstep(s0), PLAIN_TIMING_REPS),
+         "fv_bf16_ms": _time_ms(lambda: fstep(f0["q"], f0["cx"], f0["cy"]), TIMING_REPS),
+         "fv_bf16_plain_ms": _time_ms(lambda: pfstep(f0["q"], f0["cx"], f0["cy"]),
+                                      PLAIN_TIMING_REPS)}
+    print(f"bfloat16 512x512x80: launches over {STEPS} steps {launches}; kernels vs plain max "
+          f"abs {errs}; MiniDycore step {t['dycore_bf16_ms']:.4f} ms "
+          f"({points / t['dycore_bf16_ms'] / 1e6:.3f} Gpoint/s, plain "
+          f"{t['dycore_bf16_plain_ms']:.4f}), FvAdvection step {t['fv_bf16_ms']:.4f} ms "
+          f"(plain {t['fv_bf16_plain_ms']:.4f}), one call at a time")
+    out.update(t, launches=launches, max_abs_err=errs)
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -251,8 +587,10 @@ def main() -> int:
     from gt4py_tpu_torch.cartesian import gtscript
     from gt4py_tpu_torch.cartesian.backend import _build
     from gt4py_tpu_torch.cartesian.backend.cuda_backend import REPLACES
-    from gt4py_tpu_torch.models import dycore, full_dycore
-    from gt4py_tpu_torch.next import cuda_bridge
+    from gt4py_tpu_torch.core import dtypes
+    from gt4py_tpu_torch.core.definitions import BFLOAT16
+    from gt4py_tpu_torch.models import dycore, full_dycore, fv_advection
+    from gt4py_tpu_torch.next import benes, cuda_bridge
     from gt4py_tpu_torch.next.compiled_program import build_all
     from gt4py_tpu_torch.next.testing import bench_cases, program_fusion
 
@@ -289,12 +627,19 @@ def main() -> int:
     }
     main_stencils = [st for fd, _ in models.values()
                      for st in (fd.dyn.hdiff, fd.dyn.vadv_upd, fd.dyn.fused, fd.fv.fv_step, fd.sl)]
+    # phase 8: MiniDycore and FvAdvection in bfloat16, kernels and plain
+    bf16 = {backend: (dycore.MiniDycore(NI, NJ, NK, dtype=BFLOAT16, backend=backend, device=dev),
+                      fv_advection.FvAdvection(NI, NJ, NK, dtype=BFLOAT16, backend=backend,
+                                               device=dev))
+            for backend in ("cuda", "torch")}
+    bf16_stencils = [bf16["cuda"][0].hdiff, bf16["cuda"][0].vadv_upd, bf16["cuda"][1].fv_step]
     next_cases = {key: bench_cases(c["dtype"], c["shape"], dev) for key, c in configs.items()}
     next_kernels = [b for cases in next_cases.values() for case in cases.values()
                     for b in case["kernels"]()]
     t0 = time.perf_counter()
     n_sources = build_all(
-        [st.backend for st in main_stencils + list(surface_stencils.values())] + next_kernels)
+        [st.backend for st in main_stencils + list(surface_stencils.values()) + bf16_stencils]
+        + next_kernels + [benes.KERNEL])
     build_s = time.perf_counter() - t0
     print(f"build: {n_sources} sources, {build_s:.2f} s (nvcc in parallel)")
     for st in main_stencils:
@@ -391,6 +736,7 @@ def main() -> int:
             "max_abs_err": errors[("f32", name)][0],
             "ms": ms,
             "plain_ms": plain_ms,
+            **_bound(st.analysis, (NI, NJ, NK)),
         })
 
     # -- 5. the language surface (float64) ----------------------------------
@@ -413,16 +759,18 @@ def main() -> int:
             st = gtscript.stencil(backend=backend, definition=d, rebuild=True,
                                   externals=kw.get("externals", {}))
             written = [k for k in tensors if st.field_info[k].access.value & 2]
+            # the fields' own dtypes (bfloat16 inputs are drawn in float32)
+            args = {k: dtypes.cast(v, st.field_info[k].dtype) for k, v in tensors.items()}
 
             # the call writes its outputs in place: each call gets fresh
             # copies of them, so every call does the same work
-            def call(st=st, written=written, origin=kw.get("origin", (0, 0, 0))):
-                st(**{k: (v.clone() if k in written else v) for k, v in tensors.items()},
+            def call(st=st, written=written, args=args, origin=kw.get("origin", (0, 0, 0))):
+                st(**{k: (v.clone() if k in written else v) for k, v in args.items()},
                    **scalars, origin=origin)
 
             timed[backend] = _time_ms(call, TIMING_REPS if backend == "cuda"
                                       else PLAIN_TIMING_REPS)
-        dt = next(iter(tensors.values())).dtype
+        dt = next(iter(args.values())).dtype
         print(f"surface {feature}: {len(names)} stencils, {total} launches, max abs err "
               f"{worst:.3e} (rtol {RTOL_F64}, atol {ATOL_F64}); "
               f"{SURFACE_TIMED[feature]} at 512x512x80 {dt}, J contiguous (outputs copied "
@@ -436,6 +784,7 @@ def main() -> int:
             "max_abs_err": worst,
             "ms": timed["cuda"],
             "plain_ms": timed["torch"],
+            **_bound(st.analysis, (NI, NJ, NK)),
         })
 
     # -- 6. the FullDycore path ---------------------------------------------
@@ -537,11 +886,13 @@ def main() -> int:
             "max_abs_err": fv_errors[("f32", name)][0],
             "ms": ms,
             "plain_ms": plain_ms,
+            **_bound(st.analysis, (NI, NJ, NK)),
         })
 
     # -- 7. the next DSL ---------------------------------------------------
     next_errors = {}
     next_launches = {}
+    next_bytes = {}
     for key, cases in next_cases.items():
         c = configs[key]
         for name, case in cases.items():
@@ -563,6 +914,9 @@ def main() -> int:
                 worst = max(worst, e[0])
             next_errors[(key, name)] = worst
             next_launches[(key, name)] = sum(counts)
+            # the bound of one call: that of the kernels it launches
+            next_bytes[(key, name)] = sum(n * _min_bytes(k.analysis, c["shape"])
+                                          for k, n in zip(kern, counts))
             print(f"next {name} {key} {tuple(c['shape'])}: {len(kern)} kernels "
                   f"({', '.join(sorted({k.analysis.stencil.name for k in kern}))}), launches "
                   f"{counts}, max abs err vs embedded torch {worst:.3e} "
@@ -594,10 +948,20 @@ def main() -> int:
             "max_abs_err": next_errors[("f32", name)],
             "ms": ms,
             "plain_ms": plain_ms,
+            "bound_ms": _bound_ms(next_bytes[("f32", name)]),
+            "bound_by": "bytes",
+            "library_ms": None,
         })
 
+    # -- 8. the unstructured gather path (K9) and bfloat16 -----------------
+    k9_raw = _k9_raw(dev)
+    fvm = _fvm(dev)
+    kernels.append(_k9_entry(dev, k9_raw, fvm))
+    bf16_result = _bf16_steps(bf16)
+
     print(smi)
-    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"kernels": kernels, "unstructured_fvm": fvm["summary"],
+                      "bfloat16": bf16_result}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

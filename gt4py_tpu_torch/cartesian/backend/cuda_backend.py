@@ -41,17 +41,20 @@ promoted dtype and every literal is emitted exactly, in the dtype the
 analysis gave it (hex floats with an ``f`` suffix in float32), so no float32
 chain silently computes in double.
 
-float16 is a storage type (Pallas ``_f16_reads_all_widened``): a field,
-scratch temporary or scalar of float16 is stored as ``__half``, loaded with
-``__half2float`` and stored with ``__float2half_rn`` (round to nearest
-even, as torch's ``.half()``).  Every float16 value in a kernel is a
-``float`` that holds a float16 number: an operation whose promoted dtype
-is float16 computes in float and rounds to float16 (``gt::round_half``),
-which is the correctly rounded float16 result, as numpy gives it.  The
-builder's ``passes.widen_f16_compute`` leaves only casts and stores at
-float16, so a cartesian stencil's body computes in float32 (or float64
-where its literals are float64; a float64 value is rounded to float16
-once, with ``__double2half``).
+float16 and bfloat16 are storage types (Pallas ``_f16_reads_all_widened``):
+a field, scratch temporary or scalar of float16 is stored as ``__half``,
+loaded with ``__half2float`` and stored with ``__float2half_rn`` (round to
+nearest even, as torch's ``.half()``); bfloat16 likewise as
+``__nv_bfloat16`` with ``__bfloat162float`` and ``__float2bfloat16_rn``.
+Every 16-bit value in a kernel is a ``float`` that holds a 16-bit number:
+an operation whose promoted dtype is float16 or bfloat16 computes in float
+and rounds (``gt::round_half``, ``gt::round_bf16``), which is the correctly
+rounded result, as numpy (and ml_dtypes) give it.  The builder's
+``passes.widen_f16_compute`` leaves only casts and stores at 16 bits, so a
+cartesian stencil's body computes in float32 (or float64 where its
+literals are float64; a float64 value is rounded to float16 once, with
+``__double2half``, and to bfloat16 through float32, as torch and the JAX
+package's oracle round it).
 
 This backend does not inline temporaries (``passes.inline_parallel_
 temporaries``, which the ``"jax"`` backend applies): the horizontal
@@ -91,7 +94,7 @@ from gt4py_tpu_torch.cartesian.backend.torch_backend import (
     run_plain,
 )
 from gt4py_tpu_torch.core import dtypes
-from gt4py_tpu_torch.core.definitions import Extent, is_float_dtype
+from gt4py_tpu_torch.core.definitions import BFLOAT16, Extent, is_float_dtype
 
 #: the TPU kernels this backend replaces (file:line in the JAX package)
 REPLACES = {
@@ -124,10 +127,16 @@ _CTYPE = {
     np.dtype(np.int64): "long long",
     np.dtype(np.uint8): "unsigned char",
     np.dtype(np.float16): "__half",
+    BFLOAT16: "__nv_bfloat16",
     np.dtype(np.float32): "float",
     np.dtype(np.float64): "double",
 }
 _F16 = np.dtype(np.float16)
+#: 16-bit storage dtype -> (load, store, round) of its values
+_HALF = {
+    _F16: ("__half2float", "__float2half_rn", "gt::round_half"),
+    BFLOAT16: ("__bfloat162float", "__float2bfloat16_rn", "gt::round_bf16"),
+}
 _F32 = np.dtype(np.float32)
 _F64 = np.dtype(np.float64)
 _I64 = np.dtype(np.int64)
@@ -187,27 +196,29 @@ _BOOL_FUNCS = {
 
 
 def _ctype(dt) -> str:
-    """C type of a value: a float16 value is a ``float``."""
-    return "float" if np.dtype(dt) == _F16 else _CTYPE[np.dtype(dt)]
+    """C type of a value: a float16 or bfloat16 value is a ``float``."""
+    return "float" if np.dtype(dt) in _HALF else _CTYPE[np.dtype(dt)]
 
 
 def _stype(dt) -> str:
-    """C type of a stored element (``__half`` for float16)."""
+    """C type of a stored element (``__half`` for float16,
+    ``__nv_bfloat16`` for bfloat16)."""
     return _CTYPE[np.dtype(dt)]
 
 
 def _cast(code: str, src, dst) -> str:
     if np.dtype(src) == np.dtype(dst):
         return code
-    if np.dtype(dst) == _F16:
-        return f"gt::round_half({code})"
+    if np.dtype(dst) in _HALF:
+        return f"{_HALF[np.dtype(dst)][2]}({code})"
     return f"(({_ctype(dst)})({code}))"
 
 
 def _rounded(code: str, dt) -> str:
-    """The result of an operation computed in float, rounded to float16
-    when its dtype is float16."""
-    return f"gt::round_half({code})" if np.dtype(dt) == _F16 else code
+    """The result of an operation computed in float, rounded to its
+    16-bit dtype when it has one."""
+    half = _HALF.get(np.dtype(dt))
+    return f"{half[2]}({code})" if half else code
 
 
 def _literal(value, dt) -> str:
@@ -215,7 +226,7 @@ def _literal(value, dt) -> str:
     if dt == _BOOL:
         return "true" if value else "false"
     if is_float_dtype(dt):
-        v = float(np.asarray(value, dtype=dt))
+        v = float(dtypes.scalar_value(value, dt))
         ct = _ctype(dt)
         if v != v:
             return f"(({ct})NAN)"
@@ -223,7 +234,7 @@ def _literal(value, dt) -> str:
             return f"(({ct})({'-' if v < 0 else ''}INFINITY))"
         # hex floats are exact; the f suffix keeps float32 (and float16)
         # chains in float
-        return f"({v.hex()}{'f' if dt in (_F16, _F32) else ''})"
+        return f"({v.hex()}{'f' if dt in _HALF or dt == _F32 else ''})"
     return f"(({_ctype(dt)}){int(np.asarray(value, dtype=dt))}LL)"
 
 
@@ -595,8 +606,8 @@ class _Emitter:
             return f"s_{e.name}", np.dtype(st.scalar_decls[e.name].dtype)
         if isinstance(e, ir.FieldAccess):
             dt = np.dtype(st.decl(e.name).dtype)
-            if dt == _F16 and e.name not in self.locals:
-                return f"__half2float({self.access(e)})", dt
+            if dt in _HALF and e.name not in self.locals:
+                return f"{_HALF[dt][0]}({self.access(e)})", dt
             return self.access(e), dt
         if isinstance(e, ir.AxisPosition):
             dt = default_int_dtype(st)
@@ -701,8 +712,8 @@ class _Emitter:
             code, dt = self.expr(s.value)
             tdt = np.dtype(self.stencil.decl(s.target.name).dtype)
             value = _cast(code, dt, tdt)
-            if tdt == _F16 and s.target.name not in self.locals:
-                value = f"__float2half_rn({value})"  # exact: value is a float16
+            if tdt in _HALF and s.target.name not in self.locals:
+                value = f"{_HALF[tdt][1]}({value})"  # exact: value is a 16-bit float
             return [f"{ind}{self.access(s.target)} = {value};"]
         if isinstance(s, ir.If):
             cond, _ = self.expr(s.cond)
@@ -1044,7 +1055,7 @@ class CudaBackend:
         kb = [k for bounds in kb for k in bounds]
         # rounded to the scalar's dtype here, so the kernel's conversion
         # from double is exact
-        fsc = [float(np.asarray(_scalar_value(scalars[n]), dtype=st.scalar_decls[n].dtype))
+        fsc = [float(dtypes.scalar_value(_scalar_value(scalars[n]), st.scalar_decls[n].dtype))
                for n in prog.float_scalars]
         isc = [int(_scalar_value(scalars[n])) for n in prog.int_scalars]
 

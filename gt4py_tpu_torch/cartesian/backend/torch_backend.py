@@ -427,8 +427,9 @@ class TorchExecutor:
         if isinstance(v, torch.Tensor):
             dt = dtypes.to_torch(decl.dtype) if decl.dtype is not None else v.dtype
             return v.to(device=self.device, dtype=dt)
-        arr = np.asarray(v, dtype=decl.dtype)
-        return torch.tensor(arr[()], dtype=dtypes.to_torch(arr.dtype), device=self.device)
+        dt = np.asarray(v).dtype if decl.dtype is None else np.dtype(decl.dtype)
+        return torch.tensor(dtypes.scalar_value(v, dt), dtype=dtypes.to_torch(dt),
+                            device=self.device)
 
     def _eval(self, expr: ir.Expr, ctx: _Ctx) -> torch.Tensor:
         if isinstance(expr, ir.Literal):

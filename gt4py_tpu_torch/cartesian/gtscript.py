@@ -14,6 +14,14 @@ from typing import Any, Dict, Optional, Sequence, Tuple, Union
 
 import numpy as np
 
+from gt4py_tpu_torch.core.definitions import BFLOAT16 as _BFLOAT16
+
+#: bfloat16, usable as ``Field[bfloat16]``, a scalar annotation or a cast
+#: (``bfloat16(x)`` inside a stencil).  It is the port's dtype token
+#: (``core.definitions.BFLOAT16``), not a numpy scalar type: scalar
+#: arguments are Python numbers or tensors, rounded to bfloat16 on entry.
+bfloat16 = _BFLOAT16
+
 
 # --------------------------------------------------------------------------- #
 # Iteration order sentinels

@@ -1,9 +1,10 @@
 """Environment-driven configuration of the PyTorch port.
 
-Holds the default device for storage and models, the directory that
-generated CUDA kernels are built into, the literal precisions the
-analysis reads, and the next DSL's switches (the same defaults as
-``gt4py_tpu.config``).  Every setting is a module attribute that the code
+Holds the default device for storage and models (the card: a CPU run
+asks for ``device="cpu"`` or sets ``GT4PY_TPU_TORCH_DEVICE=cpu``), the
+directory that generated CUDA kernels are built into, the literal
+precisions the analysis reads, and the next DSL's switches (the same
+defaults as ``gt4py_tpu.config``).  Every setting is a module attribute that the code
 reads where it is used, on every call: assigning one (``config.
 PROGRAM_FUSION = False``) takes effect on the next call.
 """
@@ -27,11 +28,31 @@ def _env_bool(name: str, default: bool) -> bool:
     return v.strip().lower() in ("1", "true", "yes", "on")
 
 
-#: Device that storage allocators and models use when none is given.
-DEFAULT_DEVICE: str = os.environ.get("GT4PY_TPU_TORCH_DEVICE", "cpu")
+#: Device that storage allocators, constructors and models use when none
+#: is given.  On a machine without a GPU an entry point called without a
+#: device raises (``resolve_device``); it never falls back to the CPU.
+DEFAULT_DEVICE: str = os.environ.get("GT4PY_TPU_TORCH_DEVICE", "cuda")
 
-#: Default backend used by ``@stencil`` when none is given.
-DEFAULT_BACKEND: str = os.environ.get("GT4PY_TPU_TORCH_DEFAULT_BACKEND", "torch")
+#: Default backend used by ``@stencil`` when none is given: the generated
+#: CUDA kernels (on CPU tensors, which a caller passes only after asking
+#: for the CPU, the same backend runs its plain executor).
+DEFAULT_BACKEND: str = os.environ.get("GT4PY_TPU_TORCH_DEFAULT_BACKEND", "cuda")
+
+
+def resolve_device(device=None):
+    """The ``torch.device`` an entry point allocates on: ``device``, or
+    ``DEFAULT_DEVICE`` when it is None.  A CUDA device where torch sees
+    none raises ``RuntimeError``."""
+    import torch
+
+    dev = torch.device(DEFAULT_DEVICE if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"device {str(dev)!r} requested but torch sees no CUDA device; "
+            "pass device='cpu' or set GT4PY_TPU_TORCH_DEVICE=cpu to run on "
+            "the CPU"
+        )
+    return dev
 
 #: Where ``backend="cuda"`` writes generated sources and the shared
 #: libraries nvcc builds from them (one sub-directory per content hash).
@@ -64,6 +85,16 @@ PROGRAM_FUSION: bool = _env_bool("GT4PY_TPU_TORCH_PROGRAM_FUSION", True)
 #: (default) warns one time per (name, reason), ``always`` on every event,
 #: ``never`` keeps the log silent.
 WARN_ON_FALLBACK: str = os.environ.get("GT4PY_TPU_TORCH_WARN_ON_FALLBACK", "once")
+
+#: Gather quasi-structured neighbor tables as strided windows
+#: (``next.affine_remap``), the JAX package's ``GT4PY_TPU_AFFINE_GATHER``.
+AFFINE_GATHER: bool = _env_bool("GT4PY_TPU_TORCH_AFFINE_GATHER", True)
+
+#: Gather irregular neighbor tables by sort-routing through static
+#: permutations (``next.sort_route``, K9 ``next.benes`` on the card), the
+#: JAX package's ``GT4PY_TPU_SORT_GATHER``.  Off (with ``AFFINE_GATHER``):
+#: every gather is one clipped ``index_select``.
+SORT_GATHER: bool = _env_bool("GT4PY_TPU_TORCH_SORT_GATHER", True)
 
 
 class PerformanceFallbackWarning(UserWarning):

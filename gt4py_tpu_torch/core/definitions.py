@@ -26,15 +26,23 @@ import numpy as np
 # dtype vocabulary (shared by cartesian/ and storage/)
 # --------------------------------------------------------------------------- #
 
+#: bfloat16 (float32's exponent, 8 significant bits).  numpy has no such
+#: dtype without ml_dtypes, which the port does not need, so the token is
+#: a named 2-byte structured dtype: its ``kind`` is ``'V'``, as
+#: ml_dtypes.bfloat16's, every layer compares against this one object,
+#: and ``core.dtypes`` maps it to ``torch.bfloat16``.  Float-ness must be
+#: tested with :func:`is_float_dtype`, not ``kind``.
+BFLOAT16 = np.dtype([("bfloat16", "<u2")])
+
 #: 16-bit float dtypes that are storage formats only: statements compute
-#: in float32 (``passes.widen_f16_compute``).  bfloat16 has no numpy dtype
-#: without ml_dtypes; it joins as ``torch.bfloat16`` in a later change.
-F16_DTYPES = frozenset({np.dtype(np.float16)})
+#: in float32 (``passes.widen_f16_compute``).
+F16_DTYPES = frozenset({BFLOAT16, np.dtype(np.float16)})
 
 
 def is_float_dtype(dt) -> bool:
-    """True for IEEE float dtypes."""
-    return np.dtype(dt).kind == "f"
+    """True for IEEE floats AND bfloat16 (whose numpy kind is 'V')."""
+    dt = np.dtype(dt)
+    return dt.kind == "f" or dt == BFLOAT16
 
 
 #: C-style promotion ranks: all integer ranks sit below every float;
@@ -50,6 +58,7 @@ PROMOTION_RANK = {
     np.dtype(np.uint32): 3,
     np.dtype(np.uint64): 4,
     np.dtype(np.float16): 5,
+    BFLOAT16: 5,
     np.dtype(np.float32): 6,
     np.dtype(np.float64): 7,
 }

@@ -10,6 +10,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from gt4py_tpu_torch.core.definitions import BFLOAT16
+
 _NP_TO_TORCH = {
     np.dtype(np.bool_): torch.bool,
     np.dtype(np.int8): torch.int8,
@@ -18,6 +20,7 @@ _NP_TO_TORCH = {
     np.dtype(np.int64): torch.int64,
     np.dtype(np.uint8): torch.uint8,
     np.dtype(np.float16): torch.float16,
+    BFLOAT16: torch.bfloat16,
     np.dtype(np.float32): torch.float32,
     np.dtype(np.float64): torch.float64,
 }
@@ -62,10 +65,35 @@ def _f64_to_f16(t: torch.Tensor) -> torch.Tensor:
 
 def cast(t: torch.Tensor, dt) -> torch.Tensor:
     """``t`` converted to ``dt`` (numpy or torch dtype) as numpy converts:
-    float64 -> float16 rounds once."""
+    float64 -> float16 rounds once.  float64 -> bfloat16 rounds through
+    float32, as ``.to(torch.bfloat16)`` does and as the JAX package's
+    oracle (ml_dtypes) does: the two agree on every non-NaN value."""
     tdt = to_torch(dt)
     if t.dtype == tdt:
         return t
     if tdt == torch.float16 and t.dtype == torch.float64:
         return _f64_to_f16(t)
     return t.to(tdt)
+
+
+def scalar_value(value, dt):
+    """``value`` (a Python or numpy scalar, or a one-element tensor)
+    rounded to the numpy dtype ``dt``: the value a scalar argument or a
+    literal of that dtype holds, as a numpy scalar (for bfloat16, which
+    numpy lacks, a Python float)."""
+    if isinstance(value, torch.Tensor):
+        value = value.item()
+    dt = np.dtype(dt)
+    if dt == BFLOAT16:
+        return cast(torch.tensor(float(value), dtype=torch.float64), BFLOAT16).item()
+    return np.asarray(value, dtype=dt)[()]
+
+
+def make_scalar(value, dt):
+    """A scalar of the numpy dtype ``dt``: a numpy scalar, or for
+    bfloat16, which numpy lacks, a 0-d CPU tensor (torch lets a 0-d CPU
+    tensor join an operation on any device)."""
+    dt = np.dtype(dt)
+    if dt == BFLOAT16:
+        return torch.tensor(scalar_value(value, dt), dtype=torch.bfloat16)
+    return dt.type(value)

@@ -8,6 +8,7 @@
 // with nvcc in seconds.
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -63,6 +64,17 @@ __device__ __forceinline__ float round_half(float x) { return __half2float(__flo
 __device__ __forceinline__ float round_half(double x) { return __half2float(__double2half(x)); }
 template <typename T>
 __device__ __forceinline__ float round_half(T x) { return round_half((double)x); }
+
+// bfloat16 is a storage type in the same way (__nv_bfloat16 in memory, a
+// float in the kernel).  round_bf16 rounds to nearest even, as torch's
+// .to(torch.bfloat16) does; from double it rounds through float, as torch
+// and the JAX package's oracle (ml_dtypes) do.
+__device__ __forceinline__ float round_bf16(float x) {
+  return __bfloat162float(__float2bfloat16_rn(x));
+}
+__device__ __forceinline__ float round_bf16(double x) { return round_bf16(__double2float_rn(x)); }
+template <typename T>
+__device__ __forceinline__ float round_bf16(T x) { return round_bf16((double)x); }
 
 __device__ __forceinline__ float fmod_(float a, float b) { return fmodf(a, b); }
 __device__ __forceinline__ double fmod_(double a, double b) { return fmod(a, b); }

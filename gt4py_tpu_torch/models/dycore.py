@@ -34,7 +34,7 @@ def _literal_precision(dtype) -> int:
     return 32 if np.dtype(dtype).itemsize <= 4 else 64
 
 
-def make_hdiff(dtype, backend="torch"):
+def make_hdiff(dtype, backend="cuda"):
     Field = gtscript.Field[dtype]
 
     @gtscript.stencil(
@@ -60,7 +60,7 @@ def make_hdiff(dtype, backend="torch"):
     return horizontal_diffusion
 
 
-def make_vadv(dtype, backend="torch", *, bet_m=0.5, bet_p=0.5):
+def make_vadv(dtype, backend="cuda", *, bet_m=0.5, bet_p=0.5):
     Field = gtscript.Field[dtype]
 
     @gtscript.stencil(
@@ -138,7 +138,7 @@ def make_vadv(dtype, backend="torch", *, bet_m=0.5, bet_p=0.5):
     return vertical_advection_dycore
 
 
-def make_vadv_update(dtype, backend="torch", *, bet_m=0.5, bet_p=0.5):
+def make_vadv_update(dtype, backend="cuda", *, bet_m=0.5, bet_p=0.5):
     """vadv fused with the prognostic update ``u_out = u_pos + ts/dtr``:
     one extra in-kernel write replaces a whole-buffer pass."""
     Field = gtscript.Field[dtype]
@@ -219,7 +219,7 @@ def make_vadv_update(dtype, backend="torch", *, bet_m=0.5, bet_p=0.5):
     return vertical_advection_update
 
 
-def make_dycore_fused(dtype, backend="torch", *, bet_m=0.5, bet_p=0.5):
+def make_dycore_fused(dtype, backend="cuda", *, bet_m=0.5, bet_p=0.5):
     """The WHOLE dycore step as ONE stencil: horizontal diffusion
     (PARALLEL) feeding the vertical-advection tridiagonal solve
     (FORWARD+BACKWARD) and the prognostic update -- the diffused stage
@@ -348,11 +348,18 @@ def aligned_field_shape(nk: int, ni: int, nj: int) -> Tuple[int, int, int]:
     return (nk, si, sj)
 
 
-def state_from_numpy(state: Dict[str, np.ndarray], device=None) -> Dict[str, torch.Tensor]:
+def state_from_numpy(state: Dict[str, np.ndarray], device=None,
+                     dtype=None) -> Dict[str, torch.Tensor]:
     """Carry a JAX-model state (numpy arrays, physical (K, I, J)) into the
-    port unchanged: same layout, dtype and values, on ``device``."""
-    dev = torch.device(config.DEFAULT_DEVICE if device is None else device)
-    return {k: torch.from_numpy(np.ascontiguousarray(v)).to(dev) for k, v in state.items()}
+    port unchanged: same layout, dtype and values, on ``device``; or, with
+    ``dtype``, converted to it as numpy converts (``core.dtypes.cast``:
+    the way in for bfloat16, which numpy lacks)."""
+    dev = config.resolve_device(device)
+    out = {}
+    for k, v in state.items():
+        t = torch.from_numpy(np.ascontiguousarray(v))
+        out[k] = (t if dtype is None else dtypes.cast(t, dtype)).to(dev)
+    return out
 
 
 class MiniDycore:
@@ -367,10 +374,10 @@ class MiniDycore:
     HALO = 3
 
     def __init__(self, ni: int, nj: int, nk: int, *, dtype=np.float32,
-                 backend="torch", aligned: bool = True, device=None):
+                 backend="cuda", aligned: bool = True, device=None):
         self.ni, self.nj, self.nk = ni, nj, nk
         self.dtype = np.dtype(dtype)
-        self.device = torch.device(config.DEFAULT_DEVICE if device is None else device)
+        self.device = config.resolve_device(device)
         h = self.HALO
         #: aligned=True places interiors at the (8, 128) origin;
         #: aligned=False packs tight at origin (h, h)
@@ -402,15 +409,14 @@ class MiniDycore:
         """The JAX model's numpy ``default_rng(seed)`` draw, on ``device``."""
         rng = np.random.default_rng(seed)
         shape = self.field_shape()
-        dt = self.dtype
         state = {
-            "u": rng.random(shape).astype(dt),
-            "coeff": (0.025 * rng.random(shape)).astype(dt),
-            "wcon": (0.2 * rng.random(shape)).astype(dt),
-            "utens": (0.01 * rng.random(shape)).astype(dt),
-            "utens_stage": rng.random(shape).astype(dt),
+            "u": rng.random(shape),
+            "coeff": 0.025 * rng.random(shape),
+            "wcon": 0.2 * rng.random(shape),
+            "utens": 0.01 * rng.random(shape),
+            "utens_stage": rng.random(shape),
         }
-        return state_from_numpy(state, self.device)
+        return state_from_numpy(state, self.device, self.dtype)
 
     #: fields read at horizontal offsets (hdiff in_field at +-2, vadv wcon
     #: at i+1) -- the only ones whose halos a step needs

@@ -26,10 +26,10 @@ class FullDycore:
     HALO = 3
 
     def __init__(self, ni: int, nj: int, nk: int, *, dtype=np.float32,
-                 backend="torch", aligned: bool = True, device=None):
+                 backend="cuda", aligned: bool = True, device=None):
         self.ni, self.nj, self.nk = ni, nj, nk
         self.dtype = np.dtype(dtype)
-        self.device = torch.device(config.DEFAULT_DEVICE if device is None else device)
+        self.device = config.resolve_device(device)
         self.dyn = MiniDycore(ni, nj, nk, dtype=dtype, backend=backend, aligned=aligned,
                               device=self.device)
         self.fv = FvAdvection(ni, nj, nk, dtype=dtype, backend=backend, aligned=aligned,
@@ -58,8 +58,8 @@ class FullDycore:
         state["cx"] = fv_state["cx"]
         state["cy"] = fv_state["cy"]
         rng = np.random.default_rng(seed + 2)
-        qsl = rng.random(self.field_shape()).astype(self.dtype)
-        state["qsl"] = state_from_numpy({"qsl": qsl}, self.device)["qsl"]
+        qsl = rng.random(self.field_shape())
+        state["qsl"] = state_from_numpy({"qsl": qsl}, self.device, self.dtype)["qsl"]
         return state
 
     def step_fn(self):

@@ -31,7 +31,7 @@ from .dycore import (
 )
 
 
-def make_xflux(dtype, backend="torch"):
+def make_xflux(dtype, backend="cuda"):
     """PPM flux in I: ``flux[i]`` is the transport through face i
     (between cells i-1 and i), given the face Courant number ``cx``."""
     Field = gtscript.Field[dtype]
@@ -70,7 +70,7 @@ def make_xflux(dtype, backend="torch"):
     return xflux
 
 
-def make_yflux(dtype, backend="torch"):
+def make_yflux(dtype, backend="cuda"):
     Field = gtscript.Field[dtype]
 
     @gtscript.stencil(
@@ -103,7 +103,7 @@ def make_yflux(dtype, backend="torch"):
     return yflux
 
 
-def make_x_advect(dtype, backend="torch", factor=1.0):
+def make_x_advect(dtype, backend="cuda", factor=1.0):
     """Fused PPM x-flux + divergence update (the flux is a temporary)."""
     Field = gtscript.Field[dtype]
 
@@ -141,7 +141,7 @@ def make_x_advect(dtype, backend="torch", factor=1.0):
     return x_advect
 
 
-def make_y_advect(dtype, backend="torch", factor=1.0):
+def make_y_advect(dtype, backend="cuda", factor=1.0):
     Field = gtscript.Field[dtype]
 
     @gtscript.stencil(
@@ -178,7 +178,7 @@ def make_y_advect(dtype, backend="torch", factor=1.0):
     return y_advect
 
 
-def make_xy_advect(dtype, backend="torch", factor=1.0):
+def make_xy_advect(dtype, backend="cuda", factor=1.0):
     """Both inner half-advections in one stencil (two outputs)."""
     Field = gtscript.Field[dtype]
 
@@ -238,7 +238,7 @@ def make_xy_advect(dtype, backend="torch", factor=1.0):
     return xy_advect
 
 
-def make_fv_step(dtype, backend="torch"):
+def make_fv_step(dtype, backend="cuda"):
     """The whole Lin-Rood split step in one stencil: the cross-advected
     fields qx/qy and every PPM flux are temporaries.  Reads q, cx, cy and
     writes qout.  On ``"cuda"`` it splits into row-form stages at each
@@ -343,7 +343,7 @@ def make_fv_step(dtype, backend="torch"):
     return fv_step
 
 
-def make_fv_final(dtype, backend="torch"):
+def make_fv_final(dtype, backend="cuda"):
     """Fused outer stage: both outer PPM fluxes (on the cross-advected
     fields) plus the two divergence updates in one stencil."""
     Field = gtscript.Field[dtype]
@@ -404,7 +404,7 @@ def make_fv_final(dtype, backend="torch"):
     return fv_final
 
 
-def make_flux_update_x(dtype, backend="torch", factor=1.0):
+def make_flux_update_x(dtype, backend="cuda", factor=1.0):
     Field = gtscript.Field[dtype]
 
     @gtscript.stencil(
@@ -422,7 +422,7 @@ def make_flux_update_x(dtype, backend="torch", factor=1.0):
     return update_x
 
 
-def make_flux_update_y(dtype, backend="torch", factor=1.0):
+def make_flux_update_y(dtype, backend="cuda", factor=1.0):
     Field = gtscript.Field[dtype]
 
     @gtscript.stencil(
@@ -452,11 +452,11 @@ class FvAdvection:
     HALO = 3
 
     def __init__(self, ni: int, nj: int, nk: int, *, dtype=np.float32,
-                 backend="torch", aligned: bool = True, device=None):
+                 backend="cuda", aligned: bool = True, device=None):
         self.ni, self.nj, self.nk = ni, nj, nk
         self.dtype = np.dtype(dtype)
         self.backend = backend
-        self.device = torch.device(config.DEFAULT_DEVICE if device is None else device)
+        self.device = config.resolve_device(device)
         h = self.HALO
         self.aligned = aligned
         self.oi = ORIGIN_I if aligned else h
@@ -490,10 +490,10 @@ class FvAdvection:
         """The JAX model's numpy ``default_rng(seed)`` draw, on ``device``."""
         rng = np.random.default_rng(seed)
         shape = self.field_shape()
-        q = rng.random(shape).astype(self.dtype)
-        cx = (0.4 * (rng.random(shape) - 0.5)).astype(self.dtype)
-        cy = (0.4 * (rng.random(shape) - 0.5)).astype(self.dtype)
-        return state_from_numpy({"q": q, "cx": cx, "cy": cy}, self.device)
+        q = rng.random(shape)
+        cx = 0.4 * (rng.random(shape) - 0.5)
+        cy = 0.4 * (rng.random(shape) - 0.5)
+        return state_from_numpy({"q": q, "cx": cx, "cy": cy}, self.device, self.dtype)
 
     # ------------------------------------------------------------------ #
 

@@ -84,7 +84,7 @@ def _windowed_step(q, u, v, dt: float, dx: float, dy: float, W: int):
     return acc
 
 
-def make_sl_stencil(dtype, backend="torch", max_shift: int = 1):
+def make_sl_stencil(dtype, backend="cuda", max_shift: int = 1):
     """The windowed semi-Lagrangian step as a stencil: ``(2W+2)^2``
     ternary-weighted neighbour reads.  ``floor(i + s) == i + floor(s)``
     for an integer i, so the displacement splits per point:

@@ -9,8 +9,10 @@ connectivities, and ``@scan_operator`` provides column scans.
 Execution: embedded, eagerly on the tensors' device (``backends.torch_eager``,
 or with no backend), on the numpy oracle (``backends.numpy_oracle``), or
 lowered onto the generated CUDA stencil kernels (``with_backend("cuda")``,
-``cuda_bridge``).  Not ported yet: ``distributed``, the affine and
-sort-routing gathers, the suites and the bfloat16 dtype.
+``cuda_bridge``).  Gathers through numpy neighbor tables plan as affine
+windows (``affine_remap``) or sort-routed static permutations
+(``sort_route``, on the K9 kernel ``benes``).  Not ported yet:
+``distributed`` and the suites.
 """
 
 from .common import (  # noqa: F401
@@ -76,6 +78,7 @@ from .builtins import (  # noqa: F401
 from .type_system import (  # noqa: F401
     Dims,
     IndexType,
+    bfloat16,
     bool_,
     float32,
     float64,

@@ -19,6 +19,8 @@ from typing import Union
 import numpy as np
 import torch
 
+from gt4py_tpu_torch.core import dtypes
+
 from .common import (
     INFINITY,
     Connectivity,
@@ -28,6 +30,7 @@ from .common import (
     FieldOffset,
     UnitRange,
     _astype,
+    skip_mask,
     _expand,
     _xp,
     current_offset_provider,
@@ -112,7 +115,7 @@ def astype(field, dtype):
         return tuple(astype(f, dtype) for f in field)
     if isinstance(field, torch.Tensor):
         return _astype(field, np.dtype(dtype))
-    return np.dtype(dtype).type(field)
+    return dtypes.make_scalar(field, dtype)
 
 
 # --------------------------------------------------------------------- #
@@ -321,7 +324,7 @@ def _reduce(field: Field, conn_or_dim, opname, init):
     if skip_table is not None and conn_or_dim.skip_value is not None:
         src_ax = field.dims.index(conn_or_dim.source)
         if xp is tnp:
-            mask = torch.as_tensor(skip_table, device=data.device) != conn_or_dim.skip_value
+            mask = skip_mask(conn_or_dim, data.device)
         else:
             mask = np.asarray(skip_table) != conn_or_dim.skip_value
         # restrict the (n_source, max_neighbors) mask to the field's actual

@@ -13,10 +13,13 @@ Operations on tensors go through ``tnp``, a namespace with numpy's names
 and numpy's result dtypes (derived from numpy itself), so the torch path
 and the numpy oracle agree on every promotion.
 
-Not ported yet: the affine-window and sort-routing gathers and the
-composition of chained connectivities (``affine_remap``, ``sort_route``,
-``_maybe_compose``); ``remap`` always takes the plain gather, which gives
-the same values.  Fields are plain objects (no pytree registration).
+``Field.remap`` on a tensor with a numpy neighbor table dispatches as the
+JAX package does: a strided-window replay for quasi-structured tables
+(``affine_remap``), else a sort-routed gather whose static permutations
+run on the K9 kernel (``sort_route``, ``benes``), else one clipped
+``index_select``; all three give the same values.  Chains of concrete
+hops fold into one composite connectivity first (``_maybe_compose``).
+Fields are plain objects (no pytree registration).
 """
 
 from __future__ import annotations
@@ -33,6 +36,7 @@ import torch
 
 from gt4py_tpu_torch.cartesian.backend.torch_backend import _cbrt, _gamma
 from gt4py_tpu_torch.core import dtypes
+from gt4py_tpu_torch.core.definitions import BFLOAT16
 
 
 #: Sentinel magnitude for unbounded ranges (reference: common.Infinity).
@@ -66,11 +70,17 @@ def _astype(data, dt):
 # --------------------------------------------------------------------------- #
 
 
+_F16 = np.dtype(np.float16)
+
+
 def _probe(v):
     """A one-element stand-in with ``v``'s numpy typing: arrays and numpy
-    scalars are strong (their dtype decides), Python scalars are weak."""
+    scalars are strong (their dtype decides), Python scalars are weak.
+    bfloat16, which numpy cannot compute with, is typed by a float16
+    stand-in (the same rank; ``_numpy_types`` maps the results back)."""
     if isinstance(v, torch.Tensor):
-        return np.zeros(1, dtypes.to_numpy(v.dtype))
+        dt = dtypes.to_numpy(v.dtype)
+        return np.zeros(1, _F16 if dt == BFLOAT16 else dt)
     if isinstance(v, np.ndarray):
         return np.zeros(1, v.dtype)
     if isinstance(v, np.generic):
@@ -99,8 +109,21 @@ def _numpy_types(name: str, operands) -> Tuple[np.dtype, np.dtype]:
         common = np.result_type(*probes)
         if out.kind == "f" and common.kind != "f":
             common = out  # numpy computes integer inputs of float ufuncs in float
+        common, out = (_from_standin(dt, operands) for dt in (common, out))
         hit = _RESULT_CACHE[key] = (common, out)
     return hit
+
+
+def _from_standin(dt: np.dtype, operands) -> np.dtype:
+    """A result dtype typed with bfloat16's float16 stand-in, mapped back:
+    float16 means bfloat16 where an operand is bfloat16, and float32 where
+    float16 and bfloat16 meet (neither holds the other)."""
+    if dt != _F16:
+        return dt
+    kinds = {dtypes.to_numpy(o.dtype) for o in operands if isinstance(o, torch.Tensor)}
+    if BFLOAT16 not in kinds:
+        return dt
+    return np.dtype(np.float32) if _F16 in kinds else BFLOAT16
 
 
 def _device_of(operands) -> torch.device:
@@ -116,7 +139,11 @@ def _operand(v, dt: np.dtype, device):
     if isinstance(v, np.ndarray):
         return torch.from_numpy(np.ascontiguousarray(v, dtype=dt)).to(device)
     if isinstance(v, np.generic):
-        return v.item()
+        v = v.item()
+    if dt == BFLOAT16:
+        # numpy (ml_dtypes) rounds a weak scalar to bfloat16 first; torch
+        # would compute with it unrounded
+        return torch.tensor(v, dtype=torch.bfloat16, device=device)
     return v
 
 
@@ -173,7 +200,7 @@ class _TorchNumpy:
     @staticmethod
     def where(cond, a, b):
         device = _device_of((cond, a, b))
-        dt = np.result_type(_probe(a), _probe(b))
+        dt = _from_standin(np.result_type(_probe(a), _probe(b)), (a, b))
         c = _operand(cond, np.dtype(bool), device)
         if not isinstance(c, torch.Tensor):
             c = torch.tensor(bool(c), device=device)
@@ -624,14 +651,135 @@ def _check_offset_connectivity(off: "FieldOffset", conn: Connectivity) -> None:
 
 
 def _column_conn(prov: Connectivity, k: int) -> Connectivity:
-    """The k-th-neighbor column of a 2D connectivity as a 1D mapping."""
-    return Connectivity(
-        prov.table[:, k],
-        source=prov.source,
-        codomain=prov.codomain,
-        local_dim=None,
-        skip_value=prov.skip_value,
+    """Cached k-th-neighbor column view of a 2D connectivity.  Column
+    gathers are hot (every ``f(V2E[k])``) and a persistent instance lets
+    the gather plans cached on it survive calls.  Keyed on the parent
+    table's identity token, so a replaced table drops the stale column
+    views (tables are otherwise immutable once used; see
+    ``affine_remap.plan_for``)."""
+    from . import affine_remap
+
+    columns = prov.__dict__.setdefault("_column_conns", {})
+    token = affine_remap.table_token(prov.table)
+    key = (token, k)
+    column = columns.get(key)
+    if column is None:
+        for stale in [kk for kk in columns if kk[0] != token]:
+            del columns[stale]
+        column = Connectivity(
+            prov.table[:, k],
+            source=prov.source,
+            codomain=prov.codomain,
+            local_dim=None,
+            skip_value=prov.skip_value,
+        )
+        columns[key] = column
+    return column
+
+
+def _peek_conn(off) -> Optional[Connectivity]:
+    """Resolve an offset application to its concrete Connectivity without
+    side effects, for multi-hop chain folding; None when the offset is a
+    cartesian shift, unresolvable or malformed (the sequential path then
+    raises the proper error)."""
+    if isinstance(off, Connectivity):
+        return off
+    if isinstance(off, FieldOffset):
+        prov = _provider_lookup(off.value)
+        if isinstance(prov, Connectivity):
+            try:
+                _check_offset_connectivity(off, prov)
+            except TypeError:
+                return None
+            return prov
+        return None
+    if isinstance(off, OffsetIndex) and isinstance(off.offset, FieldOffset):
+        prov = _provider_lookup(off.offset.value)
+        if isinstance(prov, Connectivity) and getattr(prov.table, "ndim", 0) == 2:
+            try:
+                _check_offset_connectivity(off.offset, prov)
+            except TypeError:
+                return None
+            nb = prov.table.shape[1]
+            if -nb <= off.index < nb:
+                return _column_conn(prov, off.index % nb)
+    return None
+
+
+#: composites kept per second hop (``_maybe_compose``); the oldest entry
+#: goes first.  The JAX package's cache evicts only stale second-hop
+#: entries and can grow without bound.
+_COMPOSE_CACHE_MAX = 8
+
+
+def _maybe_compose(c1: Connectivity, c2: Connectivity):
+    """The composite connectivity for the hop pair ``remap(c1)`` then
+    ``remap(c2)``, or None when ineligible or unprofitable.
+
+    Exactness: the intermediate field of the two-hop base path always
+    lives on range ``[0, len(t1))`` with clip-to-range gather semantics,
+    so ``comp[x, ...] = t1[clip(t2[x], 0, len(t1)-1), ...]`` gathered once
+    reproduces the chain bit for bit -- skip entries included (both paths
+    read the same clipped positions).  Reference behavior: sequential
+    premap composition, src/gt4py/next/embedded/nd_array_field.py:240-376.
+
+    Cost policy (the JAX package's): the composite is used when it fits an
+    affine plan, or when at least one original hop did not (one irregular
+    gather beats two gathers of which one is irregular); two affine hops
+    whose composite loses the structure stay sequential.  The composites
+    are cached on ``c2``, at most ``_COMPOSE_CACHE_MAX`` of them."""
+    t1, t2 = c1.table, c2.table
+    if not (isinstance(t1, np.ndarray) and isinstance(t2, np.ndarray)):
+        return None
+    if t2.ndim != 1 or c2.codomain.value != c1.source.value:
+        return None
+    from . import affine_remap
+
+    key = (affine_remap.table_token(t1), affine_remap.table_token(t2))
+    cache = c2.__dict__.setdefault("_compose_cache", {})
+    if key in cache:
+        return cache[key]
+    for stale in [kk for kk in cache if kk[1] != key[1]]:
+        del cache[stale]
+    while len(cache) >= _COMPOSE_CACHE_MAX:
+        del cache[next(iter(cache))]
+    safe2 = np.clip(t2, 0, t1.shape[0] - 1)
+    comp = Connectivity(
+        np.ascontiguousarray(t1[safe2]),
+        source=c2.source,
+        codomain=c1.codomain,
+        local_dim=c1.local_dim if t1.ndim == 2 else None,
+        skip_value=c1.skip_value,
     )
+    profitable = affine_remap.plan_for(comp) is not None or (
+        affine_remap.plan_for(c1) is None or affine_remap.plan_for(c2) is None
+    )
+    result = comp if profitable else None
+    cache[key] = result
+    return result
+
+
+def _fold_offset_chain(offs):
+    """Fold adjacent concrete connectivity hops of a multi-offset
+    application into composite Connectivities (see ``_maybe_compose``);
+    items that do not fold pass through for sequential application."""
+    out = []
+    cur = None  # (resolved Connectivity | None, item to apply)
+    for o in offs:
+        c = _peek_conn(o)
+        if cur is None:
+            cur = (c, o)
+            continue
+        pc, po = cur
+        comp = _maybe_compose(pc, c) if pc is not None and c is not None else None
+        if comp is not None:
+            cur = (comp, comp)
+        else:
+            out.append(po)
+            cur = (c, o)
+    if cur is not None:
+        out.append(cur[1])
+    return out
 
 
 #: types accepted anywhere a "field or scalar" is expected
@@ -679,8 +827,11 @@ class Field:
         return _xp(self.data)
 
     def asnumpy(self) -> np.ndarray:
+        """The values as a numpy array; bfloat16, which numpy lacks,
+        widens (exactly) to float32."""
         if isinstance(self.data, torch.Tensor):
-            return self.data.detach().cpu().numpy()
+            t = self.data.detach().cpu()
+            return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
         return np.asarray(self.data)
 
     # NOTE: deliberately NO __array__ (matching the reference Field):
@@ -696,7 +847,7 @@ class Field:
                 "'as_scalar' is only valid on 0-dimensional 'Field's, got a "
                 f"{self.domain.ndim}-dimensional 'Field'."
             )
-        return self.dtype.type(self.asnumpy()[()])
+        return dtypes.make_scalar(self.asnumpy()[()], self.dtype)
 
     def __repr__(self):
         dims = ", ".join(f"{d.value}{r}" for d, r in self.domain)
@@ -902,11 +1053,13 @@ class Field:
         own = self.domain[conn.codomain]
         tshape = tuple(conn.table.shape)
         new_shape = self.data.shape[:ax] + tshape + self.data.shape[ax + 1 :]
-        if isinstance(self.data, torch.Tensor):
-            table = torch.as_tensor(conn.table, device=self.data.device).to(torch.int64)
-            safe = torch.clamp(table - own.start, 0, self.data.shape[ax] - 1)
-            gathered = torch.index_select(self.data, ax, safe.reshape(-1))
-        else:
+        gathered = None
+        if isinstance(self.data, torch.Tensor) and isinstance(conn.table, np.ndarray):
+            gathered = _planned_gather(self.data, conn, own.start, ax)
+        if gathered is None and isinstance(self.data, torch.Tensor):
+            safe = _clipped_index(conn, own.start, self.data.shape[ax], self.data.device)
+            gathered = torch.index_select(self.data, ax, safe)
+        elif gathered is None:
             table = conn.table
             if isinstance(table, torch.Tensor):
                 table = table.cpu().numpy()
@@ -930,7 +1083,8 @@ class Field:
         """Compose the field with index mappings, ``(f∘c)(x) = f(c(x))``
         (reference: embedded/nd_array_field.py:240-…).  Each connectivity's
         codomain must be a dim of the field; gathers are applied one at a
-        time (codomains pairwise distinct)."""
+        time (codomains pairwise distinct); adjacent concrete hops fold
+        into one composite gather (``_maybe_compose``)."""
         seen = set()
         for c in conns:
             if isinstance(c, OffsetIndex):
@@ -939,7 +1093,7 @@ class Field:
                 raise ValueError(f"duplicate codomain {c.codomain} in premap")
             seen.add(c.codomain)
         out = self
-        for c in conns:
+        for c in _fold_offset_chain(conns):
             if isinstance(c, OffsetIndex):  # cartesian shift: domain translation
                 out = out(c)
                 continue
@@ -956,9 +1110,10 @@ class Field:
     ) -> "Field":
         if more:
             # reference: NdArrayField.__call__ reduces over premap
-            # (nd_array_field.py:367-376)
+            # (nd_array_field.py:367-376).  Adjacent concrete hops fold
+            # into one composite gather first (``_maybe_compose``).
             out = self
-            for o in (off,) + more:
+            for o in _fold_offset_chain((off,) + more):
                 out = out.remap(o) if isinstance(o, Connectivity) else out(o)
             return out
         if isinstance(off, Connectivity):
@@ -1062,6 +1217,61 @@ class Field:
     def __invert__(self): return Field(self.domain, self.xp.logical_not(self.data))
 
     __hash__ = None  # type: ignore[assignment]
+
+
+def _clipped_index(conn: Connectivity, start: int, n: int, device) -> torch.Tensor:
+    """The base path's flat index ``clip(table - start, 0, n - 1)`` as an
+    int64 tensor on ``device``; for a numpy table, cached on the
+    connectivity (one entry, keyed on the table's token)."""
+    if not isinstance(conn.table, np.ndarray):
+        table = torch.as_tensor(conn.table, device=device).to(torch.int64)
+        return torch.clamp(table - start, 0, n - 1).reshape(-1)
+    from . import affine_remap
+
+    key = (affine_remap.table_token(conn.table), start, n, device)
+    cached = conn.__dict__.get("_clipped_index")
+    if cached is None or cached[0] != key:
+        safe = np.clip(conn.table.reshape(-1).astype(np.int64) - start, 0, n - 1)
+        cached = (key, torch.from_numpy(safe).to(device))
+        conn.__dict__["_clipped_index"] = cached
+    return cached[1]
+
+
+def skip_mask(conn: Connectivity, device) -> torch.Tensor:
+    """``table != skip_value`` as a bool tensor on ``device``; for a numpy
+    table, cached on the connectivity (one entry, keyed on the table's
+    token), so a reduction does not copy the table to the card per call."""
+    if not isinstance(conn.table, np.ndarray):
+        return torch.as_tensor(conn.table, device=device) != conn.skip_value
+    from . import affine_remap
+
+    key = (affine_remap.table_token(conn.table), conn.skip_value, device)
+    cached = conn.__dict__.get("_skip_mask")
+    if cached is None or cached[0] != key:
+        cached = (key, torch.from_numpy(conn.table != conn.skip_value).to(device))
+        conn.__dict__["_skip_mask"] = cached
+    return cached[1]
+
+
+def _planned_gather(data: torch.Tensor, conn: Connectivity, start: int, ax: int):
+    """The gather of ``remap`` through a planned numpy table, shaped like
+    the base path's, or None when no plan applies: an affine window
+    (``affine_remap``), else a sort-routed gather (``sort_route``)."""
+    from . import affine_remap, sort_route
+
+    plan = affine_remap.plan_for(conn)
+    if plan is not None:
+        gathered = affine_remap.apply_table_plan(plan, data, start, ax)
+        if gathered is not None:
+            if conn.table.ndim == 1:  # drop the local axis the plan added
+                gathered = gathered.reshape(gathered.shape[: ax + 1] + gathered.shape[ax + 2 :])
+            return gathered
+    splan = sort_route.plan_for(conn)
+    if splan is not None:
+        flat = sort_route.apply_gather_plan(splan, data, start, ax)
+        if flat is not None:
+            return flat.reshape(data.shape[:ax] + tuple(conn.table.shape) + data.shape[ax + 1 :])
+    return None
 
 
 def _expand(f: Field, dom: Domain):

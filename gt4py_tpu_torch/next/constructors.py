@@ -3,7 +3,8 @@
 The counterpart of ``gt4py_tpu.next.constructors`` (reference:
 src/gt4py/next/constructors.py:394-690, empty/zeros/ones/full/as_field/
 as_connectivity with allocator/device arguments).  Every constructor takes
-``device=`` (default ``config.DEFAULT_DEVICE``); ``allocator="numpy"``
+``device=`` (default ``config.DEFAULT_DEVICE``, the card; a device that is
+not there raises, see ``config.resolve_device``); ``allocator="numpy"``
 builds a numpy-backed field instead, which runs on the embedded oracle.
 
 Layout: a field the constructors allocate, or copy from a numpy array,
@@ -51,7 +52,7 @@ def _alloc(fill, dims, shape, dtype, device) -> torch.Tensor:
     """A tensor of logical ``shape`` over storage in ``_storage_order``."""
     order = _storage_order(dims)
     storage = fill(tuple(shape[a] for a in order), dtype=dtypes.to_torch(dtype),
-                   device=torch.device(device or config.DEFAULT_DEVICE))
+                   device=config.resolve_device(device))
     return storage.permute(*np.argsort(order).tolist())
 
 
@@ -88,7 +89,7 @@ def _from_numpy(dims, array: np.ndarray, device) -> torch.Tensor:
     """A copy of ``array`` on ``device`` in the constructors' layout."""
     array = np.asarray(array)
     if len(dims) != array.ndim:
-        return torch.as_tensor(array, device=torch.device(device or config.DEFAULT_DEVICE))
+        return torch.as_tensor(array, device=config.resolve_device(device))
     out = _alloc(torch.empty, dims, array.shape, array.dtype, device)
     out.copy_(torch.from_numpy(np.ascontiguousarray(array)))
     return out
@@ -139,7 +140,7 @@ def as_connectivity(
         table = table.cpu().numpy()
     table = np.asarray(table, dtype=np.int32)
     if allocator != "numpy":
-        table = torch.as_tensor(table, device=torch.device(device or config.DEFAULT_DEVICE))
+        table = torch.as_tensor(table, device=config.resolve_device(device))
     if local_dim is None:
         local_dim = Dimension(
             f"{source.value}2{codomain.value}", DimensionKind.LOCAL

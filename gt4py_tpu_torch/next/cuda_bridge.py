@@ -1619,10 +1619,12 @@ def lower_scan_operator(
         if not isinstance(t, ts.ScalarType):
             raise Ineligible(f"carry element of type {t}")
         dt = np.dtype(t.kind)
+        if isinstance(v, torch.Tensor) and v.ndim == 0:
+            v = v.item()
         if not isinstance(v, (bool, int, float, np.generic)):
             raise Ineligible(f"init of type {type(v).__name__}")
         out_dtypes.append(dt)
-        init_exprs.append(ir.Literal(value=dt.type(v), dtype=dt))
+        init_exprs.append(ir.Literal(value=dtypes.scalar_value(v, dt), dtype=dt))
 
     # parameters: fields keep their call-site dims, the rest are scalars
     field_params: List[Tuple[str, Tuple[Dimension, ...], Tuple[bool, bool, bool]]] = []
@@ -1903,7 +1905,7 @@ def _lower_program_stmt(typed, st, axis_of, fuse_serial=True) -> ProgramStmt:
             else:
                 raise Ineligible(f"argument of type {t}")
         elif isinstance(a, fvir.Literal) and isinstance(a.type, ts.ScalarType):
-            bindings.append(("literal", np.dtype(a.type.kind).type(a.value)))
+            bindings.append(("literal", dtypes.make_scalar(a.value, a.type.kind)))
         else:
             raise Ineligible(f"argument {type(a).__name__}")
     try:

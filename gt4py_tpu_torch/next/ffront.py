@@ -31,6 +31,7 @@ import numpy as np
 import torch
 
 from gt4py_tpu_torch import config
+from gt4py_tpu_torch.core import dtypes
 from gt4py_tpu_torch.instrumentation import metrics as _metrics
 
 from . import frontend, fvir, type_system as ts
@@ -387,7 +388,7 @@ class ScanOperator(FieldOperator):
         decl = self.ir.params[0].type
         if type(self.init) in (float, int) and isinstance(carry_t, ts.ScalarType):
             if isinstance(decl, ts.ScalarType) and not ts.is_deferred(decl):
-                self.init = np.dtype(decl.kind).type(self.init)
+                self.init = dtypes.make_scalar(self.init, decl.kind)
                 carry_t = ts.from_value(self.init)
         elif (
             isinstance(self.init, tuple)
@@ -395,7 +396,7 @@ class ScanOperator(FieldOperator):
             and len(decl.types) == len(self.init)
         ):
             self.init = tuple(
-                np.dtype(dt.kind).type(v)
+                dtypes.make_scalar(v, dt.kind)
                 if type(v) in (float, int)
                 and isinstance(dt, ts.ScalarType)
                 and not ts.is_deferred(dt)
@@ -472,7 +473,7 @@ class ScanOperator(FieldOperator):
             def plane(v, shape):
                 if not isinstance(v, torch.Tensor):
                     v = torch.as_tensor(np.asarray(v), device=device)
-                return v.expand(*shape)
+                return v.to(device).expand(tuple(shape))
 
             stack = lambda planes: torch.stack(planes, dim=0)  # noqa: E731
         # broadcast all field args onto dom and move the scan axis first

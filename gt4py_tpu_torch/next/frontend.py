@@ -495,7 +495,7 @@ def external_type(value, loc=None) -> ts.TypeSpec:
         return ts.OperatorType(op=value)
     if isinstance(value, ffront.ScanOperator):
         return ts.OperatorType(op=value)
-    if isinstance(value, type) and value in ts._SCALAR_ALIASES:
+    if (isinstance(value, type) or value is ts.bfloat16) and value in ts._SCALAR_ALIASES:
         return ts.CastType(ts._SCALAR_ALIASES[value])
     if isinstance(value, type) and ts.collection_fields(value) is not None:
         # NamedTuple / dataclass class used as an in-operator constructor

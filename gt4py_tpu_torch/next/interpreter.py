@@ -21,6 +21,8 @@ from typing import Any, Dict, List
 import numpy as np
 import torch
 
+from gt4py_tpu_torch.core import dtypes
+
 from . import fvir, type_system as ts
 from .common import Field, _astype, tnp
 from .frontend import FieldViewError, _err
@@ -30,7 +32,7 @@ def _as_value(node: fvir.Expr, raw):
     """Cast a just-evaluated scalar to the node's deduced dtype."""
     t = node.type
     if isinstance(t, ts.ScalarType) and not isinstance(raw, Field):
-        return np.dtype(t.kind).type(raw) if not hasattr(raw, "dtype") else raw
+        return dtypes.make_scalar(raw, t.kind) if not hasattr(raw, "dtype") else raw
     return raw
 
 
@@ -93,7 +95,7 @@ class Interpreter:
                 return None
             t = node.type
             if isinstance(t, ts.ScalarType):
-                return np.dtype(t.kind).type(node.value)
+                return dtypes.make_scalar(node.value, t.kind)
             return node.value
         if isinstance(node, fvir.TupleExpr):
             return tuple(self.eval(e) for e in node.elts)
@@ -186,7 +188,7 @@ class Interpreter:
             return v
         if isinstance(t, ts.ScalarType) and t.weak and not isinstance(v, Field):
             if isinstance(v, (int, float, bool, complex, np.generic)):
-                return np.dtype(target).type(v)
+                return dtypes.make_scalar(v, target)
             # array scalar (a scan's column plane)
             return _astype(v, np.dtype(target))
         return v

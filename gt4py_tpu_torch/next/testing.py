@@ -5,6 +5,10 @@
   ``gt4py_tpu.next.as_field`` and to the port and compares the results.
 - ``bench_cases`` builds bench.py's next-DSL configurations on a device,
   for the chip check and the card tests (where JAX is absent).
+- ``SimpleMesh``, ``grid_mesh``, ``shuffled_mesh`` and ``simple_mesh_case``
+  are the JAX package's unstructured meshes (numpy neighbor tables, the
+  same numbering and seeds); ``unstructured_fvm_case`` builds bench.py's
+  unstructured FVM step on them.
 
 (No ``from __future__ import annotations`` here: the operators defined
 inside ``bench_cases`` annotate with a local dtype, which the frontend
@@ -12,14 +16,15 @@ must see as a value, not as a string.)
 """
 
 import contextlib
-from typing import Dict, Mapping, Optional, Sequence, Union
+import dataclasses
+from typing import Any, Dict, Mapping, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
 
 from gt4py_tpu_torch import config
 
-from .common import Dimension, Domain, Field, UnitRange as U
+from .common import Connectivity, Dimension, DimensionKind, Domain, Field, UnitRange as U
 from .constructors import as_field
 
 
@@ -227,3 +232,176 @@ def bench_cases(dtype, shape, device):
 
         case["kernels"] = planned
     return cases
+
+
+# --------------------------------------------------------------------- #
+# unstructured meshes (the JAX package's ``next.testing``; reference:
+# cases.py SimpleMesh)
+# --------------------------------------------------------------------- #
+
+Vertex = Dimension("Vertex")
+Edge = Dimension("Edge")
+Cell = Dimension("Cell")
+V2EDim = Dimension("V2E", kind=DimensionKind.LOCAL)
+E2VDim = Dimension("E2V", kind=DimensionKind.LOCAL)
+
+
+@dataclasses.dataclass
+class Case:
+    """Default sizes per dimension and the offset provider of a mesh
+    test; ``allocator`` is ``"numpy"`` (the oracle) or ``"torch"``."""
+
+    default_sizes: Dict[Dimension, int]
+    offset_provider: Dict[str, Any] = dataclasses.field(default_factory=dict)
+    allocator: str = "numpy"
+
+    def size(self, dim: Dimension) -> int:
+        if dim not in self.default_sizes:
+            raise KeyError(f"no default size for dimension {dim.value}")
+        return self.default_sizes[dim]
+
+
+@dataclasses.dataclass
+class SimpleMesh:
+    """A 9-vertex / 12-edge structured quad patch exposed as unstructured
+    connectivity tables, with skip values on the boundary (interior
+    vertices have 4 incident edges, corners only 2)."""
+
+    n_vertices: int
+    n_edges: int
+    v2e: Connectivity
+    e2v: Connectivity
+
+    @classmethod
+    def make(cls) -> "SimpleMesh":
+        # 3x3 vertices, edges: 6 horizontal + 6 vertical
+        e2v_table = np.array(
+            [[0, 1], [1, 2], [3, 4], [4, 5], [6, 7], [7, 8],
+             [0, 3], [1, 4], [2, 5], [3, 6], [4, 7], [5, 8]],
+            dtype=np.int64,
+        )
+        nv = 9
+        v2e_lists: list = [[] for _ in range(nv)]
+        for e, (a, b) in enumerate(e2v_table):
+            v2e_lists[a].append(e)
+            v2e_lists[b].append(e)
+        width = max(len(l) for l in v2e_lists)
+        v2e_table = np.full((nv, width), -1, dtype=np.int64)
+        for v, l in enumerate(v2e_lists):
+            v2e_table[v, : len(l)] = l
+        return cls(nv, len(e2v_table), *_mesh_conns(v2e_table, e2v_table))
+
+
+def _mesh_conns(v2e_table, e2v_table) -> Tuple[Connectivity, Connectivity]:
+    return (
+        Connectivity(v2e_table, source=Vertex, codomain=Edge, local_dim=V2EDim,
+                     skip_value=-1),
+        Connectivity(e2v_table, source=Edge, codomain=Vertex, local_dim=E2VDim,
+                     skip_value=None),  # every edge has both endpoints
+    )
+
+
+def grid_mesh(n: int) -> SimpleMesh:
+    """An n x n structured quad patch as unstructured connectivity tables
+    (the SimpleMesh layout at any scale): 2*n*(n-1) edges, skip values at
+    boundary vertices.  Its tables are quasi-structured: gathers through
+    them plan as affine windows (``affine_remap``)."""
+    nv = n * n
+    vid = np.arange(nv).reshape(n, n)
+    h = np.stack([vid[:, :-1].ravel(), vid[:, 1:].ravel()], axis=1)
+    v = np.stack([vid[:-1, :].ravel(), vid[1:, :].ravel()], axis=1)
+    e2v_table = np.concatenate([h, v], axis=0).astype(np.int64)
+    ne = len(e2v_table)
+    # incident edges per vertex, skip-padded to width 4
+    counts = np.zeros(nv, dtype=np.int64)
+    v2e_table = np.full((nv, 4), -1, dtype=np.int64)
+    for col in (0, 1):
+        vs = e2v_table[:, col]
+        order = np.argsort(vs, kind="stable")
+        for e, vtx in zip(order, vs[order]):
+            v2e_table[vtx, counts[vtx]] = e
+            counts[vtx] += 1
+    return SimpleMesh(nv, ne, *_mesh_conns(v2e_table, e2v_table))
+
+
+def shuffled_mesh(n: int, seed: int = 0) -> SimpleMesh:
+    """The :func:`grid_mesh` topology with vertices and edges renumbered by
+    random permutations: the same physics, truly irregular tables (the
+    affine fit declines), so gathers take the sort-routing path
+    (``sort_route``, K9)."""
+    mesh = grid_mesh(n)
+    rng = np.random.default_rng(seed)
+    pv = rng.permutation(mesh.n_vertices).astype(np.int64)  # old -> new
+    pe = rng.permutation(mesh.n_edges).astype(np.int64)
+    e2v_old = np.asarray(mesh.e2v.table)
+    v2e_old = np.asarray(mesh.v2e.table)
+    e2v_new = np.empty_like(e2v_old)
+    e2v_new[pe] = pv[e2v_old]
+    v2e_new = np.empty_like(v2e_old)
+    v2e_new[pv] = np.where(v2e_old == -1, -1, pe[np.clip(v2e_old, 0, None)])
+    return SimpleMesh(mesh.n_vertices, mesh.n_edges, *_mesh_conns(v2e_new, e2v_new))
+
+
+def simple_mesh_case(allocator: str = "numpy") -> Tuple[Case, SimpleMesh]:
+    mesh = SimpleMesh.make()
+    case = Case(
+        default_sizes={
+            Vertex: mesh.n_vertices,
+            Edge: mesh.n_edges,
+            V2EDim: mesh.v2e.max_neighbors,
+            E2VDim: mesh.e2v.max_neighbors,
+            Dimension("K", kind=DimensionKind.VERTICAL): 6,
+        },
+        offset_provider={"V2E": mesh.v2e, "E2V": mesh.e2v},
+        allocator=allocator,
+    )
+    return case, mesh
+
+
+def unstructured_fvm_case(n: int = 512, irregular: bool = False, dtype=np.float32,
+                          device=None) -> Dict[str, Any]:
+    """bench.py's unstructured FVM diffusion step (``bench_tpu_unstructured``:
+    edge gradient, signed divergence, ``psi + 0.05 * div``) on
+    ``grid_mesh(n)`` or ``shuffled_mesh(n, seed=7)``, with its ``sign``
+    field and ``psi0`` (seed 3), on ``device``.  The operators run embedded
+    (``with_backend("torch")``; the bridge declines local dimensions, as
+    the JAX package's does).  Returns ``mesh``, ``provider``, ``sign``,
+    ``psi0`` (a tensor) and ``step(psi) -> psi`` over tensors."""
+    import gt4py_tpu_torch.next as gtx
+    from gt4py_tpu_torch.next import Dims, FieldOffset, neighbor_sum
+
+    mesh = shuffled_mesh(n, seed=7) if irregular else grid_mesh(n)
+    E2V = FieldOffset("E2V", source=Vertex, target=(Edge, E2VDim))
+    V2E = FieldOffset("V2E", source=Edge, target=(Vertex, V2EDim))
+    T = gtx.float32 if np.dtype(dtype) == np.float32 else gtx.float64
+
+    @gtx.field_operator
+    def gradient(psi: Field[Dims[Vertex], T]) -> Field[Dims[Edge], T]:
+        return psi(E2V[1]) - psi(E2V[0])
+
+    @gtx.field_operator
+    def divergence(flux: Field[Dims[Edge], T],
+                   sign: Field[Dims[Vertex, V2EDim], T]) -> Field[Dims[Vertex], T]:
+        return neighbor_sum(flux(V2E) * sign, axis=V2EDim)
+
+    provider = {"E2V": mesh.e2v, "V2E": mesh.v2e}
+    grad_b = gradient.with_backend("torch")
+    div_b = divergence.with_backend("torch")
+    t = mesh.v2e.table
+    first = mesh.e2v.table[np.clip(t, 0, mesh.n_edges - 1), 0]
+    sign_np = np.where(
+        t == -1, 0.0, np.where(first == np.arange(mesh.n_vertices)[:, None], 1.0, -1.0)
+    ).astype(dtype)
+    sign = as_field((Vertex, V2EDim), sign_np, device=device)
+    psi0 = torch.from_numpy(
+        np.random.default_rng(3).random(mesh.n_vertices).astype(dtype)
+    ).to(config.resolve_device(device))
+
+    def step(psi_data):
+        psi = gtx.as_field((Vertex,), psi_data)
+        g = grad_b(psi, offset_provider=provider)
+        d = div_b(g, sign, offset_provider=provider)
+        return psi_data + 0.05 * d.data
+
+    return dict(mesh=mesh, provider=provider, sign=sign, psi0=psi0, step=step,
+                gradient=grad_b, divergence=div_b)

@@ -20,6 +20,9 @@ import numpy as np
 import torch
 
 from gt4py_tpu_torch.core import dtypes
+#: bfloat16's numpy ``kind`` is 'V' (void), so kind-string arithmetic
+#: checks must special-case it (shared vocabulary: core.definitions)
+from gt4py_tpu_torch.core.definitions import BFLOAT16 as _BFLOAT16
 
 from .common import (
     Connectivity,
@@ -261,6 +264,9 @@ uint32 = np.uint32
 uint64 = np.uint64
 float32 = np.float32
 float64 = np.float64
+#: the port's bfloat16 token (``core.definitions.BFLOAT16``, a dtype
+#: rather than a scalar type: a bfloat16 scalar is a 0-d tensor)
+bfloat16 = _BFLOAT16
 IndexType = np.int32  # (reference: fbuiltins.IndexType :116)
 
 _SCALAR_ALIASES: Dict[Any, np.dtype] = {
@@ -268,7 +274,7 @@ _SCALAR_ALIASES: Dict[Any, np.dtype] = {
     for t in (
         bool, int, float,
         bool_, int8, int16, int32, int64,
-        uint8, uint16, uint32, uint64, float32, float64,
+        uint8, uint16, uint32, uint64, float32, float64, bfloat16,
     )
 }
 
@@ -400,7 +406,7 @@ def is_arithmetic(t: TypeSpec) -> bool:
     if dt is None:
         return False
     ndt = np.dtype(dt.kind)
-    return ndt.kind in "iuf"
+    return ndt.kind in "iuf" or ndt == _BFLOAT16
 
 
 def is_logical(t: TypeSpec) -> bool:

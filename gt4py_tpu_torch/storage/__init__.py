@@ -39,7 +39,7 @@ class FieldStorage:
         self.dims = tuple(dims)
 
     def __array__(self, dtype=None, copy=None):
-        arr = self.data.detach().cpu().numpy()
+        arr = self.to_numpy()
         return arr.astype(dtype) if dtype is not None else arr
 
     @property
@@ -73,7 +73,10 @@ class FieldStorage:
         self.data[key] = value
 
     def to_numpy(self) -> np.ndarray:
-        return self.data.detach().cpu().numpy()
+        """The values as a numpy array; bfloat16, which numpy lacks,
+        widens (exactly) to float32."""
+        t = self.data.detach().cpu()
+        return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
 
     def __repr__(self):
         return (
@@ -103,7 +106,7 @@ def _normalize(shape, aligned_index, dimensions, data_dims=()):
 
 
 def _device(device) -> torch.device:
-    return torch.device(config.DEFAULT_DEVICE if device is None else device)
+    return config.resolve_device(device)
 
 
 def empty(shape: Sequence[int], dtype=np.float64, *, device=None,
@@ -147,7 +150,7 @@ def from_array(data, dtype=None, *, device=None,
     else:
         t = torch.from_numpy(np.array(data, copy=True))
     if dtype is not None:
-        t = t.to(dtypes.to_torch(dtype))
+        t = dtypes.cast(t, dtype)
     t = t.to(_device(device)).contiguous()
     shape, origin, dims = _normalize(t.shape, aligned_index, dimensions, data_dims)
     return FieldStorage(t, origin, dims)

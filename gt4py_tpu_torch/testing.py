@@ -11,7 +11,7 @@ Used by the card tests (``tests/test_torch_cuda.py``) and the chip check
   registry covers only in part -- absolute K (``.at(K=...)``) from a
   literal, a scalar and a 2D field, absolute and variable K inside scans,
   data dimensions of rank 2 with constant and per-point writes, float16
-  storage in the row and the column form.
+  and bfloat16 storage in the row and the column form.
 - ``run_pair()``: one definition on ``"cuda"`` and on ``"torch"`` over the
   same inputs on one device.
 """
@@ -24,6 +24,7 @@ import numpy as np
 import torch
 
 from gt4py_tpu_torch.cartesian import gtscript
+from gt4py_tpu_torch.core import dtypes
 from gt4py_tpu_torch.cartesian.gtscript import (
     BACKWARD,
     FORWARD,
@@ -142,6 +143,25 @@ def float16_hdiff_sweep(inp: F16, coeff: F16, out: F16, col: F16):
             col = 0.5 * col[0, 0, -1] + out[0, 0, 0]
 
 
+BF16 = gtscript.Field[gtscript.bfloat16]
+
+
+def bfloat16_hdiff_sweep(inp: BF16, coeff: BF16, out: BF16, col: BF16):
+    with computation(PARALLEL), interval(...):
+        lap = 4.0 * inp[0, 0, 0] - (inp[1, 0, 0] + inp[-1, 0, 0] + inp[0, 1, 0] + inp[0, -1, 0])
+        res = lap[1, 0, 0] - lap[0, 0, 0]
+        flx = 0 if (res * (inp[1, 0, 0] - inp[0, 0, 0])) > 0 else res
+        res = lap[0, 1, 0] - lap[0, 0, 0]
+        fly = 0 if (res * (inp[0, 1, 0] - inp[0, 0, 0])) > 0 else res
+        out = inp[0, 0, 0] - coeff[0, 0, 0] * (flx[0, 0, 0] - flx[-1, 0, 0]
+                                               + fly[0, 0, 0] - fly[0, -1, 0])
+    with computation(FORWARD):
+        with interval(0, 1):
+            col = out[0, 0, 0]
+        with interval(1, None):
+            col = 0.5 * col[0, 0, -1] + out[0, 0, 0]
+
+
 def _rng(seed):
     return np.random.default_rng(seed)
 
@@ -175,6 +195,13 @@ SURFACE: Dict[str, Tuple[Callable, Callable, dict]] = {
              coeff=(0.025 * _rng(15).random((12, 11, 6))).astype(np.float16),
              out=np.zeros((12, 11, 6), np.float16), col=np.zeros((12, 11, 6), np.float16)), {}),
         dict(origin=(2, 2, 0), domain=(8, 7, 6))),
+    # numpy has no bfloat16: float32 inputs, rounded to the fields' dtype
+    # on the way in (``run_pair``)
+    "bfloat16_hdiff_sweep": (bfloat16_hdiff_sweep, lambda: (
+        dict(inp=_rng(16).random((12, 11, 6)).astype(np.float32),
+             coeff=(0.025 * _rng(17).random((12, 11, 6))).astype(np.float32),
+             out=np.zeros((12, 11, 6), np.float32), col=np.zeros((12, 11, 6), np.float32)), {}),
+        dict(origin=(2, 2, 0), domain=(8, 7, 6))),
 }
 
 
@@ -202,7 +229,8 @@ def run_pair(definition, make_inputs, kw: dict, device) -> Tuple[dict, dict, obj
         st = gtscript.stencil(backend=backend, definition=definition, externals=externals,
                               rebuild=True)
         fields, scalars = make_inputs()
-        tensors = {k: torch.from_numpy(np.ascontiguousarray(v)).to(device)
+        tensors = {k: dtypes.cast(torch.from_numpy(np.ascontiguousarray(v)),
+                                  st.field_info[k].dtype).to(device)
                    for k, v in fields.items()}
         st(**tensors, **scalars, **kw)
         out[backend] = tensors

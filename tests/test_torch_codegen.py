@@ -18,6 +18,15 @@ from gt4py_tpu_torch.cartesian import gtscript, ir
 from gt4py_tpu_torch.cartesian.backend import cuda_backend
 from gt4py_tpu_torch.cartesian.gtscript import FORWARD, PARALLEL, computation, interval
 from gt4py_tpu_torch.models import dycore, fv_advection, semi_lagrangian
+from gt4py_tpu_torch import config
+
+
+@pytest.fixture(autouse=True)
+def _on_the_cpu(monkeypatch):
+    """The port's entry points default to the card; these tests ask for
+    the CPU."""
+    monkeypatch.setattr(config, "DEFAULT_DEVICE", "cpu")
+
 
 #: stencil -> the kernel forms it documents, in launch order
 FORMS = {

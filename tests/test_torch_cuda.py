@@ -252,6 +252,30 @@ def test_float16_storage_vs_plain(cuda_device):
         torch.testing.assert_close(got["cuda"][k], got["torch"][k], rtol=0, atol=0, msg=k)
 
 
+@pytest.mark.cuda
+def test_bfloat16_storage_vs_plain(cuda_device):
+    """bfloat16 fields: ``__nv_bfloat16`` loads and stores around float
+    compute, in the row and the column form, equal to the plain executor
+    exactly."""
+    rng = np.random.default_rng(17)
+    shape = (40, 70, 9)
+    inputs = {"inp": rng.random(shape), "coeff": 0.025 * rng.random(shape),
+              "out": np.zeros(shape), "col": np.zeros(shape)}
+    got = {}
+    for backend in ("cuda", "torch"):
+        st = gtscript.stencil(backend=backend, definition=testing.bfloat16_hdiff_sweep,
+                              rebuild=True)
+        tensors = {k: torch.from_numpy(v).to(cuda_device).to(torch.bfloat16)
+                   for k, v in inputs.items()}
+        st(**tensors, origin=(2, 2, 0), domain=(36, 66, 9))
+        if backend == "cuda":
+            torch.cuda.synchronize()
+            assert st.backend.launches == 1
+        got[backend] = tensors
+    for k in ("out", "col"):
+        torch.testing.assert_close(got["cuda"][k], got["torch"][k], rtol=0, atol=0, msg=k)
+
+
 # --------------------------------------------------------------------- #
 # the language surface: every canonical stencil (tests/cartesian/
 # stencil_defs.py, loaded onto the port) and the .at(K=...), variable-K
@@ -361,3 +385,69 @@ def test_next_bench_cases_vs_embedded(cuda_device, name, dtype):
     for k, v in ref.items():
         assert got[k].device.type == "cuda"
         torch.testing.assert_close(got[k], v, **TOL[dtype], msg=k)
+
+
+# --------------------------------------------------------------------- #
+# K9: the Beneš butterfly, and the unstructured FVM step that runs it
+# --------------------------------------------------------------------- #
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("P", [2, 256, 1 << 13, (1 << 13) + 5, 1 << 17, (1 << 17) + 311],
+                         ids=str)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.int32, torch.uint32],
+                         ids=["f32", "i32", "u32"])
+def test_benes_kernel_bitwise(cuda_device, P, dtype):
+    """The kernel against ``x[sigma]`` and its plain version on the card,
+    bit for bit, NaN-aliasing patterns included; it launches once."""
+    from gt4py_tpu_torch.next import benes
+
+    rng = np.random.default_rng(P)
+    sigma = rng.permutation(P)
+    keys = np.empty(P, np.int64)
+    keys[sigma] = np.arange(P)
+    words = rng.integers(0, 2 ** 32, P, dtype=np.uint64).astype(np.uint32)
+    words[:6] = [0x7F800001, 0x7FC00000, 0x7F800000, 0xFF800000, 0x80000000,
+                 0xFFFFFFFF][:P if P < 6 else 6]
+    x = torch.from_numpy(words.view(np.int32)).to(cuda_device).view(dtype)
+    before = benes.KERNEL.launches
+    got = benes.permute(x, keys.astype(np.int32))
+    torch.cuda.synchronize()
+    assert benes.KERNEL.launches == before + 1
+    # indexed as int32 words: torch has no uint32 gather on CUDA
+    ref = x.view(torch.int32)[torch.from_numpy(sigma).to(cuda_device)]
+    assert torch.equal(got.view(torch.int32), ref)
+    plan = benes._plan(keys.astype(np.int32))
+    plain = torch.zeros(plan.n2, dtype=torch.int32, device=cuda_device)
+    plain[:P] = x.view(torch.int32)
+    benes.plain_inplace(plain, plan)
+    assert torch.equal(got.view(torch.int32), plain[:P])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("irregular", [False, True], ids=["grid", "shuffled"])
+def test_unstructured_fvm_step_routed_vs_index(cuda_device, irregular):
+    """Five FVM steps on the card: the shuffled mesh's gathers launch K9,
+    the grid mesh's run as windows; both equal the index path bit for
+    bit."""
+    from gt4py_tpu_torch import config
+    from gt4py_tpu_torch.next import benes
+    from gt4py_tpu_torch.next.testing import unstructured_fvm_case
+
+    case = unstructured_fvm_case(192, irregular, np.float32, cuda_device)
+    before = benes.KERNEL.launches
+    routed = case["psi0"]
+    for _ in range(5):
+        routed = case["step"](routed)
+    torch.cuda.synchronize()
+    assert (benes.KERNEL.launches > before) == irregular
+    saved = config.AFFINE_GATHER, config.SORT_GATHER
+    config.AFFINE_GATHER = config.SORT_GATHER = False
+    try:
+        index = case["psi0"]
+        for _ in range(5):
+            index = case["step"](index)
+    finally:
+        config.AFFINE_GATHER, config.SORT_GATHER = saved
+    assert bool(torch.isfinite(routed).all())
+    assert torch.equal(routed, index)

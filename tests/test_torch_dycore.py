@@ -16,6 +16,15 @@ from gt4py_tpu.models import dycore as j_dycore
 from gt4py_tpu_torch import storage
 from gt4py_tpu_torch.cartesian.stencil_object import ArgumentError
 from gt4py_tpu_torch.models import dycore as p_dycore
+from gt4py_tpu_torch import config
+
+
+@pytest.fixture(autouse=True)
+def _on_the_cpu(monkeypatch):
+    """The port's entry points default to the card; these tests ask for
+    the CPU."""
+    monkeypatch.setattr(config, "DEFAULT_DEVICE", "cpu")
+
 
 NI, NJ, NK = 12, 10, 6
 

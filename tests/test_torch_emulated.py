@@ -37,6 +37,15 @@ from gt4py_tpu_torch.cartesian.backend import _build, cuda_backend
 from gt4py_tpu_torch.models import full_dycore
 
 from .test_torch_cuda import DEFS, _inputs
+from gt4py_tpu_torch import config
+
+
+@pytest.fixture(autouse=True)
+def _on_the_cpu(monkeypatch):
+    """The port's entry points default to the card; these tests ask for
+    the CPU."""
+    monkeypatch.setattr(config, "DEFAULT_DEVICE", "cpu")
+
 
 #: the CUDA runtime as the generated sources use it, on the host: every
 #: thread of the grid runs in turn
@@ -82,6 +91,32 @@ inline __half __float2half_rn(float f) { return (__half)f; }
 inline __half __double2half(double d) { return (__half)d; }
 """
 
+#: ``cuda_bf16.h`` on the host: ``__nv_bfloat16`` holds the upper half of
+#: a float32; the conversion from float rounds to nearest even (NaN to the
+#: card's canonical NaN), as ``__float2bfloat16_rn`` and torch do
+EMULATED_BF16 = r"""
+#pragma once
+#include <stdint.h>
+#include <string.h>
+struct __nv_bfloat16 { uint16_t x; };
+inline float __bfloat162float(__nv_bfloat16 h) {
+  uint32_t u = (uint32_t)h.x << 16;
+  float f;
+  memcpy(&f, &u, 4);
+  return f;
+}
+inline __nv_bfloat16 __float2bfloat16_rn(float f) {
+  uint32_t u;
+  memcpy(&u, &f, 4);
+  __nv_bfloat16 h;
+  if ((u & 0x7fffffffu) > 0x7f800000u) { h.x = 0x7fff; return h; }
+  u += 0x7fffu + ((u >> 16) & 1u);
+  h.x = (uint16_t)(u >> 16);
+  return h;
+}
+inline float __double2float_rn(double d) { return (float)d; }
+"""
+
 _LAUNCH = re.compile(r"(\w+)<<<grid, block, 0, st>>>\((.*)\);")
 
 
@@ -97,6 +132,7 @@ def emulated_dir(tmp_path_factory):
     d = tmp_path_factory.mktemp("emulated")
     (d / "cuda_runtime.h").write_text(EMULATED_RUNTIME)
     (d / "cuda_fp16.h").write_text(EMULATED_FP16)
+    (d / "cuda_bf16.h").write_text(EMULATED_BF16)
     return cxx, d
 
 
@@ -109,7 +145,8 @@ def emulated(monkeypatch, emulated_dir):
     def build(source, name):
         src = _LAUNCH.sub(r"GT_EMULATED_LAUNCH(grid, block, \1, \2);", source)
         out = d / hashlib.sha256(src.encode() + _build._runtime_header().encode()
-                                 + EMULATED_FP16.encode()).hexdigest()
+                                 + EMULATED_FP16.encode()
+                                 + EMULATED_BF16.encode()).hexdigest()
         lib = out / f"lib{name}.so"
         if not lib.exists():
             out.mkdir(exist_ok=True)
@@ -263,3 +300,91 @@ def test_float16_stencil_emulated_vs_plain_and_oracle(emulated, size):
     for k in ("out", "col"):
         torch.testing.assert_close(got[k], plain[k], rtol=0, atol=0, msg=k)
         np.testing.assert_array_equal(got[k].numpy(), np.asarray(ref[k]), err_msg=k)
+
+
+def test_emulated_bf16_rounds_as_torch(emulated_dir, tmp_path):
+    """The stub's ``__nv_bfloat16`` conversions round as torch's
+    ``.to(torch.bfloat16)`` does, ties, overflow and subnormals included:
+    from float directly, from double through float (``gt::round_bf16``;
+    torch and the JAX package's oracle, ml_dtypes, round so too)."""
+    cxx, d = emulated_dir
+    src = tmp_path / "bf16.cpp"
+    src.write_text('#include "cuda_bf16.h"\n'
+                   'extern "C" void from_f(const float* x, float* y, int n) {\n'
+                   '  for (int i = 0; i < n; ++i) y[i] = __bfloat162float(__float2bfloat16_rn(x[i])); }\n'
+                   'extern "C" void from_d(const double* x, float* y, int n) {\n'
+                   '  for (int i = 0; i < n; ++i)\n'
+                   '    y[i] = __bfloat162float(__float2bfloat16_rn(__double2float_rn(x[i]))); }\n')
+    lib_path = tmp_path / "libbf16.so"
+    proc = subprocess.run([cxx, "-std=c++17", "-shared", "-fPIC", "-I", str(d), "-o",
+                           str(lib_path), str(src)], capture_output=True, text=True)
+    assert proc.returncode == 0, proc.stderr[:2000]
+    lib = ctypes.CDLL(str(lib_path))
+    rng = np.random.default_rng(12)
+    ties = torch.from_numpy(rng.normal(0, 10, 500)).to(torch.bfloat16).double().numpy()
+    x = np.concatenate([rng.normal(0, 100, 4000), rng.normal(0, 1e-38, 1000),
+                        ties * (1 + 2 ** -8), ties * (1 + 2 ** -8 + 2 ** -30),
+                        [3.3895e38, 3.4e38, -3.39e38, 1e-45, 0.0, -0.0, np.inf, -np.inf]])
+    x32 = x.astype(np.float32)
+    with np.errstate(over="ignore"):
+        cases = ((lib.from_f, x32, torch.from_numpy(x32).to(torch.bfloat16).float().numpy()),
+                 (lib.from_d, x, torch.from_numpy(x).to(torch.bfloat16).float().numpy()))
+    for fn, arr, ref in cases:
+        y = np.empty(arr.size, np.float32)
+        fn(arr.ctypes.data_as(ctypes.c_void_p), y.ctypes.data_as(ctypes.c_void_p),
+           ctypes.c_int(arr.size))
+        np.testing.assert_array_equal(y, ref)
+
+
+def _bf16_jax_def():
+    """``gt4py_tpu_torch.testing.bfloat16_hdiff_sweep`` written for the JAX
+    package."""
+    from gt4py_tpu.cartesian import gtscript as jgts
+    from gt4py_tpu.cartesian.gtscript import FORWARD, PARALLEL, computation, interval
+
+    BF16 = jgts.Field[jgts.bfloat16]
+
+    def bf16_hdiff_sweep(inp: BF16, coeff: BF16, out: BF16, col: BF16):
+        with computation(PARALLEL), interval(...):
+            lap = 4.0 * inp[0, 0, 0] - (inp[1, 0, 0] + inp[-1, 0, 0]
+                                         + inp[0, 1, 0] + inp[0, -1, 0])
+            res = lap[1, 0, 0] - lap[0, 0, 0]
+            flx = 0 if (res * (inp[1, 0, 0] - inp[0, 0, 0])) > 0 else res
+            res = lap[0, 1, 0] - lap[0, 0, 0]
+            fly = 0 if (res * (inp[0, 1, 0] - inp[0, 0, 0])) > 0 else res
+            out = inp[0, 0, 0] - coeff[0, 0, 0] * (flx[0, 0, 0] - flx[-1, 0, 0]
+                                                   + fly[0, 0, 0] - fly[0, -1, 0])
+        with computation(FORWARD):
+            with interval(0, 1):
+                col = out[0, 0, 0]
+            with interval(1, None):
+                col = 0.5 * col[0, 0, -1] + out[0, 0, 0]
+
+    return jgts.stencil(backend="numpy", definition=bf16_hdiff_sweep)
+
+
+@pytest.mark.parametrize("size", ["surface", "large"])
+def test_bfloat16_stencil_emulated_vs_plain_and_oracle(emulated, size):
+    """A bfloat16 stencil runs through the generated kernels
+    (``__nv_bfloat16`` loads and stores, float compute) and equals the
+    plain executor and the JAX package's numpy backend (ml_dtypes)
+    exactly."""
+    import ml_dtypes
+
+    definition, make_inputs, kw = testing.SURFACE["bfloat16_hdiff_sweep"]
+    if size == "large":
+        def make_inputs():
+            fields, _ = _f16_large_inputs()
+            return {k: v.astype(np.float32) for k, v in fields.items()}, {}
+        kw = dict(origin=(2, 2, 0), domain=(36, 66, 9))
+    fields, _ = make_inputs()
+    ref = {k: v.astype(ml_dtypes.bfloat16) for k, v in fields.items()}
+    _bf16_jax_def()(**ref, **kw)
+    got, plain, st = testing.run_pair(definition, make_inputs, kw, "cpu")
+    assert st.backend.launches == 1
+    assert "__nv_bfloat16" in st.backend.source
+    for k in ("out", "col"):
+        assert got[k].dtype == torch.bfloat16
+        torch.testing.assert_close(got[k], plain[k], rtol=0, atol=0, msg=k)
+        np.testing.assert_array_equal(got[k].float().numpy(), ref[k].astype(np.float32),
+                                      err_msg=k)

@@ -27,6 +27,15 @@ from gt4py_tpu_torch.cartesian import passes as p_passes
 from gt4py_tpu_torch.models import dycore as p_dycore
 
 from .cartesian import stencil_defs
+from gt4py_tpu_torch import config
+
+
+@pytest.fixture(autouse=True)
+def _on_the_cpu(monkeypatch):
+    """The port's entry points default to the card; these tests ask for
+    the CPU."""
+    monkeypatch.setattr(config, "DEFAULT_DEVICE", "cpu")
+
 
 
 def _translate(v, seen):

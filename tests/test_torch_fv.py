@@ -31,6 +31,15 @@ from gt4py_tpu_torch.models import semi_lagrangian as p_sl
 from gt4py_tpu_torch.models.dycore import periodic_fill, state_from_numpy
 
 from .test_torch_frontend import assert_same_analysis
+from gt4py_tpu_torch import config
+
+
+@pytest.fixture(autouse=True)
+def _on_the_cpu(monkeypatch):
+    """The port's entry points default to the card; these tests ask for
+    the CPU."""
+    monkeypatch.setattr(config, "DEFAULT_DEVICE", "cpu")
+
 
 NI, NJ, NK = 16, 12, 4
 H = p_fv.FvAdvection.HALO

@@ -44,3 +44,24 @@ def test_chip_smoke_refuses_without_a_card(tmp_path):
                          env={**os.environ, "CUDA_VISIBLE_DEVICES": ""})
     assert out.returncode != 0
     assert '"ok"' not in out.stdout
+
+
+def _code_lines(path):
+    """The C++ source's lines outside ``//`` comments."""
+    with open(path) as f:
+        return [ln for ln in f.read().splitlines() if not ln.lstrip().startswith("//")]
+
+
+def test_router_is_a_copy_in_the_port():
+    """The Beneš router the port builds is its own copy of the JAX
+    package's host C++ (the same code; only the header comment differs),
+    and no module of the port names the JAX package's native directory."""
+    port = os.path.join(ROOT, "gt4py_tpu_torch", "csrc", "benes_router.cpp")
+    assert _code_lines(port) == _code_lines(os.path.join(ROOT, "gt4py_tpu", "native",
+                                                         "benes_router.cpp"))
+    for dirpath, _, files in os.walk(os.path.join(ROOT, "gt4py_tpu_torch")):
+        for name in files:
+            if name.endswith((".py", ".cu", ".cuh", ".cpp")):
+                with open(os.path.join(dirpath, name)) as f:
+                    assert "gt4py_tpu/native" not in f.read().replace(
+                        "A copy of gt4py_tpu/native", ""), name

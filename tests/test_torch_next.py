@@ -23,8 +23,17 @@ import gt4py_tpu.next as jgtx
 from gt4py_tpu.next import unparse as j_unparse
 
 import gt4py_tpu_torch.next as pgtx
+from gt4py_tpu_torch import config
 from gt4py_tpu_torch.next import unparse as p_unparse
 from gt4py_tpu_torch.next.testing import fields_from_numpy
+
+
+@pytest.fixture(autouse=True)
+def _on_the_cpu(monkeypatch):
+    """The port's entry points default to the card; these tests ask for
+    the CPU."""
+    monkeypatch.setattr(config, "DEFAULT_DEVICE", "cpu")
+
 
 RTOL = {np.float64: 1e-12, np.float32: 1e-6}
 _SERIAL = itertools.count()

@@ -51,6 +51,15 @@ from .test_torch_next import (
     program_args,
     run_program,
 )
+from gt4py_tpu_torch import config
+
+
+@pytest.fixture(autouse=True)
+def _on_the_cpu(monkeypatch):
+    """The port's entry points default to the card; these tests ask for
+    the CPU."""
+    monkeypatch.setattr(config, "DEFAULT_DEVICE", "cpu")
+
 
 #: operators the bridges lower (the rest of OPERATORS run embedded)
 ELIGIBLE = ["laplacian", "hdiff", "where_scalars", "nested_where", "astype_float32",

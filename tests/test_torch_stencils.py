@@ -28,6 +28,15 @@ from gt4py_tpu_torch.models import dycore as p_dycore
 
 from .cartesian import stencil_defs
 from .test_torch_frontend import to_port
+from gt4py_tpu_torch import config
+
+
+@pytest.fixture(autouse=True)
+def _on_the_cpu(monkeypatch):
+    """The port's entry points default to the card; these tests ask for
+    the CPU."""
+    monkeypatch.setattr(config, "DEFAULT_DEVICE", "cpu")
+
 
 H = 3
 DOMAIN = (10, 12, 6)
