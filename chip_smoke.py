@@ -54,16 +54,32 @@ Phases (a failed phase raises, and the script exits non-zero):
    against ``torch.index_select`` of the same permutation and its bound,
    and a ``torch.profiler`` breakdown of the irregular step; then one
    MiniDycore and one FvAdvection step in bfloat16 at 512x512x80 against
-   plain (phase 5 also runs the bfloat16 stencil).
+   plain (phase 5 also runs the bfloat16 stencil);
+9. gradients (K8, ``gt4py_tpu_torch/cartesian/backend/autodiff.py``): the
+   FullDycore step at 512x512x80 float32, loss the sum of squares of u, q
+   and qsl, its gradient with respect to the initial u and q by
+   ``torch.autograd.grad`` with the forward on the kernels (the launches
+   and K8 engagements of every forward stencil read around the run),
+   against the gradient of ``backend="torch"`` on the card, finite and
+   nonzero; the forward and forward + backward times of both, the
+   backward's share and peak device memory; ``torch.func.jvp`` of the
+   MiniDycore step against the plain one; at 64x256x16 float64 the
+   gradient against plain and its directional derivative against central
+   differences; the sort-routed FVM energy's gradient at n = 512 float32,
+   K9 launched once per forward permute and once per backward one, against
+   the index path.
 
 Every kernel entry carries ``bound_ms``: the least time the card could take
 for the same function, its bytes (each input read once, each output written
 once) over 3.35 TB/s, the H100 SXM's memory rate (the stencils and K9 do a
 few operations per byte, so bytes bound them), and ``library_ms``, the time
 of one PyTorch call that computes the same function where there is one
-(none for the stencils; ``torch.index_select`` for K9).  The line before
-the last is one JSON object with every kernel's launches, error and times
-and phase 8's numbers; the last line is ``{"ok": true, "device": {...}}``.
+(none for the stencils; ``torch.index_select`` for K9).  K8's entry is the
+FullDycore step's gradient: its launches are the calls that ran under K8,
+its bound the bytes of those calls' inputs, cotangents and input gradients.
+The line before the last is one JSON object with every kernel's launches,
+error and times and phases 8 and 9's numbers; the last line is
+``{"ok": true, "device": {...}}``.
 """
 
 import json
@@ -574,6 +590,241 @@ def _bf16_steps(models) -> dict:
     return out
 
 
+# --------------------------------------------------------------------------- #
+# phase 9
+# --------------------------------------------------------------------------- #
+
+#: the FullDycore step's prognostic outputs; phase 9's loss is the sum of
+#: their squares
+PROGNOSTIC = ("u", "q", "qsl")
+#: central differences in float64 at 64x256x16: a step of 1e-8 along v keeps
+#: the chance of crossing a limiter's branch point (hdiff's flux limiter,
+#: the FV scheme's) near 1 % over the ~10^6 tests of a step, and the loss's
+#: rounding over the step near 1e-9 of the derivative; rtol as the JAX test
+FD_EPS = 1e-8
+FD_RTOL = 1e-4
+
+
+def _full_loss(step, state, u, q):
+    out = step({**state, "u": u, "q": q})
+    return sum((out[k] ** 2).sum() for k in PROGNOSTIC)
+
+
+def _full_grad(step, state):
+    """The gradient of ``_full_loss`` with respect to the initial u and q."""
+    import torch
+
+    u, q = (state[k].clone().requires_grad_() for k in ("u", "q"))
+    return torch.autograd.grad(_full_loss(step, state, u, q), (u, q))
+
+
+def _k8_bytes(analysis, shape) -> int:
+    """K8's bytes for one call of a stencil on a domain of ``shape``: its
+    inputs (every field, read once), the cotangents of the fields it writes
+    and the gradients of its inputs, each written or read once."""
+    import numpy as np
+
+    n = 0
+    for info in analysis.field_info.values():
+        points = int(np.prod([s for s, on in zip(shape, info.dimensions) if on], dtype=np.int64))
+        size = points * np.dtype(info.dtype).itemsize * int(np.prod(info.data_dims, dtype=int))
+        n += size * (2 + bool(info.access.value & 2))
+    return n
+
+
+def _fvm_energy(case):
+    """The JAX package's FVM energy, ``sum(divergence(gradient(psi))**2)``,
+    on ``case``'s operators."""
+    from gt4py_tpu_torch.next import as_field
+    from gt4py_tpu_torch.next.testing import Vertex
+
+    def energy(psi):
+        g = case["gradient"](as_field((Vertex,), psi), offset_provider=case["provider"])
+        d = case["divergence"](g, case["sign"], offset_provider=case["provider"])
+        return (d.data ** 2).sum()
+
+    return energy
+
+
+def _routed_gradient(case) -> dict:
+    """The sort-routed FVM energy's gradient at n = FVM_N float32: K9 runs
+    once per forward permute and once per backward one (the inverse plan);
+    the gradient is held to the index path's."""
+    import torch
+
+    from gt4py_tpu_torch import config
+    from gt4py_tpu_torch.next import benes
+
+    energy = _fvm_energy(case)
+    with torch.no_grad():
+        before = benes.KERNEL.launches
+        energy(case["psi0"])
+        torch.cuda.synchronize()
+        forward = benes.KERNEL.launches - before
+    declines = benes.DECLINES.cursor()
+    psi = case["psi0"].clone().requires_grad_()
+    benes.KERNEL.launches = 0
+    g = torch.autograd.grad(energy(psi), psi)[0]
+    torch.cuda.synchronize()
+    k9 = benes.KERNEL.launches
+    if forward == 0 or k9 != 2 * forward:
+        raise AssertionError(f"routed energy gradient: K9 launched {k9} times for {forward} "
+                             f"forward permutes")
+    if benes.DECLINES.since(declines):
+        raise AssertionError(f"routed energy gradient: K9 declined {benes.DECLINES.since(declines)}")
+    saved = config.AFFINE_GATHER, config.SORT_GATHER
+    config.AFFINE_GATHER = config.SORT_GATHER = False
+    try:
+        psi_i = case["psi0"].clone().requires_grad_()
+        g_index = torch.autograd.grad(energy(psi_i), psi_i)[0]
+    finally:
+        config.AFFINE_GATHER, config.SORT_GATHER = saved
+    # the index path's backward sums with atomics, in no fixed order, and
+    # entries are sums of terms of both signs: atol scales with the largest
+    atol = 1e-6 * float(g_index.abs().max())
+    err = _check_close("routed energy gradient vs the index path", g, g_index, 1e-5, atol)
+    if not float(g.abs().max()) > 0:
+        raise AssertionError("routed energy gradient is zero")
+    print(f"routed FVM energy gradient n={FVM_N} f32: K9 launches {k9} = 2 x {forward} forward "
+          f"permutes; vs the index path max abs {err[0]:.3e}, max rel {err[1]:.3e} (rtol 1e-5, "
+          f"atol {atol:.3e}), bitwise equal {torch.equal(g, g_index)}")
+    return {"k9_launches": k9, "forward_permutes": forward, "max_abs_err": err[0],
+            "bitwise": torch.equal(g, g_index)}
+
+
+def _gradients(smi, models, fvm_case) -> dict:
+    """Phase 9: the FullDycore step's gradient at 512x512x80 float32 with
+    the forward on the kernels, against the plain executor's on the card;
+    its times and peak memory; ``torch.func.jvp`` of the MiniDycore step;
+    central differences at 64x256x16 float64; the routed FVM energy's
+    gradient (K9 in both directions)."""
+    import numpy as np
+    import torch
+
+    from gt4py_tpu_torch.cartesian.backend.cuda_backend import REPLACES
+
+    fd, fd_plain = models["f32"]
+    step, pstep = fd.step_fn(), fd_plain.step_fn()
+    state = fd.init_state(seed=0)
+    path = {"hdiff": fd.dyn.hdiff, "vadv_update": fd.dyn.vadv_upd, "fv_step": fd.fv.fv_step,
+            "sl_step": fd.sl}
+    for st in path.values():
+        st.backend.launches = st.backend.derivative_calls = 0
+    grads = _full_grad(step, state)
+    torch.cuda.synchronize()
+    counts = {n: (st.backend.launches, st.backend.derivative_calls) for n, st in path.items()}
+    print(f"FullDycore gradient path (launches, under K8): {counts}")
+    if min(n for n, _ in counts.values()) == 0:
+        raise AssertionError(f"FullDycore gradient: a forward kernel was not launched ({counts})")
+    if min(counts[n][1] for n in ("hdiff", "vadv_update", "fv_step")) == 0:
+        raise AssertionError(f"FullDycore gradient: K8 did not engage ({counts})")
+    ref = _full_grad(pstep, state)
+    errs, bitwise = {}, {}
+    for name, g, r in zip(("u", "q"), grads, ref):
+        errs[name] = _check_close(f"FullDycore gradient d/d{name} vs plain", g, r, RTOL_F32,
+                                  ATOL_F32)[0]
+        bitwise[name] = torch.equal(g, r)
+        if not float(g.abs().max()) > 0:
+            raise AssertionError(f"FullDycore gradient d/d{name} is zero")
+    print(f"FullDycore 512x512x80 f32 gradient vs the plain executor's: max abs {errs} "
+          f"(rtol {RTOL_F32}, atol {ATOL_F32}), bitwise {bitwise}")
+
+    def leaves():
+        return [state[k].clone().requires_grad_() for k in ("u", "q")]
+
+    def fwd(stp):
+        return lambda: _full_loss(stp, state, *leaves())
+
+    def fwd_bwd(stp):
+        def run():
+            u, q = leaves()
+            torch.autograd.grad(_full_loss(stp, state, u, q), (u, q))
+        return run
+
+    t = {"cuda fwd": _time_ms(fwd(step), TIMING_REPS),
+         "cuda fwd+bwd": _time_ms(fwd_bwd(step), PLAIN_TIMING_REPS),
+         "torch fwd": _time_ms(fwd(pstep), PLAIN_TIMING_REPS),
+         "torch fwd+bwd": _time_ms(fwd_bwd(pstep), PLAIN_TIMING_REPS)}
+    peak = {}
+    for kind, stp in (("cuda", step), ("torch", pstep)):
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        fwd_bwd(stp)()
+        torch.cuda.synchronize()
+        peak[kind] = {"peak_bytes": torch.cuda.max_memory_allocated(), "base_bytes": base}
+    for kind in ("cuda", "torch"):
+        share = 1 - t[f"{kind} fwd"] / t[f"{kind} fwd+bwd"]
+        print(f"FullDycore step gradient, forward on {kind}: forward {t[f'{kind} fwd']:.4f} ms, "
+              f"forward + backward {t[f'{kind} fwd+bwd']:.4f} ms, backward share "
+              f"{100 * share:.1f}%, peak {peak[kind]['peak_bytes'] / 2**30:.3f} GiB "
+              f"(before the call {peak[kind]['base_bytes'] / 2**30:.3f} GiB); {smi}")
+
+    # torch.func.jvp of the MiniDycore step
+    md, md_plain = fd.dyn, fd_plain.dyn
+    s0 = md.init_state(seed=0)
+    tangent = torch.from_numpy(np.random.default_rng(5).random(tuple(s0["u"].shape)).astype(
+        np.float32)).to(s0["u"].device)
+    for st in (md.hdiff, md.vadv_upd):
+        st.backend.launches = st.backend.derivative_calls = 0
+    _, tang = torch.func.jvp(lambda u: md.step_fn()({**s0, "u": u})["u"], (s0["u"],), (tangent,))
+    torch.cuda.synchronize()
+    jvp_counts = [(st.backend.launches, st.backend.derivative_calls)
+                  for st in (md.hdiff, md.vadv_upd)]
+    if jvp_counts != [(1, 1), (1, 1)]:
+        raise AssertionError(f"MiniDycore jvp: kernels (launches, under K8) {jvp_counts}")
+    _, rtang = torch.func.jvp(lambda u: md_plain.step_fn()({**s0, "u": u})["u"], (s0["u"],),
+                              (tangent,))
+    jvp_err = _check_close("MiniDycore jvp vs plain", tang, rtang, RTOL_F32, ATOL_F32)[0]
+    print(f"MiniDycore 512x512x80 f32 torch.func.jvp (kernels under K8 {jvp_counts}) vs the "
+          f"plain executor's: max abs {jvp_err:.3e}, bitwise {torch.equal(tang, rtang)}")
+
+    # central differences at 64x256x16 float64
+    small, small_plain = models["f64"]
+    sstate = small.init_state(seed=1)
+    sstep = small.step_fn()
+    gu, gq = _full_grad(sstep, sstate)
+    ru, rq = _full_grad(small_plain.step_fn(), sstate)
+    small_err = max(_check_close("FullDycore f64 gradient vs plain", a, b, RTOL_F64,
+                                 ATOL_F64)[0] for a, b in ((gu, ru), (gq, rq)))
+    rng = np.random.default_rng(6)
+    vu, vq = (torch.from_numpy(rng.random(tuple(sstate[k].shape))).to(sstate[k].device)
+              for k in ("u", "q"))
+    dot = float((gu * vu).sum() + (gq * vq).sum())
+    with torch.no_grad():
+        fd_val = float(_full_loss(sstep, sstate, sstate["u"] + FD_EPS * vu,
+                                  sstate["q"] + FD_EPS * vq)
+                       - _full_loss(sstep, sstate, sstate["u"] - FD_EPS * vu,
+                                    sstate["q"] - FD_EPS * vq)) / (2 * FD_EPS)
+    rel = abs(dot - fd_val) / abs(fd_val)
+    print(f"FullDycore {SMALL} f64: gradient vs plain max abs {small_err:.3e}; directional "
+          f"derivative {dot:.10e} vs central differences {fd_val:.10e} (step {FD_EPS}): "
+          f"rel {rel:.3e} (rtol {FD_RTOL})")
+    if not rel <= FD_RTOL:
+        raise AssertionError(f"directional derivative off central differences by {rel:.3e}")
+
+    routed = _routed_gradient(fvm_case)
+    kbytes = sum(counts[n][1] * _k8_bytes(st.analysis, (NI, NJ, NK)) for n, st in path.items())
+    entry = {
+        "name": "K8 kernel_call (autodiff): FullDycore step gradient",
+        "route": "cuda",
+        "source": "gt4py_tpu_torch/cartesian/backend/autodiff.py",
+        "replaces": REPLACES["autodiff"],
+        "launches": sum(n for _, n in counts.values()),
+        "max_abs_err": max(errs.values()),
+        "ms": t["cuda fwd+bwd"],
+        "plain_ms": t["torch fwd+bwd"],
+        "bound_ms": _bound_ms(kbytes),
+        "bound_by": "bytes",
+        "library_ms": None,
+    }
+    summary = {"launches": counts, "max_abs_err": errs, "bitwise": bitwise, "times_ms": t,
+               "memory": peak, "jvp_max_abs_err": jvp_err, "small_max_abs_err": small_err,
+               "fd_rel": rel, "routed": routed, "card": smi}
+    return {"entry": entry, "summary": summary}
+
+
 def main() -> int:
     import torch
 
@@ -956,12 +1207,18 @@ def main() -> int:
     # -- 8. the unstructured gather path (K9) and bfloat16 -----------------
     k9_raw = _k9_raw(dev)
     fvm = _fvm(dev)
-    kernels.append(_k9_entry(dev, k9_raw, fvm))
+    k9_entry = _k9_entry(dev, k9_raw, fvm)
+    kernels.append(k9_entry)
     bf16_result = _bf16_steps(bf16)
+
+    # -- 9. gradients (K8, and K9 in the backward) --------------------------
+    gradients = _gradients(smi, models, fvm["cases"]["irregular"])
+    kernels.append(gradients["entry"])
+    k9_entry["backward"] = gradients["summary"]["routed"]
 
     print(smi)
     print(json.dumps({"kernels": kernels, "unstructured_fvm": fvm["summary"],
-                      "bfloat16": bf16_result}))
+                      "bfloat16": bf16_result, "gradients": gradients["summary"]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

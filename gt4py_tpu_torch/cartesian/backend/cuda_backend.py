@@ -63,6 +63,11 @@ a data-dimension field read without all its indices, a write at a
 variable K -- raises ``NotImplementedError`` when the stencil is built.  Nothing falls back to the plain executor on the GPU: CPU tensors
 run the plain executor (``torch_backend``), CUDA tensors run the kernels or
 raise.
+
+Derivatives (K8; Pallas ``_trace_env``'s custom JVP): when a derivative is
+wanted, the launch runs inside ``autodiff``'s ``torch.autograd.Function``
+-- the primal from the kernels, the gradient and the tangent from the plain
+executor; otherwise the kernels run alone, as for serving.
 """
 
 from __future__ import annotations
@@ -85,13 +90,14 @@ from gt4py_tpu_torch.cartesian.analysis import (
     promote_dtypes,
     try_static_int,
 )
-from gt4py_tpu_torch.cartesian.backend import _build, register
+from gt4py_tpu_torch.cartesian.backend import _build, autodiff, register
 from gt4py_tpu_torch.cartesian.backend.torch_backend import (
     TorchExecutor,
     check_periodic,
     has_horizontal_reads,
     periodic_fill,
     run_plain,
+    wants_derivative,
 )
 from gt4py_tpu_torch.core import dtypes
 from gt4py_tpu_torch.core.definitions import BFLOAT16, Extent, is_float_dtype
@@ -108,6 +114,8 @@ REPLACES = {
             "JaxTracer._read_nonuniform_k (kernel branch :1187-1207), inside K1/K2",
     "data_dims": "gt4py_tpu/cartesian/backend/pallas_backend.py:312 "
                  "PallasBackend._trace_split_data_dims",
+    "autodiff": "gt4py_tpu/cartesian/backend/pallas_backend.py:178 "
+                "PallasBackend._trace_env (custom_jvp around the kernel call)",
 }
 
 #: threads per block along J (coalesced) and I
@@ -950,13 +958,15 @@ def _field_arg(view: torch.Tensor, origin) -> Tuple[int, List[int]]:
 @register("cuda")
 class CudaBackend:
     """Generated CUDA kernels for CUDA tensors, the plain executor for CPU
-    tensors.  ``launches`` counts the calls that launched the kernels."""
+    tensors.  ``launches`` counts the calls that launched the kernels,
+    ``derivative_calls`` those of them that ran under K8 (``autodiff``)."""
 
     def __init__(self, analysis: StencilAnalysis, options: Optional[dict] = None):
         self.analysis = analysis
         self.program = generate(analysis)
         self.plain = TorchExecutor(analysis)
         self.launches = 0
+        self.derivative_calls = 0
         self.build_seconds: Optional[float] = None
         self.build_dir: Optional[str] = None
         self._lib = None
@@ -991,7 +1001,18 @@ class CudaBackend:
             return
         if kinds != {"cuda"}:
             raise ValueError(f"backend 'cuda' takes CPU or CUDA tensors, got {sorted(kinds)}")
-        self._launch(env, scalars, domain, origins, periodic)
+        self.run_kernels(env, scalars, domain, origins, periodic)
+
+    def run_kernels(self, env, scalars, domain, origins, periodic=()) -> None:
+        """Launch the kernels on ``env``; when a derivative is wanted, under
+        K8: the primal from the kernels (a failed build or launch raises),
+        the derivative from the plain executor."""
+        if wants_derivative([*env.values(), *scalars.values()]):
+            self.derivative_calls += 1
+            autodiff.kernel_call(self._launch, self.plain, self._written, env, scalars,
+                                 domain, origins, periodic)
+        else:
+            self._launch(env, scalars, domain, origins, periodic)
 
     def _check(self, env) -> torch.device:
         st = self.analysis.stencil

@@ -10,6 +10,12 @@ decide a result type.
 This is the plain version beside the generated CUDA kernels
 (``cuda_backend``): the ``"cuda"`` backend runs it for CPU tensors, and the
 chip check compares the kernels against it on the card.
+
+It differentiates under autograd and ``torch.func``: the kernels' adjoint
+(``autodiff``) re-runs it.  Writes go into field buffers in place, so when
+a derivative is wanted a read of a field that a statement at or after it
+writes is copied (``read_copies``): a view saved for the backward pass would
+otherwise see the later write.
 """
 
 from __future__ import annotations
@@ -19,6 +25,8 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+import torch.autograd.forward_ad as fwAD
+from torch._C._functorch import is_functorch_wrapped_tensor
 
 from gt4py_tpu_torch.cartesian import ir
 from gt4py_tpu_torch.cartesian.analysis import (
@@ -138,6 +146,47 @@ _BINOPS = {
 }
 
 
+def wants_derivative(values) -> bool:
+    """True when autograd or ``torch.func`` records an operation on one of
+    ``values``: grad mode is on and a tensor requires grad, a tensor carries
+    a forward-mode tangent, or it is wrapped by a ``torch.func`` transform."""
+    grad = torch.is_grad_enabled()
+    dual = fwAD._current_level >= 0
+    for t in values:
+        if not isinstance(t, torch.Tensor):
+            continue
+        if (grad and t.requires_grad) or is_functorch_wrapped_tensor(t):
+            return True
+        if dual and fwAD.unpack_dual(t).tangent is not None:
+            return True
+    return False
+
+
+def read_copies(stencil: ir.Stencil) -> Dict[int, frozenset]:
+    """For each statement of a section body (by ``id``), the fields whose
+    reads in it are copied when a derivative is wanted: those written by a
+    statement that runs at or after it.  A serial section's statements
+    repeat at every level, so each of them runs after all the others."""
+    units = []  # (statement, first and last position it runs at)
+    t = 0
+    for loop in stencil.vertical_loops:
+        serial = loop.loop_order != ir.LoopOrder.PARALLEL
+        for section in loop.sections:
+            n = len(section.body)
+            units += [(s, t if serial else t + i, t + n - 1 if serial else t + i)
+                      for i, s in enumerate(section.body)]
+            t += n
+    last_write: Dict[str, int] = {}
+    for stmt, _, end in units:
+        for name in ir.assigned_names([stmt]):
+            last_write[name] = max(last_write.get(name, -1), end)
+    out: Dict[int, frozenset] = {}
+    for stmt, start, _ in units:
+        names = {a.name for a in ir.field_accesses(stmt) if last_write.get(a.name, -1) >= start}
+        out[id(stmt)] = out.get(id(stmt), frozenset()) | names
+    return out
+
+
 class _View:
     """A field as a logical (I, J, K, *data_dims) tensor view + origin."""
 
@@ -151,11 +200,13 @@ class _Ctx:
     """Evaluation context for one statement unit."""
 
     def __init__(self, exe: "TorchExecutor", ext: Extent,
-                 kslice: Optional[Tuple[int, int]], klevel: Optional[int]):
+                 kslice: Optional[Tuple[int, int]], klevel: Optional[int],
+                 copies: frozenset = frozenset()):
         self.exe = exe
         self.ext = ext
         self.kslice = kslice  # parallel: (k0, k1) domain-relative
         self.klevel = klevel  # serial: single domain-relative level
+        self.copies = copies  # fields whose reads are copied (read_copies)
         self.masks: List[torch.Tensor] = []
 
     @property
@@ -182,12 +233,14 @@ class TorchExecutor:
         self.stencil = analysis.stencil
         #: (value, dtype, device) -> 0-d tensor; literals are made once
         self._consts: Dict[Any, torch.Tensor] = {}
+        self._read_copies = read_copies(self.stencil)
 
     def run(self, views: Dict[str, torch.Tensor], scalars: Dict[str, Any],
             domain: Tuple[int, int, int], origins: Dict[str, Tuple[int, int, int]]) -> None:
         """Execute in place on ``views``: logical (I, J, K, *dd) tensors."""
         self.domain = tuple(domain)
         self.scalars = scalars
+        self._record = wants_derivative([*views.values(), *scalars.values()])
         self._scalar_tensors: Dict[str, torch.Tensor] = {}
         self.device = next(iter(views.values())).device
         self.views: Dict[str, _View] = {
@@ -216,9 +269,11 @@ class TorchExecutor:
             k0, k1 = max(k0, 0), min(k1, dK)
             if k1 <= k0:
                 continue
+            copies = self._read_copies if self._record else {}
             if loop.loop_order == ir.LoopOrder.PARALLEL:
                 for stmt in section.body:
-                    ctx = _Ctx(self, self.analysis.extents.stmt_extent(stmt), (k0, k1), None)
+                    ctx = _Ctx(self, self.analysis.extents.stmt_extent(stmt), (k0, k1), None,
+                               copies.get(id(stmt), frozenset()))
                     self._exec_stmt(stmt, ctx)
             else:
                 krange = range(k0, k1)
@@ -226,7 +281,8 @@ class TorchExecutor:
                     krange = reversed(krange)
                 for k in krange:
                     for stmt in section.body:
-                        ctx = _Ctx(self, self.analysis.extents.stmt_extent(stmt), None, k)
+                        ctx = _Ctx(self, self.analysis.extents.stmt_extent(stmt), None, k,
+                                   copies.get(id(stmt), frozenset()))
                         self._exec_stmt(stmt, ctx)
 
     # ------------------- statements ------------------- #
@@ -510,23 +566,28 @@ class TorchExecutor:
 
     def _eval_field_access(self, acc: ir.FieldAccess, ctx: _Ctx):
         view = self.views[acc.name]
+        copy = acc.name in ctx.copies
         off = acc.offset
         if isinstance(off, ir.CartesianOffset):
             si, sj, sk = self._spatial_slices(view, off, ctx)
             out = view.data[si, sj, sk]
+            if copy:
+                out = out.clone()
         elif isinstance(off, ir.VariableKOffset):
-            out = self._eval_variable_k(view, off, ctx)
+            out = self._eval_variable_k(view, off, ctx, copy)
         elif isinstance(off, ir.AbsoluteKIndex):
-            out = self._eval_absolute_k(view, off, ctx)
+            out = self._eval_absolute_k(view, off, ctx, copy)
         else:
             raise TypeError(f"Unknown offset {type(off).__name__}")
         if acc.data_index:
             out = self._apply_data_index(out, acc, ctx)
         return out
 
-    def _gather_k(self, view: _View, kidx: torch.Tensor, ctx: _Ctx):
+    def _gather_k(self, view: _View, kidx: torch.Tensor, ctx: _Ctx, copy: bool):
         si, sj, _ = self._spatial_slices(view, ir.CartesianOffset(), ctx)
         block = view.data[si, sj, :]
+        if copy:  # the gather saves its source for the backward pass
+            block = block.clone()
         # broadcast against the EVALUATION shape (ni, nj, nk), not the
         # buffer's K extent
         eval_shape = (block.shape[0], block.shape[1], ctx.nk)
@@ -537,7 +598,7 @@ class TorchExecutor:
             )
         return torch.gather(block, 2, kidx_b)
 
-    def _eval_variable_k(self, view: _View, off: ir.VariableKOffset, ctx: _Ctx):
+    def _eval_variable_k(self, view: _View, off: ir.VariableKOffset, ctx: _Ctx, copy: bool):
         dk = self._eval(off.k, ctx).to(torch.int64)
         ok = view.origin[2]
         SK = view.data.shape[2]
@@ -546,17 +607,18 @@ class TorchExecutor:
         else:
             k0, k1 = ctx.kslice
             base = (ok + torch.arange(k0, k1, dtype=torch.int64, device=self.device)).reshape(1, 1, -1)
-        return self._gather_k(view, torch.clamp(base + dk, 0, SK - 1), ctx)
+        return self._gather_k(view, torch.clamp(base + dk, 0, SK - 1), ctx, copy)
 
-    def _eval_absolute_k(self, view: _View, off: ir.AbsoluteKIndex, ctx: _Ctx):
+    def _eval_absolute_k(self, view: _View, off: ir.AbsoluteKIndex, ctx: _Ctx, copy: bool):
         kval = self._eval(off.k, ctx).to(torch.int64)
         ok = view.origin[2]
         SK = view.data.shape[2]
         if kval.ndim == 0:
             si, sj, _ = self._spatial_slices(view, ir.CartesianOffset(), ctx)
             k = int(min(max(int(kval) + ok, 0), SK - 1))
-            return view.data[si, sj, k: k + 1]
-        return self._gather_k(view, torch.clamp(kval + ok, 0, SK - 1), ctx)
+            out = view.data[si, sj, k: k + 1]
+            return out.clone() if copy else out
+        return self._gather_k(view, torch.clamp(kval + ok, 0, SK - 1), ctx, copy)
 
 
 # --------------------------------------------------------------------------- #

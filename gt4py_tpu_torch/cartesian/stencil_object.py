@@ -87,7 +87,10 @@ class StencilObject:
     Calling conventions mirror the JAX package: positional/keyword field and
     scalar arguments in declaration order, plus ``origin=``, ``domain=``,
     ``exec_info=``, ``validate_args=`` and ``periodic=`` keywords.  Results
-    are written into the field arguments.
+    are written into the field arguments, so a written field cannot be a
+    leaf tensor that requires grad: gradients go through ``functional``
+    (as the models' ``step_fn`` calls it), where the written fields come
+    back as new tensors.
     """
 
     def __init__(self, analysis: StencilAnalysis, backend, backend_name: str,
@@ -117,6 +120,11 @@ class StencilObject:
                 continue
             tensors[name], attr_origin = _tensor_of(value)
             origins[name] = self._field_origin(name, origin_map, attr_origin)
+            if (tensors[name].is_leaf and tensors[name].requires_grad and torch.is_grad_enabled()
+                    and self.field_info[name].access & AccessKind.WRITE):
+                raise ArgumentError(
+                    f"Field '{name}' is written in place but is a leaf tensor that requires "
+                    f"grad; take gradients through functional(...)")
         outs = self._execute(tensors, scalar_args, origins, domain, physical=False,
                              periodic=periodic, validate_args=validate_args,
                              exec_info=exec_info)

@@ -14,6 +14,11 @@ permutation on the host (``csrc/benes_router.cpp``, built with g++ into
 - on CPU tensors, the plain version: the same stages as ``torch.where``
   over pairs (``simulate`` on tensors), from the same packed bits.
 
+A permutation is differentiable: the backward pass routes the cotangent
+through the inverse permutation on the same network (a second plan, routed
+at the first backward and kept beside the forward one), so the gradient of
+a routed gather launches K9 in both directions.
+
 Eligibility is the JAX package's: a 1-D float32, int32 or uint32 tensor
 whose padded size is at most ``2**_MAX_LOG2``.  An ineligible call
 declines (returns None; the caller takes the index path) and records its
@@ -32,6 +37,7 @@ import numpy as np
 import torch
 
 from gt4py_tpu_torch import config
+from gt4py_tpu_torch.cartesian.backend.torch_backend import wants_derivative
 from gt4py_tpu_torch.core.events import EventLog
 
 #: log2 of the inner block, in 32-bit words.  2^13 words are 32 KB of
@@ -159,6 +165,8 @@ class Plan:
         self.b = min(_BLOCK_LOG2, k)
         self.bits = bits
         self._device_bits = {}
+        #: the plan of the inverse permutation (``_inverse_plan``)
+        self.inverse: Optional["Plan"] = None
 
     def device_bits(self, device) -> torch.Tensor:
         t = self._device_bits.get(device)
@@ -170,6 +178,17 @@ class Plan:
 
 _plan_cache: dict = {}
 _PLAN_CACHE_MAX = 256
+
+
+def _route_plan(sigma_p: np.ndarray) -> Plan:
+    """Route ``dest[j] = src[sigma_p(j)]`` on P elements, padded to the next
+    power of two with the identity."""
+    P = sigma_p.shape[0]
+    k = max(1, int(P - 1).bit_length())
+    sigma = np.empty(1 << k, dtype=np.int64)
+    sigma[:P] = sigma_p
+    sigma[P:] = np.arange(P, 1 << k, dtype=np.int64)  # identity tail
+    return Plan(P, k, pack_pair_bits(route(sigma)))
 
 
 def _plan(keys_np: np.ndarray) -> Optional[Plan]:
@@ -185,20 +204,24 @@ def _plan(keys_np: np.ndarray) -> Optional[Plan]:
     if plan is not None:
         return plan
     P = keys_np.shape[0]
-    k = max(1, int(P - 1).bit_length())
-    if k > _MAX_LOG2:
+    if max(1, int(P - 1).bit_length()) > _MAX_LOG2:
         return None
-    n2 = 1 << k
-    sigma = np.empty(n2, dtype=np.int64)
     inv = np.empty(P, dtype=np.int64)
     inv[keys_np] = np.arange(P, dtype=np.int64)
-    sigma[:P] = inv
-    sigma[P:] = np.arange(P, n2, dtype=np.int64)  # identity tail
-    plan = Plan(P, k, pack_pair_bits(route(sigma)))
+    plan = _route_plan(inv)
     if len(_plan_cache) >= _PLAN_CACHE_MAX:
         _plan_cache.clear()
     _plan_cache[token] = plan
     return plan
+
+
+def _inverse_plan(plan: Plan, keys_np: np.ndarray) -> Plan:
+    """The plan of sigma^-1 (``dest[i] = src[keys(i)]``), which carries a
+    cotangent back through ``plan``: routed the first time a backward pass
+    needs it and kept on ``plan``."""
+    if plan.inverse is None:
+        plan.inverse = _route_plan(keys_np.astype(np.int64))
+    return plan.inverse
 
 
 # --------------------------------------------------------------------------- #
@@ -278,21 +301,9 @@ def _decline(reason: str, detail) -> None:
     return None
 
 
-def permute(vals: torch.Tensor, keys_np: np.ndarray) -> Optional[torch.Tensor]:
-    """Static permutation ``dest[j] = src[keys^-1(j)]`` of a 1-D tensor
-    through the network: K9 on a CUDA tensor, the plain version on a CPU
-    tensor.  None (recorded in ``DECLINES``) for another rank or dtype or
-    a padded size above ``2**_MAX_LOG2``.  Values move as raw 32-bit
-    words, so every bit pattern survives."""
-    if vals.ndim != 1:
-        return _decline("ndim", vals.ndim)
-    if vals.dtype not in _ELIGIBLE:
-        return _decline("dtype", str(vals.dtype))
-    if keys_np.shape != (vals.shape[0],):
-        raise ValueError(f"{keys_np.shape[0]} keys for {vals.shape[0]} values")
-    plan = _plan(keys_np)
-    if plan is None:
-        return _decline("size", vals.shape[0])
+def _run(vals: torch.Tensor, plan: Plan) -> torch.Tensor:
+    """``plan``'s permutation of ``vals`` as raw 32-bit words: K9 on a CUDA
+    tensor, the plain version on a CPU tensor."""
     P = plan.P
     x = torch.empty(plan.n2, dtype=torch.int32, device=vals.device)
     x[:P].copy_(vals.view(torch.int32))
@@ -304,3 +315,46 @@ def permute(vals: torch.Tensor, keys_np: np.ndarray) -> Optional[torch.Tensor]:
     else:
         raise ValueError(f"benes.permute takes CPU or CUDA tensors, got {x.device}")
     return x[:P].view(vals.dtype)
+
+
+class _Permute(torch.autograd.Function):
+    """``dest[j] = src[sigma(j)]`` as a differentiable operation: the
+    cotangent of ``dest`` goes back through sigma^-1 on the same network
+    (K9 again on the card), the tangent through sigma."""
+
+    @staticmethod
+    def forward(vals, plan, keys_np):
+        return _run(vals, plan)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.plan, ctx.keys = inputs[1], inputs[2]
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _run(grad.contiguous(), _inverse_plan(ctx.plan, ctx.keys)), None, None
+
+    @staticmethod
+    def jvp(ctx, tangent, *_):
+        return _run(tangent.contiguous(), ctx.plan)
+
+
+def permute(vals: torch.Tensor, keys_np: np.ndarray) -> Optional[torch.Tensor]:
+    """Static permutation ``dest[j] = src[keys^-1(j)]`` of a 1-D tensor
+    through the network: K9 on a CUDA tensor, the plain version on a CPU
+    tensor.  None (recorded in ``DECLINES``) for another rank or dtype or
+    a padded size above ``2**_MAX_LOG2``.  Values move as raw 32-bit
+    words, so every bit pattern survives.  When a derivative is wanted the
+    call is differentiable (``_Permute``); otherwise it runs as it is."""
+    if vals.ndim != 1:
+        return _decline("ndim", vals.ndim)
+    if vals.dtype not in _ELIGIBLE:
+        return _decline("dtype", str(vals.dtype))
+    if keys_np.shape != (vals.shape[0],):
+        raise ValueError(f"{keys_np.shape[0]} keys for {vals.shape[0]} values")
+    plan = _plan(keys_np)
+    if plan is None:
+        return _decline("size", vals.shape[0])
+    if wants_derivative([vals]):
+        return _Permute.apply(vals, plan, keys_np)
+    return _run(vals, plan)

@@ -11,7 +11,8 @@ kernels to the plain executor on the same card: the dycore stencils, the
 emitters on other IR, every canonical stencil of
 ``tests/cartesian/stencil_defs.py`` (``while``, regions, variable and
 absolute K, data dimensions included), FvAdvection, the semi-Lagrangian
-stencil and FullDycore.  The kernels are built
+stencil and FullDycore, and gradients with the forward on the kernels (K8)
+and through K9.  The kernels are built
 without FMA contraction, so in both float64 and float32 they agree with it
 bit for bit; the tolerances below are the stated bounds.
 """
@@ -451,3 +452,179 @@ def test_unstructured_fvm_step_routed_vs_index(cuda_device, irregular):
         config.AFFINE_GATHER, config.SORT_GATHER = saved
     assert bool(torch.isfinite(routed).all())
     assert torch.equal(routed, index)
+
+
+# --------------------------------------------------------------------- #
+# K8: derivatives through the kernels (the forward launches them, the
+# derivative comes from the plain executor); tests/test_torch_autodiff.py
+# runs the same cases on the emulated kernels
+# --------------------------------------------------------------------- #
+
+
+def weighted_scan(inp: F64, out: F64, *, w: np.float64):
+    with computation(FORWARD):
+        with interval(0, 1):
+            out = w * inp
+        with interval(1, None):
+            out = out[0, 0, -1] + w * inp
+
+
+#: stencil -> (factory, the call as the models make it, scalars, the
+#: inputs differentiated)
+K8_CASES = {
+    "hdiff": (dycore.make_hdiff, dict(in_field="u", out_field="u", coeff="coeff"),
+              {}, ("u", "coeff")),
+    "vadv_update": (dycore.make_vadv_update,
+                    dict(utens_stage="utens_stage", u_stage="x", wcon="wcon", u_pos="x",
+                         utens="utens", u_out="u"), {"dtr_stage": 3.0},
+                    ("utens_stage", "x", "wcon", "u")),
+    "weighted_scan": (lambda dtype, backend: gtscript.stencil(
+        backend=backend, definition=weighted_scan, name=f"weighted_scan_{backend}"),
+        dict(inp="x", out="u"), {"w": 1.3}, ("x", "u", "w")),
+}
+
+
+def k8_counts(st, since=(0, 0)):
+    """A stencil's kernel launches and K8 engagements since ``since``."""
+    return (st.backend.launches - since[0], st.backend.derivative_calls - since[1])
+
+
+def k8_call(name, backend, device):
+    """The stencil and ``run(buffers, w=None) -> loss``, the sum of squares
+    of its outputs on ``_buffers``' physical (K, I, J) fields (the scan on
+    their logical (I, J, K) views), periodic where the models call it so."""
+    factory, call, scalars, wrt = K8_CASES[name]
+    st = factory(np.float64, backend=backend)
+    physical = name != "weighted_scan"
+    fn = st.functional(origin=ORIGIN, domain=DOMAIN, physical_layout=physical,
+                       periodic=("I", "J") if physical else ())
+
+    def run(bufs, w=None):
+        if not physical:
+            bufs = {k: v.permute(1, 2, 0) for k, v in bufs.items()}
+        sc = dict(scalars, **({"w": w} if w is not None else {}))
+        outs = fn(**{a: bufs[b] for a, b in call.items()}, **sc)
+        return sum((o ** 2).sum() for o in outs.values())
+
+    return st, run, wrt
+
+
+def k8_derivatives(name, backend, device):
+    """The stencil, then the gradient, ``torch.func.jvp`` (value and
+    tangent) and forward-mode tangent of ``k8_call``'s loss with respect to
+    the case's differentiated inputs."""
+    import torch.autograd.forward_ad as fwAD
+
+    st, run, wrt = k8_call(name, backend, device)
+    bufs = _buffers(np.float64, device, seed=7)
+    prims = [torch.tensor(1.3, dtype=torch.float64, device=device) if n == "w" else bufs[n]
+             for n in wrt]
+    rng = np.random.default_rng(9)
+    tans = [torch.ones_like(p) if p.ndim == 0 else torch.from_numpy(rng.random(SHAPE)).to(device)
+            for p in prims]
+
+    def f(*xs):
+        b = dict(bufs)
+        b.update({n: x for n, x in zip(wrt, xs) if n != "w"})
+        return run(b, xs[wrt.index("w")] if "w" in wrt else None)
+
+    leaves = [p.clone().requires_grad_() for p in prims]
+    grads = torch.autograd.grad(f(*leaves), leaves)
+    value, tang = torch.func.jvp(f, tuple(prims), tuple(tans))
+    with fwAD.dual_level():
+        tang_fw = fwAD.unpack_dual(f(*[fwAD.make_dual(p, t) for p, t in zip(prims, tans)])).tangent
+    return st, grads, value, tang, tang_fw
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(K8_CASES))
+def test_k8_kernels_vs_plain(cuda_device, name):
+    """Gradient, torch.func.jvp and forward-mode tangent with the forward
+    on the kernels (each call one launch, under K8) against the plain
+    executor on the card."""
+    start = k8_counts(K8_CASES[name][0](np.float64, backend="cuda"))
+    st, grads, value, tang, tang_fw = k8_derivatives(name, "cuda", cuda_device)
+    torch.cuda.synchronize()
+    assert k8_counts(st, start) == (3, 3)
+    _, rgrads, rvalue, rtang, rtang_fw = k8_derivatives(name, "torch", cuda_device)
+    for g, r in zip(grads, rgrads):
+        assert g.device.type == "cuda" and float(g.abs().max()) > 0
+        torch.testing.assert_close(g, r, **TOL[np.float64])
+    for a, b in ((value, rvalue), (tang, rtang), (tang_fw, rtang_fw)):
+        torch.testing.assert_close(a, b, **TOL[np.float64])
+
+
+@pytest.mark.cuda
+def test_k8_engages_only_for_derivatives(cuda_device):
+    """Under no_grad, or with no input that requires grad, the kernels run
+    alone (one launch per call, K8 not engaged)."""
+    st, run, _ = k8_call("vadv_update", "cuda", cuda_device)
+    start = k8_counts(st)
+    bufs = _buffers(np.float64, cuda_device, seed=7)
+    plain = run(bufs)
+    with torch.no_grad():
+        assert torch.equal(run({**bufs, "u": bufs["u"].clone().requires_grad_()}), plain)
+    assert k8_counts(st, start) == (2, 0)
+    loss = run({**bufs, "u": bufs["u"].clone().requires_grad_()})
+    assert loss.requires_grad and torch.equal(loss.detach(), plain)
+    assert k8_counts(st, start) == (3, 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [np.float64, np.float32], ids=["f64", "f32"])
+def test_k8_full_dycore_grad_vs_plain(cuda_device, dtype):
+    """The FullDycore step's gradient with respect to the initial u and q,
+    forward on the kernels (hdiff, vadv_update and fv_step under K8; sl_step
+    reads neither, so it runs alone), against the plain executor's."""
+    got = {}
+    for backend in ("cuda", "torch"):
+        m = full_dycore.FullDycore(24, 40, 8, dtype=dtype, backend=backend,
+                                   device=cuda_device)
+        path = (m.dyn.hdiff, m.dyn.vadv_upd, m.fv.fv_step, m.sl)
+        start = [k8_counts(st) for st in path] if backend == "cuda" else None
+        state = m.init_state(seed=2)
+        u, q = (state[k].clone().requires_grad_() for k in ("u", "q"))
+        out = m.step_fn()({**state, "u": u, "q": q})
+        loss = sum((out[k] ** 2).sum() for k in ("u", "q", "qsl"))
+        got[backend] = torch.autograd.grad(loss, (u, q))
+        if backend == "cuda":
+            counts = [k8_counts(st, s) for st, s in zip(path, start)]
+            assert counts == [(1, 1), (1, 1), (1, 1), (1, 0)]
+    for g, r in zip(got["cuda"], got["torch"]):
+        assert bool(torch.isfinite(g).all()) and float(g.abs().max()) > 0
+        torch.testing.assert_close(g, r, **TOL[dtype])
+
+
+@pytest.mark.cuda
+def test_k9_backward_routed_vs_index(cuda_device):
+    """The routed FVM energy's gradient: K9 runs once for each forward
+    permute and once, on the inverse plan, for each backward one; the
+    gradient equals the index path's."""
+    from gt4py_tpu_torch import config
+    from gt4py_tpu_torch.next import as_field, benes
+    from gt4py_tpu_torch.next.testing import Vertex, unstructured_fvm_case
+
+    def grad(case):
+        psi = case["psi0"].clone().requires_grad_()
+        g = case["gradient"](as_field((Vertex,), psi), offset_provider=case["provider"])
+        d = case["divergence"](g, case["sign"], offset_provider=case["provider"])
+        return torch.autograd.grad((d.data ** 2).sum(), psi)[0]
+
+    case = unstructured_fvm_case(192, True, np.float32, cuda_device)
+    with torch.no_grad():
+        case["step"](case["psi0"])  # plans the gathers
+    before = benes.KERNEL.launches
+    with torch.no_grad():
+        case["step"](case["psi0"])
+    forward = benes.KERNEL.launches - before
+    before = benes.KERNEL.launches
+    routed = grad(case)
+    torch.cuda.synchronize()
+    assert forward > 0 and benes.KERNEL.launches - before == 2 * forward
+    saved = config.AFFINE_GATHER, config.SORT_GATHER
+    config.AFFINE_GATHER = config.SORT_GATHER = False
+    try:
+        index = grad(unstructured_fvm_case(192, True, np.float32, cuda_device))
+    finally:
+        config.AFFINE_GATHER, config.SORT_GATHER = saved
+    torch.testing.assert_close(routed, index, rtol=1e-5, atol=0)
