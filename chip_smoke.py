@@ -11,7 +11,8 @@ Phases (a failed phase raises, and the script exits non-zero):
    card's name and power limit;
 2. build every generated CUDA kernel the later phases launch from the
    repository's sources (one nvcc per stencil, all started together,
-   sm_90a) and print the build seconds and ptxas' report;
+   sm_90a), phase 10's plane-sweep and K-blocked ones included, and print
+   the build seconds and ptxas' report;
 3. kernel against plain on the card: ``backend="cuda"`` against
    ``backend="torch"`` for hdiff, vadv_update and dycore_fused, periodic,
    at 512x512x80 float32 and 64x256x16 float64;
@@ -19,6 +20,10 @@ Phases (a failed phase raises, and the script exits non-zero):
    10 steps of ``step_fn()`` and of ``step_fn(fused=True)``, with the launch
    counts of every kernel read around that run, the state checked finite
    and against the plain executor, and both forms timed with CUDA events;
+   the fused step runs serialized in the plane-sweep form (K5, asserted
+   from ``cuda_backend.LAST_PLAN``), equal bit for bit over 10 steps to the
+   split build (``serialize=False``: row and column kernels) and to plain,
+   each timed one call at a time and back to back;
 5. the language surface: every canonical stencil with ``while``, regions,
    variable K or data dimensions (``tests/cartesian/stencil_defs.py``) and
    the ``.at(K=...)`` forms (``gt4py_tpu_torch.testing.SURFACE``), in
@@ -67,7 +72,20 @@ Phases (a failed phase raises, and the script exits non-zero):
    gradient against plain and its directional derivative against central
    differences; the sort-routed FVM energy's gradient at n = 512 float32,
    K9 launched once per forward permute and once per backward one, against
-   the index path.
+   the index path; ``torch.func.grad`` and ``torch.func.vjp`` of the
+   MiniDycore step loss against ``torch.autograd.grad``;
+10. plan modes: (a) fault 1's loop (a FORWARD loop reading ``t[1, 0, 0]``
+   of the ``t`` it writes), a K-carried temporary read at offsets, reads
+   of values the sweep has not written yet, and the mixed stencils of ``tests/cartesian/test_serialize_parallel.py`` in the
+   plane-sweep form, float64 at 64x256x16, bounded and periodic, bit for
+   bit against plain; (b) the deep-K MiniDycore step at 128x128x2048
+   float32: 10 steps with ``vadv_update`` K-blocked (K4, its KB read from
+   ``LAST_PLAN``) against 10 steps of the one-pass build
+   (``k_blocked=False``) and 10 plain ones, bit for bit, and both forms
+   timed, with K4's plain counterpart (the blocks through the plain
+   executor); (c) fv_step at 512x512x80 float32 built with
+   ``serialize=True`` (its 13 row stages as one plane-sweep kernel)
+   against the row form, bit for bit and timed in turns.
 
 Every kernel entry carries ``bound_ms``: the least time the card could take
 for the same function, its bytes (each input read once, each output written
@@ -113,6 +131,8 @@ PLAIN_TIMING_REPS = 3
 BACK_TO_BACK = 20
 NI, NJ, NK = 512, 512, 80
 SMALL = (64, 256, 16)
+#: phase 10 (b): the deep-K MiniDycore (K4)
+DEEP = (128, 128, 2048)
 
 #: phase 5: the canonical stencils by the feature the kernels take over
 #: from the TPU path (REPLACES key), and one of each timed at full size
@@ -780,6 +800,29 @@ def _gradients(smi, models, fvm_case) -> dict:
     print(f"MiniDycore 512x512x80 f32 torch.func.jvp (kernels under K8 {jvp_counts}) vs the "
           f"plain executor's: max abs {jvp_err:.3e}, bitwise {torch.equal(tang, rtang)}")
 
+    # torch.func.grad and torch.func.vjp through K8 against torch.autograd.grad
+    def mloss(u):
+        return (md.step_fn()({**s0, "u": u})["u"] ** 2).sum()
+
+    leaf = s0["u"].clone().requires_grad_()
+    g_ref = torch.autograd.grad(mloss(leaf), leaf)[0]
+    for st in (md.hdiff, md.vadv_upd):
+        st.backend.launches = st.backend.derivative_calls = 0
+    g_func = torch.func.grad(mloss)(s0["u"])
+    value, pull = torch.func.vjp(mloss, s0["u"])
+    g_vjp = pull(torch.ones_like(value))[0]
+    torch.cuda.synchronize()
+    func_counts = [(st.backend.launches, st.backend.derivative_calls)
+                   for st in (md.hdiff, md.vadv_upd)]
+    if func_counts != [(2, 2), (2, 2)]:
+        raise AssertionError(f"torch.func through K8: kernels (launches, under K8) {func_counts}")
+    func_err = max(_check_close(f"MiniDycore torch.func.{what} vs torch.autograd.grad", g, g_ref,
+                                RTOL_F32, ATOL_F32)[0] for what, g in (("grad", g_func),
+                                                                       ("vjp", g_vjp)))
+    func_bitwise = torch.equal(g_func, g_ref) and torch.equal(g_vjp, g_ref)
+    print(f"MiniDycore 512x512x80 f32 torch.func.grad and torch.func.vjp (kernels under K8 "
+          f"{func_counts}) vs torch.autograd.grad: max abs {func_err:.3e}, bitwise {func_bitwise}")
+
     # central differences at 64x256x16 float64
     small, small_plain = models["f64"]
     sstate = small.init_state(seed=1)
@@ -821,8 +864,257 @@ def _gradients(smi, models, fvm_case) -> dict:
     }
     summary = {"launches": counts, "max_abs_err": errs, "bitwise": bitwise, "times_ms": t,
                "memory": peak, "jvp_max_abs_err": jvp_err, "small_max_abs_err": small_err,
+               "func_grad_max_abs_err": func_err, "func_grad_bitwise": func_bitwise,
                "fd_rel": rel, "routed": routed, "card": smi}
     return {"entry": entry, "summary": summary}
+
+
+# --------------------------------------------------------------------------- #
+# phase 10
+# --------------------------------------------------------------------------- #
+
+
+def _plane_defs() -> dict:
+    """Phase 10 (a)'s stencils, float64: fault 1's loop, a K-carried
+    temporary read at offsets (the CTA's ring of planes), reads of values
+    the sweep has not written yet (the copy taken before the kernel), and
+    the mixed stencils of ``tests/cartesian/test_serialize_parallel.py``
+    (K5)."""
+    import numpy as np
+
+    from gt4py_tpu_torch.cartesian import gtscript
+    from gt4py_tpu_torch.cartesian.gtscript import (
+        BACKWARD,
+        FORWARD,
+        PARALLEL,
+        computation,
+        interval,
+    )
+
+    F = gtscript.Field[np.float64]
+
+    def fault1(a: F, b: F):
+        with computation(FORWARD), interval(...):
+            t = a + 1.0
+            b = t[1, 0, 0]
+
+    def carried(a: F, c: F):
+        with computation(FORWARD):
+            with interval(0, 1):
+                t = a
+                c = t[1, 0, 0] + t[0, -1, 0]
+            with interval(1, None):
+                t = t[0, 0, -1] * 0.5 + a
+                c = t[1, 0, 0] + t[0, -1, 0]
+
+    def not_yet_swept(a: F, c: F):
+        with computation(FORWARD):
+            with interval(0, 1):
+                t = a
+                c = t
+            with interval(1, -1):
+                c = t[1, 0, 0] + t[0, -1, 1]
+                t = a * 2.0
+            with interval(-1, None):
+                t = a
+                c = t
+
+    def ser_mixed(a: F, out: F):
+        with computation(PARALLEL), interval(...):
+            t = a[1, 0, 0] + a[-1, 0, 0]
+        with computation(FORWARD):
+            with interval(0, 1):
+                acc = t
+                out = acc
+            with interval(1, None):
+                acc = acc[0, 0, -1] + t
+                out = acc
+
+    def ser_parity(a: F, b: F, out: F):
+        with computation(PARALLEL), interval(...):
+            lap = a[1, 0, 0] + a[-1, 0, 0] + a[0, 1, 0] + a[0, -1, 0] - 4.0 * a
+            flx = lap[1, 0, 0] - lap[0, 0, 0]
+        with computation(FORWARD):
+            with interval(0, 1):
+                acc = flx + b
+                out = acc
+            with interval(1, None):
+                acc = acc[0, 0, -1] * 0.5 + flx
+                out = acc
+        with computation(BACKWARD):
+            with interval(0, -1):
+                out = out + out[0, 0, 1] * 0.25
+
+    return {d.__name__: {backend: gtscript.stencil(backend=backend, definition=d, rebuild=True)
+                         for backend in ("cuda", "torch")}
+            for d in (fault1, carried, not_yet_swept, ser_mixed, ser_parity)}
+
+
+def _plane_modes(defs, dev) -> dict:
+    """Phase 10 (a): each stencil in the plane-sweep form against plain,
+    float64 at SMALL, bounded and periodic, bit for bit; its launches read
+    around the run."""
+    import numpy as np
+    import torch
+
+    from gt4py_tpu_torch.cartesian.backend.cuda_backend import LAST_PLAN
+
+    out = {}
+    shape = (SMALL[0] + 4, SMALL[1] + 4, SMALL[2])
+    for name, pair in defs.items():
+        st = pair["cuda"]
+        plan = LAST_PLAN[name]
+        if "planes" not in plan["forms"]:
+            raise AssertionError(f"phase 10 {name}: not in the plane-sweep form ({plan})")
+        for periodic in ((), ("I", "J")):
+            rng = np.random.default_rng(10)
+            fields = {n: rng.random(shape) for n in st.field_info}
+            got = {}
+            for backend, stc in pair.items():
+                # J contiguous along the threads, as the models' buffers
+                ts = {n: torch.from_numpy(v).movedim(2, 0).contiguous().movedim(0, 2).to(dev)
+                      for n, v in fields.items()}
+                if backend == "cuda":
+                    stc.backend.launches = 0
+                stc(**ts, origin=(2, 2, 0), domain=SMALL, periodic=periodic)
+                torch.cuda.synchronize()
+                got[backend] = ts
+            launches = st.backend.launches
+            if launches != 1:
+                raise AssertionError(f"phase 10 {name}: launched {launches} times")
+            for n, v in got["torch"].items():
+                if not torch.equal(got["cuda"][n], v):
+                    _check_close(f"phase 10 {name}.{n}", got["cuda"][n], v, RTOL_F64, ATOL_F64)
+                    raise AssertionError(f"phase 10 {name}.{n}: kernels and plain differ")
+            out[f"{name}{'_periodic' if periodic else ''}"] = {
+                "launches": launches, "forms": plan["forms"], "serialized": plan["serialized"],
+                "shared": plan["shared"], "tile": plan["tile"]}
+        print(f"phase 10 {name} f64 {SMALL}: forms {plan['forms']}, serialized "
+              f"{plan['serialized']}, tile {plan['tile']}, shared {plan['shared']}; "
+              "bounded and periodic bitwise equal to plain, 1 launch each")
+    return out
+
+
+def _fv_planes(fd, fv_planes) -> dict:
+    """fv_step at 512x512x80 float32 built with ``serialize=True``: its 13
+    row stages as one plane-sweep kernel, bitwise against the row form,
+    both timed in turns."""
+    import torch
+
+    from gt4py_tpu_torch.cartesian.backend.cuda_backend import LAST_PLAN
+
+    fv = fd.fv
+    state = fd.init_state(seed=0)
+    fn = fv_planes.functional(origin=(fv.oi, fv.oj, 0), domain=(NI, NJ, NK),
+                              physical_layout=True, periodic=("I", "J"))
+    args = dict(q=state["q"], cx=state["cx"], cy=state["cy"], qout=torch.zeros_like(state["q"]))
+    fv_planes.backend.launches = 0
+    got = fn(**args)["qout"]
+    torch.cuda.synchronize()
+    plan = LAST_PLAN[fv_planes.name]
+    if fv_planes.backend.launches != 1 or plan["forms"] != ["planes"]:
+        raise AssertionError(f"fv_step serialized: launches {fv_planes.backend.launches}, "
+                             f"plan {plan}")
+    ref = fv.fns["step_p"](**args)["qout"]
+    if not torch.equal(got, ref):
+        _check_close("fv_step serialized vs rows", got, ref, RTOL_F32, ATOL_F32)
+        raise AssertionError("fv_step: the plane-sweep form and the row form differ")
+    t = {}
+    for label in ("planes", "rows", "planes_again", "rows_again"):
+        f = fn if label.startswith("planes") else fv.fns["step_p"]
+        t[label] = _time_ms(lambda: f(**args), TIMING_REPS)
+    print(f"fv_step {NI}x{NJ}x{NK} f32 serialized: one plane-sweep kernel (tile {plan['tile']}, "
+          f"{plan['smem_bytes']} bytes of shared planes, {len(plan['shared'])} shared, "
+          f"{len(plan['scratch'])} in device memory) {t['planes']:.4f} / "
+          f"{t['planes_again']:.4f} ms against 13 row kernels {t['rows']:.4f} / "
+          f"{t['rows_again']:.4f} ms (in turns); bitwise equal")
+    return {"ms": t, "tile": plan["tile"], "smem_bytes": plan["smem_bytes"],
+            "shared": len(plan["shared"]), "scratch": len(plan["scratch"])}
+
+
+def _deep_k(deep, dev) -> dict:
+    """Phase 10 (b): 10 deep-K MiniDycore steps with vadv_update K-blocked
+    against 10 of the one-pass build and 10 plain ones, bit for bit; the
+    times of both forms and of K4's plain counterpart."""
+    import torch
+
+    from gt4py_tpu_torch import testing
+    from gt4py_tpu_torch.cartesian.backend.cuda_backend import LAST_PLAN
+
+    mk, mo, mp = deep["kblocked"], deep["one_pass"], deep["plain"]
+    state0 = mk.init_state(seed=0)
+    runs, launches = {}, {}
+    for label, m in (("kblocked", mk), ("one_pass", mo), ("plain", mp)):
+        step = m.step_fn()
+        for st in (m.hdiff, m.vadv_upd):
+            if label != "plain":
+                st.backend.launches = 0
+        s = state0
+        for _ in range(STEPS):
+            s = step(s)
+        torch.cuda.synchronize()
+        runs[label] = s
+        if label != "plain":
+            launches[label] = {"hdiff": m.hdiff.backend.launches,
+                               "vadv_update": m.vadv_upd.backend.launches}
+            plan = LAST_PLAN[m.vadv_upd.name]
+            if label == "kblocked":
+                kplan = plan
+            if bool(plan["kblocked"]) != (label == "kblocked"):
+                raise AssertionError(f"deep-K {label}: vadv_update plan {plan}")
+    if min(launches["kblocked"].values()) == 0:
+        raise AssertionError(f"deep-K: a kernel was not launched ({launches})")
+    shape = mk.field_shape()
+    errs = {}
+    for field in ("u", "utens_stage"):
+        got = runs["kblocked"][field]
+        if tuple(got.shape) != shape or not bool(torch.isfinite(got).all()):
+            raise AssertionError(f"deep-K {field}: shape {tuple(got.shape)} or not finite")
+        for other in ("one_pass", "plain"):
+            if not torch.equal(got, runs[other][field]):
+                _check_close(f"deep-K {field} vs {other}", got, runs[other][field], RTOL_F32,
+                             ATOL_F32)
+                raise AssertionError(f"deep-K {field}: K4 and {other} differ")
+        errs[field] = 0.0
+    kbs = mk.vadv_upd.backend.program.kblock_plan(DEEP[2])[0]
+    if kplan["kblocked"]["KB"] != kbs or not all(8 <= k < DEEP[2] for k in kbs):
+        raise AssertionError(f"deep-K: KB {kplan['kblocked']['KB']}, planned {kbs}")
+    print(f"deep-K MiniDycore {DEEP} f32: {STEPS} steps, launches {launches}; vadv_update "
+          f"K-blocked with KB {kplan['kblocked']['KB']} over {kplan['kblocked']['passes']} passes "
+          f"(promoted {kplan['kblocked']['promoted']}); u and utens_stage bitwise equal to the "
+          f"one-pass build and to plain")
+
+    diffused = mp.hdiff_fn_p(in_field=state0["u"], out_field=state0["u"],
+                             coeff=state0["coeff"])["out_field"]
+    args = dict(utens_stage=state0["utens_stage"], u_stage=diffused, wcon=state0["wcon"],
+                u_pos=diffused, utens=state0["utens"], u_out=state0["u"], dtr_stage=3.0)
+    t = {"kblocked": _time_ms(lambda: mk.vadv_upd_fn_p(**args), TIMING_REPS),
+         "one_pass": _time_ms(lambda: mo.vadv_upd_fn_p(**args), TIMING_REPS)}
+    t["kblocked_again"] = _time_ms(lambda: mk.vadv_upd_fn_p(**args), TIMING_REPS)
+    t["one_pass_again"] = _time_ms(lambda: mo.vadv_upd_fn_p(**args), TIMING_REPS)
+    steps = {"kblocked": _time_ms(lambda: mk.step_fn()(state0), TIMING_REPS),
+             "one_pass": _time_ms(lambda: mo.step_fn()(state0), TIMING_REPS)}
+
+    # K4's plain counterpart on the same call: the passes' blocks through the
+    # plain executor, on the logical (I, J, K) views of the physical buffers
+    origin = (mk.oi, mk.oj, 0)
+
+    def plain_blocks():
+        fields = {k: (v.clone() if k in ("utens_stage", "u_out") else v).permute(1, 2, 0)
+                  for k, v in args.items() if k != "dtr_stage"}
+        testing.plain_kblocked(mk.vadv_upd, fields, {"dtr_stage": 3.0}, origin, DEEP,
+                               periodic=("I", "J"))
+
+    plain_ms = _time_ms(plain_blocks, 1, warmup=1)
+    whole_plain_ms = _time_ms(lambda: mp.vadv_upd_fn_p(**args), 1, warmup=1)
+    print(f"deep-K vadv_update {DEEP} f32: K-blocked {t['kblocked']:.4f} / "
+          f"{t['kblocked_again']:.4f} ms, one pass {t['one_pass']:.4f} / "
+          f"{t['one_pass_again']:.4f} ms (in turns, one call at a time); step K-blocked "
+          f"{steps['kblocked']:.4f} ms, one pass {steps['one_pass']:.4f} ms; plain counterpart "
+          f"(blocks) {plain_ms:.4f} ms, whole plain {whole_plain_ms:.4f} ms")
+    return {"launches": launches, "plan": kplan, "ms": t, "step_ms": steps,
+            "plain_ms": plain_ms, "whole_plain_ms": whole_plain_ms, "max_abs_err": errs,
+            "analysis": mk.vadv_upd.analysis}
 
 
 def main() -> int:
@@ -837,7 +1129,7 @@ def main() -> int:
     from gt4py_tpu_torch import testing
     from gt4py_tpu_torch.cartesian import gtscript
     from gt4py_tpu_torch.cartesian.backend import _build
-    from gt4py_tpu_torch.cartesian.backend.cuda_backend import REPLACES
+    from gt4py_tpu_torch.cartesian.backend.cuda_backend import LAST_PLAN, REPLACES
     from gt4py_tpu_torch.core import dtypes
     from gt4py_tpu_torch.core.definitions import BFLOAT16
     from gt4py_tpu_torch.models import dycore, full_dycore, fv_advection
@@ -884,17 +1176,33 @@ def main() -> int:
                                                device=dev))
             for backend in ("cuda", "torch")}
     bf16_stencils = [bf16["cuda"][0].hdiff, bf16["cuda"][0].vadv_upd, bf16["cuda"][1].fv_step]
+    # phase 4: the fused step's split build; phase 10: the plane-sweep
+    # stencils and the deep-K MiniDycore in both forms
+    md_split = dycore.MiniDycore(NI, NJ, NK, dtype=np.float32, backend="cuda", device=dev,
+                                 options={"serialize": False})
+    plane_defs = _plane_defs()
+    deep = {label: dycore.MiniDycore(*DEEP, dtype=np.float32, backend=backend, device=dev,
+                                     options=options)
+            for label, backend, options in (("kblocked", "cuda", {"k_blocked": True}),
+                                            ("one_pass", "cuda", {"k_blocked": False}),
+                                            ("plain", "torch", {}))}
+    fv_planes = fv_advection.make_fv_step(np.float32, "cuda", serialize=True)
+    phase10_stencils = [md_split.fused] + [p["cuda"] for p in plane_defs.values()] + [
+        deep["kblocked"].hdiff, deep["kblocked"].vadv_upd, deep["one_pass"].vadv_upd,
+        fv_planes]
     next_cases = {key: bench_cases(c["dtype"], c["shape"], dev) for key, c in configs.items()}
     next_kernels = [b for cases in next_cases.values() for case in cases.values()
                     for b in case["kernels"]()]
     t0 = time.perf_counter()
     n_sources = build_all(
-        [st.backend for st in main_stencils + list(surface_stencils.values()) + bf16_stencils]
+        [st.backend for st in main_stencils + list(surface_stencils.values()) + bf16_stencils
+         + phase10_stencils]
         + next_kernels + [benes.KERNEL])
     build_s = time.perf_counter() - t0
     print(f"build: {n_sources} sources, {build_s:.2f} s (nvcc in parallel)")
-    for st in main_stencils:
-        print(f"built {st.name}: {len(st.backend.program.kernels)} kernels, {_ptxas(st)}")
+    for st in main_stencils + phase10_stencils:
+        print(f"built {st.name}: {len(st.backend.program.kernels)} kernels "
+              f"{[k.form for k in st.backend.program.kernels]}, {_ptxas(st)}")
 
     # -- 3. kernel against plain (MiniDycore stencils) ----------------------
     errors = {}
@@ -939,6 +1247,10 @@ def main() -> int:
     for name, n in launches.items():
         if n == 0:
             raise AssertionError(f"MiniDycore path never launched the {name} kernels")
+    fused_plan = LAST_PLAN[md.fused.name]
+    if not fused_plan["serialized"] or "planes" not in fused_plan["forms"]:
+        raise AssertionError(f"the fused step did not run in the plane-sweep form: {fused_plan}")
+    print(f"fused step plan: {fused_plan}")
 
     p_step, p_step_fused = md_plain.step_fn(), md_plain.step_fn(fused=True)
     r_two, r_fused = state0, state0
@@ -955,6 +1267,22 @@ def main() -> int:
             print(f"MiniDycore {form} {field} after {STEPS} steps vs plain: max abs "
                   f"{e[0]:.3e}, max rel {e[1]:.3e}")
     _check_close("fused vs two-stencil step", s_fused["u"], s_two["u"], RTOL_F32, ATOL_F32)
+    # K5: the plane-sweep form against the split build and plain, bit for bit
+    step_split = md_split.step_fn(fused=True)
+    s_split = state0
+    for _ in range(STEPS):
+        s_split = step_split(s_split)
+    torch.cuda.synchronize()
+    if [k.form for k in md_split.fused.backend.program.kernels] != [
+            "rows", "rows", "rows", "columns", "columns"]:
+        raise AssertionError("the split build of the fused step is not rows plus columns")
+    for field in ("u", "utens_stage"):
+        for label, ref in (("split build", s_split), ("plain", r_fused)):
+            if not torch.equal(s_fused[field], ref[field]):
+                raise AssertionError(f"fused {field}: the plane-sweep form and the {label} "
+                                     "differ after 10 steps")
+    print(f"fused step: the plane-sweep form, the split build and plain bitwise equal after "
+          f"{STEPS} steps (u, utens_stage)")
 
     points = NI * NJ * NK
     step_ms = {
@@ -962,7 +1290,15 @@ def main() -> int:
         "MiniDycore step plain": _time_ms(lambda: p_step(state0), PLAIN_TIMING_REPS),
         "MiniDycore fused step cuda": _time_ms(lambda: step_fused(state0), TIMING_REPS),
         "MiniDycore fused step plain": _time_ms(lambda: p_step_fused(state0), PLAIN_TIMING_REPS),
+        "MiniDycore fused step split build": _time_ms(lambda: step_split(state0), TIMING_REPS),
+        "MiniDycore fused step cuda (again)": _time_ms(lambda: step_fused(state0), TIMING_REPS),
+        "MiniDycore fused step split build (again)": _time_ms(lambda: step_split(state0),
+                                                              TIMING_REPS),
     }
+    fused_b2b = {"planes": _time_chain_ms(step_fused, state0, BACK_TO_BACK),
+                 "split": _time_chain_ms(step_split, state0, BACK_TO_BACK)}
+    print(f"MiniDycore fused step back to back ({BACK_TO_BACK} steps): plane-sweep form "
+          f"{fused_b2b['planes']:.4f} ms, split build {fused_b2b['split']:.4f} ms")
     for k, ms in step_ms.items():
         print(f"{k}: {ms:.4f} ms per step, {points / ms / 1e6:.3f} Gpoint/s "
               f"(512x512x80 f32, median of CUDA-event times, one call at a time)")
@@ -989,6 +1325,42 @@ def main() -> int:
             "plain_ms": plain_ms,
             **_bound(st.analysis, (NI, NJ, NK)),
         })
+
+    # K5: the fused stencil in the plane-sweep form, its split build and its
+    # plain counterpart (the plain executor on the serialized stencil)
+    fused_args = dict(u=state0["u"], coeff=state0["coeff"], wcon=state0["wcon"],
+                      utens=state0["utens"], utens_stage=state0["utens_stage"],
+                      u_out=state0["u"], dtr_stage=3.0)
+    plain_ser = testing.plain_form(md.fused).functional(
+        origin=(md.oi, md.oj, 0), domain=(NI, NJ, NK), physical_layout=True,
+        periodic=("I", "J"))
+    ser_out, ref_out = plain_ser(**fused_args), md_plain.fused_fn_p(**fused_args)
+    if any(not torch.equal(ser_out[k], ref_out[k]) for k in ref_out):
+        raise AssertionError("the serialized stencil's plain executor differs from plain")
+    k5 = {"ms": _time_ms(lambda: md.fused_fn_p(**fused_args), TIMING_REPS),
+          "split_ms": _time_ms(lambda: md_split.fused_fn_p(**fused_args), TIMING_REPS)}
+    k5["ms_again"] = _time_ms(lambda: md.fused_fn_p(**fused_args), TIMING_REPS)
+    k5["split_ms_again"] = _time_ms(lambda: md_split.fused_fn_p(**fused_args), TIMING_REPS)
+    k5["plain_ms"] = _time_ms(lambda: plain_ser(**fused_args), PLAIN_TIMING_REPS)
+    print(f"K5 dycore_fused_float32 {NI}x{NJ}x{NK}: plane-sweep form {k5['ms']:.4f} / "
+          f"{k5['ms_again']:.4f} ms, split build {k5['split_ms']:.4f} / "
+          f"{k5['split_ms_again']:.4f} ms (in turns, one call at a time); plain executor on the "
+          f"serialized stencil {k5['plain_ms']:.4f} ms (bitwise equal to plain)")
+    kernels.append({
+        "name": "K5 plane-sweep form: dycore_fused_float32 serialized (one plane-sweep kernel "
+                "and two column kernels)",
+        "route": "cuda",
+        "source": "gt4py_tpu_torch/cartesian/backend/cuda_backend.py",
+        "replaces": REPLACES["planes"],
+        "launches": launches["dycore_fused"],
+        "max_abs_err": errors[("f32", "dycore_fused")][0],
+        "ms": k5["ms"],
+        "plain_ms": k5["plain_ms"],
+        **_bound(md.fused.analysis, (NI, NJ, NK)),
+        "split_ms": k5["split_ms"],
+        "step_b2b_ms": fused_b2b,
+        "plan": fused_plan,
+    })
 
     # -- 5. the language surface (float64) ----------------------------------
     for feature, names in SURFACE_FEATURES.items():
@@ -1216,9 +1588,28 @@ def main() -> int:
     kernels.append(gradients["entry"])
     k9_entry["backward"] = gradients["summary"]["routed"]
 
+    # -- 10. plan modes: the plane-sweep form, K-blocked passes -------------
+    planes = _plane_modes(plane_defs, dev)
+    planes["fv_step_serialized"] = _fv_planes(fd, fv_planes)
+    deep_k = _deep_k(deep, dev)
+    kernels.append({
+        "name": f"K4 K-blocked passes: vadv_upd_float32 at {DEEP[0]}x{DEEP[1]}x{DEEP[2]}",
+        "route": "cuda",
+        "source": "gt4py_tpu_torch/cartesian/backend/cuda_backend.py",
+        "replaces": REPLACES["kblocked"],
+        "launches": deep_k["launches"]["kblocked"]["vadv_update"],
+        "max_abs_err": max(deep_k["max_abs_err"].values()),
+        "ms": deep_k["ms"]["kblocked"],
+        "plain_ms": deep_k["plain_ms"],
+        **_bound(deep_k.pop("analysis"), DEEP),
+        "one_pass_ms": deep_k["ms"]["one_pass"],
+        "KB": deep_k["plan"]["kblocked"]["KB"],
+    })
+
     print(smi)
     print(json.dumps({"kernels": kernels, "unstructured_fvm": fvm["summary"],
-                      "bfloat16": bf16_result, "gradients": gradients["summary"]}))
+                      "bfloat16": bf16_result, "gradients": gradients["summary"],
+                      "plan_modes": {"planes": planes, "deep_k": deep_k}}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

@@ -10,7 +10,9 @@ tangent from the package's own executor.  Here one
   clones (the launch is a callable, ``CudaBackend._launch`` on the card);
 - backward: the plain executor (``torch_backend.run_plain``) re-runs on
   detached inputs under ``torch.enable_grad()``, and ``torch.autograd.grad``
-  of that re-run gives the input gradients;
+  of that re-run gives the input gradients; under a ``torch.func``
+  transform (``grad``, ``vjp``), whose tensors cannot be made leaves, the
+  re-run's ``torch.func.vjp`` gives them;
 - jvp: the same re-run on forward-mode duals of the inputs at the caller's
   level (``torch.func.jvp`` cannot be nested inside a
   ``torch.autograd.forward_ad`` level; duals work under both).
@@ -33,7 +35,11 @@ from typing import Any, Callable, Dict, List, Sequence, Tuple
 import torch
 import torch.autograd.forward_ad as fwAD
 
-from gt4py_tpu_torch.cartesian.backend.torch_backend import TorchExecutor, run_plain
+from gt4py_tpu_torch.cartesian.backend.torch_backend import (
+    TorchExecutor,
+    is_functorch_wrapped_tensor,
+    run_plain,
+)
 
 
 @dataclasses.dataclass
@@ -93,6 +99,10 @@ class _KernelCall(torch.autograd.Function):
     @staticmethod
     def backward(ctx, *grads):
         call = ctx.call
+        needs = ctx.needs_input_grad[1:]
+        saved = ctx.saved_tensors
+        if any(is_functorch_wrapped_tensor(t) for t in saved):
+            return (None,) + _functorch_backward(call, saved, needs, grads)
         with torch.enable_grad():
             # only the inputs whose gradient is wanted are leaves that require
             # it, so autograd prunes the rest of the re-run's graph
@@ -115,6 +125,24 @@ class _KernelCall(torch.autograd.Function):
             outs = call.run_plain(duals)
             tans = [fwAD.unpack_dual(o).tangent for o in outs]
         return tuple(torch.zeros_like(o) if t is None else t.clone() for o, t in zip(outs, tans))
+
+
+def _functorch_backward(call: _Call, saved, needs, grads) -> tuple:
+    """The backward under a ``torch.func`` transform: ``torch.func.vjp`` of
+    the plain re-run with respect to the inputs whose gradient is wanted."""
+    wanted = [i for i, need in enumerate(needs) if need]
+    outs = [n for n, g in enumerate(grads) if g is not None]
+
+    def rerun(*wrt):
+        tensors = list(saved)
+        for i, t in zip(wanted, wrt):
+            tensors[i] = t
+        new = call.run_plain(tensors)
+        return tuple(new[n] for n in outs)
+
+    _, pull = torch.func.vjp(rerun, *[saved[i] for i in wanted])
+    got = dict(zip(wanted, pull(tuple(grads[n] for n in outs))))
+    return tuple(got.get(i) for i in range(len(saved)))
 
 
 def kernel_call(launch: Callable, plain: TorchExecutor, written: Sequence[str],

@@ -17,6 +17,32 @@ emitters turn each vertical loop into ``__global__`` kernels:
   One kernel per loop, one thread per (i, j) column, the interval sections
   run in order, ascending or descending.  Recurrence reads such as
   ``dcol[0, 0, -1]`` read the level the same thread just wrote (scratch).
+- **Plane-sweep form** (K5 and serial loops that read, at a horizontal
+  offset, a field they write; Pallas ``_trace_serialized``/
+  ``_serial_child`` and mode B's tiled serial sweep, ``_plan_columns``).
+  One CTA per (TI x TJ) tile sweeps K in the loop's order; within a plane
+  the statements split into stages as the row form splits them, each stage
+  a block-stride loop over its extended rectangle (halo points recomputed
+  by every CTA), ``__syncthreads()`` between stages and planes.  A
+  plane-local temporary (``passes.plane_local_temps``) read at an offset
+  lives in one shared-memory plane, one read at offset 0 in one stage in a
+  register; a field the loop writes and reads at an offset is read from
+  the CTA's own shared copy of the plane (loaded at the plane's start; a
+  ring of planes for reads of earlier levels), and written to device
+  memory only where the CTA owns the point; a read, at another CTA's
+  points, of a value the sweep has not written yet reads a copy of the
+  field taken just before the kernel.  A mixed stencil runs its PARALLEL
+  loops serialized (``passes.serialize_parallel_k``) in this form, unless
+  built with ``serialize=False``; a read this form cannot order between
+  CTAs declines it, naming the read.
+- **K-blocked passes** (K4; Pallas ``_trace_kblocked``/``_run_k_blocks``).
+  Built with ``k_blocked=True``, each column-form loop runs once per K
+  block, blocks in the loop's order, its sections' K bounds clipped at
+  launch; the block's window of the loop's read-only inputs is staged in
+  shared memory with coalesced loads.  Carries cross blocks in the
+  scratch buffers.  Eligibility is the JAX package's.  One pass is the
+  default: on the H100 it ran deep K (128 x 128 x 2048) 3x faster than
+  K4, whose 180 KiB windows hold one 64-thread CTA per SM (PERF.md).
 - **Periodic wrap** (K1a; Pallas ``_plan_segments``/``_circular_ok``).
   Reads of read-only API fields on a periodic axis wrap by index arithmetic
   in the load address; there is no fill pass.  A written field read at a
@@ -68,6 +94,11 @@ Derivatives (K8; Pallas ``_trace_env``'s custom JVP): when a derivative is
 wanted, the launch runs inside ``autodiff``'s ``torch.autograd.Function``
 -- the primal from the kernels, the gradient and the tangent from the plain
 executor; otherwise the kernels run alone, as for serving.
+
+``LAST_PLAN[stencil name]`` records each stencil's plan: its kernels'
+forms, whether it was serialized or K-blocked (passes, KB, promoted
+temporaries), the plane tile, where temporaries live, and why a form
+declined.
 """
 
 from __future__ import annotations
@@ -80,9 +111,10 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from gt4py_tpu_torch.cartesian import ir
+from gt4py_tpu_torch.cartesian import ir, passes
 from gt4py_tpu_torch.cartesian.analysis import (
     StencilAnalysis,
+    analyze,
     _stmt_reads,
     _stmt_writes,
     default_float_dtype,
@@ -116,7 +148,29 @@ REPLACES = {
                  "PallasBackend._trace_split_data_dims",
     "autodiff": "gt4py_tpu/cartesian/backend/pallas_backend.py:178 "
                 "PallasBackend._trace_env (custom_jvp around the kernel call)",
+    "planes": "gt4py_tpu/cartesian/backend/pallas_backend.py:797 "
+              "PallasBackend._trace_serialized (_serial_child :765; mode B's tiled serial "
+              "sweep, _plan_columns :1187)",
+    "kblocked": "gt4py_tpu/cartesian/backend/pallas_backend.py:1297 "
+                "PallasBackend._trace_kblocked (_run_k_blocks :1382)",
 }
+
+#: the plan of every stencil built, by name (see the module docstring)
+LAST_PLAN: Dict[str, dict] = {}
+
+#: shared memory one CTA may hold on the H100 (above 48 KiB a kernel asks
+#: for it with cudaFuncSetAttribute)
+SMEM_MAX = 227 * 1024
+SMEM_DEFAULT = 48 * 1024
+#: a plane-sweep CTA's threads, and its (TI, TJ) tiles, first choice first:
+#: 16 x 32 gives 1024 CTAs at 512 x 512 (about 8 per SM), then smaller
+#: tiles until the shared planes fit
+PLANE_THREADS = 256
+PLANE_TILES = ((16, 32), (8, 32), (4, 32), (2, 32), (1, 32))
+#: the K-window kernel's tile of columns: threads along J and I
+KB_TILE_J, KB_TILE_I = 32, 2
+#: K block sizes K4 tries after the whole depth (Pallas ``_KB_CANDIDATES``)
+KB_CANDIDATES = (512, 256, 128, 64, 32, 16, 8)
 
 #: threads per block along J (coalesced) and I
 BLOCK_J, BLOCK_I = 64, 4
@@ -324,18 +378,84 @@ def _check_supported(analysis: StencilAnalysis) -> None:
 # --------------------------------------------------------------------------- #
 
 
+class _Decline(NotImplementedError):
+    """A form cannot run a loop; the message names what it cannot order."""
+
+
+def _align16(n: int) -> int:
+    return (n + 15) // 16 * 16
+
+
+def _value_size(dt) -> int:
+    """Bytes of a value in shared memory (16-bit floats are held as float)."""
+    return 4 if np.dtype(dt) in _HALF else np.dtype(dt).itemsize
+
+
+def _ij(off) -> bool:
+    return isinstance(off, ir.CartesianOffset) and bool(off.i or off.j)
+
+
+@dataclass
+class PlanePlan:
+    """The plane-sweep form of one serial loop."""
+
+    tile: Tuple[int, int]
+    #: section index -> its stages (statement lists), in order
+    stages: Dict[int, List[List[ir.Stmt]]]
+    #: name -> extent of its shared-memory plane (plane-local temporaries
+    #: read at an offset or across stages, and the mirrored fields)
+    shared: Dict[str, Extent]
+    #: fields the loop writes and reads at an offset -> the planes the CTA
+    #: keeps of them (1, or more for reads of earlier planes): written to
+    #: the shared ring and, where the CTA owns the point, to device memory
+    mirrored: Dict[str, int]
+    #: plane-local temporaries held in a register of one stage
+    registers: List[str]
+    smem_bytes: int
+    #: fields the loop writes and reads, at another CTA's points, before
+    #: the sweep has written them (a later level, or the plane's own level
+    #: before its write): those reads (by ``id``) go to a copy of the field
+    #: taken just before the kernel
+    snapshots: List[str] = field(default_factory=list)
+    snapshot_reads: frozenset = frozenset()
+
+
+@dataclass
+class WindowPlan:
+    """K4's window of a column-form loop: the fields it reads and does not
+    write, staged per K block, as (name, rows, columns, K halo levels,
+    value bytes, offset hull)."""
+
+    arrays: List[Tuple[str, int, int, int, int, Extent]]
+
+    def smem_bytes(self, kb: int) -> int:
+        return max(16, sum(_align16(ni * nj * (kb + kh) * size)
+                           for _, ni, nj, kh, size, _ in self.arrays))
+
+    def choose_kb(self, dK: int) -> Optional[int]:
+        """The largest of (dK, 512, 256, ..., 8) whose window fits a CTA."""
+        for kb in (dK,) + tuple(k for k in KB_CANDIDATES if k < dK):
+            if self.smem_bytes(kb) <= SMEM_MAX:
+                return kb
+        return None
+
+
 @dataclass
 class KernelPlan:
-    """One ``__global__`` kernel: a row-form stage or a column-form loop."""
+    """One ``__global__`` kernel: a row-form stage, a column-form loop or a
+    plane-sweep loop."""
 
     name: str
-    form: str  # "rows" | "columns"
+    form: str  # "rows" | "columns" | "planes"
     order: ir.LoopOrder
     #: (global section index, statements) in execution order
     sections: List[Tuple[int, List[ir.Stmt]]]
     rect: Extent = field(default_factory=Extent)
     reads: List[str] = field(default_factory=list)
     writes: List[str] = field(default_factory=list)
+    planes: Optional[PlanePlan] = None
+    #: the K-window variant K4 launches per block (column form only)
+    window: Optional[WindowPlan] = None
 
 
 def _split_stages(stmts: List[ir.Stmt]) -> List[List[ir.Stmt]]:
@@ -368,32 +488,180 @@ def _split_stages(stmts: List[ir.Stmt]) -> List[List[ir.Stmt]]:
     return stages
 
 
-def plan_kernels(analysis: StencilAnalysis) -> List[KernelPlan]:
+def _plane_stages(stmts: List[ir.Stmt]) -> List[List[ir.Stmt]]:
+    """The stages of one plane: a new stage starts at a read, at a
+    horizontal offset, of a field written earlier in the stage, and at a
+    write of a field the stage read so.  K offsets start none (the plane's
+    other levels are checked by ``_plan_planes``)."""
+    stages: List[List[ir.Stmt]] = []
+    cur: List[ir.Stmt] = []
+    written: set = set()
+    offset_read: set = set()
+    for stmt in stmts:
+        writes = {w.name for w in _stmt_writes(stmt)}
+        ij = {r.name for r in _stmt_reads(stmt) if _ij(r.offset)}
+        if not isinstance(stmt, ir.Assign) and writes & ij:
+            raise _Decline(
+                "cuda backend: a compound statement reads at a horizontal offset a field "
+                f"it writes ({sorted(writes & ij)})"
+            )
+        if cur and (ij & written or writes & offset_read):
+            stages.append(cur)
+            cur, written, offset_read = [], set(), set()
+        cur.append(stmt)
+        written |= writes
+        offset_read |= ij
+    if cur:
+        stages.append(cur)
+    return stages
+
+
+def _plan_planes(analysis: StencilAnalysis, order: ir.LoopOrder,
+                 secs: List[Tuple[int, List[ir.Stmt]]], plane_temps) -> PlanePlan:
+    """The plane-sweep form of a serial loop, or ``_Decline`` naming the
+    read it cannot order.  A point is *owned* by the CTA whose tile holds
+    it (tiles at the domain's edge own the halo beyond it); a read of a
+    field the loop writes, at another level or before the plane's write,
+    must stay on owned points: another CTA may write the others at any
+    time."""
+    st = analysis.stencil
+    ext = analysis.extents
+    loop = order.name
+    stages = {sid: _plane_stages(body) for sid, body in secs}
+    written = {w.name for _, body in secs for s in body for w in _stmt_writes(s)}
+    for _, body in secs:
+        for s in body:
+            for w in _stmt_writes(s):
+                if not isinstance(w.offset, ir.CartesianOffset) or w.offset.k:
+                    raise _Decline(f"cuda backend: '{w.name}' is written at a K offset in the "
+                                   f"{loop} loop")
+    touched: Dict[str, Dict[int, set]] = {}
+    plane_ext: Dict[str, Extent] = {}
+    off_read: set = set()
+    mirror: Dict[str, int] = {}
+    snapshots: Dict[int, str] = {}
+    ring_reads: List[Tuple[str, Extent]] = []
+    behind = -1 if order == ir.LoopOrder.FORWARD else 1
+    for sid, sts in stages.items():
+        flat = [(n, s) for n, stage in enumerate(sts) for s in stage]
+        before: set = set()
+        for pos, (n, s) in enumerate(flat):
+            e = ext.stmt_extent(s)
+            e = Extent(i=e.i, j=e.j)
+            later = {w.name for _, s2 in flat[pos:] for w in _stmt_writes(s2)}
+            for w in _stmt_writes(s):
+                touched.setdefault(w.name, {}).setdefault(sid, set()).add(n)
+                plane_ext[w.name] = plane_ext.get(w.name, e) | e
+            for r in _stmt_reads(s):
+                touched.setdefault(r.name, {}).setdefault(sid, set()).add(n)
+                cart = isinstance(r.offset, ir.CartesianOffset)
+                if cart and not r.offset.k:
+                    at = e + Extent.from_offset(r.offset.i, r.offset.j)
+                    plane_ext[r.name] = plane_ext.get(r.name, at) | at
+                if _nonzero(r.offset):
+                    off_read.add(r.name)
+                if r.name not in written or r.name in plane_temps:
+                    continue
+                unowned = _ij(r.offset) or e != Extent()
+                if not unowned:
+                    continue
+                if not cart:
+                    raise _Decline(
+                        f"cuda backend: '{r.name}' is read at a variable level, at points "
+                        f"another CTA writes, in the {loop} loop that writes it")
+                if r.offset.k * behind < 0 or (not r.offset.k and r.name not in before
+                                                and r.name in later):
+                    # a value the sweep has not written yet: the one from
+                    # before the loop, in a copy taken before the kernel
+                    snapshots[id(r)] = r.name
+                elif r.offset.k:
+                    # an earlier plane: from the CTA's own ring of planes
+                    at = e + Extent.from_offset(r.offset.i, r.offset.j)
+                    plane_ext[r.name] = plane_ext.get(r.name, at) | at
+                    mirror[r.name] = max(mirror.get(r.name, 1), abs(r.offset.k) + 1)
+                    ring_reads.append((r.name, at))
+                elif r.name in before:
+                    mirror.setdefault(r.name, 1)
+            before |= {w.name for w in _stmt_writes(s)}
+    # the ring holds what the CTA computed: every writer must cover the
+    # points read from it
+    for name, at in ring_reads:
+        for _, body in secs:
+            for s in body:
+                we = ext.stmt_extent(s)
+                if name in {w.name for w in _stmt_writes(s)} and not (
+                        we.i[0] <= at.i[0] and at.i[1] <= we.i[1]
+                        and we.j[0] <= at.j[0] and at.j[1] <= we.j[1]):
+                    raise _Decline(
+                        f"cuda backend: '{name}' is read at an earlier level, at points "
+                        f"I{at.i} J{at.j} its writer in the {loop} loop does not compute "
+                        f"(I{we.i} J{we.j})")
+    local = [n for n in touched if n in plane_temps]
+    registers = [n for n in local if n not in off_read
+                 and all(len(v) == 1 for v in touched[n].values())]
+    shared = {n: plane_ext[n] for n in local if n not in registers}
+    for n in sorted(mirror) + sorted(set(snapshots.values())):
+        decl = st.decl(n)
+        if decl.data_dims or not (decl.dimensions[0] and decl.dimensions[1]):
+            raise _Decline(f"cuda backend: '{n}' (data dimensions or no I/J axis) is read at "
+                           f"a horizontal offset in the {loop} loop that writes it")
+    for n in sorted(mirror):
+        shared[n] = plane_ext[n]
+
+    def nbytes(tile):
+        return sum(_align16((tile[0] + e.i[1] - e.i[0]) * (tile[1] + e.j[1] - e.j[0])
+                            * _value_size(st.decl(n).dtype) * mirror.get(n, 1))
+                   for n, e in shared.items())
+
+    for tile in PLANE_TILES:
+        if nbytes(tile) <= SMEM_MAX:
+            break
+    else:
+        raise _Decline(f"cuda backend: the {loop} loop's shared planes need "
+                       f"{nbytes(PLANE_TILES[-1])} bytes at a {PLANE_TILES[-1]} tile")
+    return PlanePlan(tile=tile, stages=stages, shared=shared,
+                     mirrored={n: mirror[n] for n in sorted(mirror)},
+                     registers=registers, smem_bytes=max(16, nbytes(tile)),
+                     snapshots=sorted(set(snapshots.values())),
+                     snapshot_reads=frozenset(snapshots))
+
+
+def _ij_hazard(loop: ir.VerticalLoop) -> bool:
+    """The loop reads, at a horizontal offset, a field it writes."""
+    written = {w.name for s in loop.sections for st_ in s.body for w in _stmt_writes(st_)}
+    return any(r.name in written and _ij(r.offset)
+               for s in loop.sections for st_ in s.body for r in _stmt_reads(st_))
+
+
+def plan_kernels(analysis: StencilAnalysis, planes_loops=frozenset()) -> List[KernelPlan]:
+    """The kernels of a stencil in launch order: row stages for PARALLEL
+    loops, a plane-sweep kernel for the serial loops in ``planes_loops``
+    (by index) and those that read, at a horizontal offset, a field they
+    write, a column kernel for the other serial loops."""
     st = analysis.stencil
     plans: List[KernelPlan] = []
     sec_id = 0
-    for loop in st.vertical_loops:
+    plane_temps = None
+    for li, loop in enumerate(st.vertical_loops):
         if loop.loop_order == ir.LoopOrder.PARALLEL:
             for section in loop.sections:
                 for stage in _split_stages(section.body):
                     plans.append(KernelPlan(name="", form="rows", order=loop.loop_order,
                                             sections=[(sec_id, stage)]))
                 sec_id += 1
+            continue
+        secs = []
+        for s in loop.sections:
+            secs.append((sec_id, s.body))
+            sec_id += 1
+        if li in planes_loops or _ij_hazard(loop):
+            if plane_temps is None:
+                plane_temps = passes.plane_local_temps(st)
+            plans.append(KernelPlan(name="", form="planes", order=loop.loop_order,
+                                    sections=secs,
+                                    planes=_plan_planes(analysis, loop.loop_order, secs,
+                                                        plane_temps)))
         else:
-            written = {w.name for s in loop.sections for st_ in s.body for w in _stmt_writes(st_)}
-            for s in loop.sections:
-                for st_ in s.body:
-                    for r in _stmt_reads(st_):
-                        if r.name in written and isinstance(r.offset, ir.CartesianOffset) \
-                                and (r.offset.i or r.offset.j):
-                            raise NotImplementedError(
-                                f"cuda backend: field '{r.name}' is read at a horizontal "
-                                f"offset in the {loop.loop_order.name} loop that writes it"
-                            )
-            secs = []
-            for s in loop.sections:
-                secs.append((sec_id, s.body))
-                sec_id += 1
             plans.append(KernelPlan(name="", form="columns", order=loop.loop_order,
                                     sections=secs))
     for n, p in enumerate(plans):
@@ -414,6 +682,34 @@ def plan_kernels(analysis: StencilAnalysis) -> List[KernelPlan]:
                         writes.append(w.name)
         p.reads, p.writes = reads, writes
     return plans
+
+
+def plan_stencil(analysis: StencilAnalysis, serialize: Optional[bool] = None):
+    """``(analysis planned, kernels, serialized, declined)``.  A mixed
+    stencil (``serialize=None``), or any stencil with a PARALLEL loop
+    (``serialize=True``), runs serialized with its PARALLEL loops in the
+    plane-sweep form (K5); where that declines, ``serialize=None`` keeps
+    the split row-plus-column plan and records why, ``serialize=True``
+    raises.  ``serialize=False`` never serializes."""
+    st = analysis.stencil
+    orders = [loop.loop_order for loop in st.vertical_loops]
+    mixed = ir.LoopOrder.PARALLEL in orders and len(set(orders)) > 1
+    declined: Dict[str, str] = {}
+    if serialize or (serialize is None and mixed):
+        ser = passes.serialize_parallel_k(st)
+        try:
+            if ser is None:
+                raise _Decline("cuda backend: serialize_parallel_k declined (a runtime "
+                               "interval bound, or a K-offset read of a field a PARALLEL "
+                               "loop writes)")
+            san = analyze(ser)
+            loops = frozenset(n for n, o in enumerate(orders) if o == ir.LoopOrder.PARALLEL)
+            return san, plan_kernels(san, loops), True, declined
+        except _Decline as e:
+            if serialize:
+                raise
+            declined["serialize"] = str(e)
+    return analysis, plan_kernels(analysis), False, declined
 
 
 def _local_temps(analysis: StencilAnalysis, plans: List[KernelPlan]) -> List[str]:
@@ -541,6 +837,10 @@ def zero_init_temps(program: "CudaProgram", kb: Sequence[Tuple[int, int]]) -> Li
 
 
 class _Emitter:
+    """Statements and expressions of one kernel at a time: ``locals`` are
+    its register temporaries; ``plane`` (plane-sweep form) and ``window``
+    (K4) say which reads come from shared memory."""
+
     def __init__(self, analysis: StencilAnalysis, locals_: Sequence[str]):
         self.analysis = analysis
         self.stencil = analysis.stencil
@@ -548,23 +848,108 @@ class _Emitter:
         self.written = {
             n for n, info in analysis.field_info.items() if info.access.value & 2
         }
+        self.plane: Optional[PlanePlan] = None
+        #: the plane form's current top-level statement: its extent, and
+        #: whether it writes beyond its tile (device memory where owned)
+        self.stmt_ext = Extent()
+        self.own = False
+        #: the plane form's sections (order, index) before the current one,
+        #: and the current one
+        self.done_secs: List[int] = []
+        self.sid = 0
+        self.plane_order = ir.LoopOrder.FORWARD
+        self.window: Optional[WindowPlan] = None
 
     # ---------------- expressions ---------------- #
 
+    def _shared(self, acc: ir.FieldAccess) -> Optional[str]:
+        """The shared-memory element a plane-form access reads or writes:
+        a shared temporary, or a mirrored field at the plane's level or an
+        earlier one in its ring (``ti``/``tj``: the point relative to the
+        tile)."""
+        if self.plane is None or acc.name not in self.plane.shared:
+            return None
+        off = acc.offset
+        depth = self.plane.mirrored.get(acc.name, 1)
+        if not isinstance(off, ir.CartesianOffset) or (off.k and depth == 1):
+            return None
+        e = self.plane.shared[acc.name]
+        at = self.stmt_ext
+        if not (e.i[0] <= at.i[0] + off.i and at.i[1] + off.i <= e.i[1]
+                and e.j[0] <= at.j[0] + off.j and at.j[1] + off.j <= e.j[1]):
+            raise RuntimeError(
+                f"cuda backend: planning bug: '{acc.name}' accessed at I{at.i}+{off.i} "
+                f"J{at.j}+{off.j}, beyond its shared plane I{e.i} J{e.j}")
+        ni, nj = self.plane.tile[0] + e.i[1] - e.i[0], self.plane.tile[1] + e.j[1] - e.j[0]
+        ring = f"gt::slot(k + {off.k}, {depth}) * {ni * nj} + " if depth > 1 else ""
+        return (f"sh_{acc.name}[{ring}(ti + {off.i - e.i[0]}) * {nj} + "
+                f"(tj + {off.j - e.j[0]})]")
+
+    def _swept(self, level: str) -> str:
+        """C test: the plane form's sweep has computed ``level`` (it lies in
+        a section already swept, or in the current one behind ``k``)."""
+        fwd = self.plane_order == ir.LoopOrder.FORWARD
+        cur = f"({level} >= kb.lo[{self.sid}] && {level} < k)" if fwd else \
+            f"({level} > k && {level} < kb.hi[{self.sid}])"
+        return " || ".join([cur] + [f"({level} >= kb.lo[{s}] && {level} < kb.hi[{s}])"
+                                    for s in self.done_secs])
+
+    def _staged(self, acc: ir.FieldAccess) -> Optional[str]:
+        """The K window element a K4 access reads (``ti``/``tj``: the
+        column in the tile, ``kb0``: the block's first level)."""
+        if self.window is None or not isinstance(acc.offset, ir.CartesianOffset):
+            return None
+        for name, ni, nj, _, _, h in self.window.arrays:
+            if name == acc.name:
+                off = acc.offset
+                return (f"w_{name}[((k + {off.k - h.k[0]} - kb0) * {ni} + (ti + "
+                        f"{off.i - h.i[0]})) * {nj} + (tj + {off.j - h.j[0]})]")
+        return None
+
+    def _snapshot(self, acc: ir.FieldAccess) -> bool:
+        """A plane-form read of the copy taken before the kernel."""
+        return self.plane is not None and id(acc) in self.plane.snapshot_reads
+
+    def valued(self, acc: ir.FieldAccess) -> bool:
+        """The access reads a value (register or shared memory, or a ring
+        read that converts its device-memory branch), not a stored 16-bit
+        element."""
+        if self._snapshot(acc):
+            return False
+        return acc.name in self.locals or self._shared(acc) is not None \
+            or self._staged(acc) is not None
+
     def access(self, acc: ir.FieldAccess) -> str:
+        if acc.name in self.locals:
+            return f"l_{acc.name}"
+        if self._snapshot(acc):
+            return self.global_access(acc, var="o_" + acc.name)
+        sh = self._shared(acc)
+        if sh is not None and acc.offset.k:
+            # an earlier plane: the ring holds it once the sweep computed it
+            # there; before, device memory holds it and no CTA writes it
+            dt = np.dtype(self.stencil.decl(acc.name).dtype)
+            glob = self.global_access(acc)
+            if dt in _HALF:
+                glob = f"{_HALF[dt][0]}({glob})"
+            return f"(({self._swept(f'k + {acc.offset.k}')}) ? {sh} : {glob})"
+        return sh or self._staged(acc) or self.global_access(acc)
+
+    def global_access(self, acc: ir.FieldAccess, i: str = "i", j: str = "j",
+                      k: str = "k", var: Optional[str] = None) -> str:
+        """The element of the field's buffer (or of ``var``, a copy of it) at
+        the point (i, j, k) plus the access's offset."""
         name, off = acc.name, acc.offset
-        if name in self.locals:
-            return f"l_{name}"
         is_temp = name in self.stencil.temp_decls
-        var = ("t_" if is_temp else "f_") + name
+        var = var or ("t_" if is_temp else "f_") + name
         decl = self.stencil.decl(name)
         cart = off if isinstance(off, ir.CartesianOffset) else ir.CartesianOffset()
         ext = self.analysis.extents.field_extent(name)
         wrap = not is_temp and name not in self.written
         idx = []
         for ax, (v, o, dom, flag, e) in enumerate((
-            ("i", cart.i, "dI", "pI", ext.i),
-            ("j", cart.j, "dJ", "pJ", ext.j),
+            (i, cart.i, "dI", "pI", ext.i),
+            (j, cart.j, "dJ", "pJ", ext.j),
         )):
             if not decl.dimensions[ax]:
                 idx.append("0")
@@ -576,12 +961,12 @@ class _Emitter:
             idx.append("0")
         elif isinstance(off, ir.VariableKOffset):
             code, dt = self.expr(off.k)
-            idx.append(f"{var}.kclamp(k + {_cast(code, dt, _I64)})")
+            idx.append(f"{var}.kclamp({k} + {_cast(code, dt, _I64)})")
         elif isinstance(off, ir.AbsoluteKIndex):
             code, dt = self.expr(off.k)
             idx.append(f"{var}.kclamp({_cast(code, dt, _I64)})")
         else:
-            idx.append(f"k + {cart.k}")
+            idx.append(f"{k} + {cart.k}")
         if acc.data_index:
             idx.append(" + ".join(
                 f"{self.component(e, size, name)} * {var}.sd[{n}]"
@@ -614,7 +999,7 @@ class _Emitter:
             return f"s_{e.name}", np.dtype(st.scalar_decls[e.name].dtype)
         if isinstance(e, ir.FieldAccess):
             dt = np.dtype(st.decl(e.name).dtype)
-            if dt in _HALF and e.name not in self.locals:
+            if dt in _HALF and not self.valued(e):
                 return f"{_HALF[dt][0]}({self.access(e)})", dt
             return self.access(e), dt
         if isinstance(e, ir.AxisPosition):
@@ -720,6 +1105,8 @@ class _Emitter:
             code, dt = self.expr(s.value)
             tdt = np.dtype(self.stencil.decl(s.target.name).dtype)
             value = _cast(code, dt, tdt)
+            if self.plane is not None:
+                return self.plane_assign(s.target, value, tdt, ind)
             if tdt in _HALF and s.target.name not in self.locals:
                 value = f"{_HALF[tdt][1]}({value})"  # exact: value is a 16-bit float
             return [f"{ind}{self.access(s.target)} = {value};"]
@@ -747,6 +1134,38 @@ class _Emitter:
             return out + [f"{ind}}}"]
         raise NotImplementedError(f"cuda backend: no emitter for {type(s).__name__}")
 
+    def plane_assign(self, target: ir.FieldAccess, value: str, tdt, ind: str) -> List[str]:
+        """A write in the plane-sweep form: to a register or a shared plane;
+        a mirrored field to its plane and to device memory; device memory
+        only where the CTA owns the point when the statement reaches past
+        the tile."""
+        name = target.name
+        if name in self.locals:
+            return [f"{ind}l_{name} = {value};"]
+        sh = self._shared(target)
+        if sh is not None and name not in self.plane.mirrored:
+            return [f"{ind}{sh} = {value};"]
+        own = "if (own) " if self.own else ""
+        store = f"{_HALF[tdt][1]}(v_)" if tdt in _HALF else "v_"
+        if sh is not None:
+            return [f"{ind}{{ const {_ctype(tdt)} v_ = {value}; {sh} = v_; "
+                    f"{own}{self.global_access(target)} = {store}; }}"]
+        if tdt in _HALF:
+            value = f"{_HALF[tdt][1]}({value})"
+        return [f"{ind}{own}{self.global_access(target)} = {value};"]
+
+    def plane_guarded(self, s: ir.Stmt, rect: Extent, ind: str) -> List[str]:
+        """A statement of a plane-form stage over ``rect`` (the stage's
+        extent), guarded by its own extent within the tile."""
+        e = self.analysis.extents.stmt_extent(s)
+        self.stmt_ext = e
+        self.own = (e.i, e.j) != ((0, 0), (0, 0))
+        if (e.i, e.j) == (rect.i, rect.j):
+            return self.stmt(s, ind)
+        cond = (f"ti >= {e.i[0]} && i < I1 + {e.i[1]} && "
+                f"tj >= {e.j[0]} && j < J1 + {e.j[1]}")
+        return [f"{ind}if ({cond}) {{", *self.stmt(s, ind + "  "), f"{ind}}}"]
+
     def guarded(self, s: ir.Stmt, rect: Extent, ind: str) -> List[str]:
         e = self.analysis.extents.stmt_extent(s)
         if (e.i, e.j) == (rect.i, rect.j):
@@ -754,6 +1173,20 @@ class _Emitter:
         cond = (f"i >= {e.i[0]} && i < dI + {e.i[1]} && "
                 f"j >= {e.j[0]} && j < dJ + {e.j[1]}")
         return [f"{ind}if ({cond}) {{", *self.stmt(s, ind + "  "), f"{ind}}}"]
+
+    def registers(self, stmts: Sequence[ir.Stmt], ind: str) -> List[str]:
+        """Declarations, zeroed, of the register temporaries ``stmts`` use."""
+        used: List[str] = []
+        for s in stmts:
+            for node in ir.walk_values(s):
+                if isinstance(node, ir.FieldAccess) and node.name in self.locals \
+                        and node.name not in used:
+                    used.append(node.name)
+        out = []
+        for n in used:
+            ct = _ctype(self.stencil.temp_decls[n].dtype)
+            out.append(f"{ind}{ct} l_{n} = ({ct})0;")
+        return out
 
 
 def _bytes_per_point(analysis: StencilAnalysis, plan: KernelPlan, locals_) -> int:
@@ -767,6 +1200,60 @@ def _bytes_per_point(analysis: StencilAnalysis, plan: KernelPlan, locals_) -> in
     return n
 
 
+def _in_device_memory(p: KernelPlan, name: str, locals_) -> bool:
+    """A kernel reaches ``name`` in device memory (not a register or, in
+    the plane-sweep form, only a shared plane)."""
+    if p.planes is None:
+        return name not in locals_
+    pp = p.planes
+    return name not in pp.registers and (name not in pp.shared or name in pp.mirrored)
+
+
+def _kblock_eligibility(analysis: StencilAnalysis, plans: List[KernelPlan]):
+    """``(reason, passes, promoted)``: why K4 cannot run the stencil (None
+    when it can), and ``passes.split_serial_passes``'s passes and promoted
+    temporaries.  The reasons are the JAX package's (``_trace_kblocked``)."""
+    st = analysis.stencil
+    if not any(p.form == "columns" for p in plans):
+        return "no loop in the column form", 0, []
+    for node in ir.walk_values(st.vertical_loops):
+        if isinstance(node, ir.FieldAccess) and \
+                isinstance(node.offset, (ir.VariableKOffset, ir.AbsoluteKIndex)):
+            return "a variable or absolute K access", 0, []
+    if any(sec.interval.is_runtime for loop in st.vertical_loops for sec in loop.sections):
+        return "a runtime interval bound", 0, []
+    pass_stencils, promoted = passes.split_serial_passes(st)
+    for n in sorted(promoted):
+        e = analysis.extents.alloc_extent(n)
+        if e.i != (0, 0) or e.j != (0, 0):
+            return f"the promoted temporary '{n}' has I/J halos", 0, []
+    return None, len(pass_stencils), sorted(promoted)
+
+
+def _plan_window(analysis: StencilAnalysis, p: KernelPlan, locals_) -> WindowPlan:
+    """K4's window of a column kernel: every 3-D field without data
+    dimensions it reads and does not write, at Cartesian offsets only."""
+    st = analysis.stencil
+    hull: Dict[str, Extent] = {}
+    skip = set(p.writes) | set(locals_)
+    for _, stmts in p.sections:
+        for s in stmts:
+            for r in _stmt_reads(s):
+                decl = st.decl(r.name)
+                if not isinstance(r.offset, ir.CartesianOffset) or decl.data_dims \
+                        or not all(decl.dimensions):
+                    skip.add(r.name)
+                    continue
+                o = Extent.from_offset(r.offset.i, r.offset.j, r.offset.k)
+                hull[r.name] = hull.get(r.name, o) | o
+    arrays = []
+    for n, h in hull.items():
+        if n not in skip:
+            arrays.append((n, KB_TILE_I + h.i[1] - h.i[0], KB_TILE_J + h.j[1] - h.j[0],
+                           h.k[1] - h.k[0], _value_size(st.decl(n).dtype), h))
+    return WindowPlan(arrays=arrays)
+
+
 @dataclass
 class CudaProgram:
     """The generated source and what the wrapper needs to call it."""
@@ -776,6 +1263,8 @@ class CudaProgram:
     fields: List[str]
     scratch: List[str]
     locals: List[str]
+    #: fields copied before a plane-sweep kernel that reads them ahead
+    snapshots: List[str]
     float_scalars: List[str]
     int_scalars: List[str]
     intervals: List[ir.Interval]
@@ -785,91 +1274,398 @@ class CudaProgram:
     temp_events: Dict[int, List[Tuple[str, str, int]]]
     irregular_writes: set
     section_order: Dict[int, ir.LoopOrder]
+    #: the analysis the kernels were planned on (the serialized stencil's
+    #: when ``serialized``)
+    analysis: Optional[StencilAnalysis] = None
+    serialized: bool = False
+    #: form -> why it declined
+    declined: Dict[str, str] = field(default_factory=dict)
+    #: K4: ``split_serial_passes``'s passes and promoted temporaries
+    kb_passes: int = 0
+    kb_promoted: List[str] = field(default_factory=list)
+
+    def plan_record(self) -> dict:
+        """The stencil's ``LAST_PLAN`` entry before a launch."""
+        planes = [k.planes for k in self.kernels if k.planes]
+        return {
+            "forms": [k.form for k in self.kernels],
+            "serialized": self.serialized,
+            "kblocked": False,
+            "tile": list(planes[0].tile) if planes else None,
+            "shared": sorted({n for pp in planes for n in pp.shared}),
+            "registers": sorted(set(self.locals) | {n for pp in planes for n in pp.registers}),
+            "scratch": list(self.scratch),
+            "snapshots": list(self.snapshots),
+            "smem_bytes": [pp.smem_bytes for pp in planes],
+            "declined": dict(self.declined),
+        }
+
+    def kblock_plan(self, dK: int):
+        """``(KB per window kernel, None)`` when K4 runs at depth ``dK``,
+        else ``(None, reason)``."""
+        windows = [k.window for k in self.kernels if k.window is not None]
+        if not windows:
+            return None, self.declined["kblocked"]
+        if dK < 2:
+            return None, "a depth below 2"
+        kbs = [w.choose_kb(dK) for w in windows]
+        if None in kbs:
+            return None, "no K window of 8 levels fits one CTA's shared memory"
+        return kbs, None
 
 
-def generate(analysis: StencilAnalysis) -> CudaProgram:
-    """Emit the CUDA C++ source of one stencil (deterministic)."""
-    _check_supported(analysis)
-    st = analysis.stencil
-    plans = plan_kernels(analysis)
-    locals_ = _local_temps(analysis, plans)
-    scratch = [n for n in st.temp_decls if n not in locals_]
-    fields = list(st.field_decls)
-    scalars = [n for n, p in analysis.parameter_info.items() if p.access.value & 1]
-    float_scalars = [n for n in scalars if is_float_dtype(st.scalar_decls[n].dtype)]
-    int_scalars = [n for n in scalars if n not in float_scalars]
-    intervals = [s.interval for loop in st.vertical_loops for s in loop.sections]
-    nsec = len(intervals)
-    em = _Emitter(analysis, locals_)
-
-    params = (
-        [f"gt::Field<{_stype(st.field_decls[n].dtype)}> f_{n}" for n in fields]
-        + [f"gt::Field<{_stype(st.temp_decls[n].dtype)}> t_{n}" for n in scratch]
-        + ["int dI", "int dJ", "int dK", "int pI", "int pJ", f"gt::KBounds<{nsec}> kb"]
-        + [f"{_ctype(st.scalar_decls[n].dtype)} s_{n}" for n in scalars]
-    )
-    args = [f"f_{n}" for n in fields] + [f"t_{n}" for n in scratch] + [
-        "dI", "dJ", "dK", "pI", "pJ", "kb"] + [f"s_{n}" for n in scalars]
-
-    bpp = {p.name: _bytes_per_point(analysis, p, locals_) for p in plans}
-    out = [
-        f"// Stencil '{st.name}': generated by gt4py_tpu_torch.cartesian.backend."
-        "cuda_backend.",
-        "// Replaces the TPU kernels of the JAX package:",
-        f"//   {REPLACES['rows']}",
-        f"//   {REPLACES['columns']}",
-        f"//   {REPLACES['wrap']}",
-        "// Bound on the H100: device-memory bandwidth (3.35 TB/s).  Each kernel",
-        "// does a few flops per byte it moves; its bytes per grid point are noted",
-        "// at the kernel.  Design: one thread per (i, j) point or column, J along",
-        "// threadIdx.x for coalesced loads, K looped inside the thread, periodic",
-        "// reads wrapped in the load address.",
-        '#include "stencil_runtime.cuh"',
-        "",
-        "namespace {",
-    ]
-    for p in plans:
-        ind = "    "
-        out += [
+def _emit_plain_kernel(em: _Emitter, p: KernelPlan, params: List[str], bpp: int,
+                       window: bool = False) -> List[str]:
+    """A row-form stage or a column-form loop; with ``window``, K4's
+    variant of a column loop (one K block per launch, its read-only inputs
+    staged in shared memory)."""
+    ind = "    "
+    if window:
+        wp = p.window
+        nthreads = KB_TILE_I * KB_TILE_J
+        out = [
+            "",
+            f"// {p.name}_kb: K-blocked column form ({p.order.name}), one K block per launch, "
+            f"rect I{p.rect.i} J{p.rect.j}; staged: {', '.join(a[0] for a in wp.arrays) or '-'}",
+            f"__global__ void __launch_bounds__({nthreads}) {p.name}_kb(",
+            "    " + ",\n    ".join(params + ["int kb0", "int kb1", "int KB"]) + ") {",
+            "  GT_DYNAMIC_SMEM(gt_smem);",
+            "  const int tj = (int)threadIdx.x, ti = (int)threadIdx.y;",
+            f"  const int bj = {p.rect.j[0]} + (int)blockIdx.x * {KB_TILE_J}, "
+            f"bi = {p.rect.i[0]} + (int)blockIdx.y * {KB_TILE_I};",
+            "  const int j = bj + tj, i = bi + ti;",
+            "  size_t o_ = 0;",
+        ]
+        for name, ni, nj, kh, size, h in wp.arrays:
+            dt = em.stencil.decl(name).dtype
+            ct = _ctype(dt)
+            var = ("t_" if name in em.stencil.temp_decls else "f_") + name
+            load = em.global_access(ir.FieldAccess(name), i="gi", j="gj", k="gk")
+            if np.dtype(dt) in _HALF:
+                load = f"{_HALF[np.dtype(dt)][0]}({load})"
+            out += [
+                f"  {ct}* const w_{name} = ({ct}*)(gt_smem + o_);",
+                f"  o_ += ((size_t){ni * nj * size} * (size_t)(KB + {kh}) + 15) / 16 * 16;",
+                f"  for (int p_ = ti * {KB_TILE_J} + tj; p_ < {ni * nj} * (kb1 - kb0 + {kh}); "
+                f"p_ += {nthreads}) {{",
+                f"    const int kk = p_ / {ni * nj}, r_ = p_ % {ni * nj};",
+                f"    const int gi = bi + {h.i[0]} + r_ / {nj}, gj = bj + {h.j[0]} + r_ % {nj}, "
+                f"gk = kb0 + {h.k[0]} + kk;",
+                f"    if (gi < dI + {p.rect.i[1] + h.i[1]} && gj < dJ + {p.rect.j[1] + h.j[1]} "
+                f"&& gk >= {var}.klo && gk <= {var}.khi) w_{name}[p_] = {load};",
+                "  }",
+            ]
+        out += ["  __syncthreads();",
+                f"  if (i >= dI + {p.rect.i[1]} || j >= dJ + {p.rect.j[1]}) return;"]
+        em.window = wp
+    else:
+        out = [
             "",
             f"// {p.name}: {p.form} form ({p.order.name}), rect I{p.rect.i} J{p.rect.j}; "
-            f"~{bpp[p.name]} bytes per grid point",
+            f"~{bpp} bytes per grid point",
             f"__global__ void __launch_bounds__({BLOCK_J * BLOCK_I}) {p.name}(",
             "    " + ",\n    ".join(params) + ") {",
             f"  const int j = {p.rect.j[0]} + (int)(blockIdx.x * blockDim.x + threadIdx.x);",
             f"  const int i = {p.rect.i[0]} + (int)(blockIdx.y * blockDim.y + threadIdx.y);",
             f"  if (i >= dI + {p.rect.i[1]} || j >= dJ + {p.rect.j[1]}) return;",
         ]
-        for sid, stmts in p.sections:
-            if p.order == ir.LoopOrder.BACKWARD:
-                out.append(f"  for (int k = kb.hi[{sid}] - 1; k >= kb.lo[{sid}]; --k) {{")
-            else:
-                out.append(f"  for (int k = kb.lo[{sid}]; k < kb.hi[{sid}]; ++k) {{")
-            used = []
-            for s in stmts:
-                for node in ir.walk_values(s):
-                    if isinstance(node, ir.FieldAccess) and node.name in em.locals \
-                            and node.name not in used:
-                        used.append(node.name)
-            for n in used:
-                ct = _ctype(st.temp_decls[n].dtype)
-                out.append(f"{ind}{ct} l_{n} = ({ct})0;")
-            for s in stmts:
-                out += em.guarded(s, p.rect, ind)
-            out.append("  }")
-        out.append("}")
+    for sid, stmts in p.sections:
+        out.append(_k_loop(p.order, sid, "  "))
+        out += em.registers(stmts, ind)
+        for s in stmts:
+            out += em.guarded(s, p.rect, ind)
+        out.append("  }")
+    em.window = None
+    return out + ["}"]
+
+
+def _k_loop(order: ir.LoopOrder, sid: int, ind: str) -> str:
+    if order == ir.LoopOrder.BACKWARD:
+        return f"{ind}for (int k = kb.hi[{sid}] - 1; k >= kb.lo[{sid}]; --k) {{"
+    return f"{ind}for (int k = kb.lo[{sid}]; k < kb.hi[{sid}]; ++k) {{"
+
+
+def _emit_planes(em: _Emitter, p: KernelPlan, params: List[str], bpp: int) -> List[str]:
+    """The plane-sweep kernel of one serial loop (see the module
+    docstring): ``(ti, tj)`` is a point relative to the tile's origin
+    ``(I0, J0)``; the tile's interior ends at ``(I1, J1)``."""
+    pp = p.planes
+    TI, TJ = pp.tile
+    st = em.stencil
+    em.plane = pp
+    em.locals = set(pp.registers)
+    out = [
+        "",
+        f"// {p.name}: planes form ({p.order.name}), tile {TI}x{TJ}, {PLANE_THREADS} threads; "
+        f"shared {sorted(pp.shared)}, mirrored (planes kept) {pp.mirrored}, "
+        f"registers {pp.registers}; "
+        f"~{bpp} bytes per grid point",
+        f"__global__ void __launch_bounds__({PLANE_THREADS}) {p.name}(",
+        "    " + ",\n    ".join(params) + ") {",
+        "  GT_DYNAMIC_SMEM(gt_smem);",
+    ]
+    off = 0
+    for name, e in pp.shared.items():
+        ct = _ctype(st.decl(name).dtype)
+        out.append(f"  {ct}* const sh_{name} = ({ct}*)(gt_smem + {off});")
+        off += _align16((TI + e.i[1] - e.i[0]) * (TJ + e.j[1] - e.j[0])
+                        * _value_size(st.decl(name).dtype) * pp.mirrored.get(name, 1))
+    out += [
+        f"  const int I0 = (int)blockIdx.y * {TI}, J0 = (int)blockIdx.x * {TJ};",
+        f"  const int I1 = I0 + {TI} < dI ? I0 + {TI} : dI, J1 = J0 + {TJ} < dJ ? J0 + {TJ} : dJ;",
+    ]
+
+    def points(e: Extent, ind: str) -> List[str]:
+        ni, nj = TI + e.i[1] - e.i[0], TJ + e.j[1] - e.j[0]
+        return [
+            f"{ind}for (int p_ = (int)threadIdx.x; p_ < {ni * nj}; p_ += {PLANE_THREADS}) {{",
+            f"{ind}  const int ti = {e.i[0]} + p_ / {nj}, tj = {e.j[0]} + p_ % {nj};",
+            f"{ind}  const int i = I0 + ti, j = J0 + tj;",
+            f"{ind}  if (i >= I1 + {e.i[1]} || j >= J1 + {e.j[1]}) continue;",
+        ]
+
+    em.plane_order = p.order
+    em.done_secs = []
+    for sid, _ in p.sections:
+        em.sid = sid
+        out.append(_k_loop(p.order, sid, "  "))
+        if pp.mirrored:
+            for name, depth in pp.mirrored.items():
+                dt = np.dtype(st.decl(name).dtype)
+                e = pp.shared[name]
+                plane = (TI + e.i[1] - e.i[0]) * (TJ + e.j[1] - e.j[0])
+                load = em.global_access(ir.FieldAccess(name))
+                if dt in _HALF:
+                    load = f"{_HALF[dt][0]}({load})"
+                ring = f"gt::slot(k, {depth}) * {plane} + " if depth > 1 else ""
+                out += points(e, "    ")
+                out += [f"      sh_{name}[{ring}p_] = {load};", "    }"]
+            out.append("    __syncthreads();")
+        for stage in pp.stages[sid]:
+            rect = Extent.zeros()
+            for s in stage:
+                rect = rect | em.analysis.extents.stmt_extent(s)
+            rect = Extent(i=rect.i, j=rect.j)
+            out += points(rect, "    ")
+            if any(em.analysis.extents.stmt_extent(s) != Extent() and any(
+                    _in_device_memory(p, w.name, ()) for w in _stmt_writes(s)) for s in stage):
+                out.append("      const bool own = (I0 == 0 || ti >= 0) && (I1 == dI || i < I1)"
+                           " && (J0 == 0 || tj >= 0) && (J1 == dJ || j < J1);")
+            out += em.registers(stage, "      ")
+            for s in stage:
+                out += em.plane_guarded(s, rect, "      ")
+            out += ["    }", "    __syncthreads();"]
+        out.append("  }")
+        em.done_secs.append(sid)
+    em.plane = None
+    return out + ["}"]
+
+
+def _emit_snapshot(name: str, kernel: str, ctype: str) -> List[str]:
+    """The copy of a field's accessed box into its snapshot."""
+    return [
+        "",
+        f"// {kernel}: the copy of '{name}' a plane-sweep kernel reads ahead",
+        f"__global__ void __launch_bounds__({BLOCK_J * BLOCK_I}) {kernel}(",
+        f"    gt::Field<{ctype}> dst, gt::Field<{ctype}> src, int i0, int i1, int j0, int j1) {{",
+        "  const int j = j0 + (int)(blockIdx.x * blockDim.x + threadIdx.x);",
+        "  const int i = i0 + (int)(blockIdx.y * blockDim.y + threadIdx.y);",
+        "  if (i >= i1 || j >= j1) return;",
+        "  for (int k = src.klo; k <= src.khi; ++k) dst.at(i, j, k) = src.at(i, j, k);",
+        "}",
+    ]
+
+
+def _launch_lines(p: KernelPlan, index: int, args: List[str], nsec: int,
+                  snapshots: Dict[str, Tuple[str, str, Extent]] = None) -> List[str]:
+    """gt_run's launch of one kernel (with K4's block loop when the kernel
+    has a window; a plane-sweep kernel's snapshots are copied first).
+    ``snapshots``: name -> (copy kernel, source variable, box extent)."""
+    call = ", ".join(args)
+    check = ["      const cudaError_t e = cudaGetLastError();",
+             "      if (e != cudaSuccess) return (int)e;"]
+
+    def attr(kernel: str, ind: str) -> List[str]:
+        return [f"{ind}if (smem > {SMEM_DEFAULT}) {{",
+                f"{ind}  const cudaError_t a = cudaFuncSetAttribute({kernel}, "
+                "cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);",
+                f"{ind}  if (a != cudaSuccess) return (int)a;",
+                f"{ind}}}"]
+
+    if p.planes is not None:
+        TI, TJ = p.planes.tile
+        copies = []
+        for n in p.planes.snapshots:
+            kernel, src, e = snapshots[n]
+            copies += [
+                "  {",
+                f"    const int ni = dI + {e.i[1] - e.i[0]}, nj = dJ + {e.j[1] - e.j[0]};",
+                "    if (ni > 0 && nj > 0) {",
+                f"      const dim3 grid((nj + {BLOCK_J - 1}) / {BLOCK_J}, "
+                f"(ni + {BLOCK_I - 1}) / {BLOCK_I}), block({BLOCK_J}, {BLOCK_I});",
+                f"      {kernel}<<<grid, block, 0, st>>>(o_{n}, {src}, {e.i[0]}, dI + {e.i[1]}, "
+                f"{e.j[0]}, dJ + {e.j[1]});",
+                *check,
+                "    }",
+                "  }",
+            ]
+        return copies + [
+            "  {",
+            f"    const dim3 grid((dJ + {TJ - 1}) / {TJ}, (dI + {TI - 1}) / {TI}), "
+            f"block({PLANE_THREADS});",
+            f"    const size_t smem = {p.planes.smem_bytes};",
+            "    if (dI > 0 && dJ > 0) {",
+            *attr(p.name, "      "),
+            f"      {p.name}<<<grid, block, smem, st>>>({call});",
+            *check,
+            "    }",
+            "  }",
+        ]
+    ni = f"dI + {p.rect.i[1] - p.rect.i[0]}"
+    nj = f"dJ + {p.rect.j[1] - p.rect.j[0]}"
+    plain = [
+        "    if (ni > 0 && nj > 0) {",
+        f"      const dim3 grid((nj + {BLOCK_J - 1}) / {BLOCK_J}, "
+        f"(ni + {BLOCK_I - 1}) / {BLOCK_I}), block({BLOCK_J}, {BLOCK_I});",
+        f"      {p.name}<<<grid, block, 0, st>>>({call});",
+        *check,
+        "    }",
+    ]
+    out = ["  {", f"    const int ni = {ni}, nj = {nj};"]
+    if p.window is None:
+        return out + plain + ["  }"]
+    w = p.window
+    smem = " + ".join(f"((size_t){ni_ * nj_ * size} * (size_t)(KB + {kh}) + 15) / 16 * 16"
+                      for _, ni_, nj_, kh, size, _ in w.arrays) or "0"
+    first = "b_" if p.order == ir.LoopOrder.FORWARD else "nb - 1 - b_"
+    kcall = ", ".join("kbb" if a == "kb" else a for a in args) + ", kb0, kb1, KB"
+    out += [
+        f"    const int KB = kmode ? kbsz[{index}] : 0;",
+        "    if (KB > 0 && ni > 0 && nj > 0) {",
+        f"      const dim3 grid((nj + {KB_TILE_J - 1}) / {KB_TILE_J}, "
+        f"(ni + {KB_TILE_I - 1}) / {KB_TILE_I}), block({KB_TILE_J}, {KB_TILE_I});",
+        f"      size_t smem = {smem};",
+        "      if (smem < 16) smem = 16;",
+        *attr(f"{p.name}_kb", "      "),
+        "      const int nb = (dK + KB - 1) / KB;",
+        "      for (int b_ = 0; b_ < nb; ++b_) {",
+        f"        const int kb0 = ({first}) * KB, kb1 = kb0 + KB < dK ? kb0 + KB : dK;",
+        f"        gt::KBounds<{nsec}> kbb = kb;",
+        "        bool any_ = false;",
+    ]
+    for sid, _ in p.sections:
+        out += [
+            f"        kbb.lo[{sid}] = kb.lo[{sid}] > kb0 ? kb.lo[{sid}] : kb0;",
+            f"        kbb.hi[{sid}] = kb.hi[{sid}] < kb1 ? kb.hi[{sid}] : kb1;",
+            f"        any_ = any_ || kbb.lo[{sid}] < kbb.hi[{sid}];",
+        ]
+    out += [
+        "        if (!any_) continue;",
+        f"        {p.name}_kb<<<grid, block, smem, st>>>({kcall});",
+        "        const cudaError_t e = cudaGetLastError();",
+        "        if (e != cudaSuccess) return (int)e;",
+        "      }",
+        "    } else {",
+        *["  " + ln for ln in plain],
+        "    }",
+        "  }",
+    ]
+    return out
+
+
+def generate(analysis: StencilAnalysis, serialize: Optional[bool] = None,
+             k_blocked: Optional[bool] = None) -> CudaProgram:
+    """Emit the CUDA C++ source of one stencil (deterministic).
+    ``serialize`` and ``k_blocked``: the build options (see
+    ``plan_stencil`` and ``CudaProgram.kblock_plan``)."""
+    _check_supported(analysis)
+    planned, plans, serialized, declined = plan_stencil(analysis, serialize)
+    st = planned.stencil
+    touching = {n: [p for p in plans if n in p.reads or n in p.writes] for n in st.temp_decls}
+    planes_global = {n for n, ps in touching.items()
+                     for p in ps if p.planes is not None and _in_device_memory(p, n, ())}
+    locals_ = [n for n in _local_temps(planned, [p for p in plans if p.planes is None])
+               if n not in planes_global]
+    scratch = [n for n, ps in touching.items()
+               if not ps or any(_in_device_memory(p, n, locals_) for p in ps)]
+    fields = list(st.field_decls)
+    snapshots = sorted({n for p in plans if p.planes for n in p.planes.snapshots})
+    scalars = [n for n, p in analysis.parameter_info.items() if p.access.value & 1]
+    float_scalars = [n for n in scalars if is_float_dtype(st.scalar_decls[n].dtype)]
+    int_scalars = [n for n in scalars if n not in float_scalars]
+    intervals = [s.interval for loop in st.vertical_loops for s in loop.sections]
+    nsec = len(intervals)
+    em = _Emitter(planned, locals_)
+    kb_reason, kb_passes, kb_promoted = (
+        _kblock_eligibility(planned, plans) if k_blocked else
+        ("one pass, the default (k_blocked=True blocks)" if k_blocked is None
+         else "k_blocked=False", 0, []))
+    if kb_reason is None:
+        for p in plans:
+            if p.form == "columns":
+                p.window = _plan_window(planned, p, locals_)
+    else:
+        declined["kblocked"] = kb_reason
+
+    params = (
+        [f"gt::Field<{_stype(st.field_decls[n].dtype)}> f_{n}" for n in fields]
+        + [f"gt::Field<{_stype(st.temp_decls[n].dtype)}> t_{n}" for n in scratch]
+        + [f"gt::Field<{_stype(st.decl(n).dtype)}> o_{n}" for n in snapshots]
+        + ["int dI", "int dJ", "int dK", "int pI", "int pJ", f"gt::KBounds<{nsec}> kb"]
+        + [f"{_ctype(st.scalar_decls[n].dtype)} s_{n}" for n in scalars]
+    )
+    args = [f"f_{n}" for n in fields] + [f"t_{n}" for n in scratch] + [
+        f"o_{n}" for n in snapshots] + ["dI", "dJ", "dK", "pI", "pJ", "kb"] + [
+        f"s_{n}" for n in scalars]
+    snap = {n: (f"{st.name}_snap_{n}", ("f_" if n in st.field_decls else "t_") + n,
+                planned.extents.alloc_extent(n)) for n in snapshots}
+
+    bpp = {p.name: _bytes_per_point(planned, p, [n for n in p.reads + p.writes
+                                                  if not _in_device_memory(p, n, locals_)])
+           for p in plans}
+    notes = [REPLACES["rows"], REPLACES["columns"], REPLACES["wrap"]]
+    if any(p.planes for p in plans):
+        notes.append(REPLACES["planes"])
+    if any(p.window for p in plans):
+        notes.append(REPLACES["kblocked"])
+    out = [
+        f"// Stencil '{st.name}': generated by gt4py_tpu_torch.cartesian.backend."
+        "cuda_backend.",
+        "// Replaces the TPU kernels of the JAX package:",
+        *[f"//   {n}" for n in notes],
+        "// Bound on the H100: device-memory bandwidth (3.35 TB/s).  Each kernel",
+        "// does a few flops per byte it moves; its bytes per grid point are noted",
+        "// at the kernel.  Design: one thread per (i, j) point or column, J along",
+        "// threadIdx.x for coalesced loads, K looped inside the thread, periodic",
+        "// reads wrapped in the load address; a plane-sweep kernel is one CTA per",
+        "// (I, J) tile sweeping K with its planes in shared memory.",
+        '#include "stencil_runtime.cuh"',
+        "",
+        "namespace {",
+    ]
+    for n in snapshots:
+        out += _emit_snapshot(n, snap[n][0], _stype(st.decl(n).dtype))
+    for p in plans:
+        if p.planes is not None:
+            out += _emit_planes(em, p, params, bpp[p.name])
+            em.locals = set(locals_)
+            continue
+        out += _emit_plain_kernel(em, p, params, bpp[p.name])
+        if p.window is not None:
+            out += _emit_plain_kernel(em, p, params, bpp[p.name], window=True)
     out += ["", "}  // namespace", ""]
 
-    # the launcher: one plain C entry point for ctypes
+    # the launcher: one plain C entry point for ctypes; kmode 1 runs K4's
+    # block loops with kbsz[kernel index] levels per block
     out += [
         'extern "C" int gt_run(void* const* ptrs, const long long* strides, '
         "const int* dom, const int* kbv,",
         "                      const double* fsc, const long long* isc, int pI, int pJ, "
-        "void* stream) {",
+        "void* stream, int kmode, const int* kbsz) {",
     ]
-    for b, n in enumerate(fields + scratch):
+    for b, (n, var) in enumerate([(n, "f_" + n) for n in fields] + [
+            (n, "t_" + n) for n in scratch] + [(n, "o_" + n) for n in snapshots]):
         ct = _stype(st.decl(n).dtype)
-        var = ("f_" if n in st.field_decls else "t_") + n
         s = [f"strides[{_REC * b + x}]" for x in range(_REC)]
         sd = ", ".join(s[3:3 + MAX_DATA_DIMS])
         out.append(f"  const gt::Field<{ct}> {var}{{({ct}*)ptrs[{b}], {s[0]}, {s[1]}, {s[2]}, "
@@ -884,35 +1680,21 @@ def generate(analysis: StencilAnalysis) -> CudaProgram:
         src = f"fsc[{float_scalars.index(n)}]" if n in float_scalars else \
             f"isc[{int_scalars.index(n)}]"
         out.append(f"  const {ct} s_{n} = ({ct}){src};")
-    out += [
-        "  cudaStream_t st = (cudaStream_t)stream;",
-        f"  const dim3 block({BLOCK_J}, {BLOCK_I});",
-    ]
-    for p in plans:
-        ni = f"dI + {p.rect.i[1] - p.rect.i[0]}"
-        nj = f"dJ + {p.rect.j[1] - p.rect.j[0]}"
-        out += [
-            "  {",
-            f"    const int ni = {ni}, nj = {nj};",
-            "    if (ni > 0 && nj > 0) {",
-            f"      const dim3 grid((nj + {BLOCK_J - 1}) / {BLOCK_J}, "
-            f"(ni + {BLOCK_I - 1}) / {BLOCK_I});",
-            f"      {p.name}<<<grid, block, 0, st>>>({', '.join(args)});",
-            "      const cudaError_t e = cudaGetLastError();",
-            "      if (e != cudaSuccess) return (int)e;",
-            "    }",
-            "  }",
-        ]
+    out += ["  cudaStream_t st = (cudaStream_t)stream;",
+            "  (void)kmode; (void)kbsz;"]
+    for n, p in enumerate(plans):
+        out += _launch_lines(p, n, args, nsec, snap)
     out += ["  return 0;", "}", "",
             'extern "C" const char* gt_error_string(int e) '
             "{ return cudaGetErrorString((cudaError_t)e); }", ""]
-    temp_events, irregular = _temp_events(analysis, plans, set(scratch))
+    temp_events, irregular = _temp_events(planned, plans, set(scratch))
     return CudaProgram(
         source="\n".join(out),
         kernels=plans,
         fields=fields,
         scratch=scratch,
         locals=list(locals_),
+        snapshots=snapshots,
         float_scalars=float_scalars,
         int_scalars=int_scalars,
         intervals=intervals,
@@ -920,6 +1702,11 @@ def generate(analysis: StencilAnalysis) -> CudaProgram:
         temp_events=temp_events,
         irregular_writes=irregular,
         section_order={sid: p.order for p in plans for sid, _ in p.sections},
+        analysis=planned,
+        serialized=serialized,
+        declined=declined,
+        kb_passes=kb_passes,
+        kb_promoted=kb_promoted,
     )
 
 
@@ -962,14 +1749,21 @@ class CudaBackend:
     ``derivative_calls`` those of them that ran under K8 (``autodiff``)."""
 
     def __init__(self, analysis: StencilAnalysis, options: Optional[dict] = None):
+        options = options or {}
         self.analysis = analysis
-        self.program = generate(analysis)
+        #: build options: ``serialize`` (K5, see ``plan_stencil``; None
+        #: serializes mixed stencils, True any with a PARALLEL loop, False
+        #: none) and ``k_blocked`` (K4: True blocks the column loops)
+        self.program = generate(analysis, serialize=options.get("serialize"),
+                                k_blocked=options.get("k_blocked"))
+        LAST_PLAN[analysis.stencil.name] = self.program.plan_record()
         self.plain = TorchExecutor(analysis)
         self.launches = 0
         self.derivative_calls = 0
         self.build_seconds: Optional[float] = None
         self.build_dir: Optional[str] = None
         self._lib = None
+        self._depth_plans: Dict[int, tuple] = {}
         self._written = [
             n for n, info in analysis.field_info.items() if info.access.value & 2
         ]
@@ -984,6 +1778,7 @@ class CudaBackend:
             t0 = time.perf_counter()
             lib, self.build_dir = _build.build(self.program.source, self.analysis.stencil.name)
             lib.gt_run.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int, ctypes.c_int,
+                                                           ctypes.c_void_p, ctypes.c_int,
                                                            ctypes.c_void_p]
             lib.gt_run.restype = ctypes.c_int
             lib.gt_error_string.argtypes = [ctypes.c_int]
@@ -1033,6 +1828,25 @@ class CudaBackend:
                 raise ValueError(f"field '{name}' is a view whose elements overlap")
         return devices.pop()
 
+    def _depth_plan(self, dK: int):
+        """K4's block sizes at depth ``dK`` (None: one pass), the plan
+        record and gt_run's ``kbsz`` argument."""
+        hit = self._depth_plans.get(dK)
+        if hit is None:
+            prog = self.program
+            kbs, declined = prog.kblock_plan(dK)
+            plan = prog.plan_record()
+            if kbs is None:
+                plan["declined"]["kblocked"] = declined
+            else:
+                plan["kblocked"] = {"passes": prog.kb_passes, "KB": kbs,
+                                    "promoted": list(prog.kb_promoted)}
+            kbsz = [0] * len(prog.kernels)
+            for n, kbn in zip([n for n, k in enumerate(prog.kernels) if k.window], kbs or []):
+                kbsz[n] = kbn
+            hit = self._depth_plans[dK] = (kbs, plan, (ctypes.c_int * len(kbsz))(*kbsz))
+        return hit
+
     def _launch(self, env, scalars, domain, origins, periodic) -> None:
         prog = self.program
         st = self.analysis.stencil
@@ -1061,16 +1875,28 @@ class CudaBackend:
         kb = [(max(k0, 0), min(k1, dK))
               for k0, k1 in (itv.resolve(dK, scalars) for itv in prog.intervals)]
         zeroed = zero_init_temps(prog, kb)
+        kbs, plan, kbsz = self._depth_plan(dK)
+        LAST_PLAN[st.name] = plan
+        views = {}
         for name in prog.scratch:
-            ext = self.analysis.extents.alloc_extent(name)
-            decl = st.temp_decls[name]
+            ext = prog.analysis.extents.alloc_extent(name)
+            decl = prog.analysis.stencil.temp_decls[name]
             shape = (dK - ext.k[0] + ext.k[1], dI - ext.i[0] + ext.i[1],
                      dJ - ext.j[0] + ext.j[1]) + tuple(decl.data_dims)
             alloc = torch.zeros if name in zeroed else torch.empty
             t = alloc(shape, dtype=dtypes.to_torch(decl.dtype), device=device)
             keep.append(t)
-            p, s = _field_arg(t.permute(1, 2, 0, *range(3, t.ndim)),
-                              (-ext.i[0], -ext.j[0], -ext.k[0]))
+            views[name] = (t.permute(1, 2, 0, *range(3, t.ndim)),
+                           (-ext.i[0], -ext.j[0], -ext.k[0]))
+            p, s = _field_arg(*views[name])
+            ptrs.append(p)
+            strides += s
+        # a snapshot has its field's layout and origin; the kernels fill it
+        for name in prog.snapshots:
+            view, origin = views[name] if name in views else (env[name], origins[name])
+            t = torch.empty_like(view)
+            keep.append(t)
+            p, s = _field_arg(t, origin)
             ptrs.append(p)
             strides += s
         kb = [k for bounds in kb for k in bounds]
@@ -1090,7 +1916,7 @@ class CudaBackend:
                 (ctypes.c_double * max(1, len(fsc)))(*fsc),
                 (ctypes.c_longlong * max(1, len(isc)))(*isc),
                 int("I" in periodic), int("J" in periodic),
-                ctypes.c_void_p(stream),
+                ctypes.c_void_p(stream), int(kbs is not None), kbsz,
             )
         if rc != 0:
             raise RuntimeError(

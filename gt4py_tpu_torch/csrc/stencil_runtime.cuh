@@ -42,6 +42,13 @@ struct Field {
   }
 };
 
+// The dynamic shared memory of a kernel that synchronises its block (the
+// plane-sweep and K-window forms): 16-byte aligned, its size the launch's
+// third argument; the planes and windows are carved out of it.
+#ifndef GT_DYNAMIC_SMEM
+#define GT_DYNAMIC_SMEM(name) extern __shared__ __align__(16) unsigned char name[]
+#endif
+
 // Resolved K bounds [lo, hi) of every vertical section of the stencil.
 template <int N>
 struct KBounds {
@@ -54,6 +61,13 @@ struct KBounds {
 // so one add or subtract is enough.
 __device__ __forceinline__ int wrap(int x, int n, int periodic) {
   return periodic ? (x < 0 ? x + n : (x >= n ? x - n : x)) : x;
+}
+
+// The slot of level k in a ring of n planes (the plane-sweep form's copy
+// of the planes it computed last).
+__device__ __forceinline__ int slot(int k, int n) {
+  const int s = k % n;
+  return s < 0 ? s + n : s;
 }
 
 // float16 is a storage type: a float16 value in a kernel is a float that

@@ -13,7 +13,7 @@ runs as generated CUDA kernels on CUDA tensors.
 # annotations must evaluate eagerly so closure-local Field descriptors
 # (``Field = gtscript.Field[dtype]`` inside factory functions) resolve.
 
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -34,13 +34,14 @@ def _literal_precision(dtype) -> int:
     return 32 if np.dtype(dtype).itemsize <= 4 else 64
 
 
-def make_hdiff(dtype, backend="cuda"):
+def make_hdiff(dtype, backend="cuda", **options):
     Field = gtscript.Field[dtype]
 
     @gtscript.stencil(
         backend=backend,
         name=f"hdiff_{np.dtype(dtype).name}",
         literal_precision=_literal_precision(dtype),
+        **options,
     )
     def horizontal_diffusion(in_field: Field, out_field: Field, coeff: Field):
         with computation(PARALLEL), interval(...):
@@ -60,7 +61,7 @@ def make_hdiff(dtype, backend="cuda"):
     return horizontal_diffusion
 
 
-def make_vadv(dtype, backend="cuda", *, bet_m=0.5, bet_p=0.5):
+def make_vadv(dtype, backend="cuda", *, bet_m=0.5, bet_p=0.5, **options):
     Field = gtscript.Field[dtype]
 
     @gtscript.stencil(
@@ -68,6 +69,7 @@ def make_vadv(dtype, backend="cuda", *, bet_m=0.5, bet_p=0.5):
         name=f"vadv_{np.dtype(dtype).name}",
         externals={"BET_M": bet_m, "BET_P": bet_p},
         literal_precision=_literal_precision(dtype),
+        **options,
     )
     def vertical_advection_dycore(
         utens_stage: Field,
@@ -138,9 +140,10 @@ def make_vadv(dtype, backend="cuda", *, bet_m=0.5, bet_p=0.5):
     return vertical_advection_dycore
 
 
-def make_vadv_update(dtype, backend="cuda", *, bet_m=0.5, bet_p=0.5):
+def make_vadv_update(dtype, backend="cuda", *, bet_m=0.5, bet_p=0.5, **options):
     """vadv fused with the prognostic update ``u_out = u_pos + ts/dtr``:
-    one extra in-kernel write replaces a whole-buffer pass."""
+    one extra in-kernel write replaces a whole-buffer pass.  ``options``:
+    build options of the stencil (``k_blocked`` for ``"cuda"``)."""
     Field = gtscript.Field[dtype]
 
     @gtscript.stencil(
@@ -148,6 +151,7 @@ def make_vadv_update(dtype, backend="cuda", *, bet_m=0.5, bet_p=0.5):
         name=f"vadv_upd_{np.dtype(dtype).name}",
         externals={"BET_M": bet_m, "BET_P": bet_p},
         literal_precision=_literal_precision(dtype),
+        **options,
     )
     def vertical_advection_update(
         utens_stage: Field,
@@ -219,12 +223,14 @@ def make_vadv_update(dtype, backend="cuda", *, bet_m=0.5, bet_p=0.5):
     return vertical_advection_update
 
 
-def make_dycore_fused(dtype, backend="cuda", *, bet_m=0.5, bet_p=0.5):
+def make_dycore_fused(dtype, backend="cuda", *, bet_m=0.5, bet_p=0.5, **options):
     """The WHOLE dycore step as ONE stencil: horizontal diffusion
     (PARALLEL) feeding the vertical-advection tridiagonal solve
     (FORWARD+BACKWARD) and the prognostic update -- the diffused stage
     becomes an in-kernel TEMPORARY instead of an HBM round trip, and
-    ``u`` is read once instead of twice."""
+    ``u`` is read once instead of twice.  On ``"cuda"`` the PARALLEL loop
+    runs serialized in the plane-sweep form (K5) unless ``options`` hold
+    ``serialize=False``."""
     Field = gtscript.Field[dtype]
 
     @gtscript.stencil(
@@ -232,6 +238,7 @@ def make_dycore_fused(dtype, backend="cuda", *, bet_m=0.5, bet_p=0.5):
         name=f"dycore_fused_{np.dtype(dtype).name}",
         externals={"BET_M": bet_m, "BET_P": bet_p},
         literal_precision=_literal_precision(dtype),
+        **options,
     )
     def dycore_fused(
         u: Field,
@@ -368,13 +375,15 @@ class MiniDycore:
     ``step_fn()`` returns ``step(state) -> state`` over a dict of
     halo-extended physical (K, I, J) tensors on ``device``; the input state
     is left unchanged.  With ``fill_halos=False`` halos are assumed
-    pre-filled (no periodic wrap).
+    pre-filled (no periodic wrap).  ``options``: build options of every
+    stencil (``serialize``, ``k_blocked`` for ``"cuda"``).
     """
 
     HALO = 3
 
     def __init__(self, ni: int, nj: int, nk: int, *, dtype=np.float32,
-                 backend="cuda", aligned: bool = True, device=None):
+                 backend="cuda", aligned: bool = True, device=None,
+                 options: Optional[dict] = None):
         self.ni, self.nj, self.nk = ni, nj, nk
         self.dtype = np.dtype(dtype)
         self.device = config.resolve_device(device)
@@ -384,10 +393,11 @@ class MiniDycore:
         self.aligned = aligned
         self.oi = ORIGIN_I if aligned else h
         self.oj = ORIGIN_J if aligned else h
-        self.hdiff = make_hdiff(dtype, backend)
-        self.vadv = make_vadv(dtype, backend)
-        self.vadv_upd = make_vadv_update(dtype, backend)
-        self.fused = make_dycore_fused(dtype, backend)
+        options = options or {}
+        self.hdiff = make_hdiff(dtype, backend, **options)
+        self.vadv = make_vadv(dtype, backend, **options)
+        self.vadv_upd = make_vadv_update(dtype, backend, **options)
+        self.fused = make_dycore_fused(dtype, backend, **options)
         kw = dict(origin=(self.oi, self.oj, 0), domain=(ni, nj, nk), physical_layout=True)
         self.hdiff_fn = self.hdiff.functional(**kw)
         self.vadv_fn = self.vadv.functional(**kw)

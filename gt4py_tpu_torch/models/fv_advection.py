@@ -238,17 +238,19 @@ def make_xy_advect(dtype, backend="cuda", factor=1.0):
     return xy_advect
 
 
-def make_fv_step(dtype, backend="cuda"):
+def make_fv_step(dtype, backend="cuda", **options):
     """The whole Lin-Rood split step in one stencil: the cross-advected
     fields qx/qy and every PPM flux are temporaries.  Reads q, cx, cy and
     writes qout.  On ``"cuda"`` it splits into row-form stages at each
-    offset read of a temporary written earlier in the stage."""
+    offset read of a temporary written earlier in the stage (with
+    ``options`` ``serialize=True``: one plane-sweep kernel)."""
     Field = gtscript.Field[dtype]
 
     @gtscript.stencil(
         backend=backend,
         name=f"fv_step_{np.dtype(dtype).name}",
         literal_precision=_literal_precision(dtype),
+        **options,
     )
     def fv_step(q: Field, cx: Field, cy: Field, qout: Field):
         with computation(PARALLEL), interval(...):

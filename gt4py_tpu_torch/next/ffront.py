@@ -25,6 +25,7 @@ from __future__ import annotations
 
 import contextlib
 import functools
+import sys
 from typing import Any, Callable, Dict, Optional, Sequence, Tuple
 
 import numpy as np
@@ -186,10 +187,11 @@ class FieldOperator:
 
     kind = "field_operator"
 
-    def __init__(self, definition: Callable, name: Optional[str] = None):
+    def __init__(self, definition: Callable, name: Optional[str] = None,
+                 localns: Optional[Dict[str, Any]] = None):
         self.definition = definition
         self.__name__ = name or definition.__name__
-        self.ir = frontend.parse_definition(definition, self.kind)
+        self.ir = frontend.parse_definition(definition, self.kind, localns)
         # decoration-time deduction against the declared annotations:
         # complete annotations -> full static typing now; bare/absent
         # annotations -> deferred, resolved per call signature
@@ -343,10 +345,16 @@ class FieldOperator:
         return f"@{self.kind} {self.__name__}({ps}) -> {self._decl_ret}"
 
 
+def _caller_locals(depth: int = 2) -> Dict[str, Any]:
+    """The locals of the frame that applied a decorator (string annotations
+    may name them; see ``frontend._Parser._annotations``)."""
+    return dict(sys._getframe(depth).f_locals)
+
+
 def field_operator(fn=None, **kwargs):
     if fn is None:
-        return lambda f: FieldOperator(f, **kwargs)
-    return FieldOperator(fn, **kwargs)
+        return lambda f: FieldOperator(f, localns=_caller_locals(), **kwargs)
+    return FieldOperator(fn, localns=_caller_locals(), **kwargs)
 
 
 class ScanOperator(FieldOperator):
@@ -363,11 +371,11 @@ class ScanOperator(FieldOperator):
     _bound_params = 1
 
     def __init__(self, definition: Callable, *, axis: Dimension,
-                 forward: bool = True, init=0.0):
+                 forward: bool = True, init=0.0, localns: Optional[Dict[str, Any]] = None):
         self.axis = axis
         self.forward = forward
         self.init = init
-        super().__init__(definition)
+        super().__init__(definition, localns=localns)
         if not self.ir.params:
             raise FieldViewError(
                 f"scan operator '{self.__name__}' needs a carry parameter",
@@ -598,8 +606,9 @@ class ScanOperator(FieldOperator):
 
 def scan_operator(fn=None, *, axis: Dimension, forward: bool = True, init=0.0):
     if fn is None:
-        return lambda f: ScanOperator(f, axis=axis, forward=forward, init=init)
-    return ScanOperator(fn, axis=axis, forward=forward, init=init)
+        return lambda f: ScanOperator(f, axis=axis, forward=forward, init=init,
+                                      localns=_caller_locals())
+    return ScanOperator(fn, axis=axis, forward=forward, init=init, localns=_caller_locals())
 
 
 class Program:
@@ -621,10 +630,12 @@ class Program:
     _backend = None  # None = embedded (see next/backends.py)
 
     def __init__(self, definition: Callable, *, static_params: Tuple[str, ...] = (),
-                 bound_args: Optional[Dict[str, Any]] = None):
+                 bound_args: Optional[Dict[str, Any]] = None,
+                 localns: Optional[Dict[str, Any]] = None):
         self.definition = definition
         self.__name__ = definition.__name__
-        self.ir = frontend.parse_definition(definition, "program")
+        self._localns = localns
+        self.ir = frontend.parse_definition(definition, "program", localns)
         self._decl_typed, _ = frontend.deduce(self.ir)
         self._typed_cache: Dict[Tuple, fvir.OperatorIR] = {}
         self._static_params = tuple(static_params)
@@ -1000,6 +1011,7 @@ class Program:
             self.definition,
             static_params=kw.get("static_params", self._static_params),
             bound_args=kw.get("bound_args", self._bound_args),
+            localns=self._localns,
         )
         new._backend = self._backend  # with_backend choice survives chaining
         return new
@@ -1129,5 +1141,5 @@ def _tree_map(fn, *trees):
 
 def program(fn=None, **kwargs):
     if fn is None:
-        return lambda f: Program(f)
-    return Program(fn)
+        return lambda f: Program(f, localns=_caller_locals())
+    return Program(fn, localns=_caller_locals())

@@ -99,9 +99,11 @@ _DISALLOWED_STMTS = {
 class _Parser(ast.NodeVisitor):
     """Python AST -> FVIR for one operator/program definition."""
 
-    def __init__(self, fn: Callable, kind: str):
+    def __init__(self, fn: Callable, kind: str, localns: Optional[Dict[str, Any]] = None):
         self.fn = fn
         self.kind = kind
+        #: the locals of the frame that applied the decorator
+        self.localns = dict(localns or {})
         try:
             raw = inspect.getsource(fn)
             _, self.line0 = inspect.getsourcelines(fn)
@@ -122,6 +124,22 @@ class _Parser(ast.NodeVisitor):
                     pass
         self.env = env
         self.used_closure: Dict[str, Any] = {}
+
+    def _annotations(self, fdef: ast.FunctionDef) -> Dict[str, Any]:
+        """The definition's annotations, each evaluated on its own: a string
+        (``from __future__ import annotations``) against the function's
+        globals, its closure cells and the locals of the frame that applied
+        the decorator.  One that does not resolve raises, naming it."""
+        out = {}
+        for name, hint in getattr(self.fn, "__annotations__", {}).items():
+            if isinstance(hint, str):
+                try:
+                    hint = eval(hint, {**self.env, **self.localns})  # noqa: S307
+                except Exception as e:
+                    raise _err(f"cannot resolve the annotation {hint!r} of '{name}': "
+                               f"{type(e).__name__}: {e}", self.loc(fdef))
+            out[name] = hint
+        return out
 
     def loc(self, node: ast.AST) -> fvir.Location:
         return fvir.Location(
@@ -145,11 +163,7 @@ class _Parser(ast.NodeVisitor):
                 self.loc(fdef),
             )
         params = []
-        hints = {}
-        try:
-            hints = inspect.get_annotations(self.fn, eval_str=True)
-        except Exception:
-            pass
+        hints = self._annotations(fdef)
         for arg in a.args:
             hint = hints.get(arg.arg)
             try:
@@ -474,8 +488,11 @@ class _Parser(ast.NodeVisitor):
         raise _err(f"undefined symbol '{name}'", loc)
 
 
-def parse_definition(fn: Callable, kind: str = "field_operator") -> fvir.OperatorIR:
-    return _Parser(fn, kind).parse()
+def parse_definition(fn: Callable, kind: str = "field_operator",
+                     localns: Optional[Dict[str, Any]] = None) -> fvir.OperatorIR:
+    """``localns``: the locals of the frame that applied the decorator,
+    where string annotations may name a local of an enclosing function."""
+    return _Parser(fn, kind, localns).parse()
 
 
 # --------------------------------------------------------------------- #

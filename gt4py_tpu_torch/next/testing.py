@@ -9,11 +9,9 @@
   are the JAX package's unstructured meshes (numpy neighbor tables, the
   same numbering and seeds); ``unstructured_fvm_case`` builds bench.py's
   unstructured FVM step on them.
-
-(No ``from __future__ import annotations`` here: the operators defined
-inside ``bench_cases`` annotate with a local dtype, which the frontend
-must see as a value, not as a string.)
 """
+
+from __future__ import annotations
 
 import contextlib
 import dataclasses

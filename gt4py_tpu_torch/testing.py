@@ -14,6 +14,10 @@ Used by the card tests (``tests/test_torch_cuda.py``) and the chip check
   and bfloat16 storage in the row and the column form.
 - ``run_pair()``: one definition on ``"cuda"`` and on ``"torch"`` over the
   same inputs on one device.
+- ``plain_form()``: K5's plain counterpart, the plain executor on the
+  stencil the kernels were planned on (the serialized one);
+  ``plain_kblocked()``: K4's, the K-blocked passes run block by block
+  through the plain executor.
 """
 
 import linecache
@@ -237,3 +241,79 @@ def run_pair(definition, make_inputs, kw: dict, device) -> Tuple[dict, dict, obj
         if backend == "cuda":
             cuda_stencil = st
     return out["cuda"], out["torch"], cuda_stencil
+
+
+def plain_form(st):
+    """A copy of the ``"cuda"`` stencil object ``st`` whose calls run the
+    plain executor on the stencil its kernels were planned on: the
+    serialized one when ``st`` runs serialized (K5)."""
+    import copy
+
+    from gt4py_tpu_torch.cartesian.backend.torch_backend import TorchBackend
+
+    out = copy.copy(st)
+    out.backend = TorchBackend(st.backend.program.analysis)
+    return out
+
+
+def plain_kblocked(st, fields: Dict[str, torch.Tensor], scalars: dict, origin, domain,
+                   periodic=()) -> None:
+    """K4's plain counterpart on ``fields`` (logical (I, J, K) tensors, the
+    written ones filled in place): ``passes.split_serial_passes``'s passes
+    of the ``"cuda"`` stencil ``st`` in order through the plain executor,
+    each column-form loop once per K block (``passes.
+    clip_stencil_to_k_block``, the blocks and their sizes K4 takes at this
+    depth, in the loop's order), the promoted temporaries in zeroed
+    buffers.  Raises when K4 does not run at this depth."""
+    from gt4py_tpu_torch.cartesian import ir, passes
+    from gt4py_tpu_torch.cartesian.analysis import analyze
+    from gt4py_tpu_torch.cartesian.backend.torch_backend import (
+        TorchExecutor,
+        has_horizontal_reads,
+        periodic_fill,
+    )
+
+    prog = st.backend.program
+    dI, dJ, dK = domain
+    kbs, declined = prog.kblock_plan(dK)
+    if kbs is None:
+        raise ValueError(f"K4 does not run '{st.name}' at depth {dK}: {declined}")
+    an = prog.analysis
+    env = dict(fields)
+    origins = {n: tuple(origin) for n in env}
+    if periodic:
+        names = [n for n in env if has_horizontal_reads(an, n)]
+        for n in names:
+            if not an.field_info[n].access.value & 2:
+                env[n] = env[n].clone()
+        periodic_fill(an, env, domain, origins, periodic, names)
+    pass_stencils, promoted = passes.split_serial_passes(an.stencil)
+    device = next(iter(env.values())).device
+    for n in promoted:
+        e = an.extents.alloc_extent(n)
+        env[n] = torch.zeros((dI, dJ, dK - e.k[0] + e.k[1]),
+                             dtype=dtypes.to_torch(an.stencil.temp_decls[n].dtype), device=device)
+        origins[n] = (0, 0, -e.k[0])
+    # one block size per serial loop: K4's for a column-form loop, the whole
+    # depth for a plane-sweep one
+    sizes = iter(kbs)
+    serial = [next(sizes) if k.form == "columns" else dK for k in prog.kernels
+              if k.form != "rows"]
+    for pst in pass_stencils:
+        (loop,) = pst.vertical_loops
+        names = [n for n in pst.field_decls if n in env]
+        if loop.loop_order == ir.LoopOrder.PARALLEL:
+            TorchExecutor(analyze(pst)).run({n: env[n] for n in names}, scalars, domain,
+                                            {n: origins[n] for n in names})
+            continue
+        kb = serial.pop(0)
+        blocks = [(b, min(b + kb, dK)) for b in range(0, dK, kb)]
+        if loop.loop_order == ir.LoopOrder.BACKWARD:
+            blocks.reverse()
+        for b0, b1 in blocks:
+            bst = passes.clip_stencil_to_k_block(pst, b0, b1, dK, scalars)
+            if bst is None:
+                continue
+            shifted = {n: (origins[n][0], origins[n][1], origins[n][2] + b0) for n in names}
+            TorchExecutor(analyze(bst)).run({n: env[n] for n in names}, scalars,
+                                            (dI, dJ, b1 - b0), shifted)

@@ -601,3 +601,29 @@ def test_k8_emulated_next_operator(emulated):  # noqa: F811
     assert [(k.launches - a, k.derivative_calls - b)
             for k, (a, b) in zip(kern, before)] == [(1, 1)] * len(kern)
     np.testing.assert_array_equal(got["cuda"], got["torch"])
+
+
+def test_torch_func_grad_and_vjp_through_k8(emulated, jax_dycore_grad):  # noqa: F811
+    """``torch.func.grad`` and ``torch.func.vjp`` of the MiniDycore step
+    loss with the forward on the emulated kernels (each call under K8,
+    whose backward takes ``torch.func.vjp`` of the plain re-run when its
+    tensors are functorch-wrapped): bit for bit ``torch.autograd.grad``,
+    and the JAX model's ``jax.grad`` at rtol 1e-12."""
+    state, g_jax = jax_dycore_grad
+    pm = p_dycore.MiniDycore(8, 8, 4, dtype=np.float64, backend="cuda", aligned=False,
+                             device="cpu")
+    pstate = state_from_numpy(state, "cpu")
+    step = pm.step_fn()
+
+    def loss(u):
+        return (step({**pstate, "u": u})["u"] ** 2).sum()
+
+    leaf = pstate["u"].clone().requires_grad_()
+    ref = torch.autograd.grad(loss(leaf), leaf)[0]
+    start = [k8_counts(st) for st in (pm.hdiff, pm.vadv_upd)]
+    g = torch.func.grad(loss)(pstate["u"])
+    value, pull = torch.func.vjp(loss, pstate["u"])
+    g_vjp = pull(torch.ones_like(value))[0]
+    assert [k8_counts(st, s) for st, s in zip((pm.hdiff, pm.vadv_upd), start)] == [(2, 2)] * 2
+    assert torch.equal(g, ref) and torch.equal(g_vjp, ref)
+    np.testing.assert_allclose(g.numpy(), g_jax, **TOL)

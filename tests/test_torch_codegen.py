@@ -33,7 +33,8 @@ FORMS = {
     "make_hdiff": ["rows", "rows", "rows"],
     "make_vadv": ["columns", "columns"],
     "make_vadv_update": ["columns", "columns"],
-    "make_dycore_fused": ["rows", "rows", "rows", "columns", "columns"],
+    # the PARALLEL loop serialized into one plane-sweep kernel (K5)
+    "make_dycore_fused": ["planes", "columns", "columns"],
 }
 
 
@@ -279,6 +280,9 @@ def test_fv_and_sl_float32_sources_have_no_double(factory):
 
 
 def test_horizontal_offset_read_in_its_own_serial_loop_raises():
+    """Such a loop used to be refused; it now runs in the plane-sweep form
+    (``t`` in one shared plane per CTA), and equals the plain executor on
+    CPU tensors (the emulated kernels: ``tests/test_torch_plane.py``)."""
     F = gtscript.Field[np.float64]
 
     def sweep(a: F, b: F):
@@ -286,8 +290,15 @@ def test_horizontal_offset_read_in_its_own_serial_loop_raises():
             t = a + 1.0
             b = t[1, 0, 0]
 
-    with pytest.raises(NotImplementedError, match="horizontal offset"):
-        gtscript.stencil(backend="cuda", definition=sweep, rebuild=True)
+    st = gtscript.stencil(backend="cuda", definition=sweep, rebuild=True)
+    assert [k.form for k in st.backend.program.kernels] == ["planes"]
+    assert cuda_backend.LAST_PLAN["sweep"]["shared"] == ["t"]
+    assert "double* const sh_t" in st.backend.source
+    a = np.random.default_rng(0).random((9, 6, 4))
+    got, ref = np.zeros_like(a), np.zeros_like(a)
+    st(a, got, domain=(8, 6, 4))
+    ref[:8] = a[1:9] + 1.0
+    np.testing.assert_array_equal(got, ref)
 
 
 def test_build_key_covers_source_header_and_flags():

@@ -628,3 +628,163 @@ def test_k9_backward_routed_vs_index(cuda_device):
     finally:
         config.AFFINE_GATHER, config.SORT_GATHER = saved
     torch.testing.assert_close(routed, index, rtol=1e-5, atol=0)
+
+
+# --------------------------------------------------------------------------- #
+# the plane-sweep form (K5, and fault 1's loops) and K-blocked passes (K4)
+# --------------------------------------------------------------------------- #
+
+P64 = gtscript.Field[np.float64]
+
+
+def plane_sweep(a: P64, b: P64):
+    with computation(FORWARD), interval(...):
+        t = a + 1.0
+        b = t[1, 0, 0]
+
+
+def plane_carried(a: P64, c: P64):
+    with computation(FORWARD):
+        with interval(0, 1):
+            t = a
+            c = t[1, 0, 0] + t[0, -1, 0]
+        with interval(1, None):
+            t = t[0, 0, -1] * 0.5 + a
+            c = t[1, 0, 0] + t[0, -1, 0]
+
+
+def plane_ahead(a: P64, c: P64):
+    with computation(FORWARD):
+        with interval(0, 1):
+            t = a
+            c = t
+        with interval(1, -1):
+            c = t[1, 0, 0] + t[0, -1, 1]
+            t = a * 2.0
+        with interval(-1, None):
+            t = a
+            c = t
+
+
+def plane_mixed(a: P64, b: P64, out: P64):
+    with computation(PARALLEL), interval(...):
+        lap = a[1, 0, 0] + a[-1, 0, 0] + a[0, 1, 0] + a[0, -1, 0] - 4.0 * a
+        flx = lap[1, 0, 0] - lap[0, 0, 0]
+    with computation(FORWARD):
+        with interval(0, 1):
+            acc = flx + b
+            out = acc
+        with interval(1, None):
+            acc = acc[0, 0, -1] * 0.5 + flx
+            out = acc
+    with computation(BACKWARD):
+        with interval(0, -1):
+            out = out + out[0, 0, 1] * 0.25
+
+
+def deep_scan(a: P64, out: P64):
+    with computation(FORWARD):
+        with interval(0, 1):
+            out = a
+        with interval(1, 700):
+            out = out[0, 0, -1] * 0.5 + a
+        with interval(700, None):
+            out = out[0, 0, -1] * 0.25 + 2.0 * a
+    with computation(BACKWARD):
+        with interval(0, -1):
+            out = out + 0.5 * out[0, 0, 1]
+
+
+def _card_run(defn, shape, domain, device, backend="cuda", periodic=(), **options):
+    st = gtscript.stencil(backend=backend, definition=defn, rebuild=True, **options)
+    rng = np.random.default_rng(4)
+    fields = {n: torch.from_numpy(rng.random(shape)).to(device) for n in st.field_info}
+    st(**fields, origin=(2, 2, 0), domain=domain, periodic=periodic)
+    torch.cuda.synchronize()
+    return st, fields
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("periodic", [(), ("I", "J")], ids=["plain", "periodic"])
+@pytest.mark.parametrize("defn", [plane_sweep, plane_carried, plane_ahead, plane_mixed],
+                         ids=lambda d: d.__name__)
+def test_plane_form_vs_plain(cuda_device, defn, periodic):
+    """Fault 1's loop, a K-carried temporary read at offsets (a ring of
+    planes), reads of values the sweep has not written yet (the copy taken
+    before the kernel) and a mixed stencil serialized (K5): the plane-sweep
+    kernels against the plain executor on the card, at 70 x 90 (several
+    tiles)."""
+    from gt4py_tpu_torch.cartesian.backend import cuda_backend
+
+    shape, domain = (74, 94, 9), (70, 90, 9)
+    st, got = _card_run(defn, shape, domain, cuda_device, periodic=periodic)
+    assert "planes" in cuda_backend.LAST_PLAN[defn.__name__]["forms"]
+    assert st.backend.launches == 1
+    _, ref = _card_run(defn, shape, domain, cuda_device, backend="torch", periodic=periodic)
+    for k, v in ref.items():
+        torch.testing.assert_close(got[k], v, **TOL[np.float64], msg=k)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [np.float64, np.float32], ids=["f64", "f32"])
+def test_fused_dycore_forms_vs_plain(cuda_device, dtype):
+    """``step_fn(fused=True)`` in the plane-sweep form (default) and the
+    split form (``serialize=False``): three steps each against the plain
+    executor."""
+    got = {}
+    for label, backend, options in (("planes", "cuda", {}),
+                                    ("split", "cuda", {"serialize": False}),
+                                    ("plain", "torch", {})):
+        md = dycore.MiniDycore(40, 70, 8, dtype=dtype, backend=backend, device=cuda_device,
+                               options=options)
+        state = md.init_state(seed=2)
+        step = md.step_fn(fused=True)
+        for _ in range(3):
+            state = step(state)
+        got[label] = state
+        if backend == "cuda":
+            forms = [k.form for k in md.fused.backend.program.kernels]
+            assert ("planes" in forms) == (label == "planes"), forms
+    for k in ("u", "utens_stage"):
+        for label in ("planes", "split"):
+            torch.testing.assert_close(got[label][k], got["plain"][k], **TOL[dtype],
+                                       msg=f"{label} {k}")
+
+
+@pytest.mark.cuda
+def test_kblocked_vs_one_pass_and_plain(cuda_device):
+    """K4 at dK 2000: the K-blocked kernels (blocks of the planned KB)
+    against the one-pass column form and the K-blocked plain counterpart."""
+    from gt4py_tpu_torch.cartesian.backend import cuda_backend
+
+    shape, domain = (36, 70, 2000), (32, 66, 2000)
+    st, got = _card_run(deep_scan, shape, domain, cuda_device, k_blocked=True)
+    plan = cuda_backend.LAST_PLAN["deep_scan"]
+    # the forward loop stages ``a`` in blocks; the backward one reads only
+    # what it writes, stages nothing and runs as one block
+    assert plan["kblocked"] and plan["kblocked"]["KB"][0] < 2000, plan
+    _, one = _card_run(deep_scan, shape, domain, cuda_device, k_blocked=False)
+    rng = np.random.default_rng(4)
+    plain = {n: torch.from_numpy(rng.random(shape)).to(cuda_device) for n in st.field_info}
+    testing.plain_kblocked(st, plain, {}, (2, 2, 0), domain)
+    for k in got:
+        torch.testing.assert_close(got[k], one[k], rtol=0, atol=0, msg=k)
+        torch.testing.assert_close(got[k], plain[k], **TOL[np.float64], msg=k)
+
+
+@pytest.mark.cuda
+def test_torch_func_grad_through_k8(cuda_device):
+    """``torch.func.grad`` and ``torch.func.vjp`` of a MiniDycore step loss
+    with the forward on the kernels equal ``torch.autograd.grad``."""
+    md = dycore.MiniDycore(24, 40, 8, dtype=np.float64, backend="cuda", device=cuda_device)
+    s0 = md.init_state(seed=1)
+    step = md.step_fn()
+
+    def loss(u):
+        return (step({**s0, "u": u})["u"] ** 2).sum()
+
+    u = s0["u"].clone().requires_grad_()
+    ref = torch.autograd.grad(loss(u), u)[0]
+    assert torch.equal(torch.func.grad(loss)(s0["u"]), ref)
+    out, pull = torch.func.vjp(loss, s0["u"])
+    assert torch.equal(pull(torch.ones_like(out))[0], ref)

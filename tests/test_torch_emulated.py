@@ -3,7 +3,9 @@
 The ``"cuda"`` backend's sources are C++ apart from the CUDA qualifiers and
 the ``<<<grid, block>>>`` launches.  Here the host C++ compiler builds each
 source against a stub ``cuda_runtime.h`` that runs the grid as nested loops
--- exact for these kernels, whose threads share nothing -- and the
+-- exact for kernels whose threads share nothing; the plane-sweep and
+K-window kernels, which synchronise their blocks, run each block's threads
+as fibers that meet at every ``__syncthreads()`` -- and the
 wrapper's launch path runs unchanged on CPU tensors: per-field records
 (strides, data strides, K range), scratch allocation and zero-fill,
 section K bounds and scalars.  The results are held against the plain
@@ -48,10 +50,18 @@ def _on_the_cpu(monkeypatch):
 
 
 #: the CUDA runtime as the generated sources use it, on the host: every
-#: thread of the grid runs in turn
+#: thread of the grid runs in turn; a kernel launched with dynamic shared
+#: memory (the plane-sweep and K-window forms, which synchronise their
+#: blocks) runs each block's threads as fibers that each run to their next
+#: ``__syncthreads()`` in turn, so all of them meet at every barrier
 EMULATED_RUNTIME = r"""
 #pragma once
 #include <math.h>
+#include <stddef.h>
+#include <ucontext.h>
+#include <functional>
+#include <memory>
+#include <vector>
 #define __global__
 #define __device__
 #define __forceinline__ inline
@@ -64,12 +74,77 @@ inline dim3 blockIdx, threadIdx, blockDim, gridDim;
 typedef int cudaError_t;
 const cudaError_t cudaSuccess = 0;
 typedef struct CUstream_st* cudaStream_t;
+enum cudaFuncAttribute { cudaFuncAttributeMaxDynamicSharedMemorySize = 8 };
 inline cudaError_t cudaGetLastError() { return cudaSuccess; }
 inline const char* cudaGetErrorString(cudaError_t) { return "emulated"; }
-#define GT_EMULATED_LAUNCH(grid, block, kernel, ...)                          \
+template <typename K>
+inline cudaError_t cudaFuncSetAttribute(K, cudaFuncAttribute, int) { return cudaSuccess; }
+
+namespace gt_emu {
+constexpr size_t kStack = 256 * 1024;
+struct Fiber {
+  ucontext_t ctx;
+  std::unique_ptr<char[]> stack;
+  bool done = false;
+  unsigned x = 0, y = 0;
+};
+inline std::vector<Fiber> fibers;
+inline ucontext_t scheduler;
+inline int current = -1;
+inline std::vector<unsigned char> smem;
+inline const std::function<void()>* body = nullptr;
+inline void entry() {
+  (*body)();
+  fibers[current].done = true;  // returns to the scheduler (uc_link)
+}
+inline void syncthreads() {
+  if (current >= 0) swapcontext(&fibers[current].ctx, &scheduler);
+}
+inline void run_block(const std::function<void()>& fn, size_t smem_bytes) {
+  smem.assign(smem_bytes, 0);
+  const unsigned n = blockDim.x * blockDim.y;
+  if (fibers.size() < n) fibers.resize(n);
+  body = &fn;
+  for (unsigned t = 0; t < n; ++t) {
+    Fiber& f = fibers[t];
+    if (!f.stack) f.stack.reset(new char[kStack]);
+    f.done = false;
+    f.x = t % blockDim.x;
+    f.y = t / blockDim.x;
+    getcontext(&f.ctx);
+    f.ctx.uc_stack.ss_sp = f.stack.get();
+    f.ctx.uc_stack.ss_size = kStack;
+    f.ctx.uc_link = &scheduler;
+    makecontext(&f.ctx, entry, 0);
+  }
+  for (bool left = true; left;) {
+    left = false;
+    for (unsigned t = 0; t < n; ++t) {
+      if (fibers[t].done) continue;
+      current = (int)t;
+      threadIdx = dim3(fibers[t].x, fibers[t].y);
+      swapcontext(&scheduler, &fibers[t].ctx);
+      left = left || !fibers[t].done;
+    }
+  }
+  current = -1;
+}
+}  // namespace gt_emu
+#define __syncthreads() gt_emu::syncthreads()
+#define GT_DYNAMIC_SMEM(name) unsigned char* const name = gt_emu::smem.data()
+#define GT_EMULATED_LAUNCH(grid, block, smem_bytes, kernel, ...)              \
   do {                                                                      \
     gridDim = grid;                                                         \
     blockDim = block;                                                       \
+    if (smem_bytes) {                                                       \
+      const std::function<void()> fn_ = [&] { kernel(__VA_ARGS__); };       \
+      for (unsigned by = 0; by < gridDim.y; ++by)                           \
+        for (unsigned bx = 0; bx < gridDim.x; ++bx) {                       \
+          blockIdx = dim3(bx, by);                                          \
+          gt_emu::run_block(fn_, smem_bytes);                               \
+        }                                                                   \
+      break;                                                                \
+    }                                                                       \
     for (unsigned by = 0; by < gridDim.y; ++by)                             \
       for (unsigned bx = 0; bx < gridDim.x; ++bx)                           \
         for (unsigned ty = 0; ty < blockDim.y; ++ty)                        \
@@ -117,7 +192,7 @@ inline __nv_bfloat16 __float2bfloat16_rn(float f) {
 inline float __double2float_rn(double d) { return (float)d; }
 """
 
-_LAUNCH = re.compile(r"(\w+)<<<grid, block, 0, st>>>\((.*)\);")
+_LAUNCH = re.compile(r"(\w+)<<<grid, block, (\w+), st>>>\((.*)\);")
 
 
 class _Stream:
@@ -144,7 +219,7 @@ def emulated(monkeypatch, emulated_dir):
     cxx, d = emulated_dir
 
     def build(source, name):
-        src = _LAUNCH.sub(r"GT_EMULATED_LAUNCH(grid, block, \1, \2);", source)
+        src = _LAUNCH.sub(r"GT_EMULATED_LAUNCH(grid, block, \2, \1, \3);", source)
         out = d / hashlib.sha256(src.encode() + _build._runtime_header().encode()
                                  + EMULATED_FP16.encode()
                                  + EMULATED_BF16.encode()).hexdigest()

@@ -25,6 +25,7 @@ from gt4py_tpu.next import unparse as j_unparse
 import gt4py_tpu_torch.next as pgtx
 from gt4py_tpu_torch import config
 from gt4py_tpu_torch.next import unparse as p_unparse
+from gt4py_tpu_torch.next.frontend import FieldViewError
 from gt4py_tpu_torch.next.testing import fields_from_numpy
 
 
@@ -622,3 +623,47 @@ def test_program_domain_inference_errors_match():
         except Exception as ex:  # the exception type and message are compared
             outcome.append((type(ex).__name__, str(ex).splitlines()[0]))
     assert outcome[0] is not None and outcome[1] == outcome[0]
+
+
+#: a scan defined inside a function whose carry annotation names a local
+#: alias, in a module with and without ``from __future__ import annotations``
+LOCAL_ALIAS_SCAN = """
+def make():
+    Carry = float32
+
+    @scan_operator(axis=K, forward=True, init=0.0)
+    def acc(state: Carry, x: Carry) -> Carry:
+        return state * 0.5 + x
+
+    return acc
+"""
+
+
+def test_future_annotations_scan_with_a_local_alias():
+    """String annotations resolve against the decorating frame's locals: the
+    scan types and runs as float32, equal to the one written without the
+    future import."""
+    deferred = define("from __future__ import annotations\n" + LOCAL_ALIAS_SCAN, PNS)["make"]()
+    eager = define(LOCAL_ALIAS_SCAN, PNS)["make"]()
+    for op in (deferred, eager):
+        assert str(op.ir.params[0].type) == "float32", op.ir.params
+    (x,) = make_args([F32], PNS, pgtx, 3, "torch")
+    a, b = deferred(x), eager(x)
+    assert a.data.dtype == torch.float32
+    assert torch.equal(a.data, b.data)
+
+
+def test_unresolvable_string_annotation_names_it():
+    src = """
+    from __future__ import annotations
+
+    def make():
+        @scan_operator(axis=K, forward=True, init=0.0)
+        def acc(state: NoSuchCarry, x: float32) -> float32:
+            return state + x
+
+        return acc
+    """
+    make = define(src, PNS)["make"]
+    with pytest.raises(FieldViewError, match="NoSuchCarry"):
+        make()
