@@ -133,6 +133,22 @@ NI, NJ, NK = 512, 512, 80
 SMALL = (64, 256, 16)
 #: phase 10 (b): the deep-K MiniDycore (K4)
 DEEP = (128, 128, 2048)
+#: phase 11 (a): the shapes of tests/cartesian/test_geometry_repair.py:
+#: stencil -> ({field: (I, J, K) buffer shape}, origins, domain)
+_ZERO = (0, 0, 0)
+REPAIR_SHAPES = {
+    "outop": ({"inp": (16, 256, 4), "coeff": (16, 256, 4), "fx": (17, 256, 4),
+               "fy": (16, 257, 4), "res": (16, 256, 4)},
+              {"inp": _ZERO, "coeff": _ZERO, "fx": (1, 0, 0), "fy": (0, 1, 0), "res": _ZERO},
+              (16, 256, 4)),
+    "lapd": ({"a": (12, 132, 4), "b": (14, 140, 4)}, {"a": (1, 1, 0), "b": (2, 3, 0)},
+             (10, 130, 4)),
+    "serk": ({"a": (10, 130, 5), "b": (10, 130, 5)}, {"a": _ZERO, "b": _ZERO}, (10, 130, 5)),
+    "while_loop": ({"a": (10, 130, 4), "b": (10, 130, 4)}, {"a": _ZERO, "b": _ZERO},
+                   (10, 130, 4)),
+    "region_end": ({"a": (33, 228, 2), "b": (33, 228, 2)}, {"a": _ZERO, "b": _ZERO},
+                   (33, 228, 2)),
+}
 
 #: phase 5: the canonical stencils by the feature the kernels take over
 #: from the TPU path (REPLACES key), and one of each timed at full size
@@ -898,6 +914,15 @@ def _plane_defs() -> dict:
             t = a + 1.0
             b = t[1, 0, 0]
 
+    def ring(a: F, c: F):
+        with computation(FORWARD):
+            with interval(0, 1):
+                t = a
+                c = t
+            with interval(1, None):
+                c = t[1, 0, -1]
+                t = a * 2.0
+
     def carried(a: F, c: F):
         with computation(FORWARD):
             with interval(0, 1):
@@ -947,7 +972,7 @@ def _plane_defs() -> dict:
 
     return {d.__name__: {backend: gtscript.stencil(backend=backend, definition=d, rebuild=True)
                          for backend in ("cuda", "torch")}
-            for d in (fault1, carried, not_yet_swept, ser_mixed, ser_parity)}
+            for d in (fault1, ring, carried, not_yet_swept, ser_mixed, ser_parity)}
 
 
 def _plane_modes(defs, dev) -> dict:
@@ -964,8 +989,9 @@ def _plane_modes(defs, dev) -> dict:
     for name, pair in defs.items():
         st = pair["cuda"]
         plan = LAST_PLAN[name]
-        if "planes" not in plan["forms"]:
-            raise AssertionError(f"phase 10 {name}: not in the plane-sweep form ({plan})")
+        if "planes" not in plan["forms"] or bool(plan["widened"]) != (name == "ring"):
+            raise AssertionError(f"phase 10 {name}: not in the plane-sweep form, or widened "
+                                 f"where it should not be ({plan})")
         for periodic in ((), ("I", "J")):
             rng = np.random.default_rng(10)
             fields = {n: rng.random(shape) for n in st.field_info}
@@ -988,9 +1014,10 @@ def _plane_modes(defs, dev) -> dict:
                     raise AssertionError(f"phase 10 {name}.{n}: kernels and plain differ")
             out[f"{name}{'_periodic' if periodic else ''}"] = {
                 "launches": launches, "forms": plan["forms"], "serialized": plan["serialized"],
-                "shared": plan["shared"], "tile": plan["tile"]}
+                "shared": plan["shared"], "tile": plan["tile"], "widened": plan["widened"]}
         print(f"phase 10 {name} f64 {SMALL}: forms {plan['forms']}, serialized "
-              f"{plan['serialized']}, tile {plan['tile']}, shared {plan['shared']}; "
+              f"{plan['serialized']}, tile {plan['tile']}, shared {plan['shared']}, widened "
+              f"{plan['widened']}; "
               "bounded and periodic bitwise equal to plain, 1 launch each")
     return out
 
@@ -1117,6 +1144,478 @@ def _deep_k(deep, dev) -> dict:
             "analysis": mk.vadv_upd.analysis}
 
 
+# --------------------------------------------------------------------------- #
+# phase 11
+# --------------------------------------------------------------------------- #
+
+
+def _repair_defs(dtype) -> dict:
+    """Phase 11 (a)'s stencils, the definitions of
+    ``tests/cartesian/test_geometry_repair.py`` in ``dtype``: name ->
+    {backend: stencil}."""
+    import numpy as np
+
+    from gt4py_tpu_torch.cartesian import gtscript
+    from gt4py_tpu_torch.cartesian.gtscript import (
+        FORWARD,
+        PARALLEL,
+        I,
+        J,
+        computation,
+        horizontal,
+        interval,
+        region,
+    )
+
+    F = gtscript.Field[dtype]
+
+    def outop(inp: F, fx: F, fy: F, coeff: F, res: F):
+        with computation(PARALLEL), interval(...):
+            res = inp - coeff * (fx - fx[-1, 0, 0] + fy - fy[0, -1, 0])
+
+    def lapd(a: F, b: F):
+        with computation(PARALLEL), interval(...):
+            b = a[1, 0, 0] + a[-1, 0, 0] + a[0, 1, 0] + a[0, -1, 0] - 4.0 * a
+
+    def serk(a: F, b: F):
+        with computation(FORWARD):
+            with interval(0, 1):
+                b = a
+            with interval(1, 3):
+                b = b[0, 0, -1] * 0.5 + a
+
+    def while_loop(a: F, b: F):
+        with computation(PARALLEL), interval(...):
+            x = a
+            while x < 1.0:
+                x = x * 2.0 + 0.1
+            b = x
+
+    def region_end(a: F, b: F):
+        with computation(PARALLEL), interval(...):
+            b = a
+            with horizontal(region[I[-1] - 1:, :]):
+                b = a + 1.0
+            with horizontal(region[: I[0] + 1, J[-1] - 2:]):
+                b = a - 2.0
+
+    name = np.dtype(dtype).name
+    return {d.__name__: {backend: gtscript.stencil(backend=backend, definition=d, rebuild=True,
+                                                   name=f"{d.__name__}_{name}")
+                         for backend in ("cuda", "torch")}
+            for d in (outop, lapd, serk, while_loop, region_end)}
+
+
+def _in_layout(a, layout, dev):
+    """A numpy (I, J, K) array on ``dev``: as it is (``"ijk"``, J strided
+    by K: no vector access) or in the models' (K, I, J) memory order viewed
+    as (I, J, K) (``"kij"``)."""
+    import torch
+
+    t = torch.from_numpy(a)
+    if layout == "kij":
+        t = t.movedim(2, 0).contiguous().movedim(0, 2)
+    return t.to(dev)
+
+
+def _repair_shapes(defs, dev) -> dict:
+    """Phase 11 (a): each repair shape in float32 and float64, in both
+    layouts, kernels against plain bit for bit over the whole buffers (so
+    every byte outside the write window kept its value), one launch each;
+    the plan's vector width and repaired fields."""
+    import numpy as np
+    import torch
+
+    from gt4py_tpu_torch.cartesian.backend.cuda_backend import LAST_PLAN
+
+    out = {}
+    for (name, dtype), pair in defs.items():
+        shapes, origins, domain = REPAIR_SHAPES[name]
+        for layout in ("ijk", "kij"):
+            rng = np.random.default_rng(11)
+            scale = 0.5 if name == "while_loop" else 1.0
+            arrays = {k: (scale * rng.random(s)).astype(dtype) for k, s in shapes.items()}
+            got = {}
+            for backend, st in pair.items():
+                ts = {k: _in_layout(v, layout, dev) for k, v in arrays.items()}
+                st.backend.launches = 0
+                st(**ts, origin=origins, domain=domain)
+                torch.cuda.synchronize()
+                got[backend] = ts
+            st = pair["cuda"]
+            plan = LAST_PLAN[st.name]
+            rows = "rows" in plan["forms"]
+            if st.backend.launches != 1 or bool(plan.get("vector")) != rows or (
+                    rows and layout == "ijk" and not plan.get("repair")):
+                raise AssertionError(f"phase 11 {st.name} {layout}: launches "
+                                     f"{st.backend.launches}, plan {plan}")
+            for k, v in got["torch"].items():
+                if not torch.equal(got["cuda"][k], v):
+                    _check_close(f"phase 11 {st.name}.{k} {layout}", got["cuda"][k], v,
+                                 RTOL_F64, ATOL_F64)
+                    raise AssertionError(f"phase 11 {st.name}.{k} {layout}: kernels and "
+                                         "plain differ")
+            out[f"{st.name} {layout}"] = {"forms": plan["forms"], "vector": plan.get("vector"),
+                                          "repair": {k: list(v) for k, v in
+                                                     plan.get("repair", {}).items()}}
+            print(f"phase 11 {st.name} {layout} domain {domain}: forms {plan['forms']}, vector "
+                  f"{plan.get('vector')}, repair {plan.get('repair', {})}; bitwise equal to "
+                  "plain over the whole buffers")
+    return out
+
+
+def _nodes(analysis) -> int:
+    from gt4py_tpu_torch.cartesian import ir
+
+    return sum(1 for _ in ir.walk_values(analysis.stencil.vertical_loops))
+
+
+def _run_steps(step, state, n):
+    import torch
+
+    for _ in range(n):
+        state = step(state)
+    torch.cuda.synchronize()
+    return state
+
+
+def _same(what, got, ref, names) -> float:
+    """Fields ``names`` of two states: finite, of one shape, bit for bit;
+    returns their largest absolute difference."""
+    import torch
+
+    err = 0.0
+    for k in names:
+        g, r = got[k], ref[k]
+        if g.shape != r.shape or not bool(torch.isfinite(g).all()):
+            raise AssertionError(f"{what} {k}: shape {tuple(g.shape)} or not finite")
+        if not torch.equal(g, r):
+            _check_close(f"{what} {k}", g, r, RTOL_F32, ATOL_F32)
+            raise AssertionError(f"{what} {k}: kernels and plain differ")
+        err = max(err, _errors(g, r)[0])
+    return err
+
+
+def _in_turns(calls, reps=TIMING_REPS) -> dict:
+    """Median CUDA-event ms of each call of ``calls`` (label -> call),
+    twice, in turns: ``{label: [first, second]}``."""
+    t = {label: [] for label in calls}
+    for _ in range(2):
+        for label, call in calls.items():
+            t[label].append(_time_ms(call, reps))
+    return t
+
+
+def _phase11(p11, dev, kernels) -> dict:
+    """Phase 11 (b) and (c): ShallowWater and the tight-halo local steps at
+    512x512x80 float32 on the vector row form and the repair, against plain;
+    the forms timed in turns; the cost rule's constants; K6's entry."""
+    import numpy as np
+    import torch
+
+    from gt4py_tpu_torch.cartesian.backend import cuda_backend, repair
+    from gt4py_tpu_torch.cartesian.backend.cuda_backend import LAST_PLAN, REPLACES
+    from gt4py_tpu_torch.models import spectral
+
+    points = NI * NJ * NK
+    uvh = ("h", "u", "v")
+
+    def sw_state(step):
+        return lambda s: dict(zip(uvh, step(*(s[k] for k in uvh))))
+
+    # -- (b) ShallowWater: step_fn (aligned, K1 + K1a) and local_step_fn
+    # (tight, halo 2: the vector form on a shifted phase, no copy)
+    sw, swp = p11["sw"], p11["sw_plain"]
+    vlaunch = {}
+    paths = {}
+    sw_err = 0.0
+    for aligned, entry in ((True, "step_fn"), (False, "local_step_fn")):
+        m, mp = sw[(aligned, "vector")], swp[aligned]
+        st = m.stencil
+        st.backend.launches = st.backend.vector_launches = st.backend.repairs = 0
+        s0 = m.init_state()
+        got = _run_steps(sw_state(getattr(m, entry)()), s0, STEPS)
+        launches = (st.backend.launches, st.backend.vector_launches, st.backend.repairs)
+        plan = LAST_PLAN[st.name]
+        if launches != (STEPS, STEPS, 0) or plan.get("vector") != 4 or "repair" in plan:
+            raise AssertionError(f"ShallowWater {entry}: launches {launches}, plan {plan}")
+        vlaunch[f"sw {entry}"] = st.backend.vector_launches
+        sw_err = max(sw_err, _same(f"ShallowWater {entry} after {STEPS} steps", got,
+                                   _run_steps(sw_state(getattr(mp, entry)()), s0, STEPS), uvh))
+        s = sw_state(getattr(m, entry)())
+        sc = sw_state(getattr(sw[(aligned, "scalar")], entry)())
+        one = _in_turns({"vector": lambda: s(s0), "scalar": lambda: sc(s0)})
+        b2b = {"vector": _time_chain_ms(s, s0, BACK_TO_BACK),
+               "scalar": _time_chain_ms(sc, s0, BACK_TO_BACK)}
+        b2b["vector_again"] = _time_chain_ms(s, s0, BACK_TO_BACK)
+        b2b["scalar_again"] = _time_chain_ms(sc, s0, BACK_TO_BACK)
+        plain_ms = _time_ms(lambda: sw_state(getattr(mp, entry)())(s0), PLAIN_TIMING_REPS)
+        paths[f"sw {entry}"] = {"ms": one, "b2b_ms": b2b, "plain_ms": plain_ms,
+                                "layout": list(m.field_shape()), "origin": [m.oi, m.oj, 0]}
+        print(f"ShallowWater {NI}x{NJ}x{NK} f32 {entry} ({'aligned' if aligned else 'tight'}, "
+              f"buffers {m.field_shape()}): {STEPS} steps bitwise equal to plain, vector "
+              f"{STEPS} launches; vector {one['vector']} ms, scalar {one['scalar']} ms (one call "
+              f"at a time, in turns); back to back {b2b}; plain {plain_ms:.4f} ms")
+
+    # mass over 20 periodic steps, float64 at SMALL
+    m = p11["sw_f64"]
+    s = m.init_state()
+    interior = (slice(None), slice(m.oi, m.oi + SMALL[0]), slice(m.oj, m.oj + SMALL[1]))
+    mass0 = float(s["h"][interior].double().sum())
+    s = _run_steps(sw_state(m.step_fn()), s, 20)
+    mass = float(s["h"][interior].double().sum())
+    if abs(mass - mass0) > 1e-12 * abs(mass0) or float(s["u"][interior].abs().max()) == 0:
+        raise AssertionError(f"ShallowWater f64 mass {mass0!r} -> {mass!r}")
+    print(f"ShallowWater {SMALL} f64: mass {mass0!r} -> {mass!r} over 20 periodic steps "
+          f"(relative change {abs(mass - mass0) / abs(mass0):.3e}, bound 1e-12)")
+
+    # spectral transforms against their numpy versions
+    rng = np.random.default_rng(12)
+    q = rng.random((NK, NI, NJ)).astype(np.float32)
+    qd = torch.from_numpy(q).to(dev)
+    spec = {}
+    for name, args in (("spectral_filter", (1.0,)), ("poisson_solve", ())):
+        got = getattr(spectral, name)(qd, *args)
+        ref = torch.from_numpy(getattr(spectral, name + "_numpy")(q, *args))
+        err = float((got.cpu().double() - ref.double()).abs().max())
+        scale = float(ref.double().abs().max())
+        if got.dtype != torch.float32 or not err <= 1e-5 * scale:
+            raise AssertionError(f"{name}: max abs err {err} against max {scale}")
+        spec[name] = {"max_abs_err": err, "max_abs_ref": scale,
+                      "ms": _time_ms(lambda: getattr(spectral, name)(qd, *args), TIMING_REPS)}
+        print(f"{name} {NK}x{NI}x{NJ} f32 (torch.fft): max abs err {err:.3e} against numpy "
+              f"(max |ref| {scale:.3e}, bound 1e-5 of it); {spec[name]['ms']:.4f} ms")
+
+    # -- (c) the tight-halo local steps under the repair (K1, K2, K5)
+    md, mdp = p11["md_tight"], p11["md_tight_plain"]
+    s0 = md["repair"].init_state(seed=0)
+    for fused in (False, True):
+        label = "fused step" if fused else "step"
+        m = md["repair"]
+        sts = [m.fused] if fused else [m.hdiff, m.vadv_upd]
+        for st in sts:
+            st.backend.launches = st.backend.vector_launches = st.backend.repairs = 0
+        got = _run_steps(m.step_fn(fill_halos=False, fused=fused), s0, STEPS)
+        counts = {st.name: (st.backend.launches, st.backend.vector_launches, st.backend.repairs)
+                  for st in sts}
+        if any(c[0] != STEPS or c[2] != STEPS for c in counts.values()):
+            raise AssertionError(f"tight MiniDycore {label}: (launches, vector, repairs) "
+                                 f"{counts}")
+        vlaunch[f"md tight {label}"] = sum(c[1] for c in counts.values())
+        _same(f"tight MiniDycore {label} after {STEPS} steps", got,
+              _run_steps(mdp.step_fn(fill_halos=False, fused=fused), s0, STEPS),
+              ("u", "utens_stage"))
+        print(f"tight MiniDycore {NI}x{NJ}x{NK} f32 {label} (buffers {m.field_shape()}, repair "
+              f"forced): {STEPS} steps bitwise equal to plain; (launches, vector launches, "
+              f"repairs) {counts}; plans " + "; ".join(
+                  f"{st.name}: forms {LAST_PLAN[st.name]['forms']}, vector "
+                  f"{LAST_PLAN[st.name].get('vector')}, repair "
+                  f"{LAST_PLAN[st.name].get('repair')}" for st in sts))
+    md_steps = _in_turns({label: (lambda m=m: m.step_fn(fill_halos=False)(s0))
+                          for label, m in md.items()})
+    fv, fvp = p11["fv_tight"], p11["fv_tight_plain"]
+    f0 = fv["repair"].init_state(seed=0)
+    cx, cy = fv["repair"].fill_winds(f0["cx"], f0["cy"])
+    st = fv["repair"].fv_step
+    st.backend.launches = st.backend.vector_launches = st.backend.repairs = 0
+    q = f0["q"]
+    step = fv["repair"].local_step_fn()
+    for _ in range(STEPS):
+        q = step(q, cx, cy)
+    torch.cuda.synchronize()
+    counts = (st.backend.launches, st.backend.vector_launches, st.backend.repairs)
+    fv_plan = LAST_PLAN[st.name].get("repair")
+    if counts != (STEPS, STEPS, STEPS):
+        raise AssertionError(f"tight FvAdvection: (launches, vector, repairs) {counts}")
+    vlaunch["fv tight local_step_fn"] = st.backend.vector_launches
+    qp = f0["q"]
+    for _ in range(STEPS):
+        qp = fvp.local_step_fn()(qp, cx, cy)
+    _same(f"tight FvAdvection after {STEPS} steps", {"q": q}, {"q": qp}, ("q",))
+    fv_steps = _in_turns({label: (lambda m=m: m.local_step_fn()(f0["q"], cx, cy))
+                          for label, m in fv.items()})
+    print(f"tight FvAdvection {NI}x{NJ}x{NK} f32 local_step_fn (repair forced): {STEPS} steps "
+          f"bitwise equal to plain, (launches, vector, repairs) {counts}, repair "
+          f"{fv_plan}; step ms in turns {fv_steps}; tight MiniDycore "
+          f"step ms in turns {md_steps}")
+
+    # K6 on one call: tight hdiff repaired and vectorized, its copies, the
+    # scalar form on the caller's buffers, plain
+    args = dict(in_field=s0["u"], out_field=s0["u"], coeff=s0["coeff"])
+    hd = {label: m.hdiff_fn for label, m in md.items()}
+    hd["plain"] = mdp.hdiff_fn
+    ref = hd["plain"](**args)["out_field"]
+    err = 0.0
+    for label in ("repair", "declined"):
+        got = hd[label](**args)["out_field"]
+        if label == "repair":
+            rplan = dict(LAST_PLAN[md["repair"].hdiff.name])
+        err = max(err, _errors(got, ref)[0])
+        if not torch.equal(got, ref):
+            raise AssertionError(f"tight hdiff ({label}) and plain differ")
+    an = md["repair"].hdiff.analysis
+    views = {k: v.permute(1, 2, 0) for k, v in args.items()}
+    origins = {k: (md["repair"].oi, md["repair"].oj, 0) for k in views}
+    pads = {k: tuple(tuple(x) for x in v) for k, v in rplan["repair"].items()}
+    written = [n for n in pads if an.field_info[n].access.value & 2]
+    views["out_field"] = views["out_field"].clone()
+
+    def copies():
+        padded, _ = repair.pad_fields(an, views, origins, (NI, NJ, NK), pads,
+                                      set(rplan["repair_in"]))
+        repair.write_back(an, views, origins, padded, (NI, NJ, NK), pads, written)
+
+    hd_ms = _in_turns({"repair": lambda: hd["repair"](**args), "declined":
+                       lambda: hd["declined"](**args), "copies": copies})
+    hd_plain = _time_ms(lambda: hd["plain"](**args), PLAIN_TIMING_REPS)
+    copy_rate = rplan["repair_bytes"] / (min(hd_ms["copies"]) * 1e-3)
+    print(f"K6 tight hdiff {NI}x{NJ}x{NK} f32: repaired vector form {hd_ms['repair']} ms, "
+          f"scalar form on the caller's buffers {hd_ms['declined']} ms, the repair's copies "
+          f"alone {hd_ms['copies']} ms ({rplan['repair_bytes']} bytes: {copy_rate:.4e} B/s), "
+          f"plain {hd_plain:.4f} ms; pads {rplan['repair']}")
+
+    # the vector and scalar row forms on aligned periodic calls (K1)
+    forms = {}
+    savings = {}
+    for name, pair, call in p11["aligned_calls"]:
+        t = _in_turns({form: (lambda c=call, st=st: c(st)) for form, st in pair.items()})
+        got = {form: call(st) for form, st in pair.items()}
+        if not torch.equal(got["vector"], got["scalar"]):
+            raise AssertionError(f"{name}: the vector and scalar forms differ")
+        st = pair["vector"]
+        forms[st.name] = {"vector_ms": t["vector"], "scalar_ms": t["scalar"]}
+        saving = (statistics.mean(t["scalar"]) - statistics.mean(t["vector"])) * 1e-3 / (
+            _nodes(st.analysis) * points)
+        savings[st.name] = saving
+        print(f"{st.name} {NI}x{NJ}x{NK} f32 aligned, periodic: vector form {t['vector']} ms, "
+              f"scalar form {t['scalar']} ms (in turns; bitwise equal); {_nodes(st.analysis)} "
+              f"IR nodes, saving {saving:.4e} s per node-point")
+    for e in kernels:
+        if e["name"] in forms:
+            e["vector_ms"] = min(forms[e["name"]]["vector_ms"])
+            e["scalar_ms"] = min(forms[e["name"]]["scalar_ms"])
+    # the vector form is the default only where it was no slower than the
+    # scalar form on all three of hdiff, fv_step and sw_step (best of two)
+    no_slower = {n: min(forms[n]["vector_ms"]) <= min(forms[n]["scalar_ms"])
+                 for n in ("hdiff_float32", "fv_step_float32", "sw_step_float32")}
+    print(f"vector form no slower than the scalar form (best of two in turns): {no_slower}; "
+          f"cuda_backend.VECTOR_DEFAULT = {cuda_backend.VECTOR_DEFAULT}")
+    saving = max(0.0, min(savings.values()))
+    print(f"cost rule constants measured: copy rate {copy_rate:.4e} B/s, vector saving "
+          f"{saving:.4e} s per node-point (the least of {savings}); repair.py holds "
+          f"{repair.COPY_BYTES_PER_S:.4e} and {repair.SAVING_S_PER_NODE_POINT:.4e}")
+
+    sw_st = sw[(True, "vector")].stencil
+    form = "vector_ms" if cuda_backend.VECTOR_DEFAULT else "scalar_ms"
+    kernels.append({
+        "name": sw_st.name,
+        "route": "cuda",
+        "source": "gt4py_tpu_torch/cartesian/backend/cuda_backend.py",
+        "replaces": REPLACES["rows"] + "; " + REPLACES["wrap"],
+        "launches": vlaunch["sw step_fn"] + vlaunch["sw local_step_fn"],
+        "max_abs_err": sw_err,
+        "ms": min(forms[sw_st.name][form]),
+        "plain_ms": paths["sw step_fn"]["plain_ms"],
+        **_bound(sw_st.analysis, (NI, NJ, NK)),
+        "vector_ms": min(forms[sw_st.name]["vector_ms"]),
+        "scalar_ms": min(forms[sw_st.name]["scalar_ms"]),
+    })
+    kernels.append({
+        "name": "K6 vector row form + geometry repair: hdiff_float32 on tight halo-3 buffers",
+        "route": "cuda",
+        "source": "gt4py_tpu_torch/cartesian/backend/cuda_backend.py; "
+                  "gt4py_tpu_torch/cartesian/backend/repair.py",
+        "replaces": REPLACES["repair"],
+        "launches": sum(vlaunch.values()),
+        "max_abs_err": err,
+        "ms": min(hd_ms["repair"]),
+        "plain_ms": hd_plain,
+        **_bound(an, (NI, NJ, NK)),
+        "copy_ms": min(hd_ms["copies"]),
+        "scalar_ms": min(hd_ms["declined"]),
+        "repair_bytes": rplan["repair_bytes"],
+        "vector_launches": vlaunch,
+    })
+    return {"paths": paths, "md_tight_step_ms": md_steps, "fv_tight_step_ms": fv_steps,
+            "hdiff_tight_ms": hd_ms, "forms": forms, "vector_no_slower": no_slower,
+            "vector_default": cuda_backend.VECTOR_DEFAULT, "spectral": spec,
+            "cost_rule": {"copy_bytes_per_s": copy_rate, "saving_s_per_node_point": saving,
+                          "savings": savings}}
+
+
+def _phase11_models(dev) -> dict:
+    """Phase 11's models and stencils (float32 at 512x512x80 unless noted)."""
+    import numpy as np
+
+    from gt4py_tpu_torch.models import dycore, fv_advection, semi_lagrangian
+    from gt4py_tpu_torch.models.shallow_water import ShallowWater
+
+    shape = (NI, NJ, NK)
+    f32 = dict(dtype=np.float32, device=dev)
+    p11 = {
+        "repair_defs": {(name, dtype): pair for dtype in (np.float32, np.float64)
+                        for name, pair in _repair_defs(dtype).items()},
+        "sw": {(aligned, form): ShallowWater(*shape, **f32, aligned=aligned,
+                                             options={"vector": form == "vector"})
+               for aligned in (True, False) for form in ("vector", "scalar")},
+        "sw_plain": {aligned: ShallowWater(*shape, **f32, aligned=aligned, backend="torch")
+                     for aligned in (True, False)},
+        "sw_f64": ShallowWater(*SMALL, dtype=np.float64, device=dev),
+        "md_tight": {label: dycore.MiniDycore(*shape, **f32, aligned=False, options=opts)
+                     for label, opts in (("repair", {"vector": True, "repair": True}),
+                                         ("declined", {"repair": False}))},
+        "md_tight_plain": dycore.MiniDycore(*shape, **f32, aligned=False, backend="torch"),
+        "fv_tight": {label: fv_advection.FvAdvection(*shape, **f32, aligned=False, options=opts)
+                     for label, opts in (("repair", {"vector": True, "repair": True}),
+                                         ("declined", {"repair": False}))},
+        "fv_tight_plain": fv_advection.FvAdvection(*shape, **f32, aligned=False,
+                                                   backend="torch"),
+    }
+    # aligned periodic calls of every row-form stencil on the path, in the
+    # vector and the scalar form: (name, {form: stencil}, call(stencil))
+    md = dycore.MiniDycore(*shape, **f32, backend="torch")
+    fv = fv_advection.FvAdvection(*shape, **f32, backend="torch")
+    sw = p11["sw"][(True, "vector")]
+    s = md.init_state(seed=0)
+    f = fv.init_state(seed=0)
+    h = sw.init_state()
+    kw = dict(origin=(md.oi, md.oj, 0), domain=shape, physical_layout=True, periodic=("I", "J"))
+    kw_sw = dict(kw, origin=(sw.oi, sw.oj, 0))
+
+    def both(make):
+        return {form: make(vector=form == "vector") for form in ("vector", "scalar")}
+
+    p11["aligned_calls"] = [
+        ("hdiff", both(lambda **o: dycore.make_hdiff(np.float32, "cuda", **o)),
+         lambda st: st.functional(**kw)(in_field=s["u"], out_field=s["u"],
+                                       coeff=s["coeff"])["out_field"]),
+        ("fv_step", both(lambda **o: fv_advection.make_fv_step(np.float32, "cuda", **o)),
+         lambda st: st.functional(**kw)(q=f["q"], cx=f["cx"], cy=f["cy"],
+                                       qout=f["q"].new_zeros(f["q"].shape))["qout"]),
+        ("sl_step", both(lambda **o: semi_lagrangian.make_sl_stencil(np.float32, "cuda", 1,
+                                                                     **o)),
+         lambda st: st.functional(**kw)(q=f["q"], u=f["cx"], v=f["cy"],
+                                       qout=f["q"].new_zeros(f["q"].shape), dtdx=1.0,
+                                       dtdy=1.0)["qout"]),
+        ("sw_step", {form: p11["sw"][(True, form)].stencil for form in ("vector", "scalar")},
+         lambda st: st.functional(**kw_sw)(h=h["h"], u=h["u"], v=h["v"],
+                                          h_new=h["h"].new_zeros(h["h"].shape),
+                                          u_new=h["h"].new_zeros(h["h"].shape),
+                                          v_new=h["h"].new_zeros(h["h"].shape))["h_new"]),
+    ]
+    return p11
+
+
+def _phase11_stencils(p11) -> list:
+    out = [pair["cuda"] for pair in p11["repair_defs"].values()]
+    out += [m.stencil for m in p11["sw"].values()] + [p11["sw_f64"].stencil]
+    for m in p11["md_tight"].values():
+        out += [m.hdiff, m.vadv_upd, m.fused]
+    out += [m.fv_step for m in p11["fv_tight"].values()]
+    out += [st for _, pair, _ in p11["aligned_calls"] for st in pair.values()]
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -1190,13 +1689,16 @@ def main() -> int:
     phase10_stencils = [md_split.fused] + [p["cuda"] for p in plane_defs.values()] + [
         deep["kblocked"].hdiff, deep["kblocked"].vadv_upd, deep["one_pass"].vadv_upd,
         fv_planes]
+    # phase 11: the repair shapes, ShallowWater, the tight-halo steps, the
+    # aligned stencils in the vector and the scalar form (one source each)
+    p11 = _phase11_models(dev)
     next_cases = {key: bench_cases(c["dtype"], c["shape"], dev) for key, c in configs.items()}
     next_kernels = [b for cases in next_cases.values() for case in cases.values()
                     for b in case["kernels"]()]
     t0 = time.perf_counter()
     n_sources = build_all(
         [st.backend for st in main_stencils + list(surface_stencils.values()) + bf16_stencils
-         + phase10_stencils]
+         + phase10_stencils + _phase11_stencils(p11)]
         + next_kernels + [benes.KERNEL])
     build_s = time.perf_counter() - t0
     print(f"build: {n_sources} sources, {build_s:.2f} s (nvcc in parallel)")
@@ -1606,10 +2108,14 @@ def main() -> int:
         "KB": deep_k["plan"]["kblocked"]["KB"],
     })
 
+    # -- 11. K6: the vector row form and the repair -------------------------
+    k6 = {"repair_shapes": _repair_shapes(p11["repair_defs"], dev),
+          **_phase11(p11, dev, kernels)}
+
     print(smi)
     print(json.dumps({"kernels": kernels, "unstructured_fvm": fvm["summary"],
                       "bfloat16": bf16_result, "gradients": gradients["summary"],
-                      "plan_modes": {"planes": planes, "deep_k": deep_k}}))
+                      "plan_modes": {"planes": planes, "deep_k": deep_k}, "k6": k6}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

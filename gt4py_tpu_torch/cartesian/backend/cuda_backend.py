@@ -43,6 +43,19 @@ emitters turn each vertical loop into ``__global__`` kernels:
   scratch buffers.  Eligibility is the JAX package's.  One pass is the
   default: on the H100 it ran deep K (128 x 128 x 2048) 3x faster than
   K4, whose 180 KiB windows hold one 64-thread CTA per SM (PERF.md).
+- **Vector row form and geometry repair** (K6; Pallas ``_trace_repaired``
+  and its gate ``_halos_ij``).  Every row stage that reaches a
+  J-contiguous field has a second kernel in which a thread computes V
+  consecutive J points (V = 16 bytes over the smallest item size), each
+  read-only field read as aligned 16-byte words into a register window
+  per (I offset, K offset) row, each written field held in a register
+  array and stored as words; partial groups, a window past what its
+  readers need and a periodic J seam take elements one by one.  The
+  groups start on the fields' common 16-byte phase, checked at every
+  launch from the views' pointers and strides; a non-periodic call whose
+  fields share none is repaired by ``repair`` (padded copies of the read
+  windows, the write windows copied back) where its cost rule says it
+  pays.  ``gt_run`` takes a flag per stage: geometry never rebuilds.
 - **Periodic wrap** (K1a; Pallas ``_plan_segments``/``_circular_ok``).
   Reads of read-only API fields on a periodic axis wrap by index arithmetic
   in the load address; there is no fill pass.  A written field read at a
@@ -97,8 +110,10 @@ executor; otherwise the kernels run alone, as for serving.
 
 ``LAST_PLAN[stencil name]`` records each stencil's plan: its kernels'
 forms, whether it was serialized or K-blocked (passes, KB, promoted
-temporaries), the plane tile, where temporaries live, and why a form
-declined.
+temporaries), the plane tile, where temporaries live, writers the
+plane-sweep form widened for ring reads (``widened``), the vector width
+(``vector``) and the repaired fields' pads (``repair``) of the last call,
+and why a form declined.
 """
 
 from __future__ import annotations
@@ -122,7 +137,7 @@ from gt4py_tpu_torch.cartesian.analysis import (
     promote_dtypes,
     try_static_int,
 )
-from gt4py_tpu_torch.cartesian.backend import _build, autodiff, register
+from gt4py_tpu_torch.cartesian.backend import _build, autodiff, register, repair
 from gt4py_tpu_torch.cartesian.backend.torch_backend import (
     TorchExecutor,
     check_periodic,
@@ -153,6 +168,9 @@ REPLACES = {
               "sweep, _plan_columns :1187)",
     "kblocked": "gt4py_tpu/cartesian/backend/pallas_backend.py:1297 "
                 "PallasBackend._trace_kblocked (_run_k_blocks :1382)",
+    "repair": "gt4py_tpu/cartesian/backend/pallas_backend.py:483 "
+              "PallasBackend._trace_repaired (_repair_pads :389, _padded_metas :441, "
+              "_repair_cost_ok :455; gate _halos_ij :946-978)",
 }
 
 #: the plan of every stencil built, by name (see the module docstring)
@@ -174,6 +192,15 @@ KB_CANDIDATES = (512, 256, 128, 64, 32, 16, 8)
 
 #: threads per block along J (coalesced) and I
 BLOCK_J, BLOCK_I = 64, 4
+#: the vector kernels' threads per block along J (each V points) and I,
+#: and the blocks along K that share a stage's levels (a thread computes
+#: V points where the scalar kernel's computes one: the split keeps as
+#: many loads in flight)
+VBLOCK_J, VBLOCK_I = 16, 16
+VSPLIT_K = 4
+#: whether a row stage runs its vector kernel when the build leaves
+#: ``vector`` unset (chosen by measurement: PERF.md, K6)
+VECTOR_DEFAULT = True
 #: data dimensions a field may have (``gt::kMaxDataDims``)
 MAX_DATA_DIMS = 4
 #: per-field record the wrapper passes: I, J, K strides, the data strides,
@@ -418,6 +445,72 @@ class PlanePlan:
     #: taken just before the kernel
     snapshots: List[str] = field(default_factory=list)
     snapshot_reads: frozenset = frozenset()
+    #: writers (by ``id``) whose rectangle grows within the tile so that the
+    #: CTA computes, into its ring, the points an earlier level's read
+    #: reaches; clipped at run time to the statement's own extent in the
+    #: domain, where the oracle computes it
+    widened: Dict[int, Extent] = field(default_factory=dict)
+    #: field -> the union of its writers' widened rectangles
+    widened_fields: Dict[str, Extent] = field(default_factory=dict)
+
+    def extent(self, analysis: StencilAnalysis, s: ir.Stmt) -> Extent:
+        """The rectangle the CTA computes ``s`` over (tile-relative)."""
+        return self.widened.get(id(s)) or analysis.extents.stmt_extent(s)
+
+
+def _covers(outer: Extent, inner: Extent) -> bool:
+    return (outer.i[0] <= inner.i[0] and inner.i[1] <= outer.i[1]
+            and outer.j[0] <= inner.j[0] and inner.j[1] <= outer.j[1])
+
+
+def _widen_writers(analysis: StencilAnalysis, secs, ring_reads, written, behind: int,
+                   loop: str, plane_ext: Dict[str, Extent],
+                   mirror: Dict[str, int]) -> Dict[int, Extent]:
+    """Grow the rectangle of every writer of a field read at an earlier
+    level so that it covers the points the read reaches (queue 3, fault 1
+    of the plane-sweep form): the CTA then computes those values into its
+    own ring from inputs at the same level, as it recomputes a stage's
+    halo.  A widened writer may read only fields the loop does not write,
+    and its own field at an earlier level (whose points join the ring
+    reads, ``plane_ext`` and ``mirror`` growing with them); the rectangle
+    stays inside the field's allocated extent.  ``_Decline`` names what
+    cannot be widened."""
+    ext = analysis.extents
+    widened: Dict[int, Extent] = {}
+    work = list(ring_reads)
+    while work:
+        name, at = work.pop()
+        for _, body in secs:
+            for s in body:
+                targets = {w.name for w in _stmt_writes(s)}
+                if name not in targets:
+                    continue
+                we = widened.get(id(s)) or ext.stmt_extent(s)
+                if _covers(we, at):
+                    continue
+                grown = Extent(i=(min(we.i[0], at.i[0]), max(we.i[1], at.i[1])),
+                               j=(min(we.j[0], at.j[0]), max(we.j[1], at.j[1])))
+                if targets != {name} or not _covers(ext.alloc_extent(name), grown):
+                    raise _Decline(
+                        f"cuda backend: '{name}' is read at an earlier level, at points "
+                        f"I{at.i} J{at.j} its writer in the {loop} loop does not compute "
+                        f"(I{we.i} J{we.j}), and the writer cannot be widened there")
+                for r in _stmt_reads(s):
+                    if r.name not in written:
+                        continue
+                    cart = isinstance(r.offset, ir.CartesianOffset)
+                    if r.name != name or not cart or r.offset.k * behind <= 0:
+                        raise _Decline(
+                            f"cuda backend: '{name}' is read at an earlier level at points its "
+                            f"writer in the {loop} loop does not compute, and that writer reads "
+                            f"'{r.name}', which the loop writes, where another CTA computes it")
+                    at2 = grown + Extent.from_offset(r.offset.i, r.offset.j)
+                    plane_ext[name] = plane_ext[name] | at2
+                    mirror[name] = max(mirror.get(name, 1), abs(r.offset.k) + 1)
+                    work.append((name, at2))
+                plane_ext[name] = plane_ext[name] | grown
+                widened[id(s)] = grown
+    return widened
 
 
 @dataclass
@@ -441,6 +534,31 @@ class WindowPlan:
 
 
 @dataclass
+class VectorPlan:
+    """The vector kernel of a row-form stage (K6 on Hopper): each thread
+    computes ``V`` consecutive J points, ``V`` = 16 bytes over the smallest
+    item size of the J-contiguous fields the stage reaches in device memory
+    (``fields``).  A read-only field's reads come from register windows of
+    aligned 16-byte words, one per (field, I offset, K offset) row:
+    ``windows[key]`` = (lowest element relative to the group, elements),
+    ``need[key]`` = the rows (I) and elements (J) its readers reach, as
+    extents of the domain.  A field the stage writes lives in a register
+    array ``o_<name>[V]``, loaded first over ``preload[name]`` (absent when
+    an unconditional write of the whole access hull comes first) and stored
+    over ``stores[name]``, its writers' hull."""
+
+    V: int
+    fields: List[str]
+    windows: Dict[Tuple[str, int, int], Tuple[int, int]]
+    need: Dict[Tuple[str, int, int], Extent]
+    outputs: List[str]
+    preload: Dict[str, Extent]
+    stores: Dict[str, Extent]
+    #: section id -> the windows its statements read (loaded at its levels)
+    reads: Dict[int, List[Tuple[str, int, int]]] = field(default_factory=dict)
+
+
+@dataclass
 class KernelPlan:
     """One ``__global__`` kernel: a row-form stage, a column-form loop or a
     plane-sweep loop."""
@@ -456,6 +574,8 @@ class KernelPlan:
     planes: Optional[PlanePlan] = None
     #: the K-window variant K4 launches per block (column form only)
     window: Optional[WindowPlan] = None
+    #: the vector variant (row form only, when a J-contiguous field exists)
+    vector: Optional[VectorPlan] = None
 
 
 def _split_stages(stmts: List[ir.Stmt]) -> List[List[ir.Stmt]]:
@@ -584,18 +704,15 @@ def _plan_planes(analysis: StencilAnalysis, order: ir.LoopOrder,
                     mirror.setdefault(r.name, 1)
             before |= {w.name for w in _stmt_writes(s)}
     # the ring holds what the CTA computed: every writer must cover the
-    # points read from it
-    for name, at in ring_reads:
-        for _, body in secs:
-            for s in body:
-                we = ext.stmt_extent(s)
-                if name in {w.name for w in _stmt_writes(s)} and not (
-                        we.i[0] <= at.i[0] and at.i[1] <= we.i[1]
-                        and we.j[0] <= at.j[0] and at.j[1] <= we.j[1]):
-                    raise _Decline(
-                        f"cuda backend: '{name}' is read at an earlier level, at points "
-                        f"I{at.i} J{at.j} its writer in the {loop} loop does not compute "
-                        f"(I{we.i} J{we.j})")
+    # points read from it, widened where it does not
+    widened = _widen_writers(analysis, secs, ring_reads, written, behind, loop, plane_ext,
+                             mirror)
+    widened_fields: Dict[str, Extent] = {}
+    for _, body in secs:
+        for s in body:
+            if id(s) in widened:
+                (w,) = {w.name for w in _stmt_writes(s)}
+                widened_fields[w] = widened_fields.get(w, widened[id(s)]) | widened[id(s)]
     local = [n for n in touched if n in plane_temps]
     registers = [n for n in local if n not in off_read
                  and all(len(v) == 1 for v in touched[n].values())]
@@ -623,7 +740,8 @@ def _plan_planes(analysis: StencilAnalysis, order: ir.LoopOrder,
                      mirrored={n: mirror[n] for n in sorted(mirror)},
                      registers=registers, smem_bytes=max(16, nbytes(tile)),
                      snapshots=sorted(set(snapshots.values())),
-                     snapshot_reads=frozenset(snapshots))
+                     snapshot_reads=frozenset(snapshots),
+                     widened=widened, widened_fields=widened_fields)
 
 
 def _ij_hazard(loop: ir.VerticalLoop) -> bool:
@@ -799,7 +917,9 @@ def zero_init_temps(program: "CudaProgram", kb: Sequence[Tuple[int, int]]) -> Li
     """
     out = []
     for t in program.scratch:
-        if t in program.irregular_writes:
+        # a widened writer leaves, beyond the domain, points its ring reads
+        # reach and the oracle never computes: they read zero
+        if t in program.irregular_writes or t in program.widened:
             out.append(t)
             continue
         before: List[Tuple[int, int]] = []
@@ -859,6 +979,8 @@ class _Emitter:
         self.sid = 0
         self.plane_order = ir.LoopOrder.FORWARD
         self.window: Optional[WindowPlan] = None
+        #: the row form's vector kernel being emitted: its lane is ``l_``
+        self.vec: Optional[VectorPlan] = None
 
     # ---------------- expressions ---------------- #
 
@@ -919,9 +1041,25 @@ class _Emitter:
         return acc.name in self.locals or self._shared(acc) is not None \
             or self._staged(acc) is not None
 
+    def _lane(self, acc: ir.FieldAccess) -> Optional[str]:
+        """The register a vector kernel's lane ``l_`` reads or writes: its
+        element of a written field's array, or of a read-only field's
+        window."""
+        if self.vec is None or acc.name not in self.vec.fields \
+                or not isinstance(acc.offset, ir.CartesianOffset):
+            return None
+        if acc.name in self.vec.outputs:
+            return f"o_{acc.name}[l_]"
+        off = acc.offset
+        wlo, _ = self.vec.windows[(acc.name, off.i, off.k)]
+        return f"{_window_var(acc.name, off.i, off.k)}[l_ + {off.j - wlo}]"
+
     def access(self, acc: ir.FieldAccess) -> str:
         if acc.name in self.locals:
             return f"l_{acc.name}"
+        lane = self._lane(acc)
+        if lane is not None:
+            return lane
         if self._snapshot(acc):
             return self.global_access(acc, var="o_" + acc.name)
         sh = self._shared(acc)
@@ -1158,12 +1296,18 @@ class _Emitter:
         """A statement of a plane-form stage over ``rect`` (the stage's
         extent), guarded by its own extent within the tile."""
         e = self.analysis.extents.stmt_extent(s)
-        self.stmt_ext = e
-        self.own = (e.i, e.j) != ((0, 0), (0, 0))
-        if (e.i, e.j) == (rect.i, rect.j):
+        w = self.plane.extent(self.analysis, s)
+        self.stmt_ext = w
+        self.own = (w.i, w.j) != ((0, 0), (0, 0))
+        if (w.i, w.j) == (rect.i, rect.j) and w == e:
             return self.stmt(s, ind)
-        cond = (f"ti >= {e.i[0]} && i < I1 + {e.i[1]} && "
-                f"tj >= {e.j[0]} && j < J1 + {e.j[1]}")
+        cond = (f"ti >= {w.i[0]} && i < I1 + {w.i[1]} && "
+                f"tj >= {w.j[0]} && j < J1 + {w.j[1]}")
+        if w != e:
+            # a widened writer computes the neighbours' points, and beyond
+            # the domain only its own extent, where the oracle computes it
+            cond += (f" && i >= {e.i[0]} && i < dI + {e.i[1]} && "
+                     f"j >= {e.j[0]} && j < dJ + {e.j[1]}")
         return [f"{ind}if ({cond}) {{", *self.stmt(s, ind + "  "), f"{ind}}}"]
 
     def guarded(self, s: ir.Stmt, rect: Extent, ind: str) -> List[str]:
@@ -1254,6 +1398,73 @@ def _plan_window(analysis: StencilAnalysis, p: KernelPlan, locals_) -> WindowPla
     return WindowPlan(arrays=arrays)
 
 
+def vector_candidate(decl) -> bool:
+    """A field the vector kernels may reach with 16-byte accesses: it has a
+    J axis and no data dimensions (whether its view is J-contiguous and
+    aligned is checked at launch)."""
+    return bool(decl.dimensions[1]) and not decl.data_dims
+
+
+def _plan_vector(analysis: StencilAnalysis, p: KernelPlan, locals_) -> Optional[VectorPlan]:
+    """The vector variant of a row-form stage, or None when the stage
+    reaches no J-contiguous field in device memory (see ``VectorPlan``).
+    Within a stage a field it writes is accessed only at offset (0, 0, 0)
+    (``_split_stages`` cuts at any other access), so a register per lane
+    holds it; reads at a variable or absolute K stay scalar loads."""
+    st = analysis.stencil
+    ext = analysis.extents
+    fields = [n for n in p.reads + p.writes
+              if n not in locals_ and vector_candidate(st.decl(n))]
+    if not fields:
+        return None
+    V = 16 // min(np.dtype(st.decl(n).dtype).itemsize for n in fields)
+    outputs = [n for n in p.writes if n in fields]
+    need: Dict[Tuple[str, int, int], Extent] = {}
+    djs: Dict[Tuple[str, int, int], Tuple[int, int]] = {}
+    access: Dict[str, Extent] = {}
+    stores: Dict[str, Extent] = {}
+    #: output -> the extent of its first access when that is an
+    #: unconditional write (None when a read or a compound statement)
+    first_write: Dict[str, Optional[Extent]] = {}
+    reads_by_sid: Dict[int, List[Tuple[str, int, int]]] = {}
+    for sid, stmts in p.sections:
+        keys = reads_by_sid.setdefault(sid, [])
+        for s in stmts:
+            e = ext.stmt_extent(s)
+            e = Extent(i=e.i, j=e.j)
+            targets = {w.name for w in _stmt_writes(s)}
+            reads = _stmt_reads(s)
+            for n in outputs:
+                if n not in first_write and (n in targets or any(r.name == n for r in reads)):
+                    first_write[n] = e if isinstance(s, ir.Assign) and not any(
+                        r.name == n for r in reads) else None
+            for r in reads:
+                if r.name not in fields:
+                    continue
+                access[r.name] = access.get(r.name, e) | e
+                if r.name in outputs or not isinstance(r.offset, ir.CartesianOffset):
+                    continue
+                key = (r.name, r.offset.i, r.offset.k)
+                if key not in keys:
+                    keys.append(key)
+                at = e + Extent.from_offset(0, r.offset.j)
+                need[key] = need.get(key, at) | at
+                lo, hi = djs.get(key, (r.offset.j, r.offset.j))
+                djs[key] = (min(lo, r.offset.j), max(hi, r.offset.j))
+            for n in targets & set(outputs):
+                access[n] = access.get(n, e) | e
+                stores[n] = stores.get(n, e) | e
+    windows = {}
+    for key, (lo, hi) in djs.items():
+        wlo = (lo // V) * V
+        windows[key] = (wlo, ((V - 1 + hi) // V) * V + V - wlo)
+    # an unconditional write of the whole access hull first: every lane is
+    # written before it is read or stored, and nothing need be loaded
+    preload = {n: access[n] for n in outputs if first_write.get(n) != access[n]}
+    return VectorPlan(V=V, fields=fields, windows=windows, need=need, outputs=outputs,
+                      preload=preload, stores=stores, reads=reads_by_sid)
+
+
 @dataclass
 class CudaProgram:
     """The generated source and what the wrapper needs to call it."""
@@ -1283,6 +1494,8 @@ class CudaProgram:
     #: K4: ``split_serial_passes``'s passes and promoted temporaries
     kb_passes: int = 0
     kb_promoted: List[str] = field(default_factory=list)
+    #: plane-sweep writers widened for ring reads: field -> rectangle
+    widened: Dict[str, Extent] = field(default_factory=dict)
 
     def plan_record(self) -> dict:
         """The stencil's ``LAST_PLAN`` entry before a launch."""
@@ -1297,6 +1510,7 @@ class CudaProgram:
             "scratch": list(self.scratch),
             "snapshots": list(self.snapshots),
             "smem_bytes": [pp.smem_bytes for pp in planes],
+            "widened": {n: [list(e.i), list(e.j)] for n, e in self.widened.items()},
             "declined": dict(self.declined),
         }
 
@@ -1379,6 +1593,139 @@ def _emit_plain_kernel(em: _Emitter, p: KernelPlan, params: List[str], bpp: int,
     return out + ["}"]
 
 
+def _window_var(name: str, oi: int, ok: int) -> str:
+    num = lambda x: f"m{-x}" if x < 0 else str(x)  # noqa: E731
+    return f"w_{name}_i{num(oi)}_k{num(ok)}"
+
+
+def _emit_vector_rows(em: _Emitter, p: KernelPlan, params: List[str], bpp: int) -> List[str]:
+    """The vector kernel of a row-form stage (``VectorPlan``): thread
+    (g, i) computes the J points ``j0 .. j0 + V - 1``, ``j0 = vj0 + g V``;
+    gt_run sets ``vj0`` on the fields' common 16-byte phase, so every
+    group's accesses are aligned words.  A group entirely inside the
+    stage's rectangle (``full``) loads each window and stores each output
+    as whole words; a partial group, a window that reaches past what its
+    readers need, or one that straddles a periodic J seam, takes its
+    elements one by one from the row's pointer (J is contiguous: no index
+    arithmetic per element, which costs registers).  A lane outside the
+    rectangle computes
+    nothing.  The grid's ``VSPLIT_K`` z blocks share the stage's
+    (independent, PARALLEL) levels."""
+    vp = p.vector
+    V = vp.V
+    st = em.stencil
+    r = p.rect
+    ind = "      "
+    out = [
+        "",
+        f"// {p.name}_v: {p.form} form, vector kernel: {V} consecutive J points a thread, "
+        f"16-byte loads and stores of {', '.join(vp.fields)}; rect I{r.i} J{r.j}",
+        f"__global__ void __launch_bounds__({VBLOCK_J * VBLOCK_I}) {p.name}_v(",
+        "    " + ",\n    ".join(params + ["int vj0", "int vng"]) + ") {",
+        "  const int g_ = (int)(blockIdx.x * blockDim.x + threadIdx.x);",
+        f"  const int i = {r.i[0]} + (int)(blockIdx.y * blockDim.y + threadIdx.y);",
+        f"  if (g_ >= vng || i >= dI + {r.i[1]}) return;",
+        f"  const int j0 = vj0 + g_ * {V};",
+        f"  const bool full = j0 >= {r.j[0]} && j0 + {V} <= dJ + {r.j[1]};",
+    ]
+
+    def var(name):
+        return ("t_" if name in st.temp_decls else "f_") + name
+
+    def index(name, oi, k):
+        """Row and level of ``name`` at I offset ``oi`` and level ``k``."""
+        decl = st.decl(name)
+        wrap = name not in st.temp_decls and name not in em.written
+        e = em.analysis.extents.field_extent(name)
+        row = "0" if not decl.dimensions[0] else (
+            f"gt::wrap(i + {oi}, dI, pI)" if wrap and (e.i[0] or e.i[1]) else f"i + {oi}")
+        return row, (k if decl.dimensions[2] else "0"), wrap and bool(e.j[0] or e.j[1])
+
+    em.vec = vp
+    for sid, stmts in p.sections:
+        # PARALLEL levels are independent: the grid's z blocks split them
+        out.append(f"  for (int k = kb.lo[{sid}] + (int)blockIdx.z; k < kb.hi[{sid}]; "
+                   "k += (int)gridDim.z) {")
+        for name, oi, ok in vp.reads[sid]:
+            wlo, n = vp.windows[(name, oi, ok)]
+            ct = _stype(st.decl(name).dtype)
+            w = _window_var(name, oi, ok)
+            need = vp.need[(name, oi, ok)]
+            row, lev, wrap_j = index(name, oi, f"k + {ok}")
+            s0 = f"j0 + {wlo}"
+            seam = f" && (!pJ || ({s0} >= 0 && {s0} + {n} <= dJ))" if wrap_j else ""
+            jj = "gt::wrap(jj, dJ, pJ)" if wrap_j else "jj"
+            # the window's row from its first element (J is contiguous)
+            out += [
+                f"    alignas(16) {ct} {w}[{n}];",
+                f"    if (i >= {need.i[0]} && i < dI + {need.i[1]}) {{",
+                f"      const {ct}* p_ = &{var(name)}.at({row}, {s0}, {lev});",
+                f"      if (full && {s0} + {V} > {need.j[0]} && {s0} + {n - V} < dJ + {need.j[1]}"
+                f"{seam}) gt::vload<{ct}, {n}>({w}, p_);",
+                "      else {",
+                "#pragma unroll",
+                f"        for (int x_ = 0; x_ < {n}; ++x_) {{",
+                f"          const int jj = {s0} + x_;",
+                f"          if (jj >= {need.j[0]} && jj < dJ + {need.j[1]}) "
+                f"{w}[x_] = p_[{jj} - ({s0})];",
+                "        }",
+                "      }",
+                "    }",
+            ]
+        for name in vp.outputs:
+            ct = _stype(st.decl(name).dtype)
+            out.append(f"    alignas(16) {ct} o_{name}[{V}];")
+            if name not in vp.preload:
+                continue
+            e = vp.preload[name]
+            row, lev, _ = index(name, 0, "k")
+            out += [
+                f"    if (i >= {e.i[0]} && i < dI + {e.i[1]}) {{",
+                f"      const {ct}* p_ = &{var(name)}.at({row}, j0, {lev});",
+                f"      if (j0 >= {e.j[0]} && j0 + {V} <= dJ + {e.j[1]}) "
+                f"gt::vload<{ct}, {V}>(o_{name}, p_);",
+                "      else {",
+                "#pragma unroll",
+                f"        for (int l_ = 0; l_ < {V}; ++l_) {{",
+                "          const int j = j0 + l_;",
+                f"          if (j >= {e.j[0]} && j < dJ + {e.j[1]}) o_{name}[l_] = p_[l_];",
+                "        }",
+                "      }",
+                "    }",
+            ]
+        out += [
+            "#pragma unroll",
+            f"    for (int l_ = 0; l_ < {V}; ++l_) {{",
+            "      const int j = j0 + l_;",
+            f"      if (j < {r.j[0]} || j >= dJ + {r.j[1]}) continue;",
+        ]
+        out += em.registers(stmts, ind)
+        for s in stmts:
+            out += em.guarded(s, p.rect, ind)
+        out.append("    }")
+        for name in vp.outputs:
+            ct = _stype(st.decl(name).dtype)
+            e = vp.stores[name]
+            row, lev, _ = index(name, 0, "k")
+            out += [
+                f"    if (i >= {e.i[0]} && i < dI + {e.i[1]}) {{",
+                f"      {ct}* p_ = &{var(name)}.at({row}, j0, {lev});",
+                f"      if (j0 >= {e.j[0]} && j0 + {V} <= dJ + {e.j[1]}) "
+                f"gt::vstore<{ct}, {V}>(p_, o_{name});",
+                "      else {",
+                "#pragma unroll",
+                f"        for (int l_ = 0; l_ < {V}; ++l_) {{",
+                "          const int j = j0 + l_;",
+                f"          if (j >= {e.j[0]} && j < dJ + {e.j[1]}) p_[l_] = o_{name}[l_];",
+                "        }",
+                "      }",
+                "    }",
+            ]
+        out.append("  }")
+    em.vec = None
+    return out + ["}"]
+
+
 def _k_loop(order: ir.LoopOrder, sid: int, ind: str) -> str:
     if order == ir.LoopOrder.BACKWARD:
         return f"{ind}for (int k = kb.hi[{sid}] - 1; k >= kb.lo[{sid}]; --k) {{"
@@ -1444,10 +1791,10 @@ def _emit_planes(em: _Emitter, p: KernelPlan, params: List[str], bpp: int) -> Li
         for stage in pp.stages[sid]:
             rect = Extent.zeros()
             for s in stage:
-                rect = rect | em.analysis.extents.stmt_extent(s)
+                rect = rect | pp.extent(em.analysis, s)
             rect = Extent(i=rect.i, j=rect.j)
             out += points(rect, "    ")
-            if any(em.analysis.extents.stmt_extent(s) != Extent() and any(
+            if any(pp.extent(em.analysis, s) != Extent() and any(
                     _in_device_memory(p, w.name, ()) for w in _stmt_writes(s)) for s in stage):
                 out.append("      const bool own = (I0 == 0 || ti >= 0) && (I1 == dI || i < I1)"
                            " && (J0 == 0 || tj >= 0) && (J1 == dJ || j < J1);")
@@ -1532,6 +1879,28 @@ def _launch_lines(p: KernelPlan, index: int, args: List[str], nsec: int,
         "    }",
     ]
     out = ["  {", f"    const int ni = {ni}, nj = {nj};"]
+    if p.vector is not None:
+        # vec[index] - 1: the phase of the J points that start 16-byte
+        # words; the first group starts at or before the rectangle
+        V = p.vector.V
+        vcall = f"{call}, vj0, vng"
+        return out + [
+            f"    if (vec[{index}] > 0) {{",
+            f"      const int ph = vec[{index}] - 1, lo = {p.rect.j[0]};",
+            f"      const int vj0 = lo - (((lo - ph) % {V}) + {V}) % {V};",
+            f"      const int vng = (dJ + {p.rect.j[1]} - vj0 + {V - 1}) / {V};",
+            "      if (ni > 0 && vng > 0) {",
+            f"        const dim3 grid((vng + {VBLOCK_J - 1}) / {VBLOCK_J}, "
+            f"(ni + {VBLOCK_I - 1}) / {VBLOCK_I}, {VSPLIT_K}), block({VBLOCK_J}, {VBLOCK_I});",
+            f"        {p.name}_v<<<grid, block, 0, st>>>({vcall});",
+            "        const cudaError_t e = cudaGetLastError();",
+            "        if (e != cudaSuccess) return (int)e;",
+            "      }",
+            "    } else {",
+            *["  " + ln for ln in plain],
+            "    }",
+            "  }",
+        ]
     if p.window is None:
         return out + plain + ["  }"]
     w = p.window
@@ -1600,6 +1969,9 @@ def generate(analysis: StencilAnalysis, serialize: Optional[bool] = None,
         _kblock_eligibility(planned, plans) if k_blocked else
         ("one pass, the default (k_blocked=True blocks)" if k_blocked is None
          else "k_blocked=False", 0, []))
+    for p in plans:
+        if p.form == "rows":
+            p.vector = _plan_vector(planned, p, locals_)
     if kb_reason is None:
         for p in plans:
             if p.form == "columns":
@@ -1628,6 +2000,8 @@ def generate(analysis: StencilAnalysis, serialize: Optional[bool] = None,
         notes.append(REPLACES["planes"])
     if any(p.window for p in plans):
         notes.append(REPLACES["kblocked"])
+    if any(p.vector for p in plans):
+        notes.append(REPLACES["repair"])
     out = [
         f"// Stencil '{st.name}': generated by gt4py_tpu_torch.cartesian.backend."
         "cuda_backend.",
@@ -1638,7 +2012,9 @@ def generate(analysis: StencilAnalysis, serialize: Optional[bool] = None,
         "// at the kernel.  Design: one thread per (i, j) point or column, J along",
         "// threadIdx.x for coalesced loads, K looped inside the thread, periodic",
         "// reads wrapped in the load address; a plane-sweep kernel is one CTA per",
-        "// (I, J) tile sweeping K with its planes in shared memory.",
+        "// (I, J) tile sweeping K with its planes in shared memory; a row stage's",
+        "// vector kernel (_v) computes V consecutive J points a thread with 16-byte",
+        "// loads and stores, launched where the fields share a 16-byte phase.",
         '#include "stencil_runtime.cuh"',
         "",
         "namespace {",
@@ -1651,6 +2027,8 @@ def generate(analysis: StencilAnalysis, serialize: Optional[bool] = None,
             em.locals = set(locals_)
             continue
         out += _emit_plain_kernel(em, p, params, bpp[p.name])
+        if p.vector is not None:
+            out += _emit_vector_rows(em, p, params, bpp[p.name])
         if p.window is not None:
             out += _emit_plain_kernel(em, p, params, bpp[p.name], window=True)
     out += ["", "}  // namespace", ""]
@@ -1661,7 +2039,7 @@ def generate(analysis: StencilAnalysis, serialize: Optional[bool] = None,
         'extern "C" int gt_run(void* const* ptrs, const long long* strides, '
         "const int* dom, const int* kbv,",
         "                      const double* fsc, const long long* isc, int pI, int pJ, "
-        "void* stream, int kmode, const int* kbsz) {",
+        "void* stream, int kmode, const int* kbsz, const int* vec) {",
     ]
     for b, (n, var) in enumerate([(n, "f_" + n) for n in fields] + [
             (n, "t_" + n) for n in scratch] + [(n, "o_" + n) for n in snapshots]):
@@ -1681,7 +2059,7 @@ def generate(analysis: StencilAnalysis, serialize: Optional[bool] = None,
             f"isc[{int_scalars.index(n)}]"
         out.append(f"  const {ct} s_{n} = ({ct}){src};")
     out += ["  cudaStream_t st = (cudaStream_t)stream;",
-            "  (void)kmode; (void)kbsz;"]
+            "  (void)kmode; (void)kbsz; (void)vec;"]
     for n, p in enumerate(plans):
         out += _launch_lines(p, n, args, nsec, snap)
     out += ["  return 0;", "}", "",
@@ -1707,6 +2085,7 @@ def generate(analysis: StencilAnalysis, serialize: Optional[bool] = None,
         declined=declined,
         kb_passes=kb_passes,
         kb_promoted=kb_promoted,
+        widened={n: e for p in plans if p.planes for n, e in p.planes.widened_fields.items()},
     )
 
 
@@ -1757,8 +2136,19 @@ class CudaBackend:
         self.program = generate(analysis, serialize=options.get("serialize"),
                                 k_blocked=options.get("k_blocked"))
         LAST_PLAN[analysis.stencil.name] = self.program.plan_record()
+        #: K6's launch options: ``vector`` (None: ``VECTOR_DEFAULT``; True
+        #: runs the vector row form, repairing the geometry where it must,
+        #: or raises; False never) and ``repair`` (None: where the vector
+        #: form needs it and ``repair.cost_ok`` says it pays; True on every
+        #: non-periodic call whose fields share no phase, or raises; False
+        #: never)
+        self.vector_opt = options.get("vector")
+        self.repair_opt = options.get("repair")
         self.plain = TorchExecutor(analysis)
         self.launches = 0
+        #: calls that launched a vector kernel, and calls that were repaired
+        self.vector_launches = 0
+        self.repairs = 0
         self.derivative_calls = 0
         self.build_seconds: Optional[float] = None
         self.build_dir: Optional[str] = None
@@ -1779,7 +2169,7 @@ class CudaBackend:
             lib, self.build_dir = _build.build(self.program.source, self.analysis.stencil.name)
             lib.gt_run.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int, ctypes.c_int,
                                                            ctypes.c_void_p, ctypes.c_int,
-                                                           ctypes.c_void_p]
+                                                           ctypes.c_void_p, ctypes.c_void_p]
             lib.gt_run.restype = ctypes.c_int
             lib.gt_error_string.argtypes = [ctypes.c_int]
             lib.gt_error_string.restype = ctypes.c_char_p
@@ -1847,6 +2237,74 @@ class CudaBackend:
             hit = self._depth_plans[dK] = (kbs, plan, (ctypes.c_int * len(kbsz))(*kbsz))
         return hit
 
+    def _geometry(self, env, origins, domain, periodic, kb):
+        """K6 for one call: ``(phase, pads, copied_in, record)``.  ``phase``:
+        the J phase of the vector kernels' groups (None: the scalar row
+        form runs); ``pads``: the fields the repair copies (``repair.pads``),
+        ``copied_in`` those whose read window it copies in; ``record``: the
+        call's ``vector`` / ``repair`` / ``declined`` plan entries.  Raises
+        where a forced ``vector=True`` or ``repair=True`` cannot apply."""
+        prog = self.program
+        an = self.analysis
+        decls = an.stencil.field_decls
+        want = VECTOR_DEFAULT if self.vector_opt is None else self.vector_opt
+        vec_fields = {n for k in prog.kernels if k.vector for n in k.vector.fields
+                      if n in env}
+        record: dict = {"declined": {}}
+        if self.repair_opt and not (want and vec_fields):
+            names = [n for n in env if vector_candidate(decls[n])]
+        else:
+            names = sorted(vec_fields)
+        cons = {}
+        for n in names:
+            ptr, rec = _field_arg(env[n], origins[n])
+            cons[n] = repair.constraint(ptr, rec[:3], env[n].element_size())
+        phase = repair.common_phase(list(cons.values())) \
+            if None not in cons.values() else None
+        if not any(k.vector for k in prog.kernels):
+            record["declined"]["vector"] = "no row-form stage reaches a J-contiguous field"
+        elif not want:
+            record["declined"]["vector"] = ("vector=False" if self.vector_opt is False else
+                                            "off by default (vector=True runs it)")
+        if phase is not None:
+            if self.repair_opt:
+                raise ValueError(f"stencil '{an.stencil.name}': repair=True, but the fields "
+                                 "already share a 16-byte phase: no repair applies")
+            if want and vec_fields:
+                record["vector"] = max(k.vector.V for k in prog.kernels if k.vector)
+                return phase, {}, set(), record
+            return None, {}, set(), record
+        forced = self.repair_opt or (want and vec_fields and self.vector_opt)
+        why = "the fields share no 16-byte phase with 16-byte row and level pitches"
+        if periodic or self.repair_opt is False:
+            if forced:
+                raise ValueError(
+                    f"stencil '{an.stencil.name}': {why}, and "
+                    f"{'a periodic call is' if periodic else 'repair=False is'} not repaired")
+            if want and vec_fields:
+                record["declined"]["vector"] = why + (" (a periodic call)" if periodic else "")
+            return None, {}, set(), record
+        if not (want and vec_fields) and not self.repair_opt:
+            return None, {}, set(), record
+        phase, pads = repair.pads(env, origins, cons)
+        full = {n for n in self._written if n in pads and not (an.field_info[n].access.value & 1)
+                and repair.fully_written(prog.analysis, n, kb, domain[2])}
+        copied_in = set(pads) - full
+        nbytes = repair.copy_bytes(an, env, origins, domain, pads, copied_in,
+                                   [n for n in self._written if n in pads])
+        if not forced and not repair.cost_ok(an, nbytes, domain):
+            record["declined"]["vector"] = why
+            record["declined"]["repair"] = "cost"
+            return None, {}, set(), record
+        record["repair"] = dict(pads)
+        record["repair_in"] = sorted(copied_in)
+        record["repair_bytes"] = nbytes
+        if want and vec_fields:
+            record["vector"] = max(k.vector.V for k in prog.kernels if k.vector)
+        else:
+            phase = None
+        return phase, pads, copied_in, record
+
     def _launch(self, env, scalars, domain, origins, periodic) -> None:
         prog = self.program
         st = self.analysis.stencil
@@ -1862,6 +2320,13 @@ class CudaBackend:
                 periodic_fill(self.analysis, env, domain, origins, periodic, fill)
         lib = self.build()
 
+        kb = [(max(k0, 0), min(k1, dK))
+              for k0, k1 in (itv.resolve(dK, scalars) for itv in prog.intervals)]
+        phase, pads, copied_in, record = self._geometry(env, origins, (dI, dJ, dK), periodic, kb)
+        caller, caller_origins = env, origins
+        if pads:
+            env, origins = repair.pad_fields(self.analysis, env, origins, (dI, dJ, dK), pads,
+                                             copied_in)
         ptrs: List[int] = []
         strides: List[int] = []
         keep = []
@@ -1872,22 +2337,28 @@ class CudaBackend:
                 p, s = 0, [0] * _REC
             ptrs.append(p)
             strides += s
-        kb = [(max(k0, 0), min(k1, dK))
-              for k0, k1 in (itv.resolve(dK, scalars) for itv in prog.intervals)]
         zeroed = zero_init_temps(prog, kb)
         kbs, plan, kbsz = self._depth_plan(dK)
+        plan = {**plan, **record, "declined": {**plan["declined"], **record["declined"]}}
         LAST_PLAN[st.name] = plan
         views = {}
         for name in prog.scratch:
             ext = prog.analysis.extents.alloc_extent(name)
             decl = prog.analysis.stencil.temp_decls[name]
-            shape = (dK - ext.k[0] + ext.k[1], dI - ext.i[0] + ext.i[1],
-                     dJ - ext.j[0] + ext.j[1]) + tuple(decl.data_dims)
+            nj = dJ - ext.j[0] + ext.j[1]
+            fj = 0
+            if vector_candidate(decl):
+                # J rows of whole 16-byte words, the origin on the phase
+                m = 16 // np.dtype(decl.dtype).itemsize
+                fj = (-(phase or 0) + ext.j[0]) % m
+                nj = -(-(fj + nj) // m) * m
+            shape = (dK - ext.k[0] + ext.k[1], dI - ext.i[0] + ext.i[1], nj) + \
+                tuple(decl.data_dims)
             alloc = torch.zeros if name in zeroed else torch.empty
             t = alloc(shape, dtype=dtypes.to_torch(decl.dtype), device=device)
             keep.append(t)
             views[name] = (t.permute(1, 2, 0, *range(3, t.ndim)),
-                           (-ext.i[0], -ext.j[0], -ext.k[0]))
+                           (-ext.i[0], fj - ext.j[0], -ext.k[0]))
             p, s = _field_arg(*views[name])
             ptrs.append(p)
             strides += s
@@ -1899,6 +2370,18 @@ class CudaBackend:
             p, s = _field_arg(t, origin)
             ptrs.append(p)
             strides += s
+        if phase is not None:
+            # the repair's copies and the scratch buffers come from the
+            # allocator: their phase is checked as the caller's was
+            for name in {n for k in prog.kernels if k.vector for n in k.vector.fields}:
+                if name in views or name in pads:
+                    view, origin = views[name] if name in views else (env[name], origins[name])
+                    p, s = _field_arg(view, origin)
+                    c = repair.constraint(p, s[:3], view.element_size())
+                    if c is None or (c[0] + phase) % c[1]:
+                        raise RuntimeError(f"stencil '{st.name}': '{name}' is not on the vector "
+                                           f"kernels' 16-byte phase (J {phase})")
+        vec = [phase + 1 if phase is not None and k.vector else 0 for k in prog.kernels]
         kb = [k for bounds in kb for k in bounds]
         # rounded to the scalar's dtype here, so the kernel's conversion
         # from double is exact
@@ -1917,12 +2400,19 @@ class CudaBackend:
                 (ctypes.c_longlong * max(1, len(isc)))(*isc),
                 int("I" in periodic), int("J" in periodic),
                 ctypes.c_void_p(stream), int(kbs is not None), kbsz,
+                (ctypes.c_int * len(vec))(*vec),
             )
         if rc != 0:
             raise RuntimeError(
                 f"CUDA launch failed in stencil '{st.name}': "
                 f"{lib.gt_error_string(rc).decode()} (error {rc})"
             )
+        if pads:
+            repair.write_back(self.analysis, caller, caller_origins, env, (dI, dJ, dK), pads,
+                              [n for n in self._written if n in caller])
+            self.repairs += 1
+        if any(vec):
+            self.vector_launches += 1
         # scratch buffers go back to the caching allocator tied to the
         # stream, so reuse by later work on the same stream is ordered
         del keep

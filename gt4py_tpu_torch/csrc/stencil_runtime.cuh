@@ -49,6 +49,33 @@ struct Field {
 #define GT_DYNAMIC_SMEM(name) extern __shared__ __align__(16) unsigned char name[]
 #endif
 
+// 16-byte vector accesses of the row form's vector kernels: N elements of
+// T (N * sizeof(T) a multiple of 16) between a register array and device
+// memory, as uint4 words.  The wrapper checks, before it launches a vector
+// kernel, that every address these reach is 16-byte aligned (a common
+// phase of the fields' origins, row pitches that are multiples of 16
+// bytes); GT_VECTOR_ALIGNED lets a host build of the kernels test it at
+// each access, where a misaligned vector access would fault on the card.
+#ifndef GT_VECTOR_ALIGNED
+#define GT_VECTOR_ALIGNED(p) true
+#endif
+template <typename T, int N>
+__device__ __forceinline__ void vload(T* dst, const T* src) {
+  static_assert((N * sizeof(T)) % 16 == 0, "a whole number of 16-byte words");
+  if (!GT_VECTOR_ALIGNED(src)) return;
+#pragma unroll
+  for (int c = 0; c < (int)(N * sizeof(T) / 16); ++c)
+    reinterpret_cast<uint4*>(dst)[c] = reinterpret_cast<const uint4*>(src)[c];
+}
+template <typename T, int N>
+__device__ __forceinline__ void vstore(T* dst, const T* src) {
+  static_assert((N * sizeof(T)) % 16 == 0, "a whole number of 16-byte words");
+  if (!GT_VECTOR_ALIGNED(dst)) return;
+#pragma unroll
+  for (int c = 0; c < (int)(N * sizeof(T) / 16); ++c)
+    reinterpret_cast<uint4*>(dst)[c] = reinterpret_cast<const uint4*>(src)[c];
+}
+
 // Resolved K bounds [lo, hi) of every vertical section of the stencil.
 template <int N>
 struct KBounds {

@@ -12,7 +12,7 @@ temporaries in scratch tensors or registers.
 # NOTE: no ``from __future__ import annotations`` here -- stencil parameter
 # annotations must evaluate eagerly (closure-local Field descriptors).
 
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -448,13 +448,15 @@ class FvAdvection:
     ``step(q, cx, cy) -> q_new`` on physical K-leading (K, NI+2h+p, NJ+2h+p)
     tensors on ``device`` with periodic boundaries; Courant numbers are
     face-centered (cx at face i, cy at face j).  A step is one stencil,
-    ``fv_step``, with the periodic wrap in its loads.
+    ``fv_step``, with the periodic wrap in its loads.  ``options``: build
+    options of ``fv_step`` (``serialize``, ``vector``, ``repair``).
     """
 
     HALO = 3
 
     def __init__(self, ni: int, nj: int, nk: int, *, dtype=np.float32,
-                 backend="cuda", aligned: bool = True, device=None):
+                 backend="cuda", aligned: bool = True, device=None,
+                 options: Optional[dict] = None):
         self.ni, self.nj, self.nk = ni, nj, nk
         self.dtype = np.dtype(dtype)
         self.backend = backend
@@ -472,7 +474,7 @@ class FvAdvection:
         self.upd_y_half = make_flux_update_y(dtype, backend, factor=0.5)
         self.upd_x = make_flux_update_x(dtype, backend, factor=1.0)
         self.upd_y = make_flux_update_y(dtype, backend, factor=1.0)
-        self.fv_step = make_fv_step(dtype, backend)
+        self.fv_step = make_fv_step(dtype, backend, **(options or {}))
         self.fns = {
             # single-stencil step: qx/qy/fluxes as temporaries, periodic
             # wrap in the loads

@@ -84,12 +84,13 @@ def _windowed_step(q, u, v, dt: float, dx: float, dy: float, W: int):
     return acc
 
 
-def make_sl_stencil(dtype, backend="cuda", max_shift: int = 1):
+def make_sl_stencil(dtype, backend="cuda", max_shift: int = 1, **options):
     """The windowed semi-Lagrangian step as a stencil: ``(2W+2)^2``
     ternary-weighted neighbour reads.  ``floor(i + s) == i + floor(s)``
     for an integer i, so the displacement splits per point:
     ``di = floor(-u*dt/dx)``, ``wi`` its fractional part.  Signature:
-    ``sl(q, u, v, qout, dtdx=dt/dx, dtdy=dt/dy)``."""
+    ``sl(q, u, v, qout, dtdx=dt/dx, dtdy=dt/dy)``.  ``options``: the
+    stencil's build options."""
     from gt4py_tpu_torch.cartesian import gtscript
 
     W = int(max_shift)
@@ -142,6 +143,7 @@ def make_sl_stencil(dtype, backend="cuda", max_shift: int = 1):
         definition=ns["sl_step"],
         name=f"sl_step_w{W}_{np.dtype(dtype).name}",
         literal_precision=32 if np.dtype(dtype).itemsize <= 4 else 64,
+        **options,
     )
 
 

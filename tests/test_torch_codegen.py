@@ -45,10 +45,15 @@ def test_source_is_deterministic_with_documented_stages(factory, dtype):
     again = cuda_backend.generate(st.analysis)
     assert again.source == st.backend.source
     assert [k.form for k in again.kernels] == FORMS[factory]
-    assert st.backend.source.count("__global__") == len(FORMS[factory])
-    assert st.backend.source.count("<<<") == len(FORMS[factory])
+    # every row stage reaches a J-contiguous field: it has a vector kernel
+    # (K6) beside its scalar one, and gt_run launches one of the two
+    assert [k.vector is not None for k in again.kernels] == [
+        f == "rows" for f in FORMS[factory]]
+    n = len(FORMS[factory]) + FORMS[factory].count("rows")
+    assert st.backend.source.count("__global__") == n
+    assert st.backend.source.count("<<<") == n
     # every launch is followed by a launch-error check
-    assert st.backend.source.count("cudaGetLastError()") == len(FORMS[factory])
+    assert st.backend.source.count("cudaGetLastError()") == n
     # the source note names the TPU kernel it replaces and the bound
     assert "pallas_backend.py:1428 PallasBackend._pallas_trace" in st.backend.source
     assert "Bound on the H100: device-memory bandwidth" in st.backend.source
@@ -316,7 +321,9 @@ def test_card_test_stencils_generate(name):
     from .test_torch_cuda import DEFS
 
     st = gtscript.stencil(backend="cuda", definition=DEFS[name], rebuild=True)
-    assert st.backend.source.count("__global__") == len(st.backend.program.kernels) >= 1
+    kernels = st.backend.program.kernels
+    assert st.backend.source.count("__global__") == len(kernels) + sum(
+        k.vector is not None for k in kernels) >= 1
 
 
 def _zeroed(st, dK, scalars=None):

@@ -788,3 +788,79 @@ def test_torch_func_grad_through_k8(cuda_device):
     assert torch.equal(torch.func.grad(loss)(s0["u"]), ref)
     out, pull = torch.func.vjp(loss, s0["u"])
     assert torch.equal(pull(torch.ones_like(out))[0], ref)
+
+
+def plane_ring(a: P64, c: P64):
+    with computation(FORWARD):
+        with interval(0, 1):
+            t = a
+            c = t
+        with interval(1, None):
+            c = t[1, 0, -1]
+            t = a * 2.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("periodic", [(), ("I", "J")], ids=["plain", "periodic"])
+def test_plane_ring_widened_vs_plain(cuda_device, periodic):
+    """A ring read at points its writer does not compute: the writer is
+    widened (``LAST_PLAN[...]["widened"]``), bit for bit against plain."""
+    from gt4py_tpu_torch.cartesian.backend import cuda_backend
+
+    shape, domain = (74, 94, 9), (70, 90, 9)
+    st, got = _card_run(plane_ring, shape, domain, cuda_device, periodic=periodic)
+    assert cuda_backend.LAST_PLAN["plane_ring"]["widened"] == {"t": [[0, 1], [0, 0]]}
+    _, ref = _card_run(plane_ring, shape, domain, cuda_device, backend="torch", periodic=periodic)
+    for k, v in ref.items():
+        assert torch.equal(got[k], v), k
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [np.float64, np.float32], ids=["f64", "f32"])
+def test_k6_vector_and_repair_vs_plain(cuda_device, dtype):
+    """K6: hdiff on halo-3 buffers with J rows of 77 items (no whole number
+    of 16-byte words in float32 or float64: repaired) and halo-2 ones of 76
+    (one phase: the vector form with no copy), against the scalar form and
+    the plain executor, bit for bit."""
+    from gt4py_tpu_torch.cartesian.backend import cuda_backend
+
+    rng = np.random.default_rng(6)
+    for halo, nj in ((3, 71), (2, 72)):
+        shape = (9, 20 + 2 * halo, nj + 2 * halo)
+        u = torch.from_numpy(rng.random(shape).astype(dtype)).to(cuda_device)
+        c = torch.from_numpy(0.025 * rng.random(shape).astype(dtype)).to(cuda_device)
+        kw = dict(origin=(halo, halo, 0), domain=(20, nj, 9), physical_layout=True)
+        got = {}
+        for label, backend, options in (("vector", "cuda", {"vector": True}),
+                                        ("scalar", "cuda", {"vector": False}),
+                                        ("plain", "torch", {})):
+            st = dycore.make_hdiff(dtype, backend, **options)
+            got[label] = st.functional(**kw)(in_field=u, out_field=u, coeff=c)["out_field"]
+            torch.cuda.synchronize()
+            if label == "vector":
+                plan = cuda_backend.LAST_PLAN[st.name]
+                assert plan["vector"] == 16 // np.dtype(dtype).itemsize, plan
+                assert bool(plan.get("repair")) == (halo == 3), plan
+        for label in ("vector", "scalar"):
+            assert torch.equal(got[label], got["plain"]), (halo, label)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("aligned", [True, False], ids=["aligned", "tight"])
+def test_shallow_water_vs_plain(cuda_device, aligned):
+    """ShallowWater's steps (periodic on aligned buffers, local on halo-2
+    ones): three steps on the kernels, bit for bit against plain."""
+    from gt4py_tpu_torch.models import ShallowWater
+
+    got = {}
+    for backend in ("cuda", "torch"):
+        m = ShallowWater(24, 72, 6, dtype=np.float32, backend=backend, aligned=aligned,
+                         device=cuda_device)
+        s = m.init_state()
+        step = m.step_fn() if aligned else m.local_step_fn()
+        h, u, v = s["h"], s["u"], s["v"]
+        for _ in range(3):
+            h, u, v = step(h, u, v)
+        got[backend] = (h, u, v)
+    for a, b in zip(got["cuda"], got["torch"]):
+        assert torch.equal(a, b)

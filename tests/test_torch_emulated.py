@@ -73,10 +73,27 @@ struct dim3 {
 inline dim3 blockIdx, threadIdx, blockDim, gridDim;
 typedef int cudaError_t;
 const cudaError_t cudaSuccess = 0;
+const cudaError_t cudaErrorMisalignedAddress = 716;
 typedef struct CUstream_st* cudaStream_t;
 enum cudaFuncAttribute { cudaFuncAttributeMaxDynamicSharedMemorySize = 8 };
-inline cudaError_t cudaGetLastError() { return cudaSuccess; }
-inline const char* cudaGetErrorString(cudaError_t) { return "emulated"; }
+struct alignas(16) uint4 { unsigned x, y, z, w; };
+// a misaligned 16-byte access faults the launch, as on the card: the access
+// is skipped and cudaGetLastError reports it
+inline cudaError_t gt_emu_error = cudaSuccess;
+inline bool gt_emu_aligned16(const void* p) {
+  if ((reinterpret_cast<size_t>(p) & 15) == 0) return true;
+  gt_emu_error = cudaErrorMisalignedAddress;
+  return false;
+}
+#define GT_VECTOR_ALIGNED(p) gt_emu_aligned16(p)
+inline cudaError_t cudaGetLastError() {
+  const cudaError_t e = gt_emu_error;
+  gt_emu_error = cudaSuccess;
+  return e;
+}
+inline const char* cudaGetErrorString(cudaError_t e) {
+  return e == cudaErrorMisalignedAddress ? "misaligned address (emulated)" : "emulated";
+}
 template <typename K>
 inline cudaError_t cudaFuncSetAttribute(K, cudaFuncAttribute, int) { return cudaSuccess; }
 
@@ -138,21 +155,23 @@ inline void run_block(const std::function<void()>& fn, size_t smem_bytes) {
     blockDim = block;                                                       \
     if (smem_bytes) {                                                       \
       const std::function<void()> fn_ = [&] { kernel(__VA_ARGS__); };       \
-      for (unsigned by = 0; by < gridDim.y; ++by)                           \
-        for (unsigned bx = 0; bx < gridDim.x; ++bx) {                       \
-          blockIdx = dim3(bx, by);                                          \
-          gt_emu::run_block(fn_, smem_bytes);                               \
-        }                                                                   \
+      for (unsigned bz = 0; bz < gridDim.z; ++bz)                           \
+        for (unsigned by = 0; by < gridDim.y; ++by)                         \
+          for (unsigned bx = 0; bx < gridDim.x; ++bx) {                     \
+            blockIdx = dim3(bx, by, bz);                                    \
+            gt_emu::run_block(fn_, smem_bytes);                             \
+          }                                                                 \
       break;                                                                \
     }                                                                       \
-    for (unsigned by = 0; by < gridDim.y; ++by)                             \
-      for (unsigned bx = 0; bx < gridDim.x; ++bx)                           \
-        for (unsigned ty = 0; ty < blockDim.y; ++ty)                        \
-          for (unsigned tx = 0; tx < blockDim.x; ++tx) {                    \
-            blockIdx = dim3(bx, by);                                        \
-            threadIdx = dim3(tx, ty);                                       \
-            kernel(__VA_ARGS__);                                            \
-          }                                                                 \
+    for (unsigned bz = 0; bz < gridDim.z; ++bz)                             \
+      for (unsigned by = 0; by < gridDim.y; ++by)                           \
+        for (unsigned bx = 0; bx < gridDim.x; ++bx)                         \
+          for (unsigned ty = 0; ty < blockDim.y; ++ty)                      \
+            for (unsigned tx = 0; tx < blockDim.x; ++tx) {                  \
+              blockIdx = dim3(bx, by, bz);                                  \
+              threadIdx = dim3(tx, ty);                                     \
+              kernel(__VA_ARGS__);                                          \
+            }                                                               \
   } while (0)
 """
 

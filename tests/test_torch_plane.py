@@ -120,6 +120,19 @@ def before_write(a: F, c: F):
             t = a * 2.0
 
 
+def ring(a: F, c: F):
+    # an earlier level read at the neighbour's point, before the plane's
+    # writer, which the extent analysis leaves at the tile's own points: the
+    # writer is widened so that each CTA computes its ring there itself
+    with computation(FORWARD):
+        with interval(0, 1):
+            t = a
+            c = t
+        with interval(1, None):
+            c = t[1, 0, -1]
+            t = a * 2.0
+
+
 def runtime_bound(a: F, out: F, *, kmid: int):
     # serialize_parallel_k declines a runtime interval bound
     with computation(PARALLEL):
@@ -143,6 +156,8 @@ CASES = {
     "ahead": (ahead, (12, 10, 6), (1, 1, 0), (10, 8, 6), {}),
     "ahead_backward": (ahead_backward, (12, 11, 6), (1, 2, 0), (10, 8, 6), {}),
     "before_write": (before_write, (12, 11, 6), (1, 1, 0), (10, 9, 6), {}),
+    # two tiles on each axis, so the widened points lie in another CTA's tile
+    "ring": (ring, (23, 36, 5), (1, 1, 0), (20, 34, 5), {}),
 }
 
 
@@ -189,6 +204,7 @@ def test_plane_form_emulated_vs_oracle_and_pallas(emulated, monkeypatch, name, p
     plan = cuda_backend.LAST_PLAN[defn.__name__]
     assert "planes" in plan["forms"] and st.backend.launches == 1, plan
     assert plan["serialized"] == (name == "mixed"), plan
+    assert plan["widened"] == ({"t": [[0, 1], [0, 0]]} if name == "ring" else {}), plan
     # the JAX package fills a periodic input's halos in place; the port in
     # a copy: the written fields are the result
     for k in _written(st):
