@@ -5,6 +5,11 @@ Run from the repository root with no arguments:
 
     python3 chip_smoke.py
 
+``python3 chip_smoke.py --k9-layouts`` runs only the sweep that chose
+``benes.layout``: K9's device time at the FVM's two permute sizes in each
+layout of ``K9_LAYOUTS`` (inner block 2^b, outer row segment 2^c) with 8
+and 16 registers a thread, each result bitwise equal to ``x[sigma]``.
+
 Phases (a failed phase raises, and the script exits non-zero):
 
 1. require a CUDA device; print the torch, CUDA and nvcc versions and the
@@ -47,17 +52,23 @@ Phases (a failed phase raises, and the script exits non-zero):
    at a time and 20 back to back; the host's enqueue time per call), and
    hdiff once more on K-contiguous fields;
 8. the unstructured gather path: the K9 kernel (``next/benes.py``,
-   ``csrc/benes.cu``) on raw permutations (P = 2^17, 2^17 + 311, 2^20 in
-   float32, 2^17 in int32 with NaN-aliasing patterns) against its plain
-   version and ``x[sigma]``, bit for bit; bench.py's unstructured FVM step
+   ``csrc/benes.cu``: three launches, each CTA's words in registers)
+   on raw permutations (P = 2^17, 2^17 + 311, 2^20 and 2^24 in float32,
+   2^17 in int32 with NaN-aliasing patterns) against its plain version and
+   ``x[sigma]``, bit for bit, with its kernel launches per permute counted
+   by the library (``benes.KERNEL.device_launches``);
+   bench.py's unstructured FVM step
    at n = 512 float32 on ``grid_mesh`` (affine windows) and
    ``shuffled_mesh(512, 7)`` (sort-routed, K9), 10 steps with the
    planners on against 10 on the index path (``config.AFFINE_GATHER =
    config.SORT_GATHER = False``), bit for bit, with K9's launches read
-   around the irregular run; CUDA-event times of the step (one call at a
-   time, 20 back to back, the host's enqueue time), of K9 per permute
-   against ``torch.index_select`` of the same permutation and its bound,
-   and a ``torch.profiler`` breakdown of the irregular step; then one
+   around the irregular run (the permutes and the library's kernel
+   launches); CUDA-event times of the step (one call at a time, 20 back
+   to back, the host's enqueue time), of K9 per permute against
+   ``torch.index_select`` of the same permutation and its bound (one call
+   at a time, and device time and kernel launches from
+   ``torch.profiler``), and a ``torch.profiler`` breakdown of the
+   irregular step; then one
    MiniDycore and one FvAdvection step in bfloat16 at 512x512x80 against
    plain (phase 5 also runs the bfloat16 stencil);
 9. gradients (K8, ``gt4py_tpu_torch/cartesian/backend/autodiff.py``): the
@@ -79,11 +90,19 @@ Phases (a failed phase raises, and the script exits non-zero):
    of values the sweep has not written yet, and the mixed stencils of ``tests/cartesian/test_serialize_parallel.py`` in the
    plane-sweep form, float64 at 64x256x16, bounded and periodic, bit for
    bit against plain; (b) the deep-K MiniDycore step at 128x128x2048
-   float32: 10 steps with ``vadv_update`` K-blocked (K4, its KB read from
-   ``LAST_PLAN``) against 10 steps of the one-pass build
-   (``k_blocked=False``) and 10 plain ones, bit for bit, and both forms
-   timed, with K4's plain counterpart (the blocks through the plain
-   executor); (c) fv_step at 512x512x80 float32 built with
+   float32: 10 steps with ``vadv_update`` K-blocked (K4: one launch per
+   column loop over a ring of shared-memory slots, the launches counted
+   by the stencil's library; its KB, slots, shared bytes and CTAs per SM
+   read from ``LAST_PLAN``, its registers from ptxas) against 10 steps of
+   the one-pass build (``k_blocked=False``) and 10 plain ones, bit for
+   bit, and both forms timed one call at a time and in three back-to-back
+   pairs, with K4's plain counterpart (the blocks through the plain
+   executor); K4 at 512x512x80 float32 against one pass, bit for bit and
+   timed, for the record; vadv_update K4 against one pass at 128x128 and
+   depths 80 to 1024, and at wider domains (``WIDE``), bit for bit and in
+   back-to-back pairs, each checking the default build's choice
+   (``cuda_backend.kb_default``); (c) fv_step at
+   512x512x80 float32 built with
    ``serialize=True`` (its 13 row stages as one plane-sweep kernel)
    against the row form, bit for bit and timed in turns.
 
@@ -124,15 +143,27 @@ HBM_BYTES_PER_S = 3.35e12
 #: phase 8: bench.py's unstructured FVM size and K9's raw permutations
 FVM_N = 512
 K9_RAW = [(1 << 17, "float32"), ((1 << 17) + 311, "float32"), (1 << 20, "float32"),
-          (1 << 17, "int32")]
+          (1 << 24, "float32"), (1 << 17, "int32")]
+#: ``--k9-layouts``: the FVM's permute sizes at n = 512 (E2V columns,
+#: V2E), and the layouts (b, c) timed at each with 2^e registers a thread
+K9_LAYOUT_SIZES = (523264, 1 << 20)
+K9_LAYOUTS = [(10, 3), (11, 3), (11, 4), (12, 3), (12, 4), (13, 3), (13, 4)]
+K9_REG_LOG2 = (3, 4)
 #: the JAX package's chip test's NaN/Inf/sign bit patterns (int32 leg)
 NAN_PATTERNS = [0x7F800001, 0x7FC00000, 0x7F800000, 0xFF800000, 0x80000000, 0xFFFFFFFF]
 PLAIN_TIMING_REPS = 3
 BACK_TO_BACK = 20
 NI, NJ, NK = 512, 512, 80
 SMALL = (64, 256, 16)
-#: phase 10 (b): the deep-K MiniDycore (K4)
+#: phase 10 (b): the deep-K MiniDycore (K4), and the depths at which K4
+#: and one pass are timed against each other at 128 x 128 (K4's default
+#: threshold, ``cuda_backend.KB_DEFAULT_DEPTH``, comes from these runs)
 DEEP = (128, 128, 2048)
+DEPTHS = (80, 128, 256, 512, 1024)
+#: phase 10 (b): wider deep domains, where one pass already fills the card
+#: (512 x 512 at most 1024 levels: at 2048 the card ran out of memory
+#: beside what the earlier phases hold)
+WIDE = ((256, 256, 512), (512, 512, 512), (256, 256, 2048), (512, 512, 1024))
 #: phase 11 (a): the shapes of tests/cartesian/test_geometry_repair.py:
 #: stencil -> ({field: (I, J, K) buffer shape}, origins, domain)
 _ZERO = (0, 0, 0)
@@ -235,8 +266,10 @@ def _time_chain_ms(step, state, n):
     return a.elapsed_time(b) / n
 
 
-def _ptxas(st) -> str:
-    log = open(os.path.join(st.backend.build_dir, "build.log")).read()
+def _ptxas(st, build_dir=None) -> str:
+    """ptxas' registers and spill stores of a stencil's kernels (or of the
+    build in ``build_dir``)."""
+    log = open(os.path.join(build_dir or st.backend.build_dir, "build.log")).read()
     regs = [int(r) for r in re.findall(r"Used (\d+) registers", log)]
     spills = [int(s) for s in re.findall(r"(\d+) bytes spill stores", log)]
     return f"registers {regs}, spill stores {spills}"
@@ -361,13 +394,44 @@ def _perm(P, seed):
 
 def _k9_bytes(plan) -> dict:
     """K9's bytes: ``function``, what the permutation must move (x in,
-    y out, the control bits read once); ``model``, what this design moves
-    (the padded copy in and out, the inner pass over every word, 8 bytes
-    per element for each outer stage, every bit-plane once)."""
-    bits = plan.bits.nbytes
-    outer = 2 * (plan.k - plan.b)
-    return {"function": 8 * plan.P + bits,
-            "model": 8 * plan.P + 8 * plan.n2 + 8 * plan.n2 * outer + bits}
+    y out, the network's control bits read once, one bit per pair and
+    stage); ``model``, what this design moves (pass A reads the P words and
+    writes n2 to the scratch buffer, the inner pass reads and writes n2,
+    pass C reads n2 and writes the P words of the result; one pass moves P
+    in and P out; the packed bits once, one bit per word and stage)."""
+    pair_bits = (2 * plan.k - 1) * plan.n2 // 16
+    moved = 8 * plan.P + (16 * plan.n2 if plan.launches == 3 else 0)
+    return {"function": 8 * plan.P + pair_bits, "model": moved + plan.bits.nbytes}
+
+
+def _device_ms(fn, n=20):
+    """Device milliseconds per call of ``fn`` from ``torch.profiler`` (the
+    device events over ``n`` calls), and by kernel: name -> (ms, launches)
+    per call; (None, {}) when the profiler shows no device time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    rows = {}
+    for _ in range(2):  # the profiler now and then records no device event: once more
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+        for e in prof.key_averages():
+            if e.device_type == DeviceType.CPU:
+                continue
+            us = getattr(e, "self_device_time_total", None)
+            if us is None:
+                us = getattr(e, "self_cuda_time_total", 0)
+            if us > 0:
+                rows[e.key[:90]] = (us / n / 1e3, e.count / n)
+        if rows:
+            break
+    total = sum(ms for ms, _ in rows.values())
+    return (total if total > 0 else None), rows
 
 
 def _k9_raw(dev) -> list:
@@ -388,15 +452,20 @@ def _k9_raw(dev) -> list:
             words = rng.integers(0, 2 ** 32, P, dtype=np.uint64).astype(np.uint32)
             words[:len(NAN_PATTERNS)] = NAN_PATTERNS
             x = torch.from_numpy(words.view(np.int32)).to(dev)
-        before = benes.KERNEL.launches
+        benes.KERNEL.build()
+        before = benes.KERNEL.launches, benes.KERNEL.device_launches
         got = benes.permute(x, keys)
         torch.cuda.synchronize()
-        launched = benes.KERNEL.launches - before
-        if launched <= 0:
-            raise AssertionError(f"K9 P={P} {dt}: the kernel was not launched")
+        launched = benes.KERNEL.launches - before[0]
+        device = benes.KERNEL.device_launches - before[1]
+        if launched != 1:
+            raise AssertionError(f"K9 P={P} {dt}: {launched} permutes ran the kernel")
         sig = torch.from_numpy(sigma).to(dev)
         ref = x[sig]
         plan = benes._plan(keys)
+        if device != plan.launches or device != 3:
+            raise AssertionError(f"K9 P={P} {dt}: {device} kernel launches counted, "
+                                 f"{plan.launches} planned (3 wanted)")
         plain = torch.zeros(plan.n2, dtype=torch.int32, device=dev)
         plain[:P] = x.view(torch.int32)
         benes.plain_inplace(plain, plan)
@@ -406,10 +475,12 @@ def _k9_raw(dev) -> list:
             raise AssertionError(f"K9 P={P} {dt}: kernel != its plain version")
         # int32 words were compared bit for bit above
         err = float((got - ref).abs().max()) if dt == "float32" else 0.0
-        print(f"K9 P={P} {dt}: launches {launched}, bitwise equal to x[sigma] and to the "
-              f"plain butterfly (n2 = 2^{plan.k}, block 2^{plan.b}, "
-              f"{2 * (plan.k - plan.b)} outer stages), max abs err {err:.3e}")
-        out.append({"P": P, "dtype": dt, "launches": launched, "max_abs_err": err})
+        print(f"K9 P={P} {dt}: launches {launched}, {device} kernel launches counted for the "
+              f"permute, bitwise equal to x[sigma] and to the plain butterfly (n2 = 2^{plan.k}, "
+              f"block 2^{plan.b}, row segment 2^{plan.c}: {plan.record()}), max abs err "
+              f"{err:.3e}")
+        out.append({"P": P, "dtype": dt, "launches": launched, "device_launches": device,
+                    "max_abs_err": err, "plan": plan.record()})
     return out
 
 
@@ -443,11 +514,16 @@ def _fvm(dev) -> dict:
             raise AssertionError(f"FVM {label}: a gather has no affine plan ({affine})")
         declines = benes.DECLINES.cursor()
         benes.KERNEL.launches = 0
+        device_before = benes.KERNEL.device_launches
         psi = psi0
         for _ in range(STEPS):
             psi = step(psi)
         torch.cuda.synchronize()
         k9 = benes.KERNEL.launches
+        k9_device = benes.KERNEL.device_launches - device_before
+        if k9_device != 3 * k9:
+            raise AssertionError(f"FVM {label}: {k9_device} K9 kernel launches counted for "
+                                 f"{k9} permutes (3 each wanted)")
         if irregular and k9 == 0:
             raise AssertionError("FVM irregular: K9 was never launched")
         if benes.DECLINES.since(declines):
@@ -472,7 +548,8 @@ def _fvm(dev) -> dict:
         medges = mesh.n_edges / ms / 1e3
         print(f"FVM {label} n={FVM_N} f32 ({mesh.n_vertices} vertices, {mesh.n_edges} edges): "
               f"plans affine {affine}, sort-routed {routed}; K9 launches over {STEPS} steps "
-              f"{k9}; {STEPS} steps bitwise equal to the index path; set-up {setup_s:.2f} s")
+              f"{k9} ({k9_device} kernel launches counted); {STEPS} steps bitwise equal to the "
+              f"index path; set-up {setup_s:.2f} s")
         print(f"FVM {label}: {ms:.4f} ms per step one call at a time ({medges:.1f} Medges/s), "
               f"{b2b:.4f} ms back to back ({BACK_TO_BACK} calls, "
               f"{mesh.n_edges / b2b / 1e3:.1f} Medges/s), host enqueue {host:.4f} ms/step; "
@@ -481,6 +558,7 @@ def _fvm(dev) -> dict:
         summary[label] = {"ms": ms, "b2b_ms": b2b, "host_ms": host, "medges_s": medges,
                           "index_ms": index_ms, "index_b2b_ms": index_b2b,
                           "index_host_ms": index_host, "k9_launches": k9,
+                          "k9_device_launches": k9_device,
                           "n_edges": mesh.n_edges, "setup_s": setup_s}
         cases[label] = case
     summary["irregular"]["profile"] = _profile(cases["irregular"],
@@ -533,7 +611,11 @@ def _k9_entry(dev, raw, fvm) -> dict:
     """K9's entry of the kernels line: its launches on the irregular FVM
     run, and its time per permute at the FVM's two shapes (E2V columns,
     P = 523264 padded to 2^19; V2E, P = 2^20) against its plain version,
-    ``torch.index_select`` of the same permutation, and its bound."""
+    ``torch.index_select`` of the same permutation, and its bound: one
+    call at a time (CUDA events, host launch included) and device time
+    (``torch.profiler``, whose ``benes_pass`` launches per permute must be
+    3).  Its device launches per permute are those counted on the
+    irregular FVM run."""
     import numpy as np
     import torch
 
@@ -549,27 +631,49 @@ def _k9_entry(dev, raw, fvm) -> dict:
         sig = torch.from_numpy(sigma).to(dev)
         plan = benes._plan(keys)
         ms = _time_ms(lambda: benes.permute(x, keys), TIMING_REPS)
+        b2b, host = _time_b2b_ms(lambda: benes.permute(x, keys), BACK_TO_BACK)
+        dev_ms, rows = _device_ms(lambda: benes.permute(x, keys))
+        profiled = sum(n for key, (_, n) in rows.items() if "benes_pass" in key) \
+            if rows else None
+        if profiled is not None and profiled != 3:
+            raise AssertionError(f"K9 {name}: the profiler shows {profiled} benes_pass "
+                                 "launches per permute (3 wanted)")
         buf = torch.zeros(plan.n2, dtype=torch.int32, device=dev)
         plain_ms = _time_ms(lambda: benes.plain_inplace(buf, plan), PLAIN_TIMING_REPS)
         lib_ms = _time_ms(lambda: torch.index_select(x, 0, sig), TIMING_REPS)
+        lib_b2b, lib_host = _time_b2b_ms(lambda: torch.index_select(x, 0, sig), BACK_TO_BACK)
+        lib_dev_ms, _ = _device_ms(lambda: torch.index_select(x, 0, sig))
         nbytes = _k9_bytes(plan)
-        per_shape[name] = {"P": P, "n2": plan.n2, "ms": ms, "plain_ms": plain_ms,
-                           "library_ms": lib_ms, "bound_ms": _bound_ms(nbytes["function"]),
+        per_shape[name] = {"P": P, "n2": plan.n2, "layout": [plan.b, plan.c],
+                           "profiled_launches_per_permute": profiled, "ms": ms,
+                           "b2b_ms": b2b, "host_ms": host, "device_ms": dev_ms,
+                           "plain_ms": plain_ms, "library_ms": lib_ms, "library_b2b_ms": lib_b2b,
+                           "library_host_ms": lib_host, "library_device_ms": lib_dev_ms,
+                           "bound_ms": _bound_ms(nbytes["function"]),
                            "model_ms": _bound_ms(nbytes["model"])}
-        print(f"K9 {name} P={P} (n2 2^{plan.k}): kernel {ms:.4f} ms per permute, plain "
-              f"{plain_ms:.4f} ms, torch.index_select {lib_ms:.4f} ms; bound "
-              f"{per_shape[name]['bound_ms']:.4f} ms ({nbytes['function']} B), this design's "
-              f"traffic {per_shape[name]['model_ms']:.4f} ms ({nbytes['model']} B) at 3.35 TB/s")
+        fmt = lambda v: "not measured" if v is None else f"{v:.4f} ms"  # noqa: E731
+        print(f"K9 {name} P={P} (n2 2^{plan.k}, b {plan.b}, c {plan.c}, {profiled} benes_pass "
+              f"launches per permute in the profile, {plan.record()}): kernel {ms:.4f} ms per "
+              f"permute one call at a "
+              f"time, {b2b:.4f} back to back (host enqueue {host:.4f}), device {fmt(dev_ms)}; "
+              f"plain {plain_ms:.4f} ms; torch.index_select {lib_ms:.4f} ms, {lib_b2b:.4f} back "
+              f"to back (host {lib_host:.4f}), device {fmt(lib_dev_ms)}; bound "
+              f"{per_shape[name]['bound_ms']:.4f} ms "
+              f"({nbytes['function']} B), this design's traffic {per_shape[name]['model_ms']:.4f} "
+              f"ms ({nbytes['model']} B) at 3.35 TB/s")
     v = per_shape["v2e"]
+    irregular = fvm["summary"]["irregular"]
     return {
         "name": "benes_permute (K9)",
         "route": "cuda",
         "source": "gt4py_tpu_torch/csrc/benes.cu",
         "replaces": "gt4py_tpu/next/benes.py:253 permute (_inner_kernel :213, pallas_call "
                     ":308; outer stages _xla_stage :204)",
-        "launches": fvm["summary"]["irregular"]["k9_launches"],
+        "launches": irregular["k9_launches"],
+        "device_launches_per_permute": irregular["k9_device_launches"] / irregular["k9_launches"],
         "max_abs_err": max(r["max_abs_err"] for r in raw),
         "ms": v["ms"],
+        "device_ms": v["device_ms"],
         "plain_ms": v["plain_ms"],
         "bound_ms": v["bound_ms"],
         "bound_by": "bytes",
@@ -1059,10 +1163,13 @@ def _fv_planes(fd, fv_planes) -> dict:
             "shared": len(plan["shared"]), "scratch": len(plan["scratch"])}
 
 
-def _deep_k(deep, dev) -> dict:
+def _deep_k(deep, deep512, dev) -> dict:
     """Phase 10 (b): 10 deep-K MiniDycore steps with vadv_update K-blocked
     against 10 of the one-pass build and 10 plain ones, bit for bit; the
-    times of both forms and of K4's plain counterpart."""
+    times of both forms (one call at a time and back to back, in turns)
+    and of K4's plain counterpart; then K4 at 512x512x80, the depth sweep
+    and the wide domains.  K4's launches on the K-blocked run are counted
+    by vadv_update's library: one per column loop and call."""
     import torch
 
     from gt4py_tpu_torch import testing
@@ -1075,11 +1182,17 @@ def _deep_k(deep, dev) -> dict:
         step = m.step_fn()
         for st in (m.hdiff, m.vadv_upd):
             if label != "plain":
+                st.backend.build()
                 st.backend.launches = 0
+        if label == "kblocked":
+            counted = m.vadv_upd.backend.device_launches()
         s = state0
         for _ in range(STEPS):
             s = step(s)
         torch.cuda.synchronize()
+        if label == "kblocked":
+            now = m.vadv_upd.backend.device_launches()
+            k4_device = sum(now["kblocked"]) - sum(counted["kblocked"])
         runs[label] = s
         if label != "plain":
             launches[label] = {"hdiff": m.hdiff.backend.launches,
@@ -1103,13 +1216,23 @@ def _deep_k(deep, dev) -> dict:
                              ATOL_F32)
                 raise AssertionError(f"deep-K {field}: K4 and {other} differ")
         errs[field] = 0.0
-    kbs = mk.vadv_upd.backend.program.kblock_plan(DEEP[2])[0]
-    if kplan["kblocked"]["KB"] != kbs or not all(8 <= k < DEEP[2] for k in kbs):
-        raise AssertionError(f"deep-K: KB {kplan['kblocked']['KB']}, planned {kbs}")
+    kbs = mk.vadv_upd.backend.program.kblock_plan(DEEP[0] * DEEP[1], DEEP[2])[0]
+    kb = kplan["kblocked"]
+    if kb["KB"] != kbs or not all(8 <= k < DEEP[2] for k in kbs):
+        raise AssertionError(f"deep-K: KB {kb['KB']}, planned {kbs}")
+    n_loops = len(kb["KB"])
+    calls = launches["kblocked"]["vadv_update"]
+    if kb["launches_per_loop"] != [1] * n_loops or min(kb["slots"]) < 2 \
+            or k4_device != n_loops * calls:
+        raise AssertionError(f"deep-K: K4 plan {kb}, {k4_device} K4 launches counted over "
+                             f"{calls} calls")
     print(f"deep-K MiniDycore {DEEP} f32: {STEPS} steps, launches {launches}; vadv_update "
-          f"K-blocked with KB {kplan['kblocked']['KB']} over {kplan['kblocked']['passes']} passes "
-          f"(promoted {kplan['kblocked']['promoted']}); u and utens_stage bitwise equal to the "
-          f"one-pass build and to plain")
+          f"K-blocked with KB {kb['KB']} over {kb['passes']} passes (promoted {kb['promoted']}), "
+          f"{kb['launches_per_loop']} launches per column loop (counted), {k4_device} K4 "
+          f"launches counted over the {calls} calls, {kb['slots']} slots, "
+          f"{kb['smem_bytes']} shared bytes, {kb['ctas_per_sm']} CTAs per SM "
+          f"(cudaOccupancyMaxActiveBlocksPerMultiprocessor), ptxas {_ptxas(mk.vadv_upd)}; "
+          f"u and utens_stage bitwise equal to the one-pass build and to plain")
 
     diffused = mp.hdiff_fn_p(in_field=state0["u"], out_field=state0["u"],
                              coeff=state0["coeff"])["out_field"]
@@ -1121,6 +1244,11 @@ def _deep_k(deep, dev) -> dict:
     t["one_pass_again"] = _time_ms(lambda: mo.vadv_upd_fn_p(**args), TIMING_REPS)
     steps = {"kblocked": _time_ms(lambda: mk.step_fn()(state0), TIMING_REPS),
              "one_pass": _time_ms(lambda: mo.step_fn()(state0), TIMING_REPS)}
+    # back to back, in turns: K4, one pass, K4, one pass, ...
+    pairs = []
+    for _ in range(3):
+        pairs.append((_time_b2b_ms(lambda: mk.vadv_upd_fn_p(**args), BACK_TO_BACK // 2)[0],
+                      _time_b2b_ms(lambda: mo.vadv_upd_fn_p(**args), BACK_TO_BACK // 2)[0]))
 
     # K4's plain counterpart on the same call: the passes' blocks through the
     # plain executor, on the logical (I, J, K) views of the physical buffers
@@ -1136,12 +1264,156 @@ def _deep_k(deep, dev) -> dict:
     whole_plain_ms = _time_ms(lambda: mp.vadv_upd_fn_p(**args), 1, warmup=1)
     print(f"deep-K vadv_update {DEEP} f32: K-blocked {t['kblocked']:.4f} / "
           f"{t['kblocked_again']:.4f} ms, one pass {t['one_pass']:.4f} / "
-          f"{t['one_pass_again']:.4f} ms (in turns, one call at a time); step K-blocked "
-          f"{steps['kblocked']:.4f} ms, one pass {steps['one_pass']:.4f} ms; plain counterpart "
-          f"(blocks) {plain_ms:.4f} ms, whole plain {whole_plain_ms:.4f} ms")
-    return {"launches": launches, "plan": kplan, "ms": t, "step_ms": steps,
-            "plain_ms": plain_ms, "whole_plain_ms": whole_plain_ms, "max_abs_err": errs,
-            "analysis": mk.vadv_upd.analysis}
+          f"{t['one_pass_again']:.4f} ms (in turns, one call at a time); back to back "
+          f"({BACK_TO_BACK // 2} calls) K-blocked / one pass: "
+          + "; ".join(f"{a:.4f} / {b:.4f}" for a, b in pairs)
+          + f" ms; step K-blocked {steps['kblocked']:.4f} ms, one pass {steps['one_pass']:.4f} "
+          f"ms; plain counterpart (blocks) {plain_ms:.4f} ms, whole plain {whole_plain_ms:.4f} ms")
+    headline = _kblocked_512(deep512)
+    depths = _depth_sweep(dev)
+    wide = _wide_sweep(dev)
+    return {"launches": launches, "k4_device_launches": k4_device,
+            "depths": depths, "wide": wide, "plan": kplan, "ms": t, "step_ms": steps,
+            "b2b_pairs_ms": pairs, "plain_ms": plain_ms, "whole_plain_ms": whole_plain_ms,
+            "max_abs_err": errs, "at_512x512x80": headline, "analysis": mk.vadv_upd.analysis}
+
+
+def _depth_sweep(dev) -> dict:
+    """vadv_update at 128 x 128 x dK for each of ``DEPTHS``, K4
+    (``k_blocked=True``) against one pass (``k_blocked=False``): bit for
+    bit, then timed in turns, one call at a time and back to back (two
+    pairs each)."""
+    import numpy as np
+    import torch
+
+    from gt4py_tpu_torch.models import dycore
+
+    from gt4py_tpu_torch.cartesian.backend.cuda_backend import LAST_PLAN, kb_default
+
+    out = {}
+    for dK in DEPTHS:
+        m = {label: dycore.MiniDycore(DEEP[0], DEEP[1], dK, dtype=np.float32, backend="cuda",
+                                      device=dev, options=options)
+             for label, options in (("kblocked", {"k_blocked": True}),
+                                    ("one_pass", {"k_blocked": False}), ("default", {}))}
+        state = m["one_pass"].init_state(seed=0)
+        diffused = m["one_pass"].hdiff_fn_p(in_field=state["u"], out_field=state["u"],
+                                            coeff=state["coeff"])["out_field"]
+        args = dict(utens_stage=state["utens_stage"], u_stage=diffused, wcon=state["wcon"],
+                    u_pos=diffused, utens=state["utens"], u_out=state["u"], dtr_stage=3.0)
+        calls = {label: (lambda md=md: md.vadv_upd_fn_p(**args)) for label, md in m.items()}
+        default = calls.pop("default")()
+        default_k4 = bool(LAST_PLAN[m["default"].vadv_upd.name]["kblocked"])
+        if default_k4 != kb_default(DEEP[0] * DEEP[1], dK):
+            raise AssertionError(f"K4 at depth {dK}: the default K-blocked {default_k4}")
+        got, ref = calls["kblocked"](), calls["one_pass"]()
+        torch.cuda.synchronize()
+        for k, v in ref.items():
+            if not (torch.equal(got[k], v) and torch.equal(default[k], v)):
+                raise AssertionError(f"K4 at depth {dK}: {k} differs from the one-pass build")
+        row = {"ms": {label: [] for label in calls}, "b2b_ms": {label: [] for label in calls}}
+        for _ in range(2):
+            for label, fn in calls.items():
+                row["ms"][label].append(_time_ms(fn, TIMING_REPS))
+                row["b2b_ms"][label].append(_time_b2b_ms(fn, BACK_TO_BACK // 2)[0])
+        row["default_kblocked"] = default_k4
+        out[dK] = row
+        print(f"K4 vadv_update {DEEP[0]}x{DEEP[1]}x{dK} f32 (the default build K-blocked: "
+              f"{default_k4}), bitwise equal; K-blocked / one "
+              f"pass, back to back: " + "; ".join(
+                  f"{a:.4f} / {b:.4f}" for a, b in zip(row["b2b_ms"]["kblocked"],
+                                                       row["b2b_ms"]["one_pass"]))
+              + " ms; one call at a time: " + "; ".join(
+                  f"{a:.4f} / {b:.4f}" for a, b in zip(row["ms"]["kblocked"],
+                                                       row["ms"]["one_pass"])) + " ms")
+    return out
+
+
+def _wide_sweep(dev) -> dict:
+    """vadv_update on the ``WIDE`` domains, where one pass already has a
+    thread for most of the card: K4 (``k_blocked=True``) against one pass
+    (``k_blocked=False``), bit for bit and with the default build's choice
+    checked against ``cuda_backend.kb_default``, then three back-to-back
+    pairs in turns.  Each domain's models are freed before the next."""
+    import numpy as np
+    import torch
+
+    from gt4py_tpu_torch.cartesian.backend.cuda_backend import LAST_PLAN, kb_default
+    from gt4py_tpu_torch.models import dycore
+
+    out = {"held_gib": torch.cuda.memory_allocated(dev) / 2 ** 30}
+    print(f"K4 wide domains: {out['held_gib']:.2f} GiB of device memory held by the earlier "
+          "phases")
+    for dI, dJ, dK in WIDE:
+        m = {label: dycore.MiniDycore(dI, dJ, dK, dtype=np.float32, backend="cuda",
+                                      device=dev, options=options)
+             for label, options in (("kblocked", {"k_blocked": True}),
+                                    ("one_pass", {"k_blocked": False}), ("default", {}))}
+        state = m["one_pass"].init_state(seed=0)
+        diffused = m["one_pass"].hdiff_fn_p(in_field=state["u"], out_field=state["u"],
+                                            coeff=state["coeff"])["out_field"]
+        args = dict(utens_stage=state["utens_stage"], u_stage=diffused, wcon=state["wcon"],
+                    u_pos=diffused, utens=state["utens"], u_out=state["u"], dtr_stage=3.0)
+        calls = {label: (lambda md=md: md.vadv_upd_fn_p(**args)) for label, md in m.items()}
+        ref = calls["one_pass"]()
+        for label in ("default", "kblocked"):
+            got = calls[label]()
+            plan = LAST_PLAN[m[label].vadv_upd.name]
+            if label == "default":
+                default_k4 = bool(plan["kblocked"])
+                if default_k4 != kb_default(dI * dJ, dK):
+                    raise AssertionError(f"K4 at {dI}x{dJ}x{dK}: the default K-blocked "
+                                         f"{default_k4}")
+            else:
+                kb = plan["kblocked"]
+            for k, v in ref.items():
+                if not torch.equal(got[k], v):
+                    raise AssertionError(f"K4 at {dI}x{dJ}x{dK}: {label} {k} differs from "
+                                         "one pass")
+            del got
+        del calls["default"]
+        pairs = [(_time_b2b_ms(calls["kblocked"], BACK_TO_BACK // 2)[0],
+                  _time_b2b_ms(calls["one_pass"], BACK_TO_BACK // 2)[0]) for _ in range(3)]
+        out[f"{dI}x{dJ}x{dK}"] = {"b2b_pairs_ms": pairs, "default_kblocked": default_k4,
+                                  "KB": kb["KB"], "ctas_per_sm": kb["ctas_per_sm"]}
+        print(f"K4 vadv_update {dI}x{dJ}x{dK} f32 ({dI * dJ} columns, KB {kb['KB']}, "
+              f"{kb['ctas_per_sm']} CTAs per SM; the default build K-blocked: {default_k4}), "
+              f"bitwise equal; K-blocked / one pass, back to back ({BACK_TO_BACK // 2} calls): "
+              + "; ".join(f"{a:.4f} / {b:.4f}" for a, b in pairs) + " ms")
+        del m, state, diffused, args, calls, ref
+        torch.cuda.empty_cache()
+    return out
+
+
+def _kblocked_512(deep512) -> dict:
+    """K4's vadv_update at 512x512x80 float32 against the one-pass build
+    (the default there), for the record: bit for bit, and both timed in
+    turns, one call at a time."""
+    import torch
+
+    from gt4py_tpu_torch.cartesian.backend.cuda_backend import LAST_PLAN
+
+    mk, mo = deep512["kblocked"], deep512["one_pass"]
+    state = mo.init_state(seed=0)
+    diffused = mo.hdiff_fn_p(in_field=state["u"], out_field=state["u"],
+                             coeff=state["coeff"])["out_field"]
+    args = dict(utens_stage=state["utens_stage"], u_stage=diffused, wcon=state["wcon"],
+                u_pos=diffused, utens=state["utens"], u_out=state["u"], dtr_stage=3.0)
+    got = mk.vadv_upd_fn_p(**args)
+    kb = LAST_PLAN[mk.vadv_upd.name]["kblocked"]
+    ref = mo.vadv_upd_fn_p(**args)
+    torch.cuda.synchronize()
+    for k, v in ref.items():
+        if not torch.equal(got[k], v):
+            raise AssertionError(f"K4 at 512x512x80: {k} differs from the one-pass build")
+    t = {}
+    for label in ("kblocked", "one_pass", "kblocked_again", "one_pass_again"):
+        m = mk if label.startswith("kblocked") else mo
+        t[label] = _time_ms(lambda: m.vadv_upd_fn_p(**args), TIMING_REPS)
+    print(f"K4 vadv_update 512x512x80 f32 (KB {kb['KB']}, {kb['ctas_per_sm']} CTAs per SM): "
+          f"{t['kblocked']:.4f} / {t['kblocked_again']:.4f} ms against one pass "
+          f"{t['one_pass']:.4f} / {t['one_pass_again']:.4f} ms (in turns), bitwise equal")
+    return {"ms": t, "KB": kb["KB"], "ctas_per_sm": kb["ctas_per_sm"]}
 
 
 # --------------------------------------------------------------------------- #
@@ -1685,10 +1957,13 @@ def main() -> int:
             for label, backend, options in (("kblocked", "cuda", {"k_blocked": True}),
                                             ("one_pass", "cuda", {"k_blocked": False}),
                                             ("plain", "torch", {}))}
+    deep512 = {"kblocked": dycore.MiniDycore(NI, NJ, NK, dtype=np.float32, backend="cuda",
+                                             device=dev, options={"k_blocked": True}),
+               "one_pass": models["f32"][0].dyn}
     fv_planes = fv_advection.make_fv_step(np.float32, "cuda", serialize=True)
     phase10_stencils = [md_split.fused] + [p["cuda"] for p in plane_defs.values()] + [
         deep["kblocked"].hdiff, deep["kblocked"].vadv_upd, deep["one_pass"].vadv_upd,
-        fv_planes]
+        deep512["kblocked"].vadv_upd, fv_planes]
     # phase 11: the repair shapes, ShallowWater, the tight-halo steps, the
     # aligned stencils in the vector and the scalar form (one source each)
     p11 = _phase11_models(dev)
@@ -1705,6 +1980,7 @@ def main() -> int:
     for st in main_stencils + phase10_stencils:
         print(f"built {st.name}: {len(st.backend.program.kernels)} kernels "
               f"{[k.form for k in st.backend.program.kernels]}, {_ptxas(st)}")
+    print(f"built K9 (csrc/benes.cu, benes_pass): {_ptxas(None, benes.KERNEL.build_dir)}")
 
     # -- 3. kernel against plain (MiniDycore stencils) ----------------------
     errors = {}
@@ -2093,7 +2369,7 @@ def main() -> int:
     # -- 10. plan modes: the plane-sweep form, K-blocked passes -------------
     planes = _plane_modes(plane_defs, dev)
     planes["fv_step_serialized"] = _fv_planes(fd, fv_planes)
-    deep_k = _deep_k(deep, dev)
+    deep_k = _deep_k(deep, deep512, dev)
     kernels.append({
         "name": f"K4 K-blocked passes: vadv_upd_float32 at {DEEP[0]}x{DEEP[1]}x{DEEP[2]}",
         "route": "cuda",
@@ -2105,7 +2381,14 @@ def main() -> int:
         "plain_ms": deep_k["plain_ms"],
         **_bound(deep_k.pop("analysis"), DEEP),
         "one_pass_ms": deep_k["ms"]["one_pass"],
+        "b2b_pairs_ms": deep_k["b2b_pairs_ms"],
+        "device_launches_per_call": deep_k["k4_device_launches"]
+        / deep_k["launches"]["kblocked"]["vadv_update"],
+        "launches_per_loop": deep_k["plan"]["kblocked"]["launches_per_loop"],
         "KB": deep_k["plan"]["kblocked"]["KB"],
+        "slots": deep_k["plan"]["kblocked"]["slots"],
+        "ctas_per_sm": deep_k["plan"]["kblocked"]["ctas_per_sm"],
+        "ms_512x512x80": deep_k["at_512x512x80"]["ms"]["kblocked"],
     })
 
     # -- 11. K6: the vector row form and the repair -------------------------
@@ -2124,5 +2407,46 @@ def main() -> int:
     return 0
 
 
+def k9_layouts() -> int:
+    """``--k9-layouts``: K9's device time per permute (``torch.profiler``)
+    in each layout and register count, bitwise checked; one JSON line."""
+    import numpy as np
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from gt4py_tpu_torch.next import benes
+
+    dev = torch.device("cuda", 0)
+    smi = _nvidia_smi()
+    out = {}
+    for P in K9_LAYOUT_SIZES:
+        sigma, _ = _perm(P, 11)
+        words = torch.from_numpy(np.random.default_rng(12).random(P).astype(np.float32)) \
+            .to(dev).view(torch.int32)
+        ref = words[torch.from_numpy(sigma).to(dev)]
+        k = max(1, int(P - 1).bit_length())
+        ctrl = benes.route(np.concatenate([sigma, np.arange(P, 1 << k)]))
+        saved = benes._REG_LOG2
+        for b, c in K9_LAYOUTS:
+            for e in K9_REG_LOG2:
+                benes._REG_LOG2 = e  # the plan's programs keep what it was built with
+                try:
+                    plan = benes.Plan(P, k, ctrl, b, c)
+                finally:
+                    benes._REG_LOG2 = saved
+                if not torch.equal(benes.KERNEL.launch(words, plan), ref):
+                    raise AssertionError(f"K9 P={P} b={b} c={c} e={e}: kernel != x[sigma]")
+                out[f"P{P}_b{b}_c{c}_e{e}"] = _device_ms(
+                    lambda: benes.KERNEL.launch(words, plan))[0]
+    print(f"card: {smi}")
+    print("K9 device ms per permute by layout: " + ", ".join(
+        f"{key} {'not measured' if v is None else f'{v:.4f}'}" for key, v in out.items()))
+    print(json.dumps({"k9_layouts_device_ms": out, "card": smi}))
+    return 0
+
+
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(k9_layouts() if sys.argv[1:] == ["--k9-layouts"] else main())

@@ -36,13 +36,20 @@ emitters turn each vertical loop into ``__global__`` kernels:
   built with ``serialize=False``; a read this form cannot order between
   CTAs declines it, naming the read.
 - **K-blocked passes** (K4; Pallas ``_trace_kblocked``/``_run_k_blocks``).
-  Built with ``k_blocked=True``, each column-form loop runs once per K
-  block, blocks in the loop's order, its sections' K bounds clipped at
-  launch; the block's window of the loop's read-only inputs is staged in
-  shared memory with coalesced loads.  Carries cross blocks in the
-  scratch buffers.  Eligibility is the JAX package's.  One pass is the
-  default: on the H100 it ran deep K (128 x 128 x 2048) 3x faster than
-  K4, whose 180 KiB windows hold one 64-thread CTA per SM (PERF.md).
+  Each column-form loop has a K-blocked variant: one launch
+  (``<loop>_kb``) in which every thread sweeps its column block by block
+  in the loop's order, its sections' K bounds clipped per block in the
+  kernel.  The window of the loop's read-only inputs for each block of KB
+  levels lies in a ring of ``KB_SLOTS`` slots in shared memory: block
+  b + 1's window is copied in with ``cp.async`` (``gt::async_copy``; 16
+  bytes where a row is contiguous and aligned) while block b is swept.
+  KB is the largest candidate whose ring leaves ``KB_CTAS_PER_SM`` CTAs
+  on a SM.  Carries cross blocks in the scratch buffers.  Eligibility is
+  the JAX package's.  Built with ``k_blocked`` unset, a stencil runs K4
+  from ``KB_DEFAULT_DEPTH`` levels on at most ``KB_DEFAULT_COLUMNS``
+  columns and one pass elsewhere (``kb_default``, PERF.md);
+  ``k_blocked=False`` keeps one pass.  The library counts its launches
+  (``gt_launch_counts``); the plan records each loop's.
 - **Vector row form and geometry repair** (K6; Pallas ``_trace_repaired``
   and its gate ``_halos_ij``).  Every row stage that reaches a
   J-contiguous field has a second kernel in which a thread computes V
@@ -109,7 +116,8 @@ wanted, the launch runs inside ``autodiff``'s ``torch.autograd.Function``
 executor; otherwise the kernels run alone, as for serving.
 
 ``LAST_PLAN[stencil name]`` records each stencil's plan: its kernels'
-forms, whether it was serialized or K-blocked (passes, KB, promoted
+forms, whether it was serialized or K-blocked (passes, KB, launches per
+loop, slots, shared bytes and CTAs per SM of the ring, promoted
 temporaries), the plane tile, where temporaries live, writers the
 plane-sweep form widened for ring reads (``widened``), the vector width
 (``vector``) and the repaired fields' pads (``repair``) of the last call,
@@ -189,6 +197,39 @@ PLANE_TILES = ((16, 32), (8, 32), (4, 32), (2, 32), (1, 32))
 KB_TILE_J, KB_TILE_I = 32, 2
 #: K block sizes K4 tries after the whole depth (Pallas ``_KB_CANDIDATES``)
 KB_CANDIDATES = (512, 256, 128, 64, 32, 16, 8)
+#: K4's ring: slots of KB levels in shared memory (block b + 1 loads while
+#: block b is swept), and the CTAs a SM should hold: KB is the largest
+#: candidate whose ring leaves that many CTAs of the H100's 228 KiB of
+#: shared memory a SM (1 KiB of it reserved per CTA)
+KB_SLOTS = 2
+KB_CTAS_PER_SM = 4
+SMEM_PER_SM = 228 * 1024
+SMEM_PER_CTA_RESERVED = 1024
+KB_SMEM_BUDGET = SMEM_PER_SM // KB_CTAS_PER_SM - SMEM_PER_CTA_RESERVED
+#: Built with ``k_blocked`` unset, a stencil runs K4 (where it is
+#: eligible) on a depth of at least ``KB_DEFAULT_DEPTH`` levels and at
+#: most ``KB_DEFAULT_COLUMNS`` columns, one pass elsewhere; ``k_blocked=
+#: True`` blocks everywhere, ``False`` nowhere.  On the H100 (vadv_update
+#: float32, back-to-back pairs of ``chip_smoke.py`` phase 10, PERF.md) K4
+#: won every pair at 128 x 128 from 512 levels (at 256 the runs
+#: disagreed) and at 256 x 256 at 512 and 2048 levels; at 512 x 512 the
+#: two were within 0.7 % (K4 behind at 512 levels, ahead at 2048): one
+#: pass there already has a thread for most of the card.
+KB_DEFAULT_DEPTH = 512
+KB_DEFAULT_COLUMNS = 256 * 256
+#: the reason the default records where it keeps one pass
+KB_DEFAULT_ONE_PASS = "one pass, the default (k_blocked=True blocks)"
+
+
+def kb_default(columns: int, dK: int) -> bool:
+    """Whether a stencil built with ``k_blocked`` unset runs K4 (where it
+    is eligible) on ``columns`` = dI x dJ columns of ``dK`` levels."""
+    return dK >= KB_DEFAULT_DEPTH and columns <= KB_DEFAULT_COLUMNS
+
+
+#: the reason a plan records where the default runs K4
+KB_DEFAULT_REASON = (f"the default at a depth of {KB_DEFAULT_DEPTH} levels or more on at "
+                     f"most {KB_DEFAULT_COLUMNS} columns")
 
 #: threads per block along J (coalesced) and I
 BLOCK_J, BLOCK_I = 64, 4
@@ -517,19 +558,40 @@ def _widen_writers(analysis: StencilAnalysis, secs, ring_reads, written, behind:
 class WindowPlan:
     """K4's window of a column-form loop: the fields it reads and does not
     write, staged per K block, as (name, rows, columns, K halo levels,
-    value bytes, offset hull)."""
+    value bytes, offset hull); ``lanes[n]``: the elements of array n one
+    16-byte ``cp.async`` copies (0: the array's values are converted from a
+    narrower storage type and loaded synchronously).  A slot holds one
+    block's window, rows padded to whole 16-byte words; the ring holds
+    ``slots`` of them."""
 
     arrays: List[Tuple[str, int, int, int, int, Extent]]
+    lanes: List[int] = field(default_factory=list)
+    slots: int = KB_SLOTS
+
+    def pitch(self, n: int) -> int:
+        """Elements between the rows of array ``n`` in shared memory."""
+        nj, lanes = self.arrays[n][2], self.lanes[n]
+        return -(-nj // lanes) * lanes if lanes else nj
+
+    def array_bytes(self, n: int, kb: int) -> int:
+        _, ni, _, kh, size, _ = self.arrays[n]
+        return _align16(ni * self.pitch(n) * (kb + kh) * size)
+
+    def slot_bytes(self, kb: int) -> int:
+        return sum(self.array_bytes(n, kb) for n in range(len(self.arrays)))
 
     def smem_bytes(self, kb: int) -> int:
-        return max(16, sum(_align16(ni * nj * (kb + kh) * size)
-                           for _, ni, nj, kh, size, _ in self.arrays))
+        return max(16, self.slots * self.slot_bytes(kb))
 
     def choose_kb(self, dK: int) -> Optional[int]:
-        """The largest of (dK, 512, 256, ..., 8) whose window fits a CTA."""
-        for kb in (dK,) + tuple(k for k in KB_CANDIDATES if k < dK):
-            if self.smem_bytes(kb) <= SMEM_MAX:
-                return kb
+        """The largest of (dK, 512, 256, ..., 8) whose ring leaves
+        ``KB_CTAS_PER_SM`` CTAs on a SM; where even 8 levels leave fewer,
+        the largest whose ring fits one CTA (None: none fits)."""
+        cands = (dK,) + tuple(k for k in KB_CANDIDATES if k < dK)
+        for budget in (KB_SMEM_BUDGET, SMEM_MAX):
+            for kb in cands:
+                if self.smem_bytes(kb) <= budget:
+                    return kb
         return None
 
 
@@ -572,7 +634,7 @@ class KernelPlan:
     reads: List[str] = field(default_factory=list)
     writes: List[str] = field(default_factory=list)
     planes: Optional[PlanePlan] = None
-    #: the K-window variant K4 launches per block (column form only)
+    #: the K-window variant K4 launches (column form only)
     window: Optional[WindowPlan] = None
     #: the vector variant (row form only, when a J-contiguous field exists)
     vector: Optional[VectorPlan] = None
@@ -1021,11 +1083,11 @@ class _Emitter:
         column in the tile, ``kb0``: the block's first level)."""
         if self.window is None or not isinstance(acc.offset, ir.CartesianOffset):
             return None
-        for name, ni, nj, _, _, h in self.window.arrays:
+        for n, (name, ni, _, _, _, h) in enumerate(self.window.arrays):
             if name == acc.name:
                 off = acc.offset
                 return (f"w_{name}[((k + {off.k - h.k[0]} - kb0) * {ni} + (ti + "
-                        f"{off.i - h.i[0]})) * {nj} + (tj + {off.j - h.j[0]})]")
+                        f"{off.i - h.i[0]})) * {self.window.pitch(n)} + (tj + {off.j - h.j[0]})]")
         return None
 
     def _snapshot(self, acc: ir.FieldAccess) -> bool:
@@ -1390,12 +1452,16 @@ def _plan_window(analysis: StencilAnalysis, p: KernelPlan, locals_) -> WindowPla
                     continue
                 o = Extent.from_offset(r.offset.i, r.offset.j, r.offset.k)
                 hull[r.name] = hull.get(r.name, o) | o
-    arrays = []
+    arrays, lanes = [], []
     for n, h in hull.items():
         if n not in skip:
+            size = _value_size(st.decl(n).dtype)
             arrays.append((n, KB_TILE_I + h.i[1] - h.i[0], KB_TILE_J + h.j[1] - h.j[0],
-                           h.k[1] - h.k[0], _value_size(st.decl(n).dtype), h))
-    return WindowPlan(arrays=arrays)
+                           h.k[1] - h.k[0], size, h))
+            # stored as held: copied asynchronously, 16 bytes where it can
+            lanes.append(16 // size if np.dtype(st.decl(n).dtype).itemsize == size
+                         and size in (4, 8) else 0)
+    return WindowPlan(arrays=arrays, lanes=lanes)
 
 
 def vector_candidate(decl) -> bool:
@@ -1491,9 +1557,13 @@ class CudaProgram:
     serialized: bool = False
     #: form -> why it declined
     declined: Dict[str, str] = field(default_factory=dict)
-    #: K4: ``split_serial_passes``'s passes and promoted temporaries
+    #: K4: ``split_serial_passes``'s passes and promoted temporaries;
+    #: built with ``k_blocked`` unset (K4 where ``kb_default`` says),
+    #: and why K4 cannot run the stencil (None: it can)
     kb_passes: int = 0
     kb_promoted: List[str] = field(default_factory=list)
+    kb_default: bool = False
+    kb_declined_deep: Optional[str] = None
     #: plane-sweep writers widened for ring reads: field -> rectangle
     widened: Dict[str, Extent] = field(default_factory=dict)
 
@@ -1514,12 +1584,15 @@ class CudaProgram:
             "declined": dict(self.declined),
         }
 
-    def kblock_plan(self, dK: int):
-        """``(KB per window kernel, None)`` when K4 runs at depth ``dK``,
-        else ``(None, reason)``."""
+    def kblock_plan(self, columns: int, dK: int):
+        """``(KB per window kernel, None)`` when K4 runs on ``columns`` =
+        dI x dJ columns of ``dK`` levels, else ``(None, reason)``; built
+        with ``k_blocked`` unset, K4 runs where ``kb_default`` says."""
         windows = [k.window for k in self.kernels if k.window is not None]
+        if self.kb_default and not kb_default(columns, dK):
+            return None, KB_DEFAULT_ONE_PASS
         if not windows:
-            return None, self.declined["kblocked"]
+            return None, self.kb_declined_deep
         if dK < 2:
             return None, "a depth below 2"
         kbs = [w.choose_kb(dK) for w in windows]
@@ -1528,69 +1601,162 @@ class CudaProgram:
         return kbs, None
 
 
-def _emit_plain_kernel(em: _Emitter, p: KernelPlan, params: List[str], bpp: int,
-                       window: bool = False) -> List[str]:
-    """A row-form stage or a column-form loop; with ``window``, K4's
-    variant of a column loop (one K block per launch, its read-only inputs
-    staged in shared memory)."""
+def _emit_plain_kernel(em: _Emitter, p: KernelPlan, params: List[str], bpp: int) -> List[str]:
+    """A row-form stage or a column-form loop."""
     ind = "    "
-    if window:
-        wp = p.window
-        nthreads = KB_TILE_I * KB_TILE_J
-        out = [
-            "",
-            f"// {p.name}_kb: K-blocked column form ({p.order.name}), one K block per launch, "
-            f"rect I{p.rect.i} J{p.rect.j}; staged: {', '.join(a[0] for a in wp.arrays) or '-'}",
-            f"__global__ void __launch_bounds__({nthreads}) {p.name}_kb(",
-            "    " + ",\n    ".join(params + ["int kb0", "int kb1", "int KB"]) + ") {",
-            "  GT_DYNAMIC_SMEM(gt_smem);",
-            "  const int tj = (int)threadIdx.x, ti = (int)threadIdx.y;",
-            f"  const int bj = {p.rect.j[0]} + (int)blockIdx.x * {KB_TILE_J}, "
-            f"bi = {p.rect.i[0]} + (int)blockIdx.y * {KB_TILE_I};",
-            "  const int j = bj + tj, i = bi + ti;",
-            "  size_t o_ = 0;",
-        ]
-        for name, ni, nj, kh, size, h in wp.arrays:
-            dt = em.stencil.decl(name).dtype
-            ct = _ctype(dt)
-            var = ("t_" if name in em.stencil.temp_decls else "f_") + name
-            load = em.global_access(ir.FieldAccess(name), i="gi", j="gj", k="gk")
-            if np.dtype(dt) in _HALF:
-                load = f"{_HALF[np.dtype(dt)][0]}({load})"
-            out += [
-                f"  {ct}* const w_{name} = ({ct}*)(gt_smem + o_);",
-                f"  o_ += ((size_t){ni * nj * size} * (size_t)(KB + {kh}) + 15) / 16 * 16;",
-                f"  for (int p_ = ti * {KB_TILE_J} + tj; p_ < {ni * nj} * (kb1 - kb0 + {kh}); "
-                f"p_ += {nthreads}) {{",
-                f"    const int kk = p_ / {ni * nj}, r_ = p_ % {ni * nj};",
-                f"    const int gi = bi + {h.i[0]} + r_ / {nj}, gj = bj + {h.j[0]} + r_ % {nj}, "
-                f"gk = kb0 + {h.k[0]} + kk;",
-                f"    if (gi < dI + {p.rect.i[1] + h.i[1]} && gj < dJ + {p.rect.j[1] + h.j[1]} "
-                f"&& gk >= {var}.klo && gk <= {var}.khi) w_{name}[p_] = {load};",
-                "  }",
-            ]
-        out += ["  __syncthreads();",
-                f"  if (i >= dI + {p.rect.i[1]} || j >= dJ + {p.rect.j[1]}) return;"]
-        em.window = wp
-    else:
-        out = [
-            "",
-            f"// {p.name}: {p.form} form ({p.order.name}), rect I{p.rect.i} J{p.rect.j}; "
-            f"~{bpp} bytes per grid point",
-            f"__global__ void __launch_bounds__({BLOCK_J * BLOCK_I}) {p.name}(",
-            "    " + ",\n    ".join(params) + ") {",
-            f"  const int j = {p.rect.j[0]} + (int)(blockIdx.x * blockDim.x + threadIdx.x);",
-            f"  const int i = {p.rect.i[0]} + (int)(blockIdx.y * blockDim.y + threadIdx.y);",
-            f"  if (i >= dI + {p.rect.i[1]} || j >= dJ + {p.rect.j[1]}) return;",
-        ]
+    out = [
+        "",
+        f"// {p.name}: {p.form} form ({p.order.name}), rect I{p.rect.i} J{p.rect.j}; "
+        f"~{bpp} bytes per grid point",
+        f"__global__ void __launch_bounds__({BLOCK_J * BLOCK_I}) {p.name}(",
+        "    " + ",\n    ".join(params) + ") {",
+        f"  const int j = {p.rect.j[0]} + (int)(blockIdx.x * blockDim.x + threadIdx.x);",
+        f"  const int i = {p.rect.i[0]} + (int)(blockIdx.y * blockDim.y + threadIdx.y);",
+        f"  if (i >= dI + {p.rect.i[1]} || j >= dJ + {p.rect.j[1]}) return;",
+    ]
     for sid, stmts in p.sections:
         out.append(_k_loop(p.order, sid, "  "))
         out += em.registers(stmts, ind)
         for s in stmts:
             out += em.guarded(s, p.rect, ind)
         out.append("  }")
-    em.window = None
     return out + ["}"]
+
+
+def _window_params(params: List[str]) -> List[str]:
+    """A K4 kernel's parameters: the stencil's, the section bounds as
+    ``kb_all`` (each block clips its own ``kb``), and the block size."""
+    return [q.replace("> kb", "> kb_all") if q.startswith("gt::KBounds<") else q
+            for q in params] + ["int KB"]
+
+
+def _window_sizes(w: WindowPlan) -> List[str]:
+    """C declarations of a window kernel's slot layout in KB: each staged
+    array's byte offset in a slot (``a<n>_``) and the slot's bytes."""
+    out, at = [], "0"
+    for n, (_, ni, _, kh, size, _) in enumerate(w.arrays):
+        out.append(f"a{n}_ = {at}")
+        at = f"a{n}_ + ((size_t){ni * w.pitch(n) * size} * (size_t)(KB + {kh}) + 15) / 16 * 16"
+    return out + [f"slot_ = {at}"]
+
+
+def _emit_window_kernel(em: _Emitter, p: KernelPlan, params: List[str]) -> List[str]:
+    """K4's variant of a column loop (``<loop>_kb``): one launch; each
+    thread sweeps its column block by block in the loop's order, the
+    block's window of read-only inputs in a ring of ``slots`` slots in
+    shared memory, each block's window copied in with ``cp.async`` (16
+    bytes where the row is contiguous and aligned, one element otherwise)
+    while the blocks before it are swept."""
+    wp = p.window
+    S = wp.slots
+    nthreads = KB_TILE_I * KB_TILE_J
+    nsec = next(q for q in params if q.startswith("gt::KBounds<")).split()[0]
+    fwd = p.order == ir.LoopOrder.FORWARD
+    which = "b_" if fwd else "nb_ - 1 - b_"
+    out = [
+        "",
+        f"// {p.name}_kb: K-blocked column form ({p.order.name}), one launch sweeping the K "
+        f"blocks through a ring of {S} slots, rect I{p.rect.i} J{p.rect.j}; staged: "
+        f"{', '.join(a[0] for a in wp.arrays) or '-'}",
+        f"__global__ void __launch_bounds__({nthreads}) {p.name}_kb(",
+        "    " + ",\n    ".join(_window_params(params)) + ") {",
+        "  GT_DYNAMIC_SMEM(gt_smem);",
+        "  const int tj = (int)threadIdx.x, ti = (int)threadIdx.y;",
+        f"  const int tid_ = ti * {KB_TILE_J} + tj;",
+        f"  const int bj = {p.rect.j[0]} + (int)blockIdx.x * {KB_TILE_J}, "
+        f"bi = {p.rect.i[0]} + (int)blockIdx.y * {KB_TILE_I};",
+        "  const int j = bj + tj, i = bi + ti;",
+        "  const int nb_ = (dK + KB - 1) / KB;",
+        "  const size_t " + ", ".join(_window_sizes(wp)) + ";",
+        "  (void)tid_;",
+        f"  // the b_-th block in the sweep's order: its levels, into slot b_ % {S}",
+        "  auto stage_ = [&](int b_) {",
+        f"    const int kb0 = ({which}) * KB, kb1 = kb0 + KB < dK ? kb0 + KB : dK;",
+        f"    unsigned char* const s_ = gt_smem + (size_t)(b_ % {S}) * slot_;",
+    ]
+    for n, (name, ni, nj, kh, size, h) in enumerate(wp.arrays):
+        dt = em.stencil.decl(name).dtype
+        ct = _ctype(dt)
+        var = ("t_" if name in em.stencil.temp_decls else "f_") + name
+        V, pitch = wp.lanes[n], wp.pitch(n)
+
+        def at(j: str, em=em, name=name) -> str:
+            return em.global_access(ir.FieldAccess(name), i="gi", j=j, k="gk")
+
+        ilim = f"dI + {p.rect.i[1] + h.i[1]}"
+        jlim = f"dJ + {p.rect.j[1] + h.j[1]}"
+        kmask = f"gk < {var}.klo || gk > {var}.khi"
+        out += ["    {", f"      {ct}* const w_ = ({ct}*)(s_ + a{n}_);"]
+        if V:
+            nch = -(-nj // V)
+            out += [
+                f"      for (int p_ = tid_; p_ < {ni * nch} * (kb1 - kb0 + {kh}); "
+                f"p_ += {nthreads}) {{",
+                f"        const int kk = p_ / {ni * nch}, r_ = p_ % {ni * nch};",
+                f"        const int row_ = r_ / {nch}, c_ = (r_ % {nch}) * {V};",
+                f"        const int gi = bi + {h.i[0]} + row_, gj = bj + {h.j[0]} + c_, "
+                f"gk = kb0 + {h.k[0]} + kk;",
+                f"        if (gi >= {ilim} || {kmask}) continue;",
+                f"        {ct}* const d_ = w_ + (kk * {ni} + row_) * {pitch} + c_;",
+                f"        const {ct}* const a_ = &{at('gj')};",
+                f"        if (c_ + {V} <= {nj} && gj + {V - 1} < {jlim} && "
+                f"&{at(f'gj + {V - 1}')} == a_ + {V - 1} && "
+                "(reinterpret_cast<size_t>(a_) & 15) == 0) {",
+                "          gt::async_copy<16>(d_, a_);",
+                "        } else {",
+                f"          for (int e_ = 0; e_ < {V} && c_ + e_ < {nj} && gj + e_ < {jlim}; ++e_)",
+                f"            gt::async_copy<{size}>(d_ + e_, &{at('gj + e_')});",
+                "        }",
+                "      }",
+            ]
+        else:
+            load = at("gj")
+            if np.dtype(dt) in _HALF:
+                load = f"{_HALF[np.dtype(dt)][0]}({load})"
+            out += [
+                f"      for (int p_ = tid_; p_ < {ni * nj} * (kb1 - kb0 + {kh}); "
+                f"p_ += {nthreads}) {{",
+                f"        const int kk = p_ / {ni * nj}, r_ = p_ % {ni * nj};",
+                f"        const int gi = bi + {h.i[0]} + r_ / {nj}, "
+                f"gj = bj + {h.j[0]} + r_ % {nj}, gk = kb0 + {h.k[0]} + kk;",
+                f"        if (gi < {ilim} && gj < {jlim} && !({kmask})) "
+                f"w_[(kk * {ni} + r_ / {nj}) * {pitch} + r_ % {nj}] = {load};",
+                "      }",
+            ]
+        out.append("    }")
+    out += [
+        "  };",
+        f"  for (int b_ = 0; b_ < {S - 1}; ++b_) {{",
+        "    if (b_ < nb_) stage_(b_);",
+        "    gt::async_commit();",
+        "  }",
+        "  for (int b_ = 0; b_ < nb_; ++b_) {",
+        f"    if (b_ + {S - 1} < nb_) stage_(b_ + {S - 1});",
+        "    gt::async_commit();",
+        f"    gt::async_wait<{S - 1}>();",
+        "    __syncthreads();",
+        f"    const int kb0 = ({which}) * KB, kb1 = kb0 + KB < dK ? kb0 + KB : dK;",
+        f"    unsigned char* const s_ = gt_smem + (size_t)(b_ % {S}) * slot_;",
+        "    (void)kb1; (void)s_;",
+    ]
+    for n, (name, *_rest) in enumerate(wp.arrays):
+        ct = _ctype(em.stencil.decl(name).dtype)
+        out.append(f"    const {ct}* const w_{name} = (const {ct}*)(s_ + a{n}_);")
+    out += [f"    if (i < dI + {p.rect.i[1]} && j < dJ + {p.rect.j[1]}) {{",
+            f"      {nsec} kb = kb_all;"]
+    for sid, _ in p.sections:
+        out += [f"      kb.lo[{sid}] = kb_all.lo[{sid}] > kb0 ? kb_all.lo[{sid}] : kb0;",
+                f"      kb.hi[{sid}] = kb_all.hi[{sid}] < kb1 ? kb_all.hi[{sid}] : kb1;"]
+    em.window = wp
+    ind = "        "
+    for sid, stmts in p.sections:
+        out.append(_k_loop(p.order, sid, "      "))
+        out += em.registers(stmts, ind)
+        for s in stmts:
+            out += em.guarded(s, p.rect, ind)
+        out.append("      }")
+    em.window = None
+    return out + ["    }", "    __syncthreads();", "  }", "}"]
 
 
 def _window_var(name: str, oi: int, ok: int) -> str:
@@ -1825,11 +1991,13 @@ def _emit_snapshot(name: str, kernel: str, ctype: str) -> List[str]:
 
 def _launch_lines(p: KernelPlan, index: int, args: List[str], nsec: int,
                   snapshots: Dict[str, Tuple[str, str, Extent]] = None) -> List[str]:
-    """gt_run's launch of one kernel (with K4's block loop when the kernel
-    has a window; a plane-sweep kernel's snapshots are copied first).
+    """gt_run's launch of one kernel (K4's variant when the kernel has a
+    window and ``kmode`` is set; a plane-sweep kernel's snapshots are
+    copied first).
     ``snapshots``: name -> (copy kernel, source variable, box extent)."""
     call = ", ".join(args)
-    check = ["      const cudaError_t e = cudaGetLastError();",
+    check = ["      ++gt_launches_;",
+             "      const cudaError_t e = cudaGetLastError();",
              "      if (e != cudaSuccess) return (int)e;"]
 
     def attr(kernel: str, ind: str) -> List[str]:
@@ -1893,6 +2061,7 @@ def _launch_lines(p: KernelPlan, index: int, args: List[str], nsec: int,
             f"        const dim3 grid((vng + {VBLOCK_J - 1}) / {VBLOCK_J}, "
             f"(ni + {VBLOCK_I - 1}) / {VBLOCK_I}, {VSPLIT_K}), block({VBLOCK_J}, {VBLOCK_I});",
             f"        {p.name}_v<<<grid, block, 0, st>>>({vcall});",
+            "        ++gt_launches_;",
             "        const cudaError_t e = cudaGetLastError();",
             "        if (e != cudaSuccess) return (int)e;",
             "      }",
@@ -1904,42 +2073,66 @@ def _launch_lines(p: KernelPlan, index: int, args: List[str], nsec: int,
     if p.window is None:
         return out + plain + ["  }"]
     w = p.window
-    smem = " + ".join(f"((size_t){ni_ * nj_ * size} * (size_t)(KB + {kh}) + 15) / 16 * 16"
-                      for _, ni_, nj_, kh, size, _ in w.arrays) or "0"
-    first = "b_" if p.order == ir.LoopOrder.FORWARD else "nb - 1 - b_"
-    kcall = ", ".join("kbb" if a == "kb" else a for a in args) + ", kb0, kb1, KB"
+    kcall = f"{call}, KB"
     out += [
         f"    const int KB = kmode ? kbsz[{index}] : 0;",
         "    if (KB > 0 && ni > 0 && nj > 0) {",
         f"      const dim3 grid((nj + {KB_TILE_J - 1}) / {KB_TILE_J}, "
         f"(ni + {KB_TILE_I - 1}) / {KB_TILE_I}), block({KB_TILE_J}, {KB_TILE_I});",
-        f"      size_t smem = {smem};",
+        f"      const size_t {', '.join(_window_sizes(w))};",
+        f"      size_t smem = {w.slots} * slot_;",
         "      if (smem < 16) smem = 16;",
         *attr(f"{p.name}_kb", "      "),
-        "      const int nb = (dK + KB - 1) / KB;",
-        "      for (int b_ = 0; b_ < nb; ++b_) {",
-        f"        const int kb0 = ({first}) * KB, kb1 = kb0 + KB < dK ? kb0 + KB : dK;",
-        f"        gt::KBounds<{nsec}> kbb = kb;",
-        "        bool any_ = false;",
-    ]
-    for sid, _ in p.sections:
-        out += [
-            f"        kbb.lo[{sid}] = kb.lo[{sid}] > kb0 ? kb.lo[{sid}] : kb0;",
-            f"        kbb.hi[{sid}] = kb.hi[{sid}] < kb1 ? kb.hi[{sid}] : kb1;",
-            f"        any_ = any_ || kbb.lo[{sid}] < kbb.hi[{sid}];",
-        ]
-    out += [
-        "        if (!any_) continue;",
-        f"        {p.name}_kb<<<grid, block, smem, st>>>({kcall});",
-        "        const cudaError_t e = cudaGetLastError();",
-        "        if (e != cudaSuccess) return (int)e;",
-        "      }",
+        f"      {p.name}_kb<<<grid, block, smem, st>>>({kcall});",
+        f"      ++gt_kb_launches_[{index}];",
+        *check,
         "    } else {",
         *["  " + ln for ln in plain],
         "    }",
         "  }",
     ]
     return out
+
+
+def _occupancy_lines(plans: List[KernelPlan]) -> List[str]:
+    """``gt_kb_init``: the largest shared-memory carveout for every K4
+    kernel, so that several of its CTAs share a SM (by default more of it
+    may stay L1 cache), set once per device before the first K4 launch.
+    ``gt_kb_occupancy``: the CTAs a SM holds of each K4 kernel at the
+    block sizes ``kbsz`` (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``
+    after the launch's attributes), into ``out`` by kernel index."""
+    out = ['extern "C" int gt_kb_init() {']
+    for p in plans:
+        if p.window is not None:
+            out += ["  {",
+                    f"    const cudaError_t a = cudaFuncSetAttribute({p.name}_kb, "
+                    "cudaFuncAttributePreferredSharedMemoryCarveout, "
+                    "cudaSharedmemCarveoutMaxShared);",
+                    "    if (a != cudaSuccess) return (int)a;",
+                    "  }"]
+    out += ["  return 0;", "}", "",
+            'extern "C" int gt_kb_occupancy(const int* kbsz, int* out) {']
+    for index, p in enumerate(plans):
+        if p.window is None:
+            continue
+        w = p.window
+        out += [
+            "  {",
+            f"    const int KB = kbsz[{index}];",
+            f"    const size_t {', '.join(_window_sizes(w))};",
+            f"    size_t smem = {w.slots} * slot_;",
+            "    if (smem < 16) smem = 16;",
+            f"    if (smem > {SMEM_DEFAULT}) {{",
+            f"      const cudaError_t a = cudaFuncSetAttribute({p.name}_kb, "
+            "cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);",
+            "      if (a != cudaSuccess) return (int)a;",
+            "    }",
+            f"    const cudaError_t e = cudaOccupancyMaxActiveBlocksPerMultiprocessor("
+            f"&out[{index}], {p.name}_kb, {KB_TILE_I * KB_TILE_J}, smem);",
+            "    if (e != cudaSuccess) return (int)e;",
+            "  }",
+        ]
+    return out + ["  return 0;", "}", ""]
 
 
 def generate(analysis: StencilAnalysis, serialize: Optional[bool] = None,
@@ -1966,9 +2159,8 @@ def generate(analysis: StencilAnalysis, serialize: Optional[bool] = None,
     nsec = len(intervals)
     em = _Emitter(planned, locals_)
     kb_reason, kb_passes, kb_promoted = (
-        _kblock_eligibility(planned, plans) if k_blocked else
-        ("one pass, the default (k_blocked=True blocks)" if k_blocked is None
-         else "k_blocked=False", 0, []))
+        _kblock_eligibility(planned, plans) if k_blocked is not False else
+        ("k_blocked=False", 0, []))
     for p in plans:
         if p.form == "rows":
             p.vector = _plan_vector(planned, p, locals_)
@@ -1976,7 +2168,11 @@ def generate(analysis: StencilAnalysis, serialize: Optional[bool] = None,
         for p in plans:
             if p.form == "columns":
                 p.window = _plan_window(planned, p, locals_)
-    else:
+    # the default: one pass where ``kb_default`` says (``kblock_plan``)
+    declined_deep = kb_reason
+    if k_blocked is None:
+        declined["kblocked"] = KB_DEFAULT_ONE_PASS
+    elif kb_reason is not None:
         declined["kblocked"] = kb_reason
 
     params = (
@@ -2018,6 +2214,11 @@ def generate(analysis: StencilAnalysis, serialize: Optional[bool] = None,
         '#include "stencil_runtime.cuh"',
         "",
         "namespace {",
+        "",
+        "// kernel launches gt_run has made, counted at each launch, and those",
+        "// of each kernel's K4 form by kernel index: read by gt_launch_counts",
+        "long long gt_launches_ = 0;",
+        f"long long gt_kb_launches_[{len(plans)}] = {{}};",
     ]
     for n in snapshots:
         out += _emit_snapshot(n, snap[n][0], _stype(st.decl(n).dtype))
@@ -2030,11 +2231,11 @@ def generate(analysis: StencilAnalysis, serialize: Optional[bool] = None,
         if p.vector is not None:
             out += _emit_vector_rows(em, p, params, bpp[p.name])
         if p.window is not None:
-            out += _emit_plain_kernel(em, p, params, bpp[p.name], window=True)
+            out += _emit_window_kernel(em, p, params)
     out += ["", "}  // namespace", ""]
 
     # the launcher: one plain C entry point for ctypes; kmode 1 runs K4's
-    # block loops with kbsz[kernel index] levels per block
+    # kernels with kbsz[kernel index] levels per block
     out += [
         'extern "C" int gt_run(void* const* ptrs, const long long* strides, '
         "const int* dom, const int* kbv,",
@@ -2064,7 +2265,15 @@ def generate(analysis: StencilAnalysis, serialize: Optional[bool] = None,
         out += _launch_lines(p, n, args, nsec, snap)
     out += ["  return 0;", "}", "",
             'extern "C" const char* gt_error_string(int e) '
-            "{ return cudaGetErrorString((cudaError_t)e); }", ""]
+            "{ return cudaGetErrorString((cudaError_t)e); }", "",
+            "// out[0]: every kernel launch gt_run has made; out[1 + n]: kernel n's",
+            "// K4 launches",
+            'extern "C" void gt_launch_counts(long long* out) {',
+            "  out[0] = gt_launches_;",
+            f"  for (int n = 0; n < {len(plans)}; ++n) out[1 + n] = gt_kb_launches_[n];",
+            "}", ""]
+    if any(p.window for p in plans):
+        out += _occupancy_lines(plans)
     temp_events, irregular = _temp_events(planned, plans, set(scratch))
     return CudaProgram(
         source="\n".join(out),
@@ -2085,6 +2294,8 @@ def generate(analysis: StencilAnalysis, serialize: Optional[bool] = None,
         declined=declined,
         kb_passes=kb_passes,
         kb_promoted=kb_promoted,
+        kb_default=k_blocked is None,
+        kb_declined_deep=declined_deep,
         widened={n: e for p in plans if p.planes for n, e in p.planes.widened_fields.items()},
     )
 
@@ -2153,7 +2364,9 @@ class CudaBackend:
         self.build_seconds: Optional[float] = None
         self.build_dir: Optional[str] = None
         self._lib = None
-        self._depth_plans: Dict[int, tuple] = {}
+        self._depth_plans: Dict[tuple, tuple] = {}
+        #: devices on which the K4 kernels' attributes are set (``gt_kb_init``)
+        self._kb_devices: set = set()
         self._written = [
             n for n, info in analysis.field_info.items() if info.access.value & 2
         ]
@@ -2173,9 +2386,39 @@ class CudaBackend:
             lib.gt_run.restype = ctypes.c_int
             lib.gt_error_string.argtypes = [ctypes.c_int]
             lib.gt_error_string.restype = ctypes.c_char_p
+            lib.gt_launch_counts.argtypes = [ctypes.c_void_p]
+            lib.gt_launch_counts.restype = None
+            if any(k.window for k in self.program.kernels):
+                lib.gt_kb_init.argtypes = []
+                lib.gt_kb_init.restype = ctypes.c_int
+                lib.gt_kb_occupancy.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
+                lib.gt_kb_occupancy.restype = ctypes.c_int
             self._lib = lib
             self.build_seconds = time.perf_counter() - t0
         return self._lib
+
+    def device_launches(self) -> dict:
+        """The library's own launch counts (one at each launch, since it was
+        loaded, shared by the stencils built from one source; zeros before
+        it is built): ``all`` kernels, and ``kblocked`` the K4 launches of
+        each kernel by index."""
+        n = len(self.program.kernels)
+        out = (ctypes.c_longlong * (1 + n))()
+        if self._lib is not None:
+            self._lib.gt_launch_counts(out)
+        return {"all": out[0], "kblocked": list(out[1:])}
+
+    def _kb_init(self, device) -> None:
+        """The K4 kernels' shared-memory carveout, once per device."""
+        if device in self._kb_devices or not any(k.window for k in self.program.kernels):
+            return
+        lib = self.build()
+        with torch.cuda.device(device):
+            rc = lib.gt_kb_init()
+        if rc != 0:
+            raise RuntimeError(f"stencil '{self.analysis.stencil.name}': K4 attributes: "
+                               f"{lib.gt_error_string(rc).decode()}")
+        self._kb_devices.add(device)
 
     def apply(self, env, scalars, domain, origins, periodic=()) -> None:
         """Execute on ``env`` (logical views; written fields are fresh
@@ -2218,23 +2461,45 @@ class CudaBackend:
                 raise ValueError(f"field '{name}' is a view whose elements overlap")
         return devices.pop()
 
-    def _depth_plan(self, dK: int):
-        """K4's block sizes at depth ``dK`` (None: one pass), the plan
-        record and gt_run's ``kbsz`` argument."""
-        hit = self._depth_plans.get(dK)
+    def _depth_plan(self, columns: int, dK: int):
+        """K4's block sizes on ``columns`` = dI x dJ columns of ``dK``
+        levels (None: one pass), the plan
+        record and gt_run's ``kbsz`` argument.  When K4 runs, the record
+        holds, per column loop, KB, the ring's slots and shared bytes and
+        the CTAs a SM holds (``gt_kb_occupancy``: the CUDA occupancy API
+        on the current device; the library is built).  The launches each
+        loop made are added at the launch (``launches_per_loop``, counted
+        by the library)."""
+        key = (dK, kb_default(columns, dK))
+        hit = self._depth_plans.get(key)
         if hit is None:
             prog = self.program
-            kbs, declined = prog.kblock_plan(dK)
+            kbs, declined = prog.kblock_plan(columns, dK)
             plan = prog.plan_record()
+            kbsz = [0] * len(prog.kernels)
+            windows = [n for n, k in enumerate(prog.kernels) if k.window]
+            for n, kbn in zip(windows, kbs or []):
+                kbsz[n] = kbn
+            kbsz = (ctypes.c_int * len(kbsz))(*kbsz)
             if kbs is None:
                 plan["declined"]["kblocked"] = declined
             else:
-                plan["kblocked"] = {"passes": prog.kb_passes, "KB": kbs,
-                                    "promoted": list(prog.kb_promoted)}
-            kbsz = [0] * len(prog.kernels)
-            for n, kbn in zip([n for n, k in enumerate(prog.kernels) if k.window], kbs or []):
-                kbsz[n] = kbn
-            hit = self._depth_plans[dK] = (kbs, plan, (ctypes.c_int * len(kbsz))(*kbsz))
+                occ = (ctypes.c_int * len(prog.kernels))()
+                lib = self.build()
+                rc = lib.gt_kb_occupancy(kbsz, occ)
+                if rc != 0:
+                    raise RuntimeError(f"stencil '{self.analysis.stencil.name}': occupancy "
+                                       f"query failed: {lib.gt_error_string(rc).decode()}")
+                ws = [prog.kernels[n].window for n in windows]
+                plan["declined"].pop("kblocked", None)
+                plan["kblocked"] = {
+                    "reason": KB_DEFAULT_REASON if prog.kb_default else "k_blocked=True",
+                    "passes": prog.kb_passes, "KB": kbs,
+                    "slots": [w.slots for w in ws],
+                    "smem_bytes": [w.smem_bytes(kb) for w, kb in zip(ws, kbs)],
+                    "ctas_per_sm": [occ[n] for n in windows],
+                    "promoted": list(prog.kb_promoted)}
+            hit = self._depth_plans[key] = (kbs, plan, kbsz)
         return hit
 
     def _geometry(self, env, origins, domain, periodic, kb):
@@ -2338,7 +2603,8 @@ class CudaBackend:
             ptrs.append(p)
             strides += s
         zeroed = zero_init_temps(prog, kb)
-        kbs, plan, kbsz = self._depth_plan(dK)
+        self._kb_init(device)
+        kbs, plan, kbsz = self._depth_plan(dI * dJ, dK)
         plan = {**plan, **record, "declined": {**plan["declined"], **record["declined"]}}
         LAST_PLAN[st.name] = plan
         views = {}
@@ -2389,6 +2655,7 @@ class CudaBackend:
                for n in prog.float_scalars]
         isc = [int(_scalar_value(scalars[n])) for n in prog.int_scalars]
 
+        counted = self.device_launches()["kblocked"] if kbs is not None else None
         with torch.cuda.device(device):
             stream = torch.cuda.current_stream(device).cuda_stream
             rc = lib.gt_run(
@@ -2407,6 +2674,10 @@ class CudaBackend:
                 f"CUDA launch failed in stencil '{st.name}': "
                 f"{lib.gt_error_string(rc).decode()} (error {rc})"
             )
+        if counted is not None:
+            now = self.device_launches()["kblocked"]
+            plan["kblocked"] = {**plan["kblocked"], "launches_per_loop": [
+                now[n] - counted[n] for n, k in enumerate(prog.kernels) if k.window]}
         if pads:
             repair.write_back(self.analysis, caller, caller_origins, env, (dI, dJ, dK), pads,
                               [n for n in self._written if n in caller])

@@ -76,6 +76,35 @@ __device__ __forceinline__ void vstore(T* dst, const T* src) {
     reinterpret_cast<uint4*>(dst)[c] = reinterpret_cast<const uint4*>(src)[c];
 }
 
+// Asynchronous copies from device memory into shared memory (sm_80+
+// cp.async): async_copy<Bytes> issues one copy of 4, 8 or 16 bytes (both
+// addresses aligned to Bytes), async_commit closes the thread's group of
+// copies issued since the last one, async_wait<N> waits until at most N
+// of the thread's groups are pending.  A copy becomes visible to the other
+// threads of the block after the wait and a __syncthreads().  A host
+// build of the kernels defines GT_ASYNC_COPY and gives synchronous copies.
+#ifndef GT_ASYNC_COPY
+#define GT_ASYNC_COPY
+template <int Bytes>
+__device__ __forceinline__ void async_copy(void* smem, const void* gmem) {
+  static_assert(Bytes == 4 || Bytes == 8 || Bytes == 16, "cp.async copies 4, 8 or 16 bytes");
+  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
+  if constexpr (Bytes == 16) {
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem) : "memory");
+  } else {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(s), "l"(gmem), "n"(Bytes)
+                 : "memory");
+  }
+}
+__device__ __forceinline__ void async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+#endif
+
 // Resolved K bounds [lo, hi) of every vertical section of the stencil.
 template <int N>
 struct KBounds {

@@ -275,7 +275,7 @@ def plain_kblocked(st, fields: Dict[str, torch.Tensor], scalars: dict, origin, d
 
     prog = st.backend.program
     dI, dJ, dK = domain
-    kbs, declined = prog.kblock_plan(dK)
+    kbs, declined = prog.kblock_plan(dI * dJ, dK)
     if kbs is None:
         raise ValueError(f"K4 does not run '{st.name}' at depth {dK}: {declined}")
     an = prog.analysis

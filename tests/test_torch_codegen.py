@@ -49,11 +49,16 @@ def test_source_is_deterministic_with_documented_stages(factory, dtype):
     # (K6) beside its scalar one, and gt_run launches one of the two
     assert [k.vector is not None for k in again.kernels] == [
         f == "rows" for f in FORMS[factory]]
-    n = len(FORMS[factory]) + FORMS[factory].count("rows")
+    # every column loop has K4's variant beside it (the default runs it
+    # from ``KB_DEFAULT_DEPTH`` levels), the fused step's too
+    assert [k.window is not None for k in again.kernels] == [
+        f == "columns" for f in FORMS[factory]]
+    n = len(FORMS[factory]) + FORMS[factory].count("rows") + FORMS[factory].count("columns")
     assert st.backend.source.count("__global__") == n
     assert st.backend.source.count("<<<") == n
-    # every launch is followed by a launch-error check
+    # every launch is counted and followed by a launch-error check
     assert st.backend.source.count("cudaGetLastError()") == n
+    assert st.backend.source.count("++gt_launches_;") == n
     # the source note names the TPU kernel it replaces and the bound
     assert "pallas_backend.py:1428 PallasBackend._pallas_trace" in st.backend.source
     assert "Bound on the H100: device-memory bandwidth" in st.backend.source
@@ -323,7 +328,7 @@ def test_card_test_stencils_generate(name):
     st = gtscript.stencil(backend="cuda", definition=DEFS[name], rebuild=True)
     kernels = st.backend.program.kernels
     assert st.backend.source.count("__global__") == len(kernels) + sum(
-        k.vector is not None for k in kernels) >= 1
+        k.vector is not None for k in kernels) + sum(k.window is not None for k in kernels) >= 1
 
 
 def _zeroed(st, dK, scalars=None):

@@ -426,6 +426,39 @@ def test_benes_kernel_bitwise(cuda_device, P, dtype):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("P", [1 << 20, 1 << 24], ids=["2^20", "2^24"])
+def test_benes_kernel_three_passes(cuda_device, P):
+    """At the FVM's size and at the largest the network takes: three
+    device launches per permute (the outer passes and the inner one),
+    bit for bit equal to ``x[sigma]`` and to the plain version, and the
+    inverse plan brings the words back."""
+    from gt4py_tpu_torch.next import benes
+
+    rng = np.random.default_rng(P + 3)
+    sigma = rng.permutation(P)
+    keys = np.empty(P, np.int64)
+    keys[sigma] = np.arange(P)
+    keys = keys.astype(np.int32)
+    words = rng.integers(0, 2 ** 32, P, dtype=np.uint64).astype(np.uint32)
+    x = torch.from_numpy(words.view(np.int32)).to(cuda_device)
+    plan = benes._plan(keys)
+    assert plan.launches == 3 and plan.b < plan.k, plan.record()
+    benes.KERNEL.build()
+    before = benes.KERNEL.launches, benes.KERNEL.device_launches
+    got = benes.permute(x, keys)
+    torch.cuda.synchronize()
+    assert benes.KERNEL.launches == before[0] + 1
+    assert benes.KERNEL.device_launches == before[1] + 3
+    assert torch.equal(got, x[torch.from_numpy(sigma).to(cuda_device)])
+    plain = torch.zeros(plan.n2, dtype=torch.int32, device=cuda_device)
+    plain[:P] = x
+    benes.plain_inplace(plain, plan)
+    assert torch.equal(got, plain[:P])
+    back = benes.KERNEL.launch(got, benes._inverse_plan(plan, keys))
+    assert torch.equal(back, x)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("irregular", [False, True], ids=["grid", "shuffled"])
 def test_unstructured_fvm_step_routed_vs_index(cuda_device, irregular):
     """Five FVM steps on the card: the shuffled mesh's gathers launch K9,
@@ -761,8 +794,11 @@ def test_kblocked_vs_one_pass_and_plain(cuda_device):
     st, got = _card_run(deep_scan, shape, domain, cuda_device, k_blocked=True)
     plan = cuda_backend.LAST_PLAN["deep_scan"]
     # the forward loop stages ``a`` in blocks; the backward one reads only
-    # what it writes, stages nothing and runs as one block
-    assert plan["kblocked"] and plan["kblocked"]["KB"][0] < 2000, plan
+    # what it writes, stages nothing and runs as one block; one launch per
+    # loop, a ring of two slots, at least 4 CTAs on a SM
+    kb = plan["kblocked"]
+    assert kb and kb["KB"][0] < 2000 and set(kb["launches_per_loop"]) == {1}, plan
+    assert kb["slots"][0] == 2 and min(kb["ctas_per_sm"]) >= 4, plan
     _, one = _card_run(deep_scan, shape, domain, cuda_device, k_blocked=False)
     rng = np.random.default_rng(4)
     plain = {n: torch.from_numpy(rng.random(shape)).to(cuda_device) for n in st.field_info}

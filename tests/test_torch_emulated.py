@@ -58,6 +58,7 @@ EMULATED_RUNTIME = r"""
 #pragma once
 #include <math.h>
 #include <stddef.h>
+#include <string.h>
 #include <ucontext.h>
 #include <functional>
 #include <memory>
@@ -73,9 +74,14 @@ struct dim3 {
 inline dim3 blockIdx, threadIdx, blockDim, gridDim;
 typedef int cudaError_t;
 const cudaError_t cudaSuccess = 0;
+const cudaError_t cudaErrorInvalidValue = 1;
 const cudaError_t cudaErrorMisalignedAddress = 716;
 typedef struct CUstream_st* cudaStream_t;
-enum cudaFuncAttribute { cudaFuncAttributeMaxDynamicSharedMemorySize = 8 };
+enum cudaFuncAttribute {
+  cudaFuncAttributeMaxDynamicSharedMemorySize = 8,
+  cudaFuncAttributePreferredSharedMemoryCarveout = 9
+};
+const int cudaSharedmemCarveoutMaxShared = 100;
 struct alignas(16) uint4 { unsigned x, y, z, w; };
 // a misaligned 16-byte access faults the launch, as on the card: the access
 // is skipped and cudaGetLastError reports it
@@ -85,7 +91,27 @@ inline bool gt_emu_aligned16(const void* p) {
   gt_emu_error = cudaErrorMisalignedAddress;
   return false;
 }
+inline bool gt_emu_aligned(const void* p, size_t n) {
+  if ((reinterpret_cast<size_t>(p) & (n - 1)) == 0) return true;
+  gt_emu_error = cudaErrorMisalignedAddress;
+  return false;
+}
 #define GT_VECTOR_ALIGNED(p) gt_emu_aligned16(p)
+// cp.async as a synchronous copy (a misaligned one faults, as on the card);
+// the library counts its 16-byte copies
+#define GT_ASYNC_COPY
+inline long long gt_emu_copies16 = 0;
+extern "C" long long gt_emu_copies16_count() { return gt_emu_copies16; }
+namespace gt {
+template <int Bytes>
+inline void async_copy(void* smem, const void* gmem) {
+  if (gt_emu_aligned(smem, Bytes) && gt_emu_aligned(gmem, Bytes)) memcpy(smem, gmem, Bytes);
+  if (Bytes == 16) ++gt_emu_copies16;
+}
+inline void async_commit() {}
+template <int N>
+inline void async_wait() {}
+}  // namespace gt
 inline cudaError_t cudaGetLastError() {
   const cudaError_t e = gt_emu_error;
   gt_emu_error = cudaSuccess;
@@ -96,6 +122,16 @@ inline const char* cudaGetErrorString(cudaError_t e) {
 }
 template <typename K>
 inline cudaError_t cudaFuncSetAttribute(K, cudaFuncAttribute, int) { return cudaSuccess; }
+// the H100's occupancy rule without registers: 228 KiB of shared memory a
+// SM (1 KiB of it reserved per block), 2048 threads, 32 blocks
+template <typename K>
+inline cudaError_t cudaOccupancyMaxActiveBlocksPerMultiprocessor(int* n, K, int threads,
+                                                                 size_t smem) {
+  int by_smem = (int)(233472 / (smem + 1024)), by_threads = 2048 / threads;
+  *n = by_smem < by_threads ? by_smem : by_threads;
+  if (*n > 32) *n = 32;
+  return cudaSuccess;
+}
 
 namespace gt_emu {
 constexpr size_t kStack = 256 * 1024;
@@ -109,6 +145,7 @@ inline std::vector<Fiber> fibers;
 inline ucontext_t scheduler;
 inline int current = -1;
 inline std::vector<unsigned char> smem;
+inline std::vector<unsigned long long> shfl;
 inline const std::function<void()>* body = nullptr;
 inline void entry() {
   (*body)();
@@ -120,6 +157,7 @@ inline void syncthreads() {
 inline void run_block(const std::function<void()>& fn, size_t smem_bytes) {
   smem.assign(smem_bytes, 0);
   const unsigned n = blockDim.x * blockDim.y;
+  shfl.assign(n, 0);
   if (fibers.size() < n) fibers.resize(n);
   body = &fn;
   for (unsigned t = 0; t < n; ++t) {
@@ -148,6 +186,21 @@ inline void run_block(const std::function<void()>& fn, size_t smem_bytes) {
 }
 }  // namespace gt_emu
 #define __syncthreads() gt_emu::syncthreads()
+// a warp shuffle: every thread of the block posts its value and meets the
+// others at a barrier (the kernels shuffle with whole blocks in step)
+template <typename T>
+inline T __shfl_xor_sync(unsigned, T v, int d) {
+  const unsigned t = threadIdx.x + threadIdx.y * blockDim.x;
+  unsigned long long w = 0;
+  memcpy(&w, &v, sizeof(T));
+  gt_emu::shfl[t] = w;
+  __syncthreads();
+  w = gt_emu::shfl[t ^ (unsigned)d];
+  __syncthreads();
+  T r;
+  memcpy(&r, &w, sizeof(T));
+  return r;
+}
 #define GT_DYNAMIC_SMEM(name) unsigned char* const name = gt_emu::smem.data()
 #define GT_EMULATED_LAUNCH(grid, block, smem_bytes, kernel, ...)              \
   do {                                                                      \

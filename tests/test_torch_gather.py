@@ -40,6 +40,8 @@ from gt4py_tpu_torch.next import common as p_common
 from gt4py_tpu_torch.next import sort_route as p_sort
 from gt4py_tpu_torch.next import testing as p_testing
 
+from .test_torch_emulated import emulated, emulated_dir  # noqa: F401  (fixtures)
+
 
 @pytest.fixture(autouse=True)
 def _on_the_cpu(monkeypatch):
@@ -77,21 +79,77 @@ def test_router_bits_equal_the_reference(n):
     np.testing.assert_array_equal(p_benes.simulate(x, got), x[sigma])
 
 
-@pytest.mark.parametrize("n", [2, 64, 256, 1 << 12])
-def test_packed_bit_planes_hold_the_router_bits(n):
-    """One bit per pair: bit q of the stage at distance d is the router's
-    bit of the pair's lower member (which both members share)."""
+#: (n, b, c): the default layout, and small blocks that run all three passes
+PACKINGS = [(2, None, None), (64, None, None), (256, None, None), (1 << 12, None, None),
+            (1 << 14, None, None), (64, 3, 1), (256, 4, 2), (1 << 12, 3, 0)]
+
+
+@pytest.mark.parametrize("n,b,c", PACKINGS, ids=[f"n{n}_b{b}_c{c}" for n, b, c in PACKINGS])
+def test_packed_bit_planes_hold_the_router_bits(n, b, c):
+    """Each CTA's bits together, each thread's bits in its own words: in
+    every pass, bit s of a thread's group for a stage is the router's bit
+    of the word its register s holds in that stage's layout (the pair's
+    bit, which both members share); a stage on a register bit pairs two of
+    a thread's registers, one on a lane bit two lanes; the passes apply
+    every stage once, in order, and hold every local word once.  The
+    plain version's planes: bit q of the stage at distance d is the
+    router's bit of pair q's lower member."""
     sigma, _ = _perm(n, 7 * n)
     ctrl = p_benes.route(sigma)
-    planes = p_benes.pack_pair_bits(ctrl)
     k = n.bit_length() - 1
-    assert planes.shape == (2 * k - 1, max(1, n // 64))
+    plan = p_benes.Plan(n, k, ctrl, b, c)
+    assert plan.pair_bits.shape == (2 * k - 1, max(1, n // 64))
     for s, d in enumerate(p_benes.stage_distances(k)):
         lower = np.array([i for i in range(n) if not i & d])
-        np.testing.assert_array_equal(ctrl[s, lower], ctrl[s, lower | d])
         q = np.arange(n // 2)
-        bits = (planes[s][q >> 5] >> (q & 31).astype(np.uint32)) & 1
+        bits = (plan.pair_bits[s][q >> 5] >> (q & 31).astype(np.uint32)) & 1
         np.testing.assert_array_equal(bits, ctrl[s, lower])
+    passes = p_benes._passes(k, plan.b, plan.c)
+    assert [s for p in passes for s in p[2]] == list(range(2 * k - 1))
+    assert plan.launches == len(passes) == (1 if plan.b == k else 3)
+    for (m, cc, stages, local_bits, ncta), off in zip(passes, plan.offsets):
+        assert off % 4 == 0
+        G = p_benes._local_to_global(m, cc, plan.b, ncta)
+        assert sorted(G.reshape(-1)) == list(range(n))
+        lb, e, T = p_benes._thread_shape(m)
+        E = 1 << e
+        layouts, ops = p_benes._program(m, local_bits)
+        assert [len(rb) for rb in layouts] == [e] * len(layouts)
+        nw = (len(stages) * E + 31) // 32
+        words = plan.bits[off: off + ncta * nw * T].reshape(ncta, nw, T)
+        addr, valid = p_benes._addresses(m, layouts[0])
+        assert sorted(addr[valid].reshape(-1)) == list(range(1 << m))
+        t = 0
+        for kind, arg in ops:
+            if kind == 2:
+                addr, valid = p_benes._addresses(m, layouts[arg])
+                assert sorted(addr[valid].reshape(-1)) == list(range(1 << m))
+                continue
+            s, p = stages[t], local_bits[t]
+            assert kind == (1 if p < lb else 0)
+            if kind == 0:
+                assert layouts_bit(layouts, ops, t) == p
+            d = p_benes.stage_distances(k)[s]
+            grp = (words[:, (t * E) >> 5, :] >> np.uint32((t * E) & 31))
+            bits = (grp[:, :, None] >> np.arange(E, dtype=np.uint32)) & 1
+            L = addr[valid]
+            np.testing.assert_array_equal(bits[:, valid], ctrl[s][G[:, L]])
+            np.testing.assert_array_equal(ctrl[s][G[:, L]], ctrl[s][G[:, L ^ (1 << p)]])
+            np.testing.assert_array_equal(G[:, L ^ (1 << p)], G[:, L] ^ d)
+            t += 1
+
+
+def layouts_bit(layouts, ops, t):
+    """The local bit of the t-th stage of a program on a register bit."""
+    cur, n = layouts[0], 0
+    for kind, arg in ops:
+        if kind == 2:
+            cur = layouts[arg]
+        elif n == t:
+            return cur[arg] if kind == 0 else arg
+        else:
+            n += 1
+    raise IndexError(t)
 
 
 # --------------------------------------------------------------------------- #
@@ -165,6 +223,73 @@ def test_plan_cache_is_bounded():
     for seed in range(p_benes._PLAN_CACHE_MAX + 3):
         p_benes._plan(_perm(8, seed)[1])
     assert len(p_benes._plan_cache) <= p_benes._PLAN_CACHE_MAX
+
+
+#: (k, b, c): all three passes (b < k) at k = 4..12, one pass at k = b and
+#: at k < b (the block clamps to the size); inner blocks with register bits
+#: and re-layouts; the default layouts (None) above one pass.  The passes'
+#: sizes give 1 to 16 registers a thread (``_thread_shape``)
+K9_EMULATED = [(k, b, c) for k in range(1, 13) for b, c in ((3, 1), (4, 2))] + [
+    (12, 9, 3), (13, 10, 0), (12, None, None), (13, None, None),
+    (14, None, None), (13, 11, 3), (14, 12, 4), (11, 8, 2)]
+
+
+def test_k9_emulated_cases_reach_every_register_count():
+    """The emulated cases' passes hold 1, 2, 4, 8 and 16 registers a
+    thread, every instantiation of ``benes_pass``."""
+    regs = set()
+    for k, b, c in K9_EMULATED:
+        bb = min(b if b is not None else p_benes.layout(k)[0], k)
+        cc = min(c if c is not None else p_benes.layout(k)[1], bb)
+        for m, *_ in p_benes._passes(k, bb, cc):
+            regs.add(1 << p_benes._thread_shape(m)[1])
+    assert regs == {1, 2, 4, 8, 16}, regs
+
+
+@pytest.mark.parametrize("k,b,c", K9_EMULATED,
+                         ids=[f"k{k}_b{b}_c{c}" for k, b, c in K9_EMULATED])
+def test_k9_emulated_bitwise(emulated, monkeypatch, k, b, c):  # noqa: F811
+    """``csrc/benes.cu`` built by the host compiler against the emulated
+    runtime (``tests/test_torch_emulated.py``), small blocks so that every
+    pass runs: the kernel's result equals ``simulate``, the plain version
+    and ``x[sigma]`` bit for bit, float32 and int32 words with the
+    NaN-aliasing patterns, P not a power of two at odd k; the inverse
+    plan (the backward's launch) brings the words back.  One wrapper
+    launch per permute, and ``Plan.launches`` kernel launches counted by
+    the library."""
+    monkeypatch.setattr(p_benes.KERNEL, "_lib", None)
+    n2 = 1 << k
+    P = n2 if k % 2 == 0 or k == 1 else n2 - 1 - k // 3
+    sigma, keys = _perm(P, 31 * k + (b or 0))
+    plan = p_benes._route_plan(sigma, b, c)
+    if b is None:
+        b, c = p_benes.layout(k)
+    assert (plan.b, plan.c) == (min(b, k), min(c, b, k))
+    assert plan.launches == (1 if k <= b else 3)
+    padded = np.concatenate([sigma, np.arange(P, n2)])
+    ctrl = p_benes.route(padded)
+    rng = np.random.default_rng(k)
+    xi = rng.integers(0, 2 ** 32, P, dtype=np.uint64).astype(np.uint32)
+    xi[:min(P, 6)] = NAN_PATTERNS[:min(P, 6)]
+    xf = rng.random(P).astype(np.float32)
+    p_benes.KERNEL.build()
+    for x in (torch.from_numpy(xf).view(torch.int32), torch.from_numpy(xi.view(np.int32))):
+        before = p_benes.KERNEL.launches, p_benes.KERNEL.device_launches
+        got = p_benes.KERNEL._launch(x, plan)
+        # counted where the library launches the kernel
+        assert p_benes.KERNEL.launches == before[0] + 1
+        assert p_benes.KERNEL.device_launches == before[1] + plan.launches
+        words = x.numpy()
+        np.testing.assert_array_equal(got.numpy(), words[sigma])
+        sim = p_benes.simulate(np.concatenate([words, np.zeros(n2 - P, np.int32)]), ctrl)
+        np.testing.assert_array_equal(got.numpy(), sim[:P])
+        plain = torch.zeros(n2, dtype=torch.int32)
+        plain[:P] = x
+        p_benes.plain_inplace(plain, plan)
+        assert torch.equal(got, plain[:P])
+        inverse = p_benes._inverse_plan(plan, keys)
+        assert (inverse.b, inverse.c) == (plan.b, plan.c)
+        assert torch.equal(p_benes.KERNEL._launch(got, inverse), x)
 
 
 def test_kernel_wrapper_refuses_what_it_cannot_launch():

@@ -2,15 +2,22 @@
 
 The cases of ``tests/cartesian/test_kblocked.py`` at their shapes (dK 512,
 600, 2000 and 2048, and the dK 16 control): the ``"cuda"`` backend runs
-each column-form loop once per K block, its read-only inputs staged per
-block in shared memory, the carries crossing blocks in the scratch
-buffers.  The kernels are built by the host compiler against the emulated
-runtime of ``tests/test_torch_emulated.py`` and held to the JAX package's
-numpy oracle at rtol 1e-12 (float64), and bit for bit to the one-pass
-column form (``k_blocked=False``) and to K4's plain counterpart
+each column-form loop as one launch in which every thread sweeps its
+column block by block, the blocks' windows of read-only inputs in a ring
+of shared-memory slots (``cp.async``, synchronous copies on the emulated
+runtime), the carries crossing blocks in the scratch buffers.  The
+kernels are built by the host compiler against the emulated runtime of
+``tests/test_torch_emulated.py`` and held to the JAX package's numpy
+oracle at rtol 1e-12 (float64), and bit for bit to the one-pass column
+form (``k_blocked=False``) and to K4's plain counterpart
 (``testing.plain_kblocked``: ``passes.clip_stencil_to_k_block`` block by
-block through the plain executor).  ``cuda_backend.LAST_PLAN`` records the
-passes, KB and promoted temporaries, or the one-pass plan and its reason.
+block through the plain executor).  The ring's corners (a depth below and
+equal to one slot, more blocks than slots, a ragged last block, a K halo
+across slots, FORWARD and BACKWARD, bounded and periodic I/J) and its
+16-byte copies have cases of their own.  ``cuda_backend.LAST_PLAN``
+records the passes, KB, slots, shared bytes, CTAs per SM and promoted
+temporaries, or the one-pass plan and its reason; the headline stencils'
+plans at 512x512x80 stay as they were.
 """
 
 import numpy as np
@@ -136,11 +143,11 @@ CASES = {
 }
 
 
-def _run(defn, arrays, origin, domain, k_blocked=True, **options):
+def _run(defn, arrays, origin, domain, k_blocked=True, periodic=(), **options):
     st = pgts.stencil(backend="cuda", definition=to_port(defn), rebuild=True,
                       k_blocked=k_blocked, **options)
     out = {k: torch.from_numpy(v.copy()) for k, v in arrays.items()}
-    st(**out, origin=origin, domain=domain)
+    st(**out, origin=origin, domain=domain, periodic=periodic)
     return st, out
 
 
@@ -170,24 +177,55 @@ def test_kblocked_emulated_vs_oracle(emulated, name):  # noqa: F811
 
 @pytest.mark.parametrize("shape", [(16, 16, 16), (8, 8, 2000)], ids=["dk16", "dk2000"])
 def test_one_pass_is_the_default(emulated, shape):  # noqa: F811
-    """Without ``k_blocked=True`` a serial stencil runs the one-pass column
-    form at any depth (it ran deep K 3x faster on the H100), and the plan
-    says why; the dK 16 control K-blocked is one block of 16."""
+    """Without ``k_blocked`` a serial stencil runs the one-pass column
+    form below ``KB_DEFAULT_DEPTH`` levels (the plan says why) and K4 from
+    there on, on few columns (the plan says that the default chose it);
+    ``k_blocked=True``
+    blocks at any depth (the dK 16 control is one block of 16, dK 2000
+    blocks of 32) and ``k_blocked=False`` never."""
     arrays = dict(a=_ranges(shape, 23), out=np.zeros(shape))
     ref = {k: v.copy() for k, v in arrays.items()}
     jgts.stencil(backend="numpy", definition=cumsum, rebuild=True)(**ref, origin=(0, 0, 0),
                                                                    domain=shape)
-    for k_blocked in (None, True):
+    deep = shape[2] >= cuda_backend.KB_DEFAULT_DEPTH
+    for k_blocked in (None, True, False):
         st, got = _run(cumsum, arrays, (0, 0, 0), shape, k_blocked=k_blocked)
         plan = cuda_backend.LAST_PLAN["cumsum"]
-        if k_blocked is None:
-            assert not plan["kblocked"] and all(k.window is None
-                                                for k in st.backend.program.kernels)
-            assert plan["declined"]["kblocked"] == "one pass, the default (k_blocked=True blocks)"
-            assert st.backend.source.count("__global__") == 1
+        if k_blocked is False or (k_blocked is None and not deep):
+            assert not plan["kblocked"]
+            assert plan["declined"]["kblocked"] == (
+                "k_blocked=False" if k_blocked is False else
+                "one pass, the default (k_blocked=True blocks)")
         else:
-            assert plan["kblocked"]["KB"] == [shape[2] if shape[2] < 512 else 256]
+            # one float64 input of 2 x 32 columns, 512 bytes a level: two
+            # slots of 32 levels leave 4 CTAs on a SM
+            assert plan["kblocked"]["KB"] == [min(shape[2], 32)]
+            assert plan["kblocked"]["reason"] == (
+                "k_blocked=True" if k_blocked else
+                "the default at a depth of 512 levels or more on at most 65536 columns")
+            assert "kblocked" not in plan["declined"]
+        # the K4 kernel is built unless k_blocked=False
+        assert st.backend.source.count("__global__") == (1 if k_blocked is False else 2)
         np.testing.assert_allclose(got["out"].numpy(), ref["out"], rtol=1e-12, atol=0)
+
+
+@pytest.mark.parametrize("columns,dK,default", [
+    (8 * 8, 511, False), (8 * 8, 512, True), (256 * 256, 2048, True),
+    (256 * 256 + 1, 2048, False), (512 * 512, 512, False), (512 * 512, 80, False)])
+def test_default_gates_on_depth_and_columns(columns, dK, default):
+    """The default runs K4 from ``KB_DEFAULT_DEPTH`` levels on at most
+    ``KB_DEFAULT_COLUMNS`` columns (where one pass has too few threads to
+    fill the card), one pass elsewhere; ``k_blocked=True`` blocks, and
+    ``k_blocked=False`` keeps one pass, whatever the domain."""
+    assert cuda_backend.kb_default(columns, dK) is default
+    for k_blocked in (None, True, False):
+        st = pgts.stencil(backend="cuda", definition=to_port(cumsum), rebuild=True,
+                          k_blocked=k_blocked)
+        kbs, declined = st.backend.program.kblock_plan(columns, dK)
+        runs = default if k_blocked is None else k_blocked
+        assert (kbs is not None) is runs, (k_blocked, kbs, declined)
+        if k_blocked is None and not default:
+            assert declined == cuda_backend.KB_DEFAULT_ONE_PASS
 
 
 def test_parallel_cross_statement_k_dependency_declines(emulated):  # noqa: F811
@@ -231,19 +269,267 @@ def test_variable_k_declines_as_the_jax_package():
 
 
 def test_window_kernel_source():
-    """One build serves every block: the window kernel takes the block's
-    bounds at launch, stages the read-only inputs and reads them from
-    shared memory; the carry stays in device memory."""
+    """One launch per column loop: the window kernel takes the block size,
+    sweeps the blocks itself through a ring of two slots, stages the
+    read-only inputs with cp.async and reads them from shared memory; the
+    carry stays in device memory."""
     st = pgts.stencil(backend="cuda", definition=to_port(tridiag), rebuild=True, k_blocked=True)
     src = st.backend.source
     assert src.count("__global__") == 4  # two column loops and their K4 variants
-    assert "int kb0,\n    int kb1,\n    int KB) {" in src
+    assert "gt::KBounds<4> kb_all,\n    int KB) {" in src
     assert "w_diag[((k + 0 - kb0) * 2 + (ti + 0)) * 32 + (tj + 0)]" in src
     assert "f_sup.at(i + 0, j + 0, k + -1)" in src  # written: read from device memory
+    assert src.count("gt::async_copy<16>") == 4 and src.count("gt::async_wait<1>();") == 2
+    # one launch of each K4 kernel, none in a loop over blocks
+    for p in st.backend.program.kernels:
+        assert src.count(f"{p.name}_kb<<<") == 1
+    assert "for (int b_ = 0; b_ < nb; ++b_)" not in src
     windows = [k.window for k in st.backend.program.kernels]
     # the backward loop stages the forward loop's outputs, which it only reads
     assert [sorted(a[0] for a in w.arrays) for w in windows] == [["diag", "inf"],
                                                                  ["rhs", "sup"]]
-    # two float64 inputs of 2 x 32 columns: 1 KiB a level, 128 levels fit 227 KiB
-    assert [w.choose_kb(2048) for w in windows] == [128, 128]
-    assert windows[0].choose_kb(100) == 100
+    # two float64 inputs of 2 x 32 columns, 1 KiB a level: two slots of 16
+    # levels (32 KiB) leave 4 CTAs on a SM, 32 would leave one
+    assert [w.choose_kb(2048) for w in windows] == [16, 16]
+    assert [w.slots for w in windows] == [2, 2] and windows[0].smem_bytes(16) == 32768
+    assert windows[0].choose_kb(100) == 16 and windows[0].choose_kb(12) == 12
+
+
+def ring(w: F, u: F, out: F, back: F):
+    with computation(FORWARD):
+        with interval(0, 1):
+            out = u[0, 0, 1] * (w[1, 0, 0] + w[0, -1, 0])
+        with interval(1, -1):
+            out = 0.5 * out[0, 0, -1] + u[0, 0, -1] - u[0, 0, 1] * w[-1, 0, 0] + w[0, 1, 0]
+        with interval(-1, None):
+            out = 0.5 * out[0, 0, -1] + u[0, 0, -1]
+    with computation(BACKWARD):
+        with interval(-1, None):
+            back = out + u
+        with interval(0, -1):
+            back = 0.25 * back[0, 0, 1] + out * u[0, 0, 1] + w[1, 1, 0]
+
+
+#: name -> (dK, KB): the ring's corners
+RING = {
+    "dk_below_one_slot": (10, 16),
+    "dk_equals_one_slot": (16, 16),
+    "more_blocks_than_slots_ragged": (45, 8),
+    "k_halo_across_slots": (24, 8),
+}
+
+
+def _ring_arrays(dK, dtype):
+    dI, dJ = 9, 13
+    # periodic: the oracle fills the halos in place, the port wraps the reads
+    shape, origin = (dI + 2, dJ + 2, dK), (1, 1, 0)
+    arrays = dict(w=_ranges(shape, 41, -1.0, 1.0), u=_ranges(shape, 43),
+                  out=np.zeros(shape), back=np.zeros(shape))
+    return {k: v.astype(dtype) for k, v in arrays.items()}, origin, (dI, dJ, dK)
+
+
+@pytest.mark.parametrize("periodic", [(), ("I", "J")], ids=["bounded", "periodic"])
+@pytest.mark.parametrize("name", list(RING))
+def test_ring_emulated_vs_oracle_and_one_pass(emulated, monkeypatch, name, periodic):  # noqa: F811
+    """K4's ring on the emulated kernels at its corners -- the depth below
+    and equal to one slot, more blocks than slots with a ragged last one,
+    ``u``'s K halo (levels -1 and +1) across the slots' boundaries --
+    FORWARD and BACKWARD (the backward loop stages the forward one's
+    ``out``), reads at I/J offsets bounded and periodic: equal to the JAX
+    package's numpy oracle at rtol 1e-12, and bit for bit to the one-pass
+    column form and to K4's plain counterpart; one launch per loop."""
+    dK, KB = RING[name]
+    monkeypatch.setattr(cuda_backend.WindowPlan, "choose_kb", lambda self, dk: KB)
+    arrays, origin, domain = _ring_arrays(dK, np.float64)
+    ref = {k: v.copy() for k, v in arrays.items()}
+    jgts.stencil(backend="numpy", definition=ring, rebuild=True)(
+        **ref, origin=origin, domain=domain, periodic=periodic)
+    st, got = _run(ring, arrays, origin, domain, periodic=periodic)
+    kb = cuda_backend.LAST_PLAN["ring"]["kblocked"]
+    assert kb["KB"] == [KB, KB] and kb["slots"] == [2, 2] and kb["launches_per_loop"] == [1, 1]
+    assert st.backend.launches == 1
+    _, one_pass = _run(ring, arrays, origin, domain, k_blocked=False, periodic=periodic)
+    plain = {k: torch.from_numpy(v.copy()) for k, v in arrays.items()}
+    testing.plain_kblocked(st, plain, {}, origin, domain, periodic=periodic)
+    for k in ("out", "back"):
+        np.testing.assert_allclose(got[k].numpy(), ref[k], rtol=1e-12, atol=0, err_msg=k)
+        assert torch.equal(got[k], one_pass[k]), k
+        assert torch.equal(got[k], plain[k]), k
+
+
+F32 = jgts.Field[np.float32]
+
+
+def ring32(w: F32, u: F32, out: F32, back: F32):
+    with computation(FORWARD):
+        with interval(0, 1):
+            out = u[0, 0, 1] * (w[1, 0, 0] + w[0, -1, 0])
+        with interval(1, -1):
+            out = 0.5 * out[0, 0, -1] + u[0, 0, -1] - u[0, 0, 1] * w[-1, 0, 0] + w[0, 1, 0]
+        with interval(-1, None):
+            out = 0.5 * out[0, 0, -1] + u[0, 0, -1]
+    with computation(BACKWARD):
+        with interval(-1, None):
+            back = out + u
+        with interval(0, -1):
+            back = 0.25 * back[0, 0, 1] + out * u[0, 0, 1] + w[1, 1, 0]
+
+
+@pytest.mark.parametrize("periodic", [(), ("I", "J")], ids=["bounded", "periodic"])
+def test_ring_float32_sixteen_byte_copies(emulated, periodic):  # noqa: F811
+    """float32 windows on J-contiguous buffers whose rows start on 16
+    bytes (the models' layout): ``u``'s rows are copied as 16-byte words,
+    ``w``'s (read at J - 1, so its window starts one element before a
+    word), the periodic seam and the ragged row end element by element; a
+    misaligned 16-byte copy would fault the emulated launch.  Bit for bit
+    equal to the one-pass column form and to K4's plain counterpart."""
+    arrays, origin, domain = _ring_arrays(40, np.float32)
+    # physical (K, I, J) buffers, J padded to 24 (rows of 96 bytes), the
+    # domain's J origin at element 4
+    dI, dJ, dK = domain
+    phys = {}
+    for k, v in arrays.items():
+        buf = np.zeros((dK, dI + 2, 24), np.float32)
+        buf[:, :, 3:3 + dJ + 2] = v.transpose(2, 0, 1)
+        phys[k] = buf
+    origin = (1, 4, 0)
+    got, copies = {}, {}
+    for k_blocked in (True, False):
+        st = pgts.stencil(backend="cuda", definition=to_port(ring32), rebuild=True,
+                          k_blocked=k_blocked)
+        out = {k: torch.from_numpy(v.copy()) for k, v in phys.items()}
+        # one counter in the process (the emulated runtime's inline variable)
+        count = st.backend.build().gt_emu_copies16_count
+        before = count()
+        st(**{k: v.permute(1, 2, 0) for k, v in out.items()}, origin=origin, domain=domain,
+           periodic=periodic)
+        got[k_blocked] = out
+        copies[k_blocked] = count() - before
+        if k_blocked:
+            # the forward loop stages w and u, the backward one out, u and w
+            assert [k.window.lanes for k in st.backend.program.kernels] == [[4, 4], [4, 4, 4]]
+            plain = {k: torch.from_numpy(v.copy()) for k, v in phys.items()}
+            testing.plain_kblocked(st, {k: v.permute(1, 2, 0) for k, v in plain.items()}, {},
+                                   origin, domain, periodic=periodic)
+    assert copies[True] > 0 and copies[False] == 0
+    for k in ("out", "back"):
+        assert torch.equal(got[True][k], got[False][k]), k
+        assert torch.equal(got[True][k], plain[k]), k
+
+
+def test_plan_records_one_launch_per_loop(emulated):  # noqa: F811
+    """``LAST_PLAN[name]["kblocked"]`` after a K4 launch: one launch per
+    column loop (the K4 launches the library counted in that call), KB,
+    the ring's slots and shared bytes per loop, and the CTAs a SM holds
+    (the occupancy query; the emulated runtime applies the H100's
+    shared-memory rule).  A second call counts its own launches."""
+    defn, make, origin, domain, n_passes, promoted = CASES["tridiagonal_dk512"]
+    before = None
+    for _ in range(2):
+        st, _ = _run(defn, make(), origin, domain)
+        kb = cuda_backend.LAST_PLAN["tridiag"]["kblocked"]
+        assert kb == {"reason": "k_blocked=True", "passes": 2, "KB": [16, 16],
+                      "slots": [2, 2], "smem_bytes": [32768, 32768], "ctas_per_sm": [6, 6],
+                      "promoted": [], "launches_per_loop": [1, 1]}, kb
+        # the library's counts (shared by the builds of one source): every
+        # launch, and the K4 ones by kernel
+        counts = st.backend.device_launches()
+        if before is not None:
+            assert [a - b for a, b in zip(counts["kblocked"], before["kblocked"])] == [1, 1]
+            assert counts["all"] - before["all"] == 2, (counts, before)
+        before = counts
+    assert min(kb["ctas_per_sm"]) >= cuda_backend.KB_CTAS_PER_SM
+
+
+#: ``LAST_PLAN`` of the headline stencils at 512x512x80 float32, the same
+#: at build and at depth 80, as they were before K4's ring
+HEADLINE_PLANS = {
+    "dycore_fused_float32": {
+        "declined": {"kblocked": "one pass, the default (k_blocked=True blocks)"},
+        "forms": ["planes", "columns", "columns"],
+        "kblocked": False,
+        "registers":
+            ["acol", "as_", "bcol", "correction_term", "cs", "divided", "gav", "gcv", "res"],
+        "scratch": ["u_stage", "ccol", "dcol", "datacol"],
+        "serialized": True,
+        "shared": ["flx_field", "fly_field", "lap_field"],
+        "smem_bytes": [6736],
+        "snapshots": [],
+        "tile": [16, 32],
+        "widened": {},
+    },
+    "fv_step_float32": {
+        "declined": {"kblocked": "one pass, the default (k_blocked=True blocks)"},
+        "forms":
+            ["rows", "rows", "rows", "rows", "rows", "rows", "rows", "rows", "rows", "rows",
+            "rows", "rows", "rows"],
+        "kblocked": False,
+        "registers":
+            ["a6fx", "a6fy", "a6x", "a6y", "brfx", "brfy", "brx", "bry", "dmfx", "dmfy", "dmx",
+            "dmy", "fnegx", "fnegy", "fnfx", "fnfy", "fpfx", "fpfy", "fposx", "fposy", "smfx",
+            "smfy", "smx", "smy"],
+        "scratch":
+            ["alx", "blx", "blmx", "brmx", "dmlx", "a6lx", "fluxx", "qx", "aly", "bly", "blmy",
+            "brmy", "dmly", "a6ly", "fluxy", "qy", "alfx", "blfx", "blmfx", "brmfx", "dmlfx",
+            "a6lfx", "fx", "alfy", "blfy", "blmfy", "brmfy", "dmlfy", "a6lfy", "fy"],
+        "serialized": False,
+        "shared": [],
+        "smem_bytes": [],
+        "snapshots": [],
+        "tile": None,
+        "widened": {},
+    },
+    "hdiff_float32": {
+        "declined": {"kblocked": "one pass, the default (k_blocked=True blocks)"},
+        "forms": ["rows", "rows", "rows"],
+        "kblocked": False,
+        "registers": ["res"],
+        "scratch": ["lap_field", "flx_field", "fly_field"],
+        "serialized": False,
+        "shared": [],
+        "smem_bytes": [],
+        "snapshots": [],
+        "tile": None,
+        "widened": {},
+    },
+    "vadv_float32": {
+        "declined": {"kblocked": "one pass, the default (k_blocked=True blocks)"},
+        "forms": ["columns", "columns"],
+        "kblocked": False,
+        "registers": ["acol", "as_", "bcol", "correction_term", "cs", "divided", "gav", "gcv"],
+        "scratch": ["ccol", "dcol", "datacol"],
+        "serialized": False,
+        "shared": [],
+        "smem_bytes": [],
+        "snapshots": [],
+        "tile": None,
+        "widened": {},
+    },
+    "vadv_upd_float32": {
+        "declined": {"kblocked": "one pass, the default (k_blocked=True blocks)"},
+        "forms": ["columns", "columns"],
+        "kblocked": False,
+        "registers": ["acol", "as_", "bcol", "correction_term", "cs", "divided", "gav", "gcv"],
+        "scratch": ["ccol", "dcol", "datacol"],
+        "serialized": False,
+        "shared": [],
+        "smem_bytes": [],
+        "snapshots": [],
+        "tile": None,
+        "widened": {},
+    },
+}
+
+
+def test_headline_plans_unchanged():
+    """MiniDycore's and FvAdvection's stencils at 512x512x80 float32 keep
+    their plans: one pass (no K4), the same forms, tiles and storage, in
+    the record ``LAST_PLAN`` takes at build and at a launch at depth 80
+    (before the call's vector and repair entries)."""
+    from gt4py_tpu_torch.models import dycore, fv_advection
+
+    for st in (dycore.make_hdiff(np.float32), dycore.make_vadv(np.float32),
+               dycore.make_vadv_update(np.float32), dycore.make_dycore_fused(np.float32),
+               fv_advection.make_fv_step(np.float32)):
+        assert st.backend.program.plan_record() == HEADLINE_PLANS[st.name], st.name
+        assert st.backend._depth_plan(512 * 512, 80)[1] == HEADLINE_PLANS[st.name], st.name

@@ -324,9 +324,11 @@ def test_gradient_through_a_repaired_stencil(emulated):  # noqa: F811
         u = torch.from_numpy(rng.random((3, 26, 31))).requires_grad_(True)
         c = torch.from_numpy(0.025 * rng.random((3, 26, 31)))
         fn = st.functional(origin=(3, 3, 0), domain=(20, 24, 3), physical_layout=True)
+        # the stencil object is cached: count this call's engagements
+        before = (getattr(st.backend, "derivative_calls", 0), getattr(st.backend, "repairs", 0))
         out = fn(in_field=u, out_field=u, coeff=c)["out_field"]
         (grads[backend],) = torch.autograd.grad((out ** 2).sum(), [u])
         if backend == "cuda":
-            assert st.backend.derivative_calls == 1 and st.backend.repairs == 1
+            assert (st.backend.derivative_calls - before[0], st.backend.repairs - before[1]) == (1, 1)
             assert cuda_backend.LAST_PLAN[st.name]["repair"]
     assert torch.equal(grads["cuda"], grads["torch"])
