@@ -5,6 +5,17 @@ Run from the repository root with no arguments:
 
     python3 chip_smoke.py
 
+``python3 chip_smoke.py --tiles`` runs phase 12 alone, ``--tile-sweep``
+the tile form's tiles and levels a CTA (``TILE_SWEEP``) on hdiff, fv_step
+and sw_step, each timed and bitwise against plain.
+
+``python3 chip_smoke.py --profile-check`` profiles a 16 MiB add (one kernel
+a call) and a K9 permute of 2^20 words (three a call) ``PROFILE_AGE_S``
+seconds after a first profile, with and without a warm-up cycle and idle
+time at the profile's ends (``PROFILE_VARIANTS``), and prints, per
+variant, the device events seen against the launches made and where the
+add's kernels start against their launches.
+
 ``python3 chip_smoke.py --k9-layouts`` runs only the sweep that chose
 ``benes.layout``: K9's device time at the FVM's two permute sizes in each
 layout of ``K9_LAYOUTS`` (inner block 2^b, outer row segment 2^c) with 8
@@ -104,7 +115,21 @@ Phases (a failed phase raises, and the script exits non-zero):
    (``cuda_backend.kb_default``); (c) fv_step at
    512x512x80 float32 built with
    ``serialize=True`` (its 13 row stages as one plane-sweep kernel)
-   against the row form, bit for bit and timed in turns.
+   against the tile form, bit for bit and timed in turns;
+11. (K6) the geometry-repair shapes, ShallowWater, the tight-halo steps, the
+   vector and scalar forms in turns, the repair's cost rule;
+12. the tile form (K1) and the fused column kernel (K2): hdiff, fv_step,
+   sw_step, sl_step (its tile form forced: one stage runs the row kernel
+   by default), vadv_update and dycore_fused at 512x512x80 float32 and
+   64x256x16 float64, periodic and bounded, each against its split build
+   (``tiles=False`` / ``fuse_loops=False``) and plain bit for bit, its
+   forms from ``LAST_PLAN`` and its kernel launches counted by its library
+   (1 a call, dycore_fused 2); each timed one call at a time and in three
+   back-to-back pairs against the split build, with device time per kernel
+   from ``torch.profiler`` (which must show every launch the library
+   counts); the FullDycore step's device time by kernel, with its
+   stencils' default forms;
+13. the ``--profile-check`` profiles again, at the end of a long process.
 
 Every kernel entry carries ``bound_ms``: the least time the card could take
 for the same function, its bytes (each input read once, each output written
@@ -152,6 +177,16 @@ K9_REG_LOG2 = (3, 4)
 #: the JAX package's chip test's NaN/Inf/sign bit patterns (int32 leg)
 NAN_PATTERNS = [0x7F800001, 0x7FC00000, 0x7F800000, 0xFF800000, 0x80000000, 0xFFFFFFFF]
 PLAIN_TIMING_REPS = 3
+#: each profile first runs its calls as the profiler's warm-up cycle (its
+#: events discarded), and stays open, idle, for ``PROFILE_PAD_S`` seconds
+#: before and after the calls (their device work synchronized first).
+#: Without the warm-up, profiles taken minutes into a process lost device
+#: events of their first calls, idle time or not; without the idle time,
+#: kernels timestamped up to 2.6 ms before their launches fell outside the
+#: profile (``--profile-check``, PERF.md)
+PROFILE_WARMUP = True
+PROFILE_PAD_S = 0.05
+T_START = time.time()
 BACK_TO_BACK = 20
 NI, NJ, NK = 512, 512, 80
 SMALL = (64, 256, 16)
@@ -404,32 +439,103 @@ def _k9_bytes(plan) -> dict:
     return {"function": 8 * plan.P + pair_bits, "model": moved + plan.bits.nbytes}
 
 
-def _device_ms(fn, n=20):
-    """Device milliseconds per call of ``fn`` from ``torch.profiler`` (the
-    device events over ``n`` calls), and by kernel: name -> (ms, launches)
-    per call; (None, {}) when the profiler shows no device time."""
+def _profiled(fn, n, warmup=PROFILE_WARMUP, pad=PROFILE_PAD_S):
+    """``torch.profiler`` over ``n`` calls of ``fn`` (run ``n`` times more
+    first, as the profiler's warm-up cycle, with ``warmup``), the profile
+    idle for ``pad`` seconds before the calls and after their device work
+    has finished."""
     import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, schedule
 
-    fn()
-    torch.cuda.synchronize()
-    rows = {}
-    for _ in range(2):  # the profiler now and then records no device event: once more
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1, repeat=1) if warmup
+                 else None) as prof:
+        for _ in range(2 if warmup else 1):
+            time.sleep(pad)
             for _ in range(n):
                 fn()
             torch.cuda.synchronize()
-        for e in prof.key_averages():
-            if e.device_type == DeviceType.CPU:
-                continue
-            us = getattr(e, "self_device_time_total", None)
-            if us is None:
-                us = getattr(e, "self_cuda_time_total", 0)
-            if us > 0:
-                rows[e.key[:90]] = (us / n / 1e3, e.count / n)
-        if rows:
-            break
+            time.sleep(pad)
+            if warmup:
+                prof.step()
+    return prof
+
+
+def _device_rows(prof):
+    """The device events of a profile by name: key -> (us, count)."""
+    from torch.autograd import DeviceType
+
+    rows = {}
+    for e in prof.key_averages():
+        # device events only: a CPU op's device time repeats its kernels',
+        # and the schedule's step annotation spans them
+        if e.device_type == DeviceType.CPU or e.key.startswith("ProfilerStep"):
+            continue
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = getattr(e, "self_cuda_time_total", 0)
+        if us > 0:
+            rows[e.key] = (us, e.count)
+    return rows
+
+
+#: profiles that showed fewer device events of a kernel than its library
+#: counted launches (``_check_profile``); the script fails at its end if any
+PROFILE_LOSSES = []
+
+
+def _check_profile(prof, raw, made) -> None:
+    """Hold a profile to the launches the libraries counted: ``made`` maps
+    a part of kernel names to the launches made while it ran.  A shortfall
+    is recorded in ``PROFILE_LOSSES`` with what the profile shows of it:
+    the runtime's launch events, and where the kernels it kept start
+    against their launches (matched by correlation id) and within the
+    profile's span, in us."""
+    from torch.autograd import DeviceType
+
+    for part, m in made.items():
+        seen = sum(c for k, (_, c) in raw.items() if part in k)
+        if not raw or seen == m:
+            continue
+        events = list(prof.events())
+        launch = {e.id: e for e in events
+                  if e.device_type == DeviceType.CPU and e.name.startswith("cudaLaunchKernel")}
+        kern = sorted((e for e in events if e.device_type == DeviceType.CUDA and part in e.name),
+                      key=lambda e: e.time_range.start)
+        offs = [k.time_range.start - launch[k.id].time_range.start for k in kern
+                if k.id in launch]
+        t0 = min(e.time_range.start for e in events)
+        t1 = max(e.time_range.end for e in events)
+        loss = {"part": part, "seen": seen, "made": m, "launch_events": len(launch),
+                "matched": len(offs),
+                "kernel_minus_launch_us": [round(min(offs), 1), round(max(offs), 1)]
+                if offs else None,
+                "kernels_from_us": [round(kern[0].time_range.start - t0, 1),
+                                    round(kern[-1].time_range.start - t0, 1)] if kern else None,
+                "span_us": round(t1 - t0, 1), "process_age_s": round(time.time() - T_START, 1)}
+        print(f"profile: {seen} device events of '{part}' kernels for {m} launches counted "
+              f"by the library: {loss}")
+        PROFILE_LOSSES.append(loss)
+
+
+def _device_ms(fn, n=20, counted=()):
+    """Device milliseconds per call of ``fn`` from ``torch.profiler`` (the
+    device events over ``n`` calls), and by kernel: name -> (ms, launches)
+    per call; (None, {}) when the profiler shows no device time.
+    ``counted``: (part of a kernel name, the library's launch counter)
+    pairs; the profile must hold, of the kernels whose names hold the part,
+    as many device events as the counter counts launches
+    (``_check_profile``)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    before = [c() for _, c in counted]
+    prof = _profiled(fn, n)
+    raw = _device_rows(prof)
+    cycles = 2 if PROFILE_WARMUP else 1
+    _check_profile(prof, raw, {part: (c() - b) // cycles for (part, c), b in zip(counted, before)})
+    rows = {k[:90]: (us / n / 1e3, m / n) for k, (us, m) in raw.items()}
     total = sum(ms for ms, _ in rows.values())
     return (total if total > 0 else None), rows
 
@@ -571,26 +677,22 @@ def _profile(case, b2b_ms) -> dict:
     copy) over five steps, and the device's busy share of a step enqueued
     back to back (``b2b_ms``, CUDA events, unprofiled)."""
     import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
-    step, psi = case["step"], case["psi0"]
-    step(psi)
+    from gt4py_tpu_torch.next import benes
+
+    step, state = case["step"], [case["psi0"]]
+    step(state[0])
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(5):
-            psi = step(psi)
-        torch.cuda.synchronize()
-    rows = []
-    for e in prof.key_averages():
-        # device events only: a CPU op's device time repeats its kernels'
-        if e.device_type == DeviceType.CPU:
-            continue
-        us = getattr(e, "self_device_time_total", None)
-        if us is None:
-            us = getattr(e, "self_cuda_time_total", 0)
-        if us > 0:
-            rows.append((e.key, us / 5, e.count / 5))
+
+    def one():
+        state[0] = step(state[0])
+
+    made = benes.KERNEL.device_launches
+    prof = _profiled(one, 5)
+    raw = _device_rows(prof)
+    _check_profile(prof, raw, {"benes_pass": (benes.KERNEL.device_launches - made)
+                               // (2 if PROFILE_WARMUP else 1)})
+    rows = [(k, us / 5, m / 5) for k, (us, m) in raw.items()]
     rows.sort(key=lambda r: -r[1])
     total = sum(r[1] for r in rows)
     if total == 0:
@@ -632,12 +734,11 @@ def _k9_entry(dev, raw, fvm) -> dict:
         plan = benes._plan(keys)
         ms = _time_ms(lambda: benes.permute(x, keys), TIMING_REPS)
         b2b, host = _time_b2b_ms(lambda: benes.permute(x, keys), BACK_TO_BACK)
-        dev_ms, rows = _device_ms(lambda: benes.permute(x, keys))
+        # the profile holds every launch the library counts (3 a permute)
+        dev_ms, rows = _device_ms(lambda: benes.permute(x, keys),
+                                  counted=[("benes_pass", lambda: benes.KERNEL.device_launches)])
         profiled = sum(n for key, (_, n) in rows.items() if "benes_pass" in key) \
             if rows else None
-        if profiled is not None and profiled != 3:
-            raise AssertionError(f"K9 {name}: the profiler shows {profiled} benes_pass "
-                                 "launches per permute (3 wanted)")
         buf = torch.zeros(plan.n2, dtype=torch.int32, device=dev)
         plain_ms = _time_ms(lambda: benes.plain_inplace(buf, plan), PLAIN_TIMING_REPS)
         lib_ms = _time_ms(lambda: torch.index_select(x, 0, sig), TIMING_REPS)
@@ -1128,8 +1229,8 @@ def _plane_modes(defs, dev) -> dict:
 
 def _fv_planes(fd, fv_planes) -> dict:
     """fv_step at 512x512x80 float32 built with ``serialize=True``: its 13
-    row stages as one plane-sweep kernel, bitwise against the row form,
-    both timed in turns."""
+    stages as one plane-sweep kernel, bitwise against the default build
+    (the tile form), both timed in turns."""
     import torch
 
     from gt4py_tpu_torch.cartesian.backend.cuda_backend import LAST_PLAN
@@ -1148,17 +1249,17 @@ def _fv_planes(fd, fv_planes) -> dict:
                              f"plan {plan}")
     ref = fv.fns["step_p"](**args)["qout"]
     if not torch.equal(got, ref):
-        _check_close("fv_step serialized vs rows", got, ref, RTOL_F32, ATOL_F32)
-        raise AssertionError("fv_step: the plane-sweep form and the row form differ")
+        _check_close("fv_step serialized vs tile", got, ref, RTOL_F32, ATOL_F32)
+        raise AssertionError("fv_step: the plane-sweep form and the tile form differ")
     t = {}
-    for label in ("planes", "rows", "planes_again", "rows_again"):
+    for label in ("planes", "tile", "planes_again", "tile_again"):
         f = fn if label.startswith("planes") else fv.fns["step_p"]
         t[label] = _time_ms(lambda: f(**args), TIMING_REPS)
     print(f"fv_step {NI}x{NJ}x{NK} f32 serialized: one plane-sweep kernel (tile {plan['tile']}, "
           f"{plan['smem_bytes']} bytes of shared planes, {len(plan['shared'])} shared, "
           f"{len(plan['scratch'])} in device memory) {t['planes']:.4f} / "
-          f"{t['planes_again']:.4f} ms against 13 row kernels {t['rows']:.4f} / "
-          f"{t['rows_again']:.4f} ms (in turns); bitwise equal")
+          f"{t['planes_again']:.4f} ms against the tile kernel {t['tile']:.4f} / "
+          f"{t['tile_again']:.4f} ms (in turns); bitwise equal")
     return {"ms": t, "tile": plan["tile"], "smem_bytes": plan["smem_bytes"],
             "shared": len(plan["shared"]), "scratch": len(plan["scratch"])}
 
@@ -1424,7 +1525,8 @@ def _kblocked_512(deep512) -> dict:
 def _repair_defs(dtype) -> dict:
     """Phase 11 (a)'s stencils, the definitions of
     ``tests/cartesian/test_geometry_repair.py`` in ``dtype``: name ->
-    {backend: stencil}."""
+    {backend: stencil}; the ``"cuda"`` builds in K6's vector row form
+    (``tiles=False``, whatever a section's stages)."""
     import numpy as np
 
     from gt4py_tpu_torch.cartesian import gtscript
@@ -1473,8 +1575,8 @@ def _repair_defs(dtype) -> dict:
 
     name = np.dtype(dtype).name
     return {d.__name__: {backend: gtscript.stencil(backend=backend, definition=d, rebuild=True,
-                                                   name=f"{d.__name__}_{name}")
-                         for backend in ("cuda", "torch")}
+                                                   name=f"{d.__name__}_{name}", **options)
+                         for backend, options in (("cuda", {"tiles": False}), ("torch", {}))}
             for d in (outop, lapd, serk, while_loop, region_end)}
 
 
@@ -1888,6 +1990,389 @@ def _phase11_stencils(p11) -> list:
     return out
 
 
+# --------------------------------------------------------------------------- #
+# phase 12
+# --------------------------------------------------------------------------- #
+
+#: phase 12: the stencils whose PARALLEL sections run the tile form (K1) and
+#: whose serial loops run the fused column kernel (K2), the forms their
+#: new build must run (from ``LAST_PLAN``) and the kernels the library
+#: counts a call
+P12_FORMS = {"hdiff": (["tile"], 1), "fv_step": (["tile"], 1), "sw_step": (["tile"], 1),
+             "sl_step": (["tile"], 1), "vadv_update": (["column"], 1),
+             "dycore_fused": (["planes", "column"], 2)}
+#: the split build each is held against: the stage-split row kernels, the
+#: per-loop column kernels
+P12_SPLIT = {"hdiff": {"tiles": False}, "fv_step": {"tiles": False},
+             "sw_step": {"tiles": False}, "sl_step": {"tiles": False},
+             "vadv_update": {"fuse_loops": False}, "dycore_fused": {"fuse_loops": False}}
+#: the new build's options where it is not the default: sl_step's one
+#: stage runs the row kernel by default (``cuda_backend.ONE_STAGE``)
+P12_NEW = {"sl_step": {"tiles": True}}
+#: the default forms of the FullDycore step's stencils: hdiff, vadv_update,
+#: fv_step and the semi-Lagrangian step
+P12_DEFAULT_FORMS = (["tile"], ["column"], ["tile"], ["rows"])
+P12_PAIRS = 3
+
+
+def _p12_factories(models):
+    """name -> (factory(dtype, backend, **options), model key, args(state, zeros))."""
+    from gt4py_tpu_torch.models import dycore, fv_advection, semi_lagrangian, shallow_water
+
+    sw_params = models["sw"].params
+    return {
+        "hdiff": (dycore.make_hdiff, "md",
+                  lambda s, z: dict(in_field=s["u"], out_field=s["u"], coeff=s["coeff"])),
+        "vadv_update": (dycore.make_vadv_update, "md",
+                        lambda s, z: dict(utens_stage=s["utens_stage"], u_stage=s["u"],
+                                          wcon=s["wcon"], u_pos=s["u"], utens=s["utens"],
+                                          u_out=z(s["u"]), dtr_stage=3.0)),
+        "dycore_fused": (dycore.make_dycore_fused, "md",
+                         lambda s, z: dict(u=s["u"], coeff=s["coeff"], wcon=s["wcon"],
+                                           utens=s["utens"], utens_stage=s["utens_stage"],
+                                           u_out=z(s["u"]), dtr_stage=3.0)),
+        "fv_step": (fv_advection.make_fv_step, "fv",
+                    lambda s, z: dict(q=s["q"], cx=s["cx"], cy=s["cy"], qout=z(s["q"]))),
+        "sl_step": (lambda dt, b, **o: semi_lagrangian.make_sl_stencil(dt, b, 1, **o), "fv",
+                    lambda s, z: dict(q=s["q"], u=s["cx"], v=s["cy"], qout=z(s["q"]),
+                                      dtdx=1.0, dtdy=1.0)),
+        "sw_step": (lambda dt, b, **o: shallow_water.make_sw_step(dt, b, **sw_params, **o),
+                    "sw", lambda s, z: dict(h=s["h"], u=s["u"], v=s["v"], h_new=z(s["h"]),
+                                            u_new=z(s["h"]), v_new=z(s["h"]))),
+    }
+
+
+def _phase12_builds(dev) -> dict:
+    """Phase 12's stencils: per shape key and name, the new build (the tile
+    form or the fused column kernel), the split build and plain; the models whose states and origins they take."""
+    import numpy as np
+
+    from gt4py_tpu_torch.models import dycore, fv_advection
+    from gt4py_tpu_torch.models.shallow_water import ShallowWater
+
+    out = {}
+    for key, (shape, dtype) in {"f32": ((NI, NJ, NK), np.float32),
+                                "f64": (SMALL, np.float64)}.items():
+        models = {"md": dycore.MiniDycore(*shape, dtype=dtype, backend="torch", device=dev),
+                  "fv": fv_advection.FvAdvection(*shape, dtype=dtype, backend="torch",
+                                                 device=dev),
+                  "sw": ShallowWater(*shape, dtype=dtype, backend="torch", device=dev)}
+        builds = {}
+        for name, (make, mkey, args) in _p12_factories(models).items():
+            builds[name] = {"tile": make(dtype, "cuda", **P12_NEW.get(name, {})),
+                            "split": make(dtype, "cuda", **P12_SPLIT[name]),
+                            "plain": make(dtype, "torch"), "model": mkey, "args": args}
+        out[key] = {"shape": shape, "models": models, "builds": builds}
+    return out
+
+
+def _phase12_stencils(p12) -> list:
+    return [b[form] for c in p12.values() for b in c["builds"].values()
+            for form in ("tile", "split")]
+
+
+def _phase12(p12, fd, dev) -> dict:
+    """Phase 12: each stencil in its new build (tile form, fused column
+    kernel) against its split build and plain, bit for bit, periodic and
+    bounded, at 512x512x80 float32 and 64x256x16 float64; its forms from
+    ``LAST_PLAN`` and its kernel launches from its library; then each timed
+    one call at a time and in back-to-back pairs against the split build,
+    with device time per kernel (every launch in the profile); and the
+    FullDycore step's device breakdown, its stencils' default forms checked."""
+    import torch
+
+    from gt4py_tpu_torch.cartesian.backend.cuda_backend import LAST_PLAN
+
+    from gt4py_tpu_torch.cartesian.backend import cuda_backend
+
+    result = {"checks": [], "timings": {}, "launches": {}, "max_abs_err": {}}
+    for key, c in p12.items():
+        shape = c["shape"]
+        for name, b in c["builds"].items():
+            m = c["models"][b["model"]]
+            state = m.init_state(seed=5) if b["model"] != "sw" else m.init_state()
+            kw = dict(origin=(m.oi, m.oj, 0), domain=shape, physical_layout=True)
+            for periodic in (("I", "J"), ()):
+                fns = {form: b[form].functional(**kw, periodic=periodic)
+                       for form in ("tile", "split", "plain")}
+                args = b["args"](state, torch.zeros_like)
+                got = {}
+                for form in ("tile", "split", "plain"):
+                    st = b[form]
+                    before = st.backend.device_launches()["all"] if form != "plain" else 0
+                    got[form] = fns[form](**args)
+                    torch.cuda.synchronize()
+                    if form == "tile":
+                        counted = st.backend.device_launches()["all"] - before
+                        plan = LAST_PLAN[st.name]
+                        forms, launches = P12_FORMS[name]
+                        if plan["forms"] != forms or counted != launches or plan["kblocked"] \
+                                or "tiles" in plan["declined"] \
+                                or "fuse_loops" in plan["declined"]:
+                            raise AssertionError(
+                                f"phase 12 {name} {key} {periodic}: forms {plan['forms']}, "
+                                f"{counted} kernels counted, declined {plan['declined']}; "
+                                f"want {forms}, {launches}")
+                if key == "f32":
+                    result["launches"][name] = result["launches"].get(name, 0) + counted
+                    result["max_abs_err"][name] = max(
+                        [result["max_abs_err"].get(name, 0.0)]
+                        + [_errors(t, got["plain"][f])[0] for f, t in got["tile"].items()])
+                for form in ("split", "plain"):
+                    for field, t in got["tile"].items():
+                        if not torch.equal(t, got[form][field]):
+                            _check_close(f"phase 12 {name}.{field} vs {form}", t,
+                                         got[form][field], RTOL_F64, ATOL_F64)
+                            raise AssertionError(f"phase 12 {name}.{field} {key} {periodic}: "
+                                                 f"the new build and {form} differ")
+                result["checks"].append(f"{name} {key} {'periodic' if periodic else 'bounded'}")
+                if key == "f32" and periodic:
+                    result.setdefault("plans", {})[name] = plan
+                print(f"phase 12 {name} {key} {shape} {'periodic' if periodic else 'bounded'}: "
+                      f"forms {plan['forms']}, {counted} kernel launches counted, bitwise equal "
+                      f"to the split build and plain; tiles {plan['tiles']}, columns "
+                      f"{plan['columns']}, 16-byte words of {plan.get('vector')} elements")
+            if key != "f32":
+                continue
+            fns = {form: b[form].functional(**kw, periodic=("I", "J"))
+                   for form in ("tile", "split", "plain")}
+            args = b["args"](state, torch.zeros_like)
+            calls = {form: (lambda f=fns[form]: f(**args)) for form in fns}
+            t = {"ms": [], "split_ms": []}
+            for _ in range(2):
+                t["ms"].append(_time_ms(calls["tile"], TIMING_REPS))
+                t["split_ms"].append(_time_ms(calls["split"], TIMING_REPS))
+            t["b2b_pairs_ms"] = [(_time_b2b_ms(calls["tile"], BACK_TO_BACK)[0],
+                                  _time_b2b_ms(calls["split"], BACK_TO_BACK)[0])
+                                 for _ in range(P12_PAIRS)]
+            t["plain_ms"] = _time_ms(calls["plain"], PLAIN_TIMING_REPS)
+            for form in ("tile", "split"):
+                st = b[form]
+                total, rows = _device_ms(
+                    calls[form], counted=[(st.name, lambda st=st: st.backend.device_launches()["all"])])
+                kern = {k: v for k, v in rows.items() if b[form].name in k}
+                t[f"{form}_device_ms"] = total
+                t[f"{form}_kernels"] = {k: [round(ms, 6), n] for k, (ms, n) in kern.items()}
+            t["won_pairs"] = sum(a < s for a, s in t["b2b_pairs_ms"])
+            t["bound"] = _bound(b["tile"].analysis, shape)
+            t["plan"] = result["plans"][name]
+            t["ptxas"] = _ptxas(b["tile"])
+            result["timings"][name] = t
+            print(f"phase 12 {name} {NI}x{NJ}x{NK} f32: new {t['ms'][0]:.4f} / "
+                  f"{t['ms'][1]:.4f} ms, split {t['split_ms'][0]:.4f} / {t['split_ms'][1]:.4f} "
+                  f"ms (one call at a time, in turns); back to back (new, split) "
+                  f"{[(round(a, 4), round(s, 4)) for a, s in t['b2b_pairs_ms']]}: the new build "
+                  f"won {t['won_pairs']} of {P12_PAIRS}; device {t['tile_device_ms']} / "
+                  f"{t['split_device_ms']} ms, kernels {t['tile_kernels']} / "
+                  f"{t['split_kernels']}; plain {t['plain_ms']:.4f} ms; bound "
+                  f"{t['bound']['bound_ms']:.4f} ms; {t['ptxas']}")
+    # the FullDycore step's device time by kernel, 20 steps back to back;
+    # the profile holds every launch of its stencils
+    fstate = fd.init_state(seed=0)
+    fstep = fd.step_fn()
+    fsts = [fd.dyn.hdiff, fd.dyn.vadv_upd, fd.fv.fv_step, fd.sl]
+    total, rows = _device_ms(lambda: fstep(fstate), counted=[
+        (st.name, lambda st=st: st.backend.device_launches()["all"]) for st in fsts])
+    forms = {st.name: LAST_PLAN[st.name]["forms"] for st in fsts}
+    if forms != dict(zip([st.name for st in fsts], P12_DEFAULT_FORMS)) \
+            or LAST_PLAN[fd.sl.name]["declined"].get("tiles") != cuda_backend.ONE_STAGE:
+        raise AssertionError(f"phase 12 FullDycore: forms {forms}, sl declined "
+                             f"{LAST_PLAN[fd.sl.name]['declined']}")
+    top = sorted(rows.items(), key=lambda kv: -kv[1][0])
+    result["full_dycore"] = {"device_ms": total, "wall_b2b_ms": _time_chain_ms(fstep, fstate,
+                                                                               BACK_TO_BACK),
+                             "forms": forms,
+                             "kernels": {k: [round(ms, 6), n] for k, (ms, n) in top[:16]}}
+    print(f"phase 12 FullDycore {NI}x{NJ}x{NK} f32 step: device {total} ms, back to back "
+          f"{result['full_dycore']['wall_b2b_ms']:.4f} ms; by kernel "
+          f"{result['full_dycore']['kernels']}")
+    return result
+
+
+def tiles_only() -> int:
+    """``--tiles``: phase 12 alone (the build, the checks, the timings)."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    import numpy as np
+
+    from gt4py_tpu_torch.models import full_dycore
+    from gt4py_tpu_torch.next.compiled_program import build_all
+
+    dev = torch.device("cuda", 0)
+    smi = _nvidia_smi()
+    print(f"card: {smi}")
+    p12 = _phase12_builds(dev)
+    fd = full_dycore.FullDycore(NI, NJ, NK, dtype=np.float32, backend="cuda", device=dev)
+    stencils = _phase12_stencils(p12) + [fd.dyn.hdiff, fd.dyn.vadv_upd, fd.fv.fv_step, fd.sl]
+    t0 = time.perf_counter()
+    n = build_all([st.backend for st in stencils])
+    print(f"build: {n} sources, {time.perf_counter() - t0:.2f} s (nvcc in parallel)")
+    result = _phase12(p12, fd, dev)
+    print(smi)
+    print(json.dumps({**result, "profile_losses": PROFILE_LOSSES}, default=str))
+    return 1 if PROFILE_LOSSES else 0
+
+
+#: ``--profile-check``: per variant (warm-up cycle, idle seconds at each
+#: end); the profiles of each subject a variant, in turns; the seconds the
+#: check waits after the first profile of its process
+PROFILE_VARIANTS = {"plain": (False, 0.0), "idle": (False, 1.0), "warmup": (True, 0.0),
+                    "warmup_idle": (True, PROFILE_PAD_S)}
+PROFILE_CHECK_REPS = 3
+PROFILE_AGE_S = 150.0
+
+
+def _profile_check(dev, n=20, age_s=0.0) -> dict:
+    """The device events a profile keeps of ``n`` calls of a 16 MiB add and
+    of a K9 permute at 2^20 words (``PROFILE_VARIANTS``), against the
+    launches made, ``age_s`` seconds after a first profile; for the add,
+    where its kernels start against their launches (matched by
+    correlation id), in us."""
+    import numpy as np
+    import torch
+    from torch.autograd import DeviceType
+
+    from gt4py_tpu_torch.next import benes
+
+    x = torch.rand(1 << 22, device=dev)
+    y = torch.empty_like(x)
+    _, keys = _perm(1 << 20, 11)
+    xp = torch.from_numpy(np.random.default_rng(12).random(1 << 20).astype(np.float32)).to(dev)
+    benes.permute(xp, keys)
+    torch.cuda.synchronize()
+    subjects = {"add": (lambda: torch.add(x, 1.0, out=y), "add"),
+                "k9": (lambda: benes.permute(xp, keys), "benes_pass")}
+    if age_s:
+        _profiled(subjects["add"][0], n)
+        time.sleep(age_s)
+    out = {}
+    for _ in range(PROFILE_CHECK_REPS):
+        for variant, (warmup, pad) in PROFILE_VARIANTS.items():
+            for subject, (fn, part) in subjects.items():
+                fn()
+                torch.cuda.synchronize()
+                c0 = benes.KERNEL.device_launches
+                prof = _profiled(fn, n, warmup, pad)
+                made = n if subject == "add" else \
+                    (benes.KERNEL.device_launches - c0) // (2 if warmup else 1)
+                events = list(prof.events())
+                device = [e for e in events if e.device_type == DeviceType.CUDA]
+                kern = [e for e in device if part in e.name]
+                rec = out.setdefault(f"{subject} {variant}", {"seen": [], "made": made})
+                rec["seen"].append(len(kern))
+                for e in device:
+                    if part not in e.name:
+                        others = rec.setdefault("other_device_events", {})
+                        others[e.name[:60]] = others.get(e.name[:60], 0) + 1
+                if subject == "add":
+                    launch = {e.id: e for e in events if e.device_type == DeviceType.CPU
+                              and e.name.startswith("cudaLaunchKernel")}
+                    offs = [k.time_range.start - launch[k.id].time_range.start for k in kern
+                            if k.id in launch]
+                    rec.setdefault("kernel_minus_launch_us", []).append(
+                        [round(min(offs), 1), round(max(offs), 1)] if offs else None)
+    for key, rec in out.items():
+        print(f"profile check {key}: {rec}")
+    return {"variants": out, "calls": n, "age_s": age_s,
+            "process_age_s": time.time() - T_START}
+
+
+def profile_check() -> int:
+    """``--profile-check``: ``_profile_check`` alone."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    smi = _nvidia_smi()
+    print(f"card: {smi}")
+    out = _profile_check(torch.device("cuda", 0), age_s=PROFILE_AGE_S)
+    print(smi)
+    print(json.dumps({"profile_check": out}))
+    return 0
+
+
+#: ``--tile-sweep``: the tile form's tiles and levels a CTA, timed on the
+#: stencils it runs by default
+TILE_SWEEP = {"tiles": ((16, 32), (32, 32), (32, 64)), "kz": (4, 8, 16)}
+
+
+def tile_sweep() -> int:
+    """``--tile-sweep``: hdiff, fv_step and sw_step at 512x512x80 float32,
+    periodic, built in the tile form at each (TI, TJ) of ``TILE_SWEEP``
+    and each number of levels a CTA, each bitwise against plain, timed by
+    device time (``torch.profiler``) and back to back."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    import numpy as np
+
+    from gt4py_tpu_torch.cartesian.backend import cuda_backend
+    from gt4py_tpu_torch.models import dycore, fv_advection
+    from gt4py_tpu_torch.models.shallow_water import ShallowWater
+    from gt4py_tpu_torch.next.compiled_program import build_all
+
+    dev = torch.device("cuda", 0)
+    smi = _nvidia_smi()
+    shape = (NI, NJ, NK)
+    models = {"md": dycore.MiniDycore(*shape, backend="torch", device=dev),
+              "fv": fv_advection.FvAdvection(*shape, backend="torch", device=dev),
+              "sw": ShallowWater(*shape, backend="torch", device=dev)}
+    factories = _p12_factories(models)
+    saved = (cuda_backend.TILE_SHAPES, cuda_backend.TILE_KZ)
+    builds, declined = {}, {}
+    try:
+        for name in ("hdiff", "fv_step", "sw_step"):
+            make = factories[name][0]
+            for tile in TILE_SWEEP["tiles"]:
+                for kz in TILE_SWEEP["kz"]:
+                    cuda_backend.TILE_SHAPES, cuda_backend.TILE_KZ = (tile,), kz
+                    try:
+                        builds[(name, tile, kz)] = make(np.float32, "cuda", rebuild=True,
+                                                        tiles=True)
+                    except NotImplementedError as e:
+                        declined[f"{name} {tile} kz {kz}"] = str(e)
+    finally:
+        cuda_backend.TILE_SHAPES, cuda_backend.TILE_KZ = saved
+    t0 = time.perf_counter()
+    n = build_all([st.backend for st in builds.values()])
+    print(f"card: {smi}; build: {n} sources, {time.perf_counter() - t0:.2f} s")
+    out = {}
+    for (name, tile, kz), st in builds.items():
+        make, mkey, args = factories[name]
+        m = models[mkey]
+        state = m.init_state(seed=5) if mkey != "sw" else m.init_state()
+        kw = dict(origin=(m.oi, m.oj, 0), domain=shape, physical_layout=True,
+                  periodic=("I", "J"))
+        fn, ref_fn = st.functional(**kw), make(np.float32, "torch").functional(**kw)
+        a = args(state, torch.zeros_like)
+        got, ref = fn(**a), ref_fn(**a)
+        if any(not torch.equal(v, ref[k]) for k, v in got.items()):
+            raise AssertionError(f"tile sweep {name} {tile} kz {kz}: kernels and plain differ")
+        (rec,) = st.backend.program.plan_record()["tiles"]
+        _, rows = _device_ms(lambda: fn(**a))
+        dev_ms = sum(ms for k, (ms, _) in rows.items() if "_tile(" in k)
+        b2b = _time_b2b_ms(lambda: fn(**a), BACK_TO_BACK)[0]
+        out[f"{name} {tile[0]}x{tile[1]} kz {kz}"] = {
+            "device_ms": dev_ms, "b2b_ms": b2b, "smem_bytes": rec["smem_bytes"],
+            "ctas_per_sm": rec["ctas_per_sm"], "slots": rec["slots"], "halo": rec["halo"],
+            "ptxas": _ptxas(st)}
+        print(f"tile sweep {name} {tile} kz {kz}: device {dev_ms:.4f} ms, back to back "
+              f"{b2b:.4f} ms; {rec['smem_bytes']} shared bytes, {rec['ctas_per_sm']} CTAs a SM, "
+              f"halo {rec['halo']}; bitwise equal to plain; {_ptxas(st)}")
+    print(smi)
+    print(json.dumps({"tile_sweep": out, "declined": declined, "card": smi}))
+    return 0
+
+
 def main() -> int:
     import torch
 
@@ -1967,13 +2452,16 @@ def main() -> int:
     # phase 11: the repair shapes, ShallowWater, the tight-halo steps, the
     # aligned stencils in the vector and the scalar form (one source each)
     p11 = _phase11_models(dev)
+    # phase 12: the tile form and the fused column kernel against the
+    # split builds, float32 at 512x512x80 and float64 at 64x256x16
+    p12 = _phase12_builds(dev)
     next_cases = {key: bench_cases(c["dtype"], c["shape"], dev) for key, c in configs.items()}
     next_kernels = [b for cases in next_cases.values() for case in cases.values()
                     for b in case["kernels"]()]
     t0 = time.perf_counter()
     n_sources = build_all(
         [st.backend for st in main_stencils + list(surface_stencils.values()) + bf16_stencils
-         + phase10_stencils + _phase11_stencils(p11)]
+         + phase10_stencils + _phase11_stencils(p11) + _phase12_stencils(p12)]
         + next_kernels + [benes.KERNEL])
     build_s = time.perf_counter() - t0
     print(f"build: {n_sources} sources, {build_s:.2f} s (nvcc in parallel)")
@@ -2051,9 +2539,9 @@ def main() -> int:
     for _ in range(STEPS):
         s_split = step_split(s_split)
     torch.cuda.synchronize()
-    if [k.form for k in md_split.fused.backend.program.kernels] != [
-            "rows", "rows", "rows", "columns", "columns"]:
-        raise AssertionError("the split build of the fused step is not rows plus columns")
+    if LAST_PLAN[md_split.fused.name]["forms"] != ["tile", "column"]:
+        raise AssertionError("the split build of the fused step is not the tile form plus "
+                             "the fused column kernel")
     for field in ("u", "utens_stage"):
         for label, ref in (("split build", s_split), ("plain", r_fused)):
             if not torch.equal(s_fused[field], ref[field]):
@@ -2126,7 +2614,7 @@ def main() -> int:
           f"serialized stencil {k5['plain_ms']:.4f} ms (bitwise equal to plain)")
     kernels.append({
         "name": "K5 plane-sweep form: dycore_fused_float32 serialized (one plane-sweep kernel "
-                "and two column kernels)",
+                "and one fused column kernel)",
         "route": "cuda",
         "source": "gt4py_tpu_torch/cartesian/backend/cuda_backend.py",
         "replaces": REPLACES["planes"],
@@ -2212,9 +2700,10 @@ def main() -> int:
         ext = an.extents.alloc_extent(t)
         scratch_bytes += (NK - ext.k[0] + ext.k[1]) * (NI - ext.i[0] + ext.i[1]) * \
             (NJ - ext.j[0] + ext.j[1]) * np.dtype(an.stencil.temp_decls[t].dtype).itemsize
-    print(f"fv_step f32: {len(prog.kernels)} row-form stages, {len(prog.scratch)} scratch "
-          f"temporaries ({scratch_bytes / 1e9:.3f} GB at 512x512x80), {len(prog.locals)} in "
-          f"registers; {_ptxas(fd.fv.fv_step)}")
+    print(f"fv_step f32: kernels {[k.form for k in prog.kernels]}, {len(prog.scratch)} scratch "
+          f"temporaries ({scratch_bytes / 1e9:.3f} GB at 512x512x80), "
+          f"{sum(len(k.planes.shared) for k in prog.kernels if k.planes)} in shared planes; "
+          f"{_ptxas(fd.fv.fv_step)}")
 
     full_path = {"hdiff": fd.dyn.hdiff, "vadv_update": fd.dyn.vadv_upd,
                  "fv_step": fd.fv.fv_step, "sl_step": fd.sl}
@@ -2395,10 +2884,42 @@ def main() -> int:
     k6 = {"repair_shapes": _repair_shapes(p11["repair_defs"], dev),
           **_phase11(p11, dev, kernels)}
 
+    # -- 12. K1's tile form and K2's fused column kernel --------------------
+    phase12 = _phase12(p12, fd, dev)
+    for name, t in phase12["timings"].items():
+        b = p12["f32"]["builds"][name]
+        kernels.append({
+            "name": f"{'K1 tile form' if 'tile' in P12_FORMS[name][0] else 'K2 fused column'}"
+                    f": {b['tile'].name}",
+            "route": "cuda",
+            "source": "gt4py_tpu_torch/cartesian/backend/cuda_backend.py",
+            "replaces": REPLACES["rows" if "tile" in P12_FORMS[name][0] else "columns"],
+            "launches": phase12["launches"][name],
+            "max_abs_err": phase12["max_abs_err"][name],
+            "ms": min(t["ms"]),
+            "plain_ms": t["plain_ms"],
+            **t["bound"],
+            "split_ms": min(t["split_ms"]),
+            "b2b_pairs_ms": t["b2b_pairs_ms"],
+            "device_ms": t["tile_device_ms"],
+            "split_device_ms": t["split_device_ms"],
+            "plan": {k: t["plan"][k] for k in ("forms", "tiles", "columns")},
+        })
+
+    # -- 13. the profiler's device events at the end of a long process -------
+    profile_late = _profile_check(dev)
+
     print(smi)
     print(json.dumps({"kernels": kernels, "unstructured_fvm": fvm["summary"],
                       "bfloat16": bf16_result, "gradients": gradients["summary"],
-                      "plan_modes": {"planes": planes, "deep_k": deep_k}, "k6": k6}))
+                      "plan_modes": {"planes": planes, "deep_k": deep_k}, "k6": k6,
+                      "phase12": {"full_dycore": phase12["full_dycore"],
+                                  "checks": len(phase12["checks"])},
+                      "profile_check": profile_late, "profile_losses": PROFILE_LOSSES}))
+    if PROFILE_LOSSES:
+        print(f"chip_smoke: {len(PROFILE_LOSSES)} profiles lost device events",
+              file=sys.stderr)
+        return 1
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),
@@ -2449,4 +2970,7 @@ def k9_layouts() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(k9_layouts() if sys.argv[1:] == ["--k9-layouts"] else main())
+    sys.exit(k9_layouts() if sys.argv[1:] == ["--k9-layouts"] else
+             tiles_only() if sys.argv[1:] == ["--tiles"] else
+             profile_check() if sys.argv[1:] == ["--profile-check"] else
+             tile_sweep() if sys.argv[1:] == ["--tile-sweep"] else main())

@@ -5,18 +5,53 @@ The counterpart of the JAX package's Pallas kernel generator,
 pallas_backend.py:1428), re-thought for Hopper (sm_90a).  Two hand-written
 emitters turn each vertical loop into ``__global__`` kernels:
 
-- **Row form** (K1, all-PARALLEL loops; Pallas ``_plan_rows``).  A loop
-  section is split into *stages*: a new stage starts at each read, at a
-  nonzero offset, of a field written earlier in the stage (and at each
-  write of a field the stage already read at an offset).  Each stage is one
-  kernel over its extended (I, J) rectangle from the extent analysis;
-  ``threadIdx.x`` runs along J so loads coalesce, and K is a loop inside
-  the thread.  Temporaries needed by a later stage live in scratch tensors
-  the wrapper allocates; stage-local ones are registers.
-- **Column form** (K2, FORWARD/BACKWARD loops; Pallas ``_plan_columns``).
-  One kernel per loop, one thread per (i, j) column, the interval sections
-  run in order, ascending or descending.  Recurrence reads such as
-  ``dcol[0, 0, -1]`` read the level the same thread just wrote (scratch).
+- **Tile form** (K1, PARALLEL sections; Pallas ``_plan_rows``, whose one
+  ``pallas_call`` per stencil keeps its temporaries in VMEM tiles).  Each
+  PARALLEL section is one kernel (``<stencil>_k<n>_tile``) on a grid of
+  (J tiles, I tiles, K blocks): a CTA of 256 threads runs a TI x TJ tile at
+  ``TILE_KZ`` levels, one after another (the levels are independent).
+  Within a level the statements split into stages as the plane-sweep form
+  splits a plane (``_plane_stages``), each stage a block-stride loop over
+  its rectangle widened by the extent analysis (halo points recomputed by
+  every CTA that needs them), ``__syncthreads()`` between stages.  A
+  temporary of the section read at an offset or in a later stage lives in
+  a shared plane, one read only at offset 0 in one stage in a register
+  (``_plan_planes``' split); planes whose stages do not overlap share a
+  slot (``_assign_slots``); outputs are stored once, where the CTA owns
+  the point.  A field the section reads at a horizontal offset and does
+  not write is staged per level into a two-slot ring with ``cp.async``
+  (16-byte copies on the fields' common 16-byte phase, found per call as
+  for K6; element copies elsewhere): level k + 1's tile copies while level
+  k computes; fields read only at (0, 0) load straight to registers.  The
+  tile is the largest of ``TILE_SHAPES`` whose shared bytes leave
+  ``TILE_CTAS_PER_SM`` CTAs a SM.  The section declines (recorded in
+  ``declined["tiles"]``) to the **stage-split row form** when it reads, at
+  a K offset, a field it writes; when a data-dimension temporary is read
+  at an offset; when a compound statement reads, at an offset, a field it
+  writes; when its shared bytes exceed ``SMEM_MAX`` at the smallest tile;
+  and, unless built with ``tiles=True``, when it is one stage
+  (``ONE_STAGE``: nothing to keep on chip, and the row kernel was faster).
+  The row form, also built with ``tiles=False``: a new stage starts at
+  each read, at a nonzero offset, of a field written earlier in the stage
+  (and at each write of a field the stage already read at an offset); each
+  stage is one kernel over its extended rectangle, ``threadIdx.x`` along J,
+  K a loop in the thread, the temporaries a later stage needs in scratch
+  tensors.
+- **Fused column form** (K2, FORWARD/BACKWARD loops; Pallas
+  ``_plan_columns``, mode B's whole column in VMEM).  Consecutive serial
+  loops are one kernel (``<stencil>_k<n>_col``) in which a thread owns one
+  (i, j) column through every loop, 64 columns a CTA along J; they fuse
+  unless one reads, at a horizontal offset, a field another writes
+  (``declined["fuse_loops"]``).  A temporary read only at its level or the
+  level before in the loop that writes it is carried in two registers and
+  never stored; one read by a later loop of the kernel too is carried and
+  stored once a level into its scratch tensor, which the later loop reads
+  as a stream.
+  Each section loads the inputs its statements read one level ahead, into
+  registers.  With ``fuse_loops=False`` each loop is its own column
+  kernel, its recurrence reads such as ``dcol[0, 0, -1]`` reading the
+  level the same thread just wrote (scratch); those per-loop kernels are
+  also K4's.
 - **Plane-sweep form** (K5 and serial loops that read, at a horizontal
   offset, a field they write; Pallas ``_trace_serialized``/
   ``_serial_child`` and mode B's tiled serial sweep, ``_plan_columns``).
@@ -104,10 +139,11 @@ package's oracle round it).
 
 This backend does not inline temporaries (``passes.inline_parallel_
 temporaries``, which the ``"jax"`` backend applies): the horizontal
-diffusion is three row-form kernels.  IR outside the emitters' subset --
-a data-dimension field read without all its indices, a write at a
-variable K -- raises ``NotImplementedError`` when the stencil is built.  Nothing falls back to the plain executor on the GPU: CPU tensors
-run the plain executor (``torch_backend``), CUDA tensors run the kernels or
+diffusion is one tile kernel of three stages.  IR outside the emitters'
+subset -- a data-dimension field read without all its indices, a write at
+a variable K -- raises ``NotImplementedError`` when the stencil is built.
+Nothing falls back to the plain executor on the GPU: CPU tensors run the
+plain executor (``torch_backend``), CUDA tensors run the kernels or
 raise.
 
 Derivatives (K8; Pallas ``_trace_env``'s custom JVP): when a derivative is
@@ -116,7 +152,10 @@ wanted, the launch runs inside ``autodiff``'s ``torch.autograd.Function``
 executor; otherwise the kernels run alone, as for serving.
 
 ``LAST_PLAN[stencil name]`` records each stencil's plan: its kernels'
-forms, whether it was serialized or K-blocked (passes, KB, launches per
+forms, the tile kernels' tiles, slots, shared bytes and staged inputs
+(``tiles``), the fused column kernels' carried and whole-column
+temporaries (``columns``), whether it was
+serialized or K-blocked (passes, KB, launches per
 loop, slots, shared bytes and CTAs per SM of the ring, promoted
 temporaries), the plane tile, where temporaries live, writers the
 plane-sweep form widened for ring reads (``widened``), the vector width
@@ -163,6 +202,12 @@ REPLACES = {
             "PallasBackend._pallas_trace, row-tile form (_plan_rows :985)",
     "columns": "gt4py_tpu/cartesian/backend/pallas_backend.py:1428 "
                "PallasBackend._pallas_trace, column form (_plan_columns :1187)",
+    "tile": "gt4py_tpu/cartesian/backend/pallas_backend.py:1428 "
+            "PallasBackend._pallas_trace, row-tile form (_plan_rows :985; one pallas_call "
+            "per stencil :2231, temporaries in VMEM scratch :2184-2199)",
+    "column": "gt4py_tpu/cartesian/backend/pallas_backend.py:1428 "
+              "PallasBackend._pallas_trace, column form (_plan_columns :1187, every serial "
+              "loop in one pallas_call)",
     "wrap": "gt4py_tpu/cartesian/backend/pallas_backend.py:1702 _plan_segments, "
             ":897 _circular_ok (periodic wrap inside the tile loads)",
     "vark": "gt4py_tpu/cartesian/backend/jax_backend.py:1139 "
@@ -193,6 +238,30 @@ SMEM_DEFAULT = 48 * 1024
 #: tiles until the shared planes fit
 PLANE_THREADS = 256
 PLANE_TILES = ((16, 32), (8, 32), (4, 32), (2, 32), (1, 32))
+#: the tile form (K1): its (TI, TJ) candidates, largest first; a CTA runs
+#: ``TILE_KZ`` levels of a PARALLEL section one after another; the tile is
+#: the largest whose shared bytes leave ``TILE_CTAS_PER_SM`` CTAs a SM
+#: (else ``TILE_CTAS_MIN``, else one).  On the H100 (``chip_smoke.py
+#: --tile-sweep``, PERF.md) that rule picked the fastest of 16x32, 32x32
+#: and 32x64 for hdiff, sw_step (32x64) and fv_step (32x32), and 4 levels
+#: a CTA beat 8 and 16 for each
+TILE_SHAPES = ((32, 64), (32, 32), (16, 32), (8, 32), (4, 32), (2, 32), (1, 32))
+TILE_KZ = 4
+TILE_CTAS_PER_SM = 3
+TILE_CTAS_MIN = 2
+#: a one-stage section has no intermediate to keep on chip, so by default
+#: it runs the stage-split row kernel (``tiles=True`` forces the tile
+#: form): on the H100 sl_step's tile kernel took more device time than its
+#: vector row kernel in every chip call (``chip_smoke.py`` phase 12, PERF.md)
+ONE_STAGE = ("cuda backend: one stage, nothing to keep on chip between stages: the row "
+             "kernel (tiles=True forces the tile form)")
+#: the fused column kernel (K2): columns a CTA (threads along J), and the
+#: CTAs a SM its registers must leave (64 registers a thread).  On the H100
+#: (``chip_smoke.py`` phase 12, PERF.md) vadv_update's kernel at
+#: 512 x 512 x 80 float32 took 72 registers and 0.416 ms without the bound
+#: (14 CTAs a SM: 2.2 waves of its 4096 CTAs), 0.36 at 64
+COL_THREADS = 64
+COL_MIN_CTAS = 16
 #: the K-window kernel's tile of columns: threads along J and I
 KB_TILE_J, KB_TILE_I = 32, 2
 #: K block sizes K4 tries after the whole depth (Pallas ``_KB_CANDIDATES``)
@@ -206,6 +275,14 @@ KB_CTAS_PER_SM = 4
 SMEM_PER_SM = 228 * 1024
 SMEM_PER_CTA_RESERVED = 1024
 KB_SMEM_BUDGET = SMEM_PER_SM // KB_CTAS_PER_SM - SMEM_PER_CTA_RESERVED
+
+
+def ctas_per_sm(smem: int, threads: int) -> int:
+    """CTAs of ``threads`` threads and ``smem`` shared bytes one H100 SM
+    holds by its shared memory and its 2048 threads (registers aside)."""
+    return min(SMEM_PER_SM // (smem + SMEM_PER_CTA_RESERVED), 2048 // threads)
+
+
 #: Built with ``k_blocked`` unset, a stencil runs K4 (where it is
 #: eligible) on a depth of at least ``KB_DEFAULT_DEPTH`` levels and at
 #: most ``KB_DEFAULT_COLUMNS`` columns, one pass elsewhere; ``k_blocked=
@@ -450,6 +527,10 @@ class _Decline(NotImplementedError):
     """A form cannot run a loop; the message names what it cannot order."""
 
 
+class _Forced(_Decline):
+    """A form the build option forces cannot run: raised, never recorded."""
+
+
 def _align16(n: int) -> int:
     return (n + 15) // 16 * 16
 
@@ -622,11 +703,12 @@ class VectorPlan:
 
 @dataclass
 class KernelPlan:
-    """One ``__global__`` kernel: a row-form stage, a column-form loop or a
-    plane-sweep loop."""
+    """One ``__global__`` kernel: a row-form stage, a column-form loop, a
+    plane-sweep loop, a PARALLEL section's tile kernel or a run of serial
+    loops' fused column kernel."""
 
     name: str
-    form: str  # "rows" | "columns" | "planes"
+    form: str  # "rows" | "columns" | "planes" | "tile" | "column"
     order: ir.LoopOrder
     #: (global section index, statements) in execution order
     sections: List[Tuple[int, List[ir.Stmt]]]
@@ -638,6 +720,13 @@ class KernelPlan:
     window: Optional[WindowPlan] = None
     #: the vector variant (row form only, when a J-contiguous field exists)
     vector: Optional[VectorPlan] = None
+    #: the tile form's plan (form "tile")
+    tile: Optional["TilePlan"] = None
+    #: the fused column kernel's loops (form "column")
+    group: Optional["ColumnGroup"] = None
+    #: a column loop whose one-pass kernel the fused kernel replaces: it is
+    #: launched only as K4's window kernel
+    k4_only: bool = False
 
 
 def _split_stages(stmts: List[ir.Stmt]) -> List[List[ir.Stmt]]:
@@ -699,13 +788,15 @@ def _plane_stages(stmts: List[ir.Stmt]) -> List[List[ir.Stmt]]:
 
 
 def _plan_planes(analysis: StencilAnalysis, order: ir.LoopOrder,
-                 secs: List[Tuple[int, List[ir.Stmt]]], plane_temps) -> PlanePlan:
+                 secs: List[Tuple[int, List[ir.Stmt]]], plane_temps,
+                 choose_tile: bool = True) -> PlanePlan:
     """The plane-sweep form of a serial loop, or ``_Decline`` naming the
     read it cannot order.  A point is *owned* by the CTA whose tile holds
     it (tiles at the domain's edge own the halo beyond it); a read of a
     field the loop writes, at another level or before the plane's write,
     must stay on owned points: another CTA may write the others at any
-    time."""
+    time.  ``choose_tile=False`` (the tile form, which chooses its own
+    tile): no tile is chosen here."""
     st = analysis.stencil
     ext = analysis.extents
     loop = order.name
@@ -792,12 +883,11 @@ def _plan_planes(analysis: StencilAnalysis, order: ir.LoopOrder,
                             * _value_size(st.decl(n).dtype) * mirror.get(n, 1))
                    for n, e in shared.items())
 
-    for tile in PLANE_TILES:
-        if nbytes(tile) <= SMEM_MAX:
-            break
-    else:
+    fits = [t for t in PLANE_TILES if nbytes(t) <= SMEM_MAX] if choose_tile else PLANE_TILES
+    if not fits:
         raise _Decline(f"cuda backend: the {loop} loop's shared planes need "
                        f"{nbytes(PLANE_TILES[-1])} bytes at a {PLANE_TILES[-1]} tile")
+    tile = fits[0]
     return PlanePlan(tile=tile, stages=stages, shared=shared,
                      mirrored={n: mirror[n] for n in sorted(mirror)},
                      registers=registers, smem_bytes=max(16, nbytes(tile)),
@@ -813,21 +903,272 @@ def _ij_hazard(loop: ir.VerticalLoop) -> bool:
                for s in loop.sections for st_ in s.body for r in _stmt_reads(st_))
 
 
-def plan_kernels(analysis: StencilAnalysis, planes_loops=frozenset()) -> List[KernelPlan]:
-    """The kernels of a stencil in launch order: row stages for PARALLEL
-    loops, a plane-sweep kernel for the serial loops in ``planes_loops``
-    (by index) and those that read, at a horizontal offset, a field they
-    write, a column kernel for the other serial loops."""
+@dataclass
+class TilePlan:
+    """The tile form of one PARALLEL section (K1 on Hopper): one CTA per
+    (TI x TJ) tile and ``kz`` levels; ``planes`` is ``_plan_planes``' plan
+    of the section (its stages, shared planes, registers, snapshots).
+    A shared plane lives in ``slot[name]`` of ``slot_bytes`` (planes whose
+    stages do not overlap share a slot); each staged input -- a field the
+    section reads at a horizontal offset and does not write -- is copied
+    into a ring of two slots per level, as (name, K offset, extent, pitch,
+    lanes: elements a 16-byte copy moves, 0 for loads that convert)."""
+
+    tile: Tuple[int, int]
+    kz: int
+    planes: PlanePlan
+    slot: Dict[str, int]
+    slot_bytes: List[int]
+    inputs: List[Tuple[str, int, Extent, int, int]]
+    input_bytes: int
+    smem_bytes: int
+    ctas_per_sm: int
+    #: points computed over points owned, over the section's statements
+    halo: float
+
+    def record(self, name: str) -> dict:
+        return {"kernel": name, "tile": list(self.tile), "kz": self.kz,
+                "slots": len(self.slot_bytes), "planes": len(self.slot),
+                "smem_bytes": self.smem_bytes, "ctas_per_sm": self.ctas_per_sm,
+                "halo": round(self.halo, 4), "staged": [f"{n}@k{dk}" for n, dk, *_ in self.inputs]}
+
+
+@dataclass
+class ColumnGroup:
+    """The fused column kernel (K2 on Hopper) of consecutive serial loops:
+    ``loops`` their orders and sections (their per-loop column kernels run
+    only under K4, ``KernelPlan.k4_only``).  Set by ``generate``:
+    ``carries`` (temporaries read only at the level before, in the loop
+    that writes them: two registers), ``columns`` (also read by a later
+    loop of the group: registers, and one store per level in device
+    memory), ``writer`` (temporary -> its loop's index in
+    ``loops``), ``prefetch`` (section -> the reads of inputs loaded one
+    level ahead)."""
+
+    loops: List[Tuple[ir.LoopOrder, List[Tuple[int, List[ir.Stmt]]]]]
+    carries: List[str] = field(default_factory=list)
+    columns: List[str] = field(default_factory=list)
+    writer: Dict[str, int] = field(default_factory=dict)
+    prefetch: Dict[int, List[Tuple[str, int, int, int]]] = field(default_factory=dict)
+
+
+def _touching_sections(st: ir.Stencil) -> Dict[str, set]:
+    """Name -> the sections (by global index) that access it."""
+    out: Dict[str, set] = {}
+    sid = 0
+    for loop in st.vertical_loops:
+        for sec in loop.sections:
+            for s in sec.body:
+                for node in ir.walk_values(s):
+                    if isinstance(node, ir.FieldAccess):
+                        out.setdefault(node.name, set()).add(sid)
+            sid += 1
+    return out
+
+
+def _section_local_temps(st: ir.Stencil, sid: int, body: List[ir.Stmt],
+                         touching: Dict[str, set]) -> frozenset:
+    """Temporaries the tile form keeps on chip in one PARALLEL section:
+    accessed in no other section, at no K offset, without data
+    dimensions, and written first by an unconditional statement that does
+    not read them (so a shared slot's earlier content is never seen)."""
+    out = set()
+    for name, decl in st.temp_decls.items():
+        if decl.data_dims or touching.get(name) != {sid}:
+            continue
+        ok = True
+        for s in body:
+            for node in ir.walk_values(s):
+                if isinstance(node, ir.FieldAccess) and node.name == name and (
+                        not isinstance(node.offset, ir.CartesianOffset) or node.offset.k):
+                    ok = False
+        first = next((s for s in body if any(isinstance(n, ir.FieldAccess) and n.name == name
+                                              for n in ir.walk_values(s))), None)
+        if ok and isinstance(first, ir.Assign) and first.target.name == name and not any(
+                r.name == name for r in _stmt_reads(first)):
+            out.add(name)
+    return frozenset(out)
+
+
+def _assign_slots(live: Dict[str, Tuple[int, int]], size: Dict[str, int]):
+    """Shared planes into slots by liveness: planes taken by first stage,
+    each into the free slot (its last plane's stages ended before this
+    plane's first) that fits it best, a slot growing to its largest plane.
+    Returns (plane -> slot, slot bytes)."""
+    slots: List[List[int]] = []  # [bytes, last stage]
+    where: Dict[str, int] = {}
+    for name in sorted(live, key=lambda n: (live[n][0], -size[n], n)):
+        first, last = live[name]
+        free = [n for n, (_, end) in enumerate(slots) if end < first]
+        fit = [n for n in free if slots[n][0] >= size[name]]
+        if fit:
+            n = min(fit, key=lambda x: slots[x][0])
+        elif free:
+            n = max(free, key=lambda x: slots[x][0])
+        else:
+            slots.append([0, -2])
+            n = len(slots) - 1
+        slots[n] = [max(slots[n][0], size[name]), last]
+        where[name] = n
+    return where, [b for b, _ in slots]
+
+
+def _plan_tile(analysis: StencilAnalysis, sid: int, body: List[ir.Stmt],
+               local) -> TilePlan:
+    """The tile form of one PARALLEL section, or ``_Decline`` naming why
+    it cannot run (see the module docstring)."""
     st = analysis.stencil
+    ext = analysis.extents
+    written = {w.name for s in body for w in _stmt_writes(s)}
+    for s in body:
+        for r in _stmt_reads(s):
+            if r.name in written and _nonzero(r.offset) and (
+                    not isinstance(r.offset, ir.CartesianOffset) or r.offset.k):
+                raise _Decline(f"cuda backend: a K-offset read of '{r.name}', which the "
+                               "PARALLEL section writes (its levels run in other CTAs)")
+    pp = _plan_planes(analysis, ir.LoopOrder.PARALLEL, [(sid, body)], local,
+                      choose_tile=False)
+    stages = pp.stages[sid]
+    # each shared plane's stages: from its first write (a mirrored plane
+    # from the level's start, where it is loaded) to its last access
+    live: Dict[str, Tuple[int, int]] = {}
+    for n, stage in enumerate(stages):
+        for s in stage:
+            for node in ir.walk_values(s):
+                if isinstance(node, ir.FieldAccess) and node.name in pp.shared:
+                    a, b = live.get(node.name, (n, n))
+                    live[node.name] = (min(a, n), max(b, n))
+    for name in pp.mirrored:
+        live[name] = (-1, live.get(name, (0, 0))[1])
+    # the staged inputs: read-only fields read at a horizontal offset, per
+    # K offset, over the hull of what the section's statements read
+    hull: Dict[Tuple[str, int], Extent] = {}
+    offset_read: set = set()
+    for s in body:
+        e = ext.stmt_extent(s)
+        for r in _stmt_reads(s):
+            decl = st.decl(r.name)
+            if r.name in written or r.name in local or decl.data_dims or \
+                    not all(decl.dimensions) or not isinstance(r.offset, ir.CartesianOffset):
+                continue
+            key = (r.name, r.offset.k)
+            at = Extent(i=e.i, j=e.j) + Extent.from_offset(r.offset.i, r.offset.j)
+            hull[key] = hull.get(key, at) | at
+            if r.offset.i or r.offset.j:
+                offset_read.add(key)
+    staged = [(name, dk, hull[(name, dk)]) for name, dk in hull if (name, dk) in offset_read]
+    nstmts = sum(len(stage) for stage in stages)
+
+    def plan(tile):
+        TI, TJ = tile
+        size = {n: _align16((TI + e.i[1] - e.i[0]) * (TJ + e.j[1] - e.j[0])
+                            * _value_size(st.decl(n).dtype)) for n, e in pp.shared.items()}
+        slot, slot_bytes = _assign_slots(live, size)
+        inputs, nin = [], 0
+        for name, dk, e in staged:
+            dt = np.dtype(st.decl(name).dtype)
+            vsize = _value_size(dt)
+            lanes = 16 // vsize if dt.itemsize == vsize and vsize in (4, 8) else 0
+            nj = TJ + e.j[1] - e.j[0]
+            pitch = -(-(nj + lanes - 1) // lanes) * lanes if lanes else nj
+            inputs.append((name, dk, e, pitch, lanes))
+            nin += _align16((TI + e.i[1] - e.i[0]) * pitch * vsize)
+        smem = max(16, sum(slot_bytes) + 2 * nin)
+        return slot, slot_bytes, inputs, nin, smem
+
+    plans = [(tile, plan(tile)) for tile in TILE_SHAPES]
+    choice = next(((tile, got) for want in (TILE_CTAS_PER_SM, TILE_CTAS_MIN, 1)
+                   for tile, got in plans
+                   if got[4] <= SMEM_MAX and ctas_per_sm(got[4], PLANE_THREADS) >= want), None)
+    if choice is None:
+        raise _Decline(f"cuda backend: the PARALLEL section's shared planes and staged "
+                       f"inputs need {plan(TILE_SHAPES[-1])[4]} bytes at a "
+                       f"{TILE_SHAPES[-1]} tile, above {SMEM_MAX}")
+    (TI, TJ), (slot, slot_bytes, inputs, nin, smem) = choice
+    computed = 0
+    for stage in stages:
+        for s in stage:
+            e = ext.stmt_extent(s)
+            computed += (TI + e.i[1] - e.i[0]) * (TJ + e.j[1] - e.j[0])
+    pp.tile = (TI, TJ)
+    pp.smem_bytes = smem
+    return TilePlan(tile=(TI, TJ), kz=TILE_KZ, planes=pp, slot=slot, slot_bytes=slot_bytes,
+                    inputs=inputs, input_bytes=nin, smem_bytes=smem,
+                    ctas_per_sm=ctas_per_sm(smem, PLANE_THREADS),
+                    halo=computed / max(1, nstmts * TI * TJ))
+
+
+def _loop_rw(loop_secs) -> Tuple[set, List[ir.FieldAccess]]:
+    writes, reads = set(), []
+    for _, body in loop_secs:
+        for s in body:
+            writes |= {w.name for w in _stmt_writes(s)}
+            reads += _stmt_reads(s)
+    return writes, reads
+
+
+def _fuse_conflict(a, b) -> Optional[str]:
+    """Why two serial loops (their sections) cannot share the fused column
+    kernel: one reads, at a horizontal offset, a field the other writes
+    (a thread owns one column through every loop).  None: they can."""
+    for x, y in ((a, b), (b, a)):
+        writes, _ = _loop_rw(y)
+        _, reads = _loop_rw(x)
+        for r in reads:
+            if r.name in writes and _ij(r.offset):
+                return (f"'{r.name}' is read at a horizontal offset in one serial loop and "
+                        "written in another")
+    return None
+
+
+def plan_kernels(analysis: StencilAnalysis, planes_loops=frozenset(),
+                 tiles: Optional[bool] = None, fuse_loops: Optional[bool] = None,
+                 declined: Optional[Dict[str, str]] = None) -> List[KernelPlan]:
+    """The kernels of a stencil in launch order: a tile kernel per
+    PARALLEL section (``tiles`` not False; the stage-split row kernels
+    where it declines or ``tiles=False``), a plane-sweep kernel for the
+    serial loops in ``planes_loops`` (by index) and those that read, at a
+    horizontal offset, a field they write, a column kernel for the other
+    serial loops, and after each run of consecutive column loops their
+    fused column kernel (``fuse_loops`` not False), which replaces the
+    per-loop ones but for K4.  A decline is recorded in ``declined``
+    (``tiles=True`` / ``fuse_loops=True`` raise instead)."""
+    st = analysis.stencil
+    declined = {} if declined is None else declined
     plans: List[KernelPlan] = []
     sec_id = 0
     plane_temps = None
+    touching = _touching_sections(st)
+    #: consecutive column loops: (plans index, loop sections) of the run
+    run: List[Tuple[int, list]] = []
+    groups: List[List[Tuple[int, list]]] = []
     for li, loop in enumerate(st.vertical_loops):
         if loop.loop_order == ir.LoopOrder.PARALLEL:
+            if run:
+                groups.append(run)
+                run = []
             for section in loop.sections:
-                for stage in _split_stages(section.body):
-                    plans.append(KernelPlan(name="", form="rows", order=loop.loop_order,
-                                            sections=[(sec_id, stage)]))
+                tp = None
+                if tiles is not False:
+                    try:
+                        tp = _plan_tile(analysis, sec_id, section.body,
+                                        _section_local_temps(st, sec_id, section.body,
+                                                             touching))
+                    except _Decline as e:
+                        if tiles:
+                            raise
+                        declined.setdefault("tiles", str(e))
+                if tp is not None and tiles is None and len(tp.planes.stages[sec_id]) == 1:
+                    declined.setdefault("tiles", ONE_STAGE)
+                    tp = None
+                if tp is not None:
+                    plans.append(KernelPlan(name="", form="tile", order=loop.loop_order,
+                                            sections=[(sec_id, section.body)],
+                                            planes=tp.planes, tile=tp))
+                else:
+                    for stage in _split_stages(section.body):
+                        plans.append(KernelPlan(name="", form="rows", order=loop.loop_order,
+                                                sections=[(sec_id, stage)]))
                 sec_id += 1
             continue
         secs = []
@@ -835,6 +1176,9 @@ def plan_kernels(analysis: StencilAnalysis, planes_loops=frozenset()) -> List[Ke
             secs.append((sec_id, s.body))
             sec_id += 1
         if li in planes_loops or _ij_hazard(loop):
+            if run:
+                groups.append(run)
+                run = []
             if plane_temps is None:
                 plane_temps = passes.plane_local_temps(st)
             plans.append(KernelPlan(name="", form="planes", order=loop.loop_order,
@@ -844,8 +1188,34 @@ def plan_kernels(analysis: StencilAnalysis, planes_loops=frozenset()) -> List[Ke
         else:
             plans.append(KernelPlan(name="", form="columns", order=loop.loop_order,
                                     sections=secs))
+            why = next((w for w in (_fuse_conflict(secs, prev) for _, prev in run) if w), None)
+            if why is not None:
+                if fuse_loops:
+                    raise _Forced(f"cuda backend: fuse_loops=True, but {why}")
+                declined.setdefault("fuse_loops", why)
+                groups.append(run)
+                run = []
+            run.append((len(plans) - 1, secs))
+    if run:
+        groups.append(run)
+    if fuse_loops is not False:
+        # each run's fused kernel goes right after its last loop (a run's
+        # loops are consecutive plans)
+        last = {g[-1][0]: g for g in groups}
+        fused_plans: List[KernelPlan] = []
+        for n, p in enumerate(plans):
+            fused_plans.append(p)
+            if n in last:
+                loops = [(plans[m].order, secs) for m, secs in last[n]]
+                for q in fused_plans[-len(loops):]:
+                    q.k4_only = True
+                fused_plans.append(KernelPlan(
+                    name="", form="column", order=loops[0][0],
+                    sections=[sec for _, secs in loops for sec in secs],
+                    group=ColumnGroup(loops=loops)))
+        plans = fused_plans
     for n, p in enumerate(plans):
-        p.name = f"{st.name}_k{n}"
+        p.name = f"{st.name}_k{n}" + {"tile": "_tile", "column": "_col"}.get(p.form, "")
         rect = Extent.zeros()
         for _, stmts in p.sections:
             for s in stmts:
@@ -864,13 +1234,15 @@ def plan_kernels(analysis: StencilAnalysis, planes_loops=frozenset()) -> List[Ke
     return plans
 
 
-def plan_stencil(analysis: StencilAnalysis, serialize: Optional[bool] = None):
+def plan_stencil(analysis: StencilAnalysis, serialize: Optional[bool] = None,
+                 tiles: Optional[bool] = None, fuse_loops: Optional[bool] = None):
     """``(analysis planned, kernels, serialized, declined)``.  A mixed
     stencil (``serialize=None``), or any stencil with a PARALLEL loop
     (``serialize=True``), runs serialized with its PARALLEL loops in the
     plane-sweep form (K5); where that declines, ``serialize=None`` keeps
-    the split row-plus-column plan and records why, ``serialize=True``
-    raises.  ``serialize=False`` never serializes."""
+    the split plan (tile or row kernels plus columns) and records why,
+    ``serialize=True`` raises.  ``serialize=False`` never serializes.
+    ``tiles`` and ``fuse_loops``: see ``plan_kernels``."""
     st = analysis.stencil
     orders = [loop.loop_order for loop in st.vertical_loops]
     mixed = ir.LoopOrder.PARALLEL in orders and len(set(orders)) > 1
@@ -884,12 +1256,14 @@ def plan_stencil(analysis: StencilAnalysis, serialize: Optional[bool] = None):
                                "loop writes)")
             san = analyze(ser)
             loops = frozenset(n for n, o in enumerate(orders) if o == ir.LoopOrder.PARALLEL)
-            return san, plan_kernels(san, loops), True, declined
+            plans = plan_kernels(san, loops, fuse_loops=fuse_loops, declined=declined)
+            return san, plans, True, declined
         except _Decline as e:
-            if serialize:
+            if serialize or isinstance(e, _Forced):
                 raise
             declined["serialize"] = str(e)
-    return analysis, plan_kernels(analysis), False, declined
+    return analysis, plan_kernels(analysis, tiles=tiles, fuse_loops=fuse_loops,
+                                  declined=declined), False, declined
 
 
 def _local_temps(analysis: StencilAnalysis, plans: List[KernelPlan]) -> List[str]:
@@ -938,6 +1312,8 @@ def _temp_events(analysis: StencilAnalysis, plans: List[KernelPlan], names):
     irregular = {n for n in names if analysis.stencil.temp_decls[n].data_dims}
     for p in plans:
         for sid, stmts in p.sections:
+            if p.group is not None:
+                continue  # a fused kernel repeats its loops' sections
             evs = events.setdefault(sid, [])
             for s in stmts:
                 for r in _stmt_reads(s):
@@ -1043,6 +1419,13 @@ class _Emitter:
         self.window: Optional[WindowPlan] = None
         #: the row form's vector kernel being emitted: its lane is ``l_``
         self.vec: Optional[VectorPlan] = None
+        #: the tile form's staged inputs: (name, K offset) -> (extent, pitch)
+        self.tin: Dict[Tuple[str, int], Tuple[Extent, int]] = {}
+        #: the fused column kernel: its group, the index of the loop being
+        #: emitted, and the current section's prefetched reads -> register
+        self.col: Optional[ColumnGroup] = None
+        self.col_loop = 0
+        self.pf: Dict[Tuple[str, int, int, int], str] = {}
 
     # ---------------- expressions ---------------- #
 
@@ -1080,8 +1463,21 @@ class _Emitter:
 
     def _staged(self, acc: ir.FieldAccess) -> Optional[str]:
         """The K window element a K4 access reads (``ti``/``tj``: the
-        column in the tile, ``kb0``: the block's first level)."""
-        if self.window is None or not isinstance(acc.offset, ir.CartesianOffset):
+        column in the tile, ``kb0``: the block's first level), or the
+        staged input plane a tile-form access reads."""
+        if not isinstance(acc.offset, ir.CartesianOffset):
+            return None
+        off = acc.offset
+        if (acc.name, off.k) in self.tin:
+            e, pitch = self.tin[(acc.name, off.k)]
+            at = self.stmt_ext
+            if not (e.i[0] <= at.i[0] + off.i and at.i[1] + off.i <= e.i[1]
+                    and e.j[0] <= at.j[0] + off.j and at.j[1] + off.j <= e.j[1]):
+                raise RuntimeError(f"cuda backend: planning bug: '{acc.name}' read beyond "
+                                   "its staged plane")
+            return (f"{_staged_var(acc.name, off.k)}[(ti + {off.i - e.i[0]}) * {pitch} + "
+                    f"(tj + {off.j - e.j[0]})]")
+        if self.window is None:
             return None
         for n, (name, ni, _, _, _, h) in enumerate(self.window.arrays):
             if name == acc.name:
@@ -1101,7 +1497,29 @@ class _Emitter:
         if self._snapshot(acc):
             return False
         return acc.name in self.locals or self._shared(acc) is not None \
-            or self._staged(acc) is not None
+            or self._staged(acc) is not None or self._carried(acc) is not None \
+            or self._prefetched(acc) is not None
+
+    def _prefetched(self, acc: ir.FieldAccess) -> Optional[str]:
+        """The register a fused column kernel loaded this read into one
+        level ahead."""
+        if not self.pf or not isinstance(acc.offset, ir.CartesianOffset) or acc.data_index:
+            return None
+        o = acc.offset
+        return self.pf.get((acc.name, o.i, o.j, o.k))
+
+    def _carried(self, acc: ir.FieldAccess) -> Optional[str]:
+        """A fused column kernel's access of a carried or whole-column
+        temporary: in its writer loop, the register of the level
+        (``c_``) or of the level before in the sweep (``p_``); in a later
+        loop, its column store (``m_``, stride ``ms_``)."""
+        g = self.col
+        if g is None or acc.name not in g.writer:
+            return None
+        k = acc.offset.k
+        if g.writer[acc.name] == self.col_loop:
+            return f"c_{acc.name}" if k == 0 else f"p_{acc.name}"
+        return f"m_{acc.name}[(long long)(k + {k}) * ms_{acc.name}]"
 
     def _lane(self, acc: ir.FieldAccess) -> Optional[str]:
         """The register a vector kernel's lane ``l_`` reads or writes: its
@@ -1119,6 +1537,9 @@ class _Emitter:
     def access(self, acc: ir.FieldAccess) -> str:
         if acc.name in self.locals:
             return f"l_{acc.name}"
+        reg = self._prefetched(acc) or self._carried(acc)
+        if reg is not None:
+            return reg
         lane = self._lane(acc)
         if lane is not None:
             return lane
@@ -1307,7 +1728,7 @@ class _Emitter:
             value = _cast(code, dt, tdt)
             if self.plane is not None:
                 return self.plane_assign(s.target, value, tdt, ind)
-            if tdt in _HALF and s.target.name not in self.locals:
+            if tdt in _HALF and not self.valued(s.target):
                 value = f"{_HALF[tdt][1]}({value})"  # exact: value is a 16-bit float
             return [f"{ind}{self.access(s.target)} = {value};"]
         if isinstance(s, ir.If):
@@ -1409,6 +1830,9 @@ def _bytes_per_point(analysis: StencilAnalysis, plan: KernelPlan, locals_) -> in
 def _in_device_memory(p: KernelPlan, name: str, locals_) -> bool:
     """A kernel reaches ``name`` in device memory (not a register or, in
     the plane-sweep form, only a shared plane)."""
+    if p.group is not None:
+        g = p.group
+        return name not in locals_ and name not in g.carries and name not in g.columns
     if p.planes is None:
         return name not in locals_
     pp = p.planes
@@ -1531,6 +1955,70 @@ def _plan_vector(analysis: StencilAnalysis, p: KernelPlan, locals_) -> Optional[
                       preload=preload, stores=stores, reads=reads_by_sid)
 
 
+def _plan_group(analysis: StencilAnalysis, p: KernelPlan, locals_) -> None:
+    """Where the fused column kernel ``p`` keeps its temporaries (see
+    ``ColumnGroup``) and which reads it loads a level ahead.  A temporary
+    qualifies when it is accessed only in the group's loops, at offset
+    (0, 0) in I and J, written (at offset 0) in one loop, read there only
+    at its level or the level before in that loop's sweep, and in no
+    earlier loop; a whole-column one (read by a later loop) also needs a
+    type of 32 or 64 bits."""
+    g = p.group
+    st = analysis.stencil
+    loop_of = {sid: li for li, (_, secs) in enumerate(g.loops) for sid, _ in secs}
+    touching = _touching_sections(st)
+    acc: Dict[str, List[Tuple[int, bool, ir.Offset]]] = {}
+    for li, (_, secs) in enumerate(g.loops):
+        for _, stmts in secs:
+            for s in stmts:
+                for w in _stmt_writes(s):
+                    acc.setdefault(w.name, []).append((li, True, w.offset))
+                for r in _stmt_reads(s):
+                    acc.setdefault(r.name, []).append((li, False, r.offset))
+    for t, decl in st.temp_decls.items():
+        if t in locals_ or decl.data_dims or t not in acc or not touching[t] <= set(loop_of):
+            continue
+        uses = acc[t]
+        if any(not isinstance(o, ir.CartesianOffset) or o.i or o.j for _, _, o in uses):
+            continue
+        writers = {li for li, w, _ in uses if w}
+        if len(writers) != 1 or any(w and o.k for _, w, o in uses):
+            continue
+        (L,) = writers
+        back = -1 if g.loops[L][0] == ir.LoopOrder.FORWARD else 1
+        if any(not w and (li < L or (li == L and o.k not in (0, back))) for li, w, o in uses):
+            continue
+        if any(li > L for li, _, _ in uses):
+            if np.dtype(decl.dtype) in _HALF:
+                continue
+            g.columns.append(t)
+        else:
+            g.carries.append(t)
+        g.writer[t] = L
+    ext = analysis.extents
+    # a field another loop of the group writes is read at (0, 0) (the
+    # fusion's condition): that loop ran before this one, or runs after it,
+    # in the same thread, so a read of the next level may go ahead
+    loop_writes = [_loop_rw(secs)[0] for _, secs in g.loops]
+    for li, (_, secs) in enumerate(g.loops):
+        for sid, stmts in secs:
+            keys = g.prefetch.setdefault(sid, [])
+            for s in stmts:
+                e = ext.stmt_extent(s)
+                if not isinstance(s, ir.Assign) or (e.i, e.j) != (p.rect.i, p.rect.j):
+                    continue
+                for r in ir.field_accesses(s.value):
+                    o = r.offset
+                    key = (r.name, getattr(o, "i", 0), getattr(o, "j", 0), getattr(o, "k", 0))
+                    # inputs, and a whole-column temporary's store in a
+                    # loop after its writer's
+                    stored = r.name in g.columns and g.writer[r.name] < li
+                    if isinstance(o, ir.CartesianOffset) and not r.data_index and \
+                            r.name not in locals_ and key not in keys and (stored or (
+                                r.name not in loop_writes[li] and r.name not in g.writer)):
+                        keys.append(key)
+
+
 @dataclass
 class CudaProgram:
     """The generated source and what the wrapper needs to call it."""
@@ -1568,21 +2056,41 @@ class CudaProgram:
     widened: Dict[str, Extent] = field(default_factory=dict)
 
     def plan_record(self) -> dict:
-        """The stencil's ``LAST_PLAN`` entry before a launch."""
-        planes = [k.planes for k in self.kernels if k.planes]
+        """The stencil's ``LAST_PLAN`` entry before a launch: ``forms`` are
+        the kernels a one-pass call launches, in order (K4's window
+        kernels replace the fused column kernel where K4 runs)."""
+        planes = [k.planes for k in self.kernels if k.form == "planes"]
+        on_chip = [k.planes for k in self.kernels if k.planes]
         return {
-            "forms": [k.form for k in self.kernels],
+            "forms": [k.form for k in self.kernels if not k.k4_only],
             "serialized": self.serialized,
             "kblocked": False,
             "tile": list(planes[0].tile) if planes else None,
-            "shared": sorted({n for pp in planes for n in pp.shared}),
-            "registers": sorted(set(self.locals) | {n for pp in planes for n in pp.registers}),
+            "shared": sorted({n for pp in on_chip for n in pp.shared}),
+            "registers": sorted(set(self.locals) | {n for pp in on_chip for n in pp.registers}),
             "scratch": list(self.scratch),
             "snapshots": list(self.snapshots),
             "smem_bytes": [pp.smem_bytes for pp in planes],
             "widened": {n: [list(e.i), list(e.j)] for n, e in self.widened.items()},
+            "tiles": [k.tile.record(k.name) for k in self.kernels if k.tile],
+            "columns": [{"kernel": k.name, "loops": len(k.group.loops),
+                         "carries": list(k.group.carries), "columns": list(k.group.columns),
+                         "prefetch": sum(len(v) for v in k.group.prefetch.values())}
+                        for k in self.kernels if k.group],
             "declined": dict(self.declined),
         }
+
+    def vector_fields(self) -> set:
+        """The fields the vector row kernels and the tile kernels' 16-byte
+        copies reach."""
+        return {n for k in self.kernels if k.vector for n in k.vector.fields} | {
+            name for k in self.kernels if k.tile for name, _, _, _, lanes in k.tile.inputs
+            if lanes}
+
+    def vector_width(self, names) -> int:
+        """Elements a 16-byte word holds of the smallest of ``names``."""
+        st = self.analysis.stencil
+        return 16 // min(np.dtype(st.decl(n).dtype).itemsize for n in names)
 
     def kblock_plan(self, columns: int, dK: int):
         """``(KB per window kernel, None)`` when K4 runs on ``columns`` =
@@ -1759,6 +2267,10 @@ def _emit_window_kernel(em: _Emitter, p: KernelPlan, params: List[str]) -> List[
     return out + ["    }", "    __syncthreads();", "  }", "}"]
 
 
+def _staged_var(name: str, ok: int) -> str:
+    return f"st_{name}_k{ok}".replace("-", "m")
+
+
 def _window_var(name: str, oi: int, ok: int) -> str:
     num = lambda x: f"m{-x}" if x < 0 else str(x)  # noqa: E731
     return f"w_{name}_i{num(oi)}_k{num(ok)}"
@@ -1898,6 +2410,63 @@ def _k_loop(order: ir.LoopOrder, sid: int, ind: str) -> str:
     return f"{ind}for (int k = kb.lo[{sid}]; k < kb.hi[{sid}]; ++k) {{"
 
 
+def _tile_points(tile: Tuple[int, int], e: Extent, ind: str) -> List[str]:
+    """A block-stride loop over the tile widened by ``e``: ``(ti, tj)``
+    relative to the tile's origin ``(I0, J0)``, ``(i, j)`` in the domain;
+    the tile's interior ends at ``(I1, J1)``."""
+    TI, TJ = tile
+    ni, nj = TI + e.i[1] - e.i[0], TJ + e.j[1] - e.j[0]
+    return [
+        f"{ind}for (int p_ = (int)threadIdx.x; p_ < {ni * nj}; p_ += {PLANE_THREADS}) {{",
+        f"{ind}  const int ti = {e.i[0]} + p_ / {nj}, tj = {e.j[0]} + p_ % {nj};",
+        f"{ind}  const int i = I0 + ti, j = J0 + tj;",
+        f"{ind}  if (i >= I1 + {e.i[1]} || j >= J1 + {e.j[1]}) continue;",
+    ]
+
+
+def _plane_level(em: _Emitter, p: KernelPlan, sid: int) -> List[str]:
+    """One level of a plane-sweep or tile kernel (inside its K loop): the
+    mirrored fields' planes loaded, then each stage over its widened
+    rectangle, ``__syncthreads()`` after each."""
+    pp = p.planes
+    st = em.stencil
+    out = []
+    if pp.mirrored:
+        for name, depth in pp.mirrored.items():
+            dt = np.dtype(st.decl(name).dtype)
+            e = pp.shared[name]
+            plane = (pp.tile[0] + e.i[1] - e.i[0]) * (pp.tile[1] + e.j[1] - e.j[0])
+            load = em.global_access(ir.FieldAccess(name))
+            if dt in _HALF:
+                load = f"{_HALF[dt][0]}({load})"
+            ring = f"gt::slot(k, {depth}) * {plane} + " if depth > 1 else ""
+            out += _tile_points(pp.tile, e, "    ")
+            out += [f"      sh_{name}[{ring}p_] = {load};", "    }"]
+        out.append("    __syncthreads();")
+    for stage in pp.stages[sid]:
+        rect = Extent.zeros()
+        for s in stage:
+            rect = rect | pp.extent(em.analysis, s)
+        rect = Extent(i=rect.i, j=rect.j)
+        out += _tile_points(pp.tile, rect, "    ")
+        if any(pp.extent(em.analysis, s) != Extent() and any(
+                _in_device_memory(p, w.name, ()) for w in _stmt_writes(s)) for s in stage):
+            out.append("      const bool own = (I0 == 0 || ti >= 0) && (I1 == dI || i < I1)"
+                       " && (J0 == 0 || tj >= 0) && (J1 == dJ || j < J1);")
+        out += em.registers(stage, "      ")
+        for s in stage:
+            out += em.plane_guarded(s, rect, "      ")
+        out += ["    }", "    __syncthreads();"]
+    return out
+
+
+def _tile_origin(TI: int, TJ: int) -> List[str]:
+    return [
+        f"  const int I0 = (int)blockIdx.y * {TI}, J0 = (int)blockIdx.x * {TJ};",
+        f"  const int I1 = I0 + {TI} < dI ? I0 + {TI} : dI, J1 = J0 + {TJ} < dJ ? J0 + {TJ} : dJ;",
+    ]
+
+
 def _emit_planes(em: _Emitter, p: KernelPlan, params: List[str], bpp: int) -> List[str]:
     """The plane-sweep kernel of one serial loop (see the module
     docstring): ``(ti, tj)`` is a point relative to the tile's origin
@@ -1923,54 +2492,219 @@ def _emit_planes(em: _Emitter, p: KernelPlan, params: List[str], bpp: int) -> Li
         out.append(f"  {ct}* const sh_{name} = ({ct}*)(gt_smem + {off});")
         off += _align16((TI + e.i[1] - e.i[0]) * (TJ + e.j[1] - e.j[0])
                         * _value_size(st.decl(name).dtype) * pp.mirrored.get(name, 1))
-    out += [
-        f"  const int I0 = (int)blockIdx.y * {TI}, J0 = (int)blockIdx.x * {TJ};",
-        f"  const int I1 = I0 + {TI} < dI ? I0 + {TI} : dI, J1 = J0 + {TJ} < dJ ? J0 + {TJ} : dJ;",
-    ]
-
-    def points(e: Extent, ind: str) -> List[str]:
-        ni, nj = TI + e.i[1] - e.i[0], TJ + e.j[1] - e.j[0]
-        return [
-            f"{ind}for (int p_ = (int)threadIdx.x; p_ < {ni * nj}; p_ += {PLANE_THREADS}) {{",
-            f"{ind}  const int ti = {e.i[0]} + p_ / {nj}, tj = {e.j[0]} + p_ % {nj};",
-            f"{ind}  const int i = I0 + ti, j = J0 + tj;",
-            f"{ind}  if (i >= I1 + {e.i[1]} || j >= J1 + {e.j[1]}) continue;",
-        ]
-
+    out += _tile_origin(TI, TJ)
     em.plane_order = p.order
     em.done_secs = []
     for sid, _ in p.sections:
         em.sid = sid
         out.append(_k_loop(p.order, sid, "  "))
-        if pp.mirrored:
-            for name, depth in pp.mirrored.items():
-                dt = np.dtype(st.decl(name).dtype)
-                e = pp.shared[name]
-                plane = (TI + e.i[1] - e.i[0]) * (TJ + e.j[1] - e.j[0])
-                load = em.global_access(ir.FieldAccess(name))
-                if dt in _HALF:
-                    load = f"{_HALF[dt][0]}({load})"
-                ring = f"gt::slot(k, {depth}) * {plane} + " if depth > 1 else ""
-                out += points(e, "    ")
-                out += [f"      sh_{name}[{ring}p_] = {load};", "    }"]
-            out.append("    __syncthreads();")
-        for stage in pp.stages[sid]:
-            rect = Extent.zeros()
-            for s in stage:
-                rect = rect | pp.extent(em.analysis, s)
-            rect = Extent(i=rect.i, j=rect.j)
-            out += points(rect, "    ")
-            if any(pp.extent(em.analysis, s) != Extent() and any(
-                    _in_device_memory(p, w.name, ()) for w in _stmt_writes(s)) for s in stage):
-                out.append("      const bool own = (I0 == 0 || ti >= 0) && (I1 == dI || i < I1)"
-                           " && (J0 == 0 || tj >= 0) && (J1 == dJ || j < J1);")
-            out += em.registers(stage, "      ")
-            for s in stage:
-                out += em.plane_guarded(s, rect, "      ")
-            out += ["    }", "    __syncthreads();"]
+        out += _plane_level(em, p, sid)
         out.append("  }")
         em.done_secs.append(sid)
     em.plane = None
+    return out + ["}"]
+
+
+def _emit_tile(em: _Emitter, p: KernelPlan, params: List[str], bpp: int) -> List[str]:
+    """The tile kernel of one PARALLEL section (``TilePlan``): grid
+    (J tiles, I tiles, K blocks of ``kz`` levels); each level runs the
+    section's stages as the plane-sweep form runs a plane, its shared
+    planes in slots reused by liveness.  The staged inputs of level k + 1
+    are copied (``cp.async``: 16 bytes where a word of the row is
+    contiguous and aligned on the 16-byte phase ``tph`` the wrapper
+    found, one element elsewhere, a synchronous load where the value is
+    converted) into one slot of a two-slot ring while level k computes."""
+    tp = p.tile
+    pp = tp.planes
+    TI, TJ = tp.tile
+    st = em.stencil
+    ((sid, _),) = p.sections
+    em.plane = pp
+    em.locals = set(pp.registers)
+    em.plane_order = ir.LoopOrder.PARALLEL
+    em.done_secs = []
+    em.sid = sid
+    staged = [f"{n}@k{dk}" for n, dk, *_ in tp.inputs]
+    out = [
+        "",
+        f"// {p.name}: tile form (PARALLEL section {sid}), tile {TI}x{TJ}, {tp.kz} levels a CTA, "
+        f"{PLANE_THREADS} threads; shared {sorted(pp.shared)} in {len(tp.slot_bytes)} slots, "
+        f"mirrored {sorted(pp.mirrored)}, registers {pp.registers}, staged {staged}, "
+        f"{tp.smem_bytes} shared bytes; ~{bpp} bytes per grid point",
+        f"__global__ void __launch_bounds__({PLANE_THREADS}) {p.name}(",
+        "    " + ",\n    ".join(params + ["int tph"]) + ") {",
+        "  GT_DYNAMIC_SMEM(gt_smem);",
+    ]
+    offs, at = [], 0
+    for b in tp.slot_bytes:
+        offs.append(at)
+        at += b
+    for name in pp.shared:
+        ct = _ctype(st.decl(name).dtype)
+        out.append(f"  {ct}* const sh_{name} = ({ct}*)(gt_smem + {offs[tp.slot[name]]});")
+    ring = at
+    out += _tile_origin(TI, TJ) + [
+        f"  const int k0_ = kb.lo[{sid}] + (int)blockIdx.z * {tp.kz};",
+        f"  const int k1_ = k0_ + {tp.kz} < kb.hi[{sid}] ? k0_ + {tp.kz} : kb.hi[{sid}];",
+        "  (void)tph;",
+    ]
+    ioffs, at = [], 0
+    for name, dk, e, pitch, lanes in tp.inputs:
+        ioffs.append(at)
+        at += _align16((TI + e.i[1] - e.i[0]) * pitch * _value_size(st.decl(name).dtype))
+    if tp.inputs:
+        for n, (name, dk, e, pitch, lanes) in enumerate(tp.inputs):
+            out.append(f"  const int ld{n}_ = tph >= 0 ? ((J0 + {e.j[0]} - tph) % {lanes} + "
+                       f"{lanes}) % {lanes} : 0;" if lanes else f"  const int ld{n}_ = 0;")
+        out += ["  // level k's staged inputs into slot s_ of the ring",
+                "  auto stage_ = [&](int k, int s_) {",
+                f"    unsigned char* const r_ = gt_smem + {ring} + (size_t)s_ * {tp.input_bytes};"]
+        for n, (name, dk, e, pitch, lanes) in enumerate(tp.inputs):
+            dt = np.dtype(st.decl(name).dtype)
+            ct = _ctype(dt)
+            rows = TI + e.i[1] - e.i[0]
+
+            def gat(j: str, name=name) -> str:
+                return em.global_access(ir.FieldAccess(name), i="gi", j=j, k="gk")
+
+            out += ["    {", f"      {ct}* const w_ = ({ct}*)(r_ + {ioffs[n]});"]
+            if lanes:
+                nch = pitch // lanes
+                out += [
+                    f"      for (int p_ = (int)threadIdx.x; p_ < {rows * nch}; "
+                    f"p_ += {PLANE_THREADS}) {{",
+                    f"        const int row_ = p_ / {nch}, c_ = (p_ % {nch}) * {lanes};",
+                    f"        const int gi = I0 + {e.i[0]} + row_, "
+                    f"gj = J0 + {e.j[0]} - ld{n}_ + c_, gk = k + {dk};",
+                    f"        if (gi >= I1 + {e.i[1]} || gj >= J1 + {e.j[1]}) continue;",
+                    f"        {ct}* const d_ = w_ + row_ * {pitch} + c_;",
+                    f"        const {ct}* const a_ = &{gat('gj')};",
+                    f"        if (tph >= 0 && &{gat(f'gj + {lanes - 1}')} == a_ + {lanes - 1} && "
+                    "(reinterpret_cast<size_t>(a_) & 15) == 0) {",
+                    "          gt::async_copy<16>(d_, a_);",
+                    "        } else {",
+                    f"          for (int e_ = 0; e_ < {lanes}; ++e_)",
+                    f"            if (gj + e_ >= J0 + {e.j[0]} && gj + e_ < J1 + {e.j[1]}) "
+                    f"gt::async_copy<{dt.itemsize}>(d_ + e_, &{gat('gj + e_')});",
+                    "        }",
+                    "      }",
+                ]
+            else:
+                nj = TJ + e.j[1] - e.j[0]
+                load = gat("gj")
+                if dt in _HALF:
+                    load = f"{_HALF[dt][0]}({load})"
+                out += [
+                    f"      for (int p_ = (int)threadIdx.x; p_ < {rows * nj}; "
+                    f"p_ += {PLANE_THREADS}) {{",
+                    f"        const int gi = I0 + {e.i[0]} + p_ / {nj}, "
+                    f"gj = J0 + {e.j[0]} + p_ % {nj}, gk = k + {dk};",
+                    f"        if (gi < I1 + {e.i[1]} && gj < J1 + {e.j[1]}) w_[p_] = {load};",
+                    "      }",
+                ]
+            out.append("    }")
+        out += ["  };", "  if (k0_ < k1_) stage_(k0_, 0);", "  gt::async_commit();"]
+    out.append("  for (int k = k0_; k < k1_; ++k) {")
+    if tp.inputs:
+        out += ["    const int s_ = (k - k0_) & 1;",
+                "    if (k + 1 < k1_) stage_(k + 1, s_ ^ 1);",
+                "    gt::async_commit();",
+                "    gt::async_wait<1>();",
+                "    __syncthreads();"]
+        for n, (name, dk, e, pitch, lanes) in enumerate(tp.inputs):
+            ct = _ctype(st.decl(name).dtype)
+            out.append(f"    const {ct}* const {_staged_var(name, dk)} = (const {ct}*)(gt_smem + "
+                       f"{ring} + (size_t)s_ * {tp.input_bytes} + {ioffs[n]}) + ld{n}_;")
+    em.tin = {(name, dk): (e, pitch) for name, dk, e, pitch, _ in tp.inputs}
+    out += _plane_level(em, p, sid)
+    em.tin = {}
+    em.plane = None
+    return out + ["  }", "}"]
+
+
+def _emit_column_group(em: _Emitter, p: KernelPlan, params: List[str], bpp: int) -> List[str]:
+    """The fused column kernel of a run of serial loops (``ColumnGroup``):
+    thread (j, i) owns one column through every loop, J along
+    ``threadIdx.x``.  A carried temporary is two registers, the level's
+    (``c_``) and the one before in the sweep (``p_``, zero where that
+    level was not swept); a whole-column one is also stored at every
+    level its loop sweeps, into its device-memory scratch.  Each section
+    loads the inputs its unconditional statements read one level ahead,
+    into registers, before the level's arithmetic."""
+    g = p.group
+    st = em.stencil
+    r = p.rect
+    out = [
+        "",
+        f"// {p.name}: fused column form ({' + '.join(o.name for o, _ in g.loops)}), "
+        f"{COL_THREADS} columns a CTA, rect I{r.i} J{r.j}; carried {g.carries}, whole-column "
+        f"{g.columns}; ~{bpp} bytes per grid point",
+        f"__global__ void __launch_bounds__({COL_THREADS}, {COL_MIN_CTAS}) {p.name}(",
+        "    " + ",\n    ".join(params) + ") {",
+        f"  const int j = {r.j[0]} + (int)(blockIdx.x * blockDim.x + threadIdx.x);",
+        f"  const int i = {r.i[0]} + (int)blockIdx.y;",
+        f"  if (i >= dI + {r.i[1]} || j >= dJ + {r.j[1]}) return;",
+    ]
+    for t in g.columns:
+        ct = _ctype(st.temp_decls[t].dtype)
+        out += [f"  {ct}* const m_{t} = &t_{t}.at(i, j, 0);",
+                f"  const long long ms_{t} = t_{t}.sk;"]
+    for t in g.carries + g.columns:
+        ct = _ctype(st.temp_decls[t].dtype)
+        out.append(f"  {ct} c_{t} = ({ct})0, p_{t} = ({ct})0;")
+    em.col = g
+    ind = "      "
+    for li, (order, secs) in enumerate(g.loops):
+        em.col_loop = li
+        mine = [t for t, w in g.writer.items() if w == li]
+        fwd = order == ir.LoopOrder.FORWARD
+        step = 1 if fwd else -1
+        out += ["  {", f"    int kl_ = {'-2147483647' if fwd else '2147483646'};",
+                "    (void)kl_;"]
+        for sid, stmts in secs:
+            keys = g.prefetch.get(sid, [])
+            em.pf = {}
+            lo, hi = f"kb.lo[{sid}]", f"kb.hi[{sid}]"
+            first = lo if fwd else f"{hi} - 1"
+            loads = []
+            for n, (name, oi, oj, ok) in enumerate(keys):
+                dt = np.dtype(st.decl(name).dtype)
+                acc = ir.FieldAccess(name, offset=ir.CartesianOffset(oi, oj, ok))
+                load = f"m_{name}[(long long)(k_ + {ok}) * ms_{name}]" if name in g.columns \
+                    else em.global_access(acc, k="k_")
+                if dt in _HALF and name not in g.columns:
+                    load = f"{_HALF[dt][0]}({load})"
+                loads.append((n, _ctype(dt), load))
+            out.append("    {")
+            for n, ct, load in loads:
+                out.append(f"      {ct} n{n}_ = ({ct})0;")
+            if loads:
+                out.append(f"      if ({lo} < {hi}) {{ const int k_ = {first}; "
+                           + " ".join(f"n{n}_ = {ld};" for n, _, ld in loads) + " }")
+            out.append("  " + _k_loop(order, sid, "    "))
+            for n, ct, _ in loads:
+                out.append(f"{ind}const {ct} v{n}_ = n{n}_;")
+                em.pf[keys[n]] = f"v{n}_"
+            if loads:
+                nxt = f"k + {step}"
+                out.append(f"{ind}if ({nxt} >= {lo} && {nxt} < {hi}) {{ const int k_ = {nxt}; "
+                           + " ".join(f"n{n}_ = {ld};" for n, _, ld in loads) + " }")
+            for t in mine:
+                if any(isinstance(x, ir.FieldAccess) and x.name == t and x.offset.k
+                       for s in stmts for x in ir.walk_values(s)):
+                    ct = _ctype(st.temp_decls[t].dtype)
+                    out.append(f"{ind}p_{t} = kl_ == k - {step} ? c_{t} : ({ct})0;")
+                out.append(f"{ind}c_{t} = ({_ctype(st.temp_decls[t].dtype)})0;")
+            out += em.registers(stmts, ind)
+            for s in stmts:
+                out += em.guarded(s, r, ind)
+            for t in mine:
+                if t in g.columns:
+                    out.append(f"{ind}m_{t}[(long long)k * ms_{t}] = c_{t};")
+            out += [f"{ind}kl_ = k;", "    }", "    }"]
+            em.pf = {}
+        out.append("  }")
+    em.col = None
     return out + ["}"]
 
 
@@ -2007,6 +2741,20 @@ def _launch_lines(p: KernelPlan, index: int, args: List[str], nsec: int,
                 f"{ind}  if (a != cudaSuccess) return (int)a;",
                 f"{ind}}}"]
 
+    if p.group is not None:
+        # one pass (no K4): the fused kernel
+        return [
+            "  if (!kmode) {",
+            f"    const int ni = dI + {p.rect.i[1] - p.rect.i[0]}, "
+            f"nj = dJ + {p.rect.j[1] - p.rect.j[0]};",
+            "    if (ni > 0 && nj > 0) {",
+            f"      const dim3 grid((nj + {COL_THREADS - 1}) / {COL_THREADS}, ni), "
+            f"block({COL_THREADS});",
+            f"      {p.name}<<<grid, block, 0, st>>>({call});",
+            *check,
+            "    }",
+            "  }",
+        ]
     if p.planes is not None:
         TI, TJ = p.planes.tile
         copies = []
@@ -2020,6 +2768,21 @@ def _launch_lines(p: KernelPlan, index: int, args: List[str], nsec: int,
                 f"(ni + {BLOCK_I - 1}) / {BLOCK_I}), block({BLOCK_J}, {BLOCK_I});",
                 f"      {kernel}<<<grid, block, 0, st>>>(o_{n}, {src}, {e.i[0]}, dI + {e.i[1]}, "
                 f"{e.j[0]}, dJ + {e.j[1]});",
+                *check,
+                "    }",
+                "  }",
+            ]
+        if p.tile is not None:
+            ((sid, _),) = p.sections
+            return copies + [
+                "  {",
+                f"    const int nk_ = kb.hi[{sid}] - kb.lo[{sid}];",
+                f"    const dim3 grid((dJ + {TJ - 1}) / {TJ}, (dI + {TI - 1}) / {TI}, "
+                f"(nk_ + {p.tile.kz - 1}) / {p.tile.kz}), block({PLANE_THREADS});",
+                f"    const size_t smem = {p.tile.smem_bytes};",
+                "    if (dI > 0 && dJ > 0 && nk_ > 0) {",
+                *attr(p.name, "      "),
+                f"      {p.name}<<<grid, block, smem, st>>>({call}, vec[{index}] - 1);",
                 *check,
                 "    }",
                 "  }",
@@ -2070,6 +2833,11 @@ def _launch_lines(p: KernelPlan, index: int, args: List[str], nsec: int,
             "    }",
             "  }",
         ]
+    if p.k4_only:
+        # the fused kernel runs the loop in one pass: only K4 launches it
+        if p.window is None:
+            return []
+        plain = []
     if p.window is None:
         return out + plain + ["  }"]
     w = p.window
@@ -2136,18 +2904,24 @@ def _occupancy_lines(plans: List[KernelPlan]) -> List[str]:
 
 
 def generate(analysis: StencilAnalysis, serialize: Optional[bool] = None,
-             k_blocked: Optional[bool] = None) -> CudaProgram:
+             k_blocked: Optional[bool] = None, tiles: Optional[bool] = None,
+             fuse_loops: Optional[bool] = None) -> CudaProgram:
     """Emit the CUDA C++ source of one stencil (deterministic).
-    ``serialize`` and ``k_blocked``: the build options (see
-    ``plan_stencil`` and ``CudaProgram.kblock_plan``)."""
+    ``serialize``, ``k_blocked``, ``tiles`` and ``fuse_loops``: the build
+    options (see ``plan_stencil``, ``plan_kernels`` and
+    ``CudaProgram.kblock_plan``)."""
     _check_supported(analysis)
-    planned, plans, serialized, declined = plan_stencil(analysis, serialize)
+    planned, plans, serialized, declined = plan_stencil(analysis, serialize, tiles, fuse_loops)
     st = planned.stencil
     touching = {n: [p for p in plans if n in p.reads or n in p.writes] for n in st.temp_decls}
     planes_global = {n for n, ps in touching.items()
                      for p in ps if p.planes is not None and _in_device_memory(p, n, ())}
-    locals_ = [n for n in _local_temps(planned, [p for p in plans if p.planes is None])
+    locals_ = [n for n in _local_temps(planned, [p for p in plans
+                                                 if p.planes is None and p.group is None])
                if n not in planes_global]
+    for p in plans:
+        if p.group is not None:
+            _plan_group(planned, p, locals_)
     scratch = [n for n, ps in touching.items()
                if not ps or any(_in_device_memory(p, n, locals_) for p in ps)]
     fields = list(st.field_decls)
@@ -2192,7 +2966,7 @@ def generate(analysis: StencilAnalysis, serialize: Optional[bool] = None,
                                                   if not _in_device_memory(p, n, locals_)])
            for p in plans}
     notes = [REPLACES["rows"], REPLACES["columns"], REPLACES["wrap"]]
-    if any(p.planes for p in plans):
+    if any(p.form == "planes" for p in plans):
         notes.append(REPLACES["planes"])
     if any(p.window for p in plans):
         notes.append(REPLACES["kblocked"])
@@ -2223,11 +2997,19 @@ def generate(analysis: StencilAnalysis, serialize: Optional[bool] = None,
     for n in snapshots:
         out += _emit_snapshot(n, snap[n][0], _stype(st.decl(n).dtype))
     for p in plans:
+        if p.tile is not None:
+            out += _emit_tile(em, p, params, bpp[p.name])
+            em.locals = set(locals_)
+            continue
         if p.planes is not None:
             out += _emit_planes(em, p, params, bpp[p.name])
             em.locals = set(locals_)
             continue
-        out += _emit_plain_kernel(em, p, params, bpp[p.name])
+        if p.group is not None:
+            out += _emit_column_group(em, p, params, bpp[p.name])
+            continue
+        if not p.k4_only:
+            out += _emit_plain_kernel(em, p, params, bpp[p.name])
         if p.vector is not None:
             out += _emit_vector_rows(em, p, params, bpp[p.name])
         if p.window is not None:
@@ -2288,7 +3070,8 @@ def generate(analysis: StencilAnalysis, serialize: Optional[bool] = None,
         bytes_per_point=bpp,
         temp_events=temp_events,
         irregular_writes=irregular,
-        section_order={sid: p.order for p in plans for sid, _ in p.sections},
+        section_order={sid: p.order for p in plans if p.group is None
+                       for sid, _ in p.sections},
         analysis=planned,
         serialized=serialized,
         declined=declined,
@@ -2343,9 +3126,15 @@ class CudaBackend:
         self.analysis = analysis
         #: build options: ``serialize`` (K5, see ``plan_stencil``; None
         #: serializes mixed stencils, True any with a PARALLEL loop, False
-        #: none) and ``k_blocked`` (K4: True blocks the column loops)
+        #: none), ``k_blocked`` (K4: True blocks the column loops),
+        #: ``tiles`` (K1: None the tile form where it plans, True it or
+        #: raise, False the stage-split row kernels) and ``fuse_loops``
+        #: (K2: None fuses consecutive column loops where legal, True or
+        #: raise, False one kernel per loop)
         self.program = generate(analysis, serialize=options.get("serialize"),
-                                k_blocked=options.get("k_blocked"))
+                                k_blocked=options.get("k_blocked"),
+                                tiles=options.get("tiles"),
+                                fuse_loops=options.get("fuse_loops"))
         LAST_PLAN[analysis.stencil.name] = self.program.plan_record()
         #: K6's launch options: ``vector`` (None: ``VECTOR_DEFAULT``; True
         #: runs the vector row form, repairing the geometry where it must,
@@ -2357,7 +3146,8 @@ class CudaBackend:
         self.repair_opt = options.get("repair")
         self.plain = TorchExecutor(analysis)
         self.launches = 0
-        #: calls that launched a vector kernel, and calls that were repaired
+        #: calls that launched a vector kernel (a vector row kernel, or a
+        #: tile kernel with 16-byte copies), and calls that were repaired
         self.vector_launches = 0
         self.repairs = 0
         self.derivative_calls = 0
@@ -2513,8 +3303,7 @@ class CudaBackend:
         an = self.analysis
         decls = an.stencil.field_decls
         want = VECTOR_DEFAULT if self.vector_opt is None else self.vector_opt
-        vec_fields = {n for k in prog.kernels if k.vector for n in k.vector.fields
-                      if n in env}
+        vec_fields = {n for n in prog.vector_fields() if n in env}
         record: dict = {"declined": {}}
         if self.repair_opt and not (want and vec_fields):
             names = [n for n in env if vector_candidate(decls[n])]
@@ -2526,8 +3315,9 @@ class CudaBackend:
             cons[n] = repair.constraint(ptr, rec[:3], env[n].element_size())
         phase = repair.common_phase(list(cons.values())) \
             if None not in cons.values() else None
-        if not any(k.vector for k in prog.kernels):
-            record["declined"]["vector"] = "no row-form stage reaches a J-contiguous field"
+        if not prog.vector_fields():
+            record["declined"]["vector"] = ("no row-form stage or tile input reaches a "
+                                            "J-contiguous field")
         elif not want:
             record["declined"]["vector"] = ("vector=False" if self.vector_opt is False else
                                             "off by default (vector=True runs it)")
@@ -2536,7 +3326,7 @@ class CudaBackend:
                 raise ValueError(f"stencil '{an.stencil.name}': repair=True, but the fields "
                                  "already share a 16-byte phase: no repair applies")
             if want and vec_fields:
-                record["vector"] = max(k.vector.V for k in prog.kernels if k.vector)
+                record["vector"] = prog.vector_width(prog.vector_fields())
                 return phase, {}, set(), record
             return None, {}, set(), record
         forced = self.repair_opt or (want and vec_fields and self.vector_opt)
@@ -2565,7 +3355,7 @@ class CudaBackend:
         record["repair_in"] = sorted(copied_in)
         record["repair_bytes"] = nbytes
         if want and vec_fields:
-            record["vector"] = max(k.vector.V for k in prog.kernels if k.vector)
+            record["vector"] = prog.vector_width(prog.vector_fields())
         else:
             phase = None
         return phase, pads, copied_in, record
@@ -2606,9 +3396,17 @@ class CudaBackend:
         self._kb_init(device)
         kbs, plan, kbsz = self._depth_plan(dI * dJ, dK)
         plan = {**plan, **record, "declined": {**plan["declined"], **record["declined"]}}
+        # one pass: the fused column kernels keep their carried temporaries
+        # in registers; those need no scratch
+        on_chip = set() if kbs is not None else {
+            t for k in prog.kernels if k.group for t in k.group.carries}
         LAST_PLAN[st.name] = plan
         views = {}
         for name in prog.scratch:
+            if name in on_chip:
+                ptrs.append(0)
+                strides += [0] * _REC
+                continue
             ext = prog.analysis.extents.alloc_extent(name)
             decl = prog.analysis.stencil.temp_decls[name]
             nj = dJ - ext.j[0] + ext.j[1]
@@ -2639,7 +3437,7 @@ class CudaBackend:
         if phase is not None:
             # the repair's copies and the scratch buffers come from the
             # allocator: their phase is checked as the caller's was
-            for name in {n for k in prog.kernels if k.vector for n in k.vector.fields}:
+            for name in prog.vector_fields():
                 if name in views or name in pads:
                     view, origin = views[name] if name in views else (env[name], origins[name])
                     p, s = _field_arg(view, origin)
@@ -2647,7 +3445,10 @@ class CudaBackend:
                     if c is None or (c[0] + phase) % c[1]:
                         raise RuntimeError(f"stencil '{st.name}': '{name}' is not on the vector "
                                            f"kernels' 16-byte phase (J {phase})")
-        vec = [phase + 1 if phase is not None and k.vector else 0 for k in prog.kernels]
+        # per kernel: the vector row and tile kernels' 16-byte phase + 1
+        # (0: none)
+        vec = [phase + 1 if phase is not None and (k.vector or k.tile) else 0
+               for k in prog.kernels]
         kb = [k for bounds in kb for k in bounds]
         # rounded to the scalar's dtype here, so the kernel's conversion
         # from double is exact
@@ -2682,7 +3483,7 @@ class CudaBackend:
             repair.write_back(self.analysis, caller, caller_origins, env, (dI, dJ, dK), pads,
                               [n for n in self._written if n in caller])
             self.repairs += 1
-        if any(vec):
+        if any(v for k, v in zip(prog.kernels, vec) if k.vector or k.tile):
             self.vector_launches += 1
         # scratch buffers go back to the caching allocator tied to the
         # stream, so reuse by later work on the same stream is ordered

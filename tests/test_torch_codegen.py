@@ -4,9 +4,11 @@ data dimensions.
 
 The emitter does not inline temporaries (``passes.inline_parallel_
 temporaries``, which the ``"jax"`` backend applies): the horizontal
-diffusion is three row-form kernels -- the Laplacian, the limited fluxes,
-the update -- with ``lap_field``, ``flx_field`` and ``fly_field`` in scratch
-and ``res`` in a register; fv_step is thirteen.
+diffusion is one tile kernel -- the Laplacian, the limited fluxes and the
+update its stages -- with ``lap_field``, ``flx_field`` and ``fly_field`` in
+shared planes and ``res`` in a register; built with ``tiles=False`` it is
+three row-form kernels with those temporaries in scratch, and fv_step
+thirteen.
 """
 
 import re
@@ -28,13 +30,15 @@ def _on_the_cpu(monkeypatch):
     monkeypatch.setattr(config, "DEFAULT_DEVICE", "cpu")
 
 
-#: stencil -> the kernel forms it documents, in launch order
+#: stencil -> the kernel forms it documents, in launch order: a column
+#: loop ("columns") is launched only as K4's window kernel; the fused
+#: column kernel ("column") runs the loops in one pass
 FORMS = {
-    "make_hdiff": ["rows", "rows", "rows"],
-    "make_vadv": ["columns", "columns"],
-    "make_vadv_update": ["columns", "columns"],
+    "make_hdiff": ["tile"],
+    "make_vadv": ["columns", "columns", "column"],
+    "make_vadv_update": ["columns", "columns", "column"],
     # the PARALLEL loop serialized into one plane-sweep kernel (K5)
-    "make_dycore_fused": ["planes", "columns", "columns"],
+    "make_dycore_fused": ["planes", "columns", "columns", "column"],
 }
 
 
@@ -53,7 +57,7 @@ def test_source_is_deterministic_with_documented_stages(factory, dtype):
     # from ``KB_DEFAULT_DEPTH`` levels), the fused step's too
     assert [k.window is not None for k in again.kernels] == [
         f == "columns" for f in FORMS[factory]]
-    n = len(FORMS[factory]) + FORMS[factory].count("rows") + FORMS[factory].count("columns")
+    n = len(FORMS[factory]) + FORMS[factory].count("rows")
     assert st.backend.source.count("__global__") == n
     assert st.backend.source.count("<<<") == n
     # every launch is counted and followed by a launch-error check
@@ -66,6 +70,12 @@ def test_source_is_deterministic_with_documented_stages(factory, dtype):
 
 def test_hdiff_without_temporary_inlining():
     prog = dycore.make_hdiff(np.float32, backend="cuda").backend.program
+    (k,) = prog.kernels
+    assert k.form == "tile" and prog.scratch == []
+    assert sorted(k.planes.shared) == ["flx_field", "fly_field", "lap_field"]
+    assert k.planes.registers == ["res"]
+    # the stage-split build (``tiles=False``)
+    prog = dycore.make_hdiff(np.float32, backend="cuda", tiles=False).backend.program
     assert prog.scratch == ["lap_field", "flx_field", "fly_field"]
     assert prog.locals == ["res"]
     # the stages compute over the extended rectangles of the extent analysis
@@ -109,7 +119,10 @@ def test_literals_are_exact():
 
 def test_periodic_wrap_only_on_read_only_fields():
     src = dycore.make_hdiff(np.float32, backend="cuda").backend.source
-    assert "f_in_field.at(gt::wrap(i + 1, dI, pI), gt::wrap(j + 0, dJ, pJ), k + 0)" in src
+    # staged into the tile kernel's ring (row gi, column gj, level gk)
+    assert "f_in_field.at(gt::wrap(gi + 0, dI, pI), gt::wrap(gj + 0, dJ, pJ), gk + 0)" in src
+    assert "f_in_field.at(gt::wrap(i + 1, dI, pI), gt::wrap(j + 0, dJ, pJ), k + 0)" in \
+        dycore.make_hdiff(np.float32, backend="cuda", tiles=False).backend.source
     assert "f_out_field.at(i + 0, j + 0, k + 0) =" in src  # written: no wrap
     assert "f_coeff.at(i + 0, j + 0, k + 0)" in src  # read at offset 0 only
 
@@ -147,6 +160,10 @@ def test_variable_k_offset_raises_not_implemented():
             out = inp[0, 0, idx]
 
     st = gtscript.stencil(backend="cuda", definition=shift, rebuild=True)
+    assert [k.form for k in st.backend.program.kernels] == ["columns", "column"]
+    # the fused kernel loads idx one level ahead, into a register
+    assert "f_inp.at(i + 0, j + 0, f_inp.kclamp(k + v0_))" in st.backend.source
+    st = gtscript.stencil(backend="cuda", definition=shift, rebuild=True, fuse_loops=False)
     assert [k.form for k in st.backend.program.kernels] == ["columns"]
     assert "f_inp.at(i + 0, j + 0, f_inp.kclamp(k + f_idx.at(i + 0, j + 0, k + 0)))" \
         in st.backend.source
@@ -259,15 +276,28 @@ def test_bool_temporary_across_stages_is_a_bool_scratch():
             b = 1.0 if m[1, 0, 0] else 0.0
 
     prog = gtscript.stencil(backend="cuda", definition=flags, rebuild=True).backend.program
+    # the tile form: one kernel, m in a shared plane of bools
+    assert prog.scratch == [] and len(prog.kernels) == 1
+    assert "bool* const sh_m" in prog.source
+    prog = gtscript.stencil(backend="cuda", definition=flags, rebuild=True,
+                            tiles=False).backend.program
     assert prog.scratch == ["m"] and len(prog.kernels) == 2
     assert "gt::Field<bool> t_m" in prog.source
 
 
 def test_fv_step_stages():
-    """fv_step: the PARALLEL section splits into 13 row-form stages; the
-    temporaries read at an offset or in a later stage live in scratch, the
-    rest (including the bool limiter flags) in registers."""
+    """fv_step: the PARALLEL section is one tile kernel of 13 stages, the
+    temporaries read at an offset or in a later stage in shared planes
+    (30, in fewer slots), the rest (including the bool limiter flags) in
+    registers.  Split (``tiles=False``) it is 13 row-form stages, those 30
+    temporaries in scratch."""
     prog = fv_advection.make_fv_step(np.float32, backend="cuda").backend.program
+    (k,) = prog.kernels
+    assert k.form == "tile" and len(k.planes.stages[0]) == 13 and prog.scratch == []
+    assert len(k.planes.shared) == 30 and len(k.planes.registers) == 24
+    assert len(k.tile.slot_bytes) < 30 and {"smx", "smy", "qx", "fy"} <= set(
+        k.planes.registers) | set(k.planes.shared)
+    prog = fv_advection.make_fv_step(np.float32, backend="cuda", tiles=False).backend.program
     assert [k.form for k in prog.kernels] == ["rows"] * 13
     assert len(prog.scratch) == 30 and len(prog.locals) == 24
     assert {"smx", "smy", "smfx", "smfy"} <= set(prog.locals)
@@ -327,7 +357,8 @@ def test_card_test_stencils_generate(name):
 
     st = gtscript.stencil(backend="cuda", definition=DEFS[name], rebuild=True)
     kernels = st.backend.program.kernels
-    assert st.backend.source.count("__global__") == len(kernels) + sum(
+    # a column loop the fused kernel runs emits only its K4 variant
+    assert st.backend.source.count("__global__") == sum(not k.k4_only for k in kernels) + sum(
         k.vector is not None for k in kernels) + sum(k.window is not None for k in kernels) >= 1
 
 

@@ -30,7 +30,8 @@ from gt4py_tpu_torch.cartesian.gtscript import (
     computation,
     interval,
 )
-from gt4py_tpu_torch.models import dycore, full_dycore, fv_advection, semi_lagrangian
+from gt4py_tpu_torch.models import (dycore, full_dycore, fv_advection, semi_lagrangian,
+                                    shallow_water)
 
 TOL = {np.float64: dict(rtol=1e-11, atol=1e-13), np.float32: dict(rtol=1e-6, atol=1e-7)}
 H = 3
@@ -900,3 +901,59 @@ def test_shallow_water_vs_plain(cuda_device, aligned):
         got[backend] = (h, u, v)
     for a, b in zip(got["cuda"], got["torch"]):
         assert torch.equal(a, b)
+
+
+#: the main path's stencils in the tile form (K1) and the fused column
+#: kernel (K2): name -> (factory, fields, scalars, forms, kernels the
+#: library launches a call, the new form's build options (sl_step's one
+#: stage runs the row kernel unless forced), the split build's options)
+CARD_TILES = {
+    "hdiff": (dycore.make_hdiff, ["in_field", "out_field", "coeff"], {}, ["tile"], 1, {},
+              {"tiles": False}),
+    "fv_step": (fv_advection.make_fv_step, ["q", "cx", "cy", "qout"], {}, ["tile"], 1, {},
+                {"tiles": False}),
+    "sw_step": (shallow_water.make_sw_step, ["h", "u", "v", "h_new", "u_new", "v_new"], {},
+                ["tile"], 1, {}, {"tiles": False}),
+    "sl_step": (semi_lagrangian.make_sl_stencil, ["q", "u", "v", "qout"],
+                {"dtdx": 1.0, "dtdy": 1.0}, ["tile"], 1, {"tiles": True}, {"tiles": False}),
+    "vadv_update": (dycore.make_vadv_update,
+                    ["utens_stage", "u_stage", "wcon", "u_pos", "utens", "u_out"],
+                    {"dtr_stage": 3.0}, ["column"], 1, {}, {"fuse_loops": False}),
+    "dycore_fused": (dycore.make_dycore_fused,
+                     ["u", "coeff", "wcon", "utens", "utens_stage", "u_out"],
+                     {"dtr_stage": 3.0}, ["planes", "column"], 2, {}, {"fuse_loops": False}),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("periodic", [(), ("I", "J")], ids=["bounded", "periodic"])
+@pytest.mark.parametrize("dtype", [np.float64, np.float32], ids=["f64", "f32"])
+@pytest.mark.parametrize("name", list(CARD_TILES))
+def test_tiles_and_fused_columns_vs_split_and_plain(cuda_device, name, dtype, periodic):
+    """Each main-path stencil's new form -- one tile kernel per PARALLEL
+    section, one fused column kernel for the serial loops -- at
+    70 x 90 x 9 (several tiles, three K blocks): its forms from ``LAST_PLAN``,
+    its kernel launches counted by its library, its result bit for bit
+    equal to its split build and to plain."""
+    from gt4py_tpu_torch.cartesian.backend import cuda_backend
+
+    make, names, scalars, forms, launches, new, split = CARD_TILES[name]
+    rng = np.random.default_rng(6)
+    # halo 3 (fv_step reads q at +-3)
+    arrays = {n: rng.random((76, 96, 9)).astype(dtype) for n in names}
+    got = {}
+    for label, backend, options in (("default", "cuda", new), ("split", "cuda", split),
+                                    ("plain", "torch", {})):
+        st = make(dtype, backend, **options)
+        fields = {n: torch.from_numpy(a.copy()).to(cuda_device) for n, a in arrays.items()}
+        before = st.backend.device_launches()["all"] if backend == "cuda" else 0
+        st(**fields, **scalars, origin=(3, 3, 0), domain=(70, 90, 9), periodic=periodic)
+        torch.cuda.synchronize()
+        if label == "default":
+            plan = cuda_backend.LAST_PLAN[st.name]
+            assert plan["forms"] == forms, plan
+            assert st.backend.device_launches()["all"] - before == launches
+        got[label] = fields
+    for n in names:
+        assert torch.equal(got["default"][n], got["split"][n]), n
+        assert torch.equal(got["default"][n], got["plain"][n]), n

@@ -163,7 +163,7 @@ def test_kblocked_emulated_vs_oracle(emulated, name):  # noqa: F811
     kb = plan["kblocked"]
     assert kb and kb["passes"] == n_passes and kb["promoted"] == promoted, plan
     # every column loop blocks the deep column: its window fits one CTA
-    assert len(kb["KB"]) == plan["forms"].count("columns") and all(
+    assert len(kb["KB"]) == sum(k.window is not None for k in st.backend.program.kernels) and all(
         8 <= k < domain[2] for k in kb["KB"]), plan
     _, one_pass = _run(defn, arrays, origin, domain, k_blocked=False)
     assert not cuda_backend.LAST_PLAN[defn.__name__]["kblocked"]
@@ -275,16 +275,17 @@ def test_window_kernel_source():
     carry stays in device memory."""
     st = pgts.stencil(backend="cuda", definition=to_port(tridiag), rebuild=True, k_blocked=True)
     src = st.backend.source
-    assert src.count("__global__") == 4  # two column loops and their K4 variants
+    # the two column loops' K4 variants and the fused kernel of one pass
+    assert src.count("__global__") == 3
     assert "gt::KBounds<4> kb_all,\n    int KB) {" in src
     assert "w_diag[((k + 0 - kb0) * 2 + (ti + 0)) * 32 + (tj + 0)]" in src
     assert "f_sup.at(i + 0, j + 0, k + -1)" in src  # written: read from device memory
     assert src.count("gt::async_copy<16>") == 4 and src.count("gt::async_wait<1>();") == 2
     # one launch of each K4 kernel, none in a loop over blocks
     for p in st.backend.program.kernels:
-        assert src.count(f"{p.name}_kb<<<") == 1
+        assert src.count(f"{p.name}_kb<<<") == (p.window is not None)
     assert "for (int b_ = 0; b_ < nb; ++b_)" not in src
-    windows = [k.window for k in st.backend.program.kernels]
+    windows = [k.window for k in st.backend.program.kernels if k.window]
     # the backward loop stages the forward loop's outputs, which it only reads
     assert [sorted(a[0] for a in w.arrays) for w in windows] == [["diag", "inf"],
                                                                  ["rhs", "sup"]]
@@ -407,7 +408,8 @@ def test_ring_float32_sixteen_byte_copies(emulated, periodic):  # noqa: F811
         copies[k_blocked] = count() - before
         if k_blocked:
             # the forward loop stages w and u, the backward one out, u and w
-            assert [k.window.lanes for k in st.backend.program.kernels] == [[4, 4], [4, 4, 4]]
+            assert [k.window.lanes for k in st.backend.program.kernels if k.window] == [
+                [4, 4], [4, 4, 4]]
             plain = {k: torch.from_numpy(v.copy()) for k, v in phys.items()}
             testing.plain_kblocked(st, {k: v.permute(1, 2, 0) for k, v in plain.items()}, {},
                                    origin, domain, periodic=periodic)
@@ -435,66 +437,96 @@ def test_plan_records_one_launch_per_loop(emulated):  # noqa: F811
         # launch, and the K4 ones by kernel
         counts = st.backend.device_launches()
         if before is not None:
-            assert [a - b for a, b in zip(counts["kblocked"], before["kblocked"])] == [1, 1]
+            # the fused kernel (index 2) has no K4 variant
+            assert [a - b for a, b in zip(counts["kblocked"], before["kblocked"])] == [1, 1, 0]
             assert counts["all"] - before["all"] == 2, (counts, before)
         before = counts
     assert min(kb["ctas_per_sm"]) >= cuda_backend.KB_CTAS_PER_SM
 
 
 #: ``LAST_PLAN`` of the headline stencils at 512x512x80 float32, the same
-#: at build and at depth 80, as they were before K4's ring
+#: at build and at depth 80: hdiff and fv_step one tile kernel each, the
+#: column loops one fused kernel (K4's window kernels beside it)
 HEADLINE_PLANS = {
     "dycore_fused_float32": {
+        "columns": [{"carries": ["datacol"],
+                     "columns": ["ccol", "dcol"],
+                     "kernel": "dycore_fused_float32__serK_k3_col",
+                     "loops": 2,
+                     "prefetch": 26}],
         "declined": {"kblocked": "one pass, the default (k_blocked=True blocks)"},
-        "forms": ["planes", "columns", "columns"],
+        "forms": ["planes", "column"],
         "kblocked": False,
-        "registers":
-            ["acol", "as_", "bcol", "correction_term", "cs", "divided", "gav", "gcv", "res"],
+        "registers": ["acol", "as_", "bcol", "correction_term", "cs", "divided", "gav", "gcv",
+                      "res"],
         "scratch": ["u_stage", "ccol", "dcol", "datacol"],
         "serialized": True,
         "shared": ["flx_field", "fly_field", "lap_field"],
         "smem_bytes": [6736],
         "snapshots": [],
         "tile": [16, 32],
+        "tiles": [],
         "widened": {},
     },
     "fv_step_float32": {
+        "columns": [],
         "declined": {"kblocked": "one pass, the default (k_blocked=True blocks)"},
-        "forms":
-            ["rows", "rows", "rows", "rows", "rows", "rows", "rows", "rows", "rows", "rows",
-            "rows", "rows", "rows"],
+        "forms": ["tile"],
         "kblocked": False,
-        "registers":
-            ["a6fx", "a6fy", "a6x", "a6y", "brfx", "brfy", "brx", "bry", "dmfx", "dmfy", "dmx",
-            "dmy", "fnegx", "fnegy", "fnfx", "fnfy", "fpfx", "fpfy", "fposx", "fposy", "smfx",
-            "smfy", "smx", "smy"],
-        "scratch":
-            ["alx", "blx", "blmx", "brmx", "dmlx", "a6lx", "fluxx", "qx", "aly", "bly", "blmy",
-            "brmy", "dmly", "a6ly", "fluxy", "qy", "alfx", "blfx", "blmfx", "brmfx", "dmlfx",
-            "a6lfx", "fx", "alfy", "blfy", "blmfy", "brmfy", "dmlfy", "a6lfy", "fy"],
+        "registers": ["a6fx", "a6fy", "a6x", "a6y", "brfx", "brfy", "brx", "bry", "dmfx",
+                      "dmfy", "dmx", "dmy", "fnegx", "fnegy", "fnfx", "fnfy", "fpfx", "fpfy",
+                      "fposx", "fposy", "smfx", "smfy", "smx", "smy"],
+        "scratch": [],
         "serialized": False,
-        "shared": [],
+        "shared": ["a6lfx", "a6lfy", "a6lx", "a6ly", "alfx", "alfy", "alx", "aly", "blfx",
+                   "blfy", "blmfx", "blmfy", "blmx", "blmy", "blx", "bly", "brmfx", "brmfy",
+                   "brmx", "brmy", "dmlfx", "dmlfy", "dmlx", "dmly", "fluxx", "fluxy", "fx",
+                   "fy", "qx", "qy"],
         "smem_bytes": [],
         "snapshots": [],
         "tile": None,
+        "tiles": [{"ctas_per_sm": 3,
+                   "halo": 1.1551,
+                   "kernel": "fv_step_float32_k0_tile",
+                   "kz": 4,
+                   "planes": 30,
+                   "slots": 9,
+                   "smem_bytes": 58288,
+                   "staged": ["q@k0"],
+                   "tile": [32, 32]}],
         "widened": {},
     },
     "hdiff_float32": {
+        "columns": [],
         "declined": {"kblocked": "one pass, the default (k_blocked=True blocks)"},
-        "forms": ["rows", "rows", "rows"],
+        "forms": ["tile"],
         "kblocked": False,
         "registers": ["res"],
-        "scratch": ["lap_field", "flx_field", "fly_field"],
+        "scratch": [],
         "serialized": False,
-        "shared": [],
+        "shared": ["flx_field", "fly_field", "lap_field"],
         "smem_bytes": [],
         "snapshots": [],
         "tile": None,
+        "tiles": [{"ctas_per_sm": 4,
+                   "halo": 1.0343,
+                   "kernel": "hdiff_float32_k0_tile",
+                   "kz": 4,
+                   "planes": 3,
+                   "slots": 3,
+                   "smem_bytes": 46480,
+                   "staged": ["in_field@k0"],
+                   "tile": [32, 64]}],
         "widened": {},
     },
     "vadv_float32": {
+        "columns": [{"carries": ["datacol"],
+                     "columns": ["ccol", "dcol"],
+                     "kernel": "vadv_float32_k2_col",
+                     "loops": 2,
+                     "prefetch": 29}],
         "declined": {"kblocked": "one pass, the default (k_blocked=True blocks)"},
-        "forms": ["columns", "columns"],
+        "forms": ["column"],
         "kblocked": False,
         "registers": ["acol", "as_", "bcol", "correction_term", "cs", "divided", "gav", "gcv"],
         "scratch": ["ccol", "dcol", "datacol"],
@@ -503,11 +535,17 @@ HEADLINE_PLANS = {
         "smem_bytes": [],
         "snapshots": [],
         "tile": None,
+        "tiles": [],
         "widened": {},
     },
     "vadv_upd_float32": {
+        "columns": [{"carries": ["datacol"],
+                     "columns": ["ccol", "dcol"],
+                     "kernel": "vadv_upd_float32_k2_col",
+                     "loops": 2,
+                     "prefetch": 29}],
         "declined": {"kblocked": "one pass, the default (k_blocked=True blocks)"},
-        "forms": ["columns", "columns"],
+        "forms": ["column"],
         "kblocked": False,
         "registers": ["acol", "as_", "bcol", "correction_term", "cs", "divided", "gav", "gcv"],
         "scratch": ["ccol", "dcol", "datacol"],
@@ -516,6 +554,7 @@ HEADLINE_PLANS = {
         "smem_bytes": [],
         "snapshots": [],
         "tile": None,
+        "tiles": [],
         "widened": {},
     },
 }

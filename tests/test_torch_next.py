@@ -586,7 +586,8 @@ def test_inspection_describes_the_lowered_kernels():
     args = make_args([F3, F3], pns, pgtx, 0, "torch")
     text = inspection.describe(pns["op"], *args)
     assert "Field<I[0:8], J[0:7], K[0:5]; float64>" in text
-    assert "rows form (PARALLEL)" in text
+    # the hdiff operator's PARALLEL section is one tile kernel
+    assert "tile form (PARALLEL)" in text
 
 
 def test_keyword_and_positional_calls_agree():

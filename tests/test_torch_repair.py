@@ -157,7 +157,10 @@ def _jax(defn, backend, arrays, origins, domain):
 
 def _port(defn, backend, arrays, origins, domain, layout, **options):
     """Run on the port: ``layout`` "ijk" hands the numpy arrays over as they
-    are, "kij" as (K, I, J) buffers viewed as (I, J, K)."""
+    are, "kij" as (K, I, J) buffers viewed as (I, J, K).  ``"cuda"`` builds
+    K6's vector row form (``tiles=False``, whatever a section's stages)."""
+    if backend == "cuda":
+        options = {"tiles": False, **options}
     st = pgts.stencil(backend=backend, definition=to_port(defn), rebuild=True, **options)
     if layout == "ijk":
         ts = {k: torch.from_numpy(v.copy()) for k, v in arrays.items()}
@@ -215,7 +218,8 @@ def test_phase_shift_needs_no_copy(emulated):  # noqa: F811
     for halo, backend in ((2, "cuda"), (2, "torch"), (3, "cuda"), (3, "torch")):
         shape = (4, 12 + 2 * halo, 512 + 2 * halo)
         a = torch.from_numpy(np.random.default_rng(halo).random(shape).astype(np.float32))
-        st = pgts.stencil(backend=backend, definition=to_port(lapd), rebuild=True)
+        st = pgts.stencil(backend=backend, definition=to_port(lapd), rebuild=True,
+                          **({"tiles": False} if backend == "cuda" else {}))
         fn = st.functional(origin=(halo, halo, 0), domain=(12, 512, 4), physical_layout=True)
         got[(halo, backend)] = fn(a=a, b=torch.zeros_like(a))["b"]
         if backend == "cuda":
@@ -286,8 +290,10 @@ def test_misaligned_vector_access_faults(emulated, monkeypatch):  # noqa: F811
     """A vector kernel launched on a phase its fields do not share faults
     (the emulated runtime checks every 16-byte access, as the card does):
     the launch raises instead of computing from misaligned words; a
-    repair's copy off the phase is refused before the launch."""
-    st, u, c, kw = _tight_hdiff(2, {})
+    repair's copy off the phase is refused before the launch.  (hdiff's
+    tile kernel tests each word's alignment before a 16-byte copy, so the
+    vector row form is built here, with ``tiles=False``.)"""
+    st, u, c, kw = _tight_hdiff(2, {"tiles": False})
     common_phase = repair.common_phase
     monkeypatch.setattr(repair, "common_phase", lambda cons: 1)
     with pytest.raises(RuntimeError, match="misaligned address"):
