@@ -9,6 +9,13 @@ Run from the repository root with no arguments:
 the tile form's tiles and levels a CTA (``TILE_SWEEP``) on hdiff, fv_step
 and sw_step, each timed and bitwise against plain.
 
+``python3 chip_smoke.py --k6-k5`` runs the tile kernels on tight and
+aligned buffers (``_tight_tiles``: device time, staging, registers), the
+fused MiniDycore stencil in its sweep, plane-sweep and split forms with
+back-to-back pairs (``_sweep_pairs``) and the sweep at each tile of
+``SWEEP_TILE_SWEEP``; ``--k6-k5 tight`` the first alone (it also runs
+against an older tree's package, with this script copied there).
+
 ``python3 chip_smoke.py --profile-check`` profiles a 16 MiB add (one kernel
 a call) and a K9 permute of 2^20 words (three a call) ``PROFILE_AGE_S``
 seconds after a first profile, with and without a warm-up cycle and idle
@@ -36,10 +43,15 @@ Phases (a failed phase raises, and the script exits non-zero):
    10 steps of ``step_fn()`` and of ``step_fn(fused=True)``, with the launch
    counts of every kernel read around that run, the state checked finite
    and against the plain executor, and both forms timed with CUDA events;
-   the fused step runs serialized in the plane-sweep form (K5, asserted
-   from ``cuda_backend.LAST_PLAN``), equal bit for bit over 10 steps to the
-   split build (``serialize=False``: row and column kernels) and to plain,
-   each timed one call at a time and back to back;
+   the fused step runs its default form (``cuda_backend.SERIALIZE_MIXED``:
+   the split build, tile and fused column kernels; asserted from
+   ``LAST_PLAN`` and the library's launch counts), equal bit for bit over
+   10 steps to the split build and to plain, each timed one call at a
+   time and back to back; then K5's path: 10 fused steps built
+   ``sweep=True`` (one sweep kernel a call, counted by its library),
+   bitwise against the default form and plain, and the sweep, plane-sweep
+   and split forms' device times and back-to-back pairs (the pairs behind
+   ``SERIALIZE_MIXED``);
 5. the language surface: every canonical stencil with ``while``, regions,
    variable K or data dimensions (``tests/cartesian/stencil_defs.py``) and
    the ``.at(K=...)`` forms (``gt4py_tpu_torch.testing.SURFACE``), in
@@ -98,9 +110,11 @@ Phases (a failed phase raises, and the script exits non-zero):
    MiniDycore step loss against ``torch.autograd.grad``;
 10. plan modes: (a) fault 1's loop (a FORWARD loop reading ``t[1, 0, 0]``
    of the ``t`` it writes), a K-carried temporary read at offsets, reads
-   of values the sweep has not written yet, and the mixed stencils of ``tests/cartesian/test_serialize_parallel.py`` in the
-   plane-sweep form, float64 at 64x256x16, bounded and periodic, bit for
-   bit against plain; (b) the deep-K MiniDycore step at 128x128x2048
+   of values the sweep has not written yet in the plane-sweep form, and
+   the mixed stencils of ``tests/cartesian/test_serialize_parallel.py``
+   in the sweep form (``sweep=True``, K5) and in the plane-sweep form
+   (``serialize=True``), float64 at 64x256x16, bounded and periodic, bit
+   for bit against plain; (b) the deep-K MiniDycore step at 128x128x2048
    float32: 10 steps with ``vadv_update`` K-blocked (K4: one launch per
    column loop over a ring of shared-memory slots, the launches counted
    by the stencil's library; its KB, slots, shared bytes and CTAs per SM
@@ -116,8 +130,11 @@ Phases (a failed phase raises, and the script exits non-zero):
    512x512x80 float32 built with
    ``serialize=True`` (its 13 row stages as one plane-sweep kernel)
    against the tile form, bit for bit and timed in turns;
-11. (K6) the geometry-repair shapes, ShallowWater, the tight-halo steps, the
-   vector and scalar forms in turns, the repair's cost rule;
+11. (K6) the geometry-repair shapes (no copy by default), ShallowWater, the
+   tight-halo steps by default (row-phase staging) and repaired
+   (``repair=True``), the tile kernels' device time on tight against
+   aligned buffers beside the parent's element-copy times, the vector and
+   scalar forms in turns;
 12. the tile form (K1) and the fused column kernel (K2): hdiff, fv_step,
    sw_step, sl_step (its tile form forced: one stage runs the row kernel
    by default), vadv_update and dycore_fused at 512x512x80 float32 and
@@ -215,6 +232,12 @@ REPAIR_SHAPES = {
     "region_end": ({"a": (33, 228, 2), "b": (33, 228, 2)}, {"a": _ZERO, "b": _ZERO},
                    (33, 228, 2)),
 }
+
+#: phase 11 (a): the item sizes at which a shape's fields share no 16-byte
+#: phase in the (K, I, J) layout (its row stages run the scalar kernels):
+#: outop's fy has rows of 257 items; lapd's a and b start on different
+#: float32 phases; while_loop's rows of 130 float32 are 520 bytes
+REPAIR_NO_PHASE_KIJ = {"outop": {4, 8}, "lapd": {4}, "while_loop": {4}}
 
 #: phase 5: the canonical stencils by the feature the kernels take over
 #: from the TPU path (REPLACES key), and one of each timed at full size
@@ -1100,7 +1123,7 @@ def _plane_defs() -> dict:
     temporary read at offsets (the CTA's ring of planes), reads of values
     the sweep has not written yet (the copy taken before the kernel), and
     the mixed stencils of ``tests/cartesian/test_serialize_parallel.py``
-    (K5)."""
+    (K5) built ``sweep=True`` and ``serialize=True``; by case name."""
     import numpy as np
 
     from gt4py_tpu_torch.cartesian import gtscript
@@ -1175,15 +1198,24 @@ def _plane_defs() -> dict:
             with interval(0, -1):
                 out = out + out[0, 0, 1] * 0.25
 
-    return {d.__name__: {backend: gtscript.stencil(backend=backend, definition=d, rebuild=True)
-                         for backend in ("cuda", "torch")}
-            for d in (fault1, ring, carried, not_yet_swept, ser_mixed, ser_parity)}
+    def pair(d, **options):
+        return {"cuda": gtscript.stencil(backend="cuda", definition=d, rebuild=True, **options),
+                "torch": gtscript.stencil(backend="torch", definition=d, rebuild=True)}
+
+    defs = {d.__name__: pair(d) for d in (fault1, ring, carried, not_yet_swept)}
+    # the mixed stencils in the sweep form (one kernel) and in the
+    # plane-sweep form with the fused column kernel
+    for d in (ser_mixed, ser_parity):
+        defs[f"{d.__name__}_sweep"] = pair(d, sweep=True)
+        defs[f"{d.__name__}_planes"] = pair(d, serialize=True)
+    return defs
 
 
 def _plane_modes(defs, dev) -> dict:
-    """Phase 10 (a): each stencil in the plane-sweep form against plain,
-    float64 at SMALL, bounded and periodic, bit for bit; its launches read
-    around the run."""
+    """Phase 10 (a): each stencil in the plane-sweep form (the mixed ones
+    in the sweep form and in the plane-sweep form) against plain, float64
+    at SMALL, bounded and periodic, bit for bit; its launches read around
+    the run, its forms from its ``LAST_PLAN`` entry after the call."""
     import numpy as np
     import torch
 
@@ -1193,10 +1225,7 @@ def _plane_modes(defs, dev) -> dict:
     shape = (SMALL[0] + 4, SMALL[1] + 4, SMALL[2])
     for name, pair in defs.items():
         st = pair["cuda"]
-        plan = LAST_PLAN[name]
-        if "planes" not in plan["forms"] or bool(plan["widened"]) != (name == "ring"):
-            raise AssertionError(f"phase 10 {name}: not in the plane-sweep form, or widened "
-                                 f"where it should not be ({plan})")
+        form = "sweep" if name.endswith("_sweep") else "planes"
         for periodic in ((), ("I", "J")):
             rng = np.random.default_rng(10)
             fields = {n: rng.random(shape) for n in st.field_info}
@@ -1213,6 +1242,10 @@ def _plane_modes(defs, dev) -> dict:
             launches = st.backend.launches
             if launches != 1:
                 raise AssertionError(f"phase 10 {name}: launched {launches} times")
+            plan = LAST_PLAN[st.name]
+            if form not in plan["forms"] or bool(plan["widened"]) != (name == "ring"):
+                raise AssertionError(f"phase 10 {name}: not in the {form} form, or widened "
+                                     f"where it should not be ({plan})")
             for n, v in got["torch"].items():
                 if not torch.equal(got["cuda"][n], v):
                     _check_close(f"phase 10 {name}.{n}", got["cuda"][n], v, RTOL_F64, ATOL_F64)
@@ -1594,9 +1627,9 @@ def _in_layout(a, layout, dev):
 
 def _repair_shapes(defs, dev) -> dict:
     """Phase 11 (a): each repair shape in float32 and float64, in both
-    layouts, kernels against plain bit for bit over the whole buffers (so
-    every byte outside the write window kept its value), one launch each;
-    the plan's vector width and repaired fields."""
+    layouts, by default (no copy), kernels against plain bit for bit over
+    the whole buffers (so every byte outside the write window kept its
+    value), one launch each; the plan's vector width and staging."""
     import numpy as np
     import torch
 
@@ -1618,9 +1651,11 @@ def _repair_shapes(defs, dev) -> dict:
                 got[backend] = ts
             st = pair["cuda"]
             plan = LAST_PLAN[st.name]
-            rows = "rows" in plan["forms"]
-            if st.backend.launches != 1 or bool(plan.get("vector")) != rows or (
-                    rows and layout == "ijk" and not plan.get("repair")):
+            # by default nothing is repaired: the vector row kernels run
+            # where the fields share a 16-byte phase, the scalar ones elsewhere
+            vector = "rows" in plan["forms"] and layout == "kij" and \
+                np.dtype(dtype).itemsize not in REPAIR_NO_PHASE_KIJ.get(name, ())
+            if st.backend.launches != 1 or bool(plan.get("vector")) != vector or "repair" in plan:
                 raise AssertionError(f"phase 11 {st.name} {layout}: launches "
                                      f"{st.backend.launches}, plan {plan}")
             for k, v in got["torch"].items():
@@ -1630,18 +1665,11 @@ def _repair_shapes(defs, dev) -> dict:
                     raise AssertionError(f"phase 11 {st.name}.{k} {layout}: kernels and "
                                          "plain differ")
             out[f"{st.name} {layout}"] = {"forms": plan["forms"], "vector": plan.get("vector"),
-                                          "repair": {k: list(v) for k, v in
-                                                     plan.get("repair", {}).items()}}
+                                          "staging": plan.get("staging")}
             print(f"phase 11 {st.name} {layout} domain {domain}: forms {plan['forms']}, vector "
-                  f"{plan.get('vector')}, repair {plan.get('repair', {})}; bitwise equal to "
-                  "plain over the whole buffers")
+                  f"{plan.get('vector')}, staging {plan.get('staging')}, no repair; bitwise "
+                  "equal to plain over the whole buffers")
     return out
-
-
-def _nodes(analysis) -> int:
-    from gt4py_tpu_torch.cartesian import ir
-
-    return sum(1 for _ in ir.walk_values(analysis.stencil.vertical_loops))
 
 
 def _run_steps(step, state, n):
@@ -1680,10 +1708,11 @@ def _in_turns(calls, reps=TIMING_REPS) -> dict:
     return t
 
 
-def _phase11(p11, dev, kernels) -> dict:
+def _phase11(p11, tight, dev, kernels) -> dict:
     """Phase 11 (b) and (c): ShallowWater and the tight-halo local steps at
-    512x512x80 float32 on the vector row form and the repair, against plain;
-    the forms timed in turns; the cost rule's constants; K6's entry."""
+    512x512x80 float32 by default (row-phase staging, no copy) and with the
+    repair forced, against plain; the forms timed in turns; the tile
+    kernels' device time on tight buffers (``_tight_tiles``); K6's entry."""
     import numpy as np
     import torch
 
@@ -1691,7 +1720,6 @@ def _phase11(p11, dev, kernels) -> dict:
     from gt4py_tpu_torch.cartesian.backend.cuda_backend import LAST_PLAN, REPLACES
     from gt4py_tpu_torch.models import spectral
 
-    points = NI * NJ * NK
     uvh = ("h", "u", "v")
 
     def sw_state(step):
@@ -1760,67 +1788,74 @@ def _phase11(p11, dev, kernels) -> dict:
         print(f"{name} {NK}x{NI}x{NJ} f32 (torch.fft): max abs err {err:.3e} against numpy "
               f"(max |ref| {scale:.3e}, bound 1e-5 of it); {spec[name]['ms']:.4f} ms")
 
-    # -- (c) the tight-halo local steps under the repair (K1, K2, K5)
+    # -- (c) the tight-halo local steps (K1, K2, K5, K6): by default on the
+    # caller's buffers, each row staged from its aligned-down word; and
+    # with the repair forced (repair=True)
     md, mdp = p11["md_tight"], p11["md_tight_plain"]
-    s0 = md["repair"].init_state(seed=0)
+    s0 = md["default"].init_state(seed=0)
     for fused in (False, True):
         label = "fused step" if fused else "step"
-        m = md["repair"]
-        sts = [m.fused] if fused else [m.hdiff, m.vadv_upd]
-        for st in sts:
-            st.backend.launches = st.backend.vector_launches = st.backend.repairs = 0
-        got = _run_steps(m.step_fn(fill_halos=False, fused=fused), s0, STEPS)
-        counts = {st.name: (st.backend.launches, st.backend.vector_launches, st.backend.repairs)
-                  for st in sts}
-        if any(c[0] != STEPS or c[2] != STEPS for c in counts.values()):
-            raise AssertionError(f"tight MiniDycore {label}: (launches, vector, repairs) "
-                                 f"{counts}")
-        vlaunch[f"md tight {label}"] = sum(c[1] for c in counts.values())
-        _same(f"tight MiniDycore {label} after {STEPS} steps", got,
-              _run_steps(mdp.step_fn(fill_halos=False, fused=fused), s0, STEPS),
-              ("u", "utens_stage"))
-        print(f"tight MiniDycore {NI}x{NJ}x{NK} f32 {label} (buffers {m.field_shape()}, repair "
-              f"forced): {STEPS} steps bitwise equal to plain; (launches, vector launches, "
-              f"repairs) {counts}; plans " + "; ".join(
-                  f"{st.name}: forms {LAST_PLAN[st.name]['forms']}, vector "
-                  f"{LAST_PLAN[st.name].get('vector')}, repair "
-                  f"{LAST_PLAN[st.name].get('repair')}" for st in sts))
+        for form, m in md.items():
+            sts = [m.fused] if fused else [m.hdiff, m.vadv_upd]
+            for st in sts:
+                st.backend.launches = st.backend.vector_launches = st.backend.repairs = 0
+            got = _run_steps(m.step_fn(fill_halos=False, fused=fused), s0, STEPS)
+            counts = {st.name: (st.backend.launches, st.backend.vector_launches,
+                                st.backend.repairs) for st in sts}
+            want = STEPS if form == "repair" else 0
+            if any(c[0] != STEPS or c[2] != want for c in counts.values()):
+                raise AssertionError(f"tight MiniDycore {label} ({form}): (launches, vector, "
+                                     f"repairs) {counts}")
+            if form == "default":
+                vlaunch[f"md tight {label}"] = sum(c[1] for c in counts.values())
+            _same(f"tight MiniDycore {label} ({form}) after {STEPS} steps", got,
+                  _run_steps(mdp.step_fn(fill_halos=False, fused=fused), s0, STEPS),
+                  ("u", "utens_stage"))
+            print(f"tight MiniDycore {NI}x{NJ}x{NK} f32 {label} (buffers {m.field_shape()}, "
+                  f"{form}): {STEPS} steps bitwise equal to plain; (launches, vector launches, "
+                  f"repairs) {counts}; plans " + "; ".join(
+                      f"{st.name}: forms {LAST_PLAN[st.name]['forms']}, staging "
+                      f"{LAST_PLAN[st.name].get('staging')}, repair "
+                      f"{LAST_PLAN[st.name].get('repair')}" for st in sts))
     md_steps = _in_turns({label: (lambda m=m: m.step_fn(fill_halos=False)(s0))
                           for label, m in md.items()})
     fv, fvp = p11["fv_tight"], p11["fv_tight_plain"]
-    f0 = fv["repair"].init_state(seed=0)
-    cx, cy = fv["repair"].fill_winds(f0["cx"], f0["cy"])
-    st = fv["repair"].fv_step
-    st.backend.launches = st.backend.vector_launches = st.backend.repairs = 0
-    q = f0["q"]
-    step = fv["repair"].local_step_fn()
-    for _ in range(STEPS):
-        q = step(q, cx, cy)
-    torch.cuda.synchronize()
-    counts = (st.backend.launches, st.backend.vector_launches, st.backend.repairs)
-    fv_plan = LAST_PLAN[st.name].get("repair")
-    if counts != (STEPS, STEPS, STEPS):
-        raise AssertionError(f"tight FvAdvection: (launches, vector, repairs) {counts}")
-    vlaunch["fv tight local_step_fn"] = st.backend.vector_launches
-    qp = f0["q"]
-    for _ in range(STEPS):
-        qp = fvp.local_step_fn()(qp, cx, cy)
-    _same(f"tight FvAdvection after {STEPS} steps", {"q": q}, {"q": qp}, ("q",))
+    f0 = fv["default"].init_state(seed=0)
+    cx, cy = fv["default"].fill_winds(f0["cx"], f0["cy"])
+    fv_counts = {}
+    for form, m in fv.items():
+        st = m.fv_step
+        st.backend.launches = st.backend.vector_launches = st.backend.repairs = 0
+        q = f0["q"]
+        step = m.local_step_fn()
+        for _ in range(STEPS):
+            q = step(q, cx, cy)
+        torch.cuda.synchronize()
+        counts = fv_counts[form] = (st.backend.launches, st.backend.vector_launches,
+                                    st.backend.repairs)
+        if counts != (STEPS, STEPS, STEPS if form == "repair" else 0):
+            raise AssertionError(f"tight FvAdvection ({form}): (launches, vector, repairs) "
+                                 f"{counts}")
+        qp = f0["q"]
+        for _ in range(STEPS):
+            qp = fvp.local_step_fn()(qp, cx, cy)
+        _same(f"tight FvAdvection ({form}) after {STEPS} steps", {"q": q}, {"q": qp}, ("q",))
+    vlaunch["fv tight local_step_fn"] = fv_counts["default"][1]
     fv_steps = _in_turns({label: (lambda m=m: m.local_step_fn()(f0["q"], cx, cy))
                           for label, m in fv.items()})
-    print(f"tight FvAdvection {NI}x{NJ}x{NK} f32 local_step_fn (repair forced): {STEPS} steps "
-          f"bitwise equal to plain, (launches, vector, repairs) {counts}, repair "
-          f"{fv_plan}; step ms in turns {fv_steps}; tight MiniDycore "
-          f"step ms in turns {md_steps}")
+    print(f"tight FvAdvection {NI}x{NJ}x{NK} f32 local_step_fn: {STEPS} steps bitwise equal to "
+          f"plain, (launches, vector, repairs) {fv_counts}, staging "
+          f"{LAST_PLAN[fv['default'].fv_step.name].get('staging')}; step ms in turns "
+          f"{fv_steps}; tight MiniDycore step ms in turns {md_steps}")
 
-    # K6 on one call: tight hdiff repaired and vectorized, its copies, the
-    # scalar form on the caller's buffers, plain
+    # K6 on one call: tight hdiff by default (row-phase staging), with the
+    # repair forced, the repair's copies alone, plain
     args = dict(in_field=s0["u"], out_field=s0["u"], coeff=s0["coeff"])
     hd = {label: m.hdiff_fn for label, m in md.items()}
     hd["plain"] = mdp.hdiff_fn
     ref = hd["plain"](**args)["out_field"]
     err = 0.0
-    for label in ("repair", "declined"):
+    for label in ("repair", "default"):
         got = hd[label](**args)["out_field"]
         if label == "repair":
             rplan = dict(LAST_PLAN[md["repair"].hdiff.name])
@@ -1839,18 +1874,18 @@ def _phase11(p11, dev, kernels) -> dict:
                                       set(rplan["repair_in"]))
         repair.write_back(an, views, origins, padded, (NI, NJ, NK), pads, written)
 
-    hd_ms = _in_turns({"repair": lambda: hd["repair"](**args), "declined":
-                       lambda: hd["declined"](**args), "copies": copies})
+    hd_ms = _in_turns({"repair": lambda: hd["repair"](**args), "default":
+                       lambda: hd["default"](**args), "copies": copies})
     hd_plain = _time_ms(lambda: hd["plain"](**args), PLAIN_TIMING_REPS)
     copy_rate = rplan["repair_bytes"] / (min(hd_ms["copies"]) * 1e-3)
-    print(f"K6 tight hdiff {NI}x{NJ}x{NK} f32: repaired vector form {hd_ms['repair']} ms, "
-          f"scalar form on the caller's buffers {hd_ms['declined']} ms, the repair's copies "
+    print(f"K6 tight hdiff {NI}x{NJ}x{NK} f32: row-phase staging on the caller's buffers "
+          f"{hd_ms['default']} ms, repaired (forced) {hd_ms['repair']} ms, the repair's copies "
           f"alone {hd_ms['copies']} ms ({rplan['repair_bytes']} bytes: {copy_rate:.4e} B/s), "
           f"plain {hd_plain:.4f} ms; pads {rplan['repair']}")
+    tiles = _tight_tiles(tight)
 
     # the vector and scalar row forms on aligned periodic calls (K1)
     forms = {}
-    savings = {}
     for name, pair, call in p11["aligned_calls"]:
         t = _in_turns({form: (lambda c=call, st=st: c(st)) for form, st in pair.items()})
         got = {form: call(st) for form, st in pair.items()}
@@ -1858,12 +1893,8 @@ def _phase11(p11, dev, kernels) -> dict:
             raise AssertionError(f"{name}: the vector and scalar forms differ")
         st = pair["vector"]
         forms[st.name] = {"vector_ms": t["vector"], "scalar_ms": t["scalar"]}
-        saving = (statistics.mean(t["scalar"]) - statistics.mean(t["vector"])) * 1e-3 / (
-            _nodes(st.analysis) * points)
-        savings[st.name] = saving
         print(f"{st.name} {NI}x{NJ}x{NK} f32 aligned, periodic: vector form {t['vector']} ms, "
-              f"scalar form {t['scalar']} ms (in turns; bitwise equal); {_nodes(st.analysis)} "
-              f"IR nodes, saving {saving:.4e} s per node-point")
+              f"scalar form {t['scalar']} ms (in turns; bitwise equal)")
     for e in kernels:
         if e["name"] in forms:
             e["vector_ms"] = min(forms[e["name"]]["vector_ms"])
@@ -1874,10 +1905,6 @@ def _phase11(p11, dev, kernels) -> dict:
                  for n in ("hdiff_float32", "fv_step_float32", "sw_step_float32")}
     print(f"vector form no slower than the scalar form (best of two in turns): {no_slower}; "
           f"cuda_backend.VECTOR_DEFAULT = {cuda_backend.VECTOR_DEFAULT}")
-    saving = max(0.0, min(savings.values()))
-    print(f"cost rule constants measured: copy rate {copy_rate:.4e} B/s, vector saving "
-          f"{saving:.4e} s per node-point (the least of {savings}); repair.py holds "
-          f"{repair.COPY_BYTES_PER_S:.4e} and {repair.SAVING_S_PER_NODE_POINT:.4e}")
 
     sw_st = sw[(True, "vector")].stencil
     form = "vector_ms" if cuda_backend.VECTOR_DEFAULT else "scalar_ms"
@@ -1895,26 +1922,29 @@ def _phase11(p11, dev, kernels) -> dict:
         "scalar_ms": min(forms[sw_st.name]["scalar_ms"]),
     })
     kernels.append({
-        "name": "K6 vector row form + geometry repair: hdiff_float32 on tight halo-3 buffers",
+        "name": "K6 row-phase staging: hdiff_float32's tile kernel on tight halo-3 buffers "
+                "(16-byte cp.async from each row's aligned-down word, no repair copy)",
         "route": "cuda",
         "source": "gt4py_tpu_torch/cartesian/backend/cuda_backend.py; "
-                  "gt4py_tpu_torch/cartesian/backend/repair.py",
+                  "gt4py_tpu_torch/csrc/stencil_runtime.cuh",
         "replaces": REPLACES["repair"],
         "launches": sum(vlaunch.values()),
         "max_abs_err": err,
-        "ms": min(hd_ms["repair"]),
+        "ms": min(hd_ms["default"]),
         "plain_ms": hd_plain,
         **_bound(an, (NI, NJ, NK)),
+        "device_ms": tiles["hdiff tight bounded"]["tile_device_ms"],
+        "aligned_device_ms": tiles["hdiff aligned periodic"]["tile_device_ms"],
+        "tight_device_ms": {k: v["tile_device_ms"] for k, v in tiles.items()},
+        "repair_ms": min(hd_ms["repair"]),
         "copy_ms": min(hd_ms["copies"]),
-        "scalar_ms": min(hd_ms["declined"]),
         "repair_bytes": rplan["repair_bytes"],
         "vector_launches": vlaunch,
     })
     return {"paths": paths, "md_tight_step_ms": md_steps, "fv_tight_step_ms": fv_steps,
             "hdiff_tight_ms": hd_ms, "forms": forms, "vector_no_slower": no_slower,
             "vector_default": cuda_backend.VECTOR_DEFAULT, "spectral": spec,
-            "cost_rule": {"copy_bytes_per_s": copy_rate, "saving_s_per_node_point": saving,
-                          "savings": savings}}
+            "tight_tiles": tiles, "copy_bytes_per_s": copy_rate}
 
 
 def _phase11_models(dev) -> dict:
@@ -1936,12 +1966,12 @@ def _phase11_models(dev) -> dict:
                      for aligned in (True, False)},
         "sw_f64": ShallowWater(*SMALL, dtype=np.float64, device=dev),
         "md_tight": {label: dycore.MiniDycore(*shape, **f32, aligned=False, options=opts)
-                     for label, opts in (("repair", {"vector": True, "repair": True}),
-                                         ("declined", {"repair": False}))},
+                     for label, opts in (("default", {}),
+                                         ("repair", {"vector": True, "repair": True}))},
         "md_tight_plain": dycore.MiniDycore(*shape, **f32, aligned=False, backend="torch"),
         "fv_tight": {label: fv_advection.FvAdvection(*shape, **f32, aligned=False, options=opts)
-                     for label, opts in (("repair", {"vector": True, "repair": True}),
-                                         ("declined", {"repair": False}))},
+                     for label, opts in (("default", {}),
+                                         ("repair", {"vector": True, "repair": True}))},
         "fv_tight_plain": fv_advection.FvAdvection(*shape, **f32, aligned=False,
                                                    backend="torch"),
     }
@@ -1997,15 +2027,24 @@ def _phase11_stencils(p11) -> list:
 #: phase 12: the stencils whose PARALLEL sections run the tile form (K1) and
 #: whose serial loops run the fused column kernel (K2), the forms their
 #: new build must run (from ``LAST_PLAN``) and the kernels the library
-#: counts a call
+#: counts a call (the fused MiniDycore stencil's: ``_mixed_default``)
 P12_FORMS = {"hdiff": (["tile"], 1), "fv_step": (["tile"], 1), "sw_step": (["tile"], 1),
              "sl_step": (["tile"], 1), "vadv_update": (["column"], 1),
-             "dycore_fused": (["planes", "column"], 2)}
+             "dycore_fused": None}
+
+
+def _mixed_default():
+    """The fused MiniDycore stencil's default forms and kernels a call:
+    the sweep form (one kernel) or the split build (``SERIALIZE_MIXED``)."""
+    from gt4py_tpu_torch.cartesian.backend import cuda_backend
+
+    return (["sweep"], 1) if cuda_backend.SERIALIZE_MIXED else (["tile", "column"], 2)
 #: the split build each is held against: the stage-split row kernels, the
 #: per-loop column kernels
 P12_SPLIT = {"hdiff": {"tiles": False}, "fv_step": {"tiles": False},
              "sw_step": {"tiles": False}, "sl_step": {"tiles": False},
-             "vadv_update": {"fuse_loops": False}, "dycore_fused": {"fuse_loops": False}}
+             "vadv_update": {"fuse_loops": False},
+             "dycore_fused": {"fuse_loops": False, "tiles": False}}
 #: the new build's options where it is not the default: sl_step's one
 #: stage runs the row kernel by default (``cuda_backend.ONE_STAGE``)
 P12_NEW = {"sl_step": {"tiles": True}}
@@ -2105,7 +2144,7 @@ def _phase12(p12, fd, dev) -> dict:
                     if form == "tile":
                         counted = st.backend.device_launches()["all"] - before
                         plan = LAST_PLAN[st.name]
-                        forms, launches = P12_FORMS[name]
+                        forms, launches = P12_FORMS[name] or _mixed_default()
                         if plan["forms"] != forms or counted != launches or plan["kblocked"] \
                                 or "tiles" in plan["declined"] \
                                 or "fuse_loops" in plan["declined"]:
@@ -2373,6 +2412,253 @@ def tile_sweep() -> int:
     return 0
 
 
+#: ``--k6-k5`` and phases 4 and 11: the tile kernels held on tight buffers
+#: (``aligned=False``: halo 3, halo 2 for sw_step) against the models'
+#: aligned ones, and the back-to-back pairs of the fused MiniDycore step's
+#: default build against its split build (``serialize=False``)
+TIGHT_TILES = ("hdiff", "fv_step", "sw_step", "sl_step")
+SWEEP_PAIRS = 5
+#: the tile kernels' device ms on tight buffers, bounded, with element
+#: copies at every row phase, as the tree before row-phase staging ran
+#: them: the first run of ``--k6-k5 tight`` on that tree, NVIDIA H100 80GB
+#: HBM3, 700.00 W (PERF.md, K6's starting point)
+PARENT_ELEMENT_COPY_MS = {"hdiff": 0.2036, "fv_step": 1.0511, "sw_step": 0.2581}
+
+
+def _tight_builds() -> dict:
+    """``_tight_tiles``' stencils: name -> (default build, plain), and the
+    models (aligned, tight) whose states and origins they take."""
+    import numpy as np
+
+    from gt4py_tpu_torch.models import dycore, fv_advection
+    from gt4py_tpu_torch.models.shallow_water import ShallowWater
+
+    shape = (NI, NJ, NK)
+    layouts = {}
+    for aligned in (True, False):
+        layouts[aligned] = {
+            "md": dycore.MiniDycore(*shape, backend="torch", device="cuda", aligned=aligned),
+            "fv": fv_advection.FvAdvection(*shape, backend="torch", device="cuda",
+                                           aligned=aligned),
+            "sw": ShallowWater(*shape, backend="torch", device="cuda", aligned=aligned)}
+    factories = _p12_factories(layouts[True])
+    return {"layouts": layouts, "factories": factories,
+            "builds": {name: (factories[name][0](np.float32, "cuda"),
+                              factories[name][0](np.float32, "torch")) for name in TIGHT_TILES}}
+
+
+def _tight_tiles(tb) -> dict:
+    """K6 on the card: hdiff, fv_step and sw_step at 512x512x80 float32 in
+    their default build, on the models' aligned buffers (periodic) and on
+    tight ones (bounded and periodic): each call bitwise against plain, its
+    tile kernel's device time (``torch.profiler``), the kernels and copies
+    the call launched, and its staging and repair from ``LAST_PLAN``."""
+    import torch
+
+    from gt4py_tpu_torch.cartesian.backend.cuda_backend import LAST_PLAN
+
+    shape = (NI, NJ, NK)
+    out = {}
+    for name, (st, plain) in tb["builds"].items():
+        _, mkey, args = tb["factories"][name]
+        for label, aligned, periodic in (("aligned periodic", True, ("I", "J")),
+                                         ("tight bounded", False, ()),
+                                         ("tight periodic", False, ("I", "J"))):
+            m = tb["layouts"][aligned][mkey]
+            state = m.init_state(seed=5) if mkey != "sw" else m.init_state()
+            kw = dict(origin=(m.oi, m.oj, 0), domain=shape, physical_layout=True,
+                      periodic=periodic)
+            fn, ref_fn = st.functional(**kw), plain.functional(**kw)
+            a = args(state, torch.zeros_like)
+            before = st.backend.device_launches()["all"]
+            got, ref = fn(**a), ref_fn(**a)
+            torch.cuda.synchronize()
+            counted = st.backend.device_launches()["all"] - before
+            if any(not torch.equal(v, ref[k]) for k, v in got.items()):
+                raise AssertionError(f"{name} {label}: kernels and plain differ")
+            plan = LAST_PLAN[st.name]
+            if "repair" in plan or counted != 1:
+                raise AssertionError(f"{name} {label}: {counted} kernels counted, plan {plan}")
+            total, rows = _device_ms(lambda: fn(**a), counted=[
+                (st.name, lambda: st.backend.device_launches()["all"])])
+            tile_ms = sum(ms for k, (ms, _) in rows.items() if st.name in k)
+            rec = {"buffers": list(m.field_shape()), "tile_device_ms": tile_ms,
+                   "call_device_ms": total,
+                   "kernels": {k: [round(ms, 6), n] for k, (ms, n) in rows.items()},
+                   "launches_counted": counted, "one_call_ms": _time_ms(lambda: fn(**a),
+                                                                        TIMING_REPS),
+                   "forms": plan["forms"], "staging": plan.get("staging"),
+                   "repair": plan.get("repair"), "declined": plan["declined"]}
+            out[f"{name} {label}"] = rec
+            print(f"tight tiles {name} {NI}x{NJ}x{NK} f32 {label} (buffers {m.field_shape()}): "
+                  f"bitwise equal to plain; tile kernel {tile_ms:.4f} ms of device time, the "
+                  f"call {total:.4f}; {counted} kernels counted; staging {rec['staging']}, "
+                  f"repair {rec['repair']}; one call {rec['one_call_ms']:.4f} ms; {_ptxas(st)}")
+        tight = out[f"{name} tight bounded"]["tile_device_ms"]
+        aligned_ms = out[f"{name} aligned periodic"]["tile_device_ms"]
+        print(f"tight tiles {name}: tight bounded {tight:.4f} against aligned "
+              f"{aligned_ms:.4f} ms ({100 * (tight / aligned_ms - 1):+.1f} %); with element "
+              f"copies (before row-phase staging; PERF.md, K6) "
+              f"{PARENT_ELEMENT_COPY_MS.get(name)} ms")
+    return out
+
+
+def _sweep_builds() -> dict:
+    """``_sweep_pairs``' stencils: the fused MiniDycore stencil in the sweep
+    form (``sweep=True``), in the plane-sweep form it replaces
+    (``serialize=True``), split (``serialize=False``), and
+    plain."""
+    import numpy as np
+
+    from gt4py_tpu_torch.models import dycore
+
+    return {"sweep": dycore.make_dycore_fused(np.float32, "cuda", sweep=True),
+            "planes": dycore.make_dycore_fused(np.float32, "cuda", serialize=True),
+            "split": dycore.make_dycore_fused(np.float32, "cuda", serialize=False),
+            "plain": dycore.make_dycore_fused(np.float32, "torch")}
+
+
+def _sweep_pairs(sts) -> dict:
+    """The fused MiniDycore stencil at 512x512x80 float32, periodic, in the
+    forms of ``_sweep_builds``: each bitwise against plain, the launches
+    its library counts, device time by kernel, one call at a time, and
+    ``SWEEP_PAIRS`` back-to-back pairs (sweep, split): the pairs behind
+    ``cuda_backend.SERIALIZE_MIXED``."""
+    import torch
+
+    from gt4py_tpu_torch.cartesian.backend.cuda_backend import LAST_PLAN
+    from gt4py_tpu_torch.models import dycore
+
+    shape = (NI, NJ, NK)
+    m = dycore.MiniDycore(*shape, backend="torch", device="cuda")
+    state = m.init_state(seed=5)
+    kw = dict(origin=(m.oi, m.oj, 0), domain=shape, physical_layout=True, periodic=("I", "J"))
+    a = dict(u=state["u"], coeff=state["coeff"], wcon=state["wcon"], utens=state["utens"],
+             utens_stage=state["utens_stage"], u_out=torch.zeros_like(state["u"]),
+             dtr_stage=3.0)
+    ref = sts["plain"].functional(**kw)(**a)
+    fns = {label: st.functional(**kw) for label, st in sts.items() if label != "plain"}
+    out = {}
+    for label, fn in fns.items():
+        st = sts[label]
+        before = st.backend.device_launches()["all"]
+        got = fn(**a)
+        torch.cuda.synchronize()
+        counted = st.backend.device_launches()["all"] - before
+        if any(not torch.equal(v, ref[k]) for k, v in got.items()):
+            raise AssertionError(f"dycore_fused {label}: kernels and plain differ")
+        plan = LAST_PLAN[st.name]
+        total, rows = _device_ms(lambda f=fn: f(**a), counted=[
+            (st.name, lambda st=st: st.backend.device_launches()["all"])])
+        out[label] = {"forms": plan["forms"], "launches_counted": counted,
+                      "call_device_ms": total,
+                      "kernel_device_ms": sum(ms for k, (ms, _) in rows.items() if st.name in k),
+                      "kernels": {k: [round(ms, 6), n] for k, (ms, n) in rows.items()},
+                      "one_call_ms": _time_ms(lambda f=fn: f(**a), TIMING_REPS),
+                      "sweep": plan.get("sweep"), "ptxas": _ptxas(st)}
+        print(f"dycore_fused {NI}x{NJ}x{NK} f32 {label}: forms {plan['forms']}, {counted} "
+              f"kernels counted, bitwise equal to plain; its kernels "
+              f"{out[label]['kernel_device_ms']:.4f} ms of device time (the call {total:.4f}); "
+              f"one call {out[label]['one_call_ms']:.4f} ms; sweep {plan.get('sweep')}; "
+              f"{out[label]['ptxas']}")
+    if out["sweep"]["forms"] != ["sweep"] or out["sweep"]["launches_counted"] != 1:
+        raise AssertionError(f"dycore_fused sweep=True: {out['sweep']}")
+    pairs = []
+    for n in range(SWEEP_PAIRS):
+        order = ("sweep", "split") if n % 2 == 0 else ("split", "sweep")
+        t = {label: _time_b2b_ms(lambda f=fns[label]: f(**a), BACK_TO_BACK)[0] for label in order}
+        pairs.append((t["sweep"], t["split"]))
+    out["b2b_pairs_ms"] = pairs
+    out["sweep_won"] = sum(w < s for w, s in pairs)
+    print(f"dycore_fused back to back (sweep, split), alternating which runs first: "
+          f"{[(round(w, 4), round(s, 4)) for w, s in pairs]}: the sweep won {out['sweep_won']} of "
+          f"{SWEEP_PAIRS}")
+    return out
+
+
+#: ``--k6-k5``: the sweep kernel's tiles timed against each other
+SWEEP_TILE_SWEEP = ((8, 32), (16, 32), (4, 64), (4, 32), (8, 64))
+
+
+def _sweep_tile_builds() -> dict:
+    """The fused MiniDycore stencil in the sweep form at each tile of
+    ``SWEEP_TILE_SWEEP``."""
+    import numpy as np
+
+    from gt4py_tpu_torch.cartesian.backend import cuda_backend
+    from gt4py_tpu_torch.models import dycore
+
+    saved = cuda_backend.SWEEP_TILES
+    out = {}
+    try:
+        for tile in SWEEP_TILE_SWEEP:
+            cuda_backend.SWEEP_TILES = (tile,)
+            out[tile] = dycore.make_dycore_fused(np.float32, "cuda", sweep=True, rebuild=True)
+    finally:
+        cuda_backend.SWEEP_TILES = saved
+    return out
+
+
+def _sweep_tile_times(builds) -> dict:
+    """Each sweep tile's device time at 512x512x80 float32, periodic,
+    bitwise against plain."""
+    import numpy as np
+    import torch
+
+    from gt4py_tpu_torch.models import dycore
+
+    m = dycore.MiniDycore(NI, NJ, NK, backend="torch", device="cuda")
+    state = m.init_state(seed=5)
+    kw = dict(origin=(m.oi, m.oj, 0), domain=(NI, NJ, NK), physical_layout=True,
+              periodic=("I", "J"))
+    a = dict(u=state["u"], coeff=state["coeff"], wcon=state["wcon"], utens=state["utens"],
+             utens_stage=state["utens_stage"], u_out=torch.zeros_like(state["u"]),
+             dtr_stage=3.0)
+    ref = dycore.make_dycore_fused(np.float32, "torch").functional(**kw)(**a)
+    out = {}
+    for tile, st in builds.items():
+        fn = st.functional(**kw)
+        got = fn(**a)
+        if any(not torch.equal(v, ref[k]) for k, v in got.items()):
+            raise AssertionError(f"sweep tile {tile}: kernels and plain differ")
+        _, rows = _device_ms(lambda: fn(**a), counted=[
+            (st.name, lambda: st.backend.device_launches()["all"])])
+        rec = st.backend.program.plan_record()["sweep"][0]
+        out[f"{tile[0]}x{tile[1]}"] = {
+            "device_ms": sum(ms for k, (ms, _) in rows.items() if "_sweep(" in k),
+            "smem_bytes": rec["smem_bytes"], "ctas_per_sm": rec["ctas_per_sm"],
+            "halo": rec["halo"], "ptxas": _ptxas(st)}
+        print(f"sweep tile {tile}: {out[f'{tile[0]}x{tile[1]}']}")
+    return out
+
+
+def k6_k5(tight_only=False) -> int:
+    """``--k6-k5``: the tight tile kernels (``_tight_tiles``), the fused
+    step's forms and pairs (``_sweep_pairs``) and the sweep kernel's tiles
+    (``SWEEP_TILE_SWEEP``), alone; ``--k6-k5 tight``: the first alone."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from gt4py_tpu_torch.next.compiled_program import build_all
+
+    smi = _nvidia_smi()
+    print(f"card: {smi}")
+    tb = _tight_builds()
+    sts, tiles = ({}, {}) if tight_only else (_sweep_builds(), _sweep_tile_builds())
+    build_all([st.backend for st, _ in tb["builds"].values()]
+              + [st.backend for label, st in sts.items() if label != "plain"]
+              + [st.backend for st in tiles.values()])
+    result = {"tight": _tight_tiles(tb)}
+    if not tight_only:
+        result.update(sweep=_sweep_pairs(sts), sweep_tiles=_sweep_tile_times(tiles))
+    print(smi)
+    print(json.dumps({**result, "profile_losses": PROFILE_LOSSES, "card": smi}, default=str))
+    return 1 if PROFILE_LOSSES else 0
+
+
 def main() -> int:
     import torch
 
@@ -2384,7 +2670,7 @@ def main() -> int:
 
     from gt4py_tpu_torch import testing
     from gt4py_tpu_torch.cartesian import gtscript
-    from gt4py_tpu_torch.cartesian.backend import _build
+    from gt4py_tpu_torch.cartesian.backend import _build, cuda_backend
     from gt4py_tpu_torch.cartesian.backend.cuda_backend import LAST_PLAN, REPLACES
     from gt4py_tpu_torch.core import dtypes
     from gt4py_tpu_torch.core.definitions import BFLOAT16
@@ -2436,6 +2722,9 @@ def main() -> int:
     # stencils and the deep-K MiniDycore in both forms
     md_split = dycore.MiniDycore(NI, NJ, NK, dtype=np.float32, backend="cuda", device=dev,
                                  options={"serialize": False})
+    # K5's path: the fused step in the sweep form
+    md_sweep = dycore.MiniDycore(NI, NJ, NK, dtype=np.float32, backend="cuda", device=dev,
+                                 options={"sweep": True})
     plane_defs = _plane_defs()
     deep = {label: dycore.MiniDycore(*DEEP, dtype=np.float32, backend=backend, device=dev,
                                      options=options)
@@ -2446,7 +2735,8 @@ def main() -> int:
                                              device=dev, options={"k_blocked": True}),
                "one_pass": models["f32"][0].dyn}
     fv_planes = fv_advection.make_fv_step(np.float32, "cuda", serialize=True)
-    phase10_stencils = [md_split.fused] + [p["cuda"] for p in plane_defs.values()] + [
+    phase10_stencils = [md_split.fused, md_sweep.fused] + [
+        p["cuda"] for p in plane_defs.values()] + [
         deep["kblocked"].hdiff, deep["kblocked"].vadv_upd, deep["one_pass"].vadv_upd,
         deep512["kblocked"].vadv_upd, fv_planes]
     # phase 11: the repair shapes, ShallowWater, the tight-halo steps, the
@@ -2455,13 +2745,19 @@ def main() -> int:
     # phase 12: the tile form and the fused column kernel against the
     # split builds, float32 at 512x512x80 and float64 at 64x256x16
     p12 = _phase12_builds(dev)
+    # phase 4: the fused stencil's sweep, plane-sweep and split forms (K5);
+    # phase 11: the tile kernels on tight buffers (K6)
+    sweep_sts = _sweep_builds()
+    tight = _tight_builds()
     next_cases = {key: bench_cases(c["dtype"], c["shape"], dev) for key, c in configs.items()}
     next_kernels = [b for cases in next_cases.values() for case in cases.values()
                     for b in case["kernels"]()]
     t0 = time.perf_counter()
     n_sources = build_all(
         [st.backend for st in main_stencils + list(surface_stencils.values()) + bf16_stencils
-         + phase10_stencils + _phase11_stencils(p11) + _phase12_stencils(p12)]
+         + phase10_stencils + _phase11_stencils(p11) + _phase12_stencils(p12)
+            + [st for label, st in sweep_sts.items() if label != "plain"]
+            + [st for st, _ in tight["builds"].values()]]
         + next_kernels + [benes.KERNEL])
     build_s = time.perf_counter() - t0
     print(f"build: {n_sources} sources, {build_s:.2f} s (nvcc in parallel)")
@@ -2503,19 +2799,26 @@ def main() -> int:
     step, step_fused = md.step_fn(), md.step_fn(fused=True)
     for st in path.values():
         st.backend.launches = 0
+    fused_before = md.fused.backend.device_launches()["all"]
     s_two, s_fused = state0, state0
     for _ in range(STEPS):
         s_two = step(s_two)
         s_fused = step_fused(s_fused)
     torch.cuda.synchronize()
     launches = {name: st.backend.launches for name, st in path.items()}
-    print(f"MiniDycore path launches over {STEPS} steps of each form: {launches}")
+    fused_counted = md.fused.backend.device_launches()["all"] - fused_before
+    print(f"MiniDycore path launches over {STEPS} steps of each form: {launches}; the fused "
+          f"stencil's library counted {fused_counted} kernel launches")
     for name, n in launches.items():
         if n == 0:
             raise AssertionError(f"MiniDycore path never launched the {name} kernels")
     fused_plan = LAST_PLAN[md.fused.name]
-    if not fused_plan["serialized"] or "planes" not in fused_plan["forms"]:
-        raise AssertionError(f"the fused step did not run in the plane-sweep form: {fused_plan}")
+    # the mixed-stencil default (cuda_backend.SERIALIZE_MIXED): the sweep
+    # form, one kernel a call, or the split build, two
+    want_forms, want_n = _mixed_default()
+    if fused_plan["forms"] != want_forms or fused_counted != STEPS * want_n:
+        raise AssertionError(f"the fused step ran {fused_plan['forms']} with {fused_counted} "
+                             f"kernels counted, not {want_forms}, {want_n} a call: {fused_plan}")
     print(f"fused step plan: {fused_plan}")
 
     p_step, p_step_fused = md_plain.step_fn(), md_plain.step_fn(fused=True)
@@ -2533,7 +2836,7 @@ def main() -> int:
             print(f"MiniDycore {form} {field} after {STEPS} steps vs plain: max abs "
                   f"{e[0]:.3e}, max rel {e[1]:.3e}")
     _check_close("fused vs two-stencil step", s_fused["u"], s_two["u"], RTOL_F32, ATOL_F32)
-    # K5: the plane-sweep form against the split build and plain, bit for bit
+    # K5: the default form against the split build and plain, bit for bit
     step_split = md_split.step_fn(fused=True)
     s_split = state0
     for _ in range(STEPS):
@@ -2545,10 +2848,34 @@ def main() -> int:
     for field in ("u", "utens_stage"):
         for label, ref in (("split build", s_split), ("plain", r_fused)):
             if not torch.equal(s_fused[field], ref[field]):
-                raise AssertionError(f"fused {field}: the plane-sweep form and the {label} "
+                raise AssertionError(f"fused {field}: the default form and the {label} "
                                      "differ after 10 steps")
-    print(f"fused step: the plane-sweep form, the split build and plain bitwise equal after "
-          f"{STEPS} steps (u, utens_stage)")
+    print(f"fused step: the default form {fused_plan['forms']}, the split build and plain "
+          f"bitwise equal after {STEPS} steps (u, utens_stage)")
+    # K5's path: 10 fused steps in the sweep form, its launches counted by
+    # its library from 0 just before and read just after
+    step_sweep = md_sweep.step_fn(fused=True)
+    md_sweep.fused.backend.build()
+    md_sweep.fused.backend.launches = 0
+    sweep_before = md_sweep.fused.backend.device_launches()["all"]
+    s_sweep = state0
+    for _ in range(STEPS):
+        s_sweep = step_sweep(s_sweep)
+    torch.cuda.synchronize()
+    sweep_counted = md_sweep.fused.backend.device_launches()["all"] - sweep_before
+    sweep_plan = LAST_PLAN[md_sweep.fused.name]
+    if sweep_plan["forms"] != ["sweep"] or sweep_counted != STEPS \
+            or md_sweep.fused.backend.launches != STEPS:
+        raise AssertionError(f"the fused step's sweep form: {sweep_counted} kernels counted "
+                             f"over {STEPS} steps, plan {sweep_plan}")
+    sweep_err = max(float((s_sweep[f] - r_fused[f]).abs().max()) for f in ("u", "utens_stage"))
+    for field in ("u", "utens_stage"):
+        for label, ref in (("default form", s_fused), ("plain", r_fused)):
+            if not torch.equal(s_sweep[field], ref[field]):
+                raise AssertionError(f"fused {field}: the sweep form and the {label} differ "
+                                     f"after {STEPS} steps")
+    print(f"fused step in the sweep form: {sweep_counted} kernel launches counted over {STEPS} "
+          f"steps, bitwise equal to the default form and plain; sweep {sweep_plan['sweep']}")
 
     points = NI * NJ * NK
     step_ms = {
@@ -2561,10 +2888,10 @@ def main() -> int:
         "MiniDycore fused step split build (again)": _time_ms(lambda: step_split(state0),
                                                               TIMING_REPS),
     }
-    fused_b2b = {"planes": _time_chain_ms(step_fused, state0, BACK_TO_BACK),
+    fused_b2b = {"default": _time_chain_ms(step_fused, state0, BACK_TO_BACK),
                  "split": _time_chain_ms(step_split, state0, BACK_TO_BACK)}
-    print(f"MiniDycore fused step back to back ({BACK_TO_BACK} steps): plane-sweep form "
-          f"{fused_b2b['planes']:.4f} ms, split build {fused_b2b['split']:.4f} ms")
+    print(f"MiniDycore fused step back to back ({BACK_TO_BACK} steps): default form "
+          f"{fused_b2b['default']:.4f} ms, split build {fused_b2b['split']:.4f} ms")
     for k, ms in step_ms.items():
         print(f"{k}: {ms:.4f} ms per step, {points / ms / 1e6:.3f} Gpoint/s "
               f"(512x512x80 f32, median of CUDA-event times, one call at a time)")
@@ -2592,38 +2919,43 @@ def main() -> int:
             **_bound(st.analysis, (NI, NJ, NK)),
         })
 
-    # K5: the fused stencil in the plane-sweep form, its split build and its
-    # plain counterpart (the plain executor on the serialized stencil)
+    # K5: the fused stencil in the sweep form, the plane-sweep form it
+    # replaces and its split build, each timed and held to plain; the
+    # pairs behind the mixed-stencil default; its plain counterpart (the
+    # plain executor on the serialized stencil)
     fused_args = dict(u=state0["u"], coeff=state0["coeff"], wcon=state0["wcon"],
                       utens=state0["utens"], utens_stage=state0["utens_stage"],
                       u_out=state0["u"], dtr_stage=3.0)
-    plain_ser = testing.plain_form(md.fused).functional(
+    plain_ser = testing.plain_form(sweep_sts["sweep"]).functional(
         origin=(md.oi, md.oj, 0), domain=(NI, NJ, NK), physical_layout=True,
         periodic=("I", "J"))
     ser_out, ref_out = plain_ser(**fused_args), md_plain.fused_fn_p(**fused_args)
     if any(not torch.equal(ser_out[k], ref_out[k]) for k in ref_out):
         raise AssertionError("the serialized stencil's plain executor differs from plain")
-    k5 = {"ms": _time_ms(lambda: md.fused_fn_p(**fused_args), TIMING_REPS),
-          "split_ms": _time_ms(lambda: md_split.fused_fn_p(**fused_args), TIMING_REPS)}
-    k5["ms_again"] = _time_ms(lambda: md.fused_fn_p(**fused_args), TIMING_REPS)
-    k5["split_ms_again"] = _time_ms(lambda: md_split.fused_fn_p(**fused_args), TIMING_REPS)
+    k5 = _sweep_pairs(sweep_sts)
     k5["plain_ms"] = _time_ms(lambda: plain_ser(**fused_args), PLAIN_TIMING_REPS)
-    print(f"K5 dycore_fused_float32 {NI}x{NJ}x{NK}: plane-sweep form {k5['ms']:.4f} / "
-          f"{k5['ms_again']:.4f} ms, split build {k5['split_ms']:.4f} / "
-          f"{k5['split_ms_again']:.4f} ms (in turns, one call at a time); plain executor on the "
-          f"serialized stencil {k5['plain_ms']:.4f} ms (bitwise equal to plain)")
+    print(f"K5 dycore_fused_float32 {NI}x{NJ}x{NK}: sweep form {k5['sweep']['one_call_ms']:.4f} "
+          f"ms one call at a time, {k5['sweep']['kernel_device_ms']:.4f} ms of device time; "
+          f"plane-sweep form {k5['planes']['kernel_device_ms']:.4f}, split build "
+          f"{k5['split']['kernel_device_ms']:.4f}; plain executor on the serialized stencil "
+          f"{k5['plain_ms']:.4f} ms (bitwise equal to plain); SERIALIZE_MIXED = "
+          f"{cuda_backend.SERIALIZE_MIXED}")
     kernels.append({
-        "name": "K5 plane-sweep form: dycore_fused_float32 serialized (one plane-sweep kernel "
-                "and one fused column kernel)",
+        "name": "K5 sweep form: dycore_fused_float32 serialized (one sweep kernel: the PARALLEL "
+                "loop and the FORWARD and BACKWARD loops)",
         "route": "cuda",
         "source": "gt4py_tpu_torch/cartesian/backend/cuda_backend.py",
-        "replaces": REPLACES["planes"],
-        "launches": launches["dycore_fused"],
-        "max_abs_err": errors[("f32", "dycore_fused")][0],
-        "ms": k5["ms"],
+        "replaces": REPLACES["sweep"],
+        "launches": sweep_counted,
+        "max_abs_err": sweep_err,
+        "ms": k5["sweep"]["one_call_ms"],
         "plain_ms": k5["plain_ms"],
         **_bound(md.fused.analysis, (NI, NJ, NK)),
-        "split_ms": k5["split_ms"],
+        "device_ms": k5["sweep"]["kernel_device_ms"],
+        "planes_device_ms": k5["planes"]["kernel_device_ms"],
+        "split_device_ms": k5["split"]["kernel_device_ms"],
+        "b2b_pairs_ms": k5["b2b_pairs_ms"],
+        "sweep_won": k5["sweep_won"],
         "step_b2b_ms": fused_b2b,
         "plan": fused_plan,
     })
@@ -2659,11 +2991,18 @@ def main() -> int:
 
             timed[backend] = _time_ms(call, TIMING_REPS if backend == "cuda"
                                       else PLAIN_TIMING_REPS)
+            if backend == "cuda":
+                # its kernels' device time a call, every launch in the profile
+                _, rows = _device_ms(call, counted=[
+                    (st.name, lambda st=st: st.backend.device_launches()["all"])])
+                own = {k: v for k, v in rows.items() if st.name in k}
+                device = (sum(ms for ms, _ in own.values()), sum(n for _, n in own.values()))
         dt = next(iter(args.values())).dtype
         print(f"surface {feature}: {len(names)} stencils, {total} launches, max abs err "
               f"{worst:.3e} (rtol {RTOL_F64}, atol {ATOL_F64}); "
               f"{SURFACE_TIMED[feature]} at 512x512x80 {dt}, J contiguous (outputs copied "
-              f"per call): kernel {timed['cuda']:.4f} ms, plain {timed['torch']:.4f} ms")
+              f"per call): kernel {timed['cuda']:.4f} ms, plain {timed['torch']:.4f} ms; its "
+              f"kernels {device[0]:.4f} ms of device time a call, {device[1]} launches a call")
         kernels.append({
             "name": f"{feature}: " + ", ".join(names),
             "route": "cuda",
@@ -2674,6 +3013,8 @@ def main() -> int:
             "ms": timed["cuda"],
             "plain_ms": timed["torch"],
             **_bound(st.analysis, (NI, NJ, NK)),
+            "device_ms": device[0],
+            "device_launches_a_call": device[1],
         })
 
     # -- 6. the FullDycore path ---------------------------------------------
@@ -2882,18 +3223,20 @@ def main() -> int:
 
     # -- 11. K6: the vector row form and the repair -------------------------
     k6 = {"repair_shapes": _repair_shapes(p11["repair_defs"], dev),
-          **_phase11(p11, dev, kernels)}
+          **_phase11(p11, tight, dev, kernels)}
 
     # -- 12. K1's tile form and K2's fused column kernel --------------------
     phase12 = _phase12(p12, fd, dev)
     for name, t in phase12["timings"].items():
         b = p12["f32"]["builds"][name]
+        forms = (P12_FORMS[name] or _mixed_default())[0]
+        label = " + ".join({"tile": "K1 tile form", "column": "K2 fused column"}[f]
+                           for f in forms)
         kernels.append({
-            "name": f"{'K1 tile form' if 'tile' in P12_FORMS[name][0] else 'K2 fused column'}"
-                    f": {b['tile'].name}",
+            "name": f"{label}: {b['tile'].name}",
             "route": "cuda",
             "source": "gt4py_tpu_torch/cartesian/backend/cuda_backend.py",
-            "replaces": REPLACES["rows" if "tile" in P12_FORMS[name][0] else "columns"],
+            "replaces": "; ".join(REPLACES["rows" if f == "tile" else "columns"] for f in forms),
             "launches": phase12["launches"][name],
             "max_abs_err": phase12["max_abs_err"][name],
             "ms": min(t["ms"]),
@@ -2973,4 +3316,6 @@ if __name__ == "__main__":
     sys.exit(k9_layouts() if sys.argv[1:] == ["--k9-layouts"] else
              tiles_only() if sys.argv[1:] == ["--tiles"] else
              profile_check() if sys.argv[1:] == ["--profile-check"] else
-             tile_sweep() if sys.argv[1:] == ["--tile-sweep"] else main())
+             tile_sweep() if sys.argv[1:] == ["--tile-sweep"] else
+             k6_k5() if sys.argv[1:] == ["--k6-k5"] else
+             k6_k5(tight_only=True) if sys.argv[1:] == ["--k6-k5", "tight"] else main())

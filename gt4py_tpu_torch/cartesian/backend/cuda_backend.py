@@ -20,9 +20,12 @@ emitters turn each vertical loop into ``__global__`` kernels:
   slot (``_assign_slots``); outputs are stored once, where the CTA owns
   the point.  A field the section reads at a horizontal offset and does
   not write is staged per level into a two-slot ring with ``cp.async``
-  (16-byte copies on the fields' common 16-byte phase, found per call as
-  for K6; element copies elsewhere): level k + 1's tile copies while level
-  k computes; fields read only at (0, 0) load straight to registers.  The
+  (16-byte copies from each row's aligned-down word at any row phase, K6;
+  element copies where a word is not contiguous or would leave the
+  field's storage; a twin kernel ``_u``, its rows' stride a constant,
+  runs the calls whose staged rows all share one lead): level k + 1's
+  tile copies while level k computes; fields read only at (0, 0) load
+  straight to registers.  The
   tile is the largest of ``TILE_SHAPES`` whose shared bytes leave
   ``TILE_CTAS_PER_SM`` CTAs a SM.  The section declines (recorded in
   ``declined["tiles"]``) to the **stage-split row form** when it reads, at
@@ -66,10 +69,26 @@ emitters turn each vertical loop into ``__global__`` kernels:
   ring of planes for reads of earlier levels), and written to device
   memory only where the CTA owns the point; a read, at another CTA's
   points, of a value the sweep has not written yet reads a copy of the
-  field taken just before the kernel.  A mixed stencil runs its PARALLEL
-  loops serialized (``passes.serialize_parallel_k``) in this form, unless
-  built with ``serialize=False``; a read this form cannot order between
-  CTAs declines it, naming the read.
+  field taken just before the kernel.  A mixed stencil built with
+  ``serialize=True`` runs its PARALLEL loops serialized
+  (``passes.serialize_parallel_k``) in this form (by default it runs
+  split: ``SERIALIZE_MIXED``); a read this form cannot order between CTAs
+  declines it, naming the read.
+- **Sweep form** (K5; Pallas ``_trace_serialized``, a mixed stencil
+  all-serial in one kernel).  A serialized PARALLEL loop and the run of
+  serial loops after it are one kernel (``<stencil>_k<n>_sweep``,
+  ``SweepPlan``): one CTA of TI x TJ threads per tile, a thread a column,
+  sweeps K once; the plane part runs ``lead`` levels ahead of the first
+  column loop (its stages as the plane-sweep form runs a plane, its
+  inputs staged a level ahead as the tile form stages them), and what the
+  column loop reads of it at the CTA's own points stays in a shared ring
+  of levels; the later loops run after the sweep, as the fused column
+  kernel runs them.  Built with ``sweep=True`` only (it raises, naming
+  what one sweep cannot order); a serialized build without it records in
+  ``declined["sweep"]`` why the form declines or that it was not asked
+  for, and runs the plane-sweep kernel and the fused column kernel.  A
+  sweep build also holds those two for K4 and for a call whose sections
+  overlap along K (``SweepPlan.ordered``).
 - **K-blocked passes** (K4; Pallas ``_trace_kblocked``/``_run_k_blocks``).
   Each column-form loop has a K-blocked variant: one launch
   (``<loop>_kb``) in which every thread sweeps its column block by block
@@ -85,19 +104,21 @@ emitters turn each vertical loop into ``__global__`` kernels:
   columns and one pass elsewhere (``kb_default``, PERF.md);
   ``k_blocked=False`` keeps one pass.  The library counts its launches
   (``gt_launch_counts``); the plan records each loop's.
-- **Vector row form and geometry repair** (K6; Pallas ``_trace_repaired``
-  and its gate ``_halos_ij``).  Every row stage that reaches a
-  J-contiguous field has a second kernel in which a thread computes V
-  consecutive J points (V = 16 bytes over the smallest item size), each
-  read-only field read as aligned 16-byte words into a register window
-  per (I offset, K offset) row, each written field held in a register
-  array and stored as words; partial groups, a window past what its
-  readers need and a periodic J seam take elements one by one.  The
-  groups start on the fields' common 16-byte phase, checked at every
-  launch from the views' pointers and strides; a non-periodic call whose
-  fields share none is repaired by ``repair`` (padded copies of the read
-  windows, the write windows copied back) where its cost rule says it
-  pays.  ``gt_run`` takes a flag per stage: geometry never rebuilds.
+- **Row-phase 16-byte staging and the vector row form** (K6; Pallas
+  ``_trace_repaired`` and its gate ``_halos_ij``).  The tile and sweep
+  kernels stage each row of an input from its own aligned-down 16-byte
+  word, at any row phase (``_emit_staging``), so no call is repaired by
+  default; ``repair=True`` still runs the JAX package's pass
+  (``repair``).  Every row stage that reaches a J-contiguous field has a
+  second kernel in which a thread computes V consecutive J points (V = 16
+  bytes over the smallest item size), each read-only field read as
+  aligned 16-byte words into a register window per (I offset, K offset)
+  row, each written field held in a register array and stored as words;
+  partial groups, a window past what its readers need and a periodic J
+  seam take elements one by one.  Its groups start on the fields' common
+  16-byte phase, checked at every launch from the views' pointers and
+  strides; a call whose fields share none runs the scalar row kernels.
+  ``gt_run`` takes a flag per stage: geometry never rebuilds.
 - **Periodic wrap** (K1a; Pallas ``_plan_segments``/``_circular_ok``).
   Reads of read-only API fields on a periodic axis wrap by index arithmetic
   in the load address; there is no fill pass.  A written field read at a
@@ -158,16 +179,18 @@ temporaries (``columns``), whether it was
 serialized or K-blocked (passes, KB, launches per
 loop, slots, shared bytes and CTAs per SM of the ring, promoted
 temporaries), the plane tile, where temporaries live, writers the
-plane-sweep form widened for ring reads (``widened``), the vector width
-(``vector``) and the repaired fields' pads (``repair``) of the last call,
-and why a form declined.
+plane-sweep form widened for ring reads (``widened``), the sweep kernels'
+tile, lead, ring and CTAs a SM (``sweep``), the 16-byte word width
+(``vector``), each 16-byte staged field's staging (``staging``:
+``"row_phase"`` or ``"element"``) and the repaired fields' pads
+(``repair``) of the last call, and why a form declined.
 """
 
 from __future__ import annotations
 
 import ctypes
 import time
-from dataclasses import dataclass, field
+from dataclasses import dataclass, field, replace
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -219,6 +242,9 @@ REPLACES = {
     "planes": "gt4py_tpu/cartesian/backend/pallas_backend.py:797 "
               "PallasBackend._trace_serialized (_serial_child :765; mode B's tiled serial "
               "sweep, _plan_columns :1187)",
+    "sweep": "gt4py_tpu/cartesian/backend/pallas_backend.py:797 "
+             "PallasBackend._trace_serialized (_serial_child :765; a mixed stencil all-serial in "
+             "one kernel)",
     "kblocked": "gt4py_tpu/cartesian/backend/pallas_backend.py:1297 "
                 "PallasBackend._trace_kblocked (_run_k_blocks :1382)",
     "repair": "gt4py_tpu/cartesian/backend/pallas_backend.py:483 "
@@ -234,8 +260,8 @@ LAST_PLAN: Dict[str, dict] = {}
 SMEM_MAX = 227 * 1024
 SMEM_DEFAULT = 48 * 1024
 #: a plane-sweep CTA's threads, and its (TI, TJ) tiles, first choice first:
-#: 16 x 32 gives 1024 CTAs at 512 x 512 (about 8 per SM), then smaller
-#: tiles until the shared planes fit
+#: 16 x 32 gives 32 x 16 = 512 CTAs at 512 x 512 (about 3.9 per SM), then
+#: smaller tiles until the shared planes fit
 PLANE_THREADS = 256
 PLANE_TILES = ((16, 32), (8, 32), (4, 32), (2, 32), (1, 32))
 #: the tile form (K1): its (TI, TJ) candidates, largest first; a CTA runs
@@ -255,6 +281,34 @@ TILE_CTAS_MIN = 2
 #: vector row kernel in every chip call (``chip_smoke.py`` phase 12, PERF.md)
 ONE_STAGE = ("cuda backend: one stage, nothing to keep on chip between stages: the row "
              "kernel (tiles=True forces the tile form)")
+#: the sweep form (K5): its (TI, TJ) tiles, first choice first, one thread
+#: a column (TI TJ threads); the first whose shared bytes fit; a ring
+#: deeper than ``SWEEP_RING_MAX`` levels declines.  On the
+#: H100 (``chip_smoke.py --k6-k5``, PERF.md, K5) the fused MiniDycore
+#: stencil's sweep took 0.79 ms of device time at 4 x 32, 0.95 at 8 x 32
+#: and 4 x 64, 1.34-1.35 at 16 x 32 and 8 x 64
+SWEEP_TILES = ((4, 32), (8, 32), (16, 32))
+SWEEP_RING_MAX = 8
+#: whether a mixed stencil built with ``serialize`` and ``sweep`` unset
+#: runs serialized (its PARALLEL loops in the plane-sweep form) or split
+#: (tile or row kernels, then the fused column kernels).
+#: On the H100 (NVIDIA H100 80GB HBM3, 700 W; ``chip_smoke.py --k6-k5``
+#: and phase 4, PERF.md, K5) the fused MiniDycore stencil at 512 x 512 x 80
+#: float32 in the sweep form lost every back-to-back pair to its split
+#: build, 25 of 25 over five runs (0.9766-1.0079 against 0.7273-0.8914
+#: ms), its kernel 0.7860-0.7922 ms of device time against the split
+#: build's 0.5377-0.5537; so mixed stencils run split by default
+SERIALIZE_MIXED = False
+#: the reason a mixed stencil's split default records
+SPLIT_MIXED = ("cuda backend: the split build, the default for a mixed stencil "
+               "(serialize=True or sweep=True serializes it)")
+#: why a serialized build without ``sweep=True`` keeps the plane-sweep
+#: kernel and the fused column kernel where the sweep form would plan
+SWEEP_OPT_IN = ("cuda backend: the plane-sweep and fused column kernels (sweep=True builds "
+                "the sweep kernel)")
+#: why a call runs a sweep's plane and fused column kernels instead
+SWEEP_UNORDERED = ("cuda backend: this call's section bounds overlap within a loop (a shallow "
+                   "domain): the plane and fused column kernels")
 #: the fused column kernel (K2): columns a CTA (threads along J), and the
 #: CTAs a SM its registers must leave (64 registers a thread).  On the H100
 #: (``chip_smoke.py`` phase 12, PERF.md) vadv_update's kernel at
@@ -322,8 +376,9 @@ VECTOR_DEFAULT = True
 #: data dimensions a field may have (``gt::kMaxDataDims``)
 MAX_DATA_DIMS = 4
 #: per-field record the wrapper passes: I, J, K strides, the data strides,
-#: the buffer's K range [klo, khi] in domain-relative levels
-_REC = 3 + MAX_DATA_DIMS + 2
+#: the buffer's K range [klo, khi] in domain-relative levels, and the first
+#: and last-plus-one byte address of its storage
+_REC = 3 + MAX_DATA_DIMS + 4
 
 #: storage C type of each dtype (``_ctype`` gives the type of a value)
 _CTYPE = {
@@ -708,7 +763,7 @@ class KernelPlan:
     loops' fused column kernel."""
 
     name: str
-    form: str  # "rows" | "columns" | "planes" | "tile" | "column"
+    form: str  # "rows" | "columns" | "planes" | "tile" | "column" | "sweep"
     order: ir.LoopOrder
     #: (global section index, statements) in execution order
     sections: List[Tuple[int, List[ir.Stmt]]]
@@ -727,6 +782,13 @@ class KernelPlan:
     #: a column loop whose one-pass kernel the fused kernel replaces: it is
     #: launched only as K4's window kernel
     k4_only: bool = False
+    #: the sweep form's plan (form "sweep": the plane kernel ``planes`` and
+    #: the fused column kernel ``group`` in one)
+    sweep: Optional[SweepPlan] = None
+    #: the index of the sweep kernel that replaces this plane kernel or
+    #: fused column kernel where it runs (they run under K4, and where the
+    #: sweep cannot order a call's sections)
+    swept_by: Optional[int] = None
 
 
 def _split_stages(stmts: List[ir.Stmt]) -> List[List[ir.Stmt]]:
@@ -934,6 +996,58 @@ class TilePlan:
 
 
 @dataclass
+class SweepPlan:
+    """The sweep form (K5 on Hopper) of a serialized PARALLEL loop and the
+    run of serial loops after it: one CTA per (TI x TJ) tile, one thread
+    per column (``threads`` = TI TJ), sweeping K once.  At step k the
+    plane part (the PARALLEL loop's stages, ``_plane_level``) computes
+    level k + ``lead`` and the first column loop level k; the values the
+    column loops read of fields the plane part writes, at the CTA's own
+    points, stay in a shared ring of ``ring[name]`` levels.  The later
+    loops run after the sweep in the same CTA, as the fused column kernel
+    runs them.  The plane part's shared planes are in slots by liveness
+    (``slot``, ``slot_bytes``); its ``inputs`` (read at a horizontal
+    offset, with one PARALLEL section) are staged a level ahead into a
+    two-slot ring as the tile form stages them."""
+
+    tile: Tuple[int, int]
+    threads: int
+    lead: int
+    ring: Dict[str, int]
+    slot: Dict[str, int]
+    slot_bytes: List[int]
+    inputs: List[Tuple[str, int, Extent, int, int]]
+    input_bytes: int
+    smem_bytes: int
+    ctas_per_sm: int
+    #: plane points computed over points owned, over the plane part's
+    #: statements
+    halo: float
+    #: the plane part's sections and the first column loop's (global
+    #: indices), whose K ranges a call must give in order
+    plane_secs: List[int] = field(default_factory=list)
+    col_secs: List[int] = field(default_factory=list)
+
+    def ordered(self, kb: Sequence[Tuple[int, int]]) -> bool:
+        """The sweep can run a call with section bounds ``kb``: within the
+        plane part and within the first column loop, the sections that
+        sweep any level follow one another along K (then interleaving them
+        level by level keeps their order)."""
+        for secs in (self.plane_secs, self.col_secs):
+            ranges = [kb[sid] for sid in secs if kb[sid][0] < kb[sid][1]]
+            if any(a[1] > b[0] for a, b in zip(ranges, ranges[1:])):
+                return False
+        return True
+
+    def record(self, name: str) -> dict:
+        return {"kernel": name, "tile": list(self.tile), "threads": self.threads,
+                "lead": self.lead, "ring": dict(self.ring), "slots": len(self.slot_bytes),
+                "planes": len(self.slot), "smem_bytes": self.smem_bytes,
+                "ctas_per_sm": self.ctas_per_sm, "halo": round(self.halo, 4),
+                "staged": [f"{n}@k{dk}" for n, dk, *_ in self.inputs]}
+
+
+@dataclass
 class ColumnGroup:
     """The fused column kernel (K2 on Hopper) of consecutive serial loops:
     ``loops`` their orders and sections (their per-loop column kernels run
@@ -1029,50 +1143,16 @@ def _plan_tile(analysis: StencilAnalysis, sid: int, body: List[ir.Stmt],
     pp = _plan_planes(analysis, ir.LoopOrder.PARALLEL, [(sid, body)], local,
                       choose_tile=False)
     stages = pp.stages[sid]
-    # each shared plane's stages: from its first write (a mirrored plane
-    # from the level's start, where it is loaded) to its last access
-    live: Dict[str, Tuple[int, int]] = {}
-    for n, stage in enumerate(stages):
-        for s in stage:
-            for node in ir.walk_values(s):
-                if isinstance(node, ir.FieldAccess) and node.name in pp.shared:
-                    a, b = live.get(node.name, (n, n))
-                    live[node.name] = (min(a, n), max(b, n))
-    for name in pp.mirrored:
-        live[name] = (-1, live.get(name, (0, 0))[1])
-    # the staged inputs: read-only fields read at a horizontal offset, per
-    # K offset, over the hull of what the section's statements read
-    hull: Dict[Tuple[str, int], Extent] = {}
-    offset_read: set = set()
-    for s in body:
-        e = ext.stmt_extent(s)
-        for r in _stmt_reads(s):
-            decl = st.decl(r.name)
-            if r.name in written or r.name in local or decl.data_dims or \
-                    not all(decl.dimensions) or not isinstance(r.offset, ir.CartesianOffset):
-                continue
-            key = (r.name, r.offset.k)
-            at = Extent(i=e.i, j=e.j) + Extent.from_offset(r.offset.i, r.offset.j)
-            hull[key] = hull.get(key, at) | at
-            if r.offset.i or r.offset.j:
-                offset_read.add(key)
-    staged = [(name, dk, hull[(name, dk)]) for name, dk in hull if (name, dk) in offset_read]
-    nstmts = sum(len(stage) for stage in stages)
+    live = _plane_live(pp, stages)
+    staged = _staged_hull(st, ext, body, written | set(local))
 
     def plan(tile):
         TI, TJ = tile
         size = {n: _align16((TI + e.i[1] - e.i[0]) * (TJ + e.j[1] - e.j[0])
                             * _value_size(st.decl(n).dtype)) for n, e in pp.shared.items()}
         slot, slot_bytes = _assign_slots(live, size)
-        inputs, nin = [], 0
-        for name, dk, e in staged:
-            dt = np.dtype(st.decl(name).dtype)
-            vsize = _value_size(dt)
-            lanes = 16 // vsize if dt.itemsize == vsize and vsize in (4, 8) else 0
-            nj = TJ + e.j[1] - e.j[0]
-            pitch = -(-(nj + lanes - 1) // lanes) * lanes if lanes else nj
-            inputs.append((name, dk, e, pitch, lanes))
-            nin += _align16((TI + e.i[1] - e.i[0]) * pitch * vsize)
+        inputs = _staged_inputs(st, tile, staged)
+        nin = _staging_layout(st, tile, inputs)[1]
         smem = max(16, sum(slot_bytes) + 2 * nin)
         return slot, slot_bytes, inputs, nin, smem
 
@@ -1085,17 +1165,194 @@ def _plan_tile(analysis: StencilAnalysis, sid: int, body: List[ir.Stmt],
                        f"inputs need {plan(TILE_SHAPES[-1])[4]} bytes at a "
                        f"{TILE_SHAPES[-1]} tile, above {SMEM_MAX}")
     (TI, TJ), (slot, slot_bytes, inputs, nin, smem) = choice
-    computed = 0
-    for stage in stages:
-        for s in stage:
-            e = ext.stmt_extent(s)
-            computed += (TI + e.i[1] - e.i[0]) * (TJ + e.j[1] - e.j[0])
     pp.tile = (TI, TJ)
     pp.smem_bytes = smem
     return TilePlan(tile=(TI, TJ), kz=TILE_KZ, planes=pp, slot=slot, slot_bytes=slot_bytes,
                     inputs=inputs, input_bytes=nin, smem_bytes=smem,
                     ctas_per_sm=ctas_per_sm(smem, PLANE_THREADS),
-                    halo=computed / max(1, nstmts * TI * TJ))
+                    halo=_halo(ext, stages, (TI, TJ)))
+
+
+def _staged_inputs(st: ir.Stencil, tile: Tuple[int, int], staged):
+    """The staged inputs at ``tile``: (name, K offset, extent, pitch, lanes)
+    for each (name, K offset, extent) of ``staged``.  A 16-byte staged row
+    holds the elements from its aligned-down word on (K6's row phase):
+    ``pitch``, whole words, is one word more than the extent's width."""
+    out = []
+    for name, dk, e in staged:
+        dt = np.dtype(st.decl(name).dtype)
+        vsize = _value_size(dt)
+        lanes = 16 // vsize if dt.itemsize == vsize and vsize in (4, 8) else 0
+        nj = tile[1] + e.j[1] - e.j[0]
+        pitch = -(-(nj + lanes - 1) // lanes) * lanes if lanes else nj
+        out.append((name, dk, e, pitch, lanes))
+    return out
+
+
+def _staging_layout(st: ir.Stencil, tile: Tuple[int, int], inputs):
+    """Each staged input's byte offset in a ring slot, and the slot's
+    bytes: a 16-byte staged input's rows step by ``pitch`` plus up to
+    ``lanes - 1`` elements (``_emit_staging``)."""
+    out, at = [], 0
+    for name, _, e, pitch, lanes in inputs:
+        rows = tile[0] + e.i[1] - e.i[0]
+        out.append(at)
+        at += _align16((rows * (pitch + max(lanes - 1, 0)) + lanes)
+                       * _value_size(st.decl(name).dtype))
+    return out, at
+
+
+def _staged_hull(st: ir.Stencil, ext, body: List[ir.Stmt], skip) -> list:
+    """The inputs a tile or sweep kernel stages: per (field, K offset) read
+    at a horizontal offset, of the fields not in ``skip`` (written or
+    on-chip), 3-D without data dimensions, the hull of what ``body``'s
+    statements read: [(name, K offset, extent)]."""
+    hull: Dict[Tuple[str, int], Extent] = {}
+    offset_read: set = set()
+    for s in body:
+        e = ext.stmt_extent(s)
+        for r in _stmt_reads(s):
+            decl = st.decl(r.name)
+            if r.name in skip or decl.data_dims or not all(decl.dimensions) \
+                    or not isinstance(r.offset, ir.CartesianOffset):
+                continue
+            key = (r.name, r.offset.k)
+            at = Extent(i=e.i, j=e.j) + Extent.from_offset(r.offset.i, r.offset.j)
+            hull[key] = hull.get(key, at) | at
+            if r.offset.i or r.offset.j:
+                offset_read.add(key)
+    return [(name, dk, hull[(name, dk)]) for name, dk in hull if (name, dk) in offset_read]
+
+
+def _plane_live(pp: PlanePlan, stages: List[List[ir.Stmt]]) -> Dict[str, Tuple[int, int]]:
+    """Each shared plane's stages: from its first write (a mirrored plane
+    from the level's start, where it is loaded) to its last access."""
+    live: Dict[str, Tuple[int, int]] = {}
+    for n, stage in enumerate(stages):
+        for s in stage:
+            for node in ir.walk_values(s):
+                if isinstance(node, ir.FieldAccess) and node.name in pp.shared:
+                    a, b = live.get(node.name, (n, n))
+                    live[node.name] = (min(a, n), max(b, n))
+    for name in pp.mirrored:
+        live[name] = (-1, live.get(name, (0, 0))[1])
+    return live
+
+
+def _halo(ext, stages, tile) -> float:
+    """Points a CTA computes over the points it owns, over the statements."""
+    TI, TJ = tile
+    computed, nstmts = 0, 0
+    for stage in stages:
+        for s in stage:
+            e = ext.stmt_extent(s)
+            computed += (TI + e.i[1] - e.i[0]) * (TJ + e.j[1] - e.j[0])
+            nstmts += 1
+    return computed / max(1, nstmts * TI * TJ)
+
+
+def _plan_sweep(analysis: StencilAnalysis, plane: KernelPlan, loops,
+                plane_temps) -> Tuple[SweepPlan, PlanePlan]:
+    """The sweep form (``SweepPlan``) of the serialized PARALLEL loop
+    ``plane`` and the serial loops ``loops`` (order, sections) after it,
+    with its plane part's ``PlanePlan`` at the sweep's tile, or
+    ``_Decline`` naming what one sweep cannot order."""
+    st = analysis.stencil
+    ext = analysis.extents
+    if loops[0][0] != plane.order:
+        raise _Decline("cuda backend: the serial loop after the PARALLEL loop runs "
+                       f"{loops[0][0].name}, the other way: one sweep cannot run both")
+    pwrites, preads = _loop_rw(plane.sections)
+    cwrites = set()
+    for _, secs in loops:
+        cwrites |= _loop_rw(secs)[0]
+    for r in preads:
+        if r.name in cwrites:
+            raise _Decline(f"cuda backend: the PARALLEL loop reads '{r.name}', which a serial "
+                           "loop after it writes")
+    if pwrites & cwrites:
+        raise _Decline(f"cuda backend: {sorted(pwrites & cwrites)} written by the PARALLEL "
+                       "loop and by a serial loop after it")
+    for _, secs in loops:
+        for _, body in secs:
+            for s in body:
+                e = ext.stmt_extent(s)
+                if (e.i, e.j) != ((0, 0), (0, 0)):
+                    raise _Decline("cuda backend: a serial loop after the PARALLEL loop computes "
+                                   f"beyond the domain (I{e.i} J{e.j}), in columns of other "
+                                   "tiles")
+    lead = behind = 0
+    ring: set = set()
+    for li, (_, secs) in enumerate(loops):
+        for _, body in secs:
+            for s in body:
+                for r in _stmt_reads(s):
+                    if r.name not in pwrites:
+                        continue
+                    if not isinstance(r.offset, ir.CartesianOffset):
+                        raise _Decline(f"cuda backend: a serial loop reads '{r.name}', which the "
+                                       "PARALLEL loop writes, at a variable K")
+                    if r.offset.i or r.offset.j:
+                        raise _Decline(f"cuda backend: a serial loop reads '{r.name}', which the "
+                                       "PARALLEL loop writes, at a horizontal offset")
+                    decl = st.decl(r.name)
+                    if li == 0 and (decl.data_dims or not all(decl.dimensions)):
+                        raise _Decline(f"cuda backend: the first serial loop reads '{r.name}' "
+                                       "(data dimensions or no I/J/K axis), which the PARALLEL "
+                                       "loop writes")
+                    if li == 0:
+                        ring.add(r.name)
+                        lead = max(lead, r.offset.k)
+                        behind = max(behind, -r.offset.k)
+    depth = lead + behind + 1
+    if ring and depth > SWEEP_RING_MAX:
+        raise _Decline(f"cuda backend: the first serial loop reads what the PARALLEL loop "
+                       f"writes {lead} levels ahead and {behind} behind: a ring of {depth} "
+                       f"levels, above {SWEEP_RING_MAX}")
+    for name in sorted(ring):
+        for _, body in plane.sections:
+            if not any(isinstance(s, ir.Assign) and s.target.name == name for s in body) or any(
+                    not isinstance(s, ir.Assign) and name in {w.name for w in _stmt_writes(s)}
+                    for s in body):
+                raise _Decline(f"cuda backend: '{name}', which the first serial loop reads, is "
+                               "not written by an unconditional statement in every section of "
+                               "the PARALLEL loop")
+    pp = _plan_planes(analysis, plane.order, plane.sections, plane_temps, choose_tile=False)
+    if any(d > 1 for d in pp.mirrored.values()):
+        raise _Decline("cuda backend: the PARALLEL loop keeps a ring of earlier planes")
+    stages = [stage for sid, _ in plane.sections for stage in pp.stages[sid]]
+    live = _plane_live(pp, stages)
+    staged = []
+    if len(plane.sections) == 1:
+        staged = _staged_hull(st, ext, plane.sections[0][1], pwrites | set(plane_temps))
+
+    def plan(tile):
+        TI, TJ = tile
+        size = {n: _align16((TI + e.i[1] - e.i[0]) * (TJ + e.j[1] - e.j[0])
+                            * _value_size(st.decl(n).dtype)) for n, e in pp.shared.items()}
+        slot, slot_bytes = _assign_slots(live, size)
+        inputs = _staged_inputs(st, tile, staged)
+        nin = _staging_layout(st, tile, inputs)[1]
+        ring_bytes = sum(_align16(depth * TI * TJ * _value_size(st.decl(n).dtype))
+                         for n in ring)
+        smem = max(16, sum(slot_bytes) + 2 * nin + ring_bytes)
+        return slot, slot_bytes, inputs, nin, smem
+
+    plans = [(tile, plan(tile)) for tile in SWEEP_TILES]
+    choice = next(((tile, got) for tile, got in plans if got[-1] <= SMEM_MAX), None)
+    if choice is None:
+        raise _Decline(f"cuda backend: the sweep's shared planes, ring and staged inputs need "
+                       f"{plans[-1][1][-1]} bytes at a {plans[-1][0]} tile, above {SMEM_MAX}")
+    tile, (slot, slot_bytes, inputs, nin, smem) = choice
+    pp.tile = tile
+    pp.smem_bytes = smem
+    threads = tile[0] * tile[1]
+    return SweepPlan(tile=tile, threads=threads, lead=lead,
+                     ring={n: depth for n in sorted(ring)}, slot=slot, slot_bytes=slot_bytes,
+                     inputs=inputs, input_bytes=nin, smem_bytes=smem,
+                     ctas_per_sm=ctas_per_sm(smem, threads), halo=_halo(ext, stages, tile),
+                     plane_secs=[sid for sid, _ in plane.sections],
+                     col_secs=[sid for sid, _ in loops[0][1]]), pp
 
 
 def _loop_rw(loop_secs) -> Tuple[set, List[ir.FieldAccess]]:
@@ -1123,7 +1380,8 @@ def _fuse_conflict(a, b) -> Optional[str]:
 
 def plan_kernels(analysis: StencilAnalysis, planes_loops=frozenset(),
                  tiles: Optional[bool] = None, fuse_loops: Optional[bool] = None,
-                 declined: Optional[Dict[str, str]] = None) -> List[KernelPlan]:
+                 declined: Optional[Dict[str, str]] = None,
+                 sweep: Optional[bool] = None) -> List[KernelPlan]:
     """The kernels of a stencil in launch order: a tile kernel per
     PARALLEL section (``tiles`` not False; the stage-split row kernels
     where it declines or ``tiles=False``), a plane-sweep kernel for the
@@ -1131,13 +1389,21 @@ def plan_kernels(analysis: StencilAnalysis, planes_loops=frozenset(),
     horizontal offset, a field they write, a column kernel for the other
     serial loops, and after each run of consecutive column loops their
     fused column kernel (``fuse_loops`` not False), which replaces the
-    per-loop ones but for K4.  A decline is recorded in ``declined``
-    (``tiles=True`` / ``fuse_loops=True`` raise instead)."""
+    per-loop ones but for K4.  Where a run follows a loop of
+    ``planes_loops`` (a serialized PARALLEL loop) and ``sweep`` is True,
+    their sweep kernel (``_plan_sweep``) follows the fused one and
+    replaces it and the plane kernel but under K4 and where a call's
+    sections overlap; otherwise ``declined["sweep"]`` names why the sweep
+    form declines, or that it was not asked for.  A decline is recorded
+    in ``declined`` (``tiles=True`` / ``fuse_loops=True`` / ``sweep=True``
+    raise instead)."""
     st = analysis.stencil
     declined = {} if declined is None else declined
     plans: List[KernelPlan] = []
     sec_id = 0
     plane_temps = None
+    #: plans of the serialized PARALLEL loops (by index in ``plans``)
+    serial_planes: set = set()
     touching = _touching_sections(st)
     #: consecutive column loops: (plans index, loop sections) of the run
     run: List[Tuple[int, list]] = []
@@ -1185,6 +1451,8 @@ def plan_kernels(analysis: StencilAnalysis, planes_loops=frozenset(),
                                     sections=secs,
                                     planes=_plan_planes(analysis, loop.loop_order, secs,
                                                         plane_temps)))
+            if li in planes_loops:
+                serial_planes.add(len(plans) - 1)
         else:
             plans.append(KernelPlan(name="", form="columns", order=loop.loop_order,
                                     sections=secs))
@@ -1198,9 +1466,10 @@ def plan_kernels(analysis: StencilAnalysis, planes_loops=frozenset(),
             run.append((len(plans) - 1, secs))
     if run:
         groups.append(run)
+    swept = 0
     if fuse_loops is not False:
         # each run's fused kernel goes right after its last loop (a run's
-        # loops are consecutive plans)
+        # loops are consecutive plans), and its sweep kernel after that
         last = {g[-1][0]: g for g in groups}
         fused_plans: List[KernelPlan] = []
         for n, p in enumerate(plans):
@@ -1209,13 +1478,41 @@ def plan_kernels(analysis: StencilAnalysis, planes_loops=frozenset(),
                 loops = [(plans[m].order, secs) for m, secs in last[n]]
                 for q in fused_plans[-len(loops):]:
                     q.k4_only = True
+                fused = KernelPlan(name="", form="column", order=loops[0][0],
+                                   sections=[sec for _, secs in loops for sec in secs],
+                                   group=ColumnGroup(loops=loops))
+                fused_plans.append(fused)
+                before = last[n][0][0] - 1
+                if before not in serial_planes:
+                    continue
+                plane = plans[before]
+                try:
+                    sp, pp = _plan_sweep(analysis, plane, loops, plane_temps)
+                except _Decline as e:
+                    if sweep:
+                        raise _Forced(f"cuda backend: sweep=True, but {e}") from None
+                    declined.setdefault("sweep", str(e))
+                    continue
+                if not sweep:
+                    declined.setdefault("sweep", SWEEP_OPT_IN)
+                    continue
                 fused_plans.append(KernelPlan(
-                    name="", form="column", order=loops[0][0],
-                    sections=[sec for _, secs in loops for sec in secs],
-                    group=ColumnGroup(loops=loops)))
+                    name="", form="sweep", order=plane.order,
+                    sections=plane.sections + fused.sections, planes=pp,
+                    group=ColumnGroup(loops=loops), sweep=sp))
+                swept += 1
         plans = fused_plans
+    if sweep and not swept:
+        raise _Forced("cuda backend: sweep=True, but no serialized PARALLEL loop is followed "
+                      "by serial loops that fuse")
     for n, p in enumerate(plans):
-        p.name = f"{st.name}_k{n}" + {"tile": "_tile", "column": "_col"}.get(p.form, "")
+        if p.sweep is not None:
+            # the sweep replaces the plane kernel before the run and the
+            # run's fused kernel before it
+            plans[n - 1].swept_by = n
+            plans[n - 2 - len(p.group.loops)].swept_by = n
+        p.name = f"{st.name}_k{n}" + {"tile": "_tile", "column": "_col",
+                                       "sweep": "_sweep"}.get(p.form, "")
         rect = Extent.zeros()
         for _, stmts in p.sections:
             for s in stmts:
@@ -1235,19 +1532,30 @@ def plan_kernels(analysis: StencilAnalysis, planes_loops=frozenset(),
 
 
 def plan_stencil(analysis: StencilAnalysis, serialize: Optional[bool] = None,
-                 tiles: Optional[bool] = None, fuse_loops: Optional[bool] = None):
+                 tiles: Optional[bool] = None, fuse_loops: Optional[bool] = None,
+                 sweep: Optional[bool] = None):
     """``(analysis planned, kernels, serialized, declined)``.  A mixed
-    stencil (``serialize=None``), or any stencil with a PARALLEL loop
-    (``serialize=True``), runs serialized with its PARALLEL loops in the
-    plane-sweep form (K5); where that declines, ``serialize=None`` keeps
-    the split plan (tile or row kernels plus columns) and records why,
-    ``serialize=True`` raises.  ``serialize=False`` never serializes.
+    stencil (``serialize=None``, where ``SERIALIZE_MIXED`` says), or any
+    stencil with a PARALLEL loop (``serialize=True``), runs serialized with
+    its PARALLEL loops in the plane-sweep form (K5); where serialization
+    declines, ``serialize=None`` keeps the split plan (tile or row kernels
+    plus columns) and records why, ``serialize=True`` raises; a stencil
+    without a PARALLEL loop has nothing to serialize.  ``serialize=False``
+    never serializes.  ``sweep=True`` serializes a mixed stencil and runs
+    each serialized PARALLEL loop and the serial loops after it as one
+    sweep kernel, or raises naming why it cannot (a stencil that is not
+    mixed it leaves as it is, so that a model may pass it to all its
+    stencils).
     ``tiles`` and ``fuse_loops``: see ``plan_kernels``."""
     st = analysis.stencil
     orders = [loop.loop_order for loop in st.vertical_loops]
     mixed = ir.LoopOrder.PARALLEL in orders and len(set(orders)) > 1
     declined: Dict[str, str] = {}
-    if serialize or (serialize is None and mixed):
+    if sweep and serialize is False:
+        raise _Forced("cuda backend: sweep=True runs the serialized loops: not with "
+                      "serialize=False")
+    parallel = ir.LoopOrder.PARALLEL in orders
+    if (serialize and parallel) or (serialize is None and mixed and (sweep or SERIALIZE_MIXED)):
         ser = passes.serialize_parallel_k(st)
         try:
             if ser is None:
@@ -1256,12 +1564,15 @@ def plan_stencil(analysis: StencilAnalysis, serialize: Optional[bool] = None,
                                "loop writes)")
             san = analyze(ser)
             loops = frozenset(n for n, o in enumerate(orders) if o == ir.LoopOrder.PARALLEL)
-            plans = plan_kernels(san, loops, fuse_loops=fuse_loops, declined=declined)
+            plans = plan_kernels(san, loops, fuse_loops=fuse_loops, declined=declined,
+                                 sweep=sweep)
             return san, plans, True, declined
         except _Decline as e:
-            if serialize or isinstance(e, _Forced):
+            if serialize or sweep or isinstance(e, _Forced):
                 raise
             declined["serialize"] = str(e)
+    elif serialize is None and mixed:
+        declined["serialize"] = SPLIT_MIXED
     return analysis, plan_kernels(analysis, tiles=tiles, fuse_loops=fuse_loops,
                                   declined=declined), False, declined
 
@@ -1419,13 +1730,22 @@ class _Emitter:
         self.window: Optional[WindowPlan] = None
         #: the row form's vector kernel being emitted: its lane is ``l_``
         self.vec: Optional[VectorPlan] = None
-        #: the tile form's staged inputs: (name, K offset) -> (extent, pitch)
-        self.tin: Dict[Tuple[str, int], Tuple[Extent, int]] = {}
+        #: the tile form's staged inputs: (name, K offset) -> (extent, pitch,
+        #: elements a 16-byte copy moves)
+        self.tin: Dict[Tuple[str, int], Tuple[Extent, int, int]] = {}
         #: the fused column kernel: its group, the index of the loop being
         #: emitted, and the current section's prefetched reads -> register
         self.col: Optional[ColumnGroup] = None
         self.col_loop = 0
         self.pf: Dict[Tuple[str, int, int, int], str] = {}
+        #: the block-stride loops' threads (a sweep kernel's differ)
+        self.threads = PLANE_THREADS
+        #: the sweep kernel: field -> depth of its shared ring of levels,
+        #: the ring's columns (threads), and its plane part's sections
+        self.ring: Dict[str, int] = {}
+        self.ring_cols = 0
+        self.ring_tile: Tuple[int, int] = (0, 0)
+        self.plane_secs: List[int] = []
 
     # ---------------- expressions ---------------- #
 
@@ -1469,14 +1789,15 @@ class _Emitter:
             return None
         off = acc.offset
         if (acc.name, off.k) in self.tin:
-            e, pitch = self.tin[(acc.name, off.k)]
+            e, pitch, lanes = self.tin[(acc.name, off.k)]
             at = self.stmt_ext
             if not (e.i[0] <= at.i[0] + off.i and at.i[1] + off.i <= e.i[1]
                     and e.j[0] <= at.j[0] + off.j and at.j[1] + off.j <= e.j[1]):
                 raise RuntimeError(f"cuda backend: planning bug: '{acc.name}' read beyond "
                                    "its staged plane")
-            return (f"{_staged_var(acc.name, off.k)}[(ti + {off.i - e.i[0]}) * {pitch} + "
-                    f"(tj + {off.j - e.j[0]})]")
+            var = _staged_var(acc.name, off.k)
+            step = f"{var}_p" if lanes else pitch
+            return f"{var}[(ti + {off.i - e.i[0]}) * {step} + (tj + {off.j - e.j[0]})]"
         if self.window is None:
             return None
         for n, (name, ni, _, _, _, h) in enumerate(self.window.arrays):
@@ -1498,7 +1819,7 @@ class _Emitter:
             return False
         return acc.name in self.locals or self._shared(acc) is not None \
             or self._staged(acc) is not None or self._carried(acc) is not None \
-            or self._prefetched(acc) is not None
+            or self._prefetched(acc) is not None or self._ring(acc) is not None
 
     def _prefetched(self, acc: ir.FieldAccess) -> Optional[str]:
         """The register a fused column kernel loaded this read into one
@@ -1521,6 +1842,23 @@ class _Emitter:
             return f"c_{acc.name}" if k == 0 else f"p_{acc.name}"
         return f"m_{acc.name}[(long long)(k + {k}) * ms_{acc.name}]"
 
+    def _ring(self, acc: ir.FieldAccess) -> Optional[str]:
+        """A sweep kernel's column-part read of a field its plane part
+        writes: the shared ring's level (column ``ct_`` of the tile) where
+        the plane part computed that level, device memory elsewhere."""
+        if self.plane is not None or acc.name not in self.ring \
+                or not isinstance(acc.offset, ir.CartesianOffset):
+            return None
+        lev = f"k + {acc.offset.k}"
+        sh = f"sr_{acc.name}[gt::slot({lev}, {self.ring[acc.name]}) * {self.ring_cols} + ct_]"
+        dt = np.dtype(self.stencil.decl(acc.name).dtype)
+        glob = self.global_access(acc)
+        if dt in _HALF:
+            glob = f"{_HALF[dt][0]}({glob})"
+        done = " || ".join(f"({lev} >= kb.lo[{s}] && {lev} < kb.hi[{s}])"
+                           for s in self.plane_secs)
+        return f"(({done}) ? {sh} : {glob})"
+
     def _lane(self, acc: ir.FieldAccess) -> Optional[str]:
         """The register a vector kernel's lane ``l_`` reads or writes: its
         element of a written field's array, or of a read-only field's
@@ -1540,7 +1878,7 @@ class _Emitter:
         reg = self._prefetched(acc) or self._carried(acc)
         if reg is not None:
             return reg
-        lane = self._lane(acc)
+        lane = self._lane(acc) or self._ring(acc)
         if lane is not None:
             return lane
         if self._snapshot(acc):
@@ -1768,9 +2106,16 @@ class _Emitter:
             return [f"{ind}{sh} = {value};"]
         own = "if (own) " if self.own else ""
         store = f"{_HALF[tdt][1]}(v_)" if tdt in _HALF else "v_"
-        if sh is not None:
-            return [f"{ind}{{ const {_ctype(tdt)} v_ = {value}; {sh} = v_; "
-                    f"{own}{self.global_access(target)} = {store}; }}"]
+        ring = ""
+        if name in self.ring:
+            # a sweep kernel's ring holds the tile's own points
+            TI, TJ = self.ring_tile
+            ring = (f" if (ti >= 0 && ti < {TI} && tj >= 0 && tj < {TJ}) sr_{name}["
+                    f"gt::slot(k, {self.ring[name]}) * {self.ring_cols} + ti * {TJ} + tj] = v_;")
+        if sh is not None or ring:
+            sh = f" {sh} = v_;" if sh is not None else ""
+            return [f"{ind}{{ const {_ctype(tdt)} v_ = {value};{sh} "
+                    f"{own}{self.global_access(target)} = {store};{ring} }}"]
         if tdt in _HALF:
             value = f"{_HALF[tdt][1]}({value})"
         return [f"{ind}{own}{self.global_access(target)} = {value};"]
@@ -1830,6 +2175,9 @@ def _bytes_per_point(analysis: StencilAnalysis, plan: KernelPlan, locals_) -> in
 def _in_device_memory(p: KernelPlan, name: str, locals_) -> bool:
     """A kernel reaches ``name`` in device memory (not a register or, in
     the plane-sweep form, only a shared plane)."""
+    if p.sweep is not None and (name in p.planes.registers or (
+            name in p.planes.shared and name not in p.planes.mirrored)):
+        return False
     if p.group is not None:
         g = p.group
         return name not in locals_ and name not in g.carries and name not in g.columns
@@ -1998,11 +2346,17 @@ def _plan_group(analysis: StencilAnalysis, p: KernelPlan, locals_) -> None:
     ext = analysis.extents
     # a field another loop of the group writes is read at (0, 0) (the
     # fusion's condition): that loop ran before this one, or runs after it,
-    # in the same thread, so a read of the next level may go ahead
+    # in the same thread, so a read of the next level may go ahead.  A
+    # sweep kernel loads nothing ahead: with its first loop's loads held a
+    # level ahead (106 registers against 64) it took 1.02 ms against 0.78,
+    # and 1.13 with its later loops' too (114), at 512 x 512 x 80 float32
+    # on the H100 (PERF.md, K5)
     loop_writes = [_loop_rw(secs)[0] for _, secs in g.loops]
     for li, (_, secs) in enumerate(g.loops):
         for sid, stmts in secs:
             keys = g.prefetch.setdefault(sid, [])
+            if p.sweep is not None:
+                continue
             for s in stmts:
                 e = ext.stmt_extent(s)
                 if not isinstance(s, ir.Assign) or (e.i, e.j) != (p.rect.i, p.rect.j):
@@ -2062,7 +2416,7 @@ class CudaProgram:
         planes = [k.planes for k in self.kernels if k.form == "planes"]
         on_chip = [k.planes for k in self.kernels if k.planes]
         return {
-            "forms": [k.form for k in self.kernels if not k.k4_only],
+            "forms": [k.form for k in self.kernels if not k.k4_only and k.swept_by is None],
             "serialized": self.serialized,
             "kblocked": False,
             "tile": list(planes[0].tile) if planes else None,
@@ -2076,16 +2430,24 @@ class CudaProgram:
             "columns": [{"kernel": k.name, "loops": len(k.group.loops),
                          "carries": list(k.group.carries), "columns": list(k.group.columns),
                          "prefetch": sum(len(v) for v in k.group.prefetch.values())}
-                        for k in self.kernels if k.group],
+                        for k in self.kernels if k.group and k.swept_by is None],
+            "sweep": [k.sweep.record(k.name) for k in self.kernels if k.sweep],
             "declined": dict(self.declined),
         }
 
+    def vector_row_fields(self) -> set:
+        """The fields the vector row kernels reach."""
+        return {n for k in self.kernels if k.vector for n in k.vector.fields}
+
+    def staged_fields(self) -> set:
+        """The fields the tile and sweep kernels stage with 16-byte copies."""
+        return {name for k in self.kernels for staged in (k.tile, k.sweep) if staged
+                for name, _, _, _, lanes in staged.inputs if lanes}
+
     def vector_fields(self) -> set:
-        """The fields the vector row kernels and the tile kernels' 16-byte
-        copies reach."""
-        return {n for k in self.kernels if k.vector for n in k.vector.fields} | {
-            name for k in self.kernels if k.tile for name, _, _, _, lanes in k.tile.inputs
-            if lanes}
+        """The fields the vector row kernels and the 16-byte staging of the
+        tile and sweep kernels reach."""
+        return self.vector_row_fields() | self.staged_fields()
 
     def vector_width(self, names) -> int:
         """Elements a 16-byte word holds of the smallest of ``names``."""
@@ -2410,14 +2772,15 @@ def _k_loop(order: ir.LoopOrder, sid: int, ind: str) -> str:
     return f"{ind}for (int k = kb.lo[{sid}]; k < kb.hi[{sid}]; ++k) {{"
 
 
-def _tile_points(tile: Tuple[int, int], e: Extent, ind: str) -> List[str]:
+def _tile_points(tile: Tuple[int, int], e: Extent, ind: str,
+                 threads: int = PLANE_THREADS) -> List[str]:
     """A block-stride loop over the tile widened by ``e``: ``(ti, tj)``
     relative to the tile's origin ``(I0, J0)``, ``(i, j)`` in the domain;
     the tile's interior ends at ``(I1, J1)``."""
     TI, TJ = tile
     ni, nj = TI + e.i[1] - e.i[0], TJ + e.j[1] - e.j[0]
     return [
-        f"{ind}for (int p_ = (int)threadIdx.x; p_ < {ni * nj}; p_ += {PLANE_THREADS}) {{",
+        f"{ind}for (int p_ = (int)threadIdx.x; p_ < {ni * nj}; p_ += {threads}) {{",
         f"{ind}  const int ti = {e.i[0]} + p_ / {nj}, tj = {e.j[0]} + p_ % {nj};",
         f"{ind}  const int i = I0 + ti, j = J0 + tj;",
         f"{ind}  if (i >= I1 + {e.i[1]} || j >= J1 + {e.j[1]}) continue;",
@@ -2440,7 +2803,7 @@ def _plane_level(em: _Emitter, p: KernelPlan, sid: int) -> List[str]:
             if dt in _HALF:
                 load = f"{_HALF[dt][0]}({load})"
             ring = f"gt::slot(k, {depth}) * {plane} + " if depth > 1 else ""
-            out += _tile_points(pp.tile, e, "    ")
+            out += _tile_points(pp.tile, e, "    ", em.threads)
             out += [f"      sh_{name}[{ring}p_] = {load};", "    }"]
         out.append("    __syncthreads();")
     for stage in pp.stages[sid]:
@@ -2448,7 +2811,7 @@ def _plane_level(em: _Emitter, p: KernelPlan, sid: int) -> List[str]:
         for s in stage:
             rect = rect | pp.extent(em.analysis, s)
         rect = Extent(i=rect.i, j=rect.j)
-        out += _tile_points(pp.tile, rect, "    ")
+        out += _tile_points(pp.tile, rect, "    ", em.threads)
         if any(pp.extent(em.analysis, s) != Extent() and any(
                 _in_device_memory(p, w.name, ()) for w in _stmt_writes(s)) for s in stage):
             out.append("      const bool own = (I0 == 0 || ti >= 0) && (I1 == dI || i < I1)"
@@ -2505,15 +2868,153 @@ def _emit_planes(em: _Emitter, p: KernelPlan, params: List[str], bpp: int) -> Li
     return out + ["}"]
 
 
+def _emit_staging(em: _Emitter, tile: Tuple[int, int], inputs, ring: int,
+                  slot_bytes: int) -> List[str]:
+    """``stage_(k, s_)``: level k's staged inputs into slot s_ of the ring
+    at byte ``ring`` of the dynamic shared memory, and ``lead<n>_(k)`` (K6
+    on Hopper).  A row of a 16-byte staged input starts at the aligned-down
+    word of its first needed element, whatever the row's phase.  Its lead
+    (the elements before that element) is ``(l + r s) mod lanes`` for row
+    r, ``l = lead<n>_(k)`` from the address of the first row inside the
+    domain, ``s`` the row pitch in elements modulo ``lanes``; element j of
+    row r lies at ``r (pitch + s) + l + j - j0`` -- rows step by
+    ``pitch + s``, a shift the reads fold into their row stride and their
+    base pointer, so they index as the aligned layout did.  Each word goes
+    by one 16-byte ``cp.async`` where its elements are contiguous and
+    aligned and it lies inside the field's storage (``Field::holds16``);
+    the others -- a periodic tile's wrapped rows and words, a word that
+    would cross the allocation, a J axis that is not contiguous -- element
+    by element.  A converted input (16-bit storage) is loaded
+    synchronously."""
+    st = em.stencil
+    TI, TJ = tile
+    layout, _ = _staging_layout(st, tile, inputs)
+    out = []
+    for n, (name, dk, e, pitch, lanes) in enumerate(inputs):
+        if not lanes:
+            continue
+        acc = ir.FieldAccess(name)
+        at = em.global_access(acc, i="ia_", j="ja_", k=f"k + {dk}")
+        out += [f"  auto lead{n}_ = [&](int k) {{",
+                # anchored on the first row and element inside the domain: a
+                # periodic tile's rows and words stay aligned past its wrapped ones
+                f"    const int ia_ = I0 + {e.i[0]} < 0 ? 0 : I0 + {e.i[0]}, "
+                f"ja_ = J0 + {e.j[0]} < 0 ? 0 : J0 + {e.j[0]};",
+                f"    return (gt::lead16(&{at}) - (ia_ - I0 - {e.i[0]}) * {_staged_var(name, dk)}_s"
+                f" + (J0 + {e.j[0]} - ja_)) & {lanes - 1};",
+                "  };"]
+    out += ["  // level k's staged inputs into slot s_ of the ring",
+            "  auto stage_ = [&](int k, int s_) {",
+            f"    unsigned char* const r_ = gt_smem + {ring} + (size_t)s_ * {slot_bytes};"]
+    for n, ((name, dk, e, pitch, lanes), arr) in enumerate(zip(inputs, layout)):
+        dt = np.dtype(st.decl(name).dtype)
+        ct = _ctype(dt)
+        rows = TI + e.i[1] - e.i[0]
+        var = ("t_" if name in st.temp_decls else "f_") + name
+        sv = _staged_var(name, dk)
+
+        def gat(j: str, name=name) -> str:
+            return em.global_access(ir.FieldAccess(name), i="gi", j=j, k="gk")
+
+        out += ["    {", f"      {ct}* const w_ = ({ct}*)(r_ + {arr});"]
+        if lanes:
+            nch = pitch // lanes
+            out += [
+                f"      const int l_ = lead{n}_(k);",
+                f"      for (int p_ = (int)threadIdx.x; p_ < {rows * nch}; "
+                f"p_ += {em.threads}) {{",
+                f"        const int row_ = p_ / {nch}, c_ = (p_ % {nch}) * {lanes};",
+                f"        const int gi = I0 + {e.i[0]} + row_, gk = k + {dk};",
+                f"        if (gi >= I1 + {e.i[1]}) continue;",
+                # the row's lead plus its whole words of shift
+                f"        const int sh_ = l_ + row_ * {sv}_s;",
+                f"        const int gj = J0 + {e.j[0]} - (sh_ & {lanes - 1}) + c_;",
+                f"        if (gj >= J1 + {e.j[1]}) continue;",
+                f"        {ct}* const d_ = w_ + row_ * {pitch} + (sh_ & ~{lanes - 1}) + c_;",
+                f"        const {ct}* const a_ = &{gat('gj')};",
+                f"        if (&{gat(f'gj + {lanes - 1}')} == a_ + {lanes - 1} && "
+                f"(reinterpret_cast<size_t>(a_) & 15) == 0 && {var}.holds16(a_)) {{",
+                "          gt::async_copy<16>(d_, a_);",
+                "        } else {",
+                f"          for (int e_ = 0; e_ < {lanes}; ++e_)",
+                f"            if (gj + e_ >= J0 + {e.j[0]} && gj + e_ < J1 + {e.j[1]}) "
+                f"gt::async_copy<{dt.itemsize}>(d_ + e_, &{gat('gj + e_')});",
+                "        }",
+                "      }",
+            ]
+        else:
+            nj = TJ + e.j[1] - e.j[0]
+            load = gat("gj")
+            if dt in _HALF:
+                load = f"{_HALF[dt][0]}({load})"
+            out += [
+                f"      for (int p_ = (int)threadIdx.x; p_ < {rows * nj}; "
+                f"p_ += {em.threads}) {{",
+                f"        const int gi = I0 + {e.i[0]} + p_ / {nj}, "
+                f"gj = J0 + {e.j[0]} + p_ % {nj}, gk = k + {dk};",
+                f"        if (gi < I1 + {e.i[1]} && gj < J1 + {e.j[1]}) w_[p_] = {load};",
+                "      }",
+            ]
+        out.append("    }")
+    return out + ["  };"]
+
+
+def _staged_row_pitches(em: _Emitter, inputs, uniform: bool = False) -> List[str]:
+    """Each 16-byte staged input's row pitch in elements modulo its lanes
+    (``_s``: the step of its rows' leads) and its rows' stride in the
+    ring (``_p``); with ``uniform`` (a call whose staged rows are all on
+    one lead: row pitches of whole words) the constants 0 and ``pitch``,
+    so that the reads index as the constant-pitch layout does."""
+    st = em.stencil
+    out = []
+    for name, dk, _, pitch, lanes in inputs:
+        if lanes:
+            var = _staged_var(name, dk)
+            field = ("t_" if name in st.temp_decls else "f_") + name
+            step = "0" if uniform else f"(int)({field}.si & {lanes - 1})"
+            out += [f"  const int {var}_s = {step};",
+                    f"  const int {var}_p = {pitch} + {var}_s;"]
+    return out
+
+
+def _staged_pointers(em: _Emitter, tile: Tuple[int, int], inputs, ring: int,
+                     slot_bytes: int, ind: str) -> List[str]:
+    """The staged inputs of level k in slot ``s_``, each at its first row's
+    lead, as the emitter's ``_staged`` reads them."""
+    st = em.stencil
+    layout, _ = _staging_layout(st, tile, inputs)
+    out = []
+    for n, ((name, dk, _, _, lanes), arr) in enumerate(zip(inputs, layout)):
+        ct = _ctype(st.decl(name).dtype)
+        lead = f" + lead{n}_(k)" if lanes else ""
+        out.append(f"{ind}const {ct}* const {_staged_var(name, dk)} = (const {ct}*)(gt_smem + "
+                   f"{ring} + (size_t)s_ * {slot_bytes} + {arr}){lead};")
+    return out
+
+
 def _emit_tile(em: _Emitter, p: KernelPlan, params: List[str], bpp: int) -> List[str]:
-    """The tile kernel of one PARALLEL section (``TilePlan``): grid
+    """The tile kernel of one PARALLEL section (``TilePlan``), and where it
+    stages 16-byte rows its ``_u`` twin for calls whose staged rows all
+    share one lead (``_emit_tile_kernel``); ``gt_run`` launches one of the
+    two by the call's flag."""
+    out = _emit_tile_kernel(em, p, params, bpp, p.name, False)
+    if any(lanes for *_, lanes in p.tile.inputs):
+        out += _emit_tile_kernel(em, p, params, bpp, p.name + "_u", True)
+    return out
+
+
+def _emit_tile_kernel(em: _Emitter, p: KernelPlan, params: List[str], bpp: int, name: str,
+                      uniform: bool) -> List[str]:
+    """A tile kernel of one PARALLEL section (``TilePlan``): grid
     (J tiles, I tiles, K blocks of ``kz`` levels); each level runs the
     section's stages as the plane-sweep form runs a plane, its shared
     planes in slots reused by liveness.  The staged inputs of level k + 1
-    are copied (``cp.async``: 16 bytes where a word of the row is
-    contiguous and aligned on the 16-byte phase ``tph`` the wrapper
-    found, one element elsewhere, a synchronous load where the value is
-    converted) into one slot of a two-slot ring while level k computes."""
+    are copied into one slot of a two-slot ring while level k computes
+    (``_emit_staging``: 16-byte ``cp.async`` from each row's aligned-down
+    word, at any row phase).  ``uniform``: the twin for calls whose staged
+    rows share one lead, its rows' stride a constant (the general kernel's
+    register stride cost 5-13 % of device time on such calls on the H100,
+    PERF.md, K6)."""
     tp = p.tile
     pp = tp.planes
     TI, TJ = tp.tile
@@ -2527,12 +3028,13 @@ def _emit_tile(em: _Emitter, p: KernelPlan, params: List[str], bpp: int) -> List
     staged = [f"{n}@k{dk}" for n, dk, *_ in tp.inputs]
     out = [
         "",
-        f"// {p.name}: tile form (PARALLEL section {sid}), tile {TI}x{TJ}, {tp.kz} levels a CTA, "
+        f"// {name}: tile form (PARALLEL section {sid}), tile {TI}x{TJ}, {tp.kz} levels a CTA, "
         f"{PLANE_THREADS} threads; shared {sorted(pp.shared)} in {len(tp.slot_bytes)} slots, "
-        f"mirrored {sorted(pp.mirrored)}, registers {pp.registers}, staged {staged}, "
-        f"{tp.smem_bytes} shared bytes; ~{bpp} bytes per grid point",
-        f"__global__ void __launch_bounds__({PLANE_THREADS}) {p.name}(",
-        "    " + ",\n    ".join(params + ["int tph"]) + ") {",
+        f"mirrored {sorted(pp.mirrored)}, registers {pp.registers}, staged {staged}"
+        f"{' (rows on one lead)' if uniform else ''}, {tp.smem_bytes} shared bytes; ~{bpp} "
+        "bytes per grid point",
+        f"__global__ void __launch_bounds__({PLANE_THREADS}) {name}(",
+        "    " + ",\n    ".join(params) + ") {",
         "  GT_DYNAMIC_SMEM(gt_smem);",
     ]
     offs, at = [], 0
@@ -2546,64 +3048,11 @@ def _emit_tile(em: _Emitter, p: KernelPlan, params: List[str], bpp: int) -> List
     out += _tile_origin(TI, TJ) + [
         f"  const int k0_ = kb.lo[{sid}] + (int)blockIdx.z * {tp.kz};",
         f"  const int k1_ = k0_ + {tp.kz} < kb.hi[{sid}] ? k0_ + {tp.kz} : kb.hi[{sid}];",
-        "  (void)tph;",
     ]
-    ioffs, at = [], 0
-    for name, dk, e, pitch, lanes in tp.inputs:
-        ioffs.append(at)
-        at += _align16((TI + e.i[1] - e.i[0]) * pitch * _value_size(st.decl(name).dtype))
     if tp.inputs:
-        for n, (name, dk, e, pitch, lanes) in enumerate(tp.inputs):
-            out.append(f"  const int ld{n}_ = tph >= 0 ? ((J0 + {e.j[0]} - tph) % {lanes} + "
-                       f"{lanes}) % {lanes} : 0;" if lanes else f"  const int ld{n}_ = 0;")
-        out += ["  // level k's staged inputs into slot s_ of the ring",
-                "  auto stage_ = [&](int k, int s_) {",
-                f"    unsigned char* const r_ = gt_smem + {ring} + (size_t)s_ * {tp.input_bytes};"]
-        for n, (name, dk, e, pitch, lanes) in enumerate(tp.inputs):
-            dt = np.dtype(st.decl(name).dtype)
-            ct = _ctype(dt)
-            rows = TI + e.i[1] - e.i[0]
-
-            def gat(j: str, name=name) -> str:
-                return em.global_access(ir.FieldAccess(name), i="gi", j=j, k="gk")
-
-            out += ["    {", f"      {ct}* const w_ = ({ct}*)(r_ + {ioffs[n]});"]
-            if lanes:
-                nch = pitch // lanes
-                out += [
-                    f"      for (int p_ = (int)threadIdx.x; p_ < {rows * nch}; "
-                    f"p_ += {PLANE_THREADS}) {{",
-                    f"        const int row_ = p_ / {nch}, c_ = (p_ % {nch}) * {lanes};",
-                    f"        const int gi = I0 + {e.i[0]} + row_, "
-                    f"gj = J0 + {e.j[0]} - ld{n}_ + c_, gk = k + {dk};",
-                    f"        if (gi >= I1 + {e.i[1]} || gj >= J1 + {e.j[1]}) continue;",
-                    f"        {ct}* const d_ = w_ + row_ * {pitch} + c_;",
-                    f"        const {ct}* const a_ = &{gat('gj')};",
-                    f"        if (tph >= 0 && &{gat(f'gj + {lanes - 1}')} == a_ + {lanes - 1} && "
-                    "(reinterpret_cast<size_t>(a_) & 15) == 0) {",
-                    "          gt::async_copy<16>(d_, a_);",
-                    "        } else {",
-                    f"          for (int e_ = 0; e_ < {lanes}; ++e_)",
-                    f"            if (gj + e_ >= J0 + {e.j[0]} && gj + e_ < J1 + {e.j[1]}) "
-                    f"gt::async_copy<{dt.itemsize}>(d_ + e_, &{gat('gj + e_')});",
-                    "        }",
-                    "      }",
-                ]
-            else:
-                nj = TJ + e.j[1] - e.j[0]
-                load = gat("gj")
-                if dt in _HALF:
-                    load = f"{_HALF[dt][0]}({load})"
-                out += [
-                    f"      for (int p_ = (int)threadIdx.x; p_ < {rows * nj}; "
-                    f"p_ += {PLANE_THREADS}) {{",
-                    f"        const int gi = I0 + {e.i[0]} + p_ / {nj}, "
-                    f"gj = J0 + {e.j[0]} + p_ % {nj}, gk = k + {dk};",
-                    f"        if (gi < I1 + {e.i[1]} && gj < J1 + {e.j[1]}) w_[p_] = {load};",
-                    "      }",
-                ]
-            out.append("    }")
-        out += ["  };", "  if (k0_ < k1_) stage_(k0_, 0);", "  gt::async_commit();"]
+        out += _staged_row_pitches(em, tp.inputs, uniform)
+        out += _emit_staging(em, tp.tile, tp.inputs, ring, tp.input_bytes)
+        out += ["  if (k0_ < k1_) stage_(k0_, 0);", "  gt::async_commit();"]
     out.append("  for (int k = k0_; k < k1_; ++k) {")
     if tp.inputs:
         out += ["    const int s_ = (k - k0_) & 1;",
@@ -2611,15 +3060,96 @@ def _emit_tile(em: _Emitter, p: KernelPlan, params: List[str], bpp: int) -> List
                 "    gt::async_commit();",
                 "    gt::async_wait<1>();",
                 "    __syncthreads();"]
-        for n, (name, dk, e, pitch, lanes) in enumerate(tp.inputs):
-            ct = _ctype(st.decl(name).dtype)
-            out.append(f"    const {ct}* const {_staged_var(name, dk)} = (const {ct}*)(gt_smem + "
-                       f"{ring} + (size_t)s_ * {tp.input_bytes} + {ioffs[n]}) + ld{n}_;")
-    em.tin = {(name, dk): (e, pitch) for name, dk, e, pitch, _ in tp.inputs}
+        out += _staged_pointers(em, tp.tile, tp.inputs, ring, tp.input_bytes, "    ")
+    em.tin = {(name, dk): (e, pitch, lanes) for name, dk, e, pitch, lanes in tp.inputs}
     out += _plane_level(em, p, sid)
     em.tin = {}
     em.plane = None
     return out + ["  }", "}"]
+
+
+def _column_heads(em: _Emitter, g: ColumnGroup, i: str, j: str, ind: str) -> List[str]:
+    """A fused column kernel's whole-column stores (``m_``, stride
+    ``ms_``) at column (i, j), and its carried registers, zeroed."""
+    st = em.stencil
+    out = []
+    for t in g.columns:
+        ct = _ctype(st.temp_decls[t].dtype)
+        out += [f"{ind}{ct}* const m_{t} = &t_{t}.at({i}, {j}, 0);",
+                f"{ind}const long long ms_{t} = t_{t}.sk;"]
+    for t in g.carries + g.columns:
+        ct = _ctype(st.temp_decls[t].dtype)
+        out.append(f"{ind}{ct} c_{t} = ({ct})0, p_{t} = ({ct})0;")
+    return out
+
+
+def _column_level(em: _Emitter, g: ColumnGroup, li: int, stmts, r: Extent, step: int,
+                  ind: str) -> List[str]:
+    """One level k of a section of loop ``li`` of a fused column kernel:
+    its carries moved on (``p_`` the level before in the sweep, zero where
+    the loop did not sweep it), its statements, its whole-column stores,
+    ``kl_`` set to k."""
+    st = em.stencil
+    out = []
+    mine = [t for t, w in g.writer.items() if w == li]
+    for t in mine:
+        if any(isinstance(x, ir.FieldAccess) and x.name == t and x.offset.k
+               for s in stmts for x in ir.walk_values(s)):
+            ct = _ctype(st.temp_decls[t].dtype)
+            out.append(f"{ind}p_{t} = kl_ == k - {step} ? c_{t} : ({ct})0;")
+        out.append(f"{ind}c_{t} = ({_ctype(st.temp_decls[t].dtype)})0;")
+    out += em.registers(stmts, ind)
+    for s in stmts:
+        out += em.guarded(s, r, ind)
+    for t in mine:
+        if t in g.columns:
+            out.append(f"{ind}m_{t}[(long long)k * ms_{t}] = c_{t};")
+    return out + [f"{ind}kl_ = k;"]
+
+
+def _column_loop(em: _Emitter, g: ColumnGroup, li: int, r: Extent) -> List[str]:
+    """Loop ``li`` of a fused column kernel, each section a K loop that
+    loads the inputs its unconditional statements read one level ahead,
+    into registers, before the level's arithmetic."""
+    st = em.stencil
+    order, secs = g.loops[li]
+    em.col_loop = li
+    fwd = order == ir.LoopOrder.FORWARD
+    step = 1 if fwd else -1
+    ind = "      "
+    out = ["  {", f"    int kl_ = {'-2147483647' if fwd else '2147483646'};", "    (void)kl_;"]
+    for sid, stmts in secs:
+        keys = g.prefetch.get(sid, [])
+        em.pf = {}
+        lo, hi = f"kb.lo[{sid}]", f"kb.hi[{sid}]"
+        first = lo if fwd else f"{hi} - 1"
+        loads = []
+        for n, (name, oi, oj, ok) in enumerate(keys):
+            dt = np.dtype(st.decl(name).dtype)
+            acc = ir.FieldAccess(name, offset=ir.CartesianOffset(oi, oj, ok))
+            load = f"m_{name}[(long long)(k_ + {ok}) * ms_{name}]" if name in g.columns \
+                else em.global_access(acc, k="k_")
+            if dt in _HALF and name not in g.columns:
+                load = f"{_HALF[dt][0]}({load})"
+            loads.append((n, _ctype(dt), load))
+        out.append("    {")
+        for n, ct, load in loads:
+            out.append(f"      {ct} n{n}_ = ({ct})0;")
+        if loads:
+            out.append(f"      if ({lo} < {hi}) {{ const int k_ = {first}; "
+                       + " ".join(f"n{n}_ = {ld};" for n, _, ld in loads) + " }")
+        out.append("  " + _k_loop(order, sid, "    "))
+        for n, ct, _ in loads:
+            out.append(f"{ind}const {ct} v{n}_ = n{n}_;")
+            em.pf[keys[n]] = f"v{n}_"
+        if loads:
+            nxt = f"k + {step}"
+            out.append(f"{ind}if ({nxt} >= {lo} && {nxt} < {hi}) {{ const int k_ = {nxt}; "
+                       + " ".join(f"n{n}_ = {ld};" for n, _, ld in loads) + " }")
+        out += _column_level(em, g, li, stmts, r, step, ind)
+        out += ["    }", "    }"]
+        em.pf = {}
+    return out + ["  }"]
 
 
 def _emit_column_group(em: _Emitter, p: KernelPlan, params: List[str], bpp: int) -> List[str]:
@@ -2628,11 +3158,8 @@ def _emit_column_group(em: _Emitter, p: KernelPlan, params: List[str], bpp: int)
     ``threadIdx.x``.  A carried temporary is two registers, the level's
     (``c_``) and the one before in the sweep (``p_``, zero where that
     level was not swept); a whole-column one is also stored at every
-    level its loop sweeps, into its device-memory scratch.  Each section
-    loads the inputs its unconditional statements read one level ahead,
-    into registers, before the level's arithmetic."""
+    level its loop sweeps, into its device-memory scratch."""
     g = p.group
-    st = em.stencil
     r = p.rect
     out = [
         "",
@@ -2645,64 +3172,136 @@ def _emit_column_group(em: _Emitter, p: KernelPlan, params: List[str], bpp: int)
         f"  const int i = {r.i[0]} + (int)blockIdx.y;",
         f"  if (i >= dI + {r.i[1]} || j >= dJ + {r.j[1]}) return;",
     ]
-    for t in g.columns:
-        ct = _ctype(st.temp_decls[t].dtype)
-        out += [f"  {ct}* const m_{t} = &t_{t}.at(i, j, 0);",
-                f"  const long long ms_{t} = t_{t}.sk;"]
-    for t in g.carries + g.columns:
-        ct = _ctype(st.temp_decls[t].dtype)
-        out.append(f"  {ct} c_{t} = ({ct})0, p_{t} = ({ct})0;")
+    out += _column_heads(em, g, "i", "j", "  ")
     em.col = g
-    ind = "      "
-    for li, (order, secs) in enumerate(g.loops):
-        em.col_loop = li
-        mine = [t for t, w in g.writer.items() if w == li]
-        fwd = order == ir.LoopOrder.FORWARD
-        step = 1 if fwd else -1
-        out += ["  {", f"    int kl_ = {'-2147483647' if fwd else '2147483646'};",
-                "    (void)kl_;"]
-        for sid, stmts in secs:
-            keys = g.prefetch.get(sid, [])
-            em.pf = {}
-            lo, hi = f"kb.lo[{sid}]", f"kb.hi[{sid}]"
-            first = lo if fwd else f"{hi} - 1"
-            loads = []
-            for n, (name, oi, oj, ok) in enumerate(keys):
-                dt = np.dtype(st.decl(name).dtype)
-                acc = ir.FieldAccess(name, offset=ir.CartesianOffset(oi, oj, ok))
-                load = f"m_{name}[(long long)(k_ + {ok}) * ms_{name}]" if name in g.columns \
-                    else em.global_access(acc, k="k_")
-                if dt in _HALF and name not in g.columns:
-                    load = f"{_HALF[dt][0]}({load})"
-                loads.append((n, _ctype(dt), load))
-            out.append("    {")
-            for n, ct, load in loads:
-                out.append(f"      {ct} n{n}_ = ({ct})0;")
-            if loads:
-                out.append(f"      if ({lo} < {hi}) {{ const int k_ = {first}; "
-                           + " ".join(f"n{n}_ = {ld};" for n, _, ld in loads) + " }")
-            out.append("  " + _k_loop(order, sid, "    "))
-            for n, ct, _ in loads:
-                out.append(f"{ind}const {ct} v{n}_ = n{n}_;")
-                em.pf[keys[n]] = f"v{n}_"
-            if loads:
-                nxt = f"k + {step}"
-                out.append(f"{ind}if ({nxt} >= {lo} && {nxt} < {hi}) {{ const int k_ = {nxt}; "
-                           + " ".join(f"n{n}_ = {ld};" for n, _, ld in loads) + " }")
-            for t in mine:
-                if any(isinstance(x, ir.FieldAccess) and x.name == t and x.offset.k
-                       for s in stmts for x in ir.walk_values(s)):
-                    ct = _ctype(st.temp_decls[t].dtype)
-                    out.append(f"{ind}p_{t} = kl_ == k - {step} ? c_{t} : ({ct})0;")
-                out.append(f"{ind}c_{t} = ({_ctype(st.temp_decls[t].dtype)})0;")
-            out += em.registers(stmts, ind)
-            for s in stmts:
-                out += em.guarded(s, r, ind)
-            for t in mine:
-                if t in g.columns:
-                    out.append(f"{ind}m_{t}[(long long)k * ms_{t}] = c_{t};")
-            out += [f"{ind}kl_ = k;", "    }", "    }"]
-            em.pf = {}
+    for li in range(len(g.loops)):
+        out += _column_loop(em, g, li, r)
+    em.col = None
+    return out + ["}"]
+
+
+def _emit_sweep(em: _Emitter, p: KernelPlan, params: List[str], bpp: int) -> List[str]:
+    """The sweep kernel (``SweepPlan``) of a serialized PARALLEL loop and
+    the serial loops after it: one CTA of TI TJ threads per tile, thread
+    t owning column (I0 + t / TJ, J0 + t % TJ).  Step k_ of the sweep runs
+    the plane part at level k_ + lead (its stages over the tile as the
+    plane-sweep form runs a plane, its inputs staged a level ahead), then
+    the first column loop's sections at level k_ in each thread's column
+    (its carries in registers, its whole-column temporaries stored once a
+    level), reading what the plane part wrote at its own points from the
+    shared ring; the later loops run after the sweep, as the fused column
+    kernel runs them.  The sweep's steps span every level either part
+    sweeps; ``gt_run`` launches it only where each loop's sections are
+    ordered along K (``CudaBackend._launch``)."""
+    sp = p.sweep
+    pp = p.planes
+    g = p.group
+    TI, TJ = sp.tile
+    T = sp.threads
+    st = em.stencil
+    locals_ = em.locals
+    psecs = sp.plane_secs
+    csecs = g.loops[0][1]
+    staged = [f"{n}@k{dk}" for n, dk, *_ in sp.inputs]
+    out = [
+        "",
+        f"// {p.name}: sweep form (the serialized PARALLEL loop {psecs} and "
+        f"{' + '.join(o.name for o, _ in g.loops)}), tile {TI}x{TJ}, {T} threads, a column "
+        f"each; plane part {sp.lead} levels ahead, ring {sp.ring}, shared {sorted(pp.shared)} "
+        f"in {len(sp.slot_bytes)} slots, staged {staged}; carried {g.carries}, whole-column "
+        f"{g.columns}; {sp.smem_bytes} shared bytes; ~{bpp} bytes per grid point",
+        f"__global__ void __launch_bounds__({T}) {p.name}(",
+        "    " + ",\n    ".join(params) + ") {",
+        "  GT_DYNAMIC_SMEM(gt_smem);",
+    ]
+    offs, at = [], 0
+    for b in sp.slot_bytes:
+        offs.append(at)
+        at += b
+    for name in pp.shared:
+        ct = _ctype(st.decl(name).dtype)
+        out.append(f"  {ct}* const sh_{name} = ({ct}*)(gt_smem + {offs[sp.slot[name]]});")
+    for name, depth in sp.ring.items():
+        ct = _ctype(st.decl(name).dtype)
+        out.append(f"  {ct}* const sr_{name} = ({ct}*)(gt_smem + {at});")
+        at += _align16(depth * T * _value_size(st.decl(name).dtype))
+    ring = at
+    out += _tile_origin(TI, TJ) + [
+        "  const int ct_ = (int)threadIdx.x;",
+        f"  const int ci_ = I0 + ct_ / {TJ}, cj_ = J0 + ct_ % {TJ};",
+        "  const bool col_ = ci_ < I1 && cj_ < J1;",
+        "  (void)ct_; (void)col_;",
+    ]
+    out += _column_heads(em, g, "ci_", "cj_", "  ")
+    fwd = p.order == ir.LoopOrder.FORWARD
+    out += [f"  int kl_ = {'-2147483647' if fwd else '2147483646'};", "  (void)kl_;",
+            "  // the steps: every level the plane part sweeps, less its lead, and every "
+            "level the first column loop sweeps",
+            "  int ks_ = 2147483647, ke_ = -2147483647;"]
+    for sid, lead in [(sid, sp.lead) for sid in psecs] + [(sid, 0) for sid, _ in csecs]:
+        lo, hi = f"kb.lo[{sid}] - {lead}", f"kb.hi[{sid}] - {lead}"
+        out.append(f"  if (kb.lo[{sid}] < kb.hi[{sid}]) {{ if ({lo} < ks_) ks_ = {lo}; "
+                   f"if ({hi} > ke_) ke_ = {hi}; }}")
+    em.threads = T
+    if sp.inputs:
+        (sid0,) = psecs
+        out += _staged_row_pitches(em, sp.inputs)
+        out += _emit_staging(em, sp.tile, sp.inputs, ring, sp.input_bytes)
+        out += [f"  if (kb.lo[{sid0}] < kb.hi[{sid0}]) stage_(kb.lo[{sid0}], 0);",
+                "  gt::async_commit();"]
+    live = " || ".join(f"(k >= kb.lo[{sid}] && k < kb.hi[{sid}])" for sid in psecs)
+    out += ["  for (int k_ = ks_; k_ < ke_; ++k_) {",
+            "    {",
+            f"      const int k = k_ + {sp.lead};",
+            f"      if ({live}) {{"]
+    body = []
+    if sp.inputs:
+        body += [f"    const int s_ = (k - kb.lo[{sid0}]) & 1;",
+                 f"    if (k + 1 < kb.hi[{sid0}]) stage_(k + 1, s_ ^ 1);",
+                 "    gt::async_commit();",
+                 "    gt::async_wait<1>();",
+                 "    __syncthreads();"]
+        body += _staged_pointers(em, sp.tile, sp.inputs, ring, sp.input_bytes, "    ")
+    em.plane = pp
+    em.locals = set(pp.registers)
+    em.plane_order = p.order
+    em.done_secs = []
+    em.ring = dict(sp.ring)
+    em.ring_cols = T
+    em.ring_tile = sp.tile
+    em.tin = {(name, dk): (e, pitch, lanes) for name, dk, e, pitch, lanes in sp.inputs}
+    for sid in psecs:
+        em.sid = sid
+        lines = _plane_level(em, p, sid)
+        if len(psecs) > 1:
+            lines = [f"    if (k >= kb.lo[{sid}] && k < kb.hi[{sid}]) {{"] + \
+                ["  " + ln for ln in lines] + ["    }"]
+        body += lines
+        em.done_secs.append(sid)
+    em.tin = {}
+    em.plane = None
+    em.locals = locals_
+    em.threads = PLANE_THREADS
+    out += ["    " + ln for ln in body]
+    out += ["      }", "    }"]
+    # the first column loop at level k_, in the thread's column
+    em.col = g
+    em.col_loop = 0
+    em.plane_secs = psecs
+    step = 1 if fwd else -1
+    out += ["    if (col_) {",
+            "      const int i = ci_, j = cj_, k = k_;"]
+    for sid, stmts in csecs:
+        out.append(f"      if (k >= kb.lo[{sid}] && k < kb.hi[{sid}]) {{")
+        out += _column_level(em, g, 0, stmts, Extent(), step, "        ")
+        out.append("      }")
+    out += ["    }", "    __syncthreads();", "  }"]
+    em.ring = {}
+    # the later loops, in the thread's column, after the sweep
+    if len(g.loops) > 1:
+        out += ["  if (col_) {", "  const int i = ci_, j = cj_;"]
+        for li in range(1, len(g.loops)):
+            out += _column_loop(em, g, li, Extent())
         out.append("  }")
     em.col = None
     return out + ["}"]
@@ -2723,6 +3322,29 @@ def _emit_snapshot(name: str, kernel: str, ctype: str) -> List[str]:
     ]
 
 
+def _snapshot_copies(p: KernelPlan, args: List[str], snapshots) -> List[str]:
+    """gt_run's copies of the fields a plane-sweep or sweep kernel reads
+    ahead, into their snapshots, before the kernel."""
+    out = []
+    for n in p.planes.snapshots:
+        kernel, src, e = snapshots[n]
+        out += [
+            "  {",
+            f"    const int ni = dI + {e.i[1] - e.i[0]}, nj = dJ + {e.j[1] - e.j[0]};",
+            "    if (ni > 0 && nj > 0) {",
+            f"      const dim3 grid((nj + {BLOCK_J - 1}) / {BLOCK_J}, "
+            f"(ni + {BLOCK_I - 1}) / {BLOCK_I}), block({BLOCK_J}, {BLOCK_I});",
+            f"      {kernel}<<<grid, block, 0, st>>>(o_{n}, {src}, {e.i[0]}, dI + {e.i[1]}, "
+            f"{e.j[0]}, dJ + {e.j[1]});",
+            "      ++gt_launches_;",
+            "      const cudaError_t e = cudaGetLastError();",
+            "      if (e != cudaSuccess) return (int)e;",
+            "    }",
+            "  }",
+        ]
+    return out
+
+
 def _launch_lines(p: KernelPlan, index: int, args: List[str], nsec: int,
                   snapshots: Dict[str, Tuple[str, str, Extent]] = None) -> List[str]:
     """gt_run's launch of one kernel (K4's variant when the kernel has a
@@ -2741,6 +3363,28 @@ def _launch_lines(p: KernelPlan, index: int, args: List[str], nsec: int,
                 f"{ind}  if (a != cudaSuccess) return (int)a;",
                 f"{ind}}}"]
 
+    if p.swept_by is not None:
+        # replaced by the sweep kernel but under K4 (the plane kernel) and
+        # where a call's sections are not ordered along K
+        cond = f"kmode || !vec[{p.swept_by}]" if p.group is None else f"!kmode && !vec[{p.swept_by}]"
+        lines = _launch_lines(replace(p, swept_by=None), index, args, nsec, snapshots)
+        if p.group is not None:
+            lines = lines[1:-1]  # its own "if (!kmode)" block
+        return [f"  if ({cond}) {{", *lines, "  }"]
+    if p.sweep is not None:
+        TI, TJ = p.sweep.tile
+        return _snapshot_copies(p, args, snapshots) + [
+            f"  if (!kmode && vec[{index}]) {{",
+            f"    const dim3 grid((dJ + {TJ - 1}) / {TJ}, (dI + {TI - 1}) / {TI}), "
+            f"block({p.sweep.threads});",
+            f"    const size_t smem = {p.sweep.smem_bytes};",
+            "    if (dI > 0 && dJ > 0) {",
+            *attr(p.name, "      "),
+            f"      {p.name}<<<grid, block, smem, st>>>({call});",
+            *check,
+            "    }",
+            "  }",
+        ]
     if p.group is not None:
         # one pass (no K4): the fused kernel
         return [
@@ -2757,23 +3401,16 @@ def _launch_lines(p: KernelPlan, index: int, args: List[str], nsec: int,
         ]
     if p.planes is not None:
         TI, TJ = p.planes.tile
-        copies = []
-        for n in p.planes.snapshots:
-            kernel, src, e = snapshots[n]
-            copies += [
-                "  {",
-                f"    const int ni = dI + {e.i[1] - e.i[0]}, nj = dJ + {e.j[1] - e.j[0]};",
-                "    if (ni > 0 && nj > 0) {",
-                f"      const dim3 grid((nj + {BLOCK_J - 1}) / {BLOCK_J}, "
-                f"(ni + {BLOCK_I - 1}) / {BLOCK_I}), block({BLOCK_J}, {BLOCK_I});",
-                f"      {kernel}<<<grid, block, 0, st>>>(o_{n}, {src}, {e.i[0]}, dI + {e.i[1]}, "
-                f"{e.j[0]}, dJ + {e.j[1]});",
-                *check,
-                "    }",
-                "  }",
-            ]
+        copies = _snapshot_copies(p, args, snapshots)
         if p.tile is not None:
             ((sid, _),) = p.sections
+            # vec[index]: the call's staged rows all on one lead (the twin)
+            launch = [*attr(p.name, "      "), f"      {p.name}<<<grid, block, smem, st>>>({call});"]
+            if any(lanes for *_, lanes in p.tile.inputs):
+                launch = [f"      if (vec[{index}]) {{", *["  " + ln for ln in attr(
+                    p.name + "_u", "      ")],
+                          f"        {p.name}_u<<<grid, block, smem, st>>>({call});",
+                          "      } else {", *["  " + ln for ln in launch], "      }"]
             return copies + [
                 "  {",
                 f"    const int nk_ = kb.hi[{sid}] - kb.lo[{sid}];",
@@ -2781,8 +3418,7 @@ def _launch_lines(p: KernelPlan, index: int, args: List[str], nsec: int,
                 f"(nk_ + {p.tile.kz - 1}) / {p.tile.kz}), block({PLANE_THREADS});",
                 f"    const size_t smem = {p.tile.smem_bytes};",
                 "    if (dI > 0 && dJ > 0 && nk_ > 0) {",
-                *attr(p.name, "      "),
-                f"      {p.name}<<<grid, block, smem, st>>>({call}, vec[{index}] - 1);",
+                *launch,
                 *check,
                 "    }",
                 "  }",
@@ -2905,17 +3541,18 @@ def _occupancy_lines(plans: List[KernelPlan]) -> List[str]:
 
 def generate(analysis: StencilAnalysis, serialize: Optional[bool] = None,
              k_blocked: Optional[bool] = None, tiles: Optional[bool] = None,
-             fuse_loops: Optional[bool] = None) -> CudaProgram:
+             fuse_loops: Optional[bool] = None, sweep: Optional[bool] = None) -> CudaProgram:
     """Emit the CUDA C++ source of one stencil (deterministic).
-    ``serialize``, ``k_blocked``, ``tiles`` and ``fuse_loops``: the build
-    options (see ``plan_stencil``, ``plan_kernels`` and
+    ``serialize``, ``k_blocked``, ``tiles``, ``fuse_loops`` and ``sweep``:
+    the build options (see ``plan_stencil``, ``plan_kernels`` and
     ``CudaProgram.kblock_plan``)."""
     _check_supported(analysis)
-    planned, plans, serialized, declined = plan_stencil(analysis, serialize, tiles, fuse_loops)
+    planned, plans, serialized, declined = plan_stencil(analysis, serialize, tiles, fuse_loops,
+                                                        sweep)
     st = planned.stencil
     touching = {n: [p for p in plans if n in p.reads or n in p.writes] for n in st.temp_decls}
-    planes_global = {n for n, ps in touching.items()
-                     for p in ps if p.planes is not None and _in_device_memory(p, n, ())}
+    planes_global = {n for n, ps in touching.items() for p in ps
+                     if p.planes is not None and p.sweep is None and _in_device_memory(p, n, ())}
     locals_ = [n for n in _local_temps(planned, [p for p in plans
                                                  if p.planes is None and p.group is None])
                if n not in planes_global]
@@ -2968,6 +3605,8 @@ def generate(analysis: StencilAnalysis, serialize: Optional[bool] = None,
     notes = [REPLACES["rows"], REPLACES["columns"], REPLACES["wrap"]]
     if any(p.form == "planes" for p in plans):
         notes.append(REPLACES["planes"])
+    if any(p.sweep for p in plans):
+        notes.append(REPLACES["sweep"])
     if any(p.window for p in plans):
         notes.append(REPLACES["kblocked"])
     if any(p.vector for p in plans):
@@ -2984,7 +3623,7 @@ def generate(analysis: StencilAnalysis, serialize: Optional[bool] = None,
         "// reads wrapped in the load address; a plane-sweep kernel is one CTA per",
         "// (I, J) tile sweeping K with its planes in shared memory; a row stage's",
         "// vector kernel (_v) computes V consecutive J points a thread with 16-byte",
-        "// loads and stores, launched where the fields share a 16-byte phase.",
+        "// loads and stores at each row's phase, launched where its fields are J-contiguous.",
         '#include "stencil_runtime.cuh"',
         "",
         "namespace {",
@@ -2997,6 +3636,9 @@ def generate(analysis: StencilAnalysis, serialize: Optional[bool] = None,
     for n in snapshots:
         out += _emit_snapshot(n, snap[n][0], _stype(st.decl(n).dtype))
     for p in plans:
+        if p.sweep is not None:
+            out += _emit_sweep(em, p, params, bpp[p.name])
+            continue
         if p.tile is not None:
             out += _emit_tile(em, p, params, bpp[p.name])
             em.locals = set(locals_)
@@ -3024,13 +3666,16 @@ def generate(analysis: StencilAnalysis, serialize: Optional[bool] = None,
         "                      const double* fsc, const long long* isc, int pI, int pJ, "
         "void* stream, int kmode, const int* kbsz, const int* vec) {",
     ]
-    for b, (n, var) in enumerate([(n, "f_" + n) for n in fields] + [
-            (n, "t_" + n) for n in scratch] + [(n, "o_" + n) for n in snapshots]):
+    fvars = [(n, "f_" + n) for n in fields] + [(n, "t_" + n) for n in scratch] + [
+        (n, "o_" + n) for n in snapshots]
+    for b, (n, var) in enumerate(fvars):
         ct = _stype(st.decl(n).dtype)
         s = [f"strides[{_REC * b + x}]" for x in range(_REC)]
         sd = ", ".join(s[3:3 + MAX_DATA_DIMS])
         out.append(f"  const gt::Field<{ct}> {var}{{({ct}*)ptrs[{b}], {s[0]}, {s[1]}, {s[2]}, "
-                   f"{{{sd}}}, (int){s[-2]}, (int){s[-1]}}};")
+                   f"{{{sd}}}, (int){s[-4]}, (int){s[-3]}, (const unsigned char*){s[-2]}, "
+                   f"(const unsigned char*){s[-1]}}};")
+    out.append(f"  GT_STORAGES({', '.join(var for _, var in fvars)});")
     out += [
         "  const int dI = dom[0], dJ = dom[1], dK = dom[2];",
         f"  gt::KBounds<{nsec}> kb;",
@@ -3088,6 +3733,13 @@ def generate(analysis: StencilAnalysis, serialize: Optional[bool] = None,
 # --------------------------------------------------------------------------- #
 
 
+def _j_contiguous(t: torch.Tensor) -> bool:
+    """The view's J elements are adjacent in memory (its rows can be read
+    as 16-byte words from any phase); a J axis of one element broadcasts
+    (``_field_arg`` gives it stride 0)."""
+    return t.shape[1] > 1 and t.stride(1) == 1
+
+
 def _no_overlap(t: torch.Tensor) -> bool:
     """True when no two elements of the view share memory: in the order of
     increasing stride, each stride passes the span of the axes before it
@@ -3104,15 +3756,18 @@ def _no_overlap(t: torch.Tensor) -> bool:
 def _field_arg(view: torch.Tensor, origin) -> Tuple[int, List[int]]:
     """Base pointer at the domain origin and the per-field record of a
     logical (I, J, K, *data_dims) view: element strides (size-1 spatial
-    axes broadcast with stride 0), data strides, and the buffer's K range
-    in domain-relative levels."""
+    axes broadcast with stride 0), data strides, the buffer's K range
+    in domain-relative levels, and its storage's byte range."""
     strides = [0 if n == 1 else s for s, n in zip(view.stride()[:3], view.shape[:3])]
     org = [0 if n == 1 else o for o, n in zip(origin, view.shape[:3])]
     offset = sum(o * s for o, s in zip(org, strides))
     data = list(view.stride()[3:])
     data += [0] * (MAX_DATA_DIMS - len(data))
     klo, khi = -org[2], view.shape[2] - 1 - org[2]
-    return view.data_ptr() + offset * view.element_size(), strides + data + [klo, khi]
+    storage = view.untyped_storage()
+    s0 = storage.data_ptr()
+    return view.data_ptr() + offset * view.element_size(), strides + data + [
+        klo, khi, s0, s0 + storage.nbytes()]
 
 
 @register("cuda")
@@ -3130,24 +3785,27 @@ class CudaBackend:
         #: ``tiles`` (K1: None the tile form where it plans, True it or
         #: raise, False the stage-split row kernels) and ``fuse_loops``
         #: (K2: None fuses consecutive column loops where legal, True or
-        #: raise, False one kernel per loop)
+        #: raise, False one kernel per loop) and ``sweep`` (K5: True sweeps
+        #: a serialized PARALLEL loop with the serial loops after it in one
+        #: kernel or raises; None and False never)
         self.program = generate(analysis, serialize=options.get("serialize"),
                                 k_blocked=options.get("k_blocked"),
                                 tiles=options.get("tiles"),
-                                fuse_loops=options.get("fuse_loops"))
+                                fuse_loops=options.get("fuse_loops"),
+                                sweep=options.get("sweep"))
         LAST_PLAN[analysis.stencil.name] = self.program.plan_record()
-        #: K6's launch options: ``vector`` (None: ``VECTOR_DEFAULT``; True
-        #: runs the vector row form, repairing the geometry where it must,
-        #: or raises; False never) and ``repair`` (None: where the vector
-        #: form needs it and ``repair.cost_ok`` says it pays; True on every
-        #: non-periodic call whose fields share no phase, or raises; False
-        #: never)
+        #: K6's launch options: ``vector`` (None: ``VECTOR_DEFAULT``, the
+        #: vector row kernels wherever their fields share a 16-byte phase;
+        #: True runs them, repairing a call whose fields share none, or
+        #: raises; False never) and ``repair`` (None and False: never, as the
+        #: tile kernels' staging needs no phase; True on every non-periodic
+        #: call whose fields share no 16-byte phase, or raises)
         self.vector_opt = options.get("vector")
         self.repair_opt = options.get("repair")
         self.plain = TorchExecutor(analysis)
         self.launches = 0
-        #: calls that launched a vector kernel (a vector row kernel, or a
-        #: tile kernel with 16-byte copies), and calls that were repaired
+        #: calls that launched a vector row kernel or staged an input at
+        #: its rows' phase with 16-byte copies, and calls that were repaired
         self.vector_launches = 0
         self.repairs = 0
         self.derivative_calls = 0
@@ -3293,72 +3951,66 @@ class CudaBackend:
         return hit
 
     def _geometry(self, env, origins, domain, periodic, kb):
-        """K6 for one call: ``(phase, pads, copied_in, record)``.  ``phase``:
-        the J phase of the vector kernels' groups (None: the scalar row
-        form runs); ``pads``: the fields the repair copies (``repair.pads``),
-        ``copied_in`` those whose read window it copies in; ``record``: the
-        call's ``vector`` / ``repair`` / ``declined`` plan entries.  Raises
-        where a forced ``vector=True`` or ``repair=True`` cannot apply."""
+        """K6 for one call: ``(phase, pads, copied_in, record)``.  The tile
+        and sweep kernels' staged inputs need no phase: each row starts at
+        its own aligned-down word (``staging``: ``"row_phase"`` per field
+        where J is contiguous, ``"element"`` where it is not).  ``phase``:
+        the J phase of the vector row kernels' groups, the fields' common
+        16-byte phase (None: the scalar row kernels run); no call is
+        repaired by default.  ``pads``: the fields the repair copies, with
+        ``repair=True`` (``repair.pads``: the JAX package's pass, forced) or
+        where ``vector=True`` forces the vector row kernels on fields that
+        share no phase; ``copied_in`` those whose read window it copies in;
+        ``record``: the call's ``vector`` / ``staging`` / ``repair`` /
+        ``declined`` plan entries.  Raises where a forced ``vector=True`` or
+        ``repair=True`` cannot apply, as the JAX package does."""
         prog = self.program
         an = self.analysis
         decls = an.stencil.field_decls
         want = VECTOR_DEFAULT if self.vector_opt is None else self.vector_opt
-        vec_fields = {n for n in prog.vector_fields() if n in env}
-        record: dict = {"declined": {}}
-        if self.repair_opt and not (want and vec_fields):
-            names = [n for n in env if vector_candidate(decls[n])]
-        else:
-            names = sorted(vec_fields)
+        rows = sorted(n for n in prog.vector_row_fields() if n in env)
+        record: dict = {"declined": {}, "staging": {
+            n: "row_phase" if _j_contiguous(env[n]) else "element"
+            for n in sorted(prog.staged_fields()) if n in env}}
+        if not prog.vector_row_fields():
+            record["declined"]["vector"] = "no row-form stage reaches a J-contiguous field"
+        elif not want:
+            record["declined"]["vector"] = ("vector=False" if self.vector_opt is False else
+                                            "off by default (vector=True runs it)")
+        names = rows if want and rows else (
+            [n for n in env if vector_candidate(decls[n])] if self.repair_opt else [])
         cons = {}
         for n in names:
             ptr, rec = _field_arg(env[n], origins[n])
             cons[n] = repair.constraint(ptr, rec[:3], env[n].element_size())
         phase = repair.common_phase(list(cons.values())) \
-            if None not in cons.values() else None
-        if not prog.vector_fields():
-            record["declined"]["vector"] = ("no row-form stage or tile input reaches a "
-                                            "J-contiguous field")
-        elif not want:
-            record["declined"]["vector"] = ("vector=False" if self.vector_opt is False else
-                                            "off by default (vector=True runs it)")
+            if cons and None not in cons.values() else None
         if phase is not None:
             if self.repair_opt:
                 raise ValueError(f"stencil '{an.stencil.name}': repair=True, but the fields "
                                  "already share a 16-byte phase: no repair applies")
-            if want and vec_fields:
-                record["vector"] = prog.vector_width(prog.vector_fields())
-                return phase, {}, set(), record
-            return None, {}, set(), record
-        forced = self.repair_opt or (want and vec_fields and self.vector_opt)
+            return (phase if want and rows else None), {}, set(), record
         why = "the fields share no 16-byte phase with 16-byte row and level pitches"
-        if periodic or self.repair_opt is False:
-            if forced:
-                raise ValueError(
-                    f"stencil '{an.stencil.name}': {why}, and "
-                    f"{'a periodic call is' if periodic else 'repair=False is'} not repaired")
-            if want and vec_fields:
+        forced = self.repair_opt or (want and rows and self.vector_opt)
+        if not forced:
+            if want and rows:
                 record["declined"]["vector"] = why + (" (a periodic call)" if periodic else "")
             return None, {}, set(), record
-        if not (want and vec_fields) and not self.repair_opt:
-            return None, {}, set(), record
+        if periodic or self.repair_opt is False:
+            raise ValueError(
+                f"stencil '{an.stencil.name}': {why}, and "
+                f"{'a periodic call is' if periodic else 'repair=False is'} not repaired")
         phase, pads = repair.pads(env, origins, cons)
         full = {n for n in self._written if n in pads and not (an.field_info[n].access.value & 1)
                 and repair.fully_written(prog.analysis, n, kb, domain[2])}
         copied_in = set(pads) - full
-        nbytes = repair.copy_bytes(an, env, origins, domain, pads, copied_in,
-                                   [n for n in self._written if n in pads])
-        if not forced and not repair.cost_ok(an, nbytes, domain):
-            record["declined"]["vector"] = why
-            record["declined"]["repair"] = "cost"
-            return None, {}, set(), record
         record["repair"] = dict(pads)
         record["repair_in"] = sorted(copied_in)
-        record["repair_bytes"] = nbytes
-        if want and vec_fields:
-            record["vector"] = prog.vector_width(prog.vector_fields())
-        else:
-            phase = None
-        return phase, pads, copied_in, record
+        record["repair_bytes"] = repair.copy_bytes(an, env, origins, domain, pads, copied_in,
+                                                   [n for n in self._written if n in pads])
+        # the copies are (K, I, J) buffers: J-contiguous
+        record["staging"] = {n: "row_phase" for n in record["staging"]}
+        return (phase if want and rows else None), pads, copied_in, record
 
     def _launch(self, env, scalars, domain, origins, periodic) -> None:
         prog = self.program
@@ -3378,6 +4030,9 @@ class CudaBackend:
         kb = [(max(k0, 0), min(k1, dK))
               for k0, k1 in (itv.resolve(dK, scalars) for itv in prog.intervals)]
         phase, pads, copied_in, record = self._geometry(env, origins, (dI, dJ, dK), periodic, kb)
+        if phase is not None or "row_phase" in record["staging"].values():
+            # the elements of the 16-byte words the call's kernels move
+            record["vector"] = prog.vector_width(prog.vector_fields())
         caller, caller_origins = env, origins
         if pads:
             env, origins = repair.pad_fields(self.analysis, env, origins, (dI, dJ, dK), pads,
@@ -3437,7 +4092,7 @@ class CudaBackend:
         if phase is not None:
             # the repair's copies and the scratch buffers come from the
             # allocator: their phase is checked as the caller's was
-            for name in prog.vector_fields():
+            for name in prog.vector_row_fields():
                 if name in views or name in pads:
                     view, origin = views[name] if name in views else (env[name], origins[name])
                     p, s = _field_arg(view, origin)
@@ -3445,10 +4100,22 @@ class CudaBackend:
                     if c is None or (c[0] + phase) % c[1]:
                         raise RuntimeError(f"stencil '{st.name}': '{name}' is not on the vector "
                                            f"kernels' 16-byte phase (J {phase})")
-        # per kernel: the vector row and tile kernels' 16-byte phase + 1
-        # (0: none)
-        vec = [phase + 1 if phase is not None and (k.vector or k.tile) else 0
-               for k in prog.kernels]
+        # per kernel: the vector row kernels' 16-byte phase + 1 (0: the
+        # scalar ones); a sweep kernel (1) or the kernels it replaces (0)
+        swept = {n: k.sweep.ordered(kb) for n, k in enumerate(prog.kernels) if k.sweep}
+        # a tile kernel whose staged rows all share one lead: its twin
+        si = {}
+        for b, name in enumerate(prog.fields + prog.scratch + prog.snapshots):
+            si.setdefault(name, strides[_REC * b])
+        vec = [int(swept[n]) if n in swept else
+               int(all(si[name] % lanes == 0 for name, _, _, _, lanes in k.tile.inputs if lanes))
+               if k.tile is not None else
+               (phase + 1 if phase is not None and k.vector is not None else 0)
+               for n, k in enumerate(prog.kernels)]
+        if not all(swept.values()):
+            plan["forms"] = [k.form for n, k in enumerate(prog.kernels) if not k.k4_only and (
+                swept[k.swept_by] is False if k.swept_by is not None else swept.get(n, True))]
+            plan["declined"] = {**plan["declined"], "sweep": SWEEP_UNORDERED}
         kb = [k for bounds in kb for k in bounds]
         # rounded to the scalar's dtype here, so the kernel's conversion
         # from double is exact
@@ -3483,7 +4150,7 @@ class CudaBackend:
             repair.write_back(self.analysis, caller, caller_origins, env, (dI, dJ, dK), pads,
                               [n for n in self._written if n in caller])
             self.repairs += 1
-        if any(v for k, v in zip(prog.kernels, vec) if k.vector or k.tile):
+        if phase is not None or "row_phase" in record["staging"].values():
             self.vector_launches += 1
         # scratch buffers go back to the caching allocator tied to the
         # stream, so reuse by later work on the same stream is ordered

@@ -1,18 +1,23 @@
-"""K6 on Hopper: geometry for the row form's vector kernels, and its repair.
+"""K6 on Hopper: the geometry repair, kept as the JAX package's forced pass.
 
 The counterpart of the JAX package's geometry repair
 (``gt4py_tpu/cartesian/backend/pallas_backend.py``: ``_trace_repaired``
 :483, ``_repair_pads`` :389, ``_padded_metas`` :441, ``_repair_cost_ok``
 :455; its gate ``_halos_ij`` :946-978).  The TPU needs DMA windows on the
-(8|16, 128) tiling and pads buffers to it.  The H100 needs no padding to
-be right -- the scalar row form reads any strided view -- but the row
-form's vector kernels (``cuda_backend._emit_vector_rows``) load and store
-16-byte words, so every J-contiguous field a vector kernel reaches must
-put the same J points on 16-byte boundaries: one *phase* for all fields,
-and row and level pitches that are multiples of 16 bytes.
+(8|16, 128) tiling and pads buffers to it.  The H100 needs no copy: what
+Hopper's 16-byte copies need is an aligned source for each word, not one
+phase across fields.  The tile and sweep kernels' staged inputs
+(``cuda_backend._emit_staging``) start each row at the aligned-down word
+of its first element, whatever the row's phase, and keep the row's lead;
+the row form's vector kernels, which still want one phase across their
+fields, give way to the scalar row kernels on a call that has none.  So
+no call is repaired by default and nothing is left for a cost rule to
+decide.  ``repair=True`` still runs the pass, with the JAX package's
+refusals:
 
 - ``constraint`` reads a view's pointer and strides; ``common_phase``
-  finds the J points that start words in every field.
+  finds the J points that start words in every field (a call whose fields
+  share one is refused: no repair applies).
 - ``pads`` gives, for a call whose fields share no phase, per-field front
   and back pads on J (never on I: the copy is laid out (K, I, J) with its
   J rows a multiple of 16 bytes, so the level pitch follows) that give
@@ -20,15 +25,11 @@ and row and level pitches that are multiples of 16 bytes.
   window into such a buffer (a field the kernels write everywhere they
   store, and never read, is not copied in), and ``write_back`` copies
   each written field's write window back, so every other byte of the
-  caller's buffer keeps its value.  There is no domain rounding: the
-  vector kernels' partial groups take its place.
-- ``cost_ok`` is the JAX package's rule with the card's constants: a
-  repair of at most 4 MiB of copies always pays; a larger one pays when
-  the vector form's saving per node-point, times the IR's nodes and the
-  points, passes the copies' bytes over the copy rate.
+  caller's buffer keeps its value; ``copy_bytes`` counts what the copies
+  move.
 
 Periodic calls are not repaired (the JAX package's ``and not periodic``,
-pallas_backend.py:250): they run the scalar row form.
+pallas_backend.py:250).
 """
 
 from __future__ import annotations
@@ -40,19 +41,7 @@ import torch
 from gt4py_tpu_torch.cartesian import ir
 from gt4py_tpu_torch.cartesian.analysis import _stmt_writes
 
-#: the cost rule's constants, measured by ``chip_smoke.py`` phase 11 on an
-#: NVIDIA H100 80GB HBM3 at a 700.00 W power limit (PERF.md, K6): the
-#: rate of the repair's window copies (tight hdiff at 512x512x80 float32:
-#: 505 948 160 bytes in 0.2604 ms), and the vector row form's saving over
-#: the scalar row form per IR node and grid point, the least over hdiff,
-#: fv_step, sl_step and sw_step at 512x512x80 float32 (sl_step's: 0.0768
-#: ms over 617 nodes).  With these no tight-halo step of the models pays
-#: for its copies, as their forced repairs measured
-COPY_BYTES_PER_S = 1.9427e12
-SAVING_S_PER_NODE_POINT = 5.9384e-15
-#: a repair whose copies move at most this many bytes always pays
-SMALL_REPAIR_BYTES = 4 * 1024 * 1024
-#: the J points a vector kernel's groups may start on: 16 lanes of 1 byte
+#: the J phases a 16-byte word may start on: 16 lanes of 1 byte
 MAX_LANES = 16
 
 Pads = Tuple[Tuple[int, int], Tuple[int, int]]
@@ -159,15 +148,6 @@ def copy_bytes(analysis, views, origins, domain, pads_: Dict[str, Pads], copied_
             si, sj = _window(v, origins[n], domain, (e.i, e.j))
             total += 2 * (si.stop - si.start) * (sj.stop - sj.start) * nk * v.element_size()
     return total
-
-
-def cost_ok(analysis, nbytes: int, domain) -> bool:
-    """The JAX package's ``_repair_cost_ok`` with the card's constants."""
-    if nbytes <= SMALL_REPAIR_BYTES:
-        return True
-    nodes = sum(1 for _ in ir.walk_values(analysis.stencil.vertical_loops))
-    points = domain[0] * domain[1] * domain[2]
-    return SAVING_S_PER_NODE_POINT * nodes * points > nbytes / COPY_BYTES_PER_S
 
 
 def pad_fields(analysis, views, origins, domain, pads_: Dict[str, Pads], copied_in):

@@ -30,6 +30,9 @@ struct Field {
   long long si, sj, sk;
   long long sd[kMaxDataDims];
   int klo, khi;
+  // the bytes [s0, s1) of the storage (the allocation) the view lies in
+  const unsigned char* s0;
+  const unsigned char* s1;
   __device__ __forceinline__ T& at(long long i, long long j, long long k) const {
     return p[i * si + j * sj + k * sk];
   }
@@ -40,7 +43,24 @@ struct Field {
   __device__ __forceinline__ long long kclamp(long long k) const {
     return k < klo ? klo : (k > khi ? khi : k);
   }
+  // whether the 16-byte word at `w` lies inside the field's storage.  A
+  // row's 16-byte copies start at the aligned-down word of its first
+  // element and may end past its last: such a word may hold bytes before
+  // the view's first element or past its last (another row, a halo, another
+  // view of the storage), which the kernels copy and never use; a word
+  // that would cross the allocation itself is copied element by element
+  __device__ __forceinline__ bool holds16(const void* w) const {
+    const unsigned char* b = reinterpret_cast<const unsigned char*>(w);
+    return b >= s0 && b + 16 <= s1;
+  }
 };
+
+// A host build of the kernels checks every 16-byte read against the
+// storages of the call's fields, which gt_run names here; on the card the
+// kernels test the bounds themselves (Field::holds16).
+#ifndef GT_STORAGES
+#define GT_STORAGES(...)
+#endif
 
 // The dynamic shared memory of a kernel that synchronises its block (the
 // plane-sweep and K-window forms): 16-byte aligned, its size the launch's
@@ -74,6 +94,14 @@ __device__ __forceinline__ void vstore(T* dst, const T* src) {
 #pragma unroll
   for (int c = 0; c < (int)(N * sizeof(T) / 16); ++c)
     reinterpret_cast<uint4*>(dst)[c] = reinterpret_cast<const uint4*>(src)[c];
+}
+
+// The lead of `p`: the elements between the 16-byte word that holds it
+// and `p` itself (0-3 in float32, 0-1 in float64): a staged row starts at
+// that word (K6's row phase).
+template <typename T>
+__device__ __forceinline__ int lead16(const T* p) {
+  return (int)((reinterpret_cast<size_t>(p) & 15) / sizeof(T));
 }
 
 // Asynchronous copies from device memory into shared memory (sm_80+

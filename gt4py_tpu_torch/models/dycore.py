@@ -228,9 +228,11 @@ def make_dycore_fused(dtype, backend="cuda", *, bet_m=0.5, bet_p=0.5, **options)
     (PARALLEL) feeding the vertical-advection tridiagonal solve
     (FORWARD+BACKWARD) and the prognostic update -- the diffused stage
     becomes an in-kernel TEMPORARY instead of an HBM round trip, and
-    ``u`` is read once instead of twice.  On ``"cuda"`` the PARALLEL loop
-    runs serialized in the plane-sweep form (K5) unless ``options`` hold
-    ``serialize=False``."""
+    ``u`` is read once instead of twice.  On ``"cuda"`` it runs split by
+    default (the tile kernel, then the fused column kernel:
+    ``cuda_backend.SERIALIZE_MIXED``); ``options`` ``serialize=True`` run
+    the PARALLEL loop serialized in the plane-sweep form (K5), and
+    ``sweep=True`` sweep it with the serial loops in one kernel."""
     Field = gtscript.Field[dtype]
 
     @gtscript.stencil(

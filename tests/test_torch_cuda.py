@@ -745,14 +745,18 @@ def _card_run(defn, shape, domain, device, backend="cuda", periodic=(), **option
 def test_plane_form_vs_plain(cuda_device, defn, periodic):
     """Fault 1's loop, a K-carried temporary read at offsets (a ring of
     planes), reads of values the sweep has not written yet (the copy taken
-    before the kernel) and a mixed stencil serialized (K5): the plane-sweep
-    kernels against the plain executor on the card, at 70 x 90 (several
-    tiles)."""
+    before the kernel) and a mixed stencil serialized (K5, ``sweep=True``:
+    the PARALLEL loop and the serial loops in one sweep kernel): the
+    plane-sweep and sweep kernels against the plain executor on the card,
+    at 70 x 90 (several tiles)."""
     from gt4py_tpu_torch.cartesian.backend import cuda_backend
 
     shape, domain = (74, 94, 9), (70, 90, 9)
-    st, got = _card_run(defn, shape, domain, cuda_device, periodic=periodic)
-    assert "planes" in cuda_backend.LAST_PLAN[defn.__name__]["forms"]
+    mixed = defn is plane_mixed
+    st, got = _card_run(defn, shape, domain, cuda_device, periodic=periodic,
+                        **({"sweep": True} if mixed else {}))
+    forms = cuda_backend.LAST_PLAN[defn.__name__]["forms"]
+    assert forms == ["sweep"] if mixed else "planes" in forms, forms
     assert st.backend.launches == 1
     _, ref = _card_run(defn, shape, domain, cuda_device, backend="torch", periodic=periodic)
     for k, v in ref.items():
@@ -762,25 +766,36 @@ def test_plane_form_vs_plain(cuda_device, defn, periodic):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [np.float64, np.float32], ids=["f64", "f32"])
 def test_fused_dycore_forms_vs_plain(cuda_device, dtype):
-    """``step_fn(fused=True)`` in the plane-sweep form (default) and the
-    split form (``serialize=False``): three steps each against the plain
-    executor."""
+    """``step_fn(fused=True)`` in the sweep form (``sweep=True``: one
+    kernel a call), the plane-sweep form (``serialize=True``)
+    and the split build (the default): three steps each against the plain
+    executor; the forms from ``LAST_PLAN``, the sweep's one launch a call
+    from its library."""
+    from gt4py_tpu_torch.cartesian.backend import cuda_backend
+
+    forms = {"sweep": ["sweep"], "planes": ["planes", "column"], "split": ["tile", "column"]}
     got = {}
-    for label, backend, options in (("planes", "cuda", {}),
-                                    ("split", "cuda", {"serialize": False}),
+    for label, backend, options in (("sweep", "cuda", {"sweep": True}),
+                                    ("planes", "cuda", {"serialize": True}),
+                                    ("split", "cuda", {}),
                                     ("plain", "torch", {})):
         md = dycore.MiniDycore(40, 70, 8, dtype=dtype, backend=backend, device=cuda_device,
                                options=options)
         state = md.init_state(seed=2)
         step = md.step_fn(fused=True)
+        if backend == "cuda":
+            md.fused.backend.build()  # the count belongs to the library of its source
+        before = md.fused.backend.device_launches()["all"] if backend == "cuda" else 0
         for _ in range(3):
             state = step(state)
         got[label] = state
         if backend == "cuda":
-            forms = [k.form for k in md.fused.backend.program.kernels]
-            assert ("planes" in forms) == (label == "planes"), forms
+            torch.cuda.synchronize()
+            assert cuda_backend.LAST_PLAN[md.fused.name]["forms"] == forms[label], label
+            counted = md.fused.backend.device_launches()["all"] - before
+            assert counted == 3 * len(forms[label]), (label, counted)
     for k in ("u", "utens_stage"):
-        for label in ("planes", "split"):
+        for label in ("sweep", "planes", "split"):
             torch.testing.assert_close(got[label][k], got["plain"][k], **TOL[dtype],
                                        msg=f"{label} {k}")
 
@@ -855,10 +870,12 @@ def test_plane_ring_widened_vs_plain(cuda_device, periodic):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [np.float64, np.float32], ids=["f64", "f32"])
 def test_k6_vector_and_repair_vs_plain(cuda_device, dtype):
-    """K6: hdiff on halo-3 buffers with J rows of 77 items (no whole number
-    of 16-byte words in float32 or float64: repaired) and halo-2 ones of 76
-    (one phase: the vector form with no copy), against the scalar form and
-    the plain executor, bit for bit."""
+    """K6: hdiff's tile kernel on halo-3 buffers with J rows of 77 items
+    (no whole number of 16-byte words in float32 or float64: its rows on
+    two phases) and halo-2 ones of 76 (one phase), its input staged from
+    each row's aligned-down word with no copy, and with the repair forced
+    (``repair=True``, halo 3), against the scalar build and the plain
+    executor, bit for bit."""
     from gt4py_tpu_torch.cartesian.backend import cuda_backend
 
     rng = np.random.default_rng(6)
@@ -868,17 +885,19 @@ def test_k6_vector_and_repair_vs_plain(cuda_device, dtype):
         c = torch.from_numpy(0.025 * rng.random(shape).astype(dtype)).to(cuda_device)
         kw = dict(origin=(halo, halo, 0), domain=(20, nj, 9), physical_layout=True)
         got = {}
-        for label, backend, options in (("vector", "cuda", {"vector": True}),
-                                        ("scalar", "cuda", {"vector": False}),
-                                        ("plain", "torch", {})):
+        runs = [("vector", "cuda", {"vector": True}), ("scalar", "cuda", {"vector": False})]
+        if halo == 3:
+            runs.append(("repair", "cuda", {"repair": True}))
+        for label, backend, options in runs + [("plain", "torch", {})]:
             st = dycore.make_hdiff(dtype, backend, **options)
             got[label] = st.functional(**kw)(in_field=u, out_field=u, coeff=c)["out_field"]
             torch.cuda.synchronize()
-            if label == "vector":
+            if backend == "cuda":
                 plan = cuda_backend.LAST_PLAN[st.name]
                 assert plan["vector"] == 16 // np.dtype(dtype).itemsize, plan
-                assert bool(plan.get("repair")) == (halo == 3), plan
-        for label in ("vector", "scalar"):
+                assert plan["staging"] == {"in_field": "row_phase"}, plan
+                assert bool(plan.get("repair")) == (label == "repair"), plan
+        for label, _, _ in runs:
             assert torch.equal(got[label], got["plain"]), (halo, label)
 
 
@@ -921,7 +940,8 @@ CARD_TILES = {
                     {"dtr_stage": 3.0}, ["column"], 1, {}, {"fuse_loops": False}),
     "dycore_fused": (dycore.make_dycore_fused,
                      ["u", "coeff", "wcon", "utens", "utens_stage", "u_out"],
-                     {"dtr_stage": 3.0}, ["planes", "column"], 2, {}, {"fuse_loops": False}),
+                     {"dtr_stage": 3.0}, ["tile", "column"], 2, {},
+                     {"fuse_loops": False, "tiles": False}),
 }
 
 
@@ -946,6 +966,8 @@ def test_tiles_and_fused_columns_vs_split_and_plain(cuda_device, name, dtype, pe
                                     ("plain", "torch", {})):
         st = make(dtype, backend, **options)
         fields = {n: torch.from_numpy(a.copy()).to(cuda_device) for n, a in arrays.items()}
+        if backend == "cuda":
+            st.backend.build()  # the count belongs to the library of its source
         before = st.backend.device_launches()["all"] if backend == "cuda" else 0
         st(**fields, **scalars, origin=(3, 3, 0), domain=(70, 90, 9), periodic=periodic)
         torch.cuda.synchronize()

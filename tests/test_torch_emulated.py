@@ -62,6 +62,7 @@ EMULATED_RUNTIME = r"""
 #include <ucontext.h>
 #include <functional>
 #include <memory>
+#include <utility>
 #include <vector>
 #define __global__
 #define __device__
@@ -86,10 +87,37 @@ struct alignas(16) uint4 { unsigned x, y, z, w; };
 // a misaligned 16-byte access faults the launch, as on the card: the access
 // is skipped and cudaGetLastError reports it
 inline cudaError_t gt_emu_error = cudaSuccess;
-inline bool gt_emu_aligned16(const void* p) {
-  if ((reinterpret_cast<size_t>(p) & 15) == 0) return true;
-  gt_emu_error = cudaErrorMisalignedAddress;
+// the storages of the running gt_run's fields (GT_STORAGES, for the rest
+// of gt_run): a 16-byte access that leaves all of them faults, as one past
+// the allocation would (a library that names none, K9's, is not checked)
+const cudaError_t cudaErrorIllegalAddress = 700;
+inline std::vector<std::pair<const unsigned char*, const unsigned char*>> gt_emu_storage;
+inline bool gt_emu_storage_on = false;
+struct gt_emu_storage_scope {
+  ~gt_emu_storage_scope() { gt_emu_storage_on = false; }
+};
+template <class... F>
+inline gt_emu_storage_scope gt_emu_storages(const F&... f) {
+  gt_emu_storage.clear();
+  (gt_emu_storage.push_back({f.s0, f.s1}), ...);
+  gt_emu_storage_on = true;
+  return {};
+}
+#define GT_STORAGES(...) const gt_emu_storage_scope gt_emu_scope_ = gt_emu_storages(__VA_ARGS__)
+inline bool gt_emu_in_storage(const void* p) {
+  if (!gt_emu_storage_on) return true;
+  const unsigned char* b = reinterpret_cast<const unsigned char*>(p);
+  for (const auto& r : gt_emu_storage)
+    if (b >= r.first && b + 16 <= r.second) return true;
+  gt_emu_error = cudaErrorIllegalAddress;
   return false;
+}
+inline bool gt_emu_aligned16(const void* p) {
+  if ((reinterpret_cast<size_t>(p) & 15) != 0) {
+    gt_emu_error = cudaErrorMisalignedAddress;
+    return false;
+  }
+  return gt_emu_in_storage(p);
 }
 inline bool gt_emu_aligned(const void* p, size_t n) {
   if ((reinterpret_cast<size_t>(p) & (n - 1)) == 0) return true;
@@ -97,15 +125,18 @@ inline bool gt_emu_aligned(const void* p, size_t n) {
   return false;
 }
 #define GT_VECTOR_ALIGNED(p) gt_emu_aligned16(p)
-// cp.async as a synchronous copy (a misaligned one faults, as on the card);
-// the library counts its 16-byte copies
+// cp.async as a synchronous copy (a misaligned one faults, as on the card,
+// and so does a 16-byte one whose source leaves the fields' storages); the
+// library counts its 16-byte copies
 #define GT_ASYNC_COPY
 inline long long gt_emu_copies16 = 0;
 extern "C" long long gt_emu_copies16_count() { return gt_emu_copies16; }
 namespace gt {
 template <int Bytes>
 inline void async_copy(void* smem, const void* gmem) {
-  if (gt_emu_aligned(smem, Bytes) && gt_emu_aligned(gmem, Bytes)) memcpy(smem, gmem, Bytes);
+  if (gt_emu_aligned(smem, Bytes) && gt_emu_aligned(gmem, Bytes) &&
+      (Bytes != 16 || gt_emu_in_storage(gmem)))
+    memcpy(smem, gmem, Bytes);
   if (Bytes == 16) ++gt_emu_copies16;
 }
 inline void async_commit() {}
@@ -118,7 +149,9 @@ inline cudaError_t cudaGetLastError() {
   return e;
 }
 inline const char* cudaGetErrorString(cudaError_t e) {
-  return e == cudaErrorMisalignedAddress ? "misaligned address (emulated)" : "emulated";
+  return e == cudaErrorMisalignedAddress ? "misaligned address (emulated)"
+         : e == cudaErrorIllegalAddress  ? "16-byte access outside the fields' storage (emulated)"
+                                         : "emulated";
 }
 template <typename K>
 inline cudaError_t cudaFuncSetAttribute(K, cudaFuncAttribute, int) { return cudaSuccess; }

@@ -446,26 +446,37 @@ def test_plan_records_one_launch_per_loop(emulated):  # noqa: F811
 
 #: ``LAST_PLAN`` of the headline stencils at 512x512x80 float32, the same
 #: at build and at depth 80: hdiff and fv_step one tile kernel each, the
-#: column loops one fused kernel (K4's window kernels beside it)
+#: column loops one fused kernel (K4's window kernels beside it); the fused
+#: step split by default (``cuda_backend.SERIALIZE_MIXED``), no sweep
 HEADLINE_PLANS = {
     "dycore_fused_float32": {
         "columns": [{"carries": ["datacol"],
                      "columns": ["ccol", "dcol"],
-                     "kernel": "dycore_fused_float32__serK_k3_col",
+                     "kernel": "dycore_fused_float32_k3_col",
                      "loops": 2,
                      "prefetch": 26}],
-        "declined": {"kblocked": "one pass, the default (k_blocked=True blocks)"},
-        "forms": ["planes", "column"],
+        "declined": {"kblocked": "one pass, the default (k_blocked=True blocks)",
+                     "serialize": cuda_backend.SPLIT_MIXED},
+        "forms": ["tile", "column"],
         "kblocked": False,
         "registers": ["acol", "as_", "bcol", "correction_term", "cs", "divided", "gav", "gcv",
                       "res"],
         "scratch": ["u_stage", "ccol", "dcol", "datacol"],
-        "serialized": True,
+        "serialized": False,
         "shared": ["flx_field", "fly_field", "lap_field"],
-        "smem_bytes": [6736],
+        "smem_bytes": [],
         "snapshots": [],
-        "tile": [16, 32],
-        "tiles": [],
+        "sweep": [],
+        "tile": None,
+        "tiles": [{"ctas_per_sm": 4,
+                   "halo": 1.0343,
+                   "kernel": "dycore_fused_float32_k0_tile",
+                   "kz": 4,
+                   "planes": 3,
+                   "slots": 3,
+                   "smem_bytes": 47376,
+                   "staged": ["u@k0"],
+                   "tile": [32, 64]}],
         "widened": {},
     },
     "fv_step_float32": {
@@ -484,6 +495,7 @@ HEADLINE_PLANS = {
                    "fy", "qx", "qy"],
         "smem_bytes": [],
         "snapshots": [],
+        "sweep": [],
         "tile": None,
         "tiles": [{"ctas_per_sm": 3,
                    "halo": 1.1551,
@@ -491,7 +503,7 @@ HEADLINE_PLANS = {
                    "kz": 4,
                    "planes": 30,
                    "slots": 9,
-                   "smem_bytes": 58288,
+                   "smem_bytes": 59248,
                    "staged": ["q@k0"],
                    "tile": [32, 32]}],
         "widened": {},
@@ -507,6 +519,7 @@ HEADLINE_PLANS = {
         "shared": ["flx_field", "fly_field", "lap_field"],
         "smem_bytes": [],
         "snapshots": [],
+        "sweep": [],
         "tile": None,
         "tiles": [{"ctas_per_sm": 4,
                    "halo": 1.0343,
@@ -514,7 +527,7 @@ HEADLINE_PLANS = {
                    "kz": 4,
                    "planes": 3,
                    "slots": 3,
-                   "smem_bytes": 46480,
+                   "smem_bytes": 47376,
                    "staged": ["in_field@k0"],
                    "tile": [32, 64]}],
         "widened": {},
@@ -534,6 +547,7 @@ HEADLINE_PLANS = {
         "shared": [],
         "smem_bytes": [],
         "snapshots": [],
+        "sweep": [],
         "tile": None,
         "tiles": [],
         "widened": {},
@@ -553,6 +567,7 @@ HEADLINE_PLANS = {
         "shared": [],
         "smem_bytes": [],
         "snapshots": [],
+        "sweep": [],
         "tile": None,
         "tiles": [],
         "widened": {},

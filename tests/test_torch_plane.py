@@ -193,23 +193,32 @@ def test_plane_form_emulated_vs_oracle_and_pallas(emulated, monkeypatch, name, p
     it writes), the mixed stencil of ``test_serialize_parallel.py`` and the
     K-carried temporaries read at offsets: the plane-sweep kernels equal the
     JAX package's numpy oracle and its serialized Pallas kernel (interpret
-    mode) at rtol 1e-12."""
+    mode) at rtol 1e-12.  The mixed stencil runs serialized both ways: its
+    PARALLEL loop's plane kernel and the fused column kernel
+    (``serialize=True``), and the sweep form (``sweep=True``,
+    one kernel)."""
     defn, shape, origin, domain, scalars = CASES[name]
     arrays = _arrays(defn, shape)
     kw = dict(origin=origin, domain=domain, periodic=periodic, **scalars)
     ref = _jax(defn, "numpy", arrays, **kw)
     monkeypatch.setenv("GT4PY_TPU_PALLAS_SERIALIZE", "1")
     pallas = _jax(defn, "pallas", arrays, **kw)
-    st, got = _port(defn, arrays, **kw)
-    plan = cuda_backend.LAST_PLAN[defn.__name__]
-    assert "planes" in plan["forms"] and st.backend.launches == 1, plan
-    assert plan["serialized"] == (name == "mixed"), plan
-    assert plan["widened"] == ({"t": [[0, 1], [0, 0]]} if name == "ring" else {}), plan
-    # the JAX package fills a periodic input's halos in place; the port in
-    # a copy: the written fields are the result
-    for k in _written(st):
-        np.testing.assert_allclose(got[k], ref[k], rtol=1e-12, atol=0, err_msg=k)
-        np.testing.assert_allclose(got[k], pallas[k], rtol=1e-12, atol=0, err_msg=k)
+    mixed = name == "mixed"
+    runs = ({"serialize": True}, {"sweep": True}) if mixed else ({},)
+    for options in runs:
+        st, got = _port(defn, arrays, options=options, **kw)
+        plan = cuda_backend.LAST_PLAN[defn.__name__]
+        form = "sweep" if options.get("sweep") else "planes"
+        assert form in plan["forms"] and st.backend.launches == 1, plan
+        assert plan["serialized"] == mixed, plan
+        if options.get("serialize"):
+            assert plan["declined"]["sweep"] == cuda_backend.SWEEP_OPT_IN, plan
+        assert plan["widened"] == ({"t": [[0, 1], [0, 0]]} if name == "ring" else {}), plan
+        # the JAX package fills a periodic input's halos in place; the port
+        # in a copy: the written fields are the result
+        for k in _written(st):
+            np.testing.assert_allclose(got[k], ref[k], rtol=1e-12, atol=0, err_msg=k)
+            np.testing.assert_allclose(got[k], pallas[k], rtol=1e-12, atol=0, err_msg=k)
 
 
 def test_plane_plans_record_where_values_live():
@@ -225,33 +234,38 @@ def test_plane_plans_record_where_values_live():
     assert "gt::slot(k + -1, 2)" in st.backend.source
 
 
+#: the mixed stencils' builds and the forms each runs (``LAST_PLAN``)
+MIXED_FORMS = {"sweep": ({"sweep": True}, ["sweep"]),
+               "planes": ({"serialize": True}, ["planes", "column"]),
+               "split": ({}, ["tile", "column"])}
+
+
 @pytest.mark.parametrize("dtype", [np.float64, np.float32], ids=["f64", "f32"])
 def test_mixed_forms_agree_bit_for_bit(emulated, dtype):  # noqa: F811
-    """The mixed stencil serialized (planes, K5) and split (rows and
-    columns, ``serialize=False``) on the emulated kernels, the plain
-    executor on the serialized stencil (``testing.plain_form``) and on the
-    original one: bit for bit."""
+    """The mixed stencil serialized -- in the sweep form (one kernel, K5)
+    and in the plane-sweep form with the fused column kernel -- and split
+    (the default: tile and column kernels) on the emulated kernels, the
+    plain executor on the serialized stencil (``testing.plain_form``) and
+    on the original one: bit for bit."""
     defn, shape, origin, domain, _ = CASES["mixed"]
     arrays = {k: v.astype(dtype) for k, v in _arrays(defn, shape, seed=3).items()}
     if dtype == np.float32:
         defn = _retyped(defn, jgts.Field[np.float32])
     got = {}
-    for label, backend, options in (("planes", "cuda", {}),
-                                    ("split", "cuda", {"serialize": False}),
-                                    ("plain", "torch", {})):
+    for label, (options, forms) in list(MIXED_FORMS.items()) + [("plain", ({}, None))]:
+        backend = "torch" if label == "plain" else "cuda"
         st, got[label] = _port(defn, arrays, backend=backend, options=options,
                                origin=origin, domain=domain, periodic=("I", "J"))
         if backend == "cuda":
-            forms = [k.form for k in st.backend.program.kernels]
-            assert ("planes" in forms) == (label == "planes"), forms
-        if label == "planes":
+            assert cuda_backend.LAST_PLAN[defn.__name__]["forms"] == forms, label
+        if label == "sweep":
             # K5's plain counterpart: the plain executor on the serialized stencil
             ser = testing.plain_form(st)
             out = {k: torch.from_numpy(v.copy()) for k, v in arrays.items()}
             ser(**out, origin=origin, domain=domain, periodic=("I", "J"))
             got["serialized plain"] = {k: v.numpy() for k, v in out.items()}
     for k in arrays:
-        for label in ("planes", "split", "serialized plain"):
+        for label in list(MIXED_FORMS) + ["serialized plain"]:
             np.testing.assert_array_equal(got[label][k], got["plain"][k], err_msg=f"{label} {k}")
 
 
@@ -263,22 +277,30 @@ def _retyped(defn, field):
     return new
 
 
-def test_serialization_declined_is_recorded(emulated):  # noqa: F811
-    """A mixed stencil ``serialize_parallel_k`` declines (a runtime interval
-    bound) keeps the split plan, records why, and still equals the oracle;
-    ``serialize=True`` raises instead."""
+def test_serialization_declined_is_recorded(emulated, monkeypatch):  # noqa: F811
+    """A mixed stencil runs split by default and records why
+    (``SPLIT_MIXED``); where the default serializes mixed stencils
+    (``SERIALIZE_MIXED``), one that ``serialize_parallel_k`` declines (a
+    runtime interval bound) keeps the split plan and records why; both
+    equal the oracle; ``serialize=True`` and ``sweep=True`` raise
+    instead."""
     defn = runtime_bound
     arrays = _arrays(defn, (10, 10, 6))
     kw = dict(origin=(1, 1, 0), domain=(8, 8, 6), kmid=3)
     ref = _jax(defn, "numpy", arrays, **kw)
-    st, got = _port(defn, arrays, **kw)
-    plan = cuda_backend.LAST_PLAN["runtime_bound"]
-    assert not plan["serialized"] and "planes" not in plan["forms"]
-    assert "serialize_parallel_k declined" in plan["declined"]["serialize"]
-    for k in arrays:
-        np.testing.assert_allclose(got[k], ref[k], rtol=1e-12, atol=0, err_msg=k)
-    with pytest.raises(NotImplementedError, match="serialize_parallel_k declined"):
-        pgts.stencil(backend="cuda", definition=to_port(defn), rebuild=True, serialize=True)
+    for serialize_mixed, why in ((False, cuda_backend.SPLIT_MIXED),
+                                 (True, "serialize_parallel_k declined")):
+        monkeypatch.setattr(cuda_backend, "SERIALIZE_MIXED", serialize_mixed)
+        st, got = _port(defn, arrays, **kw)
+        plan = cuda_backend.LAST_PLAN["runtime_bound"]
+        assert not plan["serialized"] and "planes" not in plan["forms"]
+        assert why in plan["declined"]["serialize"], plan
+        for k in arrays:
+            np.testing.assert_allclose(got[k], ref[k], rtol=1e-12, atol=0, err_msg=k)
+    for option in ("serialize", "sweep"):
+        with pytest.raises(NotImplementedError, match="serialize_parallel_k declined"):
+            pgts.stencil(backend="cuda", definition=to_port(defn), rebuild=True,
+                         **{option: True})
 
 
 def test_read_ahead_reads_a_snapshot():
@@ -298,38 +320,43 @@ def test_read_ahead_reads_a_snapshot():
 
 @pytest.mark.parametrize("periodic", [True, False], ids=["periodic", "bounded"])
 def test_fused_dycore_forms_vs_plain_and_oracle(emulated, periodic):  # noqa: F811
-    """``MiniDycore.step_fn(fused=True)`` at 16x16x8: the plane-sweep form
-    (default), the split form (``serialize=False``) and the plain executor
-    agree bit for bit over three float32 steps; in float64 the plane form
-    equals the JAX model (its XLA executor) at rtol 1e-12."""
+    """``MiniDycore.step_fn(fused=True)`` at 16x16x8: the sweep form
+    (``sweep=True``, one kernel a call), the plane-sweep form
+    (``serialize=True``), the split build (the default) and
+    the plain executor agree bit for bit over three float32 steps; in
+    float64 the sweep form equals the JAX model (its XLA executor) at rtol
+    1e-12."""
     got = {}
-    for label, backend, options in (("planes", "cuda", {}),
-                                    ("split", "cuda", {"serialize": False}),
-                                    ("plain", "torch", {})):
+    for label, (options, forms) in list(MIXED_FORMS.items()) + [("plain", ({}, None))]:
+        backend = "torch" if label == "plain" else "cuda"
         m = p_dycore.MiniDycore(16, 16, 8, dtype=np.float32, backend=backend, aligned=False,
                                 device="cpu", options=options)
         state = m.init_state(seed=2)
         step = m.step_fn(fused=True, fill_halos=periodic)
+        if backend == "cuda":
+            m.fused.backend.build()  # the count belongs to the library of its source
+        before = m.fused.backend.device_launches()["all"] if backend == "cuda" else 0
         for _ in range(3):
             state = step(state)
         got[label] = state
         if backend == "cuda":
             plan = cuda_backend.LAST_PLAN["dycore_fused_float32"]
-            assert plan["serialized"] == (label == "planes"), plan
-            assert ("planes" in plan["forms"]) == (label == "planes"), plan
+            assert plan["forms"] == forms and plan["serialized"] == (label != "split"), plan
+            counted = m.fused.backend.device_launches()["all"] - before
+            assert counted == 3 * len(forms), (label, counted)
     for k in ("u", "utens_stage"):
-        assert torch.equal(got["planes"][k], got["plain"][k]), k
-        assert torch.equal(got["split"][k], got["plain"][k]), k
+        for label in MIXED_FORMS:
+            assert torch.equal(got[label][k], got["plain"][k]), (label, k)
 
     jm = j_dycore.MiniDycore(16, 16, 8, dtype=np.float64, backend="jax", aligned=False)
     jstate = jm.init_state(seed=2)
     pm = p_dycore.MiniDycore(16, 16, 8, dtype=np.float64, backend="cuda", aligned=False,
-                             device="cpu")
+                             device="cpu", options={"sweep": True})
     pstate = state_from_numpy(jstate, "cpu")
     jout = jm.step_fn(fused=True, fill_halos=periodic)(
         {k: jnp.asarray(v) for k, v in jstate.items()})
     pout = pm.step_fn(fused=True, fill_halos=periodic)(pstate)
-    assert cuda_backend.LAST_PLAN["dycore_fused_float64"]["serialized"]
+    assert cuda_backend.LAST_PLAN["dycore_fused_float64"]["forms"] == ["sweep"]
     for k in ("u", "utens_stage"):
         np.testing.assert_allclose(pout[k].numpy(), np.asarray(jout[k]), rtol=1e-12, atol=0,
                                    err_msg=k)

@@ -1,14 +1,18 @@
-"""K6 on the emulated kernels: the vector row form and the geometry repair.
+"""K6 on the emulated kernels: row-phase staging, the vector row form and
+the forced repair.
 
-The ``"cuda"`` backend's row stages have a vector kernel that computes V
-consecutive J points a thread with 16-byte loads and stores; it runs where
-every J-contiguous field shares one 16-byte phase with row and level
-pitches that are whole words, and a non-periodic call whose fields do not
-is repaired (``cartesian/backend/repair.py``: copies in each field's read
-window at a common phase, runs, copies each written field's write window
-back).  Here the kernels are built by the host compiler against the
-emulated runtime of ``tests/test_torch_emulated.py``, whose vector accesses
-fault on a misaligned address, and held on the shapes of
+The tile kernels stage each row of an input from its own aligned-down
+16-byte word, so no kernel of the ``"cuda"`` backend needs one phase across
+fields to be repaired for.  The row stages' vector kernels (V consecutive J
+points a thread, 16-byte loads and stores) run where every J-contiguous
+field they reach shares one 16-byte phase, the scalar row kernels
+elsewhere; by default no call is repaired, and ``repair=True`` still runs
+the JAX package's pass (``cartesian/backend/repair.py``: copies in each
+field's read window at a common phase, runs, copies each written field's
+write window back).  Here the kernels are built by the host compiler
+against the emulated runtime of ``tests/test_torch_emulated.py``, whose
+16-byte accesses fault on a misaligned address or outside the fields'
+storages, and held on the shapes of
 ``tests/cartesian/test_geometry_repair.py``:
 
 - against the JAX package's ``"pallas"`` under ``ASSUME_TPU_PLANNING``
@@ -19,7 +23,8 @@ fault on a misaligned address, and held on the shapes of
 - against the port's plain executor bit for bit in both,
 
 each in the JAX tests' layout (numpy (I, J, K) arrays, J not contiguous:
-repaired) and in the models' (K, I, J) layout.
+the scalar row kernels, or the repair when forced) and in the models'
+(K, I, J) layout.
 """
 
 import types
@@ -36,7 +41,7 @@ from gt4py_tpu.cartesian.gtscript import FORWARD, PARALLEL, I, J, computation, h
 
 from gt4py_tpu_torch import config
 from gt4py_tpu_torch.cartesian import gtscript as pgts
-from gt4py_tpu_torch.cartesian.backend import cuda_backend, repair
+from gt4py_tpu_torch.cartesian.backend import _build, cuda_backend, repair
 from gt4py_tpu_torch.models import dycore as p_dycore
 
 from .test_torch_emulated import emulated, emulated_dir  # noqa: F401  (fixtures)
@@ -120,14 +125,12 @@ CASES = {
 }
 
 
-#: the fields the port's repair copies in the (K, I, J) layout, by case and
-#: item size (in the (I, J, K) layout J is not contiguous: every field a
-#: vector kernel reaches is copied).  outop: fy's rows of 257 items are no
-#: whole number of words; lapd: a and b start on different float32 phases
-#: (J 1 and 3) but on one float64 phase; while: rows of 130 float32 (520
-#: bytes); serk is one column-form loop, which has no vector kernel
-REPAIRED_KIJ = {"outop": {4: {"fy"}, 8: {"fy"}}, "lapd": {4: {"a"}, 8: set()},
-                "while": {4: {"a", "b"}, 8: set()}}
+#: the item sizes at which a case's fields share no 16-byte phase in the
+#: (K, I, J) layout (its row stages then run the scalar kernels): outop's fy
+#: has rows of 257 items, no whole number of words; lapd's a and b start on
+#: different float32 phases (J 1 and 3) but on one float64 phase; while's
+#: rows of 130 float32 are 520 bytes
+NO_PHASE_KIJ = {"outop": {4, 8}, "lapd": {4}, "while": {4}}
 
 
 def _fields(name, dtype):
@@ -174,46 +177,56 @@ def _port(defn, backend, arrays, origins, domain, layout, **options):
 @pytest.mark.parametrize("layout", ["ijk", "kij"])
 @pytest.mark.parametrize("name", list(CASES))
 def test_repair_shapes_vs_pallas_oracle_and_plain(emulated, monkeypatch, name, layout):  # noqa: F811
-    """Each shape of test_geometry_repair.py: float32 against the JAX
-    package's repaired Pallas kernel and the port's plain executor; float64
-    against the numpy oracle and plain.  The plan shows the vector form,
-    with a repair where the fields share no phase; every byte of the
-    caller's buffers outside the write window keeps its value (plain's)."""
+    """Each shape of test_geometry_repair.py by default -- no copy --
+    float32 against the JAX package's repaired Pallas kernel and the port's
+    plain executor, float64 against the numpy oracle and plain.  The plan
+    shows the vector row form where the fields share a 16-byte phase
+    ((K, I, J) buffers, but for ``NO_PHASE_KIJ``), the scalar row form
+    elsewhere, and no repair; in the (I, J, K) layout ``repair=True`` still
+    copies every field (none shares a phase) and runs the vector form on
+    the copies, with the same result.  Every byte of the caller's buffers
+    outside the write window keeps its value (plain's)."""
     defn, _, origins, domain, jax_repairs = CASES[name]
     monkeypatch.setattr(jconfig, "ASSUME_TPU_PLANNING", True)
     arrays = _fields(name, np.float32)
     pallas, jplan = _jax(defn, "pallas", arrays, origins, domain)
     if jax_repairs:
         assert jplan and (jplan.get("repair") or jplan.get("repair_domain")), jplan
+    rows = name != "serk"
+    contiguous = layout == "kij"
     for dtype in (np.float32, np.float64):
         d = _retyped(defn, dtype)
         arrays = _fields(name, dtype)
-        st, got = _port(d, "cuda", arrays, origins, domain, layout)
-        plan = cuda_backend.LAST_PLAN[defn.__name__]
-        size = np.dtype(dtype).itemsize
-        rows = name != "serk"
-        assert st.backend.launches == 1 and plan.get("vector") == (16 // size if rows else None), \
-            plan
-        if not rows:
-            repaired = set()
-        elif layout == "ijk":
-            repaired = set(arrays)
-        else:
-            repaired = REPAIRED_KIJ.get(name, {}).get(size, set())
-        assert set(plan.get("repair", {})) == repaired, plan
         _, plain = _port(d, "torch", arrays, origins, domain, layout)
         ref = _jax(d, "numpy", arrays, origins, domain)[0] if dtype == np.float64 else pallas
         tol = dict(rtol=1e-12, atol=0) if dtype == np.float64 else dict(rtol=2e-6, atol=2e-7)
-        for k in arrays:
-            np.testing.assert_array_equal(got[k], plain[k], err_msg=f"{dtype.__name__} {k}")
-            np.testing.assert_allclose(got[k], ref[k], err_msg=f"{dtype.__name__} {k}", **tol)
+        size = np.dtype(dtype).itemsize
+        runs = [{}] + ([{"repair": True}] if not contiguous else [])
+        for options in runs:
+            st, got = _port(d, "cuda", arrays, origins, domain, layout, **options)
+            plan = cuda_backend.LAST_PLAN[defn.__name__]
+            phase = contiguous and size not in NO_PHASE_KIJ.get(name, ())
+            vector = rows and (phase or bool(options))
+            assert st.backend.launches == 1, plan
+            assert plan.get("vector") == (16 // size if vector else None), plan
+            if options:
+                assert set(plan["repair"]) == set(arrays) and st.backend.repairs == 1, plan
+            else:
+                assert "repair" not in plan and "repair_bytes" not in plan, plan
+                assert st.backend.repairs == 0, plan
+            for k in arrays:
+                msg = f"{dtype.__name__} {k} {options}"
+                np.testing.assert_array_equal(got[k], plain[k], err_msg=msg)
+                np.testing.assert_allclose(got[k], ref[k], err_msg=msg, **tol)
 
 
 def test_phase_shift_needs_no_copy(emulated):  # noqa: F811
     """HALO-2 buffers, J rows of 516 float32 (2064 bytes, whole words),
     the origin at J element 2: the vector kernels' groups start on the
     common phase (j = 2 mod 4) and no field is copied; at halo 3 (518
-    floats a row) every field is."""
+    floats a row: the rows alternate between two phases) no field is
+    copied either, and the scalar row kernels run on the caller's
+    buffers."""
     got = {}
     for halo, backend in ((2, "cuda"), (2, "torch"), (3, "cuda"), (3, "torch")):
         shape = (4, 12 + 2 * halo, 512 + 2 * halo)
@@ -224,11 +237,8 @@ def test_phase_shift_needs_no_copy(emulated):  # noqa: F811
         got[(halo, backend)] = fn(a=a, b=torch.zeros_like(a))["b"]
         if backend == "cuda":
             plan = cuda_backend.LAST_PLAN["lapd"]
-            assert plan["vector"] == 4, plan
-            if halo == 2:
-                assert "repair" not in plan and st.backend.repairs == 0, plan
-            else:
-                assert set(plan["repair"]) == {"a", "b"} and st.backend.repairs == 1, plan
+            assert plan.get("vector") == (4 if halo == 2 else None), plan
+            assert "repair" not in plan and st.backend.repairs == 0, plan
     for halo in (2, 3):
         assert torch.equal(got[(halo, "cuda")], got[(halo, "torch")])
 
@@ -243,39 +253,50 @@ def _tight_hdiff(halo, options):
     return st, u, c, kw
 
 
-def test_cost_rule_both_ways(emulated, monkeypatch):  # noqa: F811
-    """A repair of at most 4 MiB of copies always pays; above it the
-    measured saving per node-point decides: with none, the scalar row form
-    runs and the plan records why; with a large one, the repair runs."""
-    st, u, c, kw = _tight_hdiff(3, {})
-    an = st.backend.analysis
-    assert repair.cost_ok(an, repair.SMALL_REPAIR_BYTES, (20, 24, 3))
-    fn = st.functional(**kw)
-    ref = p_dycore.make_hdiff(np.float32, "torch").functional(**kw)(
-        in_field=u, out_field=u, coeff=c)["out_field"]
-    monkeypatch.setattr(repair, "SMALL_REPAIR_BYTES", 0)
-    for saving, repaired in ((0.0, False), (1.0, True)):
-        monkeypatch.setattr(repair, "SAVING_S_PER_NODE_POINT", saving)
-        out = fn(in_field=u, out_field=u, coeff=c)["out_field"]
+def _ijk_hdiff(options):
+    """hdiff's row kernels on (I, J, K) arrays (J not contiguous)."""
+    st = p_dycore.make_hdiff(np.float32, "cuda", tiles=False, **options)
+    rng = np.random.default_rng(6)
+    u = torch.from_numpy(rng.random((26, 30, 3)).astype(np.float32))
+    c = torch.from_numpy(0.025 * rng.random((26, 30, 3)).astype(np.float32))
+    return st, u, c, dict(origin=(3, 3, 0), domain=(20, 24, 3))
+
+
+def test_cost_rule_both_ways(emulated):  # noqa: F811
+    """No cost rule is left to decide: by default a call is never repaired,
+    whether its copies would be small or large -- tight hdiff at halo 3
+    runs on the caller's buffers, its input staged at each row's phase --
+    and ``repair=True`` always repairs a non-periodic call whose fields
+    share no phase.  Both equal plain bit for bit."""
+    ref = None
+    for options, repaired in (({}, False), ({"repair": True}, True)):
+        st, u, c, kw = _tight_hdiff(3, options)
+        if ref is None:
+            ref = p_dycore.make_hdiff(np.float32, "torch").functional(**kw)(
+                in_field=u, out_field=u, coeff=c)["out_field"]
+        before = st.backend.repairs
+        out = st.functional(**kw)(in_field=u, out_field=u, coeff=c)["out_field"]
         plan = cuda_backend.LAST_PLAN[st.name]
-        assert bool(plan.get("repair")) == repaired, plan
-        assert (plan.get("vector") == 4) == repaired, plan
-        if not repaired:
-            assert plan["declined"]["repair"] == "cost", plan
+        assert (st.backend.repairs - before == 1) == repaired, plan
+        assert bool(plan.get("repair")) == repaired and plan["staging"] == {
+            "in_field": "row_phase"}, plan
+        assert "repair" not in plan["declined"], plan
         assert torch.equal(out, ref)
 
 
 def test_forced_options_raise_where_they_cannot_apply(emulated):  # noqa: F811
-    """``vector=True`` on geometry it cannot take that no repair can fix (a
-    periodic call, or ``repair=False``) raises, as does ``repair=True`` on
-    a periodic call or on fields that already share a phase; nothing falls
-    back to the scalar form quietly."""
-    st, u, c, kw = _tight_hdiff(3, {"vector": True})
+    """``vector=True`` on fields that are not J-contiguous, where no repair
+    can fix them (a periodic call, or ``repair=False``), raises, and
+    repairs them where it can; ``repair=True`` on a periodic call or on
+    fields that already share a phase raises; nothing falls back to the
+    scalar form quietly."""
+    st, u, c, kw = _ijk_hdiff({"vector": True})
     with pytest.raises(ValueError, match="periodic call is not repaired"):
         st.functional(**kw, periodic=("I", "J"))(in_field=u, out_field=u, coeff=c)
     st.functional(**kw)(in_field=u, out_field=u, coeff=c)
-    assert cuda_backend.LAST_PLAN[st.name]["repair"]
-    st, u, c, kw = _tight_hdiff(3, {"vector": True, "repair": False})
+    plan = cuda_backend.LAST_PLAN[st.name]
+    assert plan["repair"] and plan["vector"] == 4, plan
+    st, u, c, kw = _ijk_hdiff({"vector": True, "repair": False})
     with pytest.raises(ValueError, match="repair=False is not repaired"):
         st.functional(**kw)(in_field=u, out_field=u, coeff=c)
     st, u, c, kw = _tight_hdiff(3, {"repair": True})
@@ -286,13 +307,54 @@ def test_forced_options_raise_where_they_cannot_apply(emulated):  # noqa: F811
         st.functional(**kw)(in_field=u, out_field=u, coeff=c)
 
 
+def _offset_hdiff(options, patch, build, monkeypatch):
+    """hdiff on (K, I, J) buffers whose storages start 4 bytes into a
+    16-byte word (numpy arrays one element in), rows of 29 float32 (116
+    bytes: every phase), the domain reaching the buffers' first element,
+    built by ``build`` from its source patched by ``patch``: (call, plain
+    result)."""
+    monkeypatch.setattr(_build, "build", lambda src, name: build(patch(src), name))
+    st = p_dycore.make_hdiff(np.float32, "cuda", rebuild=True, **options)
+    rng = np.random.default_rng(8)
+    shape = (3, 24, 29)
+    ts = {}
+    for k in ("in_field", "coeff"):
+        buf = np.empty(int(np.prod(shape)) + 1, dtype=np.float32)[1:].reshape(shape)
+        buf[...] = rng.random(shape)
+        ts[k] = torch.from_numpy(buf)
+    kw = dict(origin=(2, 2, 0), domain=(20, 25, 3), physical_layout=True)
+    args = dict(in_field=ts["in_field"], out_field=ts["in_field"], coeff=ts["coeff"])
+    ref = p_dycore.make_hdiff(np.float32, "torch").functional(**kw)(**args)["out_field"]
+    return lambda: st.functional(**kw)(**args)["out_field"], ref
+
+
 def test_misaligned_vector_access_faults(emulated, monkeypatch):  # noqa: F811
-    """A vector kernel launched on a phase its fields do not share faults
-    (the emulated runtime checks every 16-byte access, as the card does):
-    the launch raises instead of computing from misaligned words; a
-    repair's copy off the phase is refused before the launch.  (hdiff's
-    tile kernel tests each word's alignment before a 16-byte copy, so the
-    vector row form is built here, with ``tiles=False``.)"""
+    """The emulated runtime faults on a 16-byte access that is misaligned
+    or leaves the fields' storages, as the card does; so the kernels' row
+    leads, storage tests and phases are what keep each word aligned and in
+    bounds.  On fields whose storages start one element into a word:
+    unpatched, the tile kernel and the vector row kernel equal plain; with
+    the staging's row lead dropped and its alignment test stripped, the
+    launch raises a misaligned address; with its storage test stripped,
+    the first rows' aligned-down words start before the storage and the
+    launch raises.  A vector row kernel launched on a phase its fields do
+    not share raises; a repair's copy off the phase is refused before the
+    launch."""
+    build = _build.build
+    for options in ({}, {"tiles": False}):
+        run, ref = _offset_hdiff(options, lambda src: src, build, monkeypatch)
+        assert torch.equal(run(), ref)
+    faults = [
+        (lambda src: src.replace("gt::lead16(&", "0 * gt::lead16(&").replace(
+            "(reinterpret_cast<size_t>(a_) & 15) == 0 && ", ""), "misaligned address"),
+        (lambda src: src.replace(".holds16(a_)", ".holds16(a_) || true"),
+         "outside the fields' storage"),
+    ]
+    for patch, match in faults:
+        run, _ = _offset_hdiff({}, patch, build, monkeypatch)
+        with pytest.raises(RuntimeError, match=match):
+            run()
+    monkeypatch.setattr(_build, "build", build)
     st, u, c, kw = _tight_hdiff(2, {"tiles": False})
     common_phase = repair.common_phase
     monkeypatch.setattr(repair, "common_phase", lambda cons: 1)
@@ -313,18 +375,19 @@ def test_misaligned_vector_access_faults(emulated, monkeypatch):  # noqa: F811
         return new, origins
 
     monkeypatch.setattr(repair, "pad_fields", off_by_one)
-    st, u, c, kw = _tight_hdiff(3, {})
+    st, u, c, kw = _tight_hdiff(3, {"tiles": False, "vector": True})
     with pytest.raises(RuntimeError, match="not on the vector kernels' 16-byte phase"):
         st.functional(**kw)(in_field=u, out_field=u, coeff=c)
 
 
 def test_gradient_through_a_repaired_stencil(emulated):  # noqa: F811
-    """K8 around a repaired launch: the primal from the repaired vector
-    kernels, the gradient from the plain executor, equal to the plain
-    backend's gradient bit for bit."""
+    """K8 around a repaired launch (``repair=True``): the primal from the
+    kernels on the repair's copies, the gradient from the plain executor,
+    equal to the plain backend's gradient bit for bit."""
     grads = {}
     for backend in ("cuda", "torch"):
-        st = p_dycore.make_hdiff(np.float64, backend)
+        st = p_dycore.make_hdiff(np.float64, backend,
+                                 **({"repair": True} if backend == "cuda" else {}))
         rng = np.random.default_rng(9)
         # rows of 31 float64 (248 bytes): no whole number of words
         u = torch.from_numpy(rng.random((3, 26, 31))).requires_grad_(True)

@@ -66,10 +66,11 @@ MODELS = {
                     ["utens_stage", "u_out"], {"dtr_stage": 3.0}, ["column"], 1),
     "dycore_fused": (dycore.make_dycore_fused, j_dycore.make_dycore_fused,
                      ["u", "coeff", "wcon", "utens", "utens_stage", "u_out"],
-                     ["utens_stage", "u_out"], {"dtr_stage": 3.0}, ["planes", "column"], 2),
+                     ["utens_stage", "u_out"], {"dtr_stage": 3.0}, ["tile", "column"], 2),
 }
 #: the split build each is held against
-SPLIT = {"vadv_update": {"fuse_loops": False}, "dycore_fused": {"fuse_loops": False}}
+SPLIT = {"vadv_update": {"fuse_loops": False},
+         "dycore_fused": {"fuse_loops": False, "tiles": False}}
 #: the build options that give the new form where it is not the default:
 #: sl_step's one stage runs the row kernel unless forced
 FORCE = {"sl_step": {"tiles": True}}
@@ -183,22 +184,33 @@ def test_column_store_in_device_memory_on_a_deep_column(emulated):  # noqa: F811
 
 
 def test_staged_inputs_take_sixteen_byte_copies_on_the_phase(emulated):  # noqa: F811
-    """hdiff's in_field is staged into the tile kernel's ring: with 16-byte
-    copies where the fields share a 16-byte phase (J origin 4 float32s),
-    with element copies under ``vector=False``; the same result."""
-    arrays = _arrays("hdiff", np.float32, seed=3, shape=(22, 32, 6))
+    """hdiff's in_field is staged into the tile kernel's ring with 16-byte
+    copies from each row's aligned-down word, whatever the row's phase: in
+    (K, I, J) buffers with rows of 33 float32 (132 bytes, so the rows of a
+    level start on every phase) at J origin 4; with element copies where J
+    is not contiguous (the (I, J, K) layout).  ``LAST_PLAN`` names the
+    staging; no call is repaired; the results equal each other and plain."""
+    arrays = _arrays("hdiff", np.float32, seed=3, shape=(22, 33, 6))
     got, copies = {}, {}
-    for vector in (None, False):
-        opts = {} if vector is None else {"vector": vector}
-        st = dycore.make_hdiff(np.float32, "cuda", **opts)
-        count = st.backend.build().gt_emu_copies16_count
-        before = count()
-        out = {k: torch.from_numpy(v.copy()) for k, v in arrays.items()}
+    for layout in ("kij", "ijk", "plain"):
+        st = dycore.make_hdiff(np.float32, "cuda" if layout != "plain" else "torch")
+        if layout == "kij":
+            out = {k: torch.from_numpy(np.ascontiguousarray(v.transpose(2, 0, 1))).permute(1, 2, 0)
+                   for k, v in arrays.items()}
+        else:
+            out = {k: torch.from_numpy(v.copy()) for k, v in arrays.items()}
+        if layout != "plain":
+            count = st.backend.build().gt_emu_copies16_count
+            before = count()
         st(**out, origin=(3, 4, 0), domain=DOMAIN)
-        copies[vector] = count() - before
-        got[vector] = out["out_field"]
-    assert copies[None] > 0 and copies[False] == 0
-    assert torch.equal(got[None], got[False])
+        if layout != "plain":
+            copies[layout] = count() - before
+            plan = cuda_backend.LAST_PLAN[st.name]
+            want = "row_phase" if layout == "kij" else "element"
+            assert plan["staging"] == {"in_field": want} and "repair" not in plan, plan
+        got[layout] = out["out_field"].contiguous()
+    assert copies["kij"] > 0 and copies["ijk"] == 0
+    assert torch.equal(got["kij"], got["plain"]) and torch.equal(got["ijk"], got["plain"])
 
 
 # --------------------------------------------------------------------------- #
