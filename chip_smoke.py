@@ -16,6 +16,11 @@ back-to-back pairs (``_sweep_pairs``) and the sweep at each tile of
 ``SWEEP_TILE_SWEEP``; ``--k6-k5 tight`` the first alone (it also runs
 against an older tree's package, with this script copied there).
 
+``python3 chip_smoke.py --k3`` runs the K3 phase alone (``_k3``,
+``_k3_library``; it also runs against an older tree's package, with this
+script copied there), ``--k3-tiles`` the staged kernel of
+``variable_k_offset`` at each CTA shape of ``K3_TILES``.
+
 ``python3 chip_smoke.py --profile-check`` profiles a 16 MiB add (one kernel
 a call) and a K9 permute of 2^20 words (three a call) ``PROFILE_AGE_S``
 seconds after a first profile, with and without a warm-up cycle and idle
@@ -57,7 +62,14 @@ Phases (a failed phase raises, and the script exits non-zero):
    the ``.at(K=...)`` forms (``gt4py_tpu_torch.testing.SURFACE``), in
    float64, each launched once with its count read around that run and its
    result held against the plain executor; one stencil per feature timed
-   at 512x512x80;
+   at 512x512x80; then the K3 phase: ``variable_k_offset`` at 512x512x80
+   float64 with offsets in [-3, 3] and over the whole column ([-80, 80]),
+   ``at_k_field``, ``variable_k_in_scan`` and ``at_k_in_scan``, each
+   bitwise against plain, the staged form against ``stage_vark=False`` in
+   device-time turns (parent, staged, staged, parent), with the launches
+   its library counts, the reads outside its windows and the bound; and
+   the PyTorch calls that compute K3's and K7's functions
+   (``torch.gather``), their times the two entries' ``library_ms``;
 6. the FullDycore path: ``FullDycore(512, 512, 80, float32, backend="cuda")``:
    fv_step and sl_step singly against plain (and at 64x256x16 float64),
    then 10 steps with the launch counts of every stencil read around them,
@@ -153,7 +165,8 @@ for the same function, its bytes (each input read once, each output written
 once) over 3.35 TB/s, the H100 SXM's memory rate (the stencils and K9 do a
 few operations per byte, so bytes bound them), and ``library_ms``, the time
 of one PyTorch call that computes the same function where there is one
-(none for the stencils; ``torch.index_select`` for K9).  K8's entry is the
+(``torch.index_select`` for K9, ``torch.gather`` for K3 and K7, none for
+the other stencils).  K8's entry is the
 FullDycore step's gradient: its launches are the calls that ran under K8,
 its bound the bytes of those calls' inputs, cotangents and input gradients.
 The line before the last is one JSON object with every kernel's launches,
@@ -428,10 +441,10 @@ def _bound_ms(nbytes) -> float:
     return nbytes / HBM_BYTES_PER_S * 1e3
 
 
-def _bound(analysis, shape) -> dict:
+def _bound(analysis, shape, library_ms=None) -> dict:
     """The ``bound_ms``/``bound_by``/``library_ms`` keys of a stencil."""
     return {"bound_ms": _bound_ms(_min_bytes(analysis, shape)), "bound_by": "bytes",
-            "library_ms": None}
+            "library_ms": library_ms}
 
 
 # --------------------------------------------------------------------------- #
@@ -2659,6 +2672,322 @@ def k6_k5(tight_only=False) -> int:
     return 1 if PROFILE_LOSSES else 0
 
 
+# --------------------------------------------------------------------------- #
+# the K3 phase: variable and absolute K
+# --------------------------------------------------------------------------- #
+
+#: case -> the stencil it runs (registry or ``testing.SURFACE``) at
+#: 512x512x80 float64; "wide" draws idx over the whole column, [-80, 80]
+K3_CASES = {"narrow": "variable_k_offset", "wide": "variable_k_offset",
+            "at_k_field": "at_k_field", "variable_k_in_scan": "variable_k_in_scan",
+            "at_k_in_scan": "at_k_in_scan"}
+#: the staged form against its parent (``stage_vark=False``) in device-time
+#: turns: parent, staged, staged, parent, this many times
+K3_PAIRS = 3
+
+
+def _k3_builds() -> dict:
+    """Each K3 case's stencils: the default build (``change``), for the
+    staged form's cases its parent form (``stage_vark=False``), and plain."""
+    from gt4py_tpu_torch import testing
+    from gt4py_tpu_torch.cartesian import gtscript
+
+    registry = testing.load_stencil_defs()
+    defs = {"variable_k_offset": testing.registry_case(registry["variable_k_offset"]),
+            **{n: testing.SURFACE[n] for n in K3_CASES.values() if n in testing.SURFACE}}
+    out = {}
+    for case, name in K3_CASES.items():
+        d, make_inputs, kw = defs[name]
+        forms = {"change": {}}
+        if name == "variable_k_offset":
+            forms = {"parent": {"stage_vark": False}, "change": {}}
+        out[case] = {"name": name, "make_inputs": make_inputs, "origin": kw.get("origin", _ZERO),
+                     "sts": {label: gtscript.stencil(backend="cuda", definition=d, rebuild=True,
+                                                     **opts) for label, opts in forms.items()},
+                     "plain": gtscript.stencil(backend="torch", definition=d, rebuild=True)}
+    return out
+
+
+def _k3_stencils(builds) -> list:
+    return [st for b in builds.values() for st in b["sts"].values()]
+
+
+def _kij_ints(lo, hi, seed, dev):
+    """Integers in [lo, hi] at 512x512x80, laid out as ``_scaled_inputs``
+    lays out its fields."""
+    import numpy as np
+    import torch
+
+    a = np.random.default_rng(seed).integers(lo, hi + 1, (NK, NI, NJ)).astype(np.int64)
+    return torch.from_numpy(a).to(dev).movedim(0, 2)
+
+
+def _k3_min_bytes(analysis, shape) -> int:
+    """``_min_bytes``, with a field read only at absolute levels whose index
+    does not vary along K counted as the levels it reads, one plane each,
+    and a field a serial loop writes and reads only behind its sweep, at
+    (0, 0, dk), as written once and read at |dk| planes (the levels before
+    the sweep's first)."""
+    import numpy as np
+
+    from gt4py_tpu_torch.cartesian import ir
+    from gt4py_tpu_torch.cartesian.analysis import _stmt_reads, _stmt_writes
+
+    st = analysis.stencil
+    reads, behind = {}, {}
+    for loop in st.vertical_loops:
+        back = {ir.LoopOrder.FORWARD: -1, ir.LoopOrder.BACKWARD: 1}.get(loop.loop_order, 0)
+        writes = {w.name for sec in loop.sections for s in sec.body for w in _stmt_writes(s)}
+        for sec in loop.sections:
+            for s in sec.body:
+                for r in _stmt_reads(s):
+                    reads.setdefault(r.name, []).append(r)
+                    o = r.offset
+                    ok = r.name in writes and isinstance(o, ir.CartesianOffset) and \
+                        not (o.i or o.j) and o.k * back > 0
+                    behind[r.name] = behind.get(r.name, True) and ok
+
+    def invariant(e) -> bool:
+        return not any(
+            (isinstance(n, ir.FieldAccess) and st.decl(n.name).dimensions[2])
+            or (isinstance(n, ir.AxisPosition) and n.axis == "K") for n in ir.walk_values(e))
+
+    n = _min_bytes(analysis, shape)
+    for name, rs in reads.items():
+        info = analysis.field_info.get(name)
+        if info is None:
+            continue
+        plane = shape[0] * shape[1] * np.dtype(info.dtype).itemsize
+        if info.access.value & 2:
+            if behind[name]:
+                n -= plane * shape[2] - plane * max(abs(r.offset.k) for r in rs)
+        elif all(isinstance(r.offset, ir.AbsoluteKIndex) and invariant(r.offset.k) for r in rs):
+            n -= plane * shape[2] - plane * len({repr(r.offset.k) for r in rs})
+    return n
+
+
+def _k3(builds, dev) -> dict:
+    """Each K3 case at 512x512x80 float64: every build's result against
+    plain (bitwise, and within the float64 tolerance), the kernel launches
+    its library counts a call, its reads outside the staged windows
+    (``backend.outside_reads``), its device ms a launch in turns (parent,
+    staged, staged, parent; ``K3_PAIRS`` times), one call at a time, its
+    plan and registers, and the bound."""
+    import torch
+
+    from gt4py_tpu_torch.cartesian.backend.cuda_backend import LAST_PLAN
+
+    out = {}
+    for case, b in builds.items():
+        tensors, scalars = _scaled_inputs(b["make_inputs"], (NI, NJ, NK), dev)
+        if case == "wide":
+            tensors["idx"] = _kij_ints(-NK, NK, 1, dev)
+        plain = b["plain"]
+        written = [k for k in tensors if plain.field_info[k].access.value & 2]
+        origin = b["origin"]
+        ref = {k: v.clone() if k in written else v for k, v in tensors.items()}
+        plain(**ref, **scalars, origin=origin)
+        res = {"stencil": b["name"], "forms": {}, "bitwise": {}, "max_abs_err": {},
+               "launches_a_call": {}, "outside_reads": {}, "device_ms": {}, "one_call_ms": {},
+               "registers": {}}
+        calls = {}
+        for label, st in b["sts"].items():
+            args = {k: v.clone() if k in written else v for k, v in tensors.items()}
+            st.backend.build()
+            before = st.backend.device_launches()["all"]
+            reads = getattr(st.backend, "outside_reads", dict)
+            seen = sum(reads().values())
+            st(**args, **scalars, origin=origin)
+            torch.cuda.synchronize()
+            res["launches_a_call"][label] = st.backend.device_launches()["all"] - before
+            res["outside_reads"][label] = sum(reads().values()) - seen
+            plan = LAST_PLAN[st.analysis.stencil.name]
+            res["forms"][label] = {k: plan.get(k) for k in ("forms", "vark", "vector", "declined")}
+            res["registers"][label] = _ptxas(st)
+            res["bitwise"][label] = all(torch.equal(args[k], ref[k]) for k in written)
+            res["max_abs_err"][label] = max(
+                _check_close(f"K3 {case} {label} {k}", args[k], ref[k], RTOL_F64, ATOL_F64)[0]
+                for k in written)
+            # the call writes in place: repeated calls do the same work
+            calls[label] = (st, lambda st=st, args=args: st(**args, **scalars, origin=origin))
+        order = ["parent", "change", "change", "parent"] * K3_PAIRS if "parent" in calls \
+            else ["change"] * (2 * K3_PAIRS)
+        for label in order:
+            st, call = calls[label]
+            part = st.analysis.stencil.name
+            _, rows = _device_ms(call, counted=[
+                (part, lambda st=st: st.backend.device_launches()["all"])])
+            own = [(ms, n) for k, (ms, n) in rows.items() if part in k]
+            res["device_ms"].setdefault(label, []).append(
+                sum(ms for ms, _ in own) / max(1.0, sum(n for _, n in own)))
+        for label, (st, call) in calls.items():
+            res["one_call_ms"][label] = _time_ms(call, TIMING_REPS)
+        res["plain_ms"] = _time_ms(
+            lambda: plain(**{k: v.clone() if k in written else v for k, v in tensors.items()},
+                          **scalars, origin=origin), PLAIN_TIMING_REPS)
+        res["bound_ms"] = _bound_ms(_k3_min_bytes(plain.analysis, (NI, NJ, NK)))
+        best = min(res["device_ms"]["change"])
+        print(f"K3 {case} ({b['name']}, 512x512x80 f64): device ms a launch "
+              + ", ".join(f"{label} {[round(x, 4) for x in v]}"
+                          for label, v in res["device_ms"].items())
+              + f"; one call {res['one_call_ms']}; bound {res['bound_ms']:.4f} ms "
+              f"({100 * res['bound_ms'] / best:.1f} % of it at {best:.4f}); launches a call "
+              f"{res['launches_a_call']}; reads outside the windows {res['outside_reads']}; "
+              f"bitwise equal to plain {res['bitwise']}; forms "
+              f"{ {k: v['forms'] for k, v in res['forms'].items()} }; windows "
+              f"{res['forms']['change']['vark']}; {res['registers']['change']}")
+        if not all(res["bitwise"].values()):
+            raise AssertionError(f"K3 {case}: a build differs from plain bit for bit: {res}")
+        if any(n < 1 for n in res["launches_a_call"].values()):
+            raise AssertionError(f"K3 {case}: no kernel launch counted: {res}")
+        out[case] = res
+    return out
+
+
+def _k3_library(dev) -> dict:
+    """One PyTorch call that computes K3's and K7's functions on the timed
+    stencils' inputs at 512x512x80 float64, held bitwise to plain: K3's
+    ``variable_k_offset`` as ``torch.gather`` along K with the clipped
+    absolute level precomputed, K7's ``data_dims_dynamic_index`` as
+    ``torch.gather`` along the data dimension plus the add, with ``idx % 3``
+    precomputed; each timed one call at a time and by device time, and the
+    index arithmetic beside it."""
+    import torch
+
+    from gt4py_tpu_torch import testing
+    from gt4py_tpu_torch.cartesian import gtscript
+
+    registry = testing.load_stencil_defs()
+    out = {}
+    for key, name in (("k3", "variable_k_offset"), ("k7", "data_dims_dynamic_index")):
+        d, make_inputs, kw = testing.registry_case(registry[name])
+        t, scalars = _scaled_inputs(make_inputs, (NI, NJ, NK), dev)
+        plain = gtscript.stencil(backend="torch", definition=d, rebuild=True)
+        ref = {**t, "out": t["out"].clone()}
+        plain(**ref, **scalars, origin=kw.get("origin", _ZERO))
+        if key == "k3":
+            inp, idx = t["inp"].permute(2, 0, 1), t["idx"].permute(2, 0, 1)
+            levels = torch.arange(NK, device=dev).view(NK, 1, 1)
+
+            def index(idx=idx, levels=levels):
+                return (levels + idx).clamp_(0, NK - 1)
+
+            at = index()
+
+            def call(inp=inp, at=at):
+                return torch.gather(inp, 0, at)
+
+            got = call().permute(1, 2, 0)
+        else:
+            vec, idx = t["vec"], t["idx"]
+
+            def index(idx=idx):
+                return torch.remainder(idx, 3).unsqueeze(3)
+
+            at = index()
+
+            def call(vec=vec, at=at):
+                return torch.gather(vec, 3, at).squeeze(3) + vec[..., 1]
+
+            got = call()
+        if not torch.equal(got, ref["out"]):
+            raise AssertionError(f"the library call for {name} differs from plain")
+        out[key] = {"stencil": name, "call": "torch.gather" + (" + add" if key == "k7" else ""),
+                    "one_call_ms": _time_ms(call, TIMING_REPS),
+                    "device_ms": _device_ms(call)[0],
+                    "index_one_call_ms": _time_ms(index, TIMING_REPS),
+                    "index_device_ms": _device_ms(index)[0]}
+        print(f"library {key} ({name}, 512x512x80 f64, bitwise equal to plain): "
+              f"{out[key]['call']} {out[key]['one_call_ms']:.4f} ms one call at a time, "
+              f"{out[key]['device_ms']:.4f} ms of device time; its index arithmetic "
+              f"{out[key]['index_one_call_ms']:.4f} / {out[key]['index_device_ms']:.4f} ms")
+    return out
+
+
+#: ``--k3-tiles``: the staged form's (TI, TJ) columns and level lanes a CTA
+K3_TILES = ((1, 32, 8), (1, 32, 4), (1, 32, 16), (2, 32, 4), (1, 64, 4))
+
+
+def k3_tiles() -> int:
+    """``--k3-tiles``: ``variable_k_offset``'s staged kernel at each of
+    ``K3_TILES`` on the narrow and the wide offsets, device ms a launch,
+    each result bitwise against plain; one JSON line."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from gt4py_tpu_torch import testing
+    from gt4py_tpu_torch.cartesian import gtscript
+    from gt4py_tpu_torch.cartesian.backend import cuda_backend
+    from gt4py_tpu_torch.next.compiled_program import build_all
+
+    dev = torch.device("cuda", 0)
+    smi = _nvidia_smi()
+    d, make_inputs, _ = testing.registry_case(testing.load_stencil_defs()["variable_k_offset"])
+    sts = {}
+    saved = cuda_backend.VK_TILE, cuda_backend.VK_LANES
+    for TI, TJ, LZ in K3_TILES:
+        cuda_backend.VK_TILE, cuda_backend.VK_LANES = (TI, TJ), LZ
+        try:
+            sts[(TI, TJ, LZ)] = gtscript.stencil(backend="cuda", definition=d, rebuild=True)
+        finally:
+            cuda_backend.VK_TILE, cuda_backend.VK_LANES = saved
+    plain = gtscript.stencil(backend="torch", definition=d, rebuild=True)
+    build_all([st.backend for st in sts.values()])
+    tensors, _ = _scaled_inputs(make_inputs, (NI, NJ, NK), dev)
+    out = {}
+    for case in ("narrow", "wide"):
+        t = dict(tensors, idx=_kij_ints(-NK, NK, 1, dev)) if case == "wide" else tensors
+        ref = dict(t, out=t["out"].clone())
+        plain(**ref)
+        for key, st in sts.items():
+            args = dict(t, out=t["out"].clone())
+            st(**args)
+            if not torch.equal(args["out"], ref["out"]):
+                raise AssertionError(f"K3 tile {key} {case}: differs from plain")
+            part = st.analysis.stencil.name
+            times = []
+            for _ in range(2):
+                _, rows = _device_ms(lambda st=st, args=args: st(**args), counted=[
+                    (part, lambda st=st: st.backend.device_launches()["all"])])
+                times.append(sum(ms for k, (ms, _) in rows.items() if part in k))
+            plan = cuda_backend.LAST_PLAN[part]["vark"][0]
+            out[f"{case} {key}"] = {"device_ms": times, "smem_bytes": plan["smem_bytes"],
+                                    "ctas_per_sm": plan["ctas_per_sm"],
+                                    "levels": plan["levels"], "registers": _ptxas(st)}
+            print(f"K3 {case} tile {key}: {times} ms of device time a launch, {out[f'{case} {key}']}")
+    print(smi)
+    print(json.dumps({"k3_tiles": out, "card": smi, "profile_losses": PROFILE_LOSSES}))
+    return 1 if PROFILE_LOSSES else 0
+
+
+def k3_only() -> int:
+    """``--k3``: the K3 phase alone (its builds, the cases, the library
+    times); it also runs against an older tree's package, with this script
+    copied there (``stage_vark`` unknown there: both builds the old form)."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from gt4py_tpu_torch.next.compiled_program import build_all
+
+    dev = torch.device("cuda", 0)
+    smi = _nvidia_smi()
+    print(f"card: {smi}")
+    builds = _k3_builds()
+    t0 = time.perf_counter()
+    n = build_all([st.backend for st in _k3_stencils(builds)])
+    print(f"build: {n} sources, {time.perf_counter() - t0:.2f} s (nvcc in parallel)")
+    result = {"k3": _k3(builds, dev), "library": _k3_library(dev)}
+    print(smi)
+    print(json.dumps({**result, "profile_losses": PROFILE_LOSSES, "card": smi}, default=str))
+    return 1 if PROFILE_LOSSES else 0
+
+
 def main() -> int:
     import torch
 
@@ -2746,9 +3075,10 @@ def main() -> int:
     # split builds, float32 at 512x512x80 and float64 at 64x256x16
     p12 = _phase12_builds(dev)
     # phase 4: the fused stencil's sweep, plane-sweep and split forms (K5);
-    # phase 11: the tile kernels on tight buffers (K6)
+    # phase 11: the tile kernels on tight buffers (K6); the K3 phase
     sweep_sts = _sweep_builds()
     tight = _tight_builds()
+    k3_builds = _k3_builds()
     next_cases = {key: bench_cases(c["dtype"], c["shape"], dev) for key, c in configs.items()}
     next_kernels = [b for cases in next_cases.values() for case in cases.values()
                     for b in case["kernels"]()]
@@ -2757,7 +3087,7 @@ def main() -> int:
         [st.backend for st in main_stencils + list(surface_stencils.values()) + bf16_stencils
          + phase10_stencils + _phase11_stencils(p11) + _phase12_stencils(p12)
             + [st for label, st in sweep_sts.items() if label != "plain"]
-            + [st for st, _ in tight["builds"].values()]]
+            + [st for st, _ in tight["builds"].values()] + _k3_stencils(k3_builds)]
         + next_kernels + [benes.KERNEL])
     build_s = time.perf_counter() - t0
     print(f"build: {n_sources} sources, {build_s:.2f} s (nvcc in parallel)")
@@ -2960,7 +3290,9 @@ def main() -> int:
         "plan": fused_plan,
     })
 
-    # -- 5. the language surface (float64) ----------------------------------
+    # -- 5. the language surface (float64), then the K3 phase ----------------
+    k3 = {"cases": _k3(k3_builds, dev), "library": _k3_library(dev)}
+    library = {"vark": k3["library"]["k3"], "data_dims": k3["library"]["k7"]}
     for feature, names in SURFACE_FEATURES.items():
         total, worst = 0, 0.0
         for name in names:
@@ -3012,10 +3344,17 @@ def main() -> int:
             "max_abs_err": worst,
             "ms": timed["cuda"],
             "plain_ms": timed["torch"],
-            **_bound(st.analysis, (NI, NJ, NK)),
+            **_bound(st.analysis, (NI, NJ, NK),
+                     library[feature]["one_call_ms"] if feature in library else None),
             "device_ms": device[0],
             "device_launches_a_call": device[1],
         })
+        if feature in library:
+            kernels[-1]["library"] = library[feature]
+        if feature == "vark":
+            kernels[-1]["k3"] = {case: {k: r[k] for k in (
+                "device_ms", "one_call_ms", "bound_ms", "launches_a_call", "outside_reads",
+                "bitwise")} for case, r in k3["cases"].items()}
 
     # -- 6. the FullDycore path ---------------------------------------------
     fv_errors = {}
@@ -3314,6 +3653,8 @@ def k9_layouts() -> int:
 
 if __name__ == "__main__":
     sys.exit(k9_layouts() if sys.argv[1:] == ["--k9-layouts"] else
+             k3_only() if sys.argv[1:] == ["--k3"] else
+             k3_tiles() if sys.argv[1:] == ["--k3-tiles"] else
              tiles_only() if sys.argv[1:] == ["--tiles"] else
              profile_check() if sys.argv[1:] == ["--profile-check"] else
              tile_sweep() if sys.argv[1:] == ["--tile-sweep"] else

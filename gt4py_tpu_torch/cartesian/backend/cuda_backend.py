@@ -124,11 +124,28 @@ emitters turn each vertical loop into ``__global__`` kernels:
   in the load address; there is no fill pass.  A written field read at a
   horizontal offset is filled in its fresh output buffer before the kernels
   (the oracle's pre-run fill).
-- **Variable and absolute K** (K3; ``JaxTracer._read_nonuniform_k``).  A
-  direct indexed load at the level clipped to the buffer's K range, as the
-  oracle clips.  In the row form such a read of a field written earlier
-  in the stage starts a new stage, like a nonzero offset; in the column
-  form it reads what the sweep has written so far.
+- **Variable and absolute K** (K3; ``JaxTracer._read_nonuniform_k``, whose
+  TPU kernel keeps the column in VMEM).  A row stage that reads, at a
+  variable K, a 3-D field the stencil only reads runs in the **staged
+  form** (``VarkPlan``, ``_emit_vark``; ``LAST_PLAN[name]["vark"]``): a
+  CTA of ``VK_TILE`` columns times ``VK_LANES`` levels marches the stage's
+  levels, the field's levels for its columns in a shared-memory window --
+  the whole buffer column when it fits ``VK_BUDGET``, else a ring of levels
+  around the step refilled with ``cp.async`` -- each window row staged
+  from its aligned-down 16-byte word; the read is a shared-memory load at
+  the level clipped to the buffer's K range, as the oracle clips, and a
+  level the window does not hold loads from device memory and is counted
+  (``CudaBackend.outside_reads``).  ``stage_vark=False`` keeps the row
+  kernels; a multi-stage section the tile form runs keeps its
+  variable-K reads in device memory (``VARK_IN_TILE``).  Elsewhere the
+  read is a direct load at the clipped level.  A read at an absolute K
+  whose index does not vary along K (a literal, a scalar, a field without
+  a K axis) and whose field the kernel does not write is loaded once,
+  before the K loop (``_hoistable``): into a register in the row, vector
+  row, staged and fused column forms, a shared plane in the tile and
+  plane-sweep forms.  In the row form a variable-K read of a field written
+  earlier in the stage starts a new stage, like a nonzero offset; in the
+  column form it reads what the sweep has written so far.
 - **Data dimensions** (K7; Pallas ``_trace_split_data_dims``).  A field
   ``(K, I, J, *D)`` is passed whole with its data strides; a component is
   one more term in the load or store address.  Constant indices fold,
@@ -281,6 +298,25 @@ TILE_CTAS_MIN = 2
 #: vector row kernel in every chip call (``chip_smoke.py`` phase 12, PERF.md)
 ONE_STAGE = ("cuda backend: one stage, nothing to keep on chip between stages: the row "
              "kernel (tiles=True forces the tile form)")
+#: the staged form of variable-K reads (K3): a CTA of ``VK_TILE`` (I, J)
+#: columns times ``VK_LANES`` levels (256 threads) marches the stage's K
+#: range ``VK_LANES`` levels a step, the levels of each gathered field in
+#: a shared-memory window: the whole buffer column when it fits
+#: ``VK_BUDGET`` bytes (``VK_CTAS_PER_SM`` CTAs a SM, the most 256-thread
+#: CTAs a SM holds), else a ring of levels around the step, at least
+#: ``VK_MIN_RING`` deep.  On the H100 (``chip_smoke.py --k3-tiles``,
+#: PERF.md, K3) variable_k_offset at 512 x 512 x 80 float64 took 0.1834 ms
+#: of device time at 1 x 32 x 8 (8 CTAs a SM), 0.2036 at 1 x 64 x 4 and
+#: 0.2059 at 2 x 32 x 4 (5 CTAs a SM each, the whole column)
+VK_TILE = (1, 32)
+VK_LANES = 8
+VK_CTAS_PER_SM = 8
+VK_BUDGET = (228 * 1024) // VK_CTAS_PER_SM - 1024
+VK_MIN_RING = 2 * VK_LANES + 1
+#: why a section the tile form runs keeps its variable-K reads in device
+#: memory: its stages share on-chip planes level by level
+VARK_IN_TILE = ("cuda backend: the tile form runs the section, its variable-K reads loaded "
+                "from device memory (stage_vark=True runs its row stages in the staged form)")
 #: the sweep form (K5): its (TI, TJ) tiles, first choice first, one thread
 #: a column (TI TJ threads); the first whose shared bytes fit; a ring
 #: deeper than ``SWEEP_RING_MAX`` levels declines.  On the
@@ -629,10 +665,20 @@ class PlanePlan:
     widened: Dict[int, Extent] = field(default_factory=dict)
     #: field -> the union of its writers' widened rectangles
     widened_fields: Dict[str, Extent] = field(default_factory=dict)
+    #: K-invariant absolute reads (``_hoistable``) loaded into shared
+    #: planes before the K loop: (read, the rectangle of the statements
+    #: that read it (tile-relative), the same in the domain, unwidened)
+    hoisted: List[Tuple[ir.FieldAccess, Extent, Extent]] = field(default_factory=list)
 
     def extent(self, analysis: StencilAnalysis, s: ir.Stmt) -> Extent:
         """The rectangle the CTA computes ``s`` over (tile-relative)."""
         return self.widened.get(id(s)) or analysis.extents.stmt_extent(s)
+
+
+def _hoist_bytes(st: ir.Stencil, hoisted, tile: Tuple[int, int]) -> int:
+    """Shared bytes of the hoisted reads' planes at ``tile``."""
+    return sum(_align16((tile[0] + e.i[1] - e.i[0]) * (tile[1] + e.j[1] - e.j[0])
+                        * _value_size(st.decl(r.name).dtype)) for r, e, _ in hoisted)
 
 
 def _covers(outer: Extent, inner: Extent) -> bool:
@@ -757,13 +803,54 @@ class VectorPlan:
 
 
 @dataclass
+class VarkPlan:
+    """The staged form (K3 on Hopper) of a row-form stage that reads fields
+    at a variable K: one CTA of ``tile`` columns times ``lanes`` levels
+    marches the stage's levels, ``lanes`` a step; each field of ``fields``
+    -- (name, pitch, lanes16, value bytes) -- keeps its levels for the
+    CTA's columns in a shared-memory window of S levels (S set at launch,
+    ``_vark_slots``), each window row staged from its aligned-down 16-byte
+    word (``lanes16`` elements a copy; 0: the values are converted and
+    loaded synchronously), ``pitch`` elements a row."""
+
+    tile: Tuple[int, int]
+    lanes: int
+    fields: List[Tuple[str, int, int, int]]
+
+    def level_bytes(self, n: int) -> int:
+        """Bytes one level of field ``n``'s window takes."""
+        _, pitch, _, size = self.fields[n]
+        return self.tile[0] * pitch * size
+
+    def window_bytes(self, slots: Sequence[int]) -> int:
+        return max(16, sum(_align16(s * self.level_bytes(n)) for n, s in enumerate(slots)))
+
+    def record(self, name: str) -> dict:
+        return {"kernel": name, "tile": list(self.tile), "lanes": self.lanes,
+                "threads": self.tile[0] * self.tile[1] * self.lanes,
+                "fields": [n for n, *_ in self.fields]}
+
+
+def _vark_slots(vp: VarkPlan, levels: Sequence[int]) -> List[int]:
+    """Each window's levels for buffers of ``levels`` levels: all of them
+    (the whole column) when every window fits ``VK_BUDGET``, else one ring
+    depth S for all, the most the budget holds (at least ``VK_MIN_RING``),
+    a field with fewer levels keeping its whole column."""
+    per = [vp.level_bytes(n) for n in range(len(vp.fields))]
+    if sum(_align16(n * b) for n, b in zip(levels, per)) <= VK_BUDGET:
+        return list(levels)
+    ring = max(VK_MIN_RING, VK_BUDGET // sum(per))
+    return [min(n, ring) for n in levels]
+
+
+@dataclass
 class KernelPlan:
-    """One ``__global__`` kernel: a row-form stage, a column-form loop, a
-    plane-sweep loop, a PARALLEL section's tile kernel or a run of serial
-    loops' fused column kernel."""
+    """One ``__global__`` kernel: a row-form stage (or its staged form), a
+    column-form loop, a plane-sweep loop, a PARALLEL section's tile kernel
+    or a run of serial loops' fused column kernel."""
 
     name: str
-    form: str  # "rows" | "columns" | "planes" | "tile" | "column" | "sweep"
+    form: str  # "rows" | "vark" | "columns" | "planes" | "tile" | "column" | "sweep"
     order: ir.LoopOrder
     #: (global section index, statements) in execution order
     sections: List[Tuple[int, List[ir.Stmt]]]
@@ -775,6 +862,8 @@ class KernelPlan:
     window: Optional[WindowPlan] = None
     #: the vector variant (row form only, when a J-contiguous field exists)
     vector: Optional[VectorPlan] = None
+    #: the staged form's plan (form "vark")
+    vark: Optional[VarkPlan] = None
     #: the tile form's plan (form "tile")
     tile: Optional["TilePlan"] = None
     #: the fused column kernel's loops (form "column")
@@ -819,6 +908,87 @@ def _split_stages(stmts: List[ir.Stmt]) -> List[List[ir.Stmt]]:
     if cur:
         stages.append(cur)
     return stages
+
+
+def _k_invariant(st: ir.Stencil, e: ir.Expr) -> bool:
+    """``e`` has one value along K in a column: literals, scalars, the I
+    and J positions and fields without a K axis read at the point, and
+    arithmetic of those."""
+    for node in ir.walk_values(e):
+        if isinstance(node, ir.FieldAccess):
+            if st.decl(node.name).dimensions[2] or node.data_index or not isinstance(
+                    node.offset, ir.CartesianOffset):
+                return False
+        elif isinstance(node, ir.AxisPosition) and node.axis == "K":
+            return False
+    return True
+
+
+def _hoistable(st: ir.Stencil, stmts: Sequence[ir.Stmt], written) -> List[ir.FieldAccess]:
+    """The reads of ``stmts`` at an absolute K whose index (and data index)
+    does not vary along K, of fields not in ``written``: one load a column
+    serves every level.  A field the kernel writes keeps its reads in the
+    K loop, where they see the writes."""
+    out = []
+    for s in stmts:
+        for r in _stmt_reads(s):
+            if isinstance(r.offset, ir.AbsoluteKIndex) and r.name not in written \
+                    and _k_invariant(st, r.offset.k) \
+                    and all(_k_invariant(st, d) for d in r.data_index):
+                out.append(r)
+    return out
+
+
+def _hoist_extents(ext, stmts: Sequence[ir.Stmt], reads, extent=None) -> Dict[int, Extent]:
+    """Each hoisted read (by ``id``) -> the union of the extents of the
+    top-level statements that hold it (``extent(s)``: a statement's
+    rectangle, its extent by default)."""
+    ids = {id(r) for r in reads}
+    out: Dict[int, Extent] = {}
+    for s in stmts:
+        e = extent(s) if extent else ext.stmt_extent(s)
+        e = Extent(i=e.i, j=e.j)
+        for r in _stmt_reads(s):
+            if id(r) in ids:
+                out[id(r)] = out.get(id(r), e) | e
+    return out
+
+
+def _vark_plan(st: ir.Stencil, stmts: List[ir.Stmt], written_by_stencil) -> VarkPlan:
+    """The staged form of a row-form stage, or ``_Decline``: it stages the
+    fields the stage reads at a variable K that are 3-D, without data
+    dimensions, and that the stencil does not write (a field written by
+    any of its kernels is read from device memory)."""
+    names, why = [], None
+    for s in stmts:
+        for r in _stmt_reads(s):
+            if not isinstance(r.offset, ir.VariableKOffset) or r.name in names:
+                continue
+            decl = st.decl(r.name)
+            if r.name in written_by_stencil:
+                why = why or f"'{r.name}' is written by the stencil"
+            elif r.name not in st.field_decls:
+                why = why or f"'{r.name}' is a temporary"
+            elif decl.data_dims or not all(decl.dimensions):
+                why = why or f"'{r.name}' has data dimensions or lacks an I, J or K axis"
+            else:
+                names.append(r.name)
+    if not names:
+        raise _Decline("cuda backend: the staged form stages a 3-D field the stencil only reads, "
+                       "read at a variable K; " + (why or "the stage reads none at a variable K"))
+    TI, TJ = VK_TILE
+    fields = []
+    for n in names:
+        dt = np.dtype(st.decl(n).dtype)
+        size = _value_size(dt)
+        lanes = 16 // size if dt.itemsize == size and size in (4, 8) else 0
+        pitch = -(-(TJ + lanes - 1) // lanes) * lanes if lanes else TJ
+        fields.append((n, pitch, lanes, size))
+    vp = VarkPlan(tile=VK_TILE, lanes=VK_LANES, fields=fields)
+    if vp.window_bytes([VK_MIN_RING] * len(fields)) > SMEM_MAX:
+        raise _Decline(f"cuda backend: the staged form's windows need more than {SMEM_MAX} "
+                       f"bytes at a ring of {VK_MIN_RING} levels")
+    return vp
 
 
 def _plane_stages(stmts: List[ir.Stmt]) -> List[List[ir.Stmt]]:
@@ -940,10 +1110,17 @@ def _plan_planes(analysis: StencilAnalysis, order: ir.LoopOrder,
     for n in sorted(mirror):
         shared[n] = plane_ext[n]
 
+    stmts = [s for _, body in secs for s in body]
+    hoist = _hoistable(st, stmts, written)
+    rects = _hoist_extents(ext, stmts, hoist,
+                           lambda s: widened.get(id(s)) or ext.stmt_extent(s))
+    doms = _hoist_extents(ext, stmts, hoist)
+    hoisted = [(r, rects[id(r)], doms[id(r)]) for r in hoist]
+
     def nbytes(tile):
         return sum(_align16((tile[0] + e.i[1] - e.i[0]) * (tile[1] + e.j[1] - e.j[0])
                             * _value_size(st.decl(n).dtype) * mirror.get(n, 1))
-                   for n, e in shared.items())
+                   for n, e in shared.items()) + _hoist_bytes(st, hoisted, tile)
 
     fits = [t for t in PLANE_TILES if nbytes(t) <= SMEM_MAX] if choose_tile else PLANE_TILES
     if not fits:
@@ -955,7 +1132,7 @@ def _plan_planes(analysis: StencilAnalysis, order: ir.LoopOrder,
                      registers=registers, smem_bytes=max(16, nbytes(tile)),
                      snapshots=sorted(set(snapshots.values())),
                      snapshot_reads=frozenset(snapshots),
-                     widened=widened, widened_fields=widened_fields)
+                     widened=widened, widened_fields=widened_fields, hoisted=hoisted)
 
 
 def _ij_hazard(loop: ir.VerticalLoop) -> bool:
@@ -1153,7 +1330,7 @@ def _plan_tile(analysis: StencilAnalysis, sid: int, body: List[ir.Stmt],
         slot, slot_bytes = _assign_slots(live, size)
         inputs = _staged_inputs(st, tile, staged)
         nin = _staging_layout(st, tile, inputs)[1]
-        smem = max(16, sum(slot_bytes) + 2 * nin)
+        smem = max(16, sum(slot_bytes) + 2 * nin + _hoist_bytes(st, pp.hoisted, tile))
         return slot, slot_bytes, inputs, nin, smem
 
     plans = [(tile, plan(tile)) for tile in TILE_SHAPES]
@@ -1378,13 +1555,21 @@ def _fuse_conflict(a, b) -> Optional[str]:
     return None
 
 
+def _reads_vark(stmts) -> bool:
+    return any(isinstance(r.offset, ir.VariableKOffset) for s in stmts for r in _stmt_reads(s))
+
+
 def plan_kernels(analysis: StencilAnalysis, planes_loops=frozenset(),
                  tiles: Optional[bool] = None, fuse_loops: Optional[bool] = None,
                  declined: Optional[Dict[str, str]] = None,
-                 sweep: Optional[bool] = None) -> List[KernelPlan]:
+                 sweep: Optional[bool] = None,
+                 stage_vark: Optional[bool] = None) -> List[KernelPlan]:
     """The kernels of a stencil in launch order: a tile kernel per
     PARALLEL section (``tiles`` not False; the stage-split row kernels
-    where it declines or ``tiles=False``), a plane-sweep kernel for the
+    where it declines or ``tiles=False``; each row stage that reads a field
+    at a variable K in the staged form, ``_vark_plan``, unless
+    ``stage_vark=False``; ``stage_vark=True`` runs a section that reads
+    one as row stages in the staged form, or raises), a plane-sweep kernel for the
     serial loops in ``planes_loops`` (by index) and those that read, at a
     horizontal offset, a field they write, a column kernel for the other
     serial loops, and after each run of consecutive column loops their
@@ -1405,6 +1590,8 @@ def plan_kernels(analysis: StencilAnalysis, planes_loops=frozenset(),
     #: plans of the serialized PARALLEL loops (by index in ``plans``)
     serial_planes: set = set()
     touching = _touching_sections(st)
+    stencil_writes = {w.name for loop in st.vertical_loops for sec in loop.sections
+                      for s in sec.body for w in _stmt_writes(s)}
     #: consecutive column loops: (plans index, loop sections) of the run
     run: List[Tuple[int, list]] = []
     groups: List[List[Tuple[int, list]]] = []
@@ -1415,7 +1602,14 @@ def plan_kernels(analysis: StencilAnalysis, planes_loops=frozenset(),
                 run = []
             for section in loop.sections:
                 tp = None
-                if tiles is not False:
+                vark = stage_vark is not False and _reads_vark(section.body)
+                if stage_vark and vark:
+                    if tiles:
+                        raise _Forced("cuda backend: tiles=True and stage_vark=True ask for "
+                                      "two forms of one section")
+                    declined.setdefault("tiles", "cuda backend: stage_vark=True: the section's "
+                                        "row stages in the staged form")
+                elif tiles is not False:
                     try:
                         tp = _plan_tile(analysis, sec_id, section.body,
                                         _section_local_temps(st, sec_id, section.body,
@@ -1431,10 +1625,22 @@ def plan_kernels(analysis: StencilAnalysis, planes_loops=frozenset(),
                     plans.append(KernelPlan(name="", form="tile", order=loop.loop_order,
                                             sections=[(sec_id, section.body)],
                                             planes=tp.planes, tile=tp))
+                    if vark:
+                        declined.setdefault("vark", VARK_IN_TILE)
                 else:
                     for stage in _split_stages(section.body):
-                        plans.append(KernelPlan(name="", form="rows", order=loop.loop_order,
-                                                sections=[(sec_id, stage)]))
+                        vp = None
+                        if stage_vark is not False and _reads_vark(stage):
+                            try:
+                                vp = _vark_plan(st, stage, stencil_writes)
+                            except _Decline as e:
+                                if stage_vark:
+                                    raise _Forced(f"cuda backend: stage_vark=True, but {e}") \
+                                        from None
+                                declined.setdefault("vark", str(e))
+                        plans.append(KernelPlan(name="", form="vark" if vp else "rows",
+                                                order=loop.loop_order,
+                                                sections=[(sec_id, stage)], vark=vp))
                 sec_id += 1
             continue
         secs = []
@@ -1505,14 +1711,19 @@ def plan_kernels(analysis: StencilAnalysis, planes_loops=frozenset(),
     if sweep and not swept:
         raise _Forced("cuda backend: sweep=True, but no serialized PARALLEL loop is followed "
                       "by serial loops that fuse")
+    if stage_vark and not any(p.vark for p in plans):
+        raise _Forced("cuda backend: stage_vark=True, but no PARALLEL section reads a field at "
+                      "a variable K")
+    if stage_vark is False and any(_reads_vark(body) for p in plans for _, body in p.sections):
+        declined.setdefault("vark", "stage_vark=False")
     for n, p in enumerate(plans):
         if p.sweep is not None:
             # the sweep replaces the plane kernel before the run and the
             # run's fused kernel before it
             plans[n - 1].swept_by = n
             plans[n - 2 - len(p.group.loops)].swept_by = n
-        p.name = f"{st.name}_k{n}" + {"tile": "_tile", "column": "_col",
-                                       "sweep": "_sweep"}.get(p.form, "")
+        p.name = f"{st.name}_k{n}" + {"tile": "_tile", "column": "_col", "sweep": "_sweep",
+                                       "vark": "_vk"}.get(p.form, "")
         rect = Extent.zeros()
         for _, stmts in p.sections:
             for s in stmts:
@@ -1533,7 +1744,7 @@ def plan_kernels(analysis: StencilAnalysis, planes_loops=frozenset(),
 
 def plan_stencil(analysis: StencilAnalysis, serialize: Optional[bool] = None,
                  tiles: Optional[bool] = None, fuse_loops: Optional[bool] = None,
-                 sweep: Optional[bool] = None):
+                 sweep: Optional[bool] = None, stage_vark: Optional[bool] = None):
     """``(analysis planned, kernels, serialized, declined)``.  A mixed
     stencil (``serialize=None``, where ``SERIALIZE_MIXED`` says), or any
     stencil with a PARALLEL loop (``serialize=True``), runs serialized with
@@ -1546,7 +1757,7 @@ def plan_stencil(analysis: StencilAnalysis, serialize: Optional[bool] = None,
     sweep kernel, or raises naming why it cannot (a stencil that is not
     mixed it leaves as it is, so that a model may pass it to all its
     stencils).
-    ``tiles`` and ``fuse_loops``: see ``plan_kernels``."""
+    ``tiles``, ``fuse_loops`` and ``stage_vark``: see ``plan_kernels``."""
     st = analysis.stencil
     orders = [loop.loop_order for loop in st.vertical_loops]
     mixed = ir.LoopOrder.PARALLEL in orders and len(set(orders)) > 1
@@ -1565,7 +1776,7 @@ def plan_stencil(analysis: StencilAnalysis, serialize: Optional[bool] = None,
             san = analyze(ser)
             loops = frozenset(n for n, o in enumerate(orders) if o == ir.LoopOrder.PARALLEL)
             plans = plan_kernels(san, loops, fuse_loops=fuse_loops, declined=declined,
-                                 sweep=sweep)
+                                 sweep=sweep, stage_vark=stage_vark)
             return san, plans, True, declined
         except _Decline as e:
             if serialize or sweep or isinstance(e, _Forced):
@@ -1574,7 +1785,7 @@ def plan_stencil(analysis: StencilAnalysis, serialize: Optional[bool] = None,
     elif serialize is None and mixed:
         declined["serialize"] = SPLIT_MIXED
     return analysis, plan_kernels(analysis, tiles=tiles, fuse_loops=fuse_loops,
-                                  declined=declined), False, declined
+                                  declined=declined, stage_vark=stage_vark), False, declined
 
 
 def _local_temps(analysis: StencilAnalysis, plans: List[KernelPlan]) -> List[str]:
@@ -1746,6 +1957,12 @@ class _Emitter:
         self.ring_cols = 0
         self.ring_tile: Tuple[int, int] = (0, 0)
         self.plane_secs: List[int] = []
+        #: the staged form (K3): field -> the lambda that reads its window
+        #: at a level
+        self.vk: Dict[str, str] = {}
+        #: K-invariant absolute reads (by ``id``) loaded before the K loop:
+        #: the register or shared element that holds each
+        self.hoisted: Dict[int, str] = {}
 
     # ---------------- expressions ---------------- #
 
@@ -1813,8 +2030,10 @@ class _Emitter:
 
     def valued(self, acc: ir.FieldAccess) -> bool:
         """The access reads a value (register or shared memory, or a ring
-        read that converts its device-memory branch), not a stored 16-bit
-        element."""
+        or window read that converts its device-memory branch), not a
+        stored 16-bit element."""
+        if id(acc) in self.hoisted or self._window(acc) is not None:
+            return True
         if self._snapshot(acc):
             return False
         return acc.name in self.locals or self._shared(acc) is not None \
@@ -1872,9 +2091,23 @@ class _Emitter:
         wlo, _ = self.vec.windows[(acc.name, off.i, off.k)]
         return f"{_window_var(acc.name, off.i, off.k)}[l_ + {off.j - wlo}]"
 
+    def _window(self, acc: ir.FieldAccess) -> Optional[str]:
+        """A staged-form read of a field at a variable or absolute K: its
+        window at the clipped level (device memory where the window does
+        not hold it)."""
+        if acc.name not in self.vk or isinstance(acc.offset, ir.CartesianOffset):
+            return None
+        return f"{self.vk[acc.name]}({self._k_index(acc)})"
+
     def access(self, acc: ir.FieldAccess) -> str:
+        hoisted = self.hoisted.get(id(acc))
+        if hoisted is not None:
+            return hoisted
         if acc.name in self.locals:
             return f"l_{acc.name}"
+        window = self._window(acc)
+        if window is not None:
+            return window
         reg = self._prefetched(acc) or self._carried(acc)
         if reg is not None:
             return reg
@@ -1916,22 +2149,27 @@ class _Emitter:
                 idx.append(f"gt::wrap({v} + {o}, {dom}, {flag})")
             else:
                 idx.append(f"{v} + {o}")
-        if not decl.dimensions[2]:
-            idx.append("0")
-        elif isinstance(off, ir.VariableKOffset):
-            code, dt = self.expr(off.k)
-            idx.append(f"{var}.kclamp({k} + {_cast(code, dt, _I64)})")
-        elif isinstance(off, ir.AbsoluteKIndex):
-            code, dt = self.expr(off.k)
-            idx.append(f"{var}.kclamp({_cast(code, dt, _I64)})")
-        else:
-            idx.append(f"{k} + {cart.k}")
+        idx.append(self._k_index(acc, k, var) if decl.dimensions[2] else "0")
         if acc.data_index:
             idx.append(" + ".join(
                 f"{self.component(e, size, name)} * {var}.sd[{n}]"
                 for n, (e, size) in enumerate(zip(acc.data_index, decl.data_dims))
             ))
         return f"{var}.at({', '.join(idx)})"
+
+    def _k_index(self, acc: ir.FieldAccess, k: str = "k", var: Optional[str] = None) -> str:
+        """The level an access of a field with a K axis reaches from level
+        ``k``: a variable or absolute one clipped to the buffer's levels,
+        as the oracle clips."""
+        off = acc.offset
+        var = var or ("t_" if acc.name in self.stencil.temp_decls else "f_") + acc.name
+        if isinstance(off, ir.VariableKOffset):
+            code, dt = self.expr(off.k)
+            return f"{var}.kclamp({k} + {_cast(code, dt, _I64)})"
+        if isinstance(off, ir.AbsoluteKIndex):
+            code, dt = self.expr(off.k)
+            return f"{var}.kclamp({_cast(code, dt, _I64)})"
+        return f"{k} + {off.k}"
 
     def component(self, e: ir.Expr, size: int, name: str) -> str:
         """One data index: a folded constant, or a per-point index wrapped
@@ -2433,6 +2671,9 @@ class CudaProgram:
                         for k in self.kernels if k.group and k.swept_by is None],
             "sweep": [k.sweep.record(k.name) for k in self.kernels if k.sweep],
             "declined": dict(self.declined),
+            # the staged kernels (K3), where the stencil has any
+            **({"vark": [k.vark.record(k.name) for k in self.kernels if k.vark]}
+               if any(k.vark for k in self.kernels) else {}),
         }
 
     def vector_row_fields(self) -> set:
@@ -2484,12 +2725,15 @@ def _emit_plain_kernel(em: _Emitter, p: KernelPlan, params: List[str], bpp: int)
         f"  const int i = {p.rect.i[0]} + (int)(blockIdx.y * blockDim.y + threadIdx.y);",
         f"  if (i >= dI + {p.rect.i[1]} || j >= dJ + {p.rect.j[1]}) return;",
     ]
+    out += _hoist_registers(em, [s for _, stmts in p.sections for s in stmts], set(p.writes),
+                            p.rect, "  ")
     for sid, stmts in p.sections:
         out.append(_k_loop(p.order, sid, "  "))
         out += em.registers(stmts, ind)
         for s in stmts:
             out += em.guarded(s, p.rect, ind)
         out.append("  }")
+    em.hoisted = {}
     return out + ["}"]
 
 
@@ -2681,6 +2925,8 @@ def _emit_vector_rows(em: _Emitter, p: KernelPlan, params: List[str], bpp: int) 
             f"gt::wrap(i + {oi}, dI, pI)" if wrap and (e.i[0] or e.i[1]) else f"i + {oi}")
         return row, (k if decl.dimensions[2] else "0"), wrap and bool(e.j[0] or e.j[1])
 
+    out += _hoist_registers(em, [s for _, stmts in p.sections for s in stmts], set(p.writes),
+                            None, "  ", lanes=V)
     em.vec = vp
     for sid, stmts in p.sections:
         # PARALLEL levels are independent: the grid's z blocks split them
@@ -2763,7 +3009,228 @@ def _emit_vector_rows(em: _Emitter, p: KernelPlan, params: List[str], bpp: int) 
             ]
         out.append("  }")
     em.vec = None
+    em.hoisted = {}
     return out + ["}"]
+
+
+def _hoist_load(em: _Emitter, r: ir.FieldAccess) -> str:
+    """The value of a hoisted read at the thread's (i, j), from device
+    memory (its index's reads too)."""
+    saved = em.vk, em.vec, em.plane, em.tin, em.col
+    em.vk, em.vec, em.plane, em.tin, em.col = {}, None, None, {}, None
+    try:
+        load = em.global_access(r)
+    finally:
+        em.vk, em.vec, em.plane, em.tin, em.col = saved
+    dt = np.dtype(em.stencil.decl(r.name).dtype)
+    return f"{_HALF[dt][0]}({load})" if dt in _HALF else load
+
+
+def _in_extent(e: Extent, i: str = "i", j: str = "j") -> str:
+    return f"{i} >= {e.i[0]} && {i} < dI + {e.i[1]} && {j} >= {e.j[0]} && {j} < dJ + {e.j[1]}"
+
+
+def _hoist_registers(em: _Emitter, stmts: Sequence[ir.Stmt], written, rect: Optional[Extent],
+                     ind: str, lanes: int = 0) -> List[str]:
+    """The K-invariant absolute reads of ``stmts`` (``_hoistable``) loaded
+    once, before the K loop, into registers at the thread's (i, j) -- with
+    ``lanes``, one a lane of a vector kernel's group (``j0 + l_``) -- each
+    where a statement that reads it computes, zero elsewhere (no test
+    where that is the kernel's ``rect``, inside which every thread lies;
+    None: threads may lie outside it); the emitter reads them from there
+    (``em.hoisted``)."""
+    reads = _hoistable(em.stencil, stmts, written)
+    exts = _hoist_extents(em.analysis.extents, stmts, reads)
+    regs: Dict[str, Tuple[str, Extent, str]] = {}
+    for r in reads:
+        load = _hoist_load(em, r)
+        reg, e, ct = regs.get(load, (f"hk{len(regs)}_", exts[id(r)],
+                                     _ctype(em.stencil.decl(r.name).dtype)))
+        regs[load] = (reg, e | exts[id(r)], ct)
+        em.hoisted[id(r)] = f"{reg}[l_]" if lanes else reg
+    out = []
+    for load, (reg, e, ct) in regs.items():
+        if lanes:
+            out += [f"{ind}{ct} {reg}[{lanes}];",
+                    "#pragma unroll",
+                    f"{ind}for (int l_ = 0; l_ < {lanes}; ++l_) {{",
+                    f"{ind}  const int j = j0 + l_;",
+                    f"{ind}  {reg}[l_] = ({_in_extent(e)}) ? {load} : ({ct})0;",
+                    f"{ind}}}"]
+        elif rect is not None and (e.i, e.j) == (rect.i, rect.j):
+            out.append(f"{ind}const {ct} {reg} = {load};")
+        else:
+            out.append(f"{ind}const {ct} {reg} = ({_in_extent(e)}) ? {load} : ({ct})0;")
+    return out
+
+
+def _hoist_planes(em: _Emitter, pp: PlanePlan, base: int, threads: int) -> List[str]:
+    """A tile or plane-sweep kernel's K-invariant absolute reads
+    (``PlanePlan.hoisted``) loaded once, before its K loop, into shared
+    planes at byte ``base`` over the rectangles of the statements that read
+    them (zero where none computes in the domain); the emitter reads them
+    there (``em.hoisted``)."""
+    out = []
+    at = base
+    for n, (r, e, dom) in enumerate(pp.hoisted):
+        dt = np.dtype(em.stencil.decl(r.name).dtype)
+        ct = _ctype(dt)
+        ni, nj = pp.tile[0] + e.i[1] - e.i[0], pp.tile[1] + e.j[1] - e.j[0]
+        out.append(f"  {ct}* const hp{n}_ = ({ct}*)(gt_smem + {at});")
+        out += _tile_points(pp.tile, e, "  ", threads)
+        out += [f"    hp{n}_[p_] = ({_in_extent(dom)}) ? {_hoist_load(em, r)} : ({ct})0;",
+                "  }"]
+        at += _align16(ni * nj * _value_size(dt))
+        em.hoisted[id(r)] = f"hp{n}_[(ti - {e.i[0]}) * {nj} + (tj - {e.j[0]})]"
+    if pp.hoisted:
+        out.append("  __syncthreads();")
+    return out
+
+
+def _emit_vark(em: _Emitter, p: KernelPlan, params: List[str], bpp: int) -> List[str]:
+    """The staged form of a row-form stage (``VarkPlan``; K3 on Hopper):
+    thread t of a CTA owns column (I0 + t / TJ % TI, J0 + t % TJ) at level
+    lane t / (TI TJ), and the CTA marches the stage's levels ``lanes`` a
+    step.  Each gathered field's window holds S levels of the CTA's
+    columns: the whole buffer column, loaded once before the march, or a
+    ring (level L in slot L mod S) of ``lanes`` + b + a levels around the
+    step, b behind and a ahead, whose next step's new levels are copied
+    with ``cp.async`` while a step computes.  A window row starts at the
+    aligned-down 16-byte word of its first element (its lead read back from
+    its address), each word one 16-byte copy where it is contiguous,
+    aligned and inside the field's storage, element copies elsewhere.  A
+    read at a variable or absolute K is a shared-memory load at its clipped
+    level where the window holds it; elsewhere it loads from device memory
+    and counts one read outside the window (``vko_``)."""
+    vp = p.vark
+    TI, TJ = vp.tile
+    LZ = vp.lanes
+    T = TI * TJ
+    threads = T * LZ
+    st = em.stencil
+    r = p.rect
+    ((sid, stmts),) = p.sections
+    nf = len(vp.fields)
+    out = [
+        "",
+        f"// {p.name}: staged form (PARALLEL section {sid}), {TI}x{TJ} columns x {LZ} levels a "
+        f"step, {threads} threads; windows of {[n for n, *_ in vp.fields]} in shared memory "
+        f"(the whole buffer column or a ring of levels); rect I{r.i} J{r.j}; ~{bpp} bytes per "
+        "grid point",
+        f"__global__ void __launch_bounds__({threads}) {p.name}(",
+        "    " + ",\n    ".join(params + [f"gt::Slots<{nf}> vs_", "unsigned long long* vko_"])
+        + ") {",
+        "  GT_DYNAMIC_SMEM(gt_smem);",
+        f"  const int t_ = (int)threadIdx.x, lz_ = t_ / {T};",
+        f"  const int I0 = {r.i[0]} + (int)blockIdx.y * {TI}, J0 = {r.j[0]} + (int)blockIdx.x * {TJ};",
+        f"  const int I1 = I0 + {TI} < dI + {r.i[1]} ? I0 + {TI} : dI + {r.i[1]};",
+        f"  const int J1 = J0 + {TJ} < dJ + {r.j[1]} ? J0 + {TJ} : dJ + {r.j[1]};",
+        f"  const int i = I0 + t_ / {TJ} % {TI}, j = J0 + t_ % {TJ};",
+        f"  const int kl_ = kb.lo[{sid}], kh_ = kb.hi[{sid}];",
+        "  const bool on_ = i < I1 && j < J1;",
+        "  unsigned long long vkn_ = 0;",
+        "  size_t wo_ = 0;",
+    ]
+    out += _hoist_registers(em, stmts, set(p.writes), None, "  ")
+    for n, (name, pitch, lanes, size) in enumerate(vp.fields):
+        dt = np.dtype(st.decl(name).dtype)
+        ct, sct = _ctype(dt), _stype(dt)
+        var = "f_" + name
+        acc = ir.FieldAccess(name)
+
+        def at(i: str, j: str, acc=acc) -> str:
+            return em.global_access(acc, i=i, j=j, k="L")
+
+        out += [
+            f"  {ct}* const w{n}_ = ({ct}*)(gt_smem + wo_);",
+            f"  const int s{n}_ = vs_.s[{n}], n{n}_ = {var}.khi - {var}.klo + 1;",
+            f"  const bool wh{n}_ = s{n}_ >= n{n}_;",
+            f"  wo_ += ((size_t)s{n}_ * {vp.level_bytes(n)} + 15) / 16 * 16;",
+            f"  // a ring holds the step's {LZ} levels, the next step's and b behind and a ahead",
+            f"  const int b{n}_ = wh{n}_ ? n{n}_ : (s{n}_ - {2 * LZ}) / 2;",
+            f"  const int a{n}_ = wh{n}_ ? n{n}_ : s{n}_ - {2 * LZ} - b{n}_;",
+            f"  auto wlo{n}_ = [&](int k0) {{ return k0 - b{n}_ > {var}.klo ? k0 - b{n}_ : "
+            f"{var}.klo; }};",
+            f"  auto whi{n}_ = [&](int k0) {{ return k0 + {LZ - 1} + a{n}_ < {var}.khi ? "
+            f"k0 + {LZ - 1} + a{n}_ : {var}.khi; }};",
+            f"  auto ws{n}_ = [&](int L) {{ return wh{n}_ ? L - {var}.klo : gt::slot(L, s{n}_); }};",
+            f"  int lo{n}_ = wlo{n}_(kl_), hi{n}_ = whi{n}_(kl_);",
+            f"  // levels L0 .. L1 of '{name}' into their slots",
+            f"  auto st{n}_ = [&](int L0, int L1) {{",
+        ]
+        nch = pitch // lanes if lanes else TJ
+        out += [
+            f"    for (int p_ = t_; p_ < (L1 - L0 + 1) * {TI * nch}; p_ += {threads}) {{",
+            f"      const int L = L0 + p_ / {TI * nch}, r_ = p_ / {nch} % {TI}, c_ = p_ % {nch};",
+            "      const int gi = I0 + r_;",
+            "      if (gi >= I1) continue;",
+            f"      {ct}* const row_ = w{n}_ + ((size_t)ws{n}_(L) * {TI} + r_) * {pitch};",
+        ]
+        if lanes:
+            out += [
+                f"      const int gj = J0 - gt::lead16(&{at('gi', 'J0')}) + c_ * {lanes};",
+                "      if (gj >= J1) continue;",
+                f"      {ct}* const d_ = row_ + c_ * {lanes};",
+                f"      const {sct}* const a_ = &{at('gi', 'gj')};",
+                f"      if (&{at('gi', f'gj + {lanes - 1}')} == a_ + {lanes - 1} && "
+                f"(reinterpret_cast<size_t>(a_) & 15) == 0 && {var}.holds16(a_)) {{",
+                "        gt::async_copy<16>(d_, a_);",
+                "      } else {",
+                f"        for (int e_ = 0; e_ < {lanes}; ++e_)",
+                "          if (gj + e_ >= J0 && gj + e_ < J1) "
+                f"gt::async_copy<{size}>(d_ + e_, &{at('gi', 'gj + e_')});",
+                "      }",
+            ]
+        else:
+            load = at("gi", "J0 + c_")
+            if dt in _HALF:
+                load = f"{_HALF[dt][0]}({load})"
+            out.append(f"      if (J0 + c_ < J1) row_[c_] = {load};")
+        glob = at("i", "j")
+        if dt in _HALF:
+            glob = f"{_HALF[dt][0]}({glob})"
+        lead = f" + gt::lead16(&{at('i', 'J0')})" if lanes else ""
+        out += [
+            "    }",
+            "  };",
+            f"  auto vk{n}_ = [&](long long L_) -> {ct} {{",
+            "    const int L = (int)L_;",
+            f"    if (L >= lo{n}_ && L <= hi{n}_)",
+            f"      return w{n}_[((size_t)ws{n}_(L) * {TI} + (i - I0)) * {pitch}{lead} + (j - J0)];",
+            "    ++vkn_;",
+            f"    return {glob};",
+            "  };",
+        ]
+    fields = range(nf)
+    out += [
+        "  const bool ring_ = " + " || ".join(f"!wh{n}_" for n in fields) + ";",
+        "  if (kl_ < kh_) {",
+        *[f"    st{n}_(lo{n}_, hi{n}_);" for n in fields],
+        "  }",
+        "  gt::async_commit();",
+        "  if (!ring_) gt::async_wait<0>();",
+        "  __syncthreads();",
+        f"  for (int k0_ = kl_; k0_ < kh_; k0_ += {LZ}) {{",
+        "    if (ring_) {",
+        f"      if (k0_ + {LZ} < kh_) {{",
+        *[f"        st{n}_(whi{n}_(k0_) + 1, whi{n}_(k0_ + {LZ}));" for n in fields],
+        "      }",
+        "      gt::async_commit();",
+        "      gt::async_wait<1>();",
+        "      __syncthreads();",
+        *[f"      lo{n}_ = wlo{n}_(k0_); hi{n}_ = whi{n}_(k0_);" for n in fields],
+        "    }",
+        "    const int k = k0_ + lz_;",
+        "    if (on_ && k < kh_) {",
+    ]
+    em.vk = {name: f"vk{n}_" for n, (name, *_) in enumerate(vp.fields)}
+    out += em.registers(stmts, "      ")
+    for s in stmts:
+        out += em.guarded(s, r, "      ")
+    em.vk = {}
+    em.hoisted = {}
+    return out + ["    }", "    if (ring_) __syncthreads();", "  }",
+                  "  if (vkn_) atomicAdd(vko_, vkn_);", "}"]
 
 
 def _k_loop(order: ir.LoopOrder, sid: int, ind: str) -> str:
@@ -2856,6 +3323,7 @@ def _emit_planes(em: _Emitter, p: KernelPlan, params: List[str], bpp: int) -> Li
         off += _align16((TI + e.i[1] - e.i[0]) * (TJ + e.j[1] - e.j[0])
                         * _value_size(st.decl(name).dtype) * pp.mirrored.get(name, 1))
     out += _tile_origin(TI, TJ)
+    out += _hoist_planes(em, pp, off, PLANE_THREADS)
     em.plane_order = p.order
     em.done_secs = []
     for sid, _ in p.sections:
@@ -2865,6 +3333,7 @@ def _emit_planes(em: _Emitter, p: KernelPlan, params: List[str], bpp: int) -> Li
         out.append("  }")
         em.done_secs.append(sid)
     em.plane = None
+    em.hoisted = {}
     return out + ["}"]
 
 
@@ -3053,6 +3522,7 @@ def _emit_tile_kernel(em: _Emitter, p: KernelPlan, params: List[str], bpp: int, 
         out += _staged_row_pitches(em, tp.inputs, uniform)
         out += _emit_staging(em, tp.tile, tp.inputs, ring, tp.input_bytes)
         out += ["  if (k0_ < k1_) stage_(k0_, 0);", "  gt::async_commit();"]
+    out += _hoist_planes(em, pp, ring + 2 * tp.input_bytes, PLANE_THREADS)
     out.append("  for (int k = k0_; k < k1_; ++k) {")
     if tp.inputs:
         out += ["    const int s_ = (k - k0_) & 1;",
@@ -3065,6 +3535,7 @@ def _emit_tile_kernel(em: _Emitter, p: KernelPlan, params: List[str], bpp: int, 
     out += _plane_level(em, p, sid)
     em.tin = {}
     em.plane = None
+    em.hoisted = {}
     return out + ["  }", "}"]
 
 
@@ -3173,10 +3644,13 @@ def _emit_column_group(em: _Emitter, p: KernelPlan, params: List[str], bpp: int)
         f"  if (i >= dI + {r.i[1]} || j >= dJ + {r.j[1]}) return;",
     ]
     out += _column_heads(em, g, "i", "j", "  ")
+    out += _hoist_registers(em, [s for _, stmts in p.sections for s in stmts], set(p.writes),
+                            r, "  ")
     em.col = g
     for li in range(len(g.loops)):
         out += _column_loop(em, g, li, r)
     em.col = None
+    em.hoisted = {}
     return out + ["}"]
 
 
@@ -3346,11 +3820,13 @@ def _snapshot_copies(p: KernelPlan, args: List[str], snapshots) -> List[str]:
 
 
 def _launch_lines(p: KernelPlan, index: int, args: List[str], nsec: int,
-                  snapshots: Dict[str, Tuple[str, str, Extent]] = None) -> List[str]:
+                  snapshots: Dict[str, Tuple[str, str, Extent]] = None,
+                  vk_base: int = 0) -> List[str]:
     """gt_run's launch of one kernel (K4's variant when the kernel has a
     window and ``kmode`` is set; a plane-sweep kernel's snapshots are
     copied first).
-    ``snapshots``: name -> (copy kernel, source variable, box extent)."""
+    ``snapshots``: name -> (copy kernel, source variable, box extent);
+    ``vk_base``: a staged kernel's first window in ``vks``."""
     call = ", ".join(args)
     check = ["      ++gt_launches_;",
              "      const cudaError_t e = cudaGetLastError();",
@@ -3362,6 +3838,31 @@ def _launch_lines(p: KernelPlan, index: int, args: List[str], nsec: int,
                 "cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);",
                 f"{ind}  if (a != cudaSuccess) return (int)a;",
                 f"{ind}}}"]
+
+    if p.vark is not None:
+        vp = p.vark
+        TI, TJ = vp.tile
+        ((sid, _),) = p.sections
+        nf = len(vp.fields)
+        return [
+            "  {",
+            f"    const int ni = dI + {p.rect.i[1] - p.rect.i[0]}, "
+            f"nj = dJ + {p.rect.j[1] - p.rect.j[0]}, nk_ = kb.hi[{sid}] - kb.lo[{sid}];",
+            f"    gt::Slots<{nf}> vs_;",
+            "    size_t smem = 0;",
+            f"    for (int f = 0; f < {nf}; ++f) vs_.s[f] = vks[{vk_base} + f];",
+            *[f"    smem += ((size_t)vs_.s[{n}] * {vp.level_bytes(n)} + 15) / 16 * 16;"
+              for n in range(nf)],
+            "    if (ni > 0 && nj > 0 && nk_ > 0) {",
+            f"      const dim3 grid((nj + {TJ - 1}) / {TJ}, (ni + {TI - 1}) / {TI}), "
+            f"block({TI * TJ * vp.lanes});",
+            *attr(p.name, "      "),
+            f"      {p.name}<<<grid, block, smem, st>>>({call}, vs_, "
+            f"(unsigned long long*)vko + {index});",
+            *check,
+            "    }",
+            "  }",
+        ]
 
     if p.swept_by is not None:
         # replaced by the sweep kernel but under K4 (the plane kernel) and
@@ -3541,14 +4042,15 @@ def _occupancy_lines(plans: List[KernelPlan]) -> List[str]:
 
 def generate(analysis: StencilAnalysis, serialize: Optional[bool] = None,
              k_blocked: Optional[bool] = None, tiles: Optional[bool] = None,
-             fuse_loops: Optional[bool] = None, sweep: Optional[bool] = None) -> CudaProgram:
+             fuse_loops: Optional[bool] = None, sweep: Optional[bool] = None,
+             stage_vark: Optional[bool] = None) -> CudaProgram:
     """Emit the CUDA C++ source of one stencil (deterministic).
-    ``serialize``, ``k_blocked``, ``tiles``, ``fuse_loops`` and ``sweep``:
-    the build options (see ``plan_stencil``, ``plan_kernels`` and
-    ``CudaProgram.kblock_plan``)."""
+    ``serialize``, ``k_blocked``, ``tiles``, ``fuse_loops``, ``sweep`` and
+    ``stage_vark``: the build options (see ``plan_stencil``,
+    ``plan_kernels`` and ``CudaProgram.kblock_plan``)."""
     _check_supported(analysis)
     planned, plans, serialized, declined = plan_stencil(analysis, serialize, tiles, fuse_loops,
-                                                        sweep)
+                                                        sweep, stage_vark)
     st = planned.stencil
     touching = {n: [p for p in plans if n in p.reads or n in p.writes] for n in st.temp_decls}
     planes_global = {n for n, ps in touching.items() for p in ps
@@ -3650,6 +4152,9 @@ def generate(analysis: StencilAnalysis, serialize: Optional[bool] = None,
         if p.group is not None:
             out += _emit_column_group(em, p, params, bpp[p.name])
             continue
+        if p.vark is not None:
+            out += _emit_vark(em, p, params, bpp[p.name])
+            continue
         if not p.k4_only:
             out += _emit_plain_kernel(em, p, params, bpp[p.name])
         if p.vector is not None:
@@ -3664,7 +4169,8 @@ def generate(analysis: StencilAnalysis, serialize: Optional[bool] = None,
         'extern "C" int gt_run(void* const* ptrs, const long long* strides, '
         "const int* dom, const int* kbv,",
         "                      const double* fsc, const long long* isc, int pI, int pJ, "
-        "void* stream, int kmode, const int* kbsz, const int* vec) {",
+        "void* stream, int kmode, const int* kbsz, const int* vec, const int* vks, "
+        "void* vko) {",
     ]
     fvars = [(n, "f_" + n) for n in fields] + [(n, "t_" + n) for n in scratch] + [
         (n, "o_" + n) for n in snapshots]
@@ -3687,9 +4193,11 @@ def generate(analysis: StencilAnalysis, serialize: Optional[bool] = None,
             f"isc[{int_scalars.index(n)}]"
         out.append(f"  const {ct} s_{n} = ({ct}){src};")
     out += ["  cudaStream_t st = (cudaStream_t)stream;",
-            "  (void)kmode; (void)kbsz; (void)vec;"]
+            "  (void)kmode; (void)kbsz; (void)vec; (void)vks; (void)vko;"]
+    vk_base = 0
     for n, p in enumerate(plans):
-        out += _launch_lines(p, n, args, nsec, snap)
+        out += _launch_lines(p, n, args, nsec, snap, vk_base)
+        vk_base += len(p.vark.fields) if p.vark else 0
     out += ["  return 0;", "}", "",
             'extern "C" const char* gt_error_string(int e) '
             "{ return cudaGetErrorString((cudaError_t)e); }", "",
@@ -3787,12 +4295,15 @@ class CudaBackend:
         #: (K2: None fuses consecutive column loops where legal, True or
         #: raise, False one kernel per loop) and ``sweep`` (K5: True sweeps
         #: a serialized PARALLEL loop with the serial loops after it in one
-        #: kernel or raises; None and False never)
+        #: kernel or raises; None and False never) and ``stage_vark`` (K3:
+        #: None the staged form where it plans, True it or raise, False the
+        #: row kernels' loads from device memory)
         self.program = generate(analysis, serialize=options.get("serialize"),
                                 k_blocked=options.get("k_blocked"),
                                 tiles=options.get("tiles"),
                                 fuse_loops=options.get("fuse_loops"),
-                                sweep=options.get("sweep"))
+                                sweep=options.get("sweep"),
+                                stage_vark=options.get("stage_vark"))
         LAST_PLAN[analysis.stencil.name] = self.program.plan_record()
         #: K6's launch options: ``vector`` (None: ``VECTOR_DEFAULT``, the
         #: vector row kernels wherever their fields share a 16-byte phase;
@@ -3812,6 +4323,9 @@ class CudaBackend:
         self.build_seconds: Optional[float] = None
         self.build_dir: Optional[str] = None
         self._lib = None
+        #: per device: each kernel's count of staged-form reads that fell
+        #: outside their window (``outside_reads``)
+        self._outside: Dict[torch.device, torch.Tensor] = {}
         self._depth_plans: Dict[tuple, tuple] = {}
         #: devices on which the K4 kernels' attributes are set (``gt_kb_init``)
         self._kb_devices: set = set()
@@ -3830,6 +4344,7 @@ class CudaBackend:
             lib, self.build_dir = _build.build(self.program.source, self.analysis.stencil.name)
             lib.gt_run.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int, ctypes.c_int,
                                                            ctypes.c_void_p, ctypes.c_int,
+                                                           ctypes.c_void_p, ctypes.c_void_p,
                                                            ctypes.c_void_p, ctypes.c_void_p]
             lib.gt_run.restype = ctypes.c_int
             lib.gt_error_string.argtypes = [ctypes.c_int]
@@ -3844,6 +4359,21 @@ class CudaBackend:
             self._lib = lib
             self.build_seconds = time.perf_counter() - t0
         return self._lib
+
+    def outside_reads(self) -> Dict[str, int]:
+        """The staged kernels' reads at a variable or absolute K that their
+        windows did not hold, counted on the device over every call so far
+        (waits for the device), by kernel; each also recorded in
+        ``LAST_PLAN[name]["vark"]`` as ``outside``."""
+        names = [k.name for k in self.program.kernels]
+        counts: Dict[str, int] = {}
+        for t in self._outside.values():
+            for n, c in enumerate(t.tolist()):
+                if self.program.kernels[n].vark is not None:
+                    counts[names[n]] = counts.get(names[n], 0) + c
+        for rec in LAST_PLAN.get(self.analysis.stencil.name, {}).get("vark", []):
+            rec["outside"] = counts.get(rec["kernel"], 0)
+        return counts
 
     def device_launches(self) -> dict:
         """The library's own launch counts (one at each launch, since it was
@@ -4112,6 +4642,29 @@ class CudaBackend:
                if k.tile is not None else
                (phase + 1 if phase is not None and k.vector is not None else 0)
                for n, k in enumerate(prog.kernels)]
+        # the staged kernels' windows: each field's levels (``_vark_slots``)
+        vks, windows = [], []
+        for k in prog.kernels:
+            if k.vark is None:
+                continue
+            levels = [env[n].shape[2] for n, *_ in k.vark.fields]
+            slots = _vark_slots(k.vark, levels)
+            vks += slots
+            smem = k.vark.window_bytes(slots)
+            windows.append({**k.vark.record(k.name),
+                            "levels": {n: s for (n, *_), s in zip(k.vark.fields, slots)},
+                            "whole": {n: s >= lv for (n, *_), s, lv in
+                                      zip(k.vark.fields, slots, levels)},
+                            "smem_bytes": smem,
+                            "ctas_per_sm": ctas_per_sm(smem, k.vark.tile[0] * k.vark.tile[1]
+                                                       * k.vark.lanes)})
+        outside = None
+        if windows:
+            plan["vark"] = windows
+            outside = self._outside.get(device)
+            if outside is None:
+                outside = self._outside[device] = torch.zeros(
+                    len(prog.kernels), dtype=torch.int64, device=device)
         if not all(swept.values()):
             plan["forms"] = [k.form for n, k in enumerate(prog.kernels) if not k.k4_only and (
                 swept[k.swept_by] is False if k.swept_by is not None else swept.get(n, True))]
@@ -4136,6 +4689,8 @@ class CudaBackend:
                 int("I" in periodic), int("J" in periodic),
                 ctypes.c_void_p(stream), int(kbs is not None), kbsz,
                 (ctypes.c_int * len(vec))(*vec),
+                (ctypes.c_int * max(1, len(vks)))(*vks),
+                ctypes.c_void_p(outside.data_ptr() if outside is not None else 0),
             )
         if rc != 0:
             raise RuntimeError(

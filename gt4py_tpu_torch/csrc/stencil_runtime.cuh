@@ -140,6 +140,14 @@ struct KBounds {
   int hi[N];
 };
 
+// The levels each window of a staged kernel (variable-K reads served from
+// shared memory) holds in this call: a field's whole buffer column, or a
+// ring of that many levels.
+template <int N>
+struct Slots {
+  int s[N];
+};
+
 // Periodic wrap of a domain-relative index on an axis of length n.  The
 // wrapper checks that no read reaches further than n beyond the domain,
 // so one add or subtract is enough.

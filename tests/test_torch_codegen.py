@@ -159,27 +159,46 @@ def test_while_raises_not_implemented():
     assert len(st.backend.program.kernels) == 1
 
 
-def test_variable_k_offset_raises_not_implemented():
-    """Variable K used to be outside the emitters; it is now a direct load
-    at the level clipped to the buffer (``kclamp``), in the column form
-    too."""
+def test_variable_k_reads_run_the_staged_window_or_a_clipped_load():
+    """Variable K used to be outside the emitters.  A PARALLEL stage reads
+    it from the staged form's shared-memory window (``vk0_``) at the level
+    clipped to the buffer (``kclamp``), the window's rows staged with
+    16-byte copies; built ``stage_vark=False`` it is a direct clipped load
+    from device memory, as in the column form."""
     F = gtscript.Field[np.float64]
 
     def shift(inp: F, idx: gtscript.Field[np.int64], out: F):
-        with computation(FORWARD), interval(...):
+        with computation(PARALLEL), interval(...):
             out = inp[0, 0, idx]
 
     st = gtscript.stencil(backend="cuda", definition=shift, rebuild=True)
+    assert [k.form for k in st.backend.program.kernels] == ["vark"]
+    src = st.backend.source
+    assert "vk0_(f_inp.kclamp(k + f_idx.at(i + 0, j + 0, k + 0)))" in src
+    assert "gt::async_copy<16>(d_, a_);" in src and "atomicAdd(vko_, vkn_)" in src
+    st = gtscript.stencil(backend="cuda", definition=shift, rebuild=True, stage_vark=False)
+    assert [k.form for k in st.backend.program.kernels] == ["rows"]
+    assert "f_inp.at(i + 0, j + 0, f_inp.kclamp(k + f_idx.at(i + 0, j + 0, k + 0)))" \
+        in st.backend.source
+
+    def scan(inp: F, idx: gtscript.Field[np.int64], out: F):
+        with computation(FORWARD), interval(...):
+            out = inp[0, 0, idx]
+
+    st = gtscript.stencil(backend="cuda", definition=scan, rebuild=True)
     assert [k.form for k in st.backend.program.kernels] == ["columns", "column"]
     # the fused kernel loads idx one level ahead, into a register
     assert "f_inp.at(i + 0, j + 0, f_inp.kclamp(k + v0_))" in st.backend.source
-    st = gtscript.stencil(backend="cuda", definition=shift, rebuild=True, fuse_loops=False)
+    st = gtscript.stencil(backend="cuda", definition=scan, rebuild=True, fuse_loops=False)
     assert [k.form for k in st.backend.program.kernels] == ["columns"]
     assert "f_inp.at(i + 0, j + 0, f_inp.kclamp(k + f_idx.at(i + 0, j + 0, k + 0)))" \
         in st.backend.source
 
 
-def test_absolute_k_reads_clip_to_the_buffer():
+def test_k_invariant_absolute_reads_load_once_clipped_to_the_buffer():
+    """A read at an absolute K from a literal, a scalar or an IJ field is
+    clipped to the buffer and loaded once, into a register, before the
+    row kernel's K loop, which reads the register."""
     F = gtscript.Field[np.float64]
 
     def plane(a: F, out: F, kidx: gtscript.Field[gtscript.IJ, np.int64], *, s: int):
@@ -187,9 +206,14 @@ def test_absolute_k_reads_clip_to_the_buffer():
             out = a.at(K=2) + a.at(K=s) + a.at(K=kidx)
 
     src = gtscript.stencil(backend="cuda", definition=plane, rebuild=True).backend.source
-    assert "f_a.kclamp(((long long)2LL))" in src
-    assert "f_a.kclamp(s_s)" in src
-    assert "f_a.kclamp(f_kidx.at(i + 0, j + 0, 0))" in src  # an IJ field: no K axis
+    body = src[src.index("__global__"):]
+    loop = body.index("for (int k")
+    for n, index in enumerate(["((long long)2LL)", "s_s",
+                               "f_kidx.at(i + 0, j + 0, 0)"]):  # an IJ field: no K axis
+        assert f"const double hk{n}_ = f_a.at(i + 0, j + 0, f_a.kclamp({index}));" \
+            in body[:loop]
+    assert "kclamp" not in body[loop:body.index("\n}\n")]
+    assert "= ((hk0_ + hk1_) + hk2_);" in body
 
 
 def _assign(target, value):

@@ -10,7 +10,8 @@ The CPU tests hold the plain executor to the numpy oracle; these hold the
 kernels to the plain executor on the same card: the dycore stencils, the
 emitters on other IR, every canonical stencil of
 ``tests/cartesian/stencil_defs.py`` (``while``, regions, variable and
-absolute K, data dimensions included), FvAdvection, the semi-Lagrangian
+absolute K, data dimensions included), K3's staged windows (whole column,
+ring, K origin), FvAdvection, the semi-Lagrangian
 stencil and FullDycore, and gradients with the forward on the kernels (K8)
 and through K9.  The kernels are built
 without FMA contraction, so in both float64 and float32 they agree with it
@@ -979,3 +980,65 @@ def test_tiles_and_fused_columns_vs_split_and_plain(cuda_device, name, dtype, pe
     for n in names:
         assert torch.equal(got["default"][n], got["split"][n]), n
         assert torch.equal(got["default"][n], got["plain"][n]), n
+
+
+# --------------------------------------------------------------------- #
+# K3: the staged form of variable-K reads
+# --------------------------------------------------------------------- #
+
+
+def _vark_gather(dtype):
+    F = gtscript.Field[dtype]
+
+    def vark_gather(inp: F, idx: gtscript.Field[np.int64], out: F):
+        with computation(PARALLEL), interval(...):
+            out = inp[0, 0, idx]
+
+    return vark_gather
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [np.float64, np.float32], ids=["f64", "f32"])
+@pytest.mark.parametrize("case", ["whole", "ring", "k_origin"])
+def test_k3_staged_windows_vs_plain(cuda_device, monkeypatch, case, dtype):
+    """The staged kernel at 70 x 90 x 40 in the models' (K, I, J) layout,
+    offsets over the whole column: with the whole buffer column in its
+    window (no read outside it), with a ring forced by a small
+    ``VK_BUDGET`` (reads outside it counted on the device), and at a
+    nonzero K origin; each bit for bit equal to plain and to the
+    ``stage_vark=False`` build, one launch counted by its library."""
+    from gt4py_tpu_torch.cartesian.backend import cuda_backend
+
+    if case == "ring":
+        TI, TJ = cuda_backend.VK_TILE
+        monkeypatch.setattr(cuda_backend, "VK_BUDGET",
+                            cuda_backend.VK_MIN_RING * TI * (TJ + 2) * 8)
+    nk, origin, domain = (44, (0, 0, 4), (70, 90, 40)) if case == "k_origin" \
+        else (40, (0, 0, 0), (70, 90, 40))
+    rng = np.random.default_rng(8)
+    inp = rng.random((nk, 70, 90)).astype(dtype)
+    idx = rng.integers(-nk, nk + 1, (nk, 70, 90)).astype(np.int64)
+    got = {}
+    for label, backend, options in (("staged", "cuda", {}), ("parent", "cuda",
+                                                         {"stage_vark": False}),
+                                    ("plain", "torch", {})):
+        st = gtscript.stencil(backend=backend, definition=_vark_gather(dtype), rebuild=True,
+                              **options)
+        fields = {"inp": torch.from_numpy(inp).to(cuda_device).permute(1, 2, 0),
+                  "idx": torch.from_numpy(idx).to(cuda_device).permute(1, 2, 0),
+                  "out": torch.zeros((nk, 70, 90), dtype=getattr(torch, np.dtype(dtype).name),
+                                     device=cuda_device).permute(1, 2, 0)}
+        if backend == "cuda":
+            st.backend.build()
+        before = st.backend.device_launches()["all"] if backend == "cuda" else 0
+        st(**fields, origin=origin, domain=domain)
+        torch.cuda.synchronize()
+        if label == "staged":
+            assert st.backend.device_launches()["all"] - before == 1
+            (rec,) = cuda_backend.LAST_PLAN[st.name]["vark"]
+            outside = st.backend.outside_reads()[rec["kernel"]]
+            assert rec["whole"] == {"inp": case != "ring"}, rec
+            assert (outside > 0) == (case == "ring"), outside
+        got[label] = fields["out"]
+    assert torch.equal(got["staged"], got["plain"])
+    assert torch.equal(got["parent"], got["plain"])

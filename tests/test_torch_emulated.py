@@ -143,6 +143,12 @@ inline void async_commit() {}
 template <int N>
 inline void async_wait() {}
 }  // namespace gt
+// the staged kernels' count of reads outside their windows
+inline unsigned long long atomicAdd(unsigned long long* p, unsigned long long v) {
+  const unsigned long long old = *p;
+  *p += v;
+  return old;
+}
 inline cudaError_t cudaGetLastError() {
   const cudaError_t e = gt_emu_error;
   gt_emu_error = cudaSuccess;
