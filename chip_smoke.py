@@ -21,6 +21,9 @@ against an older tree's package, with this script copied there).
 script copied there), ``--k3-tiles`` the staged kernel of
 ``variable_k_offset`` at each CTA shape of ``K3_TILES``.
 
+``python3 chip_smoke.py --fuzz`` runs phase 14 alone (the differential
+fuzzers, their builds included).
+
 ``python3 chip_smoke.py --profile-check`` profiles a 16 MiB add (one kernel
 a call) and a K9 permute of 2^20 words (three a call) ``PROFILE_AGE_S``
 seconds after a first profile, with and without a warm-up cycle and idle
@@ -158,7 +161,25 @@ Phases (a failed phase raises, and the script exits non-zero):
    from ``torch.profiler`` (which must show every launch the library
    counts); the FullDycore step's device time by kernel, with its
    stencils' default forms;
-13. the ``--profile-check`` profiles again, at the end of a long process.
+13. the ``--profile-check`` profiles again, at the end of a long process;
+14. the differential fuzzers (``--fuzz`` alone): every program of
+   ``gt4py_tpu_torch.testing.program_gen.LEGS`` (random stencils of the
+   JAX package's generator: the JAX fuzzer's C-order arrays, the models'
+   (K, I, J) buffers aligned and tight, periodic, 37x70x23, 8x8x600,
+   serialized builds, float32 and bfloat16) on ``"cuda"`` against
+   ``"torch"`` on the card and both against the numpy oracle, each
+   program's kernels counted by its library; the next DSL's operator,
+   program and bridge fuzz on ``"cuda"`` against embedded torch and the
+   oracle (operators the bridge declines counted); the gather and chain
+   fuzz, K9 against the index path bit for bit.  The phase prints each
+   leg's launches by form and fails where it reached no tile, fused
+   column, staged variable-K or K-blocked kernel, no row-phase or element
+   staging or no periodic call (``FUZZ_COVERAGE``), and on a declined
+   program not pinned in ``program_gen.LEG_DECLINES``.  Every launch count
+   is its library's: each stencil's by kernel, summed by form and held to
+   its total.  The two forms only fuzz programs reach (a launch a level,
+   the CTA-iterated ``while``) are timed at 512x512x80 against plain
+   (``FUZZ_TIMED``).  Its builds start with phase 2's.
 
 Every kernel entry carries ``bound_ms``: the least time the card could take
 for the same function, its bytes (each input read once, each output written
@@ -3019,6 +3040,9 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
 
     # -- 2. build -----------------------------------------------------------
+    # phase 14: the fuzzers' programs and the next-DSL kernels they lower to
+    # (their CPU run records its own fallbacks, before phase 7's count starts)
+    fuzz_builds = _fuzz_builds()
     fallback_cursor = cuda_bridge.FALLBACK_EVENTS.cursor()
     configs = {
         "f32": dict(shape=(NI, NJ, NK), dtype=np.float32, rtol=RTOL_F32, atol=ATOL_F32),
@@ -3088,7 +3112,7 @@ def main() -> int:
          + phase10_stencils + _phase11_stencils(p11) + _phase12_stencils(p12)
             + [st for label, st in sweep_sts.items() if label != "plain"]
             + [st for st, _ in tight["builds"].values()] + _k3_stencils(k3_builds)]
-        + next_kernels + [benes.KERNEL])
+        + next_kernels + fuzz_builds["backends"] + [benes.KERNEL])
     build_s = time.perf_counter() - t0
     print(f"build: {n_sources} sources, {build_s:.2f} s (nvcc in parallel)")
     for st in main_stencils + phase10_stencils:
@@ -3591,13 +3615,17 @@ def main() -> int:
     # -- 13. the profiler's device events at the end of a long process -------
     profile_late = _profile_check(dev)
 
+    # -- 14. the differential fuzzers ---------------------------------------
+    fuzz = {**_fuzz(fuzz_builds, dev), "build_s": build_s}
+
     print(smi)
     print(json.dumps({"kernels": kernels, "unstructured_fvm": fvm["summary"],
                       "bfloat16": bf16_result, "gradients": gradients["summary"],
                       "plan_modes": {"planes": planes, "deep_k": deep_k}, "k6": k6,
                       "phase12": {"full_dycore": phase12["full_dycore"],
                                   "checks": len(phase12["checks"])},
-                      "profile_check": profile_late, "profile_losses": PROFILE_LOSSES}))
+                      "profile_check": profile_late, "profile_losses": PROFILE_LOSSES,
+                      "fuzz": fuzz}, default=str))
     if PROFILE_LOSSES:
         print(f"chip_smoke: {len(PROFILE_LOSSES)} profiles lost device events",
               file=sys.stderr)
@@ -3607,6 +3635,308 @@ def main() -> int:
         "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count(),
     }}))
+    return 0
+
+
+# --------------------------------------------------------------------------- #
+# phase 14: the differential fuzzers
+# --------------------------------------------------------------------------- #
+
+#: phase 14: the share of points that may differ from the ORACLE in a
+#: program with data-dependent branches (a condition within an ulp of its
+#: threshold flips under the card's rounding); kernel against plain: none
+FUZZ_FLIPS = 1e-4
+#: phase 14's next-DSL and gather seeds
+NEXT_FUZZ = {"operators": range(20), "programs": range(10), "bridge": range(20)}
+GATHER_FUZZ = range(20)
+#: the forms phase 14 must reach: kernel forms that launched
+#: (``CudaBackend.launches_by_form``) and launches that staged rows or ran
+#: in a periodic call (``_launches_with``)
+FUZZ_COVERAGE = ("tile", "column", "vark", "kblocked", "staging_row_phase", "staging_element",
+                 "periodic")
+#: kernel form -> the TPU kernel it ports (PERF.md)
+FUZZ_KERNELS = {"tile": "K1 tile", "rows": "K1 rows", "vector": "K1 vector rows (K6)",
+                "column": "K2 fused column", "columns": "K2 column loop",
+                "vark": "K3 staged variable K", "kblocked": "K4 K-blocked",
+                "planes": "K5 plane-sweep", "sweep": "K5 sweep", "copy": "K5 snapshot copies"}
+#: launches of a kind that ``_launches_with`` counts -> what it exercises
+FUZZ_WITH = {"periodic": "K1a wrapped loads", "staging_row_phase": "K6 row-phase staging",
+             "staging_element": "K6 element staging"}
+#: phase 14's two forms that only fuzz programs reached, timed at a model's
+#: size: form -> (leg, seed, domain); the seed's program (drawn as in its
+#: leg) on the leg's layout, cuda against torch on the card
+FUZZ_TIMED = {"per_level": ("wide", 6, (512, 512, 80)),
+              "loop_group": ("base", 11, (512, 512, 80))}
+
+
+def _next_fuzz_runs(device):
+    """Every next-DSL fuzz case on ``device``: (kind, seed) -> NextCase."""
+    from gt4py_tpu_torch.testing import next_fuzz
+
+    runners = {"operators": next_fuzz.run_differential_case,
+               "programs": next_fuzz.run_program_case, "bridge": next_fuzz.run_bridge_case}
+    return {(kind, seed): runners[kind](seed, device=device)
+            for kind, seeds in NEXT_FUZZ.items() for seed in seeds}
+
+
+def _fuzz_builds() -> dict:
+    """Phase 14's cartesian cases (``program_gen.LEGS``), each with its
+    ``"cuda"`` build planned or declined, and the next legs run once on the
+    CPU for the kernels the bridge lowers them to: the sources to build."""
+    import warnings
+
+    from gt4py_tpu_torch.testing import program_gen
+
+    cases, declined = {}, {}
+    for leg, (seeds, kw) in program_gen.LEGS.items():
+        ckw = {k: v for k, v in kw.items() if k not in ("rtol", "atol")}
+        for seed in seeds:
+            case = program_gen.DifferentialCase(seed, **ckw)
+            try:
+                case.backend("cuda")
+            except NotImplementedError as e:
+                declined[(leg, seed)] = str(e)
+            cases[(leg, seed)] = case
+    t0 = time.perf_counter()
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        next_cpu = _next_fuzz_runs("cpu")
+    return {"cases": cases, "declined": declined, "next_cpu_s": time.perf_counter() - t0,
+            "backends": [c.backend("cuda") for key, c in cases.items() if key not in declined]
+            + [k for c in next_cpu.values() for k in c.kernels]}
+
+
+def _launches_with(case) -> dict:
+    """Of one call's library-counted launches: those of its tile and sweep
+    kernels where its plan records rows staged at a row phase or element
+    by element (``staging_row_phase``, ``staging_element``), and all of
+    them in a periodic call (``periodic``).  Not a partition: one launch
+    may stage both ways."""
+    out = {}
+    staged = case.forms.get("tile", 0) + case.forms.get("sweep", 0)
+    for s in set(case.plan.get("staging", {}).values()):
+        out[f"staging_{s}"] = staged
+    if case.periodic:
+        out["periodic"] = case.launches
+    return {k: v for k, v in out.items() if v}
+
+
+def _fuzz_timed(fb: dict, dev) -> dict:
+    """``FUZZ_TIMED``: each program at its model-size domain on ``"cuda"``
+    and ``"torch"`` on the card, on the same inputs: held to each other at
+    the float64 tolerances, the library's launches a call, and median
+    CUDA-event ms of each."""
+    import numpy as np
+    import torch
+
+    from gt4py_tpu_torch.cartesian.backend.cuda_backend import LAST_PLAN
+    from gt4py_tpu_torch.cartesian.stencil_object import StencilObject
+    from gt4py_tpu_torch.testing import program_gen
+
+    out = {}
+    for form, (leg, seed, domain) in FUZZ_TIMED.items():
+        case = fb["cases"][(leg, seed)]
+        be = case.backend("cuda")
+        halo = case.origin[0]
+        shape = (domain[0] + 2 * halo, domain[1] + 2 * halo, domain[2] + 2)
+        rng = np.random.default_rng(seed)
+        arrays = {n: rng.random(shape) for n in case.inputs}
+        calls, fields = {}, {}
+        for name in ("cuda", "torch"):
+            b = case.backend(name)
+            fields[name] = {n: program_gen._buffer(a, case.dtype, case.layout, dev)
+                            for n, a in arrays.items()}
+            obj = StencilObject(analysis=case.analysis, backend=b, backend_name=name,
+                                name=case.analysis.stencil.name, options=case.options or {},
+                                stencil_id=f"fuzz-timed-{seed}-{name}")
+            calls[name] = (lambda obj=obj, f=fields[name]: obj(
+                **f, **case.scalars, origin=case.origin, domain=domain, validate_args=False))
+        before = be.device_launches()["all"]
+        calls["cuda"]()
+        torch.cuda.synchronize()
+        launches = be.device_launches()["all"] - before
+        calls["torch"]()
+        for n in case.names:
+            got, ref = fields["cuda"][n], fields["torch"][n]
+            if not torch.allclose(got, ref, rtol=RTOL_F64, atol=ATOL_F64, equal_nan=True):
+                diff = (got - ref).abs().nan_to_num().max()
+                raise AssertionError(f"phase 14 {form} ({leg} seed {seed}) at {domain}: "
+                                     f"'{n}' differs from plain by {float(diff)}")
+        plan = LAST_PLAN[case.analysis.stencil.name]
+        if form == "per_level" and "one launch a level" not in plan["declined"].get("ring", ""):
+            raise AssertionError(f"phase 14 {form}: {leg} seed {seed} did not run a launch "
+                                 f"a level at {domain}: {plan['declined']}")
+        t = _in_turns({name: calls[name] for name in ("cuda", "torch")})
+        out[form] = {"leg": leg, "seed": seed, "domain": list(domain), "launches": launches,
+                     "forms": plan["forms"], "ms": t["cuda"], "plain_ms": t["torch"]}
+        print(f"phase 14 timed {form} ({leg} seed {seed}, {domain}, {case.layout}, "
+              f"{case.dtype}): {launches} launches a call, forms {plan['forms']}, cuda "
+              f"{t['cuda']} ms, plain torch {t['torch']} ms (median CUDA-event ms, two turns)")
+    return out
+
+
+def _fuzz(fb: dict, dev) -> dict:
+    """Phase 14: every program of ``program_gen.LEGS`` on ``"cuda"`` (its
+    kernels, counted by its library by kernel: at least one launch a
+    program, and their sum by form equal to the library's total) and on
+    ``"torch"`` on the card, against the numpy oracle; the next-DSL
+    operators, programs and bridge cases on ``"cuda"`` against embedded
+    torch and the numpy oracle (the operators the bridge declines counted,
+    the kernels' launches counted by their libraries); the gather and
+    chain fuzz, routed (K9) against the index path, bit for bit (K9's
+    launches counted by its library); the ``FUZZ_TIMED`` programs at a
+    model's size.  Fails on any disagreement, on a program that launched
+    no kernel, on a decline not in ``program_gen.LEG_DECLINES`` (or a
+    pinned one that builds) and where the phase did not reach every form
+    of ``FUZZ_COVERAGE``."""
+    import warnings
+
+    import numpy as np
+    import torch
+
+    from gt4py_tpu_torch.next import benes
+    from gt4py_tpu_torch.testing import gather_fuzz, program_gen
+
+    t0 = time.perf_counter()
+    legs, launches, with_, reached = {}, {}, {}, set()
+    kernel_tol = {np.dtype(np.float64): (RTOL_F64, ATOL_F64)}
+    for (leg, seed), case in fb["cases"].items():
+        _, kw = program_gen.LEGS[leg]
+        rtol, atol = kernel_tol.get(case.dtype, (RTOL_F32, ATOL_F32))
+        program_gen.run_differential_case(
+            seed, backends=("torch", "cuda"), device=dev, rtol=kw.get("rtol", 1e-12),
+            atol=kw.get("atol", 1e-12), max_flip_fraction=FUZZ_FLIPS, kernel_rtol=rtol,
+            kernel_atol=atol, count_kernels=True,
+            allow_declines=(leg, seed) in program_gen.LEG_DECLINES, case=case)
+        torch.cuda.synchronize()
+        s = legs.setdefault(leg, {"programs": 0, "launches": 0, "forms": {}, "with": {},
+                                  "declined": [], "rejected": 0, "kernel_vs_plain_max_abs": 0.0,
+                                  "builds": {}, "builds_declined": []})
+        s["programs"] += 1
+        if case.declined is not None:
+            s["declined"].append([seed, case.declined])
+            continue
+        if case.rejected:
+            s["rejected"] += 1
+            continue
+        if "options" in kw:
+            built = f"{case.options}, serialized {case.backend('cuda').program.serialized}"
+            s["builds"][built] = s["builds"].get(built, 0) + 1
+        s["launches"] += case.launches
+        for f, n in case.forms.items():
+            s["forms"][f] = s["forms"].get(f, 0) + n
+            launches[f] = launches.get(f, 0) + n
+            reached.add(f)
+        for f, n in _launches_with(case).items():
+            s["with"][f] = s["with"].get(f, 0) + n
+            with_[f] = with_.get(f, 0) + n
+            reached.add(f)
+        for name in case.names:
+            d = np.abs(case.results["cuda"][name] - case.results["torch"][name])
+            s["kernel_vs_plain_max_abs"] = max(s["kernel_vs_plain_max_abs"],
+                                               float(np.nanmax(d)) if d.size else 0.0)
+        if case.declined_builds:
+            s["builds_declined"].append([seed, case.options,
+                                         [[o, why] for o, why in case.declined_builds],
+                                         case.plan["declined"].get("sweep")])
+    declined = {(leg, seed) for leg, s in legs.items() for seed, _ in s["declined"]}
+    if declined != set(program_gen.LEG_DECLINES):
+        raise AssertionError(f"phase 14: declined programs {sorted(declined)} are not the "
+                             f"pinned ones {sorted(program_gen.LEG_DECLINES)}")
+    for leg, s in legs.items():
+        print(f"phase 14 {leg}: {s['programs']} programs, {s['launches']} kernel launches "
+              f"(library), declined {s['declined']}, rejected {s['rejected']}, "
+              f"kernel vs plain max abs {s['kernel_vs_plain_max_abs']:.3e}, launches by form "
+              f"{dict(sorted(s['forms'].items()))}, of them {dict(sorted(s['with'].items()))}"
+              + (f", builds {s['builds']}" if s["builds"] else ""))
+        for seed, opts, why, sweep in s["builds_declined"]:
+            print(f"phase 14 {leg} seed {seed}: built {opts}; declined {why}; "
+                  f"LAST_PLAN declined sweep: {sweep}")
+    if "sweep" not in reached:
+        print("phase 14: no program reached the sweep form (K5's sweep is held by phase 10)")
+    cartesian_s = time.perf_counter() - t0
+
+    # the next DSL: cuda against embedded torch and the numpy oracle
+    t1 = time.perf_counter()
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        next_cases = _next_fuzz_runs(dev)
+    torch.cuda.synchronize()
+    nxt = {}
+    for (kind, seed), c in next_cases.items():
+        s = nxt.setdefault(kind, {"cases": 0, "fallbacks": 0, "launches": 0, "lowered": 0})
+        s["cases"] += 1
+        s["fallbacks"] += c.fallbacks
+        s["launches"] += c.launches
+        s["lowered"] += int(c.lowered)
+    launches["next (K10)"] = sum(s["launches"] for s in nxt.values())
+    for kind, s in nxt.items():
+        print(f"phase 14 next {kind}: {s['cases']} cases, {s['lowered']} lowered to kernels, "
+              f"{s['launches']} kernel launches (the stencil libraries' counts), "
+              f"{s['fallbacks']} operators ran embedded (cuda_bridge.FALLBACK_EVENTS)")
+    next_s = time.perf_counter() - t1
+
+    # the gathers: routed (K9) against the index path, bit for bit
+    t2 = time.perf_counter()
+    gathers = {"outcomes": {}, "k9_permutes": 0}
+    k9_before = benes.KERNEL.device_launches
+    for seed in GATHER_FUZZ:
+        for fn in (gather_fuzz.run_gather_case, gather_fuzz.run_chain_case):
+            outcome, n = fn(seed, device=dev)
+            if outcome == "routed" and n < 1:
+                raise AssertionError(f"phase 14 gathers seed {seed}: routed without K9")
+            gathers["outcomes"][outcome] = gathers["outcomes"].get(outcome, 0) + 1
+            gathers["k9_permutes"] += n
+    torch.cuda.synchronize()
+    gathers["k9_launches"] = benes.KERNEL.device_launches - k9_before
+    launches["K9 (gathers)"] = gathers["k9_launches"]
+    print(f"phase 14 gathers: outcomes {gathers['outcomes']}, {gathers['k9_permutes']} permutes "
+          f"ran K9 in {gathers['k9_launches']} kernel launches (its library's count)")
+    gather_s = time.perf_counter() - t2
+
+    missing = [f for f in FUZZ_COVERAGE if f not in reached]
+    if missing:
+        raise AssertionError(f"phase 14 reached no program in the forms {missing}")
+    by_kernel = {FUZZ_KERNELS.get(f, f): n for f, n in sorted(launches.items())}
+    launches_with = {FUZZ_WITH[f]: n for f, n in sorted(with_.items())}
+    t3 = time.perf_counter()
+    timed = _fuzz_timed(fb, dev)
+    timed_s = time.perf_counter() - t3
+    seconds = time.perf_counter() - t0
+    print(f"phase 14: launches by kernel {by_kernel} (library counts); of the cartesian ones "
+          f"{launches_with}; {seconds:.1f} s (cartesian {cartesian_s:.1f} s, next "
+          f"{next_s:.1f} s, gathers {gather_s:.1f} s, timed forms {timed_s:.1f} s)")
+    return {"seconds": seconds, "cartesian_s": cartesian_s, "next_s": next_s,
+            "gather_s": gather_s, "timed_s": timed_s, "next_cpu_s": fb["next_cpu_s"],
+            "legs": {leg: {k: v for k, v in s.items() if k != "builds_declined"}
+                     for leg, s in legs.items()},
+            "next": nxt, "gathers": gathers, "launches_by_kernel": by_kernel,
+            "launches_with": launches_with, "timed": timed,
+            "declined": sorted(map(list, declined))}
+
+
+def fuzz_only() -> int:
+    """``--fuzz``: phase 14 alone (its builds, the legs)."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from gt4py_tpu_torch.next import benes
+    from gt4py_tpu_torch.next.compiled_program import build_all
+
+    dev = torch.device("cuda", 0)
+    smi = _nvidia_smi()
+    print(f"card: {smi}")
+    fb = _fuzz_builds()
+    t0 = time.perf_counter()
+    n = build_all(fb["backends"] + [benes.KERNEL])
+    build_s = time.perf_counter() - t0
+    print(f"build: {n} sources, {build_s:.2f} s (nvcc in parallel)")
+    result = _fuzz(fb, dev)
+    print(smi)
+    print(json.dumps({"fuzz": {**result, "build_s": build_s, "sources": n}}, default=str))
     return 0
 
 
@@ -3653,6 +3983,7 @@ def k9_layouts() -> int:
 
 if __name__ == "__main__":
     sys.exit(k9_layouts() if sys.argv[1:] == ["--k9-layouts"] else
+             fuzz_only() if sys.argv[1:] == ["--fuzz"] else
              k3_only() if sys.argv[1:] == ["--k3"] else
              k3_tiles() if sys.argv[1:] == ["--k3-tiles"] else
              tiles_only() if sys.argv[1:] == ["--tiles"] else

@@ -247,14 +247,16 @@ class ExtentAnalysis:
         return self.alloc_extent(name).to_boundary()
 
 
-def compute_extents(stencil: ir.Stencil) -> ExtentAnalysis:
+def compute_extents(stencil: ir.Stencil, min_extents=None) -> ExtentAnalysis:
     """Backward sweep: each statement unit's compute extent is the union of
     the extents required of the fields it writes; its reads then extend the
     read fields' extents by (unit extent + offset).
 
     Statement units are the top-level statements of each vertical section
     (an If/While/HorizontalRestriction counts as one unit, matching the
-    reference's per-HorizontalExecution granularity).
+    reference's per-HorizontalExecution granularity).  ``min_extents``
+    (``id`` of a unit -> Extent): units computed over at least that extent
+    (the pieces of a split compound statement keep the statement's).
     """
     field_extents: Dict[str, Extent] = {}
     stmt_extents: Dict[int, Extent] = {}
@@ -268,6 +270,8 @@ def compute_extents(stencil: ir.Stencil) -> ExtentAnalysis:
                 for w in writes:
                     ext = ext | field_extents.get(w.name, Extent.zeros()).horizontal
                 ext = ext.union_zero()
+                if min_extents and id(stmt) in min_extents:
+                    ext = ext | min_extents[id(stmt)]
                 stmt_extents[id(stmt)] = Extent(i=ext.i, j=ext.j)
                 for w in writes:
                     write_extents[w.name] = write_extents.get(
@@ -521,12 +525,13 @@ class StencilAnalysis:
     min_k_size: int
 
 
-def analyze(stencil: ir.Stencil) -> StencilAnalysis:
+def analyze(stencil: ir.Stencil, min_extents=None) -> StencilAnalysis:
+    """``min_extents``: see ``compute_extents``."""
     from gt4py_tpu_torch.cartesian import validation
 
     resolve_temp_dtypes(stencil)
     validation.validate(stencil)
-    extents = compute_extents(stencil)
+    extents = compute_extents(stencil, min_extents)
     k_bounds = compute_k_boundary(stencil, extents=extents)
 
     read_fields: Dict[str, bool] = {}

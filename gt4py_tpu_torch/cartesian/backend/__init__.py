@@ -4,6 +4,8 @@
   package's ``"numpy"``/``"jax"`` executors.
 - ``"cuda"``: generated CUDA C++ kernels, the counterpart of ``"pallas"``.
   On CPU tensors it runs the ``"torch"`` executor.
+- ``"numpy"`` and ``"debug"``: copies of the JAX package's numpy oracle and ``"debug"``
+  point-loop executor, on the host only (CPU tensors and numpy arrays).
 """
 
 from __future__ import annotations
@@ -28,5 +30,7 @@ def from_name(name: str):
     return REGISTRY[name]
 
 
+from . import numpy_backend  # noqa: E402,F401
+from . import debug_backend  # noqa: E402,F401
 from . import torch_backend  # noqa: E402,F401
 from . import cuda_backend  # noqa: E402,F401

@@ -103,7 +103,8 @@ emitters turn each vertical loop into ``__global__`` kernels:
   from ``KB_DEFAULT_DEPTH`` levels on at most ``KB_DEFAULT_COLUMNS``
   columns and one pass elsewhere (``kb_default``, PERF.md);
   ``k_blocked=False`` keeps one pass.  The library counts its launches
-  (``gt_launch_counts``); the plan records each loop's.
+  (``gt_launch_counts``: in all, by kernel, and of each kernel's K4 and
+  vector variants); the plan records each loop's.
 - **Row-phase 16-byte staging and the vector row form** (K6; Pallas
   ``_trace_repaired`` and its gate ``_halos_ij``).  The tile and sweep
   kernels stage each row of an input from its own aligned-down 16-byte
@@ -208,6 +209,7 @@ from __future__ import annotations
 import ctypes
 import time
 from dataclasses import dataclass, field, replace
+from types import SimpleNamespace
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -271,6 +273,9 @@ REPLACES = {
 
 #: the plan of every stencil built, by name (see the module docstring)
 LAST_PLAN: Dict[str, dict] = {}
+#: the stencil libraries this process has loaded: build directory ->
+#: (library, kernels); stencils built from one source share one
+_LOADED: Dict[str, Tuple[ctypes.CDLL, int]] = {}
 
 #: shared memory one CTA may hold on the H100 (above 48 KiB a kernel asks
 #: for it with cudaFuncSetAttribute)
@@ -669,10 +674,35 @@ class PlanePlan:
     #: planes before the K loop: (read, the rectangle of the statements
     #: that read it (tile-relative), the same in the domain, unwidened)
     hoisted: List[Tuple[ir.FieldAccess, Extent, Extent]] = field(default_factory=list)
+    #: compound statements (by ``id``) that read, at the point, a field
+    #: they write, which no statement before them in the section wrote ->
+    #: those fields: the point's element of the shared plane is primed
+    #: from the snapshot before the statement, and every such read (the
+    #: later ones after the statement's own writes: a ``while`` condition)
+    #: reads the plane
+    primed: Dict[int, List[str]] = field(default_factory=dict)
+    #: ``while`` loops (by ``id``) that read at a horizontal offset a field
+    #: they write, run one iteration at a time by the whole CTA
+    #: (``_loop_group``): their body's stages and the rectangle (the
+    #: statement's extent grown by the reach of those reads) the CTA
+    #: iterates over, clipped to the statement's extent in the domain
+    loops: Dict[int, Tuple[List[List[ir.Stmt]], Extent]] = field(default_factory=dict)
+    #: why the ring cannot hold the earlier levels the loop reads (a writer
+    #: that cannot be widened, ``_widen_writers``): the kernel then runs one
+    #: launch a level, in the loop's order, and reads earlier levels from
+    #: device memory, where every CTA's launch before wrote them
+    per_level: Optional[str] = None
 
     def extent(self, analysis: StencilAnalysis, s: ir.Stmt) -> Extent:
         """The rectangle the CTA computes ``s`` over (tile-relative)."""
+        if id(s) in self.loops:
+            return self.loops[id(s)][1]
         return self.widened.get(id(s)) or analysis.extents.stmt_extent(s)
+
+    def mask_bytes(self, tile: Tuple[int, int]) -> List[int]:
+        """Shared bytes of each loop group's mask (one byte a point)."""
+        return [_align16((tile[0] + e.i[1] - e.i[0]) * (tile[1] + e.j[1] - e.j[0]))
+                for _, e in self.loops.values()]
 
 
 def _hoist_bytes(st: ir.Stencil, hoisted, tile: Tuple[int, int]) -> int:
@@ -686,6 +716,17 @@ def _covers(outer: Extent, inner: Extent) -> bool:
             and outer.j[0] <= inner.j[0] and inner.j[1] <= outer.j[1])
 
 
+def _levels_disjoint(a, dk: int, b) -> bool:
+    """No level of the interval ``a`` shifted by ``dk`` lies in the
+    interval ``b``, at any depth (bounds relative to one end compare; a
+    runtime bound or bounds relative to different ends may meet)."""
+    def below(x, xo: int, y) -> bool:  # x + xo <= y at every depth
+        return isinstance(x, ir.AxisBound) and isinstance(y, ir.AxisBound) and \
+            x.level == y.level and x.offset + xo <= y.offset
+
+    return below(a.end, dk, b.start) or below(b.end, -dk, a.start)
+
+
 def _widen_writers(analysis: StencilAnalysis, secs, ring_reads, written, behind: int,
                    loop: str, plane_ext: Dict[str, Extent],
                    mirror: Dict[str, int]) -> Dict[int, Extent]:
@@ -696,14 +737,19 @@ def _widen_writers(analysis: StencilAnalysis, secs, ring_reads, written, behind:
     halo.  A widened writer may read only fields the loop does not write,
     and its own field at an earlier level (whose points join the ring
     reads, ``plane_ext`` and ``mirror`` growing with them); the rectangle
-    stays inside the field's allocated extent.  ``_Decline`` names what
+    stays inside the field's allocated extent.  ``ring_reads``: (field,
+    points, reading section, K offset); a writer in a section none of whose
+    levels the read reaches is left as it is.  ``_Decline`` names what
     cannot be widened."""
     ext = analysis.extents
+    intervals = [sec.interval for lp in analysis.stencil.vertical_loops for sec in lp.sections]
     widened: Dict[int, Extent] = {}
     work = list(ring_reads)
     while work:
-        name, at = work.pop()
-        for _, body in secs:
+        name, at, rsid, dk = work.pop()
+        for wsid, body in secs:
+            if _levels_disjoint(intervals[rsid], dk, intervals[wsid]):
+                continue
             for s in body:
                 targets = {w.name for w in _stmt_writes(s)}
                 if name not in targets:
@@ -730,7 +776,7 @@ def _widen_writers(analysis: StencilAnalysis, secs, ring_reads, written, behind:
                     at2 = grown + Extent.from_offset(r.offset.i, r.offset.j)
                     plane_ext[name] = plane_ext[name] | at2
                     mirror[name] = max(mirror.get(name, 1), abs(r.offset.k) + 1)
-                    work.append((name, at2))
+                    work.append((name, at2, wsid, r.offset.k))
                 plane_ext[name] = plane_ext[name] | grown
                 widened[id(s)] = grown
     return widened
@@ -991,11 +1037,64 @@ def _vark_plan(st: ir.Stencil, stmts: List[ir.Stmt], written_by_stencil) -> Vark
     return vp
 
 
-def _plane_stages(stmts: List[ir.Stmt]) -> List[List[ir.Stmt]]:
+def _loop_group(st: ir.Stencil, w: ir.While):
+    """``(body stages, (I reach, J reach))`` of a ``while`` that reads at a
+    horizontal offset a field it writes, for the plane form to run one
+    iteration at a time by the whole CTA, over the loop's extent grown by
+    the reach: exact where a point's iteration needs its neighbours' values
+    of the same iteration only through fields whose values at a point
+    depend on the loop's fields at that point alone (a neighbour's value
+    then never needs its own neighbours').  ``_Decline`` otherwise, and
+    where such a field is an API field or is read at a K offset, or the
+    body holds a loop."""
+    writes = {x.name for x in _stmt_writes(w)}
+    reach = [0, 0]
+    deps = {r.name for r in ir.field_accesses(w.cond) if r.name in writes}
+    if any(r.name in writes and _ij(r.offset) for r in ir.field_accesses(w.cond)):
+        raise _Decline("cuda backend: a while condition reads at a horizontal offset a field "
+                       "its loop writes")
+    for r in _stmt_reads(w):
+        if r.name not in writes:
+            continue
+        if not isinstance(r.offset, ir.CartesianOffset) or r.offset.k:
+            raise _Decline(f"cuda backend: a while loop reads '{r.name}', which it writes, "
+                           "at a K offset or a variable level")
+        if _ij(r.offset):
+            deps.add(r.name)
+            reach = [max(reach[0], abs(r.offset.i)), max(reach[1], abs(r.offset.j))]
+    for n in sorted(deps):
+        if n in st.field_decls:
+            raise _Decline(f"cuda backend: a while loop reads the API field '{n}', which it "
+                           "writes, at a horizontal offset")
+    grown = True
+    while grown:
+        grown = False
+        for b in w.body:
+            if any(isinstance(x, ir.While) for x in ir.walk_values(b)):
+                raise _Decline("cuda backend: a while loop that reads at a horizontal offset a "
+                               "field it writes holds a loop")
+            if not {x.name for x in _stmt_writes(b)} & deps:
+                continue
+            for r in _stmt_reads(b):
+                if r.name in writes and _ij(r.offset):
+                    raise _Decline(
+                        f"cuda backend: a while loop reads '{r.name}' at a horizontal offset "
+                        "where a neighbour's value would need its own neighbours'")
+                if r.name in writes and r.name not in deps:
+                    deps.add(r.name)
+                    grown = True
+    return _plane_stages(list(w.body)), tuple(reach)
+
+
+def _plane_stages(stmts: List[ir.Stmt], loops: Optional[dict] = None,
+                  st: Optional[ir.Stencil] = None) -> List[List[ir.Stmt]]:
     """The stages of one plane: a new stage starts at a read, at a
     horizontal offset, of a field written earlier in the stage, and at a
     write of a field the stage read so.  K offsets start none (the plane's
-    other levels are checked by ``_plan_planes``)."""
+    other levels are checked by ``_plan_planes``).  ``loops`` (the plane
+    form of a serial loop): a ``while`` that reads at a horizontal offset a
+    field it writes is a stage of its own, its ``_loop_group`` recorded
+    there by ``id``."""
     stages: List[List[ir.Stmt]] = []
     cur: List[ir.Stmt] = []
     written: set = set()
@@ -1004,10 +1103,17 @@ def _plane_stages(stmts: List[ir.Stmt]) -> List[List[ir.Stmt]]:
         writes = {w.name for w in _stmt_writes(stmt)}
         ij = {r.name for r in _stmt_reads(stmt) if _ij(r.offset)}
         if not isinstance(stmt, ir.Assign) and writes & ij:
-            raise _Decline(
-                "cuda backend: a compound statement reads at a horizontal offset a field "
-                f"it writes ({sorted(writes & ij)})"
-            )
+            if loops is None or not isinstance(stmt, ir.While):
+                raise _Decline(
+                    "cuda backend: a compound statement reads at a horizontal offset a field "
+                    f"it writes ({sorted(writes & ij)})"
+                )
+            loops[id(stmt)] = _loop_group(st, stmt)
+            if cur:
+                stages.append(cur)
+            stages.append([stmt])
+            cur, written, offset_read = [], set(), set()
+            continue
         if cur and (ij & written or writes & offset_read):
             stages.append(cur)
             cur, written, offset_read = [], set(), set()
@@ -1021,7 +1127,7 @@ def _plane_stages(stmts: List[ir.Stmt]) -> List[List[ir.Stmt]]:
 
 def _plan_planes(analysis: StencilAnalysis, order: ir.LoopOrder,
                  secs: List[Tuple[int, List[ir.Stmt]]], plane_temps,
-                 choose_tile: bool = True) -> PlanePlan:
+                 choose_tile: bool = True, per_level: Optional[str] = None) -> PlanePlan:
     """The plane-sweep form of a serial loop, or ``_Decline`` naming the
     read it cannot order.  A point is *owned* by the CTA whose tile holds
     it (tiles at the domain's edge own the halo beyond it); a read of a
@@ -1032,7 +1138,25 @@ def _plan_planes(analysis: StencilAnalysis, order: ir.LoopOrder,
     st = analysis.stencil
     ext = analysis.extents
     loop = order.name
-    stages = {sid: _plane_stages(body) for sid, body in secs}
+    # the plane form of a serial loop runs a while loop with horizontal
+    # self-reads one iteration at a time (``_loop_group``)
+    groups: Optional[dict] = {} if choose_tile and order != ir.LoopOrder.PARALLEL else None
+    stages = {sid: _plane_stages(body, groups, st) for sid, body in secs}
+    by_id = {id(x): x for _, body in secs for x in body}
+    loops: Dict[int, Tuple[List[List[ir.Stmt]], Extent]] = {}
+    for k, (stg, (ri, rj)) in (groups or {}).items():
+        e = ext.stmt_extent(by_id[k])
+        loops[k] = (stg, Extent(i=(e.i[0] - ri, e.i[1] + ri), j=(e.j[0] - rj, e.j[1] + rj)))
+    in_loops = {n for _, body in secs for x in body if id(x) in loops
+                for n in {a.name for a in ir.field_accesses(x)}}
+    for _, body in secs:
+        for x in body:
+            carried = {w.name for w in _stmt_writes(x)} & {r.name for r in _stmt_reads(x)}
+            if id(x) in loops and carried & set(plane_temps):
+                # their values from before the loop exist only where an earlier
+                # statement of the level computed them, not over the loop's rectangle
+                raise _Decline(f"cuda backend: a while loop iterated by the CTA carries the "
+                               f"plane-local {sorted(carried & set(plane_temps))}")
     written = {w.name for _, body in secs for s in body for w in _stmt_writes(s)}
     for _, body in secs:
         for s in body:
@@ -1045,13 +1169,14 @@ def _plan_planes(analysis: StencilAnalysis, order: ir.LoopOrder,
     off_read: set = set()
     mirror: Dict[str, int] = {}
     snapshots: Dict[int, str] = {}
-    ring_reads: List[Tuple[str, Extent]] = []
+    primed: Dict[int, List[str]] = {}
+    ring_reads: List[Tuple[str, Extent, int, int]] = []
     behind = -1 if order == ir.LoopOrder.FORWARD else 1
     for sid, sts in stages.items():
         flat = [(n, s) for n, stage in enumerate(sts) for s in stage]
         before: set = set()
         for pos, (n, s) in enumerate(flat):
-            e = ext.stmt_extent(s)
+            e = loops[id(s)][1] if id(s) in loops else ext.stmt_extent(s)
             e = Extent(i=e.i, j=e.j)
             later = {w.name for _, s2 in flat[pos:] for w in _stmt_writes(s2)}
             for w in _stmt_writes(s):
@@ -1074,24 +1199,49 @@ def _plan_planes(analysis: StencilAnalysis, order: ir.LoopOrder,
                     raise _Decline(
                         f"cuda backend: '{r.name}' is read at a variable level, at points "
                         f"another CTA writes, in the {loop} loop that writes it")
+                if id(s) in loops and r.name in before:
+                    raise _Decline(f"cuda backend: a while loop iterated by the CTA reads "
+                                   f"'{r.name}', which the {loop} loop wrote before it")
+                if not isinstance(s, ir.Assign) and (not _nonzero(r.offset) or (
+                        id(s) in loops and not r.offset.k)) and \
+                        r.name not in before and r.name in {w.name for w in _stmt_writes(s)}:
+                    # a compound statement's reads at the point of a field it
+                    # writes see its own writes there (a ``while`` condition
+                    # after an iteration): the shared plane, primed from
+                    # the snapshot (the value from before the loop)
+                    if r.name not in primed.setdefault(id(s), []):
+                        primed[id(s)].append(r.name)
+                    mirror.setdefault(r.name, 1)
+                    continue
                 if r.offset.k * behind < 0 or (not r.offset.k and r.name not in before
                                                 and r.name in later):
                     # a value the sweep has not written yet: the one from
                     # before the loop, in a copy taken before the kernel
                     snapshots[id(r)] = r.name
+                elif r.offset.k and per_level:
+                    # an earlier plane, written by the launches before
+                    continue
                 elif r.offset.k:
                     # an earlier plane: from the CTA's own ring of planes
                     at = e + Extent.from_offset(r.offset.i, r.offset.j)
                     plane_ext[r.name] = plane_ext.get(r.name, at) | at
                     mirror[r.name] = max(mirror.get(r.name, 1), abs(r.offset.k) + 1)
-                    ring_reads.append((r.name, at))
+                    ring_reads.append((r.name, at, sid, r.offset.k))
                 elif r.name in before:
                     mirror.setdefault(r.name, 1)
             before |= {w.name for w in _stmt_writes(s)}
     # the ring holds what the CTA computed: every writer must cover the
     # points read from it, widened where it does not
-    widened = _widen_writers(analysis, secs, ring_reads, written, behind, loop, plane_ext,
-                             mirror)
+    try:
+        widened = _widen_writers(analysis, secs, ring_reads, written, behind, loop,
+                                 plane_ext, mirror)
+    except _Decline as e:
+        intervals = [sec.interval for lp in st.vertical_loops for sec in lp.sections]
+        ordered = all(_levels_disjoint(intervals[a], 0, intervals[b])
+                      for a, _ in secs for b, _ in secs if a < b)
+        if not choose_tile or not ordered:
+            raise
+        return _plan_planes(analysis, order, secs, plane_temps, per_level=str(e))
     widened_fields: Dict[str, Extent] = {}
     for _, body in secs:
         for s in body:
@@ -1099,10 +1249,11 @@ def _plan_planes(analysis: StencilAnalysis, order: ir.LoopOrder,
                 (w,) = {w.name for w in _stmt_writes(s)}
                 widened_fields[w] = widened_fields.get(w, widened[id(s)]) | widened[id(s)]
     local = [n for n in touched if n in plane_temps]
-    registers = [n for n in local if n not in off_read
+    registers = [n for n in local if n not in off_read and n not in in_loops
                  and all(len(v) == 1 for v in touched[n].values())]
     shared = {n: plane_ext[n] for n in local if n not in registers}
-    for n in sorted(mirror) + sorted(set(snapshots.values())):
+    snapshot_names = set(snapshots.values()) | {n for ns in primed.values() for n in ns}
+    for n in sorted(mirror) + sorted(snapshot_names):
         decl = st.decl(n)
         if decl.data_dims or not (decl.dimensions[0] and decl.dimensions[1]):
             raise _Decline(f"cuda backend: '{n}' (data dimensions or no I/J axis) is read at "
@@ -1112,15 +1263,17 @@ def _plan_planes(analysis: StencilAnalysis, order: ir.LoopOrder,
 
     stmts = [s for _, body in secs for s in body]
     hoist = _hoistable(st, stmts, written)
-    rects = _hoist_extents(ext, stmts, hoist,
-                           lambda s: widened.get(id(s)) or ext.stmt_extent(s))
+    rects = _hoist_extents(ext, stmts, hoist, lambda s: loops[id(s)][1] if id(s) in loops
+                           else widened.get(id(s)) or ext.stmt_extent(s))
     doms = _hoist_extents(ext, stmts, hoist)
     hoisted = [(r, rects[id(r)], doms[id(r)]) for r in hoist]
 
     def nbytes(tile):
         return sum(_align16((tile[0] + e.i[1] - e.i[0]) * (tile[1] + e.j[1] - e.j[0])
                             * _value_size(st.decl(n).dtype) * mirror.get(n, 1))
-                   for n, e in shared.items()) + _hoist_bytes(st, hoisted, tile)
+                   for n, e in shared.items()) + _hoist_bytes(st, hoisted, tile) + sum(
+            _align16((tile[0] + e.i[1] - e.i[0]) * (tile[1] + e.j[1] - e.j[0]))
+            for _, e in loops.values())
 
     fits = [t for t in PLANE_TILES if nbytes(t) <= SMEM_MAX] if choose_tile else PLANE_TILES
     if not fits:
@@ -1130,9 +1283,10 @@ def _plan_planes(analysis: StencilAnalysis, order: ir.LoopOrder,
     return PlanePlan(tile=tile, stages=stages, shared=shared,
                      mirrored={n: mirror[n] for n in sorted(mirror)},
                      registers=registers, smem_bytes=max(16, nbytes(tile)),
-                     snapshots=sorted(set(snapshots.values())),
+                     snapshots=sorted(snapshot_names),
                      snapshot_reads=frozenset(snapshots),
-                     widened=widened, widened_fields=widened_fields, hoisted=hoisted)
+                     widened=widened, widened_fields=widened_fields, hoisted=hoisted,
+                     primed=primed, loops=loops, per_level=per_level)
 
 
 def _ij_hazard(loop: ir.VerticalLoop) -> bool:
@@ -1653,10 +1807,11 @@ def plan_kernels(analysis: StencilAnalysis, planes_loops=frozenset(),
                 run = []
             if plane_temps is None:
                 plane_temps = passes.plane_local_temps(st)
+            pp = _plan_planes(analysis, loop.loop_order, secs, plane_temps)
+            if pp.per_level:
+                declined["ring"] = f"{pp.per_level}: one launch a level"
             plans.append(KernelPlan(name="", form="planes", order=loop.loop_order,
-                                    sections=secs,
-                                    planes=_plan_planes(analysis, loop.loop_order, secs,
-                                                        plane_temps)))
+                                    sections=secs, planes=pp))
             if li in planes_loops:
                 serial_planes.add(len(plans) - 1)
         else:
@@ -2365,8 +2520,18 @@ class _Emitter:
         w = self.plane.extent(self.analysis, s)
         self.stmt_ext = w
         self.own = (w.i, w.j) != ((0, 0), (0, 0))
-        if (w.i, w.j) == (rect.i, rect.j) and w == e:
-            return self.stmt(s, ind)
+        inner = ind if (w.i, w.j) == (rect.i, rect.j) and w == e else ind + "  "
+        body = []
+        for name in self.plane.primed.get(id(s), ()):
+            # the value from before the loop, at the point, into its plane
+            load = self.global_access(ir.FieldAccess(name), var="o_" + name)
+            dt = np.dtype(self.stencil.decl(name).dtype)
+            if dt in _HALF:
+                load = f"{_HALF[dt][0]}({load})"
+            body.append(f"{inner}{self._shared(ir.FieldAccess(name))} = {load};")
+        body += self.stmt(s, inner)
+        if inner == ind:
+            return body
         cond = (f"ti >= {w.i[0]} && i < I1 + {w.i[1]} && "
                 f"tj >= {w.j[0]} && j < J1 + {w.j[1]}")
         if w != e:
@@ -2374,7 +2539,7 @@ class _Emitter:
             # the domain only its own extent, where the oracle computes it
             cond += (f" && i >= {e.i[0]} && i < dI + {e.i[1]} && "
                      f"j >= {e.j[0]} && j < dJ + {e.j[1]}")
-        return [f"{ind}if ({cond}) {{", *self.stmt(s, ind + "  "), f"{ind}}}"]
+        return [f"{ind}if ({cond}) {{", *body, f"{ind}}}"]
 
     def guarded(self, s: ir.Stmt, rect: Extent, ind: str) -> List[str]:
         e = self.analysis.extents.stmt_extent(s)
@@ -2428,14 +2593,19 @@ def _in_device_memory(p: KernelPlan, name: str, locals_) -> bool:
 def _kblock_eligibility(analysis: StencilAnalysis, plans: List[KernelPlan]):
     """``(reason, passes, promoted)``: why K4 cannot run the stencil (None
     when it can), and ``passes.split_serial_passes``'s passes and promoted
-    temporaries.  The reasons are the JAX package's (``_trace_kblocked``)."""
+    temporaries.  The reasons are the JAX package's (``_trace_kblocked``),
+    but for variable and absolute K reads of fields the stencil does not
+    write: the kernels read those from device memory, whole, whatever the
+    block (the windows hold only Cartesian reads)."""
     st = analysis.stencil
     if not any(p.form == "columns" for p in plans):
         return "no loop in the column form", 0, []
+    written = {n.target.name for n in ir.walk_values(st.vertical_loops)
+               if isinstance(n, ir.Assign)}
     for node in ir.walk_values(st.vertical_loops):
-        if isinstance(node, ir.FieldAccess) and \
+        if isinstance(node, ir.FieldAccess) and node.name in written and \
                 isinstance(node.offset, (ir.VariableKOffset, ir.AbsoluteKIndex)):
-            return "a variable or absolute K access", 0, []
+            return "a variable or absolute K access of a field the stencil writes", 0, []
     if any(sec.interval.is_runtime for loop in st.vertical_loops for sec in loop.sections):
         return "a runtime interval bound", 0, []
     pass_stencils, promoted = passes.split_serial_passes(st)
@@ -3274,6 +3444,9 @@ def _plane_level(em: _Emitter, p: KernelPlan, sid: int) -> List[str]:
             out += [f"      sh_{name}[{ring}p_] = {load};", "    }"]
         out.append("    __syncthreads();")
     for stage in pp.stages[sid]:
+        if len(stage) == 1 and id(stage[0]) in pp.loops:
+            out += _loop_group_lines(em, pp, stage[0])
+            continue
         rect = Extent.zeros()
         for s in stage:
             rect = rect | pp.extent(em.analysis, s)
@@ -3287,6 +3460,56 @@ def _plane_level(em: _Emitter, p: KernelPlan, sid: int) -> List[str]:
         for s in stage:
             out += em.plane_guarded(s, rect, "      ")
         out += ["    }", "    __syncthreads();"]
+    return out
+
+
+_OWN = ("      const bool own = (I0 == 0 || ti >= 0) && (I1 == dI || i < I1)"
+        " && (J0 == 0 || tj >= 0) && (J1 == dJ || j < J1);")
+
+
+def _loop_group_lines(em: _Emitter, pp: PlanePlan, w: ir.While) -> List[str]:
+    """A ``_loop_group`` ``while`` in the plane form: its carried fields'
+    planes primed from their snapshots (the values from before the loop,
+    where the field's storage holds them), a mask a point (``wm<n>_``) of
+    the condition over the loop's rectangle within the statement's extent
+    in the domain, then one iteration at a time for the whole CTA, while
+    any point of the CTA is active (``__syncthreads_or``): each body stage
+    over the rectangle for the active points, ``__syncthreads()`` after
+    each, then the mask and-ed with the condition -- the oracle's
+    iteration, plane-wide, as its neighbours' values are computed by the
+    CTA itself."""
+    n = list(pp.loops).index(id(w))
+    stages, q = pp.loops[id(w)]
+    e = em.analysis.extents.stmt_extent(w)
+    inside = f"i >= {e.i[0]} && i < dI + {e.i[1]} && j >= {e.j[0]} && j < dJ + {e.j[1]}"
+    em.stmt_ext = q
+    em.own = True
+    mask = f"wm{n}_"
+    out = [f"    // while loop iterated by the CTA over I{q.i} J{q.j}"]
+    for name in pp.primed.get(id(w), ()):
+        a = em.analysis.extents.alloc_extent(name)
+        load = em.global_access(ir.FieldAccess(name), var="o_" + name)
+        dt = np.dtype(em.stencil.decl(name).dtype)
+        if dt in _HALF:
+            load = f"{_HALF[dt][0]}({load})"
+        out += _tile_points(pp.tile, pp.shared[name], "    ", em.threads)
+        out += [f"      if (i >= {a.i[0]} && i < dI + {a.i[1]} && j >= {a.j[0]} && "
+                f"j < dJ + {a.j[1]}) sh_{name}[p_] = {load};", "    }"]
+    cond, _ = em.expr(w.cond)
+    out += ["    __syncthreads();"] + _tile_points(pp.tile, q, "    ", em.threads) + [
+        f"      {mask}[p_] = ({inside}) && ({cond});", "    }", "    __syncthreads();",
+        "    for (;;) {", "      int a_ = 0;"]
+    out += _tile_points(pp.tile, q, "      ", em.threads) + [
+        f"        a_ |= {mask}[p_];", "      }", "      if (!__syncthreads_or(a_)) break;"]
+    for stage in stages:
+        out += _tile_points(pp.tile, q, "      ", em.threads)
+        out += ["  " + _OWN, f"        if ({mask}[p_]) {{"]
+        for b in stage:
+            out += em.stmt(b, "          ")
+        out += ["        }", "      }", "      __syncthreads();"]
+    out += _tile_points(pp.tile, q, "      ", em.threads) + [
+        f"        if ({mask}[p_]) {mask}[p_] = ({cond});", "      }", "      __syncthreads();",
+        "    }"]
     return out
 
 
@@ -3322,6 +3545,9 @@ def _emit_planes(em: _Emitter, p: KernelPlan, params: List[str], bpp: int) -> Li
         out.append(f"  {ct}* const sh_{name} = ({ct}*)(gt_smem + {off});")
         off += _align16((TI + e.i[1] - e.i[0]) * (TJ + e.j[1] - e.j[0])
                         * _value_size(st.decl(name).dtype) * pp.mirrored.get(name, 1))
+    for n, nbytes in enumerate(pp.mask_bytes(pp.tile)):
+        out.append(f"  unsigned char* const wm{n}_ = gt_smem + {off};")
+        off += nbytes
     out += _tile_origin(TI, TJ)
     out += _hoist_planes(em, pp, off, PLANE_THREADS)
     em.plane_order = p.order
@@ -3810,7 +4036,7 @@ def _snapshot_copies(p: KernelPlan, args: List[str], snapshots) -> List[str]:
             f"(ni + {BLOCK_I - 1}) / {BLOCK_I}), block({BLOCK_J}, {BLOCK_I});",
             f"      {kernel}<<<grid, block, 0, st>>>(o_{n}, {src}, {e.i[0]}, dI + {e.i[1]}, "
             f"{e.j[0]}, dJ + {e.j[1]});",
-            "      ++gt_launches_;",
+            "      ++gt_launches_; ++gt_copy_launches_;",
             "      const cudaError_t e = cudaGetLastError();",
             "      if (e != cudaSuccess) return (int)e;",
             "    }",
@@ -3828,7 +4054,7 @@ def _launch_lines(p: KernelPlan, index: int, args: List[str], nsec: int,
     ``snapshots``: name -> (copy kernel, source variable, box extent);
     ``vk_base``: a staged kernel's first window in ``vks``."""
     call = ", ".join(args)
-    check = ["      ++gt_launches_;",
+    check = [f"      ++gt_launches_; ++gt_kernel_launches_[{index}];",
              "      const cudaError_t e = cudaGetLastError();",
              "      if (e != cudaSuccess) return (int)e;"]
 
@@ -3924,15 +4150,35 @@ def _launch_lines(p: KernelPlan, index: int, args: List[str], nsec: int,
                 "    }",
                 "  }",
             ]
+        launch = [*attr(p.name, "      "), f"      {p.name}<<<grid, block, smem, st>>>({call});",
+                  *check]
+        if p.planes.per_level:
+            # one launch a level, in the loop's order, each on its level of
+            # every section (``PlanePlan.per_level``)
+            sids = [sid for sid, _ in p.sections]
+            level = "lo_ + l_" if p.order == ir.LoopOrder.FORWARD else "hi_ - 1 - l_"
+            kcall = ", ".join("kl_" if a == "kb" else a for a in args)
+            launch = [
+                *attr(p.name, "      "),
+                f"      int lo_ = kb.lo[{sids[0]}], hi_ = kb.hi[{sids[0]}];",
+                *[f"      lo_ = kb.lo[{s}] < lo_ ? kb.lo[{s}] : lo_; "
+                  f"hi_ = kb.hi[{s}] > hi_ ? kb.hi[{s}] : hi_;" for s in sids[1:]],
+                "      for (int l_ = 0; l_ < hi_ - lo_; ++l_) {",
+                f"        const int lv_ = {level};",
+                "        gt::KBounds<" + str(nsec) + "> kl_ = kb;",
+                *[f"        kl_.lo[{s}] = kb.lo[{s}] > lv_ ? kb.lo[{s}] : lv_; "
+                  f"kl_.hi[{s}] = kb.hi[{s}] < lv_ + 1 ? kb.hi[{s}] : lv_ + 1;" for s in sids],
+                f"        {p.name}<<<grid, block, smem, st>>>({kcall});",
+                *["  " + ln for ln in check],
+                "      }",
+            ]
         return copies + [
             "  {",
             f"    const dim3 grid((dJ + {TJ - 1}) / {TJ}, (dI + {TI - 1}) / {TI}), "
             f"block({PLANE_THREADS});",
             f"    const size_t smem = {p.planes.smem_bytes};",
             "    if (dI > 0 && dJ > 0) {",
-            *attr(p.name, "      "),
-            f"      {p.name}<<<grid, block, smem, st>>>({call});",
-            *check,
+            *launch,
             "    }",
             "  }",
         ]
@@ -3961,7 +4207,8 @@ def _launch_lines(p: KernelPlan, index: int, args: List[str], nsec: int,
             f"        const dim3 grid((vng + {VBLOCK_J - 1}) / {VBLOCK_J}, "
             f"(ni + {VBLOCK_I - 1}) / {VBLOCK_I}, {VSPLIT_K}), block({VBLOCK_J}, {VBLOCK_I});",
             f"        {p.name}_v<<<grid, block, 0, st>>>({vcall});",
-            "        ++gt_launches_;",
+            f"        ++gt_launches_; ++gt_kernel_launches_[{index}]; "
+            f"++gt_vec_launches_[{index}];",
             "        const cudaError_t e = cudaGetLastError();",
             "        if (e != cudaSuccess) return (int)e;",
             "      }",
@@ -4047,8 +4294,14 @@ def generate(analysis: StencilAnalysis, serialize: Optional[bool] = None,
     """Emit the CUDA C++ source of one stencil (deterministic).
     ``serialize``, ``k_blocked``, ``tiles``, ``fuse_loops``, ``sweep`` and
     ``stage_vark``: the build options (see ``plan_stencil``,
-    ``plan_kernels`` and ``CudaProgram.kblock_plan``)."""
+    ``plan_kernels`` and ``CudaProgram.kblock_plan``).  An ``if`` or a
+    region that reads a field it writes at an offset is split first
+    (``passes.split_compound_statements``), so that stages may part its
+    statements."""
     _check_supported(analysis)
+    split = passes.split_compound_statements(analysis)
+    if split is not None:
+        analysis = analyze(*split)
     planned, plans, serialized, declined = plan_stencil(analysis, serialize, tiles, fuse_loops,
                                                         sweep, stage_vark)
     st = planned.stencil
@@ -4130,10 +4383,14 @@ def generate(analysis: StencilAnalysis, serialize: Optional[bool] = None,
         "",
         "namespace {",
         "",
-        "// kernel launches gt_run has made, counted at each launch, and those",
-        "// of each kernel's K4 form by kernel index: read by gt_launch_counts",
+        "// kernel launches gt_run has made, counted at each launch: in all,",
+        "// by kernel index (each of its variants), of each kernel's K4 and",
+        "// vector variants, and the snapshot copies: read by gt_launch_counts",
         "long long gt_launches_ = 0;",
+        f"long long gt_kernel_launches_[{len(plans)}] = {{}};",
         f"long long gt_kb_launches_[{len(plans)}] = {{}};",
+        f"long long gt_vec_launches_[{len(plans)}] = {{}};",
+        "long long gt_copy_launches_ = 0;",
     ]
     for n in snapshots:
         out += _emit_snapshot(n, snap[n][0], _stype(st.decl(n).dtype))
@@ -4201,11 +4458,17 @@ def generate(analysis: StencilAnalysis, serialize: Optional[bool] = None,
     out += ["  return 0;", "}", "",
             'extern "C" const char* gt_error_string(int e) '
             "{ return cudaGetErrorString((cudaError_t)e); }", "",
-            "// out[0]: every kernel launch gt_run has made; out[1 + n]: kernel n's",
-            "// K4 launches",
+            f"// out[0]: every kernel launch gt_run has made; for kernel n of {len(plans)}:",
+            "// out[1 + n] its K4 launches, out[1 + N + n] all its launches,",
+            "// out[1 + 2N + n] its vector row launches; out[1 + 3N] the snapshot copies",
             'extern "C" void gt_launch_counts(long long* out) {',
             "  out[0] = gt_launches_;",
-            f"  for (int n = 0; n < {len(plans)}; ++n) out[1 + n] = gt_kb_launches_[n];",
+            f"  for (int n = 0; n < {len(plans)}; ++n) {{",
+            "    out[1 + n] = gt_kb_launches_[n];",
+            f"    out[1 + {len(plans)} + n] = gt_kernel_launches_[n];",
+            f"    out[1 + {2 * len(plans)} + n] = gt_vec_launches_[n];",
+            "  }",
+            f"  out[1 + {3 * len(plans)}] = gt_copy_launches_;",
             "}", ""]
     if any(p.window for p in plans):
         out += _occupancy_lines(plans)
@@ -4357,6 +4620,7 @@ class CudaBackend:
                 lib.gt_kb_occupancy.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
                 lib.gt_kb_occupancy.restype = ctypes.c_int
             self._lib = lib
+            _LOADED[self.build_dir] = (lib, len(self.program.kernels))
             self.build_seconds = time.perf_counter() - t0
         return self._lib
 
@@ -4378,13 +4642,25 @@ class CudaBackend:
     def device_launches(self) -> dict:
         """The library's own launch counts (one at each launch, since it was
         loaded, shared by the stencils built from one source; zeros before
-        it is built): ``all`` kernels, and ``kblocked`` the K4 launches of
-        each kernel by index."""
-        n = len(self.program.kernels)
-        out = (ctypes.c_longlong * (1 + n))()
-        if self._lib is not None:
-            self._lib.gt_launch_counts(out)
-        return {"all": out[0], "kblocked": list(out[1:])}
+        it is built): ``all`` kernels; by kernel index, ``kernels`` every
+        launch of the kernel and of its variants, ``kblocked`` its K4
+        launches and ``vector`` its vector row launches; ``copies`` the
+        plane-sweep kernels' snapshot copies."""
+        return _launch_counts(self._lib, len(self.program.kernels))
+
+    def launches_by_form(self, counts: dict) -> Dict[str, int]:
+        """The launches ``counts`` (a difference of two ``device_launches``)
+        by kernel form: each kernel's own form (``"tile"``, ``"rows"``,
+        ``"vark"``, ``"column"``, ``"columns"``, ``"planes"``, ``"sweep"``),
+        its vector row kernel as ``"vector"``, its K4 window kernel as
+        ``"kblocked"``, the snapshot copies as ``"copy"``; they add up to
+        ``counts["all"]`` (only forms that launched)."""
+        out: Dict[str, int] = {"copy": counts["copies"]}
+        for k, n, kb, v in zip(self.program.kernels, counts["kernels"], counts["kblocked"],
+                               counts["vector"]):
+            for form, c in ((k.form, n - kb - v), ("kblocked", kb), ("vector", v)):
+                out[form] = out.get(form, 0) + c
+        return {f: c for f, c in out.items() if c}
 
     def _kb_init(self, device) -> None:
         """The K4 kernels' shared-memory carveout, once per device."""
@@ -4439,16 +4715,17 @@ class CudaBackend:
                 raise ValueError(f"field '{name}' is a view whose elements overlap")
         return devices.pop()
 
-    def _depth_plan(self, columns: int, dK: int):
+    def _depth_plan(self, columns: int, dK: int, dry: bool = False):
         """K4's block sizes on ``columns`` = dI x dJ columns of ``dK``
         levels (None: one pass), the plan
         record and gt_run's ``kbsz`` argument.  When K4 runs, the record
         holds, per column loop, KB, the ring's slots and shared bytes and
         the CTAs a SM holds (``gt_kb_occupancy``: the CUDA occupancy API
-        on the current device; the library is built).  The launches each
-        loop made are added at the launch (``launches_per_loop``, counted
-        by the library)."""
-        key = (dK, kb_default(columns, dK))
+        on the current device; the library is built; ``dry``: without the
+        library, by the shared-memory rule ``ctas_per_sm``).  The launches
+        each loop made are added at the launch (``launches_per_loop``,
+        counted by the library)."""
+        key = (dK, kb_default(columns, dK), dry)
         hit = self._depth_plans.get(key)
         if hit is None:
             prog = self.program
@@ -4462,13 +4739,18 @@ class CudaBackend:
             if kbs is None:
                 plan["declined"]["kblocked"] = declined
             else:
-                occ = (ctypes.c_int * len(prog.kernels))()
-                lib = self.build()
-                rc = lib.gt_kb_occupancy(kbsz, occ)
-                if rc != 0:
-                    raise RuntimeError(f"stencil '{self.analysis.stencil.name}': occupancy "
-                                       f"query failed: {lib.gt_error_string(rc).decode()}")
                 ws = [prog.kernels[n].window for n in windows]
+                occ = [0] * len(prog.kernels)
+                if dry:
+                    for n, w, kbn in zip(windows, ws, kbs):
+                        occ[n] = ctas_per_sm(max(16, w.smem_bytes(kbn)), KB_TILE_I * KB_TILE_J)
+                else:
+                    occ = (ctypes.c_int * len(prog.kernels))()
+                    lib = self.build()
+                    rc = lib.gt_kb_occupancy(kbsz, occ)
+                    if rc != 0:
+                        raise RuntimeError(f"stencil '{self.analysis.stencil.name}': occupancy "
+                                           f"query failed: {lib.gt_error_string(rc).decode()}")
                 plan["declined"].pop("kblocked", None)
                 plan["kblocked"] = {
                     "reason": KB_DEFAULT_REASON if prog.kb_default else "k_blocked=True",
@@ -4542,6 +4824,49 @@ class CudaBackend:
         record["staging"] = {n: "row_phase" for n in record["staging"]}
         return (phase if want and rows else None), pads, copied_in, record
 
+    def plan_call(self, env, scalars, domain, origins, periodic=(), dry: bool = False):
+        """The plan of one call on ``env`` (logical views): the record the
+        call writes to ``LAST_PLAN`` (``plan``) and what its launch needs.
+        ``dry``: without the library or the device (``StencilObject.
+        lowered(format="plan")`` on meta tensors; K4's CTAs a SM then come
+        from ``ctas_per_sm``)."""
+        prog = self.program
+        dI, dJ, dK = (int(d) for d in domain)
+        kb = [(max(k0, 0), min(k1, dK))
+              for k0, k1 in (itv.resolve(dK, scalars) for itv in prog.intervals)]
+        phase, pads, copied_in, record = self._geometry(env, origins, (dI, dJ, dK), periodic, kb)
+        if phase is not None or "row_phase" in record["staging"].values():
+            # the elements of the 16-byte words the call's kernels move
+            record["vector"] = prog.vector_width(prog.vector_fields())
+        kbs, plan, kbsz = self._depth_plan(dI * dJ, dK, dry=dry)
+        plan = {**plan, **record, "declined": {**plan["declined"], **record["declined"]}}
+        # the staged kernels' windows: each field's levels (``_vark_slots``)
+        vks, windows = [], []
+        for k in prog.kernels:
+            if k.vark is None:
+                continue
+            levels = [env[n].shape[2] for n, *_ in k.vark.fields]
+            slots = _vark_slots(k.vark, levels)
+            vks += slots
+            smem = k.vark.window_bytes(slots)
+            windows.append({**k.vark.record(k.name),
+                            "levels": {n: s for (n, *_), s in zip(k.vark.fields, slots)},
+                            "whole": {n: s >= lv for (n, *_), s, lv in
+                                      zip(k.vark.fields, slots, levels)},
+                            "smem_bytes": smem,
+                            "ctas_per_sm": ctas_per_sm(smem, k.vark.tile[0] * k.vark.tile[1]
+                                                       * k.vark.lanes)})
+        if windows:
+            plan["vark"] = windows
+        # a sweep kernel (1) or the kernels it replaces (0)
+        swept = {n: k.sweep.ordered(kb) for n, k in enumerate(prog.kernels) if k.sweep}
+        if not all(swept.values()):
+            plan["forms"] = [k.form for n, k in enumerate(prog.kernels) if not k.k4_only and (
+                swept[k.swept_by] is False if k.swept_by is not None else swept.get(n, True))]
+            plan["declined"] = {**plan["declined"], "sweep": SWEEP_UNORDERED}
+        return SimpleNamespace(plan=plan, kb=kb, phase=phase, pads=pads, copied_in=copied_in,
+                               record=record, kbs=kbs, kbsz=kbsz, vks=vks, swept=swept)
+
     def _launch(self, env, scalars, domain, origins, periodic) -> None:
         prog = self.program
         st = self.analysis.stencil
@@ -4556,13 +4881,12 @@ class CudaBackend:
             if fill:
                 periodic_fill(self.analysis, env, domain, origins, periodic, fill)
         lib = self.build()
-
-        kb = [(max(k0, 0), min(k1, dK))
-              for k0, k1 in (itv.resolve(dK, scalars) for itv in prog.intervals)]
-        phase, pads, copied_in, record = self._geometry(env, origins, (dI, dJ, dK), periodic, kb)
-        if phase is not None or "row_phase" in record["staging"].values():
-            # the elements of the 16-byte words the call's kernels move
-            record["vector"] = prog.vector_width(prog.vector_fields())
+        self._kb_init(device)
+        call = self.plan_call(env, scalars, (dI, dJ, dK), origins, periodic)
+        kb, phase, pads, copied_in, record = call.kb, call.phase, call.pads, call.copied_in, \
+            call.record
+        kbs, plan, kbsz, vks, swept = call.kbs, call.plan, call.kbsz, call.vks, call.swept
+        LAST_PLAN[st.name] = plan
         caller, caller_origins = env, origins
         if pads:
             env, origins = repair.pad_fields(self.analysis, env, origins, (dI, dJ, dK), pads,
@@ -4578,14 +4902,10 @@ class CudaBackend:
             ptrs.append(p)
             strides += s
         zeroed = zero_init_temps(prog, kb)
-        self._kb_init(device)
-        kbs, plan, kbsz = self._depth_plan(dI * dJ, dK)
-        plan = {**plan, **record, "declined": {**plan["declined"], **record["declined"]}}
         # one pass: the fused column kernels keep their carried temporaries
         # in registers; those need no scratch
         on_chip = set() if kbs is not None else {
             t for k in prog.kernels if k.group for t in k.group.carries}
-        LAST_PLAN[st.name] = plan
         views = {}
         for name in prog.scratch:
             if name in on_chip:
@@ -4632,7 +4952,6 @@ class CudaBackend:
                                            f"kernels' 16-byte phase (J {phase})")
         # per kernel: the vector row kernels' 16-byte phase + 1 (0: the
         # scalar ones); a sweep kernel (1) or the kernels it replaces (0)
-        swept = {n: k.sweep.ordered(kb) for n, k in enumerate(prog.kernels) if k.sweep}
         # a tile kernel whose staged rows all share one lead: its twin
         si = {}
         for b, name in enumerate(prog.fields + prog.scratch + prog.snapshots):
@@ -4642,33 +4961,16 @@ class CudaBackend:
                if k.tile is not None else
                (phase + 1 if phase is not None and k.vector is not None else 0)
                for n, k in enumerate(prog.kernels)]
-        # the staged kernels' windows: each field's levels (``_vark_slots``)
-        vks, windows = [], []
-        for k in prog.kernels:
-            if k.vark is None:
-                continue
-            levels = [env[n].shape[2] for n, *_ in k.vark.fields]
-            slots = _vark_slots(k.vark, levels)
-            vks += slots
-            smem = k.vark.window_bytes(slots)
-            windows.append({**k.vark.record(k.name),
-                            "levels": {n: s for (n, *_), s in zip(k.vark.fields, slots)},
-                            "whole": {n: s >= lv for (n, *_), s, lv in
-                                      zip(k.vark.fields, slots, levels)},
-                            "smem_bytes": smem,
-                            "ctas_per_sm": ctas_per_sm(smem, k.vark.tile[0] * k.vark.tile[1]
-                                                       * k.vark.lanes)})
+        # the tile kernels whose twin runs, the row kernels in the vector form
+        plan["twins"] = [k.name for n, k in enumerate(prog.kernels) if k.tile is not None and vec[n]]
+        plan["vector_rows"] = [k.name for n, k in enumerate(prog.kernels)
+                               if k.tile is None and n not in swept and vec[n]]
         outside = None
-        if windows:
-            plan["vark"] = windows
+        if "vark" in plan:
             outside = self._outside.get(device)
             if outside is None:
                 outside = self._outside[device] = torch.zeros(
                     len(prog.kernels), dtype=torch.int64, device=device)
-        if not all(swept.values()):
-            plan["forms"] = [k.form for n, k in enumerate(prog.kernels) if not k.k4_only and (
-                swept[k.swept_by] is False if k.swept_by is not None else swept.get(n, True))]
-            plan["declined"] = {**plan["declined"], "sweep": SWEEP_UNORDERED}
         kb = [k for bounds in kb for k in bounds]
         # rounded to the scalar's dtype here, so the kernel's conversion
         # from double is exact
@@ -4711,6 +5013,22 @@ class CudaBackend:
         # stream, so reuse by later work on the same stream is ordered
         del keep
         self.launches += 1
+
+
+def _launch_counts(lib, n: int) -> dict:
+    """``gt_launch_counts`` of a stencil library of ``n`` kernels (zeros
+    for None), as ``CudaBackend.device_launches`` returns them."""
+    out = (ctypes.c_longlong * (2 + 3 * n))()
+    if lib is not None:
+        lib.gt_launch_counts(out)
+    return {"all": out[0], "kblocked": list(out[1:1 + n]), "kernels": list(out[1 + n:1 + 2 * n]),
+            "vector": list(out[1 + 2 * n:1 + 3 * n]), "copies": out[1 + 3 * n]}
+
+
+def library_launches() -> int:
+    """Every kernel launch that the stencil libraries this process has
+    loaded have made, each library counted once."""
+    return sum(_launch_counts(lib, n)["all"] for lib, n in _LOADED.values())
 
 
 def _scalar_value(v):

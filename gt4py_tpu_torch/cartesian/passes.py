@@ -931,3 +931,105 @@ def widen_f16_compute(stencil: ir.Stencil) -> ir.Stencil:
             for stmt in section.body:
                 rewrite_stmt(stmt)
     return stencil
+
+
+def _self_offset_read(stmt: ir.Stmt, horizontal: bool) -> bool:
+    """Does the compound statement ``stmt`` read a field it writes at a
+    nonzero offset (``horizontal``: at a nonzero I or J offset)?"""
+    from gt4py_tpu_torch.cartesian.analysis import _stmt_reads, _stmt_writes
+
+    writes = {w.name for w in _stmt_writes(stmt)}
+    for r in _stmt_reads(stmt):
+        if r.name not in writes:
+            continue
+        off = r.offset
+        if not isinstance(off, ir.CartesianOffset):
+            if not horizontal:
+                return True
+        elif off.i or off.j or (off.k and not horizontal):
+            return True
+    return False
+
+
+def split_compound_statements(analysis) -> Optional[Tuple[ir.Stencil, Dict[int, "Extent"]]]:
+    """Split the ``if`` statements and horizontal regions that read a field
+    they write at an offset (PARALLEL loops: any offset; serial loops: a
+    horizontal one) into one statement per body statement, so that a
+    kernel may put a stage boundary between them: ``if c: s1; s2 else: e``
+    becomes ``m = c; if m: s1; if m: s2; if not m: e`` with ``m`` a new
+    boolean temporary (the condition is evaluated once, before the body,
+    as the oracle evaluates it), and a region's body statements each get
+    the region's masks.  Nested statements are split in turn.  ``while``
+    loops are left as they are (their iterations cannot be split).
+
+    The oracle runs a compound statement over one extent E (its unit's):
+    every piece keeps E -- returned by ``id`` for ``analyze``'s
+    ``min_extents`` -- and writes only within it (a region over E; the
+    condition's mask is computed over E and read only there), so a
+    piece's read at an offset beyond E sees the value from before the
+    statement, as the oracle's does.  ``(stencil, min_extents)``, or None
+    when nothing is split."""
+    from gt4py_tpu_torch.core.definitions import Extent
+
+    ext = analysis.extents
+    st = copy.deepcopy(analysis.stencil)
+    # the copy's statements by the original's position, for their extents
+    originals = {id(c): o for lc, lo in zip(st.vertical_loops, analysis.stencil.vertical_loops)
+                 for sc, so in zip(lc.sections, lo.sections)
+                 for c, o in zip(sc.body, so.body)}
+    masks: List[str] = []
+    pins: Dict[int, Extent] = {}
+
+    def within(e, s):
+        """``s`` restricted to the extent ``e`` of the domain."""
+        region = ir.HorizontalMask(
+            i=ir.HorizontalInterval(start=ir.AxisBound.start(e.i[0]), end=ir.AxisBound.end(e.i[1])),
+            j=ir.HorizontalInterval(start=ir.AxisBound.start(e.j[0]), end=ir.AxisBound.end(e.j[1])))
+        out = ir.HorizontalRestriction(masks=[region], body=[s])
+        pins[id(out)] = e
+        return out
+
+    def split(stmts: List[ir.Stmt], horizontal: bool, e) -> List[ir.Stmt]:
+        out: List[ir.Stmt] = []
+        for s in stmts:
+            if isinstance(s, ir.If) and _self_offset_read(s, horizontal):
+                m = f"__split_mask{len(masks)}"
+                masks.append(m)
+                out.append(ir.Assign(target=ir.FieldAccess(name=m), value=s.cond))
+                for branch, negate in ((s.body, False), (s.orelse, True)):
+                    for b in split(branch, horizontal, e):
+                        cond = ir.FieldAccess(name=m)
+                        if negate:
+                            cond = ir.UnaryOp(op=ir.UnaryOperator.NOT, expr=cond)
+                        out.append(ir.If(cond=cond, body=[b], orelse=[]))
+            elif isinstance(s, ir.HorizontalRestriction) and _self_offset_read(s, horizontal):
+                out += [ir.HorizontalRestriction(masks=copy.deepcopy(s.masks), body=[b])
+                        for b in split(s.body, horizontal, e)]
+            else:
+                out.append(s)
+        return out
+
+    for loop in st.vertical_loops:
+        horizontal = loop.loop_order != ir.LoopOrder.PARALLEL
+        for section in loop.sections:
+            body = []
+            for s in section.body:
+                pieces = split([s], horizontal, None)
+                if len(pieces) == 1 and pieces[0] is s:
+                    body.append(s)
+                    continue
+                e = ext.stmt_extent(originals[id(s)])
+                e = Extent(i=e.i, j=e.j)
+                for x in pieces:
+                    if isinstance(x, ir.Assign) and x.target.name in masks:
+                        # a condition: computed over E, read only within it
+                        pins[id(x)] = e
+                        body.append(x)
+                    else:
+                        body.append(within(e, x))
+            section.body = body
+    if not masks:
+        return None
+    for m in masks:
+        st.temp_decls[m] = ir.FieldDecl(name=m, dtype=np.dtype(np.bool_), is_api=False)
+    return st, pins

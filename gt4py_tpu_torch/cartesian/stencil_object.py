@@ -28,17 +28,17 @@ class ArgumentError(ValueError):
 
 
 def _tensor_of(value):
-    """The tensor (sharing the argument's memory) and ``__gt_origin__`` of
-    a field argument."""
+    """The tensor (sharing the argument's memory), ``__gt_origin__`` and
+    ``FieldStorage`` holder (None for a bare array) of a field argument."""
     from gt4py_tpu_torch.storage import FieldStorage
 
     if isinstance(value, FieldStorage):
-        return value.data, value.origin
+        return value.data, value.origin, value
     if isinstance(value, np.ndarray):
         # shares memory: in-place results reach the caller's array
-        return torch.from_numpy(value), getattr(value, "__gt_origin__", None)
+        return torch.from_numpy(value), getattr(value, "__gt_origin__", None), None
     if isinstance(value, torch.Tensor):
-        return value, getattr(value, "__gt_origin__", None)
+        return value, getattr(value, "__gt_origin__", None), None
     raise ArgumentError(
         f"Field arguments must be torch tensors, FieldStorage or numpy arrays, "
         f"got {type(value).__name__}"
@@ -109,18 +109,65 @@ class StencilObject:
 
     def __call__(self, *args, origin=None, domain=None, exec_info: Optional[dict] = None,
                  validate_args: bool = True, periodic=(), **kwargs):
+        """Run in place on the arguments inside ``stencil_call_context``;
+        keeps ``exec_info``'s times (and, under its ``"__aggregate_data"``
+        key, per-stencil totals) and the ``call_time`` metric, as the JAX
+        package's ``StencilObject.__call__`` does."""
+        from gt4py_tpu_torch.instrumentation import (
+            MetricLevel,
+            collect_sample,
+            stencil_call_context,
+        )
+
+        t0 = time.perf_counter()
         if exec_info is not None:
-            exec_info["call_run_start_time"] = time.perf_counter()
+            exec_info["call_run_start_time"] = t0
         field_args, scalar_args = self._bind_args(args, kwargs)
+        with stencil_call_context.activate(name=self.name, backend=self.backend_name):
+            self._call_run(field_args, scalar_args, origin, domain, exec_info, validate_args,
+                           periodic=periodic)
+        t1 = time.perf_counter()
+        if exec_info is not None:
+            exec_info["call_run_end_time"] = t1
+            # '__aggregate_data' magic key: per-stencil cumulative stats
+            # (reference: backend/templates/stencil_module.py.in:125-158)
+            if exec_info.get("__aggregate_data", False):
+                agg = exec_info.setdefault(self.name, {})
+                agg["call_time"] = t1 - t0
+                agg["total_call_time"] = agg.get("total_call_time", 0.0) + (t1 - t0)
+                agg["ncalls"] = agg.get("ncalls", 0) + 1
+                if "run_end_time" in exec_info:
+                    rt = exec_info["run_end_time"] - exec_info["run_start_time"]
+                    agg["run_time"] = rt
+                    agg["total_run_time"] = agg.get("total_run_time", 0.0) + rt
+        collect_sample(self.name, "call_time", t1 - t0, MetricLevel.PERFORMANCE)
+
+    def run(self, *, _domain_, _origin_, exec_info=None, **kwargs):
+        """Low-level entry: explicit domain and per-field origins, no
+        argument validation and no call hooks."""
+        field_args = {}
+        scalar_args = {}
+        for p in self.ir.api_params:
+            if p.name in kwargs:
+                (field_args if p.is_field else scalar_args)[p.name] = kwargs[p.name]
+        self._call_run(field_args, scalar_args, _origin_, _domain_, exec_info, False)
+
+    def _call_run(self, field_args, scalar_args, origin, domain, exec_info, validate_args,
+                  periodic=()) -> None:
+        """Bind the field arguments' tensors and origins, execute, and
+        write each written field's result into its argument."""
         tensors, origins = {}, {}
         origin_map = self._normalize_origin_arg(origin)
         for name, value in field_args.items():
             if value is None:
                 self._check_optional(name)
                 continue
-            tensors[name], attr_origin = _tensor_of(value)
+            tensor, attr_origin, holder = _tensor_of(value)
+            if holder is None:
+                tensor, attr_origin = self._reorder_duck_dims(name, value, tensor, attr_origin)
+            tensors[name] = tensor
             origins[name] = self._field_origin(name, origin_map, attr_origin)
-            if (tensors[name].is_leaf and tensors[name].requires_grad and torch.is_grad_enabled()
+            if (tensor.is_leaf and tensor.requires_grad and torch.is_grad_enabled()
                     and self.field_info[name].access & AccessKind.WRITE):
                 raise ArgumentError(
                     f"Field '{name}' is written in place but is a leaf tensor that requires "
@@ -130,8 +177,34 @@ class StencilObject:
                              exec_info=exec_info)
         for name, new in outs.items():
             tensors[name].copy_(new)
-        if exec_info is not None:
-            exec_info["call_run_end_time"] = time.perf_counter()
+
+    def _reorder_duck_dims(self, name, value, tensor, attr_origin):
+        """Arguments carrying ``__gt_dims__`` in a different axis order
+        get permuted (a view) to the stencil's declared order, and their
+        ``__gt_origin__`` along (reference: the ``__gt_dims__`` storage
+        protocol, backend/dace_stencil_object.py:33)."""
+        gt_dims = getattr(value, "__gt_dims__", None)
+        if gt_dims is None:
+            return tensor, attr_origin
+        decl = self.ir.field_decls.get(name)
+        if decl is None:
+            return tensor, attr_origin
+        expected = [ax for ax, m in zip("IJK", decl.dimensions) if m]
+        got = [str(d).upper() for d in gt_dims[: len(expected)]]
+        if got == expected:
+            return tensor, attr_origin
+        if sorted(got) != sorted(expected):
+            raise ArgumentError(
+                f"Field '{name}': __gt_dims__ {tuple(gt_dims)} does not "
+                f"match the declared axes {tuple(expected)}"
+            )
+        perm = [got.index(ax) for ax in expected]
+        perm += list(range(len(expected), tensor.ndim))  # data axes stay
+        tensor = tensor.permute(*perm)
+        if attr_origin is not None:
+            spatial = [attr_origin[p] for p in perm[: len(expected)]]
+            attr_origin = tuple(spatial) + tuple(attr_origin[len(expected):])
+        return tensor, attr_origin
 
     def functional(self, *, origin, domain, physical_layout: bool = False,
                    periodic=(), validate_args: bool = True):
@@ -323,6 +396,67 @@ class StencilObject:
 
     # ------------------------------------------------------------------ #
 
+    def freeze(self, *, origin, domain) -> "FrozenStencil":
+        return FrozenStencil(self, origin, domain)
+
+    #: ``lowered`` formats
+    LOWERED_FORMATS = ("ir", "cuda", "plan")
+
+    def lowered(self, *, domain=(8, 8, 4), format="ir", origin=None,  # noqa: A002
+                physical_layout: bool = False, scalars=None):
+        """The built program's text or plan WITHOUT executing (reference:
+        the program-formatters registry, program_processors/
+        program_formatter.py -- "dump backend source without running").
+
+        ``format``: ``"ir"`` (GTScript-like stencil IR, any backend),
+        ``"cuda"`` (the generated CUDA C++ source of the ``"cuda"``
+        backend), or ``"plan"`` (the record a ``"cuda"`` call at ``domain``
+        writes to ``cuda_backend.LAST_PLAN``: forms, tiles, staging, K4's
+        blocks; planned on meta tensors, so nothing is allocated on a
+        device, built or launched, and K4's CTAs a SM come from the
+        shared-memory rule).  Shapes come from ``domain`` plus each field's
+        halo boundary, dtypes and data dimensions from the signature; with
+        ``physical_layout=True`` the fields are (K, I, J) buffers, else
+        (I, J, K) ones.  ``scalars``: the values of scalars that interval
+        bounds read.
+        """
+        if format == "ir":
+            return self.pretty_ir()
+        if format not in self.LOWERED_FORMATS:
+            raise ValueError(f"unknown format '{format}' ({' | '.join(self.LOWERED_FORMATS)})")
+        if not hasattr(self.backend, "program"):
+            raise TypeError(
+                f"Backend '{self.backend_name}' has no lowered form; "
+                "use format='ir' or the 'cuda' backend."
+            )
+        if format == "cuda":
+            return self.backend.source
+        domain = tuple(int(d) for d in domain)
+        if origin is None:
+            origin = {name: info.boundary.lower_indices for name, info in self.field_info.items()}
+        origin_map = self._normalize_origin_arg(origin)
+        env, origins3 = {}, {}
+        for name, info in self.field_info.items():
+            decl = self.ir.field_decls[name]
+            og = self._origin3(name, self._field_origin(name, origin_map, None))
+            uppers = info.boundary.upper_indices
+            shape = {ax: og[n] + domain[n] + uppers[n]
+                     for n, (ax, m) in enumerate(zip("IJK", info.dimensions)) if m}
+            axes = [ax for ax in ("KIJ" if physical_layout else "IJK") if ax in shape]
+            t = torch.empty([shape[ax] for ax in axes] + list(info.data_dims),
+                            dtype=dtypes.to_torch(info.dtype), device="meta")
+            env[name] = logical_view(t, decl.dimensions, len(decl.data_dims), physical_layout)
+            origins3[name] = og
+        return self.backend.plan_call(env, dict(scalars or {}), domain, origins3,
+                                      dry=True).plan
+
+    def pretty_ir(self) -> str:
+        """The lowered stencil IR as GTScript-like text (inspection parity
+        with the reference's ``Program.gtir`` property)."""
+        from gt4py_tpu_torch.cartesian.pretty import pformat_stencil
+
+        return pformat_stencil(self.ir)
+
     def __str__(self) -> str:
         lines = [f"StencilObject '{self.name}' (backend={self.backend_name})"]
         for name, info in self.field_info.items():
@@ -333,3 +467,23 @@ class StencilObject:
         for name, pinfo in self.parameter_info.items():
             lines.append(f"  param {name}: dtype={pinfo.dtype}")
         return "\n".join(lines)
+
+
+class FrozenStencil:
+    """Stencil with pre-validated origin/domain for low-overhead calls
+    (reference: stencil_object.FrozenStencil, :94-143)."""
+
+    def __init__(self, stencil_object: StencilObject, origin, domain):
+        self.stencil_object = stencil_object
+        self.origin = origin
+        self.domain = tuple(domain)
+
+    def __call__(self, **kwargs):
+        field_args = {}
+        scalar_args = {}
+        for p in self.stencil_object.ir.api_params:
+            if p.name in kwargs:
+                (field_args if p.is_field else scalar_args)[p.name] = kwargs[p.name]
+        self.stencil_object._call_run(
+            field_args, scalar_args, self.origin, self.domain, None, False
+        )

@@ -2,7 +2,8 @@
 
 Holds the default device for storage and models (the card: a CPU run
 asks for ``device="cpu"`` or sets ``GT4PY_TPU_TORCH_DEVICE=cpu``), the
-directory that generated CUDA kernels are built into, the literal
+directory that generated CUDA kernels are built into, the persistent
+cache's root, the literal
 precisions the analysis reads, and the next DSL's switches (the same
 defaults as ``gt4py_tpu.config``).  Every setting is a module attribute that the code
 reads where it is used, on every call: assigning one (``config.
@@ -64,6 +65,22 @@ BUILD_DIR: str = os.environ.get(
         ".gt4py_tpu_torch_build",
     ),
 )
+
+#: Where the persistent caches live (``cartesian.artifact_cache``'s parsed
+#: stencil IR under ``artifacts/``); ``python -m gt4py_tpu_torch.cache_manager``
+#: reports and removes it with ``BUILD_DIR``.  Defaults to a directory
+#: beside the package, inside the checkout.
+CACHE_ROOT: str = os.environ.get(
+    "GT4PY_TPU_TORCH_CACHE_ROOT",
+    os.path.join(
+        os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+        ".gt4py_tpu_torch_cache",
+    ),
+)
+
+#: Persist each built stencil's parsed IR under ``CACHE_ROOT`` so that a
+#: later process skips the frontend (``cartesian.artifact_cache``).
+ARTIFACT_CACHE: bool = _env_bool("GT4PY_TPU_TORCH_ARTIFACT_CACHE", True)
 
 #: Literal precision defaults (reference: cartesian/definitions.py:30-43).
 LITERAL_FLOAT_PRECISION: int = _env_int("GT4PY_TPU_TORCH_LITERAL_FLOAT_PRECISION", 64)

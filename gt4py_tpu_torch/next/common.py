@@ -169,6 +169,12 @@ _TORCH_FN = {
 }
 
 
+#: torch functions that take no Python scalar operand: a scalar joins them
+#: as a 0-d tensor of the operation's dtype (numpy rounds a weak scalar to
+#: that dtype too)
+_TENSOR_OPERANDS = {"maximum", "minimum", "logical_and", "logical_or", "logical_xor"}
+
+
 def _ufunc(name: str):
     fn = _TORCH_FN[name]
 
@@ -177,7 +183,11 @@ def _ufunc(name: str):
             return getattr(np, name)(*operands)
         common, out = _numpy_types(name, operands)
         device = _device_of(operands)
-        res = fn(*(_operand(o, common, device) for o in operands))
+        args = [_operand(o, common, device) for o in operands]
+        if name in _TENSOR_OPERANDS:
+            args = [a if isinstance(a, torch.Tensor) else
+                    torch.tensor(a, dtype=dtypes.to_torch(common), device=device) for a in args]
+        res = fn(*args)
         if not isinstance(res, torch.Tensor):  # pragma: no cover
             res = torch.as_tensor(res, device=device)
         return res.to(dtypes.to_torch(out))

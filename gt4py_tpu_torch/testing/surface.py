@@ -37,7 +37,7 @@ from gt4py_tpu_torch.cartesian.gtscript import (
     interval,
 )
 
-ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 STENCIL_DEFS = os.path.join(ROOT, "tests", "cartesian", "stencil_defs.py")
 
 #: import lines of the registry module and their port counterparts (each

@@ -1042,3 +1042,52 @@ def test_k3_staged_windows_vs_plain(cuda_device, monkeypatch, case, dtype):
         got[label] = fields["out"]
     assert torch.equal(got["staged"], got["plain"])
     assert torch.equal(got["parent"], got["plain"])
+
+
+# --------------------------------------------------------------------- #
+# the differential fuzzers on the card (chip_smoke.py --fuzz runs every
+# seed of each leg; here the first eight): cuda against torch on the card
+# and both against the numpy oracle
+# --------------------------------------------------------------------- #
+
+from gt4py_tpu_torch.testing import gather_fuzz, next_fuzz, program_gen  # noqa: E402
+
+FUZZ_KERNEL_TOL = {np.dtype(np.float64): TOL[np.float64], np.dtype(np.float32): TOL[np.float32]}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("seed", range(8))
+@pytest.mark.parametrize("leg", sorted(program_gen.LEGS))
+def test_program_fuzz_on_the_card(cuda_device, leg, seed):
+    seeds, kw = program_gen.LEGS[leg]
+    if seed not in seeds:
+        pytest.skip(f"leg {leg} has seeds {seeds}")
+    dt = np.dtype(kw.get("dtype", np.float64))
+    tol = FUZZ_KERNEL_TOL.get(dt, TOL[np.float32])
+    pinned = program_gen.LEG_DECLINES.get((leg, seed))
+    case = program_gen.run_differential_case(
+        seed, backends=("torch", "cuda"), device=cuda_device, max_flip_fraction=1e-4,
+        kernel_rtol=tol["rtol"], kernel_atol=tol["atol"], allow_declines=pinned is not None,
+        **kw)
+    if pinned is not None:
+        assert case.declined is not None and pinned in case.declined, case.declined
+    elif not case.rejected:
+        assert case.launches >= 1
+        assert sum(case.forms.values()) == case.launches
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("seed", range(8))
+def test_next_fuzz_on_the_card(cuda_device, seed):
+    next_fuzz.run_differential_case(seed, device=cuda_device)
+    next_fuzz.run_program_case(seed, device=cuda_device)
+    next_fuzz.run_bridge_case(seed, device=cuda_device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("seed", range(8))
+def test_gather_fuzz_on_the_card(cuda_device, seed):
+    outcome, launches = gather_fuzz.run_gather_case(seed, device=cuda_device)
+    if outcome == "routed":
+        assert launches >= 1
+    gather_fuzz.run_chain_case(seed, device=cuda_device)

@@ -225,6 +225,17 @@ inline void run_block(const std::function<void()>& fn, size_t smem_bytes) {
 }
 }  // namespace gt_emu
 #define __syncthreads() gt_emu::syncthreads()
+// a barrier that ors the block's predicates (a plane-sweep kernel's while
+// loop iterated by the whole CTA)
+inline int __syncthreads_or(int pred) {
+  const unsigned t = threadIdx.x + threadIdx.y * blockDim.x;
+  gt_emu::shfl[t] = pred ? 1 : 0;
+  __syncthreads();
+  int any = 0;
+  for (unsigned long long v : gt_emu::shfl) any |= (int)v;
+  __syncthreads();
+  return any;
+}
 // a warp shuffle: every thread of the block posts its value and meets the
 // others at a barrier (the kernels shuffle with whole blocks in step)
 template <typename T>

@@ -11,9 +11,9 @@ package in one process.
   its meshes; the replays equal ``np.take`` and the JAX package's gathers;
 - chain folding makes the same composite choice as ``_maybe_compose``,
   with a bounded cache;
-- the gather fuzz (the counterpart of ``gt4py_tpu/testing/gather_fuzz.py``)
-  over 20 gather and 20 chain seeds, with the same outcome per seed as
-  the JAX package's.
+- the gather fuzz (``gt4py_tpu_torch.testing.gather_fuzz``, the
+  counterpart of ``gt4py_tpu/testing/gather_fuzz.py``) over 20 gather and
+  20 chain seeds, with the same outcome per seed as the JAX package's.
 
 The kernel itself runs on the card: ``tests/test_torch_cuda.py`` and
 ``chip_smoke.py`` phase 8.
@@ -39,6 +39,7 @@ from gt4py_tpu_torch.next import benes as p_benes
 from gt4py_tpu_torch.next import common as p_common
 from gt4py_tpu_torch.next import sort_route as p_sort
 from gt4py_tpu_torch.next import testing as p_testing
+from gt4py_tpu_torch.testing import gather_fuzz as p_fuzz
 
 from .test_torch_emulated import emulated, emulated_dir  # noqa: F401  (fixtures)
 
@@ -491,132 +492,15 @@ def test_compose_cache_is_bounded():
 # --------------------------------------------------------------------------- #
 
 
-def run_gather_case(seed: int) -> str:
-    """``gather_fuzz.run_gather_case`` on the port (the same draws): the
-    routed gather of a random table family against the clipped
-    ``np.take``, bit for bit; 'declined', 'routed' or 'no-window'."""
-    rng = np.random.default_rng(seed)
-    fam = int(rng.integers(0, 5))
-    N = int(rng.integers(66000, 140000))
-    M = int(rng.integers(2000, 200000))
-    if fam == 0:
-        t = rng.integers(0, M, N)
-    elif fam == 1:
-        hubs = rng.integers(0, M, 8)
-        hot = rng.random(N) < 0.8
-        t = np.where(hot, hubs[rng.integers(0, 8, N)], rng.integers(0, M, N))
-    elif fam == 2:
-        reps = -(-N // M)
-        t = rng.permutation(np.tile(np.arange(M), reps)[:N])
-    elif fam == 3:
-        c = int(rng.integers(0, M))
-        W = int(rng.integers(256, max(257, M // 2)))
-        t = c + rng.integers(0, W, N)
-        M = max(M, c + W + 1)
-    else:
-        stride = int(rng.integers(1, 7))
-        t = (np.arange(N, dtype=np.int64) * stride) % M
-        k = N // 7
-        t[rng.integers(0, N, k)] = rng.integers(0, M, k)
-    t = t.astype(np.int64)
-    skip = None
-    if rng.random() < 0.4:
-        skip = -1
-        t[rng.random(N) < 0.03] = skip
-    if rng.random() < 0.5:
-        ncol = int(rng.integers(2, 5))
-        t = t[: (N // ncol) * ncol].reshape(-1, ncol)
-    plan = p_sort.build_gather_plan(t, skip)
-    if plan is None:
-        return "declined"
-    flat = t.reshape(-1)
-    own_start, nc = 0, M
-    if plan.vmin > 0 and rng.random() < 0.5:
-        own_start = int(rng.integers(0, plan.vmin + 1))
-        nc = M - own_start
-    if rng.random() < 0.1:
-        nc = max(1, plan.vmax - own_start - int(rng.integers(1, 64)))
-    if rng.random() < 0.5:
-        data = rng.random(nc).astype(np.float32)
-    else:
-        data = rng.integers(0, 2 ** 32, nc, dtype=np.uint64).astype(np.uint32).view(np.int32)
-    axis = 0
-    if rng.random() < 0.3:
-        data = np.stack([data, data[::-1].copy()], axis=-1)
-    if rng.random() < 0.3:
-        data = np.stack([data] * 2, axis=0)
-        axis = 1
-    got = p_sort.apply_gather_plan(plan, torch.from_numpy(data), own_start, axis)
-    if not (plan.vmin - own_start >= 0 and plan.vmax - own_start < data.shape[axis]):
-        assert got is None, "apply must decline non-covering domains"
-        return "no-window"
-    ref = np.take(data, np.clip(flat - own_start, 0, data.shape[axis] - 1), axis=axis)
-    np.testing.assert_array_equal(got.numpy(), ref, err_msg=f"seed {seed}")
-    return "routed"
-
-
-def run_chain_case(seed: int) -> str:
-    """``gather_fuzz.run_chain_case`` on the port (the same draws):
-    ``premap(c1, c2)`` bit for bit equal to ``remap(c1).remap(c2)``;
-    'composed' or 'sequential'."""
-    C = p_common
-    rng = np.random.default_rng(seed)
-    A, B, Cd = C.Dimension("ChA"), C.Dimension("ChB"), C.Dimension("ChC")
-    L = C.Dimension("ChL", kind=C.DimensionKind.LOCAL)
-    n0 = int(rng.integers(3000, 30000))
-    n1 = int(rng.integers(3000, 30000))
-    n2 = int(rng.integers(3000, 30000))
-
-    def make_col(n, m):
-        fam = int(rng.integers(0, 3))
-        if fam == 0:
-            return rng.integers(0, m, n)
-        if fam == 1:
-            stride = int(rng.integers(1, 5))
-            return (np.arange(n, dtype=np.int64) * stride) % m
-        c = int(rng.integers(0, m))
-        W = int(rng.integers(64, max(65, m // 2)))
-        return np.clip(c + rng.integers(0, W, n), 0, m - 1)
-
-    if rng.random() < 0.4:
-        k1 = int(rng.integers(2, 4))
-        t1 = np.stack([make_col(n1, n0) for _ in range(k1)], axis=1)
-        local = L
-    else:
-        t1 = make_col(n1, n0)
-        local = None
-    t2 = make_col(n2, n1)
-    skip1 = None
-    if rng.random() < 0.3:
-        skip1 = -1
-        t1 = t1.copy()
-        t1[rng.random(t1.shape) < 0.02] = skip1
-    if rng.random() < 0.3:
-        t2 = t2.copy()
-        t2[rng.random(t2.shape) < 0.02] = -1
-    conn1 = C.Connectivity(t1.astype(np.int64), source=B, codomain=A, local_dim=local,
-                           skip_value=skip1)
-    conn2 = C.Connectivity(t2.astype(np.int64), source=Cd, codomain=B, skip_value=None)
-    own_start = int(rng.integers(-3, 4))
-    if rng.random() < 0.5:
-        data = rng.random(n0).astype(np.float32)
-    else:
-        data = rng.integers(0, 2 ** 32, n0, dtype=np.uint64).astype(np.uint32).view(np.int32)
-    f = C.Field(C.Domain((A,), (C.UnitRange(own_start, own_start + n0),)),
-                torch.from_numpy(data))
-    seq = f.remap(conn1).remap(conn2)
-    one = f.premap(conn1, conn2)
-    assert tuple(d.value for d in one.dims) == tuple(d.value for d in seq.dims)
-    np.testing.assert_array_equal(one.data.numpy(), seq.data.numpy(), err_msg=f"seed {seed}")
-    cache = conn2.__dict__.get("_compose_cache") or {}
-    return "composed" if any(v is not None for v in cache.values()) else "sequential"
-
-
 @pytest.mark.parametrize("seed", range(20))
 def test_gather_fuzz(seed):
-    assert run_gather_case(seed) == j_fuzz.run_gather_case(seed)
+    outcome, launches = p_fuzz.run_gather_case(seed, device="cpu")
+    assert outcome == j_fuzz.run_gather_case(seed)
+    assert launches == 0  # the plain butterfly on the CPU
 
 
 @pytest.mark.parametrize("seed", range(20))
 def test_chain_fuzz(seed):
-    assert run_chain_case(seed) == j_fuzz.run_chain_case(seed)
+    outcome, launches = p_fuzz.run_chain_case(seed, device="cpu")
+    assert outcome == j_fuzz.run_chain_case(seed)
+    assert launches == 0

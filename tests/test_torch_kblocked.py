@@ -243,12 +243,17 @@ def test_parallel_cross_statement_k_dependency_declines(emulated):  # noqa: F811
 
 
 def test_variable_k_declines_as_the_jax_package():
-    """Variable K and runtime interval bounds keep the one-pass form even
-    with ``k_blocked=True`` (the JAX package's eligibility), and the plan
-    names the reason."""
+    """Variable K reads of a field the stencil writes and runtime interval
+    bounds keep the one-pass form even with ``k_blocked=True`` (the JAX
+    package's eligibility), and the plan names the reason; a variable K
+    read of a field the stencil only reads runs K4, from device memory."""
     P = pgts.Field[np.float64]
 
     def shift(inp: P, idx: pgts.Field[np.int64], out: P):
+        with computation(FORWARD), interval(...):
+            out = inp[0, 0, idx] + out[0, 0, idx]
+
+    def shift_read_only(inp: P, idx: pgts.Field[np.int64], out: P):
         with computation(FORWARD), interval(...):
             out = inp[0, 0, idx]
 
@@ -261,7 +266,11 @@ def test_variable_k_declines_as_the_jax_package():
 
     pgts.stencil(backend="cuda", definition=shift, rebuild=True, k_blocked=True)
     assert cuda_backend.LAST_PLAN["shift"]["declined"]["kblocked"] == \
-        "a variable or absolute K access"
+        "a variable or absolute K access of a field the stencil writes"
+    st = pgts.stencil(backend="cuda", definition=shift_read_only, rebuild=True,
+                      k_blocked=True)
+    assert "kblocked" not in cuda_backend.LAST_PLAN["shift_read_only"]["declined"]
+    assert any(k.window is not None for k in st.backend.program.kernels)
     st = pgts.stencil(backend="cuda", definition=runtime, rebuild=True, k_blocked=True)
     assert cuda_backend.LAST_PLAN["runtime"]["declined"]["kblocked"] == \
         "a runtime interval bound"

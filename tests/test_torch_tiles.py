@@ -313,11 +313,15 @@ DECLINES = {
         ir.Assign(target=ir.FieldAccess("b"), value=ir.FieldAccess(
             "t", offset=ir.CartesianOffset(1, 0, 0), data_index=(_ZERO,)))], data_temps=["t"]),
         "data dimensions or no I/J axis"),
+    # (an ``if`` of this kind is split into a mask and one statement each,
+    # ``passes.split_compound_statements``; a ``while`` cannot be)
     "compound": (lambda: _stencil([
         _assign("t", "a"),
-        ir.If(cond=ir.BinaryOp(ir.BinaryOperator.GT, ir.FieldAccess(
+        ir.While(cond=ir.BinaryOp(ir.BinaryOperator.LT, ir.FieldAccess(
             "t", offset=ir.CartesianOffset(1, 0, 0)), ir.Literal(0.5, np.dtype(np.float64))),
-            body=[_assign("t", "a")], orelse=[]),
+            body=[ir.Assign(target=ir.FieldAccess("t"), value=ir.BinaryOp(
+                ir.BinaryOperator.ADD, ir.FieldAccess("t"),
+                ir.Literal(1.0, np.dtype(np.float64))))]),
         _assign("b", "t")], ["t"]),
         "a compound statement reads at a horizontal offset a field it writes"),
 }
