@@ -24,6 +24,9 @@ script copied there), ``--k3-tiles`` the staged kernel of
 ``python3 chip_smoke.py --fuzz`` runs phase 14 alone (the differential
 fuzzers, their builds included).
 
+``python3 chip_smoke.py --dist`` runs phase 15 alone (the distribution
+layer on gloo ranks sharing the card, its three builds included).
+
 ``python3 chip_smoke.py --profile-check`` profiles a 16 MiB add (one kernel
 a call) and a K9 permute of 2^20 words (three a call) ``PROFILE_AGE_S``
 seconds after a first profile, with and without a warm-up cycle and idle
@@ -179,7 +182,32 @@ Phases (a failed phase raises, and the script exits non-zero):
    is its library's: each stencil's by kernel, summed by form and held to
    its total.  The two forms only fuzz programs reach (a launch a level,
    the CTA-iterated ``while``) are timed at 512x512x80 against plain
-   (``FUZZ_TIMED``).  Its builds start with phase 2's.
+   (``FUZZ_TIMED``).  Its builds start with phase 2's.  The base leg holds
+   seeds 147, 199 and 386, the programs the kernels once declined (a
+   ``while`` iterated by the CTA after a writer the plane form widens, and
+   one in the tile form);
+15. distribution (``--dist`` alone; ``_distribution``): ``DIST_RANKS``
+   gloo ranks sharing the one card as a 2x2 mesh (``torch.multiprocessing``,
+   spawned, a file store; ``torch.cuda.empty_cache()`` first), the bench
+   size 512x512x80 float32 split into 256x256x80 blocks, periodic
+   (``testing.dist_cases.chip_distribution``): 3 sharded MiniDycore steps
+   (``shard_map_stencil`` over ``step_fn(fill_halos=False)``) with each
+   rank's hdiff and vadv_update launches read from their libraries around
+   its run, the gathered ``u`` and ``utens_stage`` against 3 single-device
+   periodic steps on the card; the overlapped step
+   (``overlapped_shard_map_stencil`` over ``region_step_factory``) against
+   it; one sharded FvAdvection step against the single-device one, tracer
+   mass to 1e-4; a bfloat16 wire (half the bytes, the exchange staged
+   through host memory, each rank's exchanged blocks equal bit for bit to
+   the float32 exchange's with every received strip cast to bfloat16 and
+   back by ``core.dtypes.cast``); each rank's step, overlapped step, exchange (float32 and
+   bfloat16 wire) and kernel times (CUDA events, median of 10) printed
+   beside the card's name and power limit; then the global view on the
+   kernels: the JAX package's GSPMD fuzz seeds 11000-11005 (float64,
+   regions in the global frame, ``while``, variable K) on ``"cuda"`` on
+   DistributedFields, each rank's launches counted by the library,
+   against the plain executor's single-device run.  A failing rank fails
+   the phase.
 
 Every kernel entry carries ``bound_ms``: the least time the card could take
 for the same function, its bytes (each input read once, each output written
@@ -3112,7 +3140,7 @@ def main() -> int:
          + phase10_stencils + _phase11_stencils(p11) + _phase12_stencils(p12)
             + [st for label, st in sweep_sts.items() if label != "plain"]
             + [st for st, _ in tight["builds"].values()] + _k3_stencils(k3_builds)]
-        + next_kernels + fuzz_builds["backends"] + [benes.KERNEL])
+        + next_kernels + fuzz_builds["backends"] + [benes.KERNEL] + _dist_builds())
     build_s = time.perf_counter() - t0
     print(f"build: {n_sources} sources, {build_s:.2f} s (nvcc in parallel)")
     for st in main_stencils + phase10_stencils:
@@ -3618,6 +3646,9 @@ def main() -> int:
     # -- 14. the differential fuzzers ---------------------------------------
     fuzz = {**_fuzz(fuzz_builds, dev), "build_s": build_s}
 
+    # -- 15. distribution: gloo ranks on the card ---------------------------
+    distribution = _distribution(smi)
+
     print(smi)
     print(json.dumps({"kernels": kernels, "unstructured_fvm": fvm["summary"],
                       "bfloat16": bf16_result, "gradients": gradients["summary"],
@@ -3625,7 +3656,7 @@ def main() -> int:
                       "phase12": {"full_dycore": phase12["full_dycore"],
                                   "checks": len(phase12["checks"])},
                       "profile_check": profile_late, "profile_losses": PROFILE_LOSSES,
-                      "fuzz": fuzz}, default=str))
+                      "fuzz": fuzz, "distribution": distribution}, default=str))
     if PROFILE_LOSSES:
         print(f"chip_smoke: {len(PROFILE_LOSSES)} profiles lost device events",
               file=sys.stderr)
@@ -3667,6 +3698,10 @@ FUZZ_WITH = {"periodic": "K1a wrapped loads", "staging_row_phase": "K6 row-phase
 #: leg) on the leg's layout, cuda against torch on the card
 FUZZ_TIMED = {"per_level": ("wide", 6, (512, 512, 80)),
               "loop_group": ("base", 11, (512, 512, 80))}
+#: phase 14's programs the kernels once declined -> the form that now runs
+#: the CTA-iterated ``while`` (the plane-sweep kernel after a widened writer,
+#: the tile kernel); each must launch it
+FUZZ_REPAIRED = {("base", 147): "planes", ("base", 199): "tile", ("base", 386): "planes"}
 
 
 def _next_fuzz_runs(device):
@@ -3798,7 +3833,7 @@ def _fuzz(fb: dict, dev) -> dict:
     from gt4py_tpu_torch.testing import gather_fuzz, program_gen
 
     t0 = time.perf_counter()
-    legs, launches, with_, reached = {}, {}, {}, set()
+    legs, launches, with_, reached, repaired = {}, {}, {}, set(), {}
     kernel_tol = {np.dtype(np.float64): (RTOL_F64, ATOL_F64)}
     for (leg, seed), case in fb["cases"].items():
         _, kw = program_gen.LEGS[leg]
@@ -3823,6 +3858,11 @@ def _fuzz(fb: dict, dev) -> dict:
             built = f"{case.options}, serialized {case.backend('cuda').program.serialized}"
             s["builds"][built] = s["builds"].get(built, 0) + 1
         s["launches"] += case.launches
+        if (leg, seed) in FUZZ_REPAIRED:
+            repaired[f"{leg} {seed}"] = {"launches": case.launches, "forms": dict(case.forms)}
+            if not case.forms.get(FUZZ_REPAIRED[(leg, seed)]):
+                raise AssertionError(f"phase 14: {leg} seed {seed} launched no "
+                                     f"{FUZZ_REPAIRED[(leg, seed)]} kernel: {case.forms}")
         for f, n in case.forms.items():
             s["forms"][f] = s["forms"].get(f, 0) + n
             launches[f] = launches.get(f, 0) + n
@@ -3852,6 +3892,7 @@ def _fuzz(fb: dict, dev) -> dict:
         for seed, opts, why, sweep in s["builds_declined"]:
             print(f"phase 14 {leg} seed {seed}: built {opts}; declined {why}; "
                   f"LAST_PLAN declined sweep: {sweep}")
+    print(f"phase 14: the programs once declined, launches by form (library): {repaired}")
     if "sweep" not in reached:
         print("phase 14: no program reached the sweep form (K5's sweep is held by phase 10)")
     cartesian_s = time.perf_counter() - t0
@@ -3911,7 +3952,7 @@ def _fuzz(fb: dict, dev) -> dict:
             "legs": {leg: {k: v for k, v in s.items() if k != "builds_declined"}
                      for leg, s in legs.items()},
             "next": nxt, "gathers": gathers, "launches_by_kernel": by_kernel,
-            "launches_with": launches_with, "timed": timed,
+            "launches_with": launches_with, "timed": timed, "repaired": repaired,
             "declined": sorted(map(list, declined))}
 
 
@@ -3937,6 +3978,130 @@ def fuzz_only() -> int:
     result = _fuzz(fb, dev)
     print(smi)
     print(json.dumps({"fuzz": {**result, "build_s": build_s, "sources": n}}, default=str))
+    return 0
+
+
+# --------------------------------------------------------------------------- #
+# phase 15: distribution
+# --------------------------------------------------------------------------- #
+
+#: phase 15: gloo ranks on the one card as a 2x2 mesh, the bench size (K, I, J)
+DIST_RANKS, DIST_MESH, DIST_SHAPE, DIST_STEPS = 4, (2, 2), (NK, NI, NJ), 3
+
+
+def _dist_builds():
+    """The stencils the ranks run (MiniDycore's hdiff and vadv_update,
+    fv_step, float32; the global view's generated programs), built here
+    first so the ranks load them."""
+    import numpy as np
+    import torch
+
+    from gt4py_tpu_torch.models import dycore, fv_advection
+    from gt4py_tpu_torch.testing import dist_cases
+
+    dev = torch.device("cuda", 0)
+    md = dycore.MiniDycore(8, 8, 4, dtype=np.float32, backend="cuda", aligned=False, device=dev)
+    fv = fv_advection.FvAdvection(8, 8, 4, dtype=np.float32, backend="cuda", aligned=False,
+                                  device=dev)
+    return [md.hdiff.backend, md.vadv_upd.backend, fv.fv_step.backend] + [
+        dist_cases.gspmd_stencil(sd, "cuda")[0].backend for sd in dist_cases.GSPMD_SEEDS]
+
+
+def _distribution(smi: str) -> dict:
+    """Phase 15: ``testing.dist_cases.chip_distribution`` on ``DIST_RANKS``
+    gloo ranks sharing the card (strips staged through host memory), each
+    rank's failure failing the phase; the checks on rank 0's comparisons."""
+    import tempfile
+
+    import torch
+
+    from gt4py_tpu_torch.testing import dist_cases
+
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_dist_") as work:
+        res = dist_cases.launch(
+            {"p15": dict(case="chip_distribution", shape=DIST_SHAPE, steps=DIST_STEPS)},
+            workdir=work, ranks=DIST_RANKS, shape=DIST_MESH, device="cuda", strict=True,
+            timeout=600)["p15"]
+    wall_s = time.perf_counter() - t0
+    out = res[0][1]
+    ranks = out.pop("ranks")
+    for r in ranks:
+        for name in ("hdiff", "vadv_update"):
+            if r["launches"][name] < DIST_STEPS or r["overlap_launches"][name] < 5 * DIST_STEPS:
+                raise RuntimeError(f"phase 15: rank {r['rank']} launched {name} "
+                                   f"{r['launches'][name]} times ({r['overlap_launches'][name]} "
+                                   "overlapped): a rank ran plain")
+        if r["fv_launches"] < 1 or r["device"] != f"cuda:{r['rank'] % torch.cuda.device_count()}":
+            raise RuntimeError(f"phase 15: rank {r['rank']}: fv_step launches {r['fv_launches']}"
+                               f", device {r['device']}")
+        for key in ("exchange", "wire_exchange"):
+            ex = r[key]
+            if ex["backend"] != "gloo" or not ex["staged"]:
+                raise RuntimeError(f"phase 15: rank {r['rank']}'s {key} ran {ex}, not gloo "
+                                   "staged through host memory")
+        if r["wire_exchange"]["bytes"] * 2 != r["exchange"]["bytes"] or \
+                r["wire_bytes"]["bfloat16"] * 2 != r["wire_bytes"]["float32"] or \
+                r["exchange"]["bytes"] != r["wire_bytes"]["float32"]:
+            raise RuntimeError(f"phase 15: the bfloat16 wire's bytes {r['wire_exchange']}")
+        if not r["wire_blocks_equal"] or r["wire_strips_moved"] == 0:
+            raise RuntimeError(f"phase 15: rank {r['rank']}'s bfloat16 wire's blocks differ by "
+                               f"{r['wire_blocks_max_abs']} from the float32 exchange's with "
+                               f"each strip cast to bfloat16 and back (the strips moved by "
+                               f"{r['wire_strips_moved']})")
+        if r["overlap_vs_plain"] > 0:
+            raise RuntimeError(f"phase 15: rank {r['rank']}'s overlapped step differs from the "
+                               f"plain one by {r['overlap_vs_plain']}")
+        if not all(n >= 1 for n in r["gspmd_launches"].values()):
+            raise RuntimeError(f"phase 15: rank {r['rank']} ran a global-view program on no "
+                               f"kernel: {r['gspmd_launches']}")
+    if not (all(out["close"].values()) and out["fv_close"] and out["finite"]):
+        raise RuntimeError(f"phase 15: the sharded steps disagree with the single-device "
+                           f"steps: {out}")
+    if out["fv_mass_rel"] > 1e-4:
+        raise RuntimeError(f"phase 15: tracer mass: {out}")
+    if max(out["gspmd_max_abs_err"].values()) > ATOL_F64:
+        raise RuntimeError(f"phase 15: the global view's programs against plain: "
+                           f"{out['gspmd_max_abs_err']}")
+    print(f"phase 15 ({smi}): {DIST_RANKS} gloo ranks, {DIST_MESH[0]}x{DIST_MESH[1]} mesh, "
+          f"{DIST_SHAPE} float32, {wall_s:.1f} s; max |sharded - single| "
+          f"u {out['max_abs_err']['u']:.3e} utens_stage {out['max_abs_err']['utens_stage']:.3e}"
+          f" (bitwise {out['equal']}), fv {out['fv_max_abs_err']:.3e}, mass "
+          f"{out['fv_mass_rel']:.2e}, bf16 wire max |d| {out['wire_max_abs_vs_float32']:.3e} "
+          f"after a step, its blocks bit for bit the float32 exchange's cast to bfloat16 and "
+          f"back on every rank (strips moved up to "
+          f"{max(r['wire_strips_moved'] for r in ranks):.3e}); "
+          f"global view on the kernels (float64, regions in the global frame), max |kernels - "
+          f"single-device plain| {out['gspmd_max_abs_err']}, rank 0's launches "
+          f"{ranks[0]['gspmd_launches']}")
+    for r in ranks:
+        print(f"phase 15 ({smi}): rank {r['rank']} step {r['step_ms']:.3f} ms, overlapped "
+              f"{r['overlap_step_ms']:.3f} ms, exchange {r['exchange_ms']:.3f} ms "
+              f"({r['exchange']['bytes']} B; bfloat16 wire {r['wire_exchange_ms']:.3f} ms), "
+              f"kernels {r['kernel_ms']}, FvAdvection step {r['fv_sharded_step_ms']:.3f} ms, "
+              f"launches {r['launches']}")
+    return {"card": smi, "wall_s": wall_s, "ranks": ranks, **out}
+
+
+def dist_only() -> int:
+    """``--dist``: phase 15 alone (its builds, the ranks)."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from gt4py_tpu_torch.next.compiled_program import build_all
+
+    smi = _nvidia_smi()
+    print(f"card: {smi}")
+    t0 = time.perf_counter()
+    n = build_all(_dist_builds())
+    print(f"build: {n} sources, {time.perf_counter() - t0:.2f} s (nvcc in parallel)")
+    result = _distribution(smi)
+    print(smi)
+    print(json.dumps({"distribution": result}, default=str))
     return 0
 
 
@@ -3984,6 +4149,7 @@ def k9_layouts() -> int:
 if __name__ == "__main__":
     sys.exit(k9_layouts() if sys.argv[1:] == ["--k9-layouts"] else
              fuzz_only() if sys.argv[1:] == ["--fuzz"] else
+             dist_only() if sys.argv[1:] == ["--dist"] else
              k3_only() if sys.argv[1:] == ["--k3"] else
              k3_tiles() if sys.argv[1:] == ["--k3-tiles"] else
              tiles_only() if sys.argv[1:] == ["--tiles"] else

@@ -557,15 +557,28 @@ def _static_component(value: int, size: int, name: str) -> int:
     return value % size
 
 
-def _region_test(masks: Sequence[ir.HorizontalMask]) -> str:
+def _framed(st: ir.Stencil) -> bool:
+    """The stencil's code depends on where its domain lies in a larger one:
+    it has horizontal regions, or reads the I or J position or size.  Its
+    kernels then take the region frame ``gI0, gJ0, gNI, gNJ`` (the call's
+    domain starts at (gI0, gJ0) of a gNI x gNJ domain)."""
+    return any(isinstance(x, ir.HorizontalRestriction) or (
+        isinstance(x, (ir.AxisPosition, ir.AxisSize)) and x.axis in ("I", "J"))
+        for loop in st.vertical_loops for sec in loop.sections for s in sec.body
+        for x in ir.walk_values(s))
+
+
+def _region_test(masks: Sequence[ir.HorizontalMask], framed: bool = False) -> str:
     """The thread's (i, j) lies in one of the regions.  START and END
     anchors resolve against the true domain sizes ``dI`` and ``dJ``, as the
-    oracle's ``HorizontalInterval.resolve`` does; an open side tests
+    oracle's ``HorizontalInterval.resolve`` does (``framed``: the point's
+    place ``i + gI0`` in the frame's domain of ``gNI``); an open side tests
     nothing."""
     tests = []
+    axes = (("(i + gI0)", "gNI"), ("(j + gJ0)", "gNJ")) if framed else (("i", "dI"), ("j", "dJ"))
     for m in masks:
         parts = []
-        for var, itv, dom in (("i", m.i, "dI"), ("j", m.j, "dJ")):
+        for (var, dom), itv in zip(axes, (m.i, m.j)):
             for bound, op in ((itv.start, ">="), (itv.end, "<")):
                 if bound is None:
                     continue
@@ -729,7 +742,7 @@ def _levels_disjoint(a, dk: int, b) -> bool:
 
 def _widen_writers(analysis: StencilAnalysis, secs, ring_reads, written, behind: int,
                    loop: str, plane_ext: Dict[str, Extent],
-                   mirror: Dict[str, int]) -> Dict[int, Extent]:
+                   mirror: Dict[str, int], widened=None) -> Dict[int, Extent]:
     """Grow the rectangle of every writer of a field read at an earlier
     level so that it covers the points the read reaches (queue 3, fault 1
     of the plane-sweep form): the CTA then computes those values into its
@@ -740,10 +753,11 @@ def _widen_writers(analysis: StencilAnalysis, secs, ring_reads, written, behind:
     stays inside the field's allocated extent.  ``ring_reads``: (field,
     points, reading section, K offset); a writer in a section none of whose
     levels the read reaches is left as it is.  ``_Decline`` names what
-    cannot be widened."""
+    cannot be widened.  ``widened``: rectangles grown already (by
+    ``_widen_before_loops``)."""
     ext = analysis.extents
     intervals = [sec.interval for lp in analysis.stencil.vertical_loops for sec in lp.sections]
-    widened: Dict[int, Extent] = {}
+    widened = {} if widened is None else widened
     work = list(ring_reads)
     while work:
         name, at, rsid, dk = work.pop()
@@ -1125,22 +1139,80 @@ def _plane_stages(stmts: List[ir.Stmt], loops: Optional[dict] = None,
     return stages
 
 
+def _widen_before_loops(analysis: StencilAnalysis, stages, loops, written: set,
+                        loop: str) -> Dict[int, Extent]:
+    """Grow the rectangle of every statement that writes, earlier in the
+    level, a field a CTA-iterated ``while`` (``_loop_group``) reads at the
+    level, to the loop's rectangle plus the read's offset (queue 3, seeds
+    147 and 386): the CTA then computes those values into the field's plane
+    for the points the loop reads, as the plane form widens ring writers.
+    The statements those writers read, earlier in the level, grow in turn.
+    A widened statement computes only its own extent in the domain and
+    writes device memory only where the CTA owns the point.  ``_Decline``
+    where a writer is itself such a loop, or reads an API field the loop
+    writes."""
+    ext = analysis.extents
+    st = analysis.stencil
+    grown: Dict[int, Extent] = {}
+    for sts in stages.values():
+        flat = [s for stage in sts for s in stage]
+        work = []
+        for pos, s in enumerate(flat):
+            if id(s) in loops:
+                q = loops[id(s)][1]
+                work += [(r.name, q + Extent.from_offset(r.offset.i, r.offset.j), pos)
+                         for r in _stmt_reads(s)
+                         if isinstance(r.offset, ir.CartesianOffset) and not r.offset.k]
+        while work:
+            name, at, upto = work.pop()
+            for pos in range(upto):
+                w = flat[pos]
+                if name not in {x.name for x in _stmt_writes(w)}:
+                    continue
+                cur = grown.get(id(w)) or ext.stmt_extent(w)
+                cur = Extent(i=cur.i, j=cur.j)
+                if _covers(cur, at):
+                    continue
+                if id(w) in loops:
+                    raise _Decline(f"cuda backend: a while loop iterated by the CTA reads "
+                                   f"'{name}' where the loop before it in the {loop} loop, "
+                                   "which writes it, does not compute it")
+                for r in _stmt_reads(w):
+                    if r.name in written and r.name in st.field_decls:
+                        raise _Decline(
+                            f"cuda backend: a while loop iterated by the CTA reads '{name}', "
+                            f"whose writer before it in the {loop} loop reads the API field "
+                            f"'{r.name}', which the loop writes")
+                new = cur | at
+                grown[id(w)] = new
+                work += [(r.name, new + Extent.from_offset(r.offset.i, r.offset.j), pos)
+                         for r in _stmt_reads(w)
+                         if isinstance(r.offset, ir.CartesianOffset) and not r.offset.k]
+    return grown
+
+
 def _plan_planes(analysis: StencilAnalysis, order: ir.LoopOrder,
                  secs: List[Tuple[int, List[ir.Stmt]]], plane_temps,
-                 choose_tile: bool = True, per_level: Optional[str] = None) -> PlanePlan:
+                 choose_tile: bool = True, per_level: Optional[str] = None,
+                 loop_groups: Optional[bool] = None) -> PlanePlan:
     """The plane-sweep form of a serial loop, or ``_Decline`` naming the
     read it cannot order.  A point is *owned* by the CTA whose tile holds
     it (tiles at the domain's edge own the halo beyond it); a read of a
     field the loop writes, at another level or before the plane's write,
     must stay on owned points: another CTA may write the others at any
     time.  ``choose_tile=False`` (the tile form, which chooses its own
-    tile): no tile is chosen here."""
+    tile): no tile is chosen here.  ``loop_groups``: a ``while`` that reads
+    at a horizontal offset a field it writes is iterated by the CTA
+    (``_loop_group``; by default in the plane form of a serial loop, and
+    the tile form asks for it)."""
     st = analysis.stencil
     ext = analysis.extents
     loop = order.name
-    # the plane form of a serial loop runs a while loop with horizontal
-    # self-reads one iteration at a time (``_loop_group``)
-    groups: Optional[dict] = {} if choose_tile and order != ir.LoopOrder.PARALLEL else None
+    # the plane form of a serial loop and the tile form run a while loop
+    # with horizontal self-reads one iteration at a time (``_loop_group``)
+    if loop_groups is None:
+        loop_groups = choose_tile and order != ir.LoopOrder.PARALLEL
+    groups: Optional[dict] = {} if loop_groups else None
     stages = {sid: _plane_stages(body, groups, st) for sid, body in secs}
     by_id = {id(x): x for _, body in secs for x in body}
     loops: Dict[int, Tuple[List[List[ir.Stmt]], Extent]] = {}
@@ -1158,6 +1230,7 @@ def _plan_planes(analysis: StencilAnalysis, order: ir.LoopOrder,
                 raise _Decline(f"cuda backend: a while loop iterated by the CTA carries the "
                                f"plane-local {sorted(carried & set(plane_temps))}")
     written = {w.name for _, body in secs for s in body for w in _stmt_writes(s)}
+    pre = _widen_before_loops(analysis, stages, loops, written, loop) if loops else {}
     for _, body in secs:
         for s in body:
             for w in _stmt_writes(s):
@@ -1176,7 +1249,7 @@ def _plan_planes(analysis: StencilAnalysis, order: ir.LoopOrder,
         flat = [(n, s) for n, stage in enumerate(sts) for s in stage]
         before: set = set()
         for pos, (n, s) in enumerate(flat):
-            e = loops[id(s)][1] if id(s) in loops else ext.stmt_extent(s)
+            e = loops[id(s)][1] if id(s) in loops else pre.get(id(s)) or ext.stmt_extent(s)
             e = Extent(i=e.i, j=e.j)
             later = {w.name for _, s2 in flat[pos:] for w in _stmt_writes(s2)}
             for w in _stmt_writes(s):
@@ -1199,9 +1272,6 @@ def _plan_planes(analysis: StencilAnalysis, order: ir.LoopOrder,
                     raise _Decline(
                         f"cuda backend: '{r.name}' is read at a variable level, at points "
                         f"another CTA writes, in the {loop} loop that writes it")
-                if id(s) in loops and r.name in before:
-                    raise _Decline(f"cuda backend: a while loop iterated by the CTA reads "
-                                   f"'{r.name}', which the {loop} loop wrote before it")
                 if not isinstance(s, ir.Assign) and (not _nonzero(r.offset) or (
                         id(s) in loops and not r.offset.k)) and \
                         r.name not in before and r.name in {w.name for w in _stmt_writes(s)}:
@@ -1234,7 +1304,7 @@ def _plan_planes(analysis: StencilAnalysis, order: ir.LoopOrder,
     # points read from it, widened where it does not
     try:
         widened = _widen_writers(analysis, secs, ring_reads, written, behind, loop,
-                                 plane_ext, mirror)
+                                 plane_ext, mirror, dict(pre))
     except _Decline as e:
         intervals = [sec.interval for lp in st.vertical_loops for sec in lp.sections]
         ordered = all(_levels_disjoint(intervals[a], 0, intervals[b])
@@ -1246,8 +1316,8 @@ def _plan_planes(analysis: StencilAnalysis, order: ir.LoopOrder,
     for _, body in secs:
         for s in body:
             if id(s) in widened:
-                (w,) = {w.name for w in _stmt_writes(s)}
-                widened_fields[w] = widened_fields.get(w, widened[id(s)]) | widened[id(s)]
+                for w in {w.name for w in _stmt_writes(s)}:
+                    widened_fields[w] = widened_fields.get(w, widened[id(s)]) | widened[id(s)]
     local = [n for n in touched if n in plane_temps]
     registers = [n for n in local if n not in off_read and n not in in_loops
                  and all(len(v) == 1 for v in touched[n].values())]
@@ -1472,10 +1542,11 @@ def _plan_tile(analysis: StencilAnalysis, sid: int, body: List[ir.Stmt],
                 raise _Decline(f"cuda backend: a K-offset read of '{r.name}', which the "
                                "PARALLEL section writes (its levels run in other CTAs)")
     pp = _plan_planes(analysis, ir.LoopOrder.PARALLEL, [(sid, body)], local,
-                      choose_tile=False)
+                      choose_tile=False, loop_groups=True)
     stages = pp.stages[sid]
     live = _plane_live(pp, stages)
-    staged = _staged_hull(st, ext, body, written | set(local))
+    staged = _staged_hull(st, ext, body, written | set(local),
+                          lambda s: pp.extent(analysis, s))
 
     def plan(tile):
         TI, TJ = tile
@@ -1484,7 +1555,8 @@ def _plan_tile(analysis: StencilAnalysis, sid: int, body: List[ir.Stmt],
         slot, slot_bytes = _assign_slots(live, size)
         inputs = _staged_inputs(st, tile, staged)
         nin = _staging_layout(st, tile, inputs)[1]
-        smem = max(16, sum(slot_bytes) + 2 * nin + _hoist_bytes(st, pp.hoisted, tile))
+        smem = max(16, sum(slot_bytes) + 2 * nin + _hoist_bytes(st, pp.hoisted, tile)
+                   + sum(pp.mask_bytes(tile)))
         return slot, slot_bytes, inputs, nin, smem
 
     plans = [(tile, plan(tile)) for tile in TILE_SHAPES]
@@ -1533,15 +1605,16 @@ def _staging_layout(st: ir.Stencil, tile: Tuple[int, int], inputs):
     return out, at
 
 
-def _staged_hull(st: ir.Stencil, ext, body: List[ir.Stmt], skip) -> list:
+def _staged_hull(st: ir.Stencil, ext, body: List[ir.Stmt], skip, extent=None) -> list:
     """The inputs a tile or sweep kernel stages: per (field, K offset) read
     at a horizontal offset, of the fields not in ``skip`` (written or
     on-chip), 3-D without data dimensions, the hull of what ``body``'s
-    statements read: [(name, K offset, extent)]."""
+    statements read (over ``extent(s)``, a statement's rectangle, its
+    extent by default): [(name, K offset, extent)]."""
     hull: Dict[Tuple[str, int], Extent] = {}
     offset_read: set = set()
     for s in body:
-        e = ext.stmt_extent(s)
+        e = extent(s) if extent else ext.stmt_extent(s)
         for r in _stmt_reads(s):
             decl = st.decl(r.name)
             if r.name in skip or decl.data_dims or not all(decl.dimensions) \
@@ -1772,7 +1845,8 @@ def plan_kernels(analysis: StencilAnalysis, planes_loops=frozenset(),
                         if tiles:
                             raise
                         declined.setdefault("tiles", str(e))
-                if tp is not None and tiles is None and len(tp.planes.stages[sec_id]) == 1:
+                if tp is not None and tiles is None and len(tp.planes.stages[sec_id]) == 1 \
+                        and not tp.planes.loops:  # the row form cannot iterate a loop group
                     declined.setdefault("tiles", ONE_STAGE)
                     tp = None
                 if tp is not None:
@@ -2083,6 +2157,8 @@ class _Emitter:
         self.written = {
             n for n, info in analysis.field_info.items() if info.access.value & 2
         }
+        #: the kernels take the region frame (``_framed``)
+        self.framed = _framed(self.stencil)
         self.plane: Optional[PlanePlan] = None
         #: the plane form's current top-level statement: its extent, and
         #: whether it writes beyond its tile (device memory where owned)
@@ -2356,10 +2432,14 @@ class _Emitter:
             return self.access(e), dt
         if isinstance(e, ir.AxisPosition):
             dt = default_int_dtype(st)
-            return _cast(e.axis.lower(), np.dtype(np.int32), dt), dt
+            pos = e.axis.lower()
+            if self.framed and e.axis != "K":
+                pos = f"({pos} + g{e.axis}0)"
+            return _cast(pos, np.dtype(np.int32), dt), dt
         if isinstance(e, ir.AxisSize):
             dt = default_int_dtype(st)
-            return _cast(f"d{e.axis}", np.dtype(np.int32), dt), dt
+            size = f"gN{e.axis}" if self.framed and e.axis != "K" else f"d{e.axis}"
+            return _cast(size, np.dtype(np.int32), dt), dt
         if isinstance(e, ir.Cast):
             code, dt = self.expr(e.expr)
             return _cast(code, dt, e.dtype), np.dtype(e.dtype)
@@ -2480,7 +2560,7 @@ class _Emitter:
                 out += self.stmt(b, ind + "  ")
             return out + [f"{ind}}}"]
         if isinstance(s, ir.HorizontalRestriction):
-            out = [f"{ind}if ({_region_test(s.masks)}) {{"]
+            out = [f"{ind}if ({_region_test(s.masks, self.framed)}) {{"]
             for b in s.body:
                 out += self.stmt(b, ind + "  ")
             return out + [f"{ind}}}"]
@@ -3441,6 +3521,12 @@ def _plane_level(em: _Emitter, p: KernelPlan, sid: int) -> List[str]:
                 load = f"{_HALF[dt][0]}({load})"
             ring = f"gt::slot(k, {depth}) * {plane} + " if depth > 1 else ""
             out += _tile_points(pp.tile, e, "    ", em.threads)
+            a = em.analysis.extents.alloc_extent(name)
+            if not _covers(a, e):
+                # a plane grown past the field's storage (a writer widened
+                # for a CTA-iterated loop): no value is read there
+                load = (f"(i >= {a.i[0]} && i < dI + {a.i[1]} && j >= {a.j[0]} && "
+                        f"j < dJ + {a.j[1]}) ? {load} : 0")
             out += [f"      sh_{name}[{ring}p_] = {load};", "    }"]
         out.append("    __syncthreads();")
     for stage in pp.stages[sid]:
@@ -3749,6 +3835,10 @@ def _emit_tile_kernel(em: _Emitter, p: KernelPlan, params: List[str], bpp: int, 
         out += _emit_staging(em, tp.tile, tp.inputs, ring, tp.input_bytes)
         out += ["  if (k0_ < k1_) stage_(k0_, 0);", "  gt::async_commit();"]
     out += _hoist_planes(em, pp, ring + 2 * tp.input_bytes, PLANE_THREADS)
+    off = ring + 2 * tp.input_bytes + _hoist_bytes(st, pp.hoisted, tp.tile)
+    for n, nbytes in enumerate(pp.mask_bytes(tp.tile)):
+        out.append(f"  unsigned char* const wm{n}_ = gt_smem + {off};")
+        off += nbytes
     out.append("  for (int k = k0_; k < k1_; ++k) {")
     if tp.inputs:
         out += ["    const int s_ = (k - k0_) & 1;",
@@ -4346,11 +4436,12 @@ def generate(analysis: StencilAnalysis, serialize: Optional[bool] = None,
         + [f"gt::Field<{_stype(st.temp_decls[n].dtype)}> t_{n}" for n in scratch]
         + [f"gt::Field<{_stype(st.decl(n).dtype)}> o_{n}" for n in snapshots]
         + ["int dI", "int dJ", "int dK", "int pI", "int pJ", f"gt::KBounds<{nsec}> kb"]
+        + (["int gI0", "int gJ0", "int gNI", "int gNJ"] if em.framed else [])
         + [f"{_ctype(st.scalar_decls[n].dtype)} s_{n}" for n in scalars]
     )
     args = [f"f_{n}" for n in fields] + [f"t_{n}" for n in scratch] + [
-        f"o_{n}" for n in snapshots] + ["dI", "dJ", "dK", "pI", "pJ", "kb"] + [
-        f"s_{n}" for n in scalars]
+        f"o_{n}" for n in snapshots] + ["dI", "dJ", "dK", "pI", "pJ", "kb"] + (
+        ["gI0", "gJ0", "gNI", "gNJ"] if em.framed else []) + [f"s_{n}" for n in scalars]
     snap = {n: (f"{st.name}_snap_{n}", ("f_" if n in st.field_decls else "t_") + n,
                 planned.extents.alloc_extent(n)) for n in snapshots}
 
@@ -4441,6 +4532,8 @@ def generate(analysis: StencilAnalysis, serialize: Optional[bool] = None,
     out.append(f"  GT_STORAGES({', '.join(var for _, var in fvars)});")
     out += [
         "  const int dI = dom[0], dJ = dom[1], dK = dom[2];",
+        *(["  const int gI0 = dom[3], gJ0 = dom[4], gNI = dom[5], gNJ = dom[6];"]
+          if em.framed else []),
         f"  gt::KBounds<{nsec}> kb;",
         f"  for (int s = 0; s < {nsec}; ++s) {{ kb.lo[s] = kbv[2 * s]; kb.hi[s] = kbv[2 * s + 1]; }}",
     ]
@@ -4674,27 +4767,31 @@ class CudaBackend:
                                f"{lib.gt_error_string(rc).decode()}")
         self._kb_devices.add(device)
 
-    def apply(self, env, scalars, domain, origins, periodic=()) -> None:
+    def apply(self, env, scalars, domain, origins, periodic=(), frame=None) -> None:
         """Execute on ``env`` (logical views; written fields are fresh
-        output buffers, see ``StencilObject._execute``)."""
+        output buffers, see ``StencilObject._execute``); ``frame``: the
+        region frame (``torch_backend.TorchExecutor.run``)."""
         kinds = {v.device.type for v in env.values()}
         if kinds == {"cpu"}:
-            run_plain(self.plain, env, scalars, domain, origins, periodic)
+            run_plain(self.plain, env, scalars, domain, origins, periodic, frame)
             return
         if kinds != {"cuda"}:
             raise ValueError(f"backend 'cuda' takes CPU or CUDA tensors, got {sorted(kinds)}")
-        self.run_kernels(env, scalars, domain, origins, periodic)
+        self.run_kernels(env, scalars, domain, origins, periodic, frame)
 
-    def run_kernels(self, env, scalars, domain, origins, periodic=()) -> None:
+    def run_kernels(self, env, scalars, domain, origins, periodic=(), frame=None) -> None:
         """Launch the kernels on ``env``; when a derivative is wanted, under
         K8: the primal from the kernels (a failed build or launch raises),
         the derivative from the plain executor."""
-        if wants_derivative([*env.values(), *scalars.values()]):
-            self.derivative_calls += 1
-            autodiff.kernel_call(self._launch, self.plain, self._written, env, scalars,
-                                 domain, origins, periodic)
-        else:
-            self._launch(env, scalars, domain, origins, periodic)
+        if not wants_derivative([*env.values(), *scalars.values()]):
+            self._launch(env, scalars, domain, origins, periodic, frame)
+            return
+        if frame is not None:
+            raise NotImplementedError("cuda backend: no derivative of a call in a region frame "
+                                      "(a call on DistributedFields)")
+        self.derivative_calls += 1
+        autodiff.kernel_call(self._launch, self.plain, self._written, env, scalars,
+                             domain, origins, periodic)
 
     def _check(self, env) -> torch.device:
         st = self.analysis.stencil
@@ -4867,7 +4964,7 @@ class CudaBackend:
         return SimpleNamespace(plan=plan, kb=kb, phase=phase, pads=pads, copied_in=copied_in,
                                record=record, kbs=kbs, kbsz=kbsz, vks=vks, swept=swept)
 
-    def _launch(self, env, scalars, domain, origins, periodic) -> None:
+    def _launch(self, env, scalars, domain, origins, periodic, frame=None) -> None:
         prog = self.program
         st = self.analysis.stencil
         device = self._check(env)
@@ -4984,7 +5081,7 @@ class CudaBackend:
             rc = lib.gt_run(
                 (ctypes.c_void_p * len(ptrs))(*ptrs),
                 (ctypes.c_longlong * len(strides))(*strides),
-                (ctypes.c_int * 3)(dI, dJ, dK),
+                (ctypes.c_int * 7)(dI, dJ, dK, *(frame or (0, 0, dI, dJ))),
                 (ctypes.c_int * len(kb))(*kb),
                 (ctypes.c_double * max(1, len(fsc)))(*fsc),
                 (ctypes.c_longlong * max(1, len(isc)))(*isc),

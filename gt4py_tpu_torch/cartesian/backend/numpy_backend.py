@@ -675,16 +675,20 @@ class NumpyBackend:
         if exec_info is not None:
             exec_info["run_end_time"] = time.perf_counter()
 
-    def apply(self, env, scalars, domain, origins, periodic=()) -> None:
+    def apply(self, env, scalars, domain, origins, periodic=(), frame=None) -> None:
         """Execute on the port's ``env`` (logical (I, J, K, *data_dims)
         views, written fields fresh output buffers; see
-        ``StencilObject._execute``) through numpy views of the tensors."""
+        ``StencilObject._execute``) through numpy views of the tensors.
+        ``frame`` (a rank's part of a global domain) is not supported."""
         import torch
 
         from gt4py_tpu_torch.cartesian.stencil_object import ArgumentError
         from gt4py_tpu_torch.core.definitions import BFLOAT16
 
         st = self.analysis.stencil
+        if frame is not None:
+            raise NotImplementedError(f"backend '{self.name}' runs on one host: it takes no "
+                                      "region frame")
         decls = [*st.field_decls.values(), *st.temp_decls.values(), *st.scalar_decls.values()]
         if any(np.dtype(d.dtype) == BFLOAT16 for d in decls):
             raise TypeError(f"backend '{self.name}': stencil '{st.name}' has bfloat16 "

@@ -236,9 +236,14 @@ class TorchExecutor:
         self._read_copies = read_copies(self.stencil)
 
     def run(self, views: Dict[str, torch.Tensor], scalars: Dict[str, Any],
-            domain: Tuple[int, int, int], origins: Dict[str, Tuple[int, int, int]]) -> None:
-        """Execute in place on ``views``: logical (I, J, K, *dd) tensors."""
+            domain: Tuple[int, int, int], origins: Dict[str, Tuple[int, int, int]],
+            frame=None) -> None:
+        """Execute in place on ``views``: logical (I, J, K, *dd) tensors.
+        ``frame = (i0, j0, nI, nJ)``: the call's domain starts at (i0, j0) of
+        a global domain of nI x nJ, against which horizontal regions and the
+        I/J positions and sizes resolve (default ``(0, 0, dI, dJ)``)."""
         self.domain = tuple(domain)
+        self.frame = tuple(frame) if frame is not None else (0, 0, domain[0], domain[1])
         self.scalars = scalars
         self._record = wants_derivative([*views.values(), *scalars.values()])
         self._scalar_tensors: Dict[str, torch.Tensor] = {}
@@ -393,12 +398,15 @@ class TorchExecutor:
 
     def _exec_horizontal(self, stmt: ir.HorizontalRestriction, ctx: _Ctx) -> None:
         dI, dJ, _ = self.domain
-        i_glob = torch.arange(ctx.ext.i[0], dI + ctx.ext.i[1], device=self.device).reshape(-1, 1, 1)
-        j_glob = torch.arange(ctx.ext.j[0], dJ + ctx.ext.j[1], device=self.device).reshape(1, -1, 1)
+        i0, j0, nI, nJ = self.frame
+        i_glob = torch.arange(i0 + ctx.ext.i[0], i0 + dI + ctx.ext.i[1],
+                              device=self.device).reshape(-1, 1, 1)
+        j_glob = torch.arange(j0 + ctx.ext.j[0], j0 + dJ + ctx.ext.j[1],
+                              device=self.device).reshape(1, -1, 1)
         mask = torch.zeros((ctx.ni, ctx.nj, 1), dtype=torch.bool, device=self.device)
         for m in stmt.masks:
-            ilo, ihi = m.i.resolve(dI)
-            jlo, jhi = m.j.resolve(dJ)
+            ilo, ihi = m.i.resolve(nI)
+            jlo, jhi = m.j.resolve(nJ)
             mask |= (i_glob >= ilo) & (i_glob < ihi) & (j_glob >= jlo) & (j_glob < jhi)
         ctx.masks.append(torch.broadcast_to(mask, ctx.shape()))
         for s in stmt.body:
@@ -508,12 +516,13 @@ class TorchExecutor:
 
         if isinstance(expr, ir.AxisPosition):
             dI, dJ, _ = self.domain
+            i0, j0 = self.frame[:2]
             idt = dtypes.to_torch(default_int_dtype(self.stencil))
             if expr.axis == "I":
-                return torch.arange(ctx.ext.i[0], dI + ctx.ext.i[1], dtype=idt,
+                return torch.arange(i0 + ctx.ext.i[0], i0 + dI + ctx.ext.i[1], dtype=idt,
                                     device=self.device).reshape(-1, 1, 1)
             if expr.axis == "J":
-                return torch.arange(ctx.ext.j[0], dJ + ctx.ext.j[1], dtype=idt,
+                return torch.arange(j0 + ctx.ext.j[0], j0 + dJ + ctx.ext.j[1], dtype=idt,
                                     device=self.device).reshape(1, -1, 1)
             if ctx.klevel is not None:
                 return torch.tensor(ctx.klevel, dtype=idt, device=self.device)
@@ -521,7 +530,7 @@ class TorchExecutor:
                                 device=self.device).reshape(1, 1, -1)
 
         if isinstance(expr, ir.AxisSize):
-            size = {"I": self.domain[0], "J": self.domain[1], "K": self.domain[2]}[expr.axis]
+            size = {"I": self.frame[2], "J": self.frame[3], "K": self.domain[2]}[expr.axis]
             return self._const(size, default_int_dtype(self.stencil))
 
         if isinstance(expr, ir.Cast):
@@ -673,7 +682,8 @@ def has_horizontal_reads(analysis: StencilAnalysis, name: str) -> bool:
     return bool(e.i[0] or e.i[1] or e.j[0] or e.j[1])
 
 
-def run_plain(executor: TorchExecutor, env, scalars, domain, origins, periodic) -> None:
+def run_plain(executor: TorchExecutor, env, scalars, domain, origins, periodic,
+              frame=None) -> None:
     """Periodic fill + interpretation.  Written fields in ``env`` are
     output buffers and are filled in place; read-only fields are filled in
     a copy, so the caller's arguments stay unchanged."""
@@ -685,7 +695,7 @@ def run_plain(executor: TorchExecutor, env, scalars, domain, origins, periodic) 
             if not analysis.field_info[n].access.value & 2:
                 env[n] = env[n].clone()
         periodic_fill(analysis, env, domain, origins, periodic, names)
-    executor.run(env, scalars, domain, origins)
+    executor.run(env, scalars, domain, origins, frame)
 
 
 @register("torch")
@@ -696,7 +706,8 @@ class TorchBackend:
         self.analysis = analysis
         self.executor = TorchExecutor(analysis)
 
-    def apply(self, env, scalars, domain, origins, periodic=()) -> None:
+    def apply(self, env, scalars, domain, origins, periodic=(), frame=None) -> None:
         """Execute on ``env`` (logical views; written fields are output
-        buffers), see ``StencilObject._execute``."""
-        run_plain(self.executor, env, scalars, domain, origins, periodic)
+        buffers), see ``StencilObject._execute``; ``frame``: the region frame
+        (``TorchExecutor.run``)."""
+        run_plain(self.executor, env, scalars, domain, origins, periodic, frame)

@@ -45,6 +45,11 @@ def _tensor_of(value):
     )
 
 
+def _distributed(field_args) -> bool:
+    """Some field argument is a ``parallel.DistributedField``."""
+    return any(getattr(v, "global_shape", None) is not None for v in field_args.values())
+
+
 def _normalize_periodic(periodic) -> Tuple[str, ...]:
     """``periodic="I"`` / ``("I", "J")`` / ``"IJ"`` -> sorted axis tuple."""
     if not periodic:
@@ -158,6 +163,14 @@ class StencilObject:
         write each written field's result into its argument."""
         tensors, origins = {}, {}
         origin_map = self._normalize_origin_arg(origin)
+        if _distributed(field_args):
+            origins = {n: self._field_origin(n, origin_map, getattr(v, "origin", None))
+                       for n, v in field_args.items() if v is not None}
+            outs = self._run_global(field_args, scalar_args, origins, domain, False,
+                                    periodic, validate_args)
+            for name, new in outs.items():
+                field_args[name].data.copy_(new.data)
+            return
         for name, value in field_args.items():
             if value is None:
                 self._check_optional(name)
@@ -221,6 +234,11 @@ class StencilObject:
 
         def fn(**kwargs):
             field_args, scalar_args = self._bind_args((), kwargs)
+            if _distributed(field_args):
+                origins = {n: self._field_origin(n, origin_map, None)
+                           for n, v in field_args.items() if v is not None}
+                return self._run_global(field_args, scalar_args, origins, domain,
+                                        physical_layout, periodic, validate_args)
             tensors, origins = {}, {}
             for name, value in field_args.items():
                 if value is None:
@@ -234,10 +252,27 @@ class StencilObject:
 
         return fn
 
+    def _run_global(self, field_args, scalar_args, origins, domain, physical, periodic,
+                    validate_args):
+        """A call on ``parallel.DistributedField``s: the single-device result
+        on the global domain, from this rank's blocks (``run_global``).
+        ``origins``: each given field's origin."""
+        from gt4py_tpu_torch.parallel.distributed import run_global
+
+        fields = {}
+        for name, value in field_args.items():
+            if value is None:
+                self._check_optional(name)
+            else:
+                fields[name] = value
+        return run_global(self, fields, scalar_args,
+                          {n: self._origin3(n, origins[n]) for n in fields}, domain,
+                          physical=physical, periodic=periodic, validate_args=validate_args)
+
     # ------------------------------------------------------------------ #
 
     def _execute(self, tensors, scalars, origins, domain, *, physical, periodic,
-                 validate_args, exec_info=None) -> Dict[str, torch.Tensor]:
+                 validate_args, exec_info=None, frame=None) -> Dict[str, torch.Tensor]:
         periodic = _normalize_periodic(periodic)
         views = {}
         for name, t in tensors.items():
@@ -262,7 +297,7 @@ class StencilObject:
                                          len(decl.data_dims), physical)
         if exec_info is not None:
             exec_info["run_start_time"] = time.perf_counter()
-        self.backend.apply(env, scalars, domain, origins3, periodic)
+        self.backend.apply(env, scalars, domain, origins3, periodic, frame=frame)
         if exec_info is not None:
             exec_info["run_end_time"] = time.perf_counter()
         return outs

@@ -463,6 +463,28 @@ class MiniDycore:
         vadv_upd_fn = self.vadv_upd_fn_p if fill_halos else self.vadv_upd_fn
         return self._make_step(hdiff_fn, vadv_upd_fn, dtr_stage)
 
+    def region_step_factory(self, *, dtr_stage: float = 3.0):
+        """``make((oi, oj), (di, dj)) -> step(**fields) -> dict`` computing
+        only the given sub-region (halo-extended local coordinates): the
+        region interface ``overlapped_shard_map_stencil`` splits a rank's
+        step into a halo-independent interior and halo-dependent boundary
+        strips.  vadv reads its chained input ``u_stage`` only at K
+        offsets, so the hdiff/vadv regions coincide exactly."""
+
+        def make(origin_ij, domain_ij):
+            oi, oj = origin_ij
+            di, dj = domain_ij
+            kw = dict(origin=(oi, oj, 0), domain=(di, dj, self.nk), physical_layout=True)
+            step = self._make_step(self.hdiff.functional(**kw),
+                                   self.vadv_upd.functional(**kw), dtr_stage)
+
+            def region_step(**fields):
+                return step(dict(fields))
+
+            return region_step
+
+        return make
+
     def _make_step(self, hdiff_fn, vadv_upd_fn, dtr_stage: float):
 
         def step(state: Dict) -> Dict:

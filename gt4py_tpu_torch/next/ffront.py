@@ -148,6 +148,18 @@ def _rebuild_collections(t: ts.TypeSpec, v):
     return v
 
 
+def _sharded(args, kwargs, out, domain) -> bool:
+    """A call on ``next.distributed.ShardedField``s (the global view); it
+    takes no ``out=`` or ``domain=``."""
+    if not any(getattr(a, "block_index", None) is not None
+               for a in list(args) + list(kwargs.values())):
+        return False
+    if out is not None or domain is not None:
+        raise NotImplementedError("a call on ShardedFields returns its result: no out= or "
+                                  "domain=")
+    return True
+
+
 def _bind_call_args(params, args, kwargs, name):
     """Arbitrary positional/keyword mixes, like a plain Python call
     (reference: test_arg_call_interface.py permutation tests)."""
@@ -235,6 +247,11 @@ class FieldOperator:
 
     def __call__(self, *args, out: Optional[Field] = None,
                  domain: Optional[Domain] = None, offset_provider=None, **kwargs):
+        if _sharded(args, kwargs, out, domain):
+            from .distributed import call_operator
+
+            with offset_provider_context(offset_provider):
+                return call_operator(self, args, kwargs)
         args = _bind_call_args(
             [p.name for p in self.ir.params], args, kwargs, self.__name__
         )
@@ -384,6 +401,11 @@ class ScanOperator(FieldOperator):
 
     def __call__(self, *args, out: Optional[Field] = None,
                  domain: Optional[Domain] = None, offset_provider=None, **kwargs):
+        if _sharded(args, kwargs, out, domain):
+            from .distributed import call_operator
+
+            with offset_provider_context(offset_provider):
+                return call_operator(self, args, kwargs)
         with offset_provider_context(offset_provider):
             return self._scan_impl(*args, out=out, domain=domain, **kwargs)
 

@@ -342,7 +342,9 @@ LAYOUTS = ("ijk", "kij_aligned", "kij_tight")
 #: declines both declines
 SERIALIZED_BUILDS = ({"serialize": True, "sweep": True}, {"serialize": True})
 LEGS = {
-    "base": (range(40), dict(layout="ijk")),
+    # with the programs the kernels once declined (the plane form's and the
+    # tile form's CTA-iterated ``while``)
+    "base": ((*range(40), 147, 199, 386), dict(layout="ijk")),
     "kij_aligned": (range(24), dict(layout="kij_aligned")),
     "kij_tight": (range(24), dict(layout="kij_tight")),
     "periodic": (range(24), dict(layout="kij_aligned", periodic=("I", "J"))),

@@ -259,17 +259,23 @@ def test_variable_k_read_of_a_temporary_zero_fills_it():
 
 def test_region_guards_resolve_against_the_true_domain():
     """START and END anchors of a region compare the thread's position
-    with the domain sizes dI and dJ, not with the kernel's rectangle."""
+    with the domain sizes, not with the kernel's rectangle: those of the
+    region frame (the point at ``i + gI0`` of a ``gNI`` x ``gNJ`` domain;
+    ``gt_run`` passes ``(0, 0, dI, dJ)`` unless the call gives a frame),
+    which the stencil's kernels take since it has regions."""
     from gt4py_tpu_torch import testing
 
     entry = testing.load_stencil_defs()["horizontal_regions"]
     src = gtscript.stencil(backend="cuda", definition=entry["definition"],
                            rebuild=True).backend.source
-    assert ("if ((i >= 0 && i < 2 && j >= 0 && j < 2) || (i >= (dI + -3) && i < (dI + -1) "
-            "&& j >= (dJ + -3) && j < (dJ + -1))) {") in src
+    assert ("if (((i + gI0) >= 0 && (i + gI0) < 2 && (j + gJ0) >= 0 && (j + gJ0) < 2) || "
+            "((i + gI0) >= (gNI + -3) && (i + gI0) < (gNI + -1) && (j + gJ0) >= (gNJ + -3) && "
+            "(j + gJ0) < (gNJ + -1))) {") in src
+    assert "const int gI0 = dom[3], gJ0 = dom[4], gNI = dom[5], gNJ = dom[6];" in src
     m = ir.HorizontalMask(i=ir.HorizontalInterval(None, ir.AxisBound.end(1)),
                           j=ir.HorizontalInterval(ir.AxisBound.start(-2), None))
     assert cuda_backend._region_test([m]) == "(i < (dI + 1) && j >= -2)"
+    assert cuda_backend._region_test([m], framed=True) == "((i + gI0) < (gNI + 1) && (j + gJ0) >= -2)"
     assert cuda_backend._region_test([ir.HorizontalMask()]) == "true"
 
 

@@ -10,17 +10,17 @@ arrays (``ijk``, K contiguous: element staging) for seeds 0-15, the tight
 for seeds 0-7, and builds with ``serialize=True`` (K5's plane-sweep and
 sweep forms; ``sweep=True`` first, where it plans) for seeds 0-3.  Each
 call's launches, counted by its library by kernel, add up by form to its
-total.  A
-program the kernels have no form for (``DECLINED``) declines at build
-with ``NotImplementedError`` naming why, and its plain leg is still held
-to the oracle.  Each fault the fuzzer found has a named seed test here.
+total.  No program declines: the ones that once did (``DECLINED``) run
+their kernels, equal to the plain executor bit for bit.  Each fault the
+fuzzer found has a named seed test here.
 """
 
 import numpy as np
 import pytest
 
 from gt4py_tpu_torch import config
-from gt4py_tpu_torch.cartesian import ir
+from gt4py_tpu_torch.cartesian import gtscript, ir
+from gt4py_tpu_torch.cartesian.gtscript import FORWARD, PARALLEL, computation, interval
 from gt4py_tpu_torch.testing import program_gen
 
 from .test_torch_emulated import emulated, emulated_dir  # noqa: F401
@@ -33,16 +33,13 @@ def _on_the_cpu(monkeypatch):
 
 
 def _check(case):
-    """Both legs against the JAX oracle; a program the kernels decline
-    (``DECLINED``) runs its plain leg only."""
-    if case.declined is not None:
-        assert any(why in case.declined for why in DECLINED.values()), case.declined
-    else:
-        assert case.launches >= 1
-        assert sum(case.forms.values()) == case.launches, (case.forms, case.launch_counts)
+    """Both legs against the JAX oracle; no program declines."""
+    assert case.declined is None, case.declined
+    assert case.launches >= 1
+    assert sum(case.forms.values()) == case.launches, (case.forms, case.launch_counts)
     ref = jax_oracle(case, case.periodic)
     for name in case.names:
-        for backend in ("cuda", "torch")[case.declined is not None:]:
+        for backend in ("cuda", "torch"):
             np.testing.assert_allclose(case.results[backend][name], ref[name], rtol=1e-12,
                                        atol=1e-12, err_msg=f"{backend} {name}")
 
@@ -167,28 +164,61 @@ def test_fuzz_regression_k4_reads_read_only_fields_at_variable_k(emulated, seed)
     assert isinstance(case.plan["kblocked"], dict)
 
 
-#: programs the ``"cuda"`` backend has no kernel form for (ROADMAP Queue 3,
-#: open): (seed, domain) -> the reason its build names
+#: programs the ``"cuda"`` backend declined until the plane form widened
+#: the writers before a CTA-iterated ``while`` (147, 386) and the tile form
+#: iterated such a loop itself (199): (seed, domain) -> the kernel form the
+#: loop now runs in
 DECLINED = {
-    (147, None): "a while loop iterated by the CTA reads 'tmp0', which the",
-    (199, None): "a compound statement reads a field it writes at an offset",
+    (147, None): "planes",
+    (199, None): "tile",
+    (386, None): "planes",
 }
 
 
 @pytest.mark.parametrize("seed,domain", sorted(DECLINED, key=str))
-def test_fuzz_declines_are_named(seed, domain):
-    """The programs the kernels cannot run decline at build with
-    ``NotImplementedError`` naming why (nothing runs), and their plain
-    runs still match the JAX oracle."""
-    case = program_gen.DifferentialCase(seed, domain=domain)
-    with pytest.raises(NotImplementedError, match=DECLINED[(seed, domain)]):
-        case.backend("cuda")
+def test_fuzz_declines_are_named(emulated, seed, domain):  # noqa: F811
+    """The programs the kernels once declined build and run on ``"cuda"``
+    (its kernels, built by the host compiler against the emulated runtime,
+    counted by its library), equal to ``"torch"`` bit for bit, and both
+    equal the JAX oracle at 1e-12 in float64; none is pinned as a card
+    leg's decline."""
     case = program_gen.run_differential_case(seed, domain=domain, backends=("torch", "cuda"),
-                                             allow_declines=True)
-    assert DECLINED[(seed, domain)] in case.declined
-    assert "cuda" not in case.results
-    if domain is None:
-        ref = jax_oracle(case)
-        for name in case.names:
-            np.testing.assert_allclose(case.results["torch"][name], ref[name], rtol=1e-12,
-                                       atol=1e-12)
+                                             count_kernels=True)
+    assert case.declined is None and case.launches >= 1
+    assert DECLINED[(seed, domain)] in case.forms, case.forms
+    for name in case.names:
+        np.testing.assert_array_equal(case.results["cuda"][name], case.results["torch"][name],
+                                      err_msg=name)
+    ref = jax_oracle(case)
+    for name in case.names:
+        for backend in ("cuda", "torch"):
+            np.testing.assert_allclose(case.results[backend][name], ref[name], rtol=1e-12,
+                                       atol=1e-12, err_msg=f"{backend} {name}")
+    assert not program_gen.LEG_DECLINES
+
+
+def _one_stage_loop(a: gtscript.Field[np.float64], b: gtscript.Field[np.float64]):
+    with computation(FORWARD), interval(...):
+        tmp = a
+    with computation(PARALLEL), interval(...):
+        while tmp < 0.5:
+            tmp = tmp + 0.25
+            b = tmp[1, 0, 0]
+
+
+def test_tile_form_runs_a_one_stage_loop_section(emulated):  # noqa: F811
+    """A PARALLEL section that is one CTA-iterated ``while`` runs the tile
+    kernel (the row form, which one-stage sections otherwise take, cannot
+    iterate it), equal to the plain executor bit for bit."""
+    from gt4py_tpu_torch import testing
+
+    def inputs():
+        rng = np.random.default_rng(5)
+        return {"a": rng.random((10, 12, 4)) - 0.5, "b": np.zeros((10, 12, 4))}, {}
+
+    got, ref, st = testing.run_pair(_one_stage_loop, inputs,
+                                    dict(origin=(0, 0, 0), domain=(9, 12, 4)), "cpu")
+    assert [k.form for k in st.backend.program.kernels][-1] == "tile"
+    assert st.backend.launches == 1
+    for k, v in ref.items():
+        np.testing.assert_array_equal(got[k].numpy(), v.numpy(), err_msg=k)

@@ -1,5 +1,6 @@
 """The port stands alone: importing every ``gt4py_tpu_torch`` module (the
-next DSL's included), or the chip check, loads no ``jax``, no
+next DSL's, the distribution layer's -- ``parallel``, ``next.distributed``,
+``utils``, ``io`` -- included), or the chip check, loads no ``jax``, no
 ``ml_dtypes`` and nothing of ``gt4py_tpu``."""
 
 import os
@@ -21,6 +22,10 @@ bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "ml_dtypes", "gt4py_tpu"))
 assert "gt4py_tpu_torch.next.cuda_bridge" in names, names
 assert "gt4py_tpu_torch.next.ffront" in names, names
+for n in ("parallel.mesh", "parallel.halo", "parallel.distributed", "parallel.dryrun",
+          "next.distributed", "utils.checkpoint", "utils.resilience", "io",
+          "testing.dist_cases"):
+    assert "gt4py_tpu_torch." + n in names, n
 print(len(names), bad)
 """
 
@@ -65,3 +70,11 @@ def test_router_is_a_copy_in_the_port():
                 with open(os.path.join(dirpath, name)) as f:
                     assert "gt4py_tpu/native" not in f.read().replace(
                         "A copy of gt4py_tpu/native", ""), name
+
+
+def test_gridio_is_a_copy_in_the_port():
+    """The grid IO the port builds is its own copy of the JAX package's C++
+    (the same code; only the header comment differs)."""
+    port = os.path.join(ROOT, "gt4py_tpu_torch", "csrc", "gridio.cpp")
+    assert _code_lines(port) == _code_lines(os.path.join(ROOT, "gt4py_tpu", "io", "_native",
+                                                         "gridio.cpp"))

@@ -314,7 +314,9 @@ DECLINES = {
             "t", offset=ir.CartesianOffset(1, 0, 0), data_index=(_ZERO,)))], data_temps=["t"]),
         "data dimensions or no I/J axis"),
     # (an ``if`` of this kind is split into a mask and one statement each,
-    # ``passes.split_compound_statements``; a ``while`` cannot be)
+    # ``passes.split_compound_statements``; a ``while`` cannot be, and the
+    # tile form iterates one whose condition reads only its own point,
+    # ``_loop_group``: this one's reads its neighbour's)
     "compound": (lambda: _stencil([
         _assign("t", "a"),
         ir.While(cond=ir.BinaryOp(ir.BinaryOperator.LT, ir.FieldAccess(
@@ -323,7 +325,7 @@ DECLINES = {
                 ir.BinaryOperator.ADD, ir.FieldAccess("t"),
                 ir.Literal(1.0, np.dtype(np.float64))))]),
         _assign("b", "t")], ["t"]),
-        "a compound statement reads at a horizontal offset a field it writes"),
+        "a while condition reads at a horizontal offset a field its loop writes"),
 }
 
 
