@@ -24,6 +24,8 @@ script copied there), ``--k3-tiles`` the staged kernel of
 ``python3 chip_smoke.py --fuzz`` runs phase 14 alone (the differential
 fuzzers, their builds included).
 
+``python3 chip_smoke.py --examples`` runs phase 16 alone (the examples).
+
 ``python3 chip_smoke.py --dist`` runs phase 15 alone (the distribution
 layer on gloo ranks sharing the card, its three builds included).
 
@@ -206,8 +208,20 @@ Phases (a failed phase raises, and the script exits non-zero):
    kernels: the JAX package's GSPMD fuzz seeds 11000-11005 (float64,
    regions in the global frame, ``while``, variable K) on ``"cuda"`` on
    DistributedFields, each rank's launches counted by the library,
-   against the plain executor's single-device run.  A failing rank fails
-   the phase.
+   against the plain executor's single-device run; then the phased calls
+   (``testing.dist_cases.chip_phased``, in the same launch): the ring
+   stencil at 512x512x80 float64 (256x256x80 blocks; one level at a time,
+   ``t`` exchanged between levels) and the generated programs 11203 (a
+   ``while`` iterated across the ranks) and 11238 (a BACKWARD loop a level
+   at a time) on ``"cuda"`` on DistributedFields, every phase's kernels
+   counted by its library on every rank, each bit for bit the
+   single-device ``"cuda"`` run, with its exchanges and CUDA-event times
+   beside the single-device time.  A failing rank fails the phase;
+16. the examples (``--examples`` alone; ``_examples``): every module of
+   ``gt4py_tpu_torch.examples`` as its command, each its own process, all
+   started together; each must exit 0 on the card and launch CUDA kernels
+   (``torch.profiler``'s count), the two with a ``"cuda"`` path also
+   kernels its libraries counted; each one's seconds printed.
 
 Every kernel entry carries ``bound_ms``: the least time the card could take
 for the same function, its bytes (each input read once, each output written
@@ -3649,6 +3663,9 @@ def main() -> int:
     # -- 15. distribution: gloo ranks on the card ---------------------------
     distribution = _distribution(smi)
 
+    # -- 16. the examples, each its own process ------------------------------
+    examples = _examples(smi)
+
     print(smi)
     print(json.dumps({"kernels": kernels, "unstructured_fvm": fvm["summary"],
                       "bfloat16": bf16_result, "gradients": gradients["summary"],
@@ -3656,7 +3673,8 @@ def main() -> int:
                       "phase12": {"full_dycore": phase12["full_dycore"],
                                   "checks": len(phase12["checks"])},
                       "profile_check": profile_late, "profile_losses": PROFILE_LOSSES,
-                      "fuzz": fuzz, "distribution": distribution}, default=str))
+                      "fuzz": fuzz, "distribution": distribution, "examples": examples},
+                     default=str))
     if PROFILE_LOSSES:
         print(f"chip_smoke: {len(PROFILE_LOSSES)} profiles lost device events",
               file=sys.stderr)
@@ -3997,14 +4015,20 @@ def _dist_builds():
     import torch
 
     from gt4py_tpu_torch.models import dycore, fv_advection
+    from gt4py_tpu_torch.parallel.distributed import _plan_of
     from gt4py_tpu_torch.testing import dist_cases
 
     dev = torch.device("cuda", 0)
     md = dycore.MiniDycore(8, 8, 4, dtype=np.float32, backend="cuda", aligned=False, device=dev)
     fv = fv_advection.FvAdvection(8, 8, 4, dtype=np.float32, backend="cuda", aligned=False,
                                   device=dev)
+    # the phased calls: the whole stencils (the single-device runs) and
+    # the stencils of their phases
+    phased = [dist_cases._ring_stencil("cuda")] + [
+        dist_cases.gspmd_stencil(sd, "cuda")[0] for sd in dist_cases.PHASED_SEEDS]
     return [md.hdiff.backend, md.vadv_upd.backend, fv.fv_step.backend] + [
-        dist_cases.gspmd_stencil(sd, "cuda")[0].backend for sd in dist_cases.GSPMD_SEEDS]
+        dist_cases.gspmd_stencil(sd, "cuda")[0].backend for sd in dist_cases.GSPMD_SEEDS] + [
+        st.backend for st in phased] + [o.backend for st in phased for o in _plan_of(st).onces]
 
 
 def _distribution(smi: str) -> dict:
@@ -4020,12 +4044,15 @@ def _distribution(smi: str) -> dict:
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory(prefix="chip_dist_") as work:
-        res = dist_cases.launch(
-            {"p15": dict(case="chip_distribution", shape=DIST_SHAPE, steps=DIST_STEPS)},
+        both = dist_cases.launch(
+            {"p15": dict(case="chip_distribution", shape=DIST_SHAPE, steps=DIST_STEPS),
+             "phased": dict(case="chip_phased")},
             workdir=work, ranks=DIST_RANKS, shape=DIST_MESH, device="cuda", strict=True,
-            timeout=600)["p15"]
+            timeout=600)
     wall_s = time.perf_counter() - t0
+    res = both["p15"]
     out = res[0][1]
+    phased = _phased(both["phased"][0][1], smi)
     ranks = out.pop("ranks")
     for r in ranks:
         for name in ("hdiff", "vadv_update"):
@@ -4081,7 +4108,132 @@ def _distribution(smi: str) -> dict:
               f"({r['exchange']['bytes']} B; bfloat16 wire {r['wire_exchange_ms']:.3f} ms), "
               f"kernels {r['kernel_ms']}, FvAdvection step {r['fv_sharded_step_ms']:.3f} ms, "
               f"launches {r['launches']}")
-    return {"card": smi, "wall_s": wall_s, "ranks": ranks, **out}
+    return {"card": smi, "wall_s": wall_s, "ranks": ranks, **out, "phased": phased}
+
+
+def _phased(res: dict, smi: str) -> dict:
+    """Phase 15's phased calls (``dist_cases.chip_phased``): every rank's
+    calls launched the kernels of every phase (the libraries' counts) and
+    ran in phases; rank 0's gathered results equal the single-device
+    ``"cuda"`` runs bit for bit.  Prints each call's exchanges and times."""
+    from gt4py_tpu_torch.testing import dist_cases
+
+    ranks = res["ranks"]
+    for r in ranks:
+        for name, rec in r.items():
+            if name == "rank":
+                continue
+            if not rec["phased"] or rec["library_launches"] <= 0 or \
+                    not all(n > 0 for n in rec["phase_launches"]):
+                raise RuntimeError(f"phase 15: rank {r['rank']}'s phased call {name} ran "
+                                   f"{rec}: a phase launched no kernel")
+    for name, single in res["single"].items():
+        if not (single["equal"] and single["finite"]):
+            raise RuntimeError(f"phase 15: the phased call {name} differs from the "
+                               f"single-device run by {single['max_abs_err']}")
+    r0 = ranks[0]
+    for name, single in res["single"].items():
+        rec = r0[name]
+        shape = dist_cases.PHASED_RING_SHAPE if name == "ring" else "generated"
+        times = ", ".join("rank %d %.3f ms" % (r["rank"], r[name]["ms"]) for r in ranks)
+        print(f"phase 15 ({smi}): phased {name} ({shape}, float64, {DIST_RANKS} gloo ranks) "
+              f"bit for bit the single-device run: {rec['phases']} phase stencils, "
+              f"{rec['runs']} runs ({rec['levels']} levels, iterations {rec['iterations']}), "
+              f"{rec['exchanges']} exchanges ({rec['bytes']} B from rank 0), rank 0's "
+              f"launches {rec['library_launches']} {rec['forms']}; {times} a call "
+              f"(CUDA events, median of 5) against {single['single_ms']:.3f} ms single-device; "
+              f"rank 0's phase kernels {rec['kernel_ms']} ms a call")
+    return {"ranks": ranks, "single": res["single"]}
+
+
+# --------------------------------------------------------------------------- #
+# phase 16: the examples
+# --------------------------------------------------------------------------- #
+
+#: ``--examples`` and phase 16: each example's command's limit, seconds
+EXAMPLE_LIMIT_S = 600
+
+
+def _examples(smi: str) -> dict:
+    """Phase 16: every example of ``gt4py_tpu_torch.examples`` run as its
+    command (``python -m gt4py_tpu_torch.examples.<name>``, on the card by
+    default), all started together, each in its own process; each must
+    exit 0 on the card and launch kernels: the CUDA kernels
+    ``torch.profiler`` saw (``GT4PY_TPU_TORCH_EXAMPLE_KERNELS=1``), and
+    for the examples with a ``"cuda"`` path the stencil libraries' and
+    K9's counted launches.  Prints each one's seconds."""
+    from gt4py_tpu_torch.examples import EXAMPLES
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = {**os.environ, "GT4PY_TPU_TORCH_EXAMPLE_KERNELS": "1"}
+    import tempfile
+    import threading
+
+    procs, ended = {}, {}
+    with tempfile.TemporaryDirectory(prefix="chip_examples_") as logs:
+        for name in EXAMPLES:
+            files = [open(os.path.join(logs, f"{name}.{x}"), "w+") for x in ("out", "err")]
+            p = subprocess.Popen([sys.executable, "-m", f"gt4py_tpu_torch.examples.{name}"],
+                                 cwd=root, env=env, stdout=files[0], stderr=files[1], text=True)
+            procs[name] = (p, files, time.perf_counter())
+
+            def wait(name=name, p=p):  # each one's own end
+                try:
+                    p.wait(timeout=EXAMPLE_LIMIT_S)
+                except subprocess.TimeoutExpired:
+                    p.kill()
+                ended[name] = time.perf_counter()
+
+            threading.Thread(target=wait, daemon=True).start()
+        for p, _, _ in procs.values():
+            p.wait()
+        while len(ended) < len(procs):
+            time.sleep(0.01)
+        texts = {}
+        for name, (p, files, _) in procs.items():
+            for f in files:
+                f.seek(0)
+            texts[name] = [f.read() for f in files]
+            for f in files:
+                f.close()
+    out = {}
+    for name, (p, _, t0) in procs.items():
+        stdout, stderr = texts[name]
+        seconds = ended[name] - t0
+        if p.returncode != 0:
+            raise RuntimeError(f"phase 16: example {name} exited {p.returncode} after "
+                               f"{seconds:.1f} s:\n{stdout[-2000:]}\n{stderr[-4000:]}")
+        got = json.loads(stdout.strip().splitlines()[-1])
+        if not got["device"].startswith("cuda") or not got["device_kernels"] or (
+                name in EXAMPLES_WITH_KERNELS and got["launches"] <= 0):
+            raise RuntimeError(f"phase 16: example {name} launched no kernel on the card: "
+                               f"{got}")
+        out[name] = {"seconds": seconds, "launches": got["launches"],
+                     "device_kernels": got["device_kernels"], "device": got["device"]}
+    print(f"phase 16 ({smi}): the examples on the card, each its own process, all at once: "
+          + ", ".join(f"{n} {r['seconds']:.1f} s ({r['device_kernels']} CUDA kernels, "
+                      f"{r['launches']} counted by the libraries)" for n, r in out.items()))
+    return out
+
+
+#: the examples with a ``"cuda"`` path (the JAX ones' ``"pallas"``)
+EXAMPLES_WITH_KERNELS = ("cartesian_tutorial", "next_quickstart")
+
+
+def examples_only() -> int:
+    """``--examples``: phase 16 alone."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    smi = _nvidia_smi()
+    print(f"card: {smi}")
+    result = _examples(smi)
+    print(smi)
+    print(json.dumps({"examples": result}, default=str))
+    return 0
 
 
 def dist_only() -> int:
@@ -4150,6 +4302,7 @@ if __name__ == "__main__":
     sys.exit(k9_layouts() if sys.argv[1:] == ["--k9-layouts"] else
              fuzz_only() if sys.argv[1:] == ["--fuzz"] else
              dist_only() if sys.argv[1:] == ["--dist"] else
+             examples_only() if sys.argv[1:] == ["--examples"] else
              k3_only() if sys.argv[1:] == ["--k3"] else
              k3_tiles() if sys.argv[1:] == ["--k3-tiles"] else
              tiles_only() if sys.argv[1:] == ["--tiles"] else

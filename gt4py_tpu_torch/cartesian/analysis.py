@@ -525,12 +525,15 @@ class StencilAnalysis:
     min_k_size: int
 
 
-def analyze(stencil: ir.Stencil, min_extents=None) -> StencilAnalysis:
-    """``min_extents``: see ``compute_extents``."""
+def analyze(stencil: ir.Stencil, min_extents=None, validate: bool = True) -> StencilAnalysis:
+    """``min_extents``: see ``compute_extents``.  ``validate=False``: no
+    race or assignment checks, for a stencil derived from a validated one
+    (its temporaries made fields, ``parallel.phases``)."""
     from gt4py_tpu_torch.cartesian import validation
 
     resolve_temp_dtypes(stencil)
-    validation.validate(stencil)
+    if validate:
+        validation.validate(stencil)
     extents = compute_extents(stencil, min_extents)
     k_bounds = compute_k_boundary(stencil, extents=extents)
 

@@ -1790,7 +1790,8 @@ def plan_kernels(analysis: StencilAnalysis, planes_loops=frozenset(),
                  tiles: Optional[bool] = None, fuse_loops: Optional[bool] = None,
                  declined: Optional[Dict[str, str]] = None,
                  sweep: Optional[bool] = None,
-                 stage_vark: Optional[bool] = None) -> List[KernelPlan]:
+                 stage_vark: Optional[bool] = None,
+                 held: frozenset = frozenset()) -> List[KernelPlan]:
     """The kernels of a stencil in launch order: a tile kernel per
     PARALLEL section (``tiles`` not False; the stage-split row kernels
     where it declines or ``tiles=False``; each row stage that reads a field
@@ -1808,7 +1809,8 @@ def plan_kernels(analysis: StencilAnalysis, planes_loops=frozenset(),
     sections overlap; otherwise ``declined["sweep"]`` names why the sweep
     form declines, or that it was not asked for.  A decline is recorded
     in ``declined`` (``tiles=True`` / ``fuse_loops=True`` / ``sweep=True``
-    raise instead)."""
+    raise instead).  ``held``: temporaries kept in device memory, which
+    no form keeps on chip (see ``generate``)."""
     st = analysis.stencil
     declined = {} if declined is None else declined
     plans: List[KernelPlan] = []
@@ -1840,7 +1842,7 @@ def plan_kernels(analysis: StencilAnalysis, planes_loops=frozenset(),
                     try:
                         tp = _plan_tile(analysis, sec_id, section.body,
                                         _section_local_temps(st, sec_id, section.body,
-                                                             touching))
+                                                             touching) - held)
                     except _Decline as e:
                         if tiles:
                             raise
@@ -1880,7 +1882,7 @@ def plan_kernels(analysis: StencilAnalysis, planes_loops=frozenset(),
                 groups.append(run)
                 run = []
             if plane_temps is None:
-                plane_temps = passes.plane_local_temps(st)
+                plane_temps = passes.plane_local_temps(st) - held
             pp = _plan_planes(analysis, loop.loop_order, secs, plane_temps)
             if pp.per_level:
                 declined["ring"] = f"{pp.per_level}: one launch a level"
@@ -1973,7 +1975,8 @@ def plan_kernels(analysis: StencilAnalysis, planes_loops=frozenset(),
 
 def plan_stencil(analysis: StencilAnalysis, serialize: Optional[bool] = None,
                  tiles: Optional[bool] = None, fuse_loops: Optional[bool] = None,
-                 sweep: Optional[bool] = None, stage_vark: Optional[bool] = None):
+                 sweep: Optional[bool] = None, stage_vark: Optional[bool] = None,
+                 held: frozenset = frozenset()):
     """``(analysis planned, kernels, serialized, declined)``.  A mixed
     stencil (``serialize=None``, where ``SERIALIZE_MIXED`` says), or any
     stencil with a PARALLEL loop (``serialize=True``), runs serialized with
@@ -1986,7 +1989,8 @@ def plan_stencil(analysis: StencilAnalysis, serialize: Optional[bool] = None,
     sweep kernel, or raises naming why it cannot (a stencil that is not
     mixed it leaves as it is, so that a model may pass it to all its
     stencils).
-    ``tiles``, ``fuse_loops`` and ``stage_vark``: see ``plan_kernels``."""
+    ``tiles``, ``fuse_loops``, ``stage_vark`` and ``held``: see
+    ``plan_kernels``."""
     st = analysis.stencil
     orders = [loop.loop_order for loop in st.vertical_loops]
     mixed = ir.LoopOrder.PARALLEL in orders and len(set(orders)) > 1
@@ -2005,7 +2009,7 @@ def plan_stencil(analysis: StencilAnalysis, serialize: Optional[bool] = None,
             san = analyze(ser)
             loops = frozenset(n for n, o in enumerate(orders) if o == ir.LoopOrder.PARALLEL)
             plans = plan_kernels(san, loops, fuse_loops=fuse_loops, declined=declined,
-                                 sweep=sweep, stage_vark=stage_vark)
+                                 sweep=sweep, stage_vark=stage_vark, held=held)
             return san, plans, True, declined
         except _Decline as e:
             if serialize or sweep or isinstance(e, _Forced):
@@ -2014,7 +2018,8 @@ def plan_stencil(analysis: StencilAnalysis, serialize: Optional[bool] = None,
     elif serialize is None and mixed:
         declined["serialize"] = SPLIT_MIXED
     return analysis, plan_kernels(analysis, tiles=tiles, fuse_loops=fuse_loops,
-                                  declined=declined, stage_vark=stage_vark), False, declined
+                                  declined=declined, stage_vark=stage_vark,
+                                  held=held), False, declined
 
 
 def _local_temps(analysis: StencilAnalysis, plans: List[KernelPlan]) -> List[str]:
@@ -4380,30 +4385,34 @@ def _occupancy_lines(plans: List[KernelPlan]) -> List[str]:
 def generate(analysis: StencilAnalysis, serialize: Optional[bool] = None,
              k_blocked: Optional[bool] = None, tiles: Optional[bool] = None,
              fuse_loops: Optional[bool] = None, sweep: Optional[bool] = None,
-             stage_vark: Optional[bool] = None) -> CudaProgram:
+             stage_vark: Optional[bool] = None, held: frozenset = frozenset()) -> CudaProgram:
     """Emit the CUDA C++ source of one stencil (deterministic).
     ``serialize``, ``k_blocked``, ``tiles``, ``fuse_loops``, ``sweep`` and
     ``stage_vark``: the build options (see ``plan_stencil``,
     ``plan_kernels`` and ``CudaProgram.kblock_plan``).  An ``if`` or a
     region that reads a field it writes at an offset is split first
     (``passes.split_compound_statements``), so that stages may part its
-    statements."""
+    statements.  ``held``: temporaries the caller allocates and passes
+    with the fields (a phased call on DistributedFields holds them across
+    its stencils): each stays in device memory, in no register or shared
+    plane only, so that the kernels read and leave their values there."""
     _check_supported(analysis)
     split = passes.split_compound_statements(analysis)
     if split is not None:
-        analysis = analyze(*split)
+        analysis = analyze(*split, validate=False)
+    held = frozenset(held)
     planned, plans, serialized, declined = plan_stencil(analysis, serialize, tiles, fuse_loops,
-                                                        sweep, stage_vark)
+                                                        sweep, stage_vark, held)
     st = planned.stencil
     touching = {n: [p for p in plans if n in p.reads or n in p.writes] for n in st.temp_decls}
     planes_global = {n for n, ps in touching.items() for p in ps
                      if p.planes is not None and p.sweep is None and _in_device_memory(p, n, ())}
     locals_ = [n for n in _local_temps(planned, [p for p in plans
                                                  if p.planes is None and p.group is None])
-               if n not in planes_global]
+               if n not in planes_global and n not in held]
     for p in plans:
         if p.group is not None:
-            _plan_group(planned, p, locals_)
+            _plan_group(planned, p, [*locals_, *held])
     scratch = [n for n, ps in touching.items()
                if not ps or any(_in_device_memory(p, n, locals_) for p in ps)]
     fields = list(st.field_decls)
@@ -4659,7 +4668,8 @@ class CudaBackend:
                                 tiles=options.get("tiles"),
                                 fuse_loops=options.get("fuse_loops"),
                                 sweep=options.get("sweep"),
-                                stage_vark=options.get("stage_vark"))
+                                stage_vark=options.get("stage_vark"),
+                                held=options.get("held", frozenset()))
         LAST_PLAN[analysis.stencil.name] = self.program.plan_record()
         #: K6's launch options: ``vector`` (None: ``VECTOR_DEFAULT``, the
         #: vector row kernels wherever their fields share a 16-byte phase;
@@ -4767,25 +4777,32 @@ class CudaBackend:
                                f"{lib.gt_error_string(rc).decode()}")
         self._kb_devices.add(device)
 
-    def apply(self, env, scalars, domain, origins, periodic=(), frame=None) -> None:
+    def apply(self, env, scalars, domain, origins, periodic=(), frame=None,
+              levels=None) -> None:
         """Execute on ``env`` (logical views; written fields are fresh
-        output buffers, see ``StencilObject._execute``); ``frame``: the
-        region frame (``torch_backend.TorchExecutor.run``)."""
+        output buffers, see ``StencilObject._execute``); ``frame`` and
+        ``levels``: the region frame and the levels run
+        (``torch_backend.TorchExecutor.run``)."""
         kinds = {v.device.type for v in env.values()}
         if kinds == {"cpu"}:
-            run_plain(self.plain, env, scalars, domain, origins, periodic, frame)
+            run_plain(self.plain, env, scalars, domain, origins, periodic, frame, levels)
             return
         if kinds != {"cuda"}:
             raise ValueError(f"backend 'cuda' takes CPU or CUDA tensors, got {sorted(kinds)}")
-        self.run_kernels(env, scalars, domain, origins, periodic, frame)
+        self.run_kernels(env, scalars, domain, origins, periodic, frame, levels)
 
-    def run_kernels(self, env, scalars, domain, origins, periodic=(), frame=None) -> None:
+    def run_kernels(self, env, scalars, domain, origins, periodic=(), frame=None,
+                    levels=None) -> None:
         """Launch the kernels on ``env``; when a derivative is wanted, under
         K8: the primal from the kernels (a failed build or launch raises),
-        the derivative from the plain executor."""
+        the derivative from the plain executor.  ``levels = (lo, hi)``: each
+        section's bounds (gt_run's ``kbv``) clipped to ``[lo, hi)``."""
         if not wants_derivative([*env.values(), *scalars.values()]):
-            self._launch(env, scalars, domain, origins, periodic, frame)
+            self._launch(env, scalars, domain, origins, periodic, frame, levels)
             return
+        if levels is not None:
+            raise NotImplementedError("cuda backend: no derivative of a call on some levels "
+                                      "(a phased call on DistributedFields)")
         if frame is not None:
             raise NotImplementedError("cuda backend: no derivative of a call in a region frame "
                                       "(a call on DistributedFields)")
@@ -4921,15 +4938,17 @@ class CudaBackend:
         record["staging"] = {n: "row_phase" for n in record["staging"]}
         return (phase if want and rows else None), pads, copied_in, record
 
-    def plan_call(self, env, scalars, domain, origins, periodic=(), dry: bool = False):
+    def plan_call(self, env, scalars, domain, origins, periodic=(), dry: bool = False,
+                  levels=None):
         """The plan of one call on ``env`` (logical views): the record the
         call writes to ``LAST_PLAN`` (``plan``) and what its launch needs.
         ``dry``: without the library or the device (``StencilObject.
         lowered(format="plan")`` on meta tensors; K4's CTAs a SM then come
-        from ``ctas_per_sm``)."""
+        from ``ctas_per_sm``).  ``levels``: see ``run_kernels``."""
         prog = self.program
         dI, dJ, dK = (int(d) for d in domain)
-        kb = [(max(k0, 0), min(k1, dK))
+        lo, hi = levels if levels is not None else (0, dK)
+        kb = [(max(k0, lo), min(k1, hi))
               for k0, k1 in (itv.resolve(dK, scalars) for itv in prog.intervals)]
         phase, pads, copied_in, record = self._geometry(env, origins, (dI, dJ, dK), periodic, kb)
         if phase is not None or "row_phase" in record["staging"].values():
@@ -4964,9 +4983,12 @@ class CudaBackend:
         return SimpleNamespace(plan=plan, kb=kb, phase=phase, pads=pads, copied_in=copied_in,
                                record=record, kbs=kbs, kbsz=kbsz, vks=vks, swept=swept)
 
-    def _launch(self, env, scalars, domain, origins, periodic, frame=None) -> None:
+    def _launch(self, env, scalars, domain, origins, periodic, frame=None, levels=None) -> None:
         prog = self.program
         st = self.analysis.stencil
+        # the temporaries the caller holds (the ``held`` option), in place
+        held = {n: (env[n], origins[n]) for n in env if n not in st.field_decls}
+        env = {n: v for n, v in env.items() if n in st.field_decls}
         device = self._check(env)
         dI, dJ, dK = (int(d) for d in domain)
         if periodic:
@@ -4979,7 +5001,7 @@ class CudaBackend:
                 periodic_fill(self.analysis, env, domain, origins, periodic, fill)
         lib = self.build()
         self._kb_init(device)
-        call = self.plan_call(env, scalars, (dI, dJ, dK), origins, periodic)
+        call = self.plan_call(env, scalars, (dI, dJ, dK), origins, periodic, levels=levels)
         kb, phase, pads, copied_in, record = call.kb, call.phase, call.pads, call.copied_in, \
             call.record
         kbs, plan, kbsz, vks, swept = call.kbs, call.plan, call.kbsz, call.vks, call.swept
@@ -5008,6 +5030,12 @@ class CudaBackend:
             if name in on_chip:
                 ptrs.append(0)
                 strides += [0] * _REC
+                continue
+            if name in held:
+                views[name] = held[name]
+                p, s = _field_arg(*views[name])
+                ptrs.append(p)
+                strides += s
                 continue
             ext = prog.analysis.extents.alloc_extent(name)
             decl = prog.analysis.stencil.temp_decls[name]

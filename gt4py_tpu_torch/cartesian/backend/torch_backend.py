@@ -237,12 +237,15 @@ class TorchExecutor:
 
     def run(self, views: Dict[str, torch.Tensor], scalars: Dict[str, Any],
             domain: Tuple[int, int, int], origins: Dict[str, Tuple[int, int, int]],
-            frame=None) -> None:
+            frame=None, levels: Optional[Tuple[int, int]] = None) -> None:
         """Execute in place on ``views``: logical (I, J, K, *dd) tensors.
         ``frame = (i0, j0, nI, nJ)``: the call's domain starts at (i0, j0) of
         a global domain of nI x nJ, against which horizontal regions and the
-        I/J positions and sizes resolve (default ``(0, 0, dI, dJ)``)."""
+        I/J positions and sizes resolve (default ``(0, 0, dI, dJ)``).
+        ``levels = (lo, hi)``: every section runs only on the levels of its
+        interval within ``[lo, hi)`` (a phased call's one level)."""
         self.domain = tuple(domain)
+        self.levels = levels
         self.frame = tuple(frame) if frame is not None else (0, 0, domain[0], domain[1])
         self.scalars = scalars
         self._record = wants_derivative([*views.values(), *scalars.values()])
@@ -252,8 +255,11 @@ class TorchExecutor:
             name: _View(t, origins[name]) for name, t in views.items()
         }
         # temporaries on the extended domain (including the K halo, so
-        # reads at K offsets crossing the domain edge stay in bounds)
+        # reads at K offsets crossing the domain edge stay in bounds); one
+        # in ``views`` is the caller's (a phased call holds them)
         for name, decl in self.stencil.temp_decls.items():
+            if name in views:
+                continue
             ext = self.analysis.extents.alloc_extent(name)
             shape = (
                 domain[0] - ext.i[0] + ext.i[1],
@@ -272,6 +278,8 @@ class TorchExecutor:
         for section in loop.sections:
             k0, k1 = section.interval.resolve(dK, self.scalars)
             k0, k1 = max(k0, 0), min(k1, dK)
+            if self.levels is not None:
+                k0, k1 = max(k0, self.levels[0]), min(k1, self.levels[1])
             if k1 <= k0:
                 continue
             copies = self._read_copies if self._record else {}
@@ -683,7 +691,7 @@ def has_horizontal_reads(analysis: StencilAnalysis, name: str) -> bool:
 
 
 def run_plain(executor: TorchExecutor, env, scalars, domain, origins, periodic,
-              frame=None) -> None:
+              frame=None, levels=None) -> None:
     """Periodic fill + interpretation.  Written fields in ``env`` are
     output buffers and are filled in place; read-only fields are filled in
     a copy, so the caller's arguments stay unchanged."""
@@ -695,7 +703,7 @@ def run_plain(executor: TorchExecutor, env, scalars, domain, origins, periodic,
             if not analysis.field_info[n].access.value & 2:
                 env[n] = env[n].clone()
         periodic_fill(analysis, env, domain, origins, periodic, names)
-    executor.run(env, scalars, domain, origins, frame)
+    executor.run(env, scalars, domain, origins, frame, levels)
 
 
 @register("torch")
@@ -706,8 +714,9 @@ class TorchBackend:
         self.analysis = analysis
         self.executor = TorchExecutor(analysis)
 
-    def apply(self, env, scalars, domain, origins, periodic=(), frame=None) -> None:
+    def apply(self, env, scalars, domain, origins, periodic=(), frame=None,
+              levels=None) -> None:
         """Execute on ``env`` (logical views; written fields are output
-        buffers), see ``StencilObject._execute``; ``frame``: the region frame
-        (``TorchExecutor.run``)."""
-        run_plain(self.executor, env, scalars, domain, origins, periodic, frame)
+        buffers), see ``StencilObject._execute``; ``frame`` and ``levels``:
+        the region frame and the levels run (``TorchExecutor.run``)."""
+        run_plain(self.executor, env, scalars, domain, origins, periodic, frame, levels)

@@ -3,7 +3,7 @@
 Reference parity: src/gt4py/next/instrumentation/metrics.py:41-120
 (levels, sample accumulators, per-program collections, JSON dump at exit)
 and gpu_profiler.py trace ranges -- mapped to ``torch.profiler``
-record_function ranges.
+record_function ranges, and NVTX ranges on the card.
 """
 
 from __future__ import annotations
@@ -114,11 +114,15 @@ def _dump_at_exit() -> None:  # reference: config.DUMP_METRICS_AT_EXIT
 
 @contextlib.contextmanager
 def profile_range(name: str):
-    """Named trace range: shows up in ``torch.profiler`` traces (the
-    reference's NVTX ranges, instrumentation/gpu_profiler.py:33-60)."""
+    """Named trace range: shows up in ``torch.profiler`` traces, and once
+    the process works on the card (``torch.cuda.is_initialized()``) it is
+    also an NVTX range for the CUDA tools (the reference's NVTX ranges,
+    instrumentation/gpu_profiler.py:33-60)."""
     import torch
 
-    with torch.profiler.record_function(name):
+    nvtx = torch.cuda.nvtx.range(name) if torch.cuda.is_initialized() else \
+        contextlib.nullcontext()
+    with torch.profiler.record_function(name), nvtx:
         yield
 
 

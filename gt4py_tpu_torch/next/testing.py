@@ -5,6 +5,10 @@
   ``gt4py_tpu.next.as_field`` and to the port and compares the results.
 - ``bench_cases`` builds bench.py's next-DSL configurations on a device,
   for the chip check and the card tests (where JAX is absent).
+- ``Case``, ``allocate``, ``run`` and ``verify`` (with ``RETURN``,
+  ``UniqueInitializer`` and ``ZeroInitializer``) are the JAX package's case
+  harness: arguments allocated from an operator's parsed parameter types,
+  results compared on the host.
 - ``SimpleMesh``, ``grid_mesh``, ``shuffled_mesh`` and ``simple_mesh_case``
   are the JAX package's unstructured meshes (numpy neighbor tables, the
   same numbering and seeds); ``unstructured_fvm_case`` builds bench.py's
@@ -244,19 +248,135 @@ V2EDim = Dimension("V2E", kind=DimensionKind.LOCAL)
 E2VDim = Dimension("E2V", kind=DimensionKind.LOCAL)
 
 
+# --------------------------------------------------------------------- #
+# the case harness (the JAX package's ``next.testing``; reference:
+# tests/next_tests/integration_tests/cases.py:338-500 allocate/run/verify)
+# --------------------------------------------------------------------- #
+
+#: ``allocate``'s name of an operator's return value
+RETURN = "return"
+
+
 @dataclasses.dataclass
 class Case:
     """Default sizes per dimension and the offset provider of a mesh
-    test; ``allocator`` is ``"numpy"`` (the oracle) or ``"torch"``."""
+    test; ``allocator`` is ``"numpy"`` (numpy data: the embedded oracle)
+    or ``"torch"`` (tensors on ``device``, by default
+    ``config.DEFAULT_DEVICE``: the card unless the caller asks for the
+    CPU)."""
 
     default_sizes: Dict[Dimension, int]
     offset_provider: Dict[str, Any] = dataclasses.field(default_factory=dict)
     allocator: str = "numpy"
+    device: Any = None
+
+    def __post_init__(self):
+        if self.allocator not in ("numpy", "torch"):
+            raise ValueError(f"allocator must be 'numpy' or 'torch', got {self.allocator!r}")
+        # one initializer per case: every allocated input gets globally
+        # distinct values (reference: UniqueInitializer)
+        self._unique = UniqueInitializer()
 
     def size(self, dim: Dimension) -> int:
         if dim not in self.default_sizes:
             raise KeyError(f"no default size for dimension {dim.value}")
         return self.default_sizes[dim]
+
+
+class UniqueInitializer:
+    """Fills fields with distinct consecutive values (catches index bugs
+    that symmetric random data can hide)."""
+
+    def __init__(self, start: int = 1):
+        self._next = start
+
+    def __call__(self, shape, dtype):
+        n = int(np.prod(shape)) if shape else 1
+        data = np.arange(self._next, self._next + n, dtype=dtype).reshape(shape)
+        self._next += n
+        return data
+
+
+class ZeroInitializer:
+    def __call__(self, shape, dtype):
+        return np.zeros(shape, dtype=dtype)
+
+
+def _param_type(op, name: str):
+    ir = getattr(op, "ir", None)
+    if ir is None:
+        raise TypeError(f"{op!r} has no parsed IR")
+    if name == RETURN:
+        rt = getattr(ir, "declared_return", None)
+        if rt is None:
+            raise TypeError(f"{op!r} has no declared return type")
+        return rt
+    for p in ir.params:
+        if p.name == name:
+            return p.type
+    raise KeyError(f"{op!r} has no parameter {name!r}")
+
+
+def allocate(case: Case, op, name: str, *, strategy=None, dtype=None,
+             extend: Optional[Dict[Dimension, Tuple[int, int]]] = None) -> Field:
+    """Allocate an argument (or ``RETURN``) of ``op`` from its parsed
+    parameter type.  ``extend`` grows the domain per dimension (lower,
+    upper) -- for shifted inputs that must be bigger than the output.
+    The values come from ``strategy`` (default: zeros for ``"out"`` and
+    ``RETURN``, else the case's ``UniqueInitializer``) as numpy, then
+    into the case's allocator."""
+    from . import type_system as ts
+
+    t = _param_type(op, name)
+    if not isinstance(t, ts.FieldType):
+        raise TypeError(f"parameter {name!r} is not a field (got {t})")
+    dt = np.dtype(dtype if dtype is not None else t.dtype.kind)
+    if strategy is None:
+        strategy = ZeroInitializer() if name in ("out", RETURN) else case._unique
+    ranges = []
+    for d in t.dims:
+        lo, hi = 0, case.size(d)
+        if extend and d in extend:
+            e0, e1 = extend[d]
+            lo, hi = lo - e0, hi + e1
+        ranges.append(U(lo, hi))
+    dom = Domain(tuple(t.dims), tuple(ranges))
+    data = strategy(dom.shape, dt)
+    if case.allocator == "numpy":
+        return Field(dom, data)
+    return as_field(dom, data, device=case.device)
+
+
+def run(case: Case, op, *args, **kwargs):
+    """``op(*args, **kwargs)`` with the case's offset provider (unless
+    given, or ``op`` takes none)."""
+    if "offset_provider" not in kwargs and case.offset_provider:
+        kwargs["offset_provider"] = case.offset_provider
+    try:
+        return op(*args, **kwargs)
+    except TypeError:
+        kwargs.pop("offset_provider", None)
+        return op(*args, **kwargs)
+
+
+def verify(case: Case, op, *args, ref, rtol=1e-12, atol=1e-12, **kwargs):
+    """Run ``op`` and compare the result (or the mutated ``out=`` kwarg)
+    against ``ref`` (array, tensor or Field) on the host, at ``rtol`` and
+    ``atol``."""
+    result = run(case, op, *args, **kwargs)
+    if result is None:
+        result = kwargs.get("out")
+    np.testing.assert_allclose(_host(result), _host(ref), rtol=rtol, atol=atol)
+    return result
+
+
+def _host(value) -> np.ndarray:
+    if isinstance(value, Field):
+        return value.asnumpy()
+    if isinstance(value, torch.Tensor):
+        t = value.detach().cpu()
+        return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+    return np.asarray(value)
 
 
 @dataclasses.dataclass
@@ -340,7 +460,7 @@ def shuffled_mesh(n: int, seed: int = 0) -> SimpleMesh:
     return SimpleMesh(mesh.n_vertices, mesh.n_edges, *_mesh_conns(v2e_new, e2v_new))
 
 
-def simple_mesh_case(allocator: str = "numpy") -> Tuple[Case, SimpleMesh]:
+def simple_mesh_case(allocator: str = "numpy", device=None) -> Tuple[Case, SimpleMesh]:
     mesh = SimpleMesh.make()
     case = Case(
         default_sizes={
@@ -352,6 +472,7 @@ def simple_mesh_case(allocator: str = "numpy") -> Tuple[Case, SimpleMesh]:
         },
         offset_provider={"V2E": mesh.v2e, "E2V": mesh.e2v},
         allocator=allocator,
+        device=device,
     )
     return case, mesh
 

@@ -15,19 +15,18 @@ resolved against the global domain (the backends' region frame).
 
 from __future__ import annotations
 
-from typing import Dict, NamedTuple, Optional, Tuple
+from typing import Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 import torch.distributed as dist
 
 from gt4py_tpu_torch.cartesian import ir
-from gt4py_tpu_torch.cartesian.analysis import _stmt_reads, _stmt_writes
-from gt4py_tpu_torch.cartesian.backend.cuda_backend import _ij
+from gt4py_tpu_torch.cartesian.stencil_object import logical_view
 from gt4py_tpu_torch.core import dtypes
-from gt4py_tpu_torch.core.definitions import Extent
 from gt4py_tpu_torch.storage import FieldStorage
 
+from . import phases
 from .halo import HaloExchange, _pad
 
 
@@ -168,107 +167,57 @@ def _gather_blocks(cmesh, block: np.ndarray, index, global_shape) -> np.ndarray:
 # --------------------------------------------------------------------------- #
 
 
-def _covers(outer: Extent, inner: Extent) -> bool:
-    return (outer.i[0] <= inner.i[0] and inner.i[1] <= outer.i[1]
-            and outer.j[0] <= inner.j[0] and inner.j[1] <= outer.j[1])
-
-
-def _reads(expr) -> list:
-    return [n for n in ir.walk_values(expr) if isinstance(n, ir.FieldAccess)]
-
-
-def _tainted(stmt: ir.Stmt) -> set:
-    """The fields a compound statement writes from values it wrote itself
-    around the point: a read at a horizontal offset of a field it writes
-    (after a write in its body, or in a ``while``'s next iteration), and
-    what is computed from such a read or under a condition that holds
-    one."""
-    inner = {w.name for w in _stmt_writes(stmt)}
-    tainted: set = set()
-
-    def bad(reads) -> bool:
-        return any(r.name in tainted or (r.name in inner and _ij(r.offset)) for r in reads)
-
-    def visit(node, ctrl: bool) -> None:
-        if isinstance(node, ir.Assign):
-            reads = _reads(node.value) + [r for d in node.target.data_index for r in _reads(d)]
-            if not isinstance(node.target.offset, ir.CartesianOffset):
-                reads += _reads(node.target.offset.k)
-            if ctrl or bad(reads):
-                tainted.add(node.target.name)
-        elif isinstance(node, (ir.If, ir.While)):
-            c = ctrl or bad(_reads(node.cond))
-            for s in node.body + getattr(node, "orelse", []):
-                visit(s, c)
-        elif isinstance(node, ir.HorizontalRestriction):
-            for s in node.body:
-                visit(s, ctrl)
-
-    size = -1
-    while size != len(tainted):  # a while's writes feed its next iteration
-        size = len(tainted)
-        visit(stmt, False)
-    return tainted
-
-
 def cross_rank_read(analysis) -> Optional[str]:
     """Why a rank could not compute its part of a call from one exchange
-    before it (None: it can).  The exchange brings the values from before
-    the call, and the extent analysis grows each statement so that a rank
-    computes itself every value its part reads at the same level.  Two
-    reads escape that, and need a value a neighbouring rank writes during
-    the call:
+    before it (None: it can); such a call runs in phases (``phases``).
+    The exchange brings the values from before the call, and the extent
+    analysis grows each statement so that a rank computes itself every
+    value its part reads at the same level.  Two reads escape that, and
+    need a value a neighbouring rank writes during the call:
 
     - a compound statement (``if``, ``while``, horizontal region) that
       reads at a horizontal offset a field it writes: at the rank's edge of
       the statement's points, the neighbour wrote the values read there.
-      What is computed from them (``_tainted``) is wrong there unless an
-      assignment of the same section overwrites it before it is read;
+      What is computed from them (``phases.tainted``) is wrong there unless
+      an assignment of the same section overwrites it before it is read;
     - a FORWARD or BACKWARD loop reading, at another level, a field or
-      temporary it writes (or any read of one it writes at a K offset), at
-      points some writer of it in the loop does not compute (the writer's
-      extent does not cover the read's): an earlier level's value there
-      was computed by the neighbour."""
-    st, ext = analysis.stencil, analysis.extents
-    for loop in st.vertical_loops:
+      temporary it writes at points some writer of it in the loop does not
+      compute (``phases.cross_level``)."""
+    for loop in analysis.stencil.vertical_loops:
         for sec in loop.sections:
-            for n, s in enumerate(sec.body):
-                live = _tainted(s) if not isinstance(s, ir.Assign) else set()
-                for later in sec.body[n + 1:]:
-                    if not live:
-                        break
-                    read = live & {r.name for r in _stmt_reads(later)}
-                    if read:
-                        live = read
-                        break
-                    if isinstance(later, ir.Assign) and not later.target.data_index \
-                            and later.target.offset == ir.CartesianOffset.zero():
-                        live.discard(later.target.name)
+            for n in range(len(sec.body)):
+                live = phases.live_taint(sec.body, n)
                 if live:
                     return (f"'{sorted(live)[0]}' is computed from a read at a horizontal "
                             "offset of a field written inside the same compound statement")
-        if loop.loop_order == ir.LoopOrder.PARALLEL:
-            continue
-        units = [s for sec in loop.sections for s in sec.body]
-        writers: Dict[str, list] = {}
-        shifted = set()  # written at a K offset: another level's writer
-        for s in units:
-            for w in _stmt_writes(s):
-                writers.setdefault(w.name, []).append(s)
-                if w.offset != ir.CartesianOffset.zero():
-                    shifted.add(w.name)
-        for s in units:
-            for r in _stmt_reads(s):
-                if r.name not in writers or (isinstance(r.offset, ir.CartesianOffset)
-                                             and not r.offset.k and r.name not in shifted):
-                    continue
-                at = ext.stmt_extent(s)
-                if isinstance(r.offset, ir.CartesianOffset):
-                    at = at + Extent.from_offset(r.offset.i, r.offset.j)
-                if not all(_covers(ext.stmt_extent(w), at) for w in writers[r.name]):
-                    return (f"'{r.name}' is read at another level, at points its writer in "
-                            f"the {loop.loop_order.name} loop does not compute")
+        why = phases.cross_level(loop, analysis.extents)
+        if why:
+            return why
     return None
+
+
+#: what the last stencil call on DistributedFields of this process ran:
+#: ``phased`` (False: one exchange, then the call), ``phases`` (the
+#: stencils run: 1, or the plan's), ``runs`` (their runs, one a level or
+#: an iteration), ``exchanges`` and ``bytes`` (the halo exchanges this rank
+#: made, the first before the call included, and the bytes it sent),
+#: ``levels`` (the level steps), ``iterations`` (each ``while``'s, in
+#: order); for a phased ``"cuda"`` call on the card ``launches`` (the
+#: kernel launches its stencils' libraries counted) and ``kernel_ms``
+#: (phase stencil -> its runs' time on the stream, CUDA events around the
+#: launches, summed)
+LAST_GLOBAL: Dict[str, object] = {}
+
+
+def _plan_of(stencil):
+    """The stencil's phased plan (``phases.plan``), made once."""
+    got = stencil.__dict__.get("_phase_plan")
+    if got is None:
+        from gt4py_tpu_torch.cartesian.backend import from_name
+
+        got = stencil.__dict__["_phase_plan"] = phases.plan(
+            stencil.analysis, from_name(stencil.backend_name), stencil.options)
+    return got
 
 
 def run_global(stencil, fields: Dict[str, DistributedField], scalars, origins, domain, *,
@@ -276,17 +225,16 @@ def run_global(stencil, fields: Dict[str, DistributedField], scalars, origins, d
     """``stencil``'s call on the global domain, from this rank's blocks:
     the written fields' new blocks.  ``origins``: each field's global
     buffer origin (I, J, K); ``domain``: the global compute domain (None:
-    the largest the fields allow)."""
+    the largest the fields allow).  A stencil that ``cross_rank_read``
+    names runs in phases (``phases.plan``), with an exchange between them;
+    ``LAST_GLOBAL`` records what the call ran."""
     if periodic:
         raise NotImplementedError("a call on DistributedFields takes no periodic=; exchange "
                                   "periodic halos with shard_map_stencil")
     if stencil.backend_name not in ("torch", "cuda"):
         raise NotImplementedError(f"backend {stencil.backend_name!r} runs on one host: a call "
                                   "on DistributedFields needs 'torch' or 'cuda'")
-    why = cross_rank_read(stencil.analysis)
-    if why:
-        raise NotImplementedError(f"stencil '{stencil.name}' on DistributedFields: {why}, "
-                                  "a value a neighbouring rank writes during the call")
+    plan = _plan_of(stencil) if cross_rank_read(stencil.analysis) else None
     first = next(iter(fields.values()))
     cmesh = first.cmesh
     axes = (1, 2) if physical else (0, 1)  # the I and J tensor axes
@@ -307,9 +255,14 @@ def run_global(stencil, fields: Dict[str, DistributedField], scalars, origins, d
     domain = tuple(int(d) for d in domain)
     # the halo the call reads and writes around its part of the domain
     halo = [0, 0]
-    for name in fields:
+    bounds = [fi.boundary for fi in stencil.field_info.values()]
+    for once in plan.onces if plan else ():
+        ext = once.analysis.extents
+        bounds += [fi.boundary for fi in once.analysis.field_info.values()]
+        bounds += [ext.boundary(n) for n in once.analysis.stencil.temp_decls]
+    for b in bounds:
         for ax in (0, 1):
-            halo[ax] = max(halo[ax], *tuple(stencil.field_info[name].boundary)[ax])
+            halo[ax] = max(halo[ax], *tuple(b)[ax])
     part, local_origin, frame = [], [], []
     for ax in (0, 1):
         b0, b1 = first.index[axes[ax]]
@@ -321,12 +274,29 @@ def run_global(stencil, fields: Dict[str, DistributedField], scalars, origins, d
         local_origin.append(o[ax] + p0 - (b0 - halo[ax]))
         frame.append(p0)
     blocks = {n: _pad(f.data, tuple(halo), axes) for n, f in fields.items()}
-    HaloExchange(list(blocks.values()), tuple(halo), cmesh, spatial_axes=axes,
-                 periodic=(False, False), boundary="zero").run()
+    first_exchange = HaloExchange(list(blocks.values()), tuple(halo), cmesh, spatial_axes=axes,
+                                  periodic=(False, False), boundary="zero")
+    first_exchange.run()
     local_origins = {n: (local_origin[0], local_origin[1], origins[n][2]) for n in fields}
-    outs = stencil._execute(blocks, scalars, local_origins, (part[0], part[1], domain[2]),
-                            physical=physical, periodic=(), validate_args=validate_args,
-                            frame=(frame[0], frame[1], domain[0], domain[1]))
+    part_domain = (part[0], part[1], domain[2])
+    frame = (frame[0], frame[1], domain[0], domain[1])
+    LAST_GLOBAL.clear()
+    LAST_GLOBAL.update(phased=plan is not None, phases=1, runs=1, exchanges=1,
+                       bytes=first_exchange.record["bytes"], levels=0, iterations=[])
+    if plan is None:
+        outs = stencil._execute(blocks, scalars, local_origins, part_domain,
+                                physical=physical, periodic=(), validate_args=validate_args,
+                                frame=frame)
+    else:
+        views = {}
+        for name, t in blocks.items():
+            decl = stencil.ir.field_decls[name]
+            views[name] = logical_view(t, decl.dimensions, len(decl.data_dims), physical)
+        if validate_args:
+            stencil._validate_args(views, scalars, local_origins, part_domain)
+        _Phased(plan, stencil, cmesh, views, local_origins, part_domain, frame, scalars,
+                halo).run()
+        outs = {n: blocks[n] for n in fields if stencil.field_info[n].access.value & 2}
     result = {}
     for name, t in outs.items():
         idx = [slice(None)] * t.ndim
@@ -336,11 +306,160 @@ def run_global(stencil, fields: Dict[str, DistributedField], scalars, origins, d
     return result
 
 
+class _Phased:
+    """One phased call on a rank's padded blocks (logical ``views``, their
+    ``origins``): the plan's held fields allocated on the padded block (K
+    as each stencil of the plan reads them, zeros as the single-device
+    temporaries start), each step run on its backend, and before a step
+    the fields written since the last exchange exchanged (only the levels
+    written, under ``Levels``)."""
+
+    def __init__(self, plan, stencil, cmesh, views, origins, domain, frame, scalars, halo):
+        self.plan, self.cmesh, self.scalars, self.halo = plan, cmesh, scalars, tuple(halo)
+        self.domain, self.frame = domain, frame
+        self.env = dict(views)
+        self.origins = dict(origins)
+        self.fields = stencil.ir.field_decls
+        some = next(iter(views.values()))
+        ni, nj = some.shape[0], some.shape[1]
+        oi, oj = next(iter(origins.values()))[:2]
+        self.corner = (oi, oj)
+        for name, decl in plan.held().items():
+            lo = hi = 0
+            for once in plan.onces:
+                if name in once.analysis.stencil.temp_decls:
+                    k = once.analysis.extents.alloc_extent(name).k
+                    lo, hi = max(lo, -k[0]), max(hi, k[1])
+            self.env[name] = torch.zeros((ni, nj, domain[2] + lo + hi) + tuple(decl.data_dims),
+                                         dtype=dtypes.to_torch(decl.dtype), device=some.device)
+            self.origins[name] = (oi, oj, lo)
+        self.dirty: Dict[str, Optional[Tuple[int, int]]] = {}
+        self.rec = LAST_GLOBAL
+        self.rec["phases"] = len(plan.onces)
+        self.rec["runs"] = 0
+        self.cuda = stencil.backend_name == "cuda" and some.device.type == "cuda"
+        self.events: List[tuple] = []
+
+    def run(self) -> None:
+        if self.cuda:
+            counted = self._build()
+        for step in self.plan.steps:
+            self._step(step, None)
+        if self.cuda:
+            from gt4py_tpu_torch.cartesian.backend.cuda_backend import library_launches
+
+            self.rec["launches"] = library_launches() - counted
+        if self.events:
+            self.events[-1][2].synchronize()
+            ms: Dict[str, float] = {}
+            for name, a, b in self.events:
+                ms[name] = ms.get(name, 0.0) + a.elapsed_time(b)
+            self.rec["kernel_ms"] = ms
+
+    def _build(self) -> int:
+        """Every stencil's library, built on rank 0 first (the others load
+        its build); the libraries' launch count before the call."""
+        from gt4py_tpu_torch.cartesian.backend.cuda_backend import library_launches
+
+        if self.cmesh.distributed and not all(o.backend._lib for o in self.plan.onces):
+            if self.cmesh.rank == 0:
+                for once in self.plan.onces:
+                    once.backend.build()
+            dist.barrier(group=self.cmesh.group)
+        for once in self.plan.onces:
+            once.backend.build()
+        return library_launches()
+
+    def _step(self, step, levels) -> None:
+        if isinstance(step, phases.Levels):
+            for interval, sub in step.sections:
+                k0, k1 = self._levels(interval)
+                ks = range(k0, k1) if step.order == ir.LoopOrder.FORWARD else \
+                    range(k1 - 1, k0 - 1, -1)
+                for k in ks:
+                    self.rec["levels"] += 1
+                    for s in sub:
+                        self._step(s, (k, k + 1))
+        elif isinstance(step, phases.Iterate):
+            self._exchange()
+            n = 0
+            while self._active(step, levels):
+                for s in step.body:
+                    self._step(s, levels)
+                self._exchange()
+                n += 1
+            self.rec["iterations"].append(n)
+        else:
+            self._exchange()
+            st = step.analysis.stencil
+            names = {*st.field_decls, *st.temp_decls}
+            env = {n: t for n, t in self.env.items() if n in names}
+            origins = {n: self.origins[n] for n in env}
+            if self.cuda:
+                ev = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+                ev[0].record()
+            step.backend.apply(env, self.scalars, self.domain, origins, (), frame=self.frame,
+                               levels=levels)
+            if self.cuda:
+                ev[1].record()
+                self.events.append((st.name, *ev))
+            self.rec["runs"] += 1
+            for name, koffs in step.writes.items():
+                if levels is None or koffs is None:
+                    self.dirty[name] = None
+                    continue
+                lo, hi = levels[0] + koffs[0], levels[1] + koffs[1]
+                if name in self.dirty:
+                    if self.dirty[name] is None:
+                        continue
+                    lo, hi = min(lo, self.dirty[name][0]), max(hi, self.dirty[name][1])
+                self.dirty[name] = (lo, hi)
+
+    def _levels(self, interval) -> Tuple[int, int]:
+        dK = self.domain[2]
+        k0, k1 = interval.resolve(dK, self.scalars)
+        return max(k0, 0), min(k1, dK)
+
+    def _exchange(self) -> None:
+        """The halos of the fields written since the last exchange: each
+        at the levels written (K windows in domain levels), or whole."""
+        if not self.dirty:
+            return
+        blocks = []
+        for name, win in self.dirty.items():
+            t = self.env[name]
+            decl = self.fields.get(name) or self.plan.held()[name]
+            if win is not None and decl.dimensions[2] and t.shape[2] > 1:
+                ok = self.origins[name][2]
+                t = t[:, :, max(0, ok + win[0]): min(t.shape[2], ok + win[1])]
+            blocks.append(t)
+        self.dirty.clear()
+        ex = HaloExchange(blocks, self.halo, self.cmesh, spatial_axes=(0, 1),
+                          periodic=(False, False), boundary="zero")
+        ex.run()
+        self.rec["bytes"] += ex.record["bytes"]
+        self.rec["exchanges"] += 1
+
+    def _active(self, step, levels) -> bool:
+        """Whether a point of the ``while``'s flag holds on some rank:
+        this rank's part grown by the loop's extent, at its levels."""
+        e, (oi, oj) = step.extent, self.corner
+        k0, k1 = levels if levels is not None else self._levels(step.interval)
+        a = self.env[step.active]
+        ok = self.origins[step.active][2]
+        here = bool(a[oi + e.i[0]: oi + self.domain[0] + e.i[1],
+                      oj + e.j[0]: oj + self.domain[1] + e.j[1], ok + k0: ok + k1].any())
+        if not self.cmesh.distributed:
+            return here
+        dev = a.device if self.cmesh.backend == "nccl" else torch.device("cpu")
+        flag = torch.tensor([int(here)], dtype=torch.int32, device=dev)
+        dist.all_reduce(flag, op=dist.ReduceOp.MAX, group=self.cmesh.group)
+        return bool(flag.item())
+
+
 def _global_view(stencil, name, f: DistributedField, physical: bool):
     """A meta tensor of the global field's shape in the logical layout, for
     the domain inference."""
-    from gt4py_tpu_torch.cartesian.stencil_object import logical_view
-
     decl = stencil.ir.field_decls[name]
     t = torch.empty(f.global_shape, device="meta")
     return logical_view(t, decl.dimensions, len(decl.data_dims), physical)

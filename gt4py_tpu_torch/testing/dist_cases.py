@@ -67,7 +67,8 @@ def _rank_main(rank: int, n: int, shape, device: str, workdir: str, cases, stric
         cmesh = CartesianMesh(tuple(shape), device=device, backend="gloo")
         results = {}
         for name, params in cases.items():
-            fn = CASES[params.get("case", name)]
+            fn = params.get("case", name)
+            fn = CASES[fn] if isinstance(fn, str) else fn
             kw = {k: v for k, v in params.items() if k != "case"}
             if strict:
                 results[name] = ("ok", fn(cmesh, **kw))
@@ -86,7 +87,9 @@ def launch(cases: Dict[str, dict], *, workdir: str, ranks: int = 4, shape=(2, 2)
            device: str = "cpu", strict: bool = False, timeout: float = 120.0,
            limit: float = 900.0) -> Dict[str, List]:
     """Run ``cases`` (case name -> parameters; a ``"case"`` key runs that
-    case function under another name) on ``ranks`` gloo ranks laid out as
+    case function under another name, or a module-level function
+    ``fn(cmesh, **parameters)`` of an importable module) on ``ranks`` gloo
+    ranks laid out as
     ``shape``; returns case -> [(status, result) of each rank].  With
     ``strict`` a failing case fails its rank and the launch raises;
     otherwise a case's exception is its status ``"error"`` with the
@@ -396,8 +399,12 @@ def run_gspmd(cmesh, obj, domain, arrays, scalars) -> Dict[str, np.ndarray]:
 @case
 def gspmd(cmesh, *, seed, backend="torch"):
     """A generated program (``gspmd_program``) run in place on
-    ``DistributedField``s: every field gathered after the call."""
-    return _r0(cmesh, run_gspmd(cmesh, *gspmd_stencil(seed, backend)))
+    ``DistributedField``s: every field gathered after the call, and under
+    ``"record"`` what the call ran (``parallel.distributed.LAST_GLOBAL``)."""
+    from gt4py_tpu_torch.parallel.distributed import LAST_GLOBAL
+
+    fields = run_gspmd(cmesh, *gspmd_stencil(seed, backend))
+    return _r0(cmesh, {**fields, "record": dict(LAST_GLOBAL)})
 
 
 def gspmd_single(seed: int, backend: str = "torch", device="cpu") -> Dict[str, np.ndarray]:
@@ -450,18 +457,39 @@ def _ring_stencil(backend):
 
 
 @case
-def ring(cmesh, *, shape=(24, 36, 5), seed=0, backend="cuda"):
-    """The ring read's stencil on ``DistributedField``s: the gathered
-    ``c``, or ``("declined", message)``."""
+def ring(cmesh, *, shape=(24, 36, 5), seed=0, backend="cuda", emulate=None):
+    """The ring read's stencil on ``DistributedField``s, which runs one
+    level at a time: the gathered ``c``, what the call ran
+    (``LAST_GLOBAL``), and each phase stencil's calls that launched its
+    kernels (``"cuda"``).  ``emulate``: a context manager factory that the
+    call runs under (the CPU tests' emulated kernels)."""
+    import contextlib
+
+    from gt4py_tpu_torch.cartesian.backend.cuda_backend import library_launches
+    from gt4py_tpu_torch.parallel.distributed import LAST_GLOBAL, _plan_of
+
+    rng = np.random.default_rng(seed)
+    a, c = rng.random(shape), np.zeros(shape)
+    st = _ring_stencil(backend)
+    fn = st.functional(origin=(1, 1, 0), domain=(shape[0] - 4, shape[1] - 2, shape[2]))
+    with emulate() if emulate is not None else contextlib.nullcontext():
+        before = library_launches()
+        out = fn(a=distribute(cmesh, a), c=distribute(cmesh, c))["c"]
+        counted = library_launches() - before
+    return _r0(cmesh, {"c": gather(out), "record": dict(LAST_GLOBAL),
+                       "library_launches": counted,
+                       "phase_launches": [getattr(o.backend, "launches", 0)
+                                          for o in _plan_of(st).onces]})
+
+
+def ring_single(shape=(24, 36, 5), seed=0, backend="torch", device="cpu") -> np.ndarray:
+    """``ring``'s ``c`` from the single-device call."""
     rng = np.random.default_rng(seed)
     a, c = rng.random(shape), np.zeros(shape)
     fn = _ring_stencil(backend).functional(origin=(1, 1, 0),
                                            domain=(shape[0] - 4, shape[1] - 2, shape[2]))
-    try:
-        out = fn(a=distribute(cmesh, a), c=distribute(cmesh, c))["c"]
-    except NotImplementedError as e:
-        return ("declined", str(e))
-    return _r0(cmesh, gather(out))
+    out = fn(a=torch.from_numpy(a).to(device), c=torch.from_numpy(c).to(device))["c"]
+    return _host(out)
 
 
 # --------------------------------------------------------------------------- #
@@ -957,3 +985,85 @@ def chip_distribution(cmesh, *, shape=(80, 512, 512), steps=3, reps=10, seed=0,
         "gspmd_max_abs_err": gspmd_err,
         "finite": bool(np.isfinite(got["u"]).all() and np.isfinite(fv_got).all()),
     }
+
+
+#: the phased calls of the chip check's phase 15: the ring (I, J, K) and
+#: the generated programs that read a neighbour's writes of the call
+PHASED_RING_SHAPE = (512, 512, 80)
+PHASED_SEEDS = (11203, 11238)
+
+
+@case
+def chip_phased(cmesh, *, ring_shape=PHASED_RING_SHAPE, seeds=PHASED_SEEDS, reps=5):
+    """The chip check's phased calls on every rank (see ``chip_smoke.py``,
+    phase 15): the ring stencil (float64, one level at a time) and the
+    programs ``seeds`` (a ``while`` iterated across the ranks, a serial
+    loop a level at a time) on ``"cuda"`` on DistributedFields, each
+    rank's kernel launches read from the stencil libraries around its
+    call, what the call ran (``LAST_GLOBAL``, its phases' kernel time
+    from the last timed call), its time (CUDA events, median of ``reps``);
+    rank 0 holds each to the single-device ``"cuda"`` run on the card, bit
+    for bit, and times that too."""
+    from gt4py_tpu_torch.cartesian.backend.cuda_backend import LAST_PLAN, library_launches
+    from gt4py_tpu_torch.parallel.distributed import LAST_GLOBAL, _plan_of
+
+    dev = cmesh.device
+    out: Dict[str, Any] = {"rank": cmesh.rank}
+    got: Dict[str, Dict[str, np.ndarray]] = {}
+    rng = np.random.default_rng(0)
+    a, c = rng.random(ring_shape), np.zeros(ring_shape)
+    ring_st = _ring_stencil("cuda")
+    ring_fn = ring_st.functional(origin=(1, 1, 0),
+                                 domain=(ring_shape[0] - 4, ring_shape[1] - 2, ring_shape[2]))
+    ring_args = {"a": distribute(cmesh, a), "c": distribute(cmesh, c)}
+    calls = {"ring": (ring_st, lambda: ring_fn(**ring_args))}
+    for sd in seeds:
+        obj, domain, arrays, scalars = gspmd_stencil(sd, "cuda")
+        fields = {n: distribute(cmesh, v) for n, v in arrays.items()}
+
+        def call(obj=obj, domain=domain, fields=fields, scalars=scalars):
+            obj.run(_domain_=domain, _origin_={n: (6, 6, 1) for n in fields}, **fields,
+                    **scalars)
+            return fields
+
+        calls[f"gspmd_{sd}"] = (obj, call)
+    for name, (st, call) in calls.items():
+        before = library_launches()
+        res = call()
+        _sync(dev)
+        rec = dict(LAST_GLOBAL)
+        rec["library_launches"] = library_launches() - before
+        rec["phase_launches"] = [o.backend.launches for o in _plan_of(st).onces]
+        rec["forms"] = {o.analysis.stencil.name: LAST_PLAN[o.analysis.stencil.name]["forms"]
+                        for o in _plan_of(st).onces}
+        got[name] = {"c": gather(res["c"])} if name == "ring" else \
+            {n: gather(f) for n, f in res.items()}
+        rec["ms"] = _median_ms(call, reps, dev)
+        rec["kernel_ms"] = LAST_GLOBAL.get("kernel_ms")  # the last timed call's
+        out[name] = rec
+    ranks = [None] * cmesh.size
+    dist.all_gather_object(ranks, out)
+    if cmesh.rank != 0:
+        return out
+    single: Dict[str, Any] = {}
+    for name, (st, call) in calls.items():
+        if name == "ring":
+            ref = {"c": ring_single(ring_shape, backend="cuda", device=dev)}
+            r_args = {"a": torch.from_numpy(a).to(dev), "c": torch.from_numpy(c).to(dev)}
+            fn = ring_st.functional(origin=(1, 1, 0), domain=(ring_shape[0] - 4,
+                                                              ring_shape[1] - 2, ring_shape[2]))
+            ms = _median_ms(lambda: fn(**r_args), reps, dev)
+        else:
+            sd = int(name[6:])
+            ref = gspmd_single(sd, "cuda", dev)
+            obj, domain, arrays, scalars = gspmd_stencil(sd, "cuda")
+            tensors = {n: torch.from_numpy(v).to(dev) for n, v in arrays.items()}
+            ms = _median_ms(lambda: obj.run(_domain_=domain, _origin_={
+                n: (6, 6, 1) for n in tensors}, **tensors, **scalars), reps, dev)
+        single[name] = {
+            "equal": all(bool(np.array_equal(got[name][n], r, equal_nan=True))
+                         for n, r in ref.items()),
+            "max_abs_err": max(_max_err(got[name][n], r) for n, r in ref.items()),
+            "finite": all(bool(np.isfinite(r).all()) for r in ref.values()),
+            "single_ms": ms}
+    return {"ranks": ranks, "single": single}

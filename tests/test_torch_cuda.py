@@ -1091,3 +1091,31 @@ def test_gather_fuzz_on_the_card(cuda_device, seed):
     if outcome == "routed":
         assert launches >= 1
     gather_fuzz.run_chain_case(seed, device=cuda_device)
+
+
+@pytest.mark.cuda
+def test_ring_phased_on_four_ranks_on_the_card(cuda_device, tmp_path):
+    """The ring stencil on DistributedFields on four gloo ranks sharing the
+    card: one level at a time (as many exchanges as levels), every phase
+    on its kernels, bit for bit the single-device ``"cuda"`` run."""
+    from gt4py_tpu_torch.testing import dist_cases
+
+    shape = (24, 36, 5)
+    got = dist_cases.launch({"ring": dict(shape=shape, backend="cuda")}, workdir=str(tmp_path),
+                            device="cuda", strict=True, timeout=300)["ring"][0][1]
+    ref = dist_cases.ring_single(shape, backend="cuda", device=cuda_device)
+    np.testing.assert_array_equal(got["c"], ref)
+    rec = got["record"]
+    assert rec["phased"] and rec["exchanges"] == rec["levels"] == shape[2], rec
+    assert all(n > 0 for n in got["phase_launches"]) and got["library_launches"] >= shape[2]
+
+
+@pytest.mark.cuda
+def test_cartesian_tutorial_on_the_card(cuda_device):
+    """The cartesian tutorial example on the card: every cell, the
+    ``"cuda"`` stencils' kernels counted by their libraries."""
+    from gt4py_tpu_torch.examples import cartesian_tutorial
+
+    out = cartesian_tutorial.main(device=cuda_device)
+    assert out["device"].startswith("cuda") and out["launches"] >= 5, out
+    assert out["tridiag_residual"] < 1e-12 and out["backends_max_diff"] <= 1e-12

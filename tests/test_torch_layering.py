@@ -1,7 +1,8 @@
 """The port stands alone: importing every ``gt4py_tpu_torch`` module (the
-next DSL's, the distribution layer's -- ``parallel``, ``next.distributed``,
-``utils``, ``io`` -- included), or the chip check, loads no ``jax``, no
-``ml_dtypes`` and nothing of ``gt4py_tpu``."""
+next DSL's, the distribution layer's -- ``parallel`` with its phased
+calls, ``next.distributed``, ``utils``, ``io`` -- and the examples
+included), or the chip check, loads no ``jax``, no ``ml_dtypes`` and
+nothing of ``gt4py_tpu``."""
 
 import os
 import subprocess
@@ -22,9 +23,10 @@ bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "ml_dtypes", "gt4py_tpu"))
 assert "gt4py_tpu_torch.next.cuda_bridge" in names, names
 assert "gt4py_tpu_torch.next.ffront" in names, names
-for n in ("parallel.mesh", "parallel.halo", "parallel.distributed", "parallel.dryrun",
-          "next.distributed", "utils.checkpoint", "utils.resilience", "io",
-          "testing.dist_cases"):
+for n in ("parallel.mesh", "parallel.halo", "parallel.distributed", "parallel.phases",
+          "parallel.dryrun", "next.distributed", "next.testing", "utils.checkpoint",
+          "utils.resilience", "io", "testing.dist_cases", "instrumentation.metrics",
+          "examples", *("examples." + e for e in gt4py_tpu_torch.examples.EXAMPLES)):
     assert "gt4py_tpu_torch." + n in names, n
 print(len(names), bad)
 """

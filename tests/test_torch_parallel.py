@@ -7,6 +7,15 @@ wire casts, extended round trips) is held bit for bit, steps that compute
 at rtol = atol = 1e-12 in float64.
 """
 
+import contextlib
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+
 import numpy as np
 import pytest
 
@@ -16,8 +25,10 @@ from gt4py_tpu_torch.testing import dist_cases
 from .test_torch_emulated import emulated, emulated_dir  # noqa: F401
 
 DYCORE = (5, 16, 32)
-#: more generated programs on DistributedFields, each declined or exact;
-#: 11203 and 11238 read what a neighbouring rank writes during the call
+#: more generated programs on DistributedFields, each exact; 11203 and
+#: 11238 read what a neighbouring rank writes during the call, and run in
+#: phases (a ``while`` iterated across the ranks, a BACKWARD loop a level
+#: at a time)
 GSPMD_MORE = (*range(11006, 11030), 11203, 11238)
 GSPMD_CROSS_RANK = (11203, 11238)
 
@@ -53,7 +64,7 @@ CASES = {
     **{f"gspmd_{s}": dict(case="gspmd", seed=s) for s in range(11000, 11006)},
     **{f"gspmd_{s}": dict(case="gspmd_or_decline", seed=s) for s in GSPMD_MORE},
     **{f"undeclined_{s}": dict(case="gspmd_undeclined", seed=s) for s in GSPMD_CROSS_RANK},
-    "ring": dict(),
+    "ring": dict(backend="torch"),
     "chip_distribution": dict(shape=(4, 32, 32), steps=1, reps=1, gspmd_seeds=(11000,)),
 }
 
@@ -63,9 +74,66 @@ def _on_the_cpu(monkeypatch):
     monkeypatch.setattr(config, "DEFAULT_DEVICE", "cpu")
 
 
+@contextlib.contextmanager
+def _emulated_kernels(cxx, d):
+    """On a rank: ``backend="cuda"`` on CPU tensors runs the generated
+    kernels, built by the host compiler against the emulated runtime of
+    ``test_torch_emulated`` (the ``emulated`` fixture's patches, with each
+    library written whole, as the ranks build at once)."""
+    from gt4py_tpu_torch.cartesian.backend import _build, cuda_backend
+
+    from .test_torch_emulated import _LAUNCH, EMULATED_BF16, EMULATED_FP16, _Stream
+
+    def build(source, name):
+        src = _LAUNCH.sub(r"GT_EMULATED_LAUNCH(grid, block, \2, \1, \3);", source)
+        out = os.path.join(d, hashlib.sha256(src.encode() + _build._runtime_header().encode()
+                                              + EMULATED_FP16.encode()
+                                              + EMULATED_BF16.encode()).hexdigest())
+        lib = os.path.join(out, f"lib{name}.so")
+        if not os.path.exists(lib):
+            os.makedirs(out, exist_ok=True)
+            fd, tmp = tempfile.mkstemp(suffix=".cpp", dir=out)
+            with os.fdopen(fd, "w") as f:
+                f.write(src)
+            proc = subprocess.run(
+                [cxx, "-std=c++17", "-O0", "-ffp-contract=off", "-shared", "-fPIC", "-I", d,
+                 "-I", _build.RUNTIME_DIR, "-o", tmp + ".so", tmp], capture_output=True,
+                text=True)
+            assert proc.returncode == 0, proc.stderr[:4000]
+            os.replace(tmp + ".so", lib)
+        return ctypes.CDLL(lib), out
+
+    import torch
+
+    saved = (_build.build, torch.cuda.device, torch.cuda.current_stream,
+             cuda_backend.CudaBackend.apply)
+    _build.build = build
+    torch.cuda.device = lambda device: contextlib.nullcontext()
+    torch.cuda.current_stream = lambda device=None: _Stream()
+    cuda_backend.CudaBackend.apply = cuda_backend.CudaBackend.run_kernels
+    try:
+        yield
+    finally:
+        (_build.build, torch.cuda.device, torch.cuda.current_stream,
+         cuda_backend.CudaBackend.apply) = saved
+
+
 @pytest.fixture(scope="module")
 def ranks(tmp_path_factory):
-    return dist_cases.launch(CASES, workdir=str(tmp_path_factory.mktemp("ranks")))
+    """Every case on four gloo ranks; with a host C++ compiler also the
+    ring on the emulated kernels (``ring_cuda``)."""
+    from .test_torch_emulated import EMULATED_BF16, EMULATED_FP16, EMULATED_RUNTIME
+
+    cases = dict(CASES)
+    cxx = shutil.which("g++") or shutil.which("c++")
+    if cxx is not None:
+        d = tmp_path_factory.mktemp("emulated_ranks")
+        for header, text in (("cuda_runtime.h", EMULATED_RUNTIME), ("cuda_fp16.h", EMULATED_FP16),
+                             ("cuda_bf16.h", EMULATED_BF16)):
+            (d / header).write_text(text)
+        cases["ring_cuda"] = dict(case="ring", backend="cuda",
+                                  emulate=functools.partial(_emulated_kernels, cxx, str(d)))
+    return dist_cases.launch(cases, workdir=str(tmp_path_factory.mktemp("ranks")))
 
 
 def result(ranks, name):
@@ -373,18 +441,33 @@ def jax_single(seed):
 @pytest.mark.parametrize("seed", GSPMD_MORE)
 def test_random_program_global_view_or_decline(ranks, seed):
     """More generated programs on DistributedFields: each equals the same
-    backend's single-device run bit for bit, or declines because a rank
-    would read values a neighbouring rank writes during the call (the
-    programs of ``GSPMD_CROSS_RANK`` do, and must decline)."""
+    backend's single-device run bit for bit, the programs of
+    ``GSPMD_CROSS_RANK`` (whose ranks read values a neighbouring rank
+    writes during the call) also the JAX backend's at 1e-12.  A program
+    that ``cross_rank_read`` names runs in phases: an exchange before each
+    phase run (``LAST_GLOBAL``: as many exchanges as runs), 11238's
+    BACKWARD loop one level at a time, 11203's ``while`` an iteration at a
+    time; the others run from one exchange."""
     from gt4py_tpu_torch.parallel.distributed import cross_rank_read
 
     got = result(ranks, f"gspmd_{seed}")
-    why = cross_rank_read(dist_cases.gspmd_stencil(seed, "torch")[0].analysis)
-    if seed in GSPMD_CROSS_RANK or why:
-        assert got[0] == "declined" and why and why in got[1], got
-        return
+    rec = got["record"]
     for name, ref in dist_cases.gspmd_single(seed).items():
         np.testing.assert_array_equal(got[name], ref, err_msg=name)
+    if seed in GSPMD_CROSS_RANK:
+        for name, ref in jax_single(seed).items():
+            np.testing.assert_allclose(got[name], ref, rtol=1e-12, atol=1e-12, err_msg=name)
+    why = cross_rank_read(dist_cases.gspmd_stencil(seed, "torch")[0].analysis)
+    assert rec["phased"] == bool(why), rec
+    assert rec["exchanges"] == rec["runs"] and rec["bytes"] > 0, rec
+    if not why:
+        assert rec["exchanges"] == 1 and rec["phases"] == 1, rec
+    if seed == 11238:
+        domain = dist_cases.gspmd_program(seed)[2]
+        assert rec["levels"] == domain[2] and rec["runs"] == domain[2] + 1, rec
+    if seed == 11203:
+        (n,) = rec["iterations"]
+        assert n >= 1 and rec["runs"] == 2 + n and rec["levels"] == 0, rec
 
 
 @pytest.mark.parametrize("seed", GSPMD_CROSS_RANK)
@@ -416,10 +499,26 @@ def test_ring_read_declines_on_ranks(ranks):
     """The plane form's ring read (``test_torch_plane.py``'s ``ring``): a
     FORWARD loop reads ``t`` at the neighbouring point of the level before,
     where ``t``'s writer computes only the domain's points.  A rank's edge
-    would read the neighbour's value of the call, so the call declines and
-    names ``t``."""
-    got = result(ranks, "ring")
-    assert got[0] == "declined" and "'t'" in got[1], got
+    reads the neighbour's value of the call, so the call runs one level at
+    a time with ``t`` exchanged between levels (as many exchanges as the
+    domain's levels: the first before the call), and equals the
+    single-device run bit for bit: on ``"torch"``, and on ``"cuda"`` with
+    the generated kernels built by the host compiler (the emulated
+    runtime), which every phase launched, the plain executor never."""
+    if "ring_cuda" not in ranks:
+        pytest.skip("needs a host C++ compiler (g++) for the emulated kernels")
+    shape = (24, 36, 5)
+    ref = dist_cases.ring_single(shape)
+    for name in ("ring", "ring_cuda"):
+        got = result(ranks, name)
+        np.testing.assert_array_equal(got["c"], ref, err_msg=name)
+        rec = got["record"]
+        assert rec["phased"] and rec["levels"] == shape[2], rec
+        assert rec["exchanges"] == shape[2] == rec["runs"], rec
+    cuda = result(ranks, "ring_cuda")
+    assert all(n > 0 for n in cuda["phase_launches"]), cuda
+    assert sum(cuda["phase_launches"]) == shape[2], cuda
+    assert cuda["library_launches"] >= shape[2], cuda
 
 
 def test_gspmd_programs_have_regions():
