@@ -253,6 +253,13 @@ ATOL_F64 = 1e-13
 #: operation rounds as in the plain version); the bound leaves a few ulp
 RTOL_F32 = 1e-6
 ATOL_F32 = 1e-7
+#: f32 gradient on the adjoint kernels vs the plain backward: the gathers
+#: add each point's terms in another order than autograd's scatter, and
+#: entries are sums of terms of both signs, so the bound is relative to the
+#: largest entry: measured on an H100 80GB HBM3 at 700 W (``--k8``), 9.537e-07
+#: at most for entries up to about 4.4, a few ulp of the largest
+GRAD_RTOL_F32 = 1e-5
+GRAD_ATOL_F32 = 1e-6
 
 STEPS = 10
 TIMING_REPS = 20
@@ -1032,6 +1039,52 @@ def _routed_gradient(case) -> dict:
             "bitwise": torch.equal(g, g_index)}
 
 
+#: the inputs phase 9 differentiates, by stencil: the FullDycore step's
+#: gradient with respect to u and q (hdiff reads u and writes a clone of it,
+#: vadv_update reads the diffused u twice and writes a clone of u), and the
+#: MiniDycore step's tangent along u
+GRAD_WANTED = {"hdiff": ("in_field", "out_field"), "vadv_update": ("u_stage", "u_pos", "u_out"),
+               "fv_step": ("q",)}
+
+
+def _grad_path(fd) -> dict:
+    return {"hdiff": fd.dyn.hdiff, "vadv_update": fd.dyn.vadv_upd, "fv_step": fd.fv.fv_step}
+
+
+def _derivative_builds(models) -> list:
+    """Phase 9's derivative stencils (K8), made before the build so that
+    nvcc builds them with the rest: the adjoints of the FullDycore path at
+    both configurations, periodic, and the tangents of the MiniDycore path
+    at 512x512x80."""
+    out = []
+    for key, (fd, _) in models.items():
+        for name, st in _grad_path(fd).items():
+            out.append(st.backend.derivative("adjoint", GRAD_WANTED[name], fd.nk, ("I", "J"))[1])
+            if key == "f32" and name != "fv_step":
+                out.append(st.backend.derivative("tangent", GRAD_WANTED[name])[1])
+    return out
+
+
+def _derivative_counts(path) -> dict:
+    """Per stencil: the forward's launches and K8 engagements, the calls
+    that ran the adjoint and the tangent stencils, the plain re-runs, and
+    the kernel launches the adjoint and tangent libraries counted."""
+    out = {}
+    for name, st in path.items():
+        b = st.backend
+        d = b.derivative_backends()
+        out[name] = {"launches": b.launches, "k8": b.derivative_calls,
+                     "adjoint_calls": b.adjoint_calls, "tangent_calls": b.tangent_calls,
+                     "plain_reruns": b.plain_reruns,
+                     "adjoint_launches": sum(x.device_launches()["all"] for x in d["adjoint"]),
+                     "tangent_launches": sum(x.device_launches()["all"] for x in d["tangent"])}
+    return out
+
+
+def _counts_since(now: dict, before: dict) -> dict:
+    return {n: {k: v - before[n][k] for k, v in c.items()} for n, c in now.items()}
+
+
 def _gradients(smi, models, fvm_case) -> dict:
     """Phase 9: the FullDycore step's gradient at 512x512x80 float32 with
     the forward on the kernels, against the plain executor's on the card;
@@ -1041,33 +1094,47 @@ def _gradients(smi, models, fvm_case) -> dict:
     import numpy as np
     import torch
 
-    from gt4py_tpu_torch.cartesian.backend.cuda_backend import REPLACES
+    from gt4py_tpu_torch.cartesian.backend.cuda_backend import LAST_PLAN, REPLACES
 
     fd, fd_plain = models["f32"]
     step, pstep = fd.step_fn(), fd_plain.step_fn()
     state = fd.init_state(seed=0)
-    path = {"hdiff": fd.dyn.hdiff, "vadv_update": fd.dyn.vadv_upd, "fv_step": fd.fv.fv_step,
-            "sl_step": fd.sl}
-    for st in path.values():
-        st.backend.launches = st.backend.derivative_calls = 0
+    path = {**_grad_path(fd), "sl_step": fd.sl}
+    adjoints = {n: st.backend.derivative_backends()["adjoint"] for n, st in path.items()}
+    before = _derivative_counts(path)
     grads = _full_grad(step, state)
     torch.cuda.synchronize()
-    counts = {n: (st.backend.launches, st.backend.derivative_calls) for n, st in path.items()}
-    print(f"FullDycore gradient path (launches, under K8): {counts}")
-    if min(n for n, _ in counts.values()) == 0:
+    counts = _counts_since(_derivative_counts(path), before)
+    print(f"FullDycore gradient path (forward launches, K8 engagements, adjoint and tangent "
+          f"calls, plain re-runs, adjoint and tangent kernel launches): {counts}")
+    if min(c["launches"] for c in counts.values()) == 0:
         raise AssertionError(f"FullDycore gradient: a forward kernel was not launched ({counts})")
-    if min(counts[n][1] for n in ("hdiff", "vadv_update", "fv_step")) == 0:
-        raise AssertionError(f"FullDycore gradient: K8 did not engage ({counts})")
+    for n in GRAD_WANTED:
+        c = counts[n]
+        if c["k8"] == 0 or c["adjoint_calls"] == 0 or c["adjoint_launches"] == 0:
+            raise AssertionError(f"FullDycore gradient: {n}'s adjoint kernels did not run "
+                                 f"({c}; {path[n].backend.derivative_plan})")
+    reruns = {n: c["plain_reruns"] for n, c in counts.items() if c["plain_reruns"]}
+    if reruns:
+        raise AssertionError(f"FullDycore gradient: the plain re-run ran on the path ({reruns})")
+    built = {n: len(st.backend.derivative_backends()["adjoint"]) - len(adjoints[n])
+             for n, st in path.items()}
+    if any(built.values()):
+        print(f"FullDycore gradient: adjoint stencils built during the backward {built} "
+              f"(not prepared for the parallel build)")
     ref = _full_grad(pstep, state)
-    errs, bitwise = {}, {}
+    errs, rels, scale, bitwise = {}, {}, {}, {}
     for name, g, r in zip(("u", "q"), grads, ref):
-        errs[name] = _check_close(f"FullDycore gradient d/d{name} vs plain", g, r, RTOL_F32,
-                                  ATOL_F32)[0]
+        scale[name] = float(r.abs().max())
+        errs[name], rels[name] = _check_close(f"FullDycore gradient d/d{name} vs plain", g, r,
+                                              GRAD_RTOL_F32, GRAD_ATOL_F32 * scale[name])
         bitwise[name] = torch.equal(g, r)
         if not float(g.abs().max()) > 0:
             raise AssertionError(f"FullDycore gradient d/d{name} is zero")
-    print(f"FullDycore 512x512x80 f32 gradient vs the plain executor's: max abs {errs} "
-          f"(rtol {RTOL_F32}, atol {ATOL_F32}), bitwise {bitwise}")
+    print(f"FullDycore 512x512x80 f32 gradient, backward on the adjoint kernels, vs the plain "
+          f"executor's: max abs {errs} (the largest entry {scale}; max abs over it "
+          f"{ {n: errs[n] / scale[n] for n in errs} }), max rel {rels}; held to rtol "
+          f"{GRAD_RTOL_F32}, atol {GRAD_ATOL_F32} x the largest entry; bitwise {bitwise}")
 
     def leaves():
         return [state[k].clone().requires_grad_() for k in ("u", "q")]
@@ -1082,7 +1149,7 @@ def _gradients(smi, models, fvm_case) -> dict:
         return run
 
     t = {"cuda fwd": _time_ms(fwd(step), TIMING_REPS),
-         "cuda fwd+bwd": _time_ms(fwd_bwd(step), PLAIN_TIMING_REPS),
+         "cuda fwd+bwd": _time_ms(fwd_bwd(step), TIMING_REPS),
          "torch fwd": _time_ms(fwd(pstep), PLAIN_TIMING_REPS),
          "torch fwd+bwd": _time_ms(fwd_bwd(pstep), PLAIN_TIMING_REPS)}
     peak = {}
@@ -1101,19 +1168,54 @@ def _gradients(smi, models, fvm_case) -> dict:
               f"{100 * share:.1f}%, peak {peak[kind]['peak_bytes'] / 2**30:.3f} GiB "
               f"(before the call {peak[kind]['base_bytes'] / 2**30:.3f} GiB); {smi}")
 
+    # each derivative kernel's device time against its bound: the API
+    # fields of its stencil, each read or written once, at 3.35 TB/s
+    fwd_dev, _ = _device_ms(fwd(step), n=5)
+    both_dev, rows = _device_ms(fwd_bwd(step), n=5)
+    adjoint_kernels = []
+    for n in GRAD_WANTED:
+        for b in path[n].backend.derivative_backends()["adjoint"]:
+            mine = {k: v for k, v in rows.items() if f"{b.analysis.stencil.name}_k" in k}
+            ms = sum(v[0] for v in mine.values())
+            launches = sum(v[1] for v in mine.values())
+            bound = _bound(b.analysis, (NI, NJ, NK))["bound_ms"]
+            rec = {"stencil": b.analysis.stencil.name, "of": n,
+                   "forms": LAST_PLAN.get(b.analysis.stencil.name, {}).get("forms"),
+                   "device_ms": ms if mine else None, "launches_per_call": launches,
+                   "bound_ms": bound, "kernels": {k: v[0] for k, v in mine.items()}}
+            if mine:
+                adjoint_kernels.append(rec)
+                print(f"K8 adjoint {rec['stencil']} ({n}) forms {rec['forms']}: device "
+                      f"{ms:.4f} ms a backward ({launches:g} launches) against its bound "
+                      f"{bound:.4f} ms ({100 * bound / ms:.1f} % of it); by kernel "
+                      f"{rec['kernels']}; {smi}")
+    top = sorted(rows.items(), key=lambda kv: -kv[1][0])[:14]
+    print("FullDycore step gradient, forward + backward, device ms a step by kernel: " +
+          "; ".join(f"{k[:70]} {v[0]:.4f} ({v[1]:g})" for k, v in top))
+    if fwd_dev is not None and both_dev is not None:
+        print(f"FullDycore step gradient, device time: forward {fwd_dev:.4f} ms, forward + "
+              f"backward {both_dev:.4f} ms, adjoint kernels "
+              f"{sum(r['device_ms'] for r in adjoint_kernels):.4f} ms; {smi}")
+    if len(adjoint_kernels) != len(GRAD_WANTED):
+        raise AssertionError(f"FullDycore gradient: the profile shows adjoint kernels of "
+                             f"{[r['of'] for r in adjoint_kernels]} only")
+
     # torch.func.jvp of the MiniDycore step
     md, md_plain = fd.dyn, fd_plain.dyn
     s0 = md.init_state(seed=0)
     tangent = torch.from_numpy(np.random.default_rng(5).random(tuple(s0["u"].shape)).astype(
         np.float32)).to(s0["u"].device)
-    for st in (md.hdiff, md.vadv_upd):
-        st.backend.launches = st.backend.derivative_calls = 0
+    mpath = {"hdiff": md.hdiff, "vadv_update": md.vadv_upd}
+    before = _derivative_counts(mpath)
     _, tang = torch.func.jvp(lambda u: md.step_fn()({**s0, "u": u})["u"], (s0["u"],), (tangent,))
     torch.cuda.synchronize()
-    jvp_counts = [(st.backend.launches, st.backend.derivative_calls)
-                  for st in (md.hdiff, md.vadv_upd)]
-    if jvp_counts != [(1, 1), (1, 1)]:
-        raise AssertionError(f"MiniDycore jvp: kernels (launches, under K8) {jvp_counts}")
+    jc = _counts_since(_derivative_counts(mpath), before)
+    jvp_counts = [(c["launches"], c["k8"], c["tangent_calls"], c["plain_reruns"])
+                  for c in jc.values()]
+    if jvp_counts != [(1, 1, 1, 0), (1, 1, 1, 0)] or \
+            min(c["tangent_launches"] for c in jc.values()) == 0:
+        raise AssertionError(f"MiniDycore jvp: (launches, under K8, tangent calls, plain "
+                             f"re-runs) {jvp_counts}, {jc}")
     _, rtang = torch.func.jvp(lambda u: md_plain.step_fn()({**s0, "u": u})["u"], (s0["u"],),
                               (tangent,))
     jvp_err = _check_close("MiniDycore jvp vs plain", tang, rtang, RTOL_F32, ATOL_F32)[0]
@@ -1126,16 +1228,17 @@ def _gradients(smi, models, fvm_case) -> dict:
 
     leaf = s0["u"].clone().requires_grad_()
     g_ref = torch.autograd.grad(mloss(leaf), leaf)[0]
-    for st in (md.hdiff, md.vadv_upd):
-        st.backend.launches = st.backend.derivative_calls = 0
+    before = _derivative_counts(mpath)
     g_func = torch.func.grad(mloss)(s0["u"])
     value, pull = torch.func.vjp(mloss, s0["u"])
     g_vjp = pull(torch.ones_like(value))[0]
     torch.cuda.synchronize()
-    func_counts = [(st.backend.launches, st.backend.derivative_calls)
-                   for st in (md.hdiff, md.vadv_upd)]
-    if func_counts != [(2, 2), (2, 2)]:
-        raise AssertionError(f"torch.func through K8: kernels (launches, under K8) {func_counts}")
+    fc = _counts_since(_derivative_counts(mpath), before)
+    func_counts = [(c["launches"], c["k8"], c["adjoint_calls"], c["plain_reruns"])
+                   for c in fc.values()]
+    if func_counts != [(2, 2, 2, 0), (2, 2, 2, 0)]:
+        raise AssertionError(f"torch.func through K8: (launches, under K8, adjoint calls, "
+                             f"plain re-runs) {func_counts}")
     func_err = max(_check_close(f"MiniDycore torch.func.{what} vs torch.autograd.grad", g, g_ref,
                                 RTOL_F32, ATOL_F32)[0] for what, g in (("grad", g_func),
                                                                        ("vjp", g_vjp)))
@@ -1147,7 +1250,11 @@ def _gradients(smi, models, fvm_case) -> dict:
     small, small_plain = models["f64"]
     sstate = small.init_state(seed=1)
     sstep = small.step_fn()
+    before = _derivative_counts(_grad_path(small))
     gu, gq = _full_grad(sstep, sstate)
+    sc = _counts_since(_derivative_counts(_grad_path(small)), before)
+    if any(c["adjoint_calls"] == 0 or c["plain_reruns"] for c in sc.values()):
+        raise AssertionError(f"FullDycore f64 gradient: not on the adjoint kernels ({sc})")
     ru, rq = _full_grad(small_plain.step_fn(), sstate)
     small_err = max(_check_close("FullDycore f64 gradient vs plain", a, b, RTOL_F64,
                                  ATOL_F64)[0] for a, b in ((gu, ru), (gq, rq)))
@@ -1167,22 +1274,30 @@ def _gradients(smi, models, fvm_case) -> dict:
     if not rel <= FD_RTOL:
         raise AssertionError(f"directional derivative off central differences by {rel:.3e}")
 
-    routed = _routed_gradient(fvm_case)
-    kbytes = sum(counts[n][1] * _k8_bytes(st.analysis, (NI, NJ, NK)) for n, st in path.items())
+    routed = _routed_gradient(fvm_case) if fvm_case is not None else None
+    kbytes = sum(counts[n]["k8"] * _k8_bytes(st.analysis, (NI, NJ, NK))
+                 for n, st in path.items())
     entry = {
-        "name": "K8 kernel_call (autodiff): FullDycore step gradient",
+        "name": "K8 derivative stencils (autodiff, derivative.py): FullDycore step gradient",
         "route": "cuda",
-        "source": "gt4py_tpu_torch/cartesian/backend/autodiff.py",
+        "source": "gt4py_tpu_torch/cartesian/derivative.py",
         "replaces": REPLACES["autodiff"],
-        "launches": sum(n for _, n in counts.values()),
+        "launches": sum(c["adjoint_launches"] for c in counts.values()),
         "max_abs_err": max(errs.values()),
         "ms": t["cuda fwd+bwd"],
         "plain_ms": t["torch fwd+bwd"],
         "bound_ms": _bound_ms(kbytes),
         "bound_by": "bytes",
         "library_ms": None,
+        "device_ms": both_dev,
+        "forward_device_ms": fwd_dev,
+        "adjoint_kernels": adjoint_kernels,
+        "max_rel_err": rels,
     }
-    summary = {"launches": counts, "max_abs_err": errs, "bitwise": bitwise, "times_ms": t,
+    summary = {"launches": counts, "max_abs_err": errs, "max_rel_err": rels,
+               "device_rows": {k[:90]: v for k, v in top},
+               "bitwise": bitwise, "times_ms": t, "adjoint_kernels": adjoint_kernels,
+               "device_ms": {"forward": fwd_dev, "forward+backward": both_dev},
                "memory": peak, "jvp_max_abs_err": jvp_err, "small_max_abs_err": small_err,
                "func_grad_max_abs_err": func_err, "func_grad_bitwise": func_bitwise,
                "fd_rel": rel, "routed": routed, "card": smi}
@@ -3051,6 +3166,123 @@ def k3_only() -> int:
     return 1 if PROFILE_LOSSES else 0
 
 
+def k8_only() -> int:
+    """``--k8``: phase 9 alone, without the routed FVM gradient: the
+    FullDycore path's adjoint and tangent kernels against the plain
+    backward, their device times and bounds."""
+    import numpy as np
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from gt4py_tpu_torch.models import full_dycore
+    from gt4py_tpu_torch.next.compiled_program import build_all
+
+    dev = torch.device("cuda", 0)
+    smi = _nvidia_smi()
+    print(f"card: {smi}")
+    models = {key: tuple(full_dycore.FullDycore(*shape, dtype=dtype, backend=b, device=dev)
+                         for b in ("cuda", "torch"))
+              for key, shape, dtype in (("f32", (NI, NJ, NK), np.float32),
+                                        ("f64", SMALL, np.float64))}
+    t0 = time.perf_counter()
+    n = build_all([st.backend for fd, _ in models.values()
+                   for st in (*_grad_path(fd).values(), fd.sl, fd.dyn.hdiff)]
+                  + _derivative_builds(models))
+    print(f"build: {n} sources, {time.perf_counter() - t0:.2f} s (nvcc in parallel)")
+    result = _gradients(smi, models, None)
+    print(smi)
+    print(json.dumps({**result, "profile_losses": PROFILE_LOSSES, "card": smi}, default=str))
+    return 1 if PROFILE_LOSSES else 0
+
+
+#: ``--k8-tiles``: the tile shapes tried for the tile-form adjoints
+K8_TILES = ((32, 64), (32, 32), (16, 32), (8, 64), (8, 32))
+
+
+def k8_tiles() -> int:
+    """``--k8-tiles``: hdiff's and fv_step's adjoint stencils at 512x512x80
+    float32, periodic, built at each tile of ``K8_TILES``; each one's
+    kernel timed by device time in the backward of the stencil's sum of
+    squares, its gradient held to the default build's."""
+    import numpy as np
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from gt4py_tpu_torch.cartesian.backend import cuda_backend
+    from gt4py_tpu_torch.models import full_dycore
+    from gt4py_tpu_torch.next.compiled_program import build_all
+
+    dev = torch.device("cuda", 0)
+    smi = _nvidia_smi()
+    fd = full_dycore.FullDycore(NI, NJ, NK, dtype=np.float32, backend="cuda", device=dev)
+    state = fd.init_state(seed=0)
+    cases = {"hdiff": (fd.dyn.hdiff, fd.dyn.hdiff_fn_p, ("in_field", "out_field"),
+                       lambda u: {"in_field": u, "out_field": u, "coeff": state["coeff"]}),
+             "fv_step": (fd.fv.fv_step, fd.fv.fns["step_p"], ("q",),
+                         lambda q: {"q": q, "cx": state["cx"], "cy": state["cy"],
+                                    "qout": torch.zeros_like(q)})}
+    default = {n: c[0].backend.derivative("adjoint", c[2], NK, ("I", "J")) for n, c in
+               cases.items()}
+    builds = {}
+    saved = cuda_backend.TILE_SHAPES
+    try:
+        for n, (st, _, wanted, _) in cases.items():
+            d = default[n][0]
+            for tile in K8_TILES:
+                cuda_backend.TILE_SHAPES = (tile,)
+                b = cuda_backend.CudaBackend(d.analysis, {})
+                rec = b.program.plan_record()
+                if rec["tiles"]:
+                    builds[(n, tile)] = b
+                else:
+                    print(f"k8 tiles {n} {tile}: the tile form declines: "
+                          f"{rec['declined'].get('tiles')}")
+    finally:
+        cuda_backend.TILE_SHAPES = saved
+    t0 = time.perf_counter()
+    n_src = build_all([b for _, b in default.values()] + list(builds.values())
+                      + [c[0].backend for c in cases.values()])
+    print(f"card: {smi}; build: {n_src} sources, {time.perf_counter() - t0:.2f} s")
+    out = {}
+    for (n, tile), b in builds.items():
+        st, fn, wanted, args = cases[n]
+        key = ("adjoint", tuple(wanted), NK, ("I", "J"))
+        x0 = state["u"] if n == "hdiff" else state["q"]
+
+        def grad():
+            x = x0.clone().requires_grad_()
+            o = next(iter(fn(**args(x)).values()))
+            return torch.autograd.grad((o ** 2).sum(), x)[0]
+
+        st.backend._derivatives[key] = (default[n][0], default[n][1])
+        ref = grad()
+        st.backend._derivatives[key] = (default[n][0], b)
+        got = grad()
+        err = _check_close(f"k8 tiles {n} {tile}", got, ref, GRAD_RTOL_F32,
+                           GRAD_ATOL_F32 * float(ref.abs().max()))[0]
+        _, rows = _device_ms(grad, n=10)
+        ms = sum(v[0] for k, v in rows.items() if f"{b.analysis.stencil.name}_k" in k)
+        (rec,) = b.program.plan_record()["tiles"]
+        out[f"{n} {tile[0]}x{tile[1]}"] = {"device_ms": ms, "smem_bytes": rec["smem_bytes"],
+                                           "ctas_per_sm": rec["ctas_per_sm"],
+                                           "halo": rec["halo"], "max_abs_err": err,
+                                           "ptxas": _ptxas(None, b.build_dir)}
+        print(f"k8 tiles {n} adjoint {tile}: device {ms:.4f} ms; {rec['smem_bytes']} shared "
+              f"bytes, {rec['ctas_per_sm']} CTAs a SM, halo {rec['halo']}; vs the default "
+              f"build max abs {err:.3e}; {_ptxas(None, b.build_dir)}")
+        st.backend._derivatives[key] = default[n]
+    print(smi)
+    print(json.dumps({"k8_tiles": out, "profile_losses": PROFILE_LOSSES, "card": smi},
+                     default=str))
+    return 1 if PROFILE_LOSSES else 0
+
+
 def main() -> int:
     import torch
 
@@ -3154,7 +3386,8 @@ def main() -> int:
          + phase10_stencils + _phase11_stencils(p11) + _phase12_stencils(p12)
             + [st for label, st in sweep_sts.items() if label != "plain"]
             + [st for st, _ in tight["builds"].values()] + _k3_stencils(k3_builds)]
-        + next_kernels + fuzz_builds["backends"] + [benes.KERNEL] + _dist_builds())
+        + next_kernels + fuzz_builds["backends"] + [benes.KERNEL] + _dist_builds()
+        + _derivative_builds(models))
     build_s = time.perf_counter() - t0
     print(f"build: {n_sources} sources, {build_s:.2f} s (nvcc in parallel)")
     for st in main_stencils + phase10_stencils:
@@ -4304,6 +4537,8 @@ if __name__ == "__main__":
              dist_only() if sys.argv[1:] == ["--dist"] else
              examples_only() if sys.argv[1:] == ["--examples"] else
              k3_only() if sys.argv[1:] == ["--k3"] else
+             k8_only() if sys.argv[1:] == ["--k8"] else
+             k8_tiles() if sys.argv[1:] == ["--k8-tiles"] else
              k3_tiles() if sys.argv[1:] == ["--k3-tiles"] else
              tiles_only() if sys.argv[1:] == ["--tiles"] else
              profile_check() if sys.argv[1:] == ["--profile-check"] else

@@ -187,8 +187,14 @@ raise.
 
 Derivatives (K8; Pallas ``_trace_env``'s custom JVP): when a derivative is
 wanted, the launch runs inside ``autodiff``'s ``torch.autograd.Function``
--- the primal from the kernels, the gradient and the tangent from the plain
-executor; otherwise the kernels run alone, as for serving.
+-- the primal from the kernels, the gradient and the tangent from the
+adjoint and tangent stencils that ``derivative`` generates from the IR and
+this backend builds at the first derivative call (``CudaBackend.derivative``,
+one build per set of wanted inputs; the adjoint also per level count and
+periodic axes), which get every form above; a construct without a
+gather-form adjoint keeps the plain executor's re-run, named in
+``LAST_PLAN[name]["adjoint"]``.  Otherwise the kernels run alone, as for
+serving.
 
 ``LAST_PLAN[stencil name]`` records each stencil's plan: its kernels'
 forms, the tile kernels' tiles, slots, shared bytes and staged inputs
@@ -215,7 +221,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from gt4py_tpu_torch.cartesian import ir, passes
+from gt4py_tpu_torch.cartesian import derivative, ir, passes
 from gt4py_tpu_torch.cartesian.analysis import (
     StencilAnalysis,
     analyze,
@@ -257,7 +263,8 @@ REPLACES = {
     "data_dims": "gt4py_tpu/cartesian/backend/pallas_backend.py:312 "
                  "PallasBackend._trace_split_data_dims",
     "autodiff": "gt4py_tpu/cartesian/backend/pallas_backend.py:178 "
-                "PallasBackend._trace_env (custom_jvp around the kernel call)",
+                "PallasBackend._trace_env (custom_jvp around the kernel call; its tangent "
+                "JaxBackend._trace_env, jax_backend.py:1554, transposed by jax.grad)",
     "planes": "gt4py_tpu/cartesian/backend/pallas_backend.py:797 "
               "PallasBackend._trace_serialized (_serial_child :765; mode B's tiled serial "
               "sweep, _plan_columns :1187)",
@@ -1247,11 +1254,16 @@ def _plan_planes(analysis: StencilAnalysis, order: ir.LoopOrder,
     behind = -1 if order == ir.LoopOrder.FORWARD else 1
     for sid, sts in stages.items():
         flat = [(n, s) for n, stage in enumerate(sts) for s in stage]
+        # the names written at or after each position
+        after = [set()]
+        for _, s2 in reversed(flat):
+            after.append(after[-1] | {w.name for w in _stmt_writes(s2)})
+        after.reverse()
         before: set = set()
         for pos, (n, s) in enumerate(flat):
             e = loops[id(s)][1] if id(s) in loops else pre.get(id(s)) or ext.stmt_extent(s)
             e = Extent(i=e.i, j=e.j)
-            later = {w.name for _, s2 in flat[pos:] for w in _stmt_writes(s2)}
+            later = after[pos]
             for w in _stmt_writes(s):
                 touched.setdefault(w.name, {}).setdefault(sid, set()).add(n)
                 plane_ext[w.name] = plane_ext.get(w.name, e) | e
@@ -1488,19 +1500,21 @@ def _section_local_temps(st: ir.Stencil, sid: int, body: List[ir.Stmt],
     dimensions, and written first by an unconditional statement that does
     not read them (so a shared slot's earlier content is never seen)."""
     out = set()
+    # one walk of the body: the names accessed at a K offset or a variable
+    # level, and the first statement that accesses each name
+    k_read, first = set(), {}
+    for s in body:
+        for node in ir.walk_values(s):
+            if isinstance(node, ir.FieldAccess):
+                first.setdefault(node.name, s)
+                if not isinstance(node.offset, ir.CartesianOffset) or node.offset.k:
+                    k_read.add(node.name)
     for name, decl in st.temp_decls.items():
-        if decl.data_dims or touching.get(name) != {sid}:
+        if decl.data_dims or touching.get(name) != {sid} or name in k_read:
             continue
-        ok = True
-        for s in body:
-            for node in ir.walk_values(s):
-                if isinstance(node, ir.FieldAccess) and node.name == name and (
-                        not isinstance(node.offset, ir.CartesianOffset) or node.offset.k):
-                    ok = False
-        first = next((s for s in body if any(isinstance(n, ir.FieldAccess) and n.name == name
-                                              for n in ir.walk_values(s))), None)
-        if ok and isinstance(first, ir.Assign) and first.target.name == name and not any(
-                r.name == name for r in _stmt_reads(first)):
+        s = first.get(name)
+        if isinstance(s, ir.Assign) and s.target.name == name and not any(
+                r.name == name for r in _stmt_reads(s)):
             out.add(name)
     return frozenset(out)
 
@@ -4679,6 +4693,30 @@ class CudaBackend:
         #: call whose fields share no 16-byte phase, or raises)
         self.vector_opt = options.get("vector")
         self.repair_opt = options.get("repair")
+        #: K8's option ``derivative``: None runs the derivative stencils
+        #: (``derivative``) for CUDA tensors and the plain executor's re-run
+        #: for CPU ones, ``"kernels"`` the derivative stencils on any device
+        #: (a stencil the transform declines raises)
+        self.derivative_opt = options.get("derivative")
+        if self.derivative_opt not in (None, "kernels"):
+            raise ValueError(f"derivative={self.derivative_opt!r}: None or 'kernels'")
+        #: the derivative stencils are built with the forward's kernel forms
+        #: and its ``derivative`` (a derivative of theirs, under nested
+        #: transforms, follows the same rule)
+        self._derivative_options = {k: v for k, v in options.items() if k in (
+            "serialize", "k_blocked", "tiles", "fuse_loops", "sweep", "stage_vark", "vector",
+            "repair", "derivative")}
+        self._derivatives: Dict[tuple, object] = {}
+        #: ``LAST_PLAN[name]["adjoint"]`` / ``["tangent"]``: the derivative
+        #: stencil built for the last derivative call, or why it declined
+        self.derivative_plan: Dict[str, dict] = {}
+        #: derivative calls that ran the adjoint or tangent stencil, and
+        #: those that asked for one the transform declined
+        self.adjoint_calls = 0
+        self.tangent_calls = 0
+        self.derivative_declines = 0
+        #: derivative calls whose backward or jvp re-ran the plain executor
+        self.plain_reruns = 0
         self.plain = TorchExecutor(analysis)
         self.launches = 0
         #: calls that launched a vector row kernel or staged an input at
@@ -4702,6 +4740,45 @@ class CudaBackend:
     @property
     def source(self) -> str:
         return self.program.source
+
+    def derivative(self, kind: str, wanted: Sequence[str], dK: Optional[int] = None,
+                   periodic: Sequence[str] = ()):
+        """K8's derivative stencil of ``kind`` (``"adjoint"``, on ``dK``
+        levels and periodic on ``periodic``, or ``"tangent"``) for the
+        inputs ``wanted``: ``(derivative.Derivative, CudaBackend)``, built
+        at the first call for each key.  Raises ``derivative.Declined``
+        with the transform's reason; the plan of each call goes into
+        ``derivative_plan`` and ``LAST_PLAN[name][kind]``."""
+        key = (kind, tuple(wanted)) + ((int(dK), tuple(periodic)) if kind == "adjoint" else ())
+        hit = self._derivatives.get(key)
+        if hit is None:
+            try:
+                d = derivative.adjoint_stencil(self.analysis, wanted, dK, periodic) \
+                    if kind == "adjoint" else derivative.tangent_stencil(self.analysis, wanted)
+                hit = (d, CudaBackend(d.analysis, self._derivative_options))
+            except derivative.Declined as e:
+                hit = e
+            self._derivatives[key] = hit
+        if isinstance(hit, Exception):
+            self.derivative_declines += 1
+            rec = {"declined": str(hit), "wanted": list(wanted)}
+        else:
+            name = hit[0].stencil.name
+            rec = {"stencil": name, "wanted": list(wanted),
+                   "forms": LAST_PLAN.get(name, {}).get("forms")}
+        self.derivative_plan[kind] = rec
+        LAST_PLAN.setdefault(self.analysis.stencil.name, {})[kind] = rec
+        if isinstance(hit, Exception):
+            raise hit
+        return hit
+
+    def derivative_backends(self) -> Dict[str, List["CudaBackend"]]:
+        """The derivative stencils built so far, by kind."""
+        out: Dict[str, List[CudaBackend]] = {"adjoint": [], "tangent": []}
+        for key, hit in self._derivatives.items():
+            if not isinstance(hit, Exception):
+                out[key[0]].append(hit[1])
+        return out
 
     def build(self):
         """Compile (or load) the kernels; returns the ctypes library."""
@@ -4778,25 +4855,38 @@ class CudaBackend:
         self._kb_devices.add(device)
 
     def apply(self, env, scalars, domain, origins, periodic=(), frame=None,
-              levels=None) -> None:
+              levels=None, outputs=None) -> None:
         """Execute on ``env`` (logical views; written fields are fresh
         output buffers, see ``StencilObject._execute``); ``frame`` and
         ``levels``: the region frame and the levels run
-        (``torch_backend.TorchExecutor.run``)."""
+        (``torch_backend.TorchExecutor.run``).  ``outputs`` (a dict): a call
+        under K8 puts its written fields' new tensors there and leaves
+        ``env`` as it was (a copy into the views would hand the backward its
+        cotangents as contiguous clones); the caller takes them from there.
+        A call under K8 without ``outputs`` raises."""
         kinds = {v.device.type for v in env.values()}
         if kinds == {"cpu"}:
+            if self.derivative_opt == "kernels" and frame is None and levels is None and \
+                    wants_derivative([*env.values(), *scalars.values()]):
+                # the derivative stencils on the plain executor (their CPU form)
+                self._k8(self._plain_launch, env, scalars, domain, origins, periodic, outputs)
+                return
             run_plain(self.plain, env, scalars, domain, origins, periodic, frame, levels)
             return
         if kinds != {"cuda"}:
             raise ValueError(f"backend 'cuda' takes CPU or CUDA tensors, got {sorted(kinds)}")
-        self.run_kernels(env, scalars, domain, origins, periodic, frame, levels)
+        self.run_kernels(env, scalars, domain, origins, periodic, frame, levels, outputs)
+
+    def _plain_launch(self, env, scalars, domain, origins, periodic) -> None:
+        run_plain(self.plain, env, scalars, domain, origins, periodic)
 
     def run_kernels(self, env, scalars, domain, origins, periodic=(), frame=None,
-                    levels=None) -> None:
+                    levels=None, outputs=None) -> None:
         """Launch the kernels on ``env``; when a derivative is wanted, under
         K8: the primal from the kernels (a failed build or launch raises),
-        the derivative from the plain executor.  ``levels = (lo, hi)``: each
-        section's bounds (gt_run's ``kbv``) clipped to ``[lo, hi)``."""
+        the derivative from the derivative stencils or the plain executor.
+        ``levels = (lo, hi)``: each section's bounds (gt_run's ``kbv``)
+        clipped to ``[lo, hi)``; ``outputs``: see ``apply``."""
         if not wants_derivative([*env.values(), *scalars.values()]):
             self._launch(env, scalars, domain, origins, periodic, frame, levels)
             return
@@ -4806,9 +4896,15 @@ class CudaBackend:
         if frame is not None:
             raise NotImplementedError("cuda backend: no derivative of a call in a region frame "
                                       "(a call on DistributedFields)")
+        self._k8(self._launch, env, scalars, domain, origins, periodic, outputs)
+
+    def _k8(self, launch, env, scalars, domain, origins, periodic, outputs) -> None:
+        if outputs is None:
+            raise TypeError("cuda backend: a call under K8 hands its written fields back "
+                            "through apply's outputs")
         self.derivative_calls += 1
-        autodiff.kernel_call(self._launch, self.plain, self._written, env, scalars,
-                             domain, origins, periodic)
+        autodiff.kernel_call(launch, self.plain, self._written, env, scalars, domain, origins,
+                             periodic, outputs, kernels=self)
 
     def _check(self, env) -> torch.device:
         st = self.analysis.stencil
@@ -4955,7 +5051,8 @@ class CudaBackend:
             # the elements of the 16-byte words the call's kernels move
             record["vector"] = prog.vector_width(prog.vector_fields())
         kbs, plan, kbsz = self._depth_plan(dI * dJ, dK, dry=dry)
-        plan = {**plan, **record, "declined": {**plan["declined"], **record["declined"]}}
+        plan = {**plan, **record, "declined": {**plan["declined"], **record["declined"]},
+                **self.derivative_plan}
         # the staged kernels' windows: each field's levels (``_vark_slots``)
         vks, windows = [], []
         for k in prog.kernels:

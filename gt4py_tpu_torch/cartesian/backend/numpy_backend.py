@@ -675,10 +675,12 @@ class NumpyBackend:
         if exec_info is not None:
             exec_info["run_end_time"] = time.perf_counter()
 
-    def apply(self, env, scalars, domain, origins, periodic=(), frame=None) -> None:
+    def apply(self, env, scalars, domain, origins, periodic=(), frame=None,
+              outputs=None) -> None:
         """Execute on the port's ``env`` (logical (I, J, K, *data_dims)
         views, written fields fresh output buffers; see
-        ``StencilObject._execute``) through numpy views of the tensors.
+        ``StencilObject._execute``) through numpy views of the tensors,
+        filled in place (nothing goes into ``outputs``).
         ``frame`` (a rank's part of a global domain) is not supported."""
         import torch
 

@@ -715,8 +715,10 @@ class TorchBackend:
         self.executor = TorchExecutor(analysis)
 
     def apply(self, env, scalars, domain, origins, periodic=(), frame=None,
-              levels=None) -> None:
+              levels=None, outputs=None) -> None:
         """Execute on ``env`` (logical views; written fields are output
         buffers), see ``StencilObject._execute``; ``frame`` and ``levels``:
-        the region frame and the levels run (``TorchExecutor.run``)."""
+        the region frame and the levels run (``TorchExecutor.run``).  The
+        written fields are filled in place: nothing goes into ``outputs``
+        (``CudaBackend.apply``)."""
         run_plain(self.executor, env, scalars, domain, origins, periodic, frame, levels)

@@ -86,6 +86,17 @@ def logical_view(tensor: torch.Tensor, dimensions, data_ndim: int, physical: boo
     return tensor.reshape(full + shape[spatial:]) if spatial < 3 else tensor
 
 
+def physical_of(view: torch.Tensor, dimensions, data_ndim: int, physical: bool):
+    """The inverse of ``logical_view``: a view of the logical (I, J, K,
+    *data_dims) tensor ``view`` with the field tensor's axes."""
+    present = [ax for ax, m in zip("IJK", dimensions) if m]
+    t = view.reshape([n for n, m in zip(view.shape[:3], dimensions) if m] + list(view.shape[3:]))
+    if physical:
+        phys = [ax for ax in "KIJ" if ax in present]
+        t = t.permute(*[present.index(ax) for ax in phys], *range(len(present), t.ndim))
+    return t
+
+
 class StencilObject:
     """A built, callable stencil.
 
@@ -297,7 +308,14 @@ class StencilObject:
                                          len(decl.data_dims), physical)
         if exec_info is not None:
             exec_info["run_start_time"] = time.perf_counter()
-        self.backend.apply(env, scalars, domain, origins3, periodic, frame=frame)
+        # a call under K8 gives back its written fields' new tensors
+        # (autograd's outputs) instead of filling ``env``
+        replaced: Dict[str, torch.Tensor] = {}
+        self.backend.apply(env, scalars, domain, origins3, periodic, frame=frame,
+                           outputs=replaced)
+        for name, new in replaced.items():
+            decl = self.ir.field_decls[name]
+            outs[name] = physical_of(new, decl.dimensions, len(decl.data_dims), physical)
         if exec_info is not None:
             exec_info["run_end_time"] = time.perf_counter()
         return outs

@@ -1323,6 +1323,21 @@ def _out_buffer(axes: List[int], domain, dtype, device) -> Tuple[torch.Tensor, t
     return t, _kernel_view(t, present)
 
 
+def _from_kernel_view(view: torch.Tensor, axes: List[int]) -> torch.Tensor:
+    """The inverse of ``_out_buffer``'s logical view: the (I, J, K) tensor
+    ``view`` on the axes ``axes`` only, in sorted-axis order."""
+    return view[tuple(slice(None) if ax in axes else 0 for ax in range(3))]
+
+
+def _apply(backend, env, scalars, domain, origins) -> Dict[str, torch.Tensor]:
+    """``backend.apply``; returns the written fields that a call under K8
+    handed back as new tensors (``CudaBackend.apply``'s ``outputs``), the
+    others filled in place."""
+    got: Dict[str, torch.Tensor] = {}
+    backend.apply(env, scalars, domain, origins, outputs=got)
+    return got
+
+
 def _to_declared(t: torch.Tensor, axes: List[int]) -> torch.Tensor:
     """A sorted-axis output back in the declared dims order ``axes``."""
     srt = sorted(axes)
@@ -1446,7 +1461,9 @@ def run_plan(plan: BridgePlan, args: Tuple[Any, ...], restrict=None) -> Field:
         origins[nm] = (0, 0, 0)
         outs.append(out)
 
-    lay.backend.apply(env, scalars, lay.domain, origins)
+    got = _apply(lay.backend, env, scalars, lay.domain, origins)
+    outs = [_from_kernel_view(got[nm], out_axes) if nm in got else out
+            for (nm, _, _, _), out_axes, out in zip(plan.outs, lay.out_axes, outs)]
 
     results = []
     for (nm, dims, _, _), out_axes, out in zip(plan.outs, lay.out_axes, outs):
@@ -1784,7 +1801,9 @@ def run_scan_plan(plan: ScanBridgePlan, args: Tuple[Any, ...]):
         origins[nm] = (0, 0, 0)
         outs.append(out)
 
-    lay.backend.apply(env, scalars, lay.domain, origins)
+    got = _apply(lay.backend, env, scalars, lay.domain, origins)
+    outs = [_from_kernel_view(got[nm], out_axes) if nm in got else out
+            for nm, out in zip(plan.out_names, outs)]
 
     dom = Domain(
         tuple(plan.out_dims),
@@ -2672,7 +2691,9 @@ def execute_program_instance(
         for new, (kind, qv) in inst.scalar_feeds
     }
 
-    inst.backend.apply(views, scalars, inst.domain, origins)
+    for nm, new in _apply(inst.backend, views, scalars, inst.domain, origins).items():
+        m = next(m for writes in inst.stmt_writes for m in writes if m.out_name == nm)
+        outs[nm] = _from_kernel_view(new, m.axes)
 
     # ---- assemble the out buffers in statement order ---- #
     def write_region(parent: Field, dims, region: Dict[int, Tuple[int, int]], value):
