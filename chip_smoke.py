@@ -127,7 +127,18 @@ Phases (a failed phase raises, and the script exits non-zero):
    differences; the sort-routed FVM energy's gradient at n = 512 float32,
    K9 launched once per forward permute and once per backward one, against
    the index path; ``torch.func.grad`` and ``torch.func.vjp`` of the
-   MiniDycore step loss against ``torch.autograd.grad``;
+   MiniDycore step loss against ``torch.autograd.grad``; then (b) the
+   constructs the adjoint once declined (``_construct_grads``, one
+   definition each of ``testing.derivative_constructs.CHIP``: writes at a K
+   offset, a data-dimension component, a lower-dimensional field read and
+   written, run-time interval bounds, a variable-K read of a written
+   field): the gradient on the adjoint kernels, with ``derivative=
+   "kernels"`` and with the default, against the plain executor's on the
+   card, float64 at ``CONSTRUCT_SMALL`` to rtol 1e-12 and float32 at
+   512x512x80 to ``GRAD_RTOL_F32``/``GRAD_ATOL_F32``, on the models' (K, I,
+   J) buffers, each call one adjoint call and no plain re-run, and each
+   adjoint kernel's device time at 512x512x80 beside its bound
+   (``_k8_bytes``);
 10. plan modes: (a) fault 1's loop (a FORWARD loop reading ``t[1, 0, 0]``
    of the ``t`` it writes), a K-carried temporary read at offsets, reads
    of values the sweep has not written yet in the plane-sweep form, and
@@ -216,7 +227,15 @@ Phases (a failed phase raises, and the script exits non-zero):
    at a time) on ``"cuda"`` on DistributedFields, every phase's kernels
    counted by its library on every rank, each bit for bit the
    single-device ``"cuda"`` run, with its exchanges and CUDA-event times
-   beside the single-device time.  A failing rank fails the phase;
+   beside the single-device time; then the gradients
+   (``testing.dist_cases.chip_grads``, in the same launch, float64 at the
+   same size): the sharded MiniDycore step's (``shard_map_stencil``,
+   periodic) and a global-view hdiff call's, every rank's backward on the
+   adjoint kernels (no plain re-run) and through the transposed exchange,
+   gathered and held by rank 0 to the single-device gradients on the card
+   at rtol 1e-12 of the largest entry, and each rank's forward and
+   transposed exchange of the step's five fields timed (host clock,
+   median of 5) with their bytes.  A failing rank fails the phase;
 16. the examples (``--examples`` alone; ``_examples``): every module of
    ``gt4py_tpu_torch.examples`` as its command, each its own process, all
    started together; each must exit 0 on the card and launch CUDA kernels
@@ -1037,6 +1056,138 @@ def _routed_gradient(case) -> dict:
           f"atol {atol:.3e}), bitwise equal {torch.equal(g, g_index)}")
     return {"k9_launches": k9, "forward_permutes": forward, "max_abs_err": err[0],
             "bitwise": torch.equal(g, g_index)}
+
+
+#: phase 9 (b): the float64 domain of the constructs' legs (the float32
+#: one is NI x NJ x NK)
+CONSTRUCT_SMALL = (32, 48, 12)
+
+
+def _construct_builds(dev) -> dict:
+    """Phase 9 (b)'s stencils: (construct, dtype) -> (domain, {"kernels":
+    ``"cuda"`` with ``derivative="kernels"``, "default": ``"cuda"``,
+    "plain": ``"torch"``}) for each of ``derivative_constructs.CHIP``,
+    float64 at ``CONSTRUCT_SMALL`` and float32 at NI x NJ x NK."""
+    from gt4py_tpu_torch.cartesian import gtscript
+    from gt4py_tpu_torch.testing import derivative_constructs as dc
+
+    out = {}
+    for dtype, domain in (("float64", CONSTRUCT_SMALL), ("float32", (NI, NJ, NK))):
+        defs = dc.build(dtype=dtype)
+        for name in dc.CHIP:
+            out[(name, dtype)] = (domain, {
+                opt: gtscript.stencil(backend=backend, definition=defs[name], rebuild=True,
+                                      name=f"{name}_{dtype}", **kw)
+                for opt, backend, kw in (("kernels", "cuda", {"derivative": "kernels"}),
+                                         ("default", "cuda", {}), ("plain", "torch", {}))})
+    return out
+
+
+def _construct_wanted(st, name):
+    """The inputs a construct's gradient wants, in the call's order, and
+    its run-time interval bounds: the key of its adjoint."""
+    from gt4py_tpu_torch.cartesian import derivative
+    from gt4py_tpu_torch.testing import derivative_constructs as dc
+
+    wrt, scalars = dc.CASES[name]
+    stencil = st.backend.analysis.stencil
+    wanted = tuple(p.name for p in stencil.api_params if p.is_field and p.name in wrt)
+    return wanted, {k: scalars[k] for k in derivative.runtime_bounds(stencil)}
+
+
+def _construct_backends(builds) -> list:
+    """The constructs' forward and adjoint stencils' backends, for the
+    parallel build."""
+    out = []
+    for (name, _), (domain, sts) in builds.items():
+        for opt in ("kernels", "default"):
+            b = sts[opt].backend
+            wanted, bounds = _construct_wanted(sts[opt], name)
+            out += [b, b.derivative("adjoint", wanted, domain[2], (), bounds)[1]]
+    return out
+
+
+def _construct_grads(smi, builds, dev) -> dict:
+    """Phase 9 (b): each construct's gradient on its adjoint kernels against
+    the plain executor's on the card (see the module's docstring)."""
+    import numpy as np
+    import torch
+
+    from gt4py_tpu_torch.cartesian.backend.cuda_backend import LAST_PLAN
+    from gt4py_tpu_torch.testing import derivative_constructs as dc
+
+    out = {}
+    for (name, dtype), (domain, sts) in builds.items():
+        wrt, scalars = dc.CASES[name]
+        fields, weights = dc.inputs(sts["plain"].backend.analysis, domain, sum(map(ord, name)),
+                                    np.dtype(dtype))
+
+        def physical(a):  # the models' (K, I, J) layout, J contiguous
+            return torch.from_numpy(np.ascontiguousarray(
+                np.moveaxis(a, 2, 0) if a.ndim >= 3 else a)).to(dev)
+
+        tensors = {k: physical(v) for k, v in fields.items()}
+        wts = {k: physical(v) for k, v in weights.items()}
+
+        def grad_of(st):
+            fn = st.functional(origin=dc.ORIGIN, domain=domain, physical_layout=True)
+            leaves = [tensors[n].clone().requires_grad_() for n in wrt]
+            outs = fn(**{**tensors, **dict(zip(wrt, leaves))}, **scalars)
+            loss = sum((outs[k] * w).sum() for k, w in wts.items())
+            return torch.autograd.grad(loss, leaves)
+
+        ref = grad_of(sts["plain"])
+        rec = {"domain": domain}
+        for opt in ("kernels", "default"):
+            b = sts[opt].backend
+            before = (b.adjoint_calls, b.plain_reruns, b.derivative_declines)
+            got = grad_of(sts[opt])
+            if dev.type == "cuda":
+                torch.cuda.synchronize()
+            counts = tuple(x - y for x, y in zip(
+                (b.adjoint_calls, b.plain_reruns, b.derivative_declines), before))
+            if counts != (1, 0, 0):
+                raise AssertionError(f"{name} {dtype} {opt}: (adjoint calls, plain re-runs, "
+                                     f"declines) {counts}; {b.derivative_plan}")
+            errs = []
+            for n, g, r in zip(wrt, got, ref):
+                scale = float(r.abs().max())
+                if dtype == "float64":
+                    tol = (1e-12, 1e-12 * scale)
+                else:
+                    tol = (GRAD_RTOL_F32, GRAD_ATOL_F32 * scale)
+                errs.append(_check_close(f"{name} {dtype} {opt} gradient d/d{n} vs plain", g, r,
+                                         *tol)[0] / max(scale, 1e-300))
+                if not scale > 0:
+                    raise AssertionError(f"{name} {dtype}: the plain gradient d/d{n} is zero")
+            rec[opt] = {"max_abs_err_over_largest": max(errs),
+                        "adjoint": LAST_PLAN[b.analysis.stencil.name]["adjoint"]}
+        if dtype == "float32":
+            st = sts["default"]
+            _, rows = _device_ms(lambda: grad_of(st), n=5)
+            bound = _bound_ms(_k8_bytes(st.backend.analysis, domain))
+            for adj in st.backend.derivative_backends()["adjoint"]:
+                mine = {k: v for k, v in rows.items() if f"{adj.analysis.stencil.name}_k" in k}
+                ms = sum(v[0] for v in mine.values())
+                rec["adjoint_kernels"] = {
+                    "stencil": adj.analysis.stencil.name, "device_ms": ms if mine else None,
+                    "launches_per_call": sum(v[1] for v in mine.values()),
+                    "bound_ms": bound, "forms": LAST_PLAN.get(adj.analysis.stencil.name,
+                                                              {}).get("forms")}
+                if not mine:
+                    raise AssertionError(f"{name}: the profile shows no kernel of "
+                                         f"{adj.analysis.stencil.name}")
+                print(f"K8 construct {name} f32 {domain}: adjoint {adj.analysis.stencil.name} "
+                      f"forms {rec['adjoint_kernels']['forms']} device {ms:.4f} ms a backward "
+                      f"({rec['adjoint_kernels']['launches_per_call']:g} launches) against "
+                      f"its bound {bound:.4f} ms ({100 * bound / ms:.1f} % of it); {smi}")
+        print(f"K8 construct {name} {dtype} {domain}: adjoint kernels (derivative='kernels' "
+              f"and the default) vs the plain executor's gradient, max abs over the largest "
+              f"entry {rec['kernels']['max_abs_err_over_largest']:.3e} / "
+              f"{rec['default']['max_abs_err_over_largest']:.3e}; one adjoint call, no "
+              f"plain re-run")
+        out[f"{name}_{dtype}"] = rec
+    return out
 
 
 #: the inputs phase 9 differentiates, by stencil: the FullDycore step's
@@ -3169,7 +3320,8 @@ def k3_only() -> int:
 def k8_only() -> int:
     """``--k8``: phase 9 alone, without the routed FVM gradient: the
     FullDycore path's adjoint and tangent kernels against the plain
-    backward, their device times and bounds."""
+    backward, their device times and bounds; then the constructs' adjoints
+    (phase 9 (b))."""
     import numpy as np
     import torch
 
@@ -3187,12 +3339,14 @@ def k8_only() -> int:
                          for b in ("cuda", "torch"))
               for key, shape, dtype in (("f32", (NI, NJ, NK), np.float32),
                                         ("f64", SMALL, np.float64))}
+    construct_builds = _construct_builds(dev)
     t0 = time.perf_counter()
     n = build_all([st.backend for fd, _ in models.values()
                    for st in (*_grad_path(fd).values(), fd.sl, fd.dyn.hdiff)]
-                  + _derivative_builds(models))
+                  + _derivative_builds(models) + _construct_backends(construct_builds))
     print(f"build: {n} sources, {time.perf_counter() - t0:.2f} s (nvcc in parallel)")
     result = _gradients(smi, models, None)
+    result["constructs"] = _construct_grads(smi, construct_builds, dev)
     print(smi)
     print(json.dumps({**result, "profile_losses": PROFILE_LOSSES, "card": smi}, default=str))
     return 1 if PROFILE_LOSSES else 0
@@ -3377,6 +3531,7 @@ def main() -> int:
     sweep_sts = _sweep_builds()
     tight = _tight_builds()
     k3_builds = _k3_builds()
+    construct_builds = _construct_builds(dev)
     next_cases = {key: bench_cases(c["dtype"], c["shape"], dev) for key, c in configs.items()}
     next_kernels = [b for cases in next_cases.values() for case in cases.values()
                     for b in case["kernels"]()]
@@ -3387,7 +3542,7 @@ def main() -> int:
             + [st for label, st in sweep_sts.items() if label != "plain"]
             + [st for st, _ in tight["builds"].values()] + _k3_stencils(k3_builds)]
         + next_kernels + fuzz_builds["backends"] + [benes.KERNEL] + _dist_builds()
-        + _derivative_builds(models))
+        + _derivative_builds(models) + _construct_backends(construct_builds))
     build_s = time.perf_counter() - t0
     print(f"build: {n_sources} sources, {build_s:.2f} s (nvcc in parallel)")
     for st in main_stencils + phase10_stencils:
@@ -3831,6 +3986,7 @@ def main() -> int:
 
     # -- 9. gradients (K8, and K9 in the backward) --------------------------
     gradients = _gradients(smi, models, fvm["cases"]["irregular"])
+    gradients["entry"]["constructs"] = _construct_grads(smi, construct_builds, dev)
     kernels.append(gradients["entry"])
     k9_entry["backward"] = gradients["summary"]["routed"]
 
@@ -4259,9 +4415,19 @@ def _dist_builds():
     # the stencils of their phases
     phased = [dist_cases._ring_stencil("cuda")] + [
         dist_cases.gspmd_stencil(sd, "cuda")[0] for sd in dist_cases.PHASED_SEEDS]
+    # the gradients (chip_grads): MiniDycore's stencils in float64 and their
+    # adjoints on the blocks' levels, every field wanted (the global view's
+    # hdiff shares hdiff's)
+    md64 = dycore.MiniDycore(8, 8, 4, dtype=np.float64, backend="cuda", aligned=False,
+                             device=dev)
+    grads = []
+    for st in (md64.hdiff, md64.vadv_upd):
+        api = tuple(p.name for p in st.backend.analysis.stencil.api_params if p.is_field)
+        grads += [st.backend, st.backend.derivative("adjoint", api, DIST_SHAPE[0], ())[1]]
     return [md.hdiff.backend, md.vadv_upd.backend, fv.fv_step.backend] + [
         dist_cases.gspmd_stencil(sd, "cuda")[0].backend for sd in dist_cases.GSPMD_SEEDS] + [
-        st.backend for st in phased] + [o.backend for st in phased for o in _plan_of(st).onces]
+        st.backend for st in phased] + [o.backend for st in phased for o in _plan_of(st).onces] \
+        + grads
 
 
 def _distribution(smi: str) -> dict:
@@ -4279,13 +4445,15 @@ def _distribution(smi: str) -> dict:
     with tempfile.TemporaryDirectory(prefix="chip_dist_") as work:
         both = dist_cases.launch(
             {"p15": dict(case="chip_distribution", shape=DIST_SHAPE, steps=DIST_STEPS),
-             "phased": dict(case="chip_phased")},
+             "phased": dict(case="chip_phased"),
+             "grads": dict(case="chip_grads", shape=DIST_SHAPE)},
             workdir=work, ranks=DIST_RANKS, shape=DIST_MESH, device="cuda", strict=True,
             timeout=600)
     wall_s = time.perf_counter() - t0
     res = both["p15"]
     out = res[0][1]
     phased = _phased(both["phased"][0][1], smi)
+    grads = _dist_grads(both["grads"][0][1], out_ranks=both["p15"][0][1]["ranks"], smi=smi)
     ranks = out.pop("ranks")
     for r in ranks:
         for name in ("hdiff", "vadv_update"):
@@ -4341,7 +4509,45 @@ def _distribution(smi: str) -> dict:
               f"({r['exchange']['bytes']} B; bfloat16 wire {r['wire_exchange_ms']:.3f} ms), "
               f"kernels {r['kernel_ms']}, FvAdvection step {r['fv_sharded_step_ms']:.3f} ms, "
               f"launches {r['launches']}")
-    return {"card": smi, "wall_s": wall_s, "ranks": ranks, **out, "phased": phased}
+    return {"card": smi, "wall_s": wall_s, "ranks": ranks, **out, "phased": phased,
+            "grads": grads}
+
+
+def _dist_grads(res: dict, out_ranks: list, smi: str) -> dict:
+    """Phase 15's gradients (``dist_cases.chip_grads``): every rank's
+    backward ran the adjoint kernels (no plain re-run) and the transposed
+    exchange; rank 0's gathered gradients of the sharded step and of the
+    global-view hdiff equal the single-device ones at rtol 1e-12.  Prints
+    each rank's forward and transposed exchange, beside the float32
+    exchange of the same launch."""
+    ranks = res["ranks"]
+    for r in ranks:
+        for name, (adj, reruns) in [*r["step_adjoint"].items(),
+                                    ("global hdiff", r["global_adjoint"])]:
+            if adj < 1 or reruns:
+                raise RuntimeError(f"phase 15: rank {r['rank']}'s {name} gradient: adjoint "
+                                   f"calls {adj}, plain re-runs {reruns}")
+        for key in ("step_transpose", "global_transpose", "transpose"):
+            if r[key].get("backend") != "gloo" or not r[key].get("bytes"):
+                raise RuntimeError(f"phase 15: rank {r['rank']}'s {key}: {r[key]}")
+    for what in ("step", "global"):
+        for n, c in res[what].items():
+            if not (c["close"] and c["finite"] and c["largest"] > 0):
+                raise RuntimeError(f"phase 15: the {what} gradient d/d{n} against the "
+                                   f"single-device one: {c}")
+    print(f"phase 15 ({smi}): gradients on {DIST_RANKS} gloo ranks, float64 {DIST_SHAPE}: "
+          f"sharded MiniDycore step (periodic) max |sharded - single| "
+          f"{ {n: c['max_abs_err'] for n, c in res['step'].items()} }, global-view hdiff "
+          f"{ {n: c['max_abs_err'] for n, c in res['global'].items()} } (rtol 1e-12 against "
+          f"the largest entry); adjoint calls, plain re-runs {ranks[0]['step_adjoint']}")
+    for r, f32 in zip(ranks, out_ranks):
+        print(f"phase 15 ({smi}): rank {r['rank']} float64 exchange of 5 fields "
+              f"{r['exchange_ms']:.3f} ms ({r['exchange']['bytes']} B), transposed "
+              f"{r['transpose_ms']:.3f} ms ({r['transpose']['bytes']} B); the step's backward "
+              f"exchange {r['step_transpose']['seconds'] * 1e3:.3f} ms "
+              f"({r['step_transpose']['bytes']} B); float32 exchange {f32['exchange_ms']:.3f} "
+              f"ms (host clock, median of 5)")
+    return res
 
 
 def _phased(res: dict, smi: str) -> dict:

@@ -12,9 +12,11 @@ one ``torch.autograd.Function`` does the same around a kernel launch:
   forward's IR reversed in gather form, built by the ``"cuda"`` backend)
   runs on the inputs from before the call and the outputs' cotangents and
   writes the input gradients -- the kernels on the card; a tensor
-  scalar's gradient is the sum of its per-point contribution field.
-  Under a ``torch.func`` transform (``grad``, ``vjp``) the same kernels run
-  on the tensors under its wrappers;
+  scalar's gradient is the sum of its per-point contribution field, a
+  lower-dimensional field's that sum over the axes it lacks; a call on
+  DistributedFields runs it in its region frame.  Under a ``torch.func``
+  transform (``grad``, ``vjp``) the same kernels run on the tensors under
+  its wrappers;
 - jvp: the tangent stencil (the forward's loops with a tangent statement
   before each assignment) on the inputs and their tangents, under
   ``torch.func.jvp`` and ``torch.autograd.forward_ad`` alike.
@@ -82,6 +84,8 @@ class _Call:
     periodic: Tuple[str, ...]
     #: the derivative stencils' source (``CudaBackend``), or None
     kernels: Any = None
+    #: the region frame (a call on DistributedFields), or None
+    frame: Optional[Tuple[int, int, int, int]] = None
 
     def bind(self, tensors: Sequence[torch.Tensor]):
         """The call's env (written fields as clones, which the call fills)
@@ -94,7 +98,8 @@ class _Call:
 
     def run_plain(self, tensors) -> List[torch.Tensor]:
         env, scalars = self.bind(tensors)
-        run_plain(self.plain, env, scalars, self.domain, self.origins, self.periodic)
+        run_plain(self.plain, env, scalars, self.domain, self.origins, self.periodic,
+                  self.frame)
         return [env[name] for name in self.written]
 
 
@@ -105,7 +110,10 @@ class _KernelCall(torch.autograd.Function):
     @staticmethod
     def forward(call: _Call, *tensors):
         env, scalars = call.bind(tensors)
-        call.launch(env, scalars, call.domain, call.origins, call.periodic)
+        if call.frame is None:
+            call.launch(env, scalars, call.domain, call.origins, call.periodic)
+        else:
+            call.launch(env, scalars, call.domain, call.origins, call.periodic, call.frame)
         return tuple(env[name] for name in call.written)
 
     @staticmethod
@@ -260,24 +268,58 @@ def _fold(g: torch.Tensor, origin, domain, ext, axes) -> None:
             v[o - lo: o] = 0
 
 
+def _summed(c: torch.Tensor, like: torch.Tensor, origin, domain, lacks, e, lv, kl):
+    """A lower-dimensional field's gradient from its per-point contribution
+    ``c`` (over the domain grown by ``e`` and the adjoint's levels up to
+    ``lv[1]``, ``kl`` of them below the call's): summed over the axes in
+    ``lacks`` and added into a zero tensor like the field's view."""
+    g = torch.zeros_like(like)
+    red = c.sum(dim=[ax for ax, n in enumerate("IJK") if n in lacks], keepdim=True)
+    src, dst = [], []
+    for ax, (lo, hi) in enumerate((e.i, e.j)):
+        if "IJ"[ax] in lacks:
+            src.append(slice(None))
+            dst.append(slice(0, 1))
+        else:
+            src.append(slice(None))
+            dst.append(slice(origin[ax] + lo, origin[ax] + domain[ax] + hi))
+    if "K" in lacks:
+        src.append(slice(None))
+        dst.append(slice(0, 1))
+    else:
+        src.append(slice(lv[0], lv[1]))
+        dst.append(slice(origin[2] - kl + lv[0], origin[2] - kl + lv[1]))
+    g[tuple(dst)] += red[tuple(src)]
+    return g
+
+
 def _declined(call: _Call, e: derivative.Declined) -> None:
     """Raise ``e`` unless the plain re-run may take the derivative: it may
-    only for the constructs of ``derivative.PLAIN_RERUN``, and never with a
-    forced ``derivative="kernels"``."""
+    only for the constructs of ``derivative.PLAIN_RERUN`` (``while``,
+    variable-K, absolute-K and dynamic data-index reads whose bar is a
+    scatter or a reduction, ``gamma``), and never with a forced
+    ``derivative="kernels"``; the open ones (``OFFSET_WRITE``,
+    ``LOWER_DIM`` as narrowed there) raise on the card."""
     if call.kernels.derivative_opt == "kernels" or not e.reruns:
         raise e
 
 
 def _adjoint_kernels(call: _Call, saved, needs, grads):
-    """The input gradients from the adjoint stencil (None: it declines with
-    a reason of ``derivative.PLAIN_RERUN`` and the plain re-run gives them;
-    any other decline, and every decline under a forced
-    ``derivative="kernels"``, raises)."""
+    """The input gradients from the adjoint stencil, built for the call's
+    levels, periodic axes and values of its run-time interval bounds, and
+    run in its region frame (None: it declines with a reason of
+    ``derivative.PLAIN_RERUN`` and the plain re-run gives them; any other
+    decline, and every decline under a forced ``derivative="kernels"``,
+    raises)."""
     n = len(call.names)
     wanted = tuple([nm for nm, need in zip(call.names, needs[:n]) if need] +
                    [nm for nm, need in zip(call.tensor_scalars, needs[n:]) if need])
+    values = {**call.scalars, **dict(zip(call.tensor_scalars, saved[n:]))}
+    bounds = {nm: int(values[nm])
+              for nm in derivative.runtime_bounds(call.plain.analysis.stencil)}
     try:
-        d, backend = call.kernels.derivative("adjoint", wanted, call.domain[2], call.periodic)
+        d, backend = call.kernels.derivative("adjoint", wanted, call.domain[2], call.periodic,
+                                             bounds)
     except derivative.Declined as e:
         _declined(call, e)
         return None
@@ -297,12 +339,28 @@ def _run_adjoint(call: _Call, d, backend, saved, needs, grads) -> tuple:
     origins = {nm: at[nm] for nm in call.names}
     cot = {}
     for nm, g in zip(call.written, grads):
-        if nm in d.cots:
+        if nm in d.planes:
+            # the state and the bar of a written lower-dimensional field
+            state, bar = d.planes[nm]
+            env[state], origins[state] = env[nm].clone(), at[nm]
+            env[bar] = torch.zeros_like(env[nm]) if g is None else g.clone()
+            origins[bar] = at[nm]
+        elif nm in d.cots:
             # in the field's own layout (the kernels read J rows)
             cot[nm] = torch.zeros_like(env[nm]) if g is None else g \
                 if g.stride() == env[nm].stride() else torch.empty_like(env[nm]).copy_(g)
             env[d.cots[nm]], origins[d.cots[nm]] = cot[nm], at[nm]
     for nm, g in d.grads.items():
+        if nm in d.planes:
+            continue
+        if nm in d.sums:
+            # a per-point contribution on every axis, summed below
+            _, e, lv = d.sums[nm]
+            shape = (dom[0] - e.i[0] + e.i[1], dom[1] - e.j[0] + e.j[1], lv[1])
+            env[g] = torch.zeros(shape + tuple(env[nm].shape[3:]), dtype=env[nm].dtype,
+                                 device=env[nm].device)
+            origins[g] = (-e.i[0], -e.j[0], 0)
+            continue
         env[g] = cot[nm].clone() if nm in d.passthrough else torch.zeros_like(env[nm])
         origins[g] = at[nm]
     scalars = dict(call.scalars)
@@ -321,17 +379,25 @@ def _run_adjoint(call: _Call, d, backend, saved, needs, grads) -> tuple:
         env.update(copies)
     periodic = () if d.fill else call.periodic
     kernels = saved[0].device.type == "cuda"
+    shapes = {bar: tuple(env[bar].shape) for _, bar in d.planes.values()}
     for nm, reach in d.reach.items():
         if nm in env:
             env[nm], origins[nm] = _padded(env[nm], origins[nm], reach, dom,
                                            periodic if kernels else ())
     got: Dict[str, torch.Tensor] = {}
-    backend.apply(env, scalars, dom, origins, periodic, outputs=got)
+    backend.apply(env, scalars, dom, origins, periodic, frame=call.frame, outputs=got)
     env.update(got)
     for nm in filled:
         if nm in d.grads:
             _fold(env[d.grads[nm]], origins[d.grads[nm]], dom, fwd.extents.field_extent(nm),
                   d.fill)
+    for nm, (_, bar) in d.planes.items():
+        # the bar (the field's gradient) back in the field's own window
+        lo = [o - a for o, a in zip(origins[bar], at[nm])]
+        env[bar] = env[bar][tuple(slice(x, x + n) for x, n in zip(lo, shapes[bar]))]
+    for nm, (lacks, e, lv) in d.sums.items():
+        env[d.grads[nm]] = _summed(env[d.grads[nm]], saved[call.names.index(nm)],
+                                   call.origins[nm], call.domain, lacks, e, lv, kl)
     call.kernels.adjoint_calls += 1
     out = []
     for i, need in enumerate(needs):
@@ -383,7 +449,8 @@ def _run_tangent(call: _Call, d, backend, saved, tans) -> tuple:
         if nm in d.dots:
             scalars[d.dots[nm]] = tans[nm] if tans[nm] is not None else 0.0
     got: Dict[str, torch.Tensor] = {}
-    backend.apply(env, scalars, call.domain, origins, call.periodic, outputs=got)
+    backend.apply(env, scalars, call.domain, origins, call.periodic, frame=call.frame,
+                  outputs=got)
     env.update(got)
     call.kernels.tangent_calls += 1
     return tuple(env[d.dots[nm]] if nm in d.dots else
@@ -393,17 +460,19 @@ def _run_tangent(call: _Call, d, backend, saved, tans) -> tuple:
 
 def kernel_call(launch: Callable, plain: TorchExecutor, written: Sequence[str],
                 env: Dict[str, torch.Tensor], scalars: Dict[str, Any], domain, origins,
-                periodic, outputs: dict, kernels=None) -> None:
-    """Run ``launch(env, scalars, domain, origins, periodic)`` -- which
-    fills the written fields of ``env`` in place -- as a differentiable
-    operation on clones of the written fields: their new tensors go into
-    ``outputs`` and ``env`` stays as it was.  ``kernels``: the backend
-    whose derivative stencils the backward and jvp may run."""
+                periodic, outputs: dict, kernels=None, frame=None) -> None:
+    """Run ``launch(env, scalars, domain, origins, periodic[, frame])`` --
+    which fills the written fields of ``env`` in place -- as a
+    differentiable operation on clones of the written fields: their new
+    tensors go into ``outputs`` and ``env`` stays as it was.  ``kernels``:
+    the backend whose derivative stencils the backward and jvp may run;
+    ``frame``: the region frame, in which they run too."""
     names = list(env)
     tensor_scalars = [n for n, v in scalars.items() if isinstance(v, torch.Tensor)]
     call = _Call(launch, plain, names, [n for n in names if n in written], tensor_scalars,
                  {n: v for n, v in scalars.items() if n not in tensor_scalars},
-                 tuple(domain), dict(origins), tuple(periodic), kernels)
+                 tuple(domain), dict(origins), tuple(periodic), kernels,
+                 None if frame is None else tuple(frame))
     outs = _KernelCall.apply(call, *[env[n] for n in names],
                              *[scalars[n] for n in tensor_scalars])
     outputs.update(zip(call.written, outs))

@@ -4657,6 +4657,12 @@ def _field_arg(view: torch.Tensor, origin) -> Tuple[int, List[int]]:
         klo, khi, s0, s0 + storage.nbytes()]
 
 
+#: a phased call's derivative: its phases iterate ``while`` loops and step
+#: serial loops a level at a time, which no derivative stencil follows
+PHASED_DERIVATIVE = "cuda backend: no derivative of a call on some levels (a phased call on " \
+                    "DistributedFields)"
+
+
 @register("cuda")
 class CudaBackend:
     """Generated CUDA kernels for CUDA tensors, the plain executor for CPU
@@ -4742,18 +4748,23 @@ class CudaBackend:
         return self.program.source
 
     def derivative(self, kind: str, wanted: Sequence[str], dK: Optional[int] = None,
-                   periodic: Sequence[str] = ()):
+                   periodic: Sequence[str] = (), bounds: Optional[Dict[str, int]] = None):
         """K8's derivative stencil of ``kind`` (``"adjoint"``, on ``dK``
-        levels and periodic on ``periodic``, or ``"tangent"``) for the
-        inputs ``wanted``: ``(derivative.Derivative, CudaBackend)``, built
-        at the first call for each key.  Raises ``derivative.Declined``
-        with the transform's reason; the plan of each call goes into
-        ``derivative_plan`` and ``LAST_PLAN[name][kind]``."""
-        key = (kind, tuple(wanted)) + ((int(dK), tuple(periodic)) if kind == "adjoint" else ())
+        levels, periodic on ``periodic``, for the run-time interval bounds'
+        values ``bounds``, or ``"tangent"``) for the inputs ``wanted``:
+        ``(derivative.Derivative, CudaBackend)``, built at the first call
+        for each key (an adjoint for each new bound value: one more nvcc
+        build).  Raises ``derivative.Declined`` with the transform's
+        reason; the plan of each call goes into ``derivative_plan`` and
+        ``LAST_PLAN[name][kind]``."""
+        bounds = tuple(sorted((bounds or {}).items()))
+        key = (kind, tuple(wanted)) + (
+            (int(dK), tuple(periodic), bounds) if kind == "adjoint" else ())
         hit = self._derivatives.get(key)
         if hit is None:
             try:
-                d = derivative.adjoint_stencil(self.analysis, wanted, dK, periodic) \
+                d = derivative.adjoint_stencil(self.analysis, wanted, dK, periodic,
+                                               dict(bounds)) \
                     if kind == "adjoint" else derivative.tangent_stencil(self.analysis, wanted)
                 hit = (d, CudaBackend(d.analysis, self._derivative_options))
             except derivative.Declined as e:
@@ -4866,10 +4877,13 @@ class CudaBackend:
         A call under K8 without ``outputs`` raises."""
         kinds = {v.device.type for v in env.values()}
         if kinds == {"cpu"}:
-            if self.derivative_opt == "kernels" and frame is None and levels is None and \
+            if self.derivative_opt == "kernels" and \
                     wants_derivative([*env.values(), *scalars.values()]):
+                if levels is not None:
+                    raise NotImplementedError(PHASED_DERIVATIVE)
                 # the derivative stencils on the plain executor (their CPU form)
-                self._k8(self._plain_launch, env, scalars, domain, origins, periodic, outputs)
+                self._k8(self._plain_launch, env, scalars, domain, origins, periodic, outputs,
+                         frame)
                 return
             run_plain(self.plain, env, scalars, domain, origins, periodic, frame, levels)
             return
@@ -4877,8 +4891,8 @@ class CudaBackend:
             raise ValueError(f"backend 'cuda' takes CPU or CUDA tensors, got {sorted(kinds)}")
         self.run_kernels(env, scalars, domain, origins, periodic, frame, levels, outputs)
 
-    def _plain_launch(self, env, scalars, domain, origins, periodic) -> None:
-        run_plain(self.plain, env, scalars, domain, origins, periodic)
+    def _plain_launch(self, env, scalars, domain, origins, periodic, frame=None) -> None:
+        run_plain(self.plain, env, scalars, domain, origins, periodic, frame)
 
     def run_kernels(self, env, scalars, domain, origins, periodic=(), frame=None,
                     levels=None, outputs=None) -> None:
@@ -4886,25 +4900,24 @@ class CudaBackend:
         K8: the primal from the kernels (a failed build or launch raises),
         the derivative from the derivative stencils or the plain executor.
         ``levels = (lo, hi)``: each section's bounds (gt_run's ``kbv``)
-        clipped to ``[lo, hi)``; ``outputs``: see ``apply``."""
+        clipped to ``[lo, hi)``; ``outputs``: see ``apply``.  A call in a
+        region frame (a call on DistributedFields) differentiates with its
+        derivative stencils in the same frame; a call on some levels (a
+        phased call) does not."""
         if not wants_derivative([*env.values(), *scalars.values()]):
             self._launch(env, scalars, domain, origins, periodic, frame, levels)
             return
         if levels is not None:
-            raise NotImplementedError("cuda backend: no derivative of a call on some levels "
-                                      "(a phased call on DistributedFields)")
-        if frame is not None:
-            raise NotImplementedError("cuda backend: no derivative of a call in a region frame "
-                                      "(a call on DistributedFields)")
-        self._k8(self._launch, env, scalars, domain, origins, periodic, outputs)
+            raise NotImplementedError(PHASED_DERIVATIVE)
+        self._k8(self._launch, env, scalars, domain, origins, periodic, outputs, frame)
 
-    def _k8(self, launch, env, scalars, domain, origins, periodic, outputs) -> None:
+    def _k8(self, launch, env, scalars, domain, origins, periodic, outputs, frame=None) -> None:
         if outputs is None:
             raise TypeError("cuda backend: a call under K8 hands its written fields back "
                             "through apply's outputs")
         self.derivative_calls += 1
         autodiff.kernel_call(launch, self.plain, self._written, env, scalars, domain, origins,
-                             periodic, outputs, kernels=self)
+                             periodic, outputs, kernels=self, frame=frame)
 
     def _check(self, env) -> torch.device:
         st = self.analysis.stencil

@@ -68,17 +68,43 @@ Domain edges: a guarded term may read a buffer beyond the forward's reads
 where its guard is false.  The caller pads such buffers
 (``read_boundary``); temporaries are allocated to cover their reads.
 
+The other constructs:
+
+- A write at a K offset ``f[0, 0, c] = e`` writes a version whose level
+  ``k`` holds the field's level ``k + c`` (``_Adjoint.shift``): its reads
+  bind at the offset less ``c``, the levels it covers (which cut the
+  pieces) are its section's moved by ``c``, and in a serial loop the read
+  of a level already swept sees it.
+- A data-dimension component written at a static index is a field of its
+  own (``_Adjoint.components``); a write at a per-point index is a scatter
+  (``DYNAMIC_INDEX``).
+- A lower-dimensional field whose gradient is wanted gets a per-point
+  contribution on every axis, which the caller sums over the axes it
+  lacks (``Derivative.sums``).  An I-J field the stencil writes keeps its
+  forward semantics: a state the recomputed forward updates in place, read
+  through snapshots taken where the forward reads it, and a bar the
+  adjoint accumulates in place -- in serial loops, a PARALLEL section's
+  contributions in a FORWARD loop of their own -- and hands on at each
+  write (``Derivative.planes``).
+- Run-time interval bounds are fixed at the call's values before the
+  transform (``resolve_bounds``): an adjoint a set of values.
+- A variable- or absolute-K read of a field the stencil writes, whose
+  value no wanted input changes, reads a temporary that follows the field
+  in place (``_Adjoint.mirrors``); where the value depends on a wanted
+  input its bar is the scatter or reduction of ``VARIABLE_K`` /
+  ``ABSOLUTE_K``.
+
 Constructs without a gather-form adjoint decline with a named reason
 (``Declined``).  Those in ``PLAIN_RERUN`` keep the plain executor's re-run
 on the card: ``while`` (its trip count needs a tape), a variable-K,
-absolute-K or dynamic data-index read of a field whose gradient is wanted,
-and ``gamma``.  The transform also declines, as open work that raises on
-the card (``Declined.reruns`` false): a variable- or absolute-K read of a
-field the stencil writes, reads that one write covers only in part, writes
-to data-dimension or lower-dimensional fields, a lower-dimensional field
-whose gradient is wanted, writes at an offset, and run-time interval
-bounds.  The tangent declines only for ``gamma``.  The derivative's own
-names never clash with the stencil's (``_Names``).
+absolute-K or dynamic data-index read of a field whose gradient is wanted
+or whose value depends on one, a write at a per-point data index, and
+``gamma``.  The transform also declines, as open work that raises on the
+card (``Declined.reruns`` false): a field written at two K offsets in one
+serial loop or at an offset and read at a variable K (``OFFSET_WRITE``),
+and a written field that lacks I or J, or has data dimensions and lacks K
+(``LOWER_DIM``).  The tangent declines only for ``gamma``.  The
+derivative's own names never clash with the stencil's (``_Names``).
 """
 
 from __future__ import annotations
@@ -105,20 +131,19 @@ _BOOL = np.dtype(np.bool_)
 _I64 = np.dtype(np.int64)
 
 WHILE = "a while loop: its trip count needs a tape"
-VARIABLE_K = "a variable-K read of a field whose gradient is wanted (a scatter to a " \
-             "data-dependent level)"
-ABSOLUTE_K = "an absolute-K read of a field whose gradient is wanted (a reduction over K)"
-DYNAMIC_INDEX = "a dynamic data-dimension index into a field whose gradient is wanted"
+VARIABLE_K = "a variable-K read of a field whose gradient is wanted or whose value depends " \
+             "on one (a scatter to a data-dependent level)"
+ABSOLUTE_K = "an absolute-K read of a field whose gradient is wanted or whose value " \
+             "depends on one (a reduction over K)"
+DYNAMIC_INDEX = "a dynamic data-dimension index into a field whose gradient is wanted, or " \
+                "into a field written at a component"
 GAMMA = "gamma: its derivative needs a digamma the IR lacks"
-PARTIAL = "a read spans levels that one write covers and another does not"
-DATA_DIM_WRITE = "a write to a data-dimension field"
-LOWER_DIM = "a lower-dimensional field is written or differentiated"
-OFFSET_WRITE = "a write at an offset"
-VARIABLE_K_WRITTEN = "a variable- or absolute-K read of a field the stencil writes"
+LOWER_DIM = "a written field that lacks I or J, or has data dimensions and lacks K"
+OFFSET_WRITE = "a field written at two K offsets in one serial loop, or written at a K " \
+               "offset and read at a variable or absolute K"
 PERIODIC_POSITION = "a periodic call of a stencil that reads I/J positions or has horizontal " \
                     "regions"
 PERIODIC_WIDE_WRITE = "a periodic call writing a field beyond the domain"
-RUNTIME_INTERVAL = "an interval bound given by a run-time scalar"
 PERIODIC_UNCOVERED = "a periodic call reading, beyond a compound statement's extent, a field " \
                      "the statement writes"
 
@@ -165,6 +190,16 @@ class Derivative:
     k_grow: Tuple[int, int] = (0, 0)
     #: ``read_boundary`` of the adjoint on its levels
     reach: Dict[str, Tuple[Tuple[int, int], ...]] = dataclasses.field(default_factory=dict)
+    #: a wanted lower-dimensional field -> the axes it lacks, over which
+    #: the caller sums its gradient field (a per-point contribution on
+    #: every axis), the gradient's I and J extents beyond the domain and
+    #: its levels in the adjoint's
+    sums: Dict[str, Tuple[Tuple[str, ...], Extent, Tuple[int, int]]] = \
+        dataclasses.field(default_factory=dict)
+    #: a written lower-dimensional field -> (its state, its bar): API
+    #: fields the caller starts as copies of the field's value and of its
+    #: cotangent; the bar ends as the field's gradient
+    planes: Dict[str, Tuple[str, str]] = dataclasses.field(default_factory=dict)
     #: periodic axes the adjoint does not run on as a torus: it runs
     #: bounded on copies of the fields filled as the forward fills them,
     #: and the filled fields' gradients are folded back (the fill's
@@ -468,6 +503,51 @@ def _gamma_free(stencil: ir.Stencil) -> None:
             raise Declined(GAMMA)
 
 
+def _active(st: ir.Stencil, wanted) -> set:
+    """The names whose value depends on a ``wanted`` input: a target is
+    active when its value reads an active name (a fixpoint over the
+    loops, which read earlier levels' writes)."""
+    assigns = [n for n in ir.walk_values(st.vertical_loops) if isinstance(n, ir.Assign)]
+    active = set(wanted)
+    changed = True
+    while changed:
+        changed = False
+        for a in assigns:
+            if a.target.name in active:
+                continue
+            reads = {n.name for n in ir.walk_values(a.value)
+                     if isinstance(n, (ir.FieldAccess, ir.ScalarAccess))}
+            if reads & active:
+                active.add(a.target.name)
+                changed = True
+    return active
+
+
+def runtime_bounds(st: ir.Stencil) -> Tuple[str, ...]:
+    """The scalars that give interval bounds at run time."""
+    return tuple(sorted({b.name for loop in st.vertical_loops for sec in loop.sections
+                         for b in (sec.interval.start, sec.interval.end)
+                         if isinstance(b, ir.RuntimeAxisBound)}))
+
+
+def resolve_bounds(analysis: StencilAnalysis, bounds: Dict[str, int]) -> StencilAnalysis:
+    """``analysis``' stencil with its run-time interval bounds fixed at the
+    values ``bounds`` (scalar -> int) of a call, analysed anew."""
+    if not bounds:
+        return analysis
+    st = copy.deepcopy(analysis.stencil)
+
+    def fix(b):
+        if isinstance(b, ir.RuntimeAxisBound):
+            return ir.AxisBound.start(int(bounds[b.name]) + b.offset)
+        return b
+
+    for loop in st.vertical_loops:
+        for sec in loop.sections:
+            sec.interval = ir.Interval(fix(sec.interval.start), fix(sec.interval.end))
+    return analyze(st, validate=False)
+
+
 def _new_stencil(fwd: ir.Stencil, name: str) -> ir.Stencil:
     return ir.Stencil(name=name, api_params=[], field_decls={}, scalar_decls=dict(fwd.scalar_decls),
                       temp_decls={}, vertical_loops=[], externals=dict(fwd.externals),
@@ -514,22 +594,7 @@ def tangent_stencil(analysis: StencilAnalysis, wanted: Sequence[str]) -> Derivat
     tensor scalars ``wanted`` (those whose tangent is given)."""
     fwd = analysis.stencil
     _gamma_free(fwd)
-    wanted = set(wanted)
-    assigns = [n for n in ir.walk_values(fwd.vertical_loops) if isinstance(n, ir.Assign)]
-    # forward activity: a target is active when its value reads an active
-    # name (fixpoint over loops, which read earlier levels' writes)
-    active = set(wanted)
-    changed = True
-    while changed:
-        changed = False
-        for a in assigns:
-            if a.target.name in active:
-                continue
-            reads = {n.name for n in ir.walk_values(a.value)
-                     if isinstance(n, (ir.FieldAccess, ir.ScalarAccess))}
-            if reads & active:
-                active.add(a.target.name)
-                changed = True
+    active = _active(fwd, set(wanted))
     st = _new_stencil(fwd, f"{fwd.name}__tan")
     new_name = _Names(fwd)
     st.field_decls = {n: copy.deepcopy(d) for n, d in fwd.field_decls.items()}
@@ -615,7 +680,17 @@ class _Asg:
     open: bool = False
     masked: bool = False
     prev: Optional[ir.Expr] = None
+    #: the write's K offset: level k of the version holds the field's k + shift
+    shift: int = 0
+    #: a write of a lower-dimensional field (``_Adjoint.planes``)
+    plane: bool = False
 
+
+#: the pieces are cut at every bound of a section and of the levels a write
+#: covers, less every K offset the piece's section reads at
+#: (``build_forward``): the levels a read covers lie in one version's or
+#: outside all
+_UNCUT = "a read spans levels one version covers and another does not"
 
 #: a region no guard is trivially true over
 _EVERYWHERE = Extent(i=(-(1 << 20), 1 << 20), j=(-(1 << 20), 1 << 20))
@@ -680,6 +755,58 @@ class _Adjoint:
         self.asgs: List[_Asg] = []
         #: field -> versions finished loops wrote: (name, covered levels)
         self.done: Dict[str, List[Tuple[str, List[Tuple[int, int]]]]] = {}
+        #: a data-dimension field's component written at a static index is
+        #: a field of its own: its key -> (field, index)
+        self.components: Dict[str, Tuple[str, Tuple[int, ...]]] = {}
+        #: a version -> the K offset of the write it holds: its level k
+        #: holds the field's level k + shift
+        self.shift: Dict[str, int] = {}
+        #: written fields read at a variable or absolute K, whose value no
+        #: wanted input changes: key -> the temporary that follows the
+        #: field's value in place, as the forward's buffer does
+        self.mirrors: Dict[str, str] = {}
+        self.active = _active(self.st, self.wanted)
+        #: a written lower-dimensional (I and J) field -> its state, which
+        #: the recomputed forward updates in place as the forward's buffer,
+        #: and its bar, accumulated in place by the adjoint (both API
+        #: fields: the caller starts them from the field's value and its
+        #: cotangent); its reads are snapshots of the state: temporary ->
+        #: (field, I/J offset), whose contributions the bar accumulates
+        self.planes: Dict[str, Tuple[str, str]] = {}
+        self.state: Dict[str, str] = {}
+        self.snaps: Dict[str, Tuple[str, Tuple[int, int]]] = {}
+        for n, d in self.st.field_decls.items():
+            if all(d.dimensions) or not any(
+                    isinstance(x, ir.Assign) and x.target.name == n
+                    for x in ir.walk_values(self.st.vertical_loops)):
+                continue
+            if d.dimensions != (True, True, False) or d.data_dims:
+                raise Declined(LOWER_DIM)
+            if self.periodic:
+                # the state read beyond the domain is no copy of one inside
+                raise Declined(PERIODIC_WIDE_WRITE)
+            self.planes[n] = (self.new_name(f"{n}__s"), self.new_name(f"{n}__b"))
+            self.state[self.planes[n][0]] = n
+
+    def component(self, name: str, idx: Tuple[int, ...]) -> str:
+        """The key of ``name``'s component ``idx`` (negative indices
+        wrapped)."""
+        dims = self.st.decl(name).data_dims
+        idx = tuple(i % d for i, d in zip(idx, dims))
+        key = f"{name}[{','.join(map(str, idx))}]"
+        self.components[key] = (name, idx)
+        return key
+
+    def base(self, key: str) -> str:
+        """The field of a key (itself, or a component's field)."""
+        return self.components[key][0] if key in self.components else key
+
+    def decl(self, key: str) -> ir.FieldDecl:
+        """The declaration of a field or a component (no data dimensions)."""
+        if key in self.components:
+            d = self.st.decl(self.components[key][0])
+            return ir.FieldDecl(key, d.dtype, d.dimensions, (), d.is_api)
+        return self.st.decl(key) or self.out.decl(key)
 
     # ---------------- predicated single assignment ---------------- #
 
@@ -704,40 +831,43 @@ class _Adjoint:
             u = unit if unit is not None else s
             if isinstance(s, ir.Assign):
                 t = s.target
-                if not isinstance(t.offset, ir.CartesianOffset) or (t.offset.i, t.offset.j,
-                                                                    t.offset.k) != (0, 0, 0):
-                    raise Declined(OFFSET_WRITE)
+                # validation.py refuses horizontal and absolute-K targets
+                # (_validate_lhs_offsets); a variable-K target, which the
+                # frontend never makes, would be a scatter
+                assert isinstance(t.offset, ir.CartesianOffset) and not (t.offset.i or t.offset.j)
                 decl = self.st.decl(t.name)
-                if t.data_index or decl.data_dims:
-                    raise Declined(DATA_DIM_WRITE)
-                if not all(decl.dimensions):
+                if not all(decl.dimensions) and t.name not in self.planes:
                     raise Declined(LOWER_DIM)
-                out.append(("assign", t.name, s.value, mask, u))
+                key = self.write_key(t)
+                if key is None:
+                    # a whole-vector write (the cuda backend refuses it) or
+                    # a component at a per-point index: a scatter
+                    raise Declined(DYNAMIC_INDEX)
+                out.append(("assign", key, s.value, mask, u, t.offset.k))
             elif isinstance(s, ir.While):
                 raise Declined(WHILE)
             elif isinstance(s, (ir.If, ir.HorizontalRestriction)):
                 # the condition is evaluated once, before the body writes
                 cond = s.cond if isinstance(s, ir.If) else _region_expr(s.masks)
                 raw = self.mask_temp()
-                out.append(("mask", raw, cond, None, u))
+                out.append(("mask", raw, cond, None, u, 0))
                 inner = raw
                 if mask is not None:
                     inner = self.mask_temp()
                     out.append(("mask", inner, _and(ir.FieldAccess(mask), ir.FieldAccess(raw)),
-                                None, u))
+                                None, u, 0))
                 self.flatten(s.body, inner, u, out)
                 if isinstance(s, ir.If) and s.orelse:
                     other = self.mask_temp()
                     out.append(("mask", other, _and(ir.FieldAccess(mask) if mask else None,
-                                                    _not(ir.FieldAccess(raw))), None, u))
+                                                    _not(ir.FieldAccess(raw))), None, u, 0))
                     self.flatten(s.orelse, other, u, out)
             else:
                 raise TypeError(f"no adjoint for {type(s).__name__}")
 
     def levels(self, itv: ir.Interval) -> Tuple[int, int]:
-        """A section's levels, in the adjoint's (grown) levels."""
-        if itv.is_runtime:
-            raise Declined(RUNTIME_INTERVAL)
+        """A section's levels, in the adjoint's (grown) levels (run-time
+        bounds are resolved before: ``resolve_bounds``)."""
         lo, hi = itv.resolve(self.dK)
         return max(lo, 0) + self.kl, min(hi, self.dK) + self.kl
 
@@ -750,25 +880,76 @@ class _Adjoint:
             return _lit(self.dK, _I64)
         return copy.deepcopy(e)
 
+    def write_key(self, t: ir.FieldAccess) -> Optional[str]:
+        """The key a write versions: the field, or its component at a
+        static index (None: a whole vector or a per-point component)."""
+        decl = self.st.decl(t.name)
+        if not decl.data_dims:
+            return t.name
+        idx = tuple(try_static_int(e) for e in t.data_index)
+        return None if not idx or None in idx else self.component(t.name, idx)
+
+    def read_key(self, acc: ir.FieldAccess) -> Optional[str]:
+        """The key a read binds by: the field, or its component at a static
+        index (None: a per-point index into a field a component of which
+        is written)."""
+        decl = self.st.decl(acc.name)
+        if decl is None or not decl.data_dims or not acc.data_index:
+            return acc.name
+        idx = tuple(try_static_int(e) for e in acc.data_index)
+        if None not in idx:
+            return self.component(acc.name, idx)
+        if any(f == acc.name for f, _ in self.components.values()):
+            raise Declined(DYNAMIC_INDEX)
+        return acc.name
+
     def build_forward(self) -> None:
         st = self.st
-        for name in st.field_decls:
-            if not all(st.field_decls[name].dimensions) and name in self.wanted:
-                raise Declined(LOWER_DIM)
         if self.periodic:
             if any(isinstance(n, ir.HorizontalRestriction) or
                    (isinstance(n, ir.AxisPosition) and n.axis in self.periodic)
                    for n in ir.walk_values(st.vertical_loops)):
                 raise Declined(PERIODIC_POSITION)
         self.loops: List[Tuple[ir.LoopOrder, List[Tuple[Tuple[int, int], List[_Asg]]]]] = []
-        # every section bound: a read at K offset c in a section is cut at
-        # each bound - c inside it, so no piece reads across a bound (in a
+        # every section bound, and every bound of the levels a write at a K
+        # offset covers: a read at K offset c in a section is cut at each
+        # bound - c inside it, so no piece reads across a bound (in a
         # PARALLEL section no read at a K offset sees the section's writes,
         # so its pieces run as the section does)
         bounds = {self.kl, self.dK + self.kl}
+        written = set()
         for loop in st.vertical_loops:
             for sec in loop.sections:
-                bounds.update(self.levels(sec.interval))
+                lv = self.levels(sec.interval)
+                bounds.update(lv)
+                for n in ir.walk_values(sec.body):
+                    if isinstance(n, ir.Assign):
+                        bounds.update(b + n.target.offset.k for b in lv)
+                        if all(st.decl(n.target.name).dimensions):
+                            written.add(self.write_key(n.target))
+        # a written field read at a variable or absolute K whose value no
+        # wanted input changes is followed in place by a temporary (its
+        # reads there are hoisted: ``hoist``); its value from before the
+        # call first
+        every = (0, self.dK + self.kl + self.kh)
+        init = []
+        for acc in ir.field_accesses(st.vertical_loops):
+            if isinstance(acc.offset, ir.CartesianOffset):
+                continue
+            key = self.read_key(acc)
+            if key not in written or key in self.mirrors or self.base(key) in self.active:
+                continue
+            m = self.mirrors[key] = self.new_name.numbered(f"{self.base(key)}__m")
+            self.own.add(m)
+            self.out.temp_decls[m] = _decl(m, self.decl(key), False)
+            if self.base(key) in st.field_decls:
+                idx = self.components.get(key, (None, ()))[1]
+                a = _Asg(m, m, ir.FieldAccess(self.base(key), data_index=tuple(
+                    _lit(i, _I64) for i in idx)), every, Extent(), mask=True)
+                init.append(a)
+                self.asgs.append(a)
+        if init:
+            self.loops.append((ir.LoopOrder.PARALLEL, [(every, init)]))
         for loop in st.vertical_loops:
             serial = loop.loop_order != ir.LoopOrder.PARALLEL
             secs = []
@@ -787,16 +968,25 @@ class _Adjoint:
                     self.flatten(sec.body, None, None, flat)
                     secs.append((si, piece, flat))
             # a serial loop's version of each field: the last assignment of
-            # the field in each section writes it
+            # the field in each section writes it; its levels are those the
+            # writes cover (a piece's levels moved by the writes' K offset,
+            # one a field in a serial loop)
             loop_version: Dict[str, str] = {}
             cover: Dict[str, List[Tuple[int, int]]] = {}
+            self.loop_shift: Dict[str, int] = {}
             if serial:
                 for si, lv, flat in secs:
-                    for kind, name, *_ in flat:
-                        if kind == "assign" and name not in loop_version:
-                            loop_version[name] = self.fresh(name)
-                        if kind == "assign" and lv not in cover.setdefault(name, []):
-                            cover[name].append(lv)
+                    for kind, name, _, _, _, c in flat:
+                        if kind != "assign":
+                            continue
+                        if self.loop_shift.setdefault(name, c) != c:
+                            raise Declined(OFFSET_WRITE)
+                        if name not in loop_version:
+                            loop_version[name] = self.fresh(self.base(name))
+                            self.shift[loop_version[name]] = c
+                        w = (lv[0] + c, lv[1] + c)
+                        if w not in cover.setdefault(name, []):
+                            cover[name].append(w)
             # a PARALLEL loop's versions: one an assignment, its pieces' levels
             par: Dict[str, List[str]] = {}
             stmt_version: Dict[Tuple[int, int], str] = {}
@@ -808,7 +998,7 @@ class _Adjoint:
                         last[name] = n
                 cur: Dict[str, str] = {}
                 asgs: List[_Asg] = []
-                for n, (kind, name, value, mask, unit) in enumerate(flat):
+                for n, (kind, name, value, mask, unit, c) in enumerate(flat):
                     ext = self.fwd.extents.stmt_extent(unit)
                     ext = Extent(i=ext.i, j=ext.j)
 
@@ -820,40 +1010,65 @@ class _Adjoint:
                     if kind == "mask":
                         a = _Asg(name, name, new, lv, ext, mask=True)
                         cur[name] = name
+                    elif name in self.planes:
+                        # a version of its own (read by nothing but the
+                        # state's update), the state updated in place
+                        target = self.fresh(name)
+                        d3 = _decl(target, self.decl(name), False)
+                        d3.dimensions = (True, True, True)
+                        self.out.temp_decls[target] = d3
+                        if mask is not None:
+                            prev = self.hoist(ir.FieldAccess(self.planes[name][0]), (lv, ext),
+                                              asgs)
+                            new = _sel(ir.FieldAccess(mask), new, prev)
+                        a = _Asg(target, name, new, lv, ext, masked=mask is not None,
+                                 plane=True)
+                        asgs.append(a)
+                        self.asgs.append(a)
+                        st_name = self.planes[name][0]
+                        a = _Asg(st_name, st_name, ir.FieldAccess(target), lv, ext, mask=True)
                     else:
-                        decl = st.decl(name)
+                        decl = self.decl(name)
                         if serial and last[name] == n:
                             target = loop_version[name]
                         elif serial:
-                            target = self.fresh(name)
+                            target = self.fresh(self.base(name))
                         else:
                             if (si, n) not in stmt_version:
-                                stmt_version[(si, n)] = self.fresh(name)
+                                stmt_version[(si, n)] = self.fresh(self.base(name))
                             target = stmt_version[(si, n)]
-                        try:
-                            prev = self.resolve(ir.FieldAccess(name), lv, cur, par,
-                                                loop_version, cover, serial, loop.loop_order)
-                        except Declined:
-                            if mask is not None:
-                                raise
-                            prev = None
+                        self.shift[target] = c
+                        # the value the write keeps where its mask is false:
+                        # the field's at the level written
+                        base, idx = self.components.get(name, (name, ()))
+                        prev = self.resolve(
+                            ir.FieldAccess(base, ir.CartesianOffset(0, 0, c),
+                                           tuple(_lit(i, _I64) for i in idx)),
+                            lv, cur, par, loop_version, cover, serial, loop.loop_order)
                         if mask is not None:
                             new = _sel(ir.FieldAccess(mask), new, prev)
                         if target not in self.out.temp_decls:
                             self.out.temp_decls[target] = _decl(target, decl, False)
                         a = _Asg(target, name, new, lv, ext, masked=mask is not None,
-                                 prev=None if mask is not None else prev)
+                                 prev=None if mask is not None else prev, shift=c)
                         cur[name] = target
                         if not serial:
                             if target not in par.setdefault(name, []):
                                 par[name].append(target)
-                            cover.setdefault(target, []).append(lv)
-                        if (self.periodic and name in st.field_decls and any(
+                            cover.setdefault(target, []).append((lv[0] + c, lv[1] + c))
+                        if (self.periodic and base in st.field_decls and any(
                                 ext_ax != (0, 0) for ax, ext_ax in (("I", ext.i), ("J", ext.j))
                                 if ax in self.periodic)):
                             raise Declined(PERIODIC_WIDE_WRITE)
                     asgs.append(a)
                     self.asgs.append(a)
+                    if kind != "mask" and name in self.mirrors:
+                        if c:
+                            raise Declined(OFFSET_WRITE)
+                        m = self.mirrors[name]
+                        a = _Asg(m, m, ir.FieldAccess(target), lv, ext, mask=True)
+                        asgs.append(a)
+                        self.asgs.append(a)
                 out_secs.append((lv, asgs))
             self.loops.append((loop.loop_order, out_secs))
             if serial:
@@ -910,8 +1125,6 @@ class _Adjoint:
                 if w.masked:
                     w.value.cond = _and(w.value.cond, inside)
                     prev = w.value.false_expr
-                elif w.prev is None:
-                    raise Declined(PARTIAL)
                 else:
                     w.value = _sel(inside, w.value, w.prev)
                     prev = w.prev
@@ -926,6 +1139,17 @@ class _Adjoint:
         the read can be shifted; the read field's gradient must not be
         wanted (a scatter or a reduction over K)."""
         def move(acc):
+            if acc.name in self.state:
+                # a written lower-dimensional field's value at the time
+                t = self.new_name.numbered("_dr")
+                self.own.add(t)
+                self.out.temp_decls[t] = ir.FieldDecl(t, np.dtype(self.decl(acc.name).dtype),
+                                                      is_api=False)
+                self.snaps[t] = (self.state[acc.name], (acc.offset.i, acc.offset.j))
+                a = _Asg(t, t, acc, *at, mask=True)
+                asgs.append(a)
+                self.asgs.append(a)
+                return ir.FieldAccess(t)
             if isinstance(acc.offset, ir.CartesianOffset):
                 return acc
             if acc.name in self.wanted:
@@ -933,7 +1157,7 @@ class _Adjoint:
                                else ABSOLUTE_K)
             t = self.new_name.numbered("_dr")
             self.own.add(t)
-            self.out.temp_decls[t] = ir.FieldDecl(t, np.dtype(self.st.decl(acc.name).dtype),
+            self.out.temp_decls[t] = ir.FieldDecl(t, np.dtype(self.decl(acc.name).dtype),
                                                   is_api=False)
             a = _Asg(t, t, acc, *at, mask=True)
             asgs.append(a)
@@ -948,44 +1172,57 @@ class _Adjoint:
         name = acc.name
         if name in self.own:
             return acc
-        written = name in self.done or name in cur or name in loop_version or name in par
+        if name in self.planes:
+            return ir.FieldAccess(self.planes[name][0], ir.CartesianOffset(
+                acc.offset.i, acc.offset.j, 0), acc.data_index)
+        key = self.read_key(acc)
+        written = key in self.done or key in cur or key in loop_version or key in par
         off = acc.offset
         if not isinstance(off, ir.CartesianOffset):
-            if written:
-                raise Declined(VARIABLE_K_WRITTEN)
+            if key in self.mirrors:
+                acc = ir.FieldAccess(self.mirrors[key], off)
+            elif written:
+                # the field's value depends on a wanted input: the read's bar
+                # is a scatter (variable K) or a reduction over K
+                raise Declined(VARIABLE_K if isinstance(off, ir.VariableKOffset)
+                               else ABSOLUTE_K)
             if isinstance(off, ir.AbsoluteKIndex) and self.kl:
                 off.k = _bin(_BO.ADD, off.k, _lit(self.kl, _I64))
             return acc
         c = off.k
+        # the levels of the field the read covers
         r = (lv[0] + c, lv[1] + c)
 
         def bind(version):
-            return ir.FieldAccess(version, acc.offset, acc.data_index)
+            s = self.shift.get(version, 0)
+            return ir.FieldAccess(version, ir.CartesianOffset(off.i, off.j, c - s),
+                                  () if key in self.components else acc.data_index)
 
         if serial:
-            if c == 0 and name in cur:
-                return bind(cur[name])
-            if c != 0 and name in loop_version:
-                swept = c < 0 if order == ir.LoopOrder.FORWARD else c > 0
+            # level k of the loop's version holds the field's level k + s:
+            # the read sees the write of this level (d == 0) or of a level
+            # already swept
+            d = c - self.loop_shift.get(key, 0)
+            if d == 0 and key in cur:
+                return bind(cur[key])
+            if d != 0 and key in loop_version:
+                swept = d < 0 if order == ir.LoopOrder.FORWARD else d > 0
                 if swept:
-                    rel = _relation(r, cover[name])
+                    rel = _relation(r, cover[key])
                     if rel == "in":
-                        return bind(loop_version[name])
-                    if rel == "partial":
-                        raise Declined(PARTIAL)
+                        return bind(loop_version[key])
+                    assert rel == "out", _UNCUT
         else:
-            for v in reversed(par.get(name, [])):
+            for v in reversed(par.get(key, [])):
                 rel = _relation(r, cover[v])
                 if rel == "in":
                     return bind(v)
-                if rel == "partial":
-                    raise Declined(PARTIAL)
-        for v, cov in reversed(self.done.get(name, [])):
+                assert rel == "out", _UNCUT
+        for v, cov in reversed(self.done.get(key, [])):
             rel = _relation(r, cov)
             if rel == "in":
                 return bind(v)
-            if rel == "partial":
-                raise Declined(PARTIAL)
+            assert rel == "out", _UNCUT
         if name in self.st.field_decls:
             return acc
         return _lit(0, self.st.decl(name).dtype)
@@ -1028,14 +1265,15 @@ class _Adjoint:
             cond = _and(cond, c)
         return _sel(cond, term, _lit(0, dt))
 
-    def passthrough(self, field: str, after: int, levels, region, dt):
-        """The cotangent of ``field`` where no assignment from position
-        ``after`` on (in ``self.asgs``) wrote the point; None: nowhere."""
+    def passthrough(self, key: str, after: int, levels, region, dt, s: int = 0):
+        """The cotangent of field (or component) ``key`` at its levels
+        moved by ``s`` where no assignment from position ``after`` on (in
+        ``self.asgs``) wrote the point; None: nowhere."""
         cond = None
         for a in self.asgs[after:]:
-            if a.mask or a.field != field:
+            if a.mask or a.field != key:
                 continue
-            conj = self.in_box((0, 0, 0), a, levels, region)
+            conj = self.in_box((0, 0, a.shift - s), a, levels, region)
             if conj is None:
                 continue
             if not conj:
@@ -1044,7 +1282,9 @@ class _Adjoint:
             for c in conj[1:]:
                 inside = _and(inside, c)
             cond = _and(cond, _not(inside))
-        cot = ir.FieldAccess(self.cots[field])
+        base, idx = self.components.get(key, (key, ()))
+        cot = ir.FieldAccess(self.cots[base], ir.CartesianOffset(0, 0, s),
+                             tuple(_lit(i, _I64) for i in idx))
         return cot if cond is None else _sel(cond, cot, _lit(0, dt))
 
     # ---------------- the adjoint ---------------- #
@@ -1054,7 +1294,7 @@ class _Adjoint:
         got = self._contrib.get(id(a))
         if got is None:
             got = []
-            if not a.mask and is_float_dtype(self.st.decl(a.field).dtype):
+            if not a.mask and is_float_dtype(self.decl(a.field).dtype):
                 seed = ir.FieldAccess(self.bar(a.target))
                 self.rules.adjoint(a.value, seed, got)
             self._contrib[id(a)] = got
@@ -1083,16 +1323,58 @@ class _Adjoint:
             idx = tuple(try_static_int(e) for e in read.data_index)
             if None in idx:
                 raise Declined(DYNAMIC_INDEX)
+            idx = tuple(i % n for i, n in zip(idx, self.decl(name).data_dims))
             if idx != component:
                 continue
-            o = read.offset
-            conj = self.in_box((o.i, o.j, o.k), a, levels, region)
+            # a lower-dimensional field's read is the same on the axes it
+            # lacks: its per-point contribution lies at the reading point
+            dims = self.decl(name).dimensions
+            o = tuple(d if has else 0 for d, has in zip(
+                (read.offset.i, read.offset.j, read.offset.k), dims))
+            conj = self.in_box(o, a, levels, region)
             if conj is None:
                 continue
-            term = shift(contrib, (-o.i, -o.j, -o.k))
+            term = shift(contrib, (-o[0], -o[1], -o[2]))
             tdt = self.rules.dtype(contrib)
             total = _add(total, self.rules.cast(self.guarded(conj, term, tdt), tdt, dt))
         return total
+
+    def plane_bar(self, a: _Asg, bar: ir.FieldAccess, dt, min_ext) -> List[ir.Assign]:
+        """The bar of a lower-dimensional field's write: its bar's value
+        where the write writes, which the bar then gives up there."""
+        conj = self.in_box((0, 0, 0), a, a.levels, _EVERYWHERE)
+        fb = self.planes[a.field][1]
+        take = ir.Assign(bar, self.guarded(conj, ir.FieldAccess(fb), dt))
+        zero = _lit(0, dt)
+        reset = ir.Assign(ir.FieldAccess(fb), zero if not conj else
+                          _sel(self.guarded(conj, _lit(True, _BOOL), _BOOL),
+                               zero, ir.FieldAccess(fb)))
+        min_ext[id(reset)] = a.ext
+        return [take, reset]
+
+    def accumulate(self, a: _Asg, min_ext) -> List[ir.Assign]:
+        """``a``'s contributions to the lower-dimensional fields its value
+        reads, added into their bars in place (over each field's extent)."""
+        by: Dict[str, ir.Expr] = {}
+        for read, contrib in self.contributions(a):
+            if read.name not in self.snaps:
+                continue
+            field, (oi, oj) = self.snaps[read.name]
+            # the bar's statements run as far as its readers reach
+            conj = self.in_box((oi, oj, 0), a, a.levels, _EVERYWHERE)
+            if conj is None:
+                continue
+            dt = np.dtype(self.decl(field).dtype)
+            tdt = self.rules.dtype(contrib)
+            term = self.guarded(conj, shift(contrib, (-oi, -oj, 0)), tdt)
+            by[field] = _add(by.get(field), self.rules.cast(term, tdt, dt))
+        out = []
+        for field, total in by.items():
+            fb = self.planes[field][1]
+            s = ir.Assign(ir.FieldAccess(fb), _add(ir.FieldAccess(fb), total))
+            min_ext[id(s)] = self.fwd.extents.field_extent(field)
+            out.append(s)
+        return out
 
     def build(self) -> Derivative:
         st, out = self.st, self.out
@@ -1101,15 +1383,22 @@ class _Adjoint:
                      if is_float_dtype(st.field_decls[n].dtype)}
         fields = [n for n in st.field_decls if n in self.wanted]
         scalars = [n for n in st.scalar_decls if n in self.wanted]
-        grads = {n: self.new_name(f"{n}__g") for n in fields}
+        grads = {n: self.new_name(f"{n}__g") for n in fields if n not in self.planes}
         contribs = {n: self.new_name(f"{n}__g") for n in scalars}
         out.field_decls = {n: copy.deepcopy(d) for n, d in st.field_decls.items()}
         for n in st.field_decls:
             out.field_decls[n].is_api = True
         for n, c in self.cots.items():
-            out.field_decls[c] = _decl(c, st.field_decls[n], True)
+            if n not in self.planes:
+                out.field_decls[c] = _decl(c, st.field_decls[n], True)
+        for n, names in self.planes.items():
+            for x in names:
+                out.field_decls[x] = _decl(x, st.field_decls[n], True)
         for n, g in grads.items():
             out.field_decls[g] = _decl(g, st.field_decls[n], True)
+            # a lower-dimensional field's gradient: a per-point contribution
+            # on every axis, which the caller sums over the axes it lacks
+            out.field_decls[g].dimensions = (True, True, True)
         for n, g in contribs.items():
             out.field_decls[g] = ir.FieldDecl(g, np.dtype(st.scalar_decls[n].dtype or np.float64))
         out.api_params = [ir.ApiParam(n, is_field=True) for n in out.field_decls] + \
@@ -1119,9 +1408,9 @@ class _Adjoint:
         self._contrib: Dict[int, list] = {}
         self._readers: Optional[Dict[str, list]] = None
         for a in self.asgs:
-            if not a.mask and is_float_dtype(st.decl(a.field).dtype):
+            if not a.mask and is_float_dtype(self.decl(a.field).dtype):
                 bar = self.bar(a.target)
-                out.temp_decls.setdefault(bar, _decl(bar, st.decl(a.field), False))
+                out.temp_decls.setdefault(bar, _decl(bar, self.decl(a.field), False))
         loops: List[ir.VerticalLoop] = []
         # the recomputed forward
         for order, secs in self.loops:
@@ -1134,47 +1423,80 @@ class _Adjoint:
         flip = {ir.LoopOrder.FORWARD: ir.LoopOrder.BACKWARD,
                 ir.LoopOrder.BACKWARD: ir.LoopOrder.FORWARD,
                 ir.LoopOrder.PARALLEL: ir.LoopOrder.PARALLEL}
+        min_ext = {}
         for order, secs in reversed(self.loops):
             new_secs = []
             for lv, asgs in reversed(secs):
+                itv = ir.Interval(ir.AxisBound.start(lv[0]), ir.AxisBound.start(lv[1]))
                 body = []
                 for a in reversed(asgs):
-                    if a.mask or not is_float_dtype(st.decl(a.field).dtype):
+                    if a.mask or not is_float_dtype(self.decl(a.field).dtype):
                         continue
-                    decl = st.decl(a.field)
-                    dt = np.dtype(decl.dtype)
-                    bar = self.bar(a.target)
-                    # an open assignment's bar is read beyond its extent
-                    region = _EVERYWHERE if a.open else a.ext
-                    value = self.terms(a.target, (), a.levels, region, dt)
-                    if a.field in self.cots:
-                        value = _add(value, self.passthrough(a.field, position[id(a)] + 1,
-                                                             a.levels, region, dt))
-                    body.append(ir.Assign(ir.FieldAccess(bar),
-                                          value if value is not None else _lit(0, dt)))
-                new_secs.append(ir.VerticalSection(
-                    ir.Interval(ir.AxisBound.start(lv[0]), ir.AxisBound.start(lv[1])), body))
-            loops.append(ir.VerticalLoop(flip[order], new_secs))
+                    dt = np.dtype(self.decl(a.field).dtype)
+                    bar = ir.FieldAccess(self.bar(a.target))
+                    if a.plane:
+                        body.extend(self.plane_bar(a, bar, dt, min_ext))
+                    else:
+                        # an open assignment's bar is read beyond its extent
+                        region = _EVERYWHERE if a.open else a.ext
+                        value = self.terms(a.target, (), a.levels, region, dt)
+                        if self.base(a.field) in self.cots:
+                            value = _add(value, self.passthrough(
+                                a.field, position[id(a)] + 1, a.levels, region, dt, a.shift))
+                        body.append(ir.Assign(bar, value if value is not None else _lit(0, dt)))
+                    acc = self.accumulate(a, min_ext)
+                    if not acc:
+                        continue
+                    if order != ir.LoopOrder.PARALLEL or lv[1] - lv[0] == 1:
+                        body.extend(acc)
+                        continue
+                    # a bar accumulated over the levels of a PARALLEL
+                    # section: a FORWARD loop of its own between the
+                    # section's statements before and after
+                    new_secs.append(ir.VerticalSection(itv, body))
+                    loops.append(ir.VerticalLoop(ir.LoopOrder.PARALLEL, new_secs))
+                    loops.append(ir.VerticalLoop(ir.LoopOrder.FORWARD,
+                                                 [ir.VerticalSection(itv, acc)]))
+                    new_secs, body = [], []
+                if body:
+                    new_secs.append(ir.VerticalSection(itv, body))
+            if new_secs:
+                loops.append(ir.VerticalLoop(flip[order], new_secs))
         # the gradients (each over its field's levels, its K halo included)
         # and the scalars' contributions (over every level), a PARALLEL loop
         # a range of levels
         final: Dict[Tuple[int, int], list] = {}
-        min_ext = {}
         every = (0, self.dK + self.kl + self.kh)
         kb = compute_k_boundary_resolved(st, self.dK, names=list(grads), extents=self.fwd.extents)
+        sums = {}
         for n, g in grads.items():
             decl = st.field_decls[n]
             lv = (self.kl - kb[n][0], self.kl + self.dK + kb[n][1])
+            for a in self.asgs:  # the levels written at a K offset
+                if not a.mask and self.base(a.field) == n:
+                    lv = (min(lv[0], a.levels[0] + a.shift), max(lv[1], a.levels[1] + a.shift))
             fe = self.fwd.extents.field_extent(n) | self.fwd.extents.write_extent(n)
+            if not all(decl.dimensions):
+                # summed over the axes the field lacks: there, over every
+                # level and the extents of the statements reading it
+                lacks = tuple(ax for ax, has in zip("IJK", decl.dimensions) if not has)
+                for a, _, _ in self.readers().get(n, ()):
+                    fe = fe | Extent(i=a.ext.i if "I" in lacks else (0, 0),
+                                     j=a.ext.j if "J" in lacks else (0, 0))
+                if "K" in lacks:
+                    lv = every
             region = Extent(i=(0, 0) if "I" in self.periodic else fe.i,
                             j=(0, 0) if "J" in self.periodic else fe.j)
+            if not all(decl.dimensions):
+                sums[n] = (lacks, region, lv)
             dt = np.dtype(decl.dtype)
             comps = [()] if not decl.data_dims else \
                 [tuple(c) for c in np.ndindex(*decl.data_dims)]
             for comp in comps:
                 value = self.terms(n, comp, lv, region, dt)
                 if n in self.cots:
-                    value = _add(value, self.passthrough(n, 0, lv, region, dt))
+                    key = self.component(n, comp) if comp else n
+                    value = _add(value, self.passthrough(key, 0, lv, region, dt))
                 target = ir.FieldAccess(g, data_index=tuple(_lit(c, _I64) for c in comp))
                 s = ir.Assign(target, value if value is not None else _lit(0, dt))
                 final.setdefault(lv, []).append(s)
@@ -1211,11 +1533,17 @@ class _Adjoint:
                           if any(isinstance(x, ir.FieldAccess) and x.name == n
                                  for x in ir.walk_values(out.vertical_loops))}
         analysis = analyze(out, min_extents=min_ext, validate=False)
+        grads.update({n: self.planes[n][1] for n in fields if n in self.planes})
         d = Derivative("adjoint", analysis, cots=self.cots, grads=grads, contribs=contribs,
                        contrib_extent=contrib_extent,
-                       passthrough=tuple(n for n in grads if n in self.cots),
-                       k_grow=(self.kl, self.kh))
+                       passthrough=tuple(n for n in grads if n in self.cots
+                                         and n not in self.planes),
+                       k_grow=(self.kl, self.kh), sums=sums, planes=dict(self.planes))
         d.reach = read_boundary(d, every[1])
+        for names in self.planes.values():
+            for x in names:
+                e = analysis.extents.field_extent(x)
+                d.reach[x] = ((-e.i[0], e.i[1]), (-e.j[0], e.j[1]), (0, 0))
         return d
 
 
@@ -1268,13 +1596,17 @@ _NOT_A_TORUS = (PERIODIC_POSITION, PERIODIC_WIDE_WRITE, PERIODIC_UNCOVERED)
 
 
 def adjoint_stencil(analysis: StencilAnalysis, wanted: Sequence[str], dK: int,
-                    periodic: Sequence[str] = ()) -> Derivative:
+                    periodic: Sequence[str] = (), bounds: Optional[Dict[str, int]] = None
+                    ) -> Derivative:
     """The adjoint stencil of ``analysis``' stencil for the fields and
     tensor scalars ``wanted``, for a call on ``dK`` levels (it runs on
     ``dK + sum(k_grow)`` levels, every field's origin ``k_grow[0]`` lower),
     periodic on ``periodic``: on the torus, or where that does not hold
     (regions, I/J positions, writes or compound statements' reads beyond
-    the domain) bounded, on filled copies (``Derivative.fill``)."""
+    the domain) bounded, on filled copies (``Derivative.fill``).
+    ``bounds``: the call's values of the scalars that give interval bounds
+    at run time (``runtime_bounds``); the adjoint is built for them."""
+    analysis = resolve_bounds(analysis, bounds or {})
     try:
         return _Adjoint(analysis, wanted, dK, periodic).build()
     except Declined as e:

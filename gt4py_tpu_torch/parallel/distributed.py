@@ -22,6 +22,8 @@ import torch
 import torch.distributed as dist
 
 from gt4py_tpu_torch.cartesian import ir
+from gt4py_tpu_torch.cartesian.backend.cuda_backend import PHASED_DERIVATIVE
+from gt4py_tpu_torch.cartesian.backend.torch_backend import wants_derivative
 from gt4py_tpu_torch.cartesian.stencil_object import logical_view
 from gt4py_tpu_torch.core import dtypes
 from gt4py_tpu_torch.storage import FieldStorage
@@ -273,10 +275,16 @@ def run_global(stencil, fields: Dict[str, DistributedField], scalars, origins, d
         part.append(p1 - p0)
         local_origin.append(o[ax] + p0 - (b0 - halo[ax]))
         frame.append(p0)
+    if plan is not None and wants_derivative([f.data for f in fields.values()] +
+                                             list(scalars.values())):
+        # its phases step serial loops a level at a time and iterate while
+        # loops across the ranks: no derivative stencil follows them
+        raise NotImplementedError(PHASED_DERIVATIVE if stencil.backend_name == "cuda" else
+                                  "no derivative of a phased call on DistributedFields")
     blocks = {n: _pad(f.data, tuple(halo), axes) for n, f in fields.items()}
     first_exchange = HaloExchange(list(blocks.values()), tuple(halo), cmesh, spatial_axes=axes,
                                   periodic=(False, False), boundary="zero")
-    first_exchange.run()
+    blocks = dict(zip(blocks, first_exchange.run()))
     local_origins = {n: (local_origin[0], local_origin[1], origins[n][2]) for n in fields}
     part_domain = (part[0], part[1], domain[2])
     frame = (frame[0], frame[1], domain[0], domain[1])

@@ -20,6 +20,21 @@ tensors, so CUDA strips are staged through pinned host buffers (device to
 host, send/receive, host to device) and no CUDA tensor reaches gloo.
 ``LAST_EXCHANGE`` records what the last exchange of this process ran.
 
+Gradients: when a block requires grad, the exchange runs as one
+``torch.autograd.Function`` (``_Exchange``) over all its blocks, which it
+fills in place (``mark_dirty``).  Its backward is the exchange transposed
+(``HaloExchange.transpose``): phase J's then phase I's, each received halo
+strip's cotangent sent back to the rank that sent the strip, added into the
+interior strip it came from and zeroed; a local wrap folds, an open edge
+drops the cotangent (``"zero"``) or sums it into the edge plane
+(``"clamp"``); a narrower wire rounds the cotangent strips as the forward
+rounds the values.  It uses the forward's peers and staging with tags of
+its own.  Every rank whose loss depends on any block of an exchange takes
+part in its transpose (an output the loss does not use brings a zero
+cotangent), so ``shard_map_stencil``, ``overlapped_shard_map_stencil`` and
+the global view differentiate with every rank calling ``backward``.
+``LAST_TRANSPOSE`` records the last transposed exchange.
+
 Overlap (``overlapped_shard_map_stencil``): the point-to-point operations
 are issued first, the interior region (which reads no halo) is computed
 from the blocks as they are while the strips travel (on the current CUDA
@@ -31,6 +46,7 @@ computed from the exchanged blocks and stitched in.
 from __future__ import annotations
 
 import contextlib
+import time
 from typing import Callable, Dict, List, Sequence, Tuple
 
 import torch
@@ -44,6 +60,36 @@ from gt4py_tpu_torch.core import dtypes
 #: ``strips`` this rank sent (at the wire dtype), ``local_strips`` (filled
 #: without a message: size-1 axes and open edges), ``wire_dtype``, ``fields``
 LAST_EXCHANGE: Dict[str, object] = {}
+
+#: what the last transposed exchange of this process ran (the keys of
+#: ``LAST_EXCHANGE``) and ``seconds``, its time on the host clock (the
+#: device waited for)
+LAST_TRANSPOSE: Dict[str, object] = {}
+
+#: the transposed exchange's tags lie above the forward's
+_TRANSPOSE_TAG = 1 << 16
+
+
+def _needs_grad(blocks) -> bool:
+    return torch.is_grad_enabled() and any(b.requires_grad for b in blocks)
+
+
+class _Exchange(torch.autograd.Function):
+    """A started ``HaloExchange`` completed on its blocks, in place, as one
+    differentiable operation; the backward is its transpose."""
+
+    @staticmethod
+    def forward(ctx, ex: "HaloExchange", *blocks):
+        ex._wait()
+        ctx.ex = ex
+        ctx.mark_dirty(*blocks)
+        return blocks
+
+    @staticmethod
+    def backward(ctx, *grads):
+        cots = [g.clone() for g in grads]
+        ctx.ex.transpose(cots)
+        return (None, *cots)
 
 
 def _index(ndim: int, axis: int, start: int, stop: int) -> tuple:
@@ -107,6 +153,14 @@ class HaloExchange:
         return self
 
     def wait(self) -> List[torch.Tensor]:
+        """Complete the exchange: the blocks with their halos filled (the
+        same tensors; under autograd, as ``_Exchange``'s outputs)."""
+        if _needs_grad(self.blocks):
+            self.blocks = list(_Exchange.apply(self, *self.blocks))
+            return self.blocks
+        return self._wait()
+
+    def _wait(self) -> List[torch.Tensor]:
         self._finish(self._pending)
         self._finish(self._issue(1))
         if self.stream is not None:
@@ -119,6 +173,105 @@ class HaloExchange:
 
     def run(self) -> List[torch.Tensor]:
         return self.start().wait()
+
+    def transpose(self, cots: Sequence[torch.Tensor]) -> List[torch.Tensor]:
+        """The exchange transposed, in place on ``cots`` (cotangents shaped
+        as the blocks): phase J's transpose, then phase I's.  Every rank
+        of the mesh calls it."""
+        t0 = time.perf_counter()
+        t = HaloExchange(cots, self.halo, self.cmesh, axes=self.axes,
+                         spatial_axes=self.spatial_axes, periodic=self.periodic,
+                         boundary=self.boundary, wire_dtype=self.wire_dtype)
+        if t.stream is not None:
+            t.stream.wait_stream(torch.cuda.current_stream(t.stream.device))
+        for n in (1, 0):
+            t._finish(t._issue_transpose(n), add=True)
+        if t.stream is not None:
+            torch.cuda.current_stream(t.stream.device).wait_stream(t.stream)
+            for b in t.blocks:
+                b.record_stream(t.stream)
+            torch.cuda.current_stream(t.stream.device).synchronize()
+        LAST_TRANSPOSE.clear()
+        LAST_TRANSPOSE.update(t.record, seconds=time.perf_counter() - t0)
+        return t.blocks
+
+    def _issue_transpose(self, n: int):
+        """Post phase ``n``'s transposed messages: each halo strip's
+        cotangent to the rank that sent the strip (or folded locally), the
+        halo zeroed; the receives add into the interior strips sent."""
+        h = self.halo[n]
+        if h == 0 or not self.blocks:
+            return None
+        axis, array_axis, wrap = self.axes[n], self.spatial_axes[n], self.periodic[n]
+        with self._ctx():
+            if self.cmesh.axis_size(axis) == 1:
+                for b in self.blocks:
+                    self._fold_local(b, h, array_axis, wrap)
+                return None
+            lo_nb, hi_nb = self.cmesh.neighbours(axis, periodic=wrap)
+            ops, recvs, keep, sent = [], [], [], []
+            for f, b in enumerate(self.blocks):
+                size = b.shape[array_axis]
+                # my low halo came from the lower neighbour's high edge (tag
+                # 2f), my high halo from the upper one's low edge (2f + 1)
+                for peer, (d0, d1), tag in ((lo_nb, (0, h), 2 * f),
+                                            (hi_nb, (size - h, size), 2 * f + 1)):
+                    halo = b[_index(b.ndim, array_axis, d0, d1)]
+                    if peer is None:
+                        self._fold_edge(b, halo, h, array_axis, d0 == 0)
+                        continue
+                    buf = self._outgoing(_wire(halo, self.wire_dtype).clone())
+                    keep.append(buf)
+                    sent.append(halo)
+                    ops.append(dist.P2POp(dist.isend, buf, peer, self.cmesh.group,
+                                          _TRANSPOSE_TAG + tag))
+                    self.record["bytes"] += buf.numel() * buf.element_size()
+                    self.record["strips"] += 1
+            if self.staged and keep:
+                self.stream.synchronize()
+            for halo in sent:
+                halo.zero_()
+            for f, b in enumerate(self.blocks):
+                size = b.shape[array_axis]
+                for peer, (s0, s1), tag in ((hi_nb, (size - 2 * h, size - h), 2 * f),
+                                            (lo_nb, (h, 2 * h), 2 * f + 1)):
+                    if peer is None:
+                        continue
+                    dst = b[_index(b.ndim, array_axis, s0, s1)]
+                    buf = self._incoming(dst)
+                    ops.append(dist.P2POp(dist.irecv, buf, peer, self.cmesh.group,
+                                          _TRANSPOSE_TAG + tag))
+                    recvs.append((dst, buf))
+            self.record["backend"] = self.cmesh.backend
+            self.record["staged"] = self.staged
+            works = dist.batch_isend_irecv(ops) if ops else []
+        return works, recvs, keep
+
+    def _fold_local(self, b: torch.Tensor, h: int, axis: int, wrap: bool) -> None:
+        """The transpose of ``_fill_local``."""
+        size = b.shape[axis]
+        lo, hi = _index(b.ndim, axis, 0, h), _index(b.ndim, axis, size - h, size)
+        if not wrap:
+            self._fold_edge(b, b[lo], h, axis, True)
+            self._fold_edge(b, b[hi], h, axis, False)
+            return
+        lo_cot, hi_cot = self._round(b[lo]), self._round(b[hi])
+        b[lo] = 0
+        b[hi] = 0
+        b[_index(b.ndim, axis, size - 2 * h, size - h)] += lo_cot
+        b[_index(b.ndim, axis, h, 2 * h)] += hi_cot
+        self.record["local_strips"] += 2
+
+    def _fold_edge(self, b: torch.Tensor, halo: torch.Tensor, h: int, axis: int,
+                   low: bool) -> None:
+        """The transpose of ``_fill_edge``: ``"zero"`` drops the halo's
+        cotangent, ``"clamp"`` adds it into the edge plane."""
+        self.record["local_strips"] += 1
+        if self.boundary == "clamp":
+            size = b.shape[axis]
+            at = h if low else size - h - 1
+            b[_index(b.ndim, axis, at, at + 1)] += halo.sum(dim=axis, keepdim=True)
+        halo.zero_()
 
     # ------------------------------------------------------------------ #
 
@@ -171,7 +324,7 @@ class HaloExchange:
             works = dist.batch_isend_irecv(ops) if ops else []
         return works, recvs, keep
 
-    def _finish(self, pending) -> None:
+    def _finish(self, pending, add: bool = False) -> None:
         if pending is None:
             return
         works, recvs, _keep = pending
@@ -179,6 +332,9 @@ class HaloExchange:
             for w in works:
                 w.wait()
             for dst, buf in recvs:
+                if add:
+                    dst.add_(dtypes.cast(buf.to(dst.device, non_blocking=True), dst.dtype))
+                    continue
                 dst.copy_(dtypes.cast(buf.to(dst.device, non_blocking=True), dst.dtype)
                           if self.wire_dtype is not None else buf, non_blocking=True)
             if self.staged:
@@ -302,8 +458,9 @@ def shard_map_stencil(stencil_fn: Callable[..., Dict], cmesh, halo: Tuple[int, i
         fields, scalars = _split(kwargs, field_names, scalar_names)
         padded = {n: a if extended_state else _pad(a, halo, spatial_axes)
                   for n, a in fields.items()}
-        HaloExchange(list(padded.values()), halo, cmesh, spatial_axes=spatial_axes,
-                     periodic=periodic, boundary=boundary, wire_dtype=halo_wire_dtype).run()
+        padded = dict(zip(padded, HaloExchange(
+            list(padded.values()), halo, cmesh, spatial_axes=spatial_axes, periodic=periodic,
+            boundary=boundary, wire_dtype=halo_wire_dtype).run()))
         merged = dict(padded)
         merged.update(stencil_fn(**padded, **scalars))
         if extended_state:
@@ -363,13 +520,19 @@ def overlapped_shard_map_stencil(make_region_step, cmesh, halo: Tuple[int, int],
         fields, scalars = _split(kwargs, field_names, scalar_names)
         blocks = {n: a if extended_state else _pad(a, halo, spatial_axes)
                   for n, a in fields.items()}
-        ex = HaloExchange(list(blocks.values()), halo, cmesh, spatial_axes=spatial_axes,
+        # under autograd the exchange fills copies: the interior's call
+        # keeps the blocks it read for its backward
+        moved = [b.clone() for b in blocks.values()] if _needs_grad(blocks.values()) \
+            else list(blocks.values())
+        ex = HaloExchange(moved, halo, cmesh, spatial_axes=spatial_axes,
                           periodic=periodic, boundary=boundary,
                           wire_dtype=halo_wire_dtype).start()
         # the interior reads no halo: it runs while the strips travel
+        before = blocks
+        inner = interior_fn(**before, **scalars)
+        blocks = dict(zip(before, ex.wait()))
         out = dict(blocks)
-        out.update(interior_fn(**blocks, **scalars))
-        ex.wait()
+        out.update({n: v for n, v in inner.items() if v is not before.get(n)})
         for (origin, domain), fn in zip(strips, strip_fns):
             for name, b in fn(**blocks, **scalars).items():
                 idx = region_index(b, origin, domain)

@@ -20,7 +20,16 @@ import torch
 import torch.distributed as dist
 
 from gt4py_tpu_torch.cartesian import gtscript
-from gt4py_tpu_torch.cartesian.gtscript import FORWARD, PARALLEL, computation, interval
+from gt4py_tpu_torch.cartesian.gtscript import (
+    FORWARD,
+    PARALLEL,
+    I,
+    J,
+    computation,
+    horizontal,
+    interval,
+    region,
+)
 from gt4py_tpu_torch.core import dtypes
 from gt4py_tpu_torch.parallel import (
     LAST_EXCHANGE,
@@ -36,6 +45,7 @@ from gt4py_tpu_torch.parallel import (
     to_extended,
 )
 from gt4py_tpu_torch.parallel.distributed import _gather_blocks, _host
+from gt4py_tpu_torch.parallel.halo import HaloExchange, _pad
 
 CASES: Dict[str, Any] = {}
 
@@ -191,15 +201,16 @@ def exchange(cmesh, *, shape, h, periodic=(True, True), boundary="zero", wire=No
 
 
 def dycore_step(cmesh, nk, ni_l, nj_l, *, dtype, backend="cuda", mode="plain",
-                periodic=(True, True), boundary="zero", wire=None):
+                periodic=(True, True), boundary="zero", wire=None, options=None):
     """A sharded MiniDycore step over this rank's (K, I, J) blocks:
     ``mode`` "plain" (``shard_map_stencil``), "overlap"
     (``overlapped_shard_map_stencil`` over ``region_step_factory``) or
-    "extended" (``extended_state=True``: the blocks stay halo-extended)."""
+    "extended" (``extended_state=True``: the blocks stay halo-extended);
+    ``options``: the model's stencils' build options."""
     from gt4py_tpu_torch.models.dycore import MiniDycore
 
     local = MiniDycore(ni_l, nj_l, nk, dtype=np.dtype(dtype), backend=backend, aligned=False,
-                       device=cmesh.device)
+                       device=cmesh.device, options=options)
     h = MiniDycore.HALO
     names = tuple(n for n, _ in DYCORE_FIELDS)
     kw = dict(field_names=names, spatial_axes=(1, 2), periodic=periodic, boundary=boundary,
@@ -440,10 +451,10 @@ def gspmd_undeclined(cmesh, *, seed, backend="torch"):
         distributed.cross_rank_read = check
 
 
-def _ring_stencil(backend):
+def _ring_stencil(backend, **options):
     # an earlier level read at the neighbour's point, before the writer of
     # the level, which the extent analysis leaves at the domain's own points
-    @gtscript.stencil(backend=backend)
+    @gtscript.stencil(backend=backend, **options)
     def ring(a: Field64, c: Field64):
         with computation(FORWARD):
             with interval(0, 1):
@@ -490,6 +501,143 @@ def ring_single(shape=(24, 36, 5), seed=0, backend="torch", device="cpu") -> np.
                                            domain=(shape[0] - 4, shape[1] - 2, shape[2]))
     out = fn(a=torch.from_numpy(a).to(device), c=torch.from_numpy(c).to(device))["c"]
     return _host(out)
+
+
+# --------------------------------------------------------------------------- #
+# gradients through the exchange and the global view
+# --------------------------------------------------------------------------- #
+
+
+def grad_weights(shape, seed: int, names=("u", "utens_stage")) -> Dict[str, np.ndarray]:
+    """The weights of the outputs in a gradient case's loss."""
+    rng = np.random.default_rng(seed + 100)
+    return {n: rng.random(shape) for n in names}
+
+
+def _assembled_grads(cmesh, leaves, grads, spatial_axes):
+    return {n: assemble(cmesh, torch.zeros_like(t) if g is None else g, spatial_axes)
+            for (n, t), g in zip(leaves.items(), grads)}
+
+
+@case
+def dycore_grad(cmesh, *, shape, dtype="float64", seed=0, mode="plain", periodic=(True, True),
+                boundary="zero", wire=None, options=None):
+    """The gradient of ``grad_weights``' weighted sum of one sharded
+    MiniDycore step's ``u`` and ``utens_stage`` with respect to every field
+    of the state drawn from ``seed``: each assembled from the ranks'
+    blocks; and the last transposed exchange (``LAST_TRANSPOSE``).  Every
+    rank calls the backward: the exchange's transpose is a collective."""
+    from gt4py_tpu_torch.parallel.halo import LAST_TRANSPOSE
+
+    nk, ni, nj = shape
+    h = 3  # MiniDycore.HALO
+    _, step = dycore_step(cmesh, nk, ni // cmesh.px, nj // cmesh.py, dtype=dtype, mode=mode,
+                          periodic=periodic, boundary=boundary, wire=wire, options=options)
+    leaves = {k: v.clone().requires_grad_()
+              for k, v in _blocks(cmesh, dycore_state(shape, seed, dtype)).items()}
+    blocks = leaves
+    if mode == "extended":
+        blocks = {k: to_extended(cmesh, v, (h, h), (1, 2)) for k, v in leaves.items()}
+    out = step(**blocks)
+    if mode == "extended":
+        out = {k: from_extended(cmesh, v, (h, h), (1, 2)) for k, v in out.items()}
+    weights = _blocks(cmesh, grad_weights(shape, seed))
+    loss = sum((out[n] * w).sum() for n, w in weights.items())
+    grads = torch.autograd.grad(loss, list(leaves.values()), allow_unused=True)
+    return _r0(cmesh, {"grads": _assembled_grads(cmesh, leaves, grads, (1, 2)),
+                       "transpose": dict(LAST_TRANSPOSE)})
+
+
+@case
+def exchange_grad_unused(cmesh, *, shape=(12, 16, 3), h=2, seed=9):
+    """Two blocks through one exchange, each rank's loss reading only one
+    of them (the even ranks the first, the odd ones the second): every
+    rank's backward takes part in the transpose (the unused block's
+    cotangent is zero). Returns the largest difference of the gradients
+    from the same loss written over both blocks with zero weights."""
+    rng = np.random.default_rng(seed)
+    arrays = [rng.random(shape), rng.random(shape)]
+    weights = [rng.random((shape[0] // cmesh.px + 2 * h, shape[1] // cmesh.py + 2 * h,
+                           shape[2])) for _ in range(2)]
+    mine = cmesh.rank % 2
+
+    def grads(both):
+        leaves = [distribute(cmesh, a).data.clone().requires_grad_() for a in arrays]
+        ext = HaloExchange([_pad(x, (h, h), (0, 1)) for x in leaves], (h, h), cmesh).run()
+        if both:
+            loss = sum((e * torch.from_numpy(w * (n == mine))).sum()
+                       for n, (e, w) in enumerate(zip(ext, weights)))
+        else:
+            loss = (ext[mine] * torch.from_numpy(weights[mine])).sum()
+        return torch.autograd.grad(loss, leaves)
+
+    return max(float((a - b).abs().max()) for a, b in zip(grads(False), grads(True)))
+
+
+def _region_stencil(backend, **options):
+    @gtscript.stencil(backend=backend, **options)
+    def region_mix(in_f: Field64, w: Field64, out_f: Field64):
+        with computation(PARALLEL), interval(...):
+            out_f = w * (in_f[1, 0, 0] + in_f[-1, 0, 0] + in_f[0, 1, 0] * in_f[0, -1, 0]) - in_f
+            with horizontal(region[I[0]: I[0] + 3, :], region[:, J[-1] - 2: J[-1]]):
+                out_f = out_f * in_f + w[1, 0, 0]
+
+    return region_mix
+
+
+def global_grad_case(which: str, shape, seed: int, backend: str = "cuda", **options):
+    """A global-view gradient case: (stencil, origin, domain, the inputs
+    (I, J, K) arrays, the output's name).  ``"region"``: a stencil with
+    horizontal regions, which resolve against the global domain;
+    ``"hdiff"``: the MiniDycore's horizontal diffusion."""
+    from gt4py_tpu_torch.models.dycore import make_hdiff
+
+    rng = np.random.default_rng(seed)
+    if which == "region":
+        arrays = {"in_f": rng.random(shape), "w": rng.random(shape), "out_f": rng.random(shape)}
+        return _region_stencil(backend, **options), (1, 1, 0), \
+            (shape[0] - 2, shape[1] - 2, shape[2]), arrays, "out_f"
+    arrays = {"in_field": rng.random(shape), "out_field": rng.random(shape),
+              "coeff": 0.025 * rng.random(shape)}
+    return make_hdiff(np.float64, backend, **options), (3, 3, 0), \
+        (shape[0] - 6, shape[1] - 6, shape[2]), arrays, "out_field"
+
+
+@case
+def global_grad(cmesh, *, which="region", shape=(16, 24, 4), seed=3, backend="cuda",
+                options=None):
+    """The gradient of a weighted sum of a global-view call's output with
+    respect to its inputs: each rank's ``DistributedField.data`` requires
+    grad, the call's backward runs in the call's region frame and through
+    the transposed first exchange; each gradient gathered."""
+    st, origin, domain, arrays, out_name = global_grad_case(which, shape, seed, backend,
+                                                            **(options or {}))
+    fields = {n: distribute(cmesh, v) for n, v in arrays.items()}
+    for f in fields.values():
+        f.data.requires_grad_()
+    out = st.functional(origin=origin, domain=domain)(**fields)[out_name]
+    w = distribute(cmesh, np.random.default_rng(seed + 100).random(shape)).data
+    grads = torch.autograd.grad((out.data * w).sum(), [f.data for f in fields.values()])
+    got = {n: _gather_blocks(cmesh, _host(g), f.index, f.global_shape)
+           for (n, f), g in zip(fields.items(), grads)}
+    return _r0(cmesh, {"grads": got, "adjoint_calls": getattr(st.backend, "adjoint_calls", 0),
+                       "plain_reruns": getattr(st.backend, "plain_reruns", 0)})
+
+
+@case
+def phased_grad(cmesh, *, shape=(24, 36, 5), seed=0):
+    """A gradient through a phased call (the ring) on the derivative
+    stencils: the error it raises, on every rank."""
+    rng = np.random.default_rng(seed)
+    st = _ring_stencil("cuda", derivative="kernels")
+    fn = st.functional(origin=(1, 1, 0), domain=(shape[0] - 4, shape[1] - 2, shape[2]))
+    a = distribute(cmesh, rng.random(shape))
+    a.data.requires_grad_()
+    try:
+        fn(a=a, c=distribute(cmesh, np.zeros(shape)))
+    except NotImplementedError as e:
+        return str(e)
+    return None
 
 
 # --------------------------------------------------------------------------- #
@@ -843,7 +991,6 @@ def chip_distribution(cmesh, *, shape=(80, 512, 512), steps=3, reps=10, seed=0,
     to the plain executor's single-device run on the card."""
     from gt4py_tpu_torch.models.dycore import MiniDycore
     from gt4py_tpu_torch.models.fv_advection import FvAdvection
-    from gt4py_tpu_torch.parallel.halo import HaloExchange, _pad
     from gt4py_tpu_torch.parallel import halo_comm_bytes
 
     dev = cmesh.device
@@ -985,6 +1132,100 @@ def chip_distribution(cmesh, *, shape=(80, 512, 512), steps=3, reps=10, seed=0,
         "gspmd_max_abs_err": gspmd_err,
         "finite": bool(np.isfinite(got["u"]).all() and np.isfinite(fv_got).all()),
     }
+
+
+@case
+def chip_grads(cmesh, *, shape=(80, 512, 512), seed=4, reps=5):
+    """The chip check's phase 15 gradients (see ``chip_smoke.py``), float64
+    on every rank: the sharded MiniDycore step's gradient
+    (``shard_map_stencil``, periodic) and a global-view hdiff call's (on
+    DistributedFields, its derivative stencils in the call's region
+    frame), each rank's backward through the transposed exchange, with the
+    adjoint calls and plain re-runs of each stencil; each rank's forward
+    and transposed exchange of the step's five halo-extended blocks (host
+    clock, median of ``reps``) and their bytes; rank 0 holds both
+    gradients to the single-device ones on the card."""
+    from gt4py_tpu_torch.models.dycore import MiniDycore
+    from gt4py_tpu_torch.parallel.halo import LAST_TRANSPOSE
+
+    dev = cmesh.device
+    nk, ni, nj = shape
+    h = MiniDycore.HALO
+    names = tuple(n for n, _ in DYCORE_FIELDS)
+    state = dycore_state(shape, seed, "float64")
+    weights = grad_weights(shape, seed)
+    out: Dict[str, Any] = {"rank": cmesh.rank}
+
+    def counts(stencils):
+        return {n: (st.backend.adjoint_calls, st.backend.plain_reruns)
+                for n, st in stencils.items()}
+
+    # 1. the sharded step's gradient
+    local, step = dycore_step(cmesh, nk, ni // cmesh.px, nj // cmesh.py, dtype="float64")
+    stencils = {"hdiff": local.hdiff, "vadv_update": local.vadv_upd}
+    before = counts(stencils)
+    leaves = {k: v.clone().requires_grad_() for k, v in _blocks(cmesh, state).items()}
+    new = step(**leaves)
+    wb = _blocks(cmesh, weights)
+    grads = torch.autograd.grad(sum((new[n] * w).sum() for n, w in wb.items()),
+                                list(leaves.values()))
+    _sync(dev)
+    out["step_adjoint"] = {n: [a - b for a, b in zip(c, before[n])]
+                           for n, c in counts(stencils).items()}
+    out["step_transpose"] = dict(LAST_TRANSPOSE)
+    sharded = _assembled_grads(cmesh, leaves, grads, (1, 2))
+    # 2. the exchange and its transpose on the step's blocks
+    pads = [_pad(leaves[n].detach(), (h, h), (1, 2)) for n in names]
+    cots = [torch.rand_like(p) for p in pads]
+    kw = dict(spatial_axes=(1, 2))
+    out["exchange_ms"] = _median_host_ms(lambda: HaloExchange(pads, (h, h), cmesh, **kw).run(),
+                                         reps, dev)
+    out["exchange"] = dict(LAST_EXCHANGE)
+    out["transpose_ms"] = _median_host_ms(
+        lambda: HaloExchange(pads, (h, h), cmesh, **kw).transpose(cots), reps, dev)
+    out["transpose"] = dict(LAST_TRANSPOSE)
+    # 3. the global view's hdiff
+    st, origin, domain, arrays, out_name = global_grad_case("hdiff", (ni, nj, nk), seed)
+    before = counts({"hdiff": st})
+    fields = {n: distribute(cmesh, v) for n, v in arrays.items()}
+    for f in fields.values():
+        f.data.requires_grad_()
+    w = distribute(cmesh, np.random.default_rng(seed + 100).random((ni, nj, nk))).data
+    res = st.functional(origin=origin, domain=domain)(**fields)[out_name]
+    ggrads = torch.autograd.grad((res.data * w).sum(), [f.data for f in fields.values()])
+    _sync(dev)
+    out["global_adjoint"] = [a - b for a, b in zip(counts({"hdiff": st})["hdiff"],
+                                                    before["hdiff"])]
+    out["global_transpose"] = dict(LAST_TRANSPOSE)
+    global_got = {n: _gather_blocks(cmesh, _host(g), f.index, f.global_shape)
+                  for (n, f), g in zip(fields.items(), ggrads)}
+    ranks = [None] * cmesh.size
+    dist.all_gather_object(ranks, out)
+    if cmesh.rank != 0:
+        return out
+    # rank 0: the single-device gradients on the card
+    single = MiniDycore(ni, nj, nk, dtype=np.float64, aligned=False, device=dev)
+    g0 = {k: torch.from_numpy(v).to(dev).requires_grad_() for k, v in state.items()}
+    padded = {k: torch.nn.functional.pad(v[None], (h, h, h, h), mode="circular")[0]
+              for k, v in g0.items()}
+    o1 = single.step_fn(fill_halos=False)(padded)
+    loss = sum((o1[n][:, h:h + ni, h:h + nj] * torch.from_numpy(w).to(dev)).sum()
+               for n, w in weights.items())
+    ref = dict(zip(g0, (_host(g) for g in torch.autograd.grad(loss, list(g0.values())))))
+    t = {k: torch.from_numpy(v).to(dev).requires_grad_() for k, v in arrays.items()}
+    res1 = st.functional(origin=origin, domain=domain)(**t)[out_name]
+    wt = torch.from_numpy(np.random.default_rng(seed + 100).random((ni, nj, nk))).to(dev)
+    gref = dict(zip(t, (_host(g) for g in torch.autograd.grad((res1 * wt).sum(),
+                                                                 list(t.values())))))
+
+    def compare(got, want):
+        return {n: {"max_abs_err": _max_err(got[n], r), "largest": float(np.abs(r).max()),
+                    "close": bool(np.allclose(got[n], r, rtol=1e-12,
+                                              atol=1e-12 * float(np.abs(r).max()))),
+                    "finite": bool(np.isfinite(got[n]).all())}
+                for n, r in want.items()}
+
+    return {"ranks": ranks, "step": compare(sharded, ref), "global": compare(global_got, gref)}
 
 
 #: the phased calls of the chip check's phase 15: the ring (I, J, K) and

@@ -77,7 +77,6 @@ DECLINED = {
     "variable_k_offset": derivative.VARIABLE_K,
     "data_dims_dynamic_index": derivative.DYNAMIC_INDEX,
     "native_functions_full": derivative.GAMMA,
-    "lower_dim_fields": derivative.LOWER_DIM,
 }
 #: no float output: nothing to differentiate
 NO_FLOAT_OUTPUT = {"form_land_mask"}

@@ -32,6 +32,18 @@ DYCORE = (5, 16, 32)
 GSPMD_MORE = (*range(11006, 11030), 11203, 11238)
 GSPMD_CROSS_RANK = (11203, 11238)
 
+#: the sharded MiniDycore step's gradient cases: the step's mode and
+#: boundaries (``dist_cases.dycore_grad``)
+GRAD_STEPS = {
+    "periodic": dict(options={"derivative": "kernels"}),
+    "periodic_plain_rerun": dict(),
+    "zero": dict(periodic=(False, False), boundary="zero"),
+    "clamp": dict(periodic=(False, False), boundary="clamp"),
+    "extended": dict(mode="extended"),
+    "overlap": dict(mode="overlap", periodic=(True, False), boundary="clamp"),
+    "wire": dict(wire="bfloat16"),
+}
+
 CASES = {
     "exchange_periodic": dict(case="exchange", shape=(8, 8), h=1, seed=4),
     "exchange_kij": dict(case="exchange", shape=(3, 12, 16), h=2, seed=6,
@@ -66,6 +78,16 @@ CASES = {
     **{f"undeclined_{s}": dict(case="gspmd_undeclined", seed=s) for s in GSPMD_CROSS_RANK},
     "ring": dict(backend="torch"),
     "chip_distribution": dict(shape=(4, 32, 32), steps=1, reps=1, gspmd_seeds=(11000,)),
+    **{f"grad_{n}": dict(case="dycore_grad", shape=DYCORE, seed=2, **kw)
+       for n, kw in GRAD_STEPS.items()},
+    "grad_global_region": dict(case="global_grad", which="region",
+                               options={"derivative": "kernels"}),
+    "grad_global_region_plain": dict(case="global_grad", which="region", backend="torch"),
+    "grad_global_hdiff": dict(case="global_grad", which="hdiff", shape=(20, 24, 3),
+                              options={"derivative": "kernels"}),
+    "grad_phased": dict(case="phased_grad"),
+    "grad_unused": dict(case="exchange_grad_unused"),
+    "chip_grads": dict(shape=(4, 32, 32), reps=1),
 }
 
 
@@ -625,3 +647,239 @@ def test_extended_round_trip_and_single_rank_fields():
     f = DistributedField.from_array(mesh, a.numpy(), spatial_axes=(1, 2))
     assert f.sharding == FieldSharding(mesh, (1, 2)) and f.global_shape == (3, 8, 10)
     np.testing.assert_array_equal(gather(f), a.numpy())
+
+
+# --------------------------------------------------------------------------- #
+# gradients through the exchange and the global view
+# --------------------------------------------------------------------------- #
+
+
+@functools.lru_cache(maxsize=None)
+def jax_dycore_grad(periodic=(True, True), boundary="zero"):
+    """``jax.grad`` of the gradient cases' loss through the JAX package's
+    single-device MiniDycore step on the global arrays, each padded by the
+    halo as the exchange fills it (wrapped, zero or edge)."""
+    import jax
+    import jax.numpy as jnp
+
+    from gt4py_tpu.models.dycore import MiniDycore
+
+    nk, ni, nj = DYCORE
+    h = MiniDycore.HALO
+    state = dist_cases.dycore_state(DYCORE, 2, np.float64)
+    weights = dist_cases.grad_weights(DYCORE, 2)
+    step = MiniDycore(ni, nj, nk, dtype=np.float64, backend="jax",
+                      aligned=False).step_fn(fill_halos=False)
+
+    def pad(x):
+        for ax, wrap in ((1, periodic[0]), (2, periodic[1])):
+            widths = [(0, 0)] * 3
+            widths[ax] = (h, h)
+            x = jnp.pad(x, widths, mode="wrap" if wrap else
+                        "edge" if boundary == "clamp" else "constant")
+        return x
+
+    def loss(s):
+        out = step({k: pad(v) for k, v in s.items()})
+        return sum(jnp.sum(out[n][:, h:h + ni, h:h + nj] * w) for n, w in weights.items())
+
+    g = jax.jit(jax.grad(loss))({k: jnp.asarray(v) for k, v in state.items()})
+    return {k: np.asarray(v) for k, v in g.items()}
+
+
+def jax_dycore_wire_grad(jmesh):
+    """``jax.grad`` of the same loss through the JAX package's sharded step
+    with a bfloat16 wire on the 2x2 mesh: its own rounding, transposed."""
+    import jax
+    import jax.numpy as jnp
+    from jax.sharding import NamedSharding, PartitionSpec as P
+
+    from gt4py_tpu.models.dycore import MiniDycore
+    from gt4py_tpu.parallel import gather, shard_map_stencil
+
+    nk, ni, nj = DYCORE
+    state = dist_cases.dycore_state(DYCORE, 2, np.float64)
+    weights = dist_cases.grad_weights(DYCORE, 2)
+    lstep = MiniDycore(ni // 2, nj // 2, nk, dtype=np.float64, backend="jax",
+                       aligned=False).step_fn(fill_halos=False)
+    h = MiniDycore.HALO
+    step = shard_map_stencil(lambda **kw: lstep(dict(kw)), jmesh, (h, h),
+                             field_names=tuple(state), spatial_axes=(1, 2),
+                             halo_wire_dtype=jnp.bfloat16)
+    sharding = NamedSharding(jmesh.mesh, P(None, "x", "y"))
+
+    def loss(s):
+        out = step(**s)
+        return sum(jnp.sum(out[n] * w) for n, w in weights.items())
+
+    g = jax.jit(jax.grad(loss))({k: jax.device_put(v, sharding) for k, v in state.items()})
+    return {k: gather(v) for k, v in g.items()}
+
+
+@pytest.mark.parametrize("name", sorted(GRAD_STEPS))
+def test_sharded_step_gradients_match_jax(ranks, jmesh, name):
+    """The gradient of the sharded MiniDycore step, every rank calling the
+    backward through the transposed exchange (periodic, open with zero and
+    clamp edges, extended state, the overlapped step with a periodic and a
+    clamped axis, on the derivative stencils and through the plain
+    re-run), assembled from the ranks, equals ``jax.grad`` of the JAX
+    package's single-device step; with a bfloat16 wire, that of its
+    sharded step with the same wire."""
+    p = GRAD_STEPS[name]
+    if name == "wire":
+        want = jax_dycore_wire_grad(jmesh)
+    else:
+        want = jax_dycore_grad(p.get("periodic", (True, True)), p.get("boundary", "zero"))
+    got = result(ranks, f"grad_{name}")
+    for n, ref in want.items():
+        np.testing.assert_allclose(got["grads"][n], ref, rtol=1e-12, atol=1e-12, err_msg=n)
+        assert float(np.abs(ref).max()) > 0
+    rec = got["transpose"]
+    assert rec["backend"] == "gloo" and rec["strips"] > 0 and rec["bytes"] > 0
+    if name == "wire":
+        assert rec["wire_dtype"] == "bfloat16"
+        exact = result(ranks, "grad_periodic")["grads"]
+        assert any(not np.array_equal(got["grads"][n], exact[n]) for n in want)
+
+
+#: ``dist_cases._region_stencil``'s definition, for the JAX package
+REGION_MIX = """
+import numpy as np
+from gt4py_tpu.cartesian import gtscript
+from gt4py_tpu.cartesian.gtscript import PARALLEL, I, J, computation, horizontal, interval, region
+
+F = gtscript.Field[np.float64]
+
+
+def region_mix(in_f: F, w: F, out_f: F):
+    with computation(PARALLEL), interval(...):
+        out_f = w * (in_f[1, 0, 0] + in_f[-1, 0, 0] + in_f[0, 1, 0] * in_f[0, -1, 0]) - in_f
+        with horizontal(region[I[0]: I[0] + 3, :], region[:, J[-1] - 2: J[-1]]):
+            out_f = out_f * in_f + w[1, 0, 0]
+"""
+
+
+def _jax_twin(src, name):
+    """The function ``name`` of the source ``src`` (the frontend reads it
+    through linecache)."""
+    import linecache
+
+    filename = f"<test-parallel:{name}>"
+    linecache.cache[filename] = (len(src), None, src.splitlines(True), filename)
+    ns = {}
+    exec(compile(src, filename, "exec", dont_inherit=True), ns)
+    return ns[name]
+
+
+def _jax_global(which):
+    """The global gradient cases' twin on the JAX package and its
+    ``jax.grad`` on one device."""
+    import jax
+    import jax.numpy as jnp
+
+    from gt4py_tpu.cartesian import gtscript as jg
+    from gt4py_tpu.models.dycore import make_hdiff
+
+    p = CASES[f"grad_global_{which}"]
+    shape = p.get("shape", (16, 24, 4))
+    _, origin, domain, arrays, out_name = dist_cases.global_grad_case(
+        which, shape, p.get("seed", 3), "torch")
+    if which == "region":
+        st = jg.stencil(backend="jax", definition=_jax_twin(REGION_MIX, "region_mix"),
+                        rebuild=True)
+    else:
+        st = make_hdiff(np.float64, backend="jax")
+    fn = st.functional(origin=origin, domain=domain)
+    w = np.random.default_rng(p.get("seed", 3) + 100).random(shape)
+
+    def loss(a):
+        return jnp.sum(fn(**a)[out_name] * w)
+
+    g = jax.jit(jax.grad(loss))({k: jnp.asarray(v) for k, v in arrays.items()})
+    return {k: np.asarray(v) for k, v in g.items()}
+
+
+@pytest.mark.parametrize("name", ["region", "region_plain", "hdiff"])
+def test_global_view_gradients_match_jax(ranks, name):
+    """A call on DistributedFields whose blocks require grad: the gradients
+    (the call's derivative stencils in its region frame, or the plain
+    executor's autograd, then the first exchange transposed), gathered,
+    equal ``jax.grad`` of the JAX package's single-device call."""
+    got = result(ranks, f"grad_global_{name}")
+    want = _jax_global(name.split("_")[0])
+    for n, ref in want.items():
+        np.testing.assert_allclose(got["grads"][n], ref, rtol=1e-12, atol=1e-12, err_msg=n)
+        assert float(np.abs(ref).max()) > 0
+    if name != "region_plain":
+        assert (got["adjoint_calls"], got["plain_reruns"]) == (1, 0)
+
+
+def test_phased_call_derivative_raises(ranks):
+    """A derivative through a phased call (its phases step serial loops a
+    level at a time) raises the named error on every rank."""
+    from gt4py_tpu_torch.cartesian.backend.cuda_backend import PHASED_DERIVATIVE
+
+    for status, res in ranks["grad_phased"]:
+        assert status == "ok" and res == PHASED_DERIVATIVE
+
+
+def test_chip_grads_case_on_the_cpu(ranks):
+    """The chip check's phase 15 gradient case at a small size on the CPU:
+    the sharded step's and the global-view hdiff's gathered gradients equal
+    the single-device ones, every rank ran the transposed exchanges."""
+    got = result(ranks, "chip_grads")
+    for what in ("step", "global"):
+        for n, c in got[what].items():
+            assert c["close"] and c["finite"] and c["largest"] > 0, (what, n, c)
+    for r in got["ranks"]:
+        for key in ("step_transpose", "global_transpose", "transpose"):
+            assert r[key]["backend"] == "gloo" and r[key]["bytes"] > 0, (r["rank"], key)
+        assert r["transpose"]["bytes"] == r["exchange"]["bytes"]
+
+
+@pytest.mark.parametrize("mode", ["circular", "constant", "replicate"])
+def test_single_rank_exchange_gradient_is_the_pad_transpose(mode):
+    """On a mesh of one rank the exchange fills locally (a wrap, zeros or
+    the edge plane): its gradient equals autograd's through ``torch``'s
+    pad of the same mode; with a bfloat16 wire the wrapped halos'
+    cotangents round on their way back."""
+    import torch
+
+    from gt4py_tpu_torch.parallel import CartesianMesh, halo_exchange
+    from gt4py_tpu_torch.parallel.halo import LAST_TRANSPOSE
+
+    mesh = CartesianMesh.single("cpu")
+    h = 2
+    rng = np.random.default_rng(3)
+    a = torch.from_numpy(rng.random((3, 8, 10)))
+    w = torch.from_numpy(rng.random((3, 8 + 2 * h, 10 + 2 * h)))
+    kw = {"circular": dict(periodic=(True, True)),
+          "constant": dict(periodic=(False, False)),
+          "replicate": dict(periodic=(False, False), boundary="clamp")}[mode]
+    leaf = a.clone().requires_grad_()
+    ext = halo_exchange(torch.nn.functional.pad(leaf, (h, h, h, h)), (h, h),
+                        spatial_axes=(1, 2), cmesh=mesh, **kw)
+    (got,) = torch.autograd.grad((ext * w).sum(), leaf)
+    ref_leaf = a.clone().requires_grad_()
+    ref = torch.nn.functional.pad(ref_leaf[None], (h, h, h, h), mode=mode)[0]
+    (want,) = torch.autograd.grad((ref * w).sum(), ref_leaf)
+    torch.testing.assert_close(got, want, rtol=1e-12, atol=1e-12)
+    assert LAST_TRANSPOSE["backend"] == "local" and LAST_TRANSPOSE["local_strips"] > 0
+    if mode == "circular":
+        leaf = a.clone().requires_grad_()
+        ext = halo_exchange(torch.nn.functional.pad(leaf, (h, h, h, h)), (h, h),
+                            spatial_axes=(1, 2), cmesh=mesh, wire_dtype=torch.bfloat16, **kw)
+        (wired,) = torch.autograd.grad((ext * w).sum(), leaf)
+        # the points no halo copies take the interior's cotangent alone;
+        # the others differ by the rounding of their halos' cotangents
+        assert torch.equal(wired[:, h:-h, h:-h], got[:, h:-h, h:-h])
+        assert not torch.equal(wired, got)
+        assert float((wired - got).abs().max()) < 2 ** -7 * 4 * float(w.abs().max())
+
+
+def test_unused_block_takes_part_in_the_transpose(ranks):
+    """A rank whose loss reads one block of an exchange still takes part
+    in the transpose of every block: no rank waits, and the gradients equal
+    those of the loss over both blocks with zero weights."""
+    for status, res in ranks["grad_unused"]:
+        assert status == "ok" and res == 0.0, res
