@@ -130,15 +130,18 @@ Phases (a failed phase raises, and the script exits non-zero):
    MiniDycore step loss against ``torch.autograd.grad``; then (b) the
    constructs the adjoint once declined (``_construct_grads``, one
    definition each of ``testing.derivative_constructs.CHIP``: writes at a K
-   offset, a data-dimension component, a lower-dimensional field read and
-   written, run-time interval bounds, a variable-K read of a written
-   field): the gradient on the adjoint kernels, with ``derivative=
-   "kernels"`` and with the default, against the plain executor's on the
-   card, float64 at ``CONSTRUCT_SMALL`` to rtol 1e-12 and float32 at
-   512x512x80 to ``GRAD_RTOL_F32``/``GRAD_ATOL_F32``, on the models' (K, I,
-   J) buffers, each call one adjoint call and no plain re-run, and each
-   adjoint kernel's device time at 512x512x80 beside its bound
-   (``_k8_bytes``);
+   offset, a field written at two K offsets in a serial loop or at an
+   offset and read at an absolute K, a data-dimension component, a
+   lower-dimensional field read, written I-J, I, K, I-K and J-K fields, an
+   I-J field with data dimensions, run-time interval bounds, a variable-K
+   read of a written field): the forward kernels and the gradient on the
+   adjoint kernels, with ``derivative="kernels"`` and with the default,
+   against the plain executor's on the card, float64 at
+   ``CONSTRUCT_SMALL`` to rtol 1e-12 and float32 at 512x512x80 to
+   ``GRAD_RTOL_F32``/``GRAD_ATOL_F32`` (whether bit for bit printed), on
+   the models' layout (K first), each call one adjoint call and no plain
+   re-run, and each adjoint kernel's device time at 512x512x80 beside its
+   bound (``_k8_bytes``);
 10. plan modes: (a) fault 1's loop (a FORWARD loop reading ``t[1, 0, 0]``
    of the ``t`` it writes), a K-carried temporary read at offsets, reads
    of values the sweep has not written yet in the plane-sweep form, and
@@ -155,8 +158,9 @@ Phases (a failed phase raises, and the script exits non-zero):
    pairs, with K4's plain counterpart (the blocks through the plain
    executor); K4 at 512x512x80 float32 against one pass, bit for bit and
    timed, for the record; vadv_update K4 against one pass at 128x128 and
-   depths 80 to 1024, and at wider domains (``WIDE``), bit for bit and in
-   back-to-back pairs, each checking the default build's choice
+   depths 80 to 512, and at wider domains (``WIDE``), on states drawn on
+   the card (``_device_state``), bit for bit and in back-to-back pairs,
+   each checking the default build's choice
    (``cuda_backend.kb_default``); (c) fv_step at
    512x512x80 float32 built with
    ``serialize=True`` (its 13 row stages as one plane-sweep kernel)
@@ -227,7 +231,14 @@ Phases (a failed phase raises, and the script exits non-zero):
    at a time) on ``"cuda"`` on DistributedFields, every phase's kernels
    counted by its library on every rank, each bit for bit the
    single-device ``"cuda"`` run, with its exchanges and CUDA-event times
-   beside the single-device time; then the gradients
+   beside the single-device time, and the gradients of the ring and of a
+   chain (a recurrence whose adjoint runs in phases too: its recomputed
+   forward and its reversed loop a level at a time, an exchange each) at
+   the ring's size (the phased forward under autograd, then the adjoint
+   stencil's own global-view call; every rank one adjoint call and no
+   plain re-run), held by rank 0 to the single-device gradients on the
+   card at rtol 1e-12 of the largest entry, forward and backward timed
+   together and the forward alone; then the gradients
    (``testing.dist_cases.chip_grads``, in the same launch, float64 at the
    same size): the sharded MiniDycore step's (``shard_map_stencil``,
    periodic) and a global-view hdiff call's, every rank's backward on the
@@ -313,11 +324,11 @@ SMALL = (64, 256, 16)
 #: and one pass are timed against each other at 128 x 128 (K4's default
 #: threshold, ``cuda_backend.KB_DEFAULT_DEPTH``, comes from these runs)
 DEEP = (128, 128, 2048)
-DEPTHS = (80, 128, 256, 512, 1024)
+DEPTHS = (80, 128, 512)
 #: phase 10 (b): wider deep domains, where one pass already fills the card
 #: (512 x 512 at most 1024 levels: at 2048 the card ran out of memory
 #: beside what the earlier phases hold)
-WIDE = ((256, 256, 512), (512, 512, 512), (256, 256, 2048), (512, 512, 1024))
+WIDE = ((256, 256, 512), (512, 512, 1024))
 #: phase 11 (a): the shapes of tests/cartesian/test_geometry_repair.py:
 #: stencil -> ({field: (I, J, K) buffer shape}, origins, domain)
 _ZERO = (0, 0, 0)
@@ -356,6 +367,11 @@ SURFACE_FEATURES = {
 SURFACE_TIMED = {"vark": "variable_k_offset", "data_dims": "data_dims_dynamic_index",
                  "while": "while_halving", "regions": "horizontal_regions",
                  "float16": "float16_hdiff_sweep", "bfloat16": "bfloat16_hdiff_sweep"}
+
+
+def _at(phase) -> None:
+    """Print the seconds since the script started, as ``phase`` begins."""
+    print(f"chip_smoke: phase {phase} begins at {time.time() - T_START:.1f} s")
 
 
 def _nvidia_smi() -> str:
@@ -1118,30 +1134,44 @@ def _construct_grads(smi, builds, dev) -> dict:
 
     out = {}
     for (name, dtype), (domain, sts) in builds.items():
+        t0 = time.time()
         wrt, scalars = dc.CASES[name]
         fields, weights = dc.inputs(sts["plain"].backend.analysis, domain, sum(map(ord, name)),
                                     np.dtype(dtype))
 
-        def physical(a):  # the models' (K, I, J) layout, J contiguous
+        decls = sts["plain"].backend.analysis.stencil.field_decls
+
+        def physical(name, a):  # the models' layout: K first, J contiguous
+            dims = decls[name].dimensions
+            k = sum(dims) - 1  # K's axis, the last spatial one
             return torch.from_numpy(np.ascontiguousarray(
-                np.moveaxis(a, 2, 0) if a.ndim >= 3 else a)).to(dev)
+                np.moveaxis(a, k, 0) if dims[2] and k else a)).to(dev)
 
-        tensors = {k: physical(v) for k, v in fields.items()}
-        wts = {k: physical(v) for k, v in weights.items()}
+        tensors = {k: physical(k, v) for k, v in fields.items()}
+        wts = {k: physical(k, v) for k, v in weights.items()}
 
-        def grad_of(st):
+        def grad_of(st, outputs=None):
             fn = st.functional(origin=dc.ORIGIN, domain=domain, physical_layout=True)
             leaves = [tensors[n].clone().requires_grad_() for n in wrt]
             outs = fn(**{**tensors, **dict(zip(wrt, leaves))}, **scalars)
+            if outputs is not None:
+                outputs.update({k: v.detach() for k, v in outs.items()})
             loss = sum((outs[k] * w).sum() for k, w in wts.items())
             return torch.autograd.grad(loss, leaves)
 
-        ref = grad_of(sts["plain"])
+        ref_out: dict = {}
+        ref = grad_of(sts["plain"], ref_out)
         rec = {"domain": domain}
         for opt in ("kernels", "default"):
             b = sts[opt].backend
             before = (b.adjoint_calls, b.plain_reruns, b.derivative_declines)
-            got = grad_of(sts[opt])
+            outs: dict = {}
+            got = grad_of(sts[opt], outs)
+            for k, v in outs.items():  # the forward kernels (widened fields' copies too)
+                scale = float(ref_out[k].abs().max())
+                _check_close(f"{name} {dtype} {opt} forward {k} vs plain", v, ref_out[k],
+                             *((1e-12, 1e-12 * scale) if dtype == "float64" else
+                               (GRAD_RTOL_F32, GRAD_ATOL_F32 * scale)))
             if dev.type == "cuda":
                 torch.cuda.synchronize()
             counts = tuple(x - y for x, y in zip(
@@ -1149,7 +1179,7 @@ def _construct_grads(smi, builds, dev) -> dict:
             if counts != (1, 0, 0):
                 raise AssertionError(f"{name} {dtype} {opt}: (adjoint calls, plain re-runs, "
                                      f"declines) {counts}; {b.derivative_plan}")
-            errs = []
+            errs, bitwise = [], all(torch.equal(g, r) for g, r in zip(got, ref))
             for n, g, r in zip(wrt, got, ref):
                 scale = float(r.abs().max())
                 if dtype == "float64":
@@ -1160,7 +1190,7 @@ def _construct_grads(smi, builds, dev) -> dict:
                                          *tol)[0] / max(scale, 1e-300))
                 if not scale > 0:
                     raise AssertionError(f"{name} {dtype}: the plain gradient d/d{n} is zero")
-            rec[opt] = {"max_abs_err_over_largest": max(errs),
+            rec[opt] = {"max_abs_err_over_largest": max(errs), "bitwise": bitwise,
                         "adjoint": LAST_PLAN[b.analysis.stencil.name]["adjoint"]}
         if dtype == "float32":
             st = sts["default"]
@@ -1184,8 +1214,9 @@ def _construct_grads(smi, builds, dev) -> dict:
         print(f"K8 construct {name} {dtype} {domain}: adjoint kernels (derivative='kernels' "
               f"and the default) vs the plain executor's gradient, max abs over the largest "
               f"entry {rec['kernels']['max_abs_err_over_largest']:.3e} / "
-              f"{rec['default']['max_abs_err_over_largest']:.3e}; one adjoint call, no "
-              f"plain re-run")
+              f"{rec['default']['max_abs_err_over_largest']:.3e} (bit for bit "
+              f"{rec['kernels']['bitwise']} / {rec['default']['bitwise']}); one adjoint call, "
+              f"no plain re-run; {time.time() - t0:.1f} s")
         out[f"{name}_{dtype}"] = rec
     return out
 
@@ -1652,7 +1683,7 @@ def _deep_k(deep, deep512, dev) -> dict:
     from gt4py_tpu_torch.cartesian.backend.cuda_backend import LAST_PLAN
 
     mk, mo, mp = deep["kblocked"], deep["one_pass"], deep["plain"]
-    state0 = mk.init_state(seed=0)
+    state0 = _device_state(mk)
     runs, launches = {}, {}
     for label, m in (("kblocked", mk), ("one_pass", mo), ("plain", mp)):
         step = m.step_fn()
@@ -1746,12 +1777,31 @@ def _deep_k(deep, deep512, dev) -> dict:
           + f" ms; step K-blocked {steps['kblocked']:.4f} ms, one pass {steps['one_pass']:.4f} "
           f"ms; plain counterpart (blocks) {plain_ms:.4f} ms, whole plain {whole_plain_ms:.4f} ms")
     headline = _kblocked_512(deep512)
+    _at("10 (b), the depth sweep,")
     depths = _depth_sweep(dev)
+    _at("10 (b), the wide domains,")
     wide = _wide_sweep(dev)
     return {"launches": launches, "k4_device_launches": k4_device,
             "depths": depths, "wide": wide, "plan": kplan, "ms": t, "step_ms": steps,
             "b2b_pairs_ms": pairs, "plain_ms": plain_ms, "whole_plain_ms": whole_plain_ms,
             "max_abs_err": errs, "at_512x512x80": headline, "analysis": mk.vadv_upd.analysis}
+
+
+def _device_state(md, seed: int = 0) -> dict:
+    """A state of the MiniDycore ``md``'s buffers drawn on the card
+    (``torch.rand`` from ``seed``), each field scaled as ``init_state``
+    scales the JAX model's host draw: the K4 sweeps hold K4 to one pass on
+    the same inputs, and a host draw of their hundreds of millions of
+    points would take most of their time."""
+    import torch
+
+    from gt4py_tpu_torch.core import dtypes
+
+    gen = torch.Generator(device=md.device).manual_seed(seed)
+    return {name: scale * torch.rand(md.field_shape(), generator=gen, device=md.device,
+                                     dtype=dtypes.to_torch(md.dtype))
+            for name, scale in (("u", 1.0), ("coeff", 0.025), ("wcon", 0.2), ("utens", 0.01),
+                                ("utens_stage", 1.0))}
 
 
 def _depth_sweep(dev) -> dict:
@@ -1772,7 +1822,7 @@ def _depth_sweep(dev) -> dict:
                                       device=dev, options=options)
              for label, options in (("kblocked", {"k_blocked": True}),
                                     ("one_pass", {"k_blocked": False}), ("default", {}))}
-        state = m["one_pass"].init_state(seed=0)
+        state = _device_state(m["one_pass"])
         diffused = m["one_pass"].hdiff_fn_p(in_field=state["u"], out_field=state["u"],
                                             coeff=state["coeff"])["out_field"]
         args = dict(utens_stage=state["utens_stage"], u_stage=diffused, wcon=state["wcon"],
@@ -1825,7 +1875,7 @@ def _wide_sweep(dev) -> dict:
                                       device=dev, options=options)
              for label, options in (("kblocked", {"k_blocked": True}),
                                     ("one_pass", {"k_blocked": False}), ("default", {}))}
-        state = m["one_pass"].init_state(seed=0)
+        state = _device_state(m["one_pass"])
         diffused = m["one_pass"].hdiff_fn_p(in_field=state["u"], out_field=state["u"],
                                             coeff=state["coeff"])["out_field"]
         args = dict(utens_stage=state["utens_stage"], u_stage=diffused, wcon=state["wcon"],
@@ -2821,9 +2871,13 @@ def _tight_tiles(tb) -> dict:
             plan = LAST_PLAN[st.name]
             if "repair" in plan or counted != 1:
                 raise AssertionError(f"{name} {label}: {counted} kernels counted, plan {plan}")
-            total, rows = _device_ms(lambda: fn(**a), counted=[
-                (st.name, lambda: st.backend.device_launches()["all"])])
-            tile_ms = sum(ms for k, (ms, _) in rows.items() if st.name in k)
+            for _ in range(2):  # once more where the profiler lost the device events
+                total, rows = _device_ms(lambda: fn(**a), counted=[
+                    (st.name, lambda: st.backend.device_launches()["all"])])
+                if total is not None:
+                    break
+            tile_ms = sum(ms for k, (ms, _) in rows.items() if st.name in k) \
+                if total is not None else None
             rec = {"buffers": list(m.field_shape()), "tile_device_ms": tile_ms,
                    "call_device_ms": total,
                    "kernels": {k: [round(ms, 6), n] for k, (ms, n) in rows.items()},
@@ -2832,16 +2886,19 @@ def _tight_tiles(tb) -> dict:
                    "forms": plan["forms"], "staging": plan.get("staging"),
                    "repair": plan.get("repair"), "declined": plan["declined"]}
             out[f"{name} {label}"] = rec
+            device = "not measured (the profiler showed no device time, twice)" \
+                if total is None else f"{tile_ms:.4f} ms of device time, the call {total:.4f}"
             print(f"tight tiles {name} {NI}x{NJ}x{NK} f32 {label} (buffers {m.field_shape()}): "
-                  f"bitwise equal to plain; tile kernel {tile_ms:.4f} ms of device time, the "
-                  f"call {total:.4f}; {counted} kernels counted; staging {rec['staging']}, "
+                  f"bitwise equal to plain; tile kernel {device}; {counted} kernels counted; "
+                  f"staging {rec['staging']}, "
                   f"repair {rec['repair']}; one call {rec['one_call_ms']:.4f} ms; {_ptxas(st)}")
         tight = out[f"{name} tight bounded"]["tile_device_ms"]
         aligned_ms = out[f"{name} aligned periodic"]["tile_device_ms"]
-        print(f"tight tiles {name}: tight bounded {tight:.4f} against aligned "
-              f"{aligned_ms:.4f} ms ({100 * (tight / aligned_ms - 1):+.1f} %); with element "
-              f"copies (before row-phase staging; PERF.md, K6) "
-              f"{PARENT_ELEMENT_COPY_MS.get(name)} ms")
+        if tight is not None and aligned_ms is not None:
+            print(f"tight tiles {name}: tight bounded {tight:.4f} against aligned "
+                  f"{aligned_ms:.4f} ms ({100 * (tight / aligned_ms - 1):+.1f} %); with "
+                  f"element copies (before row-phase staging; PERF.md, K6) "
+                  f"{PARENT_ELEMENT_COPY_MS.get(name)} ms")
     return out
 
 
@@ -3468,6 +3525,7 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
 
     # -- 2. build -----------------------------------------------------------
+    _at(2)
     # phase 14: the fuzzers' programs and the next-DSL kernels they lower to
     # (their CPU run records its own fallbacks, before phase 7's count starts)
     fuzz_builds = _fuzz_builds()
@@ -3551,6 +3609,7 @@ def main() -> int:
     print(f"built K9 (csrc/benes.cu, benes_pass): {_ptxas(None, benes.KERNEL.build_dir)}")
 
     # -- 3. kernel against plain (MiniDycore stencils) ----------------------
+    _at(3)
     errors = {}
     for key, (fd, fd_plain) in models.items():
         c = configs[key]
@@ -3576,6 +3635,7 @@ def main() -> int:
                   f"{worst[0]:.3e}, max rel {worst[1]:.3e} (rtol {c['rtol']}, atol {c['atol']})")
 
     # -- 4. the MiniDycore path -------------------------------------------
+    _at(4)
     fd, fd_plain = models["f32"]
     md, md_plain = fd.dyn, fd_plain.dyn
     path = {"hdiff": md.hdiff, "vadv_update": md.vadv_upd, "dycore_fused": md.fused}
@@ -3745,6 +3805,7 @@ def main() -> int:
     })
 
     # -- 5. the language surface (float64), then the K3 phase ----------------
+    _at(5)
     k3 = {"cases": _k3(k3_builds, dev), "library": _k3_library(dev)}
     library = {"vark": k3["library"]["k3"], "data_dims": k3["library"]["k7"]}
     for feature, names in SURFACE_FEATURES.items():
@@ -3811,6 +3872,7 @@ def main() -> int:
                 "bitwise")} for case, r in k3["cases"].items()}
 
     # -- 6. the FullDycore path ---------------------------------------------
+    _at(6)
     fv_errors = {}
     for key, (fdc, fdp) in models.items():
         c = configs[key]
@@ -3914,6 +3976,7 @@ def main() -> int:
         })
 
     # -- 7. the next DSL ---------------------------------------------------
+    _at(7)
     next_errors = {}
     next_launches = {}
     next_bytes = {}
@@ -3978,6 +4041,7 @@ def main() -> int:
         })
 
     # -- 8. the unstructured gather path (K9) and bfloat16 -----------------
+    _at(8)
     k9_raw = _k9_raw(dev)
     fvm = _fvm(dev)
     k9_entry = _k9_entry(dev, k9_raw, fvm)
@@ -3985,12 +4049,14 @@ def main() -> int:
     bf16_result = _bf16_steps(bf16)
 
     # -- 9. gradients (K8, and K9 in the backward) --------------------------
+    _at(9)
     gradients = _gradients(smi, models, fvm["cases"]["irregular"])
     gradients["entry"]["constructs"] = _construct_grads(smi, construct_builds, dev)
     kernels.append(gradients["entry"])
     k9_entry["backward"] = gradients["summary"]["routed"]
 
     # -- 10. plan modes: the plane-sweep form, K-blocked passes -------------
+    _at(10)
     planes = _plane_modes(plane_defs, dev)
     planes["fv_step_serialized"] = _fv_planes(fd, fv_planes)
     deep_k = _deep_k(deep, deep512, dev)
@@ -4016,10 +4082,12 @@ def main() -> int:
     })
 
     # -- 11. K6: the vector row form and the repair -------------------------
+    _at(11)
     k6 = {"repair_shapes": _repair_shapes(p11["repair_defs"], dev),
           **_phase11(p11, tight, dev, kernels)}
 
     # -- 12. K1's tile form and K2's fused column kernel --------------------
+    _at(12)
     phase12 = _phase12(p12, fd, dev)
     for name, t in phase12["timings"].items():
         b = p12["f32"]["builds"][name]
@@ -4044,17 +4112,22 @@ def main() -> int:
         })
 
     # -- 13. the profiler's device events at the end of a long process -------
+    _at(13)
     profile_late = _profile_check(dev)
 
     # -- 14. the differential fuzzers ---------------------------------------
+    _at(14)
     fuzz = {**_fuzz(fuzz_builds, dev), "build_s": build_s}
 
     # -- 15. distribution: gloo ranks on the card ---------------------------
+    _at(15)
     distribution = _distribution(smi)
 
     # -- 16. the examples, each its own process ------------------------------
+    _at(16)
     examples = _examples(smi)
 
+    print(f"chip_smoke: {time.time() - T_START:.1f} s in all ({smi})")
     print(smi)
     print(json.dumps({"kernels": kernels, "unstructured_fvm": fvm["summary"],
                       "bfloat16": bf16_result, "gradients": gradients["summary"],
@@ -4105,6 +4178,9 @@ FUZZ_WITH = {"periodic": "K1a wrapped loads", "staging_row_phase": "K6 row-phase
 #: leg) on the leg's layout, cuda against torch on the card
 FUZZ_TIMED = {"per_level": ("wide", 6, (512, 512, 80)),
               "loop_group": ("base", 11, (512, 512, 80))}
+#: the calls in each median of a ``FUZZ_TIMED`` program (the plain torch
+#: calls take 80-210 ms each)
+FUZZ_TIMED_REPS = 5
 #: phase 14's programs the kernels once declined -> the form that now runs
 #: the CTA-iterated ``while`` (the plane-sweep kernel after a widened writer,
 #: the tile kernel); each must launch it
@@ -4208,12 +4284,13 @@ def _fuzz_timed(fb: dict, dev) -> dict:
         if form == "per_level" and "one launch a level" not in plan["declined"].get("ring", ""):
             raise AssertionError(f"phase 14 {form}: {leg} seed {seed} did not run a launch "
                                  f"a level at {domain}: {plan['declined']}")
-        t = _in_turns({name: calls[name] for name in ("cuda", "torch")})
+        t = _in_turns({name: calls[name] for name in ("cuda", "torch")}, FUZZ_TIMED_REPS)
         out[form] = {"leg": leg, "seed": seed, "domain": list(domain), "launches": launches,
                      "forms": plan["forms"], "ms": t["cuda"], "plain_ms": t["torch"]}
         print(f"phase 14 timed {form} ({leg} seed {seed}, {domain}, {case.layout}, "
               f"{case.dtype}): {launches} launches a call, forms {plan['forms']}, cuda "
-              f"{t['cuda']} ms, plain torch {t['torch']} ms (median CUDA-event ms, two turns)")
+              f"{t['cuda']} ms, plain torch {t['torch']} ms (median CUDA-event ms of "
+              f"{FUZZ_TIMED_REPS}, two turns)")
     return out
 
 
@@ -4404,7 +4481,7 @@ def _dist_builds():
     import torch
 
     from gt4py_tpu_torch.models import dycore, fv_advection
-    from gt4py_tpu_torch.parallel.distributed import _plan_of
+    from gt4py_tpu_torch.parallel.distributed import _plan_of, adjoint_object, cross_rank_read
     from gt4py_tpu_torch.testing import dist_cases
 
     dev = torch.device("cuda", 0)
@@ -4424,6 +4501,16 @@ def _dist_builds():
     for st in (md64.hdiff, md64.vadv_upd):
         api = tuple(p.name for p in st.backend.analysis.stencil.api_params if p.is_field)
         grads += [st.backend, st.backend.derivative("adjoint", api, DIST_SHAPE[0], ())[1]]
+    # chip_phased's gradients (both fields wanted): the chain, and the
+    # adjoints of the ring and the chain with, where the adjoint runs in
+    # phases itself (the chain's), the stencils of its phases
+    chain = dist_cases._chain_stencil("cuda")
+    for st in (phased[0], chain):
+        d, obj = adjoint_object(st, ("a", "c"), dist_cases.PHASED_RING_SHAPE[2], {})
+        grads.append(obj.backend)
+        if cross_rank_read(d.analysis):
+            grads += [o.backend for o in _plan_of(obj).onces]
+    phased.append(chain)
     return [md.hdiff.backend, md.vadv_upd.backend, fv.fv_step.backend] + [
         dist_cases.gspmd_stencil(sd, "cuda")[0].backend for sd in dist_cases.GSPMD_SEEDS] + [
         st.backend for st in phased] + [o.backend for st in phased for o in _plan_of(st).onces] \
@@ -4554,13 +4641,31 @@ def _phased(res: dict, smi: str) -> dict:
     """Phase 15's phased calls (``dist_cases.chip_phased``): every rank's
     calls launched the kernels of every phase (the libraries' counts) and
     ran in phases; rank 0's gathered results equal the single-device
-    ``"cuda"`` runs bit for bit.  Prints each call's exchanges and times."""
+    ``"cuda"`` runs bit for bit; the gradients of the ring and the chain
+    ran their adjoint stencils' global-view calls (the chain's in phases)
+    and equal the single-device gradients to rtol 1e-12 of the largest
+    entry.  Prints each call's exchanges and times."""
     from gt4py_tpu_torch.testing import dist_cases
 
     ranks = res["ranks"]
+    levels = dist_cases.PHASED_RING_SHAPE[2]
     for r in ranks:
+        for name in ("ring", "chain"):
+            # one adjoint call, no plain re-run; the ring's adjoint reads
+            # only the exchanged cotangent (one exchange), the chain's runs
+            # in phases: its recomputed forward, then its reversed loop, a
+            # level at a time with an exchange each
+            grad = r[f"{name}_grad"]
+            adj = grad.get("adjoint", {})
+            shape_ok = (adj.get("phased") and adj["levels"] == 2 * levels and
+                        adj["runs"] == adj["exchanges"]) if name == "chain" else \
+                (adj.get("phased") is False and adj.get("exchanges") == 1)
+            if not grad["phased"] or (grad["adjoint_calls"], grad["plain_reruns"]) != (1, 0) \
+                    or adj.get("stencil") != f"{name}__adj" or not shape_ok:
+                raise RuntimeError(f"phase 15: rank {r['rank']}'s {name} gradient ran {grad}: "
+                                   "not the phased forward and the adjoint stencil's call")
         for name, rec in r.items():
-            if name == "rank":
+            if name == "rank" or name.endswith("_grad"):
                 continue
             if not rec["phased"] or rec["library_launches"] <= 0 or \
                     not all(n > 0 for n in rec["phase_launches"]):
@@ -4582,7 +4687,24 @@ def _phased(res: dict, smi: str) -> dict:
               f"launches {rec['library_launches']} {rec['forms']}; {times} a call "
               f"(CUDA events, median of 5) against {single['single_ms']:.3f} ms single-device; "
               f"rank 0's phase kernels {rec['kernel_ms']} ms a call")
-    return {"ranks": ranks, "single": res["single"]}
+    for name, g in res["grads"].items():
+        if not (g["close"] and g["finite"] and g["largest"] > 0):
+            raise RuntimeError(f"phase 15: the phased {name}'s gradient against the "
+                               f"single-device one: {g}")
+        adj = r0[f"{name}_grad"]["adjoint"]
+        times = ", ".join("rank %d %.3f ms (forward alone %.3f)" % (
+            r["rank"], r[f"{name}_grad"]["ms"], r[name]["ms"] if name == "ring" else
+            r[f"{name}_grad"]["forward_ms"]) for r in ranks)
+        print(f"phase 15 ({smi}): phased {name} gradient ({dist_cases.PHASED_RING_SHAPE}, "
+              f"float64, {DIST_RANKS} gloo ranks), d/da and d/dc of the weighted sum of c: max "
+              f"|phased - single-device| {g['max_abs_err']:.3e} of the largest "
+              f"{g['largest']:.3e} (bit for bit {g['equal']}); the adjoint {adj['stencil']}'s "
+              f"global-view call phased {adj['phased']}, {adj['phases']} phase stencils, "
+              f"{adj['runs']} runs ({adj['levels']} levels), {adj['exchanges']} exchanges "
+              f"({adj['bytes']} B from rank 0); forward + backward {times} a call (CUDA "
+              f"events, median of 5) against {g['single_ms']:.3f} ms single-device (its "
+              f"adjoint's plan {g['adjoint_plan']})")
+    return {"ranks": ranks, "single": res["single"], "grads": res["grads"]}
 
 
 # --------------------------------------------------------------------------- #

@@ -33,9 +33,9 @@ executor re-runs (``torch_backend.run_plain``) on detached inputs under
 ``torch.enable_grad()``: ``torch.autograd.grad`` of that re-run gives the
 gradients (``torch.func.vjp`` of it under a ``torch.func`` transform), and
 forward-mode duals of the inputs the tangents.  The transform's other
-declines (``derivative.Declined.reruns`` false: work still open) raise on
-the card, a forced ``derivative="kernels"`` raises every decline, and a
-derivative kernel that fails to build or launch raises like the forward's.
+declines (``derivative.Declined.reruns`` false) raise on the card, a
+forced ``derivative="kernels"`` raises every decline, and a derivative
+kernel that fails to build or launch raises like the forward's.
 
 The inputs are every field of the call (the written ones as their buffers
 before the call: halos are kept and values are read before they are
@@ -268,12 +268,14 @@ def _fold(g: torch.Tensor, origin, domain, ext, axes) -> None:
             v[o - lo: o] = 0
 
 
-def _summed(c: torch.Tensor, like: torch.Tensor, origin, domain, lacks, e, lv, kl):
+def _summed(c: torch.Tensor, like: torch.Tensor, origin, domain, lacks, e, lv, kl, base=None):
     """A lower-dimensional field's gradient from its per-point contribution
     ``c`` (over the domain grown by ``e`` and the adjoint's levels up to
     ``lv[1]``, ``kl`` of them below the call's): summed over the axes in
-    ``lacks`` and added into a zero tensor like the field's view."""
-    g = torch.zeros_like(like)
+    ``lacks`` into a tensor like the field's view, which elsewhere holds
+    ``base`` (a written field's cotangent, where the adjoint did not run)
+    or zeros."""
+    g = torch.zeros_like(like) if base is None else base.clone()
     red = c.sum(dim=[ax for ax, n in enumerate("IJK") if n in lacks], keepdim=True)
     src, dst = [], []
     for ax, (lo, hi) in enumerate((e.i, e.j)):
@@ -289,8 +291,29 @@ def _summed(c: torch.Tensor, like: torch.Tensor, origin, domain, lacks, e, lv, k
     else:
         src.append(slice(lv[0], lv[1]))
         dst.append(slice(origin[2] - kl + lv[0], origin[2] - kl + lv[1]))
-    g[tuple(dst)] += red[tuple(src)]
+    g[tuple(dst)] = red[tuple(src)]
     return g
+
+
+def _plane(value: torch.Tensor, origin, has, reach, domain, first: bool):
+    """An I-J copy of a field that lacks K (``value``: a component's
+    logical view, ``has``: the field's axes) and its origin: the field's
+    own points on each axis it has, and on an axis it lacks one point for
+    each of the domain's and the reach's beyond it, every one holding the
+    value (``first``: the domain's first alone, the others zeros)."""
+    shape, org, at = [], [], []
+    for a in range(2):
+        if has[a]:
+            shape.append(value.shape[a])
+            org.append(origin[a])
+            at.append(slice(None))
+        else:
+            shape.append(reach[a][0] + domain[a] + reach[a][1])
+            org.append(reach[a][0])
+            at.append(slice(reach[a][0], reach[a][0] + 1) if first else slice(None))
+    out = torch.zeros(shape + [1], dtype=value.dtype, device=value.device)
+    out[tuple(at)] = value
+    return out, (org[0], org[1], 0)
 
 
 def _declined(call: _Call, e: derivative.Declined) -> None:
@@ -298,8 +321,7 @@ def _declined(call: _Call, e: derivative.Declined) -> None:
     only for the constructs of ``derivative.PLAIN_RERUN`` (``while``,
     variable-K, absolute-K and dynamic data-index reads whose bar is a
     scatter or a reduction, ``gamma``), and never with a forced
-    ``derivative="kernels"``; the open ones (``OFFSET_WRITE``,
-    ``LOWER_DIM`` as narrowed there) raise on the card."""
+    ``derivative="kernels"``."""
     if call.kernels.derivative_opt == "kernels" or not e.reruns:
         raise e
 
@@ -338,13 +360,21 @@ def _run_adjoint(call: _Call, d, backend, saved, needs, grads) -> tuple:
     env = dict(zip(call.names, saved[:n]))
     origins = {nm: at[nm] for nm in call.names}
     cot = {}
+    decls = call.plain.analysis.stencil.field_decls
+    window = {}
     for nm, g in zip(call.written, grads):
         if nm in d.planes:
-            # the state and the bar of a written lower-dimensional field
-            state, bar = d.planes[nm]
-            env[state], origins[state] = env[nm].clone(), at[nm]
-            env[bar] = torch.zeros_like(env[nm]) if g is None else g.clone()
-            origins[bar] = at[nm]
+            # the states and the bars of a written field that lacks K
+            has = decls[nm].dimensions
+            for idx, (state, bar) in d.planes[nm].items():
+                sel = (slice(None),) * 3 + idx
+                value = env[nm][sel]
+                env[state], origins[state] = _plane(value, at[nm], has, d.reach[state], dom,
+                                                    False)
+                env[bar], origins[bar] = _plane(
+                    torch.zeros_like(value) if g is None else g[sel], at[nm], has,
+                    d.reach[bar], dom, True)
+                window[bar] = (origins[bar], value.shape)
         elif nm in d.cots:
             # in the field's own layout (the kernels read J rows)
             cot[nm] = torch.zeros_like(env[nm]) if g is None else g \
@@ -379,7 +409,6 @@ def _run_adjoint(call: _Call, d, backend, saved, needs, grads) -> tuple:
         env.update(copies)
     periodic = () if d.fill else call.periodic
     kernels = saved[0].device.type == "cuda"
-    shapes = {bar: tuple(env[bar].shape) for _, bar in d.planes.values()}
     for nm, reach in d.reach.items():
         if nm in env:
             env[nm], origins[nm] = _padded(env[nm], origins[nm], reach, dom,
@@ -391,13 +420,22 @@ def _run_adjoint(call: _Call, d, backend, saved, needs, grads) -> tuple:
         if nm in d.grads:
             _fold(env[d.grads[nm]], origins[d.grads[nm]], dom, fwd.extents.field_extent(nm),
                   d.fill)
-    for nm, (_, bar) in d.planes.items():
-        # the bar (the field's gradient) back in the field's own window
-        lo = [o - a for o, a in zip(origins[bar], at[nm])]
-        env[bar] = env[bar][tuple(slice(x, x + n) for x, n in zip(lo, shapes[bar]))]
+    for nm, bars in d.planes.items():
+        # the bars back in the field's own window, summed over the axes it
+        # lacks: the gradient, a component at a time
+        g = torch.zeros_like(saved[call.names.index(nm)])
+        for idx, (_, bar) in bars.items():
+            (o0, shape), b = window[bar], env[bar]
+            for a, has in enumerate(decls[nm].dimensions[:2]):
+                lo = origins[bar][a] - o0[a]
+                b = b.narrow(a, lo, shape[a]) if has else b.sum(dim=a, keepdim=True)
+            g[(slice(None),) * 3 + idx] = b
+        if nm in d.grads:
+            env[d.grads[nm]] = g
     for nm, (lacks, e, lv) in d.sums.items():
         env[d.grads[nm]] = _summed(env[d.grads[nm]], saved[call.names.index(nm)],
-                                   call.origins[nm], call.domain, lacks, e, lv, kl)
+                                   call.origins[nm], call.domain, lacks, e, lv, kl,
+                                   cot[nm] if nm in d.passthrough else None)
     call.kernels.adjoint_calls += 1
     out = []
     for i, need in enumerate(needs):

@@ -4657,10 +4657,37 @@ def _field_arg(view: torch.Tensor, origin) -> Tuple[int, List[int]]:
         klo, khi, s0, s0 + storage.nbytes()]
 
 
-#: a phased call's derivative: its phases iterate ``while`` loops and step
-#: serial loops a level at a time, which no derivative stencil follows
-PHASED_DERIVATIVE = "cuda backend: no derivative of a call on some levels (a phased call on " \
-                    "DistributedFields)"
+def widened_fields(analysis: StencilAnalysis) -> Tuple[str, ...]:
+    """The fields that lack I or J and that the stencil both writes and
+    reads.  Every thread along the axis a field lacks writes the same
+    element, so a thread could read it after another's write of the same
+    statement; the kernels hold each such field as a copy with I and J
+    (and K where the field has it), a point of it for each thread
+    (``CudaBackend``)."""
+    out = []
+    for name, decl in analysis.stencil.field_decls.items():
+        access = analysis.field_info[name].access.value
+        if not (decl.dimensions[0] and decl.dimensions[1]) and access & 1 and access & 2:
+            out.append(name)
+    return tuple(out)
+
+
+def _as_temporaries(analysis: StencilAnalysis, names: Sequence[str]) -> StencilAnalysis:
+    """``analysis``' stencil with the fields ``names`` made temporaries with
+    I and J (the same statements, each computed over at least its
+    extent)."""
+    st = analysis.stencil
+    decls = dict(st.field_decls)
+    temps = dict(st.temp_decls)
+    for n in names:
+        d = decls.pop(n)
+        temps[n] = ir.FieldDecl(n, d.dtype, (True, True, d.dimensions[2]), tuple(d.data_dims),
+                                is_api=False)
+    new = replace(st, field_decls=decls, temp_decls=temps,
+                  api_params=[p for p in st.api_params if p.name not in names])
+    pins = {id(s): analysis.extents.stmt_extent(s)
+            for loop in st.vertical_loops for sec in loop.sections for s in sec.body}
+    return analyze(new, pins, validate=False)
 
 
 @register("cuda")
@@ -4683,13 +4710,19 @@ class CudaBackend:
         #: kernel or raises; None and False never) and ``stage_vark`` (K3:
         #: None the staged form where it plans, True it or raise, False the
         #: row kernels' loads from device memory)
-        self.program = generate(analysis, serialize=options.get("serialize"),
+        #: ``widened_fields``: the kernels take each as a held temporary, a
+        #: copy of the field with I and J that the launch makes and writes
+        #: back
+        self.widened = widened_fields(analysis)
+        self.program = generate(_as_temporaries(analysis, self.widened) if self.widened
+                                else analysis, serialize=options.get("serialize"),
                                 k_blocked=options.get("k_blocked"),
                                 tiles=options.get("tiles"),
                                 fuse_loops=options.get("fuse_loops"),
                                 sweep=options.get("sweep"),
                                 stage_vark=options.get("stage_vark"),
-                                held=options.get("held", frozenset()))
+                                held=frozenset(options.get("held", frozenset())) |
+                                frozenset(self.widened))
         LAST_PLAN[analysis.stencil.name] = self.program.plan_record()
         #: K6's launch options: ``vector`` (None: ``VECTOR_DEFAULT``, the
         #: vector row kernels wherever their fields share a 16-byte phase;
@@ -4879,8 +4912,7 @@ class CudaBackend:
         if kinds == {"cpu"}:
             if self.derivative_opt == "kernels" and \
                     wants_derivative([*env.values(), *scalars.values()]):
-                if levels is not None:
-                    raise NotImplementedError(PHASED_DERIVATIVE)
+                assert levels is None, "a phased call's steps run with no derivative wanted"
                 # the derivative stencils on the plain executor (their CPU form)
                 self._k8(self._plain_launch, env, scalars, domain, origins, periodic, outputs,
                          frame)
@@ -4903,12 +4935,11 @@ class CudaBackend:
         clipped to ``[lo, hi)``; ``outputs``: see ``apply``.  A call in a
         region frame (a call on DistributedFields) differentiates with its
         derivative stencils in the same frame; a call on some levels (a
-        phased call) does not."""
+        phased call's step) does not."""
         if not wants_derivative([*env.values(), *scalars.values()]):
             self._launch(env, scalars, domain, origins, periodic, frame, levels)
             return
-        if levels is not None:
-            raise NotImplementedError(PHASED_DERIVATIVE)
+        assert levels is None, "a phased call's steps run with no derivative wanted"
         self._k8(self._launch, env, scalars, domain, origins, periodic, outputs, frame)
 
     def _k8(self, launch, env, scalars, domain, origins, periodic, outputs, frame=None) -> None:
@@ -5109,6 +5140,9 @@ class CudaBackend:
                     if n in env and has_horizontal_reads(self.analysis, n)]
             if fill:
                 periodic_fill(self.analysis, env, domain, origins, periodic, fill)
+        # the widened fields (filled as the others), which the kernels hold
+        # as copies (below)
+        given = {n: env.pop(n) for n in self.widened if n in env}
         lib = self.build()
         self._kb_init(device)
         call = self.plan_call(env, scalars, (dI, dJ, dK), origins, periodic, levels=levels)
@@ -5120,6 +5154,10 @@ class CudaBackend:
         if pads:
             env, origins = repair.pad_fields(self.analysis, env, origins, (dI, dJ, dK), pads,
                                              copied_in)
+        widened = {n: _Widened(view, origins[n], st.field_decls[n].dimensions,
+                               prog.analysis.extents.alloc_extent(n), (dI, dJ), phase)
+                   for n, view in given.items()}
+        held.update((n, (w.copy, w.origin)) for n, w in widened.items())
         ptrs: List[int] = []
         strides: List[int] = []
         keep = []
@@ -5149,13 +5187,8 @@ class CudaBackend:
                 continue
             ext = prog.analysis.extents.alloc_extent(name)
             decl = prog.analysis.stencil.temp_decls[name]
-            nj = dJ - ext.j[0] + ext.j[1]
-            fj = 0
-            if vector_candidate(decl):
-                # J rows of whole 16-byte words, the origin on the phase
-                m = 16 // np.dtype(decl.dtype).itemsize
-                fj = (-(phase or 0) + ext.j[0]) % m
-                nj = -(-(fj + nj) // m) * m
+            fj, nj = _rows_on_phase(dJ, ext, phase, np.dtype(decl.dtype).itemsize) \
+                if vector_candidate(decl) else (0, dJ - ext.j[0] + ext.j[1])
             shape = (dK - ext.k[0] + ext.k[1], dI - ext.i[0] + ext.i[1], nj) + \
                 tuple(decl.data_dims)
             alloc = torch.zeros if name in zeroed else torch.empty
@@ -5242,12 +5275,60 @@ class CudaBackend:
             repair.write_back(self.analysis, caller, caller_origins, env, (dI, dJ, dK), pads,
                               [n for n in self._written if n in caller])
             self.repairs += 1
+        for w in widened.values():
+            w.write_back()
         if phase is not None or "row_phase" in record["staging"].values():
             self.vector_launches += 1
         # scratch buffers go back to the caching allocator tied to the
         # stream, so reuse by later work on the same stream is ordered
         del keep
         self.launches += 1
+
+
+def _rows_on_phase(dJ: int, ext: Extent, phase, itemsize: int) -> Tuple[int, int]:
+    """A device-memory temporary's J rows of whole 16-byte words, the
+    domain's first point on the vector kernels' ``phase``: the index of
+    the allocation's first point of ``ext`` in its row, and the row's
+    length."""
+    m = 16 // itemsize
+    fj = (-(phase or 0) + ext.j[0]) % m
+    return fj, -(-(fj + dJ - ext.j[0] + ext.j[1]) // m) * m
+
+
+class _Widened:
+    """The copy that the kernels hold of a field that lacks I or J
+    (``widened_fields``): the field's value at each point of the domain
+    grown by ``ext`` (the copy's allocation extent) in I and J, at each of
+    its levels, laid out as the scratch temporaries are (K slowest, J rows
+    contiguous and on the vector kernels' 16-byte ``phase``).  ``view``:
+    the field's logical view (size 1 on an axis it lacks), ``has``: its
+    axes."""
+
+    def __init__(self, view: torch.Tensor, origin, has, ext: Extent, dIJ, phase):
+        self.view, self.has = view, has
+        fj, nj = _rows_on_phase(dIJ[1], ext, phase, view.element_size())
+        self.size = (dIJ[0] - ext.i[0] + ext.i[1], dIJ[1] - ext.j[0] + ext.j[1])
+        t = torch.empty((view.shape[2], self.size[0], nj) + tuple(view.shape[3:]),
+                        dtype=view.dtype, device=view.device)
+        self.copy = t.permute(1, 2, 0, *range(3, t.ndim))
+        self.origin = (-ext.i[0], fj - ext.j[0], origin[2])
+        # the field's own points over the window, and the copy's window
+        src, dst = [], []
+        for a, lo in enumerate((ext.i[0], ext.j[0])):
+            start = self.origin[a] + lo
+            dst.append(slice(start, start + self.size[a]))
+            src.append(slice(origin[a] + lo, origin[a] + lo + self.size[a]) if has[a]
+                       else slice(None))
+        self.src, self.dst = tuple(src), tuple(dst)
+        self.copy[self.dst] = view[self.src]
+
+    def write_back(self) -> None:
+        """The field's points from the copy, at the domain's first point of
+        each axis the field lacks."""
+        t = self.copy[self.dst]
+        for a, has in enumerate(self.has[:2]):
+            t = t if has else t.narrow(a, self.origin[a] - self.dst[a].start, 1)
+        self.view[self.src].copy_(t)
 
 
 def _launch_counts(lib, n: int) -> dict:

@@ -73,37 +73,44 @@ The other constructs:
 - A write at a K offset ``f[0, 0, c] = e`` writes a version whose level
   ``k`` holds the field's level ``k + c`` (``_Adjoint.shift``): its reads
   bind at the offset less ``c``, the levels it covers (which cut the
-  pieces) are its section's moved by ``c``, and in a serial loop the read
-  of a level already swept sees it.
+  pieces) are its section's moved by ``c``.  A serial loop has a version
+  of the field for each offset it writes at: a read binds to the newest
+  write of its levels -- at its own offset earlier at the same level, else
+  at the offset nearest its own among those whose level the sweep has
+  passed -- and a write hands its cotangent on only where no write later
+  in the sweep covers the level (``_Adjoint.later``).
 - A data-dimension component written at a static index is a field of its
   own (``_Adjoint.components``); a write at a per-point index is a scatter
   (``DYNAMIC_INDEX``).
 - A lower-dimensional field whose gradient is wanted gets a per-point
   contribution on every axis, which the caller sums over the axes it
-  lacks (``Derivative.sums``).  An I-J field the stencil writes keeps its
-  forward semantics: a state the recomputed forward updates in place, read
+  lacks (``Derivative.sums``).  A written field with K that lacks I or J
+  is versioned as a 3-D field: every point of the axes it lacks computes
+  the same value, its cotangent enters at their first point, and the
+  caller sums its gradient.  A written field that lacks K (I-J, I or J, a
+  data-dimension one component by component) keeps its forward
+  semantics: a state the recomputed forward updates in place, read
   through snapshots taken where the forward reads it, and a bar the
   adjoint accumulates in place -- in serial loops, a PARALLEL section's
   contributions in a FORWARD loop of their own -- and hands on at each
-  write (``Derivative.planes``).
+  write; both are I-J fields, one copy an I or J point where the field
+  lacks the axis (``Derivative.planes``).
 - Run-time interval bounds are fixed at the call's values before the
   transform (``resolve_bounds``): an adjoint a set of values.
 - A variable- or absolute-K read of a field the stencil writes, whose
   value no wanted input changes, reads a temporary that follows the field
-  in place (``_Adjoint.mirrors``); where the value depends on a wanted
-  input its bar is the scatter or reduction of ``VARIABLE_K`` /
-  ``ABSOLUTE_K``.
+  in place (``_Adjoint.mirrors``; a write at a K offset updates the level
+  it writes); where the value depends on a wanted input its bar is the
+  scatter or reduction of ``VARIABLE_K`` / ``ABSOLUTE_K``.
 
 Constructs without a gather-form adjoint decline with a named reason
 (``Declined``).  Those in ``PLAIN_RERUN`` keep the plain executor's re-run
 on the card: ``while`` (its trip count needs a tape), a variable-K,
 absolute-K or dynamic data-index read of a field whose gradient is wanted
 or whose value depends on one, a write at a per-point data index, and
-``gamma``.  The transform also declines, as open work that raises on the
-card (``Declined.reruns`` false): a field written at two K offsets in one
-serial loop or at an offset and read at a variable K (``OFFSET_WRITE``),
-and a written field that lacks I or J, or has data dimensions and lacks K
-(``LOWER_DIM``).  The tangent declines only for ``gamma``.  The
+``gamma``.  The other declines (``Declined.reruns`` false) are periodic
+calls the torus does not hold for, which ``adjoint_stencil`` runs bounded
+on filled copies instead.  The tangent declines only for ``gamma``.  The
 derivative's own names never clash with the stencil's (``_Names``).
 """
 
@@ -138,9 +145,6 @@ ABSOLUTE_K = "an absolute-K read of a field whose gradient is wanted or whose va
 DYNAMIC_INDEX = "a dynamic data-dimension index into a field whose gradient is wanted, or " \
                 "into a field written at a component"
 GAMMA = "gamma: its derivative needs a digamma the IR lacks"
-LOWER_DIM = "a written field that lacks I or J, or has data dimensions and lacks K"
-OFFSET_WRITE = "a field written at two K offsets in one serial loop, or written at a K " \
-               "offset and read at a variable or absolute K"
 PERIODIC_POSITION = "a periodic call of a stencil that reads I/J positions or has horizontal " \
                     "regions"
 PERIODIC_WIDE_WRITE = "a periodic call writing a field beyond the domain"
@@ -196,10 +200,14 @@ class Derivative:
     #: its levels in the adjoint's
     sums: Dict[str, Tuple[Tuple[str, ...], Extent, Tuple[int, int]]] = \
         dataclasses.field(default_factory=dict)
-    #: a written lower-dimensional field -> (its state, its bar): API
-    #: fields the caller starts as copies of the field's value and of its
-    #: cotangent; the bar ends as the field's gradient
-    planes: Dict[str, Tuple[str, str]] = dataclasses.field(default_factory=dict)
+    #: a written field that lacks K -> its component index (``()`` for
+    #: none) -> (its state, its bar): I-J API fields the caller starts as
+    #: the component's value at every point and its cotangent at the first
+    #: I or J point where the field lacks the axis (zeros at the others);
+    #: the bar, summed over the axes the field lacks, ends as the
+    #: component's gradient (``grads``: the field's, which the caller makes)
+    planes: Dict[str, Dict[Tuple[int, ...], Tuple[str, str]]] = \
+        dataclasses.field(default_factory=dict)
     #: periodic axes the adjoint does not run on as a torus: it runs
     #: bounded on copies of the fields filled as the forward fills them,
     #: and the filled fields' gradients are folded back (the fill's
@@ -556,9 +564,10 @@ def _new_stencil(fwd: ir.Stencil, name: str) -> ir.Stencil:
 
 
 def _decl(name: str, like: ir.FieldDecl, api: bool, dtype=None) -> ir.FieldDecl:
+    """A field like ``like``; a temporary (``api`` false) has every axis."""
     return ir.FieldDecl(name=name, dtype=np.dtype(dtype if dtype is not None else like.dtype),
-                        dimensions=tuple(like.dimensions), data_dims=tuple(like.data_dims),
-                        is_api=api)
+                        dimensions=tuple(like.dimensions) if api else (True, True, True),
+                        data_dims=tuple(like.data_dims), is_api=api)
 
 
 class _Names:
@@ -684,6 +693,13 @@ class _Asg:
     shift: int = 0
     #: a write of a lower-dimensional field (``_Adjoint.planes``)
     plane: bool = False
+    #: the forward loop (its index) and its order: which of two writes of
+    #: one level comes later (``_Adjoint.later``)
+    loop: int = 0
+    order: ir.LoopOrder = ir.LoopOrder.PARALLEL
+    #: the K offset the recomputed forward writes at (a mirror that follows
+    #: a write at a K offset)
+    at: int = 0
 
 
 #: the pieces are cut at every bound of a section and of the levels a write
@@ -766,27 +782,34 @@ class _Adjoint:
         #: field's value in place, as the forward's buffer does
         self.mirrors: Dict[str, str] = {}
         self.active = _active(self.st, self.wanted)
-        #: a written lower-dimensional (I and J) field -> its state, which
-        #: the recomputed forward updates in place as the forward's buffer,
-        #: and its bar, accumulated in place by the adjoint (both API
-        #: fields: the caller starts them from the field's value and its
-        #: cotangent); its reads are snapshots of the state: temporary ->
-        #: (field, I/J offset), whose contributions the bar accumulates
+        #: a written field that lacks K (I-J, I or J; a data-dimension
+        #: one component by component) -> its state, which the recomputed
+        #: forward updates in place as the forward's buffer, and its bar,
+        #: accumulated in place by the adjoint: both I-J API fields, one
+        #: copy an I or J point where the field lacks the axis (the caller
+        #: starts the state from the field's value at every point, the bar
+        #: from its cotangent at the axis' first point, and sums the bar
+        #: over the axis); its reads are snapshots of the state: temporary
+        #: -> (key, I/J offset), whose contributions the bar accumulates.
+        #: A written field with K that lacks I or J is versioned as a 3-D
+        #: one, every point of the axes it lacks computing the same value
+        #: (its cotangent enters at their first point: ``passthrough``)
         self.planes: Dict[str, Tuple[str, str]] = {}
         self.state: Dict[str, str] = {}
         self.snaps: Dict[str, Tuple[str, Tuple[int, int]]] = {}
         for n, d in self.st.field_decls.items():
-            if all(d.dimensions) or not any(
+            if d.dimensions[2] or not any(
                     isinstance(x, ir.Assign) and x.target.name == n
                     for x in ir.walk_values(self.st.vertical_loops)):
                 continue
-            if d.dimensions != (True, True, False) or d.data_dims:
-                raise Declined(LOWER_DIM)
             if self.periodic:
                 # the state read beyond the domain is no copy of one inside
                 raise Declined(PERIODIC_WIDE_WRITE)
-            self.planes[n] = (self.new_name(f"{n}__s"), self.new_name(f"{n}__b"))
-            self.state[self.planes[n][0]] = n
+            for idx in np.ndindex(*d.data_dims):
+                key = self.component(n, tuple(idx)) if idx else n
+                self.planes[key] = (self.new_name(f"{n}__s"), self.new_name(f"{n}__b"))
+                self.state[self.planes[key][0]] = key
+        self.plane_fields = {self.base(k) for k in self.planes}
 
     def component(self, name: str, idx: Tuple[int, ...]) -> str:
         """The key of ``name``'s component ``idx`` (negative indices
@@ -835,9 +858,6 @@ class _Adjoint:
                 # (_validate_lhs_offsets); a variable-K target, which the
                 # frontend never makes, would be a scatter
                 assert isinstance(t.offset, ir.CartesianOffset) and not (t.offset.i or t.offset.j)
-                decl = self.st.decl(t.name)
-                if not all(decl.dimensions) and t.name not in self.planes:
-                    raise Declined(LOWER_DIM)
                 key = self.write_key(t)
                 if key is None:
                     # a whole-vector write (the cuda backend refuses it) or
@@ -925,8 +945,9 @@ class _Adjoint:
                 for n in ir.walk_values(sec.body):
                     if isinstance(n, ir.Assign):
                         bounds.update(b + n.target.offset.k for b in lv)
-                        if all(st.decl(n.target.name).dimensions):
-                            written.add(self.write_key(n.target))
+                        key = self.write_key(n.target)
+                        if key is not None and key not in self.planes:
+                            written.add(key)
         # a written field read at a variable or absolute K whose value no
         # wanted input changes is followed in place by a temporary (its
         # reads there are hoisted: ``hoist``); its value from before the
@@ -967,36 +988,34 @@ class _Adjoint:
                     flat: list = []
                     self.flatten(sec.body, None, None, flat)
                     secs.append((si, piece, flat))
-            # a serial loop's version of each field: the last assignment of
-            # the field in each section writes it; its levels are those the
-            # writes cover (a piece's levels moved by the writes' K offset,
-            # one a field in a serial loop)
-            loop_version: Dict[str, str] = {}
-            cover: Dict[str, List[Tuple[int, int]]] = {}
-            self.loop_shift: Dict[str, int] = {}
+            # a serial loop's versions of each field, one a K offset written
+            # at: the last assignment of the field at that offset in each
+            # section writes it; its levels are those the writes cover (a
+            # piece's levels moved by the offset)
+            loop_version: Dict[Tuple[str, int], str] = {}
+            cover: Dict[Tuple[str, int], List[Tuple[int, int]]] = {}
             if serial:
                 for si, lv, flat in secs:
                     for kind, name, _, _, _, c in flat:
-                        if kind != "assign":
+                        if kind != "assign" or name in self.planes:
                             continue
-                        if self.loop_shift.setdefault(name, c) != c:
-                            raise Declined(OFFSET_WRITE)
-                        if name not in loop_version:
-                            loop_version[name] = self.fresh(self.base(name))
-                            self.shift[loop_version[name]] = c
+                        if (name, c) not in loop_version:
+                            loop_version[(name, c)] = self.fresh(self.base(name))
+                            self.shift[loop_version[(name, c)]] = c
                         w = (lv[0] + c, lv[1] + c)
-                        if w not in cover.setdefault(name, []):
-                            cover[name].append(w)
+                        if w not in cover.setdefault((name, c), []):
+                            cover[(name, c)].append(w)
             # a PARALLEL loop's versions: one an assignment, its pieces' levels
             par: Dict[str, List[str]] = {}
             stmt_version: Dict[Tuple[int, int], str] = {}
             out_secs = []
             for si, lv, flat in secs:
                 last = {}
-                for n, (kind, name, *_) in enumerate(flat):
+                for n, (kind, name, *_, c) in enumerate(flat):
                     if kind == "assign":
-                        last[name] = n
-                cur: Dict[str, str] = {}
+                        last[(name, c)] = n
+                #: (key, K offset) -> the version written at this level
+                cur: Dict[Tuple[str, int], str] = {}
                 asgs: List[_Asg] = []
                 for n, (kind, name, value, mask, unit, c) in enumerate(flat):
                     ext = self.fwd.extents.stmt_extent(unit)
@@ -1009,28 +1028,25 @@ class _Adjoint:
                     new = self.hoist(_rename(value, resolve, self.leaf), (lv, ext), asgs)
                     if kind == "mask":
                         a = _Asg(name, name, new, lv, ext, mask=True)
-                        cur[name] = name
                     elif name in self.planes:
                         # a version of its own (read by nothing but the
                         # state's update), the state updated in place
-                        target = self.fresh(name)
-                        d3 = _decl(target, self.decl(name), False)
-                        d3.dimensions = (True, True, True)
-                        self.out.temp_decls[target] = d3
+                        target = self.fresh(self.base(name))
+                        self.out.temp_decls[target] = _decl(target, self.decl(name), False)
                         if mask is not None:
                             prev = self.hoist(ir.FieldAccess(self.planes[name][0]), (lv, ext),
                                               asgs)
                             new = _sel(ir.FieldAccess(mask), new, prev)
                         a = _Asg(target, name, new, lv, ext, masked=mask is not None,
-                                 plane=True)
+                                 plane=True, loop=len(self.loops), order=loop.loop_order)
                         asgs.append(a)
                         self.asgs.append(a)
                         st_name = self.planes[name][0]
                         a = _Asg(st_name, st_name, ir.FieldAccess(target), lv, ext, mask=True)
                     else:
                         decl = self.decl(name)
-                        if serial and last[name] == n:
-                            target = loop_version[name]
+                        if serial and last[(name, c)] == n:
+                            target = loop_version[(name, c)]
                         elif serial:
                             target = self.fresh(self.base(name))
                         else:
@@ -1050,8 +1066,9 @@ class _Adjoint:
                         if target not in self.out.temp_decls:
                             self.out.temp_decls[target] = _decl(target, decl, False)
                         a = _Asg(target, name, new, lv, ext, masked=mask is not None,
-                                 prev=None if mask is not None else prev, shift=c)
-                        cur[name] = target
+                                 prev=None if mask is not None else prev, shift=c,
+                                 loop=len(self.loops), order=loop.loop_order)
+                        cur[(name, c)] = target
                         if not serial:
                             if target not in par.setdefault(name, []):
                                 par[name].append(target)
@@ -1063,17 +1080,20 @@ class _Adjoint:
                     asgs.append(a)
                     self.asgs.append(a)
                     if kind != "mask" and name in self.mirrors:
-                        if c:
-                            raise Declined(OFFSET_WRITE)
+                        # the mirror's level k + c follows the version's k
                         m = self.mirrors[name]
-                        a = _Asg(m, m, ir.FieldAccess(target), lv, ext, mask=True)
+                        a = _Asg(m, m, ir.FieldAccess(target), lv, ext, mask=True, at=c)
                         asgs.append(a)
                         self.asgs.append(a)
                 out_secs.append((lv, asgs))
             self.loops.append((loop.loop_order, out_secs))
             if serial:
-                for name, v in loop_version.items():
-                    self.done.setdefault(name, []).append((v, cover[name]))
+                # oldest first: a level is written later at a lower offset
+                # in a FORWARD loop, at a higher one in a BACKWARD loop
+                up = loop.loop_order == ir.LoopOrder.BACKWARD
+                for name, c in sorted(loop_version, key=lambda nc: nc[1] if up else -nc[1]):
+                    self.done.setdefault(name, []).append((loop_version[(name, c)],
+                                                           cover[(name, c)]))
             else:
                 for name, vs in par.items():
                     for v in vs:
@@ -1172,10 +1192,13 @@ class _Adjoint:
         name = acc.name
         if name in self.own:
             return acc
-        if name in self.planes:
-            return ir.FieldAccess(self.planes[name][0], ir.CartesianOffset(
-                acc.offset.i, acc.offset.j, 0), acc.data_index)
         key = self.read_key(acc)
+        if name in self.plane_fields:
+            if key not in self.planes:
+                # the whole vector of a field written a component at a time
+                raise Declined(DYNAMIC_INDEX)
+            return ir.FieldAccess(self.planes[key][0], ir.CartesianOffset(
+                acc.offset.i, acc.offset.j, 0))
         written = key in self.done or key in cur or key in loop_version or key in par
         off = acc.offset
         if not isinstance(off, ir.CartesianOffset):
@@ -1199,19 +1222,19 @@ class _Adjoint:
                                   () if key in self.components else acc.data_index)
 
         if serial:
-            # level k of the loop's version holds the field's level k + s:
-            # the read sees the write of this level (d == 0) or of a level
-            # already swept
-            d = c - self.loop_shift.get(key, 0)
-            if d == 0 and key in cur:
-                return bind(cur[key])
-            if d != 0 and key in loop_version:
-                swept = d < 0 if order == ir.LoopOrder.FORWARD else d > 0
-                if swept:
-                    rel = _relation(r, cover[key])
-                    if rel == "in":
-                        return bind(loop_version[key])
-                    assert rel == "out", _UNCUT
+            # level k of the loop's version at offset s holds the field's
+            # level k + s: the read sees the newest write of its levels, at
+            # its own offset earlier at this level, else at the offset
+            # nearest its own among those whose level the sweep has passed
+            if (key, c) in cur:
+                return bind(cur[(key, c)])
+            fwd = order == ir.LoopOrder.FORWARD
+            for s in sorted((s for k, s in loop_version if k == key and (s > c if fwd else s < c)),
+                            key=lambda s: abs(s - c)):
+                rel = _relation(r, cover[(key, s)])
+                if rel == "in":
+                    return bind(loop_version[(key, s)])
+                assert rel == "out", _UNCUT
         else:
             for v in reversed(par.get(key, [])):
                 rel = _relation(r, cover[v])
@@ -1265,13 +1288,28 @@ class _Adjoint:
             cond = _and(cond, c)
         return _sel(cond, term, _lit(0, dt))
 
-    def passthrough(self, key: str, after: int, levels, region, dt, s: int = 0):
+    def later(self, b: _Asg, a: _Asg) -> bool:
+        """Whether ``b`` writes a level of their field after ``a`` writes
+        it: in a later loop, or in one serial loop at an offset the sweep
+        reaches the level with later (a lower one in a FORWARD loop, a
+        higher one in a BACKWARD loop), else later in the statements'
+        order."""
+        if b.loop != a.loop:
+            return b.loop > a.loop
+        if b.shift != a.shift and b.order != ir.LoopOrder.PARALLEL:
+            return (b.shift < a.shift) == (b.order == ir.LoopOrder.FORWARD)
+        return self.position[id(b)] > self.position[id(a)]
+
+    def passthrough(self, key: str, after: Optional[_Asg], levels, region, dt, s: int = 0):
         """The cotangent of field (or component) ``key`` at its levels
-        moved by ``s`` where no assignment from position ``after`` on (in
-        ``self.asgs``) wrote the point; None: nowhere."""
+        moved by ``s`` where no assignment that writes after ``after``
+        (None: any) wrote the point; None: nowhere.  A field that lacks I
+        or J has its cotangent at the domain's first point of the axis
+        alone: every point of the axis computes the same value, which the
+        caller sums (``Derivative.sums``)."""
         cond = None
-        for a in self.asgs[after:]:
-            if a.mask or a.field != key:
+        for a in self.asgs:
+            if a.mask or a.field != key or (after is not None and not self.later(a, after)):
                 continue
             conj = self.in_box((0, 0, a.shift - s), a, levels, region)
             if conj is None:
@@ -1283,6 +1321,9 @@ class _Adjoint:
                 inside = _and(inside, c)
             cond = _and(cond, _not(inside))
         base, idx = self.components.get(key, (key, ()))
+        for axis, has in zip("IJ", self.st.decl(base).dimensions):
+            if not has:
+                cond = _and(cond, _bin(_BO.EQ, ir.AxisPosition(axis), _lit(0, _I64)))
         cot = ir.FieldAccess(self.cots[base], ir.CartesianOffset(0, 0, s),
                              tuple(_lit(i, _I64) for i in idx))
         return cot if cond is None else _sel(cond, cot, _lit(0, dt))
@@ -1372,7 +1413,7 @@ class _Adjoint:
         for field, total in by.items():
             fb = self.planes[field][1]
             s = ir.Assign(ir.FieldAccess(fb), _add(ir.FieldAccess(fb), total))
-            min_ext[id(s)] = self.fwd.extents.field_extent(field)
+            min_ext[id(s)] = self.fwd.extents.field_extent(self.base(field))
             out.append(s)
         return out
 
@@ -1383,17 +1424,18 @@ class _Adjoint:
                      if is_float_dtype(st.field_decls[n].dtype)}
         fields = [n for n in st.field_decls if n in self.wanted]
         scalars = [n for n in st.scalar_decls if n in self.wanted]
-        grads = {n: self.new_name(f"{n}__g") for n in fields if n not in self.planes}
+        grads = {n: self.new_name(f"{n}__g") for n in fields if n not in self.plane_fields}
         contribs = {n: self.new_name(f"{n}__g") for n in scalars}
         out.field_decls = {n: copy.deepcopy(d) for n, d in st.field_decls.items()}
         for n in st.field_decls:
             out.field_decls[n].is_api = True
         for n, c in self.cots.items():
-            if n not in self.planes:
+            if n not in self.plane_fields:
                 out.field_decls[c] = _decl(c, st.field_decls[n], True)
-        for n, names in self.planes.items():
+        for key, names in self.planes.items():
             for x in names:
-                out.field_decls[x] = _decl(x, st.field_decls[n], True)
+                out.field_decls[x] = _decl(x, self.decl(key), True)
+                out.field_decls[x].dimensions = (True, True, False)
         for n, g in grads.items():
             out.field_decls[g] = _decl(g, st.field_decls[n], True)
             # a lower-dimensional field's gradient: a per-point contribution
@@ -1416,10 +1458,12 @@ class _Adjoint:
         for order, secs in self.loops:
             loops.append(ir.VerticalLoop(order, [
                 ir.VerticalSection(ir.Interval(ir.AxisBound.start(lv[0]), ir.AxisBound.start(lv[1])),
-                                   [ir.Assign(ir.FieldAccess(a.target), a.value) for a in asgs])
+                                   [ir.Assign(ir.FieldAccess(a.target,
+                                                             ir.CartesianOffset(0, 0, a.at)),
+                                              a.value) for a in asgs])
                 for lv, asgs in secs]))
         # the adjoint loops
-        position = {id(a): n for n, a in enumerate(self.asgs)}
+        self.position = {id(a): n for n, a in enumerate(self.asgs)}
         flip = {ir.LoopOrder.FORWARD: ir.LoopOrder.BACKWARD,
                 ir.LoopOrder.BACKWARD: ir.LoopOrder.FORWARD,
                 ir.LoopOrder.PARALLEL: ir.LoopOrder.PARALLEL}
@@ -1442,7 +1486,7 @@ class _Adjoint:
                         value = self.terms(a.target, (), a.levels, region, dt)
                         if self.base(a.field) in self.cots:
                             value = _add(value, self.passthrough(
-                                a.field, position[id(a)] + 1, a.levels, region, dt, a.shift))
+                                a.field, a, a.levels, region, dt, a.shift))
                         body.append(ir.Assign(bar, value if value is not None else _lit(0, dt)))
                     acc = self.accumulate(a, min_ext)
                     if not acc:
@@ -1496,7 +1540,7 @@ class _Adjoint:
                 value = self.terms(n, comp, lv, region, dt)
                 if n in self.cots:
                     key = self.component(n, comp) if comp else n
-                    value = _add(value, self.passthrough(key, 0, lv, region, dt))
+                    value = _add(value, self.passthrough(key, None, lv, region, dt))
                 target = ir.FieldAccess(g, data_index=tuple(_lit(c, _I64) for c in comp))
                 s = ir.Assign(target, value if value is not None else _lit(0, dt))
                 final.setdefault(lv, []).append(s)
@@ -1533,12 +1577,18 @@ class _Adjoint:
                           if any(isinstance(x, ir.FieldAccess) and x.name == n
                                  for x in ir.walk_values(out.vertical_loops))}
         analysis = analyze(out, min_extents=min_ext, validate=False)
-        grads.update({n: self.planes[n][1] for n in fields if n in self.planes})
+        planes: Dict[str, Dict[Tuple[int, ...], Tuple[str, str]]] = {}
+        for key, names in self.planes.items():
+            base, idx = self.components.get(key, (key, ()))
+            planes.setdefault(base, {})[idx] = names
+        # a written field that lacks K: its gradient, which the caller
+        # makes from the bars
+        grads.update({n: self.new_name(f"{n}__g") for n in fields if n in planes})
         d = Derivative("adjoint", analysis, cots=self.cots, grads=grads, contribs=contribs,
                        contrib_extent=contrib_extent,
                        passthrough=tuple(n for n in grads if n in self.cots
-                                         and n not in self.planes),
-                       k_grow=(self.kl, self.kh), sums=sums, planes=dict(self.planes))
+                                         and n not in planes),
+                       k_grow=(self.kl, self.kh), sums=sums, planes=planes)
         d.reach = read_boundary(d, every[1])
         for names in self.planes.values():
             for x in names:

@@ -11,6 +11,18 @@ part of the global compute domain that lies in its block, from its block
 grown by the stencil's own halo (exchanged over open edges, nothing filled
 beyond the global buffer), with horizontal regions and axis positions
 resolved against the global domain (the backends' region frame).
+
+A call whose blocks require grad differentiates as the single-device call
+does (``jax.grad`` of the JAX package's global view): the first exchange
+under its transpose (``halo._Exchange``), then the call's own derivative
+-- the derivative stencils in the region frame, or for a phased call one
+``torch.autograd.Function`` whose backward runs the call's adjoint stencil
+as a global-view call of its own (phased in turn where its reads cross
+ranks), or re-runs the phased call on the plain executor under autograd
+where the adjoint is one of ``derivative.PLAIN_RERUN``'s constructs
+(``_PhasedCall``).  A phased call with a ``while`` has no derivative, as
+``jax.grad`` of the JAX package's ``lax.while_loop`` has none
+(``PHASED_WHILE``).
 """
 
 from __future__ import annotations
@@ -21,10 +33,9 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from gt4py_tpu_torch.cartesian import ir
-from gt4py_tpu_torch.cartesian.backend.cuda_backend import PHASED_DERIVATIVE
-from gt4py_tpu_torch.cartesian.backend.torch_backend import wants_derivative
-from gt4py_tpu_torch.cartesian.stencil_object import logical_view
+from gt4py_tpu_torch.cartesian import derivative, ir
+from gt4py_tpu_torch.cartesian.backend.torch_backend import run_plain, wants_derivative
+from gt4py_tpu_torch.cartesian.stencil_object import StencilObject, logical_view
 from gt4py_tpu_torch.core import dtypes
 from gt4py_tpu_torch.storage import FieldStorage
 
@@ -82,9 +93,14 @@ class DistributedField(FieldStorage):
 
     @classmethod
     def from_block(cls, block: torch.Tensor, like: "DistributedField") -> "DistributedField":
-        """A new block at ``like``'s place."""
+        """A new block at ``like``'s place; on an axis the mesh does not
+        split, the block is the whole axis (of its own size)."""
+        shape, index = list(like.global_shape), list(like.index)
+        for ax, n in enumerate(block.shape):
+            if ax not in like.sharding.spatial_axes:
+                shape[ax], index[ax] = n, (0, n)
         out = cls.__new__(cls)
-        out._place(block, like.origin, like.dims, like.sharding, like.global_shape, like.index)
+        out._place(block, like.origin, like.dims, like.sharding, shape, index)
         return out
 
     @classmethod
@@ -198,6 +214,20 @@ def cross_rank_read(analysis) -> Optional[str]:
     return None
 
 
+#: a derivative through a phased call that iterates a ``while`` across the
+#: ranks: its trip count needs a tape, and the JAX package's global view
+#: (``lax.while_loop``) has no reverse-mode derivative either
+PHASED_WHILE = "no derivative of a phased call with a while loop (as jax.grad of " \
+               "lax.while_loop)"
+
+#: a phased call's derivative through a tensor scalar or a field that
+#: lacks an axis, wanted or written: its adjoint needs a field that is not
+#: split as the call's fields are (a per-point contribution the caller
+#: sums, or a written field's state and bar that lack K); declined on every
+#: device, where the JAX package's global view gives ``jax.grad``
+PHASED_LOWER_DIM = "no derivative of a phased call through a tensor scalar or a field that " \
+                   "lacks an axis"
+
 #: what the last stencil call on DistributedFields of this process ran:
 #: ``phased`` (False: one exchange, then the call), ``phases`` (the
 #: stencils run: 1, or the plan's), ``runs`` (their runs, one a level or
@@ -207,7 +237,9 @@ def cross_rank_read(analysis) -> Optional[str]:
 #: order); for a phased ``"cuda"`` call on the card ``launches`` (the
 #: kernel launches its stencils' libraries counted) and ``kernel_ms``
 #: (phase stencil -> its runs' time on the stream, CUDA events around the
-#: launches, summed)
+#: launches, summed); after the backward of a phased call, ``adjoint``: the
+#: same record of its adjoint's global-view call (and its ``stencil``), or
+#: of the phases' plain re-run (``plain`` true)
 LAST_GLOBAL: Dict[str, object] = {}
 
 
@@ -275,12 +307,15 @@ def run_global(stencil, fields: Dict[str, DistributedField], scalars, origins, d
         part.append(p1 - p0)
         local_origin.append(o[ax] + p0 - (b0 - halo[ax]))
         frame.append(p0)
-    if plan is not None and wants_derivative([f.data for f in fields.values()] +
-                                             list(scalars.values())):
-        # its phases step serial loops a level at a time and iterate while
-        # loops across the ranks: no derivative stencil follows them
-        raise NotImplementedError(PHASED_DERIVATIVE if stencil.backend_name == "cuda" else
-                                  "no derivative of a phased call on DistributedFields")
+    grad = plan is not None and wants_derivative([f.data for f in fields.values()] +
+                                                 list(scalars.values()))
+    if grad and _iterates(plan.steps):
+        raise NotImplementedError(PHASED_WHILE)
+    if grad and (wants_derivative(list(scalars.values())) or any(
+            not all(stencil.ir.field_decls[n].dimensions) and (
+                wants_derivative([f.data]) or stencil.field_info[n].access.value & 2)
+            for n, f in fields.items())):
+        raise NotImplementedError(PHASED_LOWER_DIM)
     blocks = {n: _pad(f.data, tuple(halo), axes) for n, f in fields.items()}
     first_exchange = HaloExchange(list(blocks.values()), tuple(halo), cmesh, spatial_axes=axes,
                                   periodic=(False, False), boundary="zero")
@@ -296,15 +331,16 @@ def run_global(stencil, fields: Dict[str, DistributedField], scalars, origins, d
                                 physical=physical, periodic=(), validate_args=validate_args,
                                 frame=frame)
     else:
-        views = {}
-        for name, t in blocks.items():
-            decl = stencil.ir.field_decls[name]
-            views[name] = logical_view(t, decl.dimensions, len(decl.data_dims), physical)
+        call = _PhasedRun(plan, stencil, cmesh, list(blocks), local_origins, part_domain, frame,
+                          scalars, tuple(halo), physical, fields, origins, domain)
+        views = call.views(blocks)
         if validate_args:
             stencil._validate_args(views, scalars, local_origins, part_domain)
-        _Phased(plan, stencil, cmesh, views, local_origins, part_domain, frame, scalars,
-                halo).run()
-        outs = {n: blocks[n] for n in fields if stencil.field_info[n].access.value & 2}
+        if grad:
+            outs = dict(zip(call.written, _PhasedCall.apply(call, *blocks.values())))
+        else:
+            call.run(views)
+            outs = {n: blocks[n] for n in call.written}
     result = {}
     for name, t in outs.items():
         idx = [slice(None)] * t.ndim
@@ -312,6 +348,204 @@ def run_global(stencil, fields: Dict[str, DistributedField], scalars, origins, d
             idx[axes[ax]] = slice(halo[ax], t.shape[axes[ax]] - halo[ax])
         result[name] = DistributedField.from_block(t[tuple(idx)].contiguous(), fields[name])
     return result
+
+
+def _iterates(steps) -> bool:
+    """Whether a plan's steps iterate a ``while``."""
+    for step in steps:
+        if isinstance(step, phases.Iterate):
+            return True
+        if isinstance(step, phases.Levels) and any(_iterates(sub) for _, sub in step.sections):
+            return True
+    return False
+
+
+class _PhasedRun:
+    """One phased call on a rank's padded blocks: ``names`` the call's
+    fields in order, ``written`` those it writes, ``origins``, ``domain``
+    and ``frame`` the rank's part; ``fields``, ``global_origins`` and
+    ``global_domain`` the global call, which the adjoint's own global-view
+    call follows."""
+
+    def __init__(self, plan, stencil, cmesh, names, origins, domain, frame, scalars, halo,
+                 physical, fields, global_origins, global_domain):
+        self.plan, self.stencil, self.cmesh, self.names = plan, stencil, cmesh, list(names)
+        self.origins, self.domain, self.frame, self.scalars = origins, domain, frame, scalars
+        self.halo, self.physical, self.fields = halo, physical, fields
+        self.global_origins, self.global_domain = global_origins, global_domain
+        self.written = [n for n in self.names if stencil.field_info[n].access.value & 2]
+        self.axes = (1, 2) if physical else (0, 1)
+        self.record: Dict[str, object] = {}
+
+    def views(self, blocks: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        """The logical views of the padded ``blocks``."""
+        views = {}
+        for name, t in blocks.items():
+            decl = self.stencil.ir.field_decls[name]
+            views[name] = logical_view(t, decl.dimensions, len(decl.data_dims), self.physical)
+        return views
+
+    def run(self, views: Dict[str, torch.Tensor], plain: bool = False, rec=None) -> None:
+        """The phased call in place on the blocks' logical ``views``
+        (``plain``: each step on the plain executor), recorded in ``rec``
+        (``LAST_GLOBAL``)."""
+        _Phased(self.plan, self.stencil, self.cmesh, views, self.origins, self.domain,
+                self.frame, self.scalars, self.halo, plain, rec).run()
+
+    def outputs(self, tensors, plain: bool = False, rec=None) -> tuple:
+        """The written fields' new blocks from the blocks ``tensors``, which
+        stay as they are."""
+        blocks = {n: (t.clone() if n in self.written else t) for n, t in zip(self.names, tensors)}
+        self.run(self.views(blocks), plain, rec)
+        return tuple(blocks[n] for n in self.written)
+
+    def inner(self, t: torch.Tensor) -> tuple:
+        """The index of a padded block's own points."""
+        idx = [slice(None)] * t.ndim
+        for ax in (0, 1):
+            idx[self.axes[ax]] = slice(self.halo[ax], t.shape[self.axes[ax]] - self.halo[ax])
+        return tuple(idx)
+
+    def backward(self, saved, needs, grads) -> tuple:
+        """The gradients of the padded blocks: the adjoint stencil's on the
+        card or with ``derivative="kernels"``, else (and for a construct
+        of ``derivative.PLAIN_RERUN``) the plain re-run's."""
+        backend = self.stencil.backend
+        forced = getattr(backend, "derivative_opt", None) == "kernels"
+        if hasattr(backend, "derivative") and (
+                forced or any(t.device.type == "cuda" for t in saved)):
+            try:
+                return self._adjoint(saved, needs, grads)
+            except derivative.Declined as e:
+                if forced or not e.reruns:
+                    raise
+        if hasattr(backend, "plain_reruns"):
+            backend.plain_reruns += 1
+        return self._rerun(saved, needs, grads)
+
+    def _rerun(self, saved, needs, grads) -> tuple:
+        """The phased call re-run on the plain executor under autograd, its
+        exchanges under their transposes; an output the loss does not use
+        brings a zero cotangent, so that every rank transposes the same
+        exchanges."""
+        rec = dict(phased=True, phases=1, runs=0, exchanges=0, bytes=0, levels=0,
+                   iterations=[], plain=True)
+        with torch.enable_grad():
+            leaves = [t.detach().requires_grad_(need) for t, need in zip(saved, needs)]
+            outs = self.outputs(leaves, plain=True, rec=rec)
+            pairs = [(o, torch.zeros_like(o) if g is None else g)
+                     for o, g in zip(outs, grads) if o.requires_grad]
+            wrt = [t for t in leaves if t.requires_grad]
+            got = torch.autograd.grad([o for o, _ in pairs], wrt, [g for _, g in pairs],
+                                      allow_unused=True) if pairs and wrt else [None] * len(wrt)
+        LAST_GLOBAL.clear()
+        LAST_GLOBAL.update(self.record, adjoint=rec)
+        it = iter(got)
+        return tuple(next(it) if t.requires_grad else None for t in leaves)
+
+    def _adjoint(self, saved, needs, grads) -> tuple:
+        """The call's adjoint stencil (``CudaBackend.derivative``) as a
+        global-view call of its own on the rank's blocks: the fields at
+        their values before the call, the written fields' cotangents and
+        the wanted fields' gradients, on the call's levels grown by
+        ``k_grow``; each block padded in K with zeros where the adjoint's
+        reads reach beyond it (their guards are false there)."""
+        st, backend = self.stencil, self.stencil.backend
+        wanted = tuple(nm for nm, need in zip(self.names, needs) if need)
+        bounds = {nm: int(self.scalars[nm]) for nm in derivative.runtime_bounds(st.ir)}
+        dK = self.global_domain[2]
+        d, obj = adjoint_object(st, wanted, dK, bounds)
+        # run_global declined these (PHASED_LOWER_DIM) before the call
+        assert not (d.sums or d.planes or d.contribs), d.stencil.name
+        kl, kh = d.k_grow
+        kax = 0 if self.physical else 2
+        blocks = {nm: t[self.inner(t)] for nm, t in zip(self.names, saved)}
+        like = {nm: nm for nm in self.names}
+        for nm, g in zip(self.written, grads):
+            if nm in d.cots:
+                blocks[d.cots[nm]] = torch.zeros_like(blocks[nm]) if g is None else \
+                    g[self.inner(g)].contiguous()
+                like[d.cots[nm]] = nm
+        for nm, g in d.grads.items():
+            blocks[g] = blocks[d.cots[nm]].clone() if nm in d.passthrough else \
+                torch.zeros_like(blocks[nm])
+            like[g] = nm
+        levels = dK + kl + kh
+        fields, origins, below = {}, {}, {}
+        for name, b in blocks.items():
+            f = self.fields[like[name]]
+            ok = self.global_origins[like[name]][2] - kl
+            lo, hi = d.reach.get(name, (None, None, (0, 0)))[2]
+            pad = (max(0, lo - ok), max(0, ok + levels + hi - b.shape[kax]))
+            if pad != (0, 0):
+                shape = list(b.shape)
+                shape[kax] += pad[0] + pad[1]
+                big = torch.zeros(shape, dtype=b.dtype, device=b.device)
+                big.narrow(kax, pad[0], b.shape[kax]).copy_(b)
+                b = big
+            below[name] = pad[0]
+            fields[name] = DistributedField.from_block(b, f)
+            o = self.global_origins[like[name]]
+            origins[name] = (o[0], o[1], ok + pad[0])
+        out = run_global(obj, fields, self.scalars, origins,
+                         (self.global_domain[0], self.global_domain[1], levels),
+                         physical=self.physical, periodic=(), validate_args=False)
+        adjoint = dict(LAST_GLOBAL, stencil=d.stencil.name)
+        LAST_GLOBAL.clear()
+        LAST_GLOBAL.update(self.record, adjoint=adjoint)
+        backend.adjoint_calls += 1
+        got = []
+        for nm, t, need in zip(self.names, saved, needs):
+            if not need:
+                got.append(None)
+                continue
+            g = out[d.grads[nm]].data
+            full = torch.zeros_like(t)
+            full[self.inner(full)] = g.narrow(kax, below[d.grads[nm]], t.shape[kax])
+            got.append(full)
+        return tuple(got)
+
+
+def adjoint_object(stencil, wanted, dK: int, bounds: Dict[str, int]):
+    """``stencil``'s adjoint for the ``wanted`` fields on ``dK`` levels, at
+    the run-time interval bounds' values ``bounds``
+    (``CudaBackend.derivative``; raises its ``Declined``), and a stencil
+    object of it for its global-view call, made once for each such adjoint
+    (the object then keeps its phased plan, ``_plan_of``)."""
+    d, backend = stencil.backend.derivative("adjoint", wanted, dK, (), bounds)
+    objs = stencil.__dict__.setdefault("_adjoint_objects", {})
+    key = (tuple(wanted), int(dK), tuple(sorted(bounds.items())))
+    if key not in objs:
+        objs[key] = StencilObject(
+            analysis=d.analysis, backend=backend, backend_name=stencil.backend_name,
+            name=d.stencil.name, options=stencil.options,
+            stencil_id=f"{stencil.stencil_id}:{d.stencil.name}")
+    return d, objs[key]
+
+
+class _PhasedCall(torch.autograd.Function):
+    """A phased call as one differentiable operation.  Inputs: the
+    ``_PhasedRun``, then the call's padded blocks (their halos exchanged,
+    under the exchange's transpose); outputs: the written fields' new
+    blocks.  The forward is the phased run; the backward,
+    ``_PhasedRun.backward``, gives the blocks' gradients (each block's own
+    points, or partial sums the first exchange's transpose adds up)."""
+
+    @staticmethod
+    def forward(call: _PhasedRun, *blocks):
+        out = call.outputs(blocks)
+        call.record = dict(LAST_GLOBAL)
+        return out
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.call = inputs[0]
+        ctx.set_materialize_grads(False)
+        ctx.save_for_backward(*inputs[1:])
+
+    @staticmethod
+    def backward(ctx, *grads):
+        return (None,) + ctx.call.backward(ctx.saved_tensors, ctx.needs_input_grad[1:], grads)
 
 
 class _Phased:
@@ -322,8 +556,11 @@ class _Phased:
     the fields written since the last exchange exchanged (only the levels
     written, under ``Levels``)."""
 
-    def __init__(self, plan, stencil, cmesh, views, origins, domain, frame, scalars, halo):
+    def __init__(self, plan, stencil, cmesh, views, origins, domain, frame, scalars, halo,
+                 plain=False, rec=None):
         self.plan, self.cmesh, self.scalars, self.halo = plan, cmesh, scalars, tuple(halo)
+        #: each step on its plain executor (the plain re-run under autograd)
+        self.plain = plain
         self.domain, self.frame = domain, frame
         self.env = dict(views)
         self.origins = dict(origins)
@@ -342,10 +579,10 @@ class _Phased:
                                          dtype=dtypes.to_torch(decl.dtype), device=some.device)
             self.origins[name] = (oi, oj, lo)
         self.dirty: Dict[str, Optional[Tuple[int, int]]] = {}
-        self.rec = LAST_GLOBAL
+        self.rec = LAST_GLOBAL if rec is None else rec
         self.rec["phases"] = len(plan.onces)
         self.rec["runs"] = 0
-        self.cuda = stencil.backend_name == "cuda" and some.device.type == "cuda"
+        self.cuda = stencil.backend_name == "cuda" and some.device.type == "cuda" and not plain
         self.events: List[tuple] = []
 
     def run(self) -> None:
@@ -406,8 +643,12 @@ class _Phased:
             if self.cuda:
                 ev = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
                 ev[0].record()
-            step.backend.apply(env, self.scalars, self.domain, origins, (), frame=self.frame,
-                               levels=levels)
+            if self.plain:
+                run_plain(getattr(step.backend, "plain", None) or step.backend.executor, env,
+                          self.scalars, self.domain, origins, (), self.frame, levels)
+            else:
+                step.backend.apply(env, self.scalars, self.domain, origins, (),
+                                   frame=self.frame, levels=levels)
             if self.cuda:
                 ev[1].record()
                 self.events.append((st.name, *ev))
@@ -442,10 +683,13 @@ class _Phased:
                 t = t[:, :, max(0, ok + win[0]): min(t.shape[2], ok + win[1])]
             blocks.append(t)
         self.dirty.clear()
-        ex = HaloExchange(blocks, self.halo, self.cmesh, spatial_axes=(0, 1),
-                          periodic=(False, False), boundary="zero")
-        ex.run()
-        self.rec["bytes"] += ex.record["bytes"]
+        # under autograd (the plain re-run) a block a view each: an exchange
+        # that fills views in place differentiates one tensor at a time
+        for group in [[b] for b in blocks] if self.plain else [blocks]:
+            ex = HaloExchange(group, self.halo, self.cmesh, spatial_axes=(0, 1),
+                              periodic=(False, False), boundary="zero")
+            ex.run()
+            self.rec["bytes"] += ex.record["bytes"]
         self.rec["exchanges"] += 1
 
     def _active(self, step, levels) -> bool:

@@ -1,10 +1,12 @@
 """The constructs K8's derivative stencils once declined, as definitions.
 
 Writes at a K offset (parallel, and serial upward and downward in both
-sweep directions), writes to a data-dimension component, lower-dimensional
-fields read with their gradient wanted and written (once, and summed over a
-column), run-time interval bounds, and absolute- and variable-K reads of a
-field the stencil writes.  ``SOURCE`` is one text that ``build`` makes into
+sweep directions; a field written at two offsets in one serial loop, or at
+an offset and read at an absolute K), writes to a data-dimension
+component, lower-dimensional fields read with their gradient wanted and
+written (I-J once, and summed over a column; I, K, I-K and J-K fields; an
+I-J field with data dimensions), run-time interval bounds, and absolute- and
+variable-K reads of a field the stencil writes.  ``SOURCE`` is one text that ``build`` makes into
 either package's definitions (the tests build the JAX package's twins from
 it); ``CASES`` says what each differentiates; ``inputs`` draws a call's
 buffers.  The CPU tests (``tests/test_torch_derivative_constructs.py``) and
@@ -25,6 +27,11 @@ from {pkg}.cartesian.gtscript import BACKWARD, FORWARD, PARALLEL, computation, i
 F = gtscript.Field[{dtype}]
 IJ = gtscript.Field[gtscript.IJ, {dtype}]
 V3 = gtscript.Field[({dtype}, (3,))]
+I1 = gtscript.Field[gtscript.I, {dtype}]
+K1 = gtscript.Field[gtscript.K, {dtype}]
+IK = gtscript.Field[gtscript.IK, {dtype}]
+JK = gtscript.Field[gtscript.JK, {dtype}]
+IJ2 = gtscript.Field[gtscript.IJ, ({dtype}, (2,))]
 
 
 def offset_write_parallel(a: F, b: F, out: F):
@@ -52,6 +59,23 @@ def offset_write_backward_up(a: F, b: F, out: F, c: F):
     with computation(BACKWARD), interval(0, -1):
         out[0, 0, 1] = out * a + b * out[0, 0, 1]
         c = out[0, 0, 1] * b
+
+
+def offset_write_two_shifts(a: F, b: F, out: F, c: F):
+    with computation(FORWARD), interval(1, -1):
+        out[0, 0, -1] = out[0, 0, -1] * b + a
+        out = out[0, 0, -1] * a + b[0, 0, 1]
+    with computation(BACKWARD), interval(1, -1):
+        c = c[0, 0, 1] * a + out
+        c[0, 0, 1] = c * b + c[0, 0, 1]
+
+
+def offset_write_then_absolute_k(a: F, m: F, out: F):
+    with computation(FORWARD), interval(0, -1):
+        m[0, 0, 1] = m * 0.5 + 1.0
+        out = m.at(K=1) * a + m * out
+    with computation(PARALLEL), interval(...):
+        out = out + m.at(K=2) * a
 
 
 def data_dim_write(a: F, w: V3, v: V3, out: F):
@@ -95,6 +119,41 @@ def lower_dim_column_sum(a: F, b: F, s: IJ, out: F):
         out = out + s * b[0, 1, 0]
 
 
+def i_field_write(a: F, g: I1, f: I1, out: F):
+    with computation(FORWARD), interval(...):
+        f = f * g + g
+        out = f * a + g[1]
+
+
+def k_field_write(a: F, g: K1, kf: K1, out: F):
+    with computation(FORWARD), interval(1, None):
+        kf = kf[-1] * g + g * g
+        out = kf * a + g[-1]
+
+
+def ik_field_write(a: F, g: IK, f: IK, out: F):
+    with computation(FORWARD), interval(1, None):
+        f = f[0, -1] * g + g[1, 0]
+        out = f * a[1, 0, 0] + g
+
+
+def jk_field_write(a: F, g: JK, f: JK, out: F):
+    with computation(PARALLEL), interval(...):
+        f = f * g + g[1, 0]
+    with computation(BACKWARD), interval(0, -1):
+        f = f[0, 1] * g + f
+        out = f * a + a[0, 1, 0] * g
+
+
+def ij_data_dim_write(a: F, b: F, w: IJ2, out: F):
+    with computation(FORWARD), interval(...):
+        w[0, 0][1] = w[0, 0][1] * b + a * w[0, 0][0]
+        out = w[0, 0][1] * a + w[0, 0][0]
+        w[0, 0][0] = w[0, 0][0] * b - out * 0.25
+    with computation(PARALLEL), interval(...):
+        out = out + w[0, 0][1] * b + w[0, 0][0]
+
+
 def runtime_interval(a: F, b: F, out: F, *, k0: int, k1: int):
     with computation(PARALLEL), interval(k0, k1):
         out = a * a + b[0, 0, 1]
@@ -132,6 +191,10 @@ CASES = {
     "offset_write_forward_down": (("a", "b", "out"), {}),
     "offset_write_backward_down": (("a", "b", "out"), {}),
     "offset_write_backward_up": (("a", "b", "out", "c"), {}),
+    # a field written at two K offsets in one serial loop, or at an offset
+    # and read at an absolute K
+    "offset_write_two_shifts": (("a", "b", "out", "c"), {}),
+    "offset_write_then_absolute_k": (("a", "out"), {}),
     # data-dimension components (once DATA_DIM_WRITE)
     "data_dim_write": (("a", "w", "v", "out"), {}),
     "data_dim_write_scan": (("a", "v", "out"), {}),
@@ -139,6 +202,12 @@ CASES = {
     "lower_dim_read": (("a", "b", "out"), {}),
     "lower_dim_write": (("a", "b", "out"), {}),
     "lower_dim_column_sum": (("a", "b", "s", "out"), {}),
+    # written fields that lack I or J, or have data dimensions and lack K
+    "i_field_write": (("a", "g", "f", "out"), {}),
+    "k_field_write": (("a", "g", "kf", "out"), {}),
+    "ik_field_write": (("a", "g", "f", "out"), {}),
+    "jk_field_write": (("a", "g", "f", "out"), {}),
+    "ij_data_dim_write": (("a", "b", "w", "out"), {}),
     # run-time interval bounds (once RUNTIME_INTERVAL)
     "runtime_interval": (("a", "b", "out"), {"k0": 1, "k1": 4}),
     "runtime_interval_scan": (("a", "out"), {"k1": 3}),
@@ -149,8 +218,10 @@ CASES = {
 }
 
 #: one definition a construct: the emulated kernels' legs and the card's
-CHIP = ("offset_write_forward_up", "offset_write_backward_down", "data_dim_write_scan",
-        "lower_dim_read", "lower_dim_write", "runtime_interval", "variable_k_written")
+CHIP = ("offset_write_forward_up", "offset_write_backward_down", "offset_write_two_shifts",
+        "offset_write_then_absolute_k", "data_dim_write_scan", "lower_dim_read",
+        "lower_dim_write", "i_field_write", "k_field_write", "ik_field_write", "jk_field_write",
+        "ij_data_dim_write", "runtime_interval", "variable_k_written")
 
 
 def build(pkg: str = "gt4py_tpu_torch", dtype: str = "float64") -> Dict[str, object]:

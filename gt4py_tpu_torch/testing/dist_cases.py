@@ -385,17 +385,18 @@ def gspmd_program(seed: int):
     return gen, stencil, domain, arrays, scalars
 
 
-def gspmd_stencil(seed: int, backend: str):
-    """``gspmd_program(seed)``'s stencil object on ``backend``, and the
-    program's draws."""
+def gspmd_stencil(seed: int, backend: str, options=None):
+    """``gspmd_program(seed)``'s stencil object on ``backend`` (build
+    ``options``), and the program's draws."""
     from gt4py_tpu_torch.cartesian import analysis as analysis_mod
     from gt4py_tpu_torch.cartesian.backend import from_name
     from gt4py_tpu_torch.cartesian.stencil_object import StencilObject
 
     _, stencil, domain, arrays, scalars = gspmd_program(seed)
     an = analysis_mod.analyze(stencil)
-    obj = StencilObject(analysis=an, backend=from_name(backend)(an, {}), backend_name=backend,
-                        name=stencil.name, options={}, stencil_id=f"gspmd-{seed}")
+    obj = StencilObject(analysis=an, backend=from_name(backend)(an, dict(options or {})),
+                        backend_name=backend, name=stencil.name, options=dict(options or {}),
+                        stencil_id=f"gspmd-{seed}")
     return obj, domain, arrays, scalars
 
 
@@ -465,6 +466,25 @@ def _ring_stencil(backend, **options):
                 t = a * 2.0
 
     return ring
+
+
+def _chain_stencil(backend, **options):
+    # a recurrence across levels and ranks: a level reads the level below
+    # at the neighbouring point, so the adjoint's reversed loop reads the
+    # bar of the level above at the point on the other side, which the
+    # neighbouring rank computes
+    @gtscript.stencil(backend=backend, **options)
+    def chain(a: Field64, c: Field64):
+        with computation(FORWARD):
+            with interval(0, 1):
+                t = a
+            with interval(1, None):
+                u = t[1, 0, -1]
+                t = u * a + a[0, 1, 0]
+        with computation(PARALLEL), interval(...):
+            c = t * a
+
+    return chain
 
 
 @case
@@ -624,17 +644,72 @@ def global_grad(cmesh, *, which="region", shape=(16, 24, 4), seed=3, backend="cu
                        "plain_reruns": getattr(st.backend, "plain_reruns", 0)})
 
 
+def phased_grad_case(which, backend: str = "cuda", shape=(24, 36, 5), seed: int = 0,
+                     **options):
+    """A phased call's gradient case: (stencil object, origins, domain, the
+    inputs (I, J, K) arrays, the scalars).  ``"ring"``: the ring read
+    (``_ring_stencil``), ``"chain"``: a recurrence whose adjoint runs in
+    phases too (``_chain_stencil``), each on ``shape`` from ``seed``; an
+    int: the generated program of that seed (``gspmd_program``)."""
+    if which in ("ring", "chain"):
+        rng = np.random.default_rng(seed)
+        arrays = {"a": 0.5 + 0.5 * rng.random(shape), "c": rng.random(shape)}
+        make = _ring_stencil if which == "ring" else _chain_stencil
+        return make(backend, **options), (1, 1, 0), \
+            (shape[0] - 4, shape[1] - 2, shape[2]), arrays, {}
+    obj, domain, arrays, scalars = gspmd_stencil(which, backend, options)
+    return obj, {n: (6, 6, 1) for n in arrays}, domain, arrays, scalars
+
+
+def phased_grad_weights(arrays, written, seed: int) -> Dict[str, np.ndarray]:
+    """The weights of a phased gradient case's written fields in its loss."""
+    rng = np.random.default_rng(seed + 100)
+    return {n: rng.random(arrays[n].shape) for n in sorted(written)}
+
+
 @case
-def phased_grad(cmesh, *, shape=(24, 36, 5), seed=0):
-    """A gradient through a phased call (the ring) on the derivative
-    stencils: the error it raises, on every rank."""
-    rng = np.random.default_rng(seed)
-    st = _ring_stencil("cuda", derivative="kernels")
-    fn = st.functional(origin=(1, 1, 0), domain=(shape[0] - 4, shape[1] - 2, shape[2]))
-    a = distribute(cmesh, rng.random(shape))
-    a.data.requires_grad_()
+def phased_grad(cmesh, *, which="ring", seed=0, backend="cuda", options=None, emulate=None,
+                shape=(24, 36, 5)):
+    """The gradient of a weighted sum (``phased_grad_weights``) of a phased
+    call's written fields with respect to all its fields
+    (``phased_grad_case``): each rank's ``DistributedField.data``
+    requires grad, the call runs in phases and its backward through the
+    adjoint stencil's own global-view call (or the plain re-run), then the
+    first exchange transposed; each gradient gathered, with what the call
+    and its adjoint ran (``LAST_GLOBAL``) and the backend's counts in the
+    call (``adjoint_calls``, ``plain_reruns``).  ``emulate``: as
+    ``ring``'s."""
+    import contextlib
+
+    from gt4py_tpu_torch.parallel.distributed import LAST_GLOBAL
+
+    st, origins, domain, arrays, scalars = phased_grad_case(which, backend, shape, seed,
+                                                            **(options or {}))
+    fields = {n: distribute(cmesh, v) for n, v in arrays.items()}
+    for f in fields.values():
+        f.data.requires_grad_()
+    counts = ("adjoint_calls", "plain_reruns")
+    before = {c: getattr(st.backend, c, 0) for c in counts}
+    with emulate() if emulate is not None else contextlib.nullcontext():
+        out = st.functional(origin=origins, domain=domain)(**fields, **scalars)
+        w = phased_grad_weights(arrays, list(out), seed)
+        loss = sum((out[n].data * distribute(cmesh, w[n]).data).sum() for n in out)
+        grads = torch.autograd.grad(loss, [f.data for f in fields.values()])
+    got = {n: _gather_blocks(cmesh, _host(g), f.index, f.global_shape)
+           for (n, f), g in zip(fields.items(), grads)}
+    return _r0(cmesh, {"grads": got, "record": dict(LAST_GLOBAL),
+                       **{c: getattr(st.backend, c, 0) - before[c] for c in counts}})
+
+
+@case
+def phased_while_grad(cmesh, *, seed=11203, backend="cuda"):
+    """A gradient through a phased call that iterates a ``while`` (the
+    generated program of ``seed``): the error it raises, on every rank."""
+    st, origins, domain, arrays, scalars = phased_grad_case(seed, backend)
+    fields = {n: distribute(cmesh, v) for n, v in arrays.items()}
+    fields["in0"].data.requires_grad_()
     try:
-        fn(a=a, c=distribute(cmesh, np.zeros(shape)))
+        st.functional(origin=origins, domain=domain)(**fields, **scalars)
     except NotImplementedError as e:
         return str(e)
     return None
@@ -1244,7 +1319,14 @@ def chip_phased(cmesh, *, ring_shape=PHASED_RING_SHAPE, seeds=PHASED_SEEDS, reps
     call, what the call ran (``LAST_GLOBAL``, its phases' kernel time
     from the last timed call), its time (CUDA events, median of ``reps``);
     rank 0 holds each to the single-device ``"cuda"`` run on the card, bit
-    for bit, and times that too."""
+    for bit, and times that too.  Then the gradients of the ring and of the
+    chain (``_chain_stencil``, whose adjoint runs in phases too) on the same
+    inputs (``ring_grad``, ``chain_grad``: the weighted sum of ``c`` with
+    respect to ``a`` and ``c``, forward and backward timed together and the
+    chain's forward alone, the adjoint calls and plain re-runs of the call,
+    ``LAST_GLOBAL`` with its ``adjoint``), which rank 0 holds to the
+    single-device gradients on the card at rtol 1e-12 of the largest
+    entry (``grads``)."""
     from gt4py_tpu_torch.cartesian.backend.cuda_backend import LAST_PLAN, library_launches
     from gt4py_tpu_torch.parallel.distributed import LAST_GLOBAL, _plan_of
 
@@ -1282,10 +1364,66 @@ def chip_phased(cmesh, *, ring_shape=PHASED_RING_SHAPE, seeds=PHASED_SEEDS, reps
         rec["ms"] = _median_ms(call, reps, dev)
         rec["kernel_ms"] = LAST_GLOBAL.get("kernel_ms")  # the last timed call's
         out[name] = rec
+    # the gradients of the ring and the chain: the phased forward, then the
+    # adjoint stencil's own global-view call (the chain's itself phased) and
+    # the first exchange's transpose
+    w = phased_grad_weights({"c": a}, ["c"], 0)["c"]
+    wd = distribute(cmesh, w).data
+    counts = ("adjoint_calls", "plain_reruns")
+    grad_sts = {"ring": ring_st, "chain": _chain_stencil("cuda")}
+    grads = {}
+    for name, st in grad_sts.items():
+        fn = ring_fn if name == "ring" else st.functional(origin=(1, 1, 0), domain=(
+            ring_shape[0] - 4, ring_shape[1] - 2, ring_shape[2]))
+
+        def grad_call(fn=fn):
+            fs = {"a": distribute(cmesh, a), "c": distribute(cmesh, c)}
+            for f in fs.values():
+                f.data.requires_grad_()
+            res = fn(**fs)["c"]
+            return fs, torch.autograd.grad((res.data * wd).sum(), [f.data for f in fs.values()])
+
+        before = {k: getattr(st.backend, k) for k in counts}
+        fs, g = grad_call()
+        _sync(dev)
+        rec = {**LAST_GLOBAL, **{k: getattr(st.backend, k) - before[k] for k in counts}}
+        grads[name] = {n: _gather_blocks(cmesh, _host(x), f.index, f.global_shape)
+                       for (n, f), x in zip(fs.items(), g)}
+        rec["ms"] = _median_ms(grad_call, reps, dev)
+        if name == "chain":  # the ring's forward alone is timed above
+            fwd_args = {"a": distribute(cmesh, a), "c": distribute(cmesh, c)}
+            rec["forward_ms"] = _median_ms(lambda fn=fn: fn(**fwd_args), reps, dev)
+        out[f"{name}_grad"] = rec
     ranks = [None] * cmesh.size
     dist.all_gather_object(ranks, out)
     if cmesh.rank != 0:
         return out
+    # rank 0: the single-device gradients on the card
+    wt = torch.from_numpy(w).to(dev)
+    grad_recs = {}
+    for name, st in grad_sts.items():
+        one = st.functional(origin=(1, 1, 0),
+                            domain=(ring_shape[0] - 4, ring_shape[1] - 2, ring_shape[2]))
+
+        def single_grad(one=one):
+            t = {"a": torch.from_numpy(a).to(dev).requires_grad_(),
+                 "c": torch.from_numpy(c).to(dev).requires_grad_()}
+            return dict(zip(t, torch.autograd.grad((one(**t)["c"] * wt).sum(),
+                                                   list(t.values()))))
+
+        ref = {n: _host(v) for n, v in single_grad().items()}
+        got_g = grads[name]
+        grad_recs[name] = {
+            "max_abs_err": max(_max_err(got_g[n], r) for n, r in ref.items()),
+            "largest": max(float(np.abs(r).max()) for r in ref.values()),
+            "equal": all(bool(np.array_equal(got_g[n], r)) for n, r in ref.items()),
+            "close": all(bool(np.allclose(got_g[n], r, rtol=1e-12,
+                                          atol=1e-12 * float(np.abs(r).max())))
+                         for n, r in ref.items()),
+            "finite": all(bool(np.isfinite(got_g[n]).all()) for n in ref),
+            "single_ms": _median_ms(single_grad, reps, dev),
+            "adjoint_plan": {k: LAST_PLAN.get(f"{name}__adj", {}).get(k)
+                             for k in ("forms", "declined")}}
     single: Dict[str, Any] = {}
     for name, (st, call) in calls.items():
         if name == "ring":
@@ -1307,4 +1445,4 @@ def chip_phased(cmesh, *, ring_shape=PHASED_RING_SHAPE, seeds=PHASED_SEEDS, reps
             "max_abs_err": max(_max_err(got[name][n], r) for n, r in ref.items()),
             "finite": all(bool(np.isfinite(r).all()) for r in ref.values()),
             "single_ms": ms}
-    return {"ranks": ranks, "single": single}
+    return {"ranks": ranks, "single": single, "grads": grad_recs}

@@ -12,7 +12,8 @@ on the plain executor), at rtol 1e-12 / atol 1e-13 in float64, bounded
 and periodic in I and J; one definition of
 each construct runs the derivative stencils as the generated kernels
 built by the host compiler, and the dot-product identity
-<J v, w> = <v, J^T w> holds for each.
+<J v, w> = <v, J^T w> holds for each.  The forward kernels hold a
+written field that lacks I or J as a copy with both.
 """
 
 import functools
@@ -29,6 +30,7 @@ from gt4py_tpu_torch import config
 from gt4py_tpu_torch.cartesian import derivative, gtscript
 from gt4py_tpu_torch.cartesian.backend import autodiff, cuda_backend
 from gt4py_tpu_torch.cartesian.backend.torch_backend import wants_derivative
+from gt4py_tpu_torch.cartesian.gtscript import PARALLEL, computation, interval
 from gt4py_tpu_torch.testing import derivative_constructs
 
 from .test_torch_emulated import emulated, emulated_dir  # noqa: F401  (fixtures)
@@ -189,6 +191,49 @@ def test_no_decline_on_the_card(monkeypatch, name):
     for g, r in zip(grads, ref):
         np.testing.assert_allclose(g, r, **TOL)
     np.testing.assert_allclose(tang, ref_tang, **TOL)
+
+
+@pytest.mark.parametrize("periodic", [(), ("I", "J")])
+@pytest.mark.parametrize("name", ["i_field_write", "k_field_write", "ik_field_write",
+                                  "jk_field_write"])
+def test_lower_dim_writes_on_the_kernels(emulated, name, periodic):  # noqa: F811
+    """A written field that lacks I or J, which the stencil also reads:
+    every thread along the axis it lacks writes the same element, so the
+    kernels hold it as a copy with I and J that the launch makes (after
+    the periodic fill) and writes back (``CudaBackend.widened``); the
+    forward on the emulated kernels equals the plain executor's, bounded
+    and periodic (the other fields read at I and J offsets)."""
+    fields, scalars, domain, origin, _, _, _ = _setup(name)
+    plain = gtscript.stencil(backend="torch", definition=PORT[name], rebuild=True)
+    st = _port_stencil(name, None)
+    assert st.backend.widened == (CASES[name][0][2],)
+    args = {k: torch.from_numpy(v) for k, v in fields.items()}
+    before = st.backend.launches
+    got = st.functional(origin=origin, domain=domain, periodic=periodic)(**args, **scalars)
+    ref = plain.functional(origin=origin, domain=domain, periodic=periodic)(**args, **scalars)
+    assert st.backend.launches == before + 1
+    for k, v in ref.items():
+        np.testing.assert_allclose(got[k].numpy(), v.numpy(), **TOL, err_msg=k)
+
+
+def _widened_read_at_an_offset(g: gtscript.Field[gtscript.JK, np.float64],
+                               f: gtscript.Field[gtscript.JK, np.float64],
+                               out: gtscript.Field[np.float64]):
+    with computation(PARALLEL), interval(...):
+        out = f[1, 0] * g
+    with computation(PARALLEL), interval(...):
+        f = f * g
+
+
+def test_written_field_read_at_a_horizontal_offset_is_rejected():
+    """A field the stencil writes is never read at an I or J offset (its
+    write would reach beyond the domain: a race the validation rejects), so
+    no periodic fill changes a widened field's halo, and its copy, made
+    after the fill, holds what the plain executor reads."""
+    from gt4py_tpu_torch.cartesian.validation import GTScriptValidationError
+
+    with pytest.raises(GTScriptValidationError, match="extended write of API field 'f'"):
+        gtscript.stencil(backend="cuda", definition=_widened_read_at_an_offset, rebuild=True)
 
 
 def test_runtime_bounds_key_the_adjoint():

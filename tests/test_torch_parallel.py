@@ -20,6 +20,8 @@ import numpy as np
 import pytest
 
 from gt4py_tpu_torch import config
+from gt4py_tpu_torch.cartesian import gtscript
+from gt4py_tpu_torch.cartesian.gtscript import FORWARD, computation, interval
 from gt4py_tpu_torch.testing import dist_cases
 
 from .test_torch_emulated import emulated, emulated_dir  # noqa: F401
@@ -85,8 +87,13 @@ CASES = {
     "grad_global_region_plain": dict(case="global_grad", which="region", backend="torch"),
     "grad_global_hdiff": dict(case="global_grad", which="hdiff", shape=(20, 24, 3),
                               options={"derivative": "kernels"}),
-    "grad_phased": dict(case="phased_grad"),
+    "grad_phased_ring": dict(case="phased_grad", which="ring", options={"derivative": "kernels"}),
+    "grad_phased_chain": dict(case="phased_grad", which="chain",
+                              options={"derivative": "kernels"}),
+    "grad_phased_fuzz": dict(case="phased_grad", which=11238),
+    "grad_phased_while": dict(case="phased_while_grad"),
     "grad_unused": dict(case="exchange_grad_unused"),
+    "chip_phased": dict(ring_shape=(24, 36, 5), seeds=(11238,), reps=1),
     "chip_grads": dict(shape=(4, 32, 32), reps=1),
 }
 
@@ -143,7 +150,8 @@ def _emulated_kernels(cxx, d):
 @pytest.fixture(scope="module")
 def ranks(tmp_path_factory):
     """Every case on four gloo ranks; with a host C++ compiler also the
-    ring on the emulated kernels (``ring_cuda``)."""
+    ring and the chain's gradient on the emulated kernels (``ring_cuda``,
+    ``grad_phased_chain_cuda``)."""
     from .test_torch_emulated import EMULATED_BF16, EMULATED_FP16, EMULATED_RUNTIME
 
     cases = dict(CASES)
@@ -153,8 +161,11 @@ def ranks(tmp_path_factory):
         for header, text in (("cuda_runtime.h", EMULATED_RUNTIME), ("cuda_fp16.h", EMULATED_FP16),
                              ("cuda_bf16.h", EMULATED_BF16)):
             (d / header).write_text(text)
-        cases["ring_cuda"] = dict(case="ring", backend="cuda",
-                                  emulate=functools.partial(_emulated_kernels, cxx, str(d)))
+        emulate = functools.partial(_emulated_kernels, cxx, str(d))
+        cases["ring_cuda"] = dict(case="ring", backend="cuda", emulate=emulate)
+        cases["grad_phased_chain_cuda"] = dict(case="phased_grad", which="chain",
+                                               options={"derivative": "kernels"},
+                                               emulate=emulate)
     return dist_cases.launch(cases, workdir=str(tmp_path_factory.mktemp("ranks")))
 
 
@@ -438,25 +449,31 @@ def test_random_program_global_view(ranks, seed):
         np.testing.assert_allclose(got[name], ref, rtol=1e-12, atol=1e-12, err_msg=name)
 
 
+def _jax_program(seed):
+    """The JAX backend on the JAX package's GSPMD fuzz program of ``seed``,
+    which ``gspmd_program(seed)`` draws the same."""
+    import random
+
+    from gt4py_tpu.cartesian import analysis as analysis_mod
+    from gt4py_tpu.cartesian.backend import from_name
+    from gt4py_tpu.testing.program_gen import ProgramGenerator
+
+    rng = random.Random(seed)
+    domain = (2 * rng.randint(2, 8), 4 * rng.randint(2, 6), rng.randint(1, 7))
+    assert domain == dist_cases.gspmd_program(seed)[2]
+    return from_name("jax")(analysis_mod.analyze(ProgramGenerator(
+        rng, dtype=np.float64).generate()), {})
+
+
 def jax_single(seed):
     """The JAX backend's single-device run of ``gspmd_program(seed)``'s
     draws: every field after the call."""
     import jax.numpy as jnp
 
-    from gt4py_tpu.cartesian import analysis as analysis_mod
-    from gt4py_tpu.cartesian.backend import from_name
-    from gt4py_tpu.testing.program_gen import ProgramGenerator
-    import random
-
-    rng = random.Random(seed)
-    domain = (2 * rng.randint(2, 8), 4 * rng.randint(2, 6), rng.randint(1, 7))
-    gen = ProgramGenerator(rng, dtype=np.float64)
-    an = analysis_mod.analyze(gen.generate())
-    _, _, pdomain, arrays, scalars = dist_cases.gspmd_program(seed)
-    assert pdomain == domain
+    _, _, domain, arrays, scalars = dist_cases.gspmd_program(seed)
     origins = {n: (6, 6, 1) for n in arrays}
-    single = from_name("jax")(an, {}).apply({k: jnp.asarray(v) for k, v in arrays.items()},
-                                            scalars, domain, origins)
+    single = _jax_program(seed).apply({k: jnp.asarray(v) for k, v in arrays.items()},
+                                      scalars, domain, origins)
     return {n: np.asarray(single[n]) if n in single else arrays[n] for n in arrays}
 
 
@@ -814,13 +831,231 @@ def test_global_view_gradients_match_jax(ranks, name):
         assert (got["adjoint_calls"], got["plain_reruns"]) == (1, 0)
 
 
-def test_phased_call_derivative_raises(ranks):
-    """A derivative through a phased call (its phases step serial loops a
-    level at a time) raises the named error on every rank."""
-    from gt4py_tpu_torch.cartesian.backend.cuda_backend import PHASED_DERIVATIVE
+#: the phased gradient cases' definitions (``dist_cases._ring_stencil``,
+#: ``_chain_stencil``), for the JAX package
+PHASED = {"ring": """
+import numpy as np
+from gt4py_tpu.cartesian import gtscript
+from gt4py_tpu.cartesian.gtscript import FORWARD, computation, interval
 
-    for status, res in ranks["grad_phased"]:
-        assert status == "ok" and res == PHASED_DERIVATIVE
+F = gtscript.Field[np.float64]
+
+
+def ring(a: F, c: F):
+    with computation(FORWARD):
+        with interval(0, 1):
+            t = a
+            c = t
+        with interval(1, None):
+            c = t[1, 0, -1]
+            t = a * 2.0
+""", "chain": """
+import numpy as np
+from gt4py_tpu.cartesian import gtscript
+from gt4py_tpu.cartesian.gtscript import FORWARD, PARALLEL, computation, interval
+
+F = gtscript.Field[np.float64]
+
+
+def chain(a: F, c: F):
+    with computation(FORWARD):
+        with interval(0, 1):
+            t = a
+        with interval(1, None):
+            u = t[1, 0, -1]
+            t = u * a + a[0, 1, 0]
+    with computation(PARALLEL), interval(...):
+        c = t * a
+"""}
+
+
+def _jax_phased_loss(which):
+    """The loss of a phased gradient case (``dist_cases.phased_grad``) on
+    the JAX package's single-device call, and its inputs."""
+    import jax.numpy as jnp
+
+    from gt4py_tpu.cartesian import gtscript as jg
+
+    _, origins, domain, arrays, scalars = dist_cases.phased_grad_case(which, "torch")
+    if isinstance(which, str):
+        fn = jg.stencil(backend="jax", definition=_jax_twin(PHASED[which], which),
+                        rebuild=True).functional(origin=origins, domain=domain)
+
+        def run(a):
+            return fn(**a)
+    else:
+        backend = _jax_program(which)
+
+        def run(a):
+            return backend.apply(a, scalars, domain, origins)
+
+    def loss(a):
+        out = run(a)
+        w = dist_cases.phased_grad_weights(arrays, list(out), 0)
+        return sum(jnp.sum(out[n] * v) for n, v in w.items())
+
+    return loss, {k: jnp.asarray(v) for k, v in arrays.items()}
+
+
+PHASED_GRADS = ["ring", "chain", "fuzz", "chain_cuda"]
+
+
+@pytest.mark.parametrize("name", PHASED_GRADS)
+def test_phased_call_gradients_match_jax(ranks, name):
+    """A phased call's gathered gradients on four ranks equal ``jax.grad``
+    of the JAX package's single-device call, for every field.  With
+    ``derivative="kernels"`` the backward is the adjoint stencil's own
+    global-view call (on the emulated kernels for ``chain_cuda``), never a
+    plain re-run: the ring's adjoint reads only the exchanged cotangent and
+    runs from one exchange, the chain's steps its recomputed forward and its
+    reversed loop a level at a time.  The generated program 11238 (a
+    BACKWARD loop a level at a time, absolute-K reads of the fields whose
+    gradient is wanted, one of ``derivative.PLAIN_RERUN``'s constructs)
+    re-runs its phases on the plain executor under autograd."""
+    import jax
+
+    key = f"grad_phased_{name}"
+    if key not in ranks:
+        pytest.skip("needs a host C++ compiler (g++) for the emulated kernels")
+    got = result(ranks, key)
+    which = 11238 if name == "fuzz" else name.split("_")[0]
+    loss, inputs = _jax_phased_loss(which)
+    want = jax.jit(jax.grad(loss))(inputs)
+    for n, ref in want.items():
+        np.testing.assert_allclose(got["grads"][n], np.asarray(ref), rtol=1e-12, atol=1e-12,
+                                   err_msg=n)
+    assert float(np.abs(np.asarray(want["in0" if name == "fuzz" else "a"])).max()) > 0
+    rec = got["record"]
+    levels = dist_cases.gspmd_program(11238)[2][2] if name == "fuzz" else 5
+    assert rec["phased"] and rec["levels"] == levels, rec
+    adj = rec["adjoint"]
+    if name == "fuzz":
+        assert adj["plain"] and adj["levels"] == levels and got["plain_reruns"] == 1, got
+        return
+    assert (got["adjoint_calls"], got["plain_reruns"]) == (1, 0), got
+    assert adj["stencil"] == f"{which}__adj", adj
+    if which == "ring":
+        assert not adj["phased"] and adj["exchanges"] == 1, adj
+    else:
+        # the recomputed forward's levels, then the reversed loop's
+        assert adj["phased"] and adj["levels"] == 2 * levels, adj
+        assert adj["exchanges"] == adj["runs"], adj
+
+
+def test_phased_while_derivative_raises(ranks):
+    """A gradient through a phased call that iterates a ``while`` across
+    the ranks (the generated program 11203) raises the named error on every
+    rank, as ``jax.grad`` of the JAX package's single-device call (a
+    ``lax.while_loop``) raises."""
+    import jax
+
+    from gt4py_tpu_torch.parallel.distributed import PHASED_WHILE
+
+    for status, res in ranks["grad_phased_while"]:
+        assert status == "ok" and res == PHASED_WHILE
+    backend = _jax_program(11203)
+    _, origins, domain, arrays, scalars = dist_cases.phased_grad_case(11203, "torch")
+
+    def loss(a):
+        return sum(v.sum() for v in backend.apply({**arrays, "in0": a}, scalars, domain,
+                                                  origins).values())
+
+    with pytest.raises(ValueError, match="while_loop"):
+        jax.grad(loss)(arrays["in0"])
+
+
+_F = gtscript.Field[np.float64]
+_IJ = gtscript.Field[gtscript.IJ, np.float64]
+
+
+def _ring_scalar(a: _F, c: _F, s: float):
+    with computation(FORWARD):
+        with interval(0, 1):
+            t = a
+            c = t
+        with interval(1, None):
+            c = t[1, 0, -1] * s
+            t = a * 2.0
+
+
+def _ring_ij_read(a: _F, h: _IJ, c: _F):
+    with computation(FORWARD):
+        with interval(0, 1):
+            t = a * h
+            c = t
+        with interval(1, None):
+            c = t[1, 0, -1]
+            t = a * 2.0
+
+
+def _ring_ij_write(a: _F, c: _F, h: _IJ):
+    with computation(FORWARD):
+        with interval(0, 1):
+            t = a
+            c = t
+        with interval(1, None):
+            c = t[1, 0, -1]
+            t = a * 2.0
+            h = h + c
+
+
+#: a phased call through a tensor scalar, an I-J field whose gradient is
+#: wanted, and an I-J field it writes: definition, the inputs that require
+#: grad
+LOWER_DIM_RINGS = {"scalar": (_ring_scalar, ("a", "s")), "ij_read": (_ring_ij_read, ("a", "h")),
+                   "ij_write": (_ring_ij_write, ("a",))}
+
+
+@pytest.mark.parametrize("opt", [None, "kernels"])
+@pytest.mark.parametrize("which", list(LOWER_DIM_RINGS))
+def test_phased_lower_dim_derivative_raises(which, opt):
+    """A gradient through a phased call that has a tensor scalar or a field
+    lacking K among what it differentiates or writes raises
+    ``PHASED_LOWER_DIM`` before the call runs, with the default rule and
+    with ``derivative="kernels"`` alike (the adjoint's per-point
+    contributions and lower-dimensional states are not split as the call's
+    fields are); without a gradient the same call runs."""
+    import torch
+
+    from gt4py_tpu_torch.parallel import CartesianMesh
+    from gt4py_tpu_torch.parallel.distributed import (LAST_GLOBAL, PHASED_LOWER_DIM,
+                                                      cross_rank_read, distribute)
+
+    definition, wanted = LOWER_DIM_RINGS[which]
+    st = gtscript.stencil(backend="cuda", definition=definition, rebuild=True,
+                          name=f"{which}_{opt}", derivative=opt)
+    assert cross_rank_read(st.analysis)
+    mesh = CartesianMesh.single("cpu")
+    rng = np.random.default_rng(0)
+    fields = {p.name: distribute(mesh, rng.random((8, 9) if p.name == "h" else (8, 9, 4)))
+              for p in st.analysis.stencil.api_params if p.is_field}
+    scalars = {"s": torch.tensor(0.5, dtype=torch.float64)} if which == "scalar" else {}
+    fn = st.functional(origin=(1, 1, 0), domain=(6, 7, 4))
+    fn(**fields, **scalars)
+    assert LAST_GLOBAL["phased"]
+    for n in wanted:
+        (scalars[n] if n == "s" else fields[n].data).requires_grad_()
+    with pytest.raises(NotImplementedError, match=PHASED_LOWER_DIM):
+        fn(**fields, **scalars)
+
+
+def test_chip_phased_case_on_the_cpu(ranks):
+    """The chip check's phase 15 phased calls at a small size on CPU
+    tensors: the ring and the generated program 11238 equal their
+    single-device runs bit for bit, and the gradients of the ring and the
+    chain (here the plain re-run of their phases, on the card the adjoint
+    stencil's call) the single-device gradients."""
+    got = result(ranks, "chip_phased")
+    assert all(s["equal"] and s["finite"] for s in got["single"].values()), got["single"]
+    assert sorted(got["grads"]) == ["chain", "ring"]
+    for g in got["grads"].values():
+        assert g["close"] and g["finite"] and g["largest"] > 0, g
+    for r in got["ranks"]:
+        for name in ("ring", "chain"):
+            g = r[f"{name}_grad"]
+            assert g["phased"] and (g["adjoint_calls"], g["plain_reruns"]) == (0, 1), r
+            assert g["adjoint"]["plain"] and g["ms"] > 0, r
+        assert r["chain_grad"]["forward_ms"] > 0, r
 
 
 def test_chip_grads_case_on_the_cpu(ranks):
