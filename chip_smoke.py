@@ -238,7 +238,15 @@ Phases (a failed phase raises, and the script exits non-zero):
    stencil's own global-view call; every rank one adjoint call and no
    plain re-run), held by rank 0 to the single-device gradients on the
    card at rtol 1e-12 of the largest entry, forward and backward timed
-   together and the forward alone; then the gradients
+   together and the forward alone (median of 3); the ring's tangent
+   (forward AD: its tangent stencil's own global-view call, phased as the
+   ring is; every rank one tangent call, no plain re-run) and the ring's
+   gradients through a tensor scalar and an I-J field it reads (the
+   scalar's per-point contribution and the field's split as the call's
+   fields, each rank's sums over its own points, the scalar's summed over
+   the ranks), each held by rank 0 to the single-device card result at
+   rtol 1e-12 of the largest entry, every rank's scalar gradient equal;
+   then the gradients
    (``testing.dist_cases.chip_grads``, in the same launch, float64 at the
    same size): the sharded MiniDycore step's (``shard_map_stencil``,
    periodic) and a global-view hdiff call's, every rank's backward on the
@@ -246,7 +254,15 @@ Phases (a failed phase raises, and the script exits non-zero):
    gathered and held by rank 0 to the single-device gradients on the card
    at rtol 1e-12 of the largest entry, and each rank's forward and
    transposed exchange of the step's five fields timed (host clock,
-   median of 5) with their bytes.  A failing rank fails the phase;
+   median of 5) with their bytes; then forward mode at the same size:
+   ``torch.func.jvp`` of the sharded step and forward AD of the global-view
+   hdiff, every rank on the tangent stencils (at least one tangent call of
+   each stencil, no plain re-run, their launches counted by their
+   libraries), the exchanges sending the tangents' bytes again, held by
+   rank 0 to the single-device tangents on the card at rtol 1e-12 of the
+   largest entry; each rank's forward and forward + tangent (CUDA events,
+   median of 5), rank 0's tangent kernels' device time (``torch.profiler``)
+   beside their bound.  A failing rank fails the phase;
 16. the examples (``--examples`` alone; ``_examples``): every module of
    ``gt4py_tpu_torch.examples`` as its command, each its own process, all
    started together; each must exit 0 on the card and launch CUDA kernels
@@ -4481,7 +4497,7 @@ def _dist_builds():
     import torch
 
     from gt4py_tpu_torch.models import dycore, fv_advection
-    from gt4py_tpu_torch.parallel.distributed import _plan_of, adjoint_object, cross_rank_read
+    from gt4py_tpu_torch.parallel.distributed import _plan_of, cross_rank_read, derivative_object
     from gt4py_tpu_torch.testing import dist_cases
 
     dev = torch.device("cuda", 0)
@@ -4499,22 +4515,42 @@ def _dist_builds():
                              device=dev)
     grads = []
     for st in (md64.hdiff, md64.vadv_upd):
-        api = tuple(p.name for p in st.backend.analysis.stencil.api_params if p.is_field)
-        grads += [st.backend, st.backend.derivative("adjoint", api, DIST_SHAPE[0], ())[1]]
+        grads += [st.backend, st.backend.derivative("adjoint", _api_fields(st), DIST_SHAPE[0],
+                                                    ())[1]]
     # chip_phased's gradients (both fields wanted): the chain, and the
     # adjoints of the ring and the chain with, where the adjoint runs in
     # phases itself (the chain's), the stencils of its phases
     chain = dist_cases._chain_stencil("cuda")
     for st in (phased[0], chain):
-        d, obj = adjoint_object(st, ("a", "c"), dist_cases.PHASED_RING_SHAPE[2], {})
+        d, obj = derivative_object(st, "adjoint", ("a", "c"), dist_cases.PHASED_RING_SHAPE[2])
         grads.append(obj.backend)
         if cross_rank_read(d.analysis):
             grads += [o.backend for o in _plan_of(obj).onces]
     phased.append(chain)
+    # forward mode (chip_grads, chip_phased): MiniDycore's tangent stencils,
+    # every field carrying a tangent (the global view's hdiff shares
+    # hdiff's), and the ring's with the stencils of its phases; the ring's
+    # lower-dimensional variants, their phases and their adjoints
+    for st in (md64.hdiff, md64.vadv_upd):
+        grads.append(st.backend.derivative("tangent", _api_fields(st))[1])
+    d, obj = derivative_object(phased[0], "tangent", ("a", "c"))
+    grads += [obj.backend] + [o.backend for o in _plan_of(obj).onces]
+    for which in ("scalar", "ij_read"):
+        st = dist_cases._lower_dim_stencil(which, "cuda")
+        phased.append(st)
+        d, obj = derivative_object(st, "adjoint", dist_cases.LOWER_DIM_WANTED[which],
+                                   dist_cases.PHASED_RING_SHAPE[2])
+        grads.append(obj.backend)
+        if cross_rank_read(d.analysis):
+            grads += [o.backend for o in _plan_of(obj).onces]
     return [md.hdiff.backend, md.vadv_upd.backend, fv.fv_step.backend] + [
         dist_cases.gspmd_stencil(sd, "cuda")[0].backend for sd in dist_cases.GSPMD_SEEDS] + [
         st.backend for st in phased] + [o.backend for st in phased for o in _plan_of(st).onces] \
         + grads
+
+
+def _api_fields(st) -> tuple:
+    return tuple(p.name for p in st.backend.analysis.stencil.api_params if p.is_field)
 
 
 def _distribution(smi: str) -> dict:
@@ -4537,6 +4573,9 @@ def _distribution(smi: str) -> dict:
             workdir=work, ranks=DIST_RANKS, shape=DIST_MESH, device="cuda", strict=True,
             timeout=600)
     wall_s = time.perf_counter() - t0
+    print(f"phase 15 ({smi}): {wall_s:.1f} s of ranks; rank 0's cases "
+          + ", ".join(f"{name} {both[name][0][1]['ranks'][0]['seconds']:.1f} s"
+                      for name in ("p15", "phased", "grads")))
     res = both["p15"]
     out = res[0][1]
     phased = _phased(both["phased"][0][1], smi)
@@ -4617,10 +4656,25 @@ def _dist_grads(res: dict, out_ranks: list, smi: str) -> dict:
         for key in ("step_transpose", "global_transpose", "transpose"):
             if r[key].get("backend") != "gloo" or not r[key].get("bytes"):
                 raise RuntimeError(f"phase 15: rank {r['rank']}'s {key}: {r[key]}")
-    for what in ("step", "global"):
+        for name, (tan, reruns) in [*r["step_tangent"].items(),
+                                    ("global hdiff", r["global_tangent"])]:
+            if tan < 1 or reruns:
+                raise RuntimeError(f"phase 15: rank {r['rank']}'s {name} tangent: tangent "
+                                   f"calls {tan}, plain re-runs {reruns}")
+        for key in ("step_tangent_exchange", "global_tangent_exchange"):
+            ex = r[key]
+            if ex.get("backend") != "gloo" or not ex.get("bytes") or \
+                    ex.get("tangent_bytes") != ex["bytes"]:
+                raise RuntimeError(f"phase 15: rank {r['rank']}'s {key}: {ex}: the tangents "
+                                   "did not travel as the values did")
+        if r["step_tangent_launches"] < 2 or r["global_tangent_launches"] < 1:
+            raise RuntimeError(f"phase 15: rank {r['rank']}'s tangent kernels launched "
+                               f"{r['step_tangent_launches']} (step), "
+                               f"{r['global_tangent_launches']} (global view)")
+    for what in ("step", "global", "step_tangent", "global_tangent"):
         for n, c in res[what].items():
             if not (c["close"] and c["finite"] and c["largest"] > 0):
-                raise RuntimeError(f"phase 15: the {what} gradient d/d{n} against the "
+                raise RuntimeError(f"phase 15: the {what} derivative d/d{n} against the "
                                    f"single-device one: {c}")
     print(f"phase 15 ({smi}): gradients on {DIST_RANKS} gloo ranks, float64 {DIST_SHAPE}: "
           f"sharded MiniDycore step (periodic) max |sharded - single| "
@@ -4634,7 +4688,42 @@ def _dist_grads(res: dict, out_ranks: list, smi: str) -> dict:
               f"exchange {r['step_transpose']['seconds'] * 1e3:.3f} ms "
               f"({r['step_transpose']['bytes']} B); float32 exchange {f32['exchange_ms']:.3f} "
               f"ms (host clock, median of 5)")
+    res["tangent_bound_ms"] = _tangent_bound_ms()
+    print(f"phase 15 ({smi}): forward mode on {DIST_RANKS} gloo ranks, float64 {DIST_SHAPE}: "
+          f"torch.func.jvp of the sharded step max |sharded - single| "
+          f"{ {n: c['max_abs_err'] for n, c in res['step_tangent'].items()} }, forward AD of the "
+          f"global-view hdiff {res['global_tangent']['out_field']['max_abs_err']:.3e} (rtol "
+          f"1e-12 against the largest entry); rank 0's tangent kernels "
+          f"{ranks[0]['step_tangent_kernel_ms']} ms of device time a step's jvp "
+          f"(torch.profiler), bound {res['tangent_bound_ms']}")
+    for r in ranks:
+        print(f"phase 15 ({smi}): rank {r['rank']} float64 step {r['step_f64_ms']:.3f} ms, "
+              f"forward + tangent {r['step_jvp_ms']:.3f} ms (tangent calls, plain re-runs "
+              f"{r['step_tangent']}, {r['step_tangent_launches']} tangent kernel launches; "
+              f"the exchange {r['step_tangent_exchange']['bytes']} B of values and "
+              f"{r['step_tangent_exchange']['tangent_bytes']} B of tangents); global-view "
+              f"hdiff {r['global_ms']:.3f} ms, forward + tangent {r['global_jvp_ms']:.3f} ms "
+              f"({r['global_tangent_launches']} tangent launches) (CUDA events, median of 5)")
     return res
+
+
+def _tangent_bound_ms() -> dict:
+    """The bound of each MiniDycore tangent stencil (every field carrying a
+    tangent) on a rank's 256x256x80 part of phase 15's sharded step, and
+    their sum: its API fields each read or written once at 3.35 TB/s."""
+    import numpy as np
+    import torch
+
+    from gt4py_tpu_torch.models import dycore
+
+    # the analyses alone: nothing is built or launched
+    md = dycore.MiniDycore(8, 8, 4, dtype=np.float64, backend="cuda", aligned=False,
+                           device=torch.device("cpu"))
+    part = (DIST_SHAPE[1] // DIST_MESH[0], DIST_SHAPE[2] // DIST_MESH[1], DIST_SHAPE[0])
+    out = {st.name: _bound_ms(_min_bytes(st.backend.derivative(
+        "tangent", _api_fields(st))[0].analysis, part)) for st in (md.hdiff, md.vadv_upd)}
+    out["sum"] = sum(out.values())
+    return out
 
 
 def _phased(res: dict, smi: str) -> dict:
@@ -4664,8 +4753,24 @@ def _phased(res: dict, smi: str) -> dict:
                     or adj.get("stencil") != f"{name}__adj" or not shape_ok:
                 raise RuntimeError(f"phase 15: rank {r['rank']}'s {name} gradient ran {grad}: "
                                    "not the phased forward and the adjoint stencil's call")
+        for name in ("scalar", "ij_read"):
+            grad = r[f"{name}_grad"]
+            if not grad["phased"] or (grad["adjoint_calls"], grad["plain_reruns"]) != (1, 0) \
+                    or grad["adjoint"].get("stencil") != f"ring_{name}__adj":
+                raise RuntimeError(f"phase 15: rank {r['rank']}'s ring gradient through "
+                                   f"{name} ran {grad}: not the adjoint stencil's call")
+        if r["scalar_grad"]["scalars"] != ranks[0]["scalar_grad"]["scalars"]:
+            raise RuntimeError(f"phase 15: rank {r['rank']}'s scalar gradient "
+                               f"{r['scalar_grad']['scalars']} is not rank 0's "
+                               f"{ranks[0]['scalar_grad']['scalars']}")
+        jvp = r["ring_jvp"]
+        tan = jvp.get("tangent", {})
+        if not jvp["phased"] or (jvp["tangent_calls"], jvp["plain_reruns"]) != (1, 0) or \
+                tan.get("stencil") != "ring__tan" or not tan.get("phased"):
+            raise RuntimeError(f"phase 15: rank {r['rank']}'s ring tangent ran {jvp}: not "
+                               "the tangent stencil's phased call")
         for name, rec in r.items():
-            if name == "rank" or name.endswith("_grad"):
+            if name in ("rank", "seconds", "ring_jvp") or name.endswith("_grad"):
                 continue
             if not rec["phased"] or rec["library_launches"] <= 0 or \
                     not all(n > 0 for n in rec["phase_launches"]):
@@ -4685,12 +4790,14 @@ def _phased(res: dict, smi: str) -> dict:
               f"{rec['runs']} runs ({rec['levels']} levels, iterations {rec['iterations']}), "
               f"{rec['exchanges']} exchanges ({rec['bytes']} B from rank 0), rank 0's "
               f"launches {rec['library_launches']} {rec['forms']}; {times} a call "
-              f"(CUDA events, median of 5) against {single['single_ms']:.3f} ms single-device; "
+              f"(CUDA events, median of 3) against {single['single_ms']:.3f} ms single-device; "
               f"rank 0's phase kernels {rec['kernel_ms']} ms a call")
     for name, g in res["grads"].items():
         if not (g["close"] and g["finite"] and g["largest"] > 0):
-            raise RuntimeError(f"phase 15: the phased {name}'s gradient against the "
+            raise RuntimeError(f"phase 15: the phased {name}'s derivative against the "
                                f"single-device one: {g}")
+        if name not in ("ring", "chain"):
+            continue
         adj = r0[f"{name}_grad"]["adjoint"]
         times = ", ".join("rank %d %.3f ms (forward alone %.3f)" % (
             r["rank"], r[f"{name}_grad"]["ms"], r[name]["ms"] if name == "ring" else
@@ -4702,8 +4809,27 @@ def _phased(res: dict, smi: str) -> dict:
               f"global-view call phased {adj['phased']}, {adj['phases']} phase stencils, "
               f"{adj['runs']} runs ({adj['levels']} levels), {adj['exchanges']} exchanges "
               f"({adj['bytes']} B from rank 0); forward + backward {times} a call (CUDA "
-              f"events, median of 5) against {g['single_ms']:.3f} ms single-device (its "
+              f"events, median of 3) against {g['single_ms']:.3f} ms single-device (its "
               f"adjoint's plan {g['adjoint_plan']})")
+    g = res["grads"]
+    tan = r0["ring_jvp"]["tangent"]
+    print(f"phase 15 ({smi}): phased ring tangent ({dist_cases.PHASED_RING_SHAPE}, float64, "
+          f"forward AD): max |phased - single-device| {g['ring_jvp']['max_abs_err']:.3e} of the "
+          f"largest {g['ring_jvp']['largest']:.3e}; the tangent stencil {tan['stencil']}'s "
+          f"global-view call phased {tan['phased']}, {tan['phases']} phase stencils, "
+          f"{tan['runs']} runs, {tan['exchanges']} exchanges ({tan['bytes']} B from rank 0); "
+          f"forward + tangent " + ", ".join(
+              "rank %d %.3f ms (forward alone %.3f)" % (r["rank"], r["ring_jvp"]["ms"],
+                                                        r["ring"]["ms"]) for r in ranks)
+          + " (CUDA events, median of 3)")
+    for name in ("scalar", "ij_read"):
+        print(f"phase 15 ({smi}): phased ring gradient through {name} "
+              f"({dist_cases.PHASED_RING_SHAPE}, float64): max |phased - single-device| "
+              f"{g[name + '_grad']['max_abs_err']:.3e} of the largest "
+              f"{g[name + '_grad']['largest']:.3e}; every rank's scalar gradient "
+              f"{r0[name + '_grad']['scalars']}; forward + backward " + ", ".join(
+                  "rank %d %.3f ms" % (r["rank"], r[name + "_grad"]["ms"]) for r in ranks)
+              + " (CUDA events, median of 3)")
     return {"ranks": ranks, "single": res["single"], "grads": res["grads"]}
 
 

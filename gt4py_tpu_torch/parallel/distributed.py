@@ -12,17 +12,22 @@ grown by the stencil's own halo (exchanged over open edges, nothing filled
 beyond the global buffer), with horizontal regions and axis positions
 resolved against the global domain (the backends' region frame).
 
-A call whose blocks require grad differentiates as the single-device call
-does (``jax.grad`` of the JAX package's global view): the first exchange
-under its transpose (``halo._Exchange``), then the call's own derivative
--- the derivative stencils in the region frame, or for a phased call one
-``torch.autograd.Function`` whose backward runs the call's adjoint stencil
-as a global-view call of its own (phased in turn where its reads cross
-ranks), or re-runs the phased call on the plain executor under autograd
-where the adjoint is one of ``derivative.PLAIN_RERUN``'s constructs
-(``_PhasedCall``).  A phased call with a ``while`` has no derivative, as
-``jax.grad`` of the JAX package's ``lax.while_loop`` has none
-(``PHASED_WHILE``).
+A call whose blocks want a derivative differentiates as the single-device
+call does (``jax.grad`` and ``jax.jvp`` of the JAX package's global view):
+the first exchange under its transpose and its jvp (``halo._Exchange``),
+then the call's own derivative -- the derivative stencils in the region
+frame, or for a phased call one ``torch.autograd.Function``
+(``_PhasedCall``) whose backward runs the call's adjoint stencil and whose
+jvp runs its tangent stencil, each as a global-view call of its own (phased
+in turn where its reads cross ranks), or re-runs the phased call on the
+plain executor under autograd or forward AD where the derivative is one of
+``derivative.PLAIN_RERUN``'s constructs.  A tensor scalar is replicated:
+every rank holds it alike, its tangent is the same on every rank, and its
+gradient is the ranks' partial gradients summed over the mesh
+(``_Replicated``), so every rank holds ``jax.grad``'s.  A phased call with a
+``while`` has no reverse-mode derivative, as ``jax.grad`` of the JAX
+package's ``lax.while_loop`` has none (``PHASED_WHILE``); its jvp re-runs
+the phases under forward AD.
 """
 
 from __future__ import annotations
@@ -31,6 +36,7 @@ from typing import Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.autograd.forward_ad as fwAD
 import torch.distributed as dist
 
 from gt4py_tpu_torch.cartesian import derivative, ir
@@ -214,19 +220,12 @@ def cross_rank_read(analysis) -> Optional[str]:
     return None
 
 
-#: a derivative through a phased call that iterates a ``while`` across the
-#: ranks: its trip count needs a tape, and the JAX package's global view
-#: (``lax.while_loop``) has no reverse-mode derivative either
+#: a reverse-mode derivative through a phased call that iterates a
+#: ``while`` across the ranks: its trip count needs a tape, and the JAX
+#: package's global view (``lax.while_loop``) has no reverse-mode derivative
+#: either (its jvp re-runs the phases under forward AD)
 PHASED_WHILE = "no derivative of a phased call with a while loop (as jax.grad of " \
                "lax.while_loop)"
-
-#: a phased call's derivative through a tensor scalar or a field that
-#: lacks an axis, wanted or written: its adjoint needs a field that is not
-#: split as the call's fields are (a per-point contribution the caller
-#: sums, or a written field's state and bar that lack K); declined on every
-#: device, where the JAX package's global view gives ``jax.grad``
-PHASED_LOWER_DIM = "no derivative of a phased call through a tensor scalar or a field that " \
-                   "lacks an axis"
 
 #: what the last stencil call on DistributedFields of this process ran:
 #: ``phased`` (False: one exchange, then the call), ``phases`` (the
@@ -239,7 +238,8 @@ PHASED_LOWER_DIM = "no derivative of a phased call through a tensor scalar or a 
 #: (phase stencil -> its runs' time on the stream, CUDA events around the
 #: launches, summed); after the backward of a phased call, ``adjoint``: the
 #: same record of its adjoint's global-view call (and its ``stencil``), or
-#: of the phases' plain re-run (``plain`` true)
+#: of the phases' plain re-run (``plain`` true); after its jvp, ``tangent``:
+#: the same of its tangent stencil's call or of the plain re-run
 LAST_GLOBAL: Dict[str, object] = {}
 
 
@@ -307,15 +307,13 @@ def run_global(stencil, fields: Dict[str, DistributedField], scalars, origins, d
         part.append(p1 - p0)
         local_origin.append(o[ax] + p0 - (b0 - halo[ax]))
         frame.append(p0)
-    grad = plan is not None and wants_derivative([f.data for f in fields.values()] +
-                                                 list(scalars.values()))
-    if grad and _iterates(plan.steps):
+    values = [f.data for f in fields.values()] + list(scalars.values())
+    if plan is not None and _iterates(plan.steps) and torch.is_grad_enabled() and any(
+            isinstance(v, torch.Tensor) and v.requires_grad for v in values):
         raise NotImplementedError(PHASED_WHILE)
-    if grad and (wants_derivative(list(scalars.values())) or any(
-            not all(stencil.ir.field_decls[n].dimensions) and (
-                wants_derivative([f.data]) or stencil.field_info[n].access.value & 2)
-            for n, f in fields.items())):
-        raise NotImplementedError(PHASED_LOWER_DIM)
+    grad = plan is not None and wants_derivative(values)
+    scalars = {n: _Replicated.apply(cmesh, v) if isinstance(v, torch.Tensor) and
+               wants_derivative([v]) else v for n, v in scalars.items()}
     blocks = {n: _pad(f.data, tuple(halo), axes) for n, f in fields.items()}
     first_exchange = HaloExchange(list(blocks.values()), tuple(halo), cmesh, spatial_axes=axes,
                                   periodic=(False, False), boundary="zero")
@@ -337,7 +335,8 @@ def run_global(stencil, fields: Dict[str, DistributedField], scalars, origins, d
         if validate_args:
             stencil._validate_args(views, scalars, local_origins, part_domain)
         if grad:
-            outs = dict(zip(call.written, _PhasedCall.apply(call, *blocks.values())))
+            outs = dict(zip(call.written, _PhasedCall.apply(
+                call, *blocks.values(), *[scalars[n] for n in call.tensor_scalars])))
         else:
             call.run(views)
             outs = {n: blocks[n] for n in call.written}
@@ -362,10 +361,11 @@ def _iterates(steps) -> bool:
 
 class _PhasedRun:
     """One phased call on a rank's padded blocks: ``names`` the call's
-    fields in order, ``written`` those it writes, ``origins``, ``domain``
-    and ``frame`` the rank's part; ``fields``, ``global_origins`` and
-    ``global_domain`` the global call, which the adjoint's own global-view
-    call follows."""
+    fields in order, ``written`` those it writes, ``tensor_scalars`` its
+    scalars given as tensors (after the fields among the derivative's
+    inputs), ``origins``, ``domain`` and ``frame`` the rank's part;
+    ``fields``, ``global_origins`` and ``global_domain`` the global call,
+    which the derivative stencils' own global-view calls follow."""
 
     def __init__(self, plan, stencil, cmesh, names, origins, domain, frame, scalars, halo,
                  physical, fields, global_origins, global_domain):
@@ -374,6 +374,7 @@ class _PhasedRun:
         self.halo, self.physical, self.fields = halo, physical, fields
         self.global_origins, self.global_domain = global_origins, global_domain
         self.written = [n for n in self.names if stencil.field_info[n].access.value & 2]
+        self.tensor_scalars = [n for n, v in scalars.items() if isinstance(v, torch.Tensor)]
         self.axes = (1, 2) if physical else (0, 1)
         self.record: Dict[str, object] = {}
 
@@ -385,19 +386,27 @@ class _PhasedRun:
             views[name] = logical_view(t, decl.dimensions, len(decl.data_dims), self.physical)
         return views
 
-    def run(self, views: Dict[str, torch.Tensor], plain: bool = False, rec=None) -> None:
+    def run(self, views: Dict[str, torch.Tensor], plain: bool = False, rec=None,
+            scalars=None) -> None:
         """The phased call in place on the blocks' logical ``views``
         (``plain``: each step on the plain executor), recorded in ``rec``
-        (``LAST_GLOBAL``)."""
+        (``LAST_GLOBAL``); ``scalars``: the call's, or these."""
         _Phased(self.plan, self.stencil, self.cmesh, views, self.origins, self.domain,
-                self.frame, self.scalars, self.halo, plain, rec).run()
+                self.frame, self.scalars if scalars is None else scalars, self.halo, plain,
+                rec).run()
 
     def outputs(self, tensors, plain: bool = False, rec=None) -> tuple:
-        """The written fields' new blocks from the blocks ``tensors``, which
-        stay as they are."""
-        blocks = {n: (t.clone() if n in self.written else t) for n, t in zip(self.names, tensors)}
-        self.run(self.views(blocks), plain, rec)
-        return tuple(blocks[n] for n in self.written)
+        """The written fields' new blocks from the ``_PhasedCall``'s inputs
+        ``tensors`` (the blocks, then the tensor scalars), which stay as
+        they are."""
+        n = len(self.names)
+        blocks = {nm: (t.clone() if nm in self.written else t)
+                  for nm, t in zip(self.names, tensors[:n])}
+        self.run(self.views(blocks), plain, rec, self._scalars(tensors))
+        return tuple(blocks[nm] for nm in self.written)
+
+    def _scalars(self, tensors) -> dict:
+        return {**self.scalars, **dict(zip(self.tensor_scalars, tensors[len(self.names):]))}
 
     def inner(self, t: torch.Tensor) -> tuple:
         """The index of a padded block's own points."""
@@ -406,22 +415,34 @@ class _PhasedRun:
             idx[self.axes[ax]] = slice(self.halo[ax], t.shape[self.axes[ax]] - self.halo[ax])
         return tuple(idx)
 
-    def backward(self, saved, needs, grads) -> tuple:
-        """The gradients of the padded blocks: the adjoint stencil's on the
-        card or with ``derivative="kernels"``, else (and for a construct
-        of ``derivative.PLAIN_RERUN``) the plain re-run's."""
+    def _on_kernels(self, saved, kernels, rerun):
+        """``kernels()``, the derivative stencil's call, on the card or with
+        ``derivative="kernels"``; else (and for a construct of
+        ``derivative.PLAIN_RERUN``) ``rerun()``, the plain re-run."""
         backend = self.stencil.backend
         forced = getattr(backend, "derivative_opt", None) == "kernels"
         if hasattr(backend, "derivative") and (
                 forced or any(t.device.type == "cuda" for t in saved)):
             try:
-                return self._adjoint(saved, needs, grads)
+                return kernels()
             except derivative.Declined as e:
                 if forced or not e.reruns:
                     raise
         if hasattr(backend, "plain_reruns"):
             backend.plain_reruns += 1
-        return self._rerun(saved, needs, grads)
+        return rerun()
+
+    def backward(self, saved, needs, grads) -> tuple:
+        """The gradients of the ``_PhasedCall``'s inputs: the adjoint
+        stencil's, or the plain re-run's."""
+        return self._on_kernels(saved, lambda: self._adjoint(saved, needs, grads),
+                                lambda: self._rerun(saved, needs, grads))
+
+    def tangent(self, saved, tangents) -> tuple:
+        """The written fields' tangents: the tangent stencil's, or the plain
+        re-run's under forward AD."""
+        return self._on_kernels(saved, lambda: self._tangent(saved, tangents),
+                                lambda: self._tangent_rerun(saved, tangents))
 
     def _rerun(self, saved, needs, grads) -> tuple:
         """The phased call re-run on the plain executor under autograd, its
@@ -443,40 +464,112 @@ class _PhasedRun:
         it = iter(got)
         return tuple(next(it) if t.requires_grad else None for t in leaves)
 
+    def _tangent_rerun(self, saved, tangents) -> tuple:
+        """The phased call re-run on the plain executor on forward-mode
+        duals, its exchanges carrying the tangents."""
+        rec = dict(phased=True, phases=1, runs=0, exchanges=0, bytes=0, levels=0,
+                   iterations=[], plain=True)
+        with fwAD._set_fwd_grad_enabled(True):
+            duals = [fwAD.make_dual(p.detach(), t) if t is not None and p.is_floating_point()
+                     else p.detach() for p, t in zip(saved, tangents)]
+            outs = self.outputs(duals, plain=True, rec=rec)
+            tans = [fwAD.unpack_dual(o).tangent for o in outs]
+        LAST_GLOBAL.clear()
+        LAST_GLOBAL.update(self.record, tangent=rec)
+        return tuple(torch.zeros_like(o) if t is None else t.clone() for o, t in zip(outs, tans))
+
+    def _field(self, block: torch.Tensor, like: str) -> DistributedField:
+        return DistributedField.from_block(block, self.fields[like])
+
+    def _tangent(self, saved, tangents) -> tuple:
+        """The call's tangent stencil (``CudaBackend.derivative``) as a
+        global-view call of its own on the rank's blocks and their
+        tangents (zeros where a field has none)."""
+        from gt4py_tpu_torch.cartesian.backend.autodiff import _below_the_transform
+
+        st, n = self.stencil, len(self.names)
+        keys = self.names + self.tensor_scalars
+        wanted = tuple(nm for nm, t, tan in zip(keys, saved, tangents)
+                       if tan is not None and t.is_floating_point())
+        d, obj = derivative_object(st, "tangent", wanted)
+        with _below_the_transform() as peel:
+            saved = [peel(t).detach() for t in saved]
+            tans = dict(zip(keys, (None if t is None else peel(t).detach() for t in tangents)))
+            fields, origins = {}, {}
+            for nm, t in zip(self.names, saved):
+                fields[nm], origins[nm] = self._field(t[self.inner(t)], nm), \
+                    self.global_origins[nm]
+                if nm in d.dots:
+                    tan = tans[nm]
+                    fields[d.dots[nm]] = self._field(
+                        torch.zeros_like(fields[nm].data) if tan is None else
+                        tan[self.inner(tan)].contiguous(), nm)
+                    origins[d.dots[nm]] = self.global_origins[nm]
+            scalars = self._scalars(saved)
+            for nm in self.tensor_scalars:
+                if nm in d.dots:
+                    scalars[d.dots[nm]] = 0.0 if tans[nm] is None else tans[nm]
+            out = run_global(obj, fields, scalars, origins, self.global_domain,
+                             physical=self.physical, periodic=(), validate_args=False)
+            tangent = dict(LAST_GLOBAL, stencil=d.stencil.name)
+            LAST_GLOBAL.clear()
+            LAST_GLOBAL.update(self.record, tangent=tangent)
+            st.backend.tangent_calls += 1
+            got = []
+            for nm in self.written:
+                t, tan = saved[self.names.index(nm)], tans[nm]
+                full = torch.zeros_like(t) if tan is None else tan.clone()
+                if nm in d.dots:
+                    full[self.inner(full)] = out[d.dots[nm]].data
+                got.append(full)
+        return tuple(got)
+
     def _adjoint(self, saved, needs, grads) -> tuple:
         """The call's adjoint stencil (``CudaBackend.derivative``) as a
         global-view call of its own on the rank's blocks: the fields at
         their values before the call, the written fields' cotangents and
         the wanted fields' gradients, on the call's levels grown by
         ``k_grow``; each block padded in K with zeros where the adjoint's
-        reads reach beyond it (their guards are false there)."""
-        st, backend = self.stencil, self.stencil.backend
-        wanted = tuple(nm for nm, need in zip(self.names, needs) if need)
-        bounds = {nm: int(self.scalars[nm]) for nm in derivative.runtime_bounds(st.ir)}
+        reads reach beyond it (their guards are false there).  The pieces
+        the adjoint does not split as the call's fields -- a tensor
+        scalar's per-point contribution, a wanted field's that lacks K, a
+        written field's state and bar that lack K -- are split the same
+        way: the contributions as 3-D fields of the call's I-J buffer, the
+        states and bars as I-J fields; each rank sums its own points, never
+        its halo (a tensor scalar's sum is summed over the ranks by
+        ``_Replicated``)."""
+        st, n = self.stencil, len(self.names)
+        keys = self.names + self.tensor_scalars
+        wanted = tuple(nm for nm, need in zip(keys, needs) if need)
+        values = self._scalars(saved)
+        bounds = {nm: int(values[nm]) for nm in derivative.runtime_bounds(st.ir)}
         dK = self.global_domain[2]
-        d, obj = adjoint_object(st, wanted, dK, bounds)
-        # run_global declined these (PHASED_LOWER_DIM) before the call
-        assert not (d.sums or d.planes or d.contribs), d.stencil.name
+        d, obj = derivative_object(st, "adjoint", wanted, dK, bounds)
         kl, kh = d.k_grow
         kax = 0 if self.physical else 2
         blocks = {nm: t[self.inner(t)] for nm, t in zip(self.names, saved)}
         like = {nm: nm for nm in self.names}
         for nm, g in zip(self.written, grads):
-            if nm in d.cots:
-                blocks[d.cots[nm]] = torch.zeros_like(blocks[nm]) if g is None else \
-                    g[self.inner(g)].contiguous()
-                like[d.cots[nm]] = nm
+            cot = torch.zeros_like(blocks[nm]) if g is None else g[self.inner(g)].contiguous()
+            for idx, (state, bar) in d.planes.get(nm, {}).items():
+                blocks[state] = blocks[nm][(Ellipsis,) + idx].contiguous()
+                blocks[bar] = cot[(Ellipsis,) + idx].contiguous()
+                like[state] = like[bar] = nm
+            if nm in d.cots and nm not in d.planes:
+                blocks[d.cots[nm]], like[d.cots[nm]] = cot, nm
         for nm, g in d.grads.items():
-            blocks[g] = blocks[d.cots[nm]].clone() if nm in d.passthrough else \
-                torch.zeros_like(blocks[nm])
-            like[g] = nm
+            if nm not in d.planes and nm not in d.sums:
+                blocks[g] = blocks[d.cots[nm]].clone() if nm in d.passthrough else \
+                    torch.zeros_like(blocks[nm])
+                like[g] = nm
         levels = dK + kl + kh
         fields, origins, below = {}, {}, {}
         for name, b in blocks.items():
-            f = self.fields[like[name]]
             ok = self.global_origins[like[name]][2] - kl
-            lo, hi = d.reach.get(name, (None, None, (0, 0)))[2]
-            pad = (max(0, lo - ok), max(0, ok + levels + hi - b.shape[kax]))
+            pad = (0, 0)
+            if obj.ir.field_decls[name].dimensions[2]:
+                lo, hi = d.reach.get(name, (None, None, (0, 0)))[2]
+                pad = (max(0, lo - ok), max(0, ok + levels + hi - b.shape[kax]))
             if pad != (0, 0):
                 shape = list(b.shape)
                 shape[kax] += pad[0] + pad[1]
@@ -484,37 +577,65 @@ class _PhasedRun:
                 big.narrow(kax, pad[0], b.shape[kax]).copy_(b)
                 b = big
             below[name] = pad[0]
-            fields[name] = DistributedField.from_block(b, f)
+            fields[name] = self._field(b, like[name])
             o = self.global_origins[like[name]]
             origins[name] = (o[0], o[1], ok + pad[0])
-        out = run_global(obj, fields, self.scalars, origins,
+        # the per-point contributions: 3-D fields over the call's I-J buffer
+        # and the adjoint's levels (the first at index 0)
+        contribs = {c: levels for c in d.contribs.values()}
+        contribs.update({d.grads[nm]: lv[1] for nm, (_, _, lv) in d.sums.items()})
+        solid = next((nm for nm in self.names if all(st.ir.field_decls[nm].dimensions)), None)
+        for c, nk in contribs.items():
+            shape = list(blocks[solid].shape[:3])
+            shape[kax] = nk
+            fields[c] = self._field(torch.zeros(shape, dtype=blocks[solid].dtype,
+                                                device=blocks[solid].device), solid)
+            o = self.global_origins[solid]
+            origins[c] = (o[0], o[1], 0)
+        out = run_global(obj, fields, values, origins,
                          (self.global_domain[0], self.global_domain[1], levels),
                          physical=self.physical, periodic=(), validate_args=False)
         adjoint = dict(LAST_GLOBAL, stencil=d.stencil.name)
         LAST_GLOBAL.clear()
         LAST_GLOBAL.update(self.record, adjoint=adjoint)
-        backend.adjoint_calls += 1
+        st.backend.adjoint_calls += 1
         got = []
         for nm, t, need in zip(self.names, saved, needs):
             if not need:
                 got.append(None)
                 continue
-            g = out[d.grads[nm]].data
+            if nm in d.planes:
+                g = torch.zeros_like(blocks[nm])
+                for idx, (_, bar) in d.planes[nm].items():
+                    g[(Ellipsis,) + idx] = out[bar].data
+            elif nm in d.sums:
+                # a field that lacks K: its contribution summed over the levels
+                g = out[d.grads[nm]].data.sum(dim=kax)
+            else:
+                g = out[d.grads[nm]].data.narrow(kax, below[d.grads[nm]], t.shape[kax])
             full = torch.zeros_like(t)
-            full[self.inner(full)] = g.narrow(kax, below[d.grads[nm]], t.shape[kax])
+            full[self.inner(full)] = g
             got.append(full)
+        for nm, t, need in zip(self.tensor_scalars, saved[n:], needs[n:]):
+            got.append(out[d.contribs[nm]].data.sum().to(t.dtype).reshape(t.shape)
+                       if need else None)
         return tuple(got)
 
 
-def adjoint_object(stencil, wanted, dK: int, bounds: Dict[str, int]):
-    """``stencil``'s adjoint for the ``wanted`` fields on ``dK`` levels, at
-    the run-time interval bounds' values ``bounds``
-    (``CudaBackend.derivative``; raises its ``Declined``), and a stencil
-    object of it for its global-view call, made once for each such adjoint
-    (the object then keeps its phased plan, ``_plan_of``)."""
-    d, backend = stencil.backend.derivative("adjoint", wanted, dK, (), bounds)
-    objs = stencil.__dict__.setdefault("_adjoint_objects", {})
-    key = (tuple(wanted), int(dK), tuple(sorted(bounds.items())))
+def derivative_object(stencil, kind: str, wanted, dK: int = 0, bounds=None):
+    """``stencil``'s ``kind`` derivative (``"adjoint"`` for the ``wanted``
+    fields on ``dK`` levels, at the run-time interval bounds' values
+    ``bounds``; ``"tangent"``: for the ``wanted`` fields' tangents) from
+    ``CudaBackend.derivative`` (raises its ``Declined``), and a stencil
+    object of it for its global-view call, made once for each such
+    derivative (the object then keeps its phased plan, ``_plan_of``)."""
+    bounds = bounds or {}
+    if kind == "adjoint":
+        d, backend = stencil.backend.derivative(kind, wanted, dK, (), bounds)
+    else:
+        d, backend = stencil.backend.derivative(kind, wanted)
+    objs = stencil.__dict__.setdefault("_derivative_objects", {})
+    key = (kind, tuple(wanted), int(dK), tuple(sorted(bounds.items())))
     if key not in objs:
         objs[key] = StencilObject(
             analysis=d.analysis, backend=backend, backend_name=stencil.backend_name,
@@ -526,14 +647,17 @@ def adjoint_object(stencil, wanted, dK: int, bounds: Dict[str, int]):
 class _PhasedCall(torch.autograd.Function):
     """A phased call as one differentiable operation.  Inputs: the
     ``_PhasedRun``, then the call's padded blocks (their halos exchanged,
-    under the exchange's transpose); outputs: the written fields' new
-    blocks.  The forward is the phased run; the backward,
-    ``_PhasedRun.backward``, gives the blocks' gradients (each block's own
-    points, or partial sums the first exchange's transpose adds up)."""
+    under the exchange's transpose and jvp), then its tensor scalars;
+    outputs: the written fields' new blocks.  The forward is the phased
+    run; the backward, ``_PhasedRun.backward``, gives the inputs' gradients
+    (each block's own points, or partial sums the first exchange's
+    transpose adds up; a tensor scalar's partial sum, which ``_Replicated``
+    sums over the ranks); the jvp, ``_PhasedRun.tangent``, the outputs'
+    tangents."""
 
     @staticmethod
-    def forward(call: _PhasedRun, *blocks):
-        out = call.outputs(blocks)
+    def forward(call: _PhasedRun, *tensors):
+        out = call.outputs(tensors)
         call.record = dict(LAST_GLOBAL)
         return out
 
@@ -541,11 +665,47 @@ class _PhasedCall(torch.autograd.Function):
     def setup_context(ctx, inputs, output):
         ctx.call = inputs[0]
         ctx.set_materialize_grads(False)
-        ctx.save_for_backward(*inputs[1:])
+        ctx.save_for_forward(*inputs[1:])
+        if any(ctx.needs_input_grad):
+            ctx.save_for_backward(*inputs[1:])
 
     @staticmethod
     def backward(ctx, *grads):
         return (None,) + ctx.call.backward(ctx.saved_tensors, ctx.needs_input_grad[1:], grads)
+
+    @staticmethod
+    def jvp(ctx, _, *tangents):
+        return ctx.call.tangent(ctx.saved_tensors, tangents)
+
+
+class _Replicated(torch.autograd.Function):
+    """A tensor scalar of a call on DistributedFields, which every rank
+    holds alike: its tangent is the same on every rank; its gradient, each
+    rank's partial gradient (from the rank's part of the call), summed over
+    the mesh's ranks (``all_reduce``), so every rank holds the gradient of
+    the global call.  Every rank calls the backward."""
+
+    @staticmethod
+    def forward(cmesh, s):
+        return s.clone()
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.cmesh = inputs[0]
+
+    @staticmethod
+    def backward(ctx, g):
+        cmesh = ctx.cmesh
+        if not cmesh.distributed:
+            return None, g
+        dev = g.device if cmesh.backend == "nccl" else torch.device("cpu")
+        total = g.detach().to(dev, copy=True)
+        dist.all_reduce(total, op=dist.ReduceOp.SUM, group=cmesh.group)
+        return None, total.to(g.device)
+
+    @staticmethod
+    def jvp(ctx, _, t):
+        return t.clone()
 
 
 class _Phased:

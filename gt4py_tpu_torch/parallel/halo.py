@@ -20,9 +20,15 @@ tensors, so CUDA strips are staged through pinned host buffers (device to
 host, send/receive, host to device) and no CUDA tensor reaches gloo.
 ``LAST_EXCHANGE`` records what the last exchange of this process ran.
 
-Gradients: when a block requires grad, the exchange runs as one
-``torch.autograd.Function`` (``_Exchange``) over all its blocks, which it
-fills in place (``mark_dirty``).  Its backward is the exchange transposed
+Derivatives: when a block wants one (``torch_backend.wants_derivative``: it
+requires grad, carries a forward-mode tangent, or is wrapped by a
+``torch.func`` transform), the exchange runs as one ``torch.autograd.Function``
+(``_Exchange``) over all its blocks, which it fills in place
+(``mark_dirty``, which autograd, forward AD and ``torch.func.grad`` / ``vjp``
+/ ``jvp`` all accept).  Its jvp is the same exchange of the tangents, in
+place: the same strips, periodic wrap, open edges and wire rounding
+(``HaloExchange.tangent``), as ``jax.jvp`` of the JAX package's
+``ppermute`` of the wired strips is.  Its backward is the exchange transposed
 (``HaloExchange.transpose``): phase J's then phase I's, each received halo
 strip's cotangent sent back to the rank that sent the strip, added into the
 interior strip it came from and zeroed; a local wrap folds, an open edge
@@ -32,8 +38,10 @@ rounds the values.  It uses the forward's peers and staging with tags of
 its own.  Every rank whose loss depends on any block of an exchange takes
 part in its transpose (an output the loss does not use brings a zero
 cotangent), so ``shard_map_stencil``, ``overlapped_shard_map_stencil`` and
-the global view differentiate with every rank calling ``backward``.
-``LAST_TRANSPOSE`` records the last transposed exchange.
+the global view differentiate with every rank calling ``backward``.  A
+differentiable exchange issues its messages when it completes (``wait``):
+the overlapped step's interior then runs before the exchange, not beside
+it.  ``LAST_TRANSPOSE`` records the last transposed exchange.
 
 Overlap (``overlapped_shard_map_stencil``): the point-to-point operations
 are issued first, the interior region (which reads no halo) is computed
@@ -47,18 +55,21 @@ from __future__ import annotations
 
 import contextlib
 import time
-from typing import Callable, Dict, List, Sequence, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
 
+from gt4py_tpu_torch.cartesian.backend.torch_backend import wants_derivative
 from gt4py_tpu_torch.core import dtypes
 
 #: what the last halo exchange of this process ran: ``backend`` ("nccl",
 #: "gloo" or "local": a mesh of one rank along every exchanged axis),
 #: ``staged`` (strips copied through pinned host memory), ``bytes`` and
 #: ``strips`` this rank sent (at the wire dtype), ``local_strips`` (filled
-#: without a message: size-1 axes and open edges), ``wire_dtype``, ``fields``
+#: without a message: size-1 axes and open edges), ``wire_dtype``, ``fields``;
+#: after a jvp also ``tangent_bytes``, ``tangent_strips`` and
+#: ``tangent_fields``, what the tangents' exchange sent
 LAST_EXCHANGE: Dict[str, object] = {}
 
 #: what the last transposed exchange of this process ran (the keys of
@@ -70,26 +81,31 @@ LAST_TRANSPOSE: Dict[str, object] = {}
 _TRANSPOSE_TAG = 1 << 16
 
 
-def _needs_grad(blocks) -> bool:
-    return torch.is_grad_enabled() and any(b.requires_grad for b in blocks)
-
-
 class _Exchange(torch.autograd.Function):
-    """A started ``HaloExchange`` completed on its blocks, in place, as one
-    differentiable operation; the backward is its transpose."""
+    """A ``HaloExchange`` completed on its blocks, in place, as one
+    differentiable operation: the jvp exchanges the tangents, the backward
+    is the transpose."""
 
     @staticmethod
-    def forward(ctx, ex: "HaloExchange", *blocks):
-        ex._wait()
-        ctx.ex = ex
-        ctx.mark_dirty(*blocks)
-        return blocks
+    def forward(ex: "HaloExchange", *blocks):
+        ex.blocks = list(blocks)
+        ex._begin()
+        return tuple(ex._wait())
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.ex = inputs[0]
+        ctx.mark_dirty(*inputs[1:])
 
     @staticmethod
     def backward(ctx, *grads):
         cots = [g.clone() for g in grads]
         ctx.ex.transpose(cots)
         return (None, *cots)
+
+    @staticmethod
+    def jvp(ctx, _, *tangents):
+        return tuple(ctx.ex.tangent(list(tangents)))
 
 
 def _index(ndim: int, axis: int, start: int, stop: int) -> tuple:
@@ -112,7 +128,8 @@ def _item(dt) -> int:
 class HaloExchange:
     """One exchange of the halos of ``blocks`` (tensors on one device, all
     with the same spatial extents), filled in place: ``start()`` issues the
-    I phase's messages, ``wait()`` completes it and runs the J phase.
+    I phase's messages, ``wait()`` completes it and runs the J phase (for
+    blocks that want a derivative, ``wait()`` issues both, in ``_Exchange``).
     ``halo = (hi, hj)``; ``axes``: the mesh axis of each spatial axis."""
 
     def __init__(self, blocks: Sequence[torch.Tensor], halo: Tuple[int, int], cmesh, *,
@@ -136,6 +153,9 @@ class HaloExchange:
                        "wire_dtype": None if wire_dtype is None else str(
                            dtypes.to_torch(wire_dtype)).replace("torch.", "")}
         self._pending = None
+        #: whether ``start`` found a block that wants a derivative: then
+        #: ``_Exchange`` issues the messages when the exchange completes
+        self._differentiable = False
         for b in self.blocks:
             for n, a in enumerate(self.spatial_axes):
                 if b.shape[a] < 3 * self.halo[n]:
@@ -145,17 +165,22 @@ class HaloExchange:
     # ------------------------------------------------------------------ #
 
     def start(self) -> "HaloExchange":
+        self._differentiable = wants_derivative(self.blocks)
+        if not self._differentiable:
+            self._begin()
+        return self
+
+    def _begin(self) -> None:
         if self.stream is not None:
             # the strips are read after everything already queued on the
             # caller's stream (the blocks' padding)
             self.stream.wait_stream(torch.cuda.current_stream(self.stream.device))
         self._pending = self._issue(0)
-        return self
 
     def wait(self) -> List[torch.Tensor]:
         """Complete the exchange: the blocks with their halos filled (the
-        same tensors; under autograd, as ``_Exchange``'s outputs)."""
-        if _needs_grad(self.blocks):
+        same tensors; under a derivative, as ``_Exchange``'s outputs)."""
+        if self._differentiable:
             self.blocks = list(_Exchange.apply(self, *self.blocks))
             return self.blocks
         return self._wait()
@@ -173,6 +198,24 @@ class HaloExchange:
 
     def run(self) -> List[torch.Tensor]:
         return self.start().wait()
+
+    def tangent(self, tangents: Sequence[Optional[torch.Tensor]]) -> List[Optional[torch.Tensor]]:
+        """The exchange's jvp, in place on ``tangents`` (shaped as the
+        blocks; None: a block without one, which sends nothing): the
+        values' exchange run on them, with the same peers, edges and wire.
+        Every rank of the mesh calls it."""
+        moving = [t for t in tangents if t is not None]
+        record = dict(self.record, tangent_bytes=0, tangent_strips=0,
+                      tangent_fields=len(moving))
+        if moving:
+            t = HaloExchange(moving, self.halo, self.cmesh, axes=self.axes,
+                             spatial_axes=self.spatial_axes, periodic=self.periodic,
+                             boundary=self.boundary, wire_dtype=self.wire_dtype)
+            t.run()
+            record.update(tangent_bytes=t.record["bytes"], tangent_strips=t.record["strips"])
+        LAST_EXCHANGE.clear()
+        LAST_EXCHANGE.update(record)
+        return list(tangents)
 
     def transpose(self, cots: Sequence[torch.Tensor]) -> List[torch.Tensor]:
         """The exchange transposed, in place on ``cots`` (cotangents shaped
@@ -520,9 +563,9 @@ def overlapped_shard_map_stencil(make_region_step, cmesh, halo: Tuple[int, int],
         fields, scalars = _split(kwargs, field_names, scalar_names)
         blocks = {n: a if extended_state else _pad(a, halo, spatial_axes)
                   for n, a in fields.items()}
-        # under autograd the exchange fills copies: the interior's call
-        # keeps the blocks it read for its backward
-        moved = [b.clone() for b in blocks.values()] if _needs_grad(blocks.values()) \
+        # under a derivative the exchange fills copies: the interior's call
+        # keeps the blocks it read for its backward and jvp
+        moved = [b.clone() for b in blocks.values()] if wants_derivative(blocks.values()) \
             else list(blocks.values())
         ex = HaloExchange(moved, halo, cmesh, spatial_axes=spatial_axes,
                           periodic=periodic, boundary=boundary,

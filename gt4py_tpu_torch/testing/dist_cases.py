@@ -11,6 +11,8 @@ check's distribution phase run these cases.
 
 import os
 import pickle
+import re
+import time
 import traceback
 from datetime import timedelta
 from typing import Any, Dict, List
@@ -82,11 +84,12 @@ def _rank_main(rank: int, n: int, shape, device: str, workdir: str, cases, stric
             kw = {k: v for k, v in params.items() if k != "case"}
             if strict:
                 results[name] = ("ok", fn(cmesh, **kw))
-                continue
-            try:
-                results[name] = ("ok", fn(cmesh, **kw))
-            except Exception:  # noqa: BLE001 -- reported as the case's failure
-                results[name] = ("error", traceback.format_exc())
+            else:
+                try:
+                    results[name] = ("ok", fn(cmesh, **kw))
+                except Exception:  # noqa: BLE001 -- reported as the case's failure
+                    results[name] = ("error", traceback.format_exc())
+            _release(cmesh.device)
         with open(os.path.join(workdir, f"results.r{rank}.pkl"), "wb") as f:
             pickle.dump(results, f)
     finally:
@@ -106,8 +109,6 @@ def launch(cases: Dict[str, dict], *, workdir: str, ranks: int = 4, shape=(2, 2)
     traceback.  ``timeout``: each rank's collectives' limit, seconds;
     ``limit``: the whole launch's, after which the ranks are terminated
     and ``TimeoutError`` raised."""
-    import time
-
     import torch.multiprocessing as mp
 
     os.makedirs(workdir, exist_ok=True)
@@ -130,6 +131,16 @@ def launch(cases: Dict[str, dict], *, workdir: str, ranks: int = 4, shape=(2, 2)
 # --------------------------------------------------------------------------- #
 # helpers
 # --------------------------------------------------------------------------- #
+
+
+def _release(device) -> None:
+    """Give the card back the memory this rank's allocator holds unused:
+    the ranks share one card with the process that launched them."""
+    if device.type == "cuda":
+        import gc
+
+        gc.collect()
+        torch.cuda.empty_cache()
 
 
 def _torch_dtype(name):
@@ -193,6 +204,52 @@ def exchange(cmesh, *, shape, h, periodic=(True, True), boundary="zero", wire=No
                         wire_dtype=_torch_dtype(wire), cmesh=cmesh)
     out = assemble(cmesh, ext, spatial_axes)
     return {"ext": _r0(cmesh, out), "record": dict(LAST_EXCHANGE)}
+
+
+@case
+def exchange_jvp(cmesh, *, shape, h, periodic=(True, True), boundary="zero", wire=None,
+                 seed=0, api="forward_ad"):
+    """``exchange`` of a block that carries a tangent (the global array
+    drawn from ``seed``, its tangent the next draw), through
+    ``torch.autograd.forward_ad`` or ``torch.func.jvp`` (``api="func"``):
+    the extended blocks' values and tangents, assembled x-major, and
+    ``LAST_EXCHANGE``."""
+    import torch.autograd.forward_ad as fwAD
+
+    rng = np.random.default_rng(seed)
+    arr, tan = rng.random(shape), rng.random(shape)
+    sharding = FieldSharding(cmesh, (0, 1))
+    block, tblock = distribute(sharding, arr).data, distribute(sharding, tan).data
+
+    def ex(b):
+        return halo_exchange(to_extended(cmesh, b, (h, h)), (h, h), periodic=periodic,
+                             boundary=boundary, wire_dtype=_torch_dtype(wire), cmesh=cmesh)
+
+    if api == "func":
+        p, t = torch.func.jvp(ex, (block,), (tblock,))
+    else:
+        with fwAD.dual_level():
+            p, t = fwAD.unpack_dual(ex(fwAD.make_dual(block, tblock)))
+            p, t = p.detach().clone(), t.clone()
+    return {"primal": _r0(cmesh, assemble(cmesh, p)), "tangent": _r0(cmesh, assemble(cmesh, t)),
+            "record": dict(LAST_EXCHANGE)}
+
+
+@case
+def dual_exchange(cmesh, *, shape=(16, 16, 3), h=2, seed=10, periodic=(True, True)):
+    """A padded block made a dual with ten times its values as its tangent,
+    exchanged in place by ``HaloExchange``: this rank's largest difference
+    of the tangent from ten times the values, over the whole block (the
+    received halos included), and the halo's largest value."""
+    import torch.autograd.forward_ad as fwAD
+
+    block = _pad(distribute(cmesh, np.random.default_rng(seed).random(shape)).data, (h, h),
+                 (0, 1))
+    with fwAD.dual_level():
+        d = fwAD.make_dual(block, 10.0 * block)
+        HaloExchange([d], (h, h), cmesh, periodic=periodic).run()
+        p, t = fwAD.unpack_dual(d)
+        return {"max_diff": float((t - 10.0 * p).abs().max()), "halo_max": float(p[:h].abs().max())}
 
 
 # --------------------------------------------------------------------------- #
@@ -549,23 +606,104 @@ def dycore_grad(cmesh, *, shape, dtype="float64", seed=0, mode="plain", periodic
     rank calls the backward: the exchange's transpose is a collective."""
     from gt4py_tpu_torch.parallel.halo import LAST_TRANSPOSE
 
-    nk, ni, nj = shape
-    h = 3  # MiniDycore.HALO
-    _, step = dycore_step(cmesh, nk, ni // cmesh.px, nj // cmesh.py, dtype=dtype, mode=mode,
-                          periodic=periodic, boundary=boundary, wire=wire, options=options)
     leaves = {k: v.clone().requires_grad_()
               for k, v in _blocks(cmesh, dycore_state(shape, seed, dtype)).items()}
-    blocks = leaves
-    if mode == "extended":
-        blocks = {k: to_extended(cmesh, v, (h, h), (1, 2)) for k, v in leaves.items()}
-    out = step(**blocks)
-    if mode == "extended":
-        out = {k: from_extended(cmesh, v, (h, h), (1, 2)) for k, v in out.items()}
+    _, run = _dycore_run(cmesh, shape, dtype, mode, tuple(leaves), periodic=periodic,
+                         boundary=boundary, wire=wire, options=options)
+    out = dict(zip(("u", "utens_stage"), run(*leaves.values())))
     weights = _blocks(cmesh, grad_weights(shape, seed))
     loss = sum((out[n] * w).sum() for n, w in weights.items())
     grads = torch.autograd.grad(loss, list(leaves.values()), allow_unused=True)
     return _r0(cmesh, {"grads": _assembled_grads(cmesh, leaves, grads, (1, 2)),
                        "transpose": dict(LAST_TRANSPOSE)})
+
+
+def _dycore_run(cmesh, shape, dtype, mode, names, **kw):
+    """One sharded MiniDycore step as a function of the blocks in
+    ``names`` order, returning ``u`` and ``utens_stage``; and the model."""
+    nk, ni, nj = shape
+    h = 3  # MiniDycore.HALO
+    local, step = dycore_step(cmesh, nk, ni // cmesh.px, nj // cmesh.py, dtype=dtype,
+                              mode=mode, **kw)
+
+    def run(*blocks):
+        b = dict(zip(names, blocks))
+        if mode == "extended":
+            b = {k: to_extended(cmesh, v, (h, h), (1, 2)) for k, v in b.items()}
+        out = step(**b)
+        if mode == "extended":
+            out = {k: from_extended(cmesh, v, (h, h), (1, 2)) for k, v in out.items()}
+        return out["u"], out["utens_stage"]
+
+    return local, run
+
+
+#: the derivative counters of a ``"cuda"`` stencil's backend
+DERIVATIVE_COUNTS = ("tangent_calls", "adjoint_calls", "plain_reruns")
+
+
+def derivative_counts(stencils, keys=DERIVATIVE_COUNTS) -> Dict[str, tuple]:
+    """Each stencil's counters ``keys`` so far (name -> tuple)."""
+    return {n: tuple(getattr(st.backend, k, 0) for k in keys) for n, st in stencils.items()}
+
+
+def _counted(before: Dict[str, tuple], stencils, keys=DERIVATIVE_COUNTS) -> Dict[str, list]:
+    """The counters ``keys`` since ``before`` (``derivative_counts``)."""
+    return {n: [a - b for a, b in zip(c, before[n])]
+            for n, c in derivative_counts(stencils, keys).items()}
+
+
+def _model_counts(before, local) -> Dict[str, int]:
+    """MiniDycore's stencils' derivative counters since ``before``, summed."""
+    got = _counted(before, {"hdiff": local.hdiff, "vadv_update": local.vadv_upd})
+    return {k: sum(c[i] for c in got.values()) for i, k in enumerate(DERIVATIVE_COUNTS)}
+
+
+@case
+def dycore_jvp(cmesh, *, shape, dtype="float64", seed=0, mode="plain", periodic=(True, True),
+               boundary="zero", wire=None, options=None):
+    """``torch.func.jvp`` of one sharded MiniDycore step at the state drawn
+    from ``seed``, every field's tangent drawn as a state from ``seed +
+    200``: the tangents of ``u`` and ``utens_stage`` assembled from the
+    ranks' blocks, the last exchange (``LAST_EXCHANGE``, with what the
+    tangents' exchange sent) and the stencils' derivative counts in the
+    call."""
+    state = _blocks(cmesh, dycore_state(shape, seed, dtype))
+    tans = _blocks(cmesh, dycore_state(shape, seed + 200, dtype))
+    names = tuple(state)
+    local, run = _dycore_run(cmesh, shape, dtype, mode, names, periodic=periodic,
+                             boundary=boundary, wire=wire, options=options)
+    model = {"hdiff": local.hdiff, "vadv_update": local.vadv_upd}
+    before = derivative_counts(model)
+    _, touts = torch.func.jvp(run, tuple(state.values()), tuple(tans[n] for n in names))
+    counts = _model_counts(before, local)
+    return {"tangents": _r0(cmesh, _gathered(cmesh, dict(zip(("u", "utens_stage"), touts)),
+                                             ("u", "utens_stage"))),
+            "exchange": dict(LAST_EXCHANGE), "counts": counts}
+
+
+@case
+def dycore_func(cmesh, *, shape, dtype="float64", seed=0, api="grad", options=None):
+    """The gradient of ``dycore_grad``'s loss through the periodic sharded
+    step by ``torch.func.grad`` or ``torch.func.vjp`` (``api``), assembled
+    from the ranks' blocks, and the stencils' derivative counts."""
+    state = _blocks(cmesh, dycore_state(shape, seed, dtype))
+    names = tuple(state)
+    local, run = _dycore_run(cmesh, shape, dtype, "plain", names, options=options)
+    weights = _blocks(cmesh, grad_weights(shape, seed))
+    before = derivative_counts({"hdiff": local.hdiff, "vadv_update": local.vadv_upd})
+    if api == "grad":
+        def loss(blocks):
+            u, us = run(*blocks)
+            return (u * weights["u"]).sum() + (us * weights["utens_stage"]).sum()
+
+        grads = torch.func.grad(loss)(tuple(state.values()))
+    else:
+        _, pull = torch.func.vjp(run, *state.values())
+        grads = pull((weights["u"], weights["utens_stage"]))
+    counts = _model_counts(before, local)
+    return {"grads": _r0(cmesh, _assembled_grads(cmesh, state, grads, (1, 2))),
+            "counts": counts}
 
 
 @case
@@ -644,6 +782,88 @@ def global_grad(cmesh, *, which="region", shape=(16, 24, 4), seed=3, backend="cu
                        "plain_reruns": getattr(st.backend, "plain_reruns", 0)})
 
 
+def _duals(cmesh, fields, arrays, seed: int):
+    """``fields`` as DistributedFields of forward-mode duals, each tangent
+    drawn from ``seed`` in ``arrays``' order (inside ``fwAD.dual_level``)."""
+    import torch.autograd.forward_ad as fwAD
+
+    rng = np.random.default_rng(seed)
+    tans = {n: rng.random(np.shape(v)) for n, v in arrays.items()}
+    return {n: DistributedField.from_block(
+        fwAD.make_dual(f.data, distribute(cmesh, tans[n]).data.to(f.data.dtype)), f)
+        for n, f in fields.items()}
+
+
+def _gathered_tangents(cmesh, out) -> Dict[str, np.ndarray]:
+    """The tangents of a call's written DistributedFields, gathered."""
+    import torch.autograd.forward_ad as fwAD
+
+    return {n: _gather_blocks(cmesh, _host(fwAD.unpack_dual(f.data).tangent), f.index,
+                              f.global_shape) for n, f in out.items()}
+
+
+@case
+def global_jvp(cmesh, *, which="region", shape=(16, 24, 4), seed=3, backend="cuda",
+               options=None):
+    """Forward AD of a global-view call (``global_grad_case``): every input
+    block a dual, the tangents drawn from ``seed + 200``; the output's
+    tangent gathered, the first exchange (``LAST_EXCHANGE``) and the
+    backend's tangent calls and plain re-runs in the call."""
+    import torch.autograd.forward_ad as fwAD
+
+    st, origin, domain, arrays, out_name = global_grad_case(which, shape, seed, backend,
+                                                            **(options or {}))
+    fields = {n: distribute(cmesh, v) for n, v in arrays.items()}
+    counts = ("tangent_calls", "plain_reruns")
+    before = {c: getattr(st.backend, c, 0) for c in counts}
+    with fwAD.dual_level():
+        out = st.functional(origin=origin, domain=domain)(
+            **_duals(cmesh, fields, arrays, seed + 200))
+        got = _gathered_tangents(cmesh, {out_name: out[out_name]})[out_name]
+    return {"tangent": _r0(cmesh, got), "exchange": dict(LAST_EXCHANGE),
+            **{c: getattr(st.backend, c, 0) - before[c] for c in counts}}
+
+
+def _scaled_stencil(backend, **options):
+    @gtscript.stencil(backend=backend, **options)
+    def scaled(a: Field64, c: Field64, s: float):
+        with computation(PARALLEL), interval(...):
+            c = s * (a[1, 0, 0] - a[-1, 0, 0]) + a * a[0, 1, 0] * s
+
+    return scaled
+
+
+SCALED_SHAPE = (16, 24, 4)
+
+
+@case
+def scaled_grad(cmesh, *, seed=5, options=None):
+    """A global-view call that runs from one exchange, through a tensor
+    scalar ``s``: the gradient of a weighted sum of ``c`` with respect to
+    ``a`` (gathered) and ``s`` (every rank's), and the tangent of ``c``
+    (gathered) with tangents for ``a`` and ``s``."""
+    import torch.autograd.forward_ad as fwAD
+
+    st = _scaled_stencil("cuda", **(options or {}))
+    rng = np.random.default_rng(seed)
+    a, c, w, ta = (rng.random(SCALED_SHAPE) for _ in range(4))
+    fn = st.functional(origin=(1, 1, 0), domain=(SCALED_SHAPE[0] - 2, SCALED_SHAPE[1] - 2,
+                                                 SCALED_SHAPE[2]))
+    fa, fc = distribute(cmesh, a), distribute(cmesh, c)
+    s = torch.tensor(0.75, dtype=torch.float64, device=cmesh.device, requires_grad=True)
+    fa.data.requires_grad_()
+    out = fn(a=fa, c=fc, s=s)["c"]
+    ga, gs = torch.autograd.grad((out.data * distribute(cmesh, w).data).sum(), [fa.data, s])
+    with fwAD.dual_level():
+        da = DistributedField.from_block(fwAD.make_dual(fa.data.detach(),
+                                                        distribute(cmesh, ta).data), fa)
+        ds = fwAD.make_dual(s.detach(), torch.tensor(0.5, dtype=torch.float64,
+                                                     device=cmesh.device))
+        tan = _gathered_tangents(cmesh, fn(a=da, c=fc, s=ds))["c"]
+    return {"grad_a": _r0(cmesh, gather(DistributedField.from_block(ga, fa))),
+            "grad_s": float(gs), "tangent": _r0(cmesh, tan)}
+
+
 def phased_grad_case(which, backend: str = "cuda", shape=(24, 36, 5), seed: int = 0,
                      **options):
     """A phased call's gradient case: (stencil object, origins, domain, the
@@ -699,6 +919,146 @@ def phased_grad(cmesh, *, which="ring", seed=0, backend="cuda", options=None, em
            for (n, f), g in zip(fields.items(), grads)}
     return _r0(cmesh, {"grads": got, "record": dict(LAST_GLOBAL),
                        **{c: getattr(st.backend, c, 0) - before[c] for c in counts}})
+
+
+@case
+def phased_jvp(cmesh, *, which="ring", seed=0, backend="cuda", options=None, emulate=None,
+               shape=(24, 36, 5)):
+    """Forward AD of a phased call (``phased_grad_case``): every field's
+    block a dual, the tangents drawn from ``seed + 200``; the written
+    fields' tangents gathered, what the call ran (``LAST_GLOBAL``, with its
+    ``tangent``) and the backend's tangent calls and plain re-runs in the
+    call.  ``emulate``: as ``ring``'s."""
+    import contextlib
+
+    import torch.autograd.forward_ad as fwAD
+
+    from gt4py_tpu_torch.parallel.distributed import LAST_GLOBAL
+
+    st, origins, domain, arrays, scalars = phased_grad_case(which, backend, shape, seed,
+                                                            **(options or {}))
+    fields = {n: distribute(cmesh, v) for n, v in arrays.items()}
+    counts = ("tangent_calls", "plain_reruns")
+    before = {c: getattr(st.backend, c, 0) for c in counts}
+    with emulate() if emulate is not None else contextlib.nullcontext(), fwAD.dual_level():
+        out = st.functional(origin=origins, domain=domain)(
+            **_duals(cmesh, fields, arrays, seed + 200), **scalars)
+        got = _gathered_tangents(cmesh, out)
+    return {"tangents": _r0(cmesh, got), "record": _r0(cmesh, dict(LAST_GLOBAL)),
+            **{c: getattr(st.backend, c, 0) - before[c] for c in counts}}
+
+
+FieldIJ64 = gtscript.Field[gtscript.IJ, np.float64]
+
+
+def _lower_dim_stencil(which: str, backend: str, **options):
+    """The ring read (``_ring_stencil``) through a tensor scalar
+    (``"scalar"``), an I-J field it reads (``"ij_read"``) or one it
+    writes (``"ij_write"``)."""
+    if which == "scalar":
+        @gtscript.stencil(backend=backend, **options)
+        def ring_scalar(a: Field64, c: Field64, s: float):
+            with computation(FORWARD):
+                with interval(0, 1):
+                    t = a
+                    c = t
+                with interval(1, None):
+                    c = t[1, 0, -1] * s
+                    t = a * 2.0
+
+        return ring_scalar
+    if which == "ij_read":
+        @gtscript.stencil(backend=backend, **options)
+        def ring_ij_read(a: Field64, h: FieldIJ64, c: Field64):
+            with computation(FORWARD):
+                with interval(0, 1):
+                    t = a * h
+                    c = t
+                with interval(1, None):
+                    c = t[1, 0, -1]
+                    t = a * 2.0
+
+        return ring_ij_read
+
+    @gtscript.stencil(backend=backend, **options)
+    def ring_ij_write(a: Field64, c: Field64, h: FieldIJ64):
+        with computation(FORWARD):
+            with interval(0, 1):
+                t = a
+                c = t
+            with interval(1, None):
+                c = t[1, 0, -1]
+                t = a * 2.0
+                h = h + c
+
+    return ring_ij_write
+
+
+#: the lower-dimensional rings: the inputs whose gradient is taken
+LOWER_DIM_WANTED = {"scalar": ("a", "s"), "ij_read": ("a", "h"), "ij_write": ("a", "h")}
+
+
+def lower_dim_case(which: str, shape=(24, 36, 5), seed: int = 0):
+    """A lower-dimensional ring's inputs: the (I, J, K) and I-J arrays and
+    the scalars; origin (1, 1, 0), domain ``shape`` less 4 along I and 2
+    along J."""
+    rng = np.random.default_rng(seed)
+    arrays = {"a": 0.5 + 0.5 * rng.random(shape), "c": rng.random(shape)}
+    scalars = {}
+    if which == "scalar":
+        scalars["s"] = 0.75
+    else:
+        arrays["h"] = rng.random(shape[:2])
+    return arrays, scalars, (shape[0] - 4, shape[1] - 2, shape[2])
+
+
+@case
+def phased_lower_dim(cmesh, *, which, options=None, shape=(24, 36, 5), seed=0):
+    """The gradient of a weighted sum (``phased_grad_weights``) of a
+    lower-dimensional ring's written fields with respect to
+    ``LOWER_DIM_WANTED[which]`` (a tensor scalar's given as a tensor): the
+    fields' gradients gathered, every rank's scalar gradient, what the
+    call ran (``LAST_GLOBAL``) and the backend's adjoint calls and plain
+    re-runs in the call; then the written fields' tangents (gathered) with
+    tangents for the same inputs, drawn from ``seed + 200``."""
+    st = _lower_dim_stencil(which, "cuda", **(options or {}))
+    arrays, scalars, domain = lower_dim_case(which, shape, seed)
+    fields = {n: distribute(cmesh, v) for n, v in arrays.items()}
+    scalars = {n: torch.tensor(v, dtype=torch.float64, device=cmesh.device)
+               for n, v in scalars.items()}
+    wanted = LOWER_DIM_WANTED[which]
+    leaves = [scalars[n] if n in scalars else fields[n].data for n in wanted]
+    for t in leaves:
+        t.requires_grad_()
+    counts = ("adjoint_calls", "plain_reruns")
+    before = {c: getattr(st.backend, c) for c in counts}
+    from gt4py_tpu_torch.parallel.distributed import LAST_GLOBAL
+
+    out = st.functional(origin=(1, 1, 0), domain=domain)(**fields, **scalars)
+    record = dict(LAST_GLOBAL)
+    w = phased_grad_weights(arrays, list(out), seed)
+    loss = sum((out[n].data * distribute(cmesh, w[n]).data).sum() for n in out)
+    grads = dict(zip(wanted, torch.autograd.grad(loss, leaves)))
+    got = {"grads": _r0(cmesh, {n: gather(DistributedField.from_block(g, fields[n]))
+                                for n, g in grads.items() if n in fields}),
+           "scalars": {n: float(g) for n, g in grads.items() if n in scalars},
+           "record": _r0(cmesh, {**record, **LAST_GLOBAL}),
+           **{c: getattr(st.backend, c) - before[c] for c in counts}}
+    # forward AD with tangents for the same inputs (drawn from seed + 200)
+    import torch.autograd.forward_ad as fwAD
+
+    rng = np.random.default_rng(seed + 200)
+    tans = {n: rng.random(np.shape({**arrays, **scalars}[n])) for n in wanted}
+    with fwAD.dual_level():
+        duals = {n: DistributedField.from_block(fwAD.make_dual(
+            f.data.detach(), distribute(cmesh, tans[n]).data), f) if n in tans else f
+            for n, f in fields.items()}
+        duals.update({n: fwAD.make_dual(s.detach(), torch.tensor(tans[n], dtype=torch.float64,
+                                                                 device=cmesh.device))
+                      for n, s in scalars.items()})
+        got["tangents"] = _r0(cmesh, _gathered_tangents(
+            cmesh, st.functional(origin=(1, 1, 0), domain=domain)(**duals)))
+    return got
 
 
 @case
@@ -879,6 +1239,50 @@ def next_shard_map(cmesh, *, op, periodic=True, seed=11, w=None):
     return _r0(cmesh, [nxd.gather(x).asnumpy() for x in outs])
 
 
+@case
+def next_derivatives(cmesh, *, mode="global", seed=13):
+    """``wide`` on sharded fields (``mode="global"``: called on
+    ``ShardedField``s; ``"shard_map"``: ``shard_map_operator``, periodic):
+    the gradient of a weighted sum of its output with respect to both
+    inputs (autograd), and the output's tangent with tangents for both
+    (forward AD), each gathered.  The inputs, their tangents and the
+    weights are drawn from ``seed`` in that order."""
+    import torch.autograd.forward_ad as fwAD
+
+    from gt4py_tpu_torch.next import distributed as nxd
+
+    o = next_ops()
+    rng = np.random.default_rng(seed)
+    a, b, ta, tb = (rng.random((16, 32)) for _ in range(4))
+    dmap = {o["I"]: "x", o["J"]: "y"}
+
+    def field(x):
+        return nxd.distribute(o["gtx"].as_field((o["I"], o["J"]), x, device=cmesh.device),
+                              cmesh, dmap)
+
+    def dual(f, t):
+        return nxd.ShardedField(f.domain, fwAD.make_dual(f.data, field(t).data), f.placement,
+                                f.block_index)
+
+    def gathered(f, t):
+        return _gather_blocks(cmesh, _host(t), f.block_index, f.global_shape)
+
+    step = o["wide"] if mode == "global" else nxd.shard_map_operator(o["wide"], cmesh, dmap)
+    fa, fb = field(a), field(b)
+    fa.data.requires_grad_()
+    fb.data.requires_grad_()
+    out = step(fa, fb)
+    w = rng.random(out.global_shape)
+    wb = torch.from_numpy(w[tuple(slice(lo, hi) for lo, hi in out.block_index)]).to(cmesh.device)
+    grads = torch.autograd.grad((out.data * wb).sum(), [fa.data, fb.data])
+    with fwAD.dual_level():
+        tout = step(dual(field(a), ta), dual(field(b), tb))
+        tangent = gathered(tout, fwAD.unpack_dual(tout.data).tangent)
+    return _r0(cmesh, {"grads": [gathered(f, g) for f, g in zip((fa, fb), grads)],
+                       "tangent": tangent, "ranges": [(r.start, r.stop)
+                                                      for r in out.domain.ranges]})
+
+
 # --------------------------------------------------------------------------- #
 # checkpoints and resilience
 # --------------------------------------------------------------------------- #
@@ -1009,7 +1413,6 @@ def _median_ms(fn, reps: int, device) -> float:
 def _median_host_ms(fn, reps: int, device) -> float:
     """Median wall-clock time of ``fn`` to completion on the card."""
     import statistics
-    import time
 
     def sync():
         if device.type == "cuda":
@@ -1068,6 +1471,7 @@ def chip_distribution(cmesh, *, shape=(80, 512, 512), steps=3, reps=10, seed=0,
     from gt4py_tpu_torch.models.fv_advection import FvAdvection
     from gt4py_tpu_torch.parallel import halo_comm_bytes
 
+    t0 = time.perf_counter()
     dev = cmesh.device
     nk, ni, nj = shape
     ni_l, nj_l = ni // cmesh.px, nj // cmesh.py
@@ -1170,6 +1574,7 @@ def chip_distribution(cmesh, *, shape=(80, 512, 512), steps=3, reps=10, seed=0,
         views[sd] = run_gspmd(cmesh, obj, domain, arrays, scalars)
         _sync(dev)
         out.setdefault("gspmd_launches", {})[sd] = obj.backend.device_launches()["all"] - before
+    out["seconds"] = time.perf_counter() - t0
     ranks = [None] * cmesh.size
     dist.all_gather_object(ranks, out)
     if cmesh.rank != 0:
@@ -1219,10 +1624,20 @@ def chip_grads(cmesh, *, shape=(80, 512, 512), seed=4, reps=5):
     adjoint calls and plain re-runs of each stencil; each rank's forward
     and transposed exchange of the step's five halo-extended blocks (host
     clock, median of ``reps``) and their bytes; rank 0 holds both
-    gradients to the single-device ones on the card."""
+    gradients to the single-device ones on the card.  Then forward mode:
+    ``torch.func.jvp`` of the sharded step and forward AD of the global-view
+    hdiff (every state field's tangent drawn from ``seed + 200``), each
+    rank's tangent calls, plain re-runs and tangent kernels' launches, the
+    exchange's tangent bytes, its forward and forward + tangent times (CUDA
+    events, median of ``reps``) and rank 0's tangent kernels' device time
+    (``torch.profiler``, one call); rank 0 holds both tangents to the
+    single-device ones on the card."""
+    import torch.autograd.forward_ad as fwAD
+
     from gt4py_tpu_torch.models.dycore import MiniDycore
     from gt4py_tpu_torch.parallel.halo import LAST_TRANSPOSE
 
+    t0 = time.perf_counter()
     dev = cmesh.device
     nk, ni, nj = shape
     h = MiniDycore.HALO
@@ -1231,22 +1646,17 @@ def chip_grads(cmesh, *, shape=(80, 512, 512), seed=4, reps=5):
     weights = grad_weights(shape, seed)
     out: Dict[str, Any] = {"rank": cmesh.rank}
 
-    def counts(stencils):
-        return {n: (st.backend.adjoint_calls, st.backend.plain_reruns)
-                for n, st in stencils.items()}
-
     # 1. the sharded step's gradient
     local, step = dycore_step(cmesh, nk, ni // cmesh.px, nj // cmesh.py, dtype="float64")
     stencils = {"hdiff": local.hdiff, "vadv_update": local.vadv_upd}
-    before = counts(stencils)
+    before = derivative_counts(stencils, ("adjoint_calls", "plain_reruns"))
     leaves = {k: v.clone().requires_grad_() for k, v in _blocks(cmesh, state).items()}
     new = step(**leaves)
     wb = _blocks(cmesh, weights)
     grads = torch.autograd.grad(sum((new[n] * w).sum() for n, w in wb.items()),
                                 list(leaves.values()))
     _sync(dev)
-    out["step_adjoint"] = {n: [a - b for a, b in zip(c, before[n])]
-                           for n, c in counts(stencils).items()}
+    out["step_adjoint"] = _counted(before, stencils, ("adjoint_calls", "plain_reruns"))
     out["step_transpose"] = dict(LAST_TRANSPOSE)
     sharded = _assembled_grads(cmesh, leaves, grads, (1, 2))
     # 2. the exchange and its transpose on the step's blocks
@@ -1261,7 +1671,7 @@ def chip_grads(cmesh, *, shape=(80, 512, 512), seed=4, reps=5):
     out["transpose"] = dict(LAST_TRANSPOSE)
     # 3. the global view's hdiff
     st, origin, domain, arrays, out_name = global_grad_case("hdiff", (ni, nj, nk), seed)
-    before = counts({"hdiff": st})
+    before = derivative_counts({"hdiff": st}, ("adjoint_calls", "plain_reruns"))
     fields = {n: distribute(cmesh, v) for n, v in arrays.items()}
     for f in fields.values():
         f.data.requires_grad_()
@@ -1269,15 +1679,62 @@ def chip_grads(cmesh, *, shape=(80, 512, 512), seed=4, reps=5):
     res = st.functional(origin=origin, domain=domain)(**fields)[out_name]
     ggrads = torch.autograd.grad((res.data * w).sum(), [f.data for f in fields.values()])
     _sync(dev)
-    out["global_adjoint"] = [a - b for a, b in zip(counts({"hdiff": st})["hdiff"],
-                                                    before["hdiff"])]
+    out["global_adjoint"] = _counted(before, {"hdiff": st}, ("adjoint_calls", "plain_reruns"))["hdiff"]
     out["global_transpose"] = dict(LAST_TRANSPOSE)
     global_got = {n: _gather_blocks(cmesh, _host(g), f.index, f.global_shape)
                   for (n, f), g in zip(fields.items(), ggrads)}
+    # 4. forward mode: torch.func.jvp of the sharded step (the tangent
+    # stencils, the exchanges carrying the tangents), then forward AD of the
+    # global-view hdiff
+    blocks = _blocks(cmesh, state)
+    tblocks = _blocks(cmesh, dycore_state(shape, seed + 200, "float64"))
+
+    def run(*xs):
+        new = step(**dict(zip(names, xs)))
+        return new["u"], new["utens_stage"]
+
+    def step_jvp():
+        return torch.func.jvp(run, tuple(blocks[n] for n in names),
+                              tuple(tblocks[n] for n in names))[1]
+
+    before, launched = derivative_counts(stencils, ("tangent_calls", "plain_reruns")), tangent_launches(stencils)
+    touts = step_jvp()
+    _sync(dev)
+    out["step_tangent"] = _counted(before, stencils, ("tangent_calls", "plain_reruns"))
+    out["step_tangent_launches"] = tangent_launches(stencils) - launched
+    out["step_tangent_exchange"] = dict(LAST_EXCHANGE)
+    step_tangents = _gathered(cmesh, dict(zip(("u", "utens_stage"), touts)),
+                              ("u", "utens_stage"))
+    out["step_f64_ms"] = _median_ms(lambda: step(**blocks), reps, dev)
+    out["step_jvp_ms"] = _median_ms(step_jvp, reps, dev)
+    out["step_tangent_kernel_ms"] = _kernel_ms(cmesh, step_jvp, "__tan")
+    trng = np.random.default_rng(seed + 200)
+    gtans = {n: distribute(cmesh, trng.random(v.shape)).data for n, v in arrays.items()}
+    gfields = {n: distribute(cmesh, v) for n, v in arrays.items()}
+    gfn = st.functional(origin=origin, domain=domain)
+
+    def global_jvp():
+        with fwAD.dual_level():
+            res = gfn(**{n: DistributedField.from_block(fwAD.make_dual(f.data, gtans[n]), f)
+                         for n, f in gfields.items()})[out_name]
+            return DistributedField.from_block(fwAD.unpack_dual(res.data).tangent, res)
+
+    before = derivative_counts({"hdiff": st}, ("tangent_calls", "plain_reruns"))
+    launched = tangent_launches({"hdiff": st})
+    gtan = global_jvp()
+    _sync(dev)
+    out["global_tangent"] = _counted(before, {"hdiff": st}, ("tangent_calls", "plain_reruns"))["hdiff"]
+    out["global_tangent_launches"] = tangent_launches({"hdiff": st}) - launched
+    out["global_tangent_exchange"] = dict(LAST_EXCHANGE)
+    global_tangent = gather(gtan)
+    out["global_ms"] = _median_ms(lambda: gfn(**gfields), reps, dev)
+    out["global_jvp_ms"] = _median_ms(global_jvp, reps, dev)
+    out["seconds"] = time.perf_counter() - t0
     ranks = [None] * cmesh.size
     dist.all_gather_object(ranks, out)
     if cmesh.rank != 0:
         return out
+    _release(dev)
     # rank 0: the single-device gradients on the card
     single = MiniDycore(ni, nj, nk, dtype=np.float64, aligned=False, device=dev)
     g0 = {k: torch.from_numpy(v).to(dev).requires_grad_() for k, v in state.items()}
@@ -1292,6 +1749,25 @@ def chip_grads(cmesh, *, shape=(80, 512, 512), seed=4, reps=5):
     wt = torch.from_numpy(np.random.default_rng(seed + 100).random((ni, nj, nk))).to(dev)
     gref = dict(zip(t, (_host(g) for g in torch.autograd.grad((res1 * wt).sum(),
                                                                  list(t.values())))))
+    step1 = single.step_fn(fill_halos=False)
+    tstate = dycore_state(shape, seed + 200, "float64")
+
+    def single_run(*xs):
+        o = step1({k: torch.nn.functional.pad(v[None], (h, h, h, h), mode="circular")[0]
+                   for k, v in zip(names, xs)})
+        return tuple(o[n][:, h:h + ni, h:h + nj] for n in ("u", "utens_stage"))
+
+    _, tref = torch.func.jvp(single_run, tuple(torch.from_numpy(state[n]).to(dev)
+                                               for n in names),
+                             tuple(torch.from_numpy(tstate[n]).to(dev) for n in names))
+    tref = dict(zip(("u", "utens_stage"), (_host(x) for x in tref)))
+    trng = np.random.default_rng(seed + 200)
+    with fwAD.dual_level():
+        duals = {k: fwAD.make_dual(torch.from_numpy(v).to(dev),
+                                   torch.from_numpy(trng.random(v.shape)).to(dev))
+                 for k, v in arrays.items()}
+        gtref = _host(fwAD.unpack_dual(st.functional(origin=origin, domain=domain)(
+            **duals)[out_name]).tangent)
 
     def compare(got, want):
         return {n: {"max_abs_err": _max_err(got[n], r), "largest": float(np.abs(r).max()),
@@ -1300,7 +1776,38 @@ def chip_grads(cmesh, *, shape=(80, 512, 512), seed=4, reps=5):
                     "finite": bool(np.isfinite(got[n]).all())}
                 for n, r in want.items()}
 
-    return {"ranks": ranks, "step": compare(sharded, ref), "global": compare(global_got, gref)}
+    return {"ranks": ranks, "step": compare(sharded, ref), "global": compare(global_got, gref),
+            "step_tangent": compare(step_tangents, tref),
+            "global_tangent": compare({out_name: global_tangent}, {out_name: gtref})}
+
+
+def tangent_launches(stencils) -> int:
+    """The launches the stencils' tangent stencils' libraries counted so
+    far (zero before they are loaded)."""
+    return sum(b.device_launches()["all"] for st in stencils.values()
+               for b in st.backend.derivative_backends()["tangent"])
+
+
+def _kernel_ms(cmesh, fn, tag: str):
+    """One call of ``fn`` on every rank (a collective), rank 0's under
+    ``torch.profiler``: the device time of its kernels whose name holds
+    ``tag``, summed by kernel (ms), on the card; None elsewhere."""
+    if cmesh.rank != 0 or cmesh.device.type != "cuda":
+        fn()
+        _sync(cmesh.device)
+        return None
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        _sync(cmesh.device)
+    ms: Dict[str, float] = {}
+    for e in prof.key_averages():
+        name = re.search(r"\w*" + re.escape(tag) + r"\w*", e.key)
+        if name is not None:
+            ms[name.group(0)] = ms.get(name.group(0), 0.0) + getattr(
+                e, "device_time_total", getattr(e, "cuda_time_total", 0.0)) / 1e3
+    return ms
 
 
 #: the phased calls of the chip check's phase 15: the ring (I, J, K) and
@@ -1310,7 +1817,7 @@ PHASED_SEEDS = (11203, 11238)
 
 
 @case
-def chip_phased(cmesh, *, ring_shape=PHASED_RING_SHAPE, seeds=PHASED_SEEDS, reps=5):
+def chip_phased(cmesh, *, ring_shape=PHASED_RING_SHAPE, seeds=PHASED_SEEDS, reps=3):
     """The chip check's phased calls on every rank (see ``chip_smoke.py``,
     phase 15): the ring stencil (float64, one level at a time) and the
     programs ``seeds`` (a ``while`` iterated across the ranks, a serial
@@ -1326,10 +1833,17 @@ def chip_phased(cmesh, *, ring_shape=PHASED_RING_SHAPE, seeds=PHASED_SEEDS, reps
     chain's forward alone, the adjoint calls and plain re-runs of the call,
     ``LAST_GLOBAL`` with its ``adjoint``), which rank 0 holds to the
     single-device gradients on the card at rtol 1e-12 of the largest
-    entry (``grads``)."""
+    entry (``grads``).  Then forward AD of the ring (``ring_jvp``: its
+    tangent stencil's phased global-view call, tangents drawn from 200; its
+    forward + tangent time, tangent calls and plain re-runs) and the ring's
+    gradients through a tensor scalar and an I-J field it reads
+    (``scalar_grad``, ``ij_read_grad``: ``_lower_dim_stencil``, every rank's
+    scalar gradient), each held by rank 0 to the single-device card result
+    at rtol 1e-12 of the largest entry (``grads``)."""
     from gt4py_tpu_torch.cartesian.backend.cuda_backend import LAST_PLAN, library_launches
     from gt4py_tpu_torch.parallel.distributed import LAST_GLOBAL, _plan_of
 
+    t0 = time.perf_counter()
     dev = cmesh.device
     out: Dict[str, Any] = {"rank": cmesh.rank}
     got: Dict[str, Dict[str, np.ndarray]] = {}
@@ -1394,10 +1908,63 @@ def chip_phased(cmesh, *, ring_shape=PHASED_RING_SHAPE, seeds=PHASED_SEEDS, reps
             fwd_args = {"a": distribute(cmesh, a), "c": distribute(cmesh, c)}
             rec["forward_ms"] = _median_ms(lambda fn=fn: fn(**fwd_args), reps, dev)
         out[f"{name}_grad"] = rec
+    # forward AD of the ring: its tangent stencil's global-view call, phased
+    # as the ring is
+    import torch.autograd.forward_ad as fwAD
+
+    trng = np.random.default_rng(200)
+    ta, tc = trng.random(ring_shape), trng.random(ring_shape)
+    tblocks = {"a": distribute(cmesh, ta).data, "c": distribute(cmesh, tc).data}
+
+    def ring_jvp():
+        with fwAD.dual_level():
+            fs = {n: DistributedField.from_block(fwAD.make_dual(f.data, tblocks[n]), f)
+                  for n, f in ring_args.items()}
+            res = ring_fn(**fs)["c"]
+            return DistributedField.from_block(fwAD.unpack_dual(res.data).tangent, res)
+
+    tcounts = ("tangent_calls", "plain_reruns")
+    before = {k: getattr(ring_st.backend, k) for k in tcounts}
+    ring_tangent = gather(ring_jvp())
+    _sync(dev)
+    rec = {**LAST_GLOBAL, **{k: getattr(ring_st.backend, k) - before[k] for k in tcounts}}
+    rec["ms"] = _median_ms(ring_jvp, reps, dev)
+    out["ring_jvp"] = rec
+    # the ring's gradients through a tensor scalar and an I-J field it reads
+    lower = {}
+    for which in ("scalar", "ij_read"):
+        lst = _lower_dim_stencil(which, "cuda")
+        arrays, scalars, domain = lower_dim_case(which, ring_shape)
+        lfn = lst.functional(origin=(1, 1, 0), domain=domain)
+        wanted = LOWER_DIM_WANTED[which]
+        wl = phased_grad_weights(arrays, ["c"], 0)["c"]
+        wld = distribute(cmesh, wl).data
+
+        def lower_grad(lfn=lfn, arrays=arrays, scalars=scalars, wanted=wanted, wld=wld):
+            fs = {n: distribute(cmesh, v) for n, v in arrays.items()}
+            sc = {n: torch.tensor(v, dtype=torch.float64, device=dev)
+                  for n, v in scalars.items()}
+            leaves = [sc[n] if n in sc else fs[n].data for n in wanted]
+            for t in leaves:
+                t.requires_grad_()
+            res = lfn(**fs, **sc)["c"]
+            return fs, dict(zip(wanted, torch.autograd.grad((res.data * wld).sum(), leaves)))
+
+        before = {k: getattr(lst.backend, k) for k in counts}
+        fs, g = lower_grad()
+        _sync(dev)
+        rec = {**LAST_GLOBAL, **{k: getattr(lst.backend, k) - before[k] for k in counts}}
+        lower[which] = {n: (float(x) if n in scalars else gather(
+            DistributedField.from_block(x, fs[n]))) for n, x in g.items()}
+        rec["scalars"] = {n: float(x) for n, x in g.items() if n in scalars}
+        rec["ms"] = _median_ms(lower_grad, reps, dev)
+        out[f"{which}_grad"] = rec
+    out["seconds"] = time.perf_counter() - t0
     ranks = [None] * cmesh.size
     dist.all_gather_object(ranks, out)
     if cmesh.rank != 0:
         return out
+    _release(dev)
     # rank 0: the single-device gradients on the card
     wt = torch.from_numpy(w).to(dev)
     grad_recs = {}
@@ -1424,6 +1991,27 @@ def chip_phased(cmesh, *, ring_shape=PHASED_RING_SHAPE, seeds=PHASED_SEEDS, reps
             "single_ms": _median_ms(single_grad, reps, dev),
             "adjoint_plan": {k: LAST_PLAN.get(f"{name}__adj", {}).get(k)
                              for k in ("forms", "declined")}}
+    one = ring_st.functional(origin=(1, 1, 0), domain=(ring_shape[0] - 4, ring_shape[1] - 2,
+                                                       ring_shape[2]))
+    with fwAD.dual_level():
+        res = one(a=fwAD.make_dual(torch.from_numpy(a).to(dev), torch.from_numpy(ta).to(dev)),
+                  c=fwAD.make_dual(torch.from_numpy(c).to(dev), torch.from_numpy(tc).to(dev)))
+        tref = _host(fwAD.unpack_dual(res["c"]).tangent)
+    grad_recs["ring_jvp"] = _close({"c": ring_tangent}, {"c": tref})
+    for which, got_l in lower.items():
+        lst = _lower_dim_stencil(which, "cuda")
+        arrays, scalars, domain = lower_dim_case(which, ring_shape)
+        t = {n: torch.from_numpy(v).to(dev) for n, v in arrays.items()}
+        sc = {n: torch.tensor(v, dtype=torch.float64, device=dev) for n, v in scalars.items()}
+        wanted = LOWER_DIM_WANTED[which]
+        leaves = [sc[n] if n in sc else t[n] for n in wanted]
+        for x in leaves:
+            x.requires_grad_()
+        res = lst.functional(origin=(1, 1, 0), domain=domain)(**t, **sc)["c"]
+        wl = torch.from_numpy(phased_grad_weights(arrays, ["c"], 0)["c"]).to(dev)
+        ref = dict(zip(wanted, (np.asarray(_host(x)) for x in torch.autograd.grad(
+            (res * wl).sum(), leaves))))
+        grad_recs[f"{which}_grad"] = _close({n: np.asarray(v) for n, v in got_l.items()}, ref)
     single: Dict[str, Any] = {}
     for name, (st, call) in calls.items():
         if name == "ring":
@@ -1446,3 +2034,16 @@ def chip_phased(cmesh, *, ring_shape=PHASED_RING_SHAPE, seeds=PHASED_SEEDS, reps
             "finite": all(bool(np.isfinite(r).all()) for r in ref.values()),
             "single_ms": ms}
     return {"ranks": ranks, "single": single, "grads": grad_recs}
+
+
+def _close(got: Dict[str, np.ndarray], want: Dict[str, np.ndarray]) -> dict:
+    """``got`` against ``want`` over all their arrays, at rtol 1e-12 of the
+    largest entry."""
+    largest = max(float(np.abs(r).max()) for r in want.values())
+    return {"max_abs_err": max(_max_err(np.asarray(got[n]), np.asarray(r))
+                               for n, r in want.items()),
+            "largest": largest,
+            "equal": all(bool(np.array_equal(got[n], r)) for n, r in want.items()),
+            "close": all(bool(np.allclose(got[n], r, rtol=1e-12, atol=1e-12 * largest))
+                         for n, r in want.items()),
+            "finite": all(bool(np.isfinite(got[n]).all()) for n in want)}

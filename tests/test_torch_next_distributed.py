@@ -19,6 +19,8 @@ CASES = {
     "gradx_open": dict(case="next_shard_map", op="gradx", periodic=False),
     "two": dict(case="next_shard_map", op="two", w=3.0),
     "lap_periodic": dict(case="next_shard_map", op="lap", seed=7),
+    "derivatives_global": dict(case="next_derivatives", mode="global"),
+    "derivatives_shard_map": dict(case="next_derivatives", mode="shard_map"),
 }
 
 
@@ -199,3 +201,39 @@ def test_data_dependent_offset_rejected():
 
     with pytest.raises(ValueError, match="data-dependent"):
         operator_halo(dyn, [I])
+
+
+@pytest.mark.parametrize("mode", ["global", "shard_map"])
+def test_sharded_operator_derivatives_match_jax(ranks, jax_ops, mode):
+    """The gradient (autograd) and the tangent (forward AD) of ``wide`` on
+    sharded fields -- called on ``ShardedField``s, and through the
+    periodic ``shard_map_operator`` -- gathered, equal ``jax.grad`` and
+    ``jax.jvp`` of the JAX package's operator on one device (for the
+    periodic one: on the inputs wrapped by the halo, restricted to the
+    domain): the exchange carries the tangents and transposes the
+    cotangents."""
+    import jax
+    import jax.numpy as jnp
+
+    o = jax_ops
+    gtx, I, J = o["gtx"], o["I"], o["J"]
+    rng = np.random.default_rng(13)
+    a, b, ta, tb = (jnp.asarray(rng.random((16, 32))) for _ in range(4))
+
+    def out(x, y):
+        if mode == "global":
+            return o["wide"](gtx.as_field((I, J), x), gtx.as_field((I, J), y)).data
+        f = o["wide"](*(gtx.as_field((I, J), jnp.pad(v, 2, mode="wrap"), origin={I: 2, J: 2})
+                        for v in (x, y)))
+        i0, j0 = (-r.start for r in f.domain.ranges)
+        return f.data[i0:i0 + 16, j0:j0 + 32]
+
+    got = result(ranks, f"derivatives_{mode}")
+    w = rng.random(tuple(hi - lo for lo, hi in got["ranges"]))
+    want = jax.grad(lambda x, y: jnp.sum(out(x, y) * w), argnums=(0, 1))(a, b)
+    _, tangent = jax.jvp(out, (a, b), (ta, tb))
+    assert np.shape(tangent) == w.shape
+    for g, ref in zip(got["grads"], want):
+        assert float(np.abs(np.asarray(ref)).max()) > 0
+        np.testing.assert_allclose(g, np.asarray(ref), rtol=1e-12, atol=1e-12)
+    np.testing.assert_allclose(got["tangent"], np.asarray(tangent), rtol=1e-12, atol=1e-12)

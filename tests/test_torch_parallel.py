@@ -20,8 +20,6 @@ import numpy as np
 import pytest
 
 from gt4py_tpu_torch import config
-from gt4py_tpu_torch.cartesian import gtscript
-from gt4py_tpu_torch.cartesian.gtscript import FORWARD, computation, interval
 from gt4py_tpu_torch.testing import dist_cases
 
 from .test_torch_emulated import emulated, emulated_dir  # noqa: F401
@@ -44,6 +42,14 @@ GRAD_STEPS = {
     "extended": dict(mode="extended"),
     "overlap": dict(mode="overlap", periodic=(True, False), boundary="clamp"),
     "wire": dict(wire="bfloat16"),
+}
+
+#: exchanges of a block that carries a tangent: the case's parameters
+EXCHANGE_JVPS = {
+    "periodic": dict(shape=(8, 8), h=1, seed=4),
+    "clamp": dict(shape=(12, 12), h=2, seed=3, periodic=(False, False), boundary="clamp",
+                  api="func"),
+    "wire": dict(shape=(16, 16), h=2, seed=5, wire="bfloat16"),
 }
 
 CASES = {
@@ -93,6 +99,26 @@ CASES = {
     "grad_phased_fuzz": dict(case="phased_grad", which=11238),
     "grad_phased_while": dict(case="phased_while_grad"),
     "grad_unused": dict(case="exchange_grad_unused"),
+    "dual_exchange": dict(),
+    **{f"jvp_exchange_{n}": dict(case="exchange_jvp", **kw) for n, kw in EXCHANGE_JVPS.items()},
+    **{f"jvp_{n}": dict(case="dycore_jvp", shape=DYCORE, seed=2, **kw)
+       for n, kw in GRAD_STEPS.items()},
+    **{f"func_{api}": dict(case="dycore_func", shape=DYCORE, seed=2, api=api, **kw)
+       for api, kw in (("grad", {}), ("vjp", dict(options={"derivative": "kernels"})))},
+    "jvp_global_region": dict(case="global_jvp", which="region",
+                              options={"derivative": "kernels"}),
+    "jvp_global_region_plain": dict(case="global_jvp", which="region", backend="torch"),
+    "jvp_global_hdiff": dict(case="global_jvp", which="hdiff", shape=(20, 24, 3),
+                             options={"derivative": "kernels"}),
+    "jvp_phased_ring": dict(case="phased_jvp", which="ring", options={"derivative": "kernels"}),
+    "jvp_phased_chain": dict(case="phased_jvp", which="chain",
+                             options={"derivative": "kernels"}),
+    "jvp_phased_fuzz": dict(case="phased_jvp", which=11238),
+    "jvp_phased_while": dict(case="phased_jvp", which=11203),
+    **{f"lower_dim_{w}_{o}": dict(case="phased_lower_dim", which=w, options={"derivative": o})
+       for w in dist_cases.LOWER_DIM_WANTED for o in (None, "kernels")},
+    **{f"scaled_{o}": dict(case="scaled_grad", options={"derivative": o})
+       for o in (None, "kernels")},
     "chip_phased": dict(ring_shape=(24, 36, 5), seeds=(11238,), reps=1),
     "chip_grads": dict(shape=(4, 32, 32), reps=1),
 }
@@ -150,8 +176,8 @@ def _emulated_kernels(cxx, d):
 @pytest.fixture(scope="module")
 def ranks(tmp_path_factory):
     """Every case on four gloo ranks; with a host C++ compiler also the
-    ring and the chain's gradient on the emulated kernels (``ring_cuda``,
-    ``grad_phased_chain_cuda``)."""
+    ring and the chain's gradient and tangent on the emulated kernels
+    (``ring_cuda``, ``grad_phased_chain_cuda``, ``jvp_phased_chain_cuda``)."""
     from .test_torch_emulated import EMULATED_BF16, EMULATED_FP16, EMULATED_RUNTIME
 
     cases = dict(CASES)
@@ -166,6 +192,9 @@ def ranks(tmp_path_factory):
         cases["grad_phased_chain_cuda"] = dict(case="phased_grad", which="chain",
                                                options={"derivative": "kernels"},
                                                emulate=emulate)
+        cases["jvp_phased_chain_cuda"] = dict(case="phased_jvp", which="chain",
+                                              options={"derivative": "kernels"},
+                                              emulate=emulate)
     return dist_cases.launch(cases, workdir=str(tmp_path_factory.mktemp("ranks")))
 
 
@@ -788,31 +817,40 @@ def _jax_twin(src, name):
     return ns[name]
 
 
-def _jax_global(which):
-    """The global gradient cases' twin on the JAX package and its
-    ``jax.grad`` on one device."""
-    import jax
+def _jax_global_call(which):
+    """The global derivative cases' twin on the JAX package on one device:
+    the output as a function of the inputs, the inputs and the case's
+    seed."""
     import jax.numpy as jnp
 
     from gt4py_tpu.cartesian import gtscript as jg
     from gt4py_tpu.models.dycore import make_hdiff
 
     p = CASES[f"grad_global_{which}"]
-    shape = p.get("shape", (16, 24, 4))
-    _, origin, domain, arrays, out_name = dist_cases.global_grad_case(
-        which, shape, p.get("seed", 3), "torch")
+    shape, seed = p.get("shape", (16, 24, 4)), p.get("seed", 3)
+    _, origin, domain, arrays, out_name = dist_cases.global_grad_case(which, shape, seed,
+                                                                      "torch")
     if which == "region":
         st = jg.stencil(backend="jax", definition=_jax_twin(REGION_MIX, "region_mix"),
                         rebuild=True)
     else:
         st = make_hdiff(np.float64, backend="jax")
     fn = st.functional(origin=origin, domain=domain)
-    w = np.random.default_rng(p.get("seed", 3) + 100).random(shape)
+    return (lambda a: fn(**a)[out_name]), {k: jnp.asarray(v) for k, v in arrays.items()}, seed
+
+
+def _jax_global(which):
+    """The global gradient cases' ``jax.grad`` on one device."""
+    import jax
+    import jax.numpy as jnp
+
+    out, inputs, seed = _jax_global_call(which)
+    w = np.random.default_rng(seed + 100).random(next(iter(inputs.values())).shape)
 
     def loss(a):
-        return jnp.sum(fn(**a)[out_name] * w)
+        return jnp.sum(out(a) * w)
 
-    g = jax.jit(jax.grad(loss))({k: jnp.asarray(v) for k, v in arrays.items()})
+    g = jax.jit(jax.grad(loss))(inputs)
     return {k: np.asarray(v) for k, v in g.items()}
 
 
@@ -869,9 +907,10 @@ def chain(a: F, c: F):
 """}
 
 
-def _jax_phased_loss(which):
-    """The loss of a phased gradient case (``dist_cases.phased_grad``) on
-    the JAX package's single-device call, and its inputs."""
+def _jax_phased_call(which):
+    """A phased derivative case's call (``dist_cases.phased_grad_case``)
+    on the JAX package on one device: its written fields as a function of
+    its fields, and its fields."""
     import jax.numpy as jnp
 
     from gt4py_tpu.cartesian import gtscript as jg
@@ -889,12 +928,22 @@ def _jax_phased_loss(which):
         def run(a):
             return backend.apply(a, scalars, domain, origins)
 
+    return run, {k: jnp.asarray(v) for k, v in arrays.items()}
+
+
+def _jax_phased_loss(which):
+    """The loss of a phased gradient case (``dist_cases.phased_grad``) on
+    the JAX package's single-device call, and its inputs."""
+    import jax.numpy as jnp
+
+    run, inputs = _jax_phased_call(which)
+
     def loss(a):
         out = run(a)
-        w = dist_cases.phased_grad_weights(arrays, list(out), 0)
+        w = dist_cases.phased_grad_weights(inputs, list(out), 0)
         return sum(jnp.sum(out[n] * v) for n, v in w.items())
 
-    return loss, {k: jnp.asarray(v) for k, v in arrays.items()}
+    return loss, inputs
 
 
 PHASED_GRADS = ["ring", "chain", "fuzz", "chain_cuda"]
@@ -964,11 +1013,16 @@ def test_phased_while_derivative_raises(ranks):
         jax.grad(loss)(arrays["in0"])
 
 
-_F = gtscript.Field[np.float64]
-_IJ = gtscript.Field[gtscript.IJ, np.float64]
+#: ``dist_cases._lower_dim_stencil``'s definitions, for the JAX package
+LOWER_DIM = {"scalar": ("ring_scalar", """
+import numpy as np
+from gt4py_tpu.cartesian import gtscript
+from gt4py_tpu.cartesian.gtscript import FORWARD, computation, interval
+
+F = gtscript.Field[np.float64]
 
 
-def _ring_scalar(a: _F, c: _F, s: float):
+def ring_scalar(a: F, c: F, s: float):
     with computation(FORWARD):
         with interval(0, 1):
             t = a
@@ -976,9 +1030,16 @@ def _ring_scalar(a: _F, c: _F, s: float):
         with interval(1, None):
             c = t[1, 0, -1] * s
             t = a * 2.0
+"""), "ij_read": ("ring_ij_read", """
+import numpy as np
+from gt4py_tpu.cartesian import gtscript
+from gt4py_tpu.cartesian.gtscript import FORWARD, computation, interval
+
+F = gtscript.Field[np.float64]
+FIJ = gtscript.Field[gtscript.IJ, np.float64]
 
 
-def _ring_ij_read(a: _F, h: _IJ, c: _F):
+def ring_ij_read(a: F, h: FIJ, c: F):
     with computation(FORWARD):
         with interval(0, 1):
             t = a * h
@@ -986,9 +1047,16 @@ def _ring_ij_read(a: _F, h: _IJ, c: _F):
         with interval(1, None):
             c = t[1, 0, -1]
             t = a * 2.0
+"""), "ij_write": ("ring_ij_write", """
+import numpy as np
+from gt4py_tpu.cartesian import gtscript
+from gt4py_tpu.cartesian.gtscript import FORWARD, computation, interval
+
+F = gtscript.Field[np.float64]
+FIJ = gtscript.Field[gtscript.IJ, np.float64]
 
 
-def _ring_ij_write(a: _F, c: _F, h: _IJ):
+def ring_ij_write(a: F, c: F, h: FIJ):
     with computation(FORWARD):
         with interval(0, 1):
             t = a
@@ -997,46 +1065,64 @@ def _ring_ij_write(a: _F, c: _F, h: _IJ):
             c = t[1, 0, -1]
             t = a * 2.0
             h = h + c
-
-
-#: a phased call through a tensor scalar, an I-J field whose gradient is
-#: wanted, and an I-J field it writes: definition, the inputs that require
-#: grad
-LOWER_DIM_RINGS = {"scalar": (_ring_scalar, ("a", "s")), "ij_read": (_ring_ij_read, ("a", "h")),
-                   "ij_write": (_ring_ij_write, ("a",))}
+""")}
 
 
 @pytest.mark.parametrize("opt", [None, "kernels"])
-@pytest.mark.parametrize("which", list(LOWER_DIM_RINGS))
-def test_phased_lower_dim_derivative_raises(which, opt):
-    """A gradient through a phased call that has a tensor scalar or a field
-    lacking K among what it differentiates or writes raises
-    ``PHASED_LOWER_DIM`` before the call runs, with the default rule and
-    with ``derivative="kernels"`` alike (the adjoint's per-point
-    contributions and lower-dimensional states are not split as the call's
-    fields are); without a gradient the same call runs."""
-    import torch
+@pytest.mark.parametrize("which", list(LOWER_DIM))
+def test_phased_lower_dim_gradients_match_jax(ranks, which, opt):
+    """A phased call's gradient through a tensor scalar, an I-J field it
+    reads or an I-J field it writes, on four ranks, equals ``jax.grad`` of
+    the JAX package's single-device call: the fields' gathered and the
+    scalar's on every rank; its tangents with tangents for the same inputs
+    equal ``jax.jvp``'s.  With ``derivative="kernels"`` the adjoint
+    stencil's global-view call gives it (the scalar's per-point
+    contribution and the read field's split as the call's fields, each
+    rank summing its own points; the written field's state and bar as I-J
+    fields), with the default rule the plain re-run of the phases."""
+    import jax
+    import jax.numpy as jnp
 
-    from gt4py_tpu_torch.parallel import CartesianMesh
-    from gt4py_tpu_torch.parallel.distributed import (LAST_GLOBAL, PHASED_LOWER_DIM,
-                                                      cross_rank_read, distribute)
+    from gt4py_tpu.cartesian import gtscript as jg
 
-    definition, wanted = LOWER_DIM_RINGS[which]
-    st = gtscript.stencil(backend="cuda", definition=definition, rebuild=True,
-                          name=f"{which}_{opt}", derivative=opt)
-    assert cross_rank_read(st.analysis)
-    mesh = CartesianMesh.single("cpu")
-    rng = np.random.default_rng(0)
-    fields = {p.name: distribute(mesh, rng.random((8, 9) if p.name == "h" else (8, 9, 4)))
-              for p in st.analysis.stencil.api_params if p.is_field}
-    scalars = {"s": torch.tensor(0.5, dtype=torch.float64)} if which == "scalar" else {}
-    fn = st.functional(origin=(1, 1, 0), domain=(6, 7, 4))
-    fn(**fields, **scalars)
-    assert LAST_GLOBAL["phased"]
+    name, src = LOWER_DIM[which]
+    arrays, scalars, domain = dist_cases.lower_dim_case(which)
+    fn = jg.stencil(backend="jax", definition=_jax_twin(src, name), rebuild=True).functional(
+        origin=(1, 1, 0), domain=domain)
+    wanted = dist_cases.LOWER_DIM_WANTED[which]
+
+    def loss(x):
+        args = {**arrays, **scalars, **x}
+        out = fn(**args)
+        w = dist_cases.phased_grad_weights(arrays, list(out), 0)
+        return sum(jnp.sum(out[n] * v) for n, v in w.items())
+
+    want = jax.jit(jax.grad(loss))({n: jnp.asarray({**arrays, **scalars}[n]) for n in wanted})
+    got = result(ranks, f"lower_dim_{which}_{opt}")
     for n in wanted:
-        (scalars[n] if n == "s" else fields[n].data).requires_grad_()
-    with pytest.raises(NotImplementedError, match=PHASED_LOWER_DIM):
-        fn(**fields, **scalars)
+        ref = np.asarray(want[n])
+        assert float(np.abs(ref).max()) > 0, n
+        if n in scalars:
+            for _, res in ranks[f"lower_dim_{which}_{opt}"]:
+                np.testing.assert_allclose(res["scalars"][n], ref, rtol=1e-12, atol=1e-12)
+        else:
+            np.testing.assert_allclose(got["grads"][n], ref, rtol=1e-12, atol=1e-12, err_msg=n)
+    adj = got["record"]["adjoint"]
+    if opt == "kernels":
+        assert (got["adjoint_calls"], got["plain_reruns"]) == (1, 0), got
+        assert adj["stencil"] == f"{name}__adj", adj
+    else:
+        assert (got["adjoint_calls"], got["plain_reruns"]) == (0, 1) and adj["plain"], got
+    # and forward AD with tangents for the same inputs, against jax.jvp
+    rng = np.random.default_rng(200)
+    primal = {n: jnp.asarray({**arrays, **scalars}[n]) for n in wanted}
+    tans = {n: jnp.asarray(rng.random(np.shape(v))) for n, v in primal.items()}
+    _, tout = jax.jvp(lambda x: fn(**{**arrays, **scalars, **x}), (primal,), (tans,))
+    assert sorted(got["tangents"]) == sorted(tout)
+    for n, ref in tout.items():
+        assert float(np.abs(np.asarray(ref)).max()) > 0, n
+        np.testing.assert_allclose(got["tangents"][n], np.asarray(ref), rtol=1e-12,
+                                   atol=1e-12, err_msg=n)
 
 
 def test_chip_phased_case_on_the_cpu(ranks):
@@ -1044,32 +1130,43 @@ def test_chip_phased_case_on_the_cpu(ranks):
     tensors: the ring and the generated program 11238 equal their
     single-device runs bit for bit, and the gradients of the ring and the
     chain (here the plain re-run of their phases, on the card the adjoint
-    stencil's call) the single-device gradients."""
+    stencil's call), the ring's tangent (the plain re-run on duals; on the
+    card the tangent stencil's call) and the ring's gradients through a
+    tensor scalar and an I-J field the single-device ones."""
     got = result(ranks, "chip_phased")
     assert all(s["equal"] and s["finite"] for s in got["single"].values()), got["single"]
-    assert sorted(got["grads"]) == ["chain", "ring"]
+    assert sorted(got["grads"]) == ["chain", "ij_read_grad", "ring", "ring_jvp", "scalar_grad"]
     for g in got["grads"].values():
         assert g["close"] and g["finite"] and g["largest"] > 0, g
     for r in got["ranks"]:
-        for name in ("ring", "chain"):
+        for name in ("ring", "chain", "scalar", "ij_read"):
             g = r[f"{name}_grad"]
             assert g["phased"] and (g["adjoint_calls"], g["plain_reruns"]) == (0, 1), r
             assert g["adjoint"]["plain"] and g["ms"] > 0, r
         assert r["chain_grad"]["forward_ms"] > 0, r
+        assert r["scalar_grad"]["scalars"]["s"] == got["ranks"][0]["scalar_grad"]["scalars"]["s"]
+        j = r["ring_jvp"]
+        assert j["phased"] and (j["tangent_calls"], j["plain_reruns"]) == (0, 1), r
+        assert j["tangent"]["plain"] and j["ms"] > 0, r
 
 
 def test_chip_grads_case_on_the_cpu(ranks):
     """The chip check's phase 15 gradient case at a small size on the CPU:
-    the sharded step's and the global-view hdiff's gathered gradients equal
-    the single-device ones, every rank ran the transposed exchanges."""
+    the sharded step's and the global-view hdiff's gathered gradients and
+    tangents equal the single-device ones, every rank ran the transposed
+    exchanges and sent the tangents as it sent the values."""
     got = result(ranks, "chip_grads")
-    for what in ("step", "global"):
+    for what in ("step", "global", "step_tangent", "global_tangent"):
         for n, c in got[what].items():
             assert c["close"] and c["finite"] and c["largest"] > 0, (what, n, c)
     for r in got["ranks"]:
         for key in ("step_transpose", "global_transpose", "transpose"):
             assert r[key]["backend"] == "gloo" and r[key]["bytes"] > 0, (r["rank"], key)
         assert r["transpose"]["bytes"] == r["exchange"]["bytes"]
+        for key in ("step_tangent_exchange", "global_tangent_exchange"):
+            assert r[key]["tangent_bytes"] == r[key]["bytes"] > 0, (r["rank"], key)
+        assert r["step_jvp_ms"] > 0 and r["global_jvp_ms"] > 0 and \
+            r["step_tangent_kernel_ms"] is None, r
 
 
 @pytest.mark.parametrize("mode", ["circular", "constant", "replicate"])
@@ -1118,3 +1215,260 @@ def test_unused_block_takes_part_in_the_transpose(ranks):
     those of the loss over both blocks with zero weights."""
     for status, res in ranks["grad_unused"]:
         assert status == "ok" and res == 0.0, res
+
+
+# --------------------------------------------------------------------------- #
+# forward mode and torch.func through the exchange and the global view
+# --------------------------------------------------------------------------- #
+
+
+def test_dual_exchange_carries_the_neighbours_tangents(ranks):
+    """A block that carries a forward-mode tangent (ten times its values)
+    exchanged in place: every rank's received halos carry the neighbours'
+    tangents, ten times the values received, nowhere a tangent of the
+    plain in-place path."""
+    for status, res in ranks["dual_exchange"]:
+        assert status == "ok", res
+        assert res["max_diff"] == 0.0 and res["halo_max"] > 0, res
+
+
+def jax_exchange_jvp(jmesh, arr, tan, h, **kw):
+    """``jax.jvp`` of the JAX package's exchange of the global ``arr``
+    (extended on the 2x2 mesh) at the tangent ``tan``."""
+    import jax
+    from jax.sharding import PartitionSpec as P
+
+    from gt4py_tpu.parallel import halo_exchange, to_extended
+
+    spec = P("x", "y")
+    sharding = jmesh.field_sharding(arr.ndim)
+
+    def ex(x):
+        return jax.shard_map(lambda b: halo_exchange(b, (h, h), **kw), mesh=jmesh.mesh,
+                             in_specs=(spec,), out_specs=spec, check_vma=False)(
+            to_extended(jmesh, x, (h, h)))
+
+    p, t = jax.jvp(ex, (jax.device_put(arr, sharding),), (jax.device_put(tan, sharding),))
+    return np.asarray(p), np.asarray(t)
+
+
+@pytest.mark.parametrize("name", list(EXCHANGE_JVPS))
+def test_exchange_tangents_match_jax(ranks, jmesh, name):
+    """The exchange of a dual block (``torch.autograd.forward_ad``, or
+    ``torch.func.jvp`` for the clamped one): every rank's extended values
+    and tangents equal ``jax.jvp`` of the JAX package's exchange bit for
+    bit (periodic, open with clamped edges, a bfloat16 wire that rounds the
+    tangent strips as it rounds the values), and the tangents' exchange
+    sent as many bytes as the values'."""
+    import jax.numpy as jnp
+
+    p = EXCHANGE_JVPS[name]
+    rng = np.random.default_rng(p["seed"])
+    arr, tan = rng.random(p["shape"]), rng.random(p["shape"])
+    kw = dict(periodic=p.get("periodic", (True, True)), boundary=p.get("boundary", "zero"))
+    if "wire" in p:
+        kw["wire_dtype"] = jnp.bfloat16
+    want_p, want_t = jax_exchange_jvp(jmesh, arr, tan, p["h"], **kw)
+    got = result(ranks, f"jvp_exchange_{name}")
+    np.testing.assert_array_equal(got["primal"], want_p)
+    np.testing.assert_array_equal(got["tangent"], want_t)
+    rec = got["record"]
+    assert rec["tangent_bytes"] == rec["bytes"] > 0 and rec["tangent_fields"] == 1, rec
+
+
+@functools.lru_cache(maxsize=None)
+def jax_dycore_jvp(periodic=(True, True), boundary="zero", jmesh=None):
+    """``jax.jvp`` of the JAX package's MiniDycore step at the tangent
+    cases' state and tangents: ``u`` and ``utens_stage``'s tangents.  On
+    one device with the global arrays padded as the exchange fills them
+    (``jmesh`` None), or the sharded step with a bfloat16 wire on
+    ``jmesh``."""
+    import jax
+    import jax.numpy as jnp
+    from jax.sharding import NamedSharding, PartitionSpec as P
+
+    from gt4py_tpu.models.dycore import MiniDycore
+    from gt4py_tpu.parallel import gather, shard_map_stencil
+
+    nk, ni, nj = DYCORE
+    h = MiniDycore.HALO
+    state = dist_cases.dycore_state(DYCORE, 2, np.float64)
+    tans = dist_cases.dycore_state(DYCORE, 202, np.float64)
+    if jmesh is not None:
+        lstep = MiniDycore(ni // 2, nj // 2, nk, dtype=np.float64, backend="jax",
+                           aligned=False).step_fn(fill_halos=False)
+        step = shard_map_stencil(lambda **kw: lstep(dict(kw)), jmesh, (h, h),
+                                 field_names=tuple(state), spatial_axes=(1, 2),
+                                 halo_wire_dtype=jnp.bfloat16)
+        sharding = NamedSharding(jmesh.mesh, P(None, "x", "y"))
+
+        def run(s):
+            out = step(**s)
+            return out["u"], out["utens_stage"]
+
+        _, t = jax.jit(lambda s, ts: jax.jvp(run, (s,), (ts,)))(
+            {k: jax.device_put(v, sharding) for k, v in state.items()},
+            {k: jax.device_put(v, sharding) for k, v in tans.items()})
+        return {"u": gather(t[0]), "utens_stage": gather(t[1])}
+    step = MiniDycore(ni, nj, nk, dtype=np.float64, backend="jax",
+                      aligned=False).step_fn(fill_halos=False)
+
+    def pad(x):
+        for ax, wrap in ((1, periodic[0]), (2, periodic[1])):
+            widths = [(0, 0)] * 3
+            widths[ax] = (h, h)
+            x = jnp.pad(x, widths, mode="wrap" if wrap else
+                        "edge" if boundary == "clamp" else "constant")
+        return x
+
+    def run(s):
+        out = step({k: pad(v) for k, v in s.items()})
+        return tuple(out[n][:, h:h + ni, h:h + nj] for n in ("u", "utens_stage"))
+
+    _, t = jax.jit(lambda s, ts: jax.jvp(run, (s,), (ts,)))(
+        {k: jnp.asarray(v) for k, v in state.items()}, {k: jnp.asarray(v) for k, v in tans.items()})
+    return {"u": np.asarray(t[0]), "utens_stage": np.asarray(t[1])}
+
+
+@pytest.mark.parametrize("name", sorted(GRAD_STEPS))
+def test_sharded_step_tangents_match_jax(ranks, jmesh, name):
+    """``torch.func.jvp`` of the sharded MiniDycore step (every case of
+    ``GRAD_STEPS``: periodic, open with zero and clamp edges, extended
+    state, the overlapped step, a bfloat16 wire, the derivative stencils
+    and the plain re-run), assembled from the ranks, equals ``jax.jvp`` of
+    the JAX package's single-device step (the wire's: of its sharded step
+    with the same wire); each exchange's tangents travelled as its values
+    did, and the kernels rule ran the tangent stencils alone."""
+    p = GRAD_STEPS[name]
+    if name == "wire":
+        want = jax_dycore_jvp(jmesh=jmesh)
+    else:
+        want = jax_dycore_jvp(p.get("periodic", (True, True)), p.get("boundary", "zero"))
+    got = result(ranks, f"jvp_{name}")
+    for n, ref in want.items():
+        assert float(np.abs(ref).max()) > 0, n
+        np.testing.assert_allclose(got["tangents"][n], ref, rtol=1e-12, atol=1e-12, err_msg=n)
+    rec = got["exchange"]
+    assert rec["tangent_bytes"] == rec["bytes"] > 0 and rec["tangent_fields"] == 5, rec
+    if p.get("options"):
+        assert got["counts"]["tangent_calls"] >= 1 and got["counts"]["plain_reruns"] == 0, got
+
+
+@pytest.mark.parametrize("api", ["grad", "vjp"])
+def test_sharded_step_func_gradients_match_jax(ranks, api):
+    """``torch.func.grad`` (the plain re-run) and ``torch.func.vjp`` (the
+    adjoint stencils) through the periodic sharded step equal ``jax.grad``
+    of the JAX package's single-device step."""
+    got = result(ranks, f"func_{api}")
+    for n, ref in jax_dycore_grad().items():
+        np.testing.assert_allclose(got["grads"][n], ref, rtol=1e-12, atol=1e-12, err_msg=n)
+    if api == "vjp":
+        assert got["counts"]["adjoint_calls"] >= 1 and got["counts"]["plain_reruns"] == 0, got
+
+
+@pytest.mark.parametrize("name", ["region", "region_plain", "hdiff"])
+def test_global_view_tangents_match_jax(ranks, name):
+    """Forward AD of a call on DistributedFields (the first exchange
+    carrying the tangents, then the tangent stencil in the region frame or
+    the plain executor on duals), gathered, equals ``jax.jvp`` of the JAX
+    package's single-device call."""
+    import jax
+    import jax.numpy as jnp
+
+    out, inputs, seed = _jax_global_call(name.split("_")[0])
+    rng = np.random.default_rng(seed + 200)
+    tans = {n: jnp.asarray(rng.random(v.shape)) for n, v in inputs.items()}
+    _, want = jax.jvp(out, (inputs,), (tans,))
+    want = np.asarray(want)
+    assert float(np.abs(want).max()) > 0
+    got = result(ranks, f"jvp_global_{name}")
+    np.testing.assert_allclose(got["tangent"], want, rtol=1e-12, atol=1e-12)
+    assert got["exchange"]["tangent_bytes"] == got["exchange"]["bytes"] > 0
+    if name != "region_plain":
+        assert (got["tangent_calls"], got["plain_reruns"]) == (1, 0), got
+
+
+@pytest.mark.parametrize("name", ["ring", "chain", "fuzz", "chain_cuda", "while"])
+def test_phased_call_tangents_match_jax(ranks, name):
+    """Forward AD of a phased call on four ranks, gathered, equals
+    ``jax.jvp`` of the JAX package's single-device call for every written
+    field.  With ``derivative="kernels"`` (the ring, the chain, and the
+    chain on the emulated kernels) the tangent stencil runs as a
+    global-view call of its own, phased as the call is, once and with no
+    plain re-run; the generated programs 11238 (absolute-K reads) and 11203
+    (a ``while`` iterated across the ranks, whose ``lax.while_loop`` has a
+    jvp) re-run their phases on the plain executor on duals, their
+    exchanges carrying the tangents."""
+    import jax
+    import jax.numpy as jnp
+
+    key = f"jvp_phased_{name}"
+    if key not in ranks:
+        pytest.skip("needs a host C++ compiler (g++) for the emulated kernels")
+    which = {"fuzz": 11238, "while": 11203}.get(name, name.split("_")[0])
+    run, inputs = _jax_phased_call(which)
+    rng = np.random.default_rng(200)
+    tans = {n: jnp.asarray(rng.random(v.shape)) for n, v in inputs.items()}
+    _, want = jax.jvp(run, (inputs,), (tans,))
+    got = result(ranks, key)
+    assert sorted(got["tangents"]) == sorted(want)
+    assert any(float(np.abs(np.asarray(v)).max()) > 0 for v in want.values())
+    for n, ref in want.items():
+        np.testing.assert_allclose(got["tangents"][n], np.asarray(ref), rtol=1e-12,
+                                   atol=1e-12, err_msg=n)
+    tan = got["record"]["tangent"]
+    assert got["record"]["phased"] and tan["phased"], got["record"]
+    if isinstance(which, int):
+        assert tan["plain"] and (got["tangent_calls"], got["plain_reruns"]) == (0, 1), got
+        if which == 11203:
+            assert tan["iterations"] == got["record"]["iterations"] != [], tan
+        return
+    assert (got["tangent_calls"], got["plain_reruns"]) == (1, 0), got
+    assert tan["stencil"] == f"{which}__tan" and tan["exchanges"] == tan["runs"], tan
+
+
+@pytest.mark.parametrize("opt", [None, "kernels"])
+def test_replicated_scalar_derivative_rule(ranks, opt):
+    """A tensor scalar of a call on DistributedFields is replicated: with a
+    call that runs from one exchange, every rank's gradient of the scalar
+    is ``jax.grad``'s, the ranks' partial gradients summed over the mesh
+    (as the phased calls' are, ``test_phased_lower_dim_gradients_match_jax``),
+    the field's gradient too; and the output's tangent, with the same
+    tangent of the scalar on every rank, is ``jax.jvp``'s."""
+    import jax
+    import jax.numpy as jnp
+
+    from gt4py_tpu.cartesian import gtscript as jg
+
+    shape = dist_cases.SCALED_SHAPE
+    rng = np.random.default_rng(5)
+    a, c, w, ta = (rng.random(shape) for _ in range(4))
+    fn = jg.stencil(backend="jax", definition=_jax_twin(SCALED, "scaled"), rebuild=True
+                    ).functional(origin=(1, 1, 0), domain=(shape[0] - 2, shape[1] - 2, shape[2]))
+
+    def out(x, s):
+        return fn(a=x, c=jnp.asarray(c), s=s)["c"]
+
+    ga, gs = jax.grad(lambda x, s: jnp.sum(out(x, s) * w), argnums=(0, 1))(jnp.asarray(a), 0.75)
+    _, tan = jax.jvp(out, (jnp.asarray(a), 0.75), (jnp.asarray(ta), 0.5))
+    got = result(ranks, f"scaled_{opt}")
+    np.testing.assert_allclose(got["grad_a"], np.asarray(ga), rtol=1e-12, atol=1e-12)
+    np.testing.assert_allclose(got["tangent"], np.asarray(tan), rtol=1e-12, atol=1e-12)
+    assert float(np.abs(np.asarray(tan)).max()) > 0 and float(gs) != 0
+    for _, res in ranks[f"scaled_{opt}"]:
+        np.testing.assert_allclose(res["grad_s"], float(gs), rtol=1e-12, atol=1e-12)
+
+
+#: ``dist_cases._scaled_stencil``'s definition, for the JAX package
+SCALED = """
+import numpy as np
+from gt4py_tpu.cartesian import gtscript
+from gt4py_tpu.cartesian.gtscript import PARALLEL, computation, interval
+
+F = gtscript.Field[np.float64]
+
+
+def scaled(a: F, c: F, s: float):
+    with computation(PARALLEL), interval(...):
+        c = s * (a[1, 0, 0] - a[-1, 0, 0]) + a * a[0, 1, 0] * s
+"""
