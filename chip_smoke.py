@@ -459,12 +459,34 @@ def _time_chain_ms(step, state, n):
 
 
 def _ptxas(st, build_dir=None) -> str:
-    """ptxas' registers and spill stores of a stencil's kernels (or of the
-    build in ``build_dir``)."""
+    """ptxas' registers, spill stores and stack frames of a stencil's
+    kernels (or of the build in ``build_dir``)."""
     log = open(os.path.join(build_dir or st.backend.build_dir, "build.log")).read()
     regs = [int(r) for r in re.findall(r"Used (\d+) registers", log)]
     spills = [int(s) for s in re.findall(r"(\d+) bytes spill stores", log)]
-    return f"registers {regs}, spill stores {spills}"
+    stacks = [int(s) for s in re.findall(r"(\d+) bytes stack frame", log)]
+    return f"registers {regs}, spill stores {spills}, stack frames {stacks}"
+
+
+def _ptxas_kernel(st, kernel) -> dict:
+    """ptxas' registers, stack frame and spill bytes of one kernel of a
+    stencil's build, found by its mangled name (``<length><name>E``)."""
+    log = open(os.path.join(st.backend.build_dir, "build.log")).read()
+    tag = f"{len(kernel)}{kernel}E"
+    out, cur = {}, ""
+    for line in log.splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties for) '?(\w+)", line)
+        if m:
+            cur = m.group(1)
+        elif tag in cur:
+            m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                          r"(\d+) bytes spill loads", line)
+            if m:
+                out.update(stack_frame=int(m[1]), spill_stores=int(m[2]), spill_loads=int(m[3]))
+            m = re.search(r"Used (\d+) registers", line)
+            if m:
+                out["registers"] = int(m[1])
+    return out
 
 
 def _stencil_calls(md, state, diffused):
@@ -2060,10 +2082,14 @@ def _repair_shapes(defs, dev) -> dict:
             st = pair["cuda"]
             plan = LAST_PLAN[st.name]
             # by default nothing is repaired: the vector row kernels run
-            # where the fields share a 16-byte phase, the scalar ones elsewhere
+            # where the fields share a 16-byte phase, the scalar ones
+            # elsewhere (the row-phase twins only with vector=True, phase
+            # 11 (d))
             vector = "rows" in plan["forms"] and layout == "kij" and \
                 np.dtype(dtype).itemsize not in REPAIR_NO_PHASE_KIJ.get(name, ())
-            if st.backend.launches != 1 or bool(plan.get("vector")) != vector or "repair" in plan:
+            phase = "common" if vector else None
+            if st.backend.launches != 1 or bool(plan.get("vector")) != vector or \
+                    plan.get("vector_phase") != phase or "repair" in plan:
                 raise AssertionError(f"phase 11 {st.name} {layout}: launches "
                                      f"{st.backend.launches}, plan {plan}")
             for k, v in got["torch"].items():
@@ -2073,10 +2099,10 @@ def _repair_shapes(defs, dev) -> dict:
                     raise AssertionError(f"phase 11 {st.name}.{k} {layout}: kernels and "
                                          "plain differ")
             out[f"{st.name} {layout}"] = {"forms": plan["forms"], "vector": plan.get("vector"),
-                                          "staging": plan.get("staging")}
+                                          "vector_phase": phase, "staging": plan.get("staging")}
             print(f"phase 11 {st.name} {layout} domain {domain}: forms {plan['forms']}, vector "
-                  f"{plan.get('vector')}, staging {plan.get('staging')}, no repair; bitwise "
-                  "equal to plain over the whole buffers")
+                  f"{plan.get('vector')} ({phase}), staging {plan.get('staging')}, no repair; "
+                  "bitwise equal to plain over the whole buffers")
     return out
 
 
@@ -2291,6 +2317,7 @@ def _phase11(p11, tight, dev, kernels) -> dict:
           f"alone {hd_ms['copies']} ms ({rplan['repair_bytes']} bytes: {copy_rate:.4e} B/s), "
           f"plain {hd_plain:.4f} ms; pads {rplan['repair']}")
     tiles = _tight_tiles(tight)
+    twins = _row_phase_twins(tight, kernels)
 
     # the vector and scalar row forms on aligned periodic calls (K1)
     forms = {}
@@ -2352,7 +2379,7 @@ def _phase11(p11, tight, dev, kernels) -> dict:
     return {"paths": paths, "md_tight_step_ms": md_steps, "fv_tight_step_ms": fv_steps,
             "hdiff_tight_ms": hd_ms, "forms": forms, "vector_no_slower": no_slower,
             "vector_default": cuda_backend.VECTOR_DEFAULT, "spectral": spec,
-            "tight_tiles": tiles, "copy_bytes_per_s": copy_rate}
+            "tight_tiles": tiles, "row_phase_twins": twins, "copy_bytes_per_s": copy_rate}
 
 
 def _phase11_models(dev) -> dict:
@@ -2834,8 +2861,9 @@ PARENT_ELEMENT_COPY_MS = {"hdiff": 0.2036, "fv_step": 1.0511, "sw_step": 0.2581}
 
 
 def _tight_builds() -> dict:
-    """``_tight_tiles``' stencils: name -> (default build, plain), and the
-    models (aligned, tight) whose states and origins they take."""
+    """``_tight_tiles``' stencils: name -> (default build, plain), the
+    models (aligned, tight) whose states and origins they take, and
+    ``_row_phase_twins``' builds (``twins``)."""
     import numpy as np
 
     from gt4py_tpu_torch.models import dycore, fv_advection
@@ -2852,7 +2880,8 @@ def _tight_builds() -> dict:
     factories = _p12_factories(layouts[True])
     return {"layouts": layouts, "factories": factories,
             "builds": {name: (factories[name][0](np.float32, "cuda"),
-                              factories[name][0](np.float32, "torch")) for name in TIGHT_TILES}}
+                              factories[name][0](np.float32, "torch")) for name in TIGHT_TILES},
+            "twins": _twin_builds(factories)}
 
 
 def _tight_tiles(tb) -> dict:
@@ -2916,6 +2945,261 @@ def _tight_tiles(tb) -> dict:
                   f"element copies (before row-phase staging; PERF.md, K6) "
                   f"{PARENT_ELEMENT_COPY_MS.get(name)} ms")
     return out
+
+
+#: phase 11 (d): the row stages that the row-phase twins run on the
+#: models' tight buffers, each stencil with the build options that give it
+#: row stages (sl_step's one stage by default, ``ONE_STAGE``; hdiff's three
+#: split) and run the twins there (``vector=True``, which alone builds
+#: them: by default the scalar row kernels run, ``ROW_PHASE_SLOWER``);
+#: beside each, on the same tight buffers, the scalar row kernels and the
+#: tile form, and with ``--k6-twins`` the repaired route (``repair=True``:
+#: the fields padded to one phase, the ``_v`` kernels on the copies)
+TWIN_STENCILS = {"sl_step": {"vector": True}, "hdiff": {"tiles": False, "vector": True}}
+TWIN_YARDSTICKS = {"scalar": {"vector": False}, "tile": {"tiles": True}}
+TWIN_REPAIRED = {"repair": True}
+
+
+def _twin_builds(factories) -> dict:
+    """``_row_phase_twins``' float32 stencils: name -> {"twin", "scalar",
+    "tile": build}."""
+    import numpy as np
+
+    out = {}
+    for name, opts in TWIN_STENCILS.items():
+        make = factories[name][0]
+        out[name] = {"twin": make(np.float32, "cuda", **opts),
+                     **{label: make(np.float32, "cuda", **{**opts, **o})
+                        for label, o in TWIN_YARDSTICKS.items()}}
+    return out
+
+
+def _stencil_device_ms(st, call, whole=False) -> tuple:
+    """Device ms a call of ``st``'s kernels (``torch.profiler``, the
+    profile held to the launches its library counts; ``whole``: of every
+    kernel the call ran, copies included) and by kernel: name -> (ms,
+    launches) a call; (None, {}) where the profiler showed no device time,
+    twice."""
+    for _ in range(2):  # once more where the profiler lost the device events
+        total, rows = _device_ms(call, counted=[
+            (st.name, lambda: st.backend.device_launches()["all"])])
+        if total is not None:
+            mine = {k: v for k, v in rows.items() if whole or st.name in k}
+            return sum(ms for ms, _ in mine.values()), mine
+    return None, {}
+
+
+def _forced_row_phase(fn):
+    """``fn`` with the fields' common 16-byte phase hidden from K6's
+    geometry (``repair.common_phase``), so that the row-phase twins run on
+    aligned buffers: the twins' cost apart from their realignment."""
+    from gt4py_tpu_torch.cartesian.backend import repair
+
+    def call(**kw):
+        keep = repair.common_phase
+        repair.common_phase = lambda cons: None
+        try:
+            return fn(**kw)
+        finally:
+            repair.common_phase = keep
+    return call
+
+
+def _row_phase_twins(tb, kernels, full=False) -> dict:
+    """Phase 11 (d), the row-phase twins' path: sl_step and hdiff built
+    ``tiles=False`` at 512x512x80 float32 on the models' tight buffers
+    (halo 3: rows of 518 floats, whose leads alternate), bounded and
+    periodic, and on the aligned ones (periodic, the vector kernels
+    ``_v``): each call bitwise against plain, its library's launches read
+    around it (every row stage once, a vector launch), ``LAST_PLAN``
+    naming the kernels that ran; then device ms (``torch.profiler``) of the
+    twins on tight buffers in turns with the aligned ``_v`` kernels and,
+    on the same tight buffers, the scalar row kernels (``vector=False``)
+    and the tile form, beside the bound and ptxas' registers, stack frame
+    and spills of each twin; a ``kernels`` entry per stencil.  ``full``
+    (``--k6-twins``) adds the repaired route on the tight buffers
+    (``TWIN_REPAIRED``: its copies and ``_v`` kernels, the call's whole
+    device time), the twins forced onto the aligned buffers
+    (``_forced_row_phase``) and a second turn of the twins."""
+    import numpy as np
+    import torch
+
+    from gt4py_tpu_torch.cartesian.backend.cuda_backend import LAST_PLAN, REPLACES
+
+    shape = (NI, NJ, NK)
+    out = {}
+    for name, builds in tb["twins"].items():
+        _, mkey, args = tb["factories"][name]
+        plain = tb["builds"][name][1]
+        st = builds["twin"]
+        rows = [k.name for k in st.backend.program.kernels if k.form == "rows"]
+        calls, launched, err, legs = {}, 0, 0.0, {}
+        for label, aligned, periodic in (("tight bounded", False, ()),
+                                         ("tight periodic", False, ("I", "J")),
+                                         ("aligned periodic", True, ("I", "J"))):
+            m = tb["layouts"][aligned][mkey]
+            kw = dict(origin=(m.oi, m.oj, 0), domain=shape, physical_layout=True,
+                      periodic=periodic)
+            a = args(m.init_state(seed=5) if mkey != "sw" else m.init_state(), torch.zeros_like)
+            ref = plain.functional(**kw)(**a)
+            runs = [("twin", st)] + ([(y, builds[y]) for y in TWIN_YARDSTICKS]
+                                     if label == "tight bounded" else [])
+            if full and label == "tight bounded":
+                make = tb["factories"][name][0]
+                runs.append(("repaired", make(np.float32, "cuda",
+                                              **{**TWIN_STENCILS[name], **TWIN_REPAIRED})))
+            if full and aligned:
+                runs.append(("forced", st))
+            for form, b in runs:
+                fn = b.functional(**kw)
+                if form == "forced":
+                    fn = _forced_row_phase(fn)
+                b.backend.build()  # the count belongs to the library, 0 before it loads
+                before = b.backend.device_launches()
+                got = fn(**a)
+                torch.cuda.synchronize()
+                now = b.backend.device_launches()
+                vec = sum(now["vector"]) - sum(before["vector"])
+                total = now["all"] - before["all"]
+                plan = LAST_PLAN[b.name]
+                for k, v in got.items():
+                    if not torch.equal(v, ref[k]):
+                        raise AssertionError(f"{name} {form} {label} {k}: kernels and plain "
+                                             "differ")
+                    err = max(err, _errors(v, ref[k])[0])
+                if form in ("twin", "forced"):
+                    common = aligned and form == "twin"
+                    if (vec, total) != (len(rows), len(rows)) or "repair" in plan or \
+                            plan.get("vector_phase") != ("common" if common else "row") or \
+                            plan["vector_rows"] != [k + ("_v" if common else "_vr") for k in rows]:
+                        raise AssertionError(f"{name} {label}: {vec} vector launches of "
+                                             f"{total} counted, plan {plan}")
+                    launched += 0 if aligned else vec
+                    legs[f"{form} {label}"] = {"buffers": list(m.field_shape()),
+                                               "launches": vec, "kernels": plan["vector_rows"]}
+                elif form == "repaired":
+                    if (vec, total) != (len(rows), len(rows)) or "repair" not in plan or \
+                            plan.get("vector_phase") != "common" or \
+                            plan["vector_rows"] != [k + "_v" for k in rows]:
+                        raise AssertionError(f"{name} repaired {label}: {vec} vector launches "
+                                             f"of {total} counted, plan {plan}")
+                    legs[f"{form} {label}"] = {"launches": vec, "kernels": plan["vector_rows"],
+                                               "repair": plan["repair"],
+                                               "repair_bytes": plan["repair_bytes"]}
+                elif vec or (plan["forms"] != ["tile"] if form == "tile" else
+                             plan["declined"].get("vector") != "vector=False"):
+                    raise AssertionError(f"{name} {form} {label}: {vec} vector launches, plan "
+                                         f"{plan}")
+                calls[f"{form} {label}"] = (b, lambda fn=fn, a=a: fn(**a))
+            if label == "tight bounded":
+                plain_ms = _time_ms(lambda: plain.functional(**kw)(**a), PLAIN_TIMING_REPS)
+                bound = _bound(st.analysis, shape)
+        # device time in turns: the twins, the yardsticks (the repaired
+        # route: the whole call, its copies too), the twins again
+        order = ["twin tight bounded", "twin aligned periodic", "scalar tight bounded",
+                 "tile tight bounded", "twin tight periodic"] + (
+            ["repaired tight bounded", "forced aligned periodic", "twin tight bounded"]
+            if full else [])
+        dev = {label: [] for label in calls}
+        per_kernel, repaired = {}, {}
+        for label in order:
+            b, call = calls[label]
+            ms, by = _stencil_device_ms(b, call, whole=label.startswith("repaired"))
+            dev[label].append(ms)
+            if label == "twin tight bounded" and ms is not None:
+                per_kernel = {k: [round(v, 6), n] for k, (v, n) in by.items()}
+            if label.startswith("repaired") and ms is not None:
+                repaired = {k: [round(v, 6), n] for k, (v, n) in by.items()}
+        ptxas = {k + suffix: _ptxas_kernel(st, k + suffix) for k in rows
+                 for suffix in ("_vr", "_v")}
+        best = {label: min((v for v in t if v is not None), default=None)
+                for label, t in dev.items()}
+        out[name] = {"legs": legs, "device_ms": dev, "per_kernel": per_kernel, "ptxas": ptxas,
+                     "plain_ms": plain_ms, **bound,
+                     **({"repaired_per_kernel": repaired} if full else {})}
+        print(f"K6 row-phase twins {name} {NI}x{NJ}x{NK} f32 ({', '.join(rows)}): bitwise "
+              f"equal to plain on tight buffers bounded and periodic and on aligned ones, "
+              f"{launched} twin launches counted; device ms a call (twins: "
+              f"{len(rows)} launches) in turns {dev}; per kernel {per_kernel}; bound "
+              f"{bound['bound_ms']:.4f} ms; plain {plain_ms:.4f} ms; ptxas {ptxas}")
+        kernels.append({
+            "name": f"K6 row-phase vector twins of {st.name} on tight halo-3 buffers: "
+                    + ", ".join(k + "_vr" for k in rows),
+            "route": "cuda",
+            "source": "gt4py_tpu_torch/cartesian/backend/cuda_backend.py "
+                      "(_emit_vector_rows_phased); gt4py_tpu_torch/csrc/stencil_runtime.cuh "
+                      "(gt::realign)",
+            "replaces": REPLACES["repair"],
+            "launches": launched,
+            "max_abs_err": err,
+            "ms": best["twin tight bounded"],
+            "plain_ms": plain_ms,
+            **bound,
+            "tight_periodic_device_ms": best["twin tight periodic"],
+            "aligned_v_device_ms": best["twin aligned periodic"],
+            "scalar_device_ms": best["scalar tight bounded"],
+            "tile_device_ms": best["tile tight bounded"],
+            **({"aligned_twin_device_ms": best["forced aligned periodic"],
+                "repaired_device_ms": best["repaired tight bounded"]} if full else {}),
+            "per_kernel_device_ms": per_kernel,
+            "ptxas": ptxas,
+        })
+    return out
+
+
+def k6_twins() -> int:
+    """``--k6-twins``: phase 11 (d) alone (``_row_phase_twins``)."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from gt4py_tpu_torch.next.compiled_program import build_all
+
+    smi = _nvidia_smi()
+    print(f"card: {smi}")
+    tb = _tight_builds()
+    build_all([st.backend for st, _ in tb["builds"].values()]
+              + [st.backend for b in tb["twins"].values() for st in b.values()])
+    kernels = []
+    result = _row_phase_twins(tb, kernels, full=True)
+    print(smi)
+    print(json.dumps({"twins": result, "kernels": kernels, "profile_losses": PROFILE_LOSSES,
+                      "card": smi}, default=str))
+    return 1 if PROFILE_LOSSES else 0
+
+
+def full_step() -> int:
+    """``--full-step``: the main path's FullDycore step at 512x512x80
+    float32 on aligned buffers, timed: CUDA events one step at a time
+    (median of ``TIMING_REPS``) and ``BACK_TO_BACK`` steps back to back,
+    and its device time by ``torch.profiler``; it also runs against an
+    older tree's package, with this script copied there."""
+    import numpy as np
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from gt4py_tpu_torch.models import full_dycore
+    from gt4py_tpu_torch.next.compiled_program import build_all
+
+    smi = _nvidia_smi()
+    fd = full_dycore.FullDycore(NI, NJ, NK, dtype=np.float32, backend="cuda", device="cuda")
+    build_all([st.backend for st in (fd.dyn.hdiff, fd.dyn.vadv_upd, fd.fv.fv_step, fd.sl)])
+    state = fd.init_state(seed=0)
+    step = fd.step_fn()
+    one = _time_ms(lambda: step(state), TIMING_REPS)
+    b2b = _time_chain_ms(step, state, BACK_TO_BACK)
+    total, rows = _device_ms(lambda: step(state))
+    res = {"one_call_ms": one, "b2b_ms": b2b, "device_ms": total,
+           "kernels": {k: [round(ms, 6), n] for k, (ms, n) in rows.items()}, "card": smi}
+    print(f"FullDycore {NI}x{NJ}x{NK} f32 aligned step: {one:.4f} ms one call at a time, "
+          f"{b2b:.4f} back to back, device {total} ({smi})")
+    print(json.dumps(res))
+    return 1 if PROFILE_LOSSES else 0
 
 
 def _sweep_builds() -> dict:
@@ -3614,7 +3898,9 @@ def main() -> int:
         [st.backend for st in main_stencils + list(surface_stencils.values()) + bf16_stencils
          + phase10_stencils + _phase11_stencils(p11) + _phase12_stencils(p12)
             + [st for label, st in sweep_sts.items() if label != "plain"]
-            + [st for st, _ in tight["builds"].values()] + _k3_stencils(k3_builds)]
+            + [st for st, _ in tight["builds"].values()]
+            + [st for b in tight["twins"].values() for st in b.values()]
+            + _k3_stencils(k3_builds)]
         + next_kernels + fuzz_builds["backends"] + [benes.KERNEL] + _dist_builds()
         + _derivative_builds(models) + _construct_backends(construct_builds))
     build_s = time.perf_counter() - t0
@@ -4987,6 +5273,8 @@ def k9_layouts() -> int:
 
 if __name__ == "__main__":
     sys.exit(k9_layouts() if sys.argv[1:] == ["--k9-layouts"] else
+             k6_twins() if sys.argv[1:] == ["--k6-twins"] else
+             full_step() if sys.argv[1:] == ["--full-step"] else
              fuzz_only() if sys.argv[1:] == ["--fuzz"] else
              dist_only() if sys.argv[1:] == ["--dist"] else
              examples_only() if sys.argv[1:] == ["--examples"] else

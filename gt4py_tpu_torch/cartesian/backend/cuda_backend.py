@@ -118,7 +118,15 @@ emitters turn each vertical loop into ``__global__`` kernels:
   partial groups, a window past what its readers need and a periodic J
   seam take elements one by one.  Its groups start on the fields' common
   16-byte phase, checked at every launch from the views' pointers and
-  strides; a call whose fields share none runs the scalar row kernels.
+  strides.  A call whose fields share none runs the scalar row kernels;
+  with ``vector=True``, where the fields are J-contiguous, the stage's
+  row-phase twin (``<stage>_vr``, ``_emit_vector_rows_phased``): one warp
+  a row, so each row's lead is one across the warp; each group on the
+  row phase of the stage's first output, each window loaded from its own
+  aligned-down word (one word more) and realigned in registers
+  (``gt::realign``).  Only a build with ``vector=True`` emits the twins:
+  they ran slower than the scalar row kernels on the H100 (PERF.md, K6),
+  so without it such a call runs the scalar kernels (``ROW_PHASE_SLOWER``).
   ``gt_run`` takes a flag per stage: geometry never rebuilds.
 - **Periodic wrap** (K1a; Pallas ``_plan_segments``/``_circular_ok``).
   Reads of read-only API fields on a periodic axis wrap by index arithmetic
@@ -205,7 +213,9 @@ loop, slots, shared bytes and CTAs per SM of the ring, promoted
 temporaries), the plane tile, where temporaries live, writers the
 plane-sweep form widened for ring reads (``widened``), the sweep kernels'
 tile, lead, ring and CTAs a SM (``sweep``), the 16-byte word width
-(``vector``), each 16-byte staged field's staging (``staging``:
+(``vector``), the vector row kernels' phase (``vector_phase``:
+``"common"``, or ``"row"`` for the twins) and the kernels that ran
+(``vector_rows``), each 16-byte staged field's staging (``staging``:
 ``"row_phase"`` or ``"element"``) and the repaired fields' pads
 (``repair``) of the last call, and why a form declined.
 """
@@ -418,9 +428,19 @@ BLOCK_J, BLOCK_I = 64, 4
 #: many loads in flight)
 VBLOCK_J, VBLOCK_I = 16, 16
 VSPLIT_K = 4
+#: the row-phase twins' blocks: a warp of 32 groups holds one row, so
+#: every row it reads has one lead across the warp
+VR_BLOCK_J, VR_BLOCK_I = 32, 8
 #: whether a row stage runs its vector kernel when the build leaves
 #: ``vector`` unset (chosen by measurement: PERF.md, K6)
 VECTOR_DEFAULT = True
+#: why a call whose fields share no 16-byte phase runs the scalar row
+#: kernels unless the build has ``vector=True``, which alone emits the
+#: row-phase twins: they ran slower than the scalar row kernels on the
+#: models' tight buffers (PERF.md, K6, ``chip_smoke.py`` phase 11 (d))
+ROW_PHASE_SLOWER = ("cuda backend: the fields share no 16-byte phase, and the row-phase "
+                    "twins ran slower than the scalar row kernels on the card (PERF.md, K6): "
+                    "vector=True runs the twins")
 #: data dimensions a field may have (``gt::kMaxDataDims``)
 MAX_DATA_DIMS = 4
 #: per-field record the wrapper passes: I, J, K strides, the data strides,
@@ -3151,6 +3171,22 @@ def _window_var(name: str, oi: int, ok: int) -> str:
     return f"w_{name}_i{num(oi)}_k{num(ok)}"
 
 
+def _vector_var(st: ir.Stencil, name: str) -> str:
+    return ("t_" if name in st.temp_decls else "f_") + name
+
+
+def _vector_index(em: _Emitter, name: str, oi: int, k: str) -> Tuple[str, str, bool]:
+    """A vector row kernel's row and level of ``name`` at I offset ``oi``
+    and level ``k``, and whether its J reads wrap on a periodic call."""
+    st = em.stencil
+    decl = st.decl(name)
+    wrap = name not in st.temp_decls and name not in em.written
+    e = em.analysis.extents.field_extent(name)
+    row = "0" if not decl.dimensions[0] else (
+        f"gt::wrap(i + {oi}, dI, pI)" if wrap and (e.i[0] or e.i[1]) else f"i + {oi}")
+    return row, (k if decl.dimensions[2] else "0"), wrap and bool(e.j[0] or e.j[1])
+
+
 def _emit_vector_rows(em: _Emitter, p: KernelPlan, params: List[str], bpp: int) -> List[str]:
     """The vector kernel of a row-form stage (``VectorPlan``): thread
     (g, i) computes the J points ``j0 .. j0 + V - 1``, ``j0 = vj0 + g V``;
@@ -3182,18 +3218,6 @@ def _emit_vector_rows(em: _Emitter, p: KernelPlan, params: List[str], bpp: int) 
         f"  const bool full = j0 >= {r.j[0]} && j0 + {V} <= dJ + {r.j[1]};",
     ]
 
-    def var(name):
-        return ("t_" if name in st.temp_decls else "f_") + name
-
-    def index(name, oi, k):
-        """Row and level of ``name`` at I offset ``oi`` and level ``k``."""
-        decl = st.decl(name)
-        wrap = name not in st.temp_decls and name not in em.written
-        e = em.analysis.extents.field_extent(name)
-        row = "0" if not decl.dimensions[0] else (
-            f"gt::wrap(i + {oi}, dI, pI)" if wrap and (e.i[0] or e.i[1]) else f"i + {oi}")
-        return row, (k if decl.dimensions[2] else "0"), wrap and bool(e.j[0] or e.j[1])
-
     out += _hoist_registers(em, [s for _, stmts in p.sections for s in stmts], set(p.writes),
                             None, "  ", lanes=V)
     em.vec = vp
@@ -3206,7 +3230,7 @@ def _emit_vector_rows(em: _Emitter, p: KernelPlan, params: List[str], bpp: int) 
             ct = _stype(st.decl(name).dtype)
             w = _window_var(name, oi, ok)
             need = vp.need[(name, oi, ok)]
-            row, lev, wrap_j = index(name, oi, f"k + {ok}")
+            row, lev, wrap_j = _vector_index(em, name, oi, f"k + {ok}")
             s0 = f"j0 + {wlo}"
             seam = f" && (!pJ || ({s0} >= 0 && {s0} + {n} <= dJ))" if wrap_j else ""
             jj = "gt::wrap(jj, dJ, pJ)" if wrap_j else "jj"
@@ -3214,7 +3238,7 @@ def _emit_vector_rows(em: _Emitter, p: KernelPlan, params: List[str], bpp: int) 
             out += [
                 f"    alignas(16) {ct} {w}[{n}];",
                 f"    if (i >= {need.i[0]} && i < dI + {need.i[1]}) {{",
-                f"      const {ct}* p_ = &{var(name)}.at({row}, {s0}, {lev});",
+                f"      const {ct}* p_ = &{_vector_var(st, name)}.at({row}, {s0}, {lev});",
                 f"      if (full && {s0} + {V} > {need.j[0]} && {s0} + {n - V} < dJ + {need.j[1]}"
                 f"{seam}) gt::vload<{ct}, {n}>({w}, p_);",
                 "      else {",
@@ -3233,10 +3257,10 @@ def _emit_vector_rows(em: _Emitter, p: KernelPlan, params: List[str], bpp: int) 
             if name not in vp.preload:
                 continue
             e = vp.preload[name]
-            row, lev, _ = index(name, 0, "k")
+            row, lev, _ = _vector_index(em, name, 0, "k")
             out += [
                 f"    if (i >= {e.i[0]} && i < dI + {e.i[1]}) {{",
-                f"      const {ct}* p_ = &{var(name)}.at({row}, j0, {lev});",
+                f"      const {ct}* p_ = &{_vector_var(st, name)}.at({row}, j0, {lev});",
                 f"      if (j0 >= {e.j[0]} && j0 + {V} <= dJ + {e.j[1]}) "
                 f"gt::vload<{ct}, {V}>(o_{name}, p_);",
                 "      else {",
@@ -3261,10 +3285,10 @@ def _emit_vector_rows(em: _Emitter, p: KernelPlan, params: List[str], bpp: int) 
         for name in vp.outputs:
             ct = _stype(st.decl(name).dtype)
             e = vp.stores[name]
-            row, lev, _ = index(name, 0, "k")
+            row, lev, _ = _vector_index(em, name, 0, "k")
             out += [
                 f"    if (i >= {e.i[0]} && i < dI + {e.i[1]}) {{",
-                f"      {ct}* p_ = &{var(name)}.at({row}, j0, {lev});",
+                f"      {ct}* p_ = &{_vector_var(st, name)}.at({row}, j0, {lev});",
                 f"      if (j0 >= {e.j[0]} && j0 + {V} <= dJ + {e.j[1]}) "
                 f"gt::vstore<{ct}, {V}>(p_, o_{name});",
                 "      else {",
@@ -3279,6 +3303,143 @@ def _emit_vector_rows(em: _Emitter, p: KernelPlan, params: List[str], bpp: int) 
         out.append("  }")
     em.vec = None
     em.hoisted = {}
+    return out + ["}"]
+
+
+def _emit_vector_rows_phased(em: _Emitter, p: KernelPlan, params: List[str]) -> List[str]:
+    """The row-phase twin ``<stage>_vr`` of a row stage's vector kernel
+    (``VectorPlan``; K6 at any row phase), which gt_run launches where the
+    fields are J-contiguous but share no 16-byte phase (built and
+    launched with ``vector=True`` only).  It computes what
+    ``_emit_vector_rows`` computes, with these differences.  At each level
+    a group's ``j0`` lies on the row phase of the ``anchor`` (the stage's
+    first output, else its first field), which it stores as whole words;
+    an output of another lead is stored element by element.  A warp holds
+    one (i, k) row (blocks of ``VR_BLOCK_J`` groups by ``VR_BLOCK_I``
+    rows), so the lead of every row it reads is the same across the warp.
+    A window whose lead ``s_`` is 0 loads as the vector kernel's do; one
+    whose lead is not loads one 16-byte word more, from the aligned-down
+    word of its first element, and ``gt::realign`` copies it into place (a
+    copy at compile-time indices for each lead, so both arrays stay in
+    registers); a word that would leave the field's storage
+    (``Field::holds``) sends the window to the element path, as partial
+    groups and a periodic J seam do.  (Every window loaded before any copy
+    lets the loads overlap, but holds more registers, and ran slower on
+    the H100: PERF.md, K6.)  K-invariant absolute reads are
+    loaded at each level, since ``j0`` may move with the level.
+    Every field the twin reaches has a J stride of 1 (gt_run launches it
+    on nothing else), so a row's J offset is added to its row pointer, not
+    multiplied by a stride: ``j0`` moves with the level, and a product
+    would be computed again at every level."""
+    vp = p.vector
+    V = vp.V
+    st = em.stencil
+    r = p.rect
+    ind = "      "
+    anchor = (vp.outputs or vp.fields)[0]
+    arow, alev, _ = _vector_index(em, anchor, 0, "k")
+    out = [
+        "",
+        f"// {p.name}_vr: {p.form} form, the vector kernel's row-phase twin: {V} consecutive J "
+        f"points a thread, the groups on the row phase of {anchor}; each window of "
+        f"{', '.join(vp.fields)} from its own aligned-down 16-byte word; rect I{r.i} J{r.j}",
+        f"__global__ void __launch_bounds__({VR_BLOCK_J * VR_BLOCK_I}) {p.name}_vr(",
+        "    " + ",\n    ".join(params + ["int vng"]) + ") {",
+        "  const int g_ = (int)(blockIdx.x * blockDim.x + threadIdx.x);",
+        f"  const int i = {r.i[0]} + (int)(blockIdx.y * blockDim.y + threadIdx.y);",
+        f"  if (g_ >= vng || i >= dI + {r.i[1]}) return;",
+    ]
+    em.vec = vp
+    for sid, stmts in p.sections:
+        out += [
+            f"  for (int k = kb.lo[{sid}] + (int)blockIdx.z; k < kb.hi[{sid}]; "
+            "k += (int)gridDim.z) {",
+            f"    const int j0 = {r.j[0]} - gt::lead16(&{_vector_var(st, anchor)}.at({arow}, 0, "
+            f"{alev}) + {r.j[0]}) + g_ * {V};",
+            f"    const bool full = j0 >= {r.j[0]} && j0 + {V} <= dJ + {r.j[1]};",
+        ]
+        out += _hoist_registers(em, stmts, set(p.writes), None, "    ", lanes=V)
+        for name, oi, ok in vp.reads[sid]:
+            wlo, n = vp.windows[(name, oi, ok)]
+            dt = np.dtype(st.decl(name).dtype)
+            ct = _stype(dt)
+            lanes = 16 // dt.itemsize
+            w = _window_var(name, oi, ok)
+            f = _vector_var(st, name)
+            need = vp.need[(name, oi, ok)]
+            row, lev, wrap_j = _vector_index(em, name, oi, f"k + {ok}")
+            s0 = f"j0 + {wlo}"
+            seam = f" && (!pJ || ({s0} >= 0 && {s0} + {n} <= dJ))" if wrap_j else ""
+            jj = "gt::wrap(jj, dJ, pJ)" if wrap_j else "jj"
+            out += [
+                f"    alignas(16) {ct} {w}[{n}];",
+                f"    if (i >= {need.i[0]} && i < dI + {need.i[1]}) {{",
+                f"      const {ct}* p_ = &{f}.at({row}, 0, {lev}) + ({s0});",
+                "      const int s_ = gt::lead16(p_);",
+                f"      const {ct}* a0_ = p_ - s_;",
+                f"      const bool in_ = {f}.holds(a0_, s_ ? {n // lanes + 1} : {n // lanes});",
+                f"      if (full && {s0} + {V} > {need.j[0]} && {s0} + {n - V} < dJ + {need.j[1]}"
+                f"{seam} && in_) {{",
+                f"        if (s_ == 0) gt::vload<{ct}, {n}>({w}, p_);",
+                "        else {",
+                f"          alignas(16) {ct} r_[{n + lanes}];",
+                f"          gt::vload<{ct}, {n + lanes}>(r_, a0_);",
+                f"          gt::realign<{ct}, {n}>({w}, r_, s_);",
+                "        }",
+                "      } else {",
+                "#pragma unroll",
+                f"        for (int x_ = 0; x_ < {n}; ++x_) {{",
+                f"          const int jj = {s0} + x_;",
+                f"          if (jj >= {need.j[0]} && jj < dJ + {need.j[1]}) "
+                f"{w}[x_] = p_[{jj} - ({s0})];",
+                "        }",
+                "      }",
+                "    }",
+            ]
+
+        def words(name, e, load):
+            """An output's V elements between its register array and its
+            row: whole words where its lead at ``j0`` is 0."""
+            ct = _stype(st.decl(name).dtype)
+            row, lev, _ = _vector_index(em, name, 0, "k")
+            cp = f"o_{name}[l_] = p_[l_]" if load else f"p_[l_] = o_{name}[l_]"
+            vec = f"gt::vload<{ct}, {V}>(o_{name}, p_)" if load else \
+                f"gt::vstore<{ct}, {V}>(p_, o_{name})"
+            return [
+                f"    if (i >= {e.i[0]} && i < dI + {e.i[1]}) {{",
+                f"      {'const ' if load else ''}{ct}* p_ = &{_vector_var(st, name)}.at("
+                f"{row}, 0, {lev}) + j0;",
+                f"      if (j0 >= {e.j[0]} && j0 + {V} <= dJ + {e.j[1]} && "
+                f"gt::lead16(p_) == 0) {vec};",
+                "      else {",
+                "#pragma unroll",
+                f"        for (int l_ = 0; l_ < {V}; ++l_) {{",
+                "          const int j = j0 + l_;",
+                f"          if (j >= {e.j[0]} && j < dJ + {e.j[1]}) {cp};",
+                "        }",
+                "      }",
+                "    }",
+            ]
+
+        for name in vp.outputs:
+            out.append(f"    alignas(16) {_stype(st.decl(name).dtype)} o_{name}[{V}];")
+            if name in vp.preload:
+                out += words(name, vp.preload[name], True)
+        out += [
+            "#pragma unroll",
+            f"    for (int l_ = 0; l_ < {V}; ++l_) {{",
+            "      const int j = j0 + l_;",
+            f"      if (j < {r.j[0]} || j >= dJ + {r.j[1]}) continue;",
+        ]
+        out += em.registers(stmts, ind)
+        for s in stmts:
+            out += em.guarded(s, p.rect, ind)
+        out.append("    }")
+        for name in vp.outputs:
+            out += words(name, vp.stores[name], False)
+        out.append("  }")
+        em.hoisted = {}
+    em.vec = None
     return out + ["}"]
 
 
@@ -4156,12 +4317,13 @@ def _snapshot_copies(p: KernelPlan, args: List[str], snapshots) -> List[str]:
 
 def _launch_lines(p: KernelPlan, index: int, args: List[str], nsec: int,
                   snapshots: Dict[str, Tuple[str, str, Extent]] = None,
-                  vk_base: int = 0) -> List[str]:
+                  vk_base: int = 0, row_phase: bool = False) -> List[str]:
     """gt_run's launch of one kernel (K4's variant when the kernel has a
     window and ``kmode`` is set; a plane-sweep kernel's snapshots are
     copied first).
     ``snapshots``: name -> (copy kernel, source variable, box extent);
-    ``vk_base``: a staged kernel's first window in ``vks``."""
+    ``vk_base``: a staged kernel's first window in ``vks``; ``row_phase``:
+    a row stage's vector kernel has its row-phase twin."""
     call = ", ".join(args)
     check = [f"      ++gt_launches_; ++gt_kernel_launches_[{index}];",
              "      const cudaError_t e = cudaGetLastError();",
@@ -4304,10 +4466,27 @@ def _launch_lines(p: KernelPlan, index: int, args: List[str], nsec: int,
     out = ["  {", f"    const int ni = {ni}, nj = {nj};"]
     if p.vector is not None:
         # vec[index] - 1: the phase of the J points that start 16-byte
-        # words; the first group starts at or before the rectangle
+        # words; the first group starts at or before the rectangle.
+        # vec[index] < 0: the row-phase twin, whose groups start on each
+        # row's phase, up to V - 1 points before the rectangle
         V = p.vector.V
         vcall = f"{call}, vj0, vng"
-        return out + [
+        twin = [
+            f"    if (vec[{index}] < 0) {{",
+            f"      const int vng = (nj + {2 * V - 2}) / {V};",
+            "      if (ni > 0 && nj > 0) {",
+            f"        const dim3 grid((vng + {VR_BLOCK_J - 1}) / {VR_BLOCK_J}, "
+            f"(ni + {VR_BLOCK_I - 1}) / {VR_BLOCK_I}, {VSPLIT_K}), "
+            f"block({VR_BLOCK_J}, {VR_BLOCK_I});",
+            f"        {p.name}_vr<<<grid, block, 0, st>>>({call}, vng);",
+            f"        ++gt_launches_; ++gt_kernel_launches_[{index}]; "
+            f"++gt_vec_launches_[{index}];",
+            "        const cudaError_t e = cudaGetLastError();",
+            "        if (e != cudaSuccess) return (int)e;",
+            "      }",
+            "    } else",
+        ] if row_phase else []
+        return out + twin + [
             f"    if (vec[{index}] > 0) {{",
             f"      const int ph = vec[{index}] - 1, lo = {p.rect.j[0]};",
             f"      const int vj0 = lo - (((lo - ph) % {V}) + {V}) % {V};",
@@ -4399,7 +4578,8 @@ def _occupancy_lines(plans: List[KernelPlan]) -> List[str]:
 def generate(analysis: StencilAnalysis, serialize: Optional[bool] = None,
              k_blocked: Optional[bool] = None, tiles: Optional[bool] = None,
              fuse_loops: Optional[bool] = None, sweep: Optional[bool] = None,
-             stage_vark: Optional[bool] = None, held: frozenset = frozenset()) -> CudaProgram:
+             stage_vark: Optional[bool] = None, held: frozenset = frozenset(),
+             row_phase: bool = False) -> CudaProgram:
     """Emit the CUDA C++ source of one stencil (deterministic).
     ``serialize``, ``k_blocked``, ``tiles``, ``fuse_loops``, ``sweep`` and
     ``stage_vark``: the build options (see ``plan_stencil``,
@@ -4409,7 +4589,9 @@ def generate(analysis: StencilAnalysis, serialize: Optional[bool] = None,
     statements.  ``held``: temporaries the caller allocates and passes
     with the fields (a phased call on DistributedFields holds them across
     its stencils): each stays in device memory, in no register or shared
-    plane only, so that the kernels read and leave their values there."""
+    plane only, so that the kernels read and leave their values there.
+    ``row_phase``: emit each vector row kernel's row-phase twin and its
+    launch (the build option ``vector=True``)."""
     _check_supported(analysis)
     split = passes.split_compound_statements(analysis)
     if split is not None:
@@ -4492,7 +4674,8 @@ def generate(analysis: StencilAnalysis, serialize: Optional[bool] = None,
         "// reads wrapped in the load address; a plane-sweep kernel is one CTA per",
         "// (I, J) tile sweeping K with its planes in shared memory; a row stage's",
         "// vector kernel (_v) computes V consecutive J points a thread with 16-byte",
-        "// loads and stores at each row's phase, launched where its fields are J-contiguous.",
+        "// loads and stores where its fields share a 16-byte phase; a vector=True",
+        "// build adds its row-phase twin (_vr) for J-contiguous fields that share none.",
         '#include "stencil_runtime.cuh"',
         "",
         "namespace {",
@@ -4530,6 +4713,8 @@ def generate(analysis: StencilAnalysis, serialize: Optional[bool] = None,
             out += _emit_plain_kernel(em, p, params, bpp[p.name])
         if p.vector is not None:
             out += _emit_vector_rows(em, p, params, bpp[p.name])
+            if row_phase:
+                out += _emit_vector_rows_phased(em, p, params)
         if p.window is not None:
             out += _emit_window_kernel(em, p, params)
     out += ["", "}  // namespace", ""]
@@ -4569,7 +4754,7 @@ def generate(analysis: StencilAnalysis, serialize: Optional[bool] = None,
             "  (void)kmode; (void)kbsz; (void)vec; (void)vks; (void)vko;"]
     vk_base = 0
     for n, p in enumerate(plans):
-        out += _launch_lines(p, n, args, nsec, snap, vk_base)
+        out += _launch_lines(p, n, args, nsec, snap, vk_base, row_phase)
         vk_base += len(p.vark.fields) if p.vark else 0
     out += ["  return 0;", "}", "",
             'extern "C" const char* gt_error_string(int e) '
@@ -4722,14 +4907,18 @@ class CudaBackend:
                                 sweep=options.get("sweep"),
                                 stage_vark=options.get("stage_vark"),
                                 held=frozenset(options.get("held", frozenset())) |
-                                frozenset(self.widened))
+                                frozenset(self.widened),
+                                row_phase=bool(options.get("vector")))
         LAST_PLAN[analysis.stencil.name] = self.program.plan_record()
         #: K6's launch options: ``vector`` (None: ``VECTOR_DEFAULT``, the
         #: vector row kernels wherever their fields share a 16-byte phase;
-        #: True runs them, repairing a call whose fields share none, or
-        #: raises; False never) and ``repair`` (None and False: never, as the
-        #: tile kernels' staging needs no phase; True on every non-periodic
-        #: call whose fields share no 16-byte phase, or raises)
+        #: True runs them and, where the fields share none and are
+        #: J-contiguous, their row-phase twins, which only this option
+        #: builds, repairing a call with a field that is not J-contiguous, or
+        #: raises; False never) and ``repair`` (None and False: never, as
+        #: the tile kernels' staging and the twins need no phase; True on
+        #: every non-periodic call whose fields share no 16-byte phase, or
+        #: raises)
         self.vector_opt = options.get("vector")
         self.repair_opt = options.get("repair")
         #: K8's option ``derivative``: None runs the derivative stencils
@@ -5022,14 +5211,20 @@ class CudaBackend:
         its own aligned-down word (``staging``: ``"row_phase"`` per field
         where J is contiguous, ``"element"`` where it is not).  ``phase``:
         the J phase of the vector row kernels' groups, the fields' common
-        16-byte phase (None: the scalar row kernels run); no call is
-        repaired by default.  ``pads``: the fields the repair copies, with
+        16-byte phase; where they share none but are all J-contiguous the
+        row-phase twins run with ``vector=True`` (``record["vector_phase"]``:
+        ``"common"``, on a repaired call the copies' phase, or ``"row"``),
+        and otherwise the scalar row kernels
+        (``declined["vector"]`` says why: ``ROW_PHASE_SLOWER``, or the
+        fields that are not J-contiguous); no call is repaired by
+        default.  ``pads``: the fields the repair copies, with
         ``repair=True`` (``repair.pads``: the JAX package's pass, forced) or
         where ``vector=True`` forces the vector row kernels on fields that
-        share no phase; ``copied_in`` those whose read window it copies in;
-        ``record``: the call's ``vector`` / ``staging`` / ``repair`` /
-        ``declined`` plan entries.  Raises where a forced ``vector=True`` or
-        ``repair=True`` cannot apply, as the JAX package does."""
+        are not J-contiguous; ``copied_in`` those whose read window it
+        copies in; ``record``: the call's ``vector_phase`` / ``staging`` /
+        ``repair`` / ``declined`` plan entries.  Raises where a forced
+        ``vector=True`` or ``repair=True`` cannot apply, as the JAX package
+        does."""
         prog = self.program
         an = self.analysis
         decls = an.stencil.field_decls
@@ -5055,12 +5250,25 @@ class CudaBackend:
             if self.repair_opt:
                 raise ValueError(f"stencil '{an.stencil.name}': repair=True, but the fields "
                                  "already share a 16-byte phase: no repair applies")
+            if want and rows:
+                record["vector_phase"] = "common"
             return (phase if want and rows else None), {}, set(), record
         why = "the fields share no 16-byte phase with 16-byte row and level pitches"
-        forced = self.repair_opt or (want and rows and self.vector_opt)
-        if not forced:
-            if want and rows:
+        if want and rows and not self.repair_opt:
+            # the row-phase twins read any J-contiguous row of whole items
+            flat = [n for n in rows if not _j_contiguous(env[n])
+                    or _field_arg(env[n], origins[n])[0] % env[n].element_size()]
+            if not flat:
+                if self.vector_opt:
+                    record["vector_phase"] = "row"
+                else:
+                    record["declined"]["vector"] = ROW_PHASE_SLOWER
+                return None, {}, set(), record
+            why = f"{', '.join(flat)} not J-contiguous: no 16-byte row loads"
+            if not self.vector_opt:
                 record["declined"]["vector"] = why + (" (a periodic call)" if periodic else "")
+                return None, {}, set(), record
+        elif not self.repair_opt:
             return None, {}, set(), record
         if periodic or self.repair_opt is False:
             raise ValueError(
@@ -5076,6 +5284,8 @@ class CudaBackend:
                                                    [n for n in self._written if n in pads])
         # the copies are (K, I, J) buffers: J-contiguous
         record["staging"] = {n: "row_phase" for n in record["staging"]}
+        if want and rows:
+            record["vector_phase"] = "common"  # the copies'
         return (phase if want and rows else None), pads, copied_in, record
 
     def plan_call(self, env, scalars, domain, origins, periodic=(), dry: bool = False,
@@ -5091,7 +5301,8 @@ class CudaBackend:
         kb = [(max(k0, lo), min(k1, hi))
               for k0, k1 in (itv.resolve(dK, scalars) for itv in prog.intervals)]
         phase, pads, copied_in, record = self._geometry(env, origins, (dI, dJ, dK), periodic, kb)
-        if phase is not None or "row_phase" in record["staging"].values():
+        row_phase = record.get("vector_phase") == "row"
+        if phase is not None or row_phase or "row_phase" in record["staging"].values():
             # the elements of the 16-byte words the call's kernels move
             record["vector"] = prog.vector_width(prog.vector_fields())
         kbs, plan, kbsz = self._depth_plan(dI * dJ, dK, dry=dry)
@@ -5121,8 +5332,9 @@ class CudaBackend:
             plan["forms"] = [k.form for n, k in enumerate(prog.kernels) if not k.k4_only and (
                 swept[k.swept_by] is False if k.swept_by is not None else swept.get(n, True))]
             plan["declined"] = {**plan["declined"], "sweep": SWEEP_UNORDERED}
-        return SimpleNamespace(plan=plan, kb=kb, phase=phase, pads=pads, copied_in=copied_in,
-                               record=record, kbs=kbs, kbsz=kbsz, vks=vks, swept=swept)
+        return SimpleNamespace(plan=plan, kb=kb, phase=phase, row_phase=row_phase, pads=pads,
+                               copied_in=copied_in, record=record, kbs=kbs, kbsz=kbsz, vks=vks,
+                               swept=swept)
 
     def _launch(self, env, scalars, domain, origins, periodic, frame=None, levels=None) -> None:
         prog = self.program
@@ -5207,31 +5419,40 @@ class CudaBackend:
             p, s = _field_arg(t, origin)
             ptrs.append(p)
             strides += s
-        if phase is not None:
-            # the repair's copies and the scratch buffers come from the
-            # allocator: their phase is checked as the caller's was
+        if phase is not None or call.row_phase:
+            # the repair's copies and the scratch and held buffers come from
+            # elsewhere: their phase (the twins: their J rows) is checked as
+            # the caller's was
             for name in prog.vector_row_fields():
                 if name in views or name in pads:
                     view, origin = views[name] if name in views else (env[name], origins[name])
+                    if call.row_phase:
+                        if not _j_contiguous(view) and view.shape[1] > 1:
+                            raise RuntimeError(f"stencil '{st.name}': '{name}' is not "
+                                               "J-contiguous, as the row-phase twins read it")
+                        continue
                     p, s = _field_arg(view, origin)
                     c = repair.constraint(p, s[:3], view.element_size())
                     if c is None or (c[0] + phase) % c[1]:
                         raise RuntimeError(f"stencil '{st.name}': '{name}' is not on the vector "
                                            f"kernels' 16-byte phase (J {phase})")
-        # per kernel: the vector row kernels' 16-byte phase + 1 (0: the
-        # scalar ones); a sweep kernel (1) or the kernels it replaces (0)
-        # a tile kernel whose staged rows all share one lead: its twin
+        # per kernel: the vector row kernels' 16-byte phase + 1 (-1: their
+        # row-phase twins, 0: the scalar ones); a sweep kernel (1) or the
+        # kernels it replaces (0); a tile kernel whose staged rows all share
+        # one lead: its twin
         si = {}
         for b, name in enumerate(prog.fields + prog.scratch + prog.snapshots):
             si.setdefault(name, strides[_REC * b])
         vec = [int(swept[n]) if n in swept else
                int(all(si[name] % lanes == 0 for name, _, _, _, lanes in k.tile.inputs if lanes))
                if k.tile is not None else
-               (phase + 1 if phase is not None and k.vector is not None else 0)
+               (0 if k.vector is None else phase + 1 if phase is not None else
+                -1 if call.row_phase else 0)
                for n, k in enumerate(prog.kernels)]
-        # the tile kernels whose twin runs, the row kernels in the vector form
+        # the tile kernels whose twin runs, the row kernels' vector kernels
         plan["twins"] = [k.name for n, k in enumerate(prog.kernels) if k.tile is not None and vec[n]]
-        plan["vector_rows"] = [k.name for n, k in enumerate(prog.kernels)
+        plan["vector_rows"] = [k.name + ("_vr" if vec[n] < 0 else "_v")
+                               for n, k in enumerate(prog.kernels)
                                if k.tile is None and n not in swept and vec[n]]
         outside = None
         if "vark" in plan:
@@ -5277,7 +5498,7 @@ class CudaBackend:
             self.repairs += 1
         for w in widened.values():
             w.write_back()
-        if phase is not None or "row_phase" in record["staging"].values():
+        if phase is not None or call.row_phase or "row_phase" in record["staging"].values():
             self.vector_launches += 1
         # scratch buffers go back to the caching allocator tied to the
         # stream, so reuse by later work on the same stream is ordered

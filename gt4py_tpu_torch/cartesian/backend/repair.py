@@ -9,11 +9,12 @@ Hopper's 16-byte copies need is an aligned source for each word, not one
 phase across fields.  The tile and sweep kernels' staged inputs
 (``cuda_backend._emit_staging``) start each row at the aligned-down word
 of its first element, whatever the row's phase, and keep the row's lead;
-the row form's vector kernels, which still want one phase across their
-fields, give way to the scalar row kernels on a call that has none.  So
-no call is repaired by default and nothing is left for a cost rule to
-decide.  ``repair=True`` still runs the pass, with the JAX package's
-refusals:
+the row form's vector kernels, which want one phase across their fields,
+give way on a call that has none to the scalar row kernels, or with
+``vector=True`` to their row-phase twins, which load each window from
+its own aligned-down word and realign it in registers.  So no call is
+repaired by default and nothing is left for a cost rule to decide.
+``repair=True`` still runs the pass, with the JAX package's refusals:
 
 - ``constraint`` reads a view's pointer and strides; ``common_phase``
   finds the J points that start words in every field (a call whose fields

@@ -53,6 +53,11 @@ struct Field {
     const unsigned char* b = reinterpret_cast<const unsigned char*>(w);
     return b >= s0 && b + 16 <= s1;
   }
+  // whether the `words` 16-byte words from `w` lie inside the storage
+  __device__ __forceinline__ bool holds(const void* w, int words) const {
+    const unsigned char* b = reinterpret_cast<const unsigned char*>(w);
+    return b >= s0 && b + 16 * words <= s1;
+  }
 };
 
 // A host build of the kernels checks every 16-byte read against the
@@ -102,6 +107,29 @@ __device__ __forceinline__ void vstore(T* dst, const T* src) {
 template <typename T>
 __device__ __forceinline__ int lead16(const T* p) {
   return (int)((reinterpret_cast<size_t>(p) & 15) / sizeof(T));
+}
+
+// The row-phase vector kernels' realignment (K6): dst[x] = src[x + s] for
+// x < N, where src holds N + 16 / sizeof(T) elements loaded as whole words
+// from the aligned-down word of dst's first element and s (1 to
+// 16 / sizeof(T) - 1) is that element's lead, the same across the warp
+// (the kernels take one warp a row).  Each value of s has its own copies
+// at compile-time indices, which keep both arrays in registers (a copy at
+// an index known only at run time would put them in local memory).
+template <typename T, int N, int S>
+__device__ __forceinline__ void shifted(T* dst, const T* src) {
+#pragma unroll
+  for (int x = 0; x < N; ++x) dst[x] = src[x + S];
+}
+template <typename T, int N, int S = 1>
+__device__ __forceinline__ void realign(T* dst, const T* src, int s) {
+  if constexpr (S < (int)(16 / sizeof(T))) {
+    if (s == S) {
+      shifted<T, N, S>(dst, src);
+      return;
+    }
+    realign<T, N, S + 1>(dst, src, s);
+  }
 }
 
 // Asynchronous copies from device memory into shared memory (sm_80+

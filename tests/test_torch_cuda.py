@@ -941,6 +941,50 @@ def test_k6_vector_and_repair_vs_plain(cuda_device, dtype):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("periodic", [(), ("I", "J")], ids=["bounded", "periodic"])
+@pytest.mark.parametrize("dtype", [np.float64, np.float32], ids=["f64", "f32"])
+def test_k6_row_phase_twins_vs_plain(cuda_device, dtype, periodic):
+    """K6: the vector row kernels' row-phase twins (``<stage>_vr``) on
+    halo-3 buffers whose J rows of 77 items are no whole number of 16-byte
+    words (their rows on two phases), built ``vector=True`` (by default the
+    scalar row kernels run there): sl_step's one row stage and hdiff's
+    three (``tiles=False``), each row stage launched once as a vector
+    kernel by its library's count, no copy, bit for bit against plain."""
+    from gt4py_tpu_torch.cartesian.backend import cuda_backend
+
+    rng = np.random.default_rng(7)
+    shape = (9, 20 + 2 * H, 71 + 2 * H)
+    kw = dict(origin=(H, H, 0), domain=(20, 71, 9), physical_layout=True, periodic=periodic)
+    q, u, v, c = (torch.from_numpy(rng.random(shape).astype(dtype)).to(cuda_device)
+                  for _ in range(4))
+    cases = {
+        "sl_step": (lambda b, **o: semi_lagrangian.make_sl_stencil(dtype, b, 1, **o),
+                    {"vector": True},
+                    dict(q=q, u=u - 0.5, v=v - 0.5, qout=torch.zeros_like(q), dtdx=0.7,
+                         dtdy=0.7)),
+        "hdiff": (lambda b, **o: dycore.make_hdiff(dtype, b, **o),
+                  {"tiles": False, "vector": True},
+                  dict(in_field=q, out_field=q, coeff=0.025 * c)),
+    }
+    for name, (make, options, args) in cases.items():
+        st = make("cuda", **options)
+        st.backend.build()
+        rows = [k.name for k in st.backend.program.kernels if k.form == "rows"]
+        before = st.backend.device_launches()
+        got = st.functional(**kw)(**args)
+        torch.cuda.synchronize()
+        now = st.backend.device_launches()
+        plan = cuda_backend.LAST_PLAN[st.name]
+        assert now["all"] - before["all"] == len(rows), plan
+        assert sum(now["vector"]) - sum(before["vector"]) == len(rows), plan
+        assert plan["vector_phase"] == "row" and "repair" not in plan, plan
+        assert plan["vector_rows"] == [k + "_vr" for k in rows], plan
+        ref = make("torch").functional(**kw)(**args)
+        for k, t in ref.items():
+            assert torch.equal(got[k], t), (name, k)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("aligned", [True, False], ids=["aligned", "tight"])
 def test_shallow_water_vs_plain(cuda_device, aligned):
     """ShallowWater's steps (periodic on aligned buffers, local on halo-2

@@ -126,10 +126,10 @@ CASES = {
 
 
 #: the item sizes at which a case's fields share no 16-byte phase in the
-#: (K, I, J) layout (its row stages then run the scalar kernels): outop's fy
-#: has rows of 257 items, no whole number of words; lapd's a and b start on
-#: different float32 phases (J 1 and 3) but on one float64 phase; while's
-#: rows of 130 float32 are 520 bytes
+#: (K, I, J) layout (the row-phase twins' calls): outop's
+#: fy has rows of 257 items, no whole number of words; lapd's a and b start
+#: on different float32 phases (J 1 and 3) but on one float64 phase;
+#: while's rows of 130 float32 are 520 bytes
 NO_PHASE_KIJ = {"outop": {4, 8}, "lapd": {4}, "while": {4}}
 
 
@@ -158,10 +158,23 @@ def _jax(defn, backend, arrays, origins, domain):
     return out, pb.LAST_PLAN.get(f"{defn.__name__}_{backend}")
 
 
+def _launched(st, run):
+    """``run()``'s kernel launches by form, as the stencil's library counts
+    them (``CudaBackend.launches_by_form``)."""
+    st.backend.build()
+    before = st.backend.device_launches()
+    out = run()
+    now = st.backend.device_launches()
+    delta = {k: [a - b for a, b in zip(now[k], before[k])] if isinstance(now[k], list)
+             else now[k] - before[k] for k in now}
+    return out, st.backend.launches_by_form(delta)
+
+
 def _port(defn, backend, arrays, origins, domain, layout, **options):
     """Run on the port: ``layout`` "ijk" hands the numpy arrays over as they
     are, "kij" as (K, I, J) buffers viewed as (I, J, K).  ``"cuda"`` builds
-    K6's vector row form (``tiles=False``, whatever a section's stages)."""
+    K6's vector row form (``tiles=False``, whatever a section's stages)
+    and returns the launches by form (``_launched``) too."""
     if backend == "cuda":
         options = {"tiles": False, **options}
     st = pgts.stencil(backend=backend, definition=to_port(defn), rebuild=True, **options)
@@ -170,8 +183,11 @@ def _port(defn, backend, arrays, origins, domain, layout, **options):
     else:
         ts = {k: torch.from_numpy(np.ascontiguousarray(v.transpose(2, 0, 1))).permute(1, 2, 0)
               for k, v in arrays.items()}
-    st(**ts, origin=dict(origins), domain=domain)
-    return st, {k: v.numpy() for k, v in ts.items()}
+    if backend != "cuda":
+        st(**ts, origin=dict(origins), domain=domain)
+        return st, {k: v.numpy() for k, v in ts.items()}
+    _, forms = _launched(st, lambda: st(**ts, origin=dict(origins), domain=domain))
+    return st, {k: v.numpy() for k, v in ts.items()}, forms
 
 
 @pytest.mark.parametrize("layout", ["ijk", "kij"])
@@ -179,12 +195,17 @@ def _port(defn, backend, arrays, origins, domain, layout, **options):
 def test_repair_shapes_vs_pallas_oracle_and_plain(emulated, monkeypatch, name, layout):  # noqa: F811
     """Each shape of test_geometry_repair.py by default -- no copy --
     float32 against the JAX package's repaired Pallas kernel and the port's
-    plain executor, float64 against the numpy oracle and plain.  The plan
-    shows the vector row form where the fields share a 16-byte phase
-    ((K, I, J) buffers, but for ``NO_PHASE_KIJ``), the scalar row form
-    elsewhere, and no repair; in the (I, J, K) layout ``repair=True`` still
-    copies every field (none shares a phase) and runs the vector form on
-    the copies, with the same result.  Every byte of the caller's buffers
+    plain executor, float64 against the numpy oracle and plain.  By
+    default the plan shows the vector row form on (K, I, J) buffers whose
+    fields share a 16-byte phase, the scalar row form elsewhere (where
+    they share none, ``NO_PHASE_KIJ``, because the row-phase twins ran
+    slower: ``ROW_PHASE_SLOWER``; on (I, J, K) arrays because J is not
+    contiguous), and no repair; on (K, I, J) buffers ``vector=True`` runs
+    the vector kernels or, where the fields share no phase, their
+    row-phase twins, every launch of a row stage a vector one by the
+    library's count; in the (I, J, K) layout ``repair=True`` still copies
+    every field (none shares a phase) and runs the vector form on the
+    copies, with the same result.  Every byte of the caller's buffers
     outside the write window keeps its value (plain's)."""
     defn, _, origins, domain, jax_repairs = CASES[name]
     monkeypatch.setattr(jconfig, "ASSUME_TPU_PLANNING", True)
@@ -201,15 +222,24 @@ def test_repair_shapes_vs_pallas_oracle_and_plain(emulated, monkeypatch, name, l
         ref = _jax(d, "numpy", arrays, origins, domain)[0] if dtype == np.float64 else pallas
         tol = dict(rtol=1e-12, atol=0) if dtype == np.float64 else dict(rtol=2e-6, atol=2e-7)
         size = np.dtype(dtype).itemsize
-        runs = [{}] + ([{"repair": True}] if not contiguous else [])
+        runs = [{}] + ([{"repair": True}] if not contiguous else [{"vector": True}])
         for options in runs:
-            st, got = _port(d, "cuda", arrays, origins, domain, layout, **options)
+            st, got, forms = _port(d, "cuda", arrays, origins, domain, layout, **options)
             plan = cuda_backend.LAST_PLAN[defn.__name__]
             phase = contiguous and size not in NO_PHASE_KIJ.get(name, ())
             vector = rows and (phase or bool(options))
             assert st.backend.launches == 1, plan
             assert plan.get("vector") == (16 // size if vector else None), plan
-            if options:
+            assert forms == {"vector" if vector else "rows" if rows else "column": 1}, plan
+            if vector and contiguous:
+                twin = "_v" if phase else "_vr"
+                assert plan["vector_phase"] == ("common" if phase else "row"), plan
+                assert plan["vector_rows"] == [k.name + twin
+                                               for k in st.backend.program.kernels], plan
+            elif rows and not options:
+                assert plan["declined"]["vector"] == cuda_backend.ROW_PHASE_SLOWER \
+                    if contiguous else "not J-contiguous" in plan["declined"]["vector"], plan
+            if "repair" in options:
                 assert set(plan["repair"]) == set(arrays) and st.backend.repairs == 1, plan
             else:
                 assert "repair" not in plan and "repair_bytes" not in plan, plan
@@ -225,22 +255,26 @@ def test_phase_shift_needs_no_copy(emulated):  # noqa: F811
     the origin at J element 2: the vector kernels' groups start on the
     common phase (j = 2 mod 4) and no field is copied; at halo 3 (518
     floats a row: the rows alternate between two phases) no field is
-    copied either, and the scalar row kernels run on the caller's
-    buffers."""
+    copied either: the scalar row kernels run on the caller's buffers, and
+    with ``vector=True`` the vector kernels' row-phase twins."""
     got = {}
-    for halo, backend in ((2, "cuda"), (2, "torch"), (3, "cuda"), (3, "torch")):
+    for halo, backend, options in ((2, "cuda", {}), (2, "torch", {}), (3, "cuda", {}),
+                                   (3, "cuda", {"vector": True}), (3, "torch", {})):
         shape = (4, 12 + 2 * halo, 512 + 2 * halo)
         a = torch.from_numpy(np.random.default_rng(halo).random(shape).astype(np.float32))
         st = pgts.stencil(backend=backend, definition=to_port(lapd), rebuild=True,
-                          **({"tiles": False} if backend == "cuda" else {}))
+                          **({"tiles": False, **options} if backend == "cuda" else {}))
         fn = st.functional(origin=(halo, halo, 0), domain=(12, 512, 4), physical_layout=True)
-        got[(halo, backend)] = fn(a=a, b=torch.zeros_like(a))["b"]
+        got[(halo, backend, bool(options))] = fn(a=a, b=torch.zeros_like(a))["b"]
         if backend == "cuda":
             plan = cuda_backend.LAST_PLAN["lapd"]
-            assert plan.get("vector") == (4 if halo == 2 else None), plan
+            vector = halo == 2 or bool(options)
+            assert plan.get("vector") == (4 if vector else None), plan
+            assert plan.get("vector_phase") == (None if not vector else "common" if halo == 2
+                                                else "row"), plan
             assert "repair" not in plan and st.backend.repairs == 0, plan
-    for halo in (2, 3):
-        assert torch.equal(got[(halo, "cuda")], got[(halo, "torch")])
+    for key, b in got.items():
+        assert torch.equal(b, got[(key[0], "torch", False)]), key
 
 
 def _tight_hdiff(halo, options):
@@ -287,9 +321,21 @@ def test_cost_rule_both_ways(emulated):  # noqa: F811
 def test_forced_options_raise_where_they_cannot_apply(emulated):  # noqa: F811
     """``vector=True`` on fields that are not J-contiguous, where no repair
     can fix them (a periodic call, or ``repair=False``), raises, and
-    repairs them where it can; ``repair=True`` on a periodic call or on
-    fields that already share a phase raises; nothing falls back to the
-    scalar form quietly."""
+    repairs them where it can; on J-contiguous fields that share no phase
+    (tight halo 3) it runs the row-phase twins on the caller's buffers,
+    bounded and periodic, and copies nothing; ``repair=True`` on a
+    periodic call or on fields that already share a phase raises; nothing
+    falls back to the scalar form quietly."""
+    st, u, c, kw = _tight_hdiff(3, {"tiles": False, "vector": True})
+    for periodic in ((), ("I", "J")):
+        ref = p_dycore.make_hdiff(np.float32, "torch").functional(**kw, periodic=periodic)(
+            in_field=u, out_field=u, coeff=c)["out_field"]
+        out, forms = _launched(st, lambda: st.functional(**kw, periodic=periodic)(
+            in_field=u, out_field=u, coeff=c)["out_field"])
+        plan = cuda_backend.LAST_PLAN[st.name]
+        assert forms == {"vector": 3} and plan["vector_phase"] == "row", (forms, plan)
+        assert "repair" not in plan and st.backend.repairs == 0, plan
+        assert torch.equal(out, ref)
     st, u, c, kw = _ijk_hdiff({"vector": True})
     with pytest.raises(ValueError, match="periodic call is not repaired"):
         st.functional(**kw, periodic=("I", "J"))(in_field=u, out_field=u, coeff=c)
@@ -333,25 +379,34 @@ def test_misaligned_vector_access_faults(emulated, monkeypatch):  # noqa: F811
     or leaves the fields' storages, as the card does; so the kernels' row
     leads, storage tests and phases are what keep each word aligned and in
     bounds.  On fields whose storages start one element into a word:
-    unpatched, the tile kernel and the vector row kernel equal plain; with
-    the staging's row lead dropped and its alignment test stripped, the
-    launch raises a misaligned address; with its storage test stripped,
-    the first rows' aligned-down words start before the storage and the
-    launch raises.  A vector row kernel launched on a phase its fields do
-    not share raises; a repair's copy off the phase is refused before the
-    launch."""
+    unpatched, the tile kernel and the vector row kernels' row-phase twins
+    equal plain; with the staging's row lead dropped and its alignment test
+    stripped, or the twins' window lead dropped, the launch raises a
+    misaligned address; with the staging's or the twins' storage test
+    stripped, the first rows' aligned-down words start before the storage
+    and the launch raises.  A vector row kernel launched on a phase its
+    fields do not share raises; a repair's copy off the phase is refused
+    before the launch."""
     build = _build.build
-    for options in ({}, {"tiles": False}):
+    twin = {"tiles": False, "vector": True}
+    for options in ({}, twin):
         run, ref = _offset_hdiff(options, lambda src: src, build, monkeypatch)
         assert torch.equal(run(), ref)
+    assert cuda_backend.LAST_PLAN["hdiff_float32"]["vector_phase"] == "row"
     faults = [
-        (lambda src: src.replace("gt::lead16(&", "0 * gt::lead16(&").replace(
+        ({}, lambda src: src.replace("gt::lead16(&", "0 * gt::lead16(&").replace(
             "(reinterpret_cast<size_t>(a_) & 15) == 0 && ", ""), "misaligned address"),
-        (lambda src: src.replace(".holds16(a_)", ".holds16(a_) || true"),
+        ({}, lambda src: src.replace(".holds16(a_)", ".holds16(a_) || true"),
+         "outside the fields' storage"),
+        (twin, lambda src: src.replace("const int s_ = gt::lead16(p_);",
+                                       "const int s_ = 0 * gt::lead16(p_);"), "misaligned address"),
+        (twin, lambda src: src.replace("const bool in_ = ", "const bool in_ = true || "),
          "outside the fields' storage"),
     ]
-    for patch, match in faults:
-        run, _ = _offset_hdiff({}, patch, build, monkeypatch)
+    for options, patch, match in faults:
+        src = p_dycore.make_hdiff(np.float32, "cuda", rebuild=True, **options).backend.source
+        assert patch(src) != src
+        run, _ = _offset_hdiff(options, patch, build, monkeypatch)
         with pytest.raises(RuntimeError, match=match):
             run()
     monkeypatch.setattr(_build, "build", build)
@@ -375,7 +430,7 @@ def test_misaligned_vector_access_faults(emulated, monkeypatch):  # noqa: F811
         return new, origins
 
     monkeypatch.setattr(repair, "pad_fields", off_by_one)
-    st, u, c, kw = _tight_hdiff(3, {"tiles": False, "vector": True})
+    st, u, c, kw = _ijk_hdiff({"vector": True})
     with pytest.raises(RuntimeError, match="not on the vector kernels' 16-byte phase"):
         st.functional(**kw)(in_field=u, out_field=u, coeff=c)
 
